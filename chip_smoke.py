@@ -1,0 +1,597 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, with one card visible::
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero without
+printing its final line:
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` (nvcc,
+   sm_90a), with the build time and ptxas's register report;
+3. kernels against their plain PyTorch versions at the serving path's shapes
+   (fused softmax+top-k; paged decode; paged prefill, with edge cases and the
+   64-token chunks after long cached prefixes; fp32 and bf16);
+4. serve: smollm-360m at full width in bf16 through ``Engine`` with the paged
+   continuous-batching scheduler; every request finishes, every token id is in
+   the vocabulary, and each kernel's launch count equals what the scheduler's
+   own counters imply;
+5. parity: three short requests at full width in fp32, once on the card
+   through the kernels and once on the CPU through the plain versions; token
+   streams and pool stats must be identical;
+6. times: each kernel, first held against its plain version on the very
+   inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
+   the serving path's shapes, beside its bound, its plain version and, where
+   one PyTorch call computes the same function, that call; then one
+   full-width decode step and one prefill chunk end to end, against the
+   device's busy time inside them (torch.profiler).
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
+            "bfloat16": 989e12}    # bf16 tensor cores, dense
+KERNELS = {
+    "softmax_topk": {
+        "source": "src/repro_torch/kernels/csrc/softmax_topk.cu",
+        "replaces": "src/repro/kernels/softmax_topk.py:100"},
+    "flash_decode_paged": {
+        "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:245"},
+    "flash_attention_paged": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_paged.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:432"},
+}
+# the serving run of phase 4 (the CLI's own flags)
+SERVE_ARGS = ["--continuous", "--paged", "--requests", "16", "--slots", "8",
+              "--prompt-len", "256", "--tokens", "64", "--block-size", "16",
+              "--prefill-chunk", "64", "--shared-prefix", "16"]
+PARITY_ARGS = ["--continuous", "--paged", "--requests", "3", "--slots", "3",
+               "--prompt-len", "40", "--tokens", "16", "--block-size", "16",
+               "--prefill-chunk", "32", "--shared-prefix", "16"]
+
+
+def _fail(msg: str) -> None:
+    raise AssertionError(msg)
+
+
+def _ms(fn, samples: int = 20, inner: int = 10, warmup: int = 3) -> float:
+    """Median over ``samples`` of the CUDA-event time of ``inner``
+    back-to-back calls, divided by ``inner``, after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / inner)
+    return statistics.median(out)
+
+
+# ---------------------------------------------------------------------------
+# 1-2: device and build
+# ---------------------------------------------------------------------------
+def phase_device() -> dict:
+    import torch
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    print(f"device: {name} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
+    print(f"nvidia-smi: {smi}")
+    return {"platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    built = build.build_all()
+    for name in build.SOURCES:
+        build.library(name)
+    print(f"build: {len(built)} of {len(build.SOURCES)} kernel libraries "
+          f"compiled in {time.perf_counter() - t0:.2f}s "
+          f"({build.build_dir()})")
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+def _paged_inputs(gen, *, dtype, bs, vlens, hkv=5, g=3, d=64, tq=1,
+                  share=True):
+    """Random pools [P, Hkv, BS, D] and tables for rows of valid lengths
+    ``vlens``.  Block 0 is the sentinel; block 1 is filled with NaN and every
+    dead table entry of the kernel's table points at it (the plain version's
+    table points dead entries at the sentinel), so a kernel that reads a dead
+    entry turns its output NaN.  Rows 0 and 1 share their first pages."""
+    import torch
+    b = len(vlens)
+    live = [max(1, -(-v // bs)) for v in vlens]
+    m = max(live) + 1
+    n_fresh = sum(live)
+    p = 2 + n_fresh
+    k_pool = torch.randn(p, hkv, bs, d, generator=gen)
+    v_pool = torch.randn(p, hkv, bs, d, generator=gen)
+    k_pool[1] = float("nan")
+    v_pool[1] = float("nan")
+    perm = (torch.randperm(n_fresh, generator=gen) + 2).tolist()
+    t_kernel = torch.ones((b, m), dtype=torch.int32)
+    t_plain = torch.zeros((b, m), dtype=torch.int32)
+    for row, n in enumerate(live):
+        for j in range(n):
+            t_kernel[row, j] = t_plain[row, j] = perm.pop()
+        if vlens[row] <= 1 and row == b - 1:       # an idle row: sentinel
+            t_kernel[row, 0] = t_plain[row, 0] = 0
+    if share and b > 1:
+        n_shared = min(live[0], live[1]) - 1
+        t_kernel[1, :n_shared] = t_kernel[0, :n_shared]
+        t_plain[1, :n_shared] = t_plain[0, :n_shared]
+    q = torch.randn(b, tq, hkv * g, d, generator=gen)
+    dev = dict(device="cuda", dtype=dtype)
+    return (q.to(**dev), k_pool.to(**dev), v_pool.to(**dev),
+            t_kernel.cuda(), t_plain.cuda(),
+            torch.tensor(vlens, dtype=torch.int32, device="cuda"))
+
+
+def _check_softmax_topk(gen) -> float:
+    import torch
+    from repro_torch.kernels import softmax_topk as st
+    x = torch.randn(8, 49152, generator=gen) * 4.0
+    top = float(x[1].max()) + 1.0
+    x[1, [30001, 200, 40000, 17]] = top                 # planted exact ties
+    x[2, 40000:] = float("-inf")                         # padded vocabulary
+    x[3, :] = x[3, 0]                                    # a constant row
+    x = x.cuda()
+    got = st.softmax_topk(x, 5)
+    torch.cuda.synchronize()
+    want = st.softmax_topk_plain(x, 5)
+    if not torch.equal(got.indices.long(), want.indices):
+        _fail(f"softmax_topk indices differ:\n{got.indices}\n{want.indices}")
+    if got.indices[1].tolist()[:4] != [17, 200, 30001, 40000]:
+        _fail(f"softmax_topk tie order {got.indices[1].tolist()}")
+    for a, b_, what in ((got.values, want.values, "values"),
+                        (got.logsumexp, want.logsumexp, "lse")):
+        if not torch.allclose(a, b_, rtol=1e-5, atol=0.0):
+            _fail(f"softmax_topk {what} beyond rtol 1e-5: max abs "
+                  f"{(a - b_).abs().max().item():.3g}")
+    err = max((got.values - want.values).abs().max().item(),
+              (got.logsumexp - want.logsumexp).abs().max().item())
+    # bf16 logits: same indices, values within bf16 rounding
+    xb = x.bfloat16()
+    gb, wb = st.softmax_topk(xb, 5), st.softmax_topk_plain(xb, 5)
+    torch.cuda.synchronize()
+    if not torch.equal(gb.indices.long(), wb.indices):
+        _fail("softmax_topk bf16 indices differ")
+    if not torch.allclose(gb.logsumexp, wb.logsumexp, rtol=1e-5, atol=0.0):
+        _fail("softmax_topk bf16 lse beyond rtol 1e-5")
+    print(f"kernel softmax_topk [8, 49152] k=5: indices equal (ties, -inf "
+          f"padding, constant row), fp32 max abs err {err:.3g} "
+          f"(rtol 1e-5); bf16 indices equal")
+    return err
+
+
+def _check_decode(gen) -> float:
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    worst = 0.0
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for bs in (8, 16):
+            vlens = [300, 177, 1, 64, 33, 250, 9, 1]     # ragged; idle last
+            q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=dtype, bs=bs,
+                                                  vlens=vlens)
+            got = fd.flash_decode_paged(q, kp, vp, tk, vl)
+            torch.cuda.synchronize()
+            want = fd.flash_decode_paged_plain(q, kp, vp, tp, vl)
+            if not torch.isfinite(got).all():
+                _fail(f"flash_decode_paged {dtype} BS={bs}: non-finite "
+                      "output (a dead table entry was read)")
+            err = (got.float() - want.float()).abs().max().item()
+            if err > atol:
+                _fail(f"flash_decode_paged {dtype} BS={bs}: max abs err "
+                      f"{err:.3g} > {atol}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            print(f"kernel flash_decode_paged {str(dtype)[6:]} BS={bs} B=8 "
+                  f"G=3 D=64: max abs err {err:.3g} (atol {atol})")
+    return worst
+
+
+def _prefill_err(q, kp, vp, qo, vl, tk, tp, what: str, atol: float):
+    """Kernel against plain on one prefill input; raises beyond ``atol`` or
+    when the -inf pattern of lse differs.  Returns (max abs error, the
+    kernel's lse)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    out, lse = fa.flash_attention_paged(q, kp, vp, qo, vl, tk)
+    torch.cuda.synchronize()
+    w_out, w_lse = fa.flash_attention_paged_plain(q, kp, vp, qo, vl, tp)
+    if not torch.isfinite(out).all():
+        _fail(f"flash_attention_paged {what}: non-finite output (a dead "
+              "table entry was read)")
+    if not torch.equal(torch.isneginf(lse), torch.isneginf(w_lse)):
+        _fail(f"flash_attention_paged {what}: lse -inf pattern differs")
+    fin = torch.isfinite(w_lse)
+    err = max((out.float() - w_out.float()).abs().max().item(),
+              (lse[fin] - w_lse[fin]).abs().max().item())
+    if err > atol:
+        _fail(f"flash_attention_paged {what}: max abs err {err:.3g} > {atol}")
+    return err, lse
+
+
+# (Tq, q_offset per row, vlen per row): edge cases (chunks crossing block
+# edges, a row with no valid key), then the serving run's 64-token chunks
+# after cached prefixes (phase 4 reaches q_offset ~200, vlen ~270)
+PREFILL_CASES = (
+    (37, [0, 5, 13, 0], [37, 42, 50, 0]),
+    (64, [64], [128]),
+    (64, [192], [256]),
+)
+
+
+def _check_prefill(gen) -> float:
+    import torch
+    worst = 0.0
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for bs in (8, 16):
+            for tq, qoff, vlens in PREFILL_CASES:
+                q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=dtype, bs=bs,
+                                                      vlens=vlens, tq=tq)
+                qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
+                what = (f"{str(dtype)[6:]} BS={bs} B={len(vlens)} Tq={tq} "
+                        f"q_offset={qoff} vlen={vlens}")
+                err, lse = _prefill_err(q, kp, vp, qo, vl, tk, tp, what,
+                                        atol)
+                if 0 in vlens:
+                    if not torch.isneginf(lse[vlens.index(0)]).all():
+                        _fail(f"flash_attention_paged {what}: lse of the "
+                              "keyless row is not -inf")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                print(f"kernel flash_attention_paged {what}: max abs err "
+                      f"{err:.3g} (atol {atol})")
+    return worst
+
+
+def phase_kernels() -> dict:
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    return {"softmax_topk": _check_softmax_topk(gen),
+            "flash_decode_paged": _check_decode(gen),
+            "flash_attention_paged": _check_prefill(gen)}
+
+
+# ---------------------------------------------------------------------------
+# 4: serve smollm-360m at full width through Engine (the main path)
+# ---------------------------------------------------------------------------
+def phase_serve() -> dict:
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    args = serve.parse_args(SERVE_ARGS)
+    cfg = serve.config_for(args)
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve: {cfg.name} {cfg.dtype}, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}; weights from "
+          f"seed 0 in {time.perf_counter() - t0:.1f}s")
+    dispatch.reset_launch_counts()
+    report, eng, requests, _ = serve.run(args, cfg, params)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    sched = eng.scheduler
+    by_rid = {r.rid: r for r in report.results}
+    if sorted(by_rid) != [r.rid for r in requests]:
+        _fail(f"serve: finished {sorted(by_rid)} of {len(requests)} requests")
+    for req in requests:
+        res = by_rid[req.rid]
+        if len(res.tokens) != req.max_new_tokens or res.evicted:
+            _fail(f"serve: request {req.rid} gave {len(res.tokens)} of "
+                  f"{req.max_new_tokens} tokens (evicted={res.evicted})")
+        if not all(0 <= t < cfg.vocab_size for t in res.tokens):
+            _fail(f"serve: request {req.rid} has a token id outside the "
+                  "vocabulary")
+    ones = sched.chunk_widths.get(1, 0)
+    wide = sched.prefill_chunks - ones
+    want = {"flash_decode_paged": (sched.decode_steps + ones) * cfg.num_layers,
+            "flash_attention_paged": wide * cfg.num_layers,
+            "softmax_topk": sched.decode_steps + sched.prefills_done}
+    for name, n in want.items():
+        if counts[name] != n or n == 0:
+            _fail(f"serve: {name} launched {counts[name]} times, the "
+                  f"scheduler's counters imply {n}")
+    print(f"serve launches: {counts} = scheduler counters (decode steps "
+          f"{sched.decode_steps}, prefill chunks {sched.prefill_chunks} of "
+          f"which {ones} one-token, prefills {sched.prefills_done}, "
+          f"{cfg.num_layers} layers)")
+    return counts, {"params": params, "cfg": cfg, "engine": eng}
+
+
+# ---------------------------------------------------------------------------
+# 5: fp32 parity at full width: kernels on the card vs plain on the CPU
+# ---------------------------------------------------------------------------
+def _first_decode_logits(params, cfg, prompt, *, device, block_size, chunk,
+                         token):
+    """Logits of one sequence's first decode step, through the engine's
+    paged primitives on ``device``."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+    m = -(-(len(prompt) + 1) // block_size)
+    pools = engine.init_paged_cache(cfg, m + 1, block_size, device)
+    table = torch.arange(1, m + 1, dtype=torch.int32, device=device)[None]
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=device)[None]
+    length, pos = 0, 0
+    for w in engine.prefill_schedule(len(prompt), chunk):
+        _, pools, length = engine.prefill_chunk_paged(
+            params, pools, table, length, toks[:, pos:pos + w], cfg)
+        pos += w
+    hidden, _ = transformer.forward(
+        params, torch.tensor([[token]], device=device), cfg, caches=pools,
+        cache_len=torch.tensor([length], device=device), block_tables=table)
+    return engine.logits_from_hidden(params, hidden[:, -1], cfg)
+
+
+def phase_parity() -> None:
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    base = serve.parse_args(PARITY_ARGS)
+    cfg = serve.config_for(base).replace(dtype="float32")
+    params_cpu = transformer.init(cfg, seed=1, device="cpu")
+    params_gpu = transformer.params_to(params_cpu, "cuda")
+    runs = {}
+    for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        args = serve.parse_args(PARITY_ARGS + ["--device", device])
+        t0 = time.perf_counter()
+        report, _, requests, _ = serve.run(args, cfg, params)
+        runs[device] = ({r.rid: r.tokens for r in report.results},
+                        report.paged)
+        print(f"parity {device}: {report.total_tokens} tokens in "
+              f"{time.perf_counter() - t0:.1f}s")
+    if runs["cuda"][0] != runs["cpu"][0]:
+        _fail(f"parity: token streams differ\ncuda {runs['cuda'][0]}\n"
+              f"cpu  {runs['cpu'][0]}")
+    if runs["cuda"][1] != runs["cpu"][1]:
+        _fail(f"parity: pool stats differ {runs['cuda'][1]} vs "
+              f"{runs['cpu'][1]}")
+    prompt = requests[0].prompt
+    token = runs["cpu"][0][requests[0].rid][0]
+    kw = dict(block_size=base.block_size, chunk=base.prefill_chunk,
+              token=token)
+    lg = _first_decode_logits(params_gpu, cfg, prompt, device="cuda", **kw)
+    lc = _first_decode_logits(params_cpu, cfg, prompt, device="cpu", **kw)
+    diff = (lg.cpu() - lc).abs().max().item()
+    print(f"parity: {len(requests)} requests, token streams identical "
+          f"({sum(len(t) for t in runs['cpu'][0].values())} tokens), pool "
+          f"stats equal; first decode step max |logit diff| {diff:.3g} "
+          f"(logit scale {lc.abs().max().item():.3g})")
+
+
+# ---------------------------------------------------------------------------
+# 6: times at the serving path's shapes
+# ---------------------------------------------------------------------------
+def _bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _host_ms(fn, samples: int = 10, warmup: int = 2) -> float:
+    """Median host time of ``fn`` ending in a device synchronize."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
+                       "decode_paged_kernel", "prefill_paged_kernel")
+
+
+def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
+    """Device time of ``fn`` per call from ``torch.profiler``: (all CUDA
+    kernels, the port's own kernels), in ms, averaged over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = ours = 0.0
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        total += evt.self_device_time_total
+        if any(sym in evt.key for sym in PORT_KERNEL_SYMBOLS):
+            ours += evt.self_device_time_total
+    if total <= 0.0:
+        _fail("profiler recorded no device time")
+    return total / reps / 1e3, ours / reps / 1e3
+
+
+def phase_steps(serve_ctx) -> None:
+    """Where a serving step's time goes: one full-width decode step over 8
+    busy slots and one 64-token prefill chunk, timed from the host's call to
+    the device's finish, against the device's busy time inside it (all
+    kernels, and the port's own, from torch.profiler)."""
+    import torch
+    from repro_torch.serving import engine
+    params, cfg, eng = (serve_ctx[k] for k in ("params", "cfg", "engine"))
+    pool = eng.scheduler.pool            # idle after the serve: reuse it
+    n, m = pool.num_slots, pool.max_blocks
+    tables = torch.arange(1, n * m + 1, dtype=torch.int32,
+                          device="cuda").reshape(n, m)
+    lens = torch.tensor([328, 289, 250, 211, 172, 133, 94, 65],
+                        device="cuda")[:n]
+    toks = torch.ones((n, 1), dtype=torch.int64, device="cuda")
+    noise = torch.zeros((n, 5), device="cuda")
+    chunk = torch.ones((1, 64), dtype=torch.int64, device="cuda")
+    steps = {
+        f"decode [B={n}, {cfg.num_layers} layers, bf16]":
+            lambda: engine.decode_step_paged(params, pool.caches, tables,
+                                             lens, toks, cfg, noise=noise,
+                                             top_k=5),
+        "prefill chunk [64 tokens at offset 64, bf16]":
+            lambda: engine.prefill_chunk_paged(params, pool.caches,
+                                               tables[:1], 64, chunk, cfg)}
+    for name, fn in steps.items():
+        wall = _host_ms(fn)
+        busy, ours = _device_ms(fn)
+        print(f"step {name}: {wall:.3f}ms host call to device finish; "
+              f"device busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
+              f"{100 - 100 * busy / wall:.1f}%), of which the port's "
+              f"kernels {ours:.3f}ms")
+
+
+def phase_times() -> dict:
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import softmax_topk as st
+    gen = torch.Generator().manual_seed(1)
+    rows = {}
+
+    # softmax_topk: the decode batch's fp32 logits [8, 49152], k = 5
+    x = (torch.randn(8, 49152, generator=gen) * 30.0).cuda()
+    got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
+    if not torch.equal(got.indices.long(), want.indices) or not \
+            torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0):
+        _fail("softmax_topk disagrees with its plain version on the timed "
+              "input")
+    args, _ = st.prepare(x, 5)
+    r, v, k = 8, 49152, 5
+    b_ms, b_by = _bound(r * v * 4 + r * k * 8 + r * 4, 4.0 * r * v,
+                        "float32")
+    rows["softmax_topk"] = {
+        "ms": _ms(lambda: st.launch(args)),
+        "wrapper_ms": _ms(lambda: st.softmax_topk(x, 5)),
+        "plain_ms": _ms(lambda: st.softmax_topk_plain(x, 5)),
+        "library_ms": _ms(lambda: torch.topk(torch.softmax(x, -1), 5)),
+        "library_call": "torch.topk(torch.softmax(x, -1), k) (two calls)",
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": "x [8, 49152] float32, k=5"}
+
+    # paged decode: 8 slots of the serving run's pool (BS=16, 21 blocks a
+    # row), bf16, ragged valid lengths across the run's range
+    vlens = [329, 290, 251, 212, 173, 134, 95, 66]
+    q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=torch.bfloat16, bs=16,
+                                          vlens=vlens, share=False)
+    err = (fd.flash_decode_paged(q, kp, vp, tk, vl).float()
+           - fd.flash_decode_paged_plain(q, kp, vp, tp, vl).float()).abs().max()
+    if not err <= 2e-2:
+        _fail(f"flash_decode_paged on the timed input: max abs err "
+              f"{err.item():.3g} > 2e-2")
+    hq, d, hkv, esz = 15, 64, 5, 2
+    nbytes = (2 * q.numel() * esz + sum(vlens) * hkv * d * esz * 2
+              + sum(-(-n // 16) for n in vlens) * 4 + len(vlens) * 4)
+    ops = 4.0 * hq * d * sum(vlens)
+    args, _ = fd.prepare(q, kp, vp, tk, vl)
+    b_ms, b_by = _bound(nbytes, ops, "bfloat16")
+    rows["flash_decode_paged"] = {
+        "ms": _ms(lambda: fd.launch(args)),
+        "wrapper_ms": _ms(lambda: fd.flash_decode_paged(q, kp, vp, tk, vl)),
+        "plain_ms": _ms(lambda: fd.flash_decode_paged_plain(q, kp, vp, tp, vl)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B=8 Hq=15 Hkv=5 D=64 BS=16 bf16 vlen {vlens}"}
+
+    # paged prefill: one 64-token chunk at offset 64 (the serving run's
+    # chunk width), bf16
+    tq, qoff, vlen = 64, 64, 128
+    q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=torch.bfloat16, bs=16,
+                                          vlens=[vlen], tq=tq, share=False)
+    qo = torch.tensor([qoff], dtype=torch.int32, device="cuda")
+    _prefill_err(q, kp, vp, qo, vl, tk, tp, "on the timed input", 2e-2)
+    pairs = sum(min(vlen, qoff + i + 1) for i in range(tq))
+    nbytes = (2 * q.numel() * esz + hq * tq * 4 + vlen * hkv * d * esz * 2
+              + (vlen // 16) * 4 + 8)
+    args, _ = fa.prepare(q, kp, vp, qo, vl, tk)
+    b_ms, b_by = _bound(nbytes, 4.0 * hq * d * pairs, "bfloat16")
+    rows["flash_attention_paged"] = {
+        "ms": _ms(lambda: fa.launch(args)),
+        "wrapper_ms": _ms(lambda: fa.flash_attention_paged(q, kp, vp, qo, vl,
+                                                           tk)),
+        "plain_ms": _ms(lambda: fa.flash_attention_paged_plain(q, kp, vp, qo,
+                                                               vl, tp)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "shape": "B=1 Tq=64 q_offset=64 vlen=128 Hq=15 Hkv=5 D=64 BS=16 bf16"}
+    for name, row in rows.items():
+        lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
+               else "none")
+        print(f"time {name} [{row['shape']}]: kernel {row['ms']:.4f}ms "
+              f"(wrapper call {row['wrapper_ms']:.4f}ms), bound "
+              f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
+              f"{row['plain_ms']:.4f}ms, library {lib}")
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    # fp32 means fp32: the parity phase compares against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = phase_device()
+    phase_build()
+    errs = phase_kernels()
+    serve_counts, serve_ctx = phase_serve()
+    phase_parity()
+    times = phase_times()
+    phase_steps(serve_ctx)
+    kernels = []
+    for name, meta in KERNELS.items():
+        row = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": serve_counts[name],
+            "max_abs_err": errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "wrapper_ms": row["wrapper_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

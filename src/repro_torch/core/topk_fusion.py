@@ -1,0 +1,60 @@
+"""Softmax + TopK (Algorithm 4 of the paper): the plain PyTorch form and the
+Gumbel-max pick that serving samples with.
+
+Port of ``src/repro/core/topk_fusion.py`` (``SoftmaxTopK`` at line 26,
+``softmax_topk`` at 33, ``gumbel_pick`` at 93).  This is the plain version
+behind the fused CUDA kernel ``kernels/csrc/softmax_topk.cu``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.online_softmax import online_normalizer
+
+Tensor = torch.Tensor
+
+
+class SoftmaxTopK(NamedTuple):
+    """Result of the fused computation (paper Eq. (5) applied to softmax(x))."""
+    values: Tensor      # top-k softmax probabilities, descending
+    indices: Tensor     # their indices in x (int64 here, int32 from the kernel)
+    logsumexp: Tensor   # m + log d — the paper's (m_V, d_V) in log form
+
+
+def topk_lowest_index(x: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """Top-k over the last axis with exact ties going to the lowest index,
+    as ``lax.top_k`` orders them (``torch.topk`` does not promise an order
+    among equal values).  A stable descending sort keeps equal values in
+    index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def softmax_topk(x: Tensor, k: int) -> SoftmaxTopK:
+    """Softmax+top-k over the last axis: (m, d) from one reduction, the top-k
+    from the logits, probabilities ``exp(u - m) / d`` for the k survivors."""
+    k = min(k, x.shape[-1])
+    m, d = online_normalizer(x, dim=-1)
+    vals, idx = topk_lowest_index(x, k)
+    probs = torch.exp(vals.to(m.dtype) - m[..., None]) / d[..., None]
+    return SoftmaxTopK(probs.to(x.dtype), idx, m + torch.log(d))
+
+
+def gumbel_pick(out: SoftmaxTopK, g: Tensor) -> Tensor:
+    """Sample ∝ p_i from the K retained probs via Gumbel-max on log p.
+
+    ``g`` is Gumbel noise shaped like ``out.values``; each row gets its own,
+    so a row's token depends only on its logits and its noise.  Ties in
+    ``argmax`` go to the first index, as ``jnp.argmax`` does."""
+    logp = torch.log(torch.clamp(out.values.float(), min=1e-30))
+    choice = torch.argmax(logp + g.to(logp.device, torch.float32), dim=-1)
+    return torch.gather(out.indices, -1, choice[..., None])[..., 0]
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> Tensor:
+    """Standard Gumbel draws: ``-log(E)`` with ``E ~ Exp(1)``, from an
+    explicit generator (on the generator's device)."""
+    e = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return -torch.log(e.exponential_(generator=generator))

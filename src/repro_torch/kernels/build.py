@@ -1,0 +1,129 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+Each ``kernels/csrc/<name>.cu`` compiles with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds).  The libraries go to ``build/repro_torch/<hash>/`` at the root of
+the checkout, keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused.  All sources build in parallel, one
+``nvcc`` each, at first use.  A missing ``nvcc`` or a failed build raises with
+nvcc's stderr; there is no fallback.
+
+Callers pass pointers as ``ctypes.c_void_p`` (``tensor.data_ptr()``) and the
+current stream as ``torch.cuda.current_stream().cuda_stream``; every C entry
+point returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("softmax_topk", "flash_decode_paged", "flash_attention_paged")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: nvcc's output (ptxas register / shared-memory / spill report) per source,
+#: from the builds this process ran.
+BUILD_LOG: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found on PATH or in /usr/local/cuda/bin: the CUDA "
+            "kernels of repro_torch need the CUDA toolkit to build")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / _digest()
+
+
+def lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}.so"
+
+
+def build_all(names=SOURCES) -> list[str]:
+    """Compile every source whose library is missing, all in parallel.
+    Returns the names that were built (empty when all were cached)."""
+    missing = [n for n in names if not lib_path(n).exists()]
+    if not missing:
+        return []
+    nvcc = nvcc_path()
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in missing:
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        BUILD_LOG[name] = stdout + stderr
+        if proc.returncode != 0:
+            failures.append(f"--- {name}.cu (exit {proc.returncode})\n{stderr}")
+            continue
+        os.replace(tmp, lib_path(name))
+    if failures:
+        raise RuntimeError("nvcc failed to build the CUDA kernels:\n"
+                           + "\n".join(failures))
+    return missing
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(lib_path(name)))
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib.repro_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def dtype_code(t) -> int:
+    name = str(t.dtype).replace("torch.", "")
+    if name not in DTYPE_CODES:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16 tensors, "
+                        f"not {t.dtype}")
+    return DTYPE_CODES[name]

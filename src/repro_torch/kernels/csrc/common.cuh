@@ -1,0 +1,46 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+//
+// Every kernel accumulates in fp32 and reads its inputs as float or bf16
+// (dtype code 0 = float32, 1 = bfloat16, as the Python wrappers pass it).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#define REPRO_NEG_INF (-CUDART_INF_F)
+
+enum : int { kDtypeF32 = 0, kDtypeBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// exp(m_old - m_new) with the -inf/-inf collision pinned to 1: the
+// reference's ``_rescale`` guard, so the (-inf, 0) identity of the paper's
+// ⊕ merges without producing NaN.
+__device__ __forceinline__ float rescale(float m_old, float m_new) {
+  return m_old == m_new ? 1.f : expf(m_old - m_new);
+}
+
+// (m, d) ⊕ (om, od): the paper's Eq. (4).
+__device__ __forceinline__ void md_combine(float& m, float& d, float om,
+                                           float od) {
+  const float mn = fmaxf(m, om);
+  d = d * rescale(m, mn) + od * rescale(om, mn);
+  m = mn;
+}
+
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

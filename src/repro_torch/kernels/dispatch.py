@@ -1,0 +1,96 @@
+"""Kernel dispatch of the port: the entries model and serving code call.
+
+Port of the paged routes of ``src/repro/kernels/dispatch.py`` (``sdpa`` and
+``_paged_sdpa`` at lines 696-731, ``softmax_topk`` at 778).  The reference
+chose Pallas by a config preference (``cfg.use_pallas``) and a capability
+probe; here the choice goes by the tensor's device alone:
+
+* ``cuda`` launches the hand-written kernel, or raises on what it does not
+  take — never the plain version;
+* ``cpu`` runs the kernel's plain PyTorch version;
+* any other device raises.
+
+The contiguous-cache attention routes (slot-pool serving, training) are
+later slices: on CUDA they raise ``NotImplementedError``; on the CPU the
+chunked online form serves them, as the reference's XLA path did.
+"""
+from __future__ import annotations
+
+from repro_torch import core
+from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import flash_decode as _flash_decode
+from repro_torch.kernels import softmax_topk as _softmax_topk
+
+_KERNEL_MODULES = {"softmax_topk": _softmax_topk,
+                   "flash_decode_paged": _flash_decode,
+                   "flash_attention_paged": _flash_attention}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
+    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNEL_MODULES.values():
+        mod.launches = 0
+
+
+def _require_cpu(t, op: str) -> None:
+    if t.device.type != "cpu":
+        raise NotImplementedError(f"{op}: no kernel or plain version for "
+                                  f"device {t.device}")
+
+
+def softmax_topk(x, k: int) -> "core.SoftmaxTopK":
+    """Fused softmax+top-k (paper Algorithm 4) over the last axis."""
+    if x.device.type == "cuda":
+        return _softmax_topk.softmax_topk(x, k)
+    _require_cpu(x, "softmax_topk")
+    return _softmax_topk.softmax_topk_plain(x, k)
+
+
+def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
+         decode: bool = False, block_tables=None):
+    """Attention — the single entry model layers call.
+
+    q [B, Tq, Hq, D].  With ``block_tables`` [B, M] set, k/v are block pools
+    [P, Hkv, BS, D] and the paged routes run (``decode`` picks the one-token
+    kernel); otherwise k/v are contiguous [B, Tk, Hkv, D].  ``q_offset`` is
+    the absolute position of query row 0 and ``kv_valid_len`` the valid
+    cache prefix per row; masking is in absolute coordinates.
+    """
+    if block_tables is not None:
+        return _paged_sdpa(cfg, q, k, v, causal=causal, q_offset=q_offset,
+                           kv_valid_len=kv_valid_len, scale=scale,
+                           decode=decode, block_tables=block_tables)
+    if q.device.type == "cuda":
+        raise NotImplementedError(
+            "contiguous-cache attention on CUDA is not ported yet: it comes "
+            "with the slot-pool serving and training slices (ROADMAP queue 1)")
+    _require_cpu(q, "sdpa")
+    return core.online_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_valid_len=kv_valid_len,
+                                 chunk_size=cfg.attn_chunk, scale=scale)
+
+
+def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,
+                decode, block_tables):
+    if scale is not None and scale != q.shape[-1] ** -0.5:
+        raise NotImplementedError(
+            "paged attention with a custom scale (MLA) is not ported yet")
+    if q.device.type == "cuda":
+        if decode:
+            return _flash_decode.flash_decode_paged(q, k, v, block_tables,
+                                                    kv_valid_len)
+        out, _ = _flash_attention.flash_attention_paged(
+            q, k, v, q_offset, kv_valid_len, block_tables, causal=causal)
+        return out
+    _require_cpu(q, "paged sdpa")
+    if decode:
+        return _flash_decode.flash_decode_paged_plain(
+            q, k, v, block_tables, kv_valid_len, chunk_size=cfg.attn_chunk)
+    out, _ = _flash_attention.flash_attention_paged_plain(
+        q, k, v, q_offset, kv_valid_len, block_tables, causal=causal,
+        chunk_size=cfg.attn_chunk)
+    return out

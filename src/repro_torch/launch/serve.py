@@ -1,0 +1,159 @@
+"""Serving launcher of the port: paged continuous batching.
+
+``python -m repro_torch.launch.serve --continuous --paged [--smoke]
+[--device cpu]`` serves Poisson-staggered synthetic requests (the
+reference's workload generator, same draws) through one ``Engine`` and
+prints the reference's report lines: throughput, p50/p95 per-token latency,
+decode steps and prefill chunks, occupancy against the drain-and-refill
+bound, and the block pool's accounting.  The model runs on the card unless
+``--device cpu`` asks for the CPU, where the kernels' plain versions serve.
+
+Port of ``src/repro/launch/serve.py`` (``_continuous`` at line 88, ``main``
+at 264); weights and sampling generators come from seed 0.  The lockstep
+baseline, the unpaged slot pool, ``--replicas > 1``, ``--priority-classes >
+1``, ``--trace``, ``--metrics`` and ``--kv-cache-dtype`` are not ported yet
+and say so.
+"""
+from __future__ import annotations
+
+import argparse
+
+import repro_torch.configs as configs
+from repro_torch.models import transformer
+from repro_torch.serving import scheduler as sched_mod
+from repro_torch.serving.engine_api import Engine
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="smollm_360m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the model and KV pool (default "
+                         "cuda; cpu runs the kernels' plain versions)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--top-k", type=int, default=5)
+    ap.add_argument("--max-len", type=int, default=0)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over Poisson arrivals")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode batch rows of the pool")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="synthetic requests to serve")
+    ap.add_argument("--rate", type=float, default=2.0,
+                    help="mean arrivals per scheduler tick")
+    ap.add_argument("--prefill-chunk", type=int, default=16,
+                    help="prompt tokens prefilled per tick")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: block pool + prefix sharing")
+    ap.add_argument("--block-size", type=int, default=8,
+                    help="KV block size in tokens")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="pool capacity in blocks (0 = every slot at full "
+                         "length)")
+    ap.add_argument("--shared-prefix", type=int, default=8,
+                    help="shared synthetic prompt prefix length")
+    # reference options whose slices are not ported yet: they say so
+    ap.add_argument("--priority-classes", type=int, default=1)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--trace", default="")
+    ap.add_argument("--metrics", action="store_true")
+    ap.add_argument("--kv-cache-dtype", default="")
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    args = build_parser().parse_args(argv)
+    not_ported = [
+        (not (args.continuous and args.paged),
+         "the lockstep baseline and the unpaged slot pool (serve with "
+         "--continuous --paged)"),
+        (args.replicas > 1, "--replicas > 1 (the replica router)"),
+        (args.priority_classes > 1,
+         "--priority-classes > 1 (SLO scheduling)"),
+        (bool(args.trace), "--trace"),
+        (args.metrics, "--metrics"),
+        (bool(args.kv_cache_dtype), "--kv-cache-dtype"),
+    ]
+    for cond, what in not_ported:
+        if cond:
+            raise SystemExit(f"repro_torch.launch.serve: {what} is not "
+                             "ported yet (see ROADMAP.md)")
+    return args
+
+
+def config_for(args):
+    return (configs.get_smoke(args.arch) if args.smoke
+            else configs.get(args.arch))
+
+
+def workload(args, cfg) -> tuple[list, int]:
+    """The reference CLI's synthetic requests and slot length."""
+    vocab = cfg.real_vocab_size or cfg.vocab_size
+    slot_len = args.max_len or (args.prompt_len + args.tokens + 8)
+    slot_len += -slot_len % args.block_size     # the paged geometry contract
+    requests = sched_mod.poisson_workload(
+        args.requests, rate_per_tick=args.rate,
+        prompt_lens=(max(2, args.prompt_len // 4), args.prompt_len),
+        decode_lens=(max(2, args.tokens // 8), args.tokens),
+        vocab=vocab, seed=1, shared_prefix=args.shared_prefix)
+    return requests, slot_len
+
+
+def run(args, cfg, params, *, noise_fn=None):
+    """Serve the CLI's workload through one ``Engine`` (sampling generators
+    from seed 0); print the report.  Returns (report, engine, requests,
+    slot_len)."""
+    requests, slot_len = workload(args, cfg)
+    eng = Engine(params, cfg, num_slots=args.slots, slot_len=slot_len,
+                 prefill_chunk=args.prefill_chunk, top_k=args.top_k,
+                 seed=0, paged=True, block_size=args.block_size,
+                 num_blocks=args.blocks or None, noise_fn=noise_fn,
+                 device=args.device)
+    report = eng.serve(requests)
+    print_report(args, report, slot_len)
+    return report, eng, requests, slot_len
+
+
+def print_report(args, report, slot_len: int) -> None:
+    pct = report.latency_percentiles((50, 95))
+    baseline = report.baseline_occupancy(args.slots)
+    print(f"paged continuous batching: {len(report.results)} requests over "
+          f"{args.slots} slots (slot_len={slot_len}, "
+          f"prefill_chunk={args.prefill_chunk})")
+    print(f"tokens: {report.total_tokens} in {report.wall_time:.2f}s "
+          f"→ {report.tokens_per_s:.1f} tok/s")
+    print(f"per-token latency: p50={pct['p50']*1e3:.1f}ms "
+          f"p95={pct['p95']*1e3:.1f}ms")
+    print(f"decode steps: {report.decode_steps}  "
+          f"prefill chunks: {report.prefill_chunks}")
+    print(f"batch occupancy: {report.occupancy:.3f} "
+          f"(drain-and-refill baseline: {baseline:.3f})")
+    p = report.paged
+    print(f"block pool: {p['num_blocks']}×{p['block_size']} blocks, "
+          f"free now {p['free_blocks']}, min free {p['min_free_blocks']}")
+    print(f"blocks saved by sharing: {p['blocks_shared']} "
+          f"(prefill tokens reused: {p['tokens_reused']}, "
+          f"copy-on-write copies: {p['cow_copies']})")
+    print(f"prefix cache: {p['cached_blocks']} blocks resident, "
+          f"{p['prefix_cache_hits']} hits, "
+          f"{p['reclaimed_blocks']} reclaimed under pressure")
+    evicted = [r.rid for r in report.results if r.evicted]
+    if evicted:
+        print(f"evicted at capacity: {evicted}")
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    cfg = config_for(args)
+    params = transformer.init(cfg, seed=0, device=args.device)
+    report, _, _, _ = run(args, cfg, params)
+    if report.occupancy <= report.baseline_occupancy(args.slots):
+        print("WARNING: occupancy did not beat the drain-and-refill baseline")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,122 @@
+"""Dense model layers of the port: norms, rotary embedding, GQA attention over
+a paged KV pool, the SwiGLU MLP, embedding and LM head.
+
+Port of the dense parts of ``src/repro/models/layers.py``: ``rms_norm`` (line
+90), ``rope`` (109), ``paged_cache_write`` (163), the paged non-quantized
+branch of ``attention_apply`` (306-313), ``mlp_apply`` (459),
+``embed_tokens`` (555) and ``head_matrix`` (559).  Parameters are plain
+dicts of tensors.  The contiguous-cache, int8, MLA and MoE branches come
+with later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import dispatch
+
+Tensor = torch.Tensor
+
+
+def rms_norm(scale: Tensor, x: Tensor, eps: float) -> Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """Rotary embedding. x [..., T, H, D_rot]; positions [..., T] or [T]."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    angles = positions[..., :, None].float() * freqs            # [.., T, D/2]
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def paged_cache_write(pool: Tensor, new: Tensor, cache_len: Union[int, Tensor],
+                      block_tables: Tensor) -> Tensor:
+    """Write ``new`` [B, t, Hkv, D] into the block pool [P, Hkv, BS, D]
+    through the block table [B, M], in place, and return the pool.
+
+    Row b's position ``cache_len[b] + i`` lands in physical block
+    ``block_tables[b, pos // BS]`` at offset ``pos % BS``.  The JAX code
+    rebuilt the pool functionally (``pool.at[...].set``); here one
+    ``index_put_`` scatters into it.  Distinct rows never write the same
+    (block, offset), except idle rows, which all land in the sentinel
+    block 0 that the allocator never hands out."""
+    b, t = new.shape[:2]
+    bs = pool.shape[2]
+    ln = torch.as_tensor(cache_len, dtype=torch.int64,
+                         device=pool.device).expand(b)
+    pos = ln[:, None] + torch.arange(t, device=pool.device)          # [B, t]
+    bids = torch.gather(block_tables.to(pool.device, torch.int64), 1,
+                        pos // bs).reshape(-1)
+    offs = (pos % bs).reshape(-1)
+    heads = torch.arange(pool.shape[1], device=pool.device)
+    flat = new.to(pool.dtype).reshape((b * t,) + tuple(new.shape[2:]))
+    pool.index_put_((bids[:, None], heads[None, :], offs[:, None]), flat)
+    return pool
+
+
+def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
+                    positions: Tensor, cache: Optional[dict] = None,
+                    cache_len: Optional[Union[int, Tensor]] = None,
+                    block_tables: Optional[Tensor] = None):
+    """x [B, T, D] → (out [B, T, D], cache).
+
+    * ``cache=None``: causal self-attention over this call's K/V (CPU only
+      in this slice; see ``dispatch.sdpa``).
+    * paged serving: ``cache`` holds this layer's block pools
+      ``{"k", "v": [P, Hkv, BS, D]}`` shared by every sequence; this step's
+      K/V are written through ``block_tables`` at ``cache_len`` (in place)
+      and attention reads the pages through the same table.  A one-token
+      step (decode, or a one-token prefill tail) takes the decode kernel.
+    """
+    b, t, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, t, hq, hd)
+    k = (x @ p["wk"]).reshape(b, t, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, t, hkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cache is not None and block_tables is not None:
+        k_pool = paged_cache_write(cache["k"], k, cache_len, block_tables)
+        v_pool = paged_cache_write(cache["v"], v, cache_len, block_tables)
+        valid = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=x.device).expand(b) + t
+        out = dispatch.sdpa(cfg, q, k_pool, v_pool, causal=t > 1,
+                            q_offset=cache_len, kv_valid_len=valid,
+                            decode=(t == 1), block_tables=block_tables)
+    elif cache is not None:
+        raise NotImplementedError(
+            "contiguous KV caches are not ported yet: they come with the "
+            "slot-pool serving slice (ROADMAP queue 1)")
+    else:
+        out = dispatch.sdpa(cfg, q, k, v, causal=True, q_offset=0,
+                            kv_valid_len=None)
+    out = out.reshape(b, t, hq * hd) @ p["wo"]
+    return out, cache
+
+
+def mlp_apply(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    up = x @ p["w_up"]
+    if cfg.act == "silu":
+        h = F.silu(x @ p["w_gate"]) * up
+    else:
+        h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    return h @ p["w_down"]
+
+
+def embed_tokens(p: dict, tokens: Tensor) -> Tensor:
+    return p["embed"][tokens]
+
+
+def head_matrix(p: dict, cfg: ModelConfig) -> Tensor:
+    return p["embed"].T if cfg.tie_embeddings else p["head"]

@@ -30,6 +30,12 @@ if "REPRO_AUTOTUNE_CACHE" not in os.environ:
         tempfile.gettempdir(), f"repro_autotune_test_{os.getpid()}.json")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc for the port's "
+        "kernels); skipped where torch.cuda.is_available() is false")
+
+
 def pytest_report_header(config):
     try:
         from repro import compat

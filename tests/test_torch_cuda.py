@@ -1,0 +1,118 @@
+"""The port's CUDA kernels on the card (marked ``cuda``; skipped where
+``torch.cuda.is_available()`` is false).  Run them on a card with::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel against its plain version at small shapes (fp32 tightly, bf16
+within bf16 rounding), and a small model served on the card through the
+kernels against the same model served on the CPU through the plain
+versions.  No JAX is needed.  ``chip_smoke.py`` does the same at full width.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.kernels import dispatch
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import softmax_topk as st
+from repro_torch.launch import serve
+from repro_torch.models import transformer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc) to build and launch the "
+                    "port's CUDA kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _paged(seed, *, vlens, tq, bs=16, hkv=5, g=3, d=64):
+    gen = torch.Generator().manual_seed(seed)
+    live = [max(1, -(-v // bs)) for v in vlens]
+    p = 1 + sum(live)
+    k_pool = torch.randn(p, hkv, bs, d, generator=gen)
+    v_pool = torch.randn(p, hkv, bs, d, generator=gen)
+    ids = (torch.randperm(p - 1, generator=gen) + 1).tolist()
+    tables = torch.zeros((len(vlens), max(live) + 1), dtype=torch.int32)
+    for row, n in enumerate(live):
+        for j in range(n):
+            tables[row, j] = ids.pop()
+    q = torch.randn(len(vlens), tq, hkv * g, d, generator=gen)
+    return q, k_pool, v_pool, tables, torch.tensor(vlens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_kernels_match_plain(cuda, dtype, atol):
+    dispatch.reset_launch_counts()
+    q, kp, vp, tables, vlen = _paged(0, vlens=[70, 33, 1], tq=1)
+    dev = dict(device=cuda, dtype=dtype)
+    args = (q.to(**dev), kp.to(**dev), vp.to(**dev), tables.to(cuda),
+            vlen.to(cuda))
+    got = fd.flash_decode_paged(*args)
+    want = fd.flash_decode_paged_plain(*args)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+    q, kp, vp, tables, vlen = _paged(1, vlens=[40, 23, 0], tq=21)
+    qoff = (vlen - 21).clamp(min=0)
+    args = (q.to(**dev), kp.to(**dev), vp.to(**dev), qoff.to(cuda),
+            vlen.to(cuda), tables.to(cuda))
+    out, lse = fa.flash_attention_paged(*args)
+    w_out, w_lse = fa.flash_attention_paged_plain(*args)
+    assert (out.float() - w_out.float()).abs().max().item() <= atol
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+    assert torch.isneginf(lse[2]).all()                  # no valid key
+    fin = torch.isfinite(w_lse)
+    assert (lse[fin] - w_lse[fin]).abs().max().item() <= max(atol, 1e-4)
+
+    x = torch.randn(4, 5000, generator=torch.Generator().manual_seed(2))
+    x[0, [9, 4000, 77]] = x[0].max() + 1.0               # exact ties
+    x = x.to(**dev)
+    a, b = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
+    assert torch.equal(a.indices.long(), b.indices)
+    assert a.indices[0, :3].tolist() == [9, 77, 4000]
+    torch.testing.assert_close(a.logsumexp, b.logsumexp, rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts() == {"softmax_topk": 1,
+                                        "flash_decode_paged": 1,
+                                        "flash_attention_paged": 1}
+
+
+def test_served_streams_equal_on_card_and_cpu(cuda):
+    """A small model with head_dim 64 (the kernels' width) served through
+    ``Engine`` on the card and on the CPU: identical token streams and pool
+    accounting, and every kernel launch the scheduler's counters imply."""
+    cfg = configs.get_smoke("smollm_360m").replace(
+        num_heads=6, num_kv_heads=2, head_dim=64)
+    params_cpu = transformer.init(cfg, seed=4, device="cpu")
+    argv = ["--smoke", "--continuous", "--paged", "--requests", "5",
+            "--tokens", "8", "--prompt-len", "20", "--slots", "2",
+            "--prefill-chunk", "8", "--block-size", "8", "--shared-prefix",
+            "8"]
+    runs = {}
+    for device, params in (("cuda", transformer.params_to(params_cpu, cuda)),
+                           ("cpu", params_cpu)):
+        args = serve.parse_args(argv + ["--device", device])
+        dispatch.reset_launch_counts()
+        report, eng, _, _ = serve.run(args, cfg, params)
+        runs[device] = (report, eng.scheduler, dispatch.launch_counts())
+    (rep_g, sched, counts), (rep_c, _, cpu_counts) = runs["cuda"], runs["cpu"]
+    assert {r.rid: r.tokens for r in rep_g.results} == \
+        {r.rid: r.tokens for r in rep_c.results}
+    assert rep_g.paged == rep_c.paged
+    ones = sched.chunk_widths.get(1, 0)
+    assert counts == {
+        "softmax_topk": sched.decode_steps + sched.prefills_done,
+        "flash_decode_paged": (sched.decode_steps + ones) * cfg.num_layers,
+        "flash_attention_paged": (sched.prefill_chunks - ones)
+        * cfg.num_layers}
+    assert set(cpu_counts.values()) == {0}
+    assert all(0 <= t < cfg.vocab_size for r in rep_g.results
+               for t in r.tokens)
+    assert np.isfinite(rep_g.tokens_per_s)
