@@ -11,22 +11,27 @@ printing its final line:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a), with the build time and ptxas's register report;
-3. kernels against their plain PyTorch versions at the serving path's shapes
+3. kernels against their plain PyTorch versions at the serving paths' shapes
    (fused softmax+top-k; paged decode; paged prefill, with edge cases and the
-   64-token chunks after long cached prefixes; fp32 and bf16);
-4. serve: smollm-360m at full width in bf16 through ``Engine`` with the paged
-   continuous-batching scheduler; every request finishes, every token id is in
-   the vocabulary, and each kernel's launch count equals what the scheduler's
-   own counters imply;
-5. parity: three short requests at full width in fp32, once on the card
-   through the kernels and once on the CPU through the plain versions; token
-   streams and pool stats must be identical;
+   64-token chunks after long cached prefixes; contiguous decode over ragged
+   slots; contiguous cached prefill at the slot pool's chunks and tails and
+   the lockstep prefill; fp32 and bf16; every dead table entry and every
+   cache position at or past a row's valid length poisoned with NaN);
+4. serve: smollm-360m at full width in bf16 through its three serving paths,
+   each with the launch counts set to 0 just before it and read just after:
+   ``Engine`` with the paged continuous-batching scheduler, ``Engine`` over
+   the slot pool, and the lockstep loop; every request finishes, every token
+   id is in the vocabulary, and each kernel's launch count equals what the
+   scheduler's own counters (or the loop's steps) imply;
+5. parity: short full-width fp32 workloads of the three paths, once on the
+   card through the kernels and once on the CPU through the plain versions;
+   token streams (and the paged pool's stats) must be identical;
 6. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
-   the serving path's shapes, beside its bound, its plain version and, where
-   one PyTorch call computes the same function, that call; then one
-   full-width decode step and one prefill chunk end to end, against the
-   device's busy time inside them (torch.profiler).
+   the serving paths' shapes, beside its bound, its plain version and, where
+   one PyTorch call computes the same function, that call; then full-width
+   decode steps and prefill chunks of the paged pool and the slot pool end to
+   end, against the device's busy time inside them (torch.profiler).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -56,14 +61,31 @@ KERNELS = {
     "flash_attention_paged": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_paged.cu",
         "replaces": "src/repro/kernels/flash_attention.py:432"},
+    "flash_decode": {
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:98"},
+    "flash_attention_offset": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_offset.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:260"},
 }
-# the serving run of phase 4 (the CLI's own flags)
+# the serving runs of phase 4 (the CLI's own flags); each kernel's
+# "launches" comes from the run of the path it was ported for
 SERVE_ARGS = ["--continuous", "--paged", "--requests", "16", "--slots", "8",
               "--prompt-len", "256", "--tokens", "64", "--block-size", "16",
               "--prefill-chunk", "64", "--shared-prefix", "16"]
+SLOT_ARGS = ["--continuous", "--requests", "16", "--slots", "8",
+             "--prompt-len", "256", "--tokens", "64", "--prefill-chunk", "64"]
+LOCKSTEP_ARGS = ["--batch", "4", "--prompt-len", "256", "--tokens", "32"]
 PARITY_ARGS = ["--continuous", "--paged", "--requests", "3", "--slots", "3",
                "--prompt-len", "40", "--tokens", "16", "--block-size", "16",
                "--prefill-chunk", "32", "--shared-prefix", "16"]
+SLOT_PARITY_ARGS = ["--continuous", "--requests", "3", "--slots", "2",
+                    "--prompt-len", "40", "--tokens", "12", "--prefill-chunk",
+                    "16"]
+LOCKSTEP_PARITY_ARGS = ["--batch", "2", "--prompt-len", "37", "--tokens", "8"]
+KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
+               "flash_attention_paged": "paged", "flash_decode": "slot pool",
+               "flash_attention_offset": "slot pool"}
 
 
 def _fail(msg: str) -> None:
@@ -280,60 +302,222 @@ def _check_prefill(gen) -> float:
     return worst
 
 
+def _contiguous_inputs(gen, *, dtype, s, vlens, tq=1, hkv=5, g=3, d=64):
+    """q [B, Tq, Hq, D] and caches [B, S, Hkv, D] in the model layout.
+    Returns (q, k, v for the kernel, with every position at or past a row's
+    valid length NaN, so a kernel that reads one turns its output NaN; k, v
+    for the plain version, those positions zeroed), all on the card."""
+    import torch
+    b = len(vlens)
+    q = torch.randn(b, tq, hkv * g, d, generator=gen)
+    k = torch.randn(b, s, hkv, d, generator=gen)
+    v = torch.randn(b, s, hkv, d, generator=gen)
+    dead = (torch.arange(s)[None, :] >= torch.tensor(vlens)[:, None])[
+        ..., None, None]
+    dev = dict(device="cuda", dtype=dtype)
+    return (q.to(**dev),
+            k.masked_fill(dead, float("nan")).to(**dev),
+            v.masked_fill(dead, float("nan")).to(**dev),
+            k.masked_fill(dead, 0.0).to(**dev),
+            v.masked_fill(dead, 0.0).to(**dev))
+
+
+def _check_contiguous_decode(gen) -> float:
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    worst = 0.0
+    # the slot pool's decode batch: 8 slots of 328, ragged; idle row last
+    vlens = [328, 290, 177, 64, 33, 250, 9, 1]
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q, k, v, k0, v0 = _contiguous_inputs(gen, dtype=dtype, s=328,
+                                             vlens=vlens)
+        vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+        got = fd.flash_decode(q, k, v, vl)
+        torch.cuda.synchronize()
+        want = fd.flash_decode_plain(q, k0, v0, vl)
+        if not torch.isfinite(got).all():
+            _fail(f"flash_decode {dtype}: non-finite output (a position at "
+                  "or past vlen was read)")
+        err = (got.float() - want.float()).abs().max().item()
+        if err > atol:
+            _fail(f"flash_decode {dtype}: max abs err {err:.3g} > {atol}")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        print(f"kernel flash_decode {str(dtype)[6:]} B=8 S=328 G=3 D=64 "
+              f"vlen {vlens}: max abs err {err:.3g} (atol {atol})")
+    return worst
+
+
+def _offset_err(inputs, qo, vl, what: str, atol: float):
+    """The contiguous prefill kernel against its plain version on one
+    input; raises beyond ``atol``, on non-finite output or when the -inf
+    pattern of lse differs.  Returns (max abs error, the kernel's lse)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, k0, v0 = inputs
+    out, lse = fa.flash_attention_offset(q, k, v, qo, vl)
+    torch.cuda.synchronize()
+    w_out, w_lse = fa.flash_attention_offset_plain(q, k0, v0, qo, vl)
+    if not torch.isfinite(out).all():
+        _fail(f"flash_attention_offset {what}: non-finite output (a "
+              "position at or past vlen was read)")
+    if not torch.equal(torch.isneginf(lse), torch.isneginf(w_lse)):
+        _fail(f"flash_attention_offset {what}: lse -inf pattern differs")
+    fin = torch.isfinite(w_lse)
+    err = max((out.float() - w_out.float()).abs().max().item(),
+              (lse[fin] - w_lse[fin]).abs().max().item())
+    if err > atol:
+        _fail(f"flash_attention_offset {what}: max abs err {err:.3g} > "
+              f"{atol}")
+    return err, lse
+
+
+def _offset_cases():
+    """(Tk, Tq, q_offset per row, vlen per row): the slot pool's 64-token
+    chunks of a 256-token prompt into a slot of 328, the power-of-two tails
+    ``prefill_schedule`` gives a 63-token remainder, a B = 3 case with a
+    keyless row and Tq = 37 (not a multiple of the 16-row tile), and the
+    lockstep prefill (B = 4, Tq = 256 at offset 0 into caches of 288)."""
+    cases = [(328, 64, [off], [off + 64]) for off in (0, 64, 192)]
+    off = 256
+    for w in (32, 16, 8, 4, 2, 1):
+        cases.append((328, w, [off], [off + w]))
+        off += w
+    cases.append((64, 37, [0, 5, 13], [37, 42, 0]))
+    cases.append((288, 256, [0] * 4, [256] * 4))
+    return cases
+
+
+def _check_offset(gen) -> float:
+    import torch
+    worst = 0.0
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        errs = []
+        for tk, tq, qoff, vlens in _offset_cases():
+            inputs = _contiguous_inputs(gen, dtype=dtype, s=tk, vlens=vlens,
+                                        tq=tq)
+            qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
+            vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+            what = (f"{str(dtype)[6:]} B={len(vlens)} Tk={tk} Tq={tq} "
+                    f"q_offset={qoff} vlen={vlens}")
+            err, lse = _offset_err(inputs, qo, vl, what, atol)
+            if 0 in vlens and not torch.isneginf(lse[vlens.index(0)]).all():
+                _fail(f"flash_attention_offset {what}: lse of the keyless "
+                      "row is not -inf")
+            errs.append(err)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+        print(f"kernel flash_attention_offset {str(dtype)[6:]}: "
+              f"{len(errs)} cases (64-token chunks at q_offset 0/64/192, "
+              f"tails 32..1, B=3 Tq=37 with a keyless row, lockstep B=4 "
+              f"Tq=256): max abs err {max(errs):.3g} (atol {atol})")
+    return worst
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator().manual_seed(0)
     return {"softmax_topk": _check_softmax_topk(gen),
             "flash_decode_paged": _check_decode(gen),
-            "flash_attention_paged": _check_prefill(gen)}
+            "flash_attention_paged": _check_prefill(gen),
+            "flash_decode": _check_contiguous_decode(gen),
+            "flash_attention_offset": _check_offset(gen)}
 
 
 # ---------------------------------------------------------------------------
 # 4: serve smollm-360m at full width through Engine (the main path)
 # ---------------------------------------------------------------------------
-def phase_serve() -> dict:
+def _check_finished(what: str, report, requests, vocab: int) -> None:
+    by_rid = {r.rid: r for r in report.results}
+    if sorted(by_rid) != [r.rid for r in requests]:
+        _fail(f"serve {what}: finished {sorted(by_rid)} of {len(requests)} "
+              "requests")
+    for req in requests:
+        res = by_rid[req.rid]
+        if len(res.tokens) != req.max_new_tokens or res.evicted:
+            _fail(f"serve {what}: request {req.rid} gave {len(res.tokens)} "
+                  f"of {req.max_new_tokens} tokens (evicted={res.evicted})")
+        if not all(0 <= t < vocab for t in res.tokens):
+            _fail(f"serve {what}: request {req.rid} has a token id outside "
+                  "the vocabulary")
+
+
+def _implied_counts(sched, n_layers: int) -> dict:
+    """Launches the scheduler's counters imply: one decode-kernel launch per
+    layer for every decode step and one-token prefill chunk, one prefill-
+    kernel launch per layer for every wider chunk, one softmax_topk per
+    decode step and per finished prefill; the other path's kernels none."""
+    ones = sched.chunk_widths.get(1, 0)
+    dec, pre = (("flash_decode_paged", "flash_attention_paged")
+                if sched.paged else ("flash_decode", "flash_attention_offset"))
+    want = dict.fromkeys(KERNELS, 0)
+    want[dec] = (sched.decode_steps + ones) * n_layers
+    want[pre] = (sched.prefill_chunks - ones) * n_layers
+    want["softmax_topk"] = sched.decode_steps + sched.prefills_done
+    return want
+
+
+def _check_counts(what: str, counts: dict, want: dict) -> None:
+    """Fail unless the launches equal the counters' and every kernel of
+    the path (and the sampler) launched."""
+    path = [k for k, p in KERNEL_PATH.items() if p == what] + ["softmax_topk"]
+    if counts != want or not all(want[k] for k in path):
+        _fail(f"serve {what}: launches {counts}, the counters imply {want}")
+
+
+def phase_serve():
+    """The three serving paths at full width in bf16, each between a reset
+    and a read of the launch counts.  Returns ({path: counts}, what the
+    step timings reuse)."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    args = serve.parse_args(SERVE_ARGS)
-    cfg = serve.config_for(args)
+    cfg = serve.config_for(serve.parse_args(SERVE_ARGS))
     t0 = time.perf_counter()
     params = transformer.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"serve: {cfg.name} {cfg.dtype}, {cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab_size}; weights from "
           f"seed 0 in {time.perf_counter() - t0:.1f}s")
+    counts, engines = {}, {}
+    for what, argv in (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS)):
+        args = serve.parse_args(argv)
+        dispatch.reset_launch_counts()
+        report, eng, requests, _ = serve.run(args, cfg, params)
+        torch.cuda.synchronize()
+        counts[what] = dispatch.launch_counts()
+        sched = eng.scheduler
+        _check_finished(what, report, requests, cfg.vocab_size)
+        _check_counts(what, counts[what],
+                      _implied_counts(sched, cfg.num_layers))
+        print(f"serve {what} launches: {counts[what]} = scheduler counters "
+              f"(decode steps {sched.decode_steps}, prefill chunks "
+              f"{sched.prefill_chunks} of which "
+              f"{sched.chunk_widths.get(1, 0)} one-token, prefills "
+              f"{sched.prefills_done}, {cfg.num_layers} layers)")
+        engines[what] = eng
+
+    args = serve.parse_args(LOCKSTEP_ARGS)
     dispatch.reset_launch_counts()
-    report, eng, requests, _ = serve.run(args, cfg, params)
+    ids = serve.lockstep(args, cfg, params)
     torch.cuda.synchronize()
-    counts = dispatch.launch_counts()
-    sched = eng.scheduler
-    by_rid = {r.rid: r for r in report.results}
-    if sorted(by_rid) != [r.rid for r in requests]:
-        _fail(f"serve: finished {sorted(by_rid)} of {len(requests)} requests")
-    for req in requests:
-        res = by_rid[req.rid]
-        if len(res.tokens) != req.max_new_tokens or res.evicted:
-            _fail(f"serve: request {req.rid} gave {len(res.tokens)} of "
-                  f"{req.max_new_tokens} tokens (evicted={res.evicted})")
-        if not all(0 <= t < cfg.vocab_size for t in res.tokens):
-            _fail(f"serve: request {req.rid} has a token id outside the "
-                  "vocabulary")
-    ones = sched.chunk_widths.get(1, 0)
-    wide = sched.prefill_chunks - ones
-    want = {"flash_decode_paged": (sched.decode_steps + ones) * cfg.num_layers,
-            "flash_attention_paged": wide * cfg.num_layers,
-            "softmax_topk": sched.decode_steps + sched.prefills_done}
-    for name, n in want.items():
-        if counts[name] != n or n == 0:
-            _fail(f"serve: {name} launched {counts[name]} times, the "
-                  f"scheduler's counters imply {n}")
-    print(f"serve launches: {counts} = scheduler counters (decode steps "
-          f"{sched.decode_steps}, prefill chunks {sched.prefill_chunks} of "
-          f"which {ones} one-token, prefills {sched.prefills_done}, "
-          f"{cfg.num_layers} layers)")
-    return counts, {"params": params, "cfg": cfg, "engine": eng}
+    counts["lockstep"] = dispatch.launch_counts()
+    if ids.shape != (args.batch, args.tokens) or not (
+            (ids >= 0) & (ids < cfg.vocab_size)).all():
+        _fail(f"serve lockstep: token ids of shape {ids.shape} outside "
+              "the vocabulary or short")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(softmax_topk=args.tokens,
+                flash_decode=(args.tokens - 1) * cfg.num_layers,
+                flash_attention_offset=cfg.num_layers)
+    if counts["lockstep"] != want:
+        _fail(f"serve lockstep: launches {counts['lockstep']}, its steps "
+              f"imply {want}")
+    print(f"serve lockstep launches: {counts['lockstep']} = one prefill, "
+          f"{args.tokens - 1} decode steps and {args.tokens} samples over "
+          f"{cfg.num_layers} layers")
+    return counts, {"params": params, "cfg": cfg, "engines": engines}
 
 
 # ---------------------------------------------------------------------------
@@ -361,40 +545,61 @@ def _first_decode_logits(params, cfg, prompt, *, device, block_size, chunk,
     return engine.logits_from_hidden(params, hidden[:, -1], cfg)
 
 
+def _parity_runs(what: str, argv, cfg, params_by_device):
+    """Serve ``argv`` on the card and on the CPU; fail unless the token
+    streams (and the paged pool's stats) are identical.  Returns (the CPU's
+    streams, the requests)."""
+    from repro_torch.launch import serve
+    runs = {}
+    for device, params in params_by_device.items():
+        args = serve.parse_args(argv + ["--device", device])
+        t0 = time.perf_counter()
+        report, _, requests, _ = serve.run(args, cfg, params)
+        runs[device] = ({r.rid: r.tokens for r in report.results},
+                        report.paged)
+        print(f"parity {what} {device}: {report.total_tokens} tokens in "
+              f"{time.perf_counter() - t0:.1f}s")
+    if runs["cuda"][0] != runs["cpu"][0]:
+        _fail(f"parity {what}: token streams differ\ncuda {runs['cuda'][0]}"
+              f"\ncpu  {runs['cpu'][0]}")
+    if runs["cuda"][1] != runs["cpu"][1]:
+        _fail(f"parity {what}: pool stats differ {runs['cuda'][1]} vs "
+              f"{runs['cpu'][1]}")
+    print(f"parity {what}: {len(requests)} requests, token streams identical "
+          f"({sum(len(t) for t in runs['cpu'][0].values())} tokens)"
+          + (", pool stats equal" if runs["cpu"][1] is not None else ""))
+    return runs["cpu"][0], requests
+
+
 def phase_parity() -> None:
-    import torch
+    import numpy as np
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     base = serve.parse_args(PARITY_ARGS)
     cfg = serve.config_for(base).replace(dtype="float32")
     params_cpu = transformer.init(cfg, seed=1, device="cpu")
     params_gpu = transformer.params_to(params_cpu, "cuda")
-    runs = {}
-    for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-        args = serve.parse_args(PARITY_ARGS + ["--device", device])
-        t0 = time.perf_counter()
-        report, _, requests, _ = serve.run(args, cfg, params)
-        runs[device] = ({r.rid: r.tokens for r in report.results},
-                        report.paged)
-        print(f"parity {device}: {report.total_tokens} tokens in "
-              f"{time.perf_counter() - t0:.1f}s")
-    if runs["cuda"][0] != runs["cpu"][0]:
-        _fail(f"parity: token streams differ\ncuda {runs['cuda'][0]}\n"
-              f"cpu  {runs['cpu'][0]}")
-    if runs["cuda"][1] != runs["cpu"][1]:
-        _fail(f"parity: pool stats differ {runs['cuda'][1]} vs "
-              f"{runs['cpu'][1]}")
+    params_by_device = {"cuda": params_gpu, "cpu": params_cpu}
+    streams, requests = _parity_runs("paged", PARITY_ARGS, cfg,
+                                     params_by_device)
     prompt = requests[0].prompt
-    token = runs["cpu"][0][requests[0].rid][0]
+    token = streams[requests[0].rid][0]
     kw = dict(block_size=base.block_size, chunk=base.prefill_chunk,
               token=token)
     lg = _first_decode_logits(params_gpu, cfg, prompt, device="cuda", **kw)
     lc = _first_decode_logits(params_cpu, cfg, prompt, device="cpu", **kw)
     diff = (lg.cpu() - lc).abs().max().item()
-    print(f"parity: {len(requests)} requests, token streams identical "
-          f"({sum(len(t) for t in runs['cpu'][0].values())} tokens), pool "
-          f"stats equal; first decode step max |logit diff| {diff:.3g} "
+    print(f"parity paged: first decode step max |logit diff| {diff:.3g} "
           f"(logit scale {lc.abs().max().item():.3g})")
+    _parity_runs("slot pool", SLOT_PARITY_ARGS, cfg, params_by_device)
+    ids = {device: serve.lockstep(serve.parse_args(
+               LOCKSTEP_PARITY_ARGS + ["--device", device]), cfg, params)
+           for device, params in params_by_device.items()}
+    if not np.array_equal(ids["cuda"], ids["cpu"]):
+        _fail(f"parity lockstep: token ids differ\ncuda {ids['cuda']}\n"
+              f"cpu  {ids['cpu']}")
+    print(f"parity lockstep: {ids['cpu'].size} token ids identical "
+          f"({' '.join(LOCKSTEP_PARITY_ARGS)})")
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +627,8 @@ def _host_ms(fn, samples: int = 10, warmup: int = 2) -> float:
 
 
 PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
-                       "decode_paged_kernel", "prefill_paged_kernel")
+                       "decode_paged_kernel", "prefill_paged_kernel",
+                       "decode_kernel", "prefill_offset_kernel")
 
 
 def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
@@ -449,13 +655,16 @@ def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
 
 def phase_steps(serve_ctx) -> None:
     """Where a serving step's time goes: one full-width decode step over 8
-    busy slots and one 64-token prefill chunk, timed from the host's call to
-    the device's finish, against the device's busy time inside it (all
-    kernels, and the port's own, from torch.profiler)."""
+    busy slots and one 64-token prefill chunk, of the paged pool and of the
+    slot pool, timed from the host's call to the device's finish, against
+    the device's busy time inside it (all kernels, and the port's own, from
+    torch.profiler)."""
     import torch
     from repro_torch.serving import engine
-    params, cfg, eng = (serve_ctx[k] for k in ("params", "cfg", "engine"))
-    pool = eng.scheduler.pool            # idle after the serve: reuse it
+    params, cfg, engines = (serve_ctx[k]
+                            for k in ("params", "cfg", "engines"))
+    pool = engines["paged"].scheduler.pool   # idle after the serve: reuse
+    slots = engines["slot pool"].scheduler.pool
     n, m = pool.num_slots, pool.max_blocks
     tables = torch.arange(1, n * m + 1, dtype=torch.int32,
                           device="cuda").reshape(n, m)
@@ -464,14 +673,22 @@ def phase_steps(serve_ctx) -> None:
     toks = torch.ones((n, 1), dtype=torch.int64, device="cuda")
     noise = torch.zeros((n, 5), device="cuda")
     chunk = torch.ones((1, 64), dtype=torch.int64, device="cuda")
+    slot_lens = lens.clamp(max=slots.slot_len - 1)
+    scratch = engine.init_cache(cfg, 1, slots.slot_len, "cuda")
     steps = {
-        f"decode [B={n}, {cfg.num_layers} layers, bf16]":
+        f"paged decode [B={n}, {cfg.num_layers} layers, bf16]":
             lambda: engine.decode_step_paged(params, pool.caches, tables,
                                              lens, toks, cfg, noise=noise,
                                              top_k=5),
-        "prefill chunk [64 tokens at offset 64, bf16]":
+        "paged prefill chunk [64 tokens at offset 64, bf16]":
             lambda: engine.prefill_chunk_paged(params, pool.caches,
-                                               tables[:1], 64, chunk, cfg)}
+                                               tables[:1], 64, chunk, cfg),
+        f"slot-pool decode [B={slots.num_slots}, {cfg.num_layers} layers, "
+        "bf16]":
+            lambda: engine.decode_step_slots(params, slots.caches, slot_lens,
+                                             toks, cfg, noise=noise, top_k=5),
+        "slot-pool prefill chunk [64 tokens at offset 64, bf16]":
+            lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg)}
     for name, fn in steps.items():
         wall = _host_ms(fn)
         busy, ours = _device_ms(fn)
@@ -479,6 +696,15 @@ def phase_steps(serve_ctx) -> None:
               f"device busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
               f"{100 - 100 * busy / wall:.1f}%), of which the port's "
               f"kernels {ours:.3f}ms")
+
+
+def _sdpa(q, k, v, mask):
+    """The library yardstick: one PyTorch SDPA call on [B, H, T, D] views
+    of the model layout, GQA by ``enable_gqa``, masked by a boolean mask."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
 
 
 def phase_times() -> dict:
@@ -523,7 +749,7 @@ def phase_times() -> dict:
     nbytes = (2 * q.numel() * esz + sum(vlens) * hkv * d * esz * 2
               + sum(-(-n // 16) for n in vlens) * 4 + len(vlens) * 4)
     ops = 4.0 * hq * d * sum(vlens)
-    args, _ = fd.prepare(q, kp, vp, tk, vl)
+    args, _ = fd.prepare_paged(q, kp, vp, tk, vl)
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
     rows["flash_decode_paged"] = {
         "ms": _ms(lambda: fd.launch(args)),
@@ -542,7 +768,7 @@ def phase_times() -> dict:
     pairs = sum(min(vlen, qoff + i + 1) for i in range(tq))
     nbytes = (2 * q.numel() * esz + hq * tq * 4 + vlen * hkv * d * esz * 2
               + (vlen // 16) * 4 + 8)
-    args, _ = fa.prepare(q, kp, vp, qo, vl, tk)
+    args, _ = fa.prepare_paged(q, kp, vp, qo, vl, tk)
     b_ms, b_by = _bound(nbytes, 4.0 * hq * d * pairs, "bfloat16")
     rows["flash_attention_paged"] = {
         "ms": _ms(lambda: fa.launch(args)),
@@ -552,6 +778,61 @@ def phase_times() -> dict:
                                                                vl, tp)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "shape": "B=1 Tq=64 q_offset=64 vlen=128 Hq=15 Hkv=5 D=64 BS=16 bf16"}
+
+    # contiguous decode: the slot pool's 8 slots of 328, ragged, bf16; the
+    # library yardstick is one SDPA call on transposed views with a boolean
+    # valid-length mask
+    vlens = [328, 289, 250, 211, 172, 133, 94, 65]
+    q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=328,
+                                       vlens=vlens)
+    vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+    err = (fd.flash_decode(q, k, v, vl).float()
+           - fd.flash_decode_plain(q, k, v, vl).float()).abs().max()
+    if not err <= 2e-2:
+        _fail(f"flash_decode on the timed input: max abs err "
+              f"{err.item():.3g} > 2e-2")
+    mask = (torch.arange(328, device="cuda")[None, :]
+            < vl[:, None].long())[:, None, None, :]
+    nbytes = (2 * q.numel() * esz + sum(vlens) * hkv * d * esz * 2
+              + len(vlens) * 4)
+    args, _ = fd.prepare(q, k, v, vl)
+    b_ms, b_by = _bound(nbytes, 4.0 * hq * d * sum(vlens), "bfloat16")
+    rows["flash_decode"] = {
+        "ms": _ms(lambda: fd.launch(args)),
+        "wrapper_ms": _ms(lambda: fd.flash_decode(q, k, v, vl)),
+        "plain_ms": _ms(lambda: fd.flash_decode_plain(q, k, v, vl)),
+        "library_ms": _ms(lambda: _sdpa(q, k, v, mask)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 bf16 vlen {vlens}"}
+
+    # contiguous cached prefill: the slot pool's 64-token chunk at offset
+    # 64 into a slot of 328, then (printed only) the lockstep prefill
+    for key, (b, tk, tq, qoff, vlen) in (
+            ("flash_attention_offset", (1, 328, 64, 64, 128)),
+            ("flash_attention_offset, lockstep", (4, 288, 256, 0, 256))):
+        q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=tk,
+                                           vlens=[vlen] * b, tq=tq)
+        qo = torch.full((b,), qoff, dtype=torch.int32, device="cuda")
+        vl = torch.full((b,), vlen, dtype=torch.int32, device="cuda")
+        _offset_err((q, k, v, k, v), qo, vl, "on the timed input", 2e-2)
+        kpos = torch.arange(tk, device="cuda")
+        qpos = qoff + torch.arange(tq, device="cuda")
+        mask = ((kpos[None, :] < vlen) & (kpos[None, :] <= qpos[:, None]))
+        pairs = sum(min(vlen, qoff + i + 1) for i in range(tq))
+        nbytes = (2 * q.numel() * esz + b * hq * tq * 4
+                  + b * vlen * hkv * d * esz * 2 + b * 8)
+        args, _ = fa.prepare(q, k, v, qo, vl)
+        b_ms, b_by = _bound(nbytes, 4.0 * b * hq * d * pairs, "bfloat16")
+        rows[key] = {
+            "ms": _ms(lambda: fa.launch(args)),
+            "wrapper_ms": _ms(lambda: fa.flash_attention_offset(q, k, v, qo,
+                                                                vl)),
+            "plain_ms": _ms(lambda: fa.flash_attention_offset_plain(
+                q, k, v, qo, vl)),
+            "library_ms": _ms(lambda: _sdpa(q, k, v, mask[None, None])),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"B={b} Tq={tq} q_offset={qoff} vlen={vlen} Tk={tk} "
+                     "Hq=15 Hkv=5 D=64 bf16"}
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
                else "none")
@@ -560,6 +841,14 @@ def phase_times() -> dict:
               f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
               f"{row['plain_ms']:.4f}ms, library {lib}")
     return rows
+
+
+def _timed(phase, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def main() -> int:
@@ -572,18 +861,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = phase_device()
-    phase_build()
-    errs = phase_kernels()
-    serve_counts, serve_ctx = phase_serve()
-    phase_parity()
-    times = phase_times()
-    phase_steps(serve_ctx)
+    _timed(phase_build)
+    errs = _timed(phase_kernels)
+    counts, serve_ctx = _timed(phase_serve)
+    _timed(phase_parity)
+    times = _timed(phase_times)
+    _timed(phase_steps, serve_ctx)
     kernels = []
     for name, meta in KERNELS.items():
         row = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": serve_counts[name],
+            "replaces": meta["replaces"],
+            "launches": counts[KERNEL_PATH[name]][name],
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -2,12 +2,14 @@
 Gumbel-max pick that serving samples with.
 
 Port of ``src/repro/core/topk_fusion.py`` (``SoftmaxTopK`` at line 26,
-``softmax_topk`` at 33, ``gumbel_pick`` at 93).  This is the plain version
-behind the fused CUDA kernel ``kernels/csrc/softmax_topk.cu``.
+``softmax_topk`` at 33, ``gumbel_pick`` at 93, ``topk_sample`` at 105).
+``softmax_topk`` is the plain version behind the fused CUDA kernel
+``kernels/csrc/softmax_topk.cu``; ``topk_sample`` reaches that kernel (or
+this plain version, on the CPU) through ``kernels.dispatch``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -58,3 +60,24 @@ def gumbel_noise(shape, generator: torch.Generator) -> Tensor:
     explicit generator (on the generator's device)."""
     e = torch.empty(shape, dtype=torch.float32, device=generator.device)
     return -torch.log(e.exponential_(generator=generator))
+
+
+def topk_sample(x: Tensor, k: int, *, noise: Optional[Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> tuple[Tensor, Tensor]:
+    """Sample a token per row from the fused top-k softmax (the serving
+    fast path, paper §4): one pass over the vocabulary through
+    ``dispatch.softmax_topk``, then Gumbel-max over the K survivors.
+    Returns ``(token_ids, top_probs)``.
+
+    The Gumbels are explicit: ``noise`` shaped like the top-k values (a
+    test injects the reference's ``jax.random.gumbel`` draw here), or drawn
+    from ``generator``.  ``jax.random`` keys are not reproduced."""
+    from repro_torch.kernels import dispatch
+    out = dispatch.softmax_topk(x, k)
+    if noise is None:
+        if generator is None:
+            raise ValueError("topk_sample needs its Gumbels: pass noise or "
+                             "a generator")
+        noise = gumbel_noise(tuple(out.values.shape), generator)
+    return gumbel_pick(out, noise), out.values

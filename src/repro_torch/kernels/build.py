@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("softmax_topk", "flash_decode_paged", "flash_attention_paged")
+SOURCES = ("softmax_topk", "flash_decode_paged", "flash_attention_paged",
+           "flash_decode", "flash_attention_offset")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -102,6 +103,23 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def call(name: str, argtypes: list, args) -> None:
+    """Call ``<name>_launch`` of ``csrc/<name>.cu`` on ``args``: tensors pass
+    as their data pointers, and the current stream of the first tensor's
+    device is appended.  Raises if the launch reported a CUDA error."""
+    import torch
+    lib = library(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    dev = args[0].device
+    c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*c_args, stream_ptr(dev))
+    check(lib, err, f"{name} kernel")
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:
@@ -124,6 +142,6 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 def dtype_code(t) -> int:
     name = str(t.dtype).replace("torch.", "")
     if name not in DTYPE_CODES:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16 tensors, "
-                        f"not {t.dtype}")
+        raise ValueError(f"the CUDA kernels take float32 or bfloat16 tensors, "
+                         f"not {t.dtype}")
     return DTYPE_CODES[name]

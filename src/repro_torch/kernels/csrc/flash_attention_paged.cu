@@ -18,17 +18,16 @@
 //   Scores are masked in absolute coordinates (k_pos <= q_offset + i) and at
 //   vlen before the online (m, d, acc) update; each thread carries its row's
 //   (m, d) and D / 8 accumulator lanes.  The output is acc / max(d, 1e-30)
-//   and lse = m + log d, or -inf for a row with no valid key (d == 0).
-#include "common.cuh"
+//   and lse = m + log d, or -inf for a row with no valid key (d == 0).  The
+//   tile loop is prefill_attend (attention.cuh), shared with the contiguous
+//   cached-prefill kernel (flash_attention_offset.cu); here a tile is one
+//   page, addressed through the table.
+#include "attention.cuh"
 
 namespace {
 
-constexpr int kBQ = 16;
-constexpr int kThreads = 128;
-constexpr int kRowThreads = kThreads / kBQ;  // 8
-
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPrefillThreads)
     prefill_paged_kernel(const T* __restrict__ q,
                          const T* __restrict__ k_pool,
                          const T* __restrict__ v_pool,
@@ -37,92 +36,15 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ tables, T* __restrict__ out,
                          float* __restrict__ lse, int Tq, int Hq, int Hkv,
                          int BS, int M, float scale, int causal) {
-  constexpr int kLanes = D / kRowThreads;  // accumulator lanes per thread
   extern __shared__ __align__(16) float smem[];
-  const int i0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv, hk = h / G;
-  const int tid = threadIdx.x;
-  const int row = tid / kRowThreads, lane = tid % kRowThreads;
-  float* qs = smem;                      // [BQ, D + 1], pre-scaled
-  float* ks = qs + kBQ * (D + 1);        // [BS, D + 1]
-  float* vs = ks + BS * (D + 1);         // [BS, D]
-  float* ss = vs + BS * D;               // [BQ, BS] scores
-
-  // q and out keep the model layout [B, Tq, Hq, D]
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    float v = 0.f;
-    if (i0 + r < Tq)
-      v = to_f32(q[((static_cast<size_t>(b) * Tq + i0 + r) * Hq + h) * D + c]) *
-          scale;
-    qs[r * (D + 1) + c] = v;
-  }
-  const int L = vlen[b], qo = q_offset[b];
-  const int last_row = min(i0 + kBQ, Tq) - 1;
-  int nb = (L + BS - 1) / BS;
-  if (causal) nb = min(nb, (qo + last_row) / BS + 1);
-  nb = min(nb, M);
-
-  float m = REPRO_NEG_INF, d = 0.f;
-  float acc[kLanes];
-#pragma unroll
-  for (int c = 0; c < kLanes; ++c) acc[c] = 0.f;
-
-  for (int j = 0; j < nb; ++j) {
-    const size_t page =
-        (static_cast<size_t>(tables[static_cast<size_t>(b) * M + j]) * Hkv +
-         hk) * BS * D;
-    __syncthreads();  // previous page consumed (and qs written, at j == 0)
-    for (int e = tid; e < BS * D; e += kThreads) {
-      const int t = e / D, c = e % D;
-      ks[t * (D + 1) + c] = to_f32(k_pool[page + e]);
-      vs[e] = to_f32(v_pool[page + e]);
-    }
-    __syncthreads();
-    for (int e = tid; e < kBQ * BS; e += kThreads) {
-      const int r = e / BS, t = e % BS;
-      const int k_pos = j * BS + t, q_pos = qo + i0 + r;
-      float s = REPRO_NEG_INF;
-      if (i0 + r < Tq && k_pos < L && (!causal || k_pos <= q_pos)) {
-        s = 0.f;
-#pragma unroll 16
-        for (int c = 0; c < D; ++c)
-          s += qs[r * (D + 1) + c] * ks[t * (D + 1) + c];
-      }
-      ss[e] = s;
-    }
-    __syncthreads();
-    // one ⊕ step of Algorithm 3 for this thread's row
-    float mb = REPRO_NEG_INF;
-    for (int t = 0; t < BS; ++t) mb = fmaxf(mb, ss[row * BS + t]);
-    const float mn = fmaxf(m, mb);
-    const float alpha = rescale(m, mn);
-    float ds = 0.f;
-#pragma unroll
-    for (int c = 0; c < kLanes; ++c) acc[c] *= alpha;
-    for (int t = 0; t < BS; ++t) {
-      const float s = ss[row * BS + t];
-      const float p = s == REPRO_NEG_INF ? 0.f : expf(s - mn);
-      ds += p;
-#pragma unroll
-      for (int c = 0; c < kLanes; ++c)
-        acc[c] += p * vs[t * D + lane + c * kRowThreads];
-    }
-    d = d * alpha + ds;
-    m = mn;
-  }
-
-  const int i = i0 + row;
-  if (i < Tq) {
-    const float inv = 1.f / fmaxf(d, 1e-30f);
-    T* o = out + ((static_cast<size_t>(b) * Tq + i) * Hq + h) * D;
-#pragma unroll
-    for (int c = 0; c < kLanes; ++c)
-      o[lane + c * kRowThreads] = from_f32<T>(acc[c] * inv);
-    if (lane == 0)
-      lse[(static_cast<size_t>(b) * Hq + h) * Tq + i] =
-          d > 0.f ? m + logf(fmaxf(d, 1e-30f)) : REPRO_NEG_INF;
-  }
+  const int i0 = blockIdx.x * kPrefillRows, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const PagedRows rows{tables + static_cast<size_t>(b) * M,
+                       static_cast<size_t>(Hkv) * BS * D,
+                       static_cast<size_t>(hk) * BS * D, D};
+  prefill_attend<T, D>(q, k_pool, v_pool, rows, min(vlen[b], M * BS), BS,
+                       q_offset[b], b, h, i0, Tq, Hq, out, lse, scale, causal,
+                       smem);
 }
 
 template <typename T, int D>
@@ -131,10 +53,9 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    void* out, float* lse, int B, int Tq, int Hq, int Hkv,
                    int BS, int M, float scale, int causal,
                    cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (kBQ * (D + 1) + BS * (D + 1) + BS * D + kBQ * BS);
-  const dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
-  prefill_paged_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const size_t smem = sizeof(float) * prefill_smem_words(D, BS);
+  const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
+  prefill_paged_kernel<T, D><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), q_offset, vlen, tables,
       static_cast<T*>(out), lse, Tq, Hq, Hkv, BS, M, scale, causal);

@@ -17,8 +17,10 @@
 //   output element and carries its row's (m, d) redundantly with the other
 //   threads of head g, so no cross-thread reduction is needed at the end.
 //   Idle rows decode with vlen = 1 against the sentinel block 0; they run and
-//   their output is discarded by the caller.
-#include "common.cuh"
+//   their output is discarded by the caller.  The tile loop is
+//   decode_attend (attention.cuh), shared with the contiguous decode kernel
+//   (flash_decode.cu); here a tile is one page, addressed through the table.
+#include "attention.cuh"
 
 namespace {
 
@@ -33,58 +35,12 @@ __global__ void decode_paged_kernel(const T* __restrict__ q,
   extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int G = Hq / Hkv;
-  const int tid = threadIdx.x, nthr = blockDim.x;  // nthr == G * D
-  const int g = tid / D, dd = tid % D;
-  float* qs = smem;                      // [G, D], pre-scaled
-  float* ks = qs + G * D;                // [BS, D + 1] (padded rows)
-  float* vs = ks + BS * (D + 1);         // [BS, D]
-  float* ss = vs + BS * D;               // [G, BS] scores
-
-  const size_t qrow = (static_cast<size_t>(b) * Hq + h * G + g) * D + dd;
-  qs[tid] = to_f32(q[qrow]) * scale;
-  const int L = vlen[b];
-  const int nb = min((L + BS - 1) / BS, M);
-
-  float m = REPRO_NEG_INF, d = 0.f, acc = 0.f;
-  for (int j = 0; j < nb; ++j) {
-    const size_t page =
-        (static_cast<size_t>(tables[static_cast<size_t>(b) * M + j]) * Hkv + h) *
-        BS * D;
-    __syncthreads();  // the previous page is no longer read
-    for (int e = tid; e < BS * D; e += nthr) {
-      const int t = e / D, c = e % D;
-      ks[t * (D + 1) + c] = to_f32(k_pool[page + e]);
-      vs[e] = to_f32(v_pool[page + e]);
-    }
-    __syncthreads();
-    for (int e = tid; e < G * BS; e += nthr) {
-      const int gg = e / BS, t = e % BS;
-      float s = REPRO_NEG_INF;
-      if (j * BS + t < L) {
-        s = 0.f;
-#pragma unroll 16
-        for (int c = 0; c < D; ++c) s += qs[gg * D + c] * ks[t * (D + 1) + c];
-      }
-      ss[e] = s;
-    }
-    __syncthreads();
-    // one ⊕ step of Algorithm 3 over this page, for head g, dim dd
-    float mb = REPRO_NEG_INF;
-    for (int t = 0; t < BS; ++t) mb = fmaxf(mb, ss[g * BS + t]);
-    const float mn = fmaxf(m, mb);
-    const float alpha = rescale(m, mn);
-    float ds = 0.f, av = 0.f;
-    for (int t = 0; t < BS; ++t) {
-      const float s = ss[g * BS + t];
-      const float p = s == REPRO_NEG_INF ? 0.f : expf(s - mn);
-      ds += p;
-      av += p * vs[t * D + dd];
-    }
-    d = d * alpha + ds;
-    acc = acc * alpha + av;
-    m = mn;
-  }
-  out[qrow] = from_f32<T>(acc / fmaxf(d, 1e-30f));
+  const PagedRows rows{tables + static_cast<size_t>(b) * M,
+                       static_cast<size_t>(Hkv) * BS * D,
+                       static_cast<size_t>(h) * BS * D, D};
+  decode_attend<T, D>(q, k_pool, v_pool, rows, min(vlen[b], M * BS), BS, out,
+                      (static_cast<size_t>(b) * Hq + h * G) * D, G, scale,
+                      smem);
 }
 
 template <typename T, int D>
@@ -93,8 +49,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    int Hq, int Hkv, int BS, int M, float scale,
                    cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const size_t smem =
-      sizeof(float) * (G * D + BS * (D + 1) + BS * D + G * BS);
+  const size_t smem = sizeof(float) * decode_smem_words(G, D, BS);
   decode_paged_kernel<T, D><<<dim3(Hkv, B), G * D, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), tables, vlen, static_cast<T*>(out), Hq,

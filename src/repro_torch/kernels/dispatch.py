@@ -1,18 +1,20 @@
 """Kernel dispatch of the port: the entries model and serving code call.
 
-Port of the paged routes of ``src/repro/kernels/dispatch.py`` (``sdpa`` and
-``_paged_sdpa`` at lines 696-731, ``softmax_topk`` at 778).  The reference
-chose Pallas by a config preference (``cfg.use_pallas``) and a capability
-probe; here the choice goes by the tensor's device alone:
+Port of ``src/repro/kernels/dispatch.py``: ``sdpa`` (line 816) with its
+paged routes (``_paged_sdpa``, 696-731) and its contiguous routes (858-903,
+without the sharded and int8 branches), and ``softmax_topk`` (778).  The
+reference chose Pallas by a config preference (``cfg.use_pallas``) and a
+capability probe; here the choice goes by the tensor's device alone:
 
 * ``cuda`` launches the hand-written kernel, or raises on what it does not
   take — never the plain version;
 * ``cpu`` runs the kernel's plain PyTorch version;
 * any other device raises.
 
-The contiguous-cache attention routes (slot-pool serving, training) are
-later slices: on CUDA they raise ``NotImplementedError``; on the CPU the
-chunked online form serves them, as the reference's XLA path did.
+On CUDA, fresh attention (``kv_valid_len`` unset: the training form, a
+later slice), a custom scale and a value head_dim other than q's still
+raise ``NotImplementedError``; on the CPU the chunked online form serves
+them, as the reference's XLA path did.
 """
 from __future__ import annotations
 
@@ -23,17 +25,19 @@ from repro_torch.kernels import softmax_topk as _softmax_topk
 
 _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_decode_paged": _flash_decode,
-                   "flash_attention_paged": _flash_attention}
+                   "flash_decode": _flash_decode,
+                   "flash_attention_paged": _flash_attention,
+                   "flash_attention_offset": _flash_attention}
 
 
 def launch_counts() -> dict:
-    """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+    """Launches per kernel since the last :func:`reset_launch_counts`."""
+    return {name: mod.launches[name] for name, mod in _KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNEL_MODULES.values():
-        mod.launches = 0
+    for name, mod in _KERNEL_MODULES.items():
+        mod.launches[name] = 0
 
 
 def _require_cpu(t, op: str) -> None:
@@ -65,20 +69,40 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
                            kv_valid_len=kv_valid_len, scale=scale,
                            decode=decode, block_tables=block_tables)
     if q.device.type == "cuda":
-        raise NotImplementedError(
-            "contiguous-cache attention on CUDA is not ported yet: it comes "
-            "with the slot-pool serving and training slices (ROADMAP queue 1)")
+        _require_kernel_form(q, v, scale, "contiguous attention")
+        if decode:
+            return _flash_decode.flash_decode(q, k, v, kv_valid_len)
+        if kv_valid_len is None:
+            raise NotImplementedError(
+                "fresh (cache-free) attention on CUDA is not ported yet: its "
+                "kernel comes with the training slice (ROADMAP queue 2)")
+        out, _ = _flash_attention.flash_attention_offset(
+            q, k, v, q_offset, kv_valid_len, causal=causal)
+        return out
     _require_cpu(q, "sdpa")
+    # the chunked online form: the plain version of both contiguous kernels
+    # (flash_decode_plain, flash_attention_offset_plain) and of fresh
+    # attention
     return core.online_attention(q, k, v, causal=causal, q_offset=q_offset,
                                  kv_valid_len=kv_valid_len,
                                  chunk_size=cfg.attn_chunk, scale=scale)
 
 
-def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,
-                decode, block_tables):
+def _require_kernel_form(q, v, scale, what: str) -> None:
+    """The attention kernels take the default scale and v's head_dim equal
+    to q's; MLA's absorbed forms are ported with MLA."""
     if scale is not None and scale != q.shape[-1] ** -0.5:
         raise NotImplementedError(
-            "paged attention with a custom scale (MLA) is not ported yet")
+            f"{what} with a custom scale (MLA) is not ported yet")
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"{what} with a value head_dim other than q's (MLA) is not "
+            "ported yet")
+
+
+def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,
+                decode, block_tables):
+    _require_kernel_form(q, v, scale, "paged attention")
     if q.device.type == "cuda":
         if decode:
             return _flash_decode.flash_decode_paged(q, k, v, block_tables,

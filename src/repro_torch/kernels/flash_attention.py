@@ -1,14 +1,22 @@
-"""Paged cached-prefill flash attention: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Cached-prefill flash attention: the CUDA kernels' wrappers and their plain
+PyTorch versions, over a paged KV pool and over a contiguous KV cache.
 
-Replaces ``src/repro/kernels/flash_attention.py:flash_attention_paged_pallas``
-(the ``pallas_call`` at line 432) in its bf16/fp32 form.  The int8 form
-belongs to the int8-KV slice and raises here.
+* ``flash_attention_paged`` replaces
+  ``src/repro/kernels/flash_attention.py:flash_attention_paged_pallas`` (the
+  ``pallas_call`` at line 432) in its bf16/fp32 form.  The int8 form belongs
+  to the int8-KV slice and raises here.
+* ``flash_attention_offset`` replaces ``flash_attention_offset_pallas`` (the
+  ``pallas_call`` at line 260): a prefill chunk of the slot pool, or the
+  lockstep prefill, at per-row ``q_offset`` against a contiguous cache.  The
+  kernel reads the cache in the model layout through its strides and masks
+  the ragged edge itself; the reference's ``ops._flash_offset`` transposed q,
+  k and v and padded the cache to a tile multiple first.
 
 Layouts keep the model's: q [B, Tq, Hq, D] in, out [B, Tq, Hq, D];
-pools [P, Hkv, BS, D]; q_offset, kv_valid_len [B]; block_tables [B, M]
-int32.  lse comes back as [B, Hq, Tq] float32, −inf for a row with no valid
-key (the Pallas kernel's [B, Hq, Tq, 1] without the unit axis).
+pools [P, Hkv, BS, D] with block_tables [B, M] int32, or k, v
+[B, Tk, Hkv, D]; q_offset, kv_valid_len [B].  lse comes back as
+[B, Hq, Tq] float32, −inf for a row with no valid key (the Pallas kernels'
+[B, Hq, Tq, 1] without the unit axis).
 """
 from __future__ import annotations
 
@@ -21,99 +29,145 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import gather_pages
 
 SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
-BQ = 16               # query rows of one CTA (csrc kBQ)
+BQ = 16               # query rows of one CTA (csrc kPrefillRows)
 _SMEM_LIMIT = 48 * 1024
 
 #: Kernel launches since the last reset (the serving path's proof of route).
-launches = 0
+launches = {"flash_attention_paged": 0, "flash_attention_offset": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = {
+    "flash_attention_paged": [_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
+                              _I, _I, _I, _I, ctypes.c_float, _I, _C],
+    "flash_attention_offset": [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I,
+                               _I, _I, _L, _L, _L, ctypes.c_float, _I, _C],
+}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("flash_attention_paged")
-    fn = lib.flash_attention_paged_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
-                       _I, _I, ctypes.c_float, _I, _C]
-        fn.restype = ctypes.c_int
-    return lib
+def flash_attention_offset_plain(q, k, v, q_offset, kv_valid_len, *,
+                                 causal: bool = True,
+                                 chunk_size: int = DEFAULT_CHUNK):
+    """The contiguous kernel's plain version: the chunked online attention
+    of q [B, Tq, Hq, D] at absolute offset ``q_offset`` over the first
+    ``kv_valid_len`` (clamped to Tk) positions of k, v [B, Tk, Hkv, D].
+    Returns (out [B, Tq, Hq, D], lse [B, Hq, Tq])."""
+    return online_attention_lse(q, k, v, causal=causal, q_offset=q_offset,
+                                kv_valid_len=kv_valid_len,
+                                chunk_size=chunk_size)
 
 
 def flash_attention_paged_plain(q, k_pool, v_pool, q_offset, kv_valid_len,
                                 block_tables, *, causal: bool = True,
                                 chunk_size: int = DEFAULT_CHUNK):
-    """The plain version: gather the pages and run the chunked online
-    attention.  Returns (out [B, Tq, Hq, D], lse [B, Hq, Tq])."""
-    return online_attention_lse(
+    """The paged kernel's plain version: gather the pages and run the
+    chunked online attention.  Returns (out [B, Tq, Hq, D], lse
+    [B, Hq, Tq])."""
+    return flash_attention_offset_plain(
         q, gather_pages(k_pool, block_tables),
-        gather_pages(v_pool, block_tables), causal=causal, q_offset=q_offset,
-        kv_valid_len=kv_valid_len, chunk_size=chunk_size)
+        gather_pages(v_pool, block_tables), q_offset, kv_valid_len,
+        causal=causal, chunk_size=chunk_size)
 
 
-def prepare(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
-            causal: bool = True):
-    """Validate CUDA operands and allocate the outputs.  Returns (launch
-    arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq])); :func:`launch` fills
-    them.  Raises on another device, dtype or shape the kernel does not
-    take."""
+def _check(name, q, k, v, hkv):
+    """Shared validation: CUDA operands of q's dtype and head_dim, in a GQA
+    grouping and a grid the kernel takes."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_paged kernel needs CUDA tensors, "
-                         f"got {q.device}")
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {q.device}")
     b, tq, hq, dh = q.shape
-    p, hkv, bs, dk = k_pool.shape
-    if dk != dh or v_pool.shape != k_pool.shape:
-        raise ValueError(f"flash_attention_paged kernel: q {tuple(q.shape)} "
-                         f"and pools {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)} do not match")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"flash_attention_paged kernel: q is {q.dtype} but "
-                        f"the pools are {k_pool.dtype} (int8 pools are ported "
-                        "with the int8-KV slice)")
+    if k.shape[-1] != dh or v.shape != k.shape:
+        raise ValueError(f"{name} kernel: q {tuple(q.shape)} and K/V "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} do not match")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name} kernel: q is {q.dtype} but K/V are "
+                         f"{k.dtype} (int8 caches are ported with the int8-KV "
+                         "slice)")
+    if hq % hkv or dh not in SUPPORTED_HEAD_DIMS or hq > 65535 or b > 65535:
+        raise ValueError(f"{name} kernel: Hq={hq}, Hkv={hkv}, D={dh} not "
+                         f"supported (D in {SUPPORTED_HEAD_DIMS})")
+    return b, tq, hq, dh
+
+
+def _rows(x, q, b):
+    return torch.as_tensor(x, device=q.device).to(torch.int32).expand(
+        b).contiguous()
+
+
+def prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
+                  causal: bool = True):
+    """Validate CUDA operands of the paged kernel and allocate the outputs.
+    Returns (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]));
+    :func:`launch` fills them.  Raises on another device, dtype or shape the
+    kernel does not take."""
+    hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    b, tq, hq, dh = _check("flash_attention_paged", q, k_pool, v_pool, hkv)
     smem = 4 * (BQ * (dh + 1) + bs * (dh + 1) + bs * dh + BQ * bs)
-    if (hq % hkv or dh not in SUPPORTED_HEAD_DIMS or smem > _SMEM_LIMIT
-            or hq > 65535 or b > 65535):
-        raise ValueError(f"flash_attention_paged kernel: Hq={hq}, Hkv={hkv}, "
-                         f"D={dh}, BS={bs} not supported (D in "
-                         f"{SUPPORTED_HEAD_DIMS}, {smem} B of shared memory "
-                         f"<= {_SMEM_LIMIT})")
+    if k_pool.dim() != 4 or smem > _SMEM_LIMIT:
+        raise ValueError(f"flash_attention_paged kernel: pools "
+                         f"{tuple(k_pool.shape)} need {smem} B of shared "
+                         f"memory (at most {_SMEM_LIMIT})")
     code = build.dtype_code(q)
     qc = q.contiguous()
     kc, vc = k_pool.contiguous(), v_pool.contiguous()
     tables = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
-    qoff = torch.as_tensor(q_offset, device=q.device).to(
-        torch.int32).expand(b).contiguous()
-    vlen = torch.as_tensor(kv_valid_len, device=q.device).to(
-        torch.int32).expand(b).contiguous()
     out = torch.empty_like(qc)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    args = (qc, kc, vc, qoff, vlen, tables, out, lse, code, b, tq, hq, hkv,
+    args = ("flash_attention_paged", qc, kc, vc, _rows(q_offset, q, b),
+            _rows(kv_valid_len, q, b), tables, out, lse, code, b, tq, hq, hkv,
             bs, dh, tables.shape[1], float(dh ** -0.5), int(bool(causal)))
     return args, (out, lse)
 
 
+def prepare(q, k, v, q_offset, kv_valid_len, *, causal: bool = True):
+    """Validate CUDA operands of the contiguous kernel and allocate the
+    outputs.  k, v [B, Tk, Hkv, D] are passed by their strides (the last
+    must be 1, and K and V must share them), never copied or padded.
+    Returns (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]));
+    :func:`launch` fills them."""
+    if k.dim() != 4:
+        raise ValueError(f"flash_attention_offset kernel: k {tuple(k.shape)} "
+                         "is not [B, Tk, Hkv, D]")
+    tk, hkv = k.shape[1], k.shape[2]
+    b, tq, hq, dh = _check("flash_attention_offset", q, k, v, hkv)
+    if k.shape[0] != b or k.stride(-1) != 1 or k.stride() != v.stride():
+        raise ValueError(f"flash_attention_offset kernel: K/V {tuple(k.shape)}"
+                         f" with strides {k.stride()}/{v.stride()} for {b} "
+                         "rows (need unit last stride, equal K/V strides)")
+    code = build.dtype_code(q)
+    qc = q.contiguous()
+    out = torch.empty_like(qc)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    sb, ss, sh, _ = k.stride()
+    args = ("flash_attention_offset", qc, k, v, _rows(q_offset, q, b),
+            _rows(kv_valid_len, q, b), out, lse, code, b, tq, hq, hkv, tk, dh,
+            sb, ss, sh, float(dh ** -0.5), int(bool(causal)))
+    return args, (out, lse)
+
+
 def launch(args) -> None:
-    """Launch the kernel on prepared arguments (counts one launch)."""
-    global launches
-    (qc, kc, vc, qoff, vlen, tables, out, lse, code, b, tq, hq, hkv, bs, dh,
-     m, scale, causal) = args
-    lib = _lib()
-    with torch.cuda.device(qc.device):
-        err = lib.flash_attention_paged_launch(
-            build.ptr(qc), build.ptr(kc), build.ptr(vc), build.ptr(qoff),
-            build.ptr(vlen), build.ptr(tables), build.ptr(out), build.ptr(lse),
-            code, b, tq, hq, hkv, bs, dh, m, scale, causal,
-            build.stream_ptr(qc.device))
-    build.check(lib, err, "flash_attention_paged kernel")
-    launches += 1
+    """Launch a prepared kernel (counts one launch of it)."""
+    name = args[0]
+    build.call(name, _ARGTYPES[name], args[1:])
+    launches[name] += 1
 
 
 def flash_attention_paged(q, k_pool, v_pool, q_offset, kv_valid_len,
                           block_tables, *, causal: bool = True):
     """Launch the paged prefill kernel on CUDA tensors.  Returns
     (out [B, Tq, Hq, D], lse [B, Hq, Tq])."""
-    args, out = prepare(q, k_pool, v_pool, q_offset, kv_valid_len,
-                        block_tables, causal=causal)
+    args, out = prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len,
+                              block_tables, causal=causal)
+    launch(args)
+    return out
+
+
+def flash_attention_offset(q, k, v, q_offset, kv_valid_len, *,
+                           causal: bool = True):
+    """Launch the contiguous cached-prefill kernel on CUDA tensors: q
+    [B, Tq, Hq, D] at absolute offset ``q_offset`` [B] against the first
+    ``kv_valid_len`` [B] (clamped to Tk) positions of k, v [B, Tk, Hkv, D].
+    Returns (out [B, Tq, Hq, D], lse [B, Hq, Tq])."""
+    args, out = prepare(q, k, v, q_offset, kv_valid_len, causal=causal)
     launch(args)
     return out

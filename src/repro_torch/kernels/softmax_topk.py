@@ -22,19 +22,11 @@ MAX_K = 32            # the register top-k list holds at most this many
 _MAX_CANDIDATES = 6144  # S * k candidates in phase two's 48 KB of shared memory
 
 #: Kernel launches since the last reset (the serving path's proof of route).
-launches = 0
+launches = {"softmax_topk": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.library("softmax_topk")
-    fn = lib.softmax_topk_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_C, _I, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [_C, _I, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C]
 
 
 def softmax_topk_plain(x: torch.Tensor, k: int) -> SoftmaxTopK:
@@ -76,16 +68,8 @@ def prepare(x: torch.Tensor, k: int):
 
 def launch(args) -> None:
     """Launch the kernel on prepared arguments (counts one launch)."""
-    global launches
-    x2, code, r, v, k, slice_, vals, idx, lse, part_f, part_i = args
-    lib = _lib()
-    with torch.cuda.device(x2.device):
-        err = lib.softmax_topk_launch(
-            build.ptr(x2), code, r, v, k, slice_, build.ptr(vals),
-            build.ptr(idx), build.ptr(lse), build.ptr(part_f),
-            build.ptr(part_i), build.stream_ptr(x2.device))
-    build.check(lib, err, "softmax_topk kernel")
-    launches += 1
+    build.call("softmax_topk", _ARGTYPES, args)
+    launches["softmax_topk"] += 1
 
 
 def softmax_topk(x: torch.Tensor, k: int) -> SoftmaxTopK:

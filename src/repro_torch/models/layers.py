@@ -1,12 +1,13 @@
 """Dense model layers of the port: norms, rotary embedding, GQA attention over
-a paged KV pool, the SwiGLU MLP, embedding and LM head.
+a paged KV pool or a contiguous KV cache, the SwiGLU MLP, embedding and LM
+head.
 
 Port of the dense parts of ``src/repro/models/layers.py``: ``rms_norm`` (line
-90), ``rope`` (109), ``paged_cache_write`` (163), the paged non-quantized
-branch of ``attention_apply`` (306-313), ``mlp_apply`` (459),
-``embed_tokens`` (555) and ``head_matrix`` (559).  Parameters are plain
-dicts of tensors.  The contiguous-cache, int8, MLA and MoE branches come
-with later slices.
+90), ``rope`` (109), ``cache_write`` (146), ``paged_cache_write`` (163), the
+paged and the contiguous non-quantized branches of ``attention_apply``
+(306-313 and 338-353), ``mlp_apply`` (459), ``embed_tokens`` (555) and
+``head_matrix`` (559).  Parameters are plain dicts of tensors.  The int8,
+MLA and MoE branches come with later slices.
 """
 from __future__ import annotations
 
@@ -38,6 +39,28 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cache_write(cache: Tensor, new: Tensor,
+                cache_len: Union[int, Tensor]) -> Tensor:
+    """Write ``new`` [B, t, ...] into ``cache`` [B, S, ...] at offset
+    ``cache_len`` along the sequence axis, in place, and return the cache.
+
+    A scalar ``cache_len`` is the lockstep batch (one shared offset: a
+    ``copy_`` into the slice); a [B] vector writes each row at its own offset
+    (the slot pool: one ``index_put_``).  The JAX code returned a new array
+    (``dynamic_update_slice``, which clamps a start that would overrun S);
+    here every position written must lie inside S."""
+    b, t = new.shape[:2]
+    new = new.to(cache.dtype)
+    if not torch.is_tensor(cache_len) or cache_len.dim() == 0:
+        cache.narrow(1, int(cache_len), t).copy_(new)
+        return cache
+    pos = cache_len.to(cache.device, torch.int64)[:, None] + torch.arange(
+        t, device=cache.device)                                      # [B, t]
+    rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
+    cache.index_put_((rows, pos), new)
+    return cache
 
 
 def paged_cache_write(pool: Tensor, new: Tensor, cache_len: Union[int, Tensor],
@@ -76,8 +99,16 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     * paged serving: ``cache`` holds this layer's block pools
       ``{"k", "v": [P, Hkv, BS, D]}`` shared by every sequence; this step's
       K/V are written through ``block_tables`` at ``cache_len`` (in place)
-      and attention reads the pages through the same table.  A one-token
-      step (decode, or a one-token prefill tail) takes the decode kernel.
+      and attention reads the pages through the same table.
+    * contiguous caches (the slot pool, the lockstep batch): ``cache``
+      holds ``{"k", "v": [B, S, Hkv, D]}``; this step's K/V are written at
+      ``cache_len`` (a scalar or per-row [B]) in place, and attention reads
+      each row's valid prefix.
+
+    Either way a one-token step (decode, or a one-token prefill tail) takes
+    the decode kernel, and a wider one the cached-prefill kernel, with the
+    queries at absolute offset ``cache_len`` and ``cache_len + t`` valid
+    positions per row.
     """
     b, t, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -86,18 +117,18 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     v = (x @ p["wv"]).reshape(b, t, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if cache is not None and block_tables is not None:
-        k_pool = paged_cache_write(cache["k"], k, cache_len, block_tables)
-        v_pool = paged_cache_write(cache["v"], v, cache_len, block_tables)
+    if cache is not None:
+        if block_tables is not None:
+            k_all = paged_cache_write(cache["k"], k, cache_len, block_tables)
+            v_all = paged_cache_write(cache["v"], v, cache_len, block_tables)
+        else:
+            k_all = cache_write(cache["k"], k, cache_len)
+            v_all = cache_write(cache["v"], v, cache_len)
         valid = torch.as_tensor(cache_len, dtype=torch.int32,
                                 device=x.device).expand(b) + t
-        out = dispatch.sdpa(cfg, q, k_pool, v_pool, causal=t > 1,
+        out = dispatch.sdpa(cfg, q, k_all, v_all, causal=t > 1,
                             q_offset=cache_len, kv_valid_len=valid,
                             decode=(t == 1), block_tables=block_tables)
-    elif cache is not None:
-        raise NotImplementedError(
-            "contiguous KV caches are not ported yet: they come with the "
-            "slot-pool serving slice (ROADMAP queue 1)")
     else:
         out = dispatch.sdpa(cfg, q, k, v, causal=True, q_offset=0,
                             kv_valid_len=None)

@@ -1,7 +1,8 @@
 """Cache families: what the serving stack assumes about a config's KV layout.
 
 Port of ``src/repro/serving/cache_family.py`` for the ``dense`` family only
-(``DenseFamily``, line 183): fp attention K/V paged as blocks of
+(``DenseFamily``, line 183): fp attention K/V as contiguous per-sequence
+caches (the slot pool and the lockstep batch) or paged as blocks of
 ``block_size`` token positions, prefix-shareable with copy-on-write.  The
 int8, fixed-state and enc-dec families come with later slices; ``resolve``
 raises for them.  The pool-layout contract is the reference's: the physical
@@ -27,6 +28,9 @@ class CacheFamily:
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+
+    def init_cache(self, batch: int, max_len: int, device) -> dict:
+        raise NotImplementedError
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          device) -> dict:
@@ -54,16 +58,25 @@ class DenseFamily(CacheFamily):
 
     name = "dense"
 
+    def _zeros(self, shape, device) -> dict:
+        dt = transformer.DTYPES[self.cfg.dtype]
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def init_cache(self, batch: int, max_len: int, device) -> dict:
+        """Zeroed contiguous caches {"k", "v": [L, B, S, Hkv, D]}: layer i's
+        [B, S, Hkv, D] is the model layout the attention kernels read."""
+        cfg = self.cfg
+        return self._zeros((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                            cfg.resolved_head_dim), device)
+
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          device) -> dict:
         """Zeroed pools {"k", "v": [L, P, Hkv, BS, D]}; ``num_blocks``
         counts the sentinel block 0."""
         cfg = self.cfg
-        shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_size,
-                 cfg.resolved_head_dim)
-        dt = transformer.DTYPES[cfg.dtype]
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        return self._zeros((cfg.num_layers, num_blocks, cfg.num_kv_heads,
+                            block_size, cfg.resolved_head_dim), device)
 
     def max_blocks(self, slot_len: int, block_size: int) -> int:
         return slot_len // block_size

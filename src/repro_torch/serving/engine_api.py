@@ -1,9 +1,10 @@
 """Engine layer: the narrow serving surface over ``ContinuousScheduler``.
 
 Port of ``src/repro/serving/engine_api.py``: ``Engine`` owns one scheduler
-(and through it the paged pool) behind ``submit / step / drain / serve /
-stats``.  The replica router that drives several engines, and the signals
-it reads (``load``, ``cache_probe``, ``starved``), are a later slice.
+(and through it the slot pool or the paged pool) behind ``submit / step /
+drain / serve / stats``.  The replica router that drives several engines,
+and the signals it reads (``load``, ``cache_probe``, ``starved``), are a
+later slice.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
 class Engine:
     """One serving replica.  ``Engine(params, cfg, num_slots=...,
     slot_len=..., paged=True, device="cuda", ...)`` takes the scheduler's
-    keyword arguments."""
+    keyword arguments; ``paged=False`` serves from the slot pool."""
 
     def __init__(self, params, cfg, **scheduler_kwargs):
         self._sched = ContinuousScheduler(params, cfg, **scheduler_kwargs)
@@ -66,7 +67,8 @@ class Engine:
         occ = (s._occupancy_sum / s.decode_steps if s.decode_steps else 0.0)
         return ServeReport(results=s.finished, decode_steps=s.decode_steps,
                            prefill_chunks=s.prefill_chunks, occupancy=occ,
-                           wall_time=now - started, paged=s.pool.stats())
+                           wall_time=now - started,
+                           paged=s.pool.stats() if s.paged else None)
 
     def stats(self) -> dict:
         s = self._sched
@@ -77,7 +79,8 @@ class Engine:
                "active": len(s.active),
                "finished": len(s.finished),
                "free_slots": s.pool.free_slots}
-        out.update(s.pool.stats())
+        if s.paged:
+            out.update(s.pool.stats())
         return out
 
 

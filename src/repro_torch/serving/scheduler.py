@@ -1,30 +1,36 @@
-"""Continuous-batching scheduler over the paged KV pool.
+"""Continuous-batching scheduler over the slot pool or the paged KV pool.
 
-Port of ``src/repro/serving/scheduler.py`` for ``ContinuousScheduler(
-paged=True)`` with the token (dense) cache family: ``Request`` (line 106),
-``RequestResult`` (126), ``ServeReport`` (190), ``poisson_workload`` (1238,
-the same numpy draws) and the scheduler's admit → chunked prefill → pooled
+Port of ``src/repro/serving/scheduler.py`` for ``ContinuousScheduler``
+with the token (dense) cache family, unpaged (``paged=False``, the slot
+pool) and paged: ``Request`` (line 106), ``RequestResult`` (126),
+``ServeReport`` (190), ``SlotPool`` (410), ``poisson_workload`` (1238, the
+same numpy draws) and the scheduler's admit → chunked prefill → pooled
 decode tick.
 
 * **Admission** — by (arrival tick, FIFO); a request is admitted when it
-  has arrived, no other prefill is in flight, and the pool can place it (a
-  batch row plus the blocks its unmatched prompt needs, after prefix
-  matching and LRU reclaim).
+  has arrived, no other prefill is in flight, and the pool can place it:
+  unpaged, a free slot; paged, a batch row plus the blocks its unmatched
+  prompt needs, after prefix matching and LRU reclaim.
 * **Prefill** — chunked by ``engine.prefill_schedule`` and interleaved with
   decode: one chunk per tick while the pool is nearly full, more as slots
-  sit idle, everything at once when nothing decodes.  Chunks write straight
-  into the pool through the sequence's table row.
-* **Decode** — one step over every slot per tick; rows not decoding see the
-  sentinel table.  A row the pool cannot back is evicted before the step.
+  sit idle, everything at once when nothing decodes.  Unpaged, chunks fill
+  a batch-1 scratch cache of ``slot_len``, inserted into the slot acquired
+  when the prefill finishes; paged, chunks write straight into the pool
+  through the sequence's table row.
+* **Decode** — one step over every slot per tick.  Unpaged, idle slots
+  decode too (at length 0, writing garbage at position 0 that the next
+  insert overwrites) and their lengths are reset to 0 after the step; paged,
+  rows not decoding see the sentinel table, and a row the pool cannot back
+  is evicted before the step.
 * **Sampling noise** — each request owns a ``torch.Generator`` seeded from
   ``(seed, rid)`` and draws its ``k`` Gumbels per token from it, so a
   request's stream does not depend on its neighbours, on arrival order or
   on how its prefill was chunked.  ``noise_fn(rid, token_index, k)``
   overrides the generators (tests feed the reference's noise through it).
 
-Not ported yet: the unpaged slot pool, priorities, SLOs and
-preempt-and-swap, end-of-sequence retirement, temperature, the tracer and
-metrics hooks (later slices; see ROADMAP.md).
+Not ported yet: priorities, SLOs and preempt-and-swap, end-of-sequence
+retirement, temperature, the tracer and metrics hooks (later slices; see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -73,7 +79,7 @@ class ServeReport:
     prefill_chunks: int
     occupancy: float                    # mean active-slot fraction per step
     wall_time: float
-    paged: dict                         # PagedPool.stats()
+    paged: Optional[dict]               # PagedPool.stats(); None unpaged
 
     @property
     def total_tokens(self) -> int:
@@ -114,13 +120,49 @@ def request_seed(seed: int, rid: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Slot pool.
+# ---------------------------------------------------------------------------
+class SlotPool:
+    """Fixed pool of per-sequence KV-cache slots with a [num_slots] length
+    vector — what replaces the lockstep batch's shared scalar.  The caches
+    live on ``device``; the lengths on the host (numpy), handed to the
+    engine as a tensor each step."""
+
+    def __init__(self, cfg: ModelConfig, num_slots: int, slot_len: int,
+                 device="cuda"):
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.slot_len = slot_len
+        self.caches = engine.init_cache(cfg, num_slots, slot_len, device)
+        self.lens = np.zeros((num_slots,), np.int32)
+        self._free: deque[int] = deque(range(num_slots))
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def acquire(self) -> Optional[int]:
+        return self._free.popleft() if self._free else None
+
+    def release(self, slot: int) -> None:
+        self.lens[slot] = 0
+        self._free.append(slot)
+
+    def insert(self, slot: int, seq_caches: dict, length: int) -> None:
+        """Overwrite ``slot`` with a prefilled batch-1 cache of ``length``
+        (in place, ``engine.write_slot``)."""
+        engine.write_slot(self.cfg, self.caches, seq_caches, slot)
+        self.lens[slot] = length
+
+
+# ---------------------------------------------------------------------------
 # The scheduler.
 # ---------------------------------------------------------------------------
 @dataclass
 class _InFlight:
     req: Request
     result: RequestResult
-    slot: int
+    slot: int = -1                      # unpaged: claimed when prefill ends
     produced: int = 0                   # tokens sampled so far
     remaining: int = 0
     last_token_time: float = 0.0
@@ -130,13 +172,14 @@ NoiseFn = Callable[[int, int, int], object]
 
 
 class ContinuousScheduler:
-    """Drives the paged pool: admission → chunked prefill → pooled decode.
+    """Drives the slot pool or the paged pool: admission → chunked prefill
+    → pooled decode.
 
     Keyword arguments mirror the reference's: ``num_slots`` (decode batch
-    rows), ``slot_len`` (per-sequence cache bound, a multiple of
-    ``block_size``), ``prefill_chunk``, ``top_k``, ``paged`` (must be True:
-    the slot pool is a later slice), ``block_size`` / ``num_blocks`` (pool
-    geometry) and ``clock``.  New here: ``seed`` for the per-request
+    rows), ``slot_len`` (per-sequence cache bound; paged, a multiple of
+    ``block_size``), ``prefill_chunk``, ``top_k``, ``paged`` (the block
+    pool, or the slot pool when False), ``block_size`` / ``num_blocks``
+    (paged geometry) and ``clock``.  New here: ``seed`` for the per-request
     generators, ``noise_fn`` to override them, and ``device`` — ``"cuda"``
     by default, ``"cpu"`` only when asked.
     """
@@ -147,17 +190,15 @@ class ContinuousScheduler:
                  num_blocks: Optional[int] = None,
                  clock: Optional[obs_clock.Clock] = None,
                  noise_fn: Optional[NoiseFn] = None, device="cuda"):
-        if not paged:
-            raise NotImplementedError(
-                "unpaged (slot-pool) serving is not ported yet: it comes with "
-                "the slot-pool serving slice (ROADMAP queue 1)")
         self.params = params
         self.cfg = cfg
         self.family = cache_family.resolve(cfg)
         self.device = torch.device(device)
         self.clock = clock or obs_clock.get()
-        self.pool = PagedPool(cfg, num_slots, slot_len, block_size,
-                              num_blocks, device=self.device)
+        self.paged = paged
+        self.pool = (PagedPool(cfg, num_slots, slot_len, block_size,
+                               num_blocks, device=self.device) if paged
+                     else SlotPool(cfg, num_slots, slot_len, self.device))
         self.prefill_chunk = max(1, prefill_chunk)
         self.top_k = top_k
         self.k = min(top_k, cfg.vocab_size)       # noise width per token
@@ -205,7 +246,7 @@ class ContinuousScheduler:
             self.family.validate_prompt(len(req.prompt), self.pool.slot_len)
         except ValueError as e:
             raise ValueError(f"request {req.rid}: {e}") from None
-        if not self.pool.fits(len(req.prompt)):
+        if self.paged and not self.pool.fits(len(req.prompt)):
             raise ValueError(
                 f"request {req.rid}: prompt of {len(req.prompt)} can never "
                 "be admitted — its block need exceeds the whole pool")
@@ -242,21 +283,31 @@ class ContinuousScheduler:
             self._start_prefill(min(arrived, key=lambda e: e[:2])[2])
 
     def _start_prefill(self, req: Request) -> bool:
-        seq = self.pool.admit(req.prompt)
-        if seq is None:
-            return False
-        self.queue.remove(req)
         result = RequestResult(rid=req.rid, prompt_len=len(req.prompt),
                                arrival_time=self._arrival_times[req.rid])
-        flight = _InFlight(req=req, result=result, slot=seq.slot,
+        flight = _InFlight(req=req, result=result,
                            remaining=req.max_new_tokens)
-        # prefill resumes at the first unmatched token: adopted prefix
-        # blocks already hold the same cache content
+        if self.paged:
+            seq = self.pool.admit(req.prompt)
+            if seq is None:
+                return False
+            flight.slot = seq.slot
+            # prefill resumes at the first unmatched token: adopted prefix
+            # blocks already hold the same cache content
+            start, caches = seq.matched, None
+        else:
+            if self.pool.free_slots == 0:
+                return False
+            # a batch-1 scratch cache; the slot is claimed when it is full
+            seq, start = None, 0
+            caches = engine.init_cache(self.cfg, 1, self.pool.slot_len,
+                                       self.device)
+        self.queue.remove(req)
         self._prefill = {
-            "flight": flight, "seq": seq, "length": seq.matched,
-            "pos": seq.matched, "last": None,
+            "flight": flight, "seq": seq, "caches": caches, "length": start,
+            "pos": start, "last": None,
             "sizes": deque(engine.prefill_schedule(
-                len(req.prompt) - seq.matched, self.prefill_chunk))}
+                len(req.prompt) - start, self.prefill_chunk))}
         return True
 
     # -- prefill ------------------------------------------------------------
@@ -271,10 +322,14 @@ class ContinuousScheduler:
             chunk = torch.as_tensor(
                 np.asarray(prompt[pf["pos"]:pf["pos"] + width], np.int64),
                 device=self.device)[None, :]
-            pf["last"], _, pf["length"] = engine.prefill_chunk_paged(
-                self.params, self.pool.caches,
-                self.pool.device_row(pf["flight"].slot), pf["length"], chunk,
-                self.cfg)
+            if self.paged:
+                pf["last"], _, pf["length"] = engine.prefill_chunk_paged(
+                    self.params, self.pool.caches,
+                    self.pool.device_row(pf["flight"].slot), pf["length"],
+                    chunk, self.cfg)
+            else:
+                pf["last"], _, pf["length"] = engine.prefill_chunk(
+                    self.params, pf["caches"], pf["length"], chunk, self.cfg)
             pf["pos"] += width
             self.prefill_chunks += 1
             self.chunk_widths[width] += 1
@@ -294,9 +349,14 @@ class ContinuousScheduler:
         if flight.remaining <= 0:
             self._finish(flight)
             return
-        slot = flight.slot
-        self.pool.finalize_prefill(pf["seq"])
-        self.pool.lens[slot] = pf["length"]
+        if self.paged:
+            slot = flight.slot               # row claimed at admission
+            self.pool.finalize_prefill(pf["seq"])
+            self.pool.lens[slot] = pf["length"]
+        else:
+            slot = self.pool.acquire()       # _admit gated on a free slot
+            self.pool.insert(slot, pf["caches"], pf["length"])
+            flight.slot = slot
         self.tokens[slot] = tok
         self.active[slot] = flight
 
@@ -304,30 +364,39 @@ class ContinuousScheduler:
     def _decode_tick(self) -> None:
         if not self.active:
             return
-        # back every active row's next write with an exclusively-owned
-        # block; a row the pool cannot back is evicted before the step
-        lens_pre = self.pool.lens.copy()
-        for slot in list(self.active):
-            flight = self.active[slot]
-            if not self.pool.prepare_write(slot, int(lens_pre[slot])):
-                flight.result.evicted = True
-                self._finish(flight)
-        if not self.active:
-            return
+        if self.paged:
+            # back every active row's next write with an exclusively-owned
+            # block; a row the pool cannot back is evicted before the step
+            lens_pre = self.pool.lens.copy()
+            for slot in list(self.active):
+                flight = self.active[slot]
+                if not self.pool.prepare_write(slot, int(lens_pre[slot])):
+                    flight.result.evicted = True
+                    self._finish(flight)
+            if not self.active:
+                return
         n = self.pool.num_slots
         noise = torch.zeros((n, self.k), dtype=torch.float32)
         active_mask = np.zeros((n,), bool)
         for s, flight in self.active.items():
             noise[s] = self._noise(flight.req.rid, flight.produced)
             active_mask[s] = True
-        # non-active rows (idle or mid-prefill) see the sentinel table row:
-        # their length-0 garbage write lands in block 0
-        tok, _, _ = engine.decode_step_paged(
-            self.params, self.pool.caches,
-            self.pool.device_tables(self.active.keys()),
-            torch.from_numpy(self.pool.lens).to(self.device),
-            torch.from_numpy(self.tokens).to(self.device)[:, None], self.cfg,
-            noise=noise.to(self.device), top_k=self.top_k)
+        lens = torch.from_numpy(self.pool.lens).to(self.device)
+        toks = torch.from_numpy(self.tokens).to(self.device)[:, None]
+        noise = noise.to(self.device)
+        if self.paged:
+            # non-active rows (idle or mid-prefill) see the sentinel table
+            # row: their length-0 garbage write lands in block 0
+            tok, _, _ = engine.decode_step_paged(
+                self.params, self.pool.caches,
+                self.pool.device_tables(self.active.keys()), lens, toks,
+                self.cfg, noise=noise, top_k=self.top_k)
+        else:
+            # idle slots decode at length 0: their garbage write lands at
+            # position 0 of a free slot, which the next insert overwrites
+            tok, _, _ = engine.decode_step_slots(
+                self.params, self.pool.caches, lens, toks, self.cfg,
+                noise=noise, top_k=self.top_k)
         # idle slots don't age
         self.pool.lens = np.where(active_mask, self.pool.lens + 1,
                                   0).astype(np.int32)
@@ -360,8 +429,11 @@ class ContinuousScheduler:
         flight.result.finish_time = self.clock.monotonic()
         self.finished.append(flight.result)
         self._generators.pop(flight.req.rid, None)
-        self.active.pop(flight.slot, None)
-        self.pool.release(flight.slot)
+        if flight.slot >= 0:
+            # paged flights own their row from admission, so one retired
+            # straight out of prefill is not in `active` yet
+            self.active.pop(flight.slot, None)
+            self.pool.release(flight.slot)
 
 
 # ---------------------------------------------------------------------------

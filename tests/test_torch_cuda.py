@@ -81,7 +81,73 @@ def test_kernels_match_plain(cuda, dtype, atol):
     torch.cuda.synchronize()
     assert dispatch.launch_counts() == {"softmax_topk": 1,
                                         "flash_decode_paged": 1,
-                                        "flash_attention_paged": 1}
+                                        "flash_decode": 0,
+                                        "flash_attention_paged": 1,
+                                        "flash_attention_offset": 0}
+
+
+def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
+    """q [B, Tq, Hq, D] and caches [B, S, Hkv, D] with every position at or
+    past a row's valid length set to NaN, so a kernel that reads one fails;
+    the plain version gets the same caches with those positions zeroed."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, tq, hkv * g, d, generator=gen)
+    k = torch.randn(b, s, hkv, d, generator=gen)
+    v = torch.randn(b, s, hkv, d, generator=gen)
+    dead = torch.arange(s)[None, :] >= torch.tensor(vlens)[:, None]
+    k_nan = k.masked_fill(dead[..., None, None], float("nan"))
+    v_nan = v.masked_fill(dead[..., None, None], float("nan"))
+    k0 = k.masked_fill(dead[..., None, None], 0.0)
+    v0 = v.masked_fill(dead[..., None, None], 0.0)
+    return q, (k_nan, v_nan), (k0, v0), torch.tensor(vlens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_contiguous_kernels_match_plain(cuda, dtype, atol):
+    """The slot pool's kernels: decode over ragged valid lengths (0, 1 and
+    S among them), and cached prefill at per-row offsets with a keyless row
+    and Tq not a multiple of the 16-row tile."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda, dtype=dtype)
+    vlens = [0, 1, 70, 33, 96]
+    q, kv_nan, kv0, vlen = _contiguous(5, b=5, s=96, tq=1, vlens=vlens)
+    got = fd.flash_decode(q.to(**dev), *(t.to(**dev) for t in kv_nan),
+                          vlen.to(cuda))
+    want = fd.flash_decode_plain(q.to(**dev), *(t.to(**dev) for t in kv0),
+                                 vlen.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(got[0], torch.zeros_like(got[0]))     # vlen 0 → 0
+    with pytest.raises(ValueError, match="D=32"):        # head_dim 64 only
+        fd.flash_decode(q[..., :32].to(**dev), kv0[0][..., :32].to(**dev),
+                        kv0[1][..., :32].to(**dev), vlen.to(cuda))
+
+    vlens = [40, 23, 0]
+    q, kv_nan, kv0, vlen = _contiguous(6, b=3, s=50, tq=21, vlens=vlens)
+    qoff = (vlen - 21).clamp(min=0)
+    args = (q.to(**dev),)
+    out, lse = fa.flash_attention_offset(
+        *args, *(t.to(**dev) for t in kv_nan), qoff.to(cuda), vlen.to(cuda))
+    w_out, w_lse = fa.flash_attention_offset_plain(
+        *args, *(t.to(**dev) for t in kv0), qoff.to(cuda), vlen.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - w_out.float()).abs().max().item() <= atol
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+    assert torch.isneginf(lse[2]).all()                  # no valid key
+    fin = torch.isfinite(w_lse)
+    assert (lse[fin] - w_lse[fin]).abs().max().item() <= max(atol, 1e-4)
+    with pytest.raises(ValueError, match="D=32"):
+        fa.flash_attention_offset(
+            q[..., :32].to(**dev), kv0[0][..., :32].to(**dev),
+            kv0[1][..., :32].to(**dev), qoff.to(cuda), vlen.to(cuda))
+    assert dispatch.launch_counts() == {"softmax_topk": 0,
+                                        "flash_decode_paged": 0,
+                                        "flash_decode": 1,
+                                        "flash_attention_paged": 0,
+                                        "flash_attention_offset": 1}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -110,9 +176,55 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
     assert counts == {
         "softmax_topk": sched.decode_steps + sched.prefills_done,
         "flash_decode_paged": (sched.decode_steps + ones) * cfg.num_layers,
+        "flash_decode": 0,
         "flash_attention_paged": (sched.prefill_chunks - ones)
-        * cfg.num_layers}
+        * cfg.num_layers,
+        "flash_attention_offset": 0}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
     assert np.isfinite(rep_g.tokens_per_s)
+
+
+def test_unpaged_streams_equal_on_card_and_cpu(cuda):
+    """The slot pool and the lockstep loop of the same small model (head_dim
+    64) on the card and on the CPU: identical token streams, and on the card
+    the launches the scheduler's counters (or the loop's steps) imply."""
+    cfg = configs.get_smoke("smollm_360m").replace(
+        num_heads=6, num_kv_heads=2, head_dim=64)
+    params_cpu = transformer.init(cfg, seed=4, device="cpu")
+    pool_argv = ["--smoke", "--continuous", "--requests", "5", "--tokens",
+                 "8", "--prompt-len", "20", "--slots", "2", "--prefill-chunk",
+                 "8"]
+    lock_argv = ["--smoke", "--batch", "3", "--prompt-len", "19",
+                 "--tokens", "6"]
+    runs = {}
+    for device, params in (("cuda", transformer.params_to(params_cpu, cuda)),
+                           ("cpu", params_cpu)):
+        args = serve.parse_args(pool_argv + ["--device", device])
+        dispatch.reset_launch_counts()
+        report, eng, _, _ = serve.run(args, cfg, params)
+        pool_counts = dispatch.launch_counts()
+        dispatch.reset_launch_counts()
+        ids = serve.lockstep(serve.parse_args(lock_argv + ["--device",
+                                                           device]),
+                             cfg, params)
+        runs[device] = (report, eng.scheduler, pool_counts, ids,
+                        dispatch.launch_counts())
+    (rep_g, sched, counts, ids_g, lock_counts) = runs["cuda"]
+    rep_c, ids_c = runs["cpu"][0], runs["cpu"][3]
+    assert rep_g.paged is None
+    assert {r.rid: r.tokens for r in rep_g.results} == \
+        {r.rid: r.tokens for r in rep_c.results}
+    assert np.array_equal(ids_g, ids_c)
+    ones = sched.chunk_widths.get(1, 0)
+    n = cfg.num_layers
+    assert counts == {
+        "softmax_topk": sched.decode_steps + sched.prefills_done,
+        "flash_decode_paged": 0,
+        "flash_decode": (sched.decode_steps + ones) * n,
+        "flash_attention_paged": 0,
+        "flash_attention_offset": (sched.prefill_chunks - ones) * n}
+    assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
+                           "flash_decode": 5 * n, "flash_attention_paged": 0,
+                           "flash_attention_offset": n}

@@ -13,8 +13,10 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels.flash_attention import flash_attention_paged_pallas  # noqa: E402
-from repro.kernels.flash_decode import flash_decode_paged_pallas  # noqa: E402
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention_offset_pallas, flash_attention_paged_pallas)
+from repro.kernels.flash_decode import (  # noqa: E402
+    flash_decode_pallas, flash_decode_paged_pallas)
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build, dispatch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -92,6 +94,65 @@ def test_plain_paged_prefill_matches_pallas(qoff, vlens, bs, bq):
         assert np.isneginf(lse.numpy()[vlens.index(0)]).all()
 
 
+def _contiguous_case(seed, *, b, s, tq, hkv=2, g=3, d=8):
+    """q [B, Tq, Hq, D]; k, v [B, S, Hkv, D] (model layout)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, tq, hkv * g, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("vlens,bk", [([0, 1, 16, 9], 4), ([16, 3, 11], 8),
+                                      ([1, 0], 16)])
+def test_plain_decode_matches_pallas(vlens, bk):
+    """The contiguous decode's plain version against ``flash_decode_pallas``
+    (caches transposed to its [B, Hkv, S, D]): ragged valid lengths with 0,
+    1 and S among them, G = 3, fp32 within 1e-5."""
+    q, k, v = _contiguous_case(4, b=len(vlens), s=16, tq=1)
+    vlen = np.asarray(vlens, np.int32)
+    ref = flash_decode_pallas(
+        jnp.asarray(q[:, 0]), jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(vlen), bk=bk,
+        interpret=True)
+    got = fd.flash_decode_plain(_t(q), _t(k), _t(v), _t(vlen), chunk_size=8)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(ref), **TOL)
+    assert not got[np.asarray(vlens) == 0].any()       # no valid key → 0
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("qoff,vlens,tq,bq,bk", [
+    ([0, 3, 9], [12, 15, 21], 12, 4, 8),   # ragged offsets, Tq not 16k
+    ([2, 0], [10, 0], 8, 8, 8),            # row 1: no valid key (lse -inf)
+    ([14, 1], [30, 9], 6, 2, 4)])          # vlen clamped to Tk = 24
+def test_plain_offset_prefill_matches_pallas(qoff, vlens, tq, bq, bk, causal):
+    """The contiguous cached prefill's plain version against
+    ``flash_attention_offset_pallas``: per-row q_offset and vlen, causal on
+    and off, a keyless row; out and lse in fp32 within 1e-5."""
+    q, k, v = _contiguous_case(5, b=len(vlens), s=24, tq=tq)
+    qo, vlen = np.asarray(qoff, np.int32), np.asarray(vlens, np.int32)
+    ref_out, ref_lse = flash_attention_offset_pallas(
+        jnp.asarray(q.transpose(0, 2, 1, 3)),
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(qo),
+        jnp.asarray(np.minimum(vlen, 24)), causal=causal, bq=bq, bk=bk,
+        interpret=True)
+    out, lse = fa.flash_attention_offset_plain(_t(q), _t(k), _t(v), _t(qo),
+                                               _t(vlen), causal=causal,
+                                               chunk_size=8)
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(ref_out).transpose(0, 2, 1, 3),
+                               **TOL)
+    ref_lse = np.asarray(ref_lse)[..., 0]
+    np.testing.assert_array_equal(np.isneginf(lse.numpy()),
+                                  np.isneginf(ref_lse))
+    fin = np.isfinite(ref_lse)
+    np.testing.assert_allclose(lse.numpy()[fin], ref_lse[fin], **TOL)
+    if 0 in vlens:
+        assert np.isneginf(lse.numpy()[vlens.index(0)]).all()
+
+
 def test_dispatch_routes_cpu_tensors_to_plain_versions():
     dispatch.reset_launch_counts()
     cfg = configs.get_smoke("smollm_360m")
@@ -107,7 +168,9 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
     assert torch.equal(got.indices, st.softmax_topk_plain(x, 4).indices)
     assert dispatch.launch_counts() == {"softmax_topk": 0,
                                         "flash_decode_paged": 0,
-                                        "flash_attention_paged": 0}
+                                        "flash_decode": 0,
+                                        "flash_attention_paged": 0,
+                                        "flash_attention_offset": 0}
 
 
 def test_dispatch_raises_on_unported_routes():
@@ -134,8 +197,18 @@ def test_dispatch_raises_on_unported_routes():
                                      torch.zeros(2, 1, 4, 64),
                                      torch.zeros(1, dtype=torch.int32),
                                      torch.ones(1, dtype=torch.int32),
-                                     torch.zeros(1, 1, dtype=torch.int32))],
-    ids=["softmax_topk", "flash_decode_paged", "flash_attention_paged"])
+                                     torch.zeros(1, 1, dtype=torch.int32)),
+    lambda: fd.flash_decode(torch.zeros(2, 1, 3, 64),
+                            torch.zeros(2, 8, 1, 64),
+                            torch.zeros(2, 8, 1, 64),
+                            torch.ones(2, dtype=torch.int32)),
+    lambda: fa.flash_attention_offset(torch.zeros(1, 3, 2, 64),
+                                      torch.zeros(1, 8, 1, 64),
+                                      torch.zeros(1, 8, 1, 64),
+                                      torch.zeros(1, dtype=torch.int32),
+                                      torch.ones(1, dtype=torch.int32))],
+    ids=["softmax_topk", "flash_decode_paged", "flash_attention_paged",
+         "flash_decode", "flash_attention_offset"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches on CUDA tensors or raises: it never falls
     back to the plain version."""
@@ -143,6 +216,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
         call()
     assert dispatch.launch_counts() == before
+
+
+def test_kernels_refuse_other_dtypes():
+    """fp32 and bf16 only; the wrappers call this after the device check."""
+    assert build.dtype_code(torch.zeros(1, dtype=torch.bfloat16)) == 1
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        build.dtype_code(torch.zeros(1, dtype=torch.float16))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
