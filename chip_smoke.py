@@ -11,12 +11,16 @@ printing its final line:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a), with the build time and ptxas's register report;
-3. kernels against their plain PyTorch versions at the serving paths' shapes
-   (fused softmax+top-k; paged decode; paged prefill, with edge cases and the
-   64-token chunks after long cached prefixes; contiguous decode over ragged
-   slots; contiguous cached prefill at the slot pool's chunks and tails and
-   the lockstep prefill; fp32 and bf16; every dead table entry and every
-   cache position at or past a row's valid length poisoned with NaN);
+3. kernels against their plain PyTorch versions at the serving and
+   training paths' shapes (fused softmax+top-k; paged decode; paged
+   prefill, with edge cases and the 64-token chunks after long cached
+   prefixes; contiguous decode over ragged slots; contiguous cached prefill
+   at the slot pool's chunks and tails and the lockstep prefill; the fresh
+   flash forward and its dq and dk/dv backward at T = 512, 37 and 1, causal
+   and not, and ``FlashAttention``'s gradients against autograd through the
+   plain forward; fp32 and bf16; every dead table entry, every cache
+   position at or past a row's valid length and every K/V row past T
+   poisoned with NaN);
 4. serve: smollm-360m at full width in bf16 through its three serving paths,
    each with the launch counts set to 0 just before it and read just after:
    ``Engine`` with the paged continuous-batching scheduler, ``Engine`` over
@@ -26,12 +30,24 @@ printing its final line:
 5. parity: short full-width fp32 workloads of the three paths, once on the
    card through the kernels and once on the CPU through the plain versions;
    token streams (and the paged pool's stats) must be identical;
-6. times: each kernel, first held against its plain version on the very
+6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
+   at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
+   the end, with the launch counts set to 0 just before it and read just
+   after: every loss and grad norm finite, and with remat "full" 2 forward
+   launches per layer and step (the forward, then its recomputation in the
+   backward) and one dq and one dk/dv launch; then a restart at 2 layers
+   (6 steps checkpointed every 3, then a run to 8 that resumes at 6) whose
+   parameters equal an uninterrupted 8-step run bit for bit;
+7. train parity: one fp32 loss-and-gradient evaluation of the full-width
+   model cut to 2 layers (batch 2 × 128) on the card through the kernels
+   and on the CPU through the plain versions, from the same weights;
+8. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
-   the serving paths' shapes, beside its bound, its plain version and, where
-   one PyTorch call computes the same function, that call; then full-width
-   decode steps and prefill chunks of the paged pool and the slot pool end to
-   end, against the device's busy time inside them (torch.profiler).
+   the serving and training paths' shapes, beside its bound, its plain
+   version and, where one PyTorch call computes the same function, that
+   call; then full-width decode steps and prefill chunks of the paged pool
+   and the slot pool, and a full-width train step, end to end, against the
+   device's busy time inside them (torch.profiler).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -39,6 +55,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -67,6 +84,15 @@ KERNELS = {
     "flash_attention_offset": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_offset.cu",
         "replaces": "src/repro/kernels/flash_attention.py:260"},
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:122"},
+    "flash_attention_bwd_dq": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:134"},
+    "flash_attention_bwd_dkv": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:154"},
 }
 # the serving runs of phase 4 (the CLI's own flags); each kernel's
 # "launches" comes from the run of the path it was ported for
@@ -83,9 +109,18 @@ SLOT_PARITY_ARGS = ["--continuous", "--requests", "3", "--slots", "2",
                     "--prompt-len", "40", "--tokens", "12", "--prefill-chunk",
                     "16"]
 LOCKSTEP_PARITY_ARGS = ["--batch", "2", "--prompt-len", "37", "--tokens", "8"]
+# the training run of phase 6 (the CLI's own flags), its 2-layer restart
+# runs, and the fp32 parity batch of phase 7
+TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "20", "--seq-len", "512",
+              "--global-batch", "8", "--checkpoint-every", "20"]
+RESTART_ARGS = ["--arch", "smollm_360m", "--layers", "2", "--seq-len", "512",
+                "--global-batch", "8"]
+TRAIN_PARITY = dict(layers=2, batch=2, seq_len=128)
 KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "flash_attention_paged": "paged", "flash_decode": "slot pool",
-               "flash_attention_offset": "slot pool"}
+               "flash_attention_offset": "slot pool",
+               "flash_attention": "train", "flash_attention_bwd_dq": "train",
+               "flash_attention_bwd_dkv": "train"}
 
 
 def _fail(msg: str) -> None:
@@ -414,6 +449,102 @@ def _check_offset(gen) -> float:
     return worst
 
 
+def _fresh_inputs(gen, *, dtype, b, t, hkv=5, g=3, d=64, spare=16):
+    """q, dout [B, T, Hq, D] and k, v [B, T, Hkv, D] on the card, k and v
+    cut from buffers of T + ``spare`` positions whose rows past T are NaN
+    (so they are strided views, and a kernel that reads past T turns its
+    output NaN)."""
+    import torch
+    q = torch.randn(b, t, hkv * g, d, generator=gen)
+    dout = torch.randn(b, t, hkv * g, d, generator=gen)
+    kv = torch.randn(2, b, t + spare, hkv, d, generator=gen)
+    kv[:, :, t:] = float("nan")
+    kv = kv.to(device="cuda", dtype=dtype)
+    return (q.to(device="cuda", dtype=dtype), kv[0, :, :t], kv[1, :, :t],
+            dout.to(device="cuda", dtype=dtype))
+
+
+def _scaled_err(got, want) -> float:
+    """Max abs error over the larger of 1 and the reference's largest
+    entry (gradients sum over up to T keys or queries)."""
+    scale = max(1.0, want.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def _fresh_errs(q, k, v, dout, causal: bool) -> dict:
+    """The fresh forward and the two backward kernels against their plain
+    versions on one input: {name: scaled max abs error}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
+    w_out, w_lse = fa.flash_attention_fwd_plain(q, k0, v0, causal=causal)
+    w_dq, w_dk, w_dv = fab.flash_attention_bwd_plain(q, k0, v0, out, lse,
+                                                     dout, causal=causal)
+    for name, x in (("out", out), ("lse", lse), ("dq", dq), ("dk", dk),
+                    ("dv", dv)):
+        if not torch.isfinite(x).all():
+            _fail(f"fresh attention {name}: non-finite values (a K/V row "
+                  "past T was read)")
+    return {"flash_attention": max(_scaled_err(out, w_out),
+                                   (lse - w_lse).abs().max().item()),
+            "flash_attention_bwd_dq": _scaled_err(dq, w_dq),
+            "flash_attention_bwd_dkv": max(_scaled_err(dk, w_dk),
+                                           _scaled_err(dv, w_dv))}
+
+
+def _check_fresh(gen) -> dict:
+    """The training kernels at T = 512 (the training run's), 37 (not a
+    multiple of the 16-row tile) and 1, causal and not, B = 2, 15/5 heads,
+    D = 64; then ``FlashAttention``'s dq, dk, dv against autograd through
+    the plain forward.  Errors are max abs over max(1, the largest
+    reference entry); fp32 within 1e-5, bf16 within 2e-2."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    worst = dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"), 0.0)
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        errs = dict.fromkeys(worst, 0.0)
+        for t in (512, 37, 1):
+            for causal in (True, False):
+                inputs = _fresh_inputs(gen, dtype=dtype, b=2, t=t)
+                for name, err in _fresh_errs(*inputs, causal).items():
+                    if err > atol:
+                        _fail(f"{name} {str(dtype)[6:]} T={t} causal="
+                              f"{causal}: scaled max abs err {err:.3g} > "
+                              f"{atol}")
+                    errs[name] = max(errs[name], err)
+        q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=2, t=37)
+        k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+        grads = []
+        for fn in (lambda a, b_, c: fa.FlashAttention.apply(a, b_, c, True),
+                   lambda a, b_, c: fa.flash_attention_fwd_plain(
+                       a, b_, c, causal=True)[0]):
+            args = [x.detach().clone().requires_grad_(True)
+                    for x in (q, k, v)]
+            fn(*args).backward(dout)
+            grads.append([a.grad for a in args])
+        torch.cuda.synchronize()
+        auto = max(_scaled_err(a, b_) for a, b_ in zip(*grads))
+        if auto > atol:
+            _fail(f"FlashAttention {str(dtype)[6:]}: gradients differ from "
+                  f"autograd through the plain forward by {auto:.3g}")
+        print(f"kernel fresh attention {str(dtype)[6:]} B=2 Hq=15 Hkv=5 D=64"
+              f" T=512/37/1 causal and not, K/V NaN past T: scaled max abs "
+              f"err forward {errs['flash_attention']:.3g}, dq "
+              f"{errs['flash_attention_bwd_dq']:.3g}, dk/dv "
+              f"{errs['flash_attention_bwd_dkv']:.3g}; FlashAttention "
+              f"gradients against autograd through the plain forward "
+              f"{auto:.3g} (atol {atol})")
+        if dtype == torch.float32:
+            worst = errs
+    return worst
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -421,7 +552,8 @@ def phase_kernels() -> dict:
             "flash_decode_paged": _check_decode(gen),
             "flash_attention_paged": _check_prefill(gen),
             "flash_decode": _check_contiguous_decode(gen),
-            "flash_attention_offset": _check_offset(gen)}
+            "flash_attention_offset": _check_offset(gen),
+            **_check_fresh(gen)}
 
 
 # ---------------------------------------------------------------------------
@@ -603,7 +735,134 @@ def phase_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
-# 6: times at the serving path's shapes
+# 6: train smollm-360m at full width through the training CLI
+# ---------------------------------------------------------------------------
+def _train(argv, ckpt_dir: str):
+    """``repro_torch.launch.train`` on ``argv`` into ``ckpt_dir``, quiet.
+    Returns (params, opt_state, history, run config)."""
+    from repro_torch.launch import train
+    args = train.parse_args(argv + ["--checkpoint-dir", ckpt_dir])
+    return train.train(args, log=lambda *_: None)
+
+
+def phase_train():
+    """20 full-width bf16 steps between a reset and a read of the launch
+    counts, then the 2-layer restart check.  Returns (the counts, what the
+    train-step timing reuses)."""
+    import tempfile
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    args = train.parse_args(TRAIN_ARGS)
+    with tempfile.TemporaryDirectory() as tmp:
+        dispatch.reset_launch_counts()
+        params, opt, hist, run = _train(TRAIN_ARGS, os.path.join(tmp, "a"))
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        steps, n = len(hist), run.model.num_layers
+        print(f"train: {run.model.name} {run.model.dtype}, {n} layers, "
+              f"d_model {run.model.d_model}, {steps} steps of "
+              f"{args.global_batch} x {args.seq_len} tokens, remat "
+              f"{run.model.remat}, grads reduced in "
+              f"{run.parallel.grad_reduce_dtype}")
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_norm"] for h in hist]
+        if steps != args.steps or not all(
+                map(math.isfinite, losses + norms)):
+            _fail(f"train: {steps} steps, losses {losses}, grad norms "
+                  f"{norms}")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(flash_attention=2 * steps * n,
+                    flash_attention_bwd_dq=steps * n,
+                    flash_attention_bwd_dkv=steps * n)
+        if counts != want:
+            _fail(f"train: launches {counts}, remat 'full' implies {want}")
+        dts = [h["dt"] for h in hist[1:]]
+        tok = args.global_batch * args.seq_len
+        print(f"train: first loss {losses[0]:.4f} → last loss "
+              f"{losses[-1]:.4f}; grad norm {norms[0]:.4f} → {norms[-1]:.4f};"
+              f" step 0 {hist[0]['dt'] * 1e3:.1f}ms, steps 1-{steps - 1} "
+              f"median {statistics.median(dts) * 1e3:.1f}ms = "
+              f"{tok / statistics.median(dts):.0f} tokens/s")
+        print(f"train launches: {counts} = per step {2 * n} forward "
+              f"(forward + recomputation), {n} dq, {n} dk/dv over {steps} "
+              "steps")
+
+        # restart: 6 steps checkpointed every 3, then on to 8, against an
+        # uninterrupted 8 (warmup 20 > 8 steps: the schedule does not
+        # depend on --steps, so the runs take the same steps)
+        _train(RESTART_ARGS + ["--steps", "6", "--checkpoint-every", "3"],
+               os.path.join(tmp, "b"))
+        p_re, o_re, h_re, _ = _train(RESTART_ARGS + ["--steps", "8"],
+                                     os.path.join(tmp, "b"))
+        p_ref, o_ref, _, _ = _train(RESTART_ARGS + ["--steps", "8"],
+                                    os.path.join(tmp, "c"))
+        if [h["step"] for h in h_re] != [6, 7] or int(o_re.step) != 8:
+            _fail(f"train restart: resumed at {[h['step'] for h in h_re]}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree.leaves((p_re, o_re)), tree.leaves((p_ref, o_ref))))
+        if not same:
+            _fail("train restart: parameters differ from an uninterrupted "
+                  "run")
+        print("train restart: 2 layers, 6 steps (checkpoints at 3 and 6) "
+              "then resumed at 6 to 8: parameters and optimizer state "
+              "bit-identical to an uninterrupted 8-step run")
+    return counts, {"params": params, "opt": opt, "run": run, "args": args}
+
+
+# ---------------------------------------------------------------------------
+# 7: fp32 training parity at full width: kernels on the card vs the CPU
+# ---------------------------------------------------------------------------
+def phase_train_parity() -> None:
+    """Loss and every gradient of one fp32 batch, full width cut to 2
+    layers, on the card (kernels) and on the CPU (plain versions), from the
+    same weights.  The loss within 1e-5 relative; each gradient leaf within
+    1e-4 of its largest entry (fp32 sums in other orders on the two
+    devices, through the 49152-wide head)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.models import transformer
+    cfg = configs.get("smollm_360m").replace(
+        num_layers=TRAIN_PARITY["layers"], dtype="float32")
+    batch = SyntheticDataset(SyntheticConfig(
+        cfg.vocab_size, TRAIN_PARITY["seq_len"],
+        TRAIN_PARITY["batch"])).batch(0)
+    params_cpu = transformer.init(cfg, seed=2, device="cpu")
+    out = {}
+    for device, params in (("cuda", transformer.params_to(params_cpu,
+                                                          "cuda")),
+                           ("cpu", params_cpu)):
+        params = tree.map(lambda p: p.requires_grad_(True), params)
+        b = {k: torch.as_tensor(np.asarray(v), device=device)
+             for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss, _ = transformer.loss_fn(params, b, cfg)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+        out[device] = (loss.item(), [g.cpu() for g in grads])
+        print(f"train parity {device}: loss {out[device][0]:.6f} in "
+              f"{time.perf_counter() - t0:.1f}s")
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, where = 0.0, ""
+    paths = [p for p, _ in tree.leaves_with_path(params_cpu)]
+    for path, a, b in zip(paths, out["cuda"][1], out["cpu"][1]):
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if err > worst:
+            worst, where = err, path
+    if rel > 1e-5 or worst > 1e-4:
+        _fail(f"train parity: loss rel diff {rel:.3g} (1e-5), gradient "
+              f"{where} rel diff {worst:.3g} (1e-4)")
+    print(f"train parity: fp32 {cfg.num_layers} layers full width, batch "
+          f"{TRAIN_PARITY['batch']} x {TRAIN_PARITY['seq_len']}: loss rel "
+          f"diff {rel:.3g} (tol 1e-5); worst gradient leaf {where} max abs "
+          f"diff {worst:.3g} of its largest entry (tol 1e-4) over "
+          f"{len(paths)} leaves")
+
+
+# ---------------------------------------------------------------------------
+# 8: times at the serving and training paths' shapes
 # ---------------------------------------------------------------------------
 def _bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -628,7 +887,8 @@ def _host_ms(fn, samples: int = 10, warmup: int = 2) -> float:
 
 PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
                        "decode_paged_kernel", "prefill_paged_kernel",
-                       "decode_kernel", "prefill_offset_kernel")
+                       "decode_kernel", "prefill_offset_kernel",
+                       "fresh_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")
 
 
 def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
@@ -653,14 +913,16 @@ def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
     return total / reps / 1e3, ours / reps / 1e3
 
 
-def phase_steps(serve_ctx) -> None:
-    """Where a serving step's time goes: one full-width decode step over 8
-    busy slots and one 64-token prefill chunk, of the paged pool and of the
-    slot pool, timed from the host's call to the device's finish, against
-    the device's busy time inside it (all kernels, and the port's own, from
-    torch.profiler)."""
+def phase_steps(serve_ctx, train_ctx) -> None:
+    """Where a step's time goes: one full-width decode step over 8 busy
+    slots and one 64-token prefill chunk, of the paged pool and of the slot
+    pool, and one full-width train step of 8 x 512 tokens, timed from the
+    host's call to the device's finish, against the device's busy time
+    inside it (all kernels, and the port's own, from torch.profiler)."""
     import torch
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
     from repro_torch.serving import engine
+    from repro_torch.training.train_step import make_train_step
     params, cfg, engines = (serve_ctx[k]
                             for k in ("params", "cfg", "engines"))
     pool = engines["paged"].scheduler.pool   # idle after the serve: reuse
@@ -689,9 +951,22 @@ def phase_steps(serve_ctx) -> None:
                                              toks, cfg, noise=noise, top_k=5),
         "slot-pool prefill chunk [64 tokens at offset 64, bf16]":
             lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg)}
+    run, targs = train_ctx["run"], train_ctx["args"]
+    step_fn = make_train_step(run)
+    batch = SyntheticDataset(SyntheticConfig(
+        run.model.vocab_size, targs.seq_len, targs.global_batch)).batch(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    state = [train_ctx["params"], train_ctx["opt"]]
+
+    def train_step():
+        state[0], state[1], _ = step_fn(state[0], state[1], batch)
+
+    steps[f"train step [{targs.global_batch} x {targs.seq_len} tokens, "
+          f"{run.model.num_layers} layers, bf16, remat full]"] = train_step
     for name, fn in steps.items():
-        wall = _host_ms(fn)
-        busy, ours = _device_ms(fn)
+        reps = 2 if fn is train_step else 5
+        wall = _host_ms(fn, samples=5 if fn is train_step else 10)
+        busy, ours = _device_ms(fn, reps=reps)
         print(f"step {name}: {wall:.3f}ms host call to device finish; "
               f"device busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
               f"{100 - 100 * busy / wall:.1f}%), of which the port's "
@@ -833,6 +1108,7 @@ def phase_times() -> dict:
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"B={b} Tq={tq} q_offset={qoff} vlen={vlen} Tk={tk} "
                      "Hq=15 Hkv=5 D=64 bf16"}
+    rows.update(_train_kernel_times(gen))
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
                else "none")
@@ -840,6 +1116,89 @@ def phase_times() -> dict:
               f"(wrapper call {row['wrapper_ms']:.4f}ms), bound "
               f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
               f"{row['plain_ms']:.4f}ms, library {lib}")
+    return rows
+
+
+def _train_kernel_times(gen) -> dict:
+    """Rows 6-7 at the training shape (B = 8, T = 512, 15/5 heads, D = 64,
+    bf16, causal): the fresh forward, and the dq and dk/dv kernels, each
+    against its bound; the wrapper and plain times of the forward and of the
+    whole backward; the library yardstick is SDPA (is_causal, enable_gqa) on
+    [B, H, T, D] views, its forward for row 6 and its autograd backward for
+    row 7 (the dq and dk/dv rows both carry the whole backward's plain and
+    library times)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    b, t, hq, hkv, d, esz = 8, 512, 15, 5, 64, 2
+    q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=b, t=t)
+    k, v = k.contiguous(), v.contiguous()      # the model's K/V layout
+    errs = _fresh_errs(q, k, v, dout, True)
+    if max(errs.values()) > 2e-2:
+        _fail(f"fresh attention on the timed input: {errs}")
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    pairs = t * (t + 1) // 2
+    per_pair = 2.0 * d * b * hq              # flops of one product per pair
+    io = b * t * (2 * hq + 2 * hkv) * d * esz   # q, dout (or out), k, v
+    stats = 2 * b * hq * t * 4                  # lse and delta, fp32
+    shape = "B=8 T=512 Hq=15 Hkv=5 D=64 bf16 causal"
+
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                  for x in (qs, ks, vs))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+    lib_dout = dout.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (qg, kg, vg), lib_dout,
+                                   retain_graph=True)
+
+    fwd_args, _ = fa.prepare_fwd(q, k, v)
+    dq_args, dkv_args, _ = fab.prepare(q, k, v, out, lse, dout)
+    bwd_plain = _ms(lambda: fab.flash_attention_bwd_plain(
+        q, k, v, out, lse, dout), samples=5, inner=2)
+    bwd_lib = _ms(sdpa_bwd)
+    bwd_wrapper = _ms(lambda: fab.flash_attention_bwd(q, k, v, out, lse,
+                                                      dout))
+    rows = {}
+    b_ms, b_by = _bound(io + b * hq * t * 4, 2 * per_pair * pairs,
+                        "bfloat16")
+    rows["flash_attention"] = {
+        "ms": _ms(lambda: fa.launch(fwd_args)),
+        "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(q, k, v)),
+        "plain_ms": _ms(lambda: fa.flash_attention_fwd_plain(q, k, v),
+                        samples=5, inner=2),
+        "library_ms": _ms(sdpa),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    # dq: s, dp and dq products; reads q, k, v, dout, lse, delta, writes dq
+    b_ms, b_by = _bound(io + stats + b * t * hq * d * esz,
+                        3 * per_pair * pairs, "bfloat16")
+    rows["flash_attention_bwd_dq"] = {
+        "ms": _ms(lambda: fab.launch(dq_args)), "wrapper_ms": bwd_wrapper,
+        "plain_ms": bwd_plain, "library_ms": bwd_lib,
+        "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    # dk/dv: s, dp, dk and dv products; writes dk and dv
+    b_ms, b_by = _bound(io + stats + 2 * b * t * hkv * d * esz,
+                        4 * per_pair * pairs, "bfloat16")
+    rows["flash_attention_bwd_dkv"] = {
+        "ms": _ms(lambda: fab.launch(dkv_args)), "wrapper_ms": bwd_wrapper,
+        "plain_ms": bwd_plain, "library_ms": bwd_lib,
+        "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    # the whole backward's bound (five products; out read for delta)
+    b_ms, b_by = _bound(io + b * t * hq * d * esz + b * hq * t * 4
+                        + b * t * (hq + 2 * hkv) * d * esz,
+                        5 * per_pair * pairs, "bfloat16")
+    print(f"time flash attention backward, both kernels [{shape}]: bound "
+          f"{b_ms:.5f}ms by {b_by}; wrapper (delta + dq + dk/dv) "
+          f"{bwd_wrapper:.4f}ms, plain {bwd_plain:.4f}ms, SDPA autograd "
+          f"backward {bwd_lib:.4f}ms")
     return rows
 
 
@@ -865,8 +1224,10 @@ def main() -> int:
     errs = _timed(phase_kernels)
     counts, serve_ctx = _timed(phase_serve)
     _timed(phase_parity)
+    counts["train"], train_ctx = _timed(phase_train)
+    _timed(phase_train_parity)
     times = _timed(phase_times)
-    _timed(phase_steps, serve_ctx)
+    _timed(phase_steps, serve_ctx, train_ctx)
     kernels = []
     for name, meta in KERNELS.items():
         row = times[name]

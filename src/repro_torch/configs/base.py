@@ -1,5 +1,6 @@
-"""Model configuration dataclass: the port's own copy of ``ModelConfig``
-(reference: ``src/repro/configs/base.py:62-113``).
+"""Configuration dataclasses: the port's own copies of ``ModelConfig``
+(reference: ``src/repro/configs/base.py:62-113``) and of the training run's
+``ParallelConfig``, ``OptimizerConfig`` and ``RunConfig`` (135-170).
 
 The family sub-configs (MLA, MoE, SSM, xLSTM) are typed loosely here: the
 dense slice never reads them, and they are ported with their families.
@@ -7,8 +8,8 @@ dense slice never reads them, and they are ported with their families.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -61,3 +62,42 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How the model maps onto the mesh.  The port runs on one device: only
+    ``grad_reduce_dtype`` and ``microbatches`` are read; the other fields
+    keep the reference's names for the distributed slice."""
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    attn_mode: str = "heads"
+    seq_sharded_norms: bool = True
+    grad_reduce_dtype: str = "bfloat16"
+    microbatches: int = 1
+    fsdp: bool = False
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"          # cosine | linear | constant
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    seed: int = 0
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    log_every: int = 10

@@ -105,15 +105,18 @@ def _chunked_fwd_impl(q, k, v, q_offset, kv_valid_len, causal, chunk_size,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         n_chunks += 1
     kv_valid_len = kv_valid_len.clamp(max=tk)
-    qf = (q.float() * scale).reshape(b, tq, hkv, g, dh)
+    # fp32 accumulation (fp64 for fp64 inputs, which gradient checks use)
+    f = dict(dtype=torch.promote_types(q.dtype, torch.float32),
+             device=q.device)
+    qf = (q.to(f["dtype"]) * scale).reshape(b, tq, hkv, g, dh)
     q_pos = _q_positions(tq, q_offset)
-    m_run = torch.full((b, hkv, g, tq), NEG_INF, device=q.device)
-    d_run = torch.zeros((b, hkv, g, tq), device=q.device)
-    acc = torch.zeros((b, hkv, g, tq, dv), device=q.device)
+    m_run = torch.full((b, hkv, g, tq), NEG_INF, **f)
+    d_run = torch.zeros((b, hkv, g, tq), **f)
+    acc = torch.zeros((b, hkv, g, tq, dv), **f)
     for idx in range(n_chunks):
         lo = idx * chunk_size
-        kc = k[:, lo:lo + chunk_size].float()
-        vc = v[:, lo:lo + chunk_size].float()
+        kc = k[:, lo:lo + chunk_size].to(f["dtype"])
+        vc = v[:, lo:lo + chunk_size].to(f["dtype"])
         k_pos = lo + torch.arange(chunk_size, device=q.device)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc)
         mask = _chunk_mask(q_pos, k_pos, kv_valid_len, causal)

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("softmax_topk", "flash_decode_paged", "flash_attention_paged",
-           "flash_decode", "flash_attention_offset")
+           "flash_decode", "flash_attention_offset", "flash_attention_fwd",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -103,12 +104,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def call(name: str, argtypes: list, args) -> None:
-    """Call ``<name>_launch`` of ``csrc/<name>.cu`` on ``args``: tensors pass
-    as their data pointers, and the current stream of the first tensor's
-    device is appended.  Raises if the launch reported a CUDA error."""
+def call(name: str, argtypes: list, args, *,
+         source: str | None = None) -> None:
+    """Call ``<name>_launch`` of ``csrc/<source>.cu`` (``source`` defaults
+    to ``name``) on ``args``: tensors pass as their data pointers, and the
+    current stream of the first tensor's device is appended.  Raises if the
+    launch reported a CUDA error."""
     import torch
-    lib = library(name)
+    lib = library(source or name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes

@@ -11,15 +11,19 @@ capability probe; here the choice goes by the tensor's device alone:
 * ``cpu`` runs the kernel's plain PyTorch version;
 * any other device raises.
 
-On CUDA, fresh attention (``kv_valid_len`` unset: the training form, a
-later slice), a custom scale and a value head_dim other than q's still
-raise ``NotImplementedError``; on the CPU the chunked online form serves
-them, as the reference's XLA path did.
+Fresh attention (``kv_valid_len`` unset, ``q_offset`` 0: the training
+form) runs ``FlashAttention`` on CUDA, the forward kernel with its dq and
+dk/dv backward kernels, as the reference's ``_attention_pallas`` ran
+``ops._flash`` (``dispatch.py:540``); on the CPU it runs the chunked online
+form, which autograd differentiates.  On CUDA a custom scale and a value
+head_dim other than q's still raise ``NotImplementedError``; on the CPU the
+chunked online form serves them, as the reference's XLA path did.
 """
 from __future__ import annotations
 
 from repro_torch import core
 from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels import flash_decode as _flash_decode
 from repro_torch.kernels import softmax_topk as _softmax_topk
 
@@ -27,7 +31,10 @@ _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_decode_paged": _flash_decode,
                    "flash_decode": _flash_decode,
                    "flash_attention_paged": _flash_attention,
-                   "flash_attention_offset": _flash_attention}
+                   "flash_attention_offset": _flash_attention,
+                   "flash_attention": _flash_attention,
+                   "flash_attention_bwd_dq": _flash_attention_bwd,
+                   "flash_attention_bwd_dkv": _flash_attention_bwd}
 
 
 def launch_counts() -> dict:
@@ -73,16 +80,18 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
         if decode:
             return _flash_decode.flash_decode(q, k, v, kv_valid_len)
         if kv_valid_len is None:
-            raise NotImplementedError(
-                "fresh (cache-free) attention on CUDA is not ported yet: its "
-                "kernel comes with the training slice (ROADMAP queue 2)")
+            if not (isinstance(q_offset, int) and q_offset == 0):
+                raise NotImplementedError(
+                    "fresh attention on CUDA takes q_offset 0 (an offset "
+                    "needs kv_valid_len: the cached-prefill kernel)")
+            return _flash_attention.FlashAttention.apply(q, k, v, causal)
         out, _ = _flash_attention.flash_attention_offset(
             q, k, v, q_offset, kv_valid_len, causal=causal)
         return out
     _require_cpu(q, "sdpa")
     # the chunked online form: the plain version of both contiguous kernels
-    # (flash_decode_plain, flash_attention_offset_plain) and of fresh
-    # attention
+    # (flash_decode_plain, flash_attention_offset_plain) and of the fresh
+    # forward (flash_attention_fwd_plain), differentiated by autograd
     return core.online_attention(q, k, v, causal=causal, q_offset=q_offset,
                                  kv_valid_len=kv_valid_len,
                                  chunk_size=cfg.attn_chunk, scale=scale)

@@ -1,5 +1,16 @@
-"""Cached-prefill flash attention: the CUDA kernels' wrappers and their plain
-PyTorch versions, over a paged KV pool and over a contiguous KV cache.
+"""Flash attention forward: the CUDA kernels' wrappers and their plain
+PyTorch versions — fresh (the training form) and cached prefill over a paged
+KV pool or a contiguous KV cache.
+
+* ``flash_attention_fwd`` replaces
+  ``src/repro/kernels/flash_attention.py:flash_attention_pallas`` (the
+  ``pallas_call`` at line 122): queries and keys of the same call, every key
+  valid.  ``FlashAttention`` is its ``torch.autograd.Function``, the port of
+  the reference's ``ops._flash`` custom VJP (``ops.py:154-203``); its
+  backward is ``kernels.flash_attention_bwd``.  The kernel reads q, k, v in
+  the model layout (k and v through their strides) where the reference
+  swapped axes around the kernel, and masks the ragged edge itself where
+  the reference needed a tile that divides T.
 
 * ``flash_attention_paged`` replaces
   ``src/repro/kernels/flash_attention.py:flash_attention_paged_pallas`` (the
@@ -26,14 +37,16 @@ import torch
 
 from repro_torch.core.attention import DEFAULT_CHUNK, online_attention_lse
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention_bwd as _bwd
 from repro_torch.kernels.flash_decode import gather_pages
 
 SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
 BQ = 16               # query rows of one CTA (csrc kPrefillRows)
 _SMEM_LIMIT = 48 * 1024
 
-#: Kernel launches since the last reset (the serving path's proof of route).
-launches = {"flash_attention_paged": 0, "flash_attention_offset": 0}
+#: Kernel launches since the last reset (a path's proof of route).
+launches = {"flash_attention_paged": 0, "flash_attention_offset": 0,
+            "flash_attention": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,7 +56,20 @@ _ARGTYPES = {
                               _I, _I, _I, _I, ctypes.c_float, _I, _C],
     "flash_attention_offset": [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I,
                                _I, _I, _L, _L, _L, ctypes.c_float, _I, _C],
+    "flash_attention": [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _L, _L,
+                        _L, ctypes.c_float, _I, _C],
 }
+# launch name → its C entry point (``<entry>_launch`` of ``csrc/<entry>.cu``)
+_ENTRY = {"flash_attention": "flash_attention_fwd"}
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
+                              chunk_size: int = DEFAULT_CHUNK):
+    """The fresh kernel's plain version: the chunked online attention of q
+    [B, Tq, Hq, D] over every position of k, v [B, Tk, Hkv, D], query row i
+    at position i.  Returns (out [B, Tq, Hq, D], lse [B, Hq, Tq])."""
+    return online_attention_lse(q, k, v, causal=causal,
+                                chunk_size=chunk_size)
 
 
 def flash_attention_offset_plain(q, k, v, q_offset, kv_valid_len, *,
@@ -89,6 +115,18 @@ def _check(name, q, k, v, hkv):
     return b, tq, hq, dh
 
 
+def _kv_strides(name, k, v, b):
+    """k, v [B, Tk, Hkv, D] are read through their strides: the last must
+    be 1 and K and V must share them.  Returns (sb, ss, sh)."""
+    if k.dim() != 4 or k.shape[0] != b or k.stride(-1) != 1 or \
+            k.stride() != v.stride():
+        raise ValueError(f"{name} kernel: K/V {tuple(k.shape)} with strides "
+                         f"{k.stride()}/{v.stride()} for {b} rows (need "
+                         "[B, Tk, Hkv, D], unit last stride, equal K/V "
+                         "strides)")
+    return k.stride()[:3]
+
+
 def _rows(x, q, b):
     return torch.as_tensor(x, device=q.device).to(torch.int32).expand(
         b).contiguous()
@@ -130,15 +168,11 @@ def prepare(q, k, v, q_offset, kv_valid_len, *, causal: bool = True):
                          "is not [B, Tk, Hkv, D]")
     tk, hkv = k.shape[1], k.shape[2]
     b, tq, hq, dh = _check("flash_attention_offset", q, k, v, hkv)
-    if k.shape[0] != b or k.stride(-1) != 1 or k.stride() != v.stride():
-        raise ValueError(f"flash_attention_offset kernel: K/V {tuple(k.shape)}"
-                         f" with strides {k.stride()}/{v.stride()} for {b} "
-                         "rows (need unit last stride, equal K/V strides)")
+    sb, ss, sh = _kv_strides("flash_attention_offset", k, v, b)
     code = build.dtype_code(q)
     qc = q.contiguous()
     out = torch.empty_like(qc)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    sb, ss, sh, _ = k.stride()
     args = ("flash_attention_offset", qc, k, v, _rows(q_offset, q, b),
             _rows(kv_valid_len, q, b), out, lse, code, b, tq, hq, hkv, tk, dh,
             sb, ss, sh, float(dh ** -0.5), int(bool(causal)))
@@ -148,7 +182,7 @@ def prepare(q, k, v, q_offset, kv_valid_len, *, causal: bool = True):
 def launch(args) -> None:
     """Launch a prepared kernel (counts one launch of it)."""
     name = args[0]
-    build.call(name, _ARGTYPES[name], args[1:])
+    build.call(_ENTRY.get(name, name), _ARGTYPES[name], args[1:])
     launches[name] += 1
 
 
@@ -171,3 +205,67 @@ def flash_attention_offset(q, k, v, q_offset, kv_valid_len, *,
     args, out = prepare(q, k, v, q_offset, kv_valid_len, causal=causal)
     launch(args)
     return out
+
+
+def prepare_fwd(q, k, v, *, causal: bool = True):
+    """Validate CUDA operands of the fresh kernel and allocate the outputs.
+    k, v [B, Tk, Hkv, D] are passed by their strides, never copied.  Returns
+    (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]))."""
+    if k.dim() != 4:
+        raise ValueError(f"flash_attention kernel: k {tuple(k.shape)} is not "
+                         "[B, Tk, Hkv, D]")
+    tk, hkv = k.shape[1], k.shape[2]
+    b, tq, hq, dh = _check("flash_attention", q, k, v, hkv)
+    sb, ss, sh = _kv_strides("flash_attention", k, v, b)
+    if tq == 0 or tk == 0:
+        raise ValueError(f"flash_attention kernel: empty sequence (Tq={tq}, "
+                         f"Tk={tk})")
+    code = build.dtype_code(q)
+    qc = q.contiguous()
+    out = torch.empty_like(qc)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    args = ("flash_attention", qc, k, v, out, lse, code, b, tq, tk, hq, hkv,
+            dh, sb, ss, sh, float(dh ** -0.5), int(bool(causal)))
+    return args, (out, lse)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True):
+    """Launch the fresh forward kernel on CUDA tensors: q [B, Tq, Hq, D]
+    against every position of k, v [B, Tk, Hkv, D], query row i at position
+    i.  Returns (out [B, Tq, Hq, D], lse [B, Hq, Tq] float32)."""
+    args, out = prepare_fwd(q, k, v, causal=causal)
+    launch(args)
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable fresh flash attention, the port of the reference's
+    ``ops._flash``: ``FlashAttention.apply(q, k, v, causal)`` → out
+    [B, Tq, Hq, D].  The forward saves (q, k, v, out, lse) as ``_flash_fwd``
+    does; the backward rebuilds P from lse.  CUDA tensors run the kernels
+    (``flash_attention_fwd``, ``flash_attention_bwd``), CPU tensors their
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True):
+        if q.device.type == "cuda":
+            out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+        else:
+            raise NotImplementedError(f"FlashAttention: no kernel or plain "
+                                      f"version for device {q.device}")
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.device.type == "cuda":
+            dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  causal=ctx.causal)
+        else:
+            dq, dk, dv = _bwd.flash_attention_bwd_plain(
+                q, k, v, out, lse, dout, causal=ctx.causal)
+        return dq, dk, dv, None

@@ -1,15 +1,20 @@
-"""Carry the reference's weights into the port.
+"""Carry the reference's weights and optimizer state into the port.
 
 ``params_from_numpy(tree)`` takes the reference's parameter tree — the value
 half of ``repro.models.layers.split_params(transformer.init(...))`` with its
 leaves as numpy arrays and each segment's layers stacked on a leading axis —
 and returns the port's parameter dict (``models.transformer``'s layout, one
-dict per layer).  No JAX is needed: the caller turns the leaves into numpy.
+dict per layer).  ``adamw_state_from_numpy`` carries the reference's
+``AdamWState`` (step, and ``mu``/``nu`` trees shaped like its parameters)
+through the same mapping.  No JAX is needed: the caller turns the leaves
+into numpy.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.optim.adamw import AdamWState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -48,3 +53,14 @@ def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     params["final_norm"] = _tensor(tree["final_norm"]["scale"], device)
     params["layers"] = [layer(i) for i in range(n)]
     return params
+
+
+def adamw_state_from_numpy(state, *, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState(step, mu, nu)`` (numpy leaves) → the
+    port's, on ``device``."""
+    step, mu, nu = state
+    return AdamWState(
+        step=torch.as_tensor(np.asarray(step), dtype=torch.int32,
+                             device=device),
+        mu=params_from_numpy(mu, device=device),
+        nu=params_from_numpy(nu, device=device))

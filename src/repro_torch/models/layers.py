@@ -94,8 +94,8 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
                     block_tables: Optional[Tensor] = None):
     """x [B, T, D] → (out [B, T, D], cache).
 
-    * ``cache=None``: causal self-attention over this call's K/V (CPU only
-      in this slice; see ``dispatch.sdpa``).
+    * ``cache=None``: causal self-attention over this call's K/V, the
+      training form (differentiable; see ``dispatch.sdpa``).
     * paged serving: ``cache`` holds this layer's block pools
       ``{"k", "v": [P, Hkv, BS, D]}`` shared by every sequence; this step's
       K/V are written through ``block_tables`` at ``cache_len`` (in place)

@@ -1,9 +1,12 @@
-"""Decoder-only LM for the dense block kind: init, forward, decode logits.
+"""Decoder-only LM for the dense block kind: init, forward, training loss,
+decode logits.
 
 Port of ``src/repro/models/transformer.py`` for ``dense`` blocks:
 ``block_pattern`` (line 41), ``init`` (176; the port's own seeded
 initialiser with the reference's shapes and scales), ``forward`` (217; a
-Python loop over layers in place of ``lax.scan``) and ``logits_last`` (306,
+Python loop over layers in place of ``lax.scan``, each layer under
+``torch.utils.checkpoint`` where the reference's ``_maybe_remat`` put it
+under ``jax.checkpoint``), ``loss_fn`` (280) and ``logits_last`` (306,
 which casts to fp32 before the head product as at line 309).
 
 Parameters are a plain dict::
@@ -16,11 +19,14 @@ Norm scales stay float32 as in the reference; the rest takes ``cfg.dtype``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import core
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
@@ -104,18 +110,64 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
                            dtype=torch.int64, device=x.device)
     # scalar base → positions [T]; per-slot base [B] → positions [B, T]
     positions = base[..., None] + torch.arange(t, device=x.device)
+    remat = _remat(cfg, training=caches is None and torch.is_grad_enabled())
     for i, lp in enumerate(params["layers"]):
         cache = (None if caches is None
                  else {"k": caches["k"][i], "v": caches["v"][i]})
-        h = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
-        a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions,
-                                 cache=cache, cache_len=cache_len,
-                                 block_tables=block_tables)
-        x = x + a
-        h = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h, cfg)
+        layer = functools.partial(_block_apply, cfg=cfg, positions=positions,
+                                  cache=cache, cache_len=cache_len,
+                                  block_tables=block_tables)
+        x = remat(layer, lp, x)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return x, caches
+
+
+def _block_apply(lp: dict, x: Tensor, *, cfg: ModelConfig, positions, cache,
+                 cache_len, block_tables) -> Tensor:
+    """One dense block: [norm → GQA attention] + [norm → SwiGLU MLP]."""
+    h = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
+    a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions,
+                             cache=cache, cache_len=cache_len,
+                             block_tables=block_tables)
+    x = x + a
+    h = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(lp["mlp"], h, cfg)
+
+
+def _remat(cfg: ModelConfig, *, training: bool):
+    """How a layer runs: under ``torch.utils.checkpoint`` (its activations
+    recomputed in the backward) for ``remat="full"`` on a training forward,
+    directly otherwise.  Serving forwards (with caches) never recompute, as
+    in the reference (``_maybe_remat(inference=True)``)."""
+    if not training or cfg.remat == "none":
+        return lambda fn, *args: fn(*args)
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat {cfg.remat!r} is not ported yet (the port recomputes "
+            "whole layers: remat 'full' or 'none')")
+    return functools.partial(checkpoint, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """batch: tokens [B, T], labels [B, T] (−1 = masked) → (mean CE over the
+    unmasked labels, {"ce_loss", "loss"}).  The tied head's gradient reaches
+    ``embed`` through both the token gather and the head product."""
+    hidden, _ = forward(params, batch["tokens"], cfg)
+    d = hidden.shape[-1]
+    labels = batch["labels"].reshape(-1).long()
+    w = L.head_matrix(params, cfg)
+    h2 = hidden.reshape(-1, d)
+    valid = labels >= 0
+    safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
+    if cfg.use_chunked_ce:
+        tok_loss = core.chunked_cross_entropy(h2, w, safe_labels,
+                                              num_chunks=cfg.vocab_chunks)
+    else:
+        tok_loss = core.full_cross_entropy(h2, w, safe_labels)
+    denom = valid.sum().clamp(min=1)
+    loss = (tok_loss * valid).sum() / denom
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 def logits_last(params: dict, hidden: Tensor, cfg: ModelConfig) -> Tensor:

@@ -4,9 +4,9 @@
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel against its plain version at small shapes (fp32 tightly, bf16
-within bf16 rounding), and a small model served on the card through the
+within bf16 rounding), a small model served on the card through the
 kernels against the same model served on the CPU through the plain
-versions.  No JAX is needed.  ``chip_smoke.py`` does the same at full width.
+versions, and one full-width train step through the training kernels.  No JAX is needed.  ``chip_smoke.py`` does the same at full width.
 """
 import numpy as np
 import pytest
@@ -15,6 +15,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import softmax_topk as st
 from repro_torch.launch import serve
@@ -83,7 +84,10 @@ def test_kernels_match_plain(cuda, dtype, atol):
                                         "flash_decode_paged": 1,
                                         "flash_decode": 0,
                                         "flash_attention_paged": 1,
-                                        "flash_attention_offset": 0}
+                                        "flash_attention_offset": 0,
+                                        "flash_attention": 0,
+                                        "flash_attention_bwd_dq": 0,
+                                        "flash_attention_bwd_dkv": 0}
 
 
 def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
@@ -147,7 +151,10 @@ def test_contiguous_kernels_match_plain(cuda, dtype, atol):
                                         "flash_decode_paged": 0,
                                         "flash_decode": 1,
                                         "flash_attention_paged": 0,
-                                        "flash_attention_offset": 1}
+                                        "flash_attention_offset": 1,
+                                        "flash_attention": 0,
+                                        "flash_attention_bwd_dq": 0,
+                                        "flash_attention_bwd_dkv": 0}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -179,7 +186,10 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
         "flash_decode": 0,
         "flash_attention_paged": (sched.prefill_chunks - ones)
         * cfg.num_layers,
-        "flash_attention_offset": 0}
+        "flash_attention_offset": 0,
+        "flash_attention": 0,
+        "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
@@ -224,7 +234,106 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
         "flash_decode_paged": 0,
         "flash_decode": (sched.decode_steps + ones) * n,
         "flash_attention_paged": 0,
-        "flash_attention_offset": (sched.prefill_chunks - ones) * n}
+        "flash_attention_offset": (sched.prefill_chunks - ones) * n,
+        "flash_attention": 0,
+        "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}
     assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
                            "flash_decode": 5 * n, "flash_attention_paged": 0,
-                           "flash_attention_offset": n}
+                           "flash_attention_offset": n,
+                           "flash_attention": 0,
+                           "flash_attention_bwd_dq": 0,
+                           "flash_attention_bwd_dkv": 0}
+
+
+def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
+    """q, dout [B, T, Hq, D]; k, v [B, T, Hkv, D] cut from buffers of
+    T + ``spare`` positions whose rows past T are NaN, so a kernel that
+    reads past T fails."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, t, hkv * g, d, generator=gen)
+    dout = torch.randn(b, t, hkv * g, d, generator=gen)
+    kv = torch.randn(2, b, t + spare, hkv, d, generator=gen)
+    kv[:, :, t:] = float("nan")
+    return q, kv[0, :, :t], kv[1, :, :t], dout
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_fresh_attention_kernels_match_plain(cuda, dtype, atol):
+    """The training kernels: the fresh forward (out, lse), the dq and dk/dv
+    backward kernels, and ``FlashAttention``'s gradients against autograd
+    through the plain forward; ragged T (not a multiple of 16), T = 1,
+    causal and not, K/V read through strides with NaN past T."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda, dtype=dtype)
+    n = 0
+    for t, causal in ((37, True), (37, False), (1, True), (64, True)):
+        q, k, v, dout = (x.to(**dev) for x in _fresh(7, b=2, t=t))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        w_out, w_lse = fa.flash_attention_fwd_plain(
+            q, torch.nan_to_num(k), torch.nan_to_num(v), causal=causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+        assert (out.float() - w_out.float()).abs().max().item() <= atol
+        assert (lse - w_lse).abs().max().item() <= max(atol, 1e-4)
+        grads = fab.flash_attention_bwd(q, k, v, out, lse, dout,
+                                        causal=causal)
+        want = fab.flash_attention_bwd_plain(
+            q, torch.nan_to_num(k), torch.nan_to_num(v), out, lse, dout,
+            causal=causal)
+        torch.cuda.synchronize()
+        for name, a, b_ in zip(("dq", "dk", "dv"), grads, want):
+            assert a.shape == b_.shape and a.dtype == b_.dtype, name
+            assert torch.isfinite(a).all(), name
+            scale = max(1.0, b_.float().abs().max().item())
+            err = (a.float() - b_.float()).abs().max().item()
+            assert err <= atol * scale, (name, t, causal, err)
+        n += 1
+    # FlashAttention.apply against autograd through the plain forward
+    q, k, v, dout = (x.to(**dev) for x in _fresh(8, b=2, t=37))
+    k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+    got, want = [], []
+    for fn, store in ((lambda a, b_, c: fa.FlashAttention.apply(a, b_, c,
+                                                                 True), got),
+                      (lambda a, b_, c: fa.flash_attention_fwd_plain(
+                          a, b_, c, causal=True)[0], want)):
+        args = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*args).backward(dout)
+        store.extend(a.grad for a in args)
+    for a, b_ in zip(got, want):
+        scale = max(1.0, b_.float().abs().max().item())
+        assert (a.float() - b_.float()).abs().max().item() <= atol * scale
+    with pytest.raises(ValueError, match="D=32"):      # head_dim 64 only
+        fa.flash_attention_fwd(q[..., :32].contiguous(),
+                               k[..., :32].contiguous(),
+                               v[..., :32].contiguous())
+    counts = dispatch.launch_counts()
+    assert counts["flash_attention"] == n + 1
+    assert counts["flash_attention_bwd_dq"] == n + 1
+    assert counts["flash_attention_bwd_dkv"] == n + 1
+
+
+def test_full_width_train_step(cuda):
+    """One bf16 train step of smollm-360m at full width (cut to 4 layers)
+    through the training kernels: finite loss and grad norm, and with remat
+    "full" 2 forward launches per layer (forward, recomputed in the
+    backward) and one dq and one dk/dv launch per layer."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.training.train_step import init_state, make_train_step
+    cfg = configs.get("smollm_360m").replace(num_layers=4)
+    run = RunConfig(model=cfg)
+    params, opt = init_state(run, device=cuda)
+    batch = SyntheticDataset(SyntheticConfig(cfg.vocab_size, 128, 2)).batch(0)
+    batch = {k: torch.as_tensor(x, device=cuda) for k, x in batch.items()}
+    dispatch.reset_launch_counts()
+    params, opt, m = make_train_step(run)(params, opt, batch)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+    assert counts["flash_attention"] == 2 * cfg.num_layers
+    assert counts["flash_attention_bwd_dq"] == cfg.num_layers
+    assert counts["flash_attention_bwd_dkv"] == cfg.num_layers
+    assert counts["flash_decode"] == counts["softmax_topk"] == 0

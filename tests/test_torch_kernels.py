@@ -20,6 +20,7 @@ from repro.kernels.flash_decode import (  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build, dispatch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import softmax_topk as st  # noqa: E402
 
@@ -170,7 +171,10 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
                                         "flash_decode_paged": 0,
                                         "flash_decode": 0,
                                         "flash_attention_paged": 0,
-                                        "flash_attention_offset": 0}
+                                        "flash_attention_offset": 0,
+                                        "flash_attention": 0,
+                                        "flash_attention_bwd_dq": 0,
+                                        "flash_attention_bwd_dkv": 0}
 
 
 def test_dispatch_raises_on_unported_routes():
@@ -206,9 +210,19 @@ def test_dispatch_raises_on_unported_routes():
                                       torch.zeros(1, 8, 1, 64),
                                       torch.zeros(1, 8, 1, 64),
                                       torch.zeros(1, dtype=torch.int32),
-                                      torch.ones(1, dtype=torch.int32))],
+                                      torch.ones(1, dtype=torch.int32)),
+    lambda: fa.flash_attention_fwd(torch.zeros(1, 8, 3, 64),
+                                   torch.zeros(1, 8, 1, 64),
+                                   torch.zeros(1, 8, 1, 64)),
+    lambda: fab.flash_attention_bwd(torch.zeros(1, 8, 3, 64),
+                                    torch.zeros(1, 8, 1, 64),
+                                    torch.zeros(1, 8, 1, 64),
+                                    torch.zeros(1, 8, 3, 64),
+                                    torch.zeros(1, 3, 8),
+                                    torch.zeros(1, 8, 3, 64))],
     ids=["softmax_topk", "flash_decode_paged", "flash_attention_paged",
-         "flash_decode", "flash_attention_offset"])
+         "flash_decode", "flash_attention_offset", "flash_attention",
+         "flash_attention_bwd"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches on CUDA tensors or raises: it never falls
     back to the plain version."""
