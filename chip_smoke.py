@@ -8,9 +8,11 @@ Run from the root of a checkout, with one card visible::
 Phases, in order; any failure raises and the script exits non-zero without
 printing its final line:
 
-1. device: the card's name, and its name and power limit from nvidia-smi;
+1. device: the card's name, and its name and power limit from nvidia-smi
+   (printed again before the kernels line);
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a), with the build time and ptxas's register report;
+   sm_90a; the int8 forms build from the same sources), with the build
+   time and ptxas's register report;
 3. kernels against their plain PyTorch versions at the serving and
    training paths' shapes (fused softmax+top-k; paged decode; paged
    prefill, with edge cases and the 64-token chunks after long cached
@@ -18,18 +20,30 @@ printing its final line:
    at the slot pool's chunks and tails and the lockstep prefill; the fresh
    flash forward and its dq and dk/dv backward at T = 512, 37 and 1, causal
    and not, and ``FlashAttention``'s gradients against autograd through the
-   plain forward; fp32 and bf16; every dead table entry, every cache
-   position at or past a row's valid length and every K/V row past T
-   poisoned with NaN);
+   plain forward; the int8 forms of the paged decode, the contiguous decode
+   and the paged prefill at the int8 serving run's shapes, their int8 K/V
+   and bf16 scales from the port's ``_quantize_kv``; fp32 and bf16; every
+   dead table entry, every cache position at or past a row's valid length
+   and every K/V row past T poisoned with NaN, for the int8 forms in the
+   scales, with ±127 in the payload);
 4. serve: smollm-360m at full width in bf16 through its three serving paths,
-   each with the launch counts set to 0 just before it and read just after:
-   ``Engine`` with the paged continuous-batching scheduler, ``Engine`` over
-   the slot pool, and the lockstep loop; every request finishes, every token
-   id is in the vocabulary, and each kernel's launch count equals what the
-   scheduler's own counters (or the loop's steps) imply;
+   then the same three with ``--kv-cache-dtype int8``, each with the launch
+   counts set to 0 just before it and read just after: ``Engine`` with the
+   paged continuous-batching scheduler, ``Engine`` over the slot pool, and
+   the lockstep loop; every request finishes, every token id is in the
+   vocabulary, and each kernel's launch count equals what the scheduler's
+   own counters (or the loop's steps) imply; the int8 runs prefill every
+   prompt in one chunk and, paged, share and cache no block; the fp and
+   int8 pools' bytes per cached token;
 5. parity: short full-width fp32 workloads of the three paths, once on the
    card through the kernels and once on the CPU through the plain versions;
-   token streams (and the paged pool's stats) must be identical;
+   token streams (and the paged pool's stats) must be identical; for the
+   int8 paths, whose quantization can round an element one step apart
+   where the two devices' fp32 K projections differ in their last bits,
+   the int8 cache after the first prefill within 1 of the CPU's and its
+   scales within one bf16 ulp, the first decode step's logits within
+   ``INT8_LOGIT_RTOL`` of the logit scale, and the token agreement of the
+   same workloads printed;
 6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
    at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
    the end, with the launch counts set to 0 just before it and read just
@@ -46,11 +60,12 @@ printing its final line:
    the serving and training paths' shapes, beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; then full-width decode steps and prefill chunks of the paged pool
-   and the slot pool, and a full-width train step, end to end, against the
-   device's busy time inside them (torch.profiler).
+   and the slot pool, their int8 decode steps, and a full-width train step,
+   end to end, against the device's busy time inside them (torch.profiler).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (with
+the path it was ported for); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -93,6 +108,17 @@ KERNELS = {
     "flash_attention_bwd_dkv": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:154"},
+    # the int8 forms: of rows 2 and 3 (the same pallas_calls with scale
+    # pages), and of the contiguous decode, where the reference ran XLA
+    "flash_decode_paged_int8": {
+        "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:245"},
+    "flash_decode_int8": {
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/dispatch.py:858"},
+    "flash_attention_paged_int8": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_paged.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:432"},
 }
 # the serving runs of phase 4 (the CLI's own flags); each kernel's
 # "launches" comes from the run of the path it was ported for
@@ -102,6 +128,7 @@ SERVE_ARGS = ["--continuous", "--paged", "--requests", "16", "--slots", "8",
 SLOT_ARGS = ["--continuous", "--requests", "16", "--slots", "8",
              "--prompt-len", "256", "--tokens", "64", "--prefill-chunk", "64"]
 LOCKSTEP_ARGS = ["--batch", "4", "--prompt-len", "256", "--tokens", "32"]
+INT8 = ["--kv-cache-dtype", "int8"]
 PARITY_ARGS = ["--continuous", "--paged", "--requests", "3", "--slots", "3",
                "--prompt-len", "40", "--tokens", "16", "--block-size", "16",
                "--prefill-chunk", "32", "--shared-prefix", "16"]
@@ -120,7 +147,16 @@ KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "flash_attention_paged": "paged", "flash_decode": "slot pool",
                "flash_attention_offset": "slot pool",
                "flash_attention": "train", "flash_attention_bwd_dq": "train",
-               "flash_attention_bwd_dkv": "train"}
+               "flash_attention_bwd_dkv": "train",
+               "flash_decode_paged_int8": "paged int8",
+               "flash_decode_int8": "slot pool int8",
+               "flash_attention_paged_int8": "kernel check only"}
+# int8 parity gate: the first decode step's max |logit difference| between
+# the card and the CPU over the logit scale (max |logit|), fp32 weights.  A
+# K/V element one int8 step apart moves its attention score by ~|q| max|k|
+# / 127 in one layer; a wrong scale address or a dropped scale moves the
+# logits by O(1) of their scale.
+INT8_LOGIT_RTOL = 1e-2
 
 
 def _fail(msg: str) -> None:
@@ -150,16 +186,20 @@ def _ms(fn, samples: int = 20, inner: int = 10, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # 1-2: device and build
 # ---------------------------------------------------------------------------
-def phase_device() -> dict:
-    import torch
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip()
+
+
+def phase_device() -> dict:
+    import torch
+    name = torch.cuda.get_device_name(0)
     print(f"device: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
-    print(f"nvidia-smi: {smi}")
+    print(f"nvidia-smi: {_smi()}")
     return {"platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}
 
@@ -545,6 +585,183 @@ def _check_fresh(gen) -> dict:
     return worst
 
 
+def _layer_view(x):
+    """``x`` as layer 1 of a two-layer buffer whose layer 0 is poison (NaN,
+    or 127 for int8): the per-layer view ``caches[name][i]`` the serving
+    path passes."""
+    import torch
+    poison = float("nan") if x.is_floating_point() else 127
+    buf = torch.full((2,) + tuple(x.shape), poison, dtype=x.dtype,
+                     device=x.device)
+    buf[1] = x
+    return buf[1]
+
+
+def _int8_paged_inputs(gen, *, dtype, bs, vlens, tq=1, hkv=5, g=3, d=64):
+    """int8 pools [P, Hkv, BS, D] and bf16 scale pages [P, Hkv, BS] from the
+    port's ``_quantize_kv`` of random K/V, for rows of valid lengths
+    ``vlens``, in two copies with the same live values.  The kernel's: block
+    1 holds ±127 with NaN scales and every dead table entry points at it,
+    and every scale at or past a row's vlen in its last live block is NaN
+    (payload ±127), so a kernel that reads one turns its output NaN.  The
+    plain version's: dead entries at the sentinel block 0, those scales 0.
+    Block 0's scales are 0 in both; a last row with vlen <= 1 decodes on
+    it, as an idle row does.  Rows 0 and 1 share their first pages.
+    Returns (q, kernel pools (k, v, k_scale, v_scale), plain pools, kernel
+    table, plain table, vlen), on the card."""
+    import torch
+    from repro_torch.models.layers import _quantize_kv
+    b = len(vlens)
+    live = [max(1, -(-v // bs)) for v in vlens]
+    m = max(live) + 1
+    n_fresh = sum(live)
+    p = 2 + n_fresh
+    k8, ks = _quantize_kv(torch.randn(p, bs, hkv, d, generator=gen))
+    v8, vs = _quantize_kv(torch.randn(p, bs, hkv, d, generator=gen))
+    pools = [x.transpose(1, 2).contiguous() for x in (k8, v8, ks, vs)]
+    pools[2][0] = pools[3][0] = 0.0
+    perm = (torch.randperm(n_fresh, generator=gen) + 2).tolist()
+    t_kernel = torch.ones((b, m), dtype=torch.int32)
+    t_plain = torch.zeros((b, m), dtype=torch.int32)
+    for row, n in enumerate(live):
+        for j in range(n):
+            t_kernel[row, j] = t_plain[row, j] = perm.pop()
+        if vlens[row] <= 1 and row == b - 1:       # an idle row: sentinel
+            t_kernel[row, 0] = t_plain[row, 0] = 0
+    if b > 1:
+        n_shared = min(live[0], live[1]) - 1
+        t_kernel[1, :n_shared] = t_kernel[0, :n_shared]
+        t_plain[1, :n_shared] = t_plain[0, :n_shared]
+    kern = [x.clone() for x in pools]
+    plain = [x.clone() for x in pools]
+    kern[0][1], kern[1][1] = 127, -127
+    kern[2][1] = kern[3][1] = float("nan")
+    for row, n in enumerate(vlens):
+        for pos in range(n, live[row] * bs):
+            blk = int(t_kernel[row, pos // bs])
+            if blk > 1:
+                kern[0][blk, :, pos % bs] = 127
+                kern[1][blk, :, pos % bs] = -127
+                kern[2][blk, :, pos % bs] = kern[3][blk, :, pos % bs] = \
+                    float("nan")
+                for x in (plain[2], plain[3]):
+                    x[blk, :, pos % bs] = 0.0
+    q = torch.randn(b, tq, hkv * g, d, generator=gen)
+    return (q.to(device="cuda", dtype=dtype),
+            [_layer_view(x.cuda()) for x in kern],
+            [_layer_view(x.cuda()) for x in plain],
+            t_kernel.cuda(), t_plain.cuda(),
+            torch.tensor(vlens, dtype=torch.int32, device="cuda"))
+
+
+def _check_int8(gen) -> dict:
+    """The int8 forms against their plain versions: paged decode at the
+    int8 serving run's decode batch (B = 8, vlen up to 329, a row with
+    vlen 0 and an idle row on the sentinel block), BS 16 and 8; paged
+    prefill at the prefill cases (chunks crossing block edges, a keyless
+    row, 64-token chunks after cached prefixes); contiguous decode over the
+    slot pool's ragged slots of 328 (vlen 0 and 1 among them).  fp32 within
+    1e-5, bf16 q within 2e-2 (identical int8 and scale inputs, so only the
+    fp32 summation order differs)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    worst = dict.fromkeys(("flash_decode_paged_int8", "flash_decode_int8",
+                           "flash_attention_paged_int8"), 0.0)
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        errs = dict.fromkeys(worst, 0.0)
+        for bs in (8, 16):
+            vlens = [329, 290, 177, 0, 33, 250, 9, 1]
+            q, kern, plain, tk, tp, vl = _int8_paged_inputs(
+                gen, dtype=dtype, bs=bs, vlens=vlens)
+            got = fd.flash_decode_paged(q, kern[0], kern[1], tk, vl,
+                                        k_scale_pool=kern[2],
+                                        v_scale_pool=kern[3])
+            torch.cuda.synchronize()
+            want = fd.flash_decode_paged_plain(q, plain[0], plain[1], tp, vl,
+                                               k_scale_pool=plain[2],
+                                               v_scale_pool=plain[3])
+            if not torch.isfinite(got).all():
+                _fail(f"flash_decode_paged_int8 {dtype} BS={bs}: non-finite "
+                      "output (a dead entry or a tail scale was read)")
+            errs["flash_decode_paged_int8"] = max(
+                errs["flash_decode_paged_int8"],
+                (got.float() - want.float()).abs().max().item())
+            for tq, qoff, pvl in PREFILL_CASES:
+                q, kern, plain, tk, tp, vl = _int8_paged_inputs(
+                    gen, dtype=dtype, bs=bs, vlens=pvl, tq=tq)
+                qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
+                out, lse = fa.flash_attention_paged(
+                    q, kern[0], kern[1], qo, vl, tk, k_scale_pool=kern[2],
+                    v_scale_pool=kern[3])
+                torch.cuda.synchronize()
+                w_out, w_lse = fa.flash_attention_paged_plain(
+                    q, plain[0], plain[1], qo, vl, tp, k_scale_pool=plain[2],
+                    v_scale_pool=plain[3])
+                what = f"{str(dtype)[6:]} BS={bs} Tq={tq} vlen={pvl}"
+                if not torch.isfinite(out).all():
+                    _fail(f"flash_attention_paged_int8 {what}: non-finite "
+                          "output (a dead entry or a tail scale was read)")
+                if not torch.equal(torch.isneginf(lse),
+                                   torch.isneginf(w_lse)):
+                    _fail(f"flash_attention_paged_int8 {what}: lse -inf "
+                          "pattern differs")
+                fin = torch.isfinite(w_lse)
+                errs["flash_attention_paged_int8"] = max(
+                    errs["flash_attention_paged_int8"],
+                    (out.float() - w_out.float()).abs().max().item(),
+                    (lse[fin] - w_lse[fin]).abs().max().item())
+        vlens = [328, 290, 177, 0, 33, 250, 9, 1]
+        k, v, ks, vs, kp, vp, ksp, vsp = _int8_contiguous_inputs(
+            gen, s=328, vlens=vlens)
+        q = torch.randn(8, 1, 15, 64, generator=gen).to(device="cuda",
+                                                        dtype=dtype)
+        vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+        got = fd.flash_decode(q, k, v, vl, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        want = fd.flash_decode_plain(q, kp, vp, vl, k_scale=ksp, v_scale=vsp)
+        if not torch.isfinite(got).all():
+            _fail(f"flash_decode_int8 {dtype}: non-finite output (a "
+                  "position at or past vlen was read)")
+        errs["flash_decode_int8"] = (got.float()
+                                     - want.float()).abs().max().item()
+        for name, err in errs.items():
+            if err > atol:
+                _fail(f"{name} {str(dtype)[6:]}: max abs err {err:.3g} > "
+                      f"{atol}")
+        print(f"kernel int8 forms {str(dtype)[6:]} q, 15/5 heads, D 64, "
+              f"int8 K/V + bf16 scales from _quantize_kv, NaN scales and "
+              f"±127 in every dead entry and tail: paged decode B=8 vlen "
+              f"0..329 BS 8/16 {errs['flash_decode_paged_int8']:.3g}, "
+              f"paged prefill {len(PREFILL_CASES)} cases BS 8/16 "
+              f"{errs['flash_attention_paged_int8']:.3g}, contiguous decode "
+              f"B=8 S=328 {errs['flash_decode_int8']:.3g} max abs err "
+              f"(atol {atol})")
+        if dtype == torch.float32:
+            worst = errs
+    return worst
+
+
+def _int8_contiguous_inputs(gen, *, s, vlens, hkv=5, d=64):
+    """int8 caches [B, S, Hkv, D] and bf16 scales [B, S, Hkv] from
+    ``_quantize_kv`` of random K/V, as per-layer views: the kernel's with
+    ±127 and NaN scales at or past each row's vlen, the plain version's
+    with those scales 0.  Returns (k, v, k_scale, v_scale) twice."""
+    import torch
+    from repro_torch.models.layers import _quantize_kv
+    b = len(vlens)
+    k8, ks = _quantize_kv(torch.randn(b, s, hkv, d, generator=gen))
+    v8, vs = _quantize_kv(torch.randn(b, s, hkv, d, generator=gen))
+    dead = torch.arange(s)[None, :] >= torch.tensor(vlens)[:, None]
+    kern = [k8.clone(), v8.clone(), ks.masked_fill(dead[..., None],
+                                                   float("nan")),
+            vs.masked_fill(dead[..., None], float("nan"))]
+    kern[0][dead], kern[1][dead] = 127, -127
+    plain = [k8, v8, ks.masked_fill(dead[..., None], 0.0),
+             vs.masked_fill(dead[..., None], 0.0)]
+    return tuple(_layer_view(x.cuda()) for x in kern + plain)
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -553,7 +770,8 @@ def phase_kernels() -> dict:
             "flash_attention_paged": _check_prefill(gen),
             "flash_decode": _check_contiguous_decode(gen),
             "flash_attention_offset": _check_offset(gen),
-            **_check_fresh(gen)}
+            **_check_fresh(gen),
+            **_check_int8(gen)}
 
 
 # ---------------------------------------------------------------------------
@@ -578,10 +796,14 @@ def _implied_counts(sched, n_layers: int) -> dict:
     """Launches the scheduler's counters imply: one decode-kernel launch per
     layer for every decode step and one-token prefill chunk, one prefill-
     kernel launch per layer for every wider chunk, one softmax_topk per
-    decode step and per finished prefill; the other path's kernels none."""
+    decode step and per finished prefill; the other path's kernels none.
+    With int8 K/V the decode kernels are the int8 forms, and every prefill
+    (over the prompt's exact K/V) is the contiguous prefill kernel."""
     ones = sched.chunk_widths.get(1, 0)
     dec, pre = (("flash_decode_paged", "flash_attention_paged")
                 if sched.paged else ("flash_decode", "flash_attention_offset"))
+    if sched.family.quantized:
+        dec, pre = f"{dec}_int8", "flash_attention_offset"
     want = dict.fromkeys(KERNELS, 0)
     want[dec] = (sched.decode_steps + ones) * n_layers
     want[pre] = (sched.prefill_chunks - ones) * n_layers
@@ -597,10 +819,31 @@ def _check_counts(what: str, counts: dict, want: dict) -> None:
         _fail(f"serve {what}: launches {counts}, the counters imply {want}")
 
 
+def _pool_bytes_per_token(pool) -> float:
+    """Bytes of every leaf of a block pool per cacheable token position."""
+    leaves = list(pool.caches.values())
+    slots = leaves[0].shape[1] * pool.block_size
+    return sum(x.numel() * x.element_size() for x in leaves) / slots
+
+
+def _check_int8_run(what: str, report, sched, requests) -> None:
+    """An int8 run prefills every prompt in one chunk and, paged, shares,
+    reuses and caches no block and frees every block at the end."""
+    if sched.prefill_chunks != len(requests) or \
+            sched.prefills_done != len(requests):
+        _fail(f"serve {what}: {sched.prefill_chunks} prefill chunks for "
+              f"{len(requests)} requests (int8 prefill is single shot)")
+    p = report.paged
+    if p is not None and (p["blocks_shared"] or p["prefix_cache_hits"]
+                          or p["cached_blocks"] or p["tokens_reused"]
+                          or p["free_blocks"] != p["num_blocks"]):
+        _fail(f"serve {what}: int8 blocks were shared or cached: {p}")
+
+
 def phase_serve():
-    """The three serving paths at full width in bf16, each between a reset
-    and a read of the launch counts.  Returns ({path: counts}, what the
-    step timings reuse)."""
+    """The three serving paths at full width in bf16, then the same with
+    int8 K/V, each between a reset and a read of the launch counts.
+    Returns ({path: counts}, what the step timings reuse)."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
@@ -613,42 +856,55 @@ def phase_serve():
           f"d_model {cfg.d_model}, vocab {cfg.vocab_size}; weights from "
           f"seed 0 in {time.perf_counter() - t0:.1f}s")
     counts, engines = {}, {}
-    for what, argv in (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS)):
+    for what, argv in (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS),
+                       ("paged int8", SERVE_ARGS + INT8),
+                       ("slot pool int8", SLOT_ARGS + INT8)):
         args = serve.parse_args(argv)
+        run_cfg = serve.config_for(args)
         dispatch.reset_launch_counts()
-        report, eng, requests, _ = serve.run(args, cfg, params)
+        report, eng, requests, _ = serve.run(args, run_cfg, params)
         torch.cuda.synchronize()
         counts[what] = dispatch.launch_counts()
         sched = eng.scheduler
         _check_finished(what, report, requests, cfg.vocab_size)
         _check_counts(what, counts[what],
                       _implied_counts(sched, cfg.num_layers))
+        if sched.family.quantized:
+            _check_int8_run(what, report, sched, requests)
         print(f"serve {what} launches: {counts[what]} = scheduler counters "
               f"(decode steps {sched.decode_steps}, prefill chunks "
               f"{sched.prefill_chunks} of which "
               f"{sched.chunk_widths.get(1, 0)} one-token, prefills "
               f"{sched.prefills_done}, {cfg.num_layers} layers)")
         engines[what] = eng
+    fp, q8 = (_pool_bytes_per_token(engines[w].scheduler.pool)
+              for w in ("paged", "paged int8"))
+    print(f"serve pool bytes per cached token: {cfg.dtype} K/V {fp:.0f}, "
+          f"int8 K/V + bf16 scales {q8:.0f} ({fp / q8:.3f}x the tokens in "
+          f"the same bytes)")
 
-    args = serve.parse_args(LOCKSTEP_ARGS)
-    dispatch.reset_launch_counts()
-    ids = serve.lockstep(args, cfg, params)
-    torch.cuda.synchronize()
-    counts["lockstep"] = dispatch.launch_counts()
-    if ids.shape != (args.batch, args.tokens) or not (
-            (ids >= 0) & (ids < cfg.vocab_size)).all():
-        _fail(f"serve lockstep: token ids of shape {ids.shape} outside "
-              "the vocabulary or short")
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(softmax_topk=args.tokens,
-                flash_decode=(args.tokens - 1) * cfg.num_layers,
-                flash_attention_offset=cfg.num_layers)
-    if counts["lockstep"] != want:
-        _fail(f"serve lockstep: launches {counts['lockstep']}, its steps "
-              f"imply {want}")
-    print(f"serve lockstep launches: {counts['lockstep']} = one prefill, "
-          f"{args.tokens - 1} decode steps and {args.tokens} samples over "
-          f"{cfg.num_layers} layers")
+    for what, argv in (("lockstep", LOCKSTEP_ARGS),
+                       ("lockstep int8", LOCKSTEP_ARGS + INT8)):
+        args = serve.parse_args(argv)
+        dispatch.reset_launch_counts()
+        ids = serve.lockstep(args, serve.config_for(args), params)
+        torch.cuda.synchronize()
+        counts[what] = dispatch.launch_counts()
+        if ids.shape != (args.batch, args.tokens) or not (
+                (ids >= 0) & (ids < cfg.vocab_size)).all():
+            _fail(f"serve {what}: token ids of shape {ids.shape} outside "
+                  "the vocabulary or short")
+        dec = "flash_decode_int8" if args.kv_cache_dtype else "flash_decode"
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({"softmax_topk": args.tokens,
+                     dec: (args.tokens - 1) * cfg.num_layers,
+                     "flash_attention_offset": cfg.num_layers})
+        if counts[what] != want:
+            _fail(f"serve {what}: launches {counts[what]}, its steps imply "
+                  f"{want}")
+        print(f"serve {what} launches: {counts[what]} = one prefill, "
+              f"{args.tokens - 1} decode steps and {args.tokens} samples "
+              f"over {cfg.num_layers} layers")
     return counts, {"params": params, "cfg": cfg, "engines": engines}
 
 
@@ -732,6 +988,116 @@ def phase_parity() -> None:
               f"cpu  {ids['cpu']}")
     print(f"parity lockstep: {ids['cpu'].size} token ids identical "
           f"({' '.join(LOCKSTEP_PARITY_ARGS)})")
+
+
+def _int8_first_step(params, cfg, prompts, *, device, mode: str,
+                     block_size: int):
+    """The int8 cache right after the first (single-shot) prefill of
+    ``prompts`` [B, T], and the logits of the first decode step after it
+    (input: each prompt's first token), on ``device``: through a block table
+    (``mode`` "paged"), or contiguous caches at per-row lengths ("slot
+    pool") or at one shared length ("lockstep").  Returns ({leaf: cache on
+    the CPU}, logits [B, V] on the CPU)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+    b, t = toks.shape
+    if mode == "paged":
+        m = -(-(t + 1) // block_size)
+        caches = engine.init_paged_cache(cfg, m + 1, block_size, device)
+        table = torch.arange(1, m + 1, dtype=torch.int32,
+                             device=device)[None]
+        _, caches, length = engine.prefill_chunk_paged(params, caches, table,
+                                                       0, toks, cfg)
+        kw = dict(cache_len=torch.tensor([length], device=device),
+                  block_tables=table)
+    elif mode == "slot pool":
+        _, caches, length = engine.chunked_prefill(params, toks, cfg,
+                                                   max_len=t + 8)
+        kw = dict(cache_len=torch.tensor([length], device=device))
+    else:
+        _, caches, length = engine.prefill(params, toks, cfg, max_len=t + 8)
+        kw = dict(cache_len=length)
+    snap = {n: x.cpu().clone() for n, x in caches.items()}
+    hidden, _ = transformer.forward(params, toks[:, :1], cfg, caches=caches,
+                                    **kw)
+    return snap, engine.logits_from_hidden(params, hidden[:, -1], cfg).cpu()
+
+
+def _agreement(a: dict, b: dict) -> tuple[int, int]:
+    """(positions where two streams per request agree, positions)."""
+    same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
+    return same, sum(len(a[r]) for r in a)
+
+
+def phase_parity_int8() -> None:
+    """The int8 paths at full width in fp32, card against CPU.  Token
+    streams are not a sound gate: the two fp32 K projections differ in
+    their last bits, and an element within that of a .5 rounding boundary
+    quantizes one int8 step apart.  Gated instead: after the first prefill
+    every int8 entry within 1 and every scale within one bf16 ulp of the
+    CPU's, and the first decode step's max |logit diff| within
+    ``INT8_LOGIT_RTOL`` of the logit scale.  Printed: the entries that
+    differ, and the token agreement of the parity workloads."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    base = serve.parse_args(PARITY_ARGS + INT8)
+    cfg = serve.config_for(base).replace(dtype="float32")
+    params_cpu = transformer.init(cfg, seed=1, device="cpu")
+    params = {"cuda": transformer.params_to(params_cpu, "cuda"),
+              "cpu": params_cpu}
+    requests, _ = serve.workload(base, cfg)
+    lock_prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                     (2, 37))
+    for mode, prompts in (("paged", requests[0].prompt[None]),
+                          ("slot pool", requests[0].prompt[None]),
+                          ("lockstep", lock_prompts)):
+        got = {d: _int8_first_step(params[d], cfg, prompts, device=d,
+                                   mode=mode, block_size=base.block_size)
+               for d in ("cuda", "cpu")}
+        (c_gpu, l_gpu), (c_cpu, l_cpu) = got["cuda"], got["cpu"]
+        n_diff = n_all = 0
+        for name in ("k", "v"):
+            d8 = (c_gpu[name].int() - c_cpu[name].int()).abs()
+            n_diff += int((d8 > 0).sum())
+            n_all += d8.numel()
+            if d8.max().item() > 1:
+                _fail(f"parity {mode} int8: {name} entries differ by "
+                      f"{d8.max().item()} (> 1)")
+        for name in ("k_scale", "v_scale"):
+            ulps = (c_gpu[name].view(torch.int16).int()
+                    - c_cpu[name].view(torch.int16).int()).abs()
+            if ulps.max().item() > 1:
+                _fail(f"parity {mode} int8: {name} differs by "
+                      f"{ulps.max().item()} bf16 ulps (> 1)")
+        scale = l_cpu.abs().max().item()
+        diff = (l_gpu - l_cpu).abs().max().item()
+        if not diff <= INT8_LOGIT_RTOL * scale:
+            _fail(f"parity {mode} int8: first decode step max |logit diff| "
+                  f"{diff:.3g} > {INT8_LOGIT_RTOL} x logit scale {scale:.3g}")
+        print(f"parity {mode} int8: after the first prefill "
+              f"({prompts.shape[0]} x {prompts.shape[1]} tokens) {n_diff} of "
+              f"{n_all} int8 entries differ (each by 1), scales within 1 "
+              f"bf16 ulp; first decode step max |logit diff| {diff:.3g} "
+              f"(logit scale {scale:.3g}, tol {INT8_LOGIT_RTOL} x scale)")
+    for what, argv in (("paged", PARITY_ARGS), ("slot pool",
+                                                 SLOT_PARITY_ARGS)):
+        streams = {}
+        for device in ("cuda", "cpu"):
+            args = serve.parse_args(argv + INT8 + ["--device", device])
+            report, _, _, _ = serve.run(args, cfg, params[device])
+            streams[device] = {r.rid: r.tokens for r in report.results}
+        same, total = _agreement(streams["cuda"], streams["cpu"])
+        print(f"parity {what} int8: token agreement {same} of {total} "
+              f"({' '.join(argv + INT8)})")
+    ids = {d: serve.lockstep(serve.parse_args(
+               LOCKSTEP_PARITY_ARGS + INT8 + ["--device", d]), cfg,
+               params[d]) for d in ("cuda", "cpu")}
+    print(f"parity lockstep int8: token agreement "
+          f"{int((ids['cuda'] == ids['cpu']).sum())} of {ids['cpu'].size}")
 
 
 # ---------------------------------------------------------------------------
@@ -888,7 +1254,9 @@ def _host_ms(fn, samples: int = 10, warmup: int = 2) -> float:
 PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
                        "decode_paged_kernel", "prefill_paged_kernel",
                        "decode_kernel", "prefill_offset_kernel",
-                       "fresh_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")
+                       "fresh_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel",
+                       "decode_paged_int8_kernel", "decode_int8_kernel",
+                       "prefill_paged_int8_kernel")
 
 
 def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
@@ -916,7 +1284,8 @@ def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
 def phase_steps(serve_ctx, train_ctx) -> None:
     """Where a step's time goes: one full-width decode step over 8 busy
     slots and one 64-token prefill chunk, of the paged pool and of the slot
-    pool, and one full-width train step of 8 x 512 tokens, timed from the
+    pool, the same decode steps over the int8 runs' pools, and one
+    full-width train step of 8 x 512 tokens, timed from the
     host's call to the device's finish, against the device's busy time
     inside it (all kernels, and the port's own, from torch.profiler)."""
     import torch
@@ -951,6 +1320,18 @@ def phase_steps(serve_ctx, train_ctx) -> None:
                                              toks, cfg, noise=noise, top_k=5),
         "slot-pool prefill chunk [64 tokens at offset 64, bf16]":
             lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg)}
+    # the int8 runs' pools: the same decode batches over int8 K/V
+    q8_pool = engines["paged int8"].scheduler.pool
+    q8_slots = engines["slot pool int8"].scheduler.pool
+    q8_cfg = q8_pool.cfg
+    steps[f"paged int8 decode [B={n}, {cfg.num_layers} layers, bf16, int8 "
+          "K/V]"] = lambda: engine.decode_step_paged(
+        params, q8_pool.caches, tables, lens, toks, q8_cfg, noise=noise,
+        top_k=5)
+    steps[f"slot-pool int8 decode [B={q8_slots.num_slots}, "
+          f"{cfg.num_layers} layers, bf16, int8 K/V]"] = \
+        lambda: engine.decode_step_slots(params, q8_slots.caches, slot_lens,
+                                         toks, q8_cfg, noise=noise, top_k=5)
     run, targs = train_ctx["run"], train_ctx["args"]
     step_fn = make_train_step(run)
     batch = SyntheticDataset(SyntheticConfig(
@@ -1109,6 +1490,7 @@ def phase_times() -> dict:
             "shape": f"B={b} Tq={tq} q_offset={qoff} vlen={vlen} Tk={tk} "
                      "Hq=15 Hkv=5 D=64 bf16"}
     rows.update(_train_kernel_times(gen))
+    rows.update(_int8_kernel_times(gen))
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
                else "none")
@@ -1202,6 +1584,105 @@ def _train_kernel_times(gen) -> dict:
     return rows
 
 
+def _int8_kernel_times(gen) -> dict:
+    """The int8 forms at the int8 serving runs' shapes (bf16 q): paged
+    decode over 8 slots of the pool (BS 16, vlen 66..329), contiguous decode
+    over 8 slots of 328, and the paged prefill at row 3's chunk (64 tokens
+    at offset 64, vlen 128), each first held against its plain version on
+    the timed input.  Bounds count 1 byte per int8 K/V value read once, 2
+    per bf16 scale, q read and out written once, and the two dequantizing
+    multiplies per value beside the 4·D flops per (head, position).  No
+    single PyTorch call computes a dequantize and attention."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    hq, d, hkv, esz = 15, 64, 5, 2
+    rows = {}
+
+    def kv_bytes(n):          # int8 K and V plus their bf16 scales
+        return n * hkv * (2 * d + 2 * 2)
+
+    vlens = [329, 290, 251, 212, 173, 134, 95, 66]
+    q, _, pl, _, tp, vl = _int8_paged_inputs(gen, dtype=torch.bfloat16,
+                                             bs=16, vlens=vlens)
+    kw = dict(k_scale_pool=pl[2], v_scale_pool=pl[3])
+    err = (fd.flash_decode_paged(q, pl[0], pl[1], tp, vl, **kw).float()
+           - fd.flash_decode_paged_plain(q, pl[0], pl[1], tp, vl,
+                                         **kw).float()).abs().max().item()
+    if not err <= 2e-2:
+        _fail(f"flash_decode_paged_int8 on the timed input: max abs err "
+              f"{err:.3g} > 2e-2")
+    nbytes = (2 * q.numel() * esz + kv_bytes(sum(vlens))
+              + sum(-(-n // 16) for n in vlens) * 4 + len(vlens) * 4)
+    ops = (4.0 * hq * d + 2.0 * hkv * d) * sum(vlens)
+    args, _ = fd.prepare_paged(q, pl[0], pl[1], tp, vl, **kw)
+    b_ms, b_by = _bound(nbytes, ops, "bfloat16")
+    rows["flash_decode_paged_int8"] = {
+        "ms": _ms(lambda: fd.launch(args)),
+        "wrapper_ms": _ms(lambda: fd.flash_decode_paged(q, pl[0], pl[1], tp,
+                                                        vl, **kw)),
+        "plain_ms": _ms(lambda: fd.flash_decode_paged_plain(
+            q, pl[0], pl[1], tp, vl, **kw)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B=8 Hq=15 Hkv=5 D=64 BS=16 int8 K/V, bf16 q, vlen "
+                 f"{vlens}"}
+
+    vlens = [328, 289, 250, 211, 172, 133, 94, 65]
+    cache = _int8_contiguous_inputs(gen, s=328, vlens=vlens)[4:]
+    kw = dict(k_scale=cache[2], v_scale=cache[3])
+    q = torch.randn(8, 1, hq, d, generator=gen).to(device="cuda",
+                                                   dtype=torch.bfloat16)
+    vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+    err = (fd.flash_decode(q, cache[0], cache[1], vl, **kw).float()
+           - fd.flash_decode_plain(q, cache[0], cache[1], vl,
+                                   **kw).float()).abs().max().item()
+    if not err <= 2e-2:
+        _fail(f"flash_decode_int8 on the timed input: max abs err {err:.3g}"
+              " > 2e-2")
+    nbytes = 2 * q.numel() * esz + kv_bytes(sum(vlens)) + len(vlens) * 4
+    ops = (4.0 * hq * d + 2.0 * hkv * d) * sum(vlens)
+    args, _ = fd.prepare(q, cache[0], cache[1], vl, **kw)
+    b_ms, b_by = _bound(nbytes, ops, "bfloat16")
+    rows["flash_decode_int8"] = {
+        "ms": _ms(lambda: fd.launch(args)),
+        "wrapper_ms": _ms(lambda: fd.flash_decode(q, cache[0], cache[1], vl,
+                                                  **kw)),
+        "plain_ms": _ms(lambda: fd.flash_decode_plain(q, cache[0], cache[1],
+                                                      vl, **kw)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 int8 K/V, bf16 q, vlen "
+                 f"{vlens}"}
+
+    tq, qoff, vlen = 64, 64, 128
+    q, _, pl, _, tp, vl = _int8_paged_inputs(gen, dtype=torch.bfloat16,
+                                             bs=16, vlens=[vlen], tq=tq)
+    qo = torch.tensor([qoff], dtype=torch.int32, device="cuda")
+    kw = dict(k_scale_pool=pl[2], v_scale_pool=pl[3])
+    out, _ = fa.flash_attention_paged(q, pl[0], pl[1], qo, vl, tp, **kw)
+    want, _ = fa.flash_attention_paged_plain(q, pl[0], pl[1], qo, vl, tp,
+                                             **kw)
+    err = (out.float() - want.float()).abs().max().item()
+    if not err <= 2e-2:
+        _fail(f"flash_attention_paged_int8 on the timed input: max abs err "
+              f"{err:.3g} > 2e-2")
+    pairs = sum(min(vlen, qoff + i + 1) for i in range(tq))
+    nbytes = (2 * q.numel() * esz + hq * tq * 4 + kv_bytes(vlen)
+              + (vlen // 16) * 4 + 8)
+    ops = 4.0 * hq * d * pairs + 2.0 * hkv * d * vlen
+    args, _ = fa.prepare_paged(q, pl[0], pl[1], qo, vl, tp, **kw)
+    b_ms, b_by = _bound(nbytes, ops, "bfloat16")
+    rows["flash_attention_paged_int8"] = {
+        "ms": _ms(lambda: fa.launch(args)),
+        "wrapper_ms": _ms(lambda: fa.flash_attention_paged(
+            q, pl[0], pl[1], qo, vl, tp, **kw)),
+        "plain_ms": _ms(lambda: fa.flash_attention_paged_plain(
+            q, pl[0], pl[1], qo, vl, tp, **kw)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "shape": "B=1 Tq=64 q_offset=64 vlen=128 Hq=15 Hkv=5 D=64 BS=16 "
+                 "int8 K/V, bf16 q"}
+    return rows
+
+
 def _timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1224,21 +1705,25 @@ def main() -> int:
     errs = _timed(phase_kernels)
     counts, serve_ctx = _timed(phase_serve)
     _timed(phase_parity)
+    _timed(phase_parity_int8)
     counts["train"], train_ctx = _timed(phase_train)
     _timed(phase_train_parity)
     times = _timed(phase_times)
     _timed(phase_steps, serve_ctx, train_ctx)
     kernels = []
     for name, meta in KERNELS.items():
-        row = times[name]
+        row, path = times[name], KERNEL_PATH[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"],
-            "launches": counts[KERNEL_PATH[name]][name],
+            "replaces": meta["replaces"], "path": path,
+            "launches": counts[path][name] if path in counts else 0,
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "wrapper_ms": row["wrapper_ms"]})
+    # again at the end, beside the numbers, where a reader of the last
+    # lines of the output finds it
+    print(f"nvidia-smi: {_smi()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -3,9 +3,11 @@
 Port of ``src/repro/core/attention.py``: ``naive_attention`` (line 30) is the
 materializing oracle, ``online_attention`` (line 80) streams KV in chunks over
 ``_chunked_fwd_impl`` (line 136), carrying ``(m, d, acc)`` — Algorithm 3 with
-a weighted-value accumulator.  It is the plain version behind both paged
-CUDA kernels.  The reference's int8 dequant scales, causal chunk skipping and
-custom VJP belong to later slices and are left out.
+a weighted-value accumulator.  It is the plain version behind the attention
+kernels, int8 caches included: ``k_scale``/``v_scale`` [B, Tk, Hkv]
+dequantize each chunk after its slice (``int8 * scale`` in fp32), as the
+reference does.  The reference's causal chunk skipping and custom VJP are
+left out.
 
 Layouts: q [B, Tq, Hq, D]; k, v [B, Tk, Hkv, D]; Hq % Hkv == 0 (GQA/MQA).
 """
@@ -66,11 +68,16 @@ def online_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
                      q_offset: Union[int, Tensor] = 0,
                      kv_valid_len: Optional[Union[int, Tensor]] = None,
                      chunk_size: int = DEFAULT_CHUNK,
-                     scale: Optional[float] = None) -> Tensor:
-    """Chunked online attention; returns out [B, Tq, Hq, Dv] in q's dtype."""
+                     scale: Optional[float] = None,
+                     k_scale: Optional[Tensor] = None,
+                     v_scale: Optional[Tensor] = None) -> Tensor:
+    """Chunked online attention; returns out [B, Tq, Hq, Dv] in q's dtype.
+    ``k_scale``/``v_scale`` [B, Tk, Hkv] set: k, v are int8, dequantized
+    per chunk."""
     out, _ = online_attention_lse(q, k, v, causal=causal, q_offset=q_offset,
                                   kv_valid_len=kv_valid_len,
-                                  chunk_size=chunk_size, scale=scale)
+                                  chunk_size=chunk_size, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)
     return out
 
 
@@ -79,7 +86,9 @@ def online_attention_lse(q: Tensor, k: Tensor, v: Tensor, *,
                          q_offset: Union[int, Tensor] = 0,
                          kv_valid_len: Optional[Union[int, Tensor]] = None,
                          chunk_size: int = DEFAULT_CHUNK,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None,
+                         k_scale: Optional[Tensor] = None,
+                         v_scale: Optional[Tensor] = None):
     """``online_attention`` that also returns lse [B, Hq, Tq] (float32,
     −inf for a row with no valid key) — the paged prefill kernel's outputs."""
     b, tq, hq, dh = q.shape
@@ -88,12 +97,15 @@ def online_attention_lse(q: Tensor, k: Tensor, v: Tensor, *,
             if kv_valid_len is None
             else _as_index(kv_valid_len, q.device).expand(b))
     out, lse = _chunked_fwd_impl(q, k, v, _as_index(q_offset, q.device), vlen,
-                                 causal, min(chunk_size, k.shape[1]), scale)
+                                 causal, min(chunk_size, k.shape[1]), scale,
+                                 k_scale=k_scale, v_scale=v_scale)
     return out, lse.reshape(b, hq, tq)
 
 
 def _chunked_fwd_impl(q, k, v, q_offset, kv_valid_len, causal, chunk_size,
-                      scale):
+                      scale, k_scale=None, v_scale=None):
+    """k_scale / v_scale [B, Tk, Hkv]: dequantization scales of int8 k, v,
+    padded with the keys and applied to each chunk after its slice."""
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -103,6 +115,9 @@ def _chunked_fwd_impl(q, k, v, q_offset, kv_valid_len, causal, chunk_size,
         pad = chunk_size - rem
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        if k_scale is not None:
+            k_scale = torch.nn.functional.pad(k_scale, (0, 0, 0, pad))
+            v_scale = torch.nn.functional.pad(v_scale, (0, 0, 0, pad))
         n_chunks += 1
     kv_valid_len = kv_valid_len.clamp(max=tk)
     # fp32 accumulation (fp64 for fp64 inputs, which gradient checks use)
@@ -117,6 +132,9 @@ def _chunked_fwd_impl(q, k, v, q_offset, kv_valid_len, causal, chunk_size,
         lo = idx * chunk_size
         kc = k[:, lo:lo + chunk_size].to(f["dtype"])
         vc = v[:, lo:lo + chunk_size].to(f["dtype"])
+        if k_scale is not None:
+            kc = kc * k_scale[:, lo:lo + chunk_size].to(f["dtype"])[..., None]
+            vc = vc * v_scale[:, lo:lo + chunk_size].to(f["dtype"])[..., None]
         k_pos = lo + torch.arange(chunk_size, device=q.device)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc)
         mask = _chunk_mask(q_pos, k_pos, kv_valid_len, causal)

@@ -14,6 +14,14 @@
 // Only tiles j < ceil(L / tile) are addressed (so a paged kernel never reads
 // a dead table entry), and positions at or past L load as 0 without being
 // read (so a contiguous kernel never reads past a row's valid length).
+//
+// int8 K/V carry a bf16 scale per (position, KV head), addressed by a second
+// Rows of the same kind: scale pages [P, Hkv, BS] through the same table
+// entry (PagedRows with the scale pool's strides), or scales [B, S, Hkv]
+// through their strides (ContiguousRows).  A `Scales` policy multiplies each
+// loaded value by its position's scale in fp32, float(int8) * float(bf16),
+// the reference's arithmetic; the product is exact in fp32.  `NoScales` (fp
+// K/V) does nothing.  Scales of positions at or past L are not read either.
 #pragma once
 
 #include "common.cuh"
@@ -35,14 +43,31 @@ struct ContiguousRows {
   __device__ size_t at(int j) const { return base + j * step; }
 };
 
+struct NoScales {
+  __device__ void apply(int, int, float&, float&) const {}
+};
+
+template <typename Rows>
+struct Scales {
+  const __nv_bfloat16* k;  // k_scale (pages or [B, S, Hkv])
+  const __nv_bfloat16* v;  // v_scale, the same layout
+  Rows rows;               // where tile j's scales start, and their stride
+  // position t of tile j: K and V dequantized in place
+  __device__ void apply(int j, int t, float& kx, float& vx) const {
+    const size_t a = rows.at(j) + t * rows.stride;
+    kx *= __bfloat162float(k[a]);
+    vx *= __bfloat162float(v[a]);
+  }
+};
+
 // K and V of tile j into shared memory as fp32: ks [tile, D + 1] (rows
 // padded against bank conflicts in the dot products), vs [tile, D].
-template <typename T, int D, typename Rows>
-__device__ __forceinline__ void load_kv_tile(const T* __restrict__ k,
-                                             const T* __restrict__ v,
-                                             const Rows& rows, int j,
-                                             int tile, int L, float* ks,
-                                             float* vs) {
+template <typename KV, int D, typename Rows, typename Sc>
+__device__ __forceinline__ void load_kv_tile(const KV* __restrict__ k,
+                                             const KV* __restrict__ v,
+                                             const Rows& rows, const Sc& sc,
+                                             int j, int tile, int L,
+                                             float* ks, float* vs) {
   const size_t base = rows.at(j);
   for (int e = threadIdx.x; e < tile * D; e += blockDim.x) {
     const int t = e / D, c = e % D;
@@ -51,6 +76,7 @@ __device__ __forceinline__ void load_kv_tile(const T* __restrict__ k,
       const size_t a = base + t * rows.stride + c;
       kx = to_f32(k[a]);
       vx = to_f32(v[a]);
+      sc.apply(j, t, kx, vx);
     }
     ks[t * (D + 1) + c] = kx;
     vs[e] = vx;
@@ -68,12 +94,15 @@ __host__ __device__ constexpr int decode_smem_words(int G, int D, int tile) {
 // other threads of its head, so no reduction is needed at the end.  q and
 // out hold the group's G * D values contiguously from `q0`.  Columns at or
 // past L are masked to -inf before the (m, d, acc) update, which is exact;
-// L == 0 gives output 0 (d clamped at 1e-30, as the reference does).
-template <typename T, int D, typename Rows>
+// L == 0 gives output 0 (d clamped at 1e-30, as the reference does).  K/V
+// are of q's type, or int8 with `sc` their scales.
+template <typename T, int D, typename KV, typename Rows,
+          typename Sc = NoScales>
 __device__ __forceinline__ void decode_attend(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const Rows& rows, int L, int tile,
-    T* __restrict__ out, size_t q0, int G, float scale, float* smem) {
+    const T* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, const Rows& rows, int L, int tile,
+    T* __restrict__ out, size_t q0, int G, float scale, float* smem,
+    const Sc& sc = Sc()) {
   const int tid = threadIdx.x, nthr = blockDim.x;  // nthr == G * D
   const int g = tid / D, dd = tid % D;
   float* qs = smem;                      // [G, D], pre-scaled
@@ -86,7 +115,7 @@ __device__ __forceinline__ void decode_attend(
   float m = REPRO_NEG_INF, d = 0.f, acc = 0.f;
   for (int j = 0; j < nb; ++j) {
     __syncthreads();  // the previous tile is no longer read
-    load_kv_tile<T, D>(k, v, rows, j, tile, L, ks, vs);
+    load_kv_tile<KV, D>(k, v, rows, sc, j, tile, L, ks, vs);
     __syncthreads();
     for (int e = tid; e < G * tile; e += nthr) {
       const int gg = e / tile, t = e % tile;
@@ -136,13 +165,16 @@ __host__ __device__ constexpr int prefill_smem_words(int D, int tile) {
 // last live tile, min(ceil(L / tile), (qo + last row) / tile + 1).  Each
 // thread carries its row's (m, d) and D / 8 accumulator lanes.  Writes
 // out = acc / max(d, 1e-30) and lse [B, Hq, Tq] = m + log d, or -inf and 0
-// for a row with no valid key.
-template <typename T, int D, typename Rows>
+// for a row with no valid key.  K/V are of q's type, or int8 with `sc`
+// their scales.
+template <typename T, int D, typename KV, typename Rows,
+          typename Sc = NoScales>
 __device__ __forceinline__ void prefill_attend(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const Rows& rows, int L, int tile, int qo,
+    const T* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, const Rows& rows, int L, int tile, int qo,
     int b, int h, int i0, int Tq, int Hq, T* __restrict__ out,
-    float* __restrict__ lse, float scale, int causal, float* smem) {
+    float* __restrict__ lse, float scale, int causal, float* smem,
+    const Sc& sc = Sc()) {
   constexpr int kLanes = D / kPrefillRowThreads;  // accumulator lanes
   const int tid = threadIdx.x;
   const int row = tid / kPrefillRowThreads, lane = tid % kPrefillRowThreads;
@@ -170,7 +202,7 @@ __device__ __forceinline__ void prefill_attend(
 
   for (int j = 0; j < nb; ++j) {
     __syncthreads();  // previous tile consumed (and qs written, at j == 0)
-    load_kv_tile<T, D>(k, v, rows, j, tile, L, ks, vs);
+    load_kv_tile<KV, D>(k, v, rows, sc, j, tile, L, ks, vs);
     __syncthreads();
     for (int e = tid; e < kPrefillRows * tile; e += kPrefillThreads) {
       const int r = e / tile, t = e % tile;

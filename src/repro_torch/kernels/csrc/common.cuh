@@ -1,7 +1,8 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
 // Every kernel accumulates in fp32 and reads its inputs as float or bf16
-// (dtype code 0 = float32, 1 = bfloat16, as the Python wrappers pass it).
+// (dtype code 0 = float32, 1 = bfloat16, as the Python wrappers pass it);
+// the int8 attention forms read K/V as int8 and q as float or bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,6 +16,9 @@ enum : int { kDtypeF32 = 0, kDtypeBF16 = 1 };
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(signed char x) {  // int8 K/V
+  return static_cast<float>(x);
 }
 
 template <typename T>

@@ -2,8 +2,8 @@
 
 Port of ``src/repro/kernels/dispatch.py``: ``sdpa`` (line 816) with its
 paged routes (``_paged_sdpa``, 696-731) and its contiguous routes (858-903,
-without the sharded and int8 branches), and ``softmax_topk`` (778).  The
-reference chose Pallas by a config preference (``cfg.use_pallas``) and a
+without the sharded branch), int8 K/V included, and ``softmax_topk`` (778).
+The reference chose Pallas by a config preference (``cfg.use_pallas``) and a
 capability probe; here the choice goes by the tensor's device alone:
 
 * ``cuda`` launches the hand-written kernel, or raises on what it does not
@@ -18,6 +18,13 @@ dk/dv backward kernels, as the reference's ``_attention_pallas`` ran
 form, which autograd differentiates.  On CUDA a custom scale and a value
 head_dim other than q's still raise ``NotImplementedError``; on the CPU the
 chunked online form serves them, as the reference's XLA path did.
+
+int8 K/V come with ``k_scale``/``v_scale``: scale pages [P, Hkv, BS] beside
+int8 pools (paged) or [B, S, Hkv] beside int8 caches.  On CUDA they launch
+the int8 forms of the paged decode and prefill kernels and of the
+contiguous decode kernel; a contiguous int8 prefill has no kernel (the
+serving path's int8 prefill attends over fp K/V) and raises.  On the CPU
+the same dequantizing chunked form the reference ran serves them all.
 """
 from __future__ import annotations
 
@@ -34,7 +41,10 @@ _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_attention_offset": _flash_attention,
                    "flash_attention": _flash_attention,
                    "flash_attention_bwd_dq": _flash_attention_bwd,
-                   "flash_attention_bwd_dkv": _flash_attention_bwd}
+                   "flash_attention_bwd_dkv": _flash_attention_bwd,
+                   "flash_decode_paged_int8": _flash_decode,
+                   "flash_decode_int8": _flash_decode,
+                   "flash_attention_paged_int8": _flash_attention}
 
 
 def launch_counts() -> dict:
@@ -62,23 +72,31 @@ def softmax_topk(x, k: int) -> "core.SoftmaxTopK":
 
 
 def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
-         decode: bool = False, block_tables=None):
+         decode: bool = False, k_scale=None, v_scale=None, block_tables=None):
     """Attention — the single entry model layers call.
 
     q [B, Tq, Hq, D].  With ``block_tables`` [B, M] set, k/v are block pools
     [P, Hkv, BS, D] and the paged routes run (``decode`` picks the one-token
     kernel); otherwise k/v are contiguous [B, Tk, Hkv, D].  ``q_offset`` is
     the absolute position of query row 0 and ``kv_valid_len`` the valid
-    cache prefix per row; masking is in absolute coordinates.
+    cache prefix per row; masking is in absolute coordinates.  ``k_scale``/
+    ``v_scale`` set: k/v are int8 with these bf16 scales (pages
+    [P, Hkv, BS], or [B, Tk, Hkv]), dequantized after the read.
     """
     if block_tables is not None:
         return _paged_sdpa(cfg, q, k, v, causal=causal, q_offset=q_offset,
                            kv_valid_len=kv_valid_len, scale=scale,
-                           decode=decode, block_tables=block_tables)
+                           decode=decode, block_tables=block_tables,
+                           k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cuda":
         _require_kernel_form(q, v, scale, "contiguous attention")
         if decode:
-            return _flash_decode.flash_decode(q, k, v, kv_valid_len)
+            return _flash_decode.flash_decode(q, k, v, kv_valid_len,
+                                              k_scale=k_scale, v_scale=v_scale)
+        if k_scale is not None:
+            raise NotImplementedError(
+                "contiguous int8 attention wider than one token has no "
+                "kernel: the int8 prefill attends over its exact K/V")
         if kv_valid_len is None:
             if not (isinstance(q_offset, int) and q_offset == 0):
                 raise NotImplementedError(
@@ -94,7 +112,8 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
     # forward (flash_attention_fwd_plain), differentiated by autograd
     return core.online_attention(q, k, v, causal=causal, q_offset=q_offset,
                                  kv_valid_len=kv_valid_len,
-                                 chunk_size=cfg.attn_chunk, scale=scale)
+                                 chunk_size=cfg.attn_chunk, scale=scale,
+                                 k_scale=k_scale, v_scale=v_scale)
 
 
 def _require_kernel_form(q, v, scale, what: str) -> None:
@@ -110,20 +129,23 @@ def _require_kernel_form(q, v, scale, what: str) -> None:
 
 
 def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,
-                decode, block_tables):
+                decode, block_tables, k_scale=None, v_scale=None):
     _require_kernel_form(q, v, scale, "paged attention")
+    scales = dict(k_scale_pool=k_scale, v_scale_pool=v_scale)
     if q.device.type == "cuda":
         if decode:
             return _flash_decode.flash_decode_paged(q, k, v, block_tables,
-                                                    kv_valid_len)
+                                                    kv_valid_len, **scales)
         out, _ = _flash_attention.flash_attention_paged(
-            q, k, v, q_offset, kv_valid_len, block_tables, causal=causal)
+            q, k, v, q_offset, kv_valid_len, block_tables, causal=causal,
+            **scales)
         return out
     _require_cpu(q, "paged sdpa")
     if decode:
         return _flash_decode.flash_decode_paged_plain(
-            q, k, v, block_tables, kv_valid_len, chunk_size=cfg.attn_chunk)
+            q, k, v, block_tables, kv_valid_len, chunk_size=cfg.attn_chunk,
+            **scales)
     out, _ = _flash_attention.flash_attention_paged_plain(
         q, k, v, q_offset, kv_valid_len, block_tables, causal=causal,
-        chunk_size=cfg.attn_chunk)
+        chunk_size=cfg.attn_chunk, **scales)
     return out

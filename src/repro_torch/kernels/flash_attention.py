@@ -14,8 +14,11 @@ KV pool or a contiguous KV cache.
 
 * ``flash_attention_paged`` replaces
   ``src/repro/kernels/flash_attention.py:flash_attention_paged_pallas`` (the
-  ``pallas_call`` at line 432) in its bf16/fp32 form.  The int8 form belongs
-  to the int8-KV slice and raises here.
+  ``pallas_call`` at line 432) in both its forms: bf16/fp32 pools, and int8
+  pools with bf16 scale pages (``k_scale_pool``/``v_scale_pool``, launched
+  and counted as ``flash_attention_paged_int8``).  No serving path launches
+  the int8 form (an int8 prefill attends over its exact K/V through the
+  contiguous kernel); it serves ``paged_flash_attention``'s int8 callers.
 * ``flash_attention_offset`` replaces ``flash_attention_offset_pallas`` (the
   ``pallas_call`` at line 260): a prefill chunk of the slot pool, or the
   lockstep prefill, at per-row ``q_offset`` against a contiguous cache.  The
@@ -38,7 +41,8 @@ import torch
 from repro_torch.core.attention import DEFAULT_CHUNK, online_attention_lse
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention_bwd as _bwd
-from repro_torch.kernels.flash_decode import gather_pages
+from repro_torch.kernels.flash_decode import (check_kv_dtypes, gather_pages,
+                                              gather_scales)
 
 SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
 BQ = 16               # query rows of one CTA (csrc kPrefillRows)
@@ -46,7 +50,7 @@ _SMEM_LIMIT = 48 * 1024
 
 #: Kernel launches since the last reset (a path's proof of route).
 launches = {"flash_attention_paged": 0, "flash_attention_offset": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_paged_int8": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,9 +62,13 @@ _ARGTYPES = {
                                _I, _I, _L, _L, _L, ctypes.c_float, _I, _C],
     "flash_attention": [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                         _L, ctypes.c_float, _I, _C],
+    "flash_attention_paged_int8": [_C] * 10 + [_I] * 8 + [_L] * 3
+    + [ctypes.c_float, _I, _C],
 }
-# launch name → its C entry point (``<entry>_launch`` of ``csrc/<entry>.cu``)
-_ENTRY = {"flash_attention": "flash_attention_fwd"}
+# launch name → (its C entry point, the source whose library holds it)
+_ENTRY = {"flash_attention": ("flash_attention_fwd", "flash_attention_fwd"),
+          "flash_attention_paged_int8": ("flash_attention_paged_int8",
+                                         "flash_attention_paged")}
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -86,29 +94,29 @@ def flash_attention_offset_plain(q, k, v, q_offset, kv_valid_len, *,
 
 def flash_attention_paged_plain(q, k_pool, v_pool, q_offset, kv_valid_len,
                                 block_tables, *, causal: bool = True,
-                                chunk_size: int = DEFAULT_CHUNK):
-    """The paged kernel's plain version: gather the pages and run the
-    chunked online attention.  Returns (out [B, Tq, Hq, D], lse
+                                chunk_size: int = DEFAULT_CHUNK,
+                                k_scale_pool=None, v_scale_pool=None):
+    """The paged kernel's plain version: gather the pages (and the scale
+    pages of int8 pools, as the reference's ``_gathered_int8_chunked``)
+    and run the chunked online attention.  Returns (out [B, Tq, Hq, D], lse
     [B, Hq, Tq])."""
-    return flash_attention_offset_plain(
+    return online_attention_lse(
         q, gather_pages(k_pool, block_tables),
-        gather_pages(v_pool, block_tables), q_offset, kv_valid_len,
-        causal=causal, chunk_size=chunk_size)
+        gather_pages(v_pool, block_tables), causal=causal, q_offset=q_offset,
+        kv_valid_len=kv_valid_len, chunk_size=chunk_size,
+        **gather_scales(k_scale_pool, v_scale_pool, block_tables))
 
 
-def _check(name, q, k, v, hkv):
-    """Shared validation: CUDA operands of q's dtype and head_dim, in a GQA
-    grouping and a grid the kernel takes."""
+def _check(name, q, k, v, hkv, k_scale=None, v_scale=None):
+    """Shared validation: CUDA operands of q's dtype (or int8 K/V with bf16
+    scales) and head_dim, in a GQA grouping and a grid the kernel takes."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {q.device}")
     b, tq, hq, dh = q.shape
     if k.shape[-1] != dh or v.shape != k.shape:
         raise ValueError(f"{name} kernel: q {tuple(q.shape)} and K/V "
                          f"{tuple(k.shape)}/{tuple(v.shape)} do not match")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name} kernel: q is {q.dtype} but K/V are "
-                         f"{k.dtype} (int8 caches are ported with the int8-KV "
-                         "slice)")
+    check_kv_dtypes(name, q, k, v, k_scale, v_scale)
     if hq % hkv or dh not in SUPPORTED_HEAD_DIMS or hq > 65535 or b > 65535:
         raise ValueError(f"{name} kernel: Hq={hq}, Hkv={hkv}, D={dh} not "
                          f"supported (D in {SUPPORTED_HEAD_DIMS})")
@@ -133,13 +141,16 @@ def _rows(x, q, b):
 
 
 def prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
-                  causal: bool = True):
+                  causal: bool = True, k_scale_pool=None, v_scale_pool=None):
     """Validate CUDA operands of the paged kernel and allocate the outputs.
-    Returns (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]));
+    With ``k_scale_pool``/``v_scale_pool`` [P, Hkv, BS] (bf16, passed by
+    their strides) the pools are int8 and the int8 form launches.  Returns
+    (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]));
     :func:`launch` fills them.  Raises on another device, dtype or shape the
     kernel does not take."""
     hkv, bs = k_pool.shape[1], k_pool.shape[2]
-    b, tq, hq, dh = _check("flash_attention_paged", q, k_pool, v_pool, hkv)
+    b, tq, hq, dh = _check("flash_attention_paged", q, k_pool, v_pool, hkv,
+                           k_scale_pool, v_scale_pool)
     smem = 4 * (BQ * (dh + 1) + bs * (dh + 1) + bs * dh + BQ * bs)
     if k_pool.dim() != 4 or smem > _SMEM_LIMIT:
         raise ValueError(f"flash_attention_paged kernel: pools "
@@ -151,9 +162,14 @@ def prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
     tables = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(qc)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    args = ("flash_attention_paged", qc, kc, vc, _rows(q_offset, q, b),
-            _rows(kv_valid_len, q, b), tables, out, lse, code, b, tq, hq, hkv,
-            bs, dh, tables.shape[1], float(dh ** -0.5), int(bool(causal)))
+    rows = (_rows(q_offset, q, b), _rows(kv_valid_len, q, b), tables, out,
+            lse, code, b, tq, hq, hkv, bs, dh, tables.shape[1])
+    tail = (float(dh ** -0.5), int(bool(causal)))
+    if k_scale_pool is None:
+        args = ("flash_attention_paged", qc, kc, vc, *rows, *tail)
+    else:
+        args = ("flash_attention_paged_int8", qc, kc, vc, k_scale_pool,
+                v_scale_pool, *rows, *k_scale_pool.stride(), *tail)
     return args, (out, lse)
 
 
@@ -182,16 +198,21 @@ def prepare(q, k, v, q_offset, kv_valid_len, *, causal: bool = True):
 def launch(args) -> None:
     """Launch a prepared kernel (counts one launch of it)."""
     name = args[0]
-    build.call(_ENTRY.get(name, name), _ARGTYPES[name], args[1:])
+    entry, source = _ENTRY.get(name, (name, name))
+    build.call(entry, _ARGTYPES[name], args[1:], source=source)
     launches[name] += 1
 
 
 def flash_attention_paged(q, k_pool, v_pool, q_offset, kv_valid_len,
-                          block_tables, *, causal: bool = True):
-    """Launch the paged prefill kernel on CUDA tensors.  Returns
-    (out [B, Tq, Hq, D], lse [B, Hq, Tq])."""
+                          block_tables, *, causal: bool = True,
+                          k_scale_pool=None, v_scale_pool=None):
+    """Launch the paged prefill kernel on CUDA tensors (its int8 form when
+    the pools' scale pages are given).  Returns (out [B, Tq, Hq, D], lse
+    [B, Hq, Tq])."""
     args, out = prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len,
-                              block_tables, causal=causal)
+                              block_tables, causal=causal,
+                              k_scale_pool=k_scale_pool,
+                              v_scale_pool=v_scale_pool)
     launch(args)
     return out
 

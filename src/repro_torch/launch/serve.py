@@ -12,15 +12,18 @@ accounting.  Without ``--continuous`` the lockstep baseline runs: one batch
 of ``--batch`` prompts prefilled together, then decoded together at one
 shared cache length, reporting prefill and decode times and the first
 row's token ids.  The model runs on the card unless ``--device cpu`` asks
-for the CPU, where the kernels' plain versions serve.
+for the CPU, where the kernels' plain versions serve.  ``--kv-cache-dtype
+int8`` stores K/V as int8 with a bf16 scale per (position, KV head) in
+every mode: each prompt prefills in one chunk, paged blocks are never
+shared, and decode reads the int8 cache through the dequantizing kernels.
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
 ``_continuous`` at 88, ``main`` at 264); weights and sampling generators
 come from seed 0.  The lockstep prompts come from a seeded numpy generator
 (``default_rng(1)``), not from ``jax.random.randint``, which the port does
-not reproduce.  ``--replicas > 1``, ``--priority-classes > 1``,
-``--trace``, ``--metrics`` and ``--kv-cache-dtype`` are not ported yet and
-say so.
+not reproduce.  ``--replicas > 1``, ``--priority-classes > 1`` (with
+int8 K/V too: preempt-and-swap of int8 pools), ``--trace`` and
+``--metrics`` are not ported yet and say so.
 """
 from __future__ import annotations
 
@@ -71,12 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "length)")
     ap.add_argument("--shared-prefix", type=int, default=8,
                     help="shared synthetic prompt prefix length")
+    ap.add_argument("--kv-cache-dtype", default="",
+                    help="override the config's KV-cache dtype (int8: "
+                         "int8 K/V with a bf16 scale per position and KV "
+                         "head, dequantized after the read; empty = config "
+                         "default)")
     # reference options whose slices are not ported yet: they say so
     ap.add_argument("--priority-classes", type=int, default=1)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--trace", default="")
     ap.add_argument("--metrics", action="store_true")
-    ap.add_argument("--kv-cache-dtype", default="")
     return ap
 
 
@@ -86,12 +93,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit("--paged requires --continuous (the lockstep "
                          "baseline keeps its contiguous cache)")
     not_ported = [
+        (args.kv_cache_dtype == "int8" and args.priority_classes > 1,
+         "--kv-cache-dtype int8 with --priority-classes > 1 "
+         "(preempt-and-swap of int8 pools)"),
         (args.replicas > 1, "--replicas > 1 (the replica router)"),
         (args.priority_classes > 1,
          "--priority-classes > 1 (SLO scheduling)"),
         (bool(args.trace), "--trace"),
         (args.metrics, "--metrics"),
-        (bool(args.kv_cache_dtype), "--kv-cache-dtype"),
     ]
     for cond, what in not_ported:
         if cond:
@@ -101,8 +110,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config_for(args):
-    return (configs.get_smoke(args.arch) if args.smoke
-            else configs.get(args.arch))
+    cfg = (configs.get_smoke(args.arch) if args.smoke
+           else configs.get(args.arch))
+    if args.kv_cache_dtype:
+        cfg = cfg.replace(kv_cache_dtype=args.kv_cache_dtype)
+    return cfg
 
 
 def workload(args, cfg) -> tuple[list, int]:

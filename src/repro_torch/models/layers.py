@@ -3,11 +3,11 @@ a paged KV pool or a contiguous KV cache, the SwiGLU MLP, embedding and LM
 head.
 
 Port of the dense parts of ``src/repro/models/layers.py``: ``rms_norm`` (line
-90), ``rope`` (109), ``cache_write`` (146), ``paged_cache_write`` (163), the
-paged and the contiguous non-quantized branches of ``attention_apply``
-(306-313 and 338-353), ``mlp_apply`` (459), ``embed_tokens`` (555) and
-``head_matrix`` (559).  Parameters are plain dicts of tensors.  The int8,
-MLA and MoE branches come with later slices.
+90), ``rope`` (109), ``cache_write`` (146), ``paged_cache_write`` (163),
+``_quantize_kv`` (203), the paged and the contiguous branches of
+``attention_apply``, fp and int8 (277-353), ``mlp_apply`` (459),
+``embed_tokens`` (555) and ``head_matrix`` (559).  Parameters are plain
+dicts of tensors.  The MLA and MoE branches come with later slices.
 """
 from __future__ import annotations
 
@@ -88,6 +88,18 @@ def paged_cache_write(pool: Tensor, new: Tensor, cache_len: Union[int, Tensor],
     return pool
 
 
+def _quantize_kv(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Per-(position, head) int8 quantization: x [B, T, H, D] → (int8
+    [B, T, H, D], bf16 scale [B, T, H]).  The reference's arithmetic: the
+    scale is max|x| / 127 (at least 1e-8) in fp32, the values round half to
+    even (``torch.round``, like ``jnp.round``) and clip to ±127, and the
+    stored scale rounds to bf16."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
 def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
                     positions: Tensor, cache: Optional[dict] = None,
                     cache_len: Optional[Union[int, Tensor]] = None,
@@ -109,6 +121,13 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     the decode kernel, and a wider one the cached-prefill kernel, with the
     queries at absolute offset ``cache_len`` and ``cache_len + t`` valid
     positions per row.
+
+    The cache layout, not a config string, selects the int8 form: a cache
+    with ``"k_scale"`` holds int8 K/V (pools or caches) and bf16 scales
+    beside them ([P, Hkv, BS] pages or [B, S, Hkv]).  Every step writes the
+    quantized K/V and their scales; a prefill (t > 1, single shot) attends
+    over this call's exact K/V through the cached-prefill kernel, and a
+    decode step over the int8 cache through the dequantizing decode kernel.
     """
     b, t, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -117,7 +136,27 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     v = (x @ p["wv"]).reshape(b, t, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if cache is not None:
+    if cache is not None and "k_scale" in cache:
+        k8, ks = _quantize_kv(k)
+        v8, vs = _quantize_kv(v)
+        for name, new in (("k", k8), ("v", v8), ("k_scale", ks),
+                          ("v_scale", vs)):
+            if block_tables is not None:
+                paged_cache_write(cache[name], new, cache_len, block_tables)
+            else:
+                cache_write(cache[name], new, cache_len)
+        valid = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=x.device).expand(b) + t
+        if t > 1:
+            out = dispatch.sdpa(cfg, q, k, v, causal=True, q_offset=cache_len,
+                                kv_valid_len=valid)
+        else:
+            out = dispatch.sdpa(cfg, q, cache["k"], cache["v"], causal=False,
+                                q_offset=cache_len, kv_valid_len=valid,
+                                decode=True, k_scale=cache["k_scale"],
+                                v_scale=cache["v_scale"],
+                                block_tables=block_tables)
+    elif cache is not None:
         if block_tables is not None:
             k_all = paged_cache_write(cache["k"], k, cache_len, block_tables)
             v_all = paged_cache_write(cache["v"], v, cache_len, block_tables)

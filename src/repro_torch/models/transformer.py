@@ -103,7 +103,8 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     pools ``{"k", "v": [L, P, Hkv, BS, D]}`` (no batch axis; see
     ``serving.engine.init_paged_cache``) and every attention layer writes and
     reads through the table, in place.  ``cache_len`` is an int (one
-    sequence) or a [B] tensor (per-slot offsets)."""
+    sequence) or a [B] tensor (per-slot offsets).  Layer i sees leaf ``[i]``
+    of every cache leaf, so an int8 cache's scales travel with its K/V."""
     x = L.embed_tokens(params, tokens)
     t = tokens.shape[1]
     base = torch.as_tensor(cache_len if cache_len is not None else 0,
@@ -113,7 +114,7 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     remat = _remat(cfg, training=caches is None and torch.is_grad_enabled())
     for i, lp in enumerate(params["layers"]):
         cache = (None if caches is None
-                 else {"k": caches["k"][i], "v": caches["v"][i]})
+                 else {name: leaf[i] for name, leaf in caches.items()})
         layer = functools.partial(_block_apply, cfg=cfg, positions=positions,
                                   cache=cache, cache_len=cache_len,
                                   block_tables=block_tables)

@@ -1,12 +1,14 @@
 """Cache families: what the serving stack assumes about a config's KV layout.
 
-Port of ``src/repro/serving/cache_family.py`` for the ``dense`` family only
-(``DenseFamily``, line 183): fp attention K/V as contiguous per-sequence
-caches (the slot pool and the lockstep batch) or paged as blocks of
-``block_size`` token positions, prefix-shareable with copy-on-write.  The
-int8, fixed-state and enc-dec families come with later slices; ``resolve``
-raises for them.  The pool-layout contract is the reference's: the physical
-block axis sits at position 1 of every pool leaf ([L, P, Hkv, BS, D]).
+Port of ``src/repro/serving/cache_family.py`` for the dense decoder's two
+families: ``DenseFamily`` (line 183), fp attention K/V as contiguous
+per-sequence caches (the slot pool and the lockstep batch) or paged as blocks
+of ``block_size`` token positions, prefix-shareable with copy-on-write; and
+``DenseInt8Family`` (232), int8 K/V with a bf16 scale per (position, KV head)
+beside them, prefilled in one shot and never shared.  The fixed-state and
+enc-dec families come with later slices; ``resolve`` raises for them.  The
+pool-layout contract is the reference's: the physical block axis sits at
+position 1 of every pool leaf ([L, P, Hkv, BS, D], scales [L, P, Hkv, BS]).
 """
 from __future__ import annotations
 
@@ -21,6 +23,12 @@ from repro_torch.models import transformer
 class CacheFamily:
     """Base protocol: layout construction + serving-policy bits."""
 
+    #: Are K/V stored quantized, with scales beside them?
+    quantized: bool = False
+    #: Must a prompt prefill in one chunk?  A quantized prefill attends over
+    #: the current chunk's exact K/V only, so a chunk schedule would drop
+    #: the prefix.
+    single_shot_prefill: bool = False
     #: Do identical prompt prefixes share physical blocks (with CoW)?
     shareable: bool = True
     #: Does the prompt occupy the decode cache?
@@ -91,12 +99,47 @@ class DenseFamily(CacheFamily):
                 f"{block_size}")
 
 
+class DenseInt8Family(DenseFamily):
+    """Quantized attention K/V: int8 payload plus a bf16 scale per
+    (position, KV head).  Contiguous caches are {"k", "v": int8
+    [L, B, S, Hkv, D], "k_scale", "v_scale": bf16 [L, B, S, Hkv]}; pools
+    add scale pages [L, P, Hkv, BS] beside the int8 pools, read through the
+    same block table.  Prefill is single shot (it attends over the prompt's
+    exact K/V), and blocks are never prefix-shared: scales are per-sequence
+    write-time values, so the family stays out of the prefix index."""
+
+    name = "dense_int8"
+    quantized = True
+    single_shot_prefill = True
+    shareable = False
+
+    def _zeros(self, shape, device) -> dict:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device)}
+
+    def dequantize_block(self, block: dict) -> dict:
+        """fp32 K/V from int8 leaves [..., BS, D] and their scales
+        [..., BS]: ``x.float() * scale.float()``, the arithmetic the kernels
+        apply to each tile after the read."""
+        return {name: block[name].float()
+                * block[f"{name}_scale"].float()[..., None]
+                for name in ("k", "v")}
+
+
 @functools.lru_cache(maxsize=None)
 def resolve(cfg: ModelConfig) -> CacheFamily:
-    """The cache family serving this config (dense only in this slice)."""
+    """The cache family serving this config: int8 K/V for
+    ``kv_cache_dtype == "int8"``, else fp K/V (any other value keeps the
+    model dtype, as in the reference)."""
     kinds = {k for k, _ in transformer.block_pattern(cfg)}
-    if kinds != {"dense"} or cfg.kv_cache_dtype not in ("",):
+    if kinds != {"dense"}:
         raise NotImplementedError(
-            f"cache family for {cfg.name!r} (blocks {sorted(kinds)}, "
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r}) is not ported yet")
+            f"cache family for {cfg.name!r} (blocks {sorted(kinds)}) is not "
+            "ported yet")
+    if cfg.kv_cache_dtype == "int8":
+        return DenseInt8Family(cfg)
     return DenseFamily(cfg)

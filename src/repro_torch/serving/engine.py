@@ -109,10 +109,13 @@ def chunked_prefill(params: dict, tokens: Tensor, cfg: ModelConfig, *,
                     max_len: int, chunk: int = 0):
     """Prefill prompts tokens [B, T] in ``prefill_schedule`` chunks against
     fresh caches of ``max_len`` (``chunk=0``, or one at least T, is a single
-    shot) — the slot pool's canonical single-sequence prefill, the same
-    per-chunk step the scheduler interleaves with decode.  Returns
-    (last_hidden [B, D], caches, length)."""
+    shot; a single-shot family, int8 K/V, always goes in whole) — the slot
+    pool's canonical single-sequence prefill, the same per-chunk step the
+    scheduler interleaves with decode.  Returns (last_hidden [B, D], caches,
+    length)."""
     t = tokens.shape[1]
+    if cache_family.resolve(cfg).single_shot_prefill:
+        chunk = 0
     caches = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
     length, pos, last = 0, 0, None
     for c in prefill_schedule(t, chunk or t):

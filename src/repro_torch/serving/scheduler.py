@@ -1,8 +1,8 @@
 """Continuous-batching scheduler over the slot pool or the paged KV pool.
 
 Port of ``src/repro/serving/scheduler.py`` for ``ContinuousScheduler``
-with the token (dense) cache family, unpaged (``paged=False``, the slot
-pool) and paged: ``Request`` (line 106), ``RequestResult`` (126),
+with the token cache families (fp and int8 K/V), unpaged (``paged=False``,
+the slot pool) and paged: ``Request`` (line 106), ``RequestResult`` (126),
 ``ServeReport`` (190), ``SlotPool`` (410), ``poisson_workload`` (1238, the
 same numpy draws) and the scheduler's admit → chunked prefill → pooled
 decode tick.
@@ -13,7 +13,8 @@ decode tick.
   prompt needs, after prefix matching and LRU reclaim.
 * **Prefill** — chunked by ``engine.prefill_schedule`` and interleaved with
   decode: one chunk per tick while the pool is nearly full, more as slots
-  sit idle, everything at once when nothing decodes.  Unpaged, chunks fill
+  sit idle, everything at once when nothing decodes.  A single-shot family
+  (int8 K/V) prefills each prompt in one chunk.  Unpaged, chunks fill
   a batch-1 scratch cache of ``slot_len``, inserted into the slot acquired
   when the prefill finishes; paged, chunks write straight into the pool
   through the sequence's table row.
@@ -303,11 +304,14 @@ class ContinuousScheduler:
             caches = engine.init_cache(self.cfg, 1, self.pool.slot_len,
                                        self.device)
         self.queue.remove(req)
+        rest = len(req.prompt) - start
         self._prefill = {
             "flight": flight, "seq": seq, "caches": caches, "length": start,
             "pos": start, "last": None,
-            "sizes": deque(engine.prefill_schedule(
-                len(req.prompt) - start, self.prefill_chunk))}
+            # a single-shot family (int8 K/V) gets the whole rest at once
+            "sizes": deque([rest] if self.family.single_shot_prefill
+                           else engine.prefill_schedule(rest,
+                                                        self.prefill_chunk))}
         return True
 
     # -- prefill ------------------------------------------------------------

@@ -4,9 +4,11 @@
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel against its plain version at small shapes (fp32 tightly, bf16
-within bf16 rounding), a small model served on the card through the
-kernels against the same model served on the CPU through the plain
-versions, and one full-width train step through the training kernels.  No JAX is needed.  ``chip_smoke.py`` does the same at full width.
+within bf16 rounding), the int8 forms with poisoned dead scales and scales
+read through non-contiguous views, a small model served on the card
+through the kernels against the same model served on the CPU through the
+plain versions, and one full-width train step through the training
+kernels.  No JAX is needed.  ``chip_smoke.py`` does the same at full width.
 """
 import numpy as np
 import pytest
@@ -19,9 +21,12 @@ from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import softmax_topk as st
 from repro_torch.launch import serve
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 
 pytestmark = pytest.mark.cuda
+# the int8 forms' counters, zero on every fp path
+NO_INT8 = dict.fromkeys(("flash_decode_paged_int8", "flash_decode_int8",
+                         "flash_attention_paged_int8"), 0)
 
 
 @pytest.fixture
@@ -87,7 +92,8 @@ def test_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention_offset": 0,
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
-                                        "flash_attention_bwd_dkv": 0}
+                                        "flash_attention_bwd_dkv": 0,
+                                        **NO_INT8}
 
 
 def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
@@ -154,7 +160,8 @@ def test_contiguous_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention_offset": 1,
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
-                                        "flash_attention_bwd_dkv": 0}
+                                        "flash_attention_bwd_dkv": 0,
+                                        **NO_INT8}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -189,7 +196,7 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": 0,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0}
+        "flash_attention_bwd_dkv": 0, **NO_INT8}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
@@ -237,13 +244,13 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": (sched.prefill_chunks - ones) * n,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0}
+        "flash_attention_bwd_dkv": 0, **NO_INT8}
     assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
                            "flash_decode": 5 * n, "flash_attention_paged": 0,
                            "flash_attention_offset": n,
                            "flash_attention": 0,
                            "flash_attention_bwd_dq": 0,
-                           "flash_attention_bwd_dkv": 0}
+                           "flash_attention_bwd_dkv": 0, **NO_INT8}
 
 
 def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
@@ -337,3 +344,133 @@ def test_full_width_train_step(cuda):
     assert counts["flash_attention_bwd_dq"] == cfg.num_layers
     assert counts["flash_attention_bwd_dkv"] == cfg.num_layers
     assert counts["flash_decode"] == counts["softmax_topk"] == 0
+
+
+def _int8_paged(seed, *, vlens, tq, bs=16, hkv=5, g=3, d=64):
+    """int8 pools and scale pages (``_quantize_kv`` of random K/V) for rows
+    of valid lengths ``vlens``, as two copies: the kernel's, whose dead
+    table entries point at block 1 (payload ±127, scales NaN) and whose
+    positions at or past a row's vlen have NaN scales, the scale pages
+    being a non-contiguous per-layer view of a [2, P, Hkv, BS + 3] buffer;
+    and the plain version's, dead entries at the sentinel, those scales 0.
+    Row order keeps an idle row (vlen <= 1) on the sentinel block 0."""
+    gen = torch.Generator().manual_seed(seed)
+    live = [max(1, -(-v // bs)) for v in vlens]
+    p = 2 + sum(live)
+    k8, ks = layers._quantize_kv(torch.randn(p, bs, hkv, d, generator=gen))
+    v8, vs = layers._quantize_kv(torch.randn(p, bs, hkv, d, generator=gen))
+    pools = [x.transpose(1, 2).contiguous() for x in (k8, v8, ks, vs)]
+    pools[2][0] = pools[3][0] = 0.0             # the sentinel's scales
+    ids = (torch.randperm(p - 2, generator=gen) + 2).tolist()
+    t_kernel = torch.ones((len(vlens), max(live) + 1), dtype=torch.int32)
+    t_plain = torch.zeros_like(t_kernel)
+    for row, n in enumerate(live):
+        for j in range(n):
+            t_kernel[row, j] = t_plain[row, j] = ids.pop()
+        if vlens[row] <= 1:
+            t_kernel[row, 0] = t_plain[row, 0] = 0
+    plain = [x.clone() for x in pools]
+    kern = [x.clone() for x in pools]
+    kern[0][1], kern[1][1] = 127, -127
+    kern[2][1] = kern[3][1] = float("nan")
+    for row, n in enumerate(vlens):             # tails past vlen
+        for pos in range(n, live[row] * bs):
+            blk = int(t_kernel[row, pos // bs])
+            if blk > 1:
+                kern[2][blk, :, pos % bs] = kern[3][blk, :, pos % bs] = \
+                    float("nan")
+                plain[2][blk, :, pos % bs] = plain[3][blk, :, pos % bs] = 0.0
+    for x in (kern, plain):
+        for i in (2, 3):                        # a per-layer strided view
+            buf = torch.full((2, p, hkv, bs + 3), float("nan"),
+                             dtype=torch.bfloat16)
+            buf[1, ..., :bs] = x[i]
+            x[i] = buf[1, ..., :bs]
+    q = torch.randn(len(vlens), tq, hkv * g, d, generator=gen)
+    return q, kern, plain, t_kernel, t_plain, torch.tensor(vlens,
+                                                          dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_int8_kernels_match_plain(cuda, dtype, atol):
+    """The int8 forms of the paged decode, the contiguous decode and the
+    paged prefill kernels against their plain versions: dead table entries
+    and positions past vlen carry NaN scales, idle rows read the sentinel
+    block 0 (scales 0) and stay finite, and the scales are read through
+    non-contiguous views (a per-layer slice of the paged scale pages,
+    transposed contiguous scales)."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda)
+    q, kern, plain, tk, tp, vlen = _int8_paged(9, vlens=[70, 33, 0, 1],
+                                               tq=1)
+    assert not kern[2].is_contiguous()
+    q = q.to(dtype=dtype, **dev)
+    kern = [x.to(**dev) for x in kern]
+    plain = [x.to(**dev) for x in plain]
+    got = fd.flash_decode_paged(q, kern[0], kern[1], tk.to(cuda),
+                                vlen.to(cuda), k_scale_pool=kern[2],
+                                v_scale_pool=kern[3])
+    want = fd.flash_decode_paged_plain(q, plain[0], plain[1], tp.to(cuda),
+                                       vlen.to(cuda), k_scale_pool=plain[2],
+                                       v_scale_pool=plain[3])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+    q, kern, plain, tk, tp, vlen = _int8_paged(10, vlens=[40, 23, 0],
+                                               tq=21)
+    qoff = (vlen - 21).clamp(min=0)
+    args = (q.to(dtype=dtype, **dev),)
+    out, lse = fa.flash_attention_paged(
+        *args, *(x.to(**dev) for x in kern[:2]), qoff.to(cuda),
+        vlen.to(cuda), tk.to(cuda), k_scale_pool=kern[2].to(cuda),
+        v_scale_pool=kern[3].to(cuda))
+    w_out, w_lse = fa.flash_attention_paged_plain(
+        *args, *(x.to(**dev) for x in plain[:2]), qoff.to(cuda),
+        vlen.to(cuda), tp.to(cuda), k_scale_pool=plain[2].to(cuda),
+        v_scale_pool=plain[3].to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - w_out.float()).abs().max().item() <= atol
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+    fin = torch.isfinite(w_lse)
+    assert (lse[fin] - w_lse[fin]).abs().max().item() <= max(atol, 1e-4)
+
+    # contiguous int8 caches [B, S, Hkv, D], scales [B, S, Hkv] as a
+    # transposed view; NaN scales and ±127 at or past each row's vlen
+    gen = torch.Generator().manual_seed(11)
+    b, s, hkv, d = 5, 96, 5, 64
+    vlens = [0, 1, 70, 33, 96]
+    k8, ks = layers._quantize_kv(torch.randn(b, s, hkv, d, generator=gen))
+    v8, vs = layers._quantize_kv(torch.randn(b, s, hkv, d, generator=gen))
+    dead = torch.arange(s)[None, :] >= torch.tensor(vlens)[:, None]
+    caches = {}
+    for name, fill in (("kernel", float("nan")), ("plain", 0.0)):
+        kk, vv = k8.clone(), v8.clone()
+        if name == "kernel":
+            kk[dead], vv[dead] = 127, -127
+        sc = []
+        for x in (ks, vs):
+            buf = x.masked_fill(dead[..., None], fill).transpose(1, 2)
+            sc.append(buf.contiguous().transpose(1, 2))   # strides (.., 1, S)
+        caches[name] = [t.to(cuda) for t in (kk, vv, *sc)]
+    assert not caches["kernel"][2].is_contiguous()
+    q = torch.randn(b, 1, hkv * 3, d, generator=gen).to(dtype=dtype, **dev)
+    vl = torch.tensor(vlens, dtype=torch.int32, device=cuda)
+    kc, pc = caches["kernel"], caches["plain"]
+    got = fd.flash_decode(q, kc[0], kc[1], vl, k_scale=kc[2], v_scale=kc[3])
+    want = fd.flash_decode_plain(q, pc[0], pc[1], vl, k_scale=pc[2],
+                                 v_scale=pc[3])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(got[0], torch.zeros_like(got[0]))     # vlen 0 → 0
+    with pytest.raises(ValueError, match="bf16 scales"):
+        fd.flash_decode(q, kc[0], kc[1], vl, k_scale=kc[2].float(),
+                        v_scale=kc[3].float())
+    counts = dispatch.launch_counts()
+    assert {k: counts[k] for k in NO_INT8} == {
+        "flash_decode_paged_int8": 1, "flash_decode_int8": 1,
+        "flash_attention_paged_int8": 1}
+    assert sum(counts.values()) == 3

@@ -174,7 +174,10 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
                                         "flash_attention_offset": 0,
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
-                                        "flash_attention_bwd_dkv": 0}
+                                        "flash_attention_bwd_dkv": 0,
+                                        "flash_decode_paged_int8": 0,
+                                        "flash_decode_int8": 0,
+                                        "flash_attention_paged_int8": 0}
 
 
 def test_dispatch_raises_on_unported_routes():

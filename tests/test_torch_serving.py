@@ -402,14 +402,20 @@ def test_engine_rejects_bad_requests(model):
 @pytest.mark.parametrize("extra", [None, ["--replicas", "2"],
                                    ["--priority-classes", "2"],
                                    ["--trace", "t.json"], ["--metrics"],
-                                   ["--kv-cache-dtype", "int8"]],
+                                   ["--kv-cache-dtype", "int8",
+                                    "--priority-classes", "2"]],
                          ids=["lockstep", "replicas", "priorities", "trace",
                               "metrics", "kv-int8"])
 def test_cli_unported_options_say_so(extra):
     """Options whose slices are not ported yet are refused in either mode:
-    the lockstep case asks for an int8 KV cache."""
-    argv = (["--smoke", "--device", "cpu", "--kv-cache-dtype", "int8"]
+    the lockstep case asks for metrics, and the int8 case for
+    preempt-and-swap of int8 pools (an int8 cache alone serves)."""
+    argv = (["--smoke", "--device", "cpu", "--metrics"]
             if extra is None
             else ["--smoke", "--continuous", "--paged"] + extra)
     with pytest.raises(SystemExit, match="not ported yet"):
         serve.parse_args(argv)
+    if extra is not None and "int8" in extra:
+        with pytest.raises(SystemExit, match="int8 pools"):
+            serve.parse_args(argv)
+        assert serve.parse_args(argv[:-2]).kv_cache_dtype == "int8"
