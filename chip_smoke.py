@@ -61,7 +61,22 @@ printing its final line:
    version and, where one PyTorch call computes the same function, that
    call; then full-width decode steps and prefill chunks of the paged pool
    and the slot pool, their int8 decode steps, and a full-width train step,
-   end to end, against the device's busy time inside them (torch.profiler).
+   end to end, against the device's busy time inside them (torch.profiler);
+   the four online-softmax kernels at [4000, 100000] fp32 beside
+   torch.softmax / torch.logsumexp, and the effective accesses per element
+   (ms × 3.35 TB/s over the bytes of x) of the exact softmax, the
+   normalizer, torch.softmax and torch.logsumexp at every shape of phase 9,
+   beside the paper's 3 (online), 4 (safe) and 1 (normalizer);
+9. library: the paper's online softmax through its public entry points,
+   with the launch counts set to 0 just before and read just after:
+   ``dispatch.online_softmax`` under each softmax form (exact, bf16, exp2)
+   and ``ops.online_normalizer`` at smollm-360m's logit shapes ([8, 49152]
+   fp32, [4096, 49152] bf16) and the paper's regimes ([4000, V] and [10, V],
+   V = 1000, 10000, 100000, fp32), one counted launch per call; each held
+   against its plain version on the CPU over up to 24 rows (m equal, d and
+   y within the forms' analytic bounds, rows with -inf prefixes, tails and
+   all -inf giving (-inf, 0) and y = 0); then ``ops.softmax_topk`` with a
+   backward, its fp32 gradient against the CPU's.
 
 The line before the last is a JSON object with one entry per kernel (with
 the path it was ported for); the last line is ``{"ok": true, "device":
@@ -119,6 +134,20 @@ KERNELS = {
     "flash_attention_paged_int8": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_paged.cu",
         "replaces": "src/repro/kernels/flash_attention.py:432"},
+    # the library surface: Algorithm 3's two sweeps, its normalizer, and
+    # kernel forms of the bf16 and exp2 softmax forms (XLA in the reference)
+    "online_softmax": {
+        "source": "src/repro_torch/kernels/csrc/online_softmax.cu",
+        "replaces": "src/repro/kernels/online_softmax.py:66,77"},
+    "online_normalizer": {
+        "source": "src/repro_torch/kernels/csrc/online_softmax.cu",
+        "replaces": "src/repro/kernels/online_softmax.py:99"},
+    "online_softmax_bf16": {
+        "source": "src/repro_torch/kernels/csrc/online_softmax.cu",
+        "replaces": "src/repro/kernels/dispatch.py:514"},
+    "online_softmax_exp2": {
+        "source": "src/repro_torch/kernels/csrc/online_softmax.cu",
+        "replaces": "src/repro/kernels/dispatch.py:520"},
 }
 # the serving runs of phase 4 (the CLI's own flags); each kernel's
 # "launches" comes from the run of the path it was ported for
@@ -150,7 +179,26 @@ KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "flash_attention_bwd_dkv": "train",
                "flash_decode_paged_int8": "paged int8",
                "flash_decode_int8": "slot pool int8",
-               "flash_attention_paged_int8": "kernel check only"}
+               "flash_attention_paged_int8": "kernel check only",
+               "online_softmax": "library", "online_normalizer": "library",
+               "online_softmax_bf16": "library",
+               "online_softmax_exp2": "library"}
+# phase 9's shapes (R, V, dtype): smollm-360m's logits at a decode step and
+# for one 8 x 512 train batch, then the paper's two regimes (batch 4000 and
+# batch 10) at V = 1000, 10000 and 100000; the timed rows of phase 8 are the
+# largest (4000 x 100000 fp32)
+LIBRARY_SHAPES = ((8, 49152, "float32"), (4096, 49152, "bfloat16"),
+                  (4000, 1000, "float32"), (4000, 10000, "float32"),
+                  (4000, 100000, "float32"), (10, 1000, "float32"),
+                  (10, 10000, "float32"), (10, 100000, "float32"))
+LIBRARY_TIMED = (4000, 100000, "float32")
+LIBRARY_CPU_ROWS = 24     # rows of each input held against the CPU
+# ops.softmax_topk's fp32 gradient, card vs CPU: within 1e-4 of the largest
+# entry.  The gradient is s·(dlse − Σ dval·val) + dval·val at the top k, s =
+# exp(x − lse); the kernel's lse agrees with the CPU's to ~1e-6 relative (row
+# 1's rtol 1e-5 gate), which moves s by ~|lse|·1e-6 ≈ 1e-5 relative, and
+# the two devices round exp and the sums apart by a few ulps.
+TOPK_GRAD_RTOL = 1e-4
 # int8 parity gate: the first decode step's max |logit difference| between
 # the card and the CPU over the logit scale (max |logit|), fp32 weights.  A
 # K/V element one int8 step apart moves its attention score by ~|q| max|k|
@@ -1256,7 +1304,8 @@ PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
                        "decode_kernel", "prefill_offset_kernel",
                        "fresh_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel",
                        "decode_paged_int8_kernel", "decode_int8_kernel",
-                       "prefill_paged_int8_kernel")
+                       "prefill_paged_int8_kernel", "md_partial_kernel",
+                       "md_merge_kernel", "normalize_kernel")
 
 
 def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
@@ -1491,6 +1540,7 @@ def phase_times() -> dict:
                      "Hq=15 Hkv=5 D=64 bf16"}
     rows.update(_train_kernel_times(gen))
     rows.update(_int8_kernel_times(gen))
+    rows.update(_library_kernel_times())
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
                else "none")
@@ -1683,6 +1733,216 @@ def _int8_kernel_times(gen) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 9: the library surface at smollm-360m's logit shapes and the paper's
+# regimes
+# ---------------------------------------------------------------------------
+def _library_input(r, v, dtype, seed):
+    """x [R, V] on the card, randn × 4 from a seeded CUDA generator, with
+    row 0 dead over its leading half (its whole first 4096-entry slice when
+    V ≥ 8192), row 1 all -inf and row 2 dead over its last third."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(r, v, generator=gen, device="cuda") * 4.0
+    x[0, :v // 2] = float("-inf")
+    x[1] = float("-inf")
+    x[2, v - v // 3:] = float("-inf")
+    return x.to(getattr(torch, dtype))
+
+
+def _cpu_rows(r):
+    """Rows held against the CPU: the three edge rows and a spread of the
+    others (every row when R is small)."""
+    if r <= LIBRARY_CPU_ROWS:
+        return list(range(r))
+    n = LIBRARY_CPU_ROWS - 3
+    return [0, 1, 2] + sorted({3 + (i * (r - 4)) // (n - 1) for i in range(n)})
+
+
+def _hold_library(what, x, ys, m, d) -> dict:
+    """One input's kernel outputs against the plain versions on the CPU over
+    the rows of ``_cpu_rows``: m equal, the exact normalizer's d within
+    ``exact_error_bound`` of the plain d, (-inf, 0) on the dead row; each
+    form's y within ``kernel_error_bound`` of the fp32 reference, relative
+    to each entry (the bounds count relative roundings; y ≤ 1 makes them
+    max-abs bounds too), the bf16 form within ``bf16_error_bound`` where
+    that is not vacuous (V ≤ 2048), and each form within a derived
+    tolerance of its own plain form: the bound (exact), twice the bound
+    (exp2: both lie within it of the reference), the kernel's bound plus
+    the plain bf16 form's measured distance from the reference (bf16, whose
+    sequential-scan bound is vacuous past V = 2048).  On the card, every
+    -inf entry gives y = 0 and every y is finite.  Returns {kernel: max abs
+    error against its plain version}."""
+    import torch
+    from repro_torch.core import softmax_forms as sf
+    from repro_torch.kernels import online_softmax as osk
+    rows = _cpu_rows(x.shape[0])
+    xc = x[rows].cpu()
+    ref = osk.online_softmax_plain(xc.float())
+    pm, pd = osk.online_normalizer_plain(xc)
+    dk = d[rows].cpu()
+    live = pd > 0
+    rel = ((dk - pd).abs()[live] / pd[live]).max().item()
+    if not torch.equal(m[rows].cpu(), pm) or rel > sf.exact_error_bound(xc) \
+            or not torch.equal(dk[~live], pd[~live]) or d[1].item() != 0.0:
+        _fail(f"online_normalizer {what}: m or d differs from the plain "
+              f"version (d rel err {rel:.3g})")
+    errs = {"online_normalizer": (dk - pd).abs().max().item()}
+    dead = torch.isneginf(x)
+    for form, y in ys.items():
+        name = osk.KERNEL_NAMES[form]
+        yc = y[rows].cpu().float()
+        bound = osk.kernel_error_bound(xc, form)
+        if form == "bf16" and x.shape[-1] <= 2048:
+            bound = min(bound, sf.bf16_error_bound(xc)
+                        + (sf.BF16_EPS if x.dtype == torch.bfloat16 else 0))
+        plain = osk.online_softmax_plain(xc, form).float()
+        tol = {"exact": bound, "exp2": 2 * bound,
+               "bf16": bound + (plain - ref).abs().max().item()}[form]
+        err = (yc - ref).abs()
+        perr = (yc - plain).abs().max().item()
+        if (err > bound * ref + 1e-30).any() or perr > tol:
+            _fail(f"{name} {what}: max abs err {err.max().item():.3g} "
+                  f"(bound {bound:.3g} of each entry), {perr:.3g} against "
+                  f"its plain form (tol {tol:.3g})")
+        if not torch.isfinite(y).all() or (y[dead] != 0).any():
+            _fail(f"{name} {what}: non-finite y, or y != 0 at a -inf entry")
+        errs[name] = perr
+        print(f"library {name} {what}: max abs err {err.max().item():.3g} "
+              f"vs the fp32 reference (bound {bound:.3g} of each entry), "
+              f"{perr:.3g} vs its plain form (tol {tol:.3g}), the plain "
+              f"form {(plain - ref).abs().max().item():.3g} from the "
+              "reference; -inf rows 0")
+    print(f"library online_normalizer {what}: m equal, d max rel err "
+          f"{rel:.3g} (bound {sf.exact_error_bound(xc):.3g}), dead row "
+          "(-inf, 0)")
+    return errs
+
+
+def phase_library():
+    """Phase 9: ``dispatch.online_softmax`` under each softmax form and
+    ``ops.online_normalizer`` on every shape of ``LIBRARY_SHAPES``, then
+    ``ops.softmax_topk`` with a backward at [8, 49152] fp32, k = 5, between
+    a reset and a read of the launch counts; each output held against its
+    plain version on the CPU.  Returns (the counts, {kernel: max abs error
+    against its plain version over the fp32 shapes})."""
+    import torch
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels import online_softmax as osk
+    dispatch.reset_launch_counts()
+    calls = dict.fromkeys(KERNELS, 0)
+    errs = {}
+    for i, (r, v, dtype) in enumerate(LIBRARY_SHAPES):
+        x = _library_input(r, v, dtype, seed=100 + i)
+        ys = {}
+        for form in dispatch.SOFTMAX_FORMS:
+            prev = dispatch.set_softmax_form(form)
+            try:
+                ys[form] = dispatch.online_softmax(x)
+            finally:
+                dispatch.set_softmax_form(prev)
+            calls[osk.KERNEL_NAMES[form]] += 1
+        m, d = ops.online_normalizer(x)
+        calls["online_normalizer"] += 1
+        torch.cuda.synchronize()
+        for name, err in _hold_library(f"[{r}, {v}] {dtype}", x, ys, m,
+                                       d).items():
+            if dtype == "float32":
+                errs[name] = max(errs.get(name, 0.0), err)
+        del x, ys, m, d
+
+    x0 = torch.randn(8, 49152, generator=torch.Generator().manual_seed(9))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xg = (x0 * 4.0).to(dev).requires_grad_(True)
+        out = ops.softmax_topk(xg, 5)
+        ((out.values ** 2).sum() + 0.1 * (out.logsumexp ** 2).sum()
+         ).backward()
+        grads[dev] = xg.grad.cpu()
+    calls["softmax_topk"] += 1
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    # one counted launch per wrapper call (osk.LAUNCHES_PER_CALL; the
+    # softmax_topk wrapper counts one per call too)
+    want = {k: n * osk.LAUNCHES_PER_CALL for k, n in calls.items()}
+    if counts != want:
+        _fail(f"library: launches {counts}, its calls imply {want}")
+    scale = grads["cpu"].abs().max().item()
+    gerr = (grads["cuda"] - grads["cpu"]).abs().max().item()
+    if not gerr <= TOPK_GRAD_RTOL * scale:
+        _fail(f"ops.softmax_topk gradient: max abs diff {gerr:.3g} > "
+              f"{TOPK_GRAD_RTOL} x {scale:.3g}")
+    print(f"library ops.softmax_topk [8, 49152] fp32 k=5 backward: gradient "
+          f"max abs diff card vs CPU {gerr:.3g} (tol {TOPK_GRAD_RTOL} of the "
+          f"largest entry, {scale:.3g})")
+    print(f"library launches: {counts} = {len(LIBRARY_SHAPES)} shapes x "
+          "(3 forms + the normalizer), 1 softmax_topk")
+    return counts, errs
+
+
+def _library_kernel_times() -> dict:
+    """The four library kernels at ``LIBRARY_TIMED`` (each first held
+    against its plain version on the timed input), then the effective
+    accesses per element of the exact softmax and the normalizer beside
+    torch.softmax and torch.logsumexp at every shape of ``LIBRARY_SHAPES``
+    (ms × 3.35 TB/s over the bytes of x): the paper counts 3 for the online
+    softmax, 4 for safe softmax and 1 for the normalizer.  The bounds count x
+    read once and y (or m and d) written once."""
+    import torch
+    from repro_torch.kernels import online_softmax as osk
+    r, v, dtype = LIBRARY_TIMED
+    x = _library_input(r, v, dtype, seed=200)
+    n, esz = r * v, x.element_size()
+    shape = f"x [{r}, {v}] {dtype}"
+    calls = {form: osk.prepare(x, form) for form in osk.FORM_CODES}
+    md_call, (m, d) = osk.prepare_normalizer(x)
+    for call, _ in calls.values():
+        osk.launch(call)
+    osk.launch(md_call)
+    torch.cuda.synchronize()
+    _hold_library(f"[{r}, {v}] {dtype} (timed input)", x,
+                  {f: y for f, (_, y) in calls.items()}, m, d)
+    rows = {}
+    for form, (call, _) in calls.items():
+        b_ms, b_by = _bound(2 * n * esz, 4.0 * n, "float32")
+        slow = form != "exact"          # the bf16/exp2 plain forms loop
+        rows[osk.KERNEL_NAMES[form]] = {
+            "ms": _ms(lambda: osk.launch(call)),
+            "wrapper_ms": _ms(lambda: osk.online_softmax(x, form)),
+            "plain_ms": _ms(lambda: osk.online_softmax_plain(x, form),
+                            samples=3 if slow else 5, inner=1, warmup=1),
+            "library_ms": _ms(lambda: torch.softmax(x, -1)),
+            "library_call": "torch.softmax(x, -1)",
+            "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    b_ms, b_by = _bound(n * esz + 8 * r, 4.0 * n, "float32")
+    rows["online_normalizer"] = {
+        "ms": _ms(lambda: osk.launch(md_call)),
+        "wrapper_ms": _ms(lambda: osk.online_normalizer(x)),
+        "plain_ms": _ms(lambda: osk.online_normalizer_plain(x), samples=5,
+                        inner=1, warmup=1),
+        "library_ms": _ms(lambda: torch.logsumexp(x, -1)),
+        "library_call": "torch.logsumexp(x, -1)",
+        "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    del x, calls, md_call, m, d
+
+    for r, v, dtype in LIBRARY_SHAPES:
+        x = _library_input(r, v, dtype, seed=300)
+        nbytes = x.numel() * x.element_size()
+        call, _ = osk.prepare(x, "exact")
+        md_call, _ = osk.prepare_normalizer(x)
+        t = {"online softmax": _ms(lambda: osk.launch(call)),
+             "torch.softmax": _ms(lambda: torch.softmax(x, -1)),
+             "online normalizer": _ms(lambda: osk.launch(md_call)),
+             "torch.logsumexp": _ms(lambda: torch.logsumexp(x, -1))}
+        acc = {k: ms * 1e-3 * HBM_BYTES_PER_S / nbytes for k, ms in t.items()}
+        print(f"accesses per element [{r}, {v}] {dtype}: "
+              + ", ".join(f"{k} {acc[k]:.3f} ({t[k]:.4f}ms)" for k in t)
+              + "; the paper's model: online softmax 3, safe softmax 4, "
+              "normalizer 1")
+        del x, call, md_call
+    return rows
+
+
 def _timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1710,6 +1970,8 @@ def main() -> int:
     _timed(phase_train_parity)
     times = _timed(phase_times)
     _timed(phase_steps, serve_ctx, train_ctx)
+    counts["library"], lib_errs = _timed(phase_library)
+    errs.update(lib_errs)
     kernels = []
     for name, meta in KERNELS.items():
         row, path = times[name], KERNEL_PATH[name]

@@ -2,7 +2,8 @@
 Gumbel-max pick that serving samples with.
 
 Port of ``src/repro/core/topk_fusion.py`` (``SoftmaxTopK`` at line 26,
-``softmax_topk`` at 33, ``gumbel_pick`` at 93, ``topk_sample`` at 105).
+``softmax_topk`` at 33, ``safe_softmax_then_topk`` at 84, ``gumbel_pick``
+at 93, ``topk_sample`` at 105).
 ``softmax_topk`` is the plain version behind the fused CUDA kernel
 ``kernels/csrc/softmax_topk.cu``; ``topk_sample`` reaches that kernel (or
 this plain version, on the CPU) through ``kernels.dispatch``.
@@ -13,7 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.online_softmax import online_normalizer
+from repro_torch.core.online_softmax import online_normalizer, safe_softmax
 
 Tensor = torch.Tensor
 
@@ -42,6 +43,15 @@ def softmax_topk(x: Tensor, k: int) -> SoftmaxTopK:
     vals, idx = topk_lowest_index(x, k)
     probs = torch.exp(vals.to(m.dtype) - m[..., None]) / d[..., None]
     return SoftmaxTopK(probs.to(x.dtype), idx, m + torch.log(d))
+
+
+def safe_softmax_then_topk(x: Tensor, k: int) -> SoftmaxTopK:
+    """The paper's unfused baseline: full safe softmax, then top-k (5
+    accesses per element, §4)."""
+    y = safe_softmax(x)
+    vals, idx = topk_lowest_index(y, min(k, x.shape[-1]))
+    m, d = online_normalizer(x, dim=-1)
+    return SoftmaxTopK(vals, idx, m + torch.log(d))
 
 
 def gumbel_pick(out: SoftmaxTopK, g: Tensor) -> Tensor:

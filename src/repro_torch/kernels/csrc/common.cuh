@@ -45,6 +45,51 @@ __device__ __forceinline__ void md_combine(float& m, float& d, float om,
   m = mn;
 }
 
+// (m, d) ⊕ (om, od) in fp32 with expf: the merge of the exact forms (row 1's
+// softmax_topk and the exact online softmax).
+struct ExactMerge {
+  __device__ __forceinline__ static void combine(float& m, float& d, float om,
+                                                 float od) {
+    md_combine(m, d, om, od);
+  }
+};
+
+// Block-wide (m, d) ⊕ reduction; every thread gets the result.  Each
+// thread enters with its own partial (a thread holding none passes the
+// identity (-inf, 0)); ``Merge::combine`` is the ⊕ of the caller's form.
+template <typename Merge = ExactMerge>
+__device__ void block_md(float& m, float& d, float* sm, float* sd) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Merge::combine(m, d, __shfl_xor_sync(0xffffffffu, m, off),
+                   __shfl_xor_sync(0xffffffffu, d, off));
+  }
+  if (lane == 0) {
+    sm[warp] = m;
+    sd[warp] = d;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < nwarps ? sm[lane] : REPRO_NEG_INF;
+    d = lane < nwarps ? sd[lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      Merge::combine(m, d, __shfl_xor_sync(0xffffffffu, m, off),
+                     __shfl_xor_sync(0xffffffffu, d, off));
+    }
+    if (lane == 0) {
+      sm[0] = m;
+      sd[0] = d;
+    }
+  }
+  __syncthreads();
+  m = sm[0];
+  d = sd[0];
+  __syncthreads();
+}
+
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -70,39 +70,6 @@ __device__ void block_best(float& v, int& i, float* sv, int* si) {
   __syncthreads();  // sv/si may be reused by the next call
 }
 
-// Block-wide (m, d) ⊕ reduction; every thread gets the result.
-__device__ void block_md(float& m, float& d, float* sm, float* sd) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    md_combine(m, d, __shfl_xor_sync(0xffffffffu, m, off),
-               __shfl_xor_sync(0xffffffffu, d, off));
-  }
-  if (lane == 0) {
-    sm[warp] = m;
-    sd[warp] = d;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < nwarps ? sm[lane] : REPRO_NEG_INF;
-    d = lane < nwarps ? sd[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      md_combine(m, d, __shfl_xor_sync(0xffffffffu, m, off),
-                 __shfl_xor_sync(0xffffffffu, d, off));
-    }
-    if (lane == 0) {
-      sm[0] = m;
-      sd[0] = d;
-    }
-  }
-  __syncthreads();
-  m = sm[0];
-  d = sd[0];
-  __syncthreads();
-}
-
 // Phase one: grid (S, R).  part_md [R, S, 2], part_u / part_p [R, S, k].
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(kThreads1)

@@ -1,8 +1,13 @@
-"""Kernel dispatch of the port: the entries model and serving code call.
+"""Kernel dispatch of the port: the entries model, serving and library code
+call.
 
 Port of ``src/repro/kernels/dispatch.py``: ``sdpa`` (line 816) with its
 paged routes (``_paged_sdpa``, 696-731) and its contiguous routes (858-903,
-without the sharded branch), int8 K/V included, and ``softmax_topk`` (778).
+without the sharded branch), int8 K/V included, ``softmax_topk`` (778),
+``online_softmax`` (767) with the softmax-form preference
+(``SOFTMAX_FORMS``/``softmax_form``/``set_softmax_form``, 738-764, read from
+``REPRO_SOFTMAX_FORM`` at import as at 909), and ``online_normalizer`` (the
+library's ``ops.online_normalizer``).
 The reference chose Pallas by a config preference (``cfg.use_pallas``) and a
 capability probe; here the choice goes by the tensor's device alone:
 
@@ -25,13 +30,23 @@ the int8 forms of the paged decode and prefill kernels and of the
 contiguous decode kernel; a contiguous int8 prefill has no kernel (the
 serving path's int8 prefill attends over fp K/V) and raises.  On the CPU
 the same dequantizing chunked form the reference ran serves them all.
+
+The online softmax runs its form's kernel on CUDA (exact, bf16 or exp2, all
+in ``csrc/online_softmax.cu``) and the form's plain version on the CPU
+(``core.online_softmax``, ``core.softmax_forms.softmax_bf16`` /
+``softmax_exp2``).  The reference's autotuned vocab block
+(``tuned_block``/``block_decision``, 300-360) is a TPU tile sweep with no
+Hopper meaning yet and has no counterpart.
 """
 from __future__ import annotations
+
+import os
 
 from repro_torch import core
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels import flash_decode as _flash_decode
+from repro_torch.kernels import online_softmax as _online_softmax
 from repro_torch.kernels import softmax_topk as _softmax_topk
 
 _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
@@ -44,7 +59,11 @@ _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_attention_bwd_dkv": _flash_attention_bwd,
                    "flash_decode_paged_int8": _flash_decode,
                    "flash_decode_int8": _flash_decode,
-                   "flash_attention_paged_int8": _flash_attention}
+                   "flash_attention_paged_int8": _flash_attention,
+                   "online_softmax": _online_softmax,
+                   "online_softmax_bf16": _online_softmax,
+                   "online_softmax_exp2": _online_softmax,
+                   "online_normalizer": _online_softmax}
 
 
 def launch_counts() -> dict:
@@ -63,8 +82,64 @@ def _require_cpu(t, op: str) -> None:
                                   f"device {t.device}")
 
 
-def softmax_topk(x, k: int) -> "core.SoftmaxTopK":
-    """Fused softmax+top-k (paper Algorithm 4) over the last axis."""
+SOFTMAX_FORMS = ("exact", "bf16", "exp2")
+_SOFTMAX_FORM = "exact"
+
+
+def softmax_form() -> str:
+    """The softmax form currently preferred ("exact" / "bf16" / "exp2")."""
+    return _SOFTMAX_FORM
+
+
+def set_softmax_form(form: str) -> str:
+    """Set the process softmax-form preference; returns the previous form.
+
+    "exact" is the standard online form; "bf16" accumulates the normalizer
+    in bfloat16; "exp2" computes exponentials as ``2^((x−m)·log2 e)``.
+    Each form's worst-case deviation from the fp32 two-pass reference is
+    bounded in ``core.softmax_forms``.  Also settable via the
+    ``REPRO_SOFTMAX_FORM`` environment variable (read at import)."""
+    global _SOFTMAX_FORM
+    prev = _SOFTMAX_FORM
+    _SOFTMAX_FORM = _known_form(form)
+    return prev
+
+
+def _known_form(form: str) -> str:
+    if form not in SOFTMAX_FORMS:
+        raise ValueError(
+            f"unknown softmax form {form!r}; expected one of {SOFTMAX_FORMS}")
+    return form
+
+
+def online_softmax(x, *, form: str | None = None):
+    """Softmax over the last axis (paper Algorithm 3) in ``form``, unset:
+    the process preference (``set_softmax_form`` / ``REPRO_SOFTMAX_FORM``)."""
+    form = _SOFTMAX_FORM if form is None else _known_form(form)
+    if x.device.type == "cuda":
+        return _online_softmax.online_softmax(x, form)
+    _require_cpu(x, "online_softmax")
+    return _online_softmax.online_softmax_plain(x, form)
+
+
+def online_normalizer(x):
+    """(m, d) over the last axis (Algorithm 3 lines 1-6), float32."""
+    if x.device.type == "cuda":
+        return _online_softmax.online_normalizer(x)
+    _require_cpu(x, "online_normalizer")
+    return _online_softmax.online_normalizer_plain(x)
+
+
+def softmax_topk(x, k: int,
+                 differentiable: bool = False) -> "core.SoftmaxTopK":
+    """Fused softmax+top-k (paper Algorithm 4) over the last axis.
+
+    ``differentiable`` routes through ``ops.softmax_topk``, whose backward
+    recomputes the softmax from the saved log-sum-exp; otherwise the result
+    carries no gradient on CUDA (the serving path samples without one)."""
+    if differentiable:
+        from repro_torch.kernels import ops
+        return ops.softmax_topk(x, k)
     if x.device.type == "cuda":
         return _softmax_topk.softmax_topk(x, k)
     _require_cpu(x, "softmax_topk")
@@ -149,3 +224,8 @@ def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,
         q, k, v, q_offset, kv_valid_len, block_tables, causal=causal,
         chunk_size=cfg.attn_chunk, **scales)
     return out
+
+
+# Import-time: honor the softmax-form environment preference.
+if os.environ.get("REPRO_SOFTMAX_FORM"):
+    set_softmax_form(os.environ["REPRO_SOFTMAX_FORM"])

@@ -19,11 +19,11 @@ from repro import core as ref_core  # noqa: E402
 from repro.configs import smollm_360m as ref_smollm  # noqa: E402
 from repro.kernels.softmax_topk import softmax_topk_pallas  # noqa: E402
 from repro_torch import configs, core  # noqa: E402
-from repro_torch.core import online_softmax as port_os  # noqa: E402
 from repro_torch.obs import clock  # noqa: E402
 
-# the module (``repro.core`` re-exports a function of the same name)
+# the modules (both ``core`` packages re-export a function of the same name)
 ref_os = importlib.import_module("repro.core.online_softmax")
+port_os = importlib.import_module("repro_torch.core.online_softmax")
 
 F32 = dict(rtol=1e-6, atol=1e-6)   # same math, different summation order
 

@@ -27,6 +27,9 @@ pytestmark = pytest.mark.cuda
 # the int8 forms' counters, zero on every fp path
 NO_INT8 = dict.fromkeys(("flash_decode_paged_int8", "flash_decode_int8",
                          "flash_attention_paged_int8"), 0)
+# the online-softmax library's counters, zero on every serving path
+NO_LIBRARY = dict.fromkeys(("online_softmax", "online_softmax_bf16",
+                            "online_softmax_exp2", "online_normalizer"), 0)
 
 
 @pytest.fixture
@@ -93,7 +96,7 @@ def test_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
-                                        **NO_INT8}
+                                        **NO_INT8, **NO_LIBRARY}
 
 
 def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
@@ -161,7 +164,7 @@ def test_contiguous_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
-                                        **NO_INT8}
+                                        **NO_INT8, **NO_LIBRARY}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -196,7 +199,7 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": 0,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, **NO_INT8}
+        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
@@ -244,13 +247,14 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": (sched.prefill_chunks - ones) * n,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, **NO_INT8}
+        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY}
     assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
                            "flash_decode": 5 * n, "flash_attention_paged": 0,
                            "flash_attention_offset": n,
                            "flash_attention": 0,
                            "flash_attention_bwd_dq": 0,
-                           "flash_attention_bwd_dkv": 0, **NO_INT8}
+                           "flash_attention_bwd_dkv": 0, **NO_INT8,
+                           **NO_LIBRARY}
 
 
 def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
@@ -474,3 +478,90 @@ def test_int8_kernels_match_plain(cuda, dtype, atol):
         "flash_decode_paged_int8": 1, "flash_decode_int8": 1,
         "flash_attention_paged_int8": 1}
     assert sum(counts.values()) == 3
+
+
+def _library_input(seed, r, v, dtype, cuda):
+    """Rows of x [R, V] with the edge cases the online kernels must keep:
+    row 0 dead over its leading half (its first slice when V > 8192), row
+    1 all -inf, row 2 a dead tail; V with and without a 128 or 4096 tail."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(r, v, generator=gen) * 4.0
+    x[0, :v // 2] = float("-inf")
+    x[1] = float("-inf")
+    x[2, v - v // 3:] = float("-inf")
+    return x.to(device=cuda, dtype=dtype)
+
+
+@pytest.mark.parametrize("form", ["exact", "bf16", "exp2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_online_softmax_kernels_match_plain(cuda, form, dtype):
+    """Each form of the online softmax kernel and the normalizer kernel
+    against the plain versions on the CPU: m equal, y within the form's
+    bound of the fp32 reference (``kernel_error_bound``), the exact
+    normalizer's d within ``exact_error_bound``; -inf rows give (-inf, 0)
+    and y = 0; one counted launch per call.  The bounds count relative
+    roundings, so each entry is held within the bound times itself."""
+    from repro_torch.core import softmax_forms as sf
+    from repro_torch.kernels import online_softmax as osk
+    dispatch.reset_launch_counts()
+    shapes = ((5, 1000), (3, 9000), (4, 4097), (6, 130), (3, 8320))
+    for i, (r, v) in enumerate(shapes):
+        x = _library_input(20 + i, r, v, dtype, cuda)
+        y = osk.online_softmax(x, form)
+        m, d = osk.online_normalizer(x)
+        torch.cuda.synchronize()
+        xc = x.cpu()
+        ref = osk.online_softmax_plain(xc.float())
+        pm, pd = osk.online_normalizer_plain(xc)
+        assert y.dtype == dtype and y.shape == x.shape
+        err = (y.cpu().float() - ref).abs()
+        bound = osk.kernel_error_bound(xc, form)     # relative to each y
+        assert (err <= bound * ref + 1e-30).all(), (r, v, err.max())
+        assert torch.equal(m.cpu(), pm)
+        live = pd > 0
+        rel = ((d.cpu() - pd).abs()[live] / pd[live]).max().item()
+        assert rel <= sf.exact_error_bound(xc), (r, v, rel)
+        assert d[1].item() == 0.0 and torch.isneginf(m[1])
+        assert torch.equal(y[1], torch.zeros_like(y[1]))
+        assert (y[torch.isneginf(x)] == 0).all()
+        assert torch.isfinite(y).all()
+    counts = dispatch.launch_counts()
+    assert counts[osk.KERNEL_NAMES[form]] == len(shapes)
+    assert counts["online_normalizer"] == len(shapes)
+    assert sum(counts.values()) == 2 * len(shapes)
+
+
+def test_library_entry_points_on_card(cuda):
+    """``dispatch.online_softmax`` under each form preference,
+    ``ops.online_normalizer`` and ``ops.softmax_topk``'s gradient on the
+    card against the same calls on the CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import online_softmax as osk
+    dispatch.reset_launch_counts()
+    x = _library_input(30, 4, 5000, torch.float32, cuda)
+    for form in dispatch.SOFTMAX_FORMS:
+        prev = dispatch.set_softmax_form(form)
+        try:
+            got, want = dispatch.online_softmax(x), dispatch.online_softmax(
+                x.cpu())
+        finally:
+            dispatch.set_softmax_form(prev)
+        err = (got.cpu() - osk.online_softmax_plain(x.cpu())).abs().max()
+        assert err.item() <= osk.kernel_error_bound(x.cpu(), form)
+        assert want.device.type == "cpu"
+    m, _ = ops.online_normalizer(x)
+    assert torch.equal(m.cpu(), ops.online_normalizer(x.cpu())[0])
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xg = torch.randn(3, 2000, generator=torch.Generator().manual_seed(
+            31)).mul(4.0).to(dev).requires_grad_(True)
+        out = ops.softmax_topk(xg, 5)
+        ((out.values ** 2).sum() + 0.1 * (out.logsumexp ** 2).sum()
+         ).backward()
+        grads.append(xg.grad.cpu())
+    scale = grads[1].abs().max().item()
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-4 * scale
+    counts = dispatch.launch_counts()
+    assert counts["online_softmax"] == counts["online_softmax_bf16"] == 1
+    assert counts["online_softmax_exp2"] == 1
+    assert counts["online_normalizer"] == 1 and counts["softmax_topk"] == 1

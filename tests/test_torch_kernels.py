@@ -177,7 +177,11 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
                                         "flash_attention_bwd_dkv": 0,
                                         "flash_decode_paged_int8": 0,
                                         "flash_decode_int8": 0,
-                                        "flash_attention_paged_int8": 0}
+                                        "flash_attention_paged_int8": 0,
+                                        "online_softmax": 0,
+                                        "online_softmax_bf16": 0,
+                                        "online_softmax_exp2": 0,
+                                        "online_normalizer": 0}
 
 
 def test_dispatch_raises_on_unported_routes():
