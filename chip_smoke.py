@@ -12,7 +12,8 @@ printing its final line:
    (printed again before the kernels line);
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a; the int8 forms build from the same sources), with the build
-   time and ptxas's register report;
+   time and, per kernel, ptxas's registers, spills and static shared
+   memory (and the dynamic shared memory of the three wgmma kernels);
 3. kernels against their plain PyTorch versions at the serving and
    training paths' shapes (fused softmax+top-k; paged decode; paged
    prefill, with edge cases and the 64-token chunks after long cached
@@ -20,7 +21,9 @@ printing its final line:
    at the slot pool's chunks and tails and the lockstep prefill; the fresh
    flash forward and its dq and dk/dv backward at T = 512, 37 and 1, causal
    and not, and ``FlashAttention``'s gradients against autograd through the
-   plain forward; the int8 forms of the paged decode, the contiguous decode
+   plain forward, each dtype's form named from the kernels the profiler saw
+   run (bf16: the wgmma kernels on the tensor cores; fp32: the CUDA-core
+   kernels); the int8 forms of the paged decode, the contiguous decode
    and the paged prefill at the int8 serving run's shapes, their int8 K/V
    and bf16 scales from the port's ``_quantize_kv``; fp32 and bf16; every
    dead table entry, every cache position at or past a row's valid length
@@ -75,8 +78,12 @@ printing its final line:
    V = 1000, 10000, 100000, fp32), one counted launch per call; each held
    against its plain version on the CPU over up to 24 rows (m equal, d and
    y within the forms' analytic bounds, rows with -inf prefixes, tails and
-   all -inf giving (-inf, 0) and y = 0); then ``ops.softmax_topk`` with a
-   backward, its fp32 gradient against the CPU's.
+   all -inf giving (-inf, 0) and y = 0); then the gradients:
+   ``ops.softmax_topk``, the unflagged ``dispatch.softmax_topk`` and
+   ``dispatch.online_softmax`` on a requires-grad input, each with a
+   backward and its fp32 gradient against the CPU's, and
+   ``dispatch.online_normalizer`` raising for such an input (it has no
+   backward) rather than returning a detached result.
 
 The line before the last is a JSON object with one entry per kernel (with
 the path it was ported for); the last line is ``{"ok": true, "device":
@@ -193,8 +200,11 @@ LIBRARY_SHAPES = ((8, 49152, "float32"), (4096, 49152, "bfloat16"),
                   (10, 10000, "float32"), (10, 100000, "float32"))
 LIBRARY_TIMED = (4000, 100000, "float32")
 LIBRARY_CPU_ROWS = 24     # rows of each input held against the CPU
-# ops.softmax_topk's fp32 gradient, card vs CPU: within 1e-4 of the largest
-# entry.  The gradient is s·(dlse − Σ dval·val) + dval·val at the top k, s =
+# the library's fp32 gradients (ops.softmax_topk, the unflagged
+# dispatch.softmax_topk, dispatch.online_softmax), card vs CPU: within 1e-4
+# of the largest entry.  The online softmax's is y·(g − Σ g·y) from the
+# kernel's y, which agrees with the CPU's to a few fp32 ulps.  The top-k's
+# gradient is s·(dlse − Σ dval·val) + dval·val at the top k, s =
 # exp(x − lse); the kernel's lse agrees with the CPU's to ~1e-6 relative (row
 # 1's rtol 1e-5 gate), which moves s by ~|lse|·1e-6 ≈ 1e-5 relative, and
 # the two devices round exp and the sums apart by a few ulps.
@@ -262,9 +272,51 @@ def phase_build() -> None:
           f"compiled in {time.perf_counter() - t0:.2f}s "
           f"({build.build_dir()})")
     for name, log in build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, info in _ptxas_report(log).items():
+            extra = ""
+            if kernel in WGMMA_SMEM:
+                fn = getattr(build.library(name), WGMMA_SMEM[kernel])
+                extra = f", {fn()} bytes dynamic smem (wgmma form)"
+            print(f"  ptxas {name} {kernel}: {info['registers']} registers, "
+                  f"{info['smem']} bytes static smem, spill stores "
+                  f"{info['spill_stores']} / loads {info['spill_loads']} "
+                  f"bytes{extra}")
+
+
+# the tensor-core kernels and the C function giving each one's dynamic
+# shared memory (in the library of its source)
+WGMMA_SMEM = {"fresh_fwd_wgmma_kernel": "flash_attention_fwd_wgmma_smem",
+              "bwd_dq_wgmma_kernel": "flash_attention_bwd_dq_wgmma_smem",
+              "bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv_wgmma_smem"}
+
+
+def _ptxas_report(log: str) -> dict:
+    """ptxas -v's report per kernel of one source: {kernel symbol:
+    {registers, smem, spill_stores, spill_loads}}, the symbol being the
+    longest name of PORT_KERNEL_SYMBOLS inside the mangled entry name."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            found = [s for s in PORT_KERNEL_SYMBOLS if s in entry.group(1)]
+            cur = max(found, key=len) if found else entry.group(1)
+            out[cur] = {"registers": 0, "smem": 0, "spill_stores": 0,
+                        "spill_loads": 0}
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            out[cur]["spill_stores"] = int(spill.group(1))
+            out[cur]["spill_loads"] = int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[cur]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -585,22 +637,58 @@ def _fresh_errs(q, k, v, dout, causal: bool) -> dict:
                                            _scaled_err(dv, w_dv))}
 
 
+# each dtype's form of the three training kernels: what it runs on, and the
+# kernel symbols the profiler must see (and no other port kernel)
+FRESH_FORMS = {"float32": ("CUDA cores", ("fresh_fwd_kernel", "bwd_dq_kernel",
+                                          "bwd_dkv_kernel")),
+               "bfloat16": ("tensor cores (wgmma)",
+                            ("fresh_fwd_wgmma_kernel", "bwd_dq_wgmma_kernel",
+                             "bwd_dkv_wgmma_kernel"))}
+
+
+def _kernels_seen(prof) -> list:
+    """The port's kernel symbols among a profile's device events."""
+    seen = set()
+    for evt in prof.key_averages():
+        found = [sym for sym in PORT_KERNEL_SYMBOLS if sym in evt.key]
+        if found and str(evt.device_type).endswith("CUDA"):
+            seen.add(max(found, key=len))
+    return sorted(seen)
+
+
 def _check_fresh(gen) -> dict:
     """The training kernels at T = 512 (the training run's), 37 (not a
-    multiple of the 16-row tile) and 1, causal and not, B = 2, 15/5 heads,
-    D = 64; then ``FlashAttention``'s dq, dk, dv against autograd through
-    the plain forward.  Errors are max abs over max(1, the largest
-    reference entry); fp32 within 1e-5, bf16 within 2e-2."""
+    multiple of the 16- or 64-row tile) and 1, causal and not, B = 2, 15/5
+    heads, D = 64; then ``FlashAttention``'s dq, dk, dv against autograd
+    through the plain forward.  The first case of each dtype runs under
+    torch.profiler, which must see that dtype's form (``FRESH_FORMS``) and
+    no other port kernel.  Errors are max abs over max(1, the largest
+    reference entry); fp32 within 1e-5, bf16 within 2e-2.  Returns the bf16
+    errors: the training path runs bf16."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
     worst = dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"), 0.0)
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         errs = dict.fromkeys(worst, 0.0)
+        form, symbols = FRESH_FORMS[str(dtype)[6:]]
+        seen = None
         for t in (512, 37, 1):
             for causal in (True, False):
                 inputs = _fresh_inputs(gen, dtype=dtype, b=2, t=t)
-                for name, err in _fresh_errs(*inputs, causal).items():
+                if seen is None:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        case = _fresh_errs(*inputs, causal)
+                    seen = _kernels_seen(prof)
+                    if seen != sorted(symbols):
+                        _fail(f"fresh attention {str(dtype)[6:]}: the "
+                              f"profiler saw {seen}, the {form} form is "
+                              f"{sorted(symbols)}")
+                else:
+                    case = _fresh_errs(*inputs, causal)
+                for name, err in case.items():
                     if err > atol:
                         _fail(f"{name} {str(dtype)[6:]} T={t} causal="
                               f"{causal}: scaled max abs err {err:.3g} > "
@@ -621,14 +709,15 @@ def _check_fresh(gen) -> dict:
         if auto > atol:
             _fail(f"FlashAttention {str(dtype)[6:]}: gradients differ from "
                   f"autograd through the plain forward by {auto:.3g}")
-        print(f"kernel fresh attention {str(dtype)[6:]} B=2 Hq=15 Hkv=5 D=64"
+        print(f"kernel fresh attention {str(dtype)[6:]} on the {form} "
+              f"({', '.join(seen)} seen by the profiler) B=2 Hq=15 Hkv=5 D=64"
               f" T=512/37/1 causal and not, K/V NaN past T: scaled max abs "
               f"err forward {errs['flash_attention']:.3g}, dq "
               f"{errs['flash_attention_bwd_dq']:.3g}, dk/dv "
               f"{errs['flash_attention_bwd_dkv']:.3g}; FlashAttention "
               f"gradients against autograd through the plain forward "
               f"{auto:.3g} (atol {atol})")
-        if dtype == torch.float32:
+        if dtype == torch.bfloat16:
             worst = errs
     return worst
 
@@ -785,7 +874,7 @@ def _check_int8(gen) -> dict:
               f"{errs['flash_attention_paged_int8']:.3g}, contiguous decode "
               f"B=8 S=328 {errs['flash_decode_int8']:.3g} max abs err "
               f"(atol {atol})")
-        if dtype == torch.float32:
+        if dtype == torch.bfloat16:
             worst = errs
     return worst
 
@@ -1303,6 +1392,8 @@ PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
                        "decode_paged_kernel", "prefill_paged_kernel",
                        "decode_kernel", "prefill_offset_kernel",
                        "fresh_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel",
+                       "fresh_fwd_wgmma_kernel", "bwd_dq_wgmma_kernel",
+                       "bwd_dkv_wgmma_kernel",
                        "decode_paged_int8_kernel", "decode_int8_kernel",
                        "prefill_paged_int8_kernel", "md_partial_kernel",
                        "md_merge_kernel", "normalize_kernel")
@@ -1822,10 +1913,12 @@ def _hold_library(what, x, ys, m, d) -> dict:
 def phase_library():
     """Phase 9: ``dispatch.online_softmax`` under each softmax form and
     ``ops.online_normalizer`` on every shape of ``LIBRARY_SHAPES``, then
-    ``ops.softmax_topk`` with a backward at [8, 49152] fp32, k = 5, between
-    a reset and a read of the launch counts; each output held against its
-    plain version on the CPU.  Returns (the counts, {kernel: max abs error
-    against its plain version over the fp32 shapes})."""
+    ``ops.softmax_topk``, the unflagged ``dispatch.softmax_topk`` (k = 5)
+    and ``dispatch.online_softmax`` with a backward at [8, 49152] fp32, and
+    ``dispatch.online_normalizer``'s refusal of a requires-grad input,
+    between a reset and a read of the launch counts; each output and
+    gradient held against the CPU's.  Returns (the counts, {kernel: max abs
+    error against its plain version over the fp32 shapes})."""
     import torch
     from repro_torch.kernels import dispatch, ops
     from repro_torch.kernels import online_softmax as osk
@@ -1852,14 +1945,40 @@ def phase_library():
         del x, ys, m, d
 
     x0 = torch.randn(8, 49152, generator=torch.Generator().manual_seed(9))
-    grads = {}
-    for dev in ("cuda", "cpu"):
-        xg = (x0 * 4.0).to(dev).requires_grad_(True)
-        out = ops.softmax_topk(xg, 5)
-        ((out.values ** 2).sum() + 0.1 * (out.logsumexp ** 2).sum()
-         ).backward()
-        grads[dev] = xg.grad.cpu()
-    calls["softmax_topk"] += 1
+    w = torch.randn(8, 49152, generator=torch.Generator().manual_seed(10))
+    entries = {
+        "ops.softmax_topk": lambda x: _topk_loss(ops.softmax_topk(x, 5)),
+        "dispatch.softmax_topk": lambda x: _topk_loss(
+            dispatch.softmax_topk(x, 5)),
+        "dispatch.online_softmax": lambda x: dispatch.online_softmax(x) * w.to(
+            x.device)}
+    for what, loss in entries.items():
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            xg = (x0 * 4.0).to(dev).requires_grad_(True)
+            out = loss(xg)
+            if out.grad_fn is None:
+                _fail(f"{what} on {dev}: a requires-grad input gave a "
+                      "detached result")
+            out.sum().backward()
+            grads[dev] = xg.grad.cpu()
+        calls["online_softmax" if "online" in what else "softmax_topk"] += 1
+        scale = grads["cpu"].abs().max().item()
+        gerr = (grads["cuda"] - grads["cpu"]).abs().max().item()
+        if not gerr <= TOPK_GRAD_RTOL * scale:
+            _fail(f"{what} gradient: max abs diff {gerr:.3g} > "
+                  f"{TOPK_GRAD_RTOL} x {scale:.3g}")
+        print(f"library {what} [8, 49152] fp32 backward: gradient max abs "
+              f"diff card vs CPU {gerr:.3g} (tol {TOPK_GRAD_RTOL} of the "
+              f"largest entry, {scale:.3g})")
+    try:
+        dispatch.online_normalizer(x0.cuda().requires_grad_(True))
+        _fail("dispatch.online_normalizer: a requires-grad input on CUDA "
+              "did not raise (the kernel has no backward)")
+    except NotImplementedError:
+        print("library dispatch.online_normalizer: a requires-grad input "
+              "on CUDA raises NotImplementedError (no backward), nothing "
+              "launched")
     torch.cuda.synchronize()
     counts = dispatch.launch_counts()
     # one counted launch per wrapper call (osk.LAUNCHES_PER_CALL; the
@@ -1867,17 +1986,15 @@ def phase_library():
     want = {k: n * osk.LAUNCHES_PER_CALL for k, n in calls.items()}
     if counts != want:
         _fail(f"library: launches {counts}, its calls imply {want}")
-    scale = grads["cpu"].abs().max().item()
-    gerr = (grads["cuda"] - grads["cpu"]).abs().max().item()
-    if not gerr <= TOPK_GRAD_RTOL * scale:
-        _fail(f"ops.softmax_topk gradient: max abs diff {gerr:.3g} > "
-              f"{TOPK_GRAD_RTOL} x {scale:.3g}")
-    print(f"library ops.softmax_topk [8, 49152] fp32 k=5 backward: gradient "
-          f"max abs diff card vs CPU {gerr:.3g} (tol {TOPK_GRAD_RTOL} of the "
-          f"largest entry, {scale:.3g})")
     print(f"library launches: {counts} = {len(LIBRARY_SHAPES)} shapes x "
-          "(3 forms + the normalizer), 1 softmax_topk")
+          "(3 forms + the normalizer), then 2 softmax_topk and 1 "
+          "online_softmax with a backward")
     return counts, errs
+
+
+def _topk_loss(out):
+    """A scalar-able loss of both differentiable outputs of softmax+top-k."""
+    return (out.values ** 2).sum() + 0.1 * (out.logsumexp ** 2).sum()
 
 
 def _library_kernel_times() -> dict:

@@ -1,0 +1,221 @@
+// Hopper tensor-core machinery of the bf16 fresh-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): cp.async copies into
+// 128-byte-swizzled shared-memory tiles, the wgmma shared-memory descriptor,
+// the m64n64k16 bf16 products with the fp32 accumulator in registers, and
+// the accumulator-fragment-to-(row, column) map.
+//
+// Tiles.  Every operand tile is [64 rows][64 bf16] (a row of head_dim 64 is
+// 128 bytes): 8 KB, 1024-byte aligned, with 16-byte chunk c of row r stored
+// at r * 128 + ((c ^ (r % 8)) * 16), the 128B swizzle that wgmma's
+// SWIZZLE_128B mode reads.  The same tile serves two ways:
+//   K-major  (the contraction runs along the row's 64 values: Q, K, dO, V
+//            in S = Q·Kᵀ, dP = dO·Vᵀ and their transposes); k-step kk of 16
+//            values starts 32 * kk bytes into the tile;
+//   MN-major (the contraction runs across rows: V in P·V, K in dS·K, dO in
+//            Pᵀ·dO, Q in dSᵀ·Q; wgmma's transposed-B form, allowed for
+//            16-bit types); k-step kk of 16 rows starts 2048 * kk bytes in.
+// Groups of 8 rows lie 1024 bytes apart in both readings, and a 64-wide
+// operand is one swizzle atom wide, so the descriptor's two byte offsets
+// are both 1024.
+//
+// Fragments.  A warpgroup (128 threads, warps w = 0..3) holds a 64 x 64 fp32
+// accumulator as 32 floats a thread: float 4 * n + e sits at row
+// 16 * w + lane / 4 + 8 * (e / 2) and column 8 * n + 2 * (lane % 4) + e % 2
+// (n = 0..7, e = 0..3).  The register A operand of a k-step kk (16 columns)
+// is the same thread's floats 8 * kk .. 8 * kk + 7 as four bf16 pairs, so a
+// P or dS computed in the accumulator layout feeds the next product with no
+// shuffle.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace wg {
+
+constexpr int kRows = 64;                 // rows of a tile (wgmma M)
+constexpr int kD = 64;                    // head_dim, 128 bytes of bf16
+constexpr int kThreads = 128;             // one warpgroup
+constexpr uint32_t kTileBytes = kRows * kD * 2;   // 8 KB
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after the dynamic shared memory's start
+// (the launcher asks for 1 KB more than the tiles need).
+__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
+}
+
+// ---- copies ----------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 writes 16 zero bytes and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Make this thread's generic-proxy writes (cp.async) visible to the async
+// proxy wgmma reads shared memory through; the CTA barrier that follows
+// publishes them to the other threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [0, 64) of an operand whose row r starts at rows + r * stride
+// (elements; its 64 values contiguous) into the swizzled tile at `dst`, by
+// the 128 threads of the warpgroup; rows at or past `valid` are zero-filled
+// without being read.  valid >= 1, so row 0 is a safe dummy address.
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* rows,
+                                          size_t stride, int valid) {
+  const int tid = threadIdx.x % kThreads;
+#pragma unroll
+  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+    const int e = tid + i * kThreads, r = e >> 3, c = e & 7;
+    const bool ok = r < valid;
+    const __nv_bfloat16* src = rows + (ok ? r * stride : 0) + c * 8;
+    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), src, ok);
+  }
+}
+
+// ---- descriptors -----------------------------------------------------------
+// wgmma shared-memory descriptor of a 128B-swizzled tile starting at byte
+// address `addr`: start >> 4 in bits 0-13, leading and stride byte offsets
+// (1024 >> 4) in bits 16-29 and 32-45, base offset 0 (tiles are 1024-byte
+// aligned), layout SWIZZLE_128B (1) in bits 62-63.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// k-step kk of a tile read K-major / MN-major (see the header note).
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc(tile + 32 * kk);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc(tile + 2048 * kk);
+}
+
+// ---- wgmma -----------------------------------------------------------------
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin the accumulator's registers around the asynchronous products, so no
+// read or write of them moves across a fence or a wait.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define REPRO_WG_ACC32(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+
+#define REPRO_WG_D32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31}"
+
+// d (+)= A·Bᵀ, m64n64k16, A and B from shared memory, both K-major;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_WG_ACC32(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A·B, m64n64k16, A from registers (four bf16 pairs, the fragment
+// layout of the header note), B from shared memory MN-major (transposed).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef REPRO_WG_D32
+#undef REPRO_WG_ACC32
+
+// S (+)= A·Bᵀ over the 64 values of a row: four k-steps, both tiles K-major.
+__device__ __forceinline__ void gemm_k(float (&d)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma_ss(d, desc_k(a, kk), desc_k(b, kk), kk > 0);
+}
+
+// d += P·B with P [64, 64] in registers (frag, per k-step) and B MN-major.
+__device__ __forceinline__ void gemm_rs(float (&d)[32],
+                                        const uint32_t (&p)[4][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_rs(d, p[kk], desc_mn(b, kk));
+}
+
+// ---- fragments -------------------------------------------------------------
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x 64 accumulator as four k-steps of register A operands, in bf16.
+__device__ __forceinline__ void to_frag(const float (&d)[32],
+                                        uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// The tile row (0..63) and column (0..63) of accumulator float i.
+__device__ __forceinline__ int frag_row(int i) {
+  const int w = (threadIdx.x % kThreads) >> 5, lane = threadIdx.x & 31;
+  return 16 * w + (lane >> 2) + 8 * ((i & 3) >> 1);
+}
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// Sum / max over the four threads of a quad (the threads that share a row).
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+}  // namespace wg

@@ -34,13 +34,21 @@ the same dequantizing chunked form the reference ran serves them all.
 The online softmax runs its form's kernel on CUDA (exact, bf16 or exp2, all
 in ``csrc/online_softmax.cu``) and the form's plain version on the CPU
 (``core.online_softmax``, ``core.softmax_forms.softmax_bf16`` /
-``softmax_exp2``).  The reference's autotuned vocab block
-(``tuned_block``/``block_decision``, 300-360) is a TPU tile sweep with no
-Hopper meaning yet and has no counterpart.
+``softmax_exp2``).  No CUDA entry returns a detached result: under grad
+mode a requires-grad input runs ``softmax_topk`` through
+``ops.softmax_topk`` and ``online_softmax`` through ``ops.OnlineSoftmax``
+(each launches the same kernel once, with a backward), and
+``online_normalizer``, which has no backward (nor had the reference's
+Pallas normalizer), raises; on the CPU the plain versions carry autograd.
+The reference's autotuned vocab block (``tuned_block``/``block_decision``,
+300-360) is a TPU tile sweep with no Hopper meaning yet and has no
+counterpart.
 """
 from __future__ import annotations
 
 import os
+
+import torch
 
 from repro_torch import core
 from repro_torch.kernels import flash_attention as _flash_attention
@@ -74,6 +82,10 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name, mod in _KERNEL_MODULES.items():
         mod.launches[name] = 0
+
+
+def _wants_grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 def _require_cpu(t, op: str) -> None:
@@ -117,14 +129,23 @@ def online_softmax(x, *, form: str | None = None):
     the process preference (``set_softmax_form`` / ``REPRO_SOFTMAX_FORM``)."""
     form = _SOFTMAX_FORM if form is None else _known_form(form)
     if x.device.type == "cuda":
+        if _wants_grad(x):
+            from repro_torch.kernels import ops
+            return ops.OnlineSoftmax.apply(x, form)
         return _online_softmax.online_softmax(x, form)
     _require_cpu(x, "online_softmax")
     return _online_softmax.online_softmax_plain(x, form)
 
 
 def online_normalizer(x):
-    """(m, d) over the last axis (Algorithm 3 lines 1-6), float32."""
+    """(m, d) over the last axis (Algorithm 3 lines 1-6), float32.  The
+    kernel has no backward: on CUDA a requires-grad input under grad mode
+    raises rather than coming back detached."""
     if x.device.type == "cuda":
+        if _wants_grad(x):
+            raise NotImplementedError(
+                "online_normalizer has no backward on CUDA: call it under "
+                "torch.no_grad() or on a detached input")
         return _online_softmax.online_normalizer(x)
     _require_cpu(x, "online_normalizer")
     return _online_softmax.online_normalizer_plain(x)
@@ -134,10 +155,12 @@ def softmax_topk(x, k: int,
                  differentiable: bool = False) -> "core.SoftmaxTopK":
     """Fused softmax+top-k (paper Algorithm 4) over the last axis.
 
-    ``differentiable`` routes through ``ops.softmax_topk``, whose backward
-    recomputes the softmax from the saved log-sum-exp; otherwise the result
-    carries no gradient on CUDA (the serving path samples without one)."""
-    if differentiable:
+    A requires-grad input under grad mode, or ``differentiable``, routes
+    through ``ops.softmax_topk``, whose backward recomputes the softmax
+    from the saved log-sum-exp (the reference is differentiable on every
+    path and ignores the flag); otherwise the kernel runs bare (the serving
+    path's logits need no gradient).  Both routes launch the kernel once."""
+    if differentiable or _wants_grad(x):
         from repro_torch.kernels import ops
         return ops.softmax_topk(x, k)
     if x.device.type == "cuda":

@@ -5,7 +5,9 @@ KV pool or a contiguous KV cache.
 * ``flash_attention_fwd`` replaces
   ``src/repro/kernels/flash_attention.py:flash_attention_pallas`` (the
   ``pallas_call`` at line 122): queries and keys of the same call, every key
-  valid.  ``FlashAttention`` is its ``torch.autograd.Function``, the port of
+  valid; bf16 runs the tensor-core (wgmma) kernel and fp32 the CUDA-core
+  one, by dtype alone (``csrc/flash_attention_fwd.cu``).
+  ``FlashAttention`` is its ``torch.autograd.Function``, the port of
   the reference's ``ops._flash`` custom VJP (``ops.py:154-203``); its
   backward is ``kernels.flash_attention_bwd``.  The kernel reads q, k, v in
   the model layout (k and v through their strides) where the reference
@@ -243,6 +245,7 @@ def prepare_fwd(q, k, v, *, causal: bool = True):
                          f"Tk={tk})")
     code = build.dtype_code(q)
     qc = q.contiguous()
+    _bwd.check_wgmma_operands("flash_attention", (qc, k, v), (sb, ss, sh))
     out = torch.empty_like(qc)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     args = ("flash_attention", qc, k, v, out, lse, code, b, tq, tk, hq, hkv,

@@ -3,9 +3,11 @@ version.
 
 ``flash_attention_bwd`` replaces
 ``src/repro/kernels/flash_attention_bwd.py:flash_attention_bwd_pallas`` (the
-``pallas_call``\\ s at line 134, dq, and 154, dk/dv).  Both forms recompute
-``p = exp(s − lse)`` from the forward's saved log-sum-exp, with
-``delta = rowsum(dO ⊙ O)`` in fp32 computed here by PyTorch, as the
+``pallas_call``\\ s at line 134, dq, and 154, dk/dv).  bf16 operands run
+the tensor-core (wgmma) forms of the two kernels, fp32 operands the
+CUDA-core forms, by dtype alone (``csrc/flash_attention_bwd.cu``).  Both
+forms recompute ``p = exp(s − lse)`` from the forward's saved log-sum-exp,
+with ``delta = rowsum(dO ⊙ O)`` in fp32 computed here by PyTorch, as the
 reference computed it outside its kernels (line 128).  The dk/dv kernel
 loops over the query heads of each KV head's group, so dk and dv come back
 already reduced to the KV heads; the reference emitted them per query head
@@ -36,6 +38,18 @@ _ARGTYPES = {
     "flash_attention_bwd_dkv": [_C] * 8 + [_I] * 7 + [_L] * 3
     + [ctypes.c_float, _I, _C],
 }
+
+
+def check_wgmma_operands(name, tensors, strides) -> None:
+    """The bf16 kernels copy 16-byte chunks: every operand's pointer must be
+    16-byte aligned and K/V's element strides multiples of 8.  Raises
+    otherwise (fp32 operands pass unchecked)."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    if any(t.data_ptr() % 16 for t in tensors) or any(x % 8 for x in strides):
+        raise ValueError(f"{name} kernel (bf16): operands must be 16-byte "
+                         f"aligned and K/V strides {tuple(strides)} multiples "
+                         "of 8")
 
 
 def _acc_dtype(t):
@@ -113,6 +127,8 @@ def prepare(q, k, v, out, lse, dout, *, causal: bool = True):
                          "stride, equal K/V strides)")
     code = build.dtype_code(q)
     qc, doc, lc = q.contiguous(), dout.contiguous(), lse.contiguous()
+    check_wgmma_operands("flash_attention_bwd", (qc, k, v, doc),
+                         k.stride()[:3])
     delta = _delta(out, dout)
     dq = torch.empty_like(qc)
     dk = torch.empty((b, tk, hkv, dh), dtype=k.dtype, device=k.device)

@@ -3,9 +3,11 @@
 Port of ``src/repro/kernels/ops.py`` for the online softmax:
 ``online_softmax`` (line 66), ``online_normalizer`` (79) and the
 differentiable ``softmax_topk`` (its custom VJP ``_softmax_topk2d``,
-96-129).  Each takes any leading shape and works over the last axis.  The
-device picks the route (``kernels.dispatch``): CUDA launches the kernel,
-the CPU runs its plain version.
+96-129), plus ``OnlineSoftmax``, the online softmax with a backward, which
+``dispatch.online_softmax`` runs for a requires-grad CUDA input.  Each
+takes any leading shape and works over the last axis.  The device picks
+the route (``kernels.dispatch``): CUDA launches the kernel, the CPU runs
+its plain version.
 
 The reference's tile arguments (``r_blk``, ``v_blk``) and its autotuned
 vocab block have no counterpart: they size TPU VMEM tiles, and the Hopper
@@ -27,6 +29,30 @@ def online_softmax(x: torch.Tensor) -> torch.Tensor:
 def online_normalizer(x: torch.Tensor):
     """(m, d) over the last axis, float32 (Algorithm 3 lines 1-6)."""
     return dispatch.online_normalizer(x)
+
+
+class OnlineSoftmax(torch.autograd.Function):
+    """``OnlineSoftmax.apply(x, form)``: the online softmax of x [..., V]
+    in ``form`` with the softmax's backward.  The forward is the form's
+    kernel on CUDA and its plain version on the CPU (``dispatch``'s device
+    route, with grad off inside the forward) and saves y; the backward is
+    dx = y ⊙ (g − Σ g·y) over the last axis, elementwise plus a row sum in
+    plain PyTorch, in fp32 (fp64 for fp64 inputs)."""
+
+    @staticmethod
+    def forward(ctx, x, form="exact"):
+        y = dispatch.online_softmax(x, form=form)
+        ctx.dtype = x.dtype
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        f = torch.promote_types(y.dtype, torch.float32)
+        yf, gf = y.to(f), g.to(f)
+        dx = yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))
+        return dx.to(ctx.dtype), None
 
 
 class _SoftmaxTopK2d(torch.autograd.Function):

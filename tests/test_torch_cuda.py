@@ -272,14 +272,17 @@ def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_fresh_attention_kernels_match_plain(cuda, dtype, atol):
-    """The training kernels: the fresh forward (out, lse), the dq and dk/dv
+    """The training kernels (bf16: the tensor-core forms; fp32: the
+    CUDA-core forms): the fresh forward (out, lse), the dq and dk/dv
     backward kernels, and ``FlashAttention``'s gradients against autograd
-    through the plain forward; ragged T (not a multiple of 16), T = 1,
-    causal and not, K/V read through strides with NaN past T."""
+    through the plain forward; ragged T (not a multiple of 16 or of 64),
+    T = 1, one and several 64-row tiles, causal and not, K/V read through
+    strides with NaN past T."""
     dispatch.reset_launch_counts()
     dev = dict(device=cuda, dtype=dtype)
     n = 0
-    for t, causal in ((37, True), (37, False), (1, True), (64, True)):
+    for t, causal in ((37, True), (37, False), (1, True), (1, False),
+                      (64, True), (130, True), (130, False)):
         q, k, v, dout = (x.to(**dev) for x in _fresh(7, b=2, t=t))
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         w_out, w_lse = fa.flash_attention_fwd_plain(
@@ -323,6 +326,23 @@ def test_fresh_attention_kernels_match_plain(cuda, dtype, atol):
     assert counts["flash_attention"] == n + 1
     assert counts["flash_attention_bwd_dq"] == n + 1
     assert counts["flash_attention_bwd_dkv"] == n + 1
+
+
+def test_fresh_attention_is_deterministic(cuda):
+    """Two launches of the bf16 forward and of the backward on the same
+    input give bit-equal out, lse, dq, dk and dv (no atomics, no split that
+    sums in a scheduling-dependent order), at the training shape cut to
+    B = 2."""
+    q, k, v, dout = (x.to(device=cuda, dtype=torch.bfloat16)
+                     for x in _fresh(9, b=2, t=512))
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        runs.append((out, lse) + fab.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=True))
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.isfinite(a).all() and torch.equal(a, b_), name
 
 
 def test_full_width_train_step(cuda):
@@ -565,3 +585,34 @@ def test_library_entry_points_on_card(cuda):
     assert counts["online_softmax"] == counts["online_softmax_bf16"] == 1
     assert counts["online_softmax_exp2"] == 1
     assert counts["online_normalizer"] == 1 and counts["softmax_topk"] == 1
+
+
+def test_entry_point_gradients_on_card(cuda):
+    """On CUDA the unflagged ``dispatch.softmax_topk`` and
+    ``dispatch.online_softmax`` on a requires-grad input come back with a
+    graph (one counted launch each) and their gradients equal the CPU's;
+    ``dispatch.online_normalizer`` raises for such an input rather than
+    returning a detached result, and runs under ``torch.no_grad()``."""
+    dispatch.reset_launch_counts()
+    x0 = torch.randn(3, 2000, generator=torch.Generator().manual_seed(32))
+    w = torch.randn(3, 2000, generator=torch.Generator().manual_seed(33))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        xg = (x0 * 4.0).to(dev).requires_grad_(True)
+        out = dispatch.softmax_topk(xg, 5)
+        y = dispatch.online_softmax(xg, form="exact")
+        assert out.values.grad_fn is not None and y.grad_fn is not None
+        ((out.values ** 2).sum() + 0.1 * (out.logsumexp ** 2).sum()
+         + (y * w.to(dev)).sum()).backward()
+        grads[dev.type] = xg.grad.cpu()
+    scale = grads["cpu"].abs().max().item()
+    assert (grads["cuda"] - grads["cpu"]).abs().max().item() <= 1e-4 * scale
+    xg = x0.to(cuda).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        dispatch.online_normalizer(xg)
+    with torch.no_grad():
+        m, _ = dispatch.online_normalizer(xg)
+    assert torch.equal(m.cpu(), dispatch.online_normalizer(x0)[0])
+    counts = dispatch.launch_counts()
+    assert counts["softmax_topk"] == counts["online_softmax"] == 1
+    assert counts["online_normalizer"] == 1 and sum(counts.values()) == 3

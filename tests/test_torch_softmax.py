@@ -3,7 +3,9 @@ CPU: the rest of ``core.online_softmax``, ``core.softmax_forms``,
 ``safe_softmax_then_topk``, the plain versions of the online-softmax kernels
 against the Pallas kernels (interpret mode, explicit blocks, so no autotune
 sweep runs), the routing of ``kernels.dispatch`` with its form preference,
-and the gradient of ``kernels.ops.softmax_topk``.
+and the gradients of the library entry points (``ops.softmax_topk``,
+the unflagged ``dispatch.softmax_topk``, ``ops.OnlineSoftmax`` and the
+plain normalizer).
 
 Inputs are built with numpy from a seed and handed to both packages.  The
 CUDA kernels run only on the card (``tests/test_torch_cuda.py``, marked
@@ -23,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import core as ref_core  # noqa: E402
 from repro.core import softmax_forms as ref_sf  # noqa: E402
+from repro.kernels import dispatch as ref_dispatch  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels.online_softmax import (  # noqa: E402
     online_normalizer_pallas, online_softmax_pallas)
@@ -386,3 +389,56 @@ def test_dispatch_softmax_topk_differentiable_keyword():
     assert x.grad is not None and torch.isfinite(x.grad).all()
     plain = dispatch.softmax_topk(x.detach(), 4)
     assert torch.equal(out.indices, plain.indices)
+
+
+# ---------------------------------------------------------------------------
+# every entry point keeps its gradient: the unflagged dispatch.softmax_topk,
+# ops.OnlineSoftmax and the normalizer against jax.grad through the reference
+# ---------------------------------------------------------------------------
+def _entry_loss(entry, xt, w):
+    """(the torch output, its scalar loss, the same loss of the reference's
+    entry point as a function of a JAX array); w weighs the outputs, so no
+    gradient vanishes by the softmax's own sum."""
+    k = 4
+    if entry == "softmax_topk":
+        out = dispatch.softmax_topk(xt, k)            # no differentiable=
+        loss = ((out.values * _t(w[..., :k])).sum()
+                + 0.1 * (out.logsumexp ** 2).sum())
+
+        def ref(xj):
+            o = ref_dispatch.softmax_topk(xj, k)
+            return ((o.values * w[..., :k]).sum()
+                    + 0.1 * (o.logsumexp ** 2).sum())
+        return out.values, loss, ref
+    if entry == "online_softmax":
+        out = ops.OnlineSoftmax.apply(xt, "exact")
+        return out, (out * _t(w)).sum(), \
+            lambda xj: (ref_core.online_softmax(xj) * w).sum()
+    m, d = dispatch.online_normalizer(xt)
+    wm, wd = w[..., 0], w[..., 1]
+    return d, (m * _t(wm)).sum() + (d * _t(wd)).sum(), \
+        lambda xj: sum((a * b).sum() for a, b in zip(
+            ref_core.online_normalizer(xj), (wm, wd)))
+
+
+@pytest.mark.parametrize("shape", [(5, 64), (2, 3, 40)])
+@pytest.mark.parametrize("entry", ["softmax_topk", "online_softmax",
+                                   "online_normalizer"])
+def test_entry_point_gradient_matches_reference(entry, shape):
+    """The unflagged ``dispatch.softmax_topk`` on a requires-grad input
+    routes through ``ops.softmax_topk`` and carries a graph, as the
+    reference's ``dispatch.softmax_topk`` does on every path;
+    ``ops.OnlineSoftmax`` (CPU tensors: the plain forward) has the exact
+    form's backward; the normalizer's plain version is differentiated by
+    autograd (on CUDA it raises for such an input: a ``cuda``-marked test).
+    Each gradient against ``jax.grad`` through the reference, float32,
+    rtol 1e-4 / atol 1e-6 as ``ops.softmax_topk``'s gradient test."""
+    x = _x(_seed("entry grad", entry, shape), shape, scale=4.0)
+    w = np.random.default_rng(_seed("w", entry, shape)).standard_normal(
+        shape).astype(np.float32)
+    xt = _t(x).requires_grad_(True)
+    out, loss, ref = _entry_loss(entry, xt, w)
+    assert out.grad_fn is not None
+    loss.backward()
+    want = np.asarray(jax.grad(ref)(jnp.asarray(x)))
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-4, atol=1e-6)
