@@ -18,7 +18,10 @@ printing its final line:
    training paths' shapes (fused softmax+top-k; paged decode; paged
    prefill, with edge cases and the 64-token chunks after long cached
    prefixes; contiguous decode over ragged slots; contiguous cached prefill
-   at the slot pool's chunks and tails and the lockstep prefill; the fresh
+   at the slot pool's chunks and tails, the lockstep prefill, the int8
+   runs' single-shot prefills, offsets off the 64-row tile and Tq 65 and
+   130, each dtype's form named from the kernels the profiler saw (bf16 on
+   the tensor cores, fp32 on the CUDA cores); the fresh
    flash forward and its dq and dk/dv backward at T = 512, 37 and 1, causal
    and not, and ``FlashAttention``'s gradients against autograd through the
    plain forward, each dtype's form named from the kernels the profiler saw
@@ -62,23 +65,33 @@ printing its final line:
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
    the serving and training paths' shapes, beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
-   call; then full-width decode steps and prefill chunks of the paged pool
+   call; the cached prefill at the slot pool's chunk, the lockstep prefill
+   and an int8 single-shot prefill beside SDPA, with each call's device
+   time too (events around launches queued behind a device
+   sleep: the events of a small kernel's back-to-back launches time the
+   host's launch path); then
+   full-width decode steps and prefill chunks of the paged pool
    and the slot pool, their int8 decode steps, and a full-width train step,
    end to end, against the device's busy time inside them (torch.profiler);
    the four online-softmax kernels at [4000, 100000] fp32 beside
    torch.softmax / torch.logsumexp, and the effective accesses per element
    (ms × 3.35 TB/s over the bytes of x) of the exact softmax, the
-   normalizer, torch.softmax and torch.logsumexp at every shape of phase 9,
-   beside the paper's 3 (online), 4 (safe) and 1 (normalizer);
+   normalizer, torch.softmax and torch.logsumexp at every shape of phase 9
+   (back-to-back and device times), beside the paper's 3 (online), 4 (safe) and 1
+   (normalizer), and both designs of the online softmax at the two V on
+   either side of the row-resident limit;
 9. library: the paper's online softmax through its public entry points,
    with the launch counts set to 0 just before and read just after:
    ``dispatch.online_softmax`` under each softmax form (exact, bf16, exp2)
    and ``ops.online_normalizer`` at smollm-360m's logit shapes ([8, 49152]
-   fp32, [4096, 49152] bf16) and the paper's regimes ([4000, V] and [10, V],
-   V = 1000, 10000, 100000, fp32), one counted launch per call; each held
+   fp32, [4096, 49152] bf16), the paper's regimes ([4000, V] and [10, V],
+   V = 1000, 10000, 100000, fp32), V = 1001 and 4097, V on both sides of
+   the row-resident limit, rows starting off a 16-byte boundary (fp32 and
+   bf16) and 70000 rows, one counted launch per call; each held
    against its plain version on the CPU over up to 24 rows (m equal, d and
    y within the forms' analytic bounds, rows with -inf prefixes, tails and
-   all -inf giving (-inf, 0) and y = 0); then the gradients:
+   all -inf giving (-inf, 0) and y = 0); ``dispatch.softmax_topk`` over
+   70000 rows against its plain version on the card; then the gradients:
    ``ops.softmax_topk``, the unflagged ``dispatch.softmax_topk`` and
    ``dispatch.online_softmax`` on a requires-grad input, each with a
    backward and its fp32 gradient against the CPU's, and
@@ -190,15 +203,27 @@ KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "online_softmax": "library", "online_normalizer": "library",
                "online_softmax_bf16": "library",
                "online_softmax_exp2": "library"}
-# phase 9's shapes (R, V, dtype): smollm-360m's logits at a decode step and
-# for one 8 x 512 train batch, then the paper's two regimes (batch 4000 and
-# batch 10) at V = 1000, 10000 and 100000; the timed rows of phase 8 are the
-# largest (4000 x 100000 fp32)
-LIBRARY_SHAPES = ((8, 49152, "float32"), (4096, 49152, "bfloat16"),
-                  (4000, 1000, "float32"), (4000, 10000, "float32"),
-                  (4000, 100000, "float32"), (10, 1000, "float32"),
-                  (10, 10000, "float32"), (10, 100000, "float32"))
+# phase 9's shapes (R, V, dtype, start): smollm-360m's logits at a decode
+# step and for one 8 x 512 train batch, the paper's two regimes (batch 4000
+# and batch 10) at V = 1000, 10000 and 100000, V = 1001 and 4097 (rows that
+# are no multiple of a 16-byte vector), V on both sides of the row-resident
+# limit (osk.RESIDENT_ROW_BYTES: 57344 fp32 entries is the last row held on
+# chip), rows whose start lies `start` entries past a 16-byte boundary, and
+# 70000 rows (more than grid.y's 65535); the timed rows of phase 8 are
+# 4000 x 100000 fp32
+LIBRARY_SHAPES = ((8, 49152, "float32", 0), (4096, 49152, "bfloat16", 0),
+                  (4000, 1000, "float32", 0), (4000, 10000, "float32", 0),
+                  (4000, 100000, "float32", 0), (10, 1000, "float32", 0),
+                  (10, 10000, "float32", 0), (10, 100000, "float32", 0),
+                  (4000, 1001, "float32", 0), (4000, 4097, "float32", 0),
+                  (1000, 57344, "float32", 0), (1000, 57345, "float32", 0),
+                  (4000, 1001, "float32", 1), (4096, 1001, "bfloat16", 1),
+                  (70000, 1000, "float32", 0))
 LIBRARY_TIMED = (4000, 100000, "float32")
+# the rows each side of the row-resident limit, timed in both designs
+LIBRARY_LIMIT = ((1000, 57344, "float32"), (1000, 57345, "float32"))
+# dispatch.softmax_topk over more rows than grid.y holds
+TOPK_ROWS = (70000, 1000)
 LIBRARY_CPU_ROWS = 24     # rows of each input held against the CPU
 # the library's fp32 gradients (ops.softmax_topk, the unflagged
 # dispatch.softmax_topk, dispatch.online_softmax), card vs CPU: within 1e-4
@@ -286,6 +311,7 @@ def phase_build() -> None:
 # the tensor-core kernels and the C function giving each one's dynamic
 # shared memory (in the library of its source)
 WGMMA_SMEM = {"fresh_fwd_wgmma_kernel": "flash_attention_fwd_wgmma_smem",
+              "offset_wgmma_kernel": "flash_attention_offset_wgmma_smem",
               "bwd_dq_wgmma_kernel": "flash_attention_bwd_dq_wgmma_smem",
               "bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv_wgmma_smem"}
 
@@ -293,14 +319,25 @@ WGMMA_SMEM = {"fresh_fwd_wgmma_kernel": "flash_attention_fwd_wgmma_smem",
 def _ptxas_report(log: str) -> dict:
     """ptxas -v's report per kernel of one source: {kernel symbol:
     {registers, smem, spill_stores, spill_loads}}, the symbol being the
-    longest name of PORT_KERNEL_SYMBOLS inside the mangled entry name."""
+    longest name of PORT_KERNEL_SYMBOLS inside the mangled entry name, with
+    a template instance's arguments (dtype, form, flags) after it."""
     import re
     out, cur = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            found = [s for s in PORT_KERNEL_SYMBOLS if s in entry.group(1)]
-            cur = max(found, key=len) if found else entry.group(1)
+            name = entry.group(1)
+            found = [s for s in PORT_KERNEL_SYMBOLS if s in name]
+            cur = max(found, key=len) if found else name
+            tail = name.split(cur, 1)[1] if found else ""
+            if tail.startswith("I"):  # a template's arguments, mangled
+                args = re.findall(r"__nv_bfloat16|Form\w+?E|L[bi]\d+E|^If",
+                                  tail.split("Ev", 1)[0])
+                words = [{"If": "f32", "__nv_bfloat16": "bf16"}.get(
+                    a, a[:-1].lstrip("L").lstrip("bi") if a[0] == "L"
+                    else a[:-1]) for a in args]
+                if words:
+                    cur += "<" + ",".join(words) + ">"
             out[cur] = {"registers": 0, "smem": 0, "spill_stores": 0,
                         "spill_loads": 0}
             continue
@@ -551,8 +588,11 @@ def _offset_cases():
     """(Tk, Tq, q_offset per row, vlen per row): the slot pool's 64-token
     chunks of a 256-token prompt into a slot of 328, the power-of-two tails
     ``prefill_schedule`` gives a 63-token remainder, a B = 3 case with a
-    keyless row and Tq = 37 (not a multiple of the 16-row tile), and the
-    lockstep prefill (B = 4, Tq = 256 at offset 0 into caches of 288)."""
+    keyless row and Tq = 37 (not a multiple of the 16-row tile), the
+    lockstep prefill (B = 4, Tq = 256 at offset 0 into caches of 288), the
+    int8 runs' single-shot prefills (B = 1, Tq = Tk = 80 and 272), offsets
+    off the 64-row tile, and Tq = 65 and 130 (a 64-row tile and one more
+    row, two and two more)."""
     cases = [(328, 64, [off], [off + 64]) for off in (0, 64, 192)]
     off = 256
     for w in (32, 16, 8, 4, 2, 1):
@@ -560,32 +600,55 @@ def _offset_cases():
         off += w
     cases.append((64, 37, [0, 5, 13], [37, 42, 0]))
     cases.append((288, 256, [0] * 4, [256] * 4))
+    cases += [(80, 80, [0], [80]), (272, 272, [0], [272]),
+              (328, 64, [100], [164]), (300, 65, [37, 100], [102, 165]),
+              (300, 130, [3, 150], [133, 280])]
     return cases
 
 
+# each dtype's form of the cached prefill, as the profiler names its kernel
+OFFSET_FORMS = {"float32": ("CUDA cores", "prefill_offset_kernel"),
+                "bfloat16": ("tensor cores (wgmma)", "offset_wgmma_kernel")}
+
+
 def _check_offset(gen) -> float:
+    """Every case of ``_offset_cases`` in fp32 (atol 1e-5) and bf16 (atol
+    2e-2), K/V NaN at and past each row's valid length, under
+    torch.profiler, which must see that dtype's form (``OFFSET_FORMS``) and
+    no other port kernel."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     worst = 0.0
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         errs = []
-        for tk, tq, qoff, vlens in _offset_cases():
-            inputs = _contiguous_inputs(gen, dtype=dtype, s=tk, vlens=vlens,
-                                        tq=tq)
-            qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
-            vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
-            what = (f"{str(dtype)[6:]} B={len(vlens)} Tk={tk} Tq={tq} "
-                    f"q_offset={qoff} vlen={vlens}")
-            err, lse = _offset_err(inputs, qo, vl, what, atol)
-            if 0 in vlens and not torch.isneginf(lse[vlens.index(0)]).all():
-                _fail(f"flash_attention_offset {what}: lse of the keyless "
-                      "row is not -inf")
-            errs.append(err)
-            if dtype == torch.float32:
-                worst = max(worst, err)
-        print(f"kernel flash_attention_offset {str(dtype)[6:]}: "
-              f"{len(errs)} cases (64-token chunks at q_offset 0/64/192, "
-              f"tails 32..1, B=3 Tq=37 with a keyless row, lockstep B=4 "
-              f"Tq=256): max abs err {max(errs):.3g} (atol {atol})")
+        form, symbol = OFFSET_FORMS[str(dtype)[6:]]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for tk, tq, qoff, vlens in _offset_cases():
+                inputs = _contiguous_inputs(gen, dtype=dtype, s=tk,
+                                            vlens=vlens, tq=tq)
+                qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
+                vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+                what = (f"{str(dtype)[6:]} B={len(vlens)} Tk={tk} Tq={tq} "
+                        f"q_offset={qoff} vlen={vlens}")
+                err, lse = _offset_err(inputs, qo, vl, what, atol)
+                if 0 in vlens and not torch.isneginf(
+                        lse[vlens.index(0)]).all():
+                    _fail(f"flash_attention_offset {what}: lse of the "
+                          "keyless row is not -inf")
+                errs.append(err)
+            torch.cuda.synchronize()
+        seen = _kernels_seen(prof)
+        if seen != [symbol]:
+            _fail(f"flash_attention_offset {str(dtype)[6:]}: the profiler "
+                  f"saw {seen}, the {form} form is {symbol}")
+        if dtype == torch.float32:
+            worst = max(errs)
+        print(f"kernel flash_attention_offset {str(dtype)[6:]} ({form}, "
+              f"{symbol}): {len(errs)} cases (64-token chunks at q_offset "
+              f"0/64/192, tails 32..1, B=3 Tq=37 with a keyless row, "
+              f"lockstep B=4 Tq=256, single-shot Tq=Tk=80/272, q_offset "
+              f"100/37/150/3, Tq=65/130; K/V NaN past vlen): max abs err "
+              f"{max(errs):.3g} (atol {atol})")
     return worst
 
 
@@ -1391,12 +1454,14 @@ def _host_ms(fn, samples: int = 10, warmup: int = 2) -> float:
 PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
                        "decode_paged_kernel", "prefill_paged_kernel",
                        "decode_kernel", "prefill_offset_kernel",
+                       "offset_wgmma_kernel",
                        "fresh_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel",
                        "fresh_fwd_wgmma_kernel", "bwd_dq_wgmma_kernel",
                        "bwd_dkv_wgmma_kernel",
                        "decode_paged_int8_kernel", "decode_int8_kernel",
-                       "prefill_paged_int8_kernel", "md_partial_kernel",
-                       "md_merge_kernel", "normalize_kernel")
+                       "prefill_paged_int8_kernel", "rows_kernel",
+                       "md_slice_kernel", "md_merge_kernel",
+                       "normalize_kernel")
 
 
 def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
@@ -1602,10 +1667,15 @@ def phase_times() -> dict:
         "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 bf16 vlen {vlens}"}
 
     # contiguous cached prefill: the slot pool's 64-token chunk at offset
-    # 64 into a slot of 328, then (printed only) the lockstep prefill
+    # 64 into a slot of 328, then (printed only) the lockstep prefill and an
+    # int8 run's single-shot prefill (its exact bf16 K/V, Tq = Tk = 256);
+    # back-to-back and device times of the kernel (bf16: tensor cores) and
+    # of SDPA
     for key, (b, tk, tq, qoff, vlen) in (
             ("flash_attention_offset", (1, 328, 64, 64, 128)),
-            ("flash_attention_offset, lockstep", (4, 288, 256, 0, 256))):
+            ("flash_attention_offset, lockstep", (4, 288, 256, 0, 256)),
+            ("flash_attention_offset, int8 single-shot",
+             (1, 256, 256, 0, 256))):
         q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=tk,
                                            vlens=[vlen] * b, tq=tq)
         qo = torch.full((b,), qoff, dtype=torch.int32, device="cuda")
@@ -1619,13 +1689,18 @@ def phase_times() -> dict:
                   + b * vlen * hkv * d * esz * 2 + b * 8)
         args, _ = fa.prepare(q, k, v, qo, vl)
         b_ms, b_by = _bound(nbytes, 4.0 * b * hq * d * pairs, "bfloat16")
+
+        def sdpa():
+            return _sdpa(q, k, v, mask[None, None])
         rows[key] = {
             "ms": _ms(lambda: fa.launch(args)),
+            "device_ms": _device_call_ms(lambda: fa.launch(args)),
             "wrapper_ms": _ms(lambda: fa.flash_attention_offset(q, k, v, qo,
                                                                 vl)),
             "plain_ms": _ms(lambda: fa.flash_attention_offset_plain(
                 q, k, v, qo, vl)),
-            "library_ms": _ms(lambda: _sdpa(q, k, v, mask[None, None])),
+            "library_ms": _ms(sdpa),
+            "library_device_ms": _device_call_ms(sdpa),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"B={b} Tq={tq} q_offset={qoff} vlen={vlen} Tk={tk} "
                      "Hq=15 Hkv=5 D=64 bf16"}
@@ -1635,11 +1710,79 @@ def phase_times() -> dict:
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
                else "none")
+        extra = "".join(
+            f", {label} {row[k]:.4f}ms" for k, label in (
+                ("device_ms", "kernel device time"),
+                ("library_device_ms", "library device time")) if k in row)
         print(f"time {name} [{row['shape']}]: kernel {row['ms']:.4f}ms "
               f"(wrapper call {row['wrapper_ms']:.4f}ms), bound "
               f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
-              f"{row['plain_ms']:.4f}ms, library {lib}")
+              f"{row['plain_ms']:.4f}ms, library {lib}{extra}")
     return rows
+
+
+def _device_call_ms(fn, samples: int = 20, inner: int = 10) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``inner``
+    back-to-back calls that the host queued behind a device sleep, so the
+    device runs them without waiting for the host's launch path (what
+    ``_ms`` times for a small kernel); median of ``samples``, over
+    ``inner``.  The sleep doubles until it outlasts the host's queueing."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles, out = 1 << 22, []
+    while len(out) < samples:
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        slept.record()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if queued_ms > 0.5 * _sleep_ms(cycles):
+            cycles *= 2                 # the host may have let it idle
+            if cycles > 1 << 32:
+                _fail("the host queues too slowly to time the device")
+            continue
+        out.append(start.elapsed_time(end) / inner)
+    return statistics.median(out)
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` in µs: ``calls`` calls back to back
+    on the host's clock, the device left to finish after."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+_SLEEP_MS = {}
+
+
+def _sleep_ms(cycles: int) -> float:
+    """How long ``torch.cuda._sleep(cycles)`` keeps the device busy, ms."""
+    if cycles not in _SLEEP_MS:
+        import torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_MS[cycles] = start.elapsed_time(end)
+    return _SLEEP_MS[cycles]
 
 
 def _train_kernel_times(gen) -> dict:
@@ -1828,17 +1971,31 @@ def _int8_kernel_times(gen) -> dict:
 # 9: the library surface at smollm-360m's logit shapes and the paper's
 # regimes
 # ---------------------------------------------------------------------------
-def _library_input(r, v, dtype, seed):
+def _library_input(r, v, dtype, seed, start=0):
     """x [R, V] on the card, randn × 4 from a seeded CUDA generator, with
-    row 0 dead over its leading half (its whole first 4096-entry slice when
-    V ≥ 8192), row 1 all -inf and row 2 dead over its last third."""
+    row 0 dead over its leading half (and over its whole first slice when
+    the row streams in more than one), row 1 all -inf and row 2 dead over
+    its last third; with ``start`` > 0 a contiguous view that begins
+    ``start`` entries past a 16-byte boundary."""
     import torch
+    from repro_torch.kernels import online_softmax as osk
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(r, v, generator=gen, device="cuda") * 4.0
-    x[0, :v // 2] = float("-inf")
+    p = osk.plan(v, getattr(torch, dtype))
+    dead = v // 2
+    if p.design == "stream" and p.slices > 1:
+        dead = max(dead, p.slice_vectors * p.vec)
+    x[0, :dead] = float("-inf")
     x[1] = float("-inf")
     x[2, v - v // 3:] = float("-inf")
-    return x.to(getattr(torch, dtype))
+    x = x.to(getattr(torch, dtype))
+    if start:
+        buf = torch.empty(r * v + start, dtype=x.dtype, device="cuda")
+        x = buf[start:].view(r, v).copy_(x)
+        if x.data_ptr() % 16 == 0:
+            _fail(f"library input [{r}, {v}] {dtype} starts on a 16-byte "
+                  "boundary")
+    return x
 
 
 def _cpu_rows(r):
@@ -1913,7 +2070,9 @@ def _hold_library(what, x, ys, m, d) -> dict:
 def phase_library():
     """Phase 9: ``dispatch.online_softmax`` under each softmax form and
     ``ops.online_normalizer`` on every shape of ``LIBRARY_SHAPES``, then
-    ``ops.softmax_topk``, the unflagged ``dispatch.softmax_topk`` (k = 5)
+    ``dispatch.softmax_topk`` over ``TOPK_ROWS`` against its plain version
+    on the card, then ``ops.softmax_topk``, the unflagged
+    ``dispatch.softmax_topk`` (k = 5)
     and ``dispatch.online_softmax`` with a backward at [8, 49152] fp32, and
     ``dispatch.online_normalizer``'s refusal of a requires-grad input,
     between a reset and a read of the launch counts; each output and
@@ -1922,11 +2081,12 @@ def phase_library():
     import torch
     from repro_torch.kernels import dispatch, ops
     from repro_torch.kernels import online_softmax as osk
+    from repro_torch.kernels import softmax_topk as st
     dispatch.reset_launch_counts()
     calls = dict.fromkeys(KERNELS, 0)
     errs = {}
-    for i, (r, v, dtype) in enumerate(LIBRARY_SHAPES):
-        x = _library_input(r, v, dtype, seed=100 + i)
+    for i, (r, v, dtype, start) in enumerate(LIBRARY_SHAPES):
+        x = _library_input(r, v, dtype, seed=100 + i, start=start)
         ys = {}
         for form in dispatch.SOFTMAX_FORMS:
             prev = dispatch.set_softmax_form(form)
@@ -1938,11 +2098,32 @@ def phase_library():
         m, d = ops.online_normalizer(x)
         calls["online_normalizer"] += 1
         torch.cuda.synchronize()
-        for name, err in _hold_library(f"[{r}, {v}] {dtype}", x, ys, m,
-                                       d).items():
+        p = osk.plan(v, x.dtype)
+        what = (f"[{r}, {v}] {dtype}{f' from +{start}' if start else ''} "
+                f"({p.design}, {p.threads} threads, {p.slices} slices)")
+        for name, err in _hold_library(what, x, ys, m, d).items():
             if dtype == "float32":
                 errs[name] = max(errs.get(name, 0.0), err)
         del x, ys, m, d
+
+    # softmax_topk over more rows than grid.y holds, against its plain
+    # version on the card
+    r, v = TOPK_ROWS
+    x = torch.randn(r, v, generator=torch.Generator(device="cuda")
+                    .manual_seed(11), device="cuda") * 4.0
+    got = dispatch.softmax_topk(x, 5)
+    calls["softmax_topk"] += 1
+    want = st.softmax_topk_plain(x, 5)
+    torch.cuda.synchronize()
+    if not torch.equal(got.indices.long(), want.indices) or not (
+            torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0)
+            and torch.allclose(got.logsumexp, want.logsumexp, rtol=1e-5,
+                               atol=0.0)):
+        _fail(f"dispatch.softmax_topk [{r}, {v}]: indices, values or lse "
+              "differ from the plain version")
+    print(f"library dispatch.softmax_topk [{r}, {v}] fp32 k=5: indices "
+          "equal to the plain version's, values and lse within rtol 1e-5")
+    del x, got, want
 
     x0 = torch.randn(8, 49152, generator=torch.Generator().manual_seed(9))
     w = torch.randn(8, 49152, generator=torch.Generator().manual_seed(10))
@@ -1987,8 +2168,9 @@ def phase_library():
     if counts != want:
         _fail(f"library: launches {counts}, its calls imply {want}")
     print(f"library launches: {counts} = {len(LIBRARY_SHAPES)} shapes x "
-          "(3 forms + the normalizer), then 2 softmax_topk and 1 "
-          "online_softmax with a backward")
+          "(3 forms + the normalizer), 1 softmax_topk over "
+          f"{TOPK_ROWS[0]} rows, then 2 softmax_topk and 1 online_softmax "
+          "with a backward")
     return counts, errs
 
 
@@ -2002,10 +2184,14 @@ def _library_kernel_times() -> dict:
     against its plain version on the timed input), then the effective
     accesses per element of the exact softmax and the normalizer beside
     torch.softmax and torch.logsumexp at every shape of ``LIBRARY_SHAPES``
-    (ms × 3.35 TB/s over the bytes of x): the paper counts 3 for the online
-    softmax, 4 for safe softmax and 1 for the normalizer.  The bounds count x
-    read once and y (or m and d) written once."""
+    (ms × 3.35 TB/s over the bytes of x, from back-to-back calls and from
+    the device time of calls queued ahead): the paper counts 3 for the online softmax, 4
+    for safe softmax and 1 for the normalizer; then the exact softmax in
+    both designs at ``LIBRARY_LIMIT``, each held against its plain version
+    first.  The bounds count x read once and y (or m and d) written
+    once."""
     import torch
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import online_softmax as osk
     r, v, dtype = LIBRARY_TIMED
     x = _library_input(r, v, dtype, seed=200)
@@ -2025,6 +2211,9 @@ def _library_kernel_times() -> dict:
         slow = form != "exact"          # the bf16/exp2 plain forms loop
         rows[osk.KERNEL_NAMES[form]] = {
             "ms": _ms(lambda: osk.launch(call)),
+            "device_ms": _device_call_ms(lambda: osk.launch(call)),
+            "library_device_ms": _device_call_ms(
+                lambda: torch.softmax(x, -1)),
             "wrapper_ms": _ms(lambda: osk.online_softmax(x, form)),
             "plain_ms": _ms(lambda: osk.online_softmax_plain(x, form),
                             samples=3 if slow else 5, inner=1, warmup=1),
@@ -2034,6 +2223,9 @@ def _library_kernel_times() -> dict:
     b_ms, b_by = _bound(n * esz + 8 * r, 4.0 * n, "float32")
     rows["online_normalizer"] = {
         "ms": _ms(lambda: osk.launch(md_call)),
+        "device_ms": _device_call_ms(lambda: osk.launch(md_call)),
+        "library_device_ms": _device_call_ms(
+            lambda: torch.logsumexp(x, -1)),
         "wrapper_ms": _ms(lambda: osk.online_normalizer(x)),
         "plain_ms": _ms(lambda: osk.online_normalizer_plain(x), samples=5,
                         inner=1, warmup=1),
@@ -2042,21 +2234,66 @@ def _library_kernel_times() -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
     del x, calls, md_call, m, d
 
-    for r, v, dtype in LIBRARY_SHAPES:
-        x = _library_input(r, v, dtype, seed=300)
+    for r, v, dtype, start in LIBRARY_SHAPES:
+        x = _library_input(r, v, dtype, seed=300, start=start)
         nbytes = x.numel() * x.element_size()
         call, _ = osk.prepare(x, "exact")
         md_call, _ = osk.prepare_normalizer(x)
-        t = {"online softmax": _ms(lambda: osk.launch(call)),
-             "torch.softmax": _ms(lambda: torch.softmax(x, -1)),
-             "online normalizer": _ms(lambda: osk.launch(md_call)),
-             "torch.logsumexp": _ms(lambda: torch.logsumexp(x, -1))}
-        acc = {k: ms * 1e-3 * HBM_BYTES_PER_S / nbytes for k, ms in t.items()}
-        print(f"accesses per element [{r}, {v}] {dtype}: "
-              + ", ".join(f"{k} {acc[k]:.3f} ({t[k]:.4f}ms)" for k in t)
+        fns = {"online softmax": lambda: osk.launch(call),
+               "torch.softmax": lambda: torch.softmax(x, -1),
+               "online normalizer": lambda: osk.launch(md_call),
+               "torch.logsumexp": lambda: torch.logsumexp(x, -1)}
+        t = {k: (_ms(fn), _device_call_ms(fn)) for k, fn in fns.items()}
+        p = osk.plan(v, x.dtype)
+        print(f"accesses per element [{r}, {v}] {dtype}"
+              f"{f' from +{start}' if start else ''} ({p.design}): "
+              + ", ".join(f"{k} {ms * 1e-3 * HBM_BYTES_PER_S / nbytes:.3f} "
+                          f"({ms:.4f}ms; device {dev:.4f}ms, "
+                          f"{dev * 1e-3 * HBM_BYTES_PER_S / nbytes:.3f})"
+                          for k, (ms, dev) in t.items())
               + "; the paper's model: online softmax 3, safe softmax 4, "
               "normalizer 1")
         del x, call, md_call
+
+    # what one call costs the host at the smallest timed rows: where it
+    # exceeds the kernel's device time, back-to-back launches time the host
+    x = _library_input(4000, 1000, "float32", seed=500)
+    call, _ = osk.prepare(x, "exact")
+    host = {"osk.launch (the kernel's launch path)": lambda: osk.launch(call),
+            "dispatch.online_softmax (the entry point)":
+                lambda: dispatch.online_softmax(x),
+            "torch.softmax": lambda: torch.softmax(x, -1)}
+    print("host time per call [4000, 1000] float32: " + ", ".join(
+        f"{k} {_host_us(fn):.1f}us" for k, fn in host.items()))
+    del x, call
+
+    # both designs at the rows either side of the row-resident limit
+    for r, v, dtype in LIBRARY_LIMIT:
+        x = _library_input(r, v, dtype, seed=400)
+        nbytes = x.numel() * x.element_size()
+        auto = osk.plan(v, x.dtype)
+        nvec = -(-v // auto.vec)
+        other = (osk.Plan("stream", osk.STREAM_THREADS, auto.vec,
+                          osk.SLICE_VECTORS, -(-nvec // osk.SLICE_VECTORS), 0)
+                 if auto.design != "stream" else
+                 osk.Plan("block", osk.MAX_ROW_THREADS, auto.vec,
+                          osk.SLICE_VECTORS, 1, nvec * osk.VEC_BYTES))
+        out = []
+        for p in (auto, other):
+            call, y = osk.prepare_plan(x, "exact", p)
+            osk.launch(call)
+            torch.cuda.synchronize()
+            _hold_library(f"[{r}, {v}] {dtype} as {p.design}", x,
+                          {"exact": y}, *osk.online_normalizer(x))
+            ms = _ms(lambda: osk.launch(call))
+            dev = _device_call_ms(lambda: osk.launch(call))
+            out.append(f"{p.design}{' (the plan)' if p is auto else ''} "
+                       f"{ms:.4f}ms, device {dev:.4f}ms = "
+                       f"{dev * 1e-3 * HBM_BYTES_PER_S / nbytes:.3f} "
+                       "accesses")
+        print(f"row-resident limit {osk.RESIDENT_ROW_BYTES} B: [{r}, {v}] "
+              f"{dtype}, {v * x.element_size()} B a row: " + "; ".join(out))
+        del x, call, y
     return rows
 
 
@@ -2099,7 +2336,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "wrapper_ms": row["wrapper_ms"]})
+            "wrapper_ms": row["wrapper_ms"],
+            **{k: row[k] for k in ("device_ms", "library_device_ms")
+               if k in row}})
     # again at the end, beside the numbers, where a reader of the last
     # lines of the output finds it
     print(f"nvidia-smi: {_smi()}")

@@ -9,9 +9,10 @@ rebuilds and an unchanged one is reused.  All sources build in parallel, one
 ``nvcc`` each, at first use.  A missing ``nvcc`` or a failed build raises with
 nvcc's stderr; there is no fallback.
 
-Callers pass pointers as ``ctypes.c_void_p`` (``tensor.data_ptr()``) and the
-current stream as ``torch.cuda.current_stream().cuda_stream``; every C entry
-point returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
+:func:`call` passes tensors as their data pointers (``ctypes.c_void_p``
+arguments) and appends the current stream
+(``torch.cuda.current_stream().cuda_stream``); every C entry point returns
+``cudaGetLastError()`` and :func:`check` raises on non-zero.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 #: nvcc's output (ptxas register / shared-memory / spill report) per source,
 #: from the builds this process ran.
 BUILD_LOG: dict[str, str] = {}
@@ -109,18 +111,27 @@ def call(name: str, argtypes: list, args, *,
     """Call ``<name>_launch`` of ``csrc/<source>.cu`` (``source`` defaults
     to ``name``) on ``args``: tensors pass as their data pointers, and the
     current stream of the first tensor's device is appended.  Raises if the
-    launch reported a CUDA error."""
+    launch reported a CUDA error.  The entry point is looked up once and
+    the arguments pass as plain ints and floats, so a call costs the host
+    a few microseconds (a small kernel's launch is host-bound otherwise)."""
     import torch
-    lib = library(source or name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
+    key = (source or name, name)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        fn = getattr(library(key[0]), f"{name}_launch")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _ENTRIES[key] = fn
     dev = args[0].device
-    c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        err = fn(*c_args, stream_ptr(dev))
-    check(lib, err, f"{name} kernel")
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    if dev.index == torch.cuda.current_device():
+        err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        check(library(key[0]), err, f"{name} kernel")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -128,15 +139,6 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
-
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream_ptr(device) -> ctypes.c_void_p:
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+
 #define REPRO_NEG_INF (-CUDART_INF_F)
 
 enum : int { kDtypeF32 = 0, kDtypeBF16 = 1 };
@@ -88,6 +90,27 @@ __device__ void block_md(float& m, float& d, float* sm, float* sd) {
   m = sm[0];
   d = sd[0];
   __syncthreads();
+}
+
+// ---- cp.async: 16-byte copies from global into shared memory -------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// src-size 0 (valid false) writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -8,7 +8,7 @@
 // Design: on the serving path R is the decode batch (4..8) and V = 49152, so
 //   one CTA per row would leave most of the 132 SMs idle.  Because ⊕ is
 //   associative the pass splits in two:
-//   * phase one, a grid of (S slices, R rows): each thread streams its
+//   * phase one, a grid of (R rows, S slices): each thread streams its
 //     strided share of one V-slice, keeping its own (m, d) and a sorted
 //     register list of its best KMAX (value, index) pairs; the block merges
 //     (m, d) by warp shuffles and shared memory, and picks the slice's top k
@@ -70,7 +70,8 @@ __device__ void block_best(float& v, int& i, float* sv, int* si) {
   __syncthreads();  // sv/si may be reused by the next call
 }
 
-// Phase one: grid (S, R).  part_md [R, S, 2], part_u / part_p [R, S, k].
+// Phase one: grid (R, S), rows on grid.x so any R < 2^31 fits.  part_md
+// [R, S, 2], part_u / part_p [R, S, k].
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(kThreads1)
     topk_partial_kernel(const T* __restrict__ x, int V, int k, int slice,
@@ -78,10 +79,11 @@ __global__ void __launch_bounds__(kThreads1)
                         int* __restrict__ part_p) {
   __shared__ float sv[32], sm[32], sd[32];
   __shared__ int si[32];
-  const int s = blockIdx.x, r = blockIdx.y, S = gridDim.x;
+  const size_t r = blockIdx.x;
+  const int s = blockIdx.y, S = gridDim.y;
   const int lo = s * slice;
   const int hi = min(V, lo + slice);
-  const T* row = x + static_cast<size_t>(r) * V;
+  const T* row = x + r * V;
 
   float m = REPRO_NEG_INF, d = 0.f;
   float u[KMAX];
@@ -124,7 +126,7 @@ __global__ void __launch_bounds__(kThreads1)
   }
 
   block_md(m, d, sm, sd);
-  const size_t part = static_cast<size_t>(r) * S + s;
+  const size_t part = r * S + s;
   if (threadIdx.x == 0) {
     part_md[2 * part] = m;
     part_md[2 * part + 1] = d;
@@ -151,7 +153,8 @@ __global__ void __launch_bounds__(kThreads1)
   }
 }
 
-// Phase two: one CTA per row; dynamic shared memory holds the S*k candidates.
+// Phase two: one CTA per row (grid.x); dynamic shared memory holds the S*k
+// candidates.
 template <typename T>
 __global__ void __launch_bounds__(kThreads2)
     topk_merge_kernel(int S, int k, const float* __restrict__ part_md,
@@ -161,20 +164,20 @@ __global__ void __launch_bounds__(kThreads2)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float sv[32], sm[32], sd[32];
   __shared__ int si[32];
-  const int r = blockIdx.x;
+  const size_t r = blockIdx.x;
   const int n = S * k;
   float* cu = reinterpret_cast<float*>(smem_raw);
   int* cp = reinterpret_cast<int*>(cu + n);
 
   float m = REPRO_NEG_INF, d = 0.f;
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const size_t part = static_cast<size_t>(r) * S + s;
+    const size_t part = r * S + s;
     md_combine(m, d, part_md[2 * part], part_md[2 * part + 1]);
   }
   block_md(m, d, sm, sd);
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    cu[j] = part_u[static_cast<size_t>(r) * n + j];
-    cp[j] = part_p[static_cast<size_t>(r) * n + j];
+    cu[j] = part_u[r * n + j];
+    cp[j] = part_p[r * n + j];
   }
   __syncthreads();
   for (int t = 0; t < k; ++t) {
@@ -192,8 +195,8 @@ __global__ void __launch_bounds__(kThreads2)
     block_best(bv, bi, sv, si);
     if (bpos >= 0 && mine_v == bv && mine_i == bi) cp[bpos] = -1;  // taken
     if (threadIdx.x == 0) {
-      vals[static_cast<size_t>(r) * k + t] = from_f32<T>(expf(bv - m) / d);
-      idx[static_cast<size_t>(r) * k + t] = bi;
+      vals[r * k + t] = from_f32<T>(expf(bv - m) / d);
+      idx[r * k + t] = bi;
     }
     __syncthreads();
   }
@@ -208,7 +211,7 @@ cudaError_t launch(const void* x, int R, int V, int k, int slice, void* vals,
   float* part_md = static_cast<float*>(part_f);
   float* part_u = part_md + static_cast<size_t>(R) * S * 2;
   int* part_p = static_cast<int*>(part_i);
-  topk_partial_kernel<T, KMAX><<<dim3(S, R), kThreads1, 0, stream>>>(
+  topk_partial_kernel<T, KMAX><<<dim3(R, S), kThreads1, 0, stream>>>(
       static_cast<const T*>(x), V, k, slice, part_md, part_u, part_p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -235,7 +238,7 @@ cudaError_t launch_k(const void* x, int R, int V, int k, int slice, void* vals,
 
 }  // namespace
 
-// x [R, V] contiguous (dtype code), 1 <= k <= 32; vals [R, k] (x's dtype),
+// x [R, V] contiguous (dtype code), any R >= 1, 1 <= k <= 32; vals [R, k] (x's dtype),
 // idx [R, k] int32, lse [R] float32; part_f holds R*S*(2+k) floats and
 // part_i R*S*k ints, S = ceil(V / slice).  Returns cudaGetLastError().
 extern "C" int softmax_topk_launch(const void* x, int dtype, int R, int V,

@@ -1,8 +1,10 @@
-// Hopper tensor-core machinery of the bf16 fresh-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): cp.async copies into
-// 128-byte-swizzled shared-memory tiles, the wgmma shared-memory descriptor,
-// the m64n64k16 bf16 products with the fp32 accumulator in registers, and
-// the accumulator-fragment-to-(row, column) map.
+// Hopper tensor-core machinery of the bf16 attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_offset.cu):
+// cp.async copies into 128-byte-swizzled shared-memory tiles, the wgmma
+// shared-memory descriptor, the m64n64k16 bf16 products with the fp32
+// accumulator in registers, the accumulator-fragment-to-(row, column) map,
+// and the forward's tile loop (attend), which the fresh and the cached-prefill
+// forward kernels share.
 //
 // Tiles.  Every operand tile is [64 rows][64 bf16] (a row of head_dim 64 is
 // 128 bytes): 8 KB, 1024-byte aligned, with 16-byte chunk c of row r stored
@@ -38,9 +40,7 @@ constexpr int kD = 64;                    // head_dim, 128 bytes of bf16
 constexpr int kThreads = 128;             // one warpgroup
 constexpr uint32_t kTileBytes = kRows * kD * 2;   // 8 KB
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using ::smem_addr;
 
 // The first 1024-byte boundary at or after the dynamic shared memory's start
 // (the launcher asks for 1 KB more than the tiles need).
@@ -48,22 +48,10 @@ __device__ __forceinline__ uint32_t aligned_base(const void* smem) {
   return (smem_addr(smem) + 1023u) & ~1023u;
 }
 
-// ---- copies ----------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  // src-size 0 writes 16 zero bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// ---- copies (cp.async helpers of common.cuh) -------------------------------
+using ::cp_async16;
+using ::cp_async_commit;
+using ::cp_async_wait_all;
 
 // Make this thread's generic-proxy writes (cp.async) visible to the async
 // proxy wgmma reads shared memory through; the CTA barrier that follows
@@ -216,6 +204,133 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// ---- the forward's tile loop -------------------------------------------------
+// Dynamic shared memory of attend: Q, then two stages of (K, V), and the 1 KB
+// the base is aligned up by.
+constexpr int kAttendSmem = 5 * kTileBytes + 1024;
+
+// Query rows [i0, i0 + 64) of one (query head, batch row) against keys
+// [0, L) of its KV head, by one warpgroup, query row i at absolute position
+// qo + i.  qb: the head's row 0 of q (rows qstride apart), ob the same of
+// out; lb: its row 0 of lse (rows 1 apart); kb, vb: its KV head's position
+// 0 (positions ss apart).  Q's tile is copied once; K and V tiles of 64 keys
+// stream through a two-stage cp.async ring, so the copy of tile j + 1
+// overlaps the products of tile j.  Per tile: S = Q·Kᵀ (four wgmma
+// m64n64k16, fp32 accumulators in registers); the online (m, d) update in
+// the accumulator layout: a row's max from its thread's 16 scores and two
+// quad shuffles, each exponential taken once as exp2f with scale·log2(e)
+// folded in, the rescale guard of common.cuh (m_old == m_new gives 1, so
+// -inf/-inf gives no NaN), and d kept as per-thread partial sums,
+// quad-reduced once at the end; then O += P·V with P converted to bf16 in
+// registers as wgmma's register A operand and V read MN-major.  The tile
+// loop stops at min(ceil(L / 64), (qo + last row) / 64 + 1) when causal;
+// only tiles that cross L or the diagonal (k_pos <= qo + i) are masked.
+// Keys at or past L are zero-filled without being read and score -inf;
+// query rows past Tq are zero-filled and not written.  Epilogue: out = O / d
+// in bf16, lse = m + log d; a row with no valid key gives 0 and -inf.
+__device__ __forceinline__ void attend(
+    const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ kb,
+    const __nv_bfloat16* __restrict__ vb, __nv_bfloat16* __restrict__ ob,
+    float* __restrict__ lb, size_t qstride, long long ss, int i0, int Tq,
+    int qo, int L, float scale, int causal, unsigned char* tiles) {
+  const uint32_t sq = aligned_base(tiles);
+  const uint32_t skv = sq + kTileBytes;  // stage s: K, then V
+  constexpr int R = kRows;
+
+  int nk = (L + R - 1) / R;
+  if (causal) nk = min(nk, (qo + min(i0 + R, Tq) - 1) / R + 1);
+
+  load_tile(sq, qb + i0 * qstride, qstride, Tq - i0);
+  load_tile(skv, kb, ss, L);
+  load_tile(skv + kTileBytes, vb, ss, L);
+  cp_async_commit();
+
+  const float sl2 = scale * 1.4426950408889634f;  // scale · log2(e)
+  float o[32], s[32];
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.f;
+  const int row0 = frag_row(0);  // this thread's rows: row0, row0 + 8
+
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile j landed; every thread is done with tile j - 1
+    if (j + 1 < nk) {
+      const uint32_t nxt = skv + ((j + 1) & 1) * 2 * kTileBytes;
+      const int k0 = (j + 1) * R;
+      load_tile(nxt, kb + k0 * ss, ss, L - k0);
+      load_tile(nxt + kTileBytes, vb + k0 * ss, ss, L - k0);
+    }
+    cp_async_commit();
+    const uint32_t ks = skv + (j & 1) * 2 * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+
+    fence_acc(s);
+    fence();
+    gemm_k(s, sq, ks);  // S = Q·Kᵀ
+    commit();
+    wait_all();
+    fence_acc(s);
+
+    const int k0 = j * R;
+    if (k0 + R > L || (causal && k0 + R - 1 > qo + i0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = k0 + frag_col(i), qp = qo + i0 + frag_row(i);
+        if (kp >= L || (causal && kp > qp)) s[i] = REPRO_NEG_INF;
+      }
+    }
+    // one ⊕ step of Algorithm 3 per row, in scaled log2 units
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1],
+                                                         s[i]);
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = m[r] == mx[r] ? 1.f : exp2f((m[r] - mx[r]) * sl2);
+      m[r] = mx[r];
+      ms[r] = mx[r] == REPRO_NEG_INF ? 0.f : mx[r] * sl2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f(fmaf(s[i], sl2, -ms[r]));  // -inf scores give 0
+      l[r] += s[i];
+      o[i] *= alpha[r];
+    }
+    uint32_t p[4][4];
+    to_frag(s, p);
+    fence_acc(o);
+    fence();
+    gemm_rs(o, p, vs);  // O += P·V
+    commit();
+    wait_all();
+    fence_acc(o);
+  }
+  cp_async_wait_all();  // no copy outlives the CTA (nk == 0 issues some)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float d = quad_sum(l[r]);
+    const int i = i0 + row0 + 8 * r;
+    if (i >= Tq) continue;
+    const float inv = 1.f / fmaxf(d, 1e-30f);
+    __nv_bfloat16* orow = ob + i * qstride;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int c = frag_col(4 * n);
+      *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+          o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    }
+    if ((threadIdx.x & 3) == 0)
+      lb[i] = d > 0.f ? m[r] * scale + logf(d) : REPRO_NEG_INF;
+  }
 }
 
 }  // namespace wg

@@ -22,11 +22,17 @@ KV pool or a contiguous KV cache.
   the int8 form (an int8 prefill attends over its exact K/V through the
   contiguous kernel); it serves ``paged_flash_attention``'s int8 callers.
 * ``flash_attention_offset`` replaces ``flash_attention_offset_pallas`` (the
-  ``pallas_call`` at line 260): a prefill chunk of the slot pool, or the
-  lockstep prefill, at per-row ``q_offset`` against a contiguous cache.  The
-  kernel reads the cache in the model layout through its strides and masks
-  the ragged edge itself; the reference's ``ops._flash_offset`` transposed q,
-  k and v and padded the cache to a tile multiple first.
+  ``pallas_call`` at line 260): a prefill chunk of the slot pool, the
+  lockstep prefill or an int8 run's single-shot prefill, at per-row
+  ``q_offset`` against a contiguous cache.  The kernel reads the cache in
+  the model layout through its strides and masks the ragged edge itself;
+  the reference's ``ops._flash_offset`` transposed q, k and v and padded
+  the cache to a tile multiple first.  The kernel's form follows the dtype
+  alone, as the fresh forward's does: bf16 runs on the tensor cores (wgmma,
+  the fresh forward's tile loop), fp32 on CUDA cores
+  (``csrc/flash_attention_offset.cu``).  The tensor-core form is the faster
+  at every chunk width measured, one query row included (PERF.md), so no
+  width threshold is kept.
 
 Layouts keep the model's: q [B, Tq, Hq, D] in, out [B, Tq, Hq, D];
 pools [P, Hkv, BS, D] with block_tables [B, M] int32, or k, v
@@ -57,20 +63,27 @@ launches = {"flash_attention_paged": 0, "flash_attention_offset": 0,
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_OFFSET_ARGTYPES = [_C] * 7 + [_I] * 6 + [_L] * 3 + [ctypes.c_float, _I, _C]
 _ARGTYPES = {
     "flash_attention_paged": [_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
                               _I, _I, _I, _I, ctypes.c_float, _I, _C],
-    "flash_attention_offset": [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I,
-                               _I, _I, _L, _L, _L, ctypes.c_float, _I, _C],
+    "flash_attention_offset": _OFFSET_ARGTYPES,
     "flash_attention": [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                         _L, ctypes.c_float, _I, _C],
     "flash_attention_paged_int8": [_C] * 10 + [_I] * 8 + [_L] * 3
     + [ctypes.c_float, _I, _C],
+    "flash_attention_offset_wgmma": _OFFSET_ARGTYPES,
 }
-# launch name → (its C entry point, the source whose library holds it)
-_ENTRY = {"flash_attention": ("flash_attention_fwd", "flash_attention_fwd"),
+# launch name → (its C entry point, the source whose library holds it, the
+# kernel whose launches it counts)
+_ENTRY = {"flash_attention": ("flash_attention_fwd", "flash_attention_fwd",
+                              "flash_attention"),
           "flash_attention_paged_int8": ("flash_attention_paged_int8",
-                                         "flash_attention_paged")}
+                                         "flash_attention_paged",
+                                         "flash_attention_paged_int8"),
+          "flash_attention_offset_wgmma": ("flash_attention_offset_wgmma",
+                                           "flash_attention_offset",
+                                           "flash_attention_offset")}
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -178,31 +191,36 @@ def prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
 def prepare(q, k, v, q_offset, kv_valid_len, *, causal: bool = True):
     """Validate CUDA operands of the contiguous kernel and allocate the
     outputs.  k, v [B, Tk, Hkv, D] are passed by their strides (the last
-    must be 1, and K and V must share them), never copied or padded.
-    Returns (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]));
-    :func:`launch` fills them."""
+    must be 1, and K and V must share them), never copied or padded.  bf16
+    launches the tensor-core form, which raises on operands that are not
+    16-byte aligned or K/V strides that are not multiples of 8; fp32 the
+    CUDA-core form.  Returns (launch arguments, (out [B, Tq, Hq, D], lse
+    [B, Hq, Tq])); :func:`launch` fills them."""
     if k.dim() != 4:
         raise ValueError(f"flash_attention_offset kernel: k {tuple(k.shape)} "
                          "is not [B, Tk, Hkv, D]")
     tk, hkv = k.shape[1], k.shape[2]
     b, tq, hq, dh = _check("flash_attention_offset", q, k, v, hkv)
     sb, ss, sh = _kv_strides("flash_attention_offset", k, v, b)
-    code = build.dtype_code(q)
+    build.dtype_code(q)                 # raises on another dtype
     qc = q.contiguous()
     out = torch.empty_like(qc)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    args = ("flash_attention_offset", qc, k, v, _rows(q_offset, q, b),
-            _rows(kv_valid_len, q, b), out, lse, code, b, tq, hq, hkv, tk, dh,
-            sb, ss, sh, float(dh ** -0.5), int(bool(causal)))
-    return args, (out, lse)
+    name = "flash_attention_offset"
+    if q.dtype == torch.bfloat16:
+        _bwd.check_wgmma_operands(name, (qc, k, v), (sb, ss, sh))
+        name = "flash_attention_offset_wgmma"
+    return (name, qc, k, v, _rows(q_offset, q, b), _rows(kv_valid_len, q, b),
+            out, lse, b, tq, hq, hkv, tk, dh, sb, ss, sh, float(dh ** -0.5),
+            int(bool(causal))), (out, lse)
 
 
 def launch(args) -> None:
     """Launch a prepared kernel (counts one launch of it)."""
     name = args[0]
-    entry, source = _ENTRY.get(name, (name, name))
+    entry, source, counted = _ENTRY.get(name, (name, name, name))
     build.call(entry, _ARGTYPES[name], args[1:], source=source)
-    launches[name] += 1
+    launches[counted] += 1
 
 
 def flash_attention_paged(q, k_pool, v_pool, q_offset, kv_valid_len,

@@ -38,7 +38,8 @@ def prepare(x: torch.Tensor, k: int):
     """Validate a CUDA tensor x [..., V] (float32 or bfloat16) and allocate
     the outputs and scratch.  Returns (launch arguments, SoftmaxTopK of the
     outputs); :func:`launch` fills them.  Raises on another device, dtype,
-    on k > 32 or a shape past the kernel's limits."""
+    on k > 32 or more V-slices than phase two's shared memory holds; any
+    number of rows works (rows lie on grid.x)."""
     if x.device.type != "cuda":
         raise ValueError(f"softmax_topk kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -52,9 +53,9 @@ def prepare(x: torch.Tensor, k: int):
     x2 = x.reshape(-1, v).contiguous()
     r = x2.shape[0]
     s = -(-v // SLICE)
-    if r > 65535 or s * k > _MAX_CANDIDATES:
+    if s * k > _MAX_CANDIDATES:
         raise ValueError(f"softmax_topk kernel: shape {tuple(x.shape)} with "
-                         f"k={k} exceeds its grid or shared-memory limits")
+                         f"k={k} exceeds its shared-memory limit")
     vals = torch.empty((r, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((r, k), dtype=torch.int32, device=x.device)
     lse = torch.empty((r,), dtype=torch.float32, device=x.device)

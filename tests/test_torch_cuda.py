@@ -616,3 +616,81 @@ def test_entry_point_gradients_on_card(cuda):
     counts = dispatch.launch_counts()
     assert counts["softmax_topk"] == counts["online_softmax"] == 1
     assert counts["online_normalizer"] == 1 and sum(counts.values()) == 3
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_offset_kernel_at_new_shapes(cuda, dtype, atol):
+    """The contiguous cached prefill in its dtype's form (bf16: the
+    tensor-core form; fp32: the CUDA-core form) at an int8 run's
+    single-shot widths (Tq = Tk = 80, 272), offsets off the 64-row tile,
+    Tq 65 and 130, and a keyless row, K/V NaN at and past each vlen; one
+    counted launch a call."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda, dtype=dtype)
+    cases = [([0], [80], 80, 80), ([0], [272], 272, 272),
+             ([100], [164], 64, 328), ([37, 100], [102, 165], 65, 300),
+             ([3, 150], [133, 280], 130, 300), ([0, 5, 13], [37, 42, 0], 37,
+                                                 64)]
+    for i, (qoff, vlens, tq, s) in enumerate(cases):
+        q, kv_nan, kv0, vlen = _contiguous(40 + i, b=len(vlens), s=s, tq=tq,
+                                           vlens=vlens)
+        qo = torch.tensor(qoff, dtype=torch.int32, device=cuda)
+        out, lse = fa.flash_attention_offset(
+            q.to(**dev), *(t.to(**dev) for t in kv_nan), qo, vlen.to(cuda))
+        w_out, w_lse = fa.flash_attention_offset_plain(
+            q.to(**dev), *(t.to(**dev) for t in kv0), qo, vlen.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), (qoff, vlens, tq)
+        assert (out.float() - w_out.float()).abs().max().item() <= atol
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+        fin = torch.isfinite(w_lse)
+        assert (lse[fin] - w_lse[fin]).abs().max().item() <= max(atol, 1e-4)
+        if 0 in vlens:
+            assert torch.isneginf(lse[vlens.index(0)]).all()
+    assert dispatch.launch_counts()["flash_attention_offset"] == len(cases)
+
+
+def test_online_softmax_designs_match_plain(cuda):
+    """The online softmax in every form and the normalizer at V on both
+    sides of the row-resident limit, a row streaming in three slices, V =
+    1001 and 4097, rows starting off a
+    16-byte boundary (fp32 and bf16) and 70000 rows, against the plain
+    versions on the CPU; then ``dispatch.softmax_topk`` over 70000 rows
+    against its plain version."""
+    from repro_torch.core import softmax_forms as sf
+    from repro_torch.kernels import online_softmax as osk
+    limit = osk.RESIDENT_ROW_BYTES // 4
+    # [3, 140000] streams in 3 slices, the first wholly -inf in row 0
+    shapes = ((3, limit, torch.float32, 0), (3, limit + 1, torch.float32, 0),
+              (3, 140000, torch.float32, 0),
+              (5, 1001, torch.float32, 1), (5, 4097, torch.float32, 3),
+              (5, 1001, torch.bfloat16, 1), (70000, 1000, torch.float32, 0))
+    for i, (r, v, dtype, start) in enumerate(shapes):
+        x0 = _library_input(50 + i, r, v, dtype, cuda)
+        buf = torch.empty(r * v + start, dtype=dtype, device=cuda)
+        x = buf[start:].view(r, v).copy_(x0)
+        assert (x.data_ptr() % 16 != 0) == (start != 0)
+        rows = list(range(3)) + list(range(3, r, max(1, r // 20)))
+        xc = x[rows].cpu()
+        ref = osk.online_softmax_plain(xc.float())
+        for form in ("exact", "bf16", "exp2"):
+            y = osk.online_softmax(x, form)
+            torch.cuda.synchronize()
+            err = (y[rows].cpu().float() - ref).abs()
+            bound = osk.kernel_error_bound(xc, form)
+            assert (err <= bound * ref + 1e-30).all(), (r, v, form)
+            assert (y[torch.isneginf(x)] == 0).all()
+        m, d = osk.online_normalizer(x)
+        pm, pd = osk.online_normalizer_plain(xc)
+        assert torch.equal(m[rows].cpu(), pm)
+        live = pd > 0
+        rel = ((d[rows].cpu() - pd).abs()[live] / pd[live]).max().item()
+        assert rel <= sf.exact_error_bound(xc)
+        assert d[1].item() == 0.0 and torch.isneginf(m[1])
+    x = torch.randn(70000, 1000, generator=torch.Generator().manual_seed(
+        59)).mul(4.0).to(cuda)
+    got, want = dispatch.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.indices.long(), want.indices)
+    assert torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0)

@@ -212,13 +212,15 @@ def test_int8_roundtrip_bound_matches_reference():
 
 @pytest.mark.parametrize("v", [1000, 2048, 10000, 49152, 100000])
 def test_bf16_kernel_bound_is_non_vacuous(v):
-    """The bf16 kernel's merge-tree bound prices every V of the paper and
-    of smollm-360m's vocabulary; where the reference's sequential-scan
-    bound prices V too, the kernel's tree needs fewer roundings."""
-    bound = osk.bf16_kernel_error_bound(v)
-    assert 0 < bound < 0.25
-    if v <= 2048:
-        assert bound <= sf.bf16_error_bound(np.zeros((1, v)))
+    """The bf16 kernel's merge-tree bound, for the design ``plan`` picks
+    for fp32 and for bf16 rows of V, prices every V of the paper and of
+    smollm-360m's vocabulary; where the reference's sequential-scan bound
+    prices V too, the kernel's tree needs fewer roundings."""
+    for dtype in (torch.float32, torch.bfloat16):
+        bound = osk.bf16_kernel_error_bound(v, dtype)
+        assert 0 < bound < 0.25
+        if v <= 2048:
+            assert bound <= sf.bf16_error_bound(np.zeros((1, v)))
 
 
 # ---------------------------------------------------------------------------
