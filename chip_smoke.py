@@ -13,7 +13,9 @@ printing its final line:
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a; the int8 forms build from the same sources), with the build
    time and, per kernel, ptxas's registers, spills and static shared
-   memory (and the dynamic shared memory of the three wgmma kernels);
+   memory (and the dynamic shared memory of the wgmma kernels, and the
+   one-token decode's split plan and dynamic shared memory at each serving
+   path's shape);
 3. kernels against their plain PyTorch versions at the serving and
    training paths' shapes (fused softmax+top-k; paged decode; paged
    prefill, with edge cases and the 64-token chunks after long cached
@@ -31,7 +33,11 @@ printing its final line:
    and bf16 scales from the port's ``_quantize_kv``; fp32 and bf16; every
    dead table entry, every cache position at or past a row's valid length
    and every K/V row past T poisoned with NaN, for the int8 forms in the
-   scales, with ±127 in the payload);
+   scales, with ±127 in the payload); then the split decode's edges in its
+   four forms (paged and contiguous, fp and int8 K/V), fp32 and bf16: rows
+   at vlen 0, 1, every split edge ± 1 and the full M·BS or S, one row for
+   every count of live splits, everything past vlen poisoned, vlen 0 giving
+   exactly 0, and a second call bit-equal to the first;
 4. serve: smollm-360m at full width in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
    counts set to 0 just before it and read just after: ``Engine`` with the
@@ -69,7 +75,8 @@ printing its final line:
    and an int8 single-shot prefill beside SDPA, with each call's device
    time too (events around launches queued behind a device
    sleep: the events of a small kernel's back-to-back launches time the
-   host's launch path); then
+   host's launch path), also for rows 1-4 and the int8 decodes, and
+   SDPA's beside row 4; then
    full-width decode steps and prefill chunks of the paged pool
    and the slot pool, their int8 decode steps, and a full-width train step,
    end to end, against the device's busy time inside them (torch.profiler);
@@ -306,6 +313,31 @@ def phase_build() -> None:
                   f"{info['smem']} bytes static smem, spill stores "
                   f"{info['spill_stores']} / loads {info['spill_loads']} "
                   f"bytes{extra}")
+    _print_decode_plans()
+
+
+# the one-token decode's plans at the serving paths' shapes: (what, B, M·BS
+# or S, page, K/V dtype); 5 KV heads of 3 query heads, D 64
+DECODE_PLANS = (("paged, bf16 pool", 8, 21 * 16, 16, "bfloat16"),
+                ("paged, int8 pool", 8, 21 * 16, 16, "int8"),
+                ("slot pool, bf16 caches", 8, 328, 16, "bfloat16"),
+                ("slot pool, int8 caches", 8, 328, 16, "int8"),
+                ("lockstep, bf16 caches", 4, 288, 16, "bfloat16"))
+
+
+def _print_decode_plans() -> None:
+    """The split decode kernels' dynamic shared memory depends on the
+    split the wrapper plans: print the plan at each serving path's shape."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    sms = fd.sm_count(torch.device("cuda"))
+    for what, b, max_len, page, dtype in DECODE_PLANS:
+        p = fd.decode_plan(b, 5, 3, 64, max_len, page, getattr(torch, dtype),
+                           sms)
+        print(f"  decode plan {what} [B={b}, {max_len} positions, {sms} "
+              f"SMs]: split {p.split} x {p.splits} ({b * 5 * p.splits} "
+              f"CTAs of {p.threads} threads), {p.smem} bytes dynamic smem a "
+              f"split CTA, {4 * p.workspace} bytes of partials")
 
 
 # the tensor-core kernels and the C function giving each one's dynamic
@@ -962,16 +994,169 @@ def _int8_contiguous_inputs(gen, *, s, vlens, hkv=5, d=64):
     return tuple(_layer_view(x.cuda()) for x in kern + plain)
 
 
+def _split_edges(plan, max_len: int, b: int, gen) -> list:
+    """Valid lengths for ``b`` rows: 0, 1, every split edge k·split and its
+    neighbours ±1, and the full ``max_len`` (so one row for every count of
+    live splits), the rest drawn at random."""
+    import torch
+    edges = [0, 1]
+    for k in range(1, plan.splits):
+        edges += [k * plan.split - 1, k * plan.split, k * plan.split + 1]
+    edges.append(max_len)
+    if {plan.live(v, max_len) for v in edges} != set(range(plan.splits + 1)):
+        _fail(f"split edges {edges} miss a count of live splits")
+    rest = torch.randint(2, max_len + 1, (b - len(edges),), generator=gen)
+    return edges + rest.tolist()
+
+
+def _split_plan(fd, hkv, max_len, unit, kv_dtype):
+    """The smallest batch (from 8) whose split edges fit one row each, and
+    the plan the wrapper makes for it on this card."""
+    import torch
+    dev = torch.device("cuda")
+    for b in range(8, 256):
+        plan = fd.decode_plan(b, hkv, 3, 64, max_len, unit, kv_dtype,
+                              fd.sm_count(dev))
+        if 3 * plan.splits <= b:
+            return b, plan
+    _fail(f"no batch fits the split edges of a {max_len}-position cache")
+
+
+def _poisoned_tails(pool, tables, vlens, bs):
+    """The kernel's and the plain version's copies of a paged pool: in the
+    kernel's, every position at or past a row's vlen inside its last live
+    block is NaN; in the plain version's, 0 (it masks them, but 0 · NaN is
+    NaN)."""
+    kern, plain = pool.clone(), pool.clone()
+    for row, n in enumerate(vlens):
+        for pos in range(n, -(-max(n, 1) // bs) * bs):
+            blk = int(tables[row, pos // bs])
+            if blk > 1:
+                kern[blk, :, pos % bs] = float("nan")
+                plain[blk, :, pos % bs] = 0.0
+    return kern, plain
+
+
+def _decode_split_inputs(gen, name, dtype, vlens, *, hkv, bs, m, s):
+    """(q, the kernel's operands, the plain version's, vlen) of one decode
+    form for rows of valid lengths ``vlens``; paged tables cut to ``m``
+    entries (every live one), contiguous caches of ``s`` positions."""
+    import torch
+    if name == "flash_decode_paged_int8":
+        q, kern, plain, tk, tp, vl = _int8_paged_inputs(
+            gen, dtype=dtype, bs=bs, vlens=vlens)
+        return (q, (*kern, tk[:, :m].contiguous()),
+                (*plain, tp[:, :m].contiguous()), vl)
+    if name == "flash_decode_paged":
+        q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=dtype, bs=bs,
+                                              vlens=vlens)
+        (kk, kpl), (vk, vpl) = (_poisoned_tails(x, tk, vlens, bs)
+                                for x in (kp, vp))
+        return (q, (kk, vk, tk[:, :m].contiguous()),
+                (kpl, vpl, tp[:, :m].contiguous()), vl)
+    vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+    if name == "flash_decode_int8":
+        cache = _int8_contiguous_inputs(gen, s=s, vlens=vlens, hkv=hkv)
+        q = torch.randn(len(vlens), 1, hkv * 3, 64, generator=gen).to(
+            device="cuda", dtype=dtype)
+        return q, cache[:4], cache[4:], vl
+    q, k, v, k0, v0 = _contiguous_inputs(gen, dtype=dtype, s=s, vlens=vlens)
+    return q, (k, v), (k0, v0), vl
+
+
+def _decode_call(fd, name, q, ops, vl, plain=False):
+    """One call of a decode form (or its plain version) on ``ops``: (k, v,
+    [k_scale, v_scale,] [tables])."""
+    paged = name.startswith("flash_decode_paged")
+    kv, rest = ops[:2], ops[2:]
+    tables = rest[-1:] if paged else ()
+    scales = rest[:2] if name.endswith("int8") else ()
+    kw = (dict(zip(("k_scale_pool", "v_scale_pool") if paged
+                   else ("k_scale", "v_scale"), scales)))
+    fn = {(True, False): fd.flash_decode_paged,
+          (True, True): fd.flash_decode_paged_plain,
+          (False, False): fd.flash_decode,
+          (False, True): fd.flash_decode_plain}[(paged, plain)]
+    return fn(q, *kv, *tables, vl, **kw)
+
+
+def _check_decode_splits(gen) -> dict:
+    """The split decode's edges in all four forms (paged and contiguous, fp
+    and int8 K/V), fp32 and bf16 q: rows at vlen 0, 1, every split edge ± 1
+    and the full M·BS (paged, BS 16, M 21) or S (328), one row for every
+    count of live splits, at the plan the wrapper makes; every dead table
+    entry and every position at or past vlen poisoned (NaN; int8 ±127 with
+    NaN scales); vlen 0 gives exactly 0; a second call on the same input is
+    bit-equal to the first; the profiler sees the form's split kernel (its
+    last live split of each row merges) and no other kernel of the port.
+    Returns the worst error per form, fp32 for the fp forms and bf16 for
+    the int8 forms (the JSON line's convention)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_decode as fd
+    hkv, bs, m, s = 5, 16, 21, 328
+    worst = {}
+    split_kernel = {"flash_decode_paged": "decode_paged_split_kernel",
+                    "flash_decode_paged_int8":
+                        "decode_paged_int8_split_kernel",
+                    "flash_decode": "decode_split_kernel",
+                    "flash_decode_int8": "decode_int8_split_kernel"}
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for name in ("flash_decode_paged", "flash_decode_paged_int8",
+                     "flash_decode", "flash_decode_int8"):
+            int8 = name.endswith("int8")
+            paged = name.startswith("flash_decode_paged")
+            max_len, unit = (m * bs, bs) if paged else (
+                s, fd.CONTIGUOUS_TILE)
+            b, plan = _split_plan(fd, hkv, max_len, unit,
+                                  torch.int8 if int8 else dtype)
+            vlens = _split_edges(plan, max_len, b, gen)
+            q, kern, plain, vl = _decode_split_inputs(
+                gen, name, dtype, vlens, hkv=hkv, bs=bs, m=m, s=s)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                got = _decode_call(fd, name, q, kern, vl)
+                torch.cuda.synchronize()
+            again = _decode_call(fd, name, q, kern, vl)
+            torch.cuda.synchronize()
+            seen = _kernels_seen(prof)
+            if seen != [split_kernel[name]]:
+                _fail(f"{name}: the profiler saw {seen}, not "
+                      f"{split_kernel[name]} alone")
+            want = _decode_call(fd, name, q, plain, vl, plain=True)
+            what = (f"{name} {str(dtype)[6:]} B={b} split {plan.split} x "
+                    f"{plan.splits}")
+            if not torch.isfinite(got).all():
+                _fail(f"{what}: non-finite output (a dead entry or a "
+                      "position at or past vlen was read)")
+            if not torch.equal(got, again):
+                _fail(f"{what}: two calls on the same input differ")
+            if got[0].abs().max().item() != 0.0:
+                _fail(f"{what}: vlen 0 gave a nonzero output")
+            err = (got.float() - want.float()).abs().max().item()
+            if err > atol:
+                _fail(f"{what}: max abs err {err:.3g} > {atol}")
+            if (dtype == torch.bfloat16) == int8:
+                worst[name] = err
+            print(f"kernel {what} ({seen[0]} seen by the profiler): vlen "
+                  f"0, 1, each split edge ± 1, {max_len}; "
+                  f"max abs err {err:.3g} (atol {atol}); a repeat "
+                  "bit-equal")
+    return worst
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator().manual_seed(0)
-    return {"softmax_topk": _check_softmax_topk(gen),
+    errs = {"softmax_topk": _check_softmax_topk(gen),
             "flash_decode_paged": _check_decode(gen),
             "flash_attention_paged": _check_prefill(gen),
             "flash_decode": _check_contiguous_decode(gen),
             "flash_attention_offset": _check_offset(gen),
             **_check_fresh(gen),
             **_check_int8(gen)}
+    for name, err in _check_decode_splits(gen).items():
+        errs[name] = max(errs[name], err)
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1452,13 +1637,14 @@ def _host_ms(fn, samples: int = 10, warmup: int = 2) -> float:
 
 
 PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
-                       "decode_paged_kernel", "prefill_paged_kernel",
-                       "decode_kernel", "prefill_offset_kernel",
+                       "decode_paged_split_kernel", "prefill_paged_kernel",
+                       "decode_split_kernel", "prefill_offset_kernel",
                        "offset_wgmma_kernel",
                        "fresh_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel",
                        "fresh_fwd_wgmma_kernel", "bwd_dq_wgmma_kernel",
                        "bwd_dkv_wgmma_kernel",
-                       "decode_paged_int8_kernel", "decode_int8_kernel",
+                       "decode_paged_int8_split_kernel",
+                       "decode_int8_split_kernel",
                        "prefill_paged_int8_kernel", "rows_kernel",
                        "md_slice_kernel", "md_merge_kernel",
                        "normalize_kernel")
@@ -1589,6 +1775,7 @@ def phase_times() -> dict:
                         "float32")
     rows["softmax_topk"] = {
         "ms": _ms(lambda: st.launch(args)),
+        "device_ms": _device_call_ms(lambda: st.launch(args)),
         "wrapper_ms": _ms(lambda: st.softmax_topk(x, 5)),
         "plain_ms": _ms(lambda: st.softmax_topk_plain(x, 5)),
         "library_ms": _ms(lambda: torch.topk(torch.softmax(x, -1), 5)),
@@ -1611,13 +1798,15 @@ def phase_times() -> dict:
               + sum(-(-n // 16) for n in vlens) * 4 + len(vlens) * 4)
     ops = 4.0 * hq * d * sum(vlens)
     args, _ = fd.prepare_paged(q, kp, vp, tk, vl)
+    plan = _plan_of(fd, q, kp, tk)
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
     rows["flash_decode_paged"] = {
         "ms": _ms(lambda: fd.launch(args)),
+        "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode_paged(q, kp, vp, tk, vl)),
         "plain_ms": _ms(lambda: fd.flash_decode_paged_plain(q, kp, vp, tp, vl)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B=8 Hq=15 Hkv=5 D=64 BS=16 bf16 vlen {vlens}"}
+        "shape": f"B=8 Hq=15 Hkv=5 D=64 BS=16 bf16 vlen {vlens}, {plan}"}
 
     # paged prefill: one 64-token chunk at offset 64 (the serving run's
     # chunk width), bf16
@@ -1633,6 +1822,7 @@ def phase_times() -> dict:
     b_ms, b_by = _bound(nbytes, 4.0 * hq * d * pairs, "bfloat16")
     rows["flash_attention_paged"] = {
         "ms": _ms(lambda: fa.launch(args)),
+        "device_ms": _device_call_ms(lambda: fa.launch(args)),
         "wrapper_ms": _ms(lambda: fa.flash_attention_paged(q, kp, vp, qo, vl,
                                                            tk)),
         "plain_ms": _ms(lambda: fa.flash_attention_paged_plain(q, kp, vp, qo,
@@ -1657,14 +1847,17 @@ def phase_times() -> dict:
     nbytes = (2 * q.numel() * esz + sum(vlens) * hkv * d * esz * 2
               + len(vlens) * 4)
     args, _ = fd.prepare(q, k, v, vl)
+    plan = _plan_of(fd, q, k)
     b_ms, b_by = _bound(nbytes, 4.0 * hq * d * sum(vlens), "bfloat16")
     rows["flash_decode"] = {
         "ms": _ms(lambda: fd.launch(args)),
+        "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode(q, k, v, vl)),
         "plain_ms": _ms(lambda: fd.flash_decode_plain(q, k, v, vl)),
         "library_ms": _ms(lambda: _sdpa(q, k, v, mask)),
+        "library_device_ms": _device_call_ms(lambda: _sdpa(q, k, v, mask)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 bf16 vlen {vlens}"}
+        "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 bf16 vlen {vlens}, {plan}"}
 
     # contiguous cached prefill: the slot pool's 64-token chunk at offset
     # 64 into a slot of 328, then (printed only) the lockstep prefill and an
@@ -1719,6 +1912,20 @@ def phase_times() -> dict:
               f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
               f"{row['plain_ms']:.4f}ms, library {lib}{extra}")
     return rows
+
+
+def _plan_of(fd, q, k, tables=None) -> str:
+    """The split a decode call on these operands launches with (the
+    wrapper's plan: paged pools with ``tables``, else contiguous caches)."""
+    b, _, hq, d = q.shape
+    if tables is not None:
+        hkv, unit = k.shape[1], k.shape[2]
+        max_len = tables.shape[1] * unit
+    else:
+        hkv, max_len, unit = k.shape[2], k.shape[1], fd.CONTIGUOUS_TILE
+    p = fd.decode_plan(b, hkv, hq // hkv, d, max_len, unit, k.dtype,
+                       fd.sm_count(q.device))
+    return f"split {p.split} x {p.splits}"
 
 
 def _device_call_ms(fn, samples: int = 20, inner: int = 10) -> float:
@@ -1900,16 +2107,18 @@ def _int8_kernel_times(gen) -> dict:
               + sum(-(-n // 16) for n in vlens) * 4 + len(vlens) * 4)
     ops = (4.0 * hq * d + 2.0 * hkv * d) * sum(vlens)
     args, _ = fd.prepare_paged(q, pl[0], pl[1], tp, vl, **kw)
+    plan = _plan_of(fd, q, pl[0], tp)
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
     rows["flash_decode_paged_int8"] = {
         "ms": _ms(lambda: fd.launch(args)),
+        "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode_paged(q, pl[0], pl[1], tp,
                                                         vl, **kw)),
         "plain_ms": _ms(lambda: fd.flash_decode_paged_plain(
             q, pl[0], pl[1], tp, vl, **kw)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"B=8 Hq=15 Hkv=5 D=64 BS=16 int8 K/V, bf16 q, vlen "
-                 f"{vlens}"}
+                 f"{vlens}, {plan}"}
 
     vlens = [328, 289, 250, 211, 172, 133, 94, 65]
     cache = _int8_contiguous_inputs(gen, s=328, vlens=vlens)[4:]
@@ -1926,16 +2135,18 @@ def _int8_kernel_times(gen) -> dict:
     nbytes = 2 * q.numel() * esz + kv_bytes(sum(vlens)) + len(vlens) * 4
     ops = (4.0 * hq * d + 2.0 * hkv * d) * sum(vlens)
     args, _ = fd.prepare(q, cache[0], cache[1], vl, **kw)
+    plan = _plan_of(fd, q, cache[0])
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
     rows["flash_decode_int8"] = {
         "ms": _ms(lambda: fd.launch(args)),
+        "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode(q, cache[0], cache[1], vl,
                                                   **kw)),
         "plain_ms": _ms(lambda: fd.flash_decode_plain(q, cache[0], cache[1],
                                                       vl, **kw)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 int8 K/V, bf16 q, vlen "
-                 f"{vlens}"}
+                 f"{vlens}, {plan}"}
 
     tq, qoff, vlen = 64, 64, 128
     q, _, pl, _, tp, vl = _int8_paged_inputs(gen, dtype=torch.bfloat16,

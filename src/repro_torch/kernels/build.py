@@ -11,7 +11,8 @@ nvcc's stderr; there is no fallback.
 
 :func:`call` passes tensors as their data pointers (``ctypes.c_void_p``
 arguments) and appends the current stream
-(``torch.cuda.current_stream().cuda_stream``); every C entry point returns
+(``current_stream``: the raw handle of PyTorch's current stream on the
+tensor's device); every C entry point returns
 ``cudaGetLastError()`` and :func:`check` raises on non-zero.
 """
 from __future__ import annotations
@@ -126,12 +127,24 @@ def call(name: str, argtypes: list, args, *,
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
     if dev.index == torch.cuda.current_device():
-        err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*c_args, current_stream(dev.index))
     else:
         with torch.cuda.device(dev):
-            err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
+            err = fn(*c_args, current_stream(dev.index))
     if err:
         check(library(key[0]), err, f"{name} kernel")
+
+
+def current_stream(index: int | None) -> int:
+    """The raw handle of PyTorch's current CUDA stream on device ``index``
+    (None: the current device): what ``torch.cuda.current_stream(index)
+    .cuda_stream`` gives, without building a ``Stream`` object, which costs
+    the host more than the rest of a launch (``tools/decode_times.py``
+    times both)."""
+    import torch
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -694,3 +694,125 @@ def test_online_softmax_designs_match_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got.indices.long(), want.indices)
     assert torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0)
+
+
+def _split_rows(cuda, max_len, unit, kv_dtype, seed):
+    """The smallest batch (from 8) whose plan's split edges fit a row each,
+    and its valid lengths: 0, 1, every split edge ± 1 and ``max_len`` (one
+    row for every count of live splits), the rest drawn at random."""
+    for b in range(8, 256):
+        plan = fd.decode_plan(b, 5, 3, 64, max_len, unit, kv_dtype,
+                              fd.sm_count(cuda))
+        if 3 * plan.splits <= b:
+            break
+    edges = [0, 1, max_len] + [k * plan.split + o
+                               for k in range(1, plan.splits)
+                               for o in (-1, 0, 1)]
+    rest = np.random.default_rng(seed).integers(2, max_len + 1,
+                                                b - len(edges))
+    return plan, edges + rest.tolist()
+
+
+def _poison_paged(kp, vp, tables, vlens, bs):
+    """The kernel's pools and table: one NaN block appended, every dead
+    table entry pointed at it, every position at or past vlen in a row's
+    last live block NaN; the plain version's: those positions 0."""
+    nan = torch.full_like(kp[:1], float("nan"))
+    kern = [torch.cat([x, nan]) for x in (kp, vp)]
+    plain = [kp.clone(), vp.clone()]
+    tk = tables.clone()
+    for row, n in enumerate(vlens):
+        live = -(-n // bs)
+        tk[row, live:] = kp.shape[0]
+        for pos in range(n, live * bs):
+            blk = int(tables[row, pos // bs])
+            for x in kern:
+                x[blk, :, pos % bs] = float("nan")
+            for x in plain:
+                x[blk, :, pos % bs] = 0.0
+    return kern, plain, tk
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_decode_split_edges(cuda, dtype, atol):
+    """The split decode in its four forms (paged and contiguous, fp and
+    int8 K/V) at valid lengths 0, 1, every split edge ± 1 and the full
+    M·BS / S of the plan the wrapper makes on this card, every dead table
+    entry and every position at or past vlen poisoned (NaN; int8 ±127 with
+    NaN scales): finite, within ``atol`` of the plain version, exactly 0
+    where vlen is 0, and a second call bit-equal to the first."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda)
+    m, bs, s = 10, 16, 150
+    results = {}
+
+    def check(name, call, want):
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), name
+        assert torch.equal(got, again), name             # bit-identical
+        assert (got.float() - want.float()).abs().max().item() <= atol, name
+        results[name] = got
+
+    plan, vlens = _split_rows(cuda, m * bs, bs, dtype, 70)
+    q, kp, vp, tables, vlen = _paged(71, vlens=vlens, tq=1)
+    kern, plain, tk = _poison_paged(kp, vp, tables[:, :m], vlens, bs)
+    q, vlen = q.to(dtype=dtype, **dev), vlen.to(cuda)
+    kern = [x.to(dtype=dtype, **dev) for x in kern]
+    plain = [x.to(dtype=dtype, **dev) for x in plain]
+    check("paged", lambda: fd.flash_decode_paged(q, *kern, tk.to(cuda), vlen),
+          fd.flash_decode_paged_plain(q, *plain, tables[:, :m].to(cuda),
+                                      vlen))
+    assert results["paged"][vlens.index(0)].abs().max().item() == 0.0
+
+    plan, vlens = _split_rows(cuda, m * bs, bs, torch.int8, 72)
+    q, k8, p8, tk8, tp8, vlen = _int8_paged(73, vlens=vlens, tq=1)
+    q, vlen = q.to(dtype=dtype, **dev), vlen.to(cuda)
+    k8, p8 = [x.to(**dev) for x in k8], [x.to(**dev) for x in p8]
+    tk8, tp8 = (t[:, :m].contiguous().to(cuda) for t in (tk8, tp8))
+    check("paged int8",
+          lambda: fd.flash_decode_paged(q, k8[0], k8[1], tk8, vlen,
+                                        k_scale_pool=k8[2],
+                                        v_scale_pool=k8[3]),
+          fd.flash_decode_paged_plain(q, p8[0], p8[1], tp8, vlen,
+                                      k_scale_pool=p8[2], v_scale_pool=p8[3]))
+
+    plan, vlens = _split_rows(cuda, s, fd.CONTIGUOUS_TILE, dtype, 74)
+    q, kv_nan, kv0, vlen = _contiguous(75, b=len(vlens), s=s, tq=1,
+                                       vlens=vlens)
+    q, vlen = q.to(dtype=dtype, **dev), vlen.to(cuda)
+    kv_nan = [x.to(dtype=dtype, **dev) for x in kv_nan]
+    kv0 = [x.to(dtype=dtype, **dev) for x in kv0]
+    check("contiguous", lambda: fd.flash_decode(q, *kv_nan, vlen),
+          fd.flash_decode_plain(q, *kv0, vlen))
+    assert results["contiguous"][vlens.index(0)].abs().max().item() == 0.0
+
+    plan, vlens = _split_rows(cuda, s, fd.CONTIGUOUS_TILE, torch.int8, 76)
+    gen = torch.Generator().manual_seed(77)
+    b = len(vlens)
+    k8, ks = layers._quantize_kv(torch.randn(b, s, 5, 64, generator=gen))
+    v8, vs = layers._quantize_kv(torch.randn(b, s, 5, 64, generator=gen))
+    dead = torch.arange(s)[None, :] >= torch.tensor(vlens)[:, None]
+    kk, vv = k8.clone(), v8.clone()
+    kk[dead], vv[dead] = 127, -127
+    kern = [x.to(cuda) for x in (kk, vv, ks.masked_fill(dead[..., None],
+                                                        float("nan")),
+                                 vs.masked_fill(dead[..., None],
+                                                float("nan")))]
+    plain = [x.to(cuda) for x in (k8, v8, ks.masked_fill(dead[..., None], 0),
+                                  vs.masked_fill(dead[..., None], 0))]
+    q = torch.randn(b, 1, 15, 64, generator=gen).to(dtype=dtype, **dev)
+    vlen = torch.tensor(vlens, dtype=torch.int32, device=cuda)
+    check("contiguous int8",
+          lambda: fd.flash_decode(q, kern[0], kern[1], vlen,
+                                  k_scale=kern[2], v_scale=kern[3]),
+          fd.flash_decode_plain(q, plain[0], plain[1], vlen,
+                                k_scale=plain[2], v_scale=plain[3]))
+    assert results["contiguous int8"][0].abs().max().item() == 0.0
+    counts = dispatch.launch_counts()
+    assert {k: counts[k] for k in ("flash_decode_paged", "flash_decode",
+                                   *NO_INT8)} == {
+        "flash_decode_paged": 2, "flash_decode": 2,
+        "flash_decode_paged_int8": 2, "flash_decode_int8": 2,
+        "flash_attention_paged_int8": 0}
