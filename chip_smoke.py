@@ -13,13 +13,23 @@ printing its final line:
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a; the int8 forms build from the same sources), with the build
    time and, per kernel, ptxas's registers, spills and static shared
-   memory (and the dynamic shared memory of the wgmma kernels, and the
+   memory (and the dynamic shared memory of the wgmma kernels, the
    one-token decode's split plan and dynamic shared memory at each serving
-   path's shape);
+   path's shape, the fused softmax+top-k's plan at each sampling shape and
+   phase 9's largest calls, and the paged prefill's grid at the serving
+   chunk);
 3. kernels against their plain PyTorch versions at the serving and
-   training paths' shapes (fused softmax+top-k; paged decode; paged
-   prefill, with edge cases and the 64-token chunks after long cached
-   prefixes; contiguous decode over ragged slots; contiguous cached prefill
+   training paths' shapes (fused softmax+top-k at the decode batch's
+   logits, k = 1, 5 and 32, fp32 and bf16, with exact ties across the
+   plan's slice edges, an all -inf slice, a padded vocabulary and a constant
+   row, a repeat bit-equal and one kernel launch a call seen by the
+   profiler, then 70000 rows in one CTA a row; paged decode; paged prefill
+   at pages of 8, 16 and 32 over shuffled tables, with edge cases, the
+   64-token chunks after long cached prefixes, Tq 65 and 130, offsets off
+   the 64-key tile and a vlen ending mid-page in the second key tile, each
+   dtype's form named from the kernels the profiler saw (bf16 on the tensor
+   cores, fp32 on the CUDA cores); contiguous decode over ragged slots;
+   contiguous cached prefill
    at the slot pool's chunks and tails, the lockstep prefill, the int8
    runs' single-shot prefills, offsets off the 64-row tile and Tq 65 and
    130, each dtype's form named from the kernels the profiler saw (bf16 on
@@ -75,8 +85,10 @@ printing its final line:
    and an int8 single-shot prefill beside SDPA, with each call's device
    time too (events around launches queued behind a device
    sleep: the events of a small kernel's back-to-back launches time the
-   host's launch path), also for rows 1-4 and the int8 decodes, and
-   SDPA's beside row 4; then
+   host's launch path), also for rows 1-4, the int8 decodes and the int8
+   paged prefill, the training kernels (and the whole backward), with the
+   library call's device time beside rows 1, 4, 6 and 7 (top-k of a
+   softmax, SDPA forward, SDPA's autograd backward); then
    full-width decode steps and prefill chunks of the paged pool
    and the slot pool, their int8 decode steps, and a full-width train step,
    end to end, against the device's busy time inside them (torch.profiler);
@@ -314,6 +326,8 @@ def phase_build() -> None:
                   f"{info['spill_stores']} / loads {info['spill_loads']} "
                   f"bytes{extra}")
     _print_decode_plans()
+    _print_topk_plans()
+    _print_paged_prefill_grid()
 
 
 # the one-token decode's plans at the serving paths' shapes: (what, B, M·BS
@@ -329,8 +343,9 @@ def _print_decode_plans() -> None:
     """The split decode kernels' dynamic shared memory depends on the
     split the wrapper plans: print the plan at each serving path's shape."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_decode as fd
-    sms = fd.sm_count(torch.device("cuda"))
+    sms = build.sm_count(torch.device("cuda"))
     for what, b, max_len, page, dtype in DECODE_PLANS:
         p = fd.decode_plan(b, 5, 3, 64, max_len, page, getattr(torch, dtype),
                            sms)
@@ -340,10 +355,52 @@ def _print_decode_plans() -> None:
               f"split CTA, {4 * p.workspace} bytes of partials")
 
 
+# the fused softmax+top-k's plans: (what, R, V, k, logits dtype): the
+# serving paths' sampling (fp32 logits over smollm-360m's 49152 entries: the
+# decode batch of 8 slots, the lockstep's 4, one prompt's first token) and
+# the library's largest calls of phase 9
+TOPK_PLANS = (("decode sampling, 8 slots", 8, 49152, 5, "float32"),
+              ("lockstep sampling, batch 4", 4, 49152, 5, "float32"),
+              ("first token of a prefill", 1, 49152, 5, "float32"),
+              ("library, bf16 logits", 4096, 49152, 5, "bfloat16"),
+              ("library, 70000 rows", 70000, 1000, 5, "float32"))
+
+
+def _print_topk_plans() -> None:
+    """The fused softmax+top-k's split at each sampling shape: slices a
+    row, CTAs, threads and the merging CTA's dynamic shared memory."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import softmax_topk as st
+    sms = build.sm_count(torch.device("cuda"))
+    for what, r, v, k, dtype in TOPK_PLANS:
+        p = st.plan(r, v, k, getattr(torch, dtype), sms)
+        print(f"  softmax_topk plan {what} [{r}, {v}] {dtype} k={k}, {sms} "
+              f"SMs: {p.slices} slices of {p.slice} ({r * p.slices} CTAs of "
+              f"{p.threads} threads), {p.smem} bytes dynamic smem"
+              + (" (one CTA a row: no merge)" if p.slices == 1 else ""))
+
+
+def _print_paged_prefill_grid() -> None:
+    """The paged prefill's grid at the serving run's chunk (B 1, Tq 64, 15
+    query heads): bf16 one warpgroup a 64-row query tile and head, fp32 one
+    CTA a 16-row tile and head."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    b, tq, hq = 1, 64, 15
+    smem = build.library("flash_attention_paged") \
+        .flash_attention_paged_wgmma_smem()
+    print(f"  paged prefill grid [B={b}, Tq={tq}, Hq={hq}]: bf16 "
+          f"{-(-tq // 64) * b * hq} CTAs of 128 threads (paged_wgmma_kernel, "
+          f"{smem} bytes dynamic smem), fp32 {-(-tq // fa.BQ) * b * hq} CTAs "
+          "of 128 threads (prefill_paged_kernel)")
+
+
 # the tensor-core kernels and the C function giving each one's dynamic
 # shared memory (in the library of its source)
 WGMMA_SMEM = {"fresh_fwd_wgmma_kernel": "flash_attention_fwd_wgmma_smem",
               "offset_wgmma_kernel": "flash_attention_offset_wgmma_smem",
+              "paged_wgmma_kernel": "flash_attention_paged_wgmma_smem",
               "bwd_dq_wgmma_kernel": "flash_attention_bwd_dq_wgmma_smem",
               "bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv_wgmma_smem"}
 
@@ -427,41 +484,109 @@ def _paged_inputs(gen, *, dtype, bs, vlens, hkv=5, g=3, d=64, tq=1,
             torch.tensor(vlens, dtype=torch.int32, device="cuda"))
 
 
-def _check_softmax_topk(gen) -> float:
+def _launch_counts(prof) -> dict:
+    """Launches of each of the port's kernel symbols among a profile's
+    device events."""
+    counts = {}
+    for evt in prof.key_averages():
+        found = [sym for sym in PORT_KERNEL_SYMBOLS if sym in evt.key]
+        if found and str(evt.device_type).endswith("CUDA"):
+            sym = max(found, key=len)
+            counts[sym] = counts.get(sym, 0) + evt.count
+    return counts
+
+
+def _topk_input(gen, r, v, slice_len):
+    """x [r, v] fp32 (on the host) with the sampler's hard cases at the
+    plan's slice edges: row 1 five exact ties at the top, two straddling
+    each of the first two slice edges; row 2 a padded vocabulary (-inf past
+    40000); row 3 constant (ties across every edge); row 4 its second slice
+    all -inf, row 5 its first.  Returns (x, row 1's tied indices)."""
     import torch
+    x = torch.randn(r, v, generator=gen) * 4.0
+    ties = sorted({17, slice_len - 1, slice_len, 2 * slice_len - 1,
+                   2 * slice_len})
+    x[1, ties] = float(x[1].max()) + 1.0
+    x[2, 40000:] = float("-inf")
+    x[3, :] = x[3, 0]
+    x[4, slice_len:2 * slice_len] = float("-inf")
+    x[5, :slice_len] = float("-inf")
+    return x, ties
+
+
+def _check_softmax_topk(gen) -> float:
+    """The fused softmax+top-k against its plain version at the decode
+    batch's logits [8, 49152] (``_topk_input``: ties straddling the plan's
+    slice edges, an all -inf slice, a padded vocabulary, a constant row) at
+    k = 1, 5 and 32, fp32 and bf16: indices equal, values and lse within
+    rtol 1e-5 (bf16 values within one bf16 ulp, rtol 2^-7), row 1's ties in
+    index order, a second call bit-equal to the first, and the profiler
+    seeing one launch of ``softmax_topk_kernel`` a call and no other port
+    kernel; then [70000, 1000] fp32, whose plan is one CTA a row (S = 1).
+    Returns the fp32 k = 5 max abs error (values and lse)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
     from repro_torch.kernels import softmax_topk as st
-    x = torch.randn(8, 49152, generator=gen) * 4.0
-    top = float(x[1].max()) + 1.0
-    x[1, [30001, 200, 40000, 17]] = top                 # planted exact ties
-    x[2, 40000:] = float("-inf")                         # padded vocabulary
-    x[3, :] = x[3, 0]                                    # a constant row
-    x = x.cuda()
-    got = st.softmax_topk(x, 5)
+    sms = build.sm_count(torch.device("cuda"))
+    r, v, worst = 8, 49152, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (1, 5, 32):
+            p = st.plan(r, v, k, dtype, sms)
+            x, ties = _topk_input(gen, r, v, p.slice)
+            x = x.to(device="cuda", dtype=dtype)
+            what = (f"softmax_topk [{r}, {v}] {str(dtype)[6:]} k={k} "
+                    f"({p.slices} slices of {p.slice})")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                got = st.softmax_topk(x, k)
+                torch.cuda.synchronize()
+            seen = _launch_counts(prof)
+            if seen != {"softmax_topk_kernel": 1}:
+                _fail(f"{what}: the profiler saw {seen}, not one launch of "
+                      "softmax_topk_kernel")
+            again = st.softmax_topk(x, k)
+            want = st.softmax_topk_plain(x, k)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                _fail(f"{what}: two calls on the same input differ")
+            if not torch.equal(got.indices.long(), want.indices):
+                _fail(f"{what}: indices differ:\n{got.indices}\n"
+                      f"{want.indices}")
+            if got.indices[1].tolist()[:min(k, 5)] != ties[:min(k, 5)]:
+                _fail(f"{what}: tie order {got.indices[1].tolist()}, want "
+                      f"{ties}")
+            vrtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            for a, b_, name, rtol in (
+                    (got.values, want.values, "values", vrtol),
+                    (got.logsumexp, want.logsumexp, "lse", 1e-5)):
+                if not torch.allclose(a.float(), b_.float(), rtol=rtol,
+                                      atol=0.0):
+                    _fail(f"{what}: {name} beyond rtol {rtol:.3g}: max abs "
+                          f"{(a.float() - b_.float()).abs().max().item():.3g}")
+            err = max((got.values.float() - want.values.float()).abs().max()
+                      .item(), (got.logsumexp - want.logsumexp).abs().max()
+                      .item())
+            if dtype == torch.float32 and k == 5:
+                worst = err
+            print(f"kernel {what}: indices equal (ties across slice edges "
+                  f"in index order, an all -inf slice, -inf padding, a "
+                  f"constant row), max abs err {err:.3g} (values rtol "
+                  f"{vrtol:.3g}, lse 1e-5); one softmax_topk_kernel launch "
+                  "seen by the profiler; a repeat bit-equal")
+    rows, v = TOPK_ROWS
+    p = st.plan(rows, v, 5, torch.float32, sms)
+    if p.slices != 1:
+        _fail(f"softmax_topk plan at [{rows}, {v}]: {p.slices} slices, not "
+              "one CTA a row")
+    x = torch.randn(rows, v, generator=gen).cuda() * 4.0
+    got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
     torch.cuda.synchronize()
-    want = st.softmax_topk_plain(x, 5)
-    if not torch.equal(got.indices.long(), want.indices):
-        _fail(f"softmax_topk indices differ:\n{got.indices}\n{want.indices}")
-    if got.indices[1].tolist()[:4] != [17, 200, 30001, 40000]:
-        _fail(f"softmax_topk tie order {got.indices[1].tolist()}")
-    for a, b_, what in ((got.values, want.values, "values"),
-                        (got.logsumexp, want.logsumexp, "lse")):
-        if not torch.allclose(a, b_, rtol=1e-5, atol=0.0):
-            _fail(f"softmax_topk {what} beyond rtol 1e-5: max abs "
-                  f"{(a - b_).abs().max().item():.3g}")
-    err = max((got.values - want.values).abs().max().item(),
-              (got.logsumexp - want.logsumexp).abs().max().item())
-    # bf16 logits: same indices, values within bf16 rounding
-    xb = x.bfloat16()
-    gb, wb = st.softmax_topk(xb, 5), st.softmax_topk_plain(xb, 5)
-    torch.cuda.synchronize()
-    if not torch.equal(gb.indices.long(), wb.indices):
-        _fail("softmax_topk bf16 indices differ")
-    if not torch.allclose(gb.logsumexp, wb.logsumexp, rtol=1e-5, atol=0.0):
-        _fail("softmax_topk bf16 lse beyond rtol 1e-5")
-    print(f"kernel softmax_topk [8, 49152] k=5: indices equal (ties, -inf "
-          f"padding, constant row), fp32 max abs err {err:.3g} "
-          f"(rtol 1e-5); bf16 indices equal")
-    return err
+    if not torch.equal(got.indices.long(), want.indices) or not \
+            torch.allclose(got.logsumexp, want.logsumexp, rtol=1e-5, atol=0):
+        _fail(f"softmax_topk [{rows}, {v}]: differs from its plain version")
+    print(f"kernel softmax_topk [{rows}, {v}] float32 k=5 (one CTA a row): "
+          "indices equal, lse within rtol 1e-5")
+    return worst
 
 
 def _check_decode(gen) -> float:
@@ -490,15 +615,18 @@ def _check_decode(gen) -> float:
     return worst
 
 
-def _prefill_err(q, kp, vp, qo, vl, tk, tp, what: str, atol: float):
-    """Kernel against plain on one prefill input; raises beyond ``atol`` or
-    when the -inf pattern of lse differs.  Returns (max abs error, the
-    kernel's lse)."""
+def _prefill_err(q, kp, vp, qo, vl, tk, tp, what: str, atol: float,
+                 plain_pools=None):
+    """Kernel against plain on one prefill input (the plain version on
+    ``plain_pools`` when given: the kernel's pools with their poisoned
+    tails zeroed); raises beyond ``atol`` or when the -inf pattern of lse
+    differs.  Returns (max abs error, the kernel's lse)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     out, lse = fa.flash_attention_paged(q, kp, vp, qo, vl, tk)
     torch.cuda.synchronize()
-    w_out, w_lse = fa.flash_attention_paged_plain(q, kp, vp, qo, vl, tp)
+    w_out, w_lse = fa.flash_attention_paged_plain(
+        q, *(plain_pools or (kp, vp)), qo, vl, tp)
     if not torch.isfinite(out).all():
         _fail(f"flash_attention_paged {what}: non-finite output (a dead "
               "table entry was read)")
@@ -513,36 +641,66 @@ def _prefill_err(q, kp, vp, qo, vl, tk, tp, what: str, atol: float):
 
 
 # (Tq, q_offset per row, vlen per row): edge cases (chunks crossing block
-# edges, a row with no valid key), then the serving run's 64-token chunks
-# after cached prefixes (phase 4 reaches q_offset ~200, vlen ~270)
+# edges, a row with no valid key), the serving run's 64-token chunks after
+# cached prefixes (phase 4 reaches q_offset ~200, vlen ~270), then the
+# tensor-core tile's edges: Tq 65 and 130 (a 64-row query tile and one more
+# row, two and two more), q_offsets off the 64-key tile (37, 100), and a
+# vlen ending mid-page inside the second key tile (100)
 PREFILL_CASES = (
     (37, [0, 5, 13, 0], [37, 42, 50, 0]),
     (64, [64], [128]),
     (64, [192], [256]),
+    (65, [37, 100], [102, 165]),
+    (130, [3, 150], [133, 280]),
+    (36, [64], [100]),
 )
+# each dtype's form of the paged prefill, as the profiler names its kernel
+PREFILL_FORMS = {"float32": ("CUDA cores", "prefill_paged_kernel"),
+                 "bfloat16": ("tensor cores (wgmma)", "paged_wgmma_kernel")}
 
 
 def _check_prefill(gen) -> float:
+    """Every case of ``PREFILL_CASES`` at BS 8, 16 and 32, fp32 (atol 1e-5)
+    and bf16 (atol 2e-2), over shuffled (non-monotonic) tables with every
+    dead entry pointing at a NaN page and every position past a row's vlen
+    in its last live page NaN; under torch.profiler, which must see that
+    dtype's form (``PREFILL_FORMS``) and no other port kernel."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     worst = 0.0
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for bs in (8, 16):
-            for tq, qoff, vlens in PREFILL_CASES:
-                q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=dtype, bs=bs,
-                                                      vlens=vlens, tq=tq)
-                qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
-                what = (f"{str(dtype)[6:]} BS={bs} B={len(vlens)} Tq={tq} "
-                        f"q_offset={qoff} vlen={vlens}")
-                err, lse = _prefill_err(q, kp, vp, qo, vl, tk, tp, what,
-                                        atol)
-                if 0 in vlens:
-                    if not torch.isneginf(lse[vlens.index(0)]).all():
+        form, symbol = PREFILL_FORMS[str(dtype)[6:]]
+        errs = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for bs in (8, 16, 32):
+                for tq, qoff, vlens in PREFILL_CASES:
+                    q, kp, vp, tk, tp, vl = _paged_inputs(
+                        gen, dtype=dtype, bs=bs, vlens=vlens, tq=tq)
+                    (kk, kpl), (vk, vpl) = (_poisoned_tails(x, tk, vlens, bs)
+                                            for x in (kp, vp))
+                    qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
+                    what = (f"{str(dtype)[6:]} BS={bs} B={len(vlens)} "
+                            f"Tq={tq} q_offset={qoff} vlen={vlens}")
+                    err, lse = _prefill_err(q, kk, vk, qo, vl, tk, tp, what,
+                                            atol, plain_pools=(kpl, vpl))
+                    if 0 in vlens and not torch.isneginf(
+                            lse[vlens.index(0)]).all():
                         _fail(f"flash_attention_paged {what}: lse of the "
                               "keyless row is not -inf")
-                if dtype == torch.float32:
-                    worst = max(worst, err)
-                print(f"kernel flash_attention_paged {what}: max abs err "
-                      f"{err:.3g} (atol {atol})")
+                    errs.append(err)
+            torch.cuda.synchronize()
+        seen = _kernels_seen(prof)
+        if seen != [symbol]:
+            _fail(f"flash_attention_paged {str(dtype)[6:]}: the profiler saw "
+                  f"{seen}, the {form} form is {symbol}")
+        if dtype == torch.float32:
+            worst = max(errs)
+        print(f"kernel flash_attention_paged {str(dtype)[6:]} ({form}, "
+              f"{symbol}): {len(errs)} cases (BS 8/16/32; Tq 37/64/65/130/36 "
+              f"at q_offset 0..192, off the 64-key tile, a keyless row, a "
+              f"vlen ending mid-page in the second key tile; shuffled "
+              f"tables, dead entries and positions past vlen NaN): max abs "
+              f"err {max(errs):.3g} (atol {atol})")
     return worst
 
 
@@ -743,12 +901,7 @@ FRESH_FORMS = {"float32": ("CUDA cores", ("fresh_fwd_kernel", "bwd_dq_kernel",
 
 def _kernels_seen(prof) -> list:
     """The port's kernel symbols among a profile's device events."""
-    seen = set()
-    for evt in prof.key_averages():
-        found = [sym for sym in PORT_KERNEL_SYMBOLS if sym in evt.key]
-        if found and str(evt.device_type).endswith("CUDA"):
-            seen.add(max(found, key=len))
-    return sorted(seen)
+    return sorted(_launch_counts(prof))
 
 
 def _check_fresh(gen) -> dict:
@@ -1013,10 +1166,11 @@ def _split_plan(fd, hkv, max_len, unit, kv_dtype):
     """The smallest batch (from 8) whose split edges fit one row each, and
     the plan the wrapper makes for it on this card."""
     import torch
+    from repro_torch.kernels import build
     dev = torch.device("cuda")
     for b in range(8, 256):
         plan = fd.decode_plan(b, hkv, 3, 64, max_len, unit, kv_dtype,
-                              fd.sm_count(dev))
+                              build.sm_count(dev))
         if 3 * plan.splits <= b:
             return b, plan
     _fail(f"no batch fits the split edges of a {max_len}-position cache")
@@ -1636,7 +1790,7 @@ def _host_ms(fn, samples: int = 10, warmup: int = 2) -> float:
     return statistics.median(out)
 
 
-PORT_KERNEL_SYMBOLS = ("topk_partial_kernel", "topk_merge_kernel",
+PORT_KERNEL_SYMBOLS = ("softmax_topk_kernel", "paged_wgmma_kernel",
                        "decode_paged_split_kernel", "prefill_paged_kernel",
                        "decode_split_kernel", "prefill_offset_kernel",
                        "offset_wgmma_kernel",
@@ -1756,6 +1910,7 @@ def _sdpa(q, k, v, mask):
 
 def phase_times() -> dict:
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import softmax_topk as st
@@ -1771,17 +1926,23 @@ def phase_times() -> dict:
               "input")
     args, _ = st.prepare(x, 5)
     r, v, k = 8, 49152, 5
+    p = st.plan(r, v, k, x.dtype, build.sm_count(x.device))
     b_ms, b_by = _bound(r * v * 4 + r * k * 8 + r * 4, 4.0 * r * v,
                         "float32")
+
+    def library():
+        return torch.topk(torch.softmax(x, -1), 5)
     rows["softmax_topk"] = {
         "ms": _ms(lambda: st.launch(args)),
         "device_ms": _device_call_ms(lambda: st.launch(args)),
         "wrapper_ms": _ms(lambda: st.softmax_topk(x, 5)),
         "plain_ms": _ms(lambda: st.softmax_topk_plain(x, 5)),
-        "library_ms": _ms(lambda: torch.topk(torch.softmax(x, -1), 5)),
+        "library_ms": _ms(library),
+        "library_device_ms": _device_call_ms(library),
         "library_call": "torch.topk(torch.softmax(x, -1), k) (two calls)",
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "x [8, 49152] float32, k=5"}
+        "shape": f"x [8, 49152] float32, k=5, {p.slices} slices of "
+                 f"{p.slice}"}
 
     # paged decode: 8 slots of the serving run's pool (BS=16, 21 blocks a
     # row), bf16, ragged valid lengths across the run's range
@@ -1828,7 +1989,8 @@ def phase_times() -> dict:
         "plain_ms": _ms(lambda: fa.flash_attention_paged_plain(q, kp, vp, qo,
                                                                vl, tp)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "B=1 Tq=64 q_offset=64 vlen=128 Hq=15 Hkv=5 D=64 BS=16 bf16"}
+        "shape": "B=1 Tq=64 q_offset=64 vlen=128 Hq=15 Hkv=5 D=64 BS=16 bf16"
+                 " (tensor cores, paged_wgmma_kernel)"}
 
     # contiguous decode: the slot pool's 8 slots of 328, ragged, bf16; the
     # library yardstick is one SDPA call on transposed views with a boolean
@@ -1917,6 +2079,7 @@ def phase_times() -> dict:
 def _plan_of(fd, q, k, tables=None) -> str:
     """The split a decode call on these operands launches with (the
     wrapper's plan: paged pools with ``tables``, else contiguous caches)."""
+    from repro_torch.kernels import build
     b, _, hq, d = q.shape
     if tables is not None:
         hkv, unit = k.shape[1], k.shape[2]
@@ -1924,7 +2087,7 @@ def _plan_of(fd, q, k, tables=None) -> str:
     else:
         hkv, max_len, unit = k.shape[2], k.shape[1], fd.CONTIGUOUS_TILE
     p = fd.decode_plan(b, hkv, hq // hkv, d, max_len, unit, k.dtype,
-                       fd.sm_count(q.device))
+                       build.sm_count(q.device))
     return f"split {p.split} x {p.splits}"
 
 
@@ -2043,26 +2206,35 @@ def _train_kernel_times(gen) -> dict:
     rows = {}
     b_ms, b_by = _bound(io + b * hq * t * 4, 2 * per_pair * pairs,
                         "bfloat16")
+    bwd_lib_device = _device_call_ms(sdpa_bwd)
+    bwd_device = _device_call_ms(lambda: fab.flash_attention_bwd(
+        q, k, v, out, lse, dout))
     rows["flash_attention"] = {
         "ms": _ms(lambda: fa.launch(fwd_args)),
+        "device_ms": _device_call_ms(lambda: fa.launch(fwd_args)),
         "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(q, k, v)),
         "plain_ms": _ms(lambda: fa.flash_attention_fwd_plain(q, k, v),
                         samples=5, inner=2),
         "library_ms": _ms(sdpa),
+        "library_device_ms": _device_call_ms(sdpa),
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
     # dq: s, dp and dq products; reads q, k, v, dout, lse, delta, writes dq
     b_ms, b_by = _bound(io + stats + b * t * hq * d * esz,
                         3 * per_pair * pairs, "bfloat16")
     rows["flash_attention_bwd_dq"] = {
-        "ms": _ms(lambda: fab.launch(dq_args)), "wrapper_ms": bwd_wrapper,
-        "plain_ms": bwd_plain, "library_ms": bwd_lib,
+        "ms": _ms(lambda: fab.launch(dq_args)),
+        "device_ms": _device_call_ms(lambda: fab.launch(dq_args)),
+        "wrapper_ms": bwd_wrapper, "plain_ms": bwd_plain,
+        "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
     # dk/dv: s, dp, dk and dv products; writes dk and dv
     b_ms, b_by = _bound(io + stats + 2 * b * t * hkv * d * esz,
                         4 * per_pair * pairs, "bfloat16")
     rows["flash_attention_bwd_dkv"] = {
-        "ms": _ms(lambda: fab.launch(dkv_args)), "wrapper_ms": bwd_wrapper,
-        "plain_ms": bwd_plain, "library_ms": bwd_lib,
+        "ms": _ms(lambda: fab.launch(dkv_args)),
+        "device_ms": _device_call_ms(lambda: fab.launch(dkv_args)),
+        "wrapper_ms": bwd_wrapper, "plain_ms": bwd_plain,
+        "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
     # the whole backward's bound (five products; out read for delta)
     b_ms, b_by = _bound(io + b * t * hq * d * esz + b * hq * t * 4
@@ -2070,8 +2242,9 @@ def _train_kernel_times(gen) -> dict:
                         5 * per_pair * pairs, "bfloat16")
     print(f"time flash attention backward, both kernels [{shape}]: bound "
           f"{b_ms:.5f}ms by {b_by}; wrapper (delta + dq + dk/dv) "
-          f"{bwd_wrapper:.4f}ms, plain {bwd_plain:.4f}ms, SDPA autograd "
-          f"backward {bwd_lib:.4f}ms")
+          f"{bwd_wrapper:.4f}ms, device {bwd_device:.4f}ms; plain "
+          f"{bwd_plain:.4f}ms, SDPA autograd backward {bwd_lib:.4f}ms, "
+          f"device {bwd_lib_device:.4f}ms")
     return rows
 
 
@@ -2168,6 +2341,7 @@ def _int8_kernel_times(gen) -> dict:
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
     rows["flash_attention_paged_int8"] = {
         "ms": _ms(lambda: fa.launch(args)),
+        "device_ms": _device_call_ms(lambda: fa.launch(args)),
         "wrapper_ms": _ms(lambda: fa.flash_attention_paged(
             q, pl[0], pl[1], qo, vl, tp, **kw)),
         "plain_ms": _ms(lambda: fa.flash_attention_paged_plain(

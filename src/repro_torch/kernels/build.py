@@ -13,7 +13,10 @@ nvcc's stderr; there is no fallback.
 arguments) and appends the current stream
 (``current_stream``: the raw handle of PyTorch's current stream on the
 tensor's device); every C entry point returns
-``cudaGetLastError()`` and :func:`check` raises on non-zero.
+``cudaGetLastError()`` and :func:`check` raises on non-zero.  The
+kernels' shared host state lives here too: the card's SM count, which the
+planners take (:func:`sm_count`), and the ticket counters of the kernels
+whose last CTA merges (:func:`tickets`).
 """
 from __future__ import annotations
 
@@ -145,6 +148,35 @@ def current_stream(index: int | None) -> int:
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+_SM_COUNT: dict[int, int] = {}
+_TICKETS: dict[tuple[int, int], "torch.Tensor"] = {}
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (read once per device)."""
+    import torch
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def tickets(device, n: int):
+    """At least ``n`` ticket counters for the kernels' last-CTA merge (the
+    split decode's and the fused softmax+top-k's): int32 zeros, which every
+    call leaves zero (the merging CTA sets its counter back), kept per
+    device and stream so that calls on two streams never share one."""
+    import torch
+    key = (device.index, current_stream(device.index))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

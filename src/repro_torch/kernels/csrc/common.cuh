@@ -105,6 +105,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// one 4-byte word (a table entry), through L1
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -77,9 +77,13 @@ __global__ void __launch_bounds__(wg::kThreads)
   const int hk = h / (Hq / Hkv);
   const size_t qstride = static_cast<size_t>(Hq) * wg::kD;
   const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * wg::kD;
-  wg::attend(q + q0, k + b * sb + hk * sh, v + b * sb + hk * sh, out + q0,
-             lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, ss, i0,
-             Tq, 0, Tk, scale, causal, tiles);
+  const wg::ContiguousKeys keys{
+      ContiguousRows{static_cast<size_t>(b * sb + hk * sh),
+                     static_cast<size_t>(wg::kRows * ss),
+                     static_cast<size_t>(ss)}};
+  wg::attend(q + q0, k, v, keys, out + q0,
+             lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq, 0,
+             Tk, scale, causal, tiles);
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,

@@ -3,30 +3,52 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_paged_pallas
 //   (the pallas_call at line 432; body _make_paged_kernel:274), in both
-//   forms: bf16/fp32 pools (flash_attention_paged_launch) and int8 pools
-//   with bf16 scale pages (flash_attention_paged_int8_launch, the quantized
-//   body at :307-325).
+//   forms: bf16/fp32 pools (flash_attention_paged_launch, and for bf16
+//   flash_attention_paged_wgmma_launch) and int8 pools with bf16 scale pages
+//   (flash_attention_paged_int8_launch, the quantized body at :307-325).
 // Bound on the H100: bytes at the serving path's chunk widths (2..64 query
 //   rows): each live K/V position is read once per query tile for 4*D flops
 //   per row, and a 64-row chunk stays under the ~295 flops/byte the tensor
 //   cores need before they, not memory, bind.
-// Design: one CTA per (query tile of BQ = 16 rows, query head, batch row),
-//   128 threads, 8 per query row.  Rows past Tq are masked, so Tq need not
-//   divide by BQ.  The CTA walks the logical blocks up to the last live one,
-//   min(ceil(vlen / BS) - 1, (q_offset + last row) / BS) as last_live_block
-//   does in the reference, loading one K and one V page (contiguous BS x D in
-//   the [P, Hkv, BS, D] pool, KV head h / G) into shared memory per step, so
-//   dead table entries are never dereferenced and dead blocks cost nothing.
-//   Scores are masked in absolute coordinates (k_pos <= q_offset + i) and at
-//   vlen before the online (m, d, acc) update; each thread carries its row's
-//   (m, d) and D / 8 accumulator lanes.  The output is acc / max(d, 1e-30)
-//   and lse = m + log d, or -inf for a row with no valid key (d == 0).  The
-//   tile loop is prefill_attend (attention.cuh), shared with the contiguous
+// Pages are addressed through the table (PagedRows, attention.cuh: tile j
+//   of a row is page table[j] of the [P, Hkv, BS, D] pool at KV head h / G),
+//   only up to the last live position, so dead table entries are never
+//   dereferenced and dead blocks cost nothing.  Scores are masked in
+//   absolute coordinates (k_pos <= q_offset + i) and at vlen before the
+//   online (m, d, acc) update; rows past Tq are masked, so Tq need not
+//   divide by the tile.  The output is acc / d and lse = m + log d, or 0
+//   and -inf for a row with no valid key.
+//
+// Three forms, chosen by the pools' dtype (no probe, no fallback):
+//
+// bf16: paged_wgmma_kernel, on the tensor cores, shaped as the contiguous
+//   prefill's offset_wgmma_kernel: one warpgroup a CTA owns 64 query rows of
+//   one (query head, batch row), heaviest query tile first, and runs the
+//   fresh forward's tile loop wg::attend (wgmma.cuh) over 64-key K/V tiles
+//   gathered through the table (PagedKeys: a tile spans 64 / BS pages, or
+//   one more where BS does not divide 64; their table entries are staged
+//   in shared memory once a tile, a tile ahead, by cp.async).  At B 1, Tq 64
+//   that is 15 CTAs of one warpgroup doing wgmma products where the CUDA-core
+//   form ran 60 CTAs walking one page per barrier.
+//
+// fp32: prefill_paged_kernel, on CUDA cores.  One CTA per (query tile of
+//   BQ = 16 rows, query head, batch row), 128 threads, 8 per query row; the
+//   CTA walks the logical blocks up to the last live one, min(ceil(vlen /
+//   BS) - 1, (q_offset + last row) / BS) as last_live_block does in the
+//   reference, loading one K and one V page into shared memory per step;
+//   each thread carries its row's (m, d) and D / 8 accumulator lanes, in
+//   fp32 throughout (the fp32 parity runs hold it to 1e-5).  The tile loop
+//   is prefill_attend (attention.cuh), shared with the contiguous
 //   cached-prefill kernel (flash_attention_offset.cu); here a tile is one
-//   page, addressed through the table.  The int8 form runs the same loop
-//   over int8 pools, each page dequantized by its scale column (scale pages
-//   [P, Hkv, BS] through the same table entry) as it lands in shared memory.
+//   page.
+//
+// int8: prefill_paged_int8_kernel, the fp32 form's loop over int8 pools
+//   (bf16 or fp32 q), each page dequantized by its scale column (scale
+//   pages [P, Hkv, BS] through the same table entry) as it lands in shared
+//   memory.  No serving path launches it: an int8 prefill attends over its
+//   exact K/V through the contiguous kernel.
 #include "attention.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -79,31 +101,33 @@ __global__ void __launch_bounds__(kPrefillThreads)
                        smem, sc);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const int* q_offset, const int* vlen, const int* tables,
-                   void* out, float* lse, int B, int Tq, int Hq, int Hkv,
-                   int BS, int M, float scale, int causal,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * prefill_smem_words(D, BS);
-  const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
-  prefill_paged_kernel<T, D><<<grid, kPrefillThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), q_offset, vlen, tables,
-      static_cast<T*>(out), lse, Tq, Hq, Hkv, BS, M, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k_pool,
-                     const void* v_pool, const int* q_offset, const int* vlen,
-                     const int* tables, void* out, float* lse, int B, int Tq,
-                     int Hq, int Hkv, int BS, int M, float scale, int causal,
-                     cudaStream_t stream) {
-  if (D == 64)
-    return launch<T, 64>(q, k_pool, v_pool, q_offset, vlen, tables, out, lse,
-                         B, Tq, Hq, Hkv, BS, M, scale, causal, stream);
-  return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(wg::kThreads)
+    paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k_pool,
+                       const __nv_bfloat16* __restrict__ v_pool,
+                       const int* __restrict__ q_offset,
+                       const int* __restrict__ vlen,
+                       const int* __restrict__ tables,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int B, int Tq, int Hq,
+                       int Hkv, int BS, int M, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char tiles[];
+  __shared__ int staged[2 * wg::PagedKeys::kSlot];
+  // heaviest query tile first: blockIdx.x = (reversed tile, b, h), h fastest
+  int bid = blockIdx.x;
+  const int h = bid % Hq;
+  bid /= Hq;
+  const int b = bid % B;
+  const int i0 = ((Tq + wg::kRows - 1) / wg::kRows - 1 - bid / B) * wg::kRows;
+  const int hk = h / (Hq / Hkv);
+  const size_t qstride = static_cast<size_t>(Hq) * wg::kD;
+  const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * wg::kD;
+  const size_t page = static_cast<size_t>(BS) * wg::kD;
+  const wg::PagedKeys keys{tables + static_cast<size_t>(b) * M, staged,
+                           Hkv * page, hk * page, BS};
+  wg::attend(q + q0, k_pool, v_pool, keys, out + q0,
+             lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq,
+             q_offset[b], max(min(vlen[b], M * BS), 0), scale, causal, tiles);
 }
 
 template <typename T, int D>
@@ -130,29 +154,53 @@ cudaError_t launch_int8(const void* q, const void* k_pool, const void* v_pool,
 
 // q and out [B, Tq, Hq, D] contiguous; pools [P, Hkv, BS, D] contiguous;
 // q_offset, vlen [B] int32; tables [B, M] int32; lse [B, Hq, Tq] float32.
-// D == 64 (smollm-360m's head_dim).  Returns cudaGetLastError().
+// D == 64 (smollm-360m's head_dim).  The fp32 form (prefill_paged_kernel,
+// CUDA cores).  Returns cudaGetLastError().
 extern "C" int flash_attention_paged_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* q_offset, const void* vlen, const void* tables, void* out,
     void* lse, int dtype, int B, int Tq, int Hq, int Hkv, int BS, int D, int M,
     float scale, int causal, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* qo = static_cast<const int*>(q_offset);
-  const int* vl = static_cast<const int*>(vlen);
-  const int* tb = static_cast<const int*>(tables);
-  float* ls = static_cast<float*>(lse);
-  cudaError_t err;
-  if (dtype == kDtypeF32) {
-    err = launch_d<float>(D, q, k_pool, v_pool, qo, vl, tb, out, ls, B, Tq, Hq,
-                          Hkv, BS, M, scale, causal, st);
-  } else if (dtype == kDtypeBF16) {
-    err = launch_d<__nv_bfloat16>(D, q, k_pool, v_pool, qo, vl, tb, out, ls, B,
-                                  Tq, Hq, Hkv, BS, M, scale, causal, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (dtype != kDtypeF32 || D != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * prefill_smem_words(64, BS);
+  const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
+  prefill_paged_kernel<float, 64>
+      <<<grid, kPrefillThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k_pool),
+          static_cast<const float*>(v_pool),
+          static_cast<const int*>(q_offset), static_cast<const int*>(vlen),
+          static_cast<const int*>(tables), static_cast<float*>(out),
+          static_cast<float*>(lse), Tq, Hq, Hkv, BS, M, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
+
+// The bf16 form on the tensor cores (paged_wgmma_kernel): the operands of
+// flash_attention_paged_launch in bf16, every pointer 16-byte aligned (the
+// 16-byte copies).  D == 64.  Returns cudaGetLastError().
+extern "C" int flash_attention_paged_wgmma_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* q_offset, const void* vlen, const void* tables, void* out,
+    void* lse, int dtype, int B, int Tq, int Hq, int Hkv, int BS, int D, int M,
+    float scale, int causal, void* stream) {
+  if (dtype != kDtypeBF16 || D != wg::kD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks =
+      static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
+  paged_wgmma_kernel<<<blocks, wg::kThreads, wg::kAttendSmem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool),
+      static_cast<const int*>(q_offset), static_cast<const int*>(vlen),
+      static_cast<const int*>(tables), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), B, Tq, Hq, Hkv, BS, M, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of the bf16 (wgmma) form, in bytes (its table
+// entries' 512 bytes are static).
+extern "C" int flash_attention_paged_wgmma_smem() { return wg::kAttendSmem; }
 
 // The int8 form: q, out, q_offset, vlen, tables and lse as above; pools
 // [P, Hkv, BS, D] int8 contiguous; scale pages [P, Hkv, BS] bf16 with

@@ -1,10 +1,11 @@
 // Hopper tensor-core machinery of the bf16 attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_offset.cu):
-// cp.async copies into 128-byte-swizzled shared-memory tiles, the wgmma
-// shared-memory descriptor, the m64n64k16 bf16 products with the fp32
-// accumulator in registers, the accumulator-fragment-to-(row, column) map,
-// and the forward's tile loop (attend), which the fresh and the cached-prefill
-// forward kernels share.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_offset.cu,
+// flash_attention_paged.cu): cp.async copies into 128-byte-swizzled
+// shared-memory tiles, the wgmma shared-memory descriptor, the m64n64k16 bf16
+// products with the fp32 accumulator in registers, the
+// accumulator-fragment-to-(row, column) map, and the forward's tile loop
+// (attend), which the fresh and both cached-prefill forward kernels share,
+// each giving it where its keys live (ContiguousKeys, PagedKeys).
 //
 // Tiles.  Every operand tile is [64 rows][64 bf16] (a row of head_dim 64 is
 // 128 bytes): 8 KB, 1024-byte aligned, with 16-byte chunk c of row r stored
@@ -31,7 +32,7 @@
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace wg {
 
@@ -60,20 +61,47 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Rows [0, 64) of an operand whose row r starts at rows + r * stride
-// (elements; its 64 values contiguous) into the swizzled tile at `dst`, by
-// the 128 threads of the warpgroup; rows at or past `valid` are zero-filled
-// without being read.  valid >= 1, so row 0 is a safe dummy address.
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* rows,
-                                          size_t stride, int valid) {
+// Rows [0, 64) of an operand into the swizzled tile at `dst`, by the 128
+// threads of the warpgroup: row r's 64 values are contiguous from base +
+// at(r) (elements); rows at or past `valid` are zero-filled without being
+// read, and `at` is not asked for them.
+template <typename At>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          const At& at, int valid) {
   const int tid = threadIdx.x % kThreads;
 #pragma unroll
   for (int i = 0; i < kRows * 8 / kThreads; ++i) {
     const int e = tid + i * kThreads, r = e >> 3, c = e & 7;
     const bool ok = r < valid;
-    const __nv_bfloat16* src = rows + (ok ? r * stride : 0) + c * 8;
+    const __nv_bfloat16* src = base + (ok ? at(r) : 0) + c * 8;
     cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), src, ok);
+  }
+}
+
+// The same for an operand whose row r starts at rows + r * stride.
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* rows,
+                                          size_t stride, int valid) {
+  load_rows(dst, rows, [stride](int r) { return r * stride; }, valid);
+}
+
+// K and V rows [0, 64) that share their addresses (one row address, two
+// copies), into the tiles at dk and dv.
+template <typename At>
+__device__ __forceinline__ void load_kv_rows(uint32_t dk, uint32_t dv,
+                                             const __nv_bfloat16* k,
+                                             const __nv_bfloat16* v,
+                                             const At& at, int valid) {
+  const int tid = threadIdx.x % kThreads;
+#pragma unroll
+  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+    const int e = tid + i * kThreads, r = e >> 3, c = e & 7;
+    const bool ok = r < valid;
+    const size_t a = (ok ? at(r) : 0) + c * 8;
+    const uint32_t o = r * 128 + ((c ^ (r & 7)) << 4);
+    cp_async16(dk + o, k + a, ok);
+    cp_async16(dv + o, v + a, ok);
   }
 }
 
@@ -211,13 +239,61 @@ __device__ __forceinline__ float quad_max(float x) {
 // the base is aligned up by.
 constexpr int kAttendSmem = 5 * kTileBytes + 1024;
 
+// Where attend finds its keys: at(j, r) is the offset (elements, from K's
+// and V's base) of row r of 64-key tile j of one (batch row, KV head), in
+// the two cache layouts of attention.cuh (position t at rows.at(t / tile) +
+// (t % tile) * rows.stride).  stage(j, L) runs one tile ahead of the copies
+// of tile j, in the same cp.async group as tile j - 1's.
+//
+// A cache in the model layout: ContiguousRows with tile 64 (step 64 * ss).
+struct ContiguousKeys {
+  static constexpr bool kStaged = false;
+  ContiguousRows rows;
+  __device__ __forceinline__ void stage(int, int) const {}
+  __device__ __forceinline__ size_t at(int j, int r) const {
+    return rows.at(j) + r * rows.stride;
+  }
+};
+
+// Block pools [P, Hkv, BS, D] through a batch row's block table (PagedRows,
+// tile BS; BS need not divide 64).  The table entries of tile j's pages, at
+// most kSlot, are staged once a tile in slot j % 2 of shared memory by
+// 4-byte cp.async copies, and at(j, r) reads them through a PagedRows whose
+// table is that slot shifted back by tile j's first page.  Only pages that
+// hold a position below L are staged, so a dead entry is never read.
+struct PagedKeys {
+  static constexpr bool kStaged = true;
+  static constexpr int kSlot = kRows;  // pages a tile may span (BS 1)
+  const int* table;   // the batch row's M entries (device memory)
+  int* staged;        // [2][kSlot] (shared memory)
+  size_t page;        // Hkv * BS * D
+  size_t head;        // hk * BS * D
+  int bs;
+  __device__ __forceinline__ void stage(int j, int L) const {
+    const int k0 = j * kRows, n = min(L - k0, kRows);
+    if (n <= 0) return;
+    const int first = k0 / bs, pages = (k0 + n - 1) / bs - first + 1;
+    const int tid = threadIdx.x % kThreads;
+    if (tid < pages)
+      cp_async4(smem_addr(staged + (j & 1) * kSlot + tid),
+                table + first + tid);
+  }
+  __device__ __forceinline__ size_t at(int j, int r) const {
+    const int t = j * kRows + r;
+    const PagedRows rows{staged + (j & 1) * kSlot - j * kRows / bs, page,
+                         head, static_cast<size_t>(kD)};
+    return rows.at(t / bs) + static_cast<size_t>(t % bs) * rows.stride;
+  }
+};
+
 // Query rows [i0, i0 + 64) of one (query head, batch row) against keys
 // [0, L) of its KV head, by one warpgroup, query row i at absolute position
 // qo + i.  qb: the head's row 0 of q (rows qstride apart), ob the same of
-// out; lb: its row 0 of lse (rows 1 apart); kb, vb: its KV head's position
-// 0 (positions ss apart).  Q's tile is copied once; K and V tiles of 64 keys
-// stream through a two-stage cp.async ring, so the copy of tile j + 1
-// overlaps the products of tile j.  Per tile: S = Q·Kᵀ (four wgmma
+// out; lb: its row 0 of lse (rows 1 apart); k, v and keys: where its KV
+// head's keys live (ContiguousKeys, PagedKeys).  Q's tile is copied once; K
+// and V tiles of 64 keys stream through a two-stage cp.async ring, so the
+// copy of tile j + 1 overlaps the products of tile j (a paged cache's table
+// entries of tile j + 2 ride along with it).  Per tile: S = Q·Kᵀ (four wgmma
 // m64n64k16, fp32 accumulators in registers); the online (m, d) update in
 // the accumulator layout: a row's max from its thread's 16 scores and two
 // quad shuffles, each exponential taken once as exp2f with scale·log2(e)
@@ -230,11 +306,13 @@ constexpr int kAttendSmem = 5 * kTileBytes + 1024;
 // Keys at or past L are zero-filled without being read and score -inf;
 // query rows past Tq are zero-filled and not written.  Epilogue: out = O / d
 // in bf16, lse = m + log d; a row with no valid key gives 0 and -inf.
+template <typename Keys>
 __device__ __forceinline__ void attend(
-    const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ kb,
-    const __nv_bfloat16* __restrict__ vb, __nv_bfloat16* __restrict__ ob,
-    float* __restrict__ lb, size_t qstride, long long ss, int i0, int Tq,
-    int qo, int L, float scale, int causal, unsigned char* tiles) {
+    const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const Keys& keys,
+    __nv_bfloat16* __restrict__ ob, float* __restrict__ lb, size_t qstride,
+    int i0, int Tq, int qo, int L, float scale, int causal,
+    unsigned char* tiles) {
   const uint32_t sq = aligned_base(tiles);
   const uint32_t skv = sq + kTileBytes;  // stage s: K, then V
   constexpr int R = kRows;
@@ -243,8 +321,15 @@ __device__ __forceinline__ void attend(
   if (causal) nk = min(nk, (qo + min(i0 + R, Tq) - 1) / R + 1);
 
   load_tile(sq, qb + i0 * qstride, qstride, Tq - i0);
-  load_tile(skv, kb, ss, L);
-  load_tile(skv + kTileBytes, vb, ss, L);
+  if constexpr (Keys::kStaged) {  // tile 0's table entries first
+    keys.stage(0, L);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  load_kv_rows(skv, skv + kTileBytes, k, v,
+               [&keys](int r) { return keys.at(0, r); }, L);
+  if (1 < nk) keys.stage(1, L);
   cp_async_commit();
 
   const float sl2 = scale * 1.4426950408889634f;  // scale · log2(e)
@@ -260,9 +345,10 @@ __device__ __forceinline__ void attend(
     __syncthreads();  // tile j landed; every thread is done with tile j - 1
     if (j + 1 < nk) {
       const uint32_t nxt = skv + ((j + 1) & 1) * 2 * kTileBytes;
-      const int k0 = (j + 1) * R;
-      load_tile(nxt, kb + k0 * ss, ss, L - k0);
-      load_tile(nxt + kTileBytes, vb + k0 * ss, ss, L - k0);
+      load_kv_rows(nxt, nxt + kTileBytes, k, v,
+                   [&keys, j](int r) { return keys.at(j + 1, r); },
+                   L - (j + 1) * R);
+      if (j + 2 < nk) keys.stage(j + 2, L);  // slot j % 2: tile j's, done
     }
     cp_async_commit();
     const uint32_t ks = skv + (j & 1) * 2 * kTileBytes;

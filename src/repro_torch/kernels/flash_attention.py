@@ -18,9 +18,14 @@ KV pool or a contiguous KV cache.
   ``src/repro/kernels/flash_attention.py:flash_attention_paged_pallas`` (the
   ``pallas_call`` at line 432) in both its forms: bf16/fp32 pools, and int8
   pools with bf16 scale pages (``k_scale_pool``/``v_scale_pool``, launched
-  and counted as ``flash_attention_paged_int8``).  No serving path launches
-  the int8 form (an int8 prefill attends over its exact K/V through the
-  contiguous kernel); it serves ``paged_flash_attention``'s int8 callers.
+  and counted as ``flash_attention_paged_int8``).  The form follows the
+  dtype alone, as the contiguous prefill's does: bf16 pools run on the
+  tensor cores (the fresh forward's tile loop over K/V tiles gathered
+  through the block table), fp32 on CUDA cores; both count as
+  ``flash_attention_paged`` (``csrc/flash_attention_paged.cu``).  No
+  serving path launches the int8 form (an int8 prefill attends over its
+  exact K/V through the contiguous kernel); it serves
+  ``paged_flash_attention``'s int8 callers.
 * ``flash_attention_offset`` replaces ``flash_attention_offset_pallas`` (the
   ``pallas_call`` at line 260): a prefill chunk of the slot pool, the
   lockstep prefill or an int8 run's single-shot prefill, at per-row
@@ -64,9 +69,10 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _OFFSET_ARGTYPES = [_C] * 7 + [_I] * 6 + [_L] * 3 + [ctypes.c_float, _I, _C]
+_PAGED_ARGTYPES = [_C] * 8 + [_I] * 8 + [ctypes.c_float, _I, _C]
 _ARGTYPES = {
-    "flash_attention_paged": [_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _I, _C],
+    "flash_attention_paged": _PAGED_ARGTYPES,
+    "flash_attention_paged_wgmma": _PAGED_ARGTYPES,
     "flash_attention_offset": _OFFSET_ARGTYPES,
     "flash_attention": [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                         _L, ctypes.c_float, _I, _C],
@@ -83,7 +89,10 @@ _ENTRY = {"flash_attention": ("flash_attention_fwd", "flash_attention_fwd",
                                          "flash_attention_paged_int8"),
           "flash_attention_offset_wgmma": ("flash_attention_offset_wgmma",
                                            "flash_attention_offset",
-                                           "flash_attention_offset")}
+                                           "flash_attention_offset"),
+          "flash_attention_paged_wgmma": ("flash_attention_paged_wgmma",
+                                          "flash_attention_paged",
+                                          "flash_attention_paged")}
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -158,16 +167,19 @@ def _rows(x, q, b):
 def prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
                   causal: bool = True, k_scale_pool=None, v_scale_pool=None):
     """Validate CUDA operands of the paged kernel and allocate the outputs.
-    With ``k_scale_pool``/``v_scale_pool`` [P, Hkv, BS] (bf16, passed by
-    their strides) the pools are int8 and the int8 form launches.  Returns
+    bf16 pools launch the tensor-core form, which raises on operands that
+    are not 16-byte aligned; fp32 pools the CUDA-core form.  With
+    ``k_scale_pool``/``v_scale_pool`` [P, Hkv, BS] (bf16, passed by their
+    strides) the pools are int8 and the int8 form launches.  Returns
     (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]));
     :func:`launch` fills them.  Raises on another device, dtype or shape the
     kernel does not take."""
     hkv, bs = k_pool.shape[1], k_pool.shape[2]
     b, tq, hq, dh = _check("flash_attention_paged", q, k_pool, v_pool, hkv,
                            k_scale_pool, v_scale_pool)
+    wgmma = q.dtype == torch.bfloat16 and k_scale_pool is None
     smem = 4 * (BQ * (dh + 1) + bs * (dh + 1) + bs * dh + BQ * bs)
-    if k_pool.dim() != 4 or smem > _SMEM_LIMIT:
+    if k_pool.dim() != 4 or (smem > _SMEM_LIMIT and not wgmma):
         raise ValueError(f"flash_attention_paged kernel: pools "
                          f"{tuple(k_pool.shape)} need {smem} B of shared "
                          f"memory (at most {_SMEM_LIMIT})")
@@ -180,7 +192,11 @@ def prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
     rows = (_rows(q_offset, q, b), _rows(kv_valid_len, q, b), tables, out,
             lse, code, b, tq, hq, hkv, bs, dh, tables.shape[1])
     tail = (float(dh ** -0.5), int(bool(causal)))
-    if k_scale_pool is None:
+    if wgmma:
+        _bwd.check_wgmma_operands("flash_attention_paged", (qc, kc, vc, out),
+                                  kc.stride()[:3])
+        args = ("flash_attention_paged_wgmma", qc, kc, vc, *rows, *tail)
+    elif k_scale_pool is None:
         args = ("flash_attention_paged", qc, kc, vc, *rows, *tail)
     else:
         args = ("flash_attention_paged_int8", qc, kc, vc, k_scale_pool,

@@ -212,33 +212,6 @@ def decode_plan(b: int, hkv: int, g: int, d: int, max_len: int, page: int,
                       b * hkv * splits * g * (d + 2))
 
 
-_SM_COUNT: dict[int, int] = {}
-_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """The card's streaming multiprocessors (read once per device)."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _SM_COUNT:
-        _SM_COUNT[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SM_COUNT[index]
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` ticket counters for the kernels' last-CTA merge: int32
-    zeros, which every call leaves zero (the merging CTA sets its counter
-    back), kept per device and stream so that calls on two streams never
-    share one."""
-    key = (device.index, build.current_stream(device.index))
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
-                                        device=device)
-    return t
-
-
 def _check_query(name, q, k, v, hkv, k_scale=None, v_scale=None):
     """Shared validation: a CUDA one-token query against K/V of q's dtype
     (or int8 with bf16 scales) and head_dim, in a GQA grouping."""
@@ -303,18 +276,20 @@ def prepare_paged(q, k_pool, v_pool, block_tables, kv_valid_len, *,
     _check_aligned("flash_decode_paged", kc, vc)
     tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     m = tables.shape[1]
-    plan = decode_plan(b, hkv, g, dh, m * bs, bs, kc.dtype, sm_count(dev))
+    plan = decode_plan(b, hkv, g, dh, m * bs, bs, kc.dtype,
+                       build.sm_count(dev))
     out = torch.empty_like(qc)
     work = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
     geometry = (code, b, hq, hkv, bs, dh, m, plan.split, plan.splits)
     vlen = _vlen(kv_valid_len, dev, b)
     if k_scale_pool is None:
         args = ("flash_decode_paged", qc, kc, vc, tables, vlen, out, work,
-                _tickets(dev, b * hkv), *geometry, float(dh ** -0.5))
+                build.tickets(dev, b * hkv), *geometry, float(dh ** -0.5))
     else:
         args = ("flash_decode_paged_int8", qc, kc, vc, k_scale_pool,
-                v_scale_pool, tables, vlen, out, work, _tickets(dev, b * hkv),
-                *geometry, *k_scale_pool.stride(), float(dh ** -0.5))
+                v_scale_pool, tables, vlen, out, work,
+                build.tickets(dev, b * hkv), *geometry,
+                *k_scale_pool.stride(), float(dh ** -0.5))
     return args, out
 
 
@@ -345,17 +320,17 @@ def prepare(q, k_cache, v_cache, kv_valid_len, *, k_scale=None,
     dev = q.device
     qc = q.contiguous()
     plan = decode_plan(b, hkv, g, dh, s, CONTIGUOUS_TILE, k_cache.dtype,
-                       sm_count(dev))
+                       build.sm_count(dev))
     out = torch.empty_like(qc)
     work = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
     geometry = (code, b, hq, hkv, s, dh, plan.split, plan.splits, sb, ss, sh)
     vlen = _vlen(kv_valid_len, dev, b)
     if k_scale is None:
         args = ("flash_decode", qc, k_cache, v_cache, vlen, out, work,
-                _tickets(dev, b * hkv), *geometry, float(dh ** -0.5))
+                build.tickets(dev, b * hkv), *geometry, float(dh ** -0.5))
     else:
         args = ("flash_decode_int8", qc, k_cache, v_cache, k_scale, v_scale,
-                vlen, out, work, _tickets(dev, b * hkv), *geometry,
+                vlen, out, work, build.tickets(dev, b * hkv), *geometry,
                 *k_scale.stride(), float(dh ** -0.5))
     return args, out
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import build, dispatch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import flash_decode as fd
@@ -702,7 +702,7 @@ def _split_rows(cuda, max_len, unit, kv_dtype, seed):
     row for every count of live splits), the rest drawn at random."""
     for b in range(8, 256):
         plan = fd.decode_plan(b, 5, 3, 64, max_len, unit, kv_dtype,
-                              fd.sm_count(cuda))
+                              build.sm_count(cuda))
         if 3 * plan.splits <= b:
             break
     edges = [0, 1, max_len] + [k * plan.split + o
@@ -816,3 +816,85 @@ def test_decode_split_edges(cuda, dtype, atol):
         "flash_decode_paged": 2, "flash_decode": 2,
         "flash_decode_paged_int8": 2, "flash_decode_int8": 2,
         "flash_attention_paged_int8": 0}
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_paged_prefill_at_tile_edges(cuda, dtype, atol):
+    """The paged cached prefill in its dtype's form (bf16: the tensor-core
+    form through the block table; fp32: the CUDA-core form) at Tq 65 and
+    130, q_offsets off the 64-key tile, a vlen ending mid-page inside the
+    second key tile and a keyless row, pages of 8, 16 and 32 positions,
+    shuffled tables, every dead entry and every position past vlen NaN:
+    finite, within ``atol`` of the plain version, a repeat bit-equal, one
+    counted launch a call."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda, dtype=dtype)
+    cases = [([37, 100], [102, 165], 65), ([3, 150], [133, 280], 130),
+             ([64, 0], [100, 0], 36)]
+    calls = 0
+    for bs in (8, 16, 32):
+        for i, (qoff, vlens, tq) in enumerate(cases):
+            q, kp, vp, tables, vlen = _paged(80 + i, vlens=vlens, tq=tq,
+                                             bs=bs)
+            kern, plain, tk = _poison_paged(kp, vp, tables, vlens, bs)
+            q = q.to(**dev)
+            qo = torch.tensor(qoff, dtype=torch.int32, device=cuda)
+            args = (qo, vlen.to(cuda))
+            out, lse = fa.flash_attention_paged(
+                q, *(x.to(**dev) for x in kern), *args, tk.to(cuda))
+            again = fa.flash_attention_paged(
+                q, *(x.to(**dev) for x in kern), *args, tk.to(cuda))
+            w_out, w_lse = fa.flash_attention_paged_plain(
+                q, *(x.to(**dev) for x in plain), *args, tables.to(cuda))
+            torch.cuda.synchronize()
+            calls += 2
+            assert torch.isfinite(out).all(), (bs, qoff, vlens, tq)
+            assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            assert (out.float() - w_out.float()).abs().max().item() <= atol
+            assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+            fin = torch.isfinite(w_lse)
+            assert (lse[fin] - w_lse[fin]).abs().max().item() <= \
+                max(atol, 1e-4)
+            if 0 in vlens:
+                assert torch.isneginf(lse[vlens.index(0)]).all()
+    assert dispatch.launch_counts()["flash_attention_paged"] == calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_topk_one_launch_across_slices(cuda, dtype):
+    """The fused softmax+top-k at the decode batch's [8, 49152], which the
+    plan splits over 33 slices: exact ties planted across slice edges, a
+    slice all -inf, a padded vocabulary, at k 1, 5 and 32; indices equal to
+    the plain version's (the ties in index order), lse within rtol 1e-5 and
+    values within rtol 1e-5 (bf16: one bf16 ulp), a repeat bit-equal, one
+    counted launch a call and the ticket counters left zero."""
+    from repro_torch.kernels import softmax_topk as topk
+    dispatch.reset_launch_counts()
+    gen = torch.Generator().manual_seed(90)
+    calls = 0
+    for k in (1, 5, 32):
+        p = topk.plan(8, 49152, k, dtype, build.sm_count(cuda))
+        assert 8 * p.slices >= 2 * build.sm_count(cuda)
+        e = p.slice
+        x = torch.randn(8, 49152, generator=gen) * 4.0
+        ties = [5, e - 1, e, 2 * e - 1, 2 * e]
+        x[1, ties] = float(x[1].max()) + 1.0
+        x[2, 40000:] = float("-inf")
+        x[4, e:2 * e] = float("-inf")
+        x[5, :e] = float("-inf")
+        x = x.to(device=cuda, dtype=dtype)
+        got, again = topk.softmax_topk(x, k), topk.softmax_topk(x, k)
+        want = topk.softmax_topk_plain(x, k)
+        torch.cuda.synchronize()
+        calls += 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert torch.equal(got.indices.long(), want.indices)
+        assert got.indices[1].tolist()[:min(k, 5)] == ties[:min(k, 5)]
+        vrtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(got.values.float(), want.values.float(),
+                                   rtol=vrtol, atol=0)
+        torch.testing.assert_close(got.logsumexp, want.logsumexp, rtol=1e-5,
+                                   atol=0)
+        assert not build.tickets(x.device, 8)[:8].any()
+    assert dispatch.launch_counts()["softmax_topk"] == calls
