@@ -56,7 +56,14 @@ printing its final line:
    vocabulary, and each kernel's launch count equals what the scheduler's
    own counters (or the loop's steps) imply; the int8 runs prefill every
    prompt in one chunk and, paged, share and cache no block; the fp and
-   int8 pools' bytes per cached token;
+   int8 pools' bytes per cached token; then SLO scheduling with
+   preempt-and-swap (24 requests at 0.5 arrivals a tick, two priority
+   classes, class 0 with a deadline, the pool cut to 112 blocks), bf16 and
+   int8 K/V: at least 2 preemptions, blocks swapped in equal to those
+   swapped out, bytes equal to blocks times a block's bytes from the
+   config, no int8 block kept shared; and the same traffic without
+   classes through a 2-replica router; launch counts equal to the
+   schedulers' counters in each;
 5. parity: short full-width fp32 workloads of the three paths, once on the
    card through the kernels and once on the CPU through the plain versions;
    token streams (and the paged pool's stats) must be identical; for the
@@ -65,7 +72,12 @@ printing its final line:
    the int8 cache after the first prefill within 1 of the CPU's and its
    scales within one bf16 ulp, the first decode step's logits within
    ``INT8_LOGIT_RTOL`` of the logit scale, and the token agreement of the
-   same workloads printed;
+   same workloads printed; then a short SLO workload that preempts and its
+   2-replica routed form, on the card with every block a swap-out frees
+   filled with NaN at once and on the CPU, under virtual clocks: streams,
+   decisions (admissions, resumes, preemptions) and pool and swap stats
+   identical, each preempted stream equal to its ``--no-preempt`` run, and
+   the same again with a device sleep queued before every decode step;
 6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
    at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
    the end, with the launch counts set to 0 just before it and read just
@@ -98,7 +110,11 @@ printing its final line:
    normalizer, torch.softmax and torch.logsumexp at every shape of phase 9
    (back-to-back and device times), beside the paper's 3 (online), 4 (safe) and 1
    (normalizer), and both designs of the online softmax at the two V on
-   either side of the row-resident limit;
+   either side of the row-resident limit; then the swap: ``swap_out`` and
+   ``swap_in`` of one 21-block sequence and ``prefetch_swap_in`` alone,
+   host call to device finish, beside a plain pinned ``copy_`` of the same
+   bytes each way, and a decode step with and without one pending
+   prefetch;
 9. library: the paper's online softmax through its public entry points,
    with the launch counts set to 0 just before and read just after:
    ``dispatch.online_softmax`` under each softmax form (exact, bf16, exp2)
@@ -123,6 +139,7 @@ the path it was ported for); the last line is ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -204,6 +221,30 @@ SLOT_PARITY_ARGS = ["--continuous", "--requests", "3", "--slots", "2",
                     "--prompt-len", "40", "--tokens", "12", "--prefill-chunk",
                     "16"]
 LOCKSTEP_PARITY_ARGS = ["--batch", "2", "--prompt-len", "37", "--tokens", "8"]
+# the SLO runs of phase 4: 24 Poisson requests of the paged run's shapes
+# at 0.5 arrivals a tick, two priority classes, class 0 with a deadline,
+# and a pool cut from 168 blocks (8 slots x 21) to 112, where the run
+# preempts (the scheduler's decisions depend only on the lengths and
+# prompts, so a CPU rehearsal with a narrow model finds them); the router
+# run serves the same traffic without priorities through 2 replicas
+SLO_TRAFFIC = ["--continuous", "--paged", "--requests", "24", "--slots", "8",
+               "--prompt-len", "256", "--tokens", "64", "--block-size", "16",
+               "--prefill-chunk", "64", "--shared-prefix", "16", "--rate",
+               "0.5", "--blocks", "112"]
+SLO_ARGS = SLO_TRAFFIC + ["--priority-classes", "2", "--slo-ms", "5000"]
+ROUTER_ARGS = SLO_TRAFFIC + ["--replicas", "2"]
+# phase 5's SLO parity workload (preempts twice, evicts nothing) and its
+# routed form over 2 replicas, round-robin so both serve
+SLO_PARITY_ARGS = ["--continuous", "--paged", "--requests", "6", "--slots",
+                   "2", "--prompt-len", "32", "--tokens", "12",
+                   "--block-size", "16", "--prefill-chunk", "32",
+                   "--shared-prefix", "16", "--rate", "0.5", "--max-len",
+                   "80", "--blocks", "6", "--priority-classes", "2",
+                   "--slo-ms", "50"]
+ROUTER_PARITY_ARGS = SLO_PARITY_ARGS + ["--replicas", "2", "--no-affinity"]
+# a device sleep queued before every decode step of one parity run, so the
+# swap-in staging stream really runs beside a busy current stream
+DECODE_SLEEP_CYCLES = 20_000_000
 # the training run of phase 6 (the CLI's own flags), its 2-layer restart
 # runs, and the fp32 parity batch of phase 7
 TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "20", "--seq-len", "512",
@@ -1350,10 +1391,13 @@ def _implied_counts(sched, n_layers: int) -> dict:
     return want
 
 
-def _check_counts(what: str, counts: dict, want: dict) -> None:
+def _check_counts(what: str, counts: dict, want: dict, path=None) -> None:
     """Fail unless the launches equal the counters' and every kernel of
-    the path (and the sampler) launched."""
-    path = [k for k, p in KERNEL_PATH.items() if p == what] + ["softmax_topk"]
+    the path (``path``, else the kernels ported for ``what``, and the
+    sampler) launched."""
+    if path is None:
+        path = [k for k, p in KERNEL_PATH.items() if p == what]
+    path = list(path) + ["softmax_topk"]
     if counts != want or not all(want[k] for k in path):
         _fail(f"serve {what}: launches {counts}, the counters imply {want}")
 
@@ -1401,9 +1445,10 @@ def phase_serve():
         args = serve.parse_args(argv)
         run_cfg = serve.config_for(args)
         dispatch.reset_launch_counts()
-        report, eng, requests, _ = serve.run(args, run_cfg, params)
+        report, router, requests, _ = serve.run(args, run_cfg, params)
         torch.cuda.synchronize()
         counts[what] = dispatch.launch_counts()
+        eng = router.engines[0]
         sched = eng.scheduler
         _check_finished(what, report, requests, cfg.vocab_size)
         _check_counts(what, counts[what],
@@ -1421,6 +1466,7 @@ def phase_serve():
     print(f"serve pool bytes per cached token: {cfg.dtype} K/V {fp:.0f}, "
           f"int8 K/V + bf16 scales {q8:.0f} ({fp / q8:.3f}x the tokens in "
           f"the same bytes)")
+    _serve_slo(params, cfg, counts)
 
     for what, argv in (("lockstep", LOCKSTEP_ARGS),
                        ("lockstep int8", LOCKSTEP_ARGS + INT8)):
@@ -1445,6 +1491,193 @@ def phase_serve():
               f"{args.tokens - 1} decode steps and {args.tokens} samples "
               f"over {cfg.num_layers} layers")
     return counts, {"params": params, "cfg": cfg, "engines": engines}
+
+
+def _block_bytes(cfg, block_size: int) -> int:
+    """Bytes of one block over every layer's pool leaves, from the config
+    alone: K and V, plus a bf16 scale per (position, KV head) when they are
+    int8."""
+    import torch
+    from repro_torch.models import transformer
+    int8 = cfg.kv_cache_dtype == "int8"
+    item = 1 if int8 else transformer.DTYPES[cfg.dtype].itemsize
+    return 2 * cfg.num_layers * cfg.num_kv_heads * block_size * (
+        cfg.resolved_head_dim * item + (torch.bfloat16.itemsize if int8
+                                        else 0))
+
+
+@contextlib.contextmanager
+def _serving_probes(*, poison: bool = False, sleep_cycles: int = 0):
+    """Record the schedulers' decisions and swaps while the block is open:
+    yields (decisions, swaps, resumes), decisions as ("admit" | "resume" |
+    "preempt", rid) in order, swaps as (rid, entry kinds, blocks freed),
+    resumes as (rid, host blocks restored, whether ``swap_in`` restored
+    them from the prefetch's staged copy).
+    ``poison`` fills the blocks each ``PagedPool.swap_out`` frees, at once,
+    with NaN (int8: +127 in K, -127 in V, NaN in the scales), so a resumed
+    sequence that read pool memory instead of its host or staged copy
+    could not give its stream; ``sleep_cycles`` queues a device sleep
+    before every paged decode step."""
+    import torch
+    from repro_torch.serving import engine, paged, scheduler
+    sched_cls, pool_cls = scheduler.ContinuousScheduler, paged.PagedPool
+    saved = {n: getattr(sched_cls, n)
+             for n in ("_start_prefill", "_try_resume", "_swap_out")}
+    saved_swap, saved_decode = pool_cls.swap_out, engine.decode_step_paged
+    saved_swap_in = pool_cls.swap_in
+    decisions, swaps, resumes = [], [], []
+
+    def logged(name, kind, rid_of):
+        def call(self, arg):
+            ok = saved[name](self, arg)
+            if ok is not False:
+                decisions.append((kind, rid_of(arg)))
+            return ok
+        return call
+
+    def swap_out(self, slot, rid):
+        free_before = set(self.alloc._free)
+        rec = saved_swap(self, slot, rid)
+        freed = sorted(set(self.alloc._free) - free_before)
+        swaps.append((rid, tuple(k for k, _ in rec.entries), len(freed)))
+        if poison and freed:
+            for name, x in self.caches.items():
+                if x.dtype == torch.int8:
+                    x[:, freed] = 127 if name == "k" else -127
+                else:
+                    x[:, freed] = float("nan")
+        return rec
+
+    def swap_in(self, rid):
+        rec = self.swapped[rid]
+        staged = bool(rec.staged)
+        seq = saved_swap_in(self, rid)
+        if seq is not None:
+            resumes.append((rid, sum(k == "host" for k, _ in rec.entries),
+                            staged))
+        return seq
+
+    def decode_step_paged(*args, **kwargs):
+        torch.cuda._sleep(sleep_cycles)
+        return saved_decode(*args, **kwargs)
+
+    sched_cls._start_prefill = logged("_start_prefill", "admit",
+                                      lambda req: req.rid)
+    sched_cls._try_resume = logged("_try_resume", "resume", lambda rid: rid)
+    sched_cls._swap_out = logged("_swap_out", "preempt",
+                                 lambda flight: flight.req.rid)
+    pool_cls.swap_out = swap_out
+    pool_cls.swap_in = swap_in
+    if sleep_cycles:
+        engine.decode_step_paged = decode_step_paged
+    try:
+        yield decisions, swaps, resumes
+    finally:
+        for n, fn in saved.items():
+            setattr(sched_cls, n, fn)
+        pool_cls.swap_out = saved_swap
+        pool_cls.swap_in = saved_swap_in
+        engine.decode_step_paged = saved_decode
+
+
+def _check_prefetched(what: str, p: dict, resumes) -> str:
+    """Fail unless the run's resumes went through the staging stream: at
+    least one ``swap_in`` restored the prefetch's staged copy, the blocks
+    those resumes restored are the pool's ``swap_prefetched_blocks``, and
+    every resume's blocks add up to ``swapped_blocks_in``.  Returns the
+    summary for the run's line."""
+    staged = [n for _, n, from_staged in resumes if from_staged]
+    if not staged or p["swap_prefetched_blocks"] < 1:
+        _fail(f"{what}: no resume read a staged copy ({resumes}; {p})")
+    if sum(staged) != p["swap_prefetched_blocks"] or \
+            sum(n for _, n, _ in resumes) != p["swapped_blocks_in"]:
+        _fail(f"{what}: resumes {resumes} disagree with the pool's "
+              f"prefetched / swapped-in blocks {p}")
+    return (f"prefetched {p['swap_prefetched_blocks']} blocks = those of the "
+            f"{len(staged)} of {len(resumes)} resumes that restored the "
+            f"staged copy")
+
+
+def _serve_slo(params, cfg, counts: dict) -> None:
+    """Phase 4's SLO runs (bf16, then int8 K/V) and the router runs (with
+    prefix affinity, which sends this one-prefix traffic to one replica,
+    then round-robin, so both replicas decode), each between a reset and a
+    read of the launch counts."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    for what, argv in (("paged slo", SLO_ARGS),
+                       ("paged slo int8", SLO_ARGS + INT8),
+                       ("router", ROUTER_ARGS),
+                       ("router round-robin", ROUTER_ARGS + ["--no-affinity"])
+                       ):
+        args = serve.parse_args(argv)
+        run_cfg = serve.config_for(args)
+        with _serving_probes() as (_, swaps, resumes):
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            report, router, requests, _ = serve.run(args, run_cfg, params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts[what] = dispatch.launch_counts()
+        scheds = [e.scheduler for e in router.engines]
+        _check_finished(what, report, requests, cfg.vocab_size)
+        want = dict.fromkeys(KERNELS, 0)
+        for sched in scheds:
+            for k, n in _implied_counts(sched, cfg.num_layers).items():
+                want[k] += n
+        int8 = bool(args.kv_cache_dtype)
+        _check_counts(what, counts[what], want,
+                      path=(("flash_decode_paged_int8",
+                             "flash_attention_offset") if int8 else
+                            ("flash_decode_paged", "flash_attention_paged")))
+        p = report.paged
+        print(f"serve {what} launches: {counts[what]} = scheduler counters "
+              f"(decode steps {report.decode_steps}, prefill chunks "
+              f"{report.prefill_chunks}, {len(scheds)} engine(s)); "
+              f"{report.total_tokens} tokens in {wall:.1f}s, "
+              f"{report.tokens_per_s:.1f} tok/s")
+        if what.startswith("router"):
+            r = report.router
+            if sum(r["per_replica"]) != len(requests) or (
+                    args.no_affinity and min(r["per_replica"]) < 1):
+                _fail(f"serve {what}: assigned {r['per_replica']} of "
+                      f"{len(requests)} requests")
+            print(f"serve {what}: {r['replicas']} replicas sharing one copy "
+                  f"of the weights, per-replica requests {r['per_replica']}, "
+                  f"affinity routes {r['affinity_routes']}, backpressure "
+                  f"rejects {r['backpressure_rejects']}; merged "
+                  f"{report.tokens_per_s:.1f} tok/s over "
+                  f"{report.wall_time:.2f}s; blocks shared "
+                  f"{p['blocks_shared']}, prefix-cache hits "
+                  f"{p['prefix_cache_hits']}")
+            continue
+        per_block = _block_bytes(run_cfg, args.block_size)
+        if report.preemptions < 2:
+            _fail(f"serve {what}: {report.preemptions} preemptions at "
+                  f"--blocks {args.blocks} (need at least 2)")
+        if p["swapped_blocks_in"] != p["swapped_blocks_out"] or \
+                p["swapped_bytes_out"] != p["swapped_blocks_out"] * per_block:
+            _fail(f"serve {what}: swap counters {p} (a block is "
+                  f"{per_block} bytes)")
+        if int8:
+            _check_int8_run(what, report, scheds[0], requests)
+            if any("shared" in kinds for _, kinds, _ in swaps):
+                _fail(f"serve {what}: an int8 swap kept a shared block")
+        prefetched = _check_prefetched(f"serve {what}", p, resumes)
+        by_class = report.latency_percentiles_by_class((50, 95))
+        att = report.slo_attainment()
+        print(f"serve {what}: --blocks {args.blocks} of 168, preemptions "
+              f"{report.preemptions}, blocks swapped out "
+              f"{p['swapped_blocks_out']} = in {p['swapped_blocks_in']} "
+              f"({p['swapped_bytes_out']} bytes, {per_block} a block; "
+              f"entries {sum(len(k) for _, k, _ in swaps)} of which shared "
+              f"{sum(k.count('shared') for _, k, _ in swaps)}), "
+              f"{prefetched}; " + "; ".join(
+                  f"class {c} p50 {v['p50'] * 1e3:.1f} ms p95 "
+                  f"{v['p95'] * 1e3:.1f} ms" for c, v in by_class.items())
+              + f"; SLO attainment {att * 100:.1f}% at --slo-ms "
+              f"{args.slo_ms:g}")
 
 
 # ---------------------------------------------------------------------------
@@ -1527,6 +1760,85 @@ def phase_parity() -> None:
               f"cpu  {ids['cpu']}")
     print(f"parity lockstep: {ids['cpu'].size} token ids identical "
           f"({' '.join(LOCKSTEP_PARITY_ARGS)})")
+
+
+def _slo_parity_run(argv, cfg, params, device: str, **probes):
+    """One run of ``argv`` on ``device`` under a ``VirtualClock`` (deadline
+    slack reads the clock), quiet.  Returns (streams, decisions, pool
+    stats, preempted rids, swaps, resumes)."""
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.obs.clock import VirtualClock
+    args = serve.parse_args(argv + ["--device", device])
+    with _serving_probes(**probes) as (decisions, swaps, resumes), \
+            contextlib.redirect_stdout(io.StringIO()):
+        report, _, _, _ = serve.run(args, cfg, params, clock=VirtualClock())
+    return ({r.rid: r.tokens for r in report.results}, decisions,
+            report.paged, sorted(r.rid for r in report.results
+                                 if r.preempted), swaps, resumes)
+
+
+def phase_parity_slo() -> None:
+    """SLO scheduling with preempt-and-swap, and a 2-replica router, at
+    full width in fp32: on the card with every block a swap-out frees
+    poisoned at once, and on the CPU (plain versions, unpoisoned: they
+    multiply masked-out values by 0, which NaN survives), under virtual
+    clocks.  Streams, decisions and pool and swap stats must be identical;
+    every preempted request's stream must equal its run with
+    ``--no-preempt`` on the card; and a poisoned card run with a device
+    sleep queued before every decode step (the staging stream then copies
+    beside a busy current stream) must give the same streams again."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = serve.config_for(serve.parse_args(SLO_PARITY_ARGS)).replace(
+        dtype="float32")
+    params_cpu = transformer.init(cfg, seed=1, device="cpu")
+    params = {"cuda": transformer.params_to(params_cpu, "cuda"),
+              "cpu": params_cpu}
+    for what, argv in (("slo", SLO_PARITY_ARGS),
+                       ("router", ROUTER_PARITY_ARGS)):
+        t0 = time.perf_counter()
+        card = _slo_parity_run(argv, cfg, params["cuda"], "cuda",
+                               poison=True)
+        cpu = _slo_parity_run(argv, cfg, params["cpu"], "cpu")
+        for i, name in ((0, "token streams"), (1, "decisions"),
+                        (2, "pool and swap stats"), (5, "resume sources")):
+            if card[i] != cpu[i]:
+                _fail(f"parity {what}: {name} differ\ncuda {card[i]}\n"
+                      f"cpu  {cpu[i]}")
+        if len(card[3]) < 1 or card[2]["swapped_blocks_out"] < 1:
+            _fail(f"parity {what}: nothing was preempted ({card[2]})")
+        prefetched = _check_prefetched(f"parity {what}", card[2], card[5])
+        calm = _slo_parity_run(argv + ["--no-preempt"], cfg, params["cuda"],
+                               "cuda")
+        for rid in card[3]:
+            if card[0][rid] != calm[0][rid]:
+                _fail(f"parity {what}: preempted request {rid} gave "
+                      f"{card[0][rid]}, its never-preempted run "
+                      f"{calm[0][rid]}")
+        if calm[2]["swapped_blocks_out"]:
+            _fail(f"parity {what}: --no-preempt swapped {calm[2]}")
+        extra = ""
+        if what == "slo":
+            slept = _slo_parity_run(argv, cfg, params["cuda"], "cuda",
+                                    poison=True,
+                                    sleep_cycles=DECODE_SLEEP_CYCLES)
+            if slept[:3] != card[:3] or slept[5] != card[5]:
+                _fail(f"parity {what}: with a device sleep before each "
+                      f"decode step the run differs\nslept {slept[:3]} "
+                      f"{slept[5]}\ncard  {card[:3]} {card[5]}")
+            extra = (f"; again with {_sleep_ms(DECODE_SLEEP_CYCLES):.1f} ms "
+                     "of device sleep before every decode step: identical")
+        p = card[2]
+        print(f"parity {what}: card (freed blocks poisoned) and CPU "
+              f"identical: {sum(len(t) for t in card[0].values())} tokens, "
+              f"{len(card[1])} decisions "
+              f"({sum(k == 'preempt' for k, _ in card[1])} preemptions of "
+              f"rids {card[3]}), swapped blocks out {p['swapped_blocks_out']}"
+              f" = in {p['swapped_blocks_in']}, {prefetched}; preempted "
+              f"streams equal their "
+              f"--no-preempt runs{extra} ({time.perf_counter() - t0:.1f}s; "
+              f"{' '.join(argv)})")
 
 
 def _int8_first_step(params, cfg, prompts, *, device, mode: str,
@@ -1897,6 +2209,113 @@ def phase_steps(serve_ctx, train_ctx) -> None:
               f"device busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
               f"{100 - 100 * busy / wall:.1f}%), of which the port's "
               f"kernels {ours:.3f}ms")
+
+
+def phase_swap_times(serve_ctx) -> None:
+    """Preempt-and-swap on the card: ``swap_out`` and ``swap_in`` of one
+    21-block sequence of the idle bf16 paged pool, each from the host call
+    to the device's finish, ``prefetch_swap_in`` alone (to the staging
+    stream's finish) and ``swap_in`` after it, the bytes moved and the
+    copies' rate beside the host link's (a plain pinned ``copy_`` of the
+    same bytes, each way, CUDA events); then a decode step of the pool from
+    the host call to its tokens on the host, without and with one pending
+    prefetch issued right after the step, as the scheduler does."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import engine
+    params, cfg, engines = (serve_ctx[k]
+                            for k in ("params", "cfg", "engines"))
+    pool = engines["paged"].scheduler.pool
+    prompt = np.arange(320) + 7000        # 21 blocks with the first write
+    if pool.probe(prompt):
+        _fail("swap times: the timing prompt matched the prefix index")
+    seq = pool.admit(prompt)
+    pool.lens[seq.slot] = len(prompt)
+    n_blocks = len(seq.blocks)
+    nbytes = n_blocks * pool.block_bytes
+    rid = 10 ** 6
+
+    def host_to_finish(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    outs, ins, pre, ins_pre = [], [], [], []
+    for i in range(12):
+        ms, rec = host_to_finish(lambda: pool.swap_out(seq.slot, rid))
+        if i >= 2:
+            outs.append(ms)
+        if i % 2:
+            ms, staged = host_to_finish(lambda: pool.prefetch_swap_in(rid))
+            if staged != n_blocks:
+                _fail(f"swap times: staged {staged} of {n_blocks} blocks")
+            pre.append(ms)
+        ms, seq = host_to_finish(lambda: pool.swap_in(rid))
+        if i >= 2:
+            (ins_pre if i % 2 else ins).append(ms)
+    link = {}
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    link["device to host"] = _ms(lambda: host.copy_(dev, non_blocking=True))
+    link["host to device"] = _ms(lambda: dev.copy_(host, non_blocking=True))
+    gbs = {k: nbytes / v / 1e6 for k, v in link.items()}
+    med = {k: statistics.median(v) for k, v in (
+        ("out", outs), ("in", ins), ("prefetch", pre), ("in after", ins_pre))}
+    print(f"swap: one sequence of {n_blocks} blocks, {nbytes} bytes "
+          f"({pool.block_bytes} a block, bf16): swap_out "
+          f"{med['out']:.3f} ms host call to device finish "
+          f"({nbytes / med['out'] / 1e6:.2f} GB/s), swap_in from the host "
+          f"copy {med['in']:.3f} ms ({nbytes / med['in'] / 1e6:.2f} GB/s), "
+          f"prefetch_swap_in alone {med['prefetch']:.3f} ms "
+          f"({nbytes / med['prefetch'] / 1e6:.2f} GB/s), swap_in after it "
+          f"{med['in after']:.3f} ms; the host link, a pinned copy_ of the "
+          f"same bytes: device to host {link['device to host']:.3f} ms "
+          f"({gbs['device to host']:.2f} GB/s), host to device "
+          f"{link['host to device']:.3f} ms ({gbs['host to device']:.2f} "
+          "GB/s)")
+    # phase_steps' decode batch over the same pool (what the rows hold
+    # does not matter to the time)
+    n, m = pool.num_slots, pool.max_blocks
+    tables = torch.arange(1, n * m + 1, dtype=torch.int32,
+                          device="cuda").reshape(n, m)
+    lens = torch.tensor([328, 289, 250, 211, 172, 133, 94, 65],
+                        device="cuda")[:n]
+    toks = torch.ones((n, 1), dtype=torch.int64, device="cuda")
+    noise = torch.zeros((n, 5), device="cuda")
+
+    def step(prefetch: bool):
+        if prefetch:                      # a fresh, unstaged record
+            pool.swap_out(pool.swap_in(rid).slot, rid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, _, _ = engine.decode_step_paged(params, pool.caches, tables,
+                                             lens, toks, cfg, noise=noise,
+                                             top_k=5)
+        t1 = time.perf_counter()
+        if prefetch:
+            pool.prefetch_swap_in(rid)
+        t2 = time.perf_counter()
+        tok.cpu()
+        t3 = time.perf_counter()
+        return (t3 - t0) * 1e3, (t2 - t1) * 1e3
+
+    pool.swap_out(seq.slot, rid)
+    for flag in (False, True):
+        step(flag)
+    plain, with_pf = [], []
+    for _ in range(10):                   # in turns
+        plain.append(step(False)[0])
+        with_pf.append(step(True))
+    pool.release(pool.swap_in(rid).slot)
+    print(f"swap: decode step [B={n}, {cfg.num_layers} layers, bf16] host "
+          f"call to tokens on the host {statistics.median(plain):.3f} ms; "
+          f"with one pending prefetch of {n_blocks} blocks issued after the "
+          f"step {statistics.median([w for w, _ in with_pf]):.3f} ms (the "
+          f"prefetch call itself "
+          f"{statistics.median([p for _, p in with_pf]):.3f} ms of host "
+          "time)")
 
 
 def _sdpa(q, k, v, mask):
@@ -2705,10 +3124,12 @@ def main() -> int:
     counts, serve_ctx = _timed(phase_serve)
     _timed(phase_parity)
     _timed(phase_parity_int8)
+    _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
     _timed(phase_train_parity)
     times = _timed(phase_times)
     _timed(phase_steps, serve_ctx, train_ctx)
+    _timed(phase_swap_times, serve_ctx)
     counts["library"], lib_errs = _timed(phase_library)
     errs.update(lib_errs)
     kernels = []

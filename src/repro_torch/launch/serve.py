@@ -3,12 +3,19 @@ baseline.
 
 ``python -m repro_torch.launch.serve --continuous [--paged] [--smoke]
 [--device cpu]`` serves Poisson-staggered synthetic requests (the
-reference's workload generator, same draws) through one ``Engine`` — over
-the slot pool, or with ``--paged`` over the block pool with a shared
-synthetic prompt prefix — and prints the reference's report lines:
-throughput, p50/p95 per-token latency, decode steps and prefill chunks,
-occupancy against the drain-and-refill bound and, paged, the block pool's
-accounting.  Without ``--continuous`` the lockstep baseline runs: one batch
+reference's workload generator, same draws) through a ``ReplicaRouter`` of
+``--replicas`` engines (one by default; more are routed by prefix
+affinity, or round-robin with ``--no-affinity``) — over the slot pool, or
+with ``--paged`` over the block pool with a shared synthetic prompt prefix
+— and prints the reference's report lines: throughput, p50/p95 per-token
+latency, decode steps and prefill chunks, occupancy against the
+drain-and-refill bound, paged the block pool's accounting, and with more
+than one replica the router's.  ``--priority-classes N`` draws each
+request's class, ``--slo-ms`` gives class 0 a deadline, and paged a request
+that cannot be placed swaps out lower-priority decodes through host memory
+(``--no-preempt`` turns that off); the report then adds each class's
+latencies and phases, the SLO attainment and the preemption and swap
+counts.  Without ``--continuous`` the lockstep baseline runs: one batch
 of ``--batch`` prompts prefilled together, then decoded together at one
 shared cache length, reporting prefill and decode times and the first
 row's token ids.  The model runs on the card unless ``--device cpu`` asks
@@ -21,8 +28,7 @@ Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
 ``_continuous`` at 88, ``main`` at 264); weights and sampling generators
 come from seed 0.  The lockstep prompts come from a seeded numpy generator
 (``default_rng(1)``), not from ``jax.random.randint``, which the port does
-not reproduce.  ``--replicas > 1``, ``--priority-classes > 1`` (with
-int8 K/V too: preempt-and-swap of int8 pools), ``--trace`` and
+not reproduce.  Every replica shares the same weights.  ``--trace`` and
 ``--metrics`` are not ported yet and say so.
 """
 from __future__ import annotations
@@ -38,7 +44,7 @@ from repro_torch.models import transformer
 from repro_torch.obs import clock as obs_clock
 from repro_torch.serving import engine
 from repro_torch.serving import scheduler as sched_mod
-from repro_torch.serving.engine_api import Engine
+from repro_torch.serving.router import ReplicaRouter
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,9 +85,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "int8 K/V with a bf16 scale per position and KV "
                          "head, dequantized after the read; empty = config "
                          "default)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="priority classes of the workload (>1 draws each "
+                         "request's class; smaller = more urgent)")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="completion deadline of class-0 requests (0 = "
+                         "none)")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="no preempt-and-swap of lower-priority decodes "
+                         "(paged; priorities only order admission)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the router, sharing the "
+                         "weights")
+    ap.add_argument("--no-affinity", action="store_true",
+                    help="route round-robin instead of by prefix affinity")
     # reference options whose slices are not ported yet: they say so
-    ap.add_argument("--priority-classes", type=int, default=1)
-    ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--trace", default="")
     ap.add_argument("--metrics", action="store_true")
     return ap
@@ -92,17 +110,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous (the lockstep "
                          "baseline keeps its contiguous cache)")
-    not_ported = [
-        (args.kv_cache_dtype == "int8" and args.priority_classes > 1,
-         "--kv-cache-dtype int8 with --priority-classes > 1 "
-         "(preempt-and-swap of int8 pools)"),
-        (args.replicas > 1, "--replicas > 1 (the replica router)"),
-        (args.priority_classes > 1,
-         "--priority-classes > 1 (SLO scheduling)"),
-        (bool(args.trace), "--trace"),
-        (args.metrics, "--metrics"),
-    ]
-    for cond, what in not_ported:
+    for cond, what in ((bool(args.trace), "--trace"),
+                       (args.metrics, "--metrics")):
         if cond:
             raise SystemExit(f"repro_torch.launch.serve: {what} is not "
                              "ported yet (see ROADMAP.md)")
@@ -128,31 +137,42 @@ def workload(args, cfg) -> tuple[list, int]:
         prompt_lens=(max(2, args.prompt_len // 4), args.prompt_len),
         decode_lens=(max(2, args.tokens // 8), args.tokens),
         vocab=vocab, seed=1,
-        shared_prefix=args.shared_prefix if args.paged else 0)
+        shared_prefix=args.shared_prefix if args.paged else 0,
+        priority_classes=args.priority_classes, slo_ms=args.slo_ms or None)
     return requests, slot_len
 
 
-def run(args, cfg, params, *, noise_fn=None):
-    """Serve the CLI's workload through one ``Engine`` (sampling generators
-    from seed 0); print the report.  Returns (report, engine, requests,
-    slot_len)."""
+def run(args, cfg, params, *, noise_fn=None, clock=None):
+    """Serve the CLI's workload through a ``ReplicaRouter`` of
+    ``--replicas`` engines (sampling generators from seed 0; ``clock``, if
+    given, times every stamp); print the report.  Returns (report, router,
+    requests, slot_len)."""
     requests, slot_len = workload(args, cfg)
-    eng = Engine(params, cfg, num_slots=args.slots, slot_len=slot_len,
-                 prefill_chunk=args.prefill_chunk, top_k=args.top_k,
-                 seed=0, paged=args.paged, block_size=args.block_size,
-                 num_blocks=args.blocks or None, noise_fn=noise_fn,
-                 device=args.device)
-    report = eng.serve(requests)
+    router = ReplicaRouter(
+        params, cfg, replicas=args.replicas, affinity=not args.no_affinity,
+        num_slots=args.slots, slot_len=slot_len,
+        prefill_chunk=args.prefill_chunk, top_k=args.top_k, seed=0,
+        paged=args.paged, block_size=args.block_size,
+        num_blocks=args.blocks or None, preempt=not args.no_preempt,
+        clock=clock, noise_fn=noise_fn, device=args.device)
+    report = router.serve(requests)
     print_report(args, report, slot_len)
-    return report, eng, requests, slot_len
+    return report, router, requests, slot_len
+
+
+def _mean(vals) -> float:
+    vals = [v for v in vals if v is not None]
+    return sum(vals) / len(vals) if vals else 0.0
 
 
 def print_report(args, report, slot_len: int) -> None:
     pct = report.latency_percentiles((50, 95))
-    baseline = report.baseline_occupancy(args.slots)
+    baseline = report.baseline_occupancy(args.slots * args.replicas)
     mode = "paged continuous batching" if args.paged else "continuous batching"
+    where = (f"{args.slots} slots" if args.replicas == 1
+             else f"{args.replicas} replicas × {args.slots} slots")
     print(f"{mode}: {len(report.results)} requests over "
-          f"{args.slots} slots (slot_len={slot_len}, "
+          f"{where} (slot_len={slot_len}, "
           f"prefill_chunk={args.prefill_chunk})")
     print(f"tokens: {report.total_tokens} in {report.wall_time:.2f}s "
           f"→ {report.tokens_per_s:.1f} tok/s")
@@ -172,6 +192,33 @@ def print_report(args, report, slot_len: int) -> None:
         print(f"prefix cache: {p['cached_blocks']} blocks resident, "
               f"{p['prefix_cache_hits']} hits, "
               f"{p['reclaimed_blocks']} reclaimed under pressure")
+    if args.replicas > 1:
+        r = report.router
+        routing = "prefix-affinity" if r["affinity"] else "round-robin"
+        print(f"router: {routing}, per-replica requests "
+              f"{r['per_replica']}, affinity routes {r['affinity_routes']}")
+        if r["backpressure_rejects"]:
+            print(f"backpressure: {r['backpressure_rejects']} rejected "
+                  f"{r['rejected']}")
+    if args.priority_classes > 1:
+        for pr, pct_c in sorted(
+                report.latency_percentiles_by_class((50, 95)).items()):
+            rs = [r for r in report.results if r.priority == pr]
+            print(f"class {pr}: n={len(rs)} p50={pct_c['p50']*1e3:.1f}ms "
+                  f"p95={pct_c['p95']*1e3:.1f}ms "
+                  f"queued={_mean([r.queued_ms for r in rs]):.1f}ms "
+                  f"prefill={_mean([r.prefill_ms for r in rs]):.1f}ms "
+                  f"decode={_mean([r.decode_ms for r in rs]):.1f}ms "
+                  f"preemptions={sum(r.preempted for r in rs)}")
+        att = report.slo_attainment()
+        if att is not None:
+            bearing = sum(1 for r in report.results if r.slo_ms is not None)
+            print(f"SLO attainment: {att*100:.1f}% of {bearing} "
+                  f"deadline-bearing requests")
+        if p is not None:
+            print(f"preemptions: {report.preemptions} "
+                  f"(blocks swapped out: {p['swapped_blocks_out']}, "
+                  f"swapped back in: {p['swapped_blocks_in']})")
     evicted = [r.rid for r in report.results if r.evicted]
     if evicted:
         print(f"evicted at capacity: {evicted}")
@@ -233,7 +280,8 @@ def main(argv=None) -> int:
         lockstep(args, cfg, params)
         return 0
     report, _, _, _ = run(args, cfg, params)
-    if report.occupancy <= report.baseline_occupancy(args.slots):
+    if report.occupancy <= report.baseline_occupancy(args.slots
+                                                     * args.replicas):
         print("WARNING: occupancy did not beat the drain-and-refill baseline")
         return 1
     return 0

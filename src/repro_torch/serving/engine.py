@@ -8,15 +8,16 @@ sampling, for three serving shapes over one dense model.
   vector; a finished slot is overwritten by the next request's prefilled
   cache.
 * **Paged pool** (``init_paged_cache`` / ``copy_paged_block`` /
-  ``prefill_chunk_paged`` / ``decode_step_paged``): a shared block pool read
-  through block tables.
+  ``write_paged_block`` / ``prefill_chunk_paged`` / ``decode_step_paged``):
+  a shared block pool read through block tables.
 
 Port of ``src/repro/serving/engine.py`` for the dense family:
 ``init_cache`` (line 49), ``prefill`` (55), ``logits_from_hidden`` (69),
 ``decode_step`` (80), ``prefill_schedule`` (111), ``chunked_prefill`` (135),
 ``prefill_chunk`` (165), ``write_slot`` (182), ``sample_per_slot`` (199),
 ``decode_step_slots`` (218), ``init_paged_cache`` (251),
-``copy_paged_block`` (265), ``prefill_chunk_paged`` (291) and
+``copy_paged_block`` (265), ``write_paged_block`` (276),
+``prefill_chunk_paged`` (291) and
 ``decode_step_paged`` (305).  Caches and pools are updated in place (the JAX
 code returned new ones); functions still return them so the call sites read
 like the reference's.
@@ -167,6 +168,21 @@ def copy_paged_block(pools: dict, src: int, dst: int) -> dict:
     place — the copy-on-write primitive behind prefix-sharing divergence."""
     for pool in pools.values():
         pool[:, dst] = pool[:, src]
+    return pools
+
+
+def write_paged_block(pools: dict, blocks: dict, dst) -> dict:
+    """Write block contents into physical blocks ``dst`` (a list of ids) of
+    every pool leaf, in place — the swap-in restore primitive.  ``blocks``
+    maps each leaf name to [L, len(dst), ...], the leaf with its block axis
+    cut to those blocks (on any device; a copy from pinned host memory is
+    asynchronous).  Every leaf moves, so an int8 pool restores its scale
+    pages with the payload, and the write replaces whole blocks in the
+    pool's dtype: a swap round trip is bit-exact."""
+    device = next(iter(pools.values())).device
+    idx = torch.as_tensor(dst, dtype=torch.int64).to(device, non_blocking=True)
+    for name, pool in pools.items():
+        pool.index_copy_(1, idx, blocks[name].to(device, non_blocking=True))
     return pools
 
 

@@ -1,17 +1,32 @@
 """Paged KV-cache serving: block allocator, prefix sharing, block tables.
 
 Port of ``src/repro/serving/paged.py`` (``BlockAllocator`` line 80,
-``PrefixIndex`` 142, ``PagedSeq`` 231, ``PagedPool`` 283) for the token
-family.  The bookkeeping is plain Python and matches the reference's state
-exactly: admission with prefix sharing and copy-on-write at the divergence
-block, ``prepare_write`` before each decode step, ``finalize_prefill``,
-``release`` into the persistent LRU prefix cache, the cache's reclaim under
-pressure, ``probe``, ``device_tables(active_slots)`` with sentinel masking
-and ``stats``.  Physical block 0 is the reserved sentinel.  Preempt-and-swap
-(``swap_out``/``swap_in``) comes with the SLO slice.
+``PrefixIndex`` 142, ``PagedSeq`` 231, ``SwappedSeq`` 240, ``PagedPool``
+283) for the token family.  The bookkeeping is plain Python and matches the
+reference's state exactly: admission with prefix sharing and copy-on-write
+at the divergence block, ``prepare_write`` before each decode step,
+``finalize_prefill``, ``release`` into the persistent LRU prefix cache (or
+straight to the free list with ``persistent_prefix=False``), the cache's
+reclaim under pressure, ``probe``, ``device_tables(active_slots)`` with
+sentinel masking, preempt-and-swap (``swap_out`` / ``prefetch_swap_in`` /
+``swap_in``) and ``stats``.  Physical block 0 is the reserved sentinel.
 
 Tables and lengths live on the host (numpy); ``device_tables`` hands the
 engine a tensor on the pool's device for each step.
+
+The swap on the card.  ``swap_out`` gathers a victim's exclusively-held
+blocks with one ``index_select`` per pool leaf and copies them into pinned
+host memory with one asynchronous copy per leaf, both on the current
+stream; an event recorded after the copy marks the host copy complete.  The
+freed blocks may go to another sequence at once: its writes queue behind
+the copy on the same stream.  ``prefetch_swap_in`` stages the host copy
+back onto the card on a stream of its own, which first waits on that event,
+so the transfer overlaps a decode step already queued on the current
+stream; ``swap_in`` makes the current stream wait on the staging event
+before it writes the blocks back (``engine.write_paged_block``), and marks
+the staged tensors used on the current stream (``record_stream``) so the
+caching allocator does not hand their memory out while the write runs.  On
+the CPU plain copies do the same work.
 """
 from __future__ import annotations
 
@@ -152,6 +167,9 @@ class PrefixIndex:
                     if not bucket:
                         self._partial.pop(entry[1], None)
 
+    def __len__(self) -> int:
+        return len(self._full) + sum(len(b) for b in self._partial.values())
+
 
 @dataclass
 class PagedSeq:
@@ -160,6 +178,29 @@ class PagedSeq:
     prompt: np.ndarray
     blocks: list = field(default_factory=list)   # physical ids, logical order
     matched: int = 0                # prompt tokens adopted from the index
+
+
+@dataclass
+class SwappedSeq:
+    """A preempted sequence's host-side record (``PagedPool.swapped``).
+
+    ``entries`` mirrors the block list in logical order: ``("shared", bid)``
+    for a block another holder also references (kept resident, never
+    copied), ``("host", j)`` for an exclusively-held block whose content is
+    entry ``j`` of the block axis of ``host`` (leaf → [L, n, ...], pinned
+    memory on the card's pools) and whose physical block was freed.
+    ``length`` is the valid cache extent decode resumes from.  ``ready``
+    is recorded on the current stream after the device → host copy;
+    ``staged`` holds the device copy ``prefetch_swap_in`` made on the
+    staging stream, complete at ``staged_ready``."""
+    prompt: np.ndarray
+    matched: int
+    length: int
+    entries: list
+    host: dict = field(default_factory=dict)
+    ready: Optional[object] = None              # torch.cuda.Event
+    staged: dict = field(default_factory=dict)
+    staged_ready: Optional[object] = None       # torch.cuda.Event
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -171,13 +212,15 @@ class PagedPool:
 
     ``num_blocks`` usable blocks (default: every slot at full length) plus
     the sentinel block 0; ``slot_len`` must be a multiple of ``block_size``.
-    Indexed prompt blocks park in a persistent LRU prefix cache when their
-    last sequence retires, reclaimed coldest-first under pressure.
+    With ``persistent_prefix`` (default) indexed prompt blocks park in a
+    persistent LRU prefix cache when their last sequence retires, reclaimed
+    coldest-first under pressure; ``False`` frees them with their index
+    entries.
     """
 
     def __init__(self, cfg: ModelConfig, num_slots: int, slot_len: int,
                  block_size: int, num_blocks: Optional[int] = None,
-                 device="cuda"):
+                 persistent_prefix: bool = True, device="cuda"):
         self.cfg = cfg
         self.family = cache_family.resolve(cfg)
         self.family.validate_geometry(slot_len, block_size)
@@ -201,14 +244,27 @@ class PagedPool:
         self.tables = np.zeros((num_slots, self.max_blocks), np.int32)
         self._free_rows: deque[int] = deque(range(num_slots))
         self.seqs: dict[int, PagedSeq] = {}
+        self.persistent_prefix = persistent_prefix
         # LRU prefix cache: bid → None, insertion order = cold → hot; each
         # member holds exactly one allocator reference
         self._cached: dict[int, None] = {}
+        # host-side store of preempted sequences, keyed by request id
+        self.swapped: dict[int, SwappedSeq] = {}
+        # bytes of one physical block over every pool leaf
+        self.block_bytes = sum(x[:, 0].numel() * x.element_size()
+                               for x in self.caches.values())
+        self._staging = (torch.cuda.Stream(device=self.device)
+                         if self.device.type == "cuda" else None)
         self.blocks_shared = 0          # full blocks adopted via the index
         self.tokens_reused = 0          # prompt tokens whose prefill was skipped
         self.cow_copies = 0
         self.prefix_cache_hits = 0      # cache-held blocks revived by admission
         self.reclaimed_blocks = 0       # cold cached blocks fed to the free list
+        self.swapped_blocks_out = 0     # exclusive blocks copied to the host
+        self.swapped_blocks_in = 0      # host blocks restored by swap_in
+        self.swapped_bytes_out = 0      # payload bytes of those copies
+        self.swapped_bytes_in = 0
+        self.swap_prefetched_blocks = 0  # host blocks staged ahead of swap_in
         self.min_free_blocks = self.alloc.free_blocks
 
     @property
@@ -219,6 +275,15 @@ class PagedPool:
         """Whether a prompt of this length can ever be admitted."""
         return self.family.blocks_for_prompt(prompt_len, self.block_size) \
             <= self.alloc.num_blocks - 1
+
+    @property
+    def free_blocks(self) -> int:
+        return self.alloc.free_blocks
+
+    @property
+    def cached_blocks(self) -> int:
+        """Blocks parked in the persistent prefix cache (reclaimable)."""
+        return len(self._cached)
 
     # -- persistent prefix cache (LRU) --------------------------------------
     def _touch(self, bid: int) -> None:
@@ -412,7 +477,8 @@ class PagedPool:
         if seq is None:
             return
         for bid in seq.blocks:
-            if self.alloc.refcount(bid) == 1 and self.index.has_block(bid):
+            if (self.persistent_prefix and self.alloc.refcount(bid) == 1
+                    and self.index.has_block(bid)):
                 self._cached[bid] = None
                 continue
             if self.alloc.decref(bid):
@@ -420,6 +486,139 @@ class PagedPool:
         self.tables[slot, :] = self._sentinel
         self.lens[slot] = 0
         self._free_rows.append(slot)
+
+    # -- preempt-and-swap ---------------------------------------------------
+    def swap_out(self, slot: int, rid: int) -> SwappedSeq:
+        """Suspend ``slot``'s sequence to the host-side store under ``rid``.
+
+        Refcount-aware: a block shared with another live sequence or with
+        the prefix cache keeps this sequence's reference and is never copied
+        out.  The exclusively-held blocks are gathered and copied to the
+        host in one asynchronous copy per leaf (pinned memory on the card),
+        then freed.  The batch row, table row and length are released like a
+        retirement; ``swap_in`` rebuilds them."""
+        seq = self.seqs.pop(slot)
+        entries: list = []
+        out: list = []
+        for bid in seq.blocks:
+            if self.alloc.refcount(bid) > 1:
+                entries.append(("shared", bid))
+                continue
+            entries.append(("host", len(out)))
+            out.append(bid)
+        rec = SwappedSeq(prompt=seq.prompt, matched=seq.matched,
+                         length=int(self.lens[slot]), entries=entries)
+        if out:
+            rec.host, rec.ready = self._copy_out(out)
+            for bid in out:
+                if self.alloc.decref(bid):
+                    self.index.drop_block(bid)
+            self.swapped_blocks_out += len(out)
+            self.swapped_bytes_out += len(out) * self.block_bytes
+        self.swapped[rid] = rec
+        self.tables[slot, :] = self._sentinel
+        self.lens[slot] = 0
+        self._free_rows.append(slot)
+        return rec
+
+    def _copy_out(self, bids: list):
+        """Copies of blocks ``bids`` off the pool: (leaf → [L, n, ...] on
+        the host, the event after the copy, or None on the CPU)."""
+        idx = torch.as_tensor(bids, dtype=torch.int64).to(self.device,
+                                                           non_blocking=True)
+        host = {}
+        for name, x in self.caches.items():
+            blocks = x.index_select(1, idx)
+            if self.device.type == "cuda":
+                host[name] = torch.empty(blocks.shape, dtype=blocks.dtype,
+                                         pin_memory=True)
+                host[name].copy_(blocks, non_blocking=True)
+            else:
+                host[name] = blocks          # index_select copied already
+        if self.device.type != "cuda":
+            return host, None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return host, ready
+
+    def swap_in(self, rid: int) -> Optional[PagedSeq]:
+        """Resume the sequence ``swap_out`` stored under ``rid``: claim a
+        batch row, restore the host-copied blocks into freshly-allocated
+        blocks (reclaiming cold cached blocks if the free list runs short),
+        reattach the kept shared blocks and rebuild the table at the
+        suspended length — no re-prefill.  None when a row or the blocks are
+        unavailable; the record stays stored for a later attempt."""
+        rec = self.swapped[rid]
+        if not self._free_rows:
+            return None
+        kept = {e[1] for e in rec.entries if e[0] == "shared"}
+        need = sum(1 for e in rec.entries if e[0] == "host")
+        if self.alloc.free_blocks < need:
+            self._reclaim_until(need, exclude=kept)
+        if self.alloc.free_blocks < need:
+            return None
+        del self.swapped[rid]
+        slot = self._free_rows.popleft()
+        blocks: list = []
+        fresh: list = []
+        for kind, payload in rec.entries:
+            if kind == "shared":
+                blocks.append(payload)
+                self._touch(payload)
+                continue
+            bid = self.alloc.alloc()
+            blocks.append(bid)
+            fresh.append(bid)
+        if fresh:
+            engine.write_paged_block(self.caches, self._restore_source(rec),
+                                     fresh)
+            self.swapped_blocks_in += len(fresh)
+            self.swapped_bytes_in += len(fresh) * self.block_bytes
+        self.tables[slot, :] = self._sentinel
+        self.tables[slot, :len(blocks)] = blocks
+        self.lens[slot] = rec.length
+        seq = PagedSeq(slot=slot, prompt=rec.prompt, blocks=blocks,
+                       matched=rec.matched)
+        self.seqs[slot] = seq
+        self.min_free_blocks = min(self.min_free_blocks,
+                                   self.alloc.free_blocks)
+        return seq
+
+    def _restore_source(self, rec: SwappedSeq) -> dict:
+        """What ``swap_in`` writes back: the staged device copy, once the
+        current stream waits for it (and holds its memory until the write
+        ran), else the host copy."""
+        if not rec.staged:
+            return rec.host
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(rec.staged_ready)
+            for t in rec.staged.values():
+                t.record_stream(cur)
+        return rec.staged
+
+    def prefetch_swap_in(self, rid: int) -> int:
+        """Stage the suspended sequence's host blocks onto the pool's
+        device ahead of its ``swap_in``.  On the card the copies run on the
+        staging stream after the swap-out copy's event, overlapping whatever
+        the current stream has queued (the scheduler calls this right after
+        a decode step is issued).  Idempotent; returns the blocks newly
+        staged (0 for an unknown rid)."""
+        rec = self.swapped.get(rid)
+        if rec is None or rec.staged or not rec.host:
+            return 0
+        if self._staging is None:
+            rec.staged = {n: h.clone() for n, h in rec.host.items()}
+        else:
+            self._staging.wait_event(rec.ready)
+            with torch.cuda.stream(self._staging):
+                rec.staged = {n: h.to(self.device, non_blocking=True)
+                              for n, h in rec.host.items()}
+                rec.staged_ready = torch.cuda.Event()
+                rec.staged_ready.record(self._staging)
+        staged = sum(1 for e in rec.entries if e[0] == "host")
+        self.swap_prefetched_blocks += staged
+        return staged
 
     def stats(self) -> dict:
         return {
@@ -433,4 +632,9 @@ class PagedPool:
             "cached_blocks": len(self._cached),
             "prefix_cache_hits": self.prefix_cache_hits,
             "reclaimed_blocks": self.reclaimed_blocks,
+            "swapped_blocks_out": self.swapped_blocks_out,
+            "swapped_blocks_in": self.swapped_blocks_in,
+            "swapped_bytes_out": self.swapped_bytes_out,
+            "swapped_bytes_in": self.swapped_bytes_in,
+            "swap_prefetched_blocks": self.swap_prefetched_blocks,
         }

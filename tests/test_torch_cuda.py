@@ -183,7 +183,8 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
                            ("cpu", params_cpu)):
         args = serve.parse_args(argv + ["--device", device])
         dispatch.reset_launch_counts()
-        report, eng, _, _ = serve.run(args, cfg, params)
+        report, router, _, _ = serve.run(args, cfg, params)
+        eng = router.engines[0]
         runs[device] = (report, eng.scheduler, dispatch.launch_counts())
     (rep_g, sched, counts), (rep_c, _, cpu_counts) = runs["cuda"], runs["cpu"]
     assert {r.rid: r.tokens for r in rep_g.results} == \
@@ -223,7 +224,8 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
                            ("cpu", params_cpu)):
         args = serve.parse_args(pool_argv + ["--device", device])
         dispatch.reset_launch_counts()
-        report, eng, _, _ = serve.run(args, cfg, params)
+        report, router, _, _ = serve.run(args, cfg, params)
+        eng = router.engines[0]
         pool_counts = dispatch.launch_counts()
         dispatch.reset_launch_counts()
         ids = serve.lockstep(serve.parse_args(lock_argv + ["--device",
@@ -898,3 +900,60 @@ def test_softmax_topk_one_launch_across_slices(cuda, dtype):
                                    atol=0)
         assert not build.tickets(x.device, 8)[:8].any()
     assert dispatch.launch_counts()["softmax_topk"] == calls
+
+
+@pytest.mark.parametrize("prefetch", [False, True], ids=["host", "prefetched"])
+@pytest.mark.parametrize("kv", ["", "int8"], ids=["bf16", "int8"])
+def test_swap_round_trip_on_card(cuda, kv, prefetch):
+    """A full-width pool's swap-out → (prefetch) → swap-in restores every
+    leaf bit for bit (the int8 scale pages too), though the freed blocks
+    are poisoned and rewritten by their next owner at once, a device sleep
+    keeps the current stream busy, and nothing synchronizes the host
+    between the swap-out, the prefetch and the swap-in."""
+    from repro_torch.serving import paged
+    cfg = configs.get("smollm_360m")
+    if kv:
+        cfg = cfg.replace(kv_cache_dtype=kv)
+    pool = paged.PagedPool(cfg, num_slots=2, slot_len=64, block_size=16,
+                           num_blocks=3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def fill(bids, poison=False):
+        for x in pool.caches.values():
+            part = x[:, bids]
+            if poison:
+                part.fill_(127 if x.dtype == torch.int8 else float("nan"))
+            elif x.dtype == torch.int8:
+                part.copy_(torch.randint(-127, 128, part.shape, device=cuda,
+                                         generator=gen))
+            else:
+                part.copy_(torch.randn(part.shape, device=cuda,
+                                       generator=gen))
+            x[:, bids] = part
+
+    seq = pool.admit(np.arange(40))
+    fill(seq.blocks)
+    pool.lens[seq.slot] = 40
+    want = {n: x[:, seq.blocks].clone() for n, x in pool.caches.items()}
+    free_before = set(pool.alloc._free)
+    pool.swap_out(seq.slot, rid=7)
+    freed = sorted(set(pool.alloc._free) - free_before)
+    assert len(freed) == 3
+    fill(freed, poison=True)
+    other = pool.admit(np.arange(100, 140))
+    assert sorted(other.blocks) == freed
+    fill(other.blocks)                      # the next owner's writes
+    torch.cuda._sleep(50_000_000)           # the current stream stays busy
+    if prefetch:
+        assert pool.prefetch_swap_in(7) == 3
+    pool.release(other.slot)
+    s2 = pool.swap_in(7)
+    got = {n: x[:, s2.blocks].clone() for n, x in pool.caches.items()}
+    torch.cuda.synchronize()
+    for n in want:
+        assert torch.equal(got[n].view(torch.int8), want[n].view(torch.int8)), n
+    st = pool.stats()
+    assert st["swapped_blocks_out"] == st["swapped_blocks_in"] == 3
+    assert st["swapped_bytes_out"] == 3 * pool.block_bytes == 3 * (
+        337920 if kv else 655360)
+    assert st["swap_prefetched_blocks"] == (3 if prefetch else 0)

@@ -253,7 +253,8 @@ def readme_runs(model):
     params_ref, cfg_ref, params, cfg = model
     args = serve.parse_args(README_ARGS)
     requests, slot_len = serve.workload(args, cfg)
-    report, eng, _, _ = serve.run(args, cfg, params, noise_fn=ref_noise)
+    report, router, _, _ = serve.run(args, cfg, params, noise_fn=ref_noise)
+    eng = router.engines[0]
     ref_requests = RS.poisson_workload(
         args.requests, rate_per_tick=args.rate, prompt_lens=(2, 10),
         decode_lens=(2, 8), vocab=cfg_ref.vocab_size, seed=1,
@@ -407,15 +408,21 @@ def test_engine_rejects_bad_requests(model):
                          ids=["lockstep", "replicas", "priorities", "trace",
                               "metrics", "kv-int8"])
 def test_cli_unported_options_say_so(extra):
-    """Options whose slices are not ported yet are refused in either mode:
-    the lockstep case asks for metrics, and the int8 case for
-    preempt-and-swap of int8 pools (an int8 cache alone serves)."""
+    """Options whose slices are not ported yet (``--trace``, ``--metrics``)
+    are refused in either mode, saying so; the lockstep case asks for
+    metrics.  The router (``--replicas``), SLO scheduling
+    (``--priority-classes``) and preempt-and-swap of int8 pools are ported
+    and parse."""
     argv = (["--smoke", "--device", "cpu", "--metrics"]
             if extra is None
             else ["--smoke", "--continuous", "--paged"] + extra)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.parse_args(argv)
-    if extra is not None and "int8" in extra:
-        with pytest.raises(SystemExit, match="int8 pools"):
+    if extra is None or extra[0] in ("--trace", "--metrics"):
+        with pytest.raises(SystemExit, match="not ported yet"):
             serve.parse_args(argv)
-        assert serve.parse_args(argv[:-2]).kv_cache_dtype == "int8"
+        return
+    args = serve.parse_args(argv)
+    assert (args.replicas, args.priority_classes) == (
+        2 if "--replicas" in extra else 1,
+        2 if "--priority-classes" in extra else 1)
+    if "int8" in extra:
+        assert args.kv_cache_dtype == "int8"

@@ -304,7 +304,8 @@ def readme_runs(model):
     params_ref, cfg_ref, params, cfg = model
     args = serve.parse_args(README_ARGS)
     requests, slot_len = serve.workload(args, cfg)
-    report, eng, _, _ = serve.run(args, cfg, params, noise_fn=ref_noise)
+    report, router, _, _ = serve.run(args, cfg, params, noise_fn=ref_noise)
+    eng = router.engines[0]
     ref_requests = RS.poisson_workload(
         args.requests, rate_per_tick=args.rate, prompt_lens=(2, 10),
         decode_lens=(2, 8), vocab=cfg_ref.vocab_size, seed=1)
