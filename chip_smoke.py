@@ -131,7 +131,28 @@ printing its final line:
    ``dispatch.online_softmax`` on a requires-grad input, each with a
    backward and its fp32 gradient against the CPU's, and
    ``dispatch.online_normalizer`` raising for such an input (it has no
-   backward) rather than returning a detached result.
+   backward) rather than returning a detached result;
+10. observability, in a process of its own (so no other phase's
+   ``torch.profiler`` session runs before it, and its own runs before none
+   of theirs): phase 4's paged run five times, each with the launch
+   counts set to 0 just before it and read just after (equal to the
+   scheduler's counters, and for the ``--metrics`` run one decode step
+   more): untraced (warm-up), untraced, with ``--trace FILE``, with
+   ``--trace FILE --metrics`` (which replays its first decode step under
+   ``torch.profiler`` once the serve is over, the process's first
+   session) and untraced again; token
+   streams equal bit for bit across the five, both traces valid (every
+   span closed and nested) with one ``token`` instant per token, one
+   ``retire`` per request and every ``decode`` section inside a ``tick``,
+   the metrics counters equal to the report's, every op's kernel path
+   ``cuda`` with its count equal to the launch counts, and the profiled
+   decode step showing the split decode once per layer and the sampler
+   once; it prints each run's tok/s, each trace's host-side ``admit`` /
+   ``prefill`` / ``decode`` span sums, the profiled step's device time,
+   bound and kernels, and the kernel plans used; then the round-robin
+   router run with ``--trace DIR/``: both replica traces and the merged
+   one valid, pids 0 and 1, first ticks aligned, and ``python -m
+   repro_torch.obs.report`` exiting 0 on the merged file.
 
 The line before the last is a JSON object with one entry per kernel (with
 the path it was ported for); the last line is ``{"ok": true, "device":
@@ -566,7 +587,6 @@ def _check_softmax_topk(gen) -> float:
     kernel; then [70000, 1000] fp32, whose plan is one CTA a row (S = 1).
     Returns the fp32 k = 5 max abs error (values and lse)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     from repro_torch.kernels import softmax_topk as st
     sms = build.sm_count(torch.device("cuda"))
@@ -578,9 +598,7 @@ def _check_softmax_topk(gen) -> float:
             x = x.to(device="cuda", dtype=dtype)
             what = (f"softmax_topk [{r}, {v}] {str(dtype)[6:]} k={k} "
                     f"({p.slices} slices of {p.slice})")
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                got = st.softmax_topk(x, k)
-                torch.cuda.synchronize()
+            got, prof = _profiled(lambda: st.softmax_topk(x, k))
             seen = _launch_counts(prof)
             if seen != {"softmax_topk_kernel": 1}:
                 _fail(f"{what}: the profiler saw {seen}, not one launch of "
@@ -707,12 +725,12 @@ def _check_prefill(gen) -> float:
     in its last live page NaN; under torch.profiler, which must see that
     dtype's form (``PREFILL_FORMS``) and no other port kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     worst = 0.0
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         form, symbol = PREFILL_FORMS[str(dtype)[6:]]
-        errs = []
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def cases():
+            errs = []
             for bs in (8, 16, 32):
                 for tq, qoff, vlens in PREFILL_CASES:
                     q, kp, vp, tk, tp, vl = _paged_inputs(
@@ -729,7 +747,8 @@ def _check_prefill(gen) -> float:
                         _fail(f"flash_attention_paged {what}: lse of the "
                               "keyless row is not -inf")
                     errs.append(err)
-            torch.cuda.synchronize()
+            return errs
+        errs, prof = _profiled(cases)
         seen = _kernels_seen(prof)
         if seen != [symbol]:
             _fail(f"flash_attention_paged {str(dtype)[6:]}: the profiler saw "
@@ -848,12 +867,12 @@ def _check_offset(gen) -> float:
     torch.profiler, which must see that dtype's form (``OFFSET_FORMS``) and
     no other port kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     worst = 0.0
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        errs = []
         form, symbol = OFFSET_FORMS[str(dtype)[6:]]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def cases():
+            errs = []
             for tk, tq, qoff, vlens in _offset_cases():
                 inputs = _contiguous_inputs(gen, dtype=dtype, s=tk,
                                             vlens=vlens, tq=tq)
@@ -867,7 +886,8 @@ def _check_offset(gen) -> float:
                     _fail(f"flash_attention_offset {what}: lse of the "
                           "keyless row is not -inf")
                 errs.append(err)
-            torch.cuda.synchronize()
+            return errs
+        errs, prof = _profiled(cases)
         seen = _kernels_seen(prof)
         if seen != [symbol]:
             _fail(f"flash_attention_offset {str(dtype)[6:]}: the profiler "
@@ -945,6 +965,15 @@ def _kernels_seen(prof) -> list:
     return sorted(_launch_counts(prof))
 
 
+def _profiled(fn, cpu: bool = False):
+    """``fn()`` in one ``obs.kernels.profile_session`` (CUDA activity, and
+    CPU's with ``cpu``, up to a device synchronize, after a synchronized
+    warm-up launch; a session that launched kernels but recorded none runs
+    again, at most 3 in all): (its result, the profile)."""
+    from repro_torch.obs import kernels as obs_kernels
+    return obs_kernels.profile_session(fn, cpu=cpu)
+
+
 def _check_fresh(gen) -> dict:
     """The training kernels at T = 512 (the training run's), 37 (not a
     multiple of the 16- or 64-row tile) and 1, causal and not, B = 2, 15/5
@@ -955,7 +984,6 @@ def _check_fresh(gen) -> dict:
     reference entry); fp32 within 1e-5, bf16 within 2e-2.  Returns the bf16
     errors: the training path runs bf16."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
     worst = dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"), 0.0)
@@ -967,9 +995,8 @@ def _check_fresh(gen) -> dict:
             for causal in (True, False):
                 inputs = _fresh_inputs(gen, dtype=dtype, b=2, t=t)
                 if seen is None:
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        case = _fresh_errs(*inputs, causal)
+                    case, prof = _profiled(
+                        lambda: _fresh_errs(*inputs, causal), cpu=True)
                     seen = _kernels_seen(prof)
                     if seen != sorted(symbols):
                         _fail(f"fresh attention {str(dtype)[6:]}: the "
@@ -1287,7 +1314,6 @@ def _check_decode_splits(gen) -> dict:
     Returns the worst error per form, fp32 for the fp forms and bf16 for
     the int8 forms (the JSON line's convention)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_decode as fd
     hkv, bs, m, s = 5, 16, 21, 328
     worst = {}
@@ -1308,9 +1334,8 @@ def _check_decode_splits(gen) -> dict:
             vlens = _split_edges(plan, max_len, b, gen)
             q, kern, plain, vl = _decode_split_inputs(
                 gen, name, dtype, vlens, hkv=hkv, bs=bs, m=m, s=s)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                got = _decode_call(fd, name, q, kern, vl)
-                torch.cuda.synchronize()
+            got, prof = _profiled(
+                lambda: _decode_call(fd, name, q, kern, vl))
             again = _decode_call(fd, name, q, kern, vl)
             torch.cuda.synchronize()
             seen = _kernels_seen(prof)
@@ -3101,6 +3126,230 @@ def _library_kernel_times() -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 10: observability at full width
+# ---------------------------------------------------------------------------
+SECTIONS = ("admit", "prefill", "decode")      # the tick's section spans
+PROFILED_KERNELS = ("decode_paged_split_kernel", "softmax_topk_kernel")
+
+
+def _section_ms(events, pid: int = 0) -> dict:
+    """Sums of the scheduler track's section spans, and of its ticks, in
+    ms of host time."""
+    out = dict.fromkeys(("tick",) + SECTIONS, 0.0)
+    for e in events:
+        if e["ph"] == "X" and e["tid"] == 0 and e["pid"] == pid \
+                and e["name"] in out:
+            out[e["name"]] += e["dur"] / 1e3
+    return out
+
+
+def _check_trace(what: str, events, report, pids=(0,)) -> None:
+    """A trace validates, holds one token instant per generated token and
+    one retire per request, and nests every decode section in a tick."""
+    from repro_torch.obs import report as obs_report
+    problems = obs_report.validate(events)
+    if problems:
+        _fail(f"observability {what}: trace problems {problems[:5]}")
+    inst = [e for e in events if e["ph"] == "i"]
+    tokens = sum(e["name"] == "token" for e in inst)
+    retires = sum(e["name"] == "retire" for e in inst)
+    if tokens != report.total_tokens or retires != len(report.results):
+        _fail(f"observability {what}: {tokens} token and {retires} retire "
+              f"instants for {report.total_tokens} tokens and "
+              f"{len(report.results)} requests")
+    ticks = [e for e in events if e["ph"] == "X" and e["name"] == "tick"]
+    decodes = [e for e in events if e["ph"] == "X" and e["name"] == "decode"
+               and e["tid"] == 0]
+    if len(decodes) != report.decode_steps or not all(
+            any(t["pid"] == d["pid"] and t["ts"] <= d["ts"] and
+                d["ts"] + d["dur"] <= t["ts"] + t["dur"] for t in ticks)
+            for d in decodes):
+        _fail(f"observability {what}: {len(decodes)} decode spans for "
+              f"{report.decode_steps} steps, or one outside its tick")
+    got = sorted({e["pid"] for e in events})
+    if got != sorted(pids):
+        _fail(f"observability {what}: pids {got}, want {list(pids)}")
+
+
+def _serve_timed(params, cfg, argv):
+    """One serve of ``argv`` between a reset and a read of the launch
+    counts: (report, router, requests, launch counts, wall seconds)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    report, router, requests, _ = serve.run(args, cfg, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return report, router, requests, dispatch.launch_counts(), wall
+
+
+def phase_observability() -> None:
+    """Phase 4's paged run, in a process where ``torch.profiler`` has not
+    run yet: untraced twice (the first warms up), traced with ``--trace
+    FILE``, traced with ``--metrics`` too (its first decode step replayed
+    under the process's first profiler session once the serve is over),
+    and untraced again; each between a reset and a read of the launch
+    counts, which must equal the schedulers' counters (and the replayed
+    step's launches).  Streams equal bit for bit across all five; both
+    traces sound, with the report's counts; the metrics counters the
+    report's; each op's path ``cuda`` with the launch counts; the profiled
+    step's kernels.  Then the round-robin router run with ``--trace
+    DIR/``: both replica traces and the merged one valid, aligned on their
+    first ticks, and the report CLI exits 0 on the merged file."""
+    import tempfile
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.obs import kernels as obs_kernels
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import report as obs_report
+    cfg = serve.config_for(serve.parse_args(SERVE_ARGS))
+    params = transformer.init(cfg, seed=0, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {w: os.path.join(tmp, f"{w}.json")
+                 for w in ("traced", "metrics")}
+        runs = {}
+        for what, extra in (("warm-up", []), ("untraced", []),
+                            ("traced", ["--trace", paths["traced"]]),
+                            ("metrics", ["--trace", paths["metrics"],
+                                         "--metrics"]),
+                            ("after the profiler", [])):
+            if what == "metrics":
+                obs_metrics.reset()
+                obs_kernels.reset()
+            runs[what] = _serve_timed(params, cfg, SERVE_ARGS + extra)
+            report, router, requests, counts, _ = runs[what]
+            if what == "metrics":
+                prof, snap = obs_kernels.snapshot(), obs_metrics.snapshot()
+                obs_metrics.disable()
+                obs_kernels.disable_profiling()
+            _check_finished(f"observability {what}", report, requests,
+                            cfg.vocab_size)
+            want = _implied_counts(router.engines[0].scheduler,
+                                   cfg.num_layers)
+            if what == "metrics":       # the profile's replayed step
+                want["flash_decode_paged"] += cfg.num_layers
+                want["softmax_topk"] += 1
+            _check_counts("paged", counts, want)
+        eng = runs["metrics"][1].engines[0]
+        streams = {w: {r.rid: r.tokens for r in run[0].results}
+                   for w, run in runs.items()}
+        if any(st != streams["warm-up"] for st in streams.values()):
+            _fail("observability: streams differ between the untraced, "
+                  "traced and profiled runs")
+        events = {w: obs_report.load_trace(pth) for w, pth in paths.items()}
+        for w, ev in events.items():
+            _check_trace(w, ev, runs[w][0])
+        report, counts = runs["metrics"][0], runs["metrics"][3]
+        want = {"serving.tokens": report.total_tokens,
+                "serving.preemptions": report.preemptions,
+                "serving.occupancy": report.decode_steps}
+        got = {k: snap.get(k, {}).get("count" if k.endswith("occupancy")
+                                      else "value", 0) for k in want}
+        if got != want:
+            _fail(f"observability: metrics {got}, the report's {want}")
+        launched = {k for k, n in counts.items() if n}
+        if set(prof["paths"]) != launched or any(
+                (p["path"], p["count"]) != ("cuda", counts[op])
+                for op, p in prof["paths"].items()):
+            _fail(f"observability: kernel paths {prof['paths']}, launches "
+                  f"{counts}")
+        cost = prof["costs"]["decode_step_paged"]
+        seen = cost["kernels"]
+        calls = {k: seen.get(k, {}).get("calls") for k in PROFILED_KERNELS}
+        if calls != {"decode_paged_split_kernel": cfg.num_layers,
+                     "softmax_topk_kernel": 1}:
+            _fail(f"observability: the profiled decode step ran {calls} "
+                  f"(want {cfg.num_layers} split decodes, 1 sampler); it "
+                  f"saw {sorted(seen)[:40]}")
+        print(f"observability paged: {report.total_tokens} tokens, "
+              f"{report.decode_steps} decode steps, {report.prefill_chunks} "
+              "chunks; tok/s (wall s): " + "; ".join(
+                  f"{w} {run[0].tokens_per_s:.1f} ({run[4]:.2f})"
+                  for w, run in runs.items())
+              + f"; streams equal; traces valid ({len(events['traced'])} / "
+              f"{len(events['metrics'])} events), {report.total_tokens} "
+              f"token and {len(report.results)} retire instants; metrics "
+              f"{got}")
+        for w, ev in events.items():
+            sec = _section_ms(ev)
+            print(f"observability host spans, {w} run, sums over its "
+                  f"ticks: tick {sec['tick']:.1f} ms = " + " + ".join(
+                      f"{k} {sec[k]:.1f}" for k in SECTIONS)
+                  + f" + outside sections "
+                  f"{sec['tick'] - sum(sec[k] for k in SECTIONS):.1f}; "
+                  f"decode {sec['decode'] / report.decode_steps:.2f} ms a "
+                  f"step")
+        top = sorted(seen.items(), key=lambda kv: -kv[1]["ms"])
+        print(f"observability profiled decode step (B "
+              f"{eng.scheduler.pool.num_slots}, the run's first, replayed "
+              f"after the serve; {obs_kernels.dropped_sessions()} dropped "
+              f"session(s) run again): device "
+              f"{cost['device_ms']:.4f} ms over {len(seen)} kernels, bound "
+              f"{cost['bound_ms']:.4f} ms (flops {cost['flops']:.4g}, bytes "
+              f"{cost['bytes_accessed']:.4g}); " + "; ".join(
+                  f"{k} {v['ms']:.4f} ms x{v['calls']}" for k, v in top))
+        print("observability paths: " + ", ".join(
+            f"{op} {p['path']} x{p['count']}"
+            for op, p in prof["paths"].items()) + "; plans: " + "; ".join(
+                f"{k} -> {v}" for k, v in prof["autotune"].items()))
+
+        tdir = os.path.join(tmp, "router") + os.sep
+        report, router, _, counts, _ = _serve_timed(
+            params, cfg, ROUTER_ARGS + ["--no-affinity", "--trace", tdir])
+        want = dict.fromkeys(KERNELS, 0)
+        for e in router.engines:
+            for k, n in _implied_counts(e.scheduler, cfg.num_layers).items():
+                want[k] += n
+        _check_counts("paged", counts, want)
+        per = [obs_report.load_trace(os.path.join(tdir, f"replica{i}.json"))
+               for i in range(2)]
+        for i, ev in enumerate(per):
+            if obs_report.validate(ev) or {e["pid"] for e in ev} != {i}:
+                _fail(f"observability router: replica {i}'s trace")
+        merged = obs_report.load_trace(os.path.join(tdir, "merged.json"))
+        _check_trace("router merged", merged, report, pids=(0, 1))
+        firsts = [min(e["ts"] for e in merged if e["ph"] == "X"
+                      and e["name"] == "tick" and e["pid"] == pid)
+                  for pid in (0, 1)]
+        if firsts[0] != firsts[1]:
+            _fail(f"observability router: first ticks at {firsts}")
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report",
+             os.path.join(tdir, "merged.json")], capture_output=True,
+            text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+        if cli.returncode != 0:
+            _fail(f"observability router: report CLI exit {cli.returncode}:"
+                  f" {cli.stderr[-500:]}")
+        secs = [_section_ms(merged, pid) for pid in (0, 1)]
+        print(f"observability router: 2 replicas, {len(merged)} merged "
+              f"events, pids 0 and 1, first ticks both at "
+              f"{firsts[0]:.3f} us (the queued spans opened before them "
+              f"start at 0), per-replica requests "
+              f"{report.router['per_replica']}, {report.tokens_per_s:.1f} "
+              f"tok/s traced; report CLI exit 0; host tick ms "
+              + " / ".join(f"{s['tick']:.1f}" for s in secs))
+
+
+def phase_observability_process() -> None:
+    """Phase 10 in a child process, where ``torch.profiler`` has not run
+    (this process's phases 3 and 8 start it) and whose own session ends
+    with it; its lines print as it runs."""
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            "chip_smoke.phase_observability()")
+    sys.stdout.flush()
+    out = subprocess.run([sys.executable, "-c", code], timeout=900,
+                         env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(REPO, "src")))
+    if out.returncode != 0:
+        _fail(f"observability: its process exited {out.returncode}")
+
+
 def _timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3121,6 +3370,9 @@ def main() -> int:
     device = phase_device()
     _timed(phase_build)
     errs = _timed(phase_kernels)
+    from repro_torch.obs import kernels as obs_kernels
+    print(f"profiler: {obs_kernels.dropped_sessions()} session(s) of phase 3 "
+          "launched kernels but recorded no device event, and ran again")
     counts, serve_ctx = _timed(phase_serve)
     _timed(phase_parity)
     _timed(phase_parity_int8)
@@ -3132,6 +3384,7 @@ def main() -> int:
     _timed(phase_swap_times, serve_ctx)
     counts["library"], lib_errs = _timed(phase_library)
     errs.update(lib_errs)
+    _timed(phase_observability_process)
     kernels = []
     for name, meta in KERNELS.items():
         row, path = times[name], KERNEL_PATH[name]

@@ -42,7 +42,14 @@ mode a requires-grad input runs ``softmax_topk`` through
 Pallas normalizer), raises; on the CPU the plain versions carry autograd.
 The reference's autotuned vocab block (``tuned_block``/``block_decision``,
 300-360) is a TPU tile sweep with no Hopper meaning yet and has no
-counterpart.
+counterpart; the kernels' own plans (the decode and softmax+top-k splits)
+are recorded by their wrappers.
+
+Each op's path is recorded (``obs.kernels.record_path``, as the
+reference's ``lookup`` did at line 113) under the kernel's launch-count
+name: ``"cuda"`` by the kernel module where it counts a launch, so the
+counts equal ``launch_counts``; ``"cpu"`` here, where a plain version
+runs.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from repro_torch.kernels import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels import flash_decode as _flash_decode
 from repro_torch.kernels import online_softmax as _online_softmax
 from repro_torch.kernels import softmax_topk as _softmax_topk
+from repro_torch.obs import kernels as obs_kernels
 
 _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_decode_paged": _flash_decode,
@@ -134,6 +142,7 @@ def online_softmax(x, *, form: str | None = None):
             return ops.OnlineSoftmax.apply(x, form)
         return _online_softmax.online_softmax(x, form)
     _require_cpu(x, "online_softmax")
+    obs_kernels.record_path(_online_softmax.KERNEL_NAMES[form], "cpu")
     return _online_softmax.online_softmax_plain(x, form)
 
 
@@ -148,6 +157,7 @@ def online_normalizer(x):
                 "torch.no_grad() or on a detached input")
         return _online_softmax.online_normalizer(x)
     _require_cpu(x, "online_normalizer")
+    obs_kernels.record_path("online_normalizer", "cpu")
     return _online_softmax.online_normalizer_plain(x)
 
 
@@ -160,12 +170,13 @@ def softmax_topk(x, k: int,
     from the saved log-sum-exp (the reference is differentiable on every
     path and ignores the flag); otherwise the kernel runs bare (the serving
     path's logits need no gradient).  Both routes launch the kernel once."""
-    if differentiable or _wants_grad(x):
+    if differentiable or _wants_grad(x):  # its forward comes back here
         from repro_torch.kernels import ops
         return ops.softmax_topk(x, k)
     if x.device.type == "cuda":
         return _softmax_topk.softmax_topk(x, k)
     _require_cpu(x, "softmax_topk")
+    obs_kernels.record_path("softmax_topk", "cpu")
     return _softmax_topk.softmax_topk_plain(x, k)
 
 
@@ -205,6 +216,8 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
             q, k, v, q_offset, kv_valid_len, causal=causal)
         return out
     _require_cpu(q, "sdpa")
+    obs_kernels.record_path(_contiguous_op(decode, k_scale, kv_valid_len),
+                            "cpu")
     # the chunked online form: the plain version of both contiguous kernels
     # (flash_decode_plain, flash_attention_offset_plain) and of the fresh
     # forward (flash_attention_fwd_plain), differentiated by autograd
@@ -212,6 +225,14 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
                                  kv_valid_len=kv_valid_len,
                                  chunk_size=cfg.attn_chunk, scale=scale,
                                  k_scale=k_scale, v_scale=v_scale)
+
+
+def _contiguous_op(decode: bool, k_scale, kv_valid_len) -> str:
+    """The kernel whose plain version a contiguous attention call runs."""
+    if decode:
+        return "flash_decode_int8" if k_scale is not None else "flash_decode"
+    return ("flash_attention" if kv_valid_len is None
+            else "flash_attention_offset")
 
 
 def _require_kernel_form(q, v, scale, what: str) -> None:
@@ -239,6 +260,9 @@ def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,
             **scales)
         return out
     _require_cpu(q, "paged sdpa")
+    obs_kernels.record_path(
+        ("flash_decode_paged" if decode else "flash_attention_paged")
+        + ("_int8" if k_scale is not None else ""), "cpu")
     if decode:
         return _flash_decode.flash_decode_paged_plain(
             q, k, v, block_tables, kv_valid_len, chunk_size=cfg.attn_chunk,

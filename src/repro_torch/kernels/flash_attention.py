@@ -56,6 +56,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention_bwd as _bwd
 from repro_torch.kernels.flash_decode import (check_kv_dtypes, gather_pages,
                                               gather_scales)
+from repro_torch.obs import kernels as obs_kernels
 
 SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
 BQ = 16               # query rows of one CTA (csrc kPrefillRows)
@@ -237,6 +238,7 @@ def launch(args) -> None:
     entry, source, counted = _ENTRY.get(name, (name, name, name))
     build.call(entry, _ARGTYPES[name], args[1:], source=source)
     launches[counted] += 1
+    obs_kernels.record_path(counted, "cuda")
 
 
 def flash_attention_paged(q, k_pool, v_pool, q_offset, kv_valid_len,

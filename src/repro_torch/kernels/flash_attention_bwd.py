@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import kernels as obs_kernels
 
 SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
 
@@ -147,6 +148,7 @@ def launch(args) -> None:
     name = args[0]
     build.call(name, _ARGTYPES[name], args[1:], source="flash_attention_bwd")
     launches[name] += 1
+    obs_kernels.record_path(name, "cuda")
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True):

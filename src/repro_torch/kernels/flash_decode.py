@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core.attention import DEFAULT_CHUNK, online_attention
 from repro_torch.kernels import build
+from repro_torch.obs import kernels as obs_kernels
 
 SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
 MAX_GROUP = 8             # query heads a KV head (kDecodeMaxGroup)
@@ -212,6 +213,14 @@ def decode_plan(b: int, hkv: int, g: int, d: int, max_len: int, page: int,
                       b * hkv * splits * g * (d + 2))
 
 
+def _plan(*key) -> DecodePlan:
+    """:func:`decode_plan` of ``key``, recorded as the call's kernel plan
+    (``obs.kernels.record_autotune``)."""
+    plan = decode_plan(*key)
+    obs_kernels.record_autotune("decode_plan", key, plan)
+    return plan
+
+
 def _check_query(name, q, k, v, hkv, k_scale=None, v_scale=None):
     """Shared validation: a CUDA one-token query against K/V of q's dtype
     (or int8 with bf16 scales) and head_dim, in a GQA grouping."""
@@ -276,8 +285,7 @@ def prepare_paged(q, k_pool, v_pool, block_tables, kv_valid_len, *,
     _check_aligned("flash_decode_paged", kc, vc)
     tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     m = tables.shape[1]
-    plan = decode_plan(b, hkv, g, dh, m * bs, bs, kc.dtype,
-                       build.sm_count(dev))
+    plan = _plan(b, hkv, g, dh, m * bs, bs, kc.dtype, build.sm_count(dev))
     out = torch.empty_like(qc)
     work = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
     geometry = (code, b, hq, hkv, bs, dh, m, plan.split, plan.splits)
@@ -319,8 +327,8 @@ def prepare(q, k_cache, v_cache, kv_valid_len, *, k_scale=None,
     code = build.dtype_code(q)
     dev = q.device
     qc = q.contiguous()
-    plan = decode_plan(b, hkv, g, dh, s, CONTIGUOUS_TILE, k_cache.dtype,
-                       build.sm_count(dev))
+    plan = _plan(b, hkv, g, dh, s, CONTIGUOUS_TILE, k_cache.dtype,
+                 build.sm_count(dev))
     out = torch.empty_like(qc)
     work = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
     geometry = (code, b, hq, hkv, s, dh, plan.split, plan.splits, sb, ss, sh)
@@ -341,6 +349,7 @@ def launch(args) -> None:
     build.call(name, _ARGTYPES[name], args[1:],
                source=_SOURCE.get(name, name))
     launches[name] += 1
+    obs_kernels.record_path(name, "cuda")
 
 
 def flash_decode_paged(q, k_pool, v_pool, block_tables, kv_valid_len, *,

@@ -34,6 +34,7 @@ from repro_torch.core import softmax_forms
 from repro_torch.core.online_softmax import online_normalizer as _normalizer
 from repro_torch.core.online_softmax import online_softmax as _softmax
 from repro_torch.kernels import build
+from repro_torch.obs import kernels as obs_kernels
 
 VEC_BYTES = 16            # one vector load or store
 WARP_ROW_BYTES = 8192     # rows up to this size: one warp a row
@@ -244,6 +245,7 @@ def launch(call) -> None:
     entry, name, argtypes, args = call
     build.call(entry, argtypes, args, source="online_softmax")
     launches[name] += 1
+    obs_kernels.record_path(name, "cuda")
 
 
 def online_softmax(x: torch.Tensor, form: str = "exact") -> torch.Tensor:

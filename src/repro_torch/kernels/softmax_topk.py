@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.topk_fusion import SoftmaxTopK
 from repro_torch.core.topk_fusion import softmax_topk as _softmax_topk_core
 from repro_torch.kernels import build
+from repro_torch.obs import kernels as obs_kernels
 
 MAX_K = 32            # a warp's sorted list holds at most one entry a lane
 VEC_BYTES = 16        # one vector load
@@ -123,7 +124,9 @@ def prepare(x: torch.Tensor, k: int):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, v).contiguous()
     r = x2.shape[0]
-    p = plan(r, v, k, x.dtype, build.sm_count(x.device))
+    key = (r, v, k, x.dtype, build.sm_count(x.device))
+    p = plan(*key)
+    obs_kernels.record_autotune("softmax_topk_plan", key, p)
     s = p.slices
     dev = x.device
     vals = torch.empty((r, k), dtype=x.dtype, device=dev)
@@ -144,6 +147,7 @@ def launch(args) -> None:
     """Launch the kernel on prepared arguments (counts one launch)."""
     build.call("softmax_topk", _ARGTYPES, args)
     launches["softmax_topk"] += 1
+    obs_kernels.record_path("softmax_topk", "cuda")
 
 
 def softmax_topk(x: torch.Tensor, k: int) -> SoftmaxTopK:

@@ -15,25 +15,35 @@ request's class, ``--slo-ms`` gives class 0 a deadline, and paged a request
 that cannot be placed swaps out lower-priority decodes through host memory
 (``--no-preempt`` turns that off); the report then adds each class's
 latencies and phases, the SLO attainment and the preemption and swap
-counts.  Without ``--continuous`` the lockstep baseline runs: one batch
-of ``--batch`` prompts prefilled together, then decoded together at one
-shared cache length, reporting prefill and decode times and the first
-row's token ids.  The model runs on the card unless ``--device cpu`` asks
-for the CPU, where the kernels' plain versions serve.  ``--kv-cache-dtype
-int8`` stores K/V as int8 with a bf16 scale per (position, KV head) in
-every mode: each prompt prefills in one chunk, paged blocks are never
-shared, and decode reads the int8 cache through the dequantizing kernels.
+counts.  ``--trace FILE`` writes the serve's Chrome ``trace_event`` spans
+(one tracer shared by the replicas, a pid each), ``--trace DIR/`` one
+``replica{i}.json`` per replica plus a clock-aligned ``merged.json``;
+``--metrics`` turns the metrics registry and the kernel profile on and
+prints each op's kernel path, the profiled decode step's cost (on the card
+the first decode step is replayed under ``torch.profiler`` once the serve
+is over, so the serve's own numbers are taken without a profiler session)
+and the histograms.  Without ``--continuous`` the lockstep baseline runs:
+one batch of ``--batch`` prompts prefilled together, then decoded together
+at one shared cache length, reporting prefill and decode times and the
+first row's token ids.  The model runs on the card unless ``--device
+cpu`` asks for the CPU, where the kernels' plain versions serve.
+``--kv-cache-dtype int8`` stores K/V as int8 with a bf16 scale per
+(position, KV head) in every mode: each prompt prefills in one chunk, paged
+blocks are never shared, and decode reads the int8 cache through the
+dequantizing kernels.
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
 ``_continuous`` at 88, ``main`` at 264); weights and sampling generators
 come from seed 0.  The lockstep prompts come from a seeded numpy generator
 (``default_rng(1)``), not from ``jax.random.randint``, which the port does
 not reproduce.  Every replica shares the same weights.  ``--trace`` and
-``--metrics`` are not ported yet and say so.
+``--metrics`` serve the continuous mode only, as in the reference; the
+lockstep baseline refuses them.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -42,6 +52,10 @@ import repro_torch.configs as configs
 from repro_torch.core.topk_fusion import topk_sample
 from repro_torch.models import transformer
 from repro_torch.obs import clock as obs_clock
+from repro_torch.obs import kernels as obs_kernels
+from repro_torch.obs import merge as obs_merge
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import engine
 from repro_torch.serving import scheduler as sched_mod
 from repro_torch.serving.router import ReplicaRouter
@@ -99,9 +113,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "weights")
     ap.add_argument("--no-affinity", action="store_true",
                     help="route round-robin instead of by prefix affinity")
-    # reference options whose slices are not ported yet: they say so
-    ap.add_argument("--trace", default="")
-    ap.add_argument("--metrics", action="store_true")
+    ap.add_argument("--trace", default="",
+                    help="write request-lifecycle and scheduler spans to "
+                         "this Chrome trace_event file (continuous mode; "
+                         "open in Perfetto or summarize with "
+                         "repro_torch.obs.report); a directory (trailing "
+                         "'/' or an existing one) gets one replica{i}.json "
+                         "per replica plus a clock-aligned merged.json")
+    ap.add_argument("--metrics", action="store_true",
+                    help="turn on the metrics registry and the kernel "
+                         "profile (continuous mode); prints each op's "
+                         "kernel path, the profiled decode step's cost and "
+                         "the histograms after the run")
     return ap
 
 
@@ -112,9 +135,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "baseline keeps its contiguous cache)")
     for cond, what in ((bool(args.trace), "--trace"),
                        (args.metrics, "--metrics")):
-        if cond:
-            raise SystemExit(f"repro_torch.launch.serve: {what} is not "
-                             "ported yet (see ROADMAP.md)")
+        if cond and not args.continuous:
+            raise SystemExit(f"{what} requires --continuous (it traces and "
+                             "measures the continuous-batching scheduler)")
     return args
 
 
@@ -145,19 +168,79 @@ def workload(args, cfg) -> tuple[list, int]:
 def run(args, cfg, params, *, noise_fn=None, clock=None):
     """Serve the CLI's workload through a ``ReplicaRouter`` of
     ``--replicas`` engines (sampling generators from seed 0; ``clock``, if
-    given, times every stamp); print the report.  Returns (report, router,
-    requests, slot_len)."""
+    given, times every stamp and span); print the report, and with
+    ``--metrics`` / ``--trace`` what they recorded.  Returns (report,
+    router, requests, slot_len)."""
     requests, slot_len = workload(args, cfg)
+    if args.metrics:
+        obs_metrics.enable()
+        obs_kernels.enable_profiling()
+    tracer = tracers = trace_dir = None
+    if args.trace:
+        if args.trace.endswith(os.sep) or os.path.isdir(args.trace):
+            trace_dir = args.trace.rstrip(os.sep) or os.sep
+            os.makedirs(trace_dir, exist_ok=True)
+            tracers = [obs_trace.Tracer(
+                os.path.join(trace_dir, f"replica{i}.json"), clock=clock)
+                for i in range(args.replicas)]
+        else:
+            tracer = obs_trace.Tracer(args.trace, clock=clock)
     router = ReplicaRouter(
         params, cfg, replicas=args.replicas, affinity=not args.no_affinity,
         num_slots=args.slots, slot_len=slot_len,
         prefill_chunk=args.prefill_chunk, top_k=args.top_k, seed=0,
         paged=args.paged, block_size=args.block_size,
         num_blocks=args.blocks or None, preempt=not args.no_preempt,
-        clock=clock, noise_fn=noise_fn, device=args.device)
+        clock=clock, noise_fn=noise_fn, device=args.device, tracer=tracer,
+        tracers=tracers)
     report = router.serve(requests)
+    if tracer is not None:
+        tracer.close()
+    merged_path = None
+    if tracers is not None:
+        for t in tracers:
+            t.close()
+        merged_path = os.path.join(trace_dir, "merged.json")
+        obs_merge.merge_traces([t.path for t in tracers], out=merged_path)
     print_report(args, report, slot_len)
+    if args.metrics:
+        print_metrics()
+    if tracer is not None:
+        print(f"trace: {len(tracer.events)} events → {args.trace} "
+              f"(open in Perfetto, or: python -m repro_torch.obs.report "
+              f"{args.trace})")
+    if merged_path is not None:
+        print(f"trace: {args.replicas} per-replica files in {trace_dir}"
+              f"{os.sep} → merged view {merged_path} "
+              f"(open in Perfetto, or: python -m repro_torch.obs.report "
+              f"{merged_path})")
     return report, router, requests, slot_len
+
+
+def print_metrics() -> None:
+    """The reference's ``--metrics`` lines: each op's kernel path, each
+    profiled step's cost (with, from the card, its device and bound
+    times, profiled here, after the serve), each histogram and the
+    instrument count."""
+    obs_kernels.run_pending()
+    prof = obs_kernels.snapshot()
+    for op, rec in prof["paths"].items():
+        print(f"kernel path: {op} → {rec['path']} (×{rec['count']})")
+    for label, cost in prof["costs"].items():
+        line = (f"kernel cost: {label} flops={cost['flops']:.4g} "
+                f"bytes={cost['bytes_accessed']:.4g}")
+        if "device_ms" in cost:
+            line += (f" device_ms={cost['device_ms']:.4g} "
+                     f"bound_ms={cost['bound_ms']:.4g}")
+        print(line)
+    snap = obs_metrics.snapshot()
+    for mname, rec in snap.items():
+        if rec.get("type") != "histogram":
+            continue
+        print(f"metric {mname}: n={rec['count']} "
+              f"mean={rec['mean']:.4g} p50={rec['p50']:.4g} "
+              f"p95={rec['p95']:.4g}")
+    print(f"metrics: {len(snap)} instruments recorded")
 
 
 def _mean(vals) -> float:

@@ -6,21 +6,26 @@ pool) behind ``submit / step / drain / serve / stats``, and exposes the
 signals ``serving.router.ReplicaRouter`` routes on: ``load``,
 ``cache_probe`` and ``starved``.  ``ContinuousScheduler.run`` delegates to
 ``Engine.wrap(scheduler).serve``, so the CLI, the router and ``run`` drive
-the same loop.  ``kernel_profile`` comes with the observability slice.
+the same loop.  ``stats`` attaches the metrics registry's snapshot when
+the registry is on, and ``kernel_profile`` returns what
+``repro_torch.obs.kernels`` recorded, the queued step profiles run.
 """
 from __future__ import annotations
 
 from typing import Iterable, Optional
 
+from repro_torch.obs import kernels as obs_kernels
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
                                            RequestResult, ServeReport)
 
 
 class Engine:
     """One serving replica.  ``Engine(params, cfg, num_slots=...,
-    slot_len=..., paged=True, device="cuda", ...)`` takes the scheduler's
-    keyword arguments; ``paged=False`` serves from the slot pool.
-    ``Engine.wrap`` adopts a scheduler already built."""
+    slot_len=..., device="cuda", ...)`` takes the scheduler's keyword
+    arguments and, like it, serves from the slot pool unless ``paged=True``
+    asks for the block pool.  ``Engine.wrap`` adopts a scheduler already
+    built."""
 
     def __init__(self, params, cfg, **scheduler_kwargs):
         self._sched = ContinuousScheduler(params, cfg, **scheduler_kwargs)
@@ -110,7 +115,8 @@ class Engine:
 
     def stats(self) -> dict:
         """Live counters for routing and monitoring (the pool's and the
-        swap's merged in when paged)."""
+        swap's merged in when paged; the metrics registry's snapshot under
+        ``"metrics"`` when the registry is on)."""
         s = self._sched
         out = {"tick_count": s.tick_count,
                "decode_steps": s.decode_steps,
@@ -123,7 +129,17 @@ class Engine:
                "preemptions": s.preemptions}
         if s.paged:
             out.update(s.pool.stats())
+        if obs_metrics.enabled():
+            out["metrics"] = obs_metrics.snapshot()
         return out
+
+    def kernel_profile(self) -> dict:
+        """Dispatch paths, kernel plans and step costs that
+        ``repro_torch.obs.kernels`` recorded, after running the step
+        profiles queued while serving (on the card, one ``torch.profiler``
+        session each: call it once the serve's numbers are taken)."""
+        obs_kernels.run_pending()
+        return obs_kernels.snapshot()
 
     def cache_probe(self, prompt) -> int:
         """Tokens of ``prompt`` the pool's prefix index would serve without

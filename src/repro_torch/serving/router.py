@@ -22,13 +22,16 @@ the prompt lands in:
 Every replica is built from the same keyword arguments and shares the same
 parameter tensors (one copy of the weights on the card), and a request's
 noise is its own, so where a request lands never changes what it generates.
-The tracer hooks come with the observability slice.
+``tracer=`` shares one ``Tracer`` across the replicas, ``tracers=`` gives
+replica i its own; either way replica i traces under pid i.  With the
+metrics registry on, the router mirrors ``router.*`` metrics.
 """
 from __future__ import annotations
 
 from collections import deque
 from typing import Iterable, Optional
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serving.engine_api import Engine
 from repro_torch.serving.paged import PrefixIndex
 from repro_torch.serving.scheduler import Request, ServeReport
@@ -45,8 +48,19 @@ class ReplicaRouter:
                  affinity: bool = True, **engine_kwargs):
         if replicas < 1:
             raise ValueError(f"replicas must be ≥ 1 (got {replicas})")
-        self.engines = [Engine(params, cfg, **engine_kwargs)
-                        for _ in range(replicas)]
+        tracer = engine_kwargs.pop("tracer", None)
+        tracers = engine_kwargs.pop("tracers", None)
+        if tracers is not None:
+            if tracer is not None:
+                raise ValueError("pass tracer= or tracers=, not both")
+            if len(tracers) != replicas:
+                raise ValueError(f"tracers has {len(tracers)} entries for "
+                                 f"{replicas} replicas")
+        self.engines = [
+            Engine(params, cfg,
+                   tracer=tracers[i] if tracers is not None else tracer,
+                   trace_pid=i, **engine_kwargs)
+            for i in range(replicas)]
         self.block_size = int(engine_kwargs.get("block_size", 8))
         self.affinity = bool(affinity) and self.engines[0].paged
         self.backpressure = replicas > 1
@@ -100,6 +114,8 @@ class ReplicaRouter:
                 and all(e.starved(len(req.prompt)) for e in self.engines)):
             self.rejected.append(req.rid)
             self.backpressure_rejects += 1
+            if obs_metrics.enabled():
+                obs_metrics.counter("router.backpressure_rejects").inc()
             return None
         choice = self.route(req)
         self.engines[choice].submit(req)
@@ -112,6 +128,12 @@ class ReplicaRouter:
         busy = False
         for e in self.engines:
             busy = e.step() or busy
+        if obs_metrics.enabled():
+            # mirrors only: the plain ints stay the report's inputs
+            obs_metrics.gauge("router.affinity_routes").set(
+                self.affinity_routes)
+            for i, e in enumerate(self.engines):
+                obs_metrics.gauge(f"router.r{i}.load").set(e.load)
         return busy
 
     def serve(self, requests: Optional[Iterable[Request]] = None, *,

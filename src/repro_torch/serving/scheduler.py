@@ -45,12 +45,27 @@ and preempt-and-swap.
   token_index, k)`` overrides the generators (tests feed the reference's
   noise through it).
 
+* **Observability** — ``tracer`` (a ``repro_torch.obs.trace.Tracer``)
+  records the reference's events: per request a track ``rid + 1`` of
+  ``queued`` / ``prefill`` / ``decode`` / ``suspended`` phase spans,
+  ``prefill_chunk`` spans and ``token`` / ``preempt`` / ``retire``
+  instants; on track 0 a ``tick`` span holding ``admit`` / ``prefill`` /
+  ``decode`` spans (each only when it has work) and the ``sched`` /
+  ``blocks`` counters.  With the metrics registry on, the plain counters
+  are mirrored into ``serving.*`` (``serving.r{i}.*`` for replica i).  With
+  kernel profiling armed, the first decode step's cost is recorded and, on
+  the card, a replay of it on private copies of its inputs is queued for
+  ``obs.kernels.run_pending`` (``Engine.kernel_profile``), so no profiler
+  session runs while the scheduler serves.  Without a tracer, with the
+  registry off and profiling disarmed, the hot path does none of this.
+
 ``run`` serves through ``engine_api.Engine``, the loop every front end
-drives.  Not ported yet: end-of-sequence retirement, temperature, the
-tracer and metrics hooks (later slices; see ROADMAP.md).
+drives.  Not ported yet: end-of-sequence retirement and temperature (a
+later slice; see ROADMAP.md).
 """
 from __future__ import annotations
 
+import contextlib
 from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -61,6 +76,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.topk_fusion import gumbel_noise
 from repro_torch.obs import clock as obs_clock
+from repro_torch.obs import kernels as obs_kernels
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serving import cache_family, engine
 from repro_torch.serving.paged import PagedPool
 
@@ -307,6 +324,7 @@ class _InFlight:
     produced: int = 0                   # tokens sampled so far
     remaining: int = 0
     last_token_time: float = 0.0
+    span: object = None                 # open lifecycle span (tracing only)
 
 
 @dataclass
@@ -328,21 +346,24 @@ class ContinuousScheduler:
     Keyword arguments mirror the reference's: ``num_slots`` (decode batch
     rows), ``slot_len`` (per-sequence cache bound; paged, a multiple of
     ``block_size``), ``prefill_chunk``, ``top_k``, ``paged`` (the block
-    pool, or the slot pool when False), ``block_size`` / ``num_blocks``
-    (paged geometry), ``preempt`` (paged: let a request that cannot be
-    placed swap out a strictly-lower-priority decode; False leaves
-    priorities ordering-only) and ``clock`` (every latency and deadline
-    stamp; tests inject a ``VirtualClock``).  New here: ``seed`` for the
-    per-request generators, ``noise_fn`` to override them, and ``device`` —
-    ``"cuda"`` by default, ``"cpu"`` only when asked.
+    pool when True; the slot pool by default), ``block_size`` /
+    ``num_blocks`` (paged geometry), ``preempt`` (paged: let a request
+    that cannot be placed swap out a strictly-lower-priority decode; False
+    leaves priorities ordering-only), ``clock`` (every latency and deadline
+    stamp; tests inject a ``VirtualClock``) and ``tracer`` / ``trace_pid``
+    (the trace's process id, the replica index; no tracer by default).
+    New here: ``seed`` for the per-request generators, ``noise_fn`` to
+    override them, and ``device`` — ``"cuda"`` by default, ``"cpu"`` only
+    when asked.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, num_slots: int,
                  slot_len: int, prefill_chunk: int = 32, top_k: int = 5,
-                 seed: int = 0, paged: bool = True, block_size: int = 8,
+                 seed: int = 0, paged: bool = False, block_size: int = 8,
                  num_blocks: Optional[int] = None, preempt: bool = True,
                  clock: Optional[obs_clock.Clock] = None,
-                 noise_fn: Optional[NoiseFn] = None, device="cuda"):
+                 noise_fn: Optional[NoiseFn] = None, device="cuda",
+                 tracer=None, trace_pid: int = 0):
         self.params = params
         self.cfg = cfg
         self.family = cache_family.resolve(cfg)
@@ -350,6 +371,12 @@ class ContinuousScheduler:
         self.clock = clock or obs_clock.get()
         self.paged = paged
         self.preempt = preempt
+        self.tracer = tracer
+        self._pid = trace_pid
+        self._queued_spans: dict[int, object] = {}  # rid → open queued span
+        self._metrics = (self._build_metrics(trace_pid)
+                         if obs_metrics.enabled() else None)
+        self._profiled = False          # one kernel profile per scheduler
         self.pool = (PagedPool(cfg, num_slots, slot_len, block_size,
                                num_blocks, device=self.device) if paged
                      else SlotPool(cfg, num_slots, slot_len, self.device))
@@ -391,6 +418,62 @@ class ContinuousScheduler:
             self._generators[rid] = gen
         return gumbel_noise((self.k,), gen)
 
+    # -- observability ------------------------------------------------------
+    # The plain counters stay the inputs of ServeReport, the same with the
+    # registry on or off; the registry only mirrors them.
+    def _build_metrics(self, pid: int) -> dict:
+        prefix = f"serving.r{pid}" if pid else "serving"
+        m = {
+            "tokens": obs_metrics.counter(f"{prefix}.tokens"),
+            "preemptions": obs_metrics.counter(f"{prefix}.preemptions"),
+            "occupancy": obs_metrics.histogram(f"{prefix}.occupancy"),
+            "tick_ms": obs_metrics.histogram(f"{prefix}.tick_ms"),
+            "active": obs_metrics.gauge(f"{prefix}.active"),
+            "queue_depth": obs_metrics.gauge(f"{prefix}.queue_depth"),
+            "free_slots": obs_metrics.gauge(f"{prefix}.free_slots"),
+        }
+        if self.paged:
+            # free_blocks is a Gauge, so its .min is the low-water mark
+            for k in ("free_blocks", "cached_blocks", "prefix_cache_hits",
+                      "swapped_bytes_out", "swapped_bytes_in"):
+                m[k] = obs_metrics.gauge(f"{prefix}.{k}")
+        return m
+
+    def _update_metrics(self) -> None:
+        m = self._metrics
+        m["active"].set(len(self.active))
+        m["queue_depth"].set(len(self.queue) + len(self._suspended))
+        m["free_slots"].set(self.pool.free_slots)
+        if self.paged:
+            for k in ("free_blocks", "cached_blocks", "prefix_cache_hits",
+                      "swapped_bytes_out", "swapped_bytes_in"):
+                m[k].set(getattr(self.pool, k))
+
+    @staticmethod
+    def _tid(rid: int) -> int:
+        """Trace track of a request (track 0 is the scheduler's)."""
+        return rid + 1
+
+    def _span(self, name: str, args=None):
+        """A span on the scheduler's track; a no-op without a tracer."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, tid=0, pid=self._pid, args=args)
+
+    def _begin_phase(self, flight: _InFlight, name: str, args=None) -> None:
+        """Close the flight's current lifecycle span and open ``name``."""
+        if self.tracer is None:
+            return
+        if flight.span is not None:
+            self.tracer.end(flight.span)
+        flight.span = self.tracer.begin(
+            name, tid=self._tid(flight.req.rid), pid=self._pid, args=args)
+
+    def _end_phase(self, flight: _InFlight) -> None:
+        if self.tracer is not None and flight.span is not None:
+            self.tracer.end(flight.span)
+            flight.span = None
+
     # -- API ----------------------------------------------------------------
     def submit(self, req: Request) -> None:
         if len(req.prompt) == 0:
@@ -419,9 +502,38 @@ class ContinuousScheduler:
             if (r.arrival_tick <= self.tick_count
                     and r.rid not in self._arrival_times):
                 self._arrival_times[r.rid] = now
-        self._admit()
-        self._advance_prefill()
-        self._decode_tick()
+                if self.tracer is not None:
+                    self.tracer.thread_name(self._tid(r.rid), f"req {r.rid}",
+                                            pid=self._pid)
+                    self._queued_spans[r.rid] = self.tracer.begin(
+                        "queued", tid=self._tid(r.rid), pid=self._pid,
+                        args={"rid": r.rid, "priority": r.priority})
+        # section spans only when the section has work: idle sections are
+        # trace noise
+        with self._span("tick", args={"tick": self.tick_count}):
+            if self.queue:
+                with self._span("admit"):
+                    self._admit()
+            else:
+                self._admit()
+            if self._prefill is not None:
+                with self._span("prefill"):
+                    self._advance_prefill()
+            if self.active:
+                with self._span("decode"):
+                    self._decode_tick()
+        if self.tracer is not None:
+            self.tracer.counter("sched", {
+                "active": len(self.active), "queue": len(self.queue),
+                "free_slots": self.pool.free_slots}, pid=self._pid)
+            if self.paged:
+                self.tracer.counter("blocks", {
+                    "free": self.pool.free_blocks,
+                    "cached": self.pool.cached_blocks}, pid=self._pid)
+        if self._metrics is not None:
+            self._update_metrics()
+            self._metrics["tick_ms"].observe(
+                (self.clock.monotonic() - now) * 1e3)
 
     @property
     def busy(self) -> bool:
@@ -528,8 +640,20 @@ class ContinuousScheduler:
             "sizes": deque([rest] if self.family.single_shot_prefill
                            else engine.prefill_schedule(rest,
                                                         self.prefill_chunk))}
-        result.admitted_time = self.clock.monotonic()
+        self._admitted(flight)
         return True
+
+    def _admitted(self, flight: _InFlight) -> None:
+        """The queue wait ends: stamp it, and turn the request's track from
+        ``queued`` to ``prefill``."""
+        flight.result.admitted_time = self.clock.monotonic()
+        if self.tracer is not None:
+            span = self._queued_spans.pop(flight.req.rid, None)
+            if span is not None:
+                self.tracer.end(span)
+            flight.span = self.tracer.begin(
+                "prefill", tid=self._tid(flight.req.rid), pid=self._pid,
+                args={"prompt_len": flight.result.prompt_len})
 
     # -- preemption ---------------------------------------------------------
     def _make_room(self, priority: int, attempt) -> bool:
@@ -578,6 +702,13 @@ class ContinuousScheduler:
         flight.slot = -1
         flight.result.preempted += 1
         self.preemptions += 1
+        if self._metrics is not None:
+            self._metrics["preemptions"].inc()
+        if self.tracer is not None:
+            self.tracer.instant(
+                "preempt", tid=self._tid(flight.req.rid), pid=self._pid,
+                args={"cause": "priority", "produced": flight.produced})
+        self._begin_phase(flight, "suspended")
 
     def _prefetch_swap_in(self) -> None:
         """Stage the blocks of the suspended request likeliest to resume
@@ -598,6 +729,7 @@ class ContinuousScheduler:
         self.tokens[seq.slot] = rec.token
         self.active[seq.slot] = rec.flight
         del self._suspended[rid]
+        self._begin_phase(rec.flight, "decode", args={"resumed": True})
         return True
 
     # -- prefill ------------------------------------------------------------
@@ -612,6 +744,10 @@ class ContinuousScheduler:
             chunk = torch.as_tensor(
                 np.asarray(prompt[pf["pos"]:pf["pos"] + width], np.int64),
                 device=self.device)[None, :]
+            chunk_span = (self.tracer.begin(
+                "prefill_chunk", tid=self._tid(pf["flight"].req.rid),
+                pid=self._pid, args={"pos": pf["pos"], "width": width})
+                if self.tracer is not None else None)
             if self.paged:
                 pf["last"], _, pf["length"] = engine.prefill_chunk_paged(
                     self.params, self.pool.caches,
@@ -624,6 +760,8 @@ class ContinuousScheduler:
             self.prefill_chunks += 1
             self.chunk_widths[width] += 1
             budget -= 1
+            if chunk_span is not None:
+                self.tracer.end(chunk_span)
         if not pf["sizes"]:
             self._finish_prefill()
 
@@ -635,7 +773,9 @@ class ContinuousScheduler:
         noise = self._noise(flight.req.rid, 0)[None].to(self.device)
         tok = int(engine.sample_per_slot(logits, self.top_k, noise)[0])
         self.prefills_done += 1
+        # the first token closes the prefill phase
         self._record_token(flight, tok)
+        self._begin_phase(flight, "decode")
         if flight.remaining <= 0:
             self._finish(flight)
             return
@@ -688,16 +828,27 @@ class ContinuousScheduler:
         if self.paged:
             # non-active rows (idle or mid-prefill) see the sentinel table
             # row: their length-0 garbage write lands in block 0
-            tok, _, _ = engine.decode_step_paged(
-                self.params, self.pool.caches,
-                self.pool.device_tables(self.active.keys()), lens, toks,
-                self.cfg, noise=noise, top_k=self.top_k)
+            step, label = engine.decode_step_paged, "decode_step_paged"
+            args = (self.params, self.pool.caches,
+                    self.pool.device_tables(self.active.keys()), lens, toks,
+                    self.cfg)
         else:
             # idle slots decode at length 0: their garbage write lands at
             # position 0 of a free slot, which the next insert overwrites
-            tok, _, _ = engine.decode_step_slots(
-                self.params, self.pool.caches, lens, toks, self.cfg,
-                noise=noise, top_k=self.top_k)
+            step, label = engine.decode_step_slots, "decode_step"
+            args = (self.params, self.pool.caches, lens, toks, self.cfg)
+        if not self._profiled and obs_kernels.profiling_enabled():
+            # one-time profile of this step: its analytic cost from the
+            # live lengths now and, on the card, a replay on private copies
+            # once the serve is over (obs.kernels.run_pending)
+            self._profiled = True
+            cost = obs_kernels.decode_step_cost(
+                self.cfg, n, [int(self.pool.lens[s]) + 1
+                              for s in self.active])
+            obs_kernels.profile_step(
+                step, label, *self._step_copy(args), cost=cost,
+                device=self.device, noise=noise.clone(), top_k=self.top_k)
+        tok, _, _ = step(*args, noise=noise, top_k=self.top_k)
         # idle slots don't age
         self.pool.lens = np.where(active_mask, self.pool.lens + 1,
                                   0).astype(np.int32)
@@ -709,6 +860,8 @@ class ContinuousScheduler:
         self.tokens = tok_host
         self.decode_steps += 1
         self._occupancy_sum += len(self.active) / n
+        if self._metrics is not None:
+            self._metrics["occupancy"].observe(len(self.active) / n)
         for slot in list(self.active):
             flight = self.active[slot]
             self._record_token(flight, int(tok_host[slot]))
@@ -716,6 +869,23 @@ class ContinuousScheduler:
             if flight.remaining <= 0 or slot_full:
                 flight.result.evicted = slot_full and flight.remaining > 0
                 self._finish(flight)
+
+    def _step_copy(self, args: tuple) -> tuple:
+        """``args`` of a decode step with private copies of what it reads
+        and writes: paged, the pool's blocks its tables name, gathered and
+        renumbered (the live K/V only, the sentinel block among them);
+        unpaged, the slot caches.  Replaying the step on them leaves the
+        live pool as it is."""
+        if self.paged:
+            params, pools, tables, lens, toks, cfg = args
+            ids = torch.unique(tables)      # sorted
+            pools = {name: x.index_select(1, ids)
+                     for name, x in pools.items()}
+            tables = torch.searchsorted(ids, tables).to(tables.dtype)
+            return params, pools, tables, lens.clone(), toks.clone(), cfg
+        params, caches, lens, toks, cfg = args
+        caches = {name: x.clone() for name, x in caches.items()}
+        return params, caches, lens.clone(), toks.clone(), cfg
 
     # -- bookkeeping --------------------------------------------------------
     def _record_token(self, flight: _InFlight, token: int) -> None:
@@ -728,11 +898,24 @@ class ContinuousScheduler:
         else:
             result.record_latency(now - flight.last_token_time)
         flight.last_token_time = now
+        if self._metrics is not None:
+            self._metrics["tokens"].inc()
+        if self.tracer is not None:
+            self.tracer.instant(
+                "token", tid=self._tid(flight.req.rid), pid=self._pid,
+                args={"i": flight.produced, "token": token})
         flight.produced += 1
         flight.remaining -= 1
 
     def _finish(self, flight: _InFlight) -> None:
         flight.result.finish_time = self.clock.monotonic()
+        self._end_phase(flight)
+        if self.tracer is not None:
+            self.tracer.instant(
+                "retire", tid=self._tid(flight.req.rid), pid=self._pid,
+                args={"cause": ("evicted" if flight.result.evicted
+                                else "completed"),
+                      "tokens": len(flight.result.tokens)})
         self.finished.append(flight.result)
         self._generators.pop(flight.req.rid, None)
         if flight.slot >= 0:

@@ -7,8 +7,9 @@ Each kernel against its plain version at small shapes (fp32 tightly, bf16
 within bf16 rounding), the int8 forms with poisoned dead scales and scales
 read through non-contiguous views, a small model served on the card
 through the kernels against the same model served on the CPU through the
-plain versions, and one full-width train step through the training
-kernels.  No JAX is needed.  ``chip_smoke.py`` does the same at full width.
+plain versions, the kernel profile and trace of a served run, and one
+full-width train step through the training kernels.  No JAX is needed.
+``chip_smoke.py`` does the same at full width.
 """
 import numpy as np
 import pytest
@@ -205,6 +206,61 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
     assert np.isfinite(rep_g.tokens_per_s)
+
+
+def test_kernel_profile_and_trace_on_card(cuda, tmp_path):
+    """``--trace FILE --metrics`` on the card: the trace validates, every
+    op's path is ``cuda`` with its count equal to the launch counts (the
+    profile's replay of the first decode step included), and the profiled
+    step ran the split decode once per layer and the sampler once, within
+    a device time above its bound."""
+    from repro_torch.obs import kernels as obs_kernels
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import report as obs_report
+    cfg = configs.get_smoke("smollm_360m").replace(
+        num_heads=6, num_kv_heads=2, head_dim=64)
+    params = transformer.init(cfg, seed=4, device=cuda)
+    path = tmp_path / "t.json"
+    args = serve.parse_args(
+        ["--smoke", "--continuous", "--paged", "--requests", "4",
+         "--tokens", "6", "--prompt-len", "20", "--slots", "2",
+         "--prefill-chunk", "8", "--block-size", "8", "--device", "cuda",
+         "--trace", str(path), "--metrics"])
+    obs_kernels.reset()
+    dispatch.reset_launch_counts()
+    try:
+        report, router, _, _ = serve.run(args, cfg, params)
+        prof = router.engines[0].kernel_profile()
+    finally:
+        obs_metrics.disable()
+        obs_metrics.reset()
+        obs_kernels.disable_profiling()
+    counts = dispatch.launch_counts()
+    assert {op: (p["path"], p["count"]) for op, p in prof["paths"].items()} \
+        == {op: ("cuda", n) for op, n in counts.items() if n}
+    cost = prof["costs"]["decode_step_paged"]
+    assert cost["kernels"]["decode_paged_split_kernel"]["calls"] == \
+        cfg.num_layers
+    assert cost["kernels"]["softmax_topk_kernel"]["calls"] == 1
+    assert cost["device_ms"] > cost["bound_ms"] > 0
+    events = obs_report.load_trace(str(path))
+    assert obs_report.validate(events) == []
+    assert sum(e["name"] == "token" for e in events) == report.total_tokens
+
+
+def test_profile_step_raises_without_a_kernel(cuda):
+    """A queued step on the card that launches no kernel raises when it is
+    profiled, rather than recording an empty profile: only the analytic
+    cost stays."""
+    from repro_torch.obs import kernels as obs_kernels
+    cost = {"flops": 1.0, "bytes_accessed": 1.0, "dtype": "float32"}
+    obs_kernels.reset()
+    obs_kernels.profile_step(lambda: 0, "empty", cost=cost, device=cuda)
+    with pytest.raises(RuntimeError, match="launched none"):
+        obs_kernels.run_pending()
+    assert obs_kernels.snapshot()["costs"]["empty"] == {
+        "flops": 1.0, "bytes_accessed": 1.0}
+    obs_kernels.reset()
 
 
 def test_unpaged_streams_equal_on_card_and_cpu(cuda):

@@ -1,12 +1,14 @@
 """Policy pins of the port.
 
 * ``src/repro_torch/`` and ``chip_smoke.py`` import nothing of JAX and
-  nothing of the JAX package (grep), and the serving entry point imports
-  with JAX made unimportable (subprocess).
+  nothing of the JAX package (grep), the serving entry point and the
+  observability modules import with JAX made unimportable, and the report
+  and merge CLIs run so (subprocesses).
 * ``kernels/dispatch.py`` never names a plain version on its CUDA branches
   (source check): a CUDA tensor reaches its kernel or an error.
 """
 import ast
+import json
 import os
 import re
 import subprocess
@@ -15,6 +17,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OBS_MODULES = ("clock", "metrics", "trace", "report", "merge", "kernels")
 PORT = os.path.join(REPO, "src", "repro_torch")
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|import\s+repro\s*$"
@@ -30,9 +33,10 @@ def _port_files():
 
 def test_port_sources_exist():
     names = {os.path.relpath(p, REPO) for p in _port_files()}
-    for rel in ("chip_smoke.py", "src/repro_torch/kernels/dispatch.py",
+    for rel in ["chip_smoke.py", "src/repro_torch/kernels/dispatch.py",
                 "src/repro_torch/serving/scheduler.py",
-                "src/repro_torch/launch/serve.py"):
+                "src/repro_torch/launch/serve.py"] + [
+                    f"src/repro_torch/obs/{m}.py" for m in OBS_MODULES]:
         assert rel in names, rel
 
 
@@ -45,15 +49,45 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not hits, f"{os.path.relpath(path, REPO)} imports {hits}"
 
 
-def test_serve_entry_point_imports_without_jax():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['repro'] = None; "
-            "import repro_torch.launch.serve, repro_torch.kernels.dispatch; "
-            "print('ok')")
+_BLOCK_JAX = "import sys; sys.modules['jax'] = None; " \
+    "sys.modules['repro'] = None; "
+
+
+def _run_blocked(code: str, timeout: int = 300):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=300)
+    return subprocess.run([sys.executable, "-c", _BLOCK_JAX + code], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_serve_entry_point_imports_without_jax():
+    out = _run_blocked(
+        "import repro_torch.launch.serve, repro_torch.kernels.dispatch; "
+        + "".join(f"import repro_torch.obs.{m}; " for m in OBS_MODULES)
+        + "print('ok')")
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("cli", ["report", "merge"])
+def test_obs_clis_run_without_jax(cli, tmp_path):
+    """``python -m repro_torch.obs.report`` / ``.merge`` with JAX and the
+    JAX package unimportable, on two one-tick traces."""
+    paths = []
+    for pid in (0, 1):
+        path = tmp_path / f"r{pid}.json"
+        path.write_text(json.dumps([
+            {"name": "tick", "ph": "X", "cat": "serving", "pid": pid,
+             "tid": 0, "ts": 10.0 * (pid + 1), "dur": 5.0,
+             "args": {"tick": 1}}]))
+        paths.append(str(path))
+    argv = (paths[:1] if cli == "report"
+            else paths + ["--out", str(tmp_path / "merged.json")])
+    out = _run_blocked(
+        f"import runpy; sys.argv = {['x'] + argv!r}; "
+        f"runpy.run_module('repro_torch.obs.{cli}', run_name='__main__')",
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert ("trace OK" if cli == "report" else "merged 2 traces") in \
+        out.stdout
 
 
 def _cuda_branches(tree):

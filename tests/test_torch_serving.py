@@ -300,7 +300,7 @@ def test_batched_streams_equal_solo_streams(model):
     requests, slot_len = serve.workload(args, cfg)
     kw = dict(num_slots=args.slots, slot_len=slot_len,
               prefill_chunk=args.prefill_chunk, top_k=TOP_K, seed=11,
-              block_size=args.block_size, device="cpu")
+              paged=True, block_size=args.block_size, device="cpu")
     batched = Engine(params, cfg, **kw).serve(requests)
     got = {r.rid: r.tokens for r in batched.results}
     for req in requests:
@@ -377,8 +377,8 @@ def test_decode_tick_never_writes_inflight_prefill_blocks(model):
 def test_engine_rejects_bad_requests(model):
     _, _, params, cfg = model
     clock = VirtualClock(5.0)              # time moves only when advanced
-    eng = Engine(params, cfg, num_slots=2, slot_len=16, block_size=8,
-                 clock=clock, device="cpu")
+    eng = Engine(params, cfg, num_slots=2, slot_len=16, paged=True,
+                 block_size=8, clock=clock, device="cpu")
     with pytest.raises(ValueError, match="empty prompt"):
         eng.submit(scheduler.Request(rid=0, prompt=np.array([], np.int64),
                                      max_new_tokens=2))
@@ -408,21 +408,25 @@ def test_engine_rejects_bad_requests(model):
                          ids=["lockstep", "replicas", "priorities", "trace",
                               "metrics", "kv-int8"])
 def test_cli_unported_options_say_so(extra):
-    """Options whose slices are not ported yet (``--trace``, ``--metrics``)
-    are refused in either mode, saying so; the lockstep case asks for
-    metrics.  The router (``--replicas``), SLO scheduling
-    (``--priority-classes``) and preempt-and-swap of int8 pools are ported
-    and parse."""
+    """Every reference option is ported: the router (``--replicas``), SLO
+    scheduling (``--priority-classes``), preempt-and-swap of int8 pools,
+    ``--trace`` and ``--metrics`` parse in continuous mode.  The lockstep
+    case asks for metrics, which, as ``--trace``, serve the continuous mode
+    only (the reference's help says so), and is refused, saying why."""
     argv = (["--smoke", "--device", "cpu", "--metrics"]
             if extra is None
             else ["--smoke", "--continuous", "--paged"] + extra)
-    if extra is None or extra[0] in ("--trace", "--metrics"):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    if extra is None:
+        with pytest.raises(SystemExit, match="requires --continuous"):
             serve.parse_args(argv)
+        with pytest.raises(SystemExit, match="requires --continuous"):
+            serve.parse_args(["--smoke", "--trace", "t.json"])
         return
     args = serve.parse_args(argv)
     assert (args.replicas, args.priority_classes) == (
         2 if "--replicas" in extra else 1,
         2 if "--priority-classes" in extra else 1)
+    assert (args.trace, args.metrics) == (
+        "t.json" if "--trace" in extra else "", "--metrics" in extra)
     if "int8" in extra:
         assert args.kv_cache_dtype == "int8"

@@ -362,6 +362,30 @@ def test_paged_and_unpaged_serve_identical_streams(model):
         {r.rid: r.tokens for r in unpaged.results}
 
 
+def test_default_pool_equals_reference(model):
+    """Built without ``paged``, the port's ``ContinuousScheduler``,
+    ``Engine`` and ``ReplicaRouter`` serve from the slot pool as the
+    reference's do: ``paged`` False, a ``SlotPool``, router affinity off
+    (it needs paged replicas)."""
+    from repro.serving import router as RR
+    from repro_torch.serving.router import ReplicaRouter
+    params_ref, cfg_ref, params, cfg = model
+    kw = dict(num_slots=2, slot_len=16)
+    ref = (RS.ContinuousScheduler(params_ref, cfg_ref, **kw),
+           RA.Engine(params_ref, cfg_ref, **kw).scheduler,
+           RR.ReplicaRouter(params_ref, cfg_ref, replicas=2, **kw))
+    mine = (scheduler.ContinuousScheduler(params, cfg, device="cpu", **kw),
+            Engine(params, cfg, device="cpu", **kw).scheduler,
+            ReplicaRouter(params, cfg, replicas=2, device="cpu", **kw))
+
+    def view(scheds, router):
+        return ([(s.paged, type(s.pool).__name__) for s in scheds]
+                + [(e.paged, type(e.scheduler.pool).__name__)
+                   for e in router.engines] + [router.affinity])
+    assert view(mine[:2], mine[2]) == view(ref[:2], ref[2]) == \
+        [(False, "SlotPool")] * 4 + [False]
+
+
 def _ref_lockstep_noise(batch):
     """The reference ``_lockstep``'s draws: PRNGKey(3) for the token after
     the prefill, ``fold_in(PRNGKey(0), i)`` for decode step i."""
