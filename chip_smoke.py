@@ -47,7 +47,13 @@ printing its final line:
    four forms (paged and contiguous, fp and int8 K/V), fp32 and bf16: rows
    at vlen 0, 1, every split edge ± 1 and the full M·BS or S, one row for
    every count of live splits, everything past vlen poisoned, vlen 0 giving
-   exactly 0, and a second call bit-equal to the first;
+   exactly 0, and a second call bit-equal to the first; then the serving
+   kernels' head_dim-128 instances, each check above again at D 128 with
+   mistral-nemo-12b's 32/8 heads (G 4) and deepseek-coder-33b's 56/8 (G
+   7): the paged and contiguous cached prefills (bf16 through two 128-byte
+   swizzle atoms a row on the tensor cores, fp32 on the CUDA cores), the
+   int8 forms and the split decode's edges in its four forms, and the
+   sampler at their vocabularies, [8, 131072] and [8, 32256];
 4. serve: smollm-360m at full width in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
    counts set to 0 just before it and read just after: ``Engine`` with the
@@ -63,7 +69,17 @@ printing its final line:
    swapped out, bytes equal to blocks times a block's bytes from the
    config, no int8 block kept shared; and the same traffic without
    classes through a 2-replica router; launch counts equal to the
-   schedulers' counters in each;
+   schedulers' counters in each; then mistral-nemo-12b at full width (40
+   layers, bf16, weights drawn on the card from seed 0) through the same
+   paged, slot-pool and lockstep workloads and the int8 paged and slot-pool
+   ones, each between a reset and a read of the launch counts (equal to the
+   counters, every attention op a head_dim-128 instance), its pools' bytes
+   per cached token against the config's, each run's peak device memory,
+   and its "step" lines (a B 8 decode step of each pool and a 64-token
+   paged prefill chunk, host call to device finish against device busy,
+   the port's kernels and the weights' byte bound); and deepseek-coder-33b
+   at full width and ``DEEPSEEK_LAYERS`` of its 62 layers through the paged
+   and slot-pool workloads;
 5. parity: short full-width fp32 workloads of the three paths, once on the
    card through the kernels and once on the CPU through the plain versions;
    token streams (and the paged pool's stats) must be identical; for the
@@ -78,6 +94,9 @@ printing its final line:
    decisions (admissions, resumes, preemptions) and pool and swap stats
    identical, each preempted stream equal to its ``--no-preempt`` run, and
    the same again with a device sleep queued before every decode step;
+   and mistral-nemo-12b at full width cut to 2 layers in fp32: the paged,
+   slot-pool and lockstep parity workloads' streams identical on the card
+   (head_dim-128 kernels) and the CPU;
 6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
    at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
    the end, with the launch counts set to 0 just before it and read just
@@ -91,7 +110,9 @@ printing its final line:
    and on the CPU through the plain versions, from the same weights;
 8. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
-   the serving and training paths' shapes, beside its bound, its plain
+   the serving and training paths' shapes (the serving kernels' D-128
+   instances at mistral-nemo-12b's, the sampler at V 131072 and 32256),
+   beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
    and an int8 single-shot prefill beside SDPA, with each call's device
@@ -161,6 +182,7 @@ the path it was ported for); the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -380,9 +402,12 @@ def phase_build() -> None:
     for name, log in build.BUILD_LOG.items():
         for kernel, info in _ptxas_report(log).items():
             extra = ""
-            if kernel in WGMMA_SMEM:
-                fn = getattr(build.library(name), WGMMA_SMEM[kernel])
-                extra = f", {fn()} bytes dynamic smem (wgmma form)"
+            base, _, arg = kernel.partition("<")
+            if base in WGMMA_SMEM:
+                fn = getattr(build.library(name), WGMMA_SMEM[base])
+                fn.argtypes = [ctypes.c_int] if arg else []
+                smem = fn(int(arg.rstrip(">"))) if arg else fn()
+                extra = f", {smem} bytes dynamic smem (wgmma form)"
             print(f"  ptxas {name} {kernel}: {info['registers']} registers, "
                   f"{info['smem']} bytes static smem, spill stores "
                   f"{info['spill_stores']} / loads {info['spill_loads']} "
@@ -393,28 +418,38 @@ def phase_build() -> None:
 
 
 # the one-token decode's plans at the serving paths' shapes: (what, B, M·BS
-# or S, page, K/V dtype); 5 KV heads of 3 query heads, D 64
+# or S, page, K/V dtype), at each model's heads: smollm-360m's 5 KV heads of
+# 3 query heads at D 64, then mistral-nemo-12b's 8 of 4 and
+# deepseek-coder-33b's 8 of 7 at D 128
 DECODE_PLANS = (("paged, bf16 pool", 8, 21 * 16, 16, "bfloat16"),
                 ("paged, int8 pool", 8, 21 * 16, 16, "int8"),
                 ("slot pool, bf16 caches", 8, 328, 16, "bfloat16"),
                 ("slot pool, int8 caches", 8, 328, 16, "int8"),
                 ("lockstep, bf16 caches", 4, 288, 16, "bfloat16"))
+MODEL_HEADS = (("smollm-360m", 5, 3, 64), ("mistral-nemo-12b", 8, 4, 128),
+               ("deepseek-coder-33b", 8, 7, 128))
+# the head_dim-128 models, (model, Hkv, G, D): their kernels' checks run at
+# both groups, G 7 being the first that is no power of two
+HEAD_DIM_128 = MODEL_HEADS[1:]
 
 
 def _print_decode_plans() -> None:
     """The split decode kernels' dynamic shared memory depends on the
-    split the wrapper plans: print the plan at each serving path's shape."""
+    split the wrapper plans: print the plan at each serving path's shape,
+    for each model's heads."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_decode as fd
     sms = build.sm_count(torch.device("cuda"))
-    for what, b, max_len, page, dtype in DECODE_PLANS:
-        p = fd.decode_plan(b, 5, 3, 64, max_len, page, getattr(torch, dtype),
-                           sms)
-        print(f"  decode plan {what} [B={b}, {max_len} positions, {sms} "
-              f"SMs]: split {p.split} x {p.splits} ({b * 5 * p.splits} "
-              f"CTAs of {p.threads} threads), {p.smem} bytes dynamic smem a "
-              f"split CTA, {4 * p.workspace} bytes of partials")
+    for model, hkv, g, d in MODEL_HEADS:
+        for what, b, max_len, page, dtype in DECODE_PLANS:
+            p = fd.decode_plan(b, hkv, g, d, max_len, page,
+                               getattr(torch, dtype), sms)
+            print(f"  decode plan {model} (Hkv {hkv}, G {g}, D {d}) {what} "
+                  f"[B={b}, {max_len} positions, {sms} SMs]: split "
+                  f"{p.split} x {p.splits} ({b * hkv * p.splits} CTAs of "
+                  f"{p.threads} threads), {p.smem} bytes dynamic smem a "
+                  f"split CTA, {4 * p.workspace} bytes of partials")
 
 
 # the fused softmax+top-k's plans: (what, R, V, k, logits dtype): the
@@ -424,6 +459,10 @@ def _print_decode_plans() -> None:
 TOPK_PLANS = (("decode sampling, 8 slots", 8, 49152, 5, "float32"),
               ("lockstep sampling, batch 4", 4, 49152, 5, "float32"),
               ("first token of a prefill", 1, 49152, 5, "float32"),
+              ("mistral-nemo-12b decode sampling", 8, 131072, 5, "float32"),
+              ("mistral-nemo-12b first token", 1, 131072, 5, "float32"),
+              ("deepseek-coder-33b decode sampling", 8, 32256, 5,
+               "float32"),
               ("library, bf16 logits", 4096, 49152, 5, "bfloat16"),
               ("library, 70000 rows", 70000, 1000, 5, "float32"))
 
@@ -444,18 +483,22 @@ def _print_topk_plans() -> None:
 
 
 def _print_paged_prefill_grid() -> None:
-    """The paged prefill's grid at the serving run's chunk (B 1, Tq 64, 15
-    query heads): bf16 one warpgroup a 64-row query tile and head, fp32 one
-    CTA a 16-row tile and head."""
+    """The paged prefill's grid at the serving run's chunk (B 1, Tq 64) for
+    each model's query heads: bf16 one warpgroup a 64-row query tile and
+    head, fp32 one CTA a 16-row tile and head."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
-    b, tq, hq = 1, 64, 15
-    smem = build.library("flash_attention_paged") \
-        .flash_attention_paged_wgmma_smem()
-    print(f"  paged prefill grid [B={b}, Tq={tq}, Hq={hq}]: bf16 "
-          f"{-(-tq // 64) * b * hq} CTAs of 128 threads (paged_wgmma_kernel, "
-          f"{smem} bytes dynamic smem), fp32 {-(-tq // fa.BQ) * b * hq} CTAs "
-          "of 128 threads (prefill_paged_kernel)")
+    fn = build.library("flash_attention_paged") \
+        .flash_attention_paged_wgmma_smem
+    fn.argtypes = [ctypes.c_int]
+    b, tq = 1, 64
+    for model, hkv, g, d in MODEL_HEADS:
+        hq = hkv * g
+        print(f"  paged prefill grid {model} [B={b}, Tq={tq}, Hq={hq}, "
+              f"D={d}]: bf16 {-(-tq // 64) * b * hq} CTAs of 128 threads "
+              f"(paged_wgmma_kernel, {fn(d)} bytes dynamic smem), fp32 "
+              f"{-(-tq // fa.BQ) * b * hq} CTAs of 128 threads "
+              "(prefill_paged_kernel)")
 
 
 # the tensor-core kernels and the C function giving each one's dynamic
@@ -562,35 +605,37 @@ def _topk_input(gen, r, v, slice_len):
     """x [r, v] fp32 (on the host) with the sampler's hard cases at the
     plan's slice edges: row 1 five exact ties at the top, two straddling
     each of the first two slice edges; row 2 a padded vocabulary (-inf past
-    40000); row 3 constant (ties across every edge); row 4 its second slice
-    all -inf, row 5 its first.  Returns (x, row 1's tied indices)."""
+    40000, or past 7/8 of a shorter row); row 3 constant (ties across every
+    edge); row 4 its second slice all -inf, row 5 its first.  Returns (x,
+    row 1's tied indices)."""
     import torch
     x = torch.randn(r, v, generator=gen) * 4.0
     ties = sorted({17, slice_len - 1, slice_len, 2 * slice_len - 1,
                    2 * slice_len})
     x[1, ties] = float(x[1].max()) + 1.0
-    x[2, 40000:] = float("-inf")
+    x[2, min(40000, v - v // 8):] = float("-inf")
     x[3, :] = x[3, 0]
     x[4, slice_len:2 * slice_len] = float("-inf")
     x[5, :slice_len] = float("-inf")
     return x, ties
 
 
-def _check_softmax_topk(gen) -> float:
+def _check_softmax_topk(gen, v: int = 49152) -> float:
     """The fused softmax+top-k against its plain version at the decode
-    batch's logits [8, 49152] (``_topk_input``: ties straddling the plan's
+    batch's logits [8, v] (``_topk_input``: ties straddling the plan's
     slice edges, an all -inf slice, a padded vocabulary, a constant row) at
     k = 1, 5 and 32, fp32 and bf16: indices equal, values and lse within
     rtol 1e-5 (bf16 values within one bf16 ulp, rtol 2^-7), row 1's ties in
     index order, a second call bit-equal to the first, and the profiler
     seeing one launch of ``softmax_topk_kernel`` a call and no other port
-    kernel; then [70000, 1000] fp32, whose plan is one CTA a row (S = 1).
-    Returns the fp32 k = 5 max abs error (values and lse)."""
+    kernel; then, at smollm-360m's vocabulary, [70000, 1000] fp32, whose
+    plan is one CTA a row (S = 1).  Returns the fp32 k = 5 max abs error
+    (values and lse)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import softmax_topk as st
     sms = build.sm_count(torch.device("cuda"))
-    r, v, worst = 8, 49152, 0.0
+    r, worst = 8, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for k in (1, 5, 32):
             p = st.plan(r, v, k, dtype, sms)
@@ -632,6 +677,8 @@ def _check_softmax_topk(gen) -> float:
                   f"constant row), max abs err {err:.3g} (values rtol "
                   f"{vrtol:.3g}, lse 1e-5); one softmax_topk_kernel launch "
                   "seen by the profiler; a repeat bit-equal")
+    if v != 49152:
+        return worst
     rows, v = TOPK_ROWS
     p = st.plan(rows, v, 5, torch.float32, sms)
     if p.slices != 1:
@@ -718,7 +765,7 @@ PREFILL_FORMS = {"float32": ("CUDA cores", "prefill_paged_kernel"),
                  "bfloat16": ("tensor cores (wgmma)", "paged_wgmma_kernel")}
 
 
-def _check_prefill(gen) -> float:
+def _check_prefill(gen, hkv: int = 5, g: int = 3, d: int = 64) -> float:
     """Every case of ``PREFILL_CASES`` at BS 8, 16 and 32, fp32 (atol 1e-5)
     and bf16 (atol 2e-2), over shuffled (non-monotonic) tables with every
     dead entry pointing at a NaN page and every position past a row's vlen
@@ -734,12 +781,14 @@ def _check_prefill(gen) -> float:
             for bs in (8, 16, 32):
                 for tq, qoff, vlens in PREFILL_CASES:
                     q, kp, vp, tk, tp, vl = _paged_inputs(
-                        gen, dtype=dtype, bs=bs, vlens=vlens, tq=tq)
+                        gen, dtype=dtype, bs=bs, vlens=vlens, tq=tq,
+                        hkv=hkv, g=g, d=d)
                     (kk, kpl), (vk, vpl) = (_poisoned_tails(x, tk, vlens, bs)
                                             for x in (kp, vp))
                     qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
-                    what = (f"{str(dtype)[6:]} BS={bs} B={len(vlens)} "
-                            f"Tq={tq} q_offset={qoff} vlen={vlens}")
+                    what = (f"{str(dtype)[6:]} D={d} G={g} BS={bs} "
+                            f"B={len(vlens)} Tq={tq} q_offset={qoff} "
+                            f"vlen={vlens}")
                     err, lse = _prefill_err(q, kk, vk, qo, vl, tk, tp, what,
                                             atol, plain_pools=(kpl, vpl))
                     if 0 in vlens and not torch.isneginf(
@@ -755,7 +804,8 @@ def _check_prefill(gen) -> float:
                   f"{seen}, the {form} form is {symbol}")
         if dtype == torch.float32:
             worst = max(errs)
-        print(f"kernel flash_attention_paged {str(dtype)[6:]} ({form}, "
+        print(f"kernel flash_attention_paged {str(dtype)[6:]} "
+              f"{hkv * g}/{hkv} heads D {d} ({form}, "
               f"{symbol}): {len(errs)} cases (BS 8/16/32; Tq 37/64/65/130/36 "
               f"at q_offset 0..192, off the 64-key tile, a keyless row, a "
               f"vlen ending mid-page in the second key tile; shuffled "
@@ -861,7 +911,7 @@ OFFSET_FORMS = {"float32": ("CUDA cores", "prefill_offset_kernel"),
                 "bfloat16": ("tensor cores (wgmma)", "offset_wgmma_kernel")}
 
 
-def _check_offset(gen) -> float:
+def _check_offset(gen, hkv: int = 5, g: int = 3, d: int = 64) -> float:
     """Every case of ``_offset_cases`` in fp32 (atol 1e-5) and bf16 (atol
     2e-2), K/V NaN at and past each row's valid length, under
     torch.profiler, which must see that dtype's form (``OFFSET_FORMS``) and
@@ -875,11 +925,12 @@ def _check_offset(gen) -> float:
             errs = []
             for tk, tq, qoff, vlens in _offset_cases():
                 inputs = _contiguous_inputs(gen, dtype=dtype, s=tk,
-                                            vlens=vlens, tq=tq)
+                                            vlens=vlens, tq=tq, hkv=hkv,
+                                            g=g, d=d)
                 qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
                 vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
-                what = (f"{str(dtype)[6:]} B={len(vlens)} Tk={tk} Tq={tq} "
-                        f"q_offset={qoff} vlen={vlens}")
+                what = (f"{str(dtype)[6:]} D={d} G={g} B={len(vlens)} "
+                        f"Tk={tk} Tq={tq} q_offset={qoff} vlen={vlens}")
                 err, lse = _offset_err(inputs, qo, vl, what, atol)
                 if 0 in vlens and not torch.isneginf(
                         lse[vlens.index(0)]).all():
@@ -894,7 +945,8 @@ def _check_offset(gen) -> float:
                   f"saw {seen}, the {form} form is {symbol}")
         if dtype == torch.float32:
             worst = max(errs)
-        print(f"kernel flash_attention_offset {str(dtype)[6:]} ({form}, "
+        print(f"kernel flash_attention_offset {str(dtype)[6:]} "
+              f"{hkv * g}/{hkv} heads D {d} ({form}, "
               f"{symbol}): {len(errs)} cases (64-token chunks at q_offset "
               f"0/64/192, tails 32..1, B=3 Tq=37 with a keyless row, "
               f"lockstep B=4 Tq=256, single-shot Tq=Tk=80/272, q_offset "
@@ -1107,7 +1159,7 @@ def _int8_paged_inputs(gen, *, dtype, bs, vlens, tq=1, hkv=5, g=3, d=64):
             torch.tensor(vlens, dtype=torch.int32, device="cuda"))
 
 
-def _check_int8(gen) -> dict:
+def _check_int8(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
     """The int8 forms against their plain versions: paged decode at the
     int8 serving run's decode batch (B = 8, vlen up to 329, a row with
     vlen 0 and an idle row on the sentinel block), BS 16 and 8; paged
@@ -1126,7 +1178,7 @@ def _check_int8(gen) -> dict:
         for bs in (8, 16):
             vlens = [329, 290, 177, 0, 33, 250, 9, 1]
             q, kern, plain, tk, tp, vl = _int8_paged_inputs(
-                gen, dtype=dtype, bs=bs, vlens=vlens)
+                gen, dtype=dtype, bs=bs, vlens=vlens, hkv=hkv, g=g, d=d)
             got = fd.flash_decode_paged(q, kern[0], kern[1], tk, vl,
                                         k_scale_pool=kern[2],
                                         v_scale_pool=kern[3])
@@ -1142,7 +1194,8 @@ def _check_int8(gen) -> dict:
                 (got.float() - want.float()).abs().max().item())
             for tq, qoff, pvl in PREFILL_CASES:
                 q, kern, plain, tk, tp, vl = _int8_paged_inputs(
-                    gen, dtype=dtype, bs=bs, vlens=pvl, tq=tq)
+                    gen, dtype=dtype, bs=bs, vlens=pvl, tq=tq, hkv=hkv, g=g,
+                    d=d)
                 qo = torch.tensor(qoff, dtype=torch.int32, device="cuda")
                 out, lse = fa.flash_attention_paged(
                     q, kern[0], kern[1], qo, vl, tk, k_scale_pool=kern[2],
@@ -1166,9 +1219,9 @@ def _check_int8(gen) -> dict:
                     (lse[fin] - w_lse[fin]).abs().max().item())
         vlens = [328, 290, 177, 0, 33, 250, 9, 1]
         k, v, ks, vs, kp, vp, ksp, vsp = _int8_contiguous_inputs(
-            gen, s=328, vlens=vlens)
-        q = torch.randn(8, 1, 15, 64, generator=gen).to(device="cuda",
-                                                        dtype=dtype)
+            gen, s=328, vlens=vlens, hkv=hkv, d=d)
+        q = torch.randn(8, 1, hkv * g, d, generator=gen).to(device="cuda",
+                                                            dtype=dtype)
         vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
         got = fd.flash_decode(q, k, v, vl, k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
@@ -1182,7 +1235,8 @@ def _check_int8(gen) -> dict:
             if err > atol:
                 _fail(f"{name} {str(dtype)[6:]}: max abs err {err:.3g} > "
                       f"{atol}")
-        print(f"kernel int8 forms {str(dtype)[6:]} q, 15/5 heads, D 64, "
+        print(f"kernel int8 forms {str(dtype)[6:]} q, {hkv * g}/{hkv} heads, "
+              f"D {d}, "
               f"int8 K/V + bf16 scales from _quantize_kv, NaN scales and "
               f"±127 in every dead entry and tail: paged decode B=8 vlen "
               f"0..329 BS 8/16 {errs['flash_decode_paged_int8']:.3g}, "
@@ -1230,14 +1284,14 @@ def _split_edges(plan, max_len: int, b: int, gen) -> list:
     return edges + rest.tolist()
 
 
-def _split_plan(fd, hkv, max_len, unit, kv_dtype):
+def _split_plan(fd, hkv, max_len, unit, kv_dtype, g=3, d=64):
     """The smallest batch (from 8) whose split edges fit one row each, and
     the plan the wrapper makes for it on this card."""
     import torch
     from repro_torch.kernels import build
     dev = torch.device("cuda")
     for b in range(8, 256):
-        plan = fd.decode_plan(b, hkv, 3, 64, max_len, unit, kv_dtype,
+        plan = fd.decode_plan(b, hkv, g, d, max_len, unit, kv_dtype,
                               build.sm_count(dev))
         if 3 * plan.splits <= b:
             return b, plan
@@ -1259,30 +1313,32 @@ def _poisoned_tails(pool, tables, vlens, bs):
     return kern, plain
 
 
-def _decode_split_inputs(gen, name, dtype, vlens, *, hkv, bs, m, s):
+def _decode_split_inputs(gen, name, dtype, vlens, *, hkv, bs, m, s, g=3,
+                         d=64):
     """(q, the kernel's operands, the plain version's, vlen) of one decode
     form for rows of valid lengths ``vlens``; paged tables cut to ``m``
     entries (every live one), contiguous caches of ``s`` positions."""
     import torch
     if name == "flash_decode_paged_int8":
         q, kern, plain, tk, tp, vl = _int8_paged_inputs(
-            gen, dtype=dtype, bs=bs, vlens=vlens)
+            gen, dtype=dtype, bs=bs, vlens=vlens, hkv=hkv, g=g, d=d)
         return (q, (*kern, tk[:, :m].contiguous()),
                 (*plain, tp[:, :m].contiguous()), vl)
     if name == "flash_decode_paged":
         q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=dtype, bs=bs,
-                                              vlens=vlens)
+                                              vlens=vlens, hkv=hkv, g=g, d=d)
         (kk, kpl), (vk, vpl) = (_poisoned_tails(x, tk, vlens, bs)
                                 for x in (kp, vp))
         return (q, (kk, vk, tk[:, :m].contiguous()),
                 (kpl, vpl, tp[:, :m].contiguous()), vl)
     vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
     if name == "flash_decode_int8":
-        cache = _int8_contiguous_inputs(gen, s=s, vlens=vlens, hkv=hkv)
-        q = torch.randn(len(vlens), 1, hkv * 3, 64, generator=gen).to(
+        cache = _int8_contiguous_inputs(gen, s=s, vlens=vlens, hkv=hkv, d=d)
+        q = torch.randn(len(vlens), 1, hkv * g, d, generator=gen).to(
             device="cuda", dtype=dtype)
         return q, cache[:4], cache[4:], vl
-    q, k, v, k0, v0 = _contiguous_inputs(gen, dtype=dtype, s=s, vlens=vlens)
+    q, k, v, k0, v0 = _contiguous_inputs(gen, dtype=dtype, s=s, vlens=vlens,
+                                         hkv=hkv, g=g, d=d)
     return q, (k, v), (k0, v0), vl
 
 
@@ -1302,7 +1358,8 @@ def _decode_call(fd, name, q, ops, vl, plain=False):
     return fn(q, *kv, *tables, vl, **kw)
 
 
-def _check_decode_splits(gen) -> dict:
+def _check_decode_splits(gen, hkv: int = 5, g: int = 3,
+                         d: int = 64) -> dict:
     """The split decode's edges in all four forms (paged and contiguous, fp
     and int8 K/V), fp32 and bf16 q: rows at vlen 0, 1, every split edge ± 1
     and the full M·BS (paged, BS 16, M 21) or S (328), one row for every
@@ -1315,7 +1372,7 @@ def _check_decode_splits(gen) -> dict:
     the int8 forms (the JSON line's convention)."""
     import torch
     from repro_torch.kernels import flash_decode as fd
-    hkv, bs, m, s = 5, 16, 21, 328
+    bs, m, s = 16, 21, 328
     worst = {}
     split_kernel = {"flash_decode_paged": "decode_paged_split_kernel",
                     "flash_decode_paged_int8":
@@ -1330,10 +1387,10 @@ def _check_decode_splits(gen) -> dict:
             max_len, unit = (m * bs, bs) if paged else (
                 s, fd.CONTIGUOUS_TILE)
             b, plan = _split_plan(fd, hkv, max_len, unit,
-                                  torch.int8 if int8 else dtype)
+                                  torch.int8 if int8 else dtype, g=g, d=d)
             vlens = _split_edges(plan, max_len, b, gen)
             q, kern, plain, vl = _decode_split_inputs(
-                gen, name, dtype, vlens, hkv=hkv, bs=bs, m=m, s=s)
+                gen, name, dtype, vlens, hkv=hkv, bs=bs, m=m, s=s, g=g, d=d)
             got, prof = _profiled(
                 lambda: _decode_call(fd, name, q, kern, vl))
             again = _decode_call(fd, name, q, kern, vl)
@@ -1343,8 +1400,8 @@ def _check_decode_splits(gen) -> dict:
                 _fail(f"{name}: the profiler saw {seen}, not "
                       f"{split_kernel[name]} alone")
             want = _decode_call(fd, name, q, plain, vl, plain=True)
-            what = (f"{name} {str(dtype)[6:]} B={b} split {plan.split} x "
-                    f"{plan.splits}")
+            what = (f"{name} {str(dtype)[6:]} {hkv * g}/{hkv} heads D {d} "
+                    f"B={b} split {plan.split} x {plan.splits}")
             if not torch.isfinite(got).all():
                 _fail(f"{what}: non-finite output (a dead entry or a "
                       "position at or past vlen was read)")
@@ -1364,6 +1421,35 @@ def _check_decode_splits(gen) -> dict:
     return worst
 
 
+# the head_dim-128 models' vocabularies, the sampler's rows
+VOCABS_128 = (131072, 32256)
+
+
+def _check_head_dim_128(gen) -> dict:
+    """The serving kernels' head_dim-128 instances against their plain
+    versions, each check of the D 64 instances again at D 128 with
+    mistral-nemo-12b's 32/8 heads and deepseek-coder-33b's 56/8: the paged
+    and contiguous cached prefills (fp32 on the CUDA cores, bf16 through
+    two atom columns a row on the tensor cores), the int8 forms, the split
+    decode's edges in its four forms; and the sampler at both models'
+    vocabularies.  Returns {instance: max abs error} (keys ``<kernel>_d128``
+    and ``softmax_topk_v<V>``)."""
+    errs = {f"softmax_topk_v{v}": _check_softmax_topk(gen, v=v)
+            for v in VOCABS_128}
+    for model, hkv, g, d in HEAD_DIM_128:
+        found = {"flash_attention_paged": _check_prefill(gen, hkv, g, d),
+                 "flash_attention_offset": _check_offset(gen, hkv, g, d),
+                 **_check_int8(gen, hkv, g, d)}
+        for name, err in _check_decode_splits(gen, hkv, g, d).items():
+            found[name] = max(found.get(name, 0.0), err)
+        for name, err in found.items():
+            key = f"{name}_d128"
+            errs[key] = max(errs.get(key, 0.0), err)
+        print(f"kernel head_dim 128 at {model}'s {hkv * g}/{hkv} heads "
+              f"(G {g}): every instance within its tolerance")
+    return errs
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -1376,6 +1462,7 @@ def phase_kernels() -> dict:
             **_check_int8(gen)}
     for name, err in _check_decode_splits(gen).items():
         errs[name] = max(errs[name], err)
+    errs.update(_check_head_dim_128(gen))
     return errs
 
 
@@ -1453,7 +1540,6 @@ def phase_serve():
     int8 K/V, each between a reset and a read of the launch counts.
     Returns ({path: counts}, what the step timings reuse)."""
     import torch
-    from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     cfg = serve.config_for(serve.parse_args(SERVE_ARGS))
@@ -1464,58 +1550,280 @@ def phase_serve():
           f"d_model {cfg.d_model}, vocab {cfg.vocab_size}; weights from "
           f"seed 0 in {time.perf_counter() - t0:.1f}s")
     counts, engines = {}, {}
-    for what, argv in (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS),
-                       ("paged int8", SERVE_ARGS + INT8),
-                       ("slot pool int8", SLOT_ARGS + INT8)):
-        args = serve.parse_args(argv)
-        run_cfg = serve.config_for(args)
-        dispatch.reset_launch_counts()
-        report, router, requests, _ = serve.run(args, run_cfg, params)
-        torch.cuda.synchronize()
-        counts[what] = dispatch.launch_counts()
-        eng = router.engines[0]
-        sched = eng.scheduler
-        _check_finished(what, report, requests, cfg.vocab_size)
-        _check_counts(what, counts[what],
-                      _implied_counts(sched, cfg.num_layers))
-        if sched.family.quantized:
-            _check_int8_run(what, report, sched, requests)
-        print(f"serve {what} launches: {counts[what]} = scheduler counters "
-              f"(decode steps {sched.decode_steps}, prefill chunks "
-              f"{sched.prefill_chunks} of which "
-              f"{sched.chunk_widths.get(1, 0)} one-token, prefills "
-              f"{sched.prefills_done}, {cfg.num_layers} layers)")
-        engines[what] = eng
-    fp, q8 = (_pool_bytes_per_token(engines[w].scheduler.pool)
-              for w in ("paged", "paged int8"))
-    print(f"serve pool bytes per cached token: {cfg.dtype} K/V {fp:.0f}, "
-          f"int8 K/V + bf16 scales {q8:.0f} ({fp / q8:.3f}x the tokens in "
-          f"the same bytes)")
+    for what, argv in SERVE_PATHS:
+        counts[what], engines[what] = _serve_path(what, argv, cfg, params,
+                                                  what)
+    _check_pool_bytes(cfg, engines)
     _serve_slo(params, cfg, counts)
 
     for what, argv in (("lockstep", LOCKSTEP_ARGS),
                        ("lockstep int8", LOCKSTEP_ARGS + INT8)):
-        args = serve.parse_args(argv)
-        dispatch.reset_launch_counts()
-        ids = serve.lockstep(args, serve.config_for(args), params)
-        torch.cuda.synchronize()
-        counts[what] = dispatch.launch_counts()
-        if ids.shape != (args.batch, args.tokens) or not (
-                (ids >= 0) & (ids < cfg.vocab_size)).all():
-            _fail(f"serve {what}: token ids of shape {ids.shape} outside "
-                  "the vocabulary or short")
-        dec = "flash_decode_int8" if args.kv_cache_dtype else "flash_decode"
-        want = dict.fromkeys(KERNELS, 0)
-        want.update({"softmax_topk": args.tokens,
-                     dec: (args.tokens - 1) * cfg.num_layers,
-                     "flash_attention_offset": cfg.num_layers})
-        if counts[what] != want:
-            _fail(f"serve {what}: launches {counts[what]}, its steps imply "
-                  f"{want}")
-        print(f"serve {what} launches: {counts[what]} = one prefill, "
-              f"{args.tokens - 1} decode steps and {args.tokens} samples "
-              f"over {cfg.num_layers} layers")
+        counts[what] = _serve_lockstep(what, argv, cfg, params)
     return counts, {"params": params, "cfg": cfg, "engines": engines}
+
+
+def _serve_lockstep(what: str, argv, cfg, params) -> dict:
+    """The lockstep loop of ``argv`` with ``cfg``'s weights between a reset
+    and a read of the launch counts: token ids in the vocabulary, and one
+    prefill launch and (tokens - 1) decode launches a layer, one sample a
+    token.  Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    dispatch.reset_launch_counts()
+    ids = serve.lockstep(args, cfg.replace(kv_cache_dtype=args.kv_cache_dtype),
+                         params)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    if ids.shape != (args.batch, args.tokens) or not (
+            (ids >= 0) & (ids < cfg.vocab_size)).all():
+        _fail(f"serve {what}: token ids of shape {ids.shape} outside "
+              "the vocabulary or short")
+    dec = "flash_decode_int8" if args.kv_cache_dtype else "flash_decode"
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"softmax_topk": args.tokens,
+                 dec: (args.tokens - 1) * cfg.num_layers,
+                 "flash_attention_offset": cfg.num_layers})
+    if counts != want:
+        _fail(f"serve {what}: launches {counts}, its steps imply {want}")
+    print(f"serve {what} launches: {counts} = one prefill, "
+          f"{args.tokens - 1} decode steps and {args.tokens} samples "
+          f"over {cfg.num_layers} layers")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 4b: the head_dim-128 dense decoders at full width
+# ---------------------------------------------------------------------------
+MISTRAL = ["--arch", "mistral_nemo_12b"]
+DEEPSEEK = ["--arch", "deepseek_coder_33b"]
+# deepseek-coder-33b at full width and cut depth: 8 of its 62 layers, 4.7e9
+# parameters or 9.4 GB of bf16 weights (all 62 would be 66.7 GB, beside the
+# pools and the 0.9 GB fp32 head copy of every sample on an 80 GB card)
+DEEPSEEK_LAYERS = 8
+# phase 4's continuous-batching workloads, which every model serves:
+# (path, flags); the path names the kernels (KERNEL_PATH) that must launch
+SERVE_PATHS = (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS),
+               ("paged int8", SERVE_ARGS + INT8),
+               ("slot pool int8", SLOT_ARGS + INT8))
+# the head_dim-128 instances and the sampler at those models' vocabularies,
+# as the JSON line lists them: name → (the kernel whose source, counter and
+# TPU site they share, the run whose launches they report)
+INSTANCES = {
+    "softmax_topk_v131072": ("softmax_topk", "mistral paged"),
+    "softmax_topk_v32256": ("softmax_topk", "deepseek paged"),
+    "flash_decode_paged_d128": ("flash_decode_paged", "mistral paged"),
+    "flash_attention_paged_d128": ("flash_attention_paged", "mistral paged"),
+    "flash_decode_d128": ("flash_decode", "mistral slot pool"),
+    "flash_attention_offset_d128": ("flash_attention_offset",
+                                    "mistral slot pool"),
+    "flash_decode_paged_int8_d128": ("flash_decode_paged_int8",
+                                     "mistral paged int8"),
+    "flash_decode_int8_d128": ("flash_decode_int8", "mistral slot pool int8"),
+    "flash_attention_paged_int8_d128": ("flash_attention_paged_int8",
+                                        "kernel check only"),
+}
+
+
+def _param_count(cfg) -> int:
+    """Parameters of a dense config: embedding (and untied head), final
+    norm, and per layer two norms, the attention and the SwiGLU MLP."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    layer = 2 * d + 2 * d * hq * hd + 2 * d * hkv * hd + 3 * d * f
+    return (v * d * (1 if cfg.tie_embeddings else 2) + d
+            + cfg.num_layers * layer)
+
+
+def _weight_bytes(params) -> int:
+    """Bytes of every tensor of a parameter tree."""
+    if isinstance(params, dict):
+        return sum(_weight_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(_weight_bytes(v) for v in params)
+    return params.numel() * params.element_size()
+
+
+def _card_weights(cfg):
+    """``cfg``'s weights drawn on the card from seed 0 (a full-width CPU
+    draw takes a minute or more): (params, their bytes)."""
+    import torch
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, device="cuda", draw_device="cuda")
+    torch.cuda.synchronize()
+    nbytes = _weight_bytes(params)
+    print(f"serve: {cfg.name} {cfg.dtype}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, untied head; {nbytes / 1e9:.3f} GB of weights "
+          f"drawn on the card from seed 0 in {time.perf_counter() - t0:.1f}s")
+    return params, nbytes
+
+
+def _serve_path(what: str, argv, cfg, params, path: str):
+    """Serve ``argv`` with ``cfg``'s weights between a reset and a read of
+    the launch counts: every request finishes in the vocabulary, the
+    launches equal the scheduler's counters and every kernel of ``path``
+    launched; an int8 run prefills in one chunk and shares nothing.  Prints
+    the peak of device memory.  Returns (launch counts, the engine)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    run_cfg = cfg.replace(kv_cache_dtype=args.kv_cache_dtype)
+    print(f"serve {what}: {cfg.name}, {cfg.num_layers} layers")
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    report, router, requests, _ = serve.run(args, run_cfg, params)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    eng = router.engines[0]
+    sched = eng.scheduler
+    _check_finished(what, report, requests, cfg.vocab_size)
+    _check_counts(what, counts, _implied_counts(sched, cfg.num_layers),
+                  path=[k for k, p in KERNEL_PATH.items() if p == path])
+    if sched.family.quantized:
+        _check_int8_run(what, report, sched, requests)
+    print(f"serve {what} launches: {counts} = scheduler counters (decode "
+          f"steps {sched.decode_steps}, prefill chunks {sched.prefill_chunks} "
+          f"of which {sched.chunk_widths.get(1, 0)} one-token, prefills "
+          f"{sched.prefills_done}, {cfg.num_layers} layers); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, eng
+
+
+def _check_pool_bytes(cfg, engines) -> None:
+    """The paged pools' bytes per cached token equal the config's: 2 (K,
+    V) × layers × KV heads × head_dim × the element size, plus a bf16
+    scale per (position, KV head) for int8."""
+    for path in ("paged", "paged int8"):
+        pool = engines[path].scheduler.pool
+        got = _pool_bytes_per_token(pool)
+        want = _block_bytes(pool.cfg, pool.block_size) / pool.block_size
+        if got != want:
+            _fail(f"serve {cfg.name} {path}: {got} pool bytes per cached "
+                  f"token, the config gives {want}")
+    fp, q8 = (_pool_bytes_per_token(engines[p].scheduler.pool)
+              for p in ("paged", "paged int8"))
+    print(f"serve {cfg.name} pool bytes per cached token: {cfg.dtype} K/V "
+          f"{fp:.0f}, int8 K/V + bf16 scales {q8:.0f} ({fp / q8:.3f}x the "
+          "tokens in the same bytes)")
+
+
+def _steps_128(params, cfg, engines, weight_bytes: int) -> None:
+    """Phase 8's "step" lines for a head_dim-128 model
+    (``_serving_steps``), each beside the weights' byte bound (every
+    weight read once at 3.35 TB/s), and the paged decode step's kernels
+    by device time."""
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    for name, fn in _serving_steps(params, cfg, engines).items():
+        line, busy = _step_line(f"{cfg.name} {name}", fn)
+        print(f"{line}; the weights' byte bound {bound:.3f}ms "
+              f"({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), device busy "
+              f"{busy / bound:.2f}x it")
+        if name.startswith("paged decode"):
+            print(f"step {cfg.name} {name} by kernel (device ms a step x "
+                  f"launches a step): {_kernel_breakdown(fn)}")
+
+
+def _kernel_breakdown(fn, reps: int = 3, top: int = 8) -> str:
+    """The ``top`` kernels of ``fn`` by device time (torch.profiler, over
+    ``reps`` calls), as "name ms x launches" per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import kernels as obs_kernels
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            name = obs_kernels.kernel_name(evt.key)[:48]
+            ms, n = by.get(name, (0.0, 0))
+            by[name] = (ms + evt.self_device_time_total / 1e3 / reps,
+                        n + evt.count / reps)
+    rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    return "; ".join(f"{name} {ms:.4f} x {n:g}" for name, (ms, n) in rows)
+
+
+def phase_serve_128() -> dict:
+    """mistral-nemo-12b at full width (40 layers, bf16) through phase 4's
+    paged, slot-pool and lockstep workloads and their int8 paged and
+    slot-pool forms, each between a reset and a read of the launch counts,
+    then its "step" lines; deepseek-coder-33b at full width and
+    ``DEEPSEEK_LAYERS`` layers through the paged and slot-pool workloads.
+    Every attention op runs a head_dim-128 instance.  Returns {run:
+    counts}."""
+    import torch
+    from repro_torch import configs
+    counts = {}
+    cfg = configs.get("mistral_nemo_12b")
+    params, nbytes = _card_weights(cfg)
+    engines = {}
+    for path, argv in SERVE_PATHS:
+        what = f"mistral {path}"
+        counts[what], engines[path] = _serve_path(what, MISTRAL + argv, cfg,
+                                                  params, path)
+    _check_pool_bytes(cfg, engines)
+    counts["mistral lockstep"] = _serve_lockstep(
+        "mistral lockstep", MISTRAL + LOCKSTEP_ARGS, cfg, params)
+    _steps_128(params, cfg, engines, nbytes)
+    del params, engines
+    torch.cuda.empty_cache()
+
+    cfg = configs.get("deepseek_coder_33b").replace(
+        num_layers=DEEPSEEK_LAYERS)
+    params, _ = _card_weights(cfg)
+    for path, argv in SERVE_PATHS[:2]:
+        what = f"deepseek {path}"
+        counts[what], _ = _serve_path(what, DEEPSEEK + argv, cfg, params,
+                                      path)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parity_128() -> None:
+    """Phase 5's fp32 stream parity for mistral-nemo-12b at full width cut
+    to 2 layers (7.5 GB of fp32 weights, drawn on the CPU and copied): the
+    paged, slot-pool and lockstep parity workloads on the card through the
+    head_dim-128 kernels and on the CPU through the plain versions give
+    identical token streams."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = configs.get("mistral_nemo_12b").replace(num_layers=2,
+                                                  dtype="float32")
+    t0 = time.perf_counter()
+    params_cpu = transformer.init(cfg, seed=1, device="cpu")
+    draw_s = time.perf_counter() - t0
+    draws = _weight_bytes(params_cpu) // 4
+    full = _param_count(configs.get("mistral_nemo_12b"))
+    print(f"parity mistral-nemo-12b: {draws} weights (2 layers, fp32) drawn "
+          f"on the CPU in {draw_s:.1f}s ({draws / draw_s / 1e6:.0f}M a "
+          f"second): the full model's {full} would take "
+          f"~{full * draw_s / draws:.0f}s at that rate")
+    params_by_device = {"cuda": transformer.params_to(params_cpu, "cuda"),
+                        "cpu": params_cpu}
+    _parity_runs("mistral-nemo-12b (2 layers) paged", PARITY_ARGS, cfg,
+                 params_by_device)
+    _parity_runs("mistral-nemo-12b (2 layers) slot pool", SLOT_PARITY_ARGS,
+                 cfg, params_by_device)
+    ids = {device: serve.lockstep(serve.parse_args(
+               LOCKSTEP_PARITY_ARGS + ["--device", device]), cfg, params)
+           for device, params in params_by_device.items()}
+    if not np.array_equal(ids["cuda"], ids["cpu"]):
+        _fail(f"parity mistral-nemo-12b lockstep: token ids differ\ncuda "
+              f"{ids['cuda']}\ncpu  {ids['cpu']}")
+    print(f"parity mistral-nemo-12b (2 layers) lockstep: {ids['cpu'].size} "
+          "token ids identical")
+    del params_by_device
+    torch.cuda.empty_cache()
 
 
 def _block_bytes(cfg, block_size: int) -> int:
@@ -2163,20 +2471,14 @@ def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
     return total / reps / 1e3, ours / reps / 1e3
 
 
-def phase_steps(serve_ctx, train_ctx) -> None:
-    """Where a step's time goes: one full-width decode step over 8 busy
-    slots and one 64-token prefill chunk, of the paged pool and of the slot
-    pool, the same decode steps over the int8 runs' pools, and one
-    full-width train step of 8 x 512 tokens, timed from the
-    host's call to the device's finish, against the device's busy time
-    inside it (all kernels, and the port's own, from torch.profiler)."""
+def _serving_steps(params, cfg, engines) -> dict:
+    """A model's serving steps at full width, on the pools its phase-4
+    runs left idle: a decode step over 8 busy slots and a 64-token prefill
+    chunk at offset 64, of the paged pool and of the slot pool, and the
+    decode steps over the int8 runs' pools.  Returns {name: fn}."""
     import torch
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
     from repro_torch.serving import engine
-    from repro_torch.training.train_step import make_train_step
-    params, cfg, engines = (serve_ctx[k]
-                            for k in ("params", "cfg", "engines"))
-    pool = engines["paged"].scheduler.pool   # idle after the serve: reuse
+    pool = engines["paged"].scheduler.pool
     slots = engines["slot pool"].scheduler.pool
     n, m = pool.num_slots, pool.max_blocks
     tables = torch.arange(1, n * m + 1, dtype=torch.int32,
@@ -2188,32 +2490,58 @@ def phase_steps(serve_ctx, train_ctx) -> None:
     chunk = torch.ones((1, 64), dtype=torch.int64, device="cuda")
     slot_lens = lens.clamp(max=slots.slot_len - 1)
     scratch = engine.init_cache(cfg, 1, slots.slot_len, "cuda")
-    steps = {
-        f"paged decode [B={n}, {cfg.num_layers} layers, bf16]":
+    q8_pool = engines["paged int8"].scheduler.pool
+    q8_slots = engines["slot pool int8"].scheduler.pool
+    q8_cfg = q8_pool.cfg
+    layers = f"{cfg.num_layers} layers"
+    return {
+        f"paged decode [B={n}, {layers}, bf16]":
             lambda: engine.decode_step_paged(params, pool.caches, tables,
                                              lens, toks, cfg, noise=noise,
                                              top_k=5),
         "paged prefill chunk [64 tokens at offset 64, bf16]":
             lambda: engine.prefill_chunk_paged(params, pool.caches,
                                                tables[:1], 64, chunk, cfg),
-        f"slot-pool decode [B={slots.num_slots}, {cfg.num_layers} layers, "
-        "bf16]":
+        f"slot-pool decode [B={slots.num_slots}, {layers}, bf16]":
             lambda: engine.decode_step_slots(params, slots.caches, slot_lens,
                                              toks, cfg, noise=noise, top_k=5),
         "slot-pool prefill chunk [64 tokens at offset 64, bf16]":
-            lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg)}
-    # the int8 runs' pools: the same decode batches over int8 K/V
-    q8_pool = engines["paged int8"].scheduler.pool
-    q8_slots = engines["slot pool int8"].scheduler.pool
-    q8_cfg = q8_pool.cfg
-    steps[f"paged int8 decode [B={n}, {cfg.num_layers} layers, bf16, int8 "
-          "K/V]"] = lambda: engine.decode_step_paged(
-        params, q8_pool.caches, tables, lens, toks, q8_cfg, noise=noise,
-        top_k=5)
-    steps[f"slot-pool int8 decode [B={q8_slots.num_slots}, "
-          f"{cfg.num_layers} layers, bf16, int8 K/V]"] = \
-        lambda: engine.decode_step_slots(params, q8_slots.caches, slot_lens,
-                                         toks, q8_cfg, noise=noise, top_k=5)
+            lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg),
+        f"paged int8 decode [B={n}, {layers}, bf16, int8 K/V]":
+            lambda: engine.decode_step_paged(params, q8_pool.caches, tables,
+                                             lens, toks, q8_cfg, noise=noise,
+                                             top_k=5),
+        f"slot-pool int8 decode [B={q8_slots.num_slots}, {layers}, bf16, "
+        "int8 K/V]":
+            lambda: engine.decode_step_slots(params, q8_slots.caches,
+                                             slot_lens, toks, q8_cfg,
+                                             noise=noise, top_k=5)}
+
+
+def _step_line(name: str, fn, *, samples: int = 10,
+               reps: int = 5) -> tuple[str, float]:
+    """One "step" line: host call to device finish (median of
+    ``samples``), device busy over ``reps`` calls and the port's kernels'
+    share of it (torch.profiler).  Returns (the line, device busy ms)."""
+    wall = _host_ms(fn, samples=samples)
+    busy, ours = _device_ms(fn, reps=reps)
+    return (f"step {name}: {wall:.3f}ms host call to device finish; device "
+            f"busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
+            f"{100 - 100 * busy / wall:.1f}%), of which the port's kernels "
+            f"{ours:.3f}ms"), busy
+
+
+def phase_steps(serve_ctx, train_ctx) -> None:
+    """Where a step's time goes: smollm-360m's serving steps
+    (``_serving_steps``) and one full-width train step of 8 x 512 tokens,
+    timed from the host's call to the device's finish, against the
+    device's busy time inside it (all kernels, and the port's own, from
+    torch.profiler)."""
+    import torch
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.training.train_step import make_train_step
+    steps = _serving_steps(*(serve_ctx[k]
+                             for k in ("params", "cfg", "engines")))
     run, targs = train_ctx["run"], train_ctx["args"]
     step_fn = make_train_step(run)
     batch = SyntheticDataset(SyntheticConfig(
@@ -2227,13 +2555,9 @@ def phase_steps(serve_ctx, train_ctx) -> None:
     steps[f"train step [{targs.global_batch} x {targs.seq_len} tokens, "
           f"{run.model.num_layers} layers, bf16, remat full]"] = train_step
     for name, fn in steps.items():
-        reps = 2 if fn is train_step else 5
-        wall = _host_ms(fn, samples=5 if fn is train_step else 10)
-        busy, ours = _device_ms(fn, reps=reps)
-        print(f"step {name}: {wall:.3f}ms host call to device finish; "
-              f"device busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
-              f"{100 - 100 * busy / wall:.1f}%), of which the port's "
-              f"kernels {ours:.3f}ms")
+        train = fn is train_step
+        print(_step_line(name, fn, samples=5 if train else 10,
+                         reps=2 if train else 5)[0])
 
 
 def phase_swap_times(serve_ctx) -> None:
@@ -2354,29 +2678,55 @@ def _sdpa(q, k, v, mask):
 
 def phase_times() -> dict:
     import torch
-    from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import softmax_topk as st
     gen = torch.Generator().manual_seed(1)
-    rows = {}
+    rows = _serving_kernel_times(gen)
+    rows.update(_train_kernel_times(gen))
+    rows.update(_int8_kernel_times(gen))
+    # the head_dim-128 instances at mistral-nemo-12b's shapes (32/8 heads),
+    # and the sampler at both models' vocabularies
+    _, hkv, g, d = HEAD_DIM_128[0]
+    for v in VOCABS_128:
+        rows.update(_topk_times(gen, v))
+    rows.update(_serving_kernel_times(gen, hkv=hkv, g=g, d=d, topk=False))
+    rows.update(_int8_kernel_times(gen, hkv=hkv, g=g, d=d))
+    rows.update(_library_kernel_times())
+    for name, row in rows.items():
+        lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
+               else "none")
+        extra = "".join(
+            f", {label} {row[k]:.4f}ms" for k, label in (
+                ("device_ms", "kernel device time"),
+                ("library_device_ms", "library device time")) if k in row)
+        print(f"time {name} [{row['shape']}]: kernel {row['ms']:.4f}ms "
+              f"(wrapper call {row['wrapper_ms']:.4f}ms), bound "
+              f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
+              f"{row['plain_ms']:.4f}ms, library {lib}{extra}")
+    return rows
 
-    # softmax_topk: the decode batch's fp32 logits [8, 49152], k = 5
-    x = (torch.randn(8, 49152, generator=gen) * 30.0).cuda()
+
+def _topk_times(gen, v: int = 49152) -> dict:
+    """Row 1 at a decode batch's fp32 logits [8, ``v``], k = 5, held
+    against its plain version on the timed input; keyed ``softmax_topk``
+    at smollm-360m's vocabulary, else ``softmax_topk_v<v>``."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import softmax_topk as st
+    x = (torch.randn(8, v, generator=gen) * 30.0).cuda()
     got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
     if not torch.equal(got.indices.long(), want.indices) or not \
             torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0):
-        _fail("softmax_topk disagrees with its plain version on the timed "
-              "input")
+        _fail(f"softmax_topk [8, {v}] disagrees with its plain version on "
+              "the timed input")
     args, _ = st.prepare(x, 5)
-    r, v, k = 8, 49152, 5
+    r, k = 8, 5
     p = st.plan(r, v, k, x.dtype, build.sm_count(x.device))
     b_ms, b_by = _bound(r * v * 4 + r * k * 8 + r * 4, 4.0 * r * v,
                         "float32")
 
     def library():
         return torch.topk(torch.softmax(x, -1), 5)
-    rows["softmax_topk"] = {
+    key = "softmax_topk" if v == 49152 else f"softmax_topk_v{v}"
+    return {key: {
         "ms": _ms(lambda: st.launch(args)),
         "device_ms": _device_call_ms(lambda: st.launch(args)),
         "wrapper_ms": _ms(lambda: st.softmax_topk(x, 5)),
@@ -2385,39 +2735,56 @@ def phase_times() -> dict:
         "library_device_ms": _device_call_ms(library),
         "library_call": "torch.topk(torch.softmax(x, -1), k) (two calls)",
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"x [8, 49152] float32, k=5, {p.slices} slices of "
-                 f"{p.slice}"}
+        "shape": f"x [8, {v}] float32, k=5, {p.slices} slices of "
+                 f"{p.slice}"}}
+
+
+def _serving_kernel_times(gen, *, hkv: int = 5, g: int = 3, d: int = 64,
+                          topk: bool = True) -> dict:
+    """Rows 1-5 at the serving paths' shapes, each held against its plain
+    version on the very inputs it is timed on, at ``hkv`` KV heads of ``g``
+    query heads and head dim ``d`` (rows keyed ``<kernel>_d<d>`` off D 64):
+    the sampler (with ``topk``), the paged and contiguous decodes and
+    cached prefills, SDPA beside rows 4 and 5."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    rows = _topk_times(gen) if topk else {}
+    suffix = "" if d == 64 else f"_d{d}"
+    geom = dict(hkv=hkv, g=g, d=d)
+    hq, esz = hkv * g, 2
+    heads = f"Hq={hq} Hkv={hkv} D={d}"
 
     # paged decode: 8 slots of the serving run's pool (BS=16, 21 blocks a
     # row), bf16, ragged valid lengths across the run's range
     vlens = [329, 290, 251, 212, 173, 134, 95, 66]
     q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=torch.bfloat16, bs=16,
-                                          vlens=vlens, share=False)
+                                          vlens=vlens, share=False, **geom)
     err = (fd.flash_decode_paged(q, kp, vp, tk, vl).float()
            - fd.flash_decode_paged_plain(q, kp, vp, tp, vl).float()).abs().max()
     if not err <= 2e-2:
-        _fail(f"flash_decode_paged on the timed input: max abs err "
+        _fail(f"flash_decode_paged{suffix} on the timed input: max abs err "
               f"{err.item():.3g} > 2e-2")
-    hq, d, hkv, esz = 15, 64, 5, 2
     nbytes = (2 * q.numel() * esz + sum(vlens) * hkv * d * esz * 2
               + sum(-(-n // 16) for n in vlens) * 4 + len(vlens) * 4)
     ops = 4.0 * hq * d * sum(vlens)
     args, _ = fd.prepare_paged(q, kp, vp, tk, vl)
     plan = _plan_of(fd, q, kp, tk)
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
-    rows["flash_decode_paged"] = {
+    rows["flash_decode_paged" + suffix] = {
         "ms": _ms(lambda: fd.launch(args)),
         "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode_paged(q, kp, vp, tk, vl)),
         "plain_ms": _ms(lambda: fd.flash_decode_paged_plain(q, kp, vp, tp, vl)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B=8 Hq=15 Hkv=5 D=64 BS=16 bf16 vlen {vlens}, {plan}"}
+        "shape": f"B=8 {heads} BS=16 bf16 vlen {vlens}, {plan}"}
 
     # paged prefill: one 64-token chunk at offset 64 (the serving run's
     # chunk width), bf16
     tq, qoff, vlen = 64, 64, 128
     q, kp, vp, tk, tp, vl = _paged_inputs(gen, dtype=torch.bfloat16, bs=16,
-                                          vlens=[vlen], tq=tq, share=False)
+                                          vlens=[vlen], tq=tq, share=False,
+                                          **geom)
     qo = torch.tensor([qoff], dtype=torch.int32, device="cuda")
     _prefill_err(q, kp, vp, qo, vl, tk, tp, "on the timed input", 2e-2)
     pairs = sum(min(vlen, qoff + i + 1) for i in range(tq))
@@ -2425,7 +2792,7 @@ def phase_times() -> dict:
               + (vlen // 16) * 4 + 8)
     args, _ = fa.prepare_paged(q, kp, vp, qo, vl, tk)
     b_ms, b_by = _bound(nbytes, 4.0 * hq * d * pairs, "bfloat16")
-    rows["flash_attention_paged"] = {
+    rows["flash_attention_paged" + suffix] = {
         "ms": _ms(lambda: fa.launch(args)),
         "device_ms": _device_call_ms(lambda: fa.launch(args)),
         "wrapper_ms": _ms(lambda: fa.flash_attention_paged(q, kp, vp, qo, vl,
@@ -2433,20 +2800,20 @@ def phase_times() -> dict:
         "plain_ms": _ms(lambda: fa.flash_attention_paged_plain(q, kp, vp, qo,
                                                                vl, tp)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "B=1 Tq=64 q_offset=64 vlen=128 Hq=15 Hkv=5 D=64 BS=16 bf16"
-                 " (tensor cores, paged_wgmma_kernel)"}
+        "shape": f"B=1 Tq=64 q_offset=64 vlen=128 {heads} BS=16 bf16 "
+                 "(tensor cores, paged_wgmma_kernel)"}
 
     # contiguous decode: the slot pool's 8 slots of 328, ragged, bf16; the
     # library yardstick is one SDPA call on transposed views with a boolean
     # valid-length mask
     vlens = [328, 289, 250, 211, 172, 133, 94, 65]
     q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=328,
-                                       vlens=vlens)
+                                       vlens=vlens, **geom)
     vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
     err = (fd.flash_decode(q, k, v, vl).float()
            - fd.flash_decode_plain(q, k, v, vl).float()).abs().max()
     if not err <= 2e-2:
-        _fail(f"flash_decode on the timed input: max abs err "
+        _fail(f"flash_decode{suffix} on the timed input: max abs err "
               f"{err.item():.3g} > 2e-2")
     mask = (torch.arange(328, device="cuda")[None, :]
             < vl[:, None].long())[:, None, None, :]
@@ -2455,7 +2822,7 @@ def phase_times() -> dict:
     args, _ = fd.prepare(q, k, v, vl)
     plan = _plan_of(fd, q, k)
     b_ms, b_by = _bound(nbytes, 4.0 * hq * d * sum(vlens), "bfloat16")
-    rows["flash_decode"] = {
+    rows["flash_decode" + suffix] = {
         "ms": _ms(lambda: fd.launch(args)),
         "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode(q, k, v, vl)),
@@ -2463,7 +2830,7 @@ def phase_times() -> dict:
         "library_ms": _ms(lambda: _sdpa(q, k, v, mask)),
         "library_device_ms": _device_call_ms(lambda: _sdpa(q, k, v, mask)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 bf16 vlen {vlens}, {plan}"}
+        "shape": f"B=8 S=328 {heads} bf16 vlen {vlens}, {plan}"}
 
     # contiguous cached prefill: the slot pool's 64-token chunk at offset
     # 64 into a slot of 328, then (printed only) the lockstep prefill and an
@@ -2476,7 +2843,7 @@ def phase_times() -> dict:
             ("flash_attention_offset, int8 single-shot",
              (1, 256, 256, 0, 256))):
         q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=tk,
-                                           vlens=[vlen] * b, tq=tq)
+                                           vlens=[vlen] * b, tq=tq, **geom)
         qo = torch.full((b,), qoff, dtype=torch.int32, device="cuda")
         vl = torch.full((b,), vlen, dtype=torch.int32, device="cuda")
         _offset_err((q, k, v, k, v), qo, vl, "on the timed input", 2e-2)
@@ -2491,7 +2858,8 @@ def phase_times() -> dict:
 
         def sdpa():
             return _sdpa(q, k, v, mask[None, None])
-        rows[key] = {
+        name, _, form = key.partition(",")
+        rows[name + suffix + ("," + form if form else "")] = {
             "ms": _ms(lambda: fa.launch(args)),
             "device_ms": _device_call_ms(lambda: fa.launch(args)),
             "wrapper_ms": _ms(lambda: fa.flash_attention_offset(q, k, v, qo,
@@ -2502,21 +2870,7 @@ def phase_times() -> dict:
             "library_device_ms": _device_call_ms(sdpa),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"B={b} Tq={tq} q_offset={qoff} vlen={vlen} Tk={tk} "
-                     "Hq=15 Hkv=5 D=64 bf16"}
-    rows.update(_train_kernel_times(gen))
-    rows.update(_int8_kernel_times(gen))
-    rows.update(_library_kernel_times())
-    for name, row in rows.items():
-        lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
-               else "none")
-        extra = "".join(
-            f", {label} {row[k]:.4f}ms" for k, label in (
-                ("device_ms", "kernel device time"),
-                ("library_device_ms", "library device time")) if k in row)
-        print(f"time {name} [{row['shape']}]: kernel {row['ms']:.4f}ms "
-              f"(wrapper call {row['wrapper_ms']:.4f}ms), bound "
-              f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
-              f"{row['plain_ms']:.4f}ms, library {lib}{extra}")
+                     f"{heads} bf16"}
     return rows
 
 
@@ -2692,7 +3046,7 @@ def _train_kernel_times(gen) -> dict:
     return rows
 
 
-def _int8_kernel_times(gen) -> dict:
+def _int8_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
     """The int8 forms at the int8 serving runs' shapes (bf16 q): paged
     decode over 8 slots of the pool (BS 16, vlen 66..329), contiguous decode
     over 8 slots of 328, and the paged prefill at row 3's chunk (64 tokens
@@ -2700,11 +3054,16 @@ def _int8_kernel_times(gen) -> dict:
     the timed input.  Bounds count 1 byte per int8 K/V value read once, 2
     per bf16 scale, q read and out written once, and the two dequantizing
     multiplies per value beside the 4·D flops per (head, position).  No
-    single PyTorch call computes a dequantize and attention."""
+    single PyTorch call computes a dequantize and attention.  At ``hkv``
+    KV heads of ``g`` query heads and head dim ``d`` (rows keyed
+    ``<kernel>_d<d>`` off D 64)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
-    hq, d, hkv, esz = 15, 64, 5, 2
+    hq, esz = hkv * g, 2
+    suffix = "" if d == 64 else f"_d{d}"
+    geom = dict(hkv=hkv, g=g, d=d)
+    heads = f"Hq={hq} Hkv={hkv} D={d}"
     rows = {}
 
     def kv_bytes(n):          # int8 K and V plus their bf16 scales
@@ -2712,13 +3071,14 @@ def _int8_kernel_times(gen) -> dict:
 
     vlens = [329, 290, 251, 212, 173, 134, 95, 66]
     q, _, pl, _, tp, vl = _int8_paged_inputs(gen, dtype=torch.bfloat16,
-                                             bs=16, vlens=vlens)
+                                             bs=16, vlens=vlens, **geom)
     kw = dict(k_scale_pool=pl[2], v_scale_pool=pl[3])
     err = (fd.flash_decode_paged(q, pl[0], pl[1], tp, vl, **kw).float()
            - fd.flash_decode_paged_plain(q, pl[0], pl[1], tp, vl,
                                          **kw).float()).abs().max().item()
     if not err <= 2e-2:
-        _fail(f"flash_decode_paged_int8 on the timed input: max abs err "
+        _fail(f"flash_decode_paged_int8{suffix} on the timed input: max "
+              f"abs err "
               f"{err:.3g} > 2e-2")
     nbytes = (2 * q.numel() * esz + kv_bytes(sum(vlens))
               + sum(-(-n // 16) for n in vlens) * 4 + len(vlens) * 4)
@@ -2726,7 +3086,7 @@ def _int8_kernel_times(gen) -> dict:
     args, _ = fd.prepare_paged(q, pl[0], pl[1], tp, vl, **kw)
     plan = _plan_of(fd, q, pl[0], tp)
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
-    rows["flash_decode_paged_int8"] = {
+    rows["flash_decode_paged_int8" + suffix] = {
         "ms": _ms(lambda: fd.launch(args)),
         "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode_paged(q, pl[0], pl[1], tp,
@@ -2734,11 +3094,12 @@ def _int8_kernel_times(gen) -> dict:
         "plain_ms": _ms(lambda: fd.flash_decode_paged_plain(
             q, pl[0], pl[1], tp, vl, **kw)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B=8 Hq=15 Hkv=5 D=64 BS=16 int8 K/V, bf16 q, vlen "
-                 f"{vlens}, {plan}"}
+        "shape": f"B=8 {heads} BS=16 int8 K/V, bf16 q, vlen {vlens}, "
+                 f"{plan}"}
 
     vlens = [328, 289, 250, 211, 172, 133, 94, 65]
-    cache = _int8_contiguous_inputs(gen, s=328, vlens=vlens)[4:]
+    cache = _int8_contiguous_inputs(gen, s=328, vlens=vlens, hkv=hkv,
+                                    d=d)[4:]
     kw = dict(k_scale=cache[2], v_scale=cache[3])
     q = torch.randn(8, 1, hq, d, generator=gen).to(device="cuda",
                                                    dtype=torch.bfloat16)
@@ -2747,14 +3108,14 @@ def _int8_kernel_times(gen) -> dict:
            - fd.flash_decode_plain(q, cache[0], cache[1], vl,
                                    **kw).float()).abs().max().item()
     if not err <= 2e-2:
-        _fail(f"flash_decode_int8 on the timed input: max abs err {err:.3g}"
-              " > 2e-2")
+        _fail(f"flash_decode_int8{suffix} on the timed input: max abs err "
+              f"{err:.3g} > 2e-2")
     nbytes = 2 * q.numel() * esz + kv_bytes(sum(vlens)) + len(vlens) * 4
     ops = (4.0 * hq * d + 2.0 * hkv * d) * sum(vlens)
     args, _ = fd.prepare(q, cache[0], cache[1], vl, **kw)
     plan = _plan_of(fd, q, cache[0])
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
-    rows["flash_decode_int8"] = {
+    rows["flash_decode_int8" + suffix] = {
         "ms": _ms(lambda: fd.launch(args)),
         "device_ms": _device_call_ms(lambda: fd.launch(args)),
         "wrapper_ms": _ms(lambda: fd.flash_decode(q, cache[0], cache[1], vl,
@@ -2762,12 +3123,13 @@ def _int8_kernel_times(gen) -> dict:
         "plain_ms": _ms(lambda: fd.flash_decode_plain(q, cache[0], cache[1],
                                                       vl, **kw)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B=8 S=328 Hq=15 Hkv=5 D=64 int8 K/V, bf16 q, vlen "
-                 f"{vlens}, {plan}"}
+        "shape": f"B=8 S=328 {heads} int8 K/V, bf16 q, vlen {vlens}, "
+                 f"{plan}"}
 
     tq, qoff, vlen = 64, 64, 128
     q, _, pl, _, tp, vl = _int8_paged_inputs(gen, dtype=torch.bfloat16,
-                                             bs=16, vlens=[vlen], tq=tq)
+                                             bs=16, vlens=[vlen], tq=tq,
+                                             **geom)
     qo = torch.tensor([qoff], dtype=torch.int32, device="cuda")
     kw = dict(k_scale_pool=pl[2], v_scale_pool=pl[3])
     out, _ = fa.flash_attention_paged(q, pl[0], pl[1], qo, vl, tp, **kw)
@@ -2775,7 +3137,8 @@ def _int8_kernel_times(gen) -> dict:
                                              **kw)
     err = (out.float() - want.float()).abs().max().item()
     if not err <= 2e-2:
-        _fail(f"flash_attention_paged_int8 on the timed input: max abs err "
+        _fail(f"flash_attention_paged_int8{suffix} on the timed input: max "
+              f"abs err "
               f"{err:.3g} > 2e-2")
     pairs = sum(min(vlen, qoff + i + 1) for i in range(tq))
     nbytes = (2 * q.numel() * esz + hq * tq * 4 + kv_bytes(vlen)
@@ -2783,7 +3146,7 @@ def _int8_kernel_times(gen) -> dict:
     ops = 4.0 * hq * d * pairs + 2.0 * hkv * d * vlen
     args, _ = fa.prepare_paged(q, pl[0], pl[1], qo, vl, tp, **kw)
     b_ms, b_by = _bound(nbytes, ops, "bfloat16")
-    rows["flash_attention_paged_int8"] = {
+    rows["flash_attention_paged_int8" + suffix] = {
         "ms": _ms(lambda: fa.launch(args)),
         "device_ms": _device_call_ms(lambda: fa.launch(args)),
         "wrapper_ms": _ms(lambda: fa.flash_attention_paged(
@@ -2791,8 +3154,8 @@ def _int8_kernel_times(gen) -> dict:
         "plain_ms": _ms(lambda: fa.flash_attention_paged_plain(
             q, pl[0], pl[1], qo, vl, tp, **kw)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "B=1 Tq=64 q_offset=64 vlen=128 Hq=15 Hkv=5 D=64 BS=16 "
-                 "int8 K/V, bf16 q"}
+        "shape": f"B=1 Tq=64 q_offset=64 vlen=128 {heads} BS=16 int8 K/V, "
+                 "bf16 q"}
     return rows
 
 
@@ -3374,7 +3737,9 @@ def main() -> int:
     print(f"profiler: {obs_kernels.dropped_sessions()} session(s) of phase 3 "
           "launched kernels but recorded no device event, and ran again")
     counts, serve_ctx = _timed(phase_serve)
+    counts.update(_timed(phase_serve_128))
     _timed(phase_parity)
+    _timed(phase_parity_128)
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
@@ -3386,12 +3751,15 @@ def main() -> int:
     errs.update(lib_errs)
     _timed(phase_observability_process)
     kernels = []
-    for name, meta in KERNELS.items():
-        row, path = times[name], KERNEL_PATH[name]
+    entries = [(name, name, KERNEL_PATH[name]) for name in KERNELS]
+    entries += [(name, kernel, path)
+                for name, (kernel, path) in INSTANCES.items()]
+    for name, kernel, path in entries:
+        row, meta = times[name], KERNELS[kernel]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "path": path,
-            "launches": counts[path][name] if path in counts else 0,
+            "launches": counts[path][kernel] if path in counts else 0,
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get(name)`` / ``get_smoke(name)``.
 
-Only the architectures whose families the port serves are listed; asking for
-another one raises and names the reference module it still lives in.
+Only the architectures the port serves are listed: the dense decoders
+smollm-360m (head_dim 64, tied head), mistral-nemo-12b and
+deepseek-coder-33b (head_dim 128, untied heads).  Asking for another one
+raises and names the reference module it still lives in.
 """
 from __future__ import annotations
 
@@ -9,9 +11,11 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCHS = ("smollm_360m",)
+ARCHS = ("smollm_360m", "mistral_nemo_12b", "deepseek_coder_33b")
 
-_ALIASES = {"smollm-360m": "smollm_360m"}
+_ALIASES = {"smollm-360m": "smollm_360m",
+            "mistral-nemo-12b": "mistral_nemo_12b",
+            "deepseek-coder-33b": "deepseek_coder_33b"}
 
 
 def _module(name: str):

@@ -73,17 +73,20 @@ def gumbel_noise(shape, generator: torch.Generator) -> Tensor:
 
 
 def topk_sample(x: Tensor, k: int, *, noise: Optional[Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> tuple[Tensor, Tensor]:
+                generator: Optional[torch.Generator] = None,
+                temperature: float = 1.0) -> tuple[Tensor, Tensor]:
     """Sample a token per row from the fused top-k softmax (the serving
     fast path, paper §4): one pass over the vocabulary through
-    ``dispatch.softmax_topk``, then Gumbel-max over the K survivors.
-    Returns ``(token_ids, top_probs)``.
+    ``dispatch.softmax_topk``, then Gumbel-max over the K survivors; the
+    logits are divided by ``temperature`` first unless it is 1.0, as the
+    reference does.  Returns ``(token_ids, top_probs)``.
 
     The Gumbels are explicit: ``noise`` shaped like the top-k values (a
     test injects the reference's ``jax.random.gumbel`` draw here), or drawn
     from ``generator``.  ``jax.random`` keys are not reproduced."""
     from repro_torch.kernels import dispatch
+    if temperature != 1.0:
+        x = x / temperature
     out = dispatch.softmax_topk(x, k)
     if noise is None:
         if generator is None:

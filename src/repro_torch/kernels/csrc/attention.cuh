@@ -31,7 +31,11 @@
 // (decode_merge).
 // Both run on the CUDA cores: a decode does ~4 * G flops per K/V value read,
 // far below the ~295 flops/byte where the tensor cores would bind, and G
-// query rows (3 for smollm-360m) cannot fill a 64-row wgmma tile.
+// query rows (3 for smollm-360m, 4 and 7 for mistral-nemo-12b and
+// deepseek-coder-33b) cannot fill a 64-row wgmma tile.  Every body is
+// templated on the head dim D (instances: common.cuh, with_head_dim): a
+// position takes D / 8 lanes of 8 values each, so D 128 gives 16 lanes a
+// position and two positions a warp pass where D 64 gives four.
 #pragma once
 
 #include "common.cuh"
@@ -440,12 +444,8 @@ cudaError_t launch_decode(Kernel kernel, size_t smem, int B, int Hq, int Hkv,
                           void* tickets, cudaStream_t stream, Args... args) {
   if (!decode_geometry_ok(Hq, Hkv, split, splits, smem))
     return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(splits, Hkv, B), kDecodeThreads, smem, stream>>>(
       args..., static_cast<float*>(work),
       decode_part_md(work, B, Hkv, splits, Hq / Hkv, D),

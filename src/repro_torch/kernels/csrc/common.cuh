@@ -10,6 +10,7 @@
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #define REPRO_NEG_INF (-CUDART_INF_F)
 
@@ -118,6 +119,32 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Let `kernel` launch with `bytes` of dynamic shared memory: past the 48 KB
+// every launch may have, only after cudaFuncSetAttribute raises its limit.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The head dims the attention kernels are instantiated for: 64
+// (smollm-360m) and 128 (mistral-nemo-12b, deepseek-coder-33b).  Calls
+// f(std::integral_constant<int, D>()) for those and returns its error; any
+// other D gives cudaErrorInvalidValue.
+template <typename F>
+inline cudaError_t with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 64:
+      return f(std::integral_constant<int, 64>());
+    case 128:
+      return f(std::integral_constant<int, 128>());
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* repro_error_string(int code) {

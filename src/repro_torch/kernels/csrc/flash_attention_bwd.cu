@@ -498,24 +498,13 @@ __global__ void __launch_bounds__(wg::kThreads)
   }
 }
 
-// Raise a kernel's dynamic shared memory limit past 48 KB, once.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dq, int B, int Tq,
                            int Tk, int Hq, int Hkv, long long sb, long long ss,
                            long long sh, float scale, int causal,
                            cudaStream_t stream) {
-  static bool ready = false;
-  cudaError_t err = allow_smem(bwd_dq_wgmma_kernel, kDqSmem, ready);
+  const cudaError_t err = allow_dynamic_smem(bwd_dq_wgmma_kernel, kDqSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
@@ -532,8 +521,8 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
                             int Tq, int Tk, int Hq, int Hkv, long long sb,
                             long long ss, long long sh, float scale,
                             int causal, cudaStream_t stream) {
-  static bool ready = false;
-  cudaError_t err = allow_smem(bwd_dkv_wgmma_kernel, kDkvSmem, ready);
+  const cudaError_t err =
+      allow_dynamic_smem(bwd_dkv_wgmma_kernel, kDkvSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tk + wg::kRows - 1) / wg::kRows) * B * Hkv;
@@ -583,7 +572,8 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
 // q, dout and dq [B, Tq, Hq, D] contiguous; k, v [B, Tk, Hkv, D] with element
 // strides (sb, ss, sh, 1), the same for both (bf16: multiples of 8, and
 // every pointer 16-byte aligned, for the 16-byte copies); lse, delta
-// [B, Hq, Tq] float32.  D == 64 (smollm-360m's head_dim).  Returns
+// [B, Hq, Tq] float32.  D == 64 only (the training slice's head dim,
+// smollm-360m's; the serving kernels also take 128).  Returns
 // cudaGetLastError().
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,

@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(wg::kThreads)
       ContiguousRows{static_cast<size_t>(b * sb + hk * sh),
                      static_cast<size_t>(wg::kRows * ss),
                      static_cast<size_t>(ss)}};
-  wg::attend(q + q0, k, v, keys, out + q0,
+  wg::attend<wg::kD>(q + q0, k, v, keys, out + q0,
              lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq, 0,
              Tk, scale, causal, tiles);
 }
@@ -103,10 +103,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int Tq, int Tk, int Hq,
                         int Hkv, long long sb, long long ss, long long sh,
                         float scale, int causal, cudaStream_t stream) {
+  constexpr int kSmem = wg::attend_smem(wg::kD);
+  const cudaError_t err = allow_dynamic_smem(fresh_fwd_wgmma_kernel, kSmem);
+  if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>((Tq + wg::kRows - 1) /
                                                 wg::kRows) * B * Hq;
-  fresh_fwd_wgmma_kernel<<<blocks, wg::kThreads, wg::kAttendSmem,
-                           stream>>>(
+  fresh_fwd_wgmma_kernel<<<blocks, wg::kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -119,7 +121,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // q and out [B, Tq, Hq, D] contiguous; k, v [B, Tk, Hkv, D] with element
 // strides (sb, ss, sh, 1), the same for both (bf16: multiples of 8, and
 // every pointer 16-byte aligned, for the 16-byte copies); lse [B, Hq, Tq]
-// float32.  D == 64 (smollm-360m's head_dim).  Returns cudaGetLastError().
+// float32.  D == 64 only: the training slice's head dim (smollm-360m); the
+// serving kernels also take 128.  Returns cudaGetLastError().
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out, void* lse,
                                           int dtype, int B, int Tq, int Tk,
@@ -144,4 +147,6 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
 }
 
 // Dynamic shared memory of the bf16 (wgmma) kernel, in bytes.
-extern "C" int flash_attention_fwd_wgmma_smem() { return wg::kAttendSmem; }
+extern "C" int flash_attention_fwd_wgmma_smem() {
+  return wg::attend_smem(wg::kD);
+}

@@ -31,7 +31,9 @@
 //   fresh forward's, given the row's q_offset and vlen: S = Q·Kᵀ and O +=
 //   P·V as wgmma products on 64-key K/V tiles that a two-stage cp.async
 //   ring fills (zero-filled, unread, at or past vlen); only tiles crossing
-//   vlen or the diagonal are masked.
+//   vlen or the diagonal are masked.  At D 128 a row is two 128-byte
+//   swizzle atoms and the ring needs 81 KB of dynamic shared memory, which
+//   the launch allows first.
 //
 // fp32: prefill_offset_kernel, on CUDA cores.  One CTA per (query tile of
 //   16 rows, query head, batch row), 128 threads, 8 per query row;
@@ -65,6 +67,7 @@ __global__ void __launch_bounds__(kPrefillThreads)
                        smem);
 }
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads)
     offset_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -83,28 +86,52 @@ __global__ void __launch_bounds__(wg::kThreads)
   const int b = bid % B;
   const int i0 = ((Tq + wg::kRows - 1) / wg::kRows - 1 - bid / B) * wg::kRows;
   const int hk = h / (Hq / Hkv);
-  const size_t qstride = static_cast<size_t>(Hq) * wg::kD;
-  const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * wg::kD;
+  const size_t qstride = static_cast<size_t>(Hq) * D;
+  const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * D;
   const wg::ContiguousKeys keys{
       ContiguousRows{static_cast<size_t>(b * sb + hk * sh),
                      static_cast<size_t>(wg::kRows * ss),
                      static_cast<size_t>(ss)}};
-  wg::attend(q + q0, k, v, keys, out + q0,
+  wg::attend<D>(q + q0, k, v, keys, out + q0,
              lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq,
              q_offset[b], max(min(vlen[b], Tk), 0), scale, causal, tiles);
 }
 
+template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* q_offset, const int* vlen, void* out,
                        float* lse, int B, int Tq, int Hq, int Hkv, int Tk,
                        long long sb, long long ss, long long sh, float scale,
                        int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * prefill_smem_words(64, kTile);
+  const size_t smem = sizeof(float) * prefill_smem_words(D, kTile);
+  const cudaError_t err =
+      allow_dynamic_smem(prefill_offset_kernel<float, D>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
-  prefill_offset_kernel<float, 64><<<grid, kPrefillThreads, smem, stream>>>(
+  prefill_offset_kernel<float, D><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), q_offset, vlen, static_cast<float*>(out),
       lse, Tq, Hq, Hkv, Tk, sb, ss, sh, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const int* q_offset, const int* vlen, void* out,
+                        float* lse, int B, int Tq, int Hq, int Hkv, int Tk,
+                        long long sb, long long ss, long long sh, float scale,
+                        int causal, cudaStream_t stream) {
+  constexpr int kSmem = wg::attend_smem(D);
+  const cudaError_t err = allow_dynamic_smem(offset_wgmma_kernel<D>, kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
+  offset_wgmma_kernel<D><<<blocks, wg::kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), q_offset, vlen,
+      static_cast<__nv_bfloat16*>(out), lse, B, Tq, Hq, Hkv, Tk, sb, ss, sh,
+      scale, causal);
   return cudaGetLastError();
 }
 
@@ -112,41 +139,41 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 // q and out [B, Tq, Hq, D] contiguous; k, v [B, Tk, Hkv, D] with element
 // strides (sb, ss, sh, 1), the same for both; q_offset, vlen [B] int32;
-// lse [B, Hq, Tq] float32.  D == 64 (smollm-360m's head_dim).  The fp32
-// form (prefill_offset_kernel, CUDA cores).  Returns cudaGetLastError().
+// lse [B, Hq, Tq] float32.  D is 64 or 128 (the instances of
+// with_head_dim), any other D is refused.  The fp32 form
+// (prefill_offset_kernel, CUDA cores).  Returns cudaGetLastError().
 extern "C" int flash_attention_offset_launch(
     const void* q, const void* k, const void* v, const void* q_offset,
     const void* vlen, void* out, void* lse, int B, int Tq, int Hq, int Hkv,
     int Tk, int D, long long sb, long long ss, long long sh, float scale,
     int causal, void* stream) {
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_f32(
-      q, k, v, static_cast<const int*>(q_offset),
-      static_cast<const int*>(vlen), out, static_cast<float*>(lse), B, Tq, Hq,
-      Hkv, Tk, sb, ss, sh, scale, causal, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    return launch_f32<decltype(d)::value>(
+        q, k, v, static_cast<const int*>(q_offset),
+        static_cast<const int*>(vlen), out, static_cast<float*>(lse), B, Tq,
+        Hq, Hkv, Tk, sb, ss, sh, scale, causal,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // The bf16 form (offset_wgmma_kernel, tensor cores), the same operands in
 // bf16 (every pointer 16-byte aligned, K/V strides multiples of 8, for the
-// 16-byte copies).  D == 64.  Returns cudaGetLastError().
+// 16-byte copies).  D is 64 or 128.  Returns cudaGetLastError().
 extern "C" int flash_attention_offset_wgmma_launch(
     const void* q, const void* k, const void* v, const void* q_offset,
     const void* vlen, void* out, void* lse, int B, int Tq, int Hq, int Hkv,
     int Tk, int D, long long sb, long long ss, long long sh, float scale,
     int causal, void* stream) {
-  if (D != wg::kD) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks =
-      static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
-  offset_wgmma_kernel<<<blocks, wg::kThreads, wg::kAttendSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_offset),
-      static_cast<const int*>(vlen), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), B, Tq, Hq, Hkv, Tk, sb, ss, sh, scale,
-      causal);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    return launch_bf16<decltype(d)::value>(
+        q, k, v, static_cast<const int*>(q_offset),
+        static_cast<const int*>(vlen), out, static_cast<float*>(lse), B, Tq,
+        Hq, Hkv, Tk, sb, ss, sh, scale, causal,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
-// Dynamic shared memory of the bf16 (wgmma) form, in bytes.
-extern "C" int flash_attention_offset_wgmma_smem() { return wg::kAttendSmem; }
+// Dynamic shared memory of the bf16 (wgmma) form at head dim D, in bytes.
+extern "C" int flash_attention_offset_wgmma_smem(int D) {
+  return wg::attend_smem(D);
+}

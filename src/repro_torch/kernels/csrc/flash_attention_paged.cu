@@ -29,7 +29,9 @@
 //   one more where BS does not divide 64; their table entries are staged
 //   in shared memory once a tile, a tile ahead, by cp.async).  At B 1, Tq 64
 //   that is 15 CTAs of one warpgroup doing wgmma products where the CUDA-core
-//   form ran 60 CTAs walking one page per barrier.
+//   form ran 60 CTAs walking one page per barrier.  At D 128 (32 CTAs for
+//   mistral-nemo-12b's 32 query heads) a row is two 128-byte swizzle atoms
+//   and the ring needs 81 KB of dynamic shared memory, allowed first.
 //
 // fp32: prefill_paged_kernel, on CUDA cores.  One CTA per (query tile of
 //   BQ = 16 rows, query head, batch row), 128 threads, 8 per query row; the
@@ -101,6 +103,7 @@ __global__ void __launch_bounds__(kPrefillThreads)
                        smem, sc);
 }
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads)
     paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k_pool,
@@ -112,7 +115,7 @@ __global__ void __launch_bounds__(wg::kThreads)
                        float* __restrict__ lse, int B, int Tq, int Hq,
                        int Hkv, int BS, int M, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char tiles[];
-  __shared__ int staged[2 * wg::PagedKeys::kSlot];
+  __shared__ int staged[2 * wg::PagedKeys<D>::kSlot];
   // heaviest query tile first: blockIdx.x = (reversed tile, b, h), h fastest
   int bid = blockIdx.x;
   const int h = bid % Hq;
@@ -120,12 +123,12 @@ __global__ void __launch_bounds__(wg::kThreads)
   const int b = bid % B;
   const int i0 = ((Tq + wg::kRows - 1) / wg::kRows - 1 - bid / B) * wg::kRows;
   const int hk = h / (Hq / Hkv);
-  const size_t qstride = static_cast<size_t>(Hq) * wg::kD;
-  const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * wg::kD;
-  const size_t page = static_cast<size_t>(BS) * wg::kD;
-  const wg::PagedKeys keys{tables + static_cast<size_t>(b) * M, staged,
-                           Hkv * page, hk * page, BS};
-  wg::attend(q + q0, k_pool, v_pool, keys, out + q0,
+  const size_t qstride = static_cast<size_t>(Hq) * D;
+  const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * D;
+  const size_t page = static_cast<size_t>(BS) * D;
+  const wg::PagedKeys<D> keys{tables + static_cast<size_t>(b) * M, staged,
+                              Hkv * page, hk * page, BS};
+  wg::attend<D>(q + q0, k_pool, v_pool, keys, out + q0,
              lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq,
              q_offset[b], max(min(vlen[b], M * BS), 0), scale, causal, tiles);
 }
@@ -139,6 +142,9 @@ cudaError_t launch_int8(const void* q, const void* k_pool, const void* v_pool,
                         long long sh, long long st, float scale, int causal,
                         cudaStream_t stream) {
   const size_t smem = sizeof(float) * prefill_smem_words(D, BS);
+  const cudaError_t err =
+      allow_dynamic_smem(prefill_paged_int8_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
   prefill_paged_int8_kernel<T, D><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const signed char*>(k_pool),
@@ -150,61 +156,93 @@ cudaError_t launch_int8(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k_pool, const void* v_pool,
+                       const int* q_offset, const int* vlen,
+                       const int* tables, void* out, float* lse, int B,
+                       int Tq, int Hq, int Hkv, int BS, int M, float scale,
+                       int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * prefill_smem_words(D, BS);
+  const cudaError_t err =
+      allow_dynamic_smem(prefill_paged_kernel<float, D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
+  prefill_paged_kernel<float, D><<<grid, kPrefillThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), q_offset, vlen, tables,
+      static_cast<float*>(out), lse, Tq, Hq, Hkv, BS, M, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k_pool, const void* v_pool,
+                        const int* q_offset, const int* vlen,
+                        const int* tables, void* out, float* lse, int B,
+                        int Tq, int Hq, int Hkv, int BS, int M, float scale,
+                        int causal, cudaStream_t stream) {
+  constexpr int kSmem = wg::attend_smem(D);
+  const cudaError_t err = allow_dynamic_smem(paged_wgmma_kernel<D>, kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
+  paged_wgmma_kernel<D><<<blocks, wg::kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool), q_offset, vlen, tables,
+      static_cast<__nv_bfloat16*>(out), lse, B, Tq, Hq, Hkv, BS, M, scale,
+      causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q and out [B, Tq, Hq, D] contiguous; pools [P, Hkv, BS, D] contiguous;
 // q_offset, vlen [B] int32; tables [B, M] int32; lse [B, Hq, Tq] float32.
-// D == 64 (smollm-360m's head_dim).  The fp32 form (prefill_paged_kernel,
-// CUDA cores).  Returns cudaGetLastError().
+// D is 64 or 128 (the instances of with_head_dim), any other D is refused.
+// The fp32 form (prefill_paged_kernel, CUDA cores).  Returns
+// cudaGetLastError().
 extern "C" int flash_attention_paged_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* q_offset, const void* vlen, const void* tables, void* out,
     void* lse, int dtype, int B, int Tq, int Hq, int Hkv, int BS, int D, int M,
     float scale, int causal, void* stream) {
-  if (dtype != kDtypeF32 || D != 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * prefill_smem_words(64, BS);
-  const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
-  prefill_paged_kernel<float, 64>
-      <<<grid, kPrefillThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k_pool),
-          static_cast<const float*>(v_pool),
-          static_cast<const int*>(q_offset), static_cast<const int*>(vlen),
-          static_cast<const int*>(tables), static_cast<float*>(out),
-          static_cast<float*>(lse), Tq, Hq, Hkv, BS, M, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != kDtypeF32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    return launch_f32<decltype(d)::value>(
+        q, k_pool, v_pool, static_cast<const int*>(q_offset),
+        static_cast<const int*>(vlen), static_cast<const int*>(tables), out,
+        static_cast<float*>(lse), B, Tq, Hq, Hkv, BS, M, scale, causal,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // The bf16 form on the tensor cores (paged_wgmma_kernel): the operands of
 // flash_attention_paged_launch in bf16, every pointer 16-byte aligned (the
-// 16-byte copies).  D == 64.  Returns cudaGetLastError().
+// 16-byte copies).  D is 64 or 128.  Returns cudaGetLastError().
 extern "C" int flash_attention_paged_wgmma_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* q_offset, const void* vlen, const void* tables, void* out,
     void* lse, int dtype, int B, int Tq, int Hq, int Hkv, int BS, int D, int M,
     float scale, int causal, void* stream) {
-  if (dtype != kDtypeBF16 || D != wg::kD)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks =
-      static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
-  paged_wgmma_kernel<<<blocks, wg::kThreads, wg::kAttendSmem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      static_cast<const int*>(q_offset), static_cast<const int*>(vlen),
-      static_cast<const int*>(tables), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), B, Tq, Hq, Hkv, BS, M, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != kDtypeBF16) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    return launch_bf16<decltype(d)::value>(
+        q, k_pool, v_pool, static_cast<const int*>(q_offset),
+        static_cast<const int*>(vlen), static_cast<const int*>(tables), out,
+        static_cast<float*>(lse), B, Tq, Hq, Hkv, BS, M, scale, causal,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
-// Dynamic shared memory of the bf16 (wgmma) form, in bytes (its table
-// entries' 512 bytes are static).
-extern "C" int flash_attention_paged_wgmma_smem() { return wg::kAttendSmem; }
+// Dynamic shared memory of the bf16 (wgmma) form at head dim D, in bytes
+// (its table entries' 512 bytes are static).
+extern "C" int flash_attention_paged_wgmma_smem(int D) {
+  return wg::attend_smem(D);
+}
 
 // The int8 form: q, out, q_offset, vlen, tables and lse as above; pools
 // [P, Hkv, BS, D] int8 contiguous; scale pages [P, Hkv, BS] bf16 with
-// element strides (sp, sh, st), the same for both.  D == 64.
+// element strides (sp, sh, st), the same for both.  D is 64 or 128.
 extern "C" int flash_attention_paged_int8_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* q_offset,
@@ -216,16 +254,17 @@ extern "C" int flash_attention_paged_int8_launch(
   const int* vl = static_cast<const int*>(vlen);
   const int* tb = static_cast<const int*>(tables);
   float* ls = static_cast<float*>(lse);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64 && dtype == kDtypeF32) {
-    err = launch_int8<float, 64>(q, k_pool, v_pool, k_scale, v_scale, qo, vl,
-                                 tb, out, ls, B, Tq, Hq, Hkv, BS, M, sp, sh,
-                                 st, scale, causal, stm);
-  } else if (D == 64 && dtype == kDtypeBF16) {
-    err = launch_int8<__nv_bfloat16, 64>(q, k_pool, v_pool, k_scale, v_scale,
-                                         qo, vl, tb, out, ls, B, Tq, Hq, Hkv,
-                                         BS, M, sp, sh, st, scale, causal,
-                                         stm);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (dtype == kDtypeF32)
+      return launch_int8<float, kD>(q, k_pool, v_pool, k_scale, v_scale, qo,
+                                    vl, tb, out, ls, B, Tq, Hq, Hkv, BS, M,
+                                    sp, sh, st, scale, causal, stm);
+    if (dtype == kDtypeBF16)
+      return launch_int8<__nv_bfloat16, kD>(q, k_pool, v_pool, k_scale,
+                                            v_scale, qo, vl, tb, out, ls, B,
+                                            Tq, Hq, Hkv, BS, M, sp, sh, st,
+                                            scale, causal, stm);
+    return cudaErrorInvalidValue;
+  }));
 }

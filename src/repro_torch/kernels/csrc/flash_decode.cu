@@ -35,7 +35,8 @@
 //   call, which would move more bytes than the kernel reads.  Positions at
 //   or past vlen are never read, so a row reads exactly its valid prefix;
 //   vlen == 0 gives 0; idle slots arrive with vlen 1 and read position 0 of
-//   their own slot.  The int8 form runs the same kernels; each position's
+//   their own slot.  Instances at D 64 and 128 (with_head_dim), as in
+//   flash_decode_paged.cu.  The int8 form runs the same kernels; each position's
 //   int8 K and V are dequantized in registers by their scales, read through
 //   the scales' own strides.
 #include "attention.cuh"
@@ -105,14 +106,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int B, int Hq, int Hkv, int S, int D, int split,
                    int splits, long long sb, long long ss, long long sh,
                    float scale, cudaStream_t stream) {
-  if (D != 64 || Hkv <= 0) return cudaErrorInvalidValue;
-  const size_t smem = decode_split_smem(Hq / Hkv, 64, sizeof(T), split,
-                                        false);
-  return launch_decode<T>(
-      decode_split_kernel<T, 64>, smem, B, Hq, Hkv, 64, split, splits, out,
-      work, tickets, stream, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), vlen, Hq, Hkv, S,
-      split, splits, sb, ss, sh, scale);
+  if (Hkv <= 0) return cudaErrorInvalidValue;
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const size_t smem = decode_split_smem(Hq / Hkv, kD, sizeof(T), split,
+                                          false);
+    return launch_decode<T>(
+        decode_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split, splits, out,
+        work, tickets, stream, static_cast<const T*>(q),
+        static_cast<const T*>(k), static_cast<const T*>(v), vlen, Hq, Hkv, S,
+        split, splits, sb, ss, sh, scale);
+  });
 }
 
 template <typename T>
@@ -124,15 +128,19 @@ cudaError_t launch_int8(const void* q, const void* k, const void* v,
                         long long sb, long long ss, long long sh,
                         long long zb, long long zs, long long zh, float scale,
                         cudaStream_t stream) {
-  if (D != 64 || Hkv <= 0) return cudaErrorInvalidValue;
-  const size_t smem = decode_split_smem(Hq / Hkv, 64, 1, split, true);
-  return launch_decode<T>(
-      decode_int8_split_kernel<T, 64>, smem, B, Hq, Hkv, 64, split, splits,
-      out, work, tickets, stream, static_cast<const T*>(q),
-      static_cast<const signed char*>(k), static_cast<const signed char*>(v),
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), vlen, Hq, Hkv, S, split,
-      splits, sb, ss, sh, zb, zs, zh, scale);
+  if (Hkv <= 0) return cudaErrorInvalidValue;
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const size_t smem = decode_split_smem(Hq / Hkv, kD, 1, split, true);
+    return launch_decode<T>(
+        decode_int8_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split, splits,
+        out, work, tickets, stream, static_cast<const T*>(q),
+        static_cast<const signed char*>(k),
+        static_cast<const signed char*>(v),
+        static_cast<const __nv_bfloat16*>(k_scale),
+        static_cast<const __nv_bfloat16*>(v_scale), vlen, Hq, Hkv, S, split,
+        splits, sb, ss, sh, zb, zs, zh, scale);
+  });
 }
 
 }  // namespace
@@ -141,8 +149,9 @@ cudaError_t launch_int8(const void* q, const void* k, const void* v,
 // element strides (sb, ss, sh, 1), the same for both, 16-byte aligned
 // rows; vlen [B] int32; work: B * Hkv * splits * G * (D + 2) floats,
 // G = Hq / Hkv <= 8; tickets: B * Hkv ints, 0 on entry (and left 0).
-// Splits of `split` positions, splits * split >= S.  D == 64 (smollm-360m's
-// head_dim).  One launch; returns cudaGetLastError().
+// Splits of `split` positions, splits * split >= S.  D is 64 or 128 (the
+// instances of with_head_dim), any other D is refused.  One launch; returns
+// cudaGetLastError().
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* vlen, void* out,
                                    void* work, void* tickets, int dtype, int B,
@@ -165,7 +174,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
 // The int8 form: q and out as above (float or bf16, `dtype`); k, v
 // [B, S, Hkv, D] int8 with element strides (sb, ss, sh, 1), the same for
 // both; k_scale, v_scale [B, S, Hkv] bf16 with strides (zb, zs, zh), the
-// same for both.  D == 64.
+// same for both.  D is 64 or 128.
 extern "C" int flash_decode_int8_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* vlen, void* out, void* work,

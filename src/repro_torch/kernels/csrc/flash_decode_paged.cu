@@ -30,7 +30,9 @@
 //   and writes acc / d, so the result does not depend on which CTA merges
 //   and a call is one launch.  Nothing at or past vlen is read, and
 //   vlen == 0 gives 0.  Idle rows decode with vlen = 1 against the sentinel
-//   block 0; their output is discarded.
+//   block 0; their output is discarded.  Instances at D 64 and 128
+//   (with_head_dim): at D 128 a position takes 16 lanes, and a split's
+//   16 KB of K holds 64 bf16 positions (decode_plan).
 // int8 form: the same kernels over int8 pools; each position's K and V are
 //   dequantized in registers as float(int8) * float(bf16 scale), the scale
 //   pages [P, Hkv, BS] read through the same table entry (attention.cuh,
@@ -102,14 +104,17 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    void* tickets, int B, int Hq, int Hkv, int BS, int D,
                    int M, int split, int splits, float scale,
                    cudaStream_t stream) {
-  if (D != 64 || Hkv <= 0) return cudaErrorInvalidValue;
-  const size_t smem = decode_split_smem(Hq / Hkv, 64, sizeof(T), split,
-                                        false);
-  return launch_decode<T>(
-      decode_paged_split_kernel<T, 64>, smem, B, Hq, Hkv, 64, split, splits,
-      out, work, tickets, stream, static_cast<const T*>(q),
-      static_cast<const T*>(k_pool), static_cast<const T*>(v_pool), tables,
-      vlen, Hq, Hkv, BS, M, split, splits, scale);
+  if (Hkv <= 0) return cudaErrorInvalidValue;
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const size_t smem = decode_split_smem(Hq / Hkv, kD, sizeof(T), split,
+                                          false);
+    return launch_decode<T>(
+        decode_paged_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split,
+        splits, out, work, tickets, stream, static_cast<const T*>(q),
+        static_cast<const T*>(k_pool), static_cast<const T*>(v_pool), tables,
+        vlen, Hq, Hkv, BS, M, split, splits, scale);
+  });
 }
 
 template <typename T>
@@ -121,16 +126,19 @@ cudaError_t launch_int8(const void* q, const void* k_pool, const void* v_pool,
                         long long sp,
                         long long sh, long long st, float scale,
                         cudaStream_t stream) {
-  if (D != 64 || Hkv <= 0) return cudaErrorInvalidValue;
-  const size_t smem = decode_split_smem(Hq / Hkv, 64, 1, split, true);
-  return launch_decode<T>(
-      decode_paged_int8_split_kernel<T, 64>, smem, B, Hq, Hkv, 64, split,
-      splits, out, work, tickets, stream, static_cast<const T*>(q),
-      static_cast<const signed char*>(k_pool),
-      static_cast<const signed char*>(v_pool),
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), tables, vlen, Hq, Hkv, BS,
-      M, split, splits, sp, sh, st, scale);
+  if (Hkv <= 0) return cudaErrorInvalidValue;
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const size_t smem = decode_split_smem(Hq / Hkv, kD, 1, split, true);
+    return launch_decode<T>(
+        decode_paged_int8_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split,
+        splits, out, work, tickets, stream, static_cast<const T*>(q),
+        static_cast<const signed char*>(k_pool),
+        static_cast<const signed char*>(v_pool),
+        static_cast<const __nv_bfloat16*>(k_scale),
+        static_cast<const __nv_bfloat16*>(v_scale), tables, vlen, Hq, Hkv,
+        BS, M, split, splits, sp, sh, st, scale);
+  });
 }
 
 }  // namespace
@@ -139,8 +147,9 @@ cudaError_t launch_int8(const void* q, const void* k_pool, const void* v_pool,
 // contiguous and 16-byte aligned; tables [B, M] int32; vlen [B] int32;
 // work: B * Hkv * splits * G * (D + 2) floats, G = Hq / Hkv <= 8; tickets:
 // B * Hkv ints, 0 on entry (and left 0).  Splits of `split` positions (a
-// multiple of BS), splits * split >= M * BS.  D == 64 (smollm-360m's
-// head_dim).  One launch; returns cudaGetLastError().
+// multiple of BS), splits * split >= M * BS.  D is 64 or 128 (the
+// instances of with_head_dim), any other D is refused.  One launch; returns
+// cudaGetLastError().
 extern "C" int flash_decode_paged_launch(const void* q, const void* k_pool,
                                          const void* v_pool,
                                          const void* tables, const void* vlen,
@@ -166,7 +175,7 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k_pool,
 
 // The int8 form: q and out as above (float or bf16, `dtype`); pools
 // [P, Hkv, BS, D] int8 contiguous; scale pages [P, Hkv, BS] bf16 with
-// element strides (sp, sh, st), the same for both.  D == 64.
+// element strides (sp, sh, st), the same for both.  D is 64 or 128.
 extern "C" int flash_decode_paged_int8_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,

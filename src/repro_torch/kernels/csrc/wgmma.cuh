@@ -7,10 +7,13 @@
 // (attend), which the fresh and both cached-prefill forward kernels share,
 // each giving it where its keys live (ContiguousKeys, PagedKeys).
 //
-// Tiles.  Every operand tile is [64 rows][64 bf16] (a row of head_dim 64 is
-// 128 bytes): 8 KB, 1024-byte aligned, with 16-byte chunk c of row r stored
-// at r * 128 + ((c ^ (r % 8)) * 16), the 128B swizzle that wgmma's
-// SWIZZLE_128B mode reads.  The same tile serves two ways:
+// Tiles.  An operand tile is 64 rows of a head dim D (64 or 128 bf16) as
+// D / 64 atom columns, each [64 rows][64 bf16] (128 bytes a row): 8 KB,
+// 1024-byte aligned, with 16-byte chunk c of row r stored at r * 128 +
+// ((c ^ (r % 8)) * 16), the 128B swizzle that wgmma's SWIZZLE_128B mode
+// reads; atom column a holds values [64a, 64a + 64) of every row and lies
+// a * 8 KB into the tile.  At D 64 a tile is one atom column.  The same
+// atom column serves two ways:
 //   K-major  (the contraction runs along the row's 64 values: Q, K, dO, V
 //            in S = Q·Kᵀ, dP = dO·Vᵀ and their transposes); k-step kk of 16
 //            values starts 32 * kk bytes into the tile;
@@ -19,7 +22,9 @@
 //            16-bit types); k-step kk of 16 rows starts 2048 * kk bytes in.
 // Groups of 8 rows lie 1024 bytes apart in both readings, and a 64-wide
 // operand is one swizzle atom wide, so the descriptor's two byte offsets
-// are both 1024.
+// are both 1024.  A contraction over D 128 (S = Q·Kᵀ) runs over both atom
+// columns, four k-steps each; a product of width D 128 (O += P·V) is two
+// n-halves of 64, one accumulator each.
 //
 // Fragments.  A warpgroup (128 threads, warps w = 0..3) holds a 64 x 64 fp32
 // accumulator as 32 floats a thread: float 4 * n + e sits at row
@@ -37,9 +42,20 @@
 namespace wg {
 
 constexpr int kRows = 64;                 // rows of a tile (wgmma M)
-constexpr int kD = 64;                    // head_dim, 128 bytes of bf16
+constexpr int kD = 64;                    // values of an atom row, 128 bytes
+                                          // of bf16 (the backward's head_dim)
 constexpr int kThreads = 128;             // one warpgroup
-constexpr uint32_t kTileBytes = kRows * kD * 2;   // 8 KB
+constexpr uint32_t kTileBytes = kRows * kD * 2;   // 8 KB: one atom column
+
+// Bytes of a tile of head dim D: D / 64 atom columns.
+__host__ __device__ constexpr uint32_t tile_bytes(int D) {
+  return kRows * D * 2;
+}
+
+// Where 16-byte chunk c (of D / 8) of row r lies in a tile.
+__device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
+  return (c >> 3) * kTileBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
 
 using ::smem_addr;
 
@@ -61,45 +77,48 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Rows [0, 64) of an operand into the swizzled tile at `dst`, by the 128
-// threads of the warpgroup: row r's 64 values are contiguous from base +
-// at(r) (elements); rows at or past `valid` are zero-filled without being
-// read, and `at` is not asked for them.
-template <typename At>
+// Rows [0, 64) of an operand of head dim D into the swizzled tile at
+// `dst`, by the 128 threads of the warpgroup: row r's D values are
+// contiguous from base + at(r) (elements); rows at or past `valid` are
+// zero-filled without being read, and `at` is not asked for them.
+template <int D = kD, typename At>
 __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           const At& at, int valid) {
+  constexpr int kChunks = D / 8;  // 16-byte copies a row
   const int tid = threadIdx.x % kThreads;
 #pragma unroll
-  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
-    const int e = tid + i * kThreads, r = e >> 3, c = e & 7;
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int e = tid + i * kThreads, r = e / kChunks, c = e % kChunks;
     const bool ok = r < valid;
     const __nv_bfloat16* src = base + (ok ? at(r) : 0) + c * 8;
-    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), src, ok);
+    cp_async16(dst + chunk_offset(r, c), src, ok);
   }
 }
 
 // The same for an operand whose row r starts at rows + r * stride.
+template <int D = kD>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* rows,
                                           size_t stride, int valid) {
-  load_rows(dst, rows, [stride](int r) { return r * stride; }, valid);
+  load_rows<D>(dst, rows, [stride](int r) { return r * stride; }, valid);
 }
 
 // K and V rows [0, 64) that share their addresses (one row address, two
 // copies), into the tiles at dk and dv.
-template <typename At>
+template <int D = kD, typename At>
 __device__ __forceinline__ void load_kv_rows(uint32_t dk, uint32_t dv,
                                              const __nv_bfloat16* k,
                                              const __nv_bfloat16* v,
                                              const At& at, int valid) {
+  constexpr int kChunks = D / 8;
   const int tid = threadIdx.x % kThreads;
 #pragma unroll
-  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
-    const int e = tid + i * kThreads, r = e >> 3, c = e & 7;
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int e = tid + i * kThreads, r = e / kChunks, c = e % kChunks;
     const bool ok = r < valid;
     const size_t a = (ok ? at(r) : 0) + c * 8;
-    const uint32_t o = r * 128 + ((c ^ (r & 7)) << 4);
+    const uint32_t o = chunk_offset(r, c);
     cp_async16(dk + o, k + a, ok);
     cp_async16(dv + o, v + a, ok);
   }
@@ -183,12 +202,16 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
 #undef REPRO_WG_D32
 #undef REPRO_WG_ACC32
 
-// S (+)= A·Bᵀ over the 64 values of a row: four k-steps, both tiles K-major.
+// S = A·Bᵀ over the D values of a row: D / 16 k-steps, four in each atom
+// column, both tiles K-major.
+template <int D = kD>
 __device__ __forceinline__ void gemm_k(float (&d)[32], uint32_t a,
                                        uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    mma_ss(d, desc_k(a, kk), desc_k(b, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk >> 2) * kTileBytes;
+    mma_ss(d, desc_k(a + col, kk & 3), desc_k(b + col, kk & 3), kk > 0);
+  }
 }
 
 // d += P·B with P [64, 64] in registers (frag, per k-step) and B MN-major.
@@ -235,9 +258,12 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // ---- the forward's tile loop -------------------------------------------------
-// Dynamic shared memory of attend: Q, then two stages of (K, V), and the 1 KB
-// the base is aligned up by.
-constexpr int kAttendSmem = 5 * kTileBytes + 1024;
+// Dynamic shared memory of attend at head dim D: Q, then two stages of (K,
+// V), and the 1 KB the base is aligned up by (41 KB at D 64, 81 KB at D 128:
+// past the default 48 KB, so its launches raise the limit first).
+__host__ __device__ constexpr int attend_smem(int D) {
+  return 5 * tile_bytes(D) + 1024;
+}
 
 // Where attend finds its keys: at(j, r) is the offset (elements, from K's
 // and V's base) of row r of 64-key tile j of one (batch row, KV head), in
@@ -261,6 +287,7 @@ struct ContiguousKeys {
 // 4-byte cp.async copies, and at(j, r) reads them through a PagedRows whose
 // table is that slot shifted back by tile j's first page.  Only pages that
 // hold a position below L are staged, so a dead entry is never read.
+template <int D>
 struct PagedKeys {
   static constexpr bool kStaged = true;
   static constexpr int kSlot = kRows;  // pages a tile may span (BS 1)
@@ -281,62 +308,69 @@ struct PagedKeys {
   __device__ __forceinline__ size_t at(int j, int r) const {
     const int t = j * kRows + r;
     const PagedRows rows{staged + (j & 1) * kSlot - j * kRows / bs, page,
-                         head, static_cast<size_t>(kD)};
+                         head, static_cast<size_t>(D)};
     return rows.at(t / bs) + static_cast<size_t>(t % bs) * rows.stride;
   }
 };
 
 // Query rows [i0, i0 + 64) of one (query head, batch row) against keys
 // [0, L) of its KV head, by one warpgroup, query row i at absolute position
-// qo + i.  qb: the head's row 0 of q (rows qstride apart), ob the same of
+// qo + i, at head dim D (64 or 128).  qb: the head's row 0 of q (rows qstride apart), ob the same of
 // out; lb: its row 0 of lse (rows 1 apart); k, v and keys: where its KV
 // head's keys live (ContiguousKeys, PagedKeys).  Q's tile is copied once; K
 // and V tiles of 64 keys stream through a two-stage cp.async ring, so the
 // copy of tile j + 1 overlaps the products of tile j (a paged cache's table
-// entries of tile j + 2 ride along with it).  Per tile: S = Q·Kᵀ (four wgmma
-// m64n64k16, fp32 accumulators in registers); the online (m, d) update in
+// entries of tile j + 2 ride along with it).  Per tile: S = Q·Kᵀ (D / 16
+// wgmma m64n64k16, fp32 accumulators in registers); the online (m, d) update in
 // the accumulator layout: a row's max from its thread's 16 scores and two
 // quad shuffles, each exponential taken once as exp2f with scale·log2(e)
 // folded in, the rescale guard of common.cuh (m_old == m_new gives 1, so
 // -inf/-inf gives no NaN), and d kept as per-thread partial sums,
 // quad-reduced once at the end; then O += P·V with P converted to bf16 in
-// registers as wgmma's register A operand and V read MN-major.  The tile
+// registers as wgmma's register A operand and V read MN-major, one
+// m64n64 accumulator per 64 columns of O.  The tile
 // loop stops at min(ceil(L / 64), (qo + last row) / 64 + 1) when causal;
 // only tiles that cross L or the diagonal (k_pos <= qo + i) are masked.
 // Keys at or past L are zero-filled without being read and score -inf;
 // query rows past Tq are zero-filled and not written.  Epilogue: out = O / d
 // in bf16, lse = m + log d; a row with no valid key gives 0 and -inf.
-template <typename Keys>
+template <int D, typename Keys>
 __device__ __forceinline__ void attend(
     const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const Keys& keys,
     __nv_bfloat16* __restrict__ ob, float* __restrict__ lb, size_t qstride,
     int i0, int Tq, int qo, int L, float scale, int causal,
     unsigned char* tiles) {
+  constexpr uint32_t kTileSize = tile_bytes(D);
+  constexpr int kCols = D / kD;          // atom columns, O's accumulators
   const uint32_t sq = aligned_base(tiles);
-  const uint32_t skv = sq + kTileBytes;  // stage s: K, then V
+  const uint32_t skv = sq + kTileSize;   // stage s: K, then V
   constexpr int R = kRows;
 
   int nk = (L + R - 1) / R;
   if (causal) nk = min(nk, (qo + min(i0 + R, Tq) - 1) / R + 1);
 
-  load_tile(sq, qb + i0 * qstride, qstride, Tq - i0);
+  load_tile<D>(sq, qb + i0 * qstride, qstride, Tq - i0);
   if constexpr (Keys::kStaged) {  // tile 0's table entries first
     keys.stage(0, L);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
   }
-  load_kv_rows(skv, skv + kTileBytes, k, v,
-               [&keys](int r) { return keys.at(0, r); }, L);
+  load_kv_rows<D>(skv, skv + kTileSize, k, v,
+                  [&keys](int r) { return keys.at(0, r); }, L);
   if (1 < nk) keys.stage(1, L);
   cp_async_commit();
 
   const float sl2 = scale * 1.4426950408889634f;  // scale · log2(e)
-  float o[32], s[32];
+  float o[kCols][32], s[32];
   float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[c][i] = 0.f;
+  }
   const int row0 = frag_row(0);  // this thread's rows: row0, row0 + 8
 
   for (int j = 0; j < nk; ++j) {
@@ -344,19 +378,19 @@ __device__ __forceinline__ void attend(
     fence_proxy_async();
     __syncthreads();  // tile j landed; every thread is done with tile j - 1
     if (j + 1 < nk) {
-      const uint32_t nxt = skv + ((j + 1) & 1) * 2 * kTileBytes;
-      load_kv_rows(nxt, nxt + kTileBytes, k, v,
-                   [&keys, j](int r) { return keys.at(j + 1, r); },
-                   L - (j + 1) * R);
+      const uint32_t nxt = skv + ((j + 1) & 1) * 2 * kTileSize;
+      load_kv_rows<D>(nxt, nxt + kTileSize, k, v,
+                      [&keys, j](int r) { return keys.at(j + 1, r); },
+                      L - (j + 1) * R);
       if (j + 2 < nk) keys.stage(j + 2, L);  // slot j % 2: tile j's, done
     }
     cp_async_commit();
-    const uint32_t ks = skv + (j & 1) * 2 * kTileBytes;
-    const uint32_t vs = ks + kTileBytes;
+    const uint32_t ks = skv + (j & 1) * 2 * kTileSize;
+    const uint32_t vs = ks + kTileSize;
 
     fence_acc(s);
     fence();
-    gemm_k(s, sq, ks);  // S = Q·Kᵀ
+    gemm_k<D>(s, sq, ks);  // S = Q·Kᵀ
     commit();
     wait_all();
     fence_acc(s);
@@ -388,16 +422,21 @@ __device__ __forceinline__ void attend(
       const int r = (i >> 1) & 1;
       s[i] = exp2f(fmaf(s[i], sl2, -ms[r]));  // -inf scores give 0
       l[r] += s[i];
-      o[i] *= alpha[r];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) o[c][i] *= alpha[r];
     }
     uint32_t p[4][4];
     to_frag(s, p);
-    fence_acc(o);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) fence_acc(o[c]);
     fence();
-    gemm_rs(o, p, vs);  // O += P·V
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      gemm_rs(o[c], p, vs + c * kTileBytes);  // O[:, 64c..] += P·V[:, 64c..]
     commit();
     wait_all();
-    fence_acc(o);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) fence_acc(o[c]);
   }
   cp_async_wait_all();  // no copy outlives the CTA (nk == 0 issues some)
 
@@ -409,10 +448,13 @@ __device__ __forceinline__ void attend(
     const float inv = 1.f / fmaxf(d, 1e-30f);
     __nv_bfloat16* orow = ob + i * qstride;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = frag_col(4 * n);
-      *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
-          o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    for (int a = 0; a < kCols; ++a) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = a * kD + frag_col(4 * n);
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+            o[a][4 * n + 2 * r] * inv, o[a][4 * n + 2 * r + 1] * inv);
+      }
     }
     if ((threadIdx.x & 3) == 0)
       lb[i] = d > 0.f ? m[r] * scale + logf(d) : REPRO_NEG_INF;

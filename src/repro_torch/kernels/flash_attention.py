@@ -54,13 +54,18 @@ import torch
 from repro_torch.core.attention import DEFAULT_CHUNK, online_attention_lse
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention_bwd as _bwd
-from repro_torch.kernels.flash_decode import (check_kv_dtypes, gather_pages,
-                                              gather_scales)
+from repro_torch.kernels.flash_decode import (SMEM_LIMIT, check_kv_dtypes,
+                                              gather_pages, gather_scales)
 from repro_torch.obs import kernels as obs_kernels
 
-SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
+#: The head dims each route has csrc instances for: the cached prefills
+#: (contiguous, paged and the paged int8 form) at 64 (smollm-360m) and 128
+#: (mistral-nemo-12b, deepseek-coder-33b); the fresh forward, the training
+#: form, at 64 only.  Another head dim raises.
+HEAD_DIMS = {"flash_attention_offset": (64, 128),
+             "flash_attention_paged": (64, 128),
+             "flash_attention": (64,)}
 BQ = 16               # query rows of one CTA (csrc kPrefillRows)
-_SMEM_LIMIT = 48 * 1024
 
 #: Kernel launches since the last reset (a path's proof of route).
 launches = {"flash_attention_paged": 0, "flash_attention_offset": 0,
@@ -142,9 +147,9 @@ def _check(name, q, k, v, hkv, k_scale=None, v_scale=None):
         raise ValueError(f"{name} kernel: q {tuple(q.shape)} and K/V "
                          f"{tuple(k.shape)}/{tuple(v.shape)} do not match")
     check_kv_dtypes(name, q, k, v, k_scale, v_scale)
-    if hq % hkv or dh not in SUPPORTED_HEAD_DIMS or hq > 65535 or b > 65535:
+    if hq % hkv or dh not in HEAD_DIMS[name] or hq > 65535 or b > 65535:
         raise ValueError(f"{name} kernel: Hq={hq}, Hkv={hkv}, D={dh} not "
-                         f"supported (D in {SUPPORTED_HEAD_DIMS})")
+                         f"supported (D in {HEAD_DIMS[name]})")
     return b, tq, hq, dh
 
 
@@ -180,10 +185,10 @@ def prepare_paged(q, k_pool, v_pool, q_offset, kv_valid_len, block_tables, *,
                            k_scale_pool, v_scale_pool)
     wgmma = q.dtype == torch.bfloat16 and k_scale_pool is None
     smem = 4 * (BQ * (dh + 1) + bs * (dh + 1) + bs * dh + BQ * bs)
-    if k_pool.dim() != 4 or (smem > _SMEM_LIMIT and not wgmma):
+    if k_pool.dim() != 4 or (smem > SMEM_LIMIT and not wgmma):
         raise ValueError(f"flash_attention_paged kernel: pools "
                          f"{tuple(k_pool.shape)} need {smem} B of shared "
-                         f"memory (at most {_SMEM_LIMIT})")
+                         f"memory (at most {SMEM_LIMIT})")
     code = build.dtype_code(q)
     qc = q.contiguous()
     kc, vc = k_pool.contiguous(), v_pool.contiguous()

@@ -25,7 +25,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.obs import kernels as obs_kernels
 
-SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
+#: The head dims the backward kernels have csrc instances for: 64 only
+#: (smollm-360m; the training slice's).  Another head dim raises.
+HEAD_DIMS = (64,)
 
 #: Kernel launches since the last reset (the training path's proof of route).
 launches = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
@@ -117,11 +119,11 @@ def prepare(q, k, v, out, lse, dout, *, causal: bool = True):
         raise ValueError(f"flash_attention_bwd kernel: q {q.dtype}, K/V "
                          f"{k.dtype}/{v.dtype}, dout {dout.dtype}, lse "
                          f"{lse.dtype} (need one dtype and float32 lse)")
-    if hq % hkv or dh not in SUPPORTED_HEAD_DIMS or hq > 65535 or \
+    if hq % hkv or dh not in HEAD_DIMS or hq > 65535 or \
             b > 65535 or tq == 0 or tk == 0:
         raise ValueError(f"flash_attention_bwd kernel: Hq={hq}, Hkv={hkv}, "
                          f"D={dh}, Tq={tq}, Tk={tk} not supported (D in "
-                         f"{SUPPORTED_HEAD_DIMS})")
+                         f"{HEAD_DIMS})")
     if k.stride(-1) != 1 or k.stride() != v.stride():
         raise ValueError(f"flash_attention_bwd kernel: K/V strides "
                          f"{k.stride()}/{v.stride()} (need unit last "

@@ -38,7 +38,11 @@ from repro_torch.core.attention import DEFAULT_CHUNK, online_attention
 from repro_torch.kernels import build
 from repro_torch.obs import kernels as obs_kernels
 
-SUPPORTED_HEAD_DIMS = (64,)          # smollm-360m's head_dim (csrc instances)
+#: The head dims the four decode routes (paged and contiguous, fp and int8
+#: K/V: one split body) have csrc instances for (``with_head_dim`` in
+#: ``csrc/common.cuh``): 64 (smollm-360m) and 128 (mistral-nemo-12b,
+#: deepseek-coder-33b).  Another head dim raises.
+HEAD_DIMS = (64, 128)
 MAX_GROUP = 8             # query heads a KV head (kDecodeMaxGroup)
 DECODE_THREADS = 128      # threads a split CTA (kDecodeThreads), any G and D
 DECODE_WARPS = DECODE_THREADS // 32
@@ -180,15 +184,15 @@ def decode_plan(b: int, hkv: int, g: int, d: int, max_len: int, page: int,
     shorter than ``MIN_SPLIT`` positions (short caches do not split for
     nothing) and no longer than a cache of ``max_len``, nor than
     ``SPLIT_BYTES`` of K (the CTA holds its whole split in shared memory;
-    longer caches take more splits).  Raises for shapes the kernels do not
-    take."""
-    if dtype not in KV_DTYPES or d not in SUPPORTED_HEAD_DIMS \
+    longer caches take more splits: 128 bf16 positions at D 64, 64 at
+    D 128).  Raises for shapes the kernels do not take."""
+    if dtype not in KV_DTYPES or d not in HEAD_DIMS \
             or not 1 <= g <= MAX_GROUP or not 1 <= b <= 65535 \
             or not 1 <= hkv <= 65535 or page < 1 or max_len < 0 \
             or sm_count < 1:
         raise ValueError(f"decode kernels: B={b}, Hkv={hkv}, G={g}, D={d}, "
                          f"max_len={max_len}, page={page}, {dtype} not "
-                         f"supported (D in {SUPPORTED_HEAD_DIMS}, G <= "
+                         f"supported (D in {HEAD_DIMS}, G <= "
                          f"{MAX_GROUP}, B <= 65535, K/V in {KV_DTYPES})")
     esz = dtype.itemsize
     scaled = dtype == torch.int8
@@ -232,9 +236,9 @@ def _check_query(name, q, k, v, hkv, k_scale=None, v_scale=None):
                          f"{tuple(k.shape)}/{tuple(v.shape)} are not a "
                          "one-token decode over equal K/V")
     check_kv_dtypes(name, q, k, v, k_scale, v_scale)
-    if hq % hkv or dh not in SUPPORTED_HEAD_DIMS or hq // hkv > MAX_GROUP:
+    if hq % hkv or dh not in HEAD_DIMS or hq // hkv > MAX_GROUP:
         raise ValueError(f"{name} kernel: Hq={hq}, Hkv={hkv}, D={dh} not "
-                         f"supported (D in {SUPPORTED_HEAD_DIMS}, G <= "
+                         f"supported (D in {HEAD_DIMS}, G <= "
                          f"{MAX_GROUP})")
     return b, hq, dh, hq // hkv
 

@@ -33,10 +33,10 @@ blocks are never shared, and decode reads the int8 cache through the
 dequantizing kernels.
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
-``_continuous`` at 88, ``main`` at 264); weights and sampling generators
-come from seed 0.  The lockstep prompts come from a seeded numpy generator
-(``default_rng(1)``), not from ``jax.random.randint``, which the port does
-not reproduce.  Every replica shares the same weights.  ``--trace`` and
+``_continuous`` at 88, ``main`` at 264); weights (drawn on the device the
+model serves on) and sampling generators come from seed 0.  The lockstep
+prompts come from a seeded numpy generator (``default_rng(1)``), not from
+``jax.random.randint``, which the port does not reproduce.  Every replica shares the same weights.  ``--trace`` and
 ``--metrics`` serve the continuous mode only, as in the reference; the
 lockstep baseline refuses them.
 """
@@ -358,7 +358,10 @@ def lockstep(args, cfg, params, *, prompts=None, noise_fn=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = config_for(args)
-    params = transformer.init(cfg, seed=0, device=args.device)
+    # weights drawn where they serve: a CPU run draws on the CPU, a card
+    # run on the card (a full-width draw on the CPU takes a minute or more)
+    params = transformer.init(cfg, seed=0, device=args.device,
+                              draw_device=args.device)
     if not args.continuous:
         lockstep(args, cfg, params)
         return 0

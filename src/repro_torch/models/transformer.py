@@ -43,21 +43,28 @@ def block_pattern(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 
 def init(cfg: ModelConfig, *, seed: int = 0,
-         device: Union[str, torch.device] = "cuda") -> dict:
+         device: Union[str, torch.device] = "cuda",
+         draw_device: Union[str, torch.device] = "cpu") -> dict:
     """Random weights from ``seed``: normal with scale 1/sqrt(fan_in) for
     projections and 1 for the embedding, ones for norm scales — the
-    reference's ``_dense_init`` shapes and scales.  Draws happen on the CPU
-    (so a seed gives the same weights on every device), then move."""
+    reference's ``_dense_init`` shapes and scales, the untied ``head``
+    included.  Each tensor is drawn in fp32 on ``draw_device`` from one
+    seeded ``torch.Generator`` there, then cast to ``cfg.dtype`` on
+    ``device``.  The default draws on the CPU, so a seed gives the same
+    weights on every device (what the CPU-vs-card parity runs need);
+    ``draw_device="cuda"`` draws on the card, with other numbers from the
+    same seed, for full-width card runs: a 12B model's ~1.2e10 CPU draws
+    take one to two minutes, the card's well under a second."""
     block_pattern(cfg)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=draw_device).manual_seed(seed)
     dt = DTYPES[cfg.dtype]
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
     def dense(shape, scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        w = torch.randn(shape, generator=gen) * scale
-        return w.to(device=device, dtype=dt)
+        w = torch.randn(shape, generator=gen, device=draw_device)
+        return w.mul_(scale).to(device=device, dtype=dt)
 
     def ones():
         return torch.ones(d, device=device)

@@ -25,7 +25,8 @@ like the reference's.
 Sampling takes its Gumbel noise as an argument: the scheduler draws it from
 one ``torch.Generator`` per request (or a test's ``noise_fn``), so a row's
 token depends only on its own logits and noise — what makes batched decode
-reproduce solo decode token for token.
+reproduce solo decode token for token.  ``temperature`` divides the logits
+before the vocabulary pass unless it is 1.0, as in the reference.
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, *,
 
 def decode_step(params: dict, caches: dict, cache_len: int, tokens: Tensor,
                 cfg: ModelConfig, *, noise=None, generator=None,
-                top_k: int = 5):
+                top_k: int = 5, temperature: float = 1.0):
     """One lockstep decode step: tokens [B, 1] at the shared length
     ``cache_len`` → (next_token [B], caches, cache_len + 1).  The vocabulary
     pass is the fused softmax+top-k (``core.topk_sample``), with one Gumbel
@@ -70,7 +71,8 @@ def decode_step(params: dict, caches: dict, cache_len: int, tokens: Tensor,
     hidden, caches = transformer.forward(params, tokens, cfg, caches=caches,
                                          cache_len=cache_len)
     logits = logits_from_hidden(params, hidden[:, -1], cfg)
-    next_tok, _ = topk_sample(logits, top_k, noise=noise, generator=generator)
+    next_tok, _ = topk_sample(logits, top_k, noise=noise, generator=generator,
+                              temperature=temperature)
     return next_tok, caches, cache_len + 1
 
 
@@ -148,9 +150,13 @@ def write_slot(cfg: ModelConfig, pool: dict, seq: dict, slot: int) -> dict:
     return pool
 
 
-def sample_per_slot(logits: Tensor, top_k: int, noise: Tensor) -> Tensor:
-    """Fused softmax+top-k (paper Alg. 4, through ``dispatch``) then a
-    Gumbel-max pick with per-row noise ``noise`` [B, k]."""
+def sample_per_slot(logits: Tensor, top_k: int, noise: Tensor,
+                    temperature: float = 1.0) -> Tensor:
+    """Fused softmax+top-k (paper Alg. 4, through ``dispatch``) of the
+    logits over ``temperature`` (untouched at 1.0), then a Gumbel-max pick
+    with per-row noise ``noise`` [B, k]."""
+    if temperature != 1.0:
+        logits = logits / temperature
     out = dispatch.softmax_topk(logits, top_k)
     return gumbel_pick(out, noise)
 
@@ -201,7 +207,7 @@ def prefill_chunk_paged(params: dict, pools: dict, block_tables: Tensor,
 
 def decode_step_slots(params: dict, caches: dict, slot_lens: Tensor,
                       tokens: Tensor, cfg: ModelConfig, *, noise: Tensor,
-                      top_k: int = 5):
+                      top_k: int = 5, temperature: float = 1.0):
     """One decode step over the whole slot pool: tokens [B, 1], per-slot
     lengths [B], Gumbel noise [B, k] → (next_token [B], caches,
     slot_lens + 1).  Every slot advances one position at its own offset;
@@ -209,13 +215,14 @@ def decode_step_slots(params: dict, caches: dict, slot_lens: Tensor,
     hidden, caches = transformer.forward(params, tokens, cfg, caches=caches,
                                          cache_len=slot_lens)
     logits = logits_from_hidden(params, hidden[:, -1], cfg)
-    next_tok = sample_per_slot(logits, top_k, noise)
+    next_tok = sample_per_slot(logits, top_k, noise, temperature)
     return next_tok, caches, slot_lens + 1
 
 
 def decode_step_paged(params: dict, pools: dict, block_tables: Tensor,
                       slot_lens: Tensor, tokens: Tensor, cfg: ModelConfig, *,
-                      noise: Tensor, top_k: int = 5):
+                      noise: Tensor, top_k: int = 5,
+                      temperature: float = 1.0):
     """One decode step over the paged pool: tokens [B, 1], block_tables
     [B, M], per-slot lengths [B], Gumbel noise [B, k] → (next_token [B],
     pools, slot_lens + 1)."""
@@ -223,5 +230,5 @@ def decode_step_paged(params: dict, pools: dict, block_tables: Tensor,
                                         cache_len=slot_lens,
                                         block_tables=block_tables)
     logits = logits_from_hidden(params, hidden[:, -1], cfg)
-    next_tok = sample_per_slot(logits, top_k, noise)
+    next_tok = sample_per_slot(logits, top_k, noise, temperature)
     return next_tok, pools, slot_lens + 1

@@ -43,7 +43,11 @@ and preempt-and-swap.
   request's stream does not depend on its neighbours, on arrival order, on
   how its prefill was chunked or on a preemption.  ``noise_fn(rid,
   token_index, k)`` overrides the generators (tests feed the reference's
-  noise through it).
+  noise through it).  ``temperature`` divides the logits before the fused
+  softmax+top-k unless it is 1.0.
+* **Retirement** — a request retires when it has its ``max_new_tokens``,
+  when it samples ``eos_id`` (the token is kept, as in the reference;
+  traced as cause ``eos``), or when its slot is full (``evicted``).
 
 * **Observability** — ``tracer`` (a ``repro_torch.obs.trace.Tracer``)
   records the reference's events: per request a track ``rid + 1`` of
@@ -60,8 +64,7 @@ and preempt-and-swap.
   registry off and profiling disarmed, the hot path does none of this.
 
 ``run`` serves through ``engine_api.Engine``, the loop every front end
-drives.  Not ported yet: end-of-sequence retirement and temperature (a
-later slice; see ROADMAP.md).
+drives.
 """
 from __future__ import annotations
 
@@ -345,7 +348,9 @@ class ContinuousScheduler:
 
     Keyword arguments mirror the reference's: ``num_slots`` (decode batch
     rows), ``slot_len`` (per-sequence cache bound; paged, a multiple of
-    ``block_size``), ``prefill_chunk``, ``top_k``, ``paged`` (the block
+    ``block_size``), ``prefill_chunk``, ``top_k`` and ``temperature`` (the
+    sampling), ``eos_id`` (a token that retires its sequence early; None:
+    length only), ``paged`` (the block
     pool when True; the slot pool by default), ``block_size`` /
     ``num_blocks`` (paged geometry), ``preempt`` (paged: let a request
     that cannot be placed swap out a strictly-lower-priority decode; False
@@ -359,6 +364,7 @@ class ContinuousScheduler:
 
     def __init__(self, params, cfg: ModelConfig, *, num_slots: int,
                  slot_len: int, prefill_chunk: int = 32, top_k: int = 5,
+                 temperature: float = 1.0, eos_id: Optional[int] = None,
                  seed: int = 0, paged: bool = False, block_size: int = 8,
                  num_blocks: Optional[int] = None, preempt: bool = True,
                  clock: Optional[obs_clock.Clock] = None,
@@ -382,6 +388,8 @@ class ContinuousScheduler:
                      else SlotPool(cfg, num_slots, slot_len, self.device))
         self.prefill_chunk = max(1, prefill_chunk)
         self.top_k = top_k
+        self.temperature = temperature
+        self.eos_id = eos_id
         self.k = min(top_k, cfg.vocab_size)       # noise width per token
         self.seed = seed
         self.noise_fn = noise_fn
@@ -771,12 +779,13 @@ class ContinuousScheduler:
         flight: _InFlight = pf["flight"]
         logits = engine.logits_from_hidden(self.params, pf["last"], self.cfg)
         noise = self._noise(flight.req.rid, 0)[None].to(self.device)
-        tok = int(engine.sample_per_slot(logits, self.top_k, noise)[0])
+        tok = int(engine.sample_per_slot(logits, self.top_k, noise,
+                                         self.temperature)[0])
         self.prefills_done += 1
         # the first token closes the prefill phase
         self._record_token(flight, tok)
         self._begin_phase(flight, "decode")
-        if flight.remaining <= 0:
+        if flight.remaining <= 0 or self._hit_eos(flight):
             self._finish(flight)
             return
         if self.paged:
@@ -847,8 +856,10 @@ class ContinuousScheduler:
                               for s in self.active])
             obs_kernels.profile_step(
                 step, label, *self._step_copy(args), cost=cost,
-                device=self.device, noise=noise.clone(), top_k=self.top_k)
-        tok, _, _ = step(*args, noise=noise, top_k=self.top_k)
+                device=self.device, noise=noise.clone(), top_k=self.top_k,
+                temperature=self.temperature)
+        tok, _, _ = step(*args, noise=noise, top_k=self.top_k,
+                         temperature=self.temperature)
         # idle slots don't age
         self.pool.lens = np.where(active_mask, self.pool.lens + 1,
                                   0).astype(np.int32)
@@ -866,8 +877,10 @@ class ContinuousScheduler:
             flight = self.active[slot]
             self._record_token(flight, int(tok_host[slot]))
             slot_full = int(self.pool.lens[slot]) >= self.pool.slot_len
-            if flight.remaining <= 0 or slot_full:
-                flight.result.evicted = slot_full and flight.remaining > 0
+            eos = self._hit_eos(flight)
+            if flight.remaining <= 0 or eos or slot_full:
+                flight.result.evicted = (slot_full and flight.remaining > 0
+                                         and not eos)
                 self._finish(flight)
 
     def _step_copy(self, args: tuple) -> tuple:
@@ -907,15 +920,21 @@ class ContinuousScheduler:
         flight.produced += 1
         flight.remaining -= 1
 
+    def _hit_eos(self, flight: _InFlight) -> bool:
+        """Whether the flight's last sampled token is ``eos_id``."""
+        return (self.eos_id is not None and bool(flight.result.tokens)
+                and flight.result.tokens[-1] == self.eos_id)
+
     def _finish(self, flight: _InFlight) -> None:
         flight.result.finish_time = self.clock.monotonic()
         self._end_phase(flight)
         if self.tracer is not None:
+            cause = ("evicted" if flight.result.evicted
+                     else "eos" if self._hit_eos(flight)
+                     and flight.remaining > 0 else "completed")
             self.tracer.instant(
                 "retire", tid=self._tid(flight.req.rid), pid=self._pid,
-                args={"cause": ("evicted" if flight.result.evicted
-                                else "completed"),
-                      "tokens": len(flight.result.tokens)})
+                args={"cause": cause, "tokens": len(flight.result.tokens)})
         self.finished.append(flight.result)
         self._generators.pop(flight.req.rid, None)
         if flight.slot >= 0:

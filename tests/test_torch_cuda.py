@@ -1013,3 +1013,176 @@ def test_swap_round_trip_on_card(cuda, kv, prefetch):
     assert st["swapped_bytes_out"] == 3 * pool.block_bytes == 3 * (
         337920 if kv else 655360)
     assert st["swap_prefetched_blocks"] == (3 if prefetch else 0)
+
+
+# ---- head_dim 128: the serving kernels' second instance ---------------------
+# mistral-nemo-12b (32/8 heads, G 4) and deepseek-coder-33b (56/8, G 7)
+HEAD_DIM_128 = [(4, 8), (7, 8)]           # (G, Hkv)
+
+
+@pytest.mark.parametrize("g,hkv", HEAD_DIM_128)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_head_dim_128_decode_matches_plain(cuda, g, hkv, dtype, atol):
+    """The four one-token decode forms at D 128 against their plain
+    versions: paged (BS 16) and contiguous, fp and int8 K/V (int8 with NaN
+    scales in every dead entry and tail), ragged valid lengths 0, 1, 65,
+    64 + 1 (a split edge at D 128's bf16 split), 200 and 328; a repeat is
+    bit-equal."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda, dtype=dtype)
+    vlens = [0, 1, 65, 129, 200, 328]
+    q, kp, vp, tables, vlen = _paged(20, vlens=vlens, tq=1, hkv=hkv, g=g,
+                                     d=128)
+    kern, plain, tk = _poison_paged(kp, vp, tables, vlens, 16)
+    q, vlen = q.to(**dev), vlen.to(cuda)
+    args = (q, *(x.to(**dev) for x in kern), tk.to(cuda), vlen)
+    got = fd.flash_decode_paged(*args)
+    again = fd.flash_decode_paged(*args)
+    want = fd.flash_decode_paged_plain(q, *(x.to(**dev) for x in plain),
+                                       tables.to(cuda), vlen)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+    q, kern, plain, tk, tp, vl = _int8_paged(21, vlens=vlens, tq=1, hkv=hkv,
+                                             g=g, d=128)
+    q = q.to(**dev)
+    kern = [x.to(cuda) for x in kern]
+    plain = [x.to(cuda) for x in plain]
+    got = fd.flash_decode_paged(q, kern[0], kern[1], tk.to(cuda),
+                                vl.to(cuda), k_scale_pool=kern[2],
+                                v_scale_pool=kern[3])
+    want = fd.flash_decode_paged_plain(q, plain[0], plain[1], tp.to(cuda),
+                                       vl.to(cuda), k_scale_pool=plain[2],
+                                       v_scale_pool=plain[3])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+    q, kv_nan, kv0, vl = _contiguous(22, b=len(vlens), s=328, tq=1,
+                                     vlens=vlens, hkv=hkv, g=g, d=128)
+    got = fd.flash_decode(q.to(**dev), *(t.to(**dev) for t in kv_nan),
+                          vl.to(cuda))
+    want = fd.flash_decode_plain(q.to(**dev), *(t.to(**dev) for t in kv0),
+                                 vl.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(got[0], torch.zeros_like(got[0]))     # vlen 0 → 0
+
+    gen = torch.Generator().manual_seed(23)
+    b, s = len(vlens), 328
+    k8, ks = layers._quantize_kv(torch.randn(b, s, hkv, 128, generator=gen))
+    v8, vs = layers._quantize_kv(torch.randn(b, s, hkv, 128, generator=gen))
+    dead = torch.arange(s)[None, :] >= torch.tensor(vlens)[:, None]
+    kk, vv = k8.clone(), v8.clone()
+    kk[dead], vv[dead] = 127, -127
+    kern = [t.to(cuda) for t in (kk, vv, ks.masked_fill(
+        dead[..., None], float("nan")), vs.masked_fill(dead[..., None],
+                                                       float("nan")))]
+    plain = [t.to(cuda) for t in (k8, v8, ks.masked_fill(dead[..., None], 0.0),
+                                  vs.masked_fill(dead[..., None], 0.0))]
+    q = torch.randn(b, 1, hkv * g, 128, generator=gen).to(**dev)
+    got = fd.flash_decode(q, kern[0], kern[1], vl.to(cuda), k_scale=kern[2],
+                          v_scale=kern[3])
+    want = fd.flash_decode_plain(q, plain[0], plain[1], vl.to(cuda),
+                                 k_scale=plain[2], v_scale=plain[3])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    counts = dispatch.launch_counts()
+    assert {k: counts[k] for k in ("flash_decode_paged", "flash_decode",
+                                   *NO_INT8)} == {
+        "flash_decode_paged": 2, "flash_decode": 1,
+        "flash_decode_paged_int8": 1, "flash_decode_int8": 1,
+        "flash_attention_paged_int8": 0}
+
+
+@pytest.mark.parametrize("g,hkv", HEAD_DIM_128)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_head_dim_128_prefill_matches_plain(cuda, g, hkv, dtype, atol):
+    """The cached prefills at D 128 against their plain versions (bf16 on
+    the tensor cores through two atom columns a row, fp32 on the CUDA
+    cores): paged (BS 16) and contiguous, the serving chunk of 64 at offset
+    64, Tq 65 and 130 at offsets off the 64-key tile, a keyless row; the
+    int8 paged form (kernel check only)."""
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda, dtype=dtype)
+    for tq, qoff, vlens in ((64, [64], [128]), (65, [37, 100], [102, 165]),
+                            (130, [3, 150], [133, 280]), (37, [0, 5], [0, 42])):
+        q, kp, vp, tables, vlen = _paged(30 + tq, vlens=vlens, tq=tq,
+                                         hkv=hkv, g=g, d=128)
+        qo = torch.tensor(qoff, dtype=torch.int32)
+        args = (q.to(**dev), kp.to(**dev), vp.to(**dev), qo.to(cuda),
+                vlen.to(cuda), tables.to(cuda))
+        out, lse = fa.flash_attention_paged(*args)
+        w_out, w_lse = fa.flash_attention_paged_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out.float() - w_out.float()).abs().max().item() <= atol
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+        fin = torch.isfinite(w_lse)
+        assert (lse[fin] - w_lse[fin]).abs().max().item() <= max(atol, 1e-4)
+
+        q, kv_nan, kv0, vl = _contiguous(40 + tq, b=len(vlens), s=300, tq=tq,
+                                         vlens=vlens, hkv=hkv, g=g, d=128)
+        qo = qo.to(cuda)
+        out, lse = fa.flash_attention_offset(
+            q.to(**dev), *(t.to(**dev) for t in kv_nan), qo, vl.to(cuda))
+        w_out, w_lse = fa.flash_attention_offset_plain(
+            q.to(**dev), *(t.to(**dev) for t in kv0), qo, vl.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out.float() - w_out.float()).abs().max().item() <= atol
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(w_lse))
+        fin = torch.isfinite(w_lse)
+        assert (lse[fin] - w_lse[fin]).abs().max().item() <= max(atol, 1e-4)
+
+    q, kern, plain, tk, tp, vlen = _int8_paged(50, vlens=[128, 23, 0], tq=64,
+                                               hkv=hkv, g=g, d=128)
+    qoff = (vlen - 64).clamp(min=0).to(cuda)
+    q = q.to(**dev)
+    out, lse = fa.flash_attention_paged(
+        q, *(x.to(cuda) for x in kern[:2]), qoff, vlen.to(cuda), tk.to(cuda),
+        k_scale_pool=kern[2].to(cuda), v_scale_pool=kern[3].to(cuda))
+    w_out, w_lse = fa.flash_attention_paged_plain(
+        q, *(x.to(cuda) for x in plain[:2]), qoff, vlen.to(cuda), tp.to(cuda),
+        k_scale_pool=plain[2].to(cuda), v_scale_pool=plain[3].to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - w_out.float()).abs().max().item() <= atol
+    counts = dispatch.launch_counts()
+    assert (counts["flash_attention_paged"], counts["flash_attention_offset"],
+            counts["flash_attention_paged_int8"]) == (4, 4, 1)
+
+
+def test_head_dim_128_fresh_forward_raises(cuda):
+    """The fresh forward and the backward (the training kernels) have no
+    D 128 instance yet: they raise, with no fallback."""
+    q = torch.randn(1, 64, 8, 128, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D=128"):
+        fa.flash_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="D=128"):
+        fab.flash_attention_bwd(q, k, k, q, torch.zeros(1, 8, 64,
+                                                        device=cuda), q)
+
+
+@pytest.mark.parametrize("v", [131072, 32256])
+def test_softmax_topk_at_head_dim_128_vocabularies(cuda, v):
+    """The sampler at mistral-nemo-12b's and deepseek-coder-33b's
+    vocabularies (32256 is no multiple of 1024), fp32 logits of 8 rows:
+    indices equal to the plain version's, values and lse within rtol
+    1e-5."""
+    gen = torch.Generator().manual_seed(60)
+    x = (torch.randn(8, v, generator=gen) * 4.0).to(cuda)
+    x[1, [3, v - 1]] = x[1].max() + 1.0                  # ties across slices
+    got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.indices.long(), want.indices)
+    assert got.indices[1, :2].tolist() == [3, v - 1]
+    torch.testing.assert_close(got.values, want.values, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got.logsumexp, want.logsumexp, rtol=1e-5,
+                               atol=0)

@@ -709,6 +709,9 @@ def test_serve_cli_trace_and_metrics_lines_equal_reference(tmp_path, capsys):
     counters and occupancy histogram equal on the same flags, each op's
     path ``cpu``, and a trace of the reference CLI's event count."""
     mine_path, ref_path = tmp_path / "mine.json", tmp_path / "ref.json"
+    for mets, kern in ((obs_metrics, obs_kernels), (RM, RK)):
+        mets.reset()            # what earlier tests of this process recorded
+        kern.reset()
     try:
         rc = serve.main(SERVE_CLI + ["--device", "cpu", "--metrics",
                                      "--trace", str(mine_path)])
