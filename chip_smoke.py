@@ -54,7 +54,8 @@ printing its final line:
    swizzle atoms a row on the tensor cores, fp32 on the CUDA cores), the
    int8 forms and the split decode's edges in its four forms, and the
    sampler at their vocabularies, [8, 131072] and [8, 32256];
-4. serve: smollm-360m at full width in bf16 through its three serving paths,
+4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
+   in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
    counts set to 0 just before it and read just after: ``Engine`` with the
    paged continuous-batching scheduler, ``Engine`` over the slot pool, and
@@ -80,7 +81,8 @@ printing its final line:
    the port's kernels and the weights' byte bound); and deepseek-coder-33b
    at full width and ``DEEPSEEK_LAYERS`` of its 62 layers through the paged
    and slot-pool workloads;
-5. parity: short full-width fp32 workloads of the three paths, once on the
+5. parity: short fp32 workloads of the three paths (smollm-360m at full
+   width and ``SMOLLM_LAYERS`` layers), once on the
    card through the kernels and once on the CPU through the plain versions;
    token streams (and the paged pool's stats) must be identical; for the
    int8 paths, whose quantization can round an element one step apart
@@ -122,8 +124,9 @@ printing its final line:
    paged prefill, the training kernels (and the whole backward), with the
    library call's device time beside rows 1, 4, 6 and 7 (top-k of a
    softmax, SDPA forward, SDPA's autograd backward); then
-   full-width decode steps and prefill chunks of the paged pool
-   and the slot pool, their int8 decode steps, and a full-width train step,
+   decode steps and prefill chunks of the paged pool and the slot pool
+   (smollm-360m at full width and ``SMOLLM_LAYERS`` layers), their int8
+   decode steps, and a full-width train step,
    end to end, against the device's busy time inside them (torch.profiler);
    the four online-softmax kernels at [4000, 100000] fp32 beside
    torch.softmax / torch.logsumexp, and the effective accesses per element
@@ -175,9 +178,10 @@ printing its final line:
    one valid, pids 0 and 1, first ticks aligned, and ``python -m
    repro_torch.obs.report`` exiting 0 on the merged file.
 
-The line before the last is a JSON object with one entry per kernel (with
-the path it was ported for); the last line is ``{"ok": true, "device":
-{...}}``.
+Each phase prints its wall time, and the end the whole run's, which is
+to stay within about 415 s.  The line before the last is a JSON object
+with one entry per kernel (with the path it was ported for); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -193,6 +197,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
+# the script's start, for the whole run's wall time printed at its end
+START = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
@@ -248,6 +254,10 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/online_softmax.cu",
         "replaces": "src/repro/kernels/dispatch.py:520"},
 }
+# smollm-360m's serving and parity phases (4, 5, 8 and 10) run at full
+# width and this many of its 32 layers: the head_dim-128 models' full-width
+# runs took the script's time, and an earlier path's depth gives way first
+SMOLLM_LAYERS = 8
 # the serving runs of phase 4 (the CLI's own flags); each kernel's
 # "launches" comes from the run of the path it was ported for
 SERVE_ARGS = ["--continuous", "--paged", "--requests", "16", "--slots", "8",
@@ -372,6 +382,14 @@ def _ms(fn, samples: int = 20, inner: int = 10, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # 1-2: device and build
 # ---------------------------------------------------------------------------
+def _smollm_config(args, **changes):
+    """The serve CLI's config for ``args`` (smollm-360m), cut to
+    ``SMOLLM_LAYERS`` layers, with ``changes``."""
+    from repro_torch.launch import serve
+    return serve.config_for(args).replace(num_layers=SMOLLM_LAYERS,
+                                          **changes)
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1467,7 +1485,8 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 4: serve smollm-360m at full width through Engine (the main path)
+# 4: serve smollm-360m at full width and SMOLLM_LAYERS layers through Engine
+# (the main path)
 # ---------------------------------------------------------------------------
 def _check_finished(what: str, report, requests, vocab: int) -> None:
     by_rid = {r.rid: r for r in report.results}
@@ -1536,13 +1555,14 @@ def _check_int8_run(what: str, report, sched, requests) -> None:
 
 
 def phase_serve():
-    """The three serving paths at full width in bf16, then the same with
-    int8 K/V, each between a reset and a read of the launch counts.
+    """The three serving paths at full width and ``SMOLLM_LAYERS`` layers
+    in bf16, then the same with int8 K/V, each between a reset and a read
+    of the launch counts.
     Returns ({path: counts}, what the step timings reuse)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    cfg = serve.config_for(serve.parse_args(SERVE_ARGS))
+    cfg = _smollm_config(serve.parse_args(SERVE_ARGS))
     t0 = time.perf_counter()
     params = transformer.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1719,34 +1739,15 @@ def _steps_128(params, cfg, engines, weight_bytes: int) -> None:
     by device time."""
     bound = weight_bytes / HBM_BYTES_PER_S * 1e3
     for name, fn in _serving_steps(params, cfg, engines).items():
-        line, busy = _step_line(f"{cfg.name} {name}", fn)
+        line, busy, by = _step_line(f"{cfg.name} {name}", fn)
         print(f"{line}; the weights' byte bound {bound:.3f}ms "
               f"({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), device busy "
               f"{busy / bound:.2f}x it")
         if name.startswith("paged decode"):
+            rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
             print(f"step {cfg.name} {name} by kernel (device ms a step x "
-                  f"launches a step): {_kernel_breakdown(fn)}")
-
-
-def _kernel_breakdown(fn, reps: int = 3, top: int = 8) -> str:
-    """The ``top`` kernels of ``fn`` by device time (torch.profiler, over
-    ``reps`` calls), as "name ms x launches" per call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.obs import kernels as obs_kernels
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for evt in prof.key_averages():
-        if str(evt.device_type).endswith("CUDA"):
-            name = obs_kernels.kernel_name(evt.key)[:48]
-            ms, n = by.get(name, (0.0, 0))
-            by[name] = (ms + evt.self_device_time_total / 1e3 / reps,
-                        n + evt.count / reps)
-    rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
-    return "; ".join(f"{name} {ms:.4f} x {n:g}" for name, (ms, n) in rows)
+                  f"launches a step): " + "; ".join(
+                      f"{k} {ms:.4f} x {n:g}" for k, (ms, n) in rows))
 
 
 def phase_serve_128() -> dict:
@@ -1945,7 +1946,7 @@ def _serve_slo(params, cfg, counts: dict) -> None:
                        ("router round-robin", ROUTER_ARGS + ["--no-affinity"])
                        ):
         args = serve.parse_args(argv)
-        run_cfg = serve.config_for(args)
+        run_cfg = _smollm_config(args)
         with _serving_probes() as (_, swaps, resumes):
             dispatch.reset_launch_counts()
             t0 = time.perf_counter()
@@ -2014,7 +2015,8 @@ def _serve_slo(params, cfg, counts: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 5: fp32 parity at full width: kernels on the card vs plain on the CPU
+# 5: fp32 parity at full width and SMOLLM_LAYERS layers: kernels on the
+# card vs plain on the CPU
 # ---------------------------------------------------------------------------
 def _first_decode_logits(params, cfg, prompt, *, device, block_size, chunk,
                          token):
@@ -2069,7 +2071,7 @@ def phase_parity() -> None:
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     base = serve.parse_args(PARITY_ARGS)
-    cfg = serve.config_for(base).replace(dtype="float32")
+    cfg = _smollm_config(base, dtype="float32")
     params_cpu = transformer.init(cfg, seed=1, device="cpu")
     params_gpu = transformer.params_to(params_cpu, "cuda")
     params_by_device = {"cuda": params_gpu, "cpu": params_cpu}
@@ -2113,8 +2115,8 @@ def _slo_parity_run(argv, cfg, params, device: str, **probes):
 
 def phase_parity_slo() -> None:
     """SLO scheduling with preempt-and-swap, and a 2-replica router, at
-    full width in fp32: on the card with every block a swap-out frees
-    poisoned at once, and on the CPU (plain versions, unpoisoned: they
+    full width and ``SMOLLM_LAYERS`` layers in fp32: on the card with
+    every block a swap-out frees poisoned at once, and on the CPU (plain versions, unpoisoned: they
     multiply masked-out values by 0, which NaN survives), under virtual
     clocks.  Streams, decisions and pool and swap stats must be identical;
     every preempted request's stream must equal its run with
@@ -2123,8 +2125,7 @@ def phase_parity_slo() -> None:
     beside a busy current stream) must give the same streams again."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    cfg = serve.config_for(serve.parse_args(SLO_PARITY_ARGS)).replace(
-        dtype="float32")
+    cfg = _smollm_config(serve.parse_args(SLO_PARITY_ARGS), dtype="float32")
     params_cpu = transformer.init(cfg, seed=1, device="cpu")
     params = {"cuda": transformer.params_to(params_cpu, "cuda"),
               "cpu": params_cpu}
@@ -2216,8 +2217,8 @@ def _agreement(a: dict, b: dict) -> tuple[int, int]:
 
 
 def phase_parity_int8() -> None:
-    """The int8 paths at full width in fp32, card against CPU.  Token
-    streams are not a sound gate: the two fp32 K projections differ in
+    """The int8 paths at full width and ``SMOLLM_LAYERS`` layers in fp32,
+    card against CPU.  Token streams are not a sound gate: the two fp32 K projections differ in
     their last bits, and an element within that of a .5 rounding boundary
     quantizes one int8 step apart.  Gated instead: after the first prefill
     every int8 entry within 1 and every scale within one bf16 ulp of the
@@ -2229,7 +2230,7 @@ def phase_parity_int8() -> None:
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     base = serve.parse_args(PARITY_ARGS + INT8)
-    cfg = serve.config_for(base).replace(dtype="float32")
+    cfg = _smollm_config(base, dtype="float32")
     params_cpu = transformer.init(cfg, seed=1, device="cpu")
     params = {"cuda": transformer.params_to(params_cpu, "cuda"),
               "cpu": params_cpu}
@@ -2449,26 +2450,34 @@ PORT_KERNEL_SYMBOLS = ("softmax_topk_kernel", "paged_wgmma_kernel",
                        "normalize_kernel")
 
 
-def _device_ms(fn, reps: int = 5) -> tuple[float, float]:
-    """Device time of ``fn`` per call from ``torch.profiler``: (all CUDA
-    kernels, the port's own kernels), in ms, averaged over ``reps`` calls."""
+def _device_ms(fn, reps: int = 2) -> tuple[float, float, dict]:
+    """Device time of ``fn`` per call from ``torch.profiler``, averaged
+    over ``reps`` calls: (all CUDA kernels, the port's own kernels, {kernel:
+    (ms, launches)}), in ms.  Only the CUDA activity is recorded: the host
+    side's thousands of operator events a serving step cost seconds of
+    processing each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from repro_torch.obs import kernels as obs_kernels
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     total = ours = 0.0
+    by = {}
     for evt in prof.key_averages():
         if not str(evt.device_type).endswith("CUDA"):
             continue
-        total += evt.self_device_time_total
+        ms = evt.self_device_time_total / reps / 1e3
+        total += ms
         if any(sym in evt.key for sym in PORT_KERNEL_SYMBOLS):
-            ours += evt.self_device_time_total
+            ours += ms
+        name = obs_kernels.kernel_name(evt.key)[:48]
+        was, n = by.get(name, (0.0, 0.0))
+        by[name] = (was + ms, n + evt.count / reps)
     if total <= 0.0:
         _fail("profiler recorded no device time")
-    return total / reps / 1e3, ours / reps / 1e3
+    return total, ours, by
 
 
 def _serving_steps(params, cfg, engines) -> dict:
@@ -2518,22 +2527,23 @@ def _serving_steps(params, cfg, engines) -> dict:
                                              noise=noise, top_k=5)}
 
 
-def _step_line(name: str, fn, *, samples: int = 10,
-               reps: int = 5) -> tuple[str, float]:
+def _step_line(name: str, fn, *,
+               samples: int = 10) -> tuple[str, float, dict]:
     """One "step" line: host call to device finish (median of
-    ``samples``), device busy over ``reps`` calls and the port's kernels'
-    share of it (torch.profiler).  Returns (the line, device busy ms)."""
+    ``samples``), device busy over 2 calls and the port's kernels' share
+    of it (torch.profiler).  Returns (the line, device busy ms, its
+    kernels as ``_device_ms`` gives them)."""
     wall = _host_ms(fn, samples=samples)
-    busy, ours = _device_ms(fn, reps=reps)
+    busy, ours, by = _device_ms(fn)
     return (f"step {name}: {wall:.3f}ms host call to device finish; device "
             f"busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
             f"{100 - 100 * busy / wall:.1f}%), of which the port's kernels "
-            f"{ours:.3f}ms"), busy
+            f"{ours:.3f}ms"), busy, by
 
 
 def phase_steps(serve_ctx, train_ctx) -> None:
-    """Where a step's time goes: smollm-360m's serving steps
-    (``_serving_steps``) and one full-width train step of 8 x 512 tokens,
+    """Where a step's time goes: smollm-360m's serving steps at
+    ``SMOLLM_LAYERS`` layers (``_serving_steps``) and one full-width train step of 8 x 512 tokens,
     timed from the host's call to the device's finish, against the
     device's busy time inside it (all kernels, and the port's own, from
     torch.profiler)."""
@@ -2556,8 +2566,7 @@ def phase_steps(serve_ctx, train_ctx) -> None:
           f"{run.model.num_layers} layers, bf16, remat full]"] = train_step
     for name, fn in steps.items():
         train = fn is train_step
-        print(_step_line(name, fn, samples=5 if train else 10,
-                         reps=2 if train else 5)[0])
+        print(_step_line(name, fn, samples=5 if train else 10)[0])
 
 
 def phase_swap_times(serve_ctx) -> None:
@@ -3490,7 +3499,7 @@ def _library_kernel_times() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 10: observability at full width
+# 10: observability at full width and SMOLLM_LAYERS layers
 # ---------------------------------------------------------------------------
 SECTIONS = ("admit", "prefill", "decode")      # the tick's section spans
 PROFILED_KERNELS = ("decode_paged_split_kernel", "softmax_topk_kernel")
@@ -3570,7 +3579,7 @@ def phase_observability() -> None:
     from repro_torch.obs import kernels as obs_kernels
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import report as obs_report
-    cfg = serve.config_for(serve.parse_args(SERVE_ARGS))
+    cfg = _smollm_config(serve.parse_args(SERVE_ARGS))
     params = transformer.init(cfg, seed=0, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         paths = {w: os.path.join(tmp, f"{w}.json")
@@ -3766,6 +3775,7 @@ def main() -> int:
             "wrapper_ms": row["wrapper_ms"],
             **{k: row[k] for k in ("device_ms", "library_device_ms")
                if k in row}})
+    print(f"chip_smoke: {time.perf_counter() - START:.1f}s in all")
     # again at the end, beside the numbers, where a reader of the last
     # lines of the output finds it
     print(f"nvidia-smi: {_smi()}")

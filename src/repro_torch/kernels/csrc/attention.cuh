@@ -438,15 +438,15 @@ inline bool decode_geometry_ok(int Hq, int Hkv, int split, int splits,
 
 // Launch a split kernel over grid (splits, Hkv, B) with `smem` bytes of
 // dynamic shared memory; its last live split of each (row, head) merges.
-template <typename T, typename Kernel, typename... Args>
-cudaError_t launch_decode(Kernel kernel, size_t smem, int B, int Hq, int Hkv,
-                          int D, int split, int splits, void* out, void* work,
+template <typename T, auto Kernel, typename... Args>
+cudaError_t launch_decode(size_t smem, int B, int Hq, int Hkv, int D,
+                          int split, int splits, void* out, void* work,
                           void* tickets, cudaStream_t stream, Args... args) {
   if (!decode_geometry_ok(Hq, Hkv, split, splits, smem))
     return cudaErrorInvalidValue;
-  const cudaError_t err = allow_dynamic_smem(kernel, smem);
+  const cudaError_t err = allow_dynamic_smem<Kernel>(smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(splits, Hkv, B), kDecodeThreads, smem, stream>>>(
+  Kernel<<<dim3(splits, Hkv, B), kDecodeThreads, smem, stream>>>(
       args..., static_cast<float*>(work),
       decode_part_md(work, B, Hkv, splits, Hq / Hkv, D),
       static_cast<int*>(tickets), static_cast<T*>(out));

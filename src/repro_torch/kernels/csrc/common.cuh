@@ -121,14 +121,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Let `kernel` launch with `bytes` of dynamic shared memory: past the 48 KB
+// Let `Kernel` launch with `bytes` of dynamic shared memory: past the 48 KB
 // every launch may have, only after cudaFuncSetAttribute raises its limit.
-template <typename Kernel>
-inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// Each kernel keeps the most it was allowed so far, so only a launch that
+// asks for more than that calls cudaFuncSetAttribute.
+template <auto Kernel>
+inline cudaError_t allow_dynamic_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
 }
 
 // The head dims the attention kernels are instantiated for: 64

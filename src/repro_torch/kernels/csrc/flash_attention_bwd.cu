@@ -504,7 +504,7 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
                            int Tk, int Hq, int Hkv, long long sb, long long ss,
                            long long sh, float scale, int causal,
                            cudaStream_t stream) {
-  const cudaError_t err = allow_dynamic_smem(bwd_dq_wgmma_kernel, kDqSmem);
+  const cudaError_t err = allow_dynamic_smem<bwd_dq_wgmma_kernel>(kDqSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
@@ -522,7 +522,7 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
                             long long ss, long long sh, float scale,
                             int causal, cudaStream_t stream) {
   const cudaError_t err =
-      allow_dynamic_smem(bwd_dkv_wgmma_kernel, kDkvSmem);
+      allow_dynamic_smem<bwd_dkv_wgmma_kernel>(kDkvSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tk + wg::kRows - 1) / wg::kRows) * B * Hkv;

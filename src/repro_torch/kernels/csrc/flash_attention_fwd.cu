@@ -104,7 +104,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         int Hkv, long long sb, long long ss, long long sh,
                         float scale, int causal, cudaStream_t stream) {
   constexpr int kSmem = wg::attend_smem(wg::kD);
-  const cudaError_t err = allow_dynamic_smem(fresh_fwd_wgmma_kernel, kSmem);
+  const cudaError_t err = allow_dynamic_smem<fresh_fwd_wgmma_kernel>(kSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>((Tq + wg::kRows - 1) /
                                                 wg::kRows) * B * Hq;

@@ -105,7 +105,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * prefill_smem_words(D, kTile);
   const cudaError_t err =
-      allow_dynamic_smem(prefill_offset_kernel<float, D>, smem);
+      allow_dynamic_smem<prefill_offset_kernel<float, D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
   prefill_offset_kernel<float, D><<<grid, kPrefillThreads, smem, stream>>>(
@@ -122,7 +122,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         long long sb, long long ss, long long sh, float scale,
                         int causal, cudaStream_t stream) {
   constexpr int kSmem = wg::attend_smem(D);
-  const cudaError_t err = allow_dynamic_smem(offset_wgmma_kernel<D>, kSmem);
+  const cudaError_t err = allow_dynamic_smem<offset_wgmma_kernel<D>>(kSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;

@@ -143,7 +143,7 @@ cudaError_t launch_int8(const void* q, const void* k_pool, const void* v_pool,
                         cudaStream_t stream) {
   const size_t smem = sizeof(float) * prefill_smem_words(D, BS);
   const cudaError_t err =
-      allow_dynamic_smem(prefill_paged_int8_kernel<T, D>, smem);
+      allow_dynamic_smem<prefill_paged_int8_kernel<T, D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
   prefill_paged_int8_kernel<T, D><<<grid, kPrefillThreads, smem, stream>>>(
@@ -164,7 +164,7 @@ cudaError_t launch_f32(const void* q, const void* k_pool, const void* v_pool,
                        int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * prefill_smem_words(D, BS);
   const cudaError_t err =
-      allow_dynamic_smem(prefill_paged_kernel<float, D>, smem);
+      allow_dynamic_smem<prefill_paged_kernel<float, D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
   prefill_paged_kernel<float, D><<<grid, kPrefillThreads, smem, stream>>>(
@@ -181,7 +181,7 @@ cudaError_t launch_bf16(const void* q, const void* k_pool, const void* v_pool,
                         int Tq, int Hq, int Hkv, int BS, int M, float scale,
                         int causal, cudaStream_t stream) {
   constexpr int kSmem = wg::attend_smem(D);
-  const cudaError_t err = allow_dynamic_smem(paged_wgmma_kernel<D>, kSmem);
+  const cudaError_t err = allow_dynamic_smem<paged_wgmma_kernel<D>>(kSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;

@@ -111,8 +111,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     constexpr int kD = decltype(d)::value;
     const size_t smem = decode_split_smem(Hq / Hkv, kD, sizeof(T), split,
                                           false);
-    return launch_decode<T>(
-        decode_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split, splits, out,
+    return launch_decode<T, decode_split_kernel<T, kD>>(
+        smem, B, Hq, Hkv, kD, split, splits, out,
         work, tickets, stream, static_cast<const T*>(q),
         static_cast<const T*>(k), static_cast<const T*>(v), vlen, Hq, Hkv, S,
         split, splits, sb, ss, sh, scale);
@@ -132,8 +132,8 @@ cudaError_t launch_int8(const void* q, const void* k, const void* v,
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     const size_t smem = decode_split_smem(Hq / Hkv, kD, 1, split, true);
-    return launch_decode<T>(
-        decode_int8_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split, splits,
+    return launch_decode<T, decode_int8_split_kernel<T, kD>>(
+        smem, B, Hq, Hkv, kD, split, splits,
         out, work, tickets, stream, static_cast<const T*>(q),
         static_cast<const signed char*>(k),
         static_cast<const signed char*>(v),

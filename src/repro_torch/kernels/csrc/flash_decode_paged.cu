@@ -109,8 +109,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
     constexpr int kD = decltype(d)::value;
     const size_t smem = decode_split_smem(Hq / Hkv, kD, sizeof(T), split,
                                           false);
-    return launch_decode<T>(
-        decode_paged_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split,
+    return launch_decode<T, decode_paged_split_kernel<T, kD>>(
+        smem, B, Hq, Hkv, kD, split,
         splits, out, work, tickets, stream, static_cast<const T*>(q),
         static_cast<const T*>(k_pool), static_cast<const T*>(v_pool), tables,
         vlen, Hq, Hkv, BS, M, split, splits, scale);
@@ -130,8 +130,8 @@ cudaError_t launch_int8(const void* q, const void* k_pool, const void* v_pool,
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     const size_t smem = decode_split_smem(Hq / Hkv, kD, 1, split, true);
-    return launch_decode<T>(
-        decode_paged_int8_split_kernel<T, kD>, smem, B, Hq, Hkv, kD, split,
+    return launch_decode<T, decode_paged_int8_split_kernel<T, kD>>(
+        smem, B, Hq, Hkv, kD, split,
         splits, out, work, tickets, stream, static_cast<const T*>(q),
         static_cast<const signed char*>(k_pool),
         static_cast<const signed char*>(v_pool),

@@ -33,12 +33,14 @@ blocks are never shared, and decode reads the int8 cache through the
 dequantizing kernels.
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
-``_continuous`` at 88, ``main`` at 264); weights (drawn on the device the
-model serves on) and sampling generators come from seed 0.  The lockstep
-prompts come from a seeded numpy generator (``default_rng(1)``), not from
-``jax.random.randint``, which the port does not reproduce.  Every replica shares the same weights.  ``--trace`` and
-``--metrics`` serve the continuous mode only, as in the reference; the
-lockstep baseline refuses them.
+``_continuous`` at 88, ``main`` at 264); weights and sampling generators
+come from seed 0.  The weights are drawn on the device the model serves
+on, so a ``--device cuda`` run serves other weights than a ``--device
+cpu`` run of the same seed.  The lockstep prompts come from a seeded numpy
+generator (``default_rng(1)``), not from ``jax.random.randint``, which the
+port does not reproduce.  Every replica shares the same weights.
+``--trace`` and ``--metrics`` serve the continuous mode only, as in the
+reference; the lockstep baseline refuses them.
 """
 from __future__ import annotations
 

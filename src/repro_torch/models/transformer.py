@@ -54,7 +54,8 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     weights on every device (what the CPU-vs-card parity runs need);
     ``draw_device="cuda"`` draws on the card, with other numbers from the
     same seed, for full-width card runs: a 12B model's ~1.2e10 CPU draws
-    take one to two minutes, the card's well under a second."""
+    take over a minute, the card's well under a second
+    (``tools/init_times.py``)."""
     block_pattern(cfg)
     gen = torch.Generator(device=draw_device).manual_seed(seed)
     dt = DTYPES[cfg.dtype]
