@@ -53,7 +53,15 @@ printing its final line:
    7): the paged and contiguous cached prefills (bf16 through two 128-byte
    swizzle atoms a row on the tensor cores, fp32 on the CUDA cores), the
    int8 forms and the split decode's edges in its four forms, and the
-   sampler at their vocabularies, [8, 131072] and [8, 32256];
+   sampler at their vocabularies, [8, 131072] and [8, 32256]; then the MoE
+   decoders' shapes: the fused softmax+top-k as the expert router runs it
+   through ``dispatch.softmax_topk`` on [G, S, E] logits ([8, 60] and [64,
+   60] top 4, [8, 16] and [256, 16] top 1, and the widths 6 and 61, whose
+   rows start off a 16-byte boundary), with exact ties in index order and
+   ``layers.moe_route`` keeping and dropping the same assignments on the
+   card as on the CPU, the sampler at [8, 151936] and [8, 202048], and every
+   check of the D-128 instances again at qwen2-moe-a2.7b's 16/16 heads (G
+   1) and llama4-scout-17b-a16e's 40/8 (G 5);
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -80,7 +88,16 @@ printing its final line:
    paged prefill chunk, host call to device finish against device busy,
    the port's kernels and the weights' byte bound); and deepseek-coder-33b
    at full width and ``DEEPSEEK_LAYERS`` of its 62 layers through the paged
-   and slot-pool workloads;
+   and slot-pool workloads; then qwen2-moe-a2.7b at full width and depth
+   (24 layers, 60 experts padded to 64, top 4, weights drawn on the card)
+   through the same paged, slot-pool and lockstep workloads and the int8
+   paged one (launch counts equal to the counters, the router's one
+   softmax_topk launch a layer and forward counted apart as
+   ``softmax_topk_router``), its paged "step" lines and its decode step
+   profiled by ``obs.kernels.profile_step`` (the router and the sampler in
+   ``softmax_topk_kernel``, one a layer and one); and llama4-scout-17b-a16e
+   at full width and ``LLAMA4_LAYERS`` of its 48 layers (16 experts, top 1)
+   through the paged workload;
 5. parity: short fp32 workloads of the three paths (smollm-360m at full
    width and ``SMOLLM_LAYERS`` layers), once on the
    card through the kernels and once on the CPU through the plain versions;
@@ -96,9 +113,10 @@ printing its final line:
    decisions (admissions, resumes, preemptions) and pool and swap stats
    identical, each preempted stream equal to its ``--no-preempt`` run, and
    the same again with a device sleep queued before every decode step;
-   and mistral-nemo-12b at full width cut to 2 layers in fp32: the paged,
-   slot-pool and lockstep parity workloads' streams identical on the card
-   (head_dim-128 kernels) and the CPU;
+   and mistral-nemo-12b, then qwen2-moe-a2.7b, at full width cut to 2
+   layers in fp32: the paged, slot-pool and lockstep parity workloads'
+   streams identical on the card (head_dim-128 kernels; the router's fused
+   softmax+top-k) and the CPU;
 6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
    at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
    the end, with the launch counts set to 0 just before it and read just
@@ -113,7 +131,9 @@ printing its final line:
 8. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
    the serving and training paths' shapes (the serving kernels' D-128
-   instances at mistral-nemo-12b's, the sampler at V 131072 and 32256),
+   instances at mistral-nemo-12b's, the sampler at V 131072 and 32256; the
+   router at [8, 60], [64, 60], [8, 16] and [256, 16], the sampler at V
+   151936 and 202048, and the D-128 instances at G 1 and G 5),
    beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
@@ -254,6 +274,9 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/online_softmax.cu",
         "replaces": "src/repro/kernels/dispatch.py:520"},
 }
+# the launch counters ``dispatch.launch_counts`` reads: one a kernel, and
+# the MoE router's launches of softmax_topk under a key of their own
+COUNTERS = (*KERNELS, "softmax_topk_router")
 # smollm-360m's serving and parity phases (4, 5, 8 and 10) run at full
 # width and this many of its 32 layers: the head_dim-128 models' full-width
 # runs took the script's time, and an earlier path's depth gives way first
@@ -445,10 +468,16 @@ DECODE_PLANS = (("paged, bf16 pool", 8, 21 * 16, 16, "bfloat16"),
                 ("slot pool, int8 caches", 8, 328, 16, "int8"),
                 ("lockstep, bf16 caches", 4, 288, 16, "bfloat16"))
 MODEL_HEADS = (("smollm-360m", 5, 3, 64), ("mistral-nemo-12b", 8, 4, 128),
-               ("deepseek-coder-33b", 8, 7, 128))
-# the head_dim-128 models, (model, Hkv, G, D): their kernels' checks run at
-# both groups, G 7 being the first that is no power of two
-HEAD_DIM_128 = MODEL_HEADS[1:]
+               ("deepseek-coder-33b", 8, 7, 128),
+               ("qwen2-moe-a2.7b", 16, 1, 128),
+               ("llama4-scout-17b-a16e", 8, 5, 128))
+# the head_dim-128 dense models, (model, Hkv, G, D): their kernels' checks
+# run at both groups, G 7 being the first that is no power of two
+HEAD_DIM_128 = MODEL_HEADS[1:3]
+# the MoE decoders' heads at D 128: qwen2-moe-a2.7b's 16/16 (G 1, MHA) and
+# llama4-scout-17b-a16e's 40/8 (G 5); their instances go by group
+# (``<kernel>_d128_g<G>``)
+HEAD_DIM_MOE = MODEL_HEADS[3:]
 
 
 def _print_decode_plans() -> None:
@@ -480,6 +509,14 @@ TOPK_PLANS = (("decode sampling, 8 slots", 8, 49152, 5, "float32"),
               ("mistral-nemo-12b decode sampling", 8, 131072, 5, "float32"),
               ("mistral-nemo-12b first token", 1, 131072, 5, "float32"),
               ("deepseek-coder-33b decode sampling", 8, 32256, 5,
+               "float32"),
+              ("qwen2-moe-a2.7b decode sampling", 8, 151936, 5, "float32"),
+              ("llama4-scout-17b-a16e decode sampling", 8, 202048, 5,
+               "float32"),
+              ("qwen2-moe-a2.7b router, decode B 8", 8, 60, 4, "float32"),
+              ("qwen2-moe-a2.7b router, a 64-token chunk", 64, 60, 4,
+               "float32"),
+              ("llama4-scout-17b-a16e router, 256 tokens", 256, 16, 1,
                "float32"),
               ("library, bf16 logits", 4096, 49152, 5, "bfloat16"),
               ("library, 70000 rows", 70000, 1000, 5, "float32"))
@@ -1039,7 +1076,8 @@ def _profiled(fn, cpu: bool = False):
     """``fn()`` in one ``obs.kernels.profile_session`` (CUDA activity, and
     CPU's with ``cpu``, up to a device synchronize, after a synchronized
     warm-up launch; a session that launched kernels but recorded none runs
-    again, at most 3 in all): (its result, the profile)."""
+    again, at most ``obs.kernels.SESSION_TRIES`` in all): (its result, the
+    profile)."""
     from repro_torch.obs import kernels as obs_kernels
     return obs_kernels.profile_session(fn, cpu=cpu)
 
@@ -1441,30 +1479,134 @@ def _check_decode_splits(gen, hkv: int = 5, g: int = 3,
 
 # the head_dim-128 models' vocabularies, the sampler's rows
 VOCABS_128 = (131072, 32256)
+# the MoE decoders' vocabularies (qwen2-moe-a2.7b, llama4-scout-17b-a16e)
+VOCABS_MOE = (151936, 202048)
+# the router through the fused softmax+top-k, (rows, experts, k): qwen2-moe's
+# 60 experts top 4 at a decode step's 8 rows and a 64-token chunk's 64,
+# llama4-scout's 16 top 1 at 8 rows and a 256-token prefill; then widths
+# that are no multiple of a 16-byte vector, so rows start off a boundary
+# and take the kernel's scalar head and tail (the smoke config's 6 experts
+# top 2, and 61)
+ROUTER_SHAPES = ((8, 60, 4), (64, 60, 4), (8, 16, 1), (256, 16, 1),
+                 (64, 6, 2), (64, 61, 4))
+
+
+def _check_instances(gen, model: str, hkv: int, g: int, d: int) -> dict:
+    """Every check of the serving kernels' D 64 instances again at
+    ``model``'s ``hkv`` KV heads of ``g`` query heads and head dim ``d``:
+    the paged and contiguous cached prefills (fp32 on the CUDA cores, bf16
+    on the tensor cores), the int8 forms, the split decode's edges in its
+    four forms.  Returns {kernel: max abs error}."""
+    found = {"flash_attention_paged": _check_prefill(gen, hkv, g, d),
+             "flash_attention_offset": _check_offset(gen, hkv, g, d),
+             **_check_int8(gen, hkv, g, d)}
+    for name, err in _check_decode_splits(gen, hkv, g, d).items():
+        found[name] = max(found.get(name, 0.0), err)
+    print(f"kernel head_dim {d} at {model}'s {hkv * g}/{hkv} heads "
+          f"(G {g}): every instance within its tolerance")
+    return found
+
+
+def _merge_errs(errs: dict, found: dict, suffix: str) -> None:
+    for name, err in found.items():
+        key = name + suffix
+        errs[key] = max(errs.get(key, 0.0), err)
 
 
 def _check_head_dim_128(gen) -> dict:
     """The serving kernels' head_dim-128 instances against their plain
-    versions, each check of the D 64 instances again at D 128 with
-    mistral-nemo-12b's 32/8 heads and deepseek-coder-33b's 56/8: the paged
-    and contiguous cached prefills (fp32 on the CUDA cores, bf16 through
-    two atom columns a row on the tensor cores), the int8 forms, the split
-    decode's edges in its four forms; and the sampler at both models'
-    vocabularies.  Returns {instance: max abs error} (keys ``<kernel>_d128``
-    and ``softmax_topk_v<V>``)."""
+    versions (``_check_instances``) with mistral-nemo-12b's 32/8 heads and
+    deepseek-coder-33b's 56/8 (two atom columns a row on the tensor cores),
+    and the sampler at both models' vocabularies.  Returns {instance: max
+    abs error} (keys ``<kernel>_d128`` and ``softmax_topk_v<V>``)."""
     errs = {f"softmax_topk_v{v}": _check_softmax_topk(gen, v=v)
             for v in VOCABS_128}
     for model, hkv, g, d in HEAD_DIM_128:
-        found = {"flash_attention_paged": _check_prefill(gen, hkv, g, d),
-                 "flash_attention_offset": _check_offset(gen, hkv, g, d),
-                 **_check_int8(gen, hkv, g, d)}
-        for name, err in _check_decode_splits(gen, hkv, g, d).items():
-            found[name] = max(found.get(name, 0.0), err)
-        for name, err in found.items():
-            key = f"{name}_d128"
-            errs[key] = max(errs.get(key, 0.0), err)
-        print(f"kernel head_dim 128 at {model}'s {hkv * g}/{hkv} heads "
-              f"(G {g}): every instance within its tolerance")
+        _merge_errs(errs, _check_instances(gen, model, hkv, g, d), "_d128")
+    return errs
+
+
+def _check_router(gen) -> dict:
+    """The fused softmax+top-k as the MoE router runs it (``ROUTER_SHAPES``,
+    fp32): through ``dispatch.softmax_topk`` on a [G, S, E] view, against
+    the plain version on the same logits: indices equal in order (ties
+    within a row, which decide the drops, in index order), values and lse
+    within rtol 1e-5, a repeat bit-equal, one ``softmax_topk_kernel`` launch
+    seen by the profiler; then ``layers.moe_route`` over the same logits
+    (an identity router, exact on both devices) at qwen2-moe's capacity
+    factor keeps and drops the same assignments on the card as on the CPU.
+    Returns {``softmax_topk_router_e<E>``: max abs error (values, lse)}."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import softmax_topk as st
+    from repro_torch.models import layers as L
+    base = configs.get("qwen2_moe_a2p7b")
+    errs = {}
+    for r, e, k in ROUTER_SHAPES:
+        x = torch.randn(r, e, generator=gen) * 2.0
+        x[0, [e // 3, e - 1]] = float(x[0].max()) + 1.0   # a tie at the top
+        x[1, :] = x[1, 0]                                  # all tie
+        g, s_ = (r, 1) if r == 8 else (1, r)               # decode | chunk
+        xc = x.reshape(g, s_, e).cuda()
+        what = f"softmax_topk router [{r}, {e}] float32 k={k} (G {g}, S {s_})"
+        got, prof = _profiled(lambda: dispatch.softmax_topk(xc, k))
+        seen = _launch_counts(prof)
+        if seen != {"softmax_topk_kernel": 1}:
+            _fail(f"{what}: the profiler saw {seen}, not one launch of "
+                  "softmax_topk_kernel")
+        again = dispatch.softmax_topk(xc, k)
+        want = st.softmax_topk_plain(xc, k)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            _fail(f"{what}: two calls on the same input differ")
+        if not torch.equal(got.indices.long(), want.indices):
+            _fail(f"{what}: indices differ:\n{got.indices}\n{want.indices}")
+        ties = got.indices.reshape(r, k)[0, :2].tolist()
+        if ties != [e // 3, e - 1][:k]:
+            _fail(f"{what}: tie order {ties}, want {[e // 3, e - 1][:k]}")
+        for a, b_, name in ((got.values, want.values, "values"),
+                            (got.logsumexp, want.logsumexp, "lse")):
+            if not torch.allclose(a, b_, rtol=1e-5, atol=0.0):
+                _fail(f"{what}: {name} beyond rtol 1e-5: max abs "
+                      f"{(a - b_).abs().max().item():.3g}")
+        err = max((got.values - want.values).abs().max().item(),
+                  (got.logsumexp - want.logsumexp).abs().max().item())
+        key = f"softmax_topk_router_e{e}"
+        errs[key] = max(errs.get(key, 0.0), err)
+        moe = dataclasses.replace(base.moe, num_experts=e,
+                                  experts_per_token=k, pad_experts_to=0)
+        cfg = base.replace(moe=moe)
+        routes = {dev: L.moe_route({"router": torch.eye(e, device=dev)},
+                                   xc.to(dev), cfg)
+                  for dev in ("cuda", "cpu")}
+        kc, kp = routes["cuda"].keep.cpu(), routes["cpu"].keep
+        if not torch.equal(kc, kp) or not torch.equal(
+                routes["cuda"].idx.long().cpu(), routes["cpu"].idx):
+            _fail(f"{what}: moe_route keeps {kc.sum().item()} assignments "
+                  f"on the card, {kp.sum().item()} on the CPU")
+        print(f"kernel {what}: indices equal (ties in index order), max abs "
+              f"err {err:.3g} (rtol 1e-5); one softmax_topk_kernel launch "
+              f"seen by the profiler; a repeat bit-equal; moe_route keeps "
+              f"{kp.sum().item()} of {kp.numel()} assignments (capacity "
+              f"{routes['cpu'].cap}) on both devices")
+    return errs
+
+
+def _check_moe_shapes(gen) -> dict:
+    """The MoE decoders' kernel shapes against their plain versions: the
+    router (``_check_router``), the sampler at both vocabularies, and every
+    serving kernel's D-128 instance at qwen2-moe's 16/16 heads (G 1) and
+    llama4-scout's 40/8 (G 5).  Returns {instance: max abs error} (keys
+    ``softmax_topk_router_e<E>``, ``softmax_topk_v<V>``,
+    ``<kernel>_d128_g<G>``)."""
+    errs = _check_router(gen)
+    errs.update({f"softmax_topk_v{v}": _check_softmax_topk(gen, v=v)
+                 for v in VOCABS_MOE})
+    for model, hkv, g, d in HEAD_DIM_MOE:
+        _merge_errs(errs, _check_instances(gen, model, hkv, g, d),
+                    f"_d128_g{g}")
     return errs
 
 
@@ -1481,6 +1623,7 @@ def phase_kernels() -> dict:
     for name, err in _check_decode_splits(gen).items():
         errs[name] = max(errs[name], err)
     errs.update(_check_head_dim_128(gen))
+    errs.update(_check_moe_shapes(gen))
     return errs
 
 
@@ -1507,19 +1650,32 @@ def _implied_counts(sched, n_layers: int) -> dict:
     """Launches the scheduler's counters imply: one decode-kernel launch per
     layer for every decode step and one-token prefill chunk, one prefill-
     kernel launch per layer for every wider chunk, one softmax_topk per
-    decode step and per finished prefill; the other path's kernels none.
-    With int8 K/V the decode kernels are the int8 forms, and every prefill
-    (over the prompt's exact K/V) is the contiguous prefill kernel."""
+    decode step and per finished prefill (the sampler), and for an MoE
+    model one softmax_topk_router a layer for every decode step and
+    prefill chunk (the router's launches of the same kernel); the other
+    path's kernels none.  With int8 K/V the decode kernels are the int8
+    forms, and every prefill (over the prompt's exact K/V) is the
+    contiguous prefill kernel."""
     ones = sched.chunk_widths.get(1, 0)
     dec, pre = (("flash_decode_paged", "flash_attention_paged")
                 if sched.paged else ("flash_decode", "flash_attention_offset"))
     if sched.family.quantized:
         dec, pre = f"{dec}_int8", "flash_attention_offset"
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(COUNTERS, 0)
     want[dec] = (sched.decode_steps + ones) * n_layers
     want[pre] = (sched.prefill_chunks - ones) * n_layers
     want["softmax_topk"] = sched.decode_steps + sched.prefills_done
+    want["softmax_topk_router"] = _router_launches(sched, n_layers)
     return want
+
+
+def _router_launches(sched, n_layers: int) -> int:
+    """The MoE router's softmax_topk launches in a continuous run: one a
+    layer for every forward (decode step or prefill chunk); 0 for a dense
+    model."""
+    if sched.cfg.moe is None:
+        return 0
+    return n_layers * (sched.decode_steps + sched.prefill_chunks)
 
 
 def _check_counts(what: str, counts: dict, want: dict, path=None) -> None:
@@ -1601,15 +1757,19 @@ def _serve_lockstep(what: str, argv, cfg, params) -> dict:
         _fail(f"serve {what}: token ids of shape {ids.shape} outside "
               "the vocabulary or short")
     dec = "flash_decode_int8" if args.kv_cache_dtype else "flash_decode"
-    want = dict.fromkeys(KERNELS, 0)
-    want.update({"softmax_topk": args.tokens,
+    # an MoE model routes once a layer in the prefill and in each decode
+    # step: tokens forwards in all
+    router = args.tokens * cfg.num_layers if cfg.moe is not None else 0
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"softmax_topk": args.tokens, "softmax_topk_router": router,
                  dec: (args.tokens - 1) * cfg.num_layers,
                  "flash_attention_offset": cfg.num_layers})
     if counts != want:
         _fail(f"serve {what}: launches {counts}, its steps imply {want}")
     print(f"serve {what} launches: {counts} = one prefill, "
           f"{args.tokens - 1} decode steps and {args.tokens} samples "
-          f"over {cfg.num_layers} layers")
+          f"over {cfg.num_layers} layers"
+          + (f", {router} router launches" if router else ""))
     return counts
 
 
@@ -1643,17 +1803,39 @@ INSTANCES = {
     "flash_decode_int8_d128": ("flash_decode_int8", "mistral slot pool int8"),
     "flash_attention_paged_int8_d128": ("flash_attention_paged_int8",
                                         "kernel check only"),
+    # the MoE decoders: the router's launches of softmax_topk are counted
+    # under a key of their own (a third item: the count's key in that run)
+    "softmax_topk_router_e60": ("softmax_topk", "qwen2 paged",
+                                "softmax_topk_router"),
+    "softmax_topk_router_e16": ("softmax_topk", "llama4 paged",
+                                "softmax_topk_router"),
+    "softmax_topk_v151936": ("softmax_topk", "qwen2 paged"),
+    "softmax_topk_v202048": ("softmax_topk", "llama4 paged"),
+    "flash_decode_paged_d128_g1": ("flash_decode_paged", "qwen2 paged"),
+    "flash_attention_paged_d128_g1": ("flash_attention_paged",
+                                      "qwen2 paged"),
+    "flash_decode_d128_g1": ("flash_decode", "qwen2 slot pool"),
+    "flash_attention_offset_d128_g1": ("flash_attention_offset",
+                                       "qwen2 slot pool"),
+    "flash_decode_paged_int8_d128_g1": ("flash_decode_paged_int8",
+                                        "qwen2 paged int8"),
+    "flash_decode_int8_d128_g1": ("flash_decode_int8", "kernel check only"),
+    "flash_attention_paged_int8_d128_g1": ("flash_attention_paged_int8",
+                                           "kernel check only"),
+    "flash_decode_paged_d128_g5": ("flash_decode_paged", "llama4 paged"),
+    "flash_attention_paged_d128_g5": ("flash_attention_paged",
+                                      "llama4 paged"),
+    # llama4-scout serves the paged workload only: these are checked and
+    # timed at its heads, and launch on no path of this script
+    "flash_decode_d128_g5": ("flash_decode", "kernel check only"),
+    "flash_attention_offset_d128_g5": ("flash_attention_offset",
+                                       "kernel check only"),
+    "flash_decode_paged_int8_d128_g5": ("flash_decode_paged_int8",
+                                        "kernel check only"),
+    "flash_decode_int8_d128_g5": ("flash_decode_int8", "kernel check only"),
+    "flash_attention_paged_int8_d128_g5": ("flash_attention_paged_int8",
+                                           "kernel check only"),
 }
-
-
-def _param_count(cfg) -> int:
-    """Parameters of a dense config: embedding (and untied head), final
-    norm, and per layer two norms, the attention and the SwiGLU MLP."""
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    layer = 2 * d + 2 * d * hq * hd + 2 * d * hkv * hd + 3 * d * f
-    return (v * d * (1 if cfg.tie_embeddings else 2) + d
-            + cfg.num_layers * layer)
 
 
 def _weight_bytes(params) -> int:
@@ -1674,11 +1856,17 @@ def _card_weights(cfg):
     params = transformer.init(cfg, seed=0, device="cuda", draw_device="cuda")
     torch.cuda.synchronize()
     nbytes = _weight_bytes(params)
+    mc = cfg.moe
+    ffn = (f"d_ff {cfg.d_ff}" if mc is None else
+           f"{mc.num_experts} experts (padded to "
+           f"{mc.pad_experts_to or mc.num_experts}) top {mc.experts_per_token}"
+           f" of d_ff {mc.d_ff_expert} + a shared expert of "
+           f"{mc.d_ff_shared}, capacity factor {mc.capacity_factor}")
     print(f"serve: {cfg.name} {cfg.dtype}, {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}, untied head; {nbytes / 1e9:.3f} GB of weights "
-          f"drawn on the card from seed 0 in {time.perf_counter() - t0:.1f}s")
+          f"{cfg.resolved_head_dim}, {ffn}, vocab {cfg.vocab_size}, untied "
+          f"head; {nbytes / 1e9:.3f} GB of weights drawn on the card from "
+          f"seed 0 in {time.perf_counter() - t0:.1f}s")
     return params, nbytes
 
 
@@ -1709,8 +1897,9 @@ def _serve_path(what: str, argv, cfg, params, path: str):
     print(f"serve {what} launches: {counts} = scheduler counters (decode "
           f"steps {sched.decode_steps}, prefill chunks {sched.prefill_chunks} "
           f"of which {sched.chunk_widths.get(1, 0)} one-token, prefills "
-          f"{sched.prefills_done}, {cfg.num_layers} layers); peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{sched.prefills_done}, {cfg.num_layers} layers); "
+          f"{report.tokens_per_s:.1f} tok/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts, eng
 
 
@@ -1732,13 +1921,16 @@ def _check_pool_bytes(cfg, engines) -> None:
           "tokens in the same bytes)")
 
 
-def _steps_128(params, cfg, engines, weight_bytes: int) -> None:
+def _steps_128(params, cfg, engines, weight_bytes: int,
+               only: tuple = ()) -> None:
     """Phase 8's "step" lines for a head_dim-128 model
-    (``_serving_steps``), each beside the weights' byte bound (every
-    weight read once at 3.35 TB/s), and the paged decode step's kernels
-    by device time."""
+    (``_serving_steps``; with ``only``, those whose names start so), each
+    beside the weights' byte bound (every weight read once at 3.35 TB/s),
+    and the paged decode step's kernels by device time."""
     bound = weight_bytes / HBM_BYTES_PER_S * 1e3
     for name, fn in _serving_steps(params, cfg, engines).items():
+        if only and not name.startswith(only):
+            continue
         line, busy, by = _step_line(f"{cfg.name} {name}", fn)
         print(f"{line}; the weights' byte bound {bound:.3f}ms "
               f"({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), device busy "
@@ -1787,44 +1979,155 @@ def phase_serve_128() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 4c: the MoE decoders at full width
+# ---------------------------------------------------------------------------
+QWEN2 = ["--arch", "qwen2_moe_a2p7b"]
+LLAMA4 = ["--arch", "llama4_scout_17b_a16e"]
+# llama4-scout-17b-a16e at full width and cut depth: 2 of its 48 layers,
+# ~13.0 GB of bf16 weights (2.21e9 parameters a layer, 2.07e9 in its
+# embedding and head); all 48 would be ~216 GB.  4 layers served in time
+# on a fast host, but the script outran its time on slower ones, and this
+# depth is the first cut
+LLAMA4_LAYERS = 2
+# qwen2-moe-a2.7b's continuous-batching runs: phase 4's workloads but the
+# int8 slot pool, the second cut for the script's time (its kernel
+# instance, flash_decode_int8 at G 1, is checked and timed in phases 3
+# and 8, and launches on mistral-nemo's int8 slot-pool run at G 4)
+MOE_SERVE_PATHS = SERVE_PATHS[:3]
+
+
+def _profile_moe_step(params, cfg, engines) -> None:
+    """``obs.kernels.profile_step`` on a paged decode step of the MoE model
+    (B 8 over the phase's idle pool, lengths 65..328): its analytic cost
+    (``decode_step_cost``: the one-hot form reads every padded expert) and
+    its kernels from ``torch.profiler``; the router and the sampler share
+    ``softmax_topk_kernel``, one launch a layer and one, and the split
+    decode runs once a layer."""
+    import torch
+    from repro_torch.obs import kernels as obs_kernels
+    from repro_torch.serving import engine
+    pool = engines["paged"].scheduler.pool
+    n, m = pool.num_slots, pool.max_blocks
+    tables = torch.arange(1, n * m + 1, dtype=torch.int32,
+                          device="cuda").reshape(n, m)
+    lens = [328, 289, 250, 211, 172, 133, 94, 65][:n]
+    label = f"{cfg.name} decode_step_paged"
+    cost = obs_kernels.decode_step_cost(cfg, n, [x + 1 for x in lens])
+    obs_kernels.profile_step(
+        engine.decode_step_paged, label, params, pool.caches, tables,
+        torch.tensor(lens, device="cuda"),
+        torch.ones((n, 1), dtype=torch.int64, device="cuda"), cfg,
+        cost=cost, device=torch.device("cuda"),
+        noise=torch.zeros((n, 5), device="cuda"), top_k=5)
+    obs_kernels.run_pending()
+    rec = obs_kernels.snapshot()["costs"][label]
+    calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+    want = {"softmax_topk_kernel": cfg.num_layers + 1,
+            "decode_paged_split_kernel": cfg.num_layers}
+    if any(calls.get(k) != v for k, v in want.items()):
+        _fail(f"profile {label}: kernel calls {calls}, want {want}")
+    top = sorted(rec["kernels"].items(), key=lambda kv: -kv[1]["ms"])[:6]
+    print(f"profile {label} [B={n}]: device {rec['device_ms']:.3f}ms over "
+          f"{sum(calls.values())} launches, bound {rec['bound_ms']:.3f}ms "
+          f"({rec['bytes_accessed'] / 1e9:.3f} GB, "
+          f"{rec['flops'] / 1e9:.1f} GFLOP: decode_step_cost), "
+          f"softmax_topk_kernel x {calls['softmax_topk_kernel']} (router a "
+          "layer + sampler); top kernels: " + "; ".join(
+              f"{k} {v['ms']:.4f}ms x {v['calls']}" for k, v in top))
+
+
+def phase_serve_moe() -> dict:
+    """qwen2-moe-a2.7b at full width and depth (24 layers, bf16, 60 experts
+    padded to 64, top 4) through phase 4's paged, slot-pool and lockstep
+    workloads and the int8 paged one (``MOE_SERVE_PATHS``), each between a
+    reset and a read of the launch counts (the router's, one a layer and
+    forward, under ``softmax_topk_router``), then its paged "step" lines
+    and its profiled decode step; then llama4-scout-17b-a16e at full width
+    and ``LLAMA4_LAYERS`` layers (16 experts, top 1) through the paged
+    workload.  Every attention op runs a head_dim-128 instance, at G 1 and
+    G 5.  Returns {run: counts}."""
+    import torch
+    from repro_torch import configs
+    counts = {}
+    cfg = configs.get("qwen2_moe_a2p7b")
+    params, nbytes = _card_weights(cfg)
+    engines = {}
+    for path, argv in MOE_SERVE_PATHS:
+        what = f"qwen2 {path}"
+        counts[what], engines[path] = _serve_path(what, QWEN2 + argv, cfg,
+                                                  params, path)
+    _check_pool_bytes(cfg, engines)
+    counts["qwen2 lockstep"] = _serve_lockstep(
+        "qwen2 lockstep", QWEN2 + LOCKSTEP_ARGS, cfg, params)
+    # the paged steps only (the script's time): the slot-pool and int8
+    # steps differ from them in attention alone, which mistral's lines show
+    _steps_128(params, cfg, engines, nbytes,
+               only=("paged decode", "paged prefill"))
+    _profile_moe_step(params, cfg, engines)
+    del params, engines
+    torch.cuda.empty_cache()
+
+    cfg = configs.get("llama4_scout_17b_a16e").replace(
+        num_layers=LLAMA4_LAYERS)
+    params, _ = _card_weights(cfg)
+    counts["llama4 paged"], _ = _serve_path(
+        "llama4 paged", LLAMA4 + SERVE_ARGS, cfg, params, "paged")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_parity_128() -> None:
     """Phase 5's fp32 stream parity for mistral-nemo-12b at full width cut
-    to 2 layers (7.5 GB of fp32 weights, drawn on the CPU and copied): the
-    paged, slot-pool and lockstep parity workloads on the card through the
-    head_dim-128 kernels and on the CPU through the plain versions give
-    identical token streams."""
+    to 2 layers (7.5 GB of fp32 weights) (``_parity_2_layers``)."""
+    _parity_2_layers("mistral_nemo_12b")
+
+
+def _parity_2_layers(arch: str) -> None:
+    """``arch`` at full width cut to 2 layers in fp32, weights drawn on the
+    card from seed 1 and copied to the CPU (a CPU draw of these ~1.8e9
+    weights takes 12-15 s, the copy a second or two): the paged, slot-pool
+    and lockstep parity workloads on the card through the kernels and on
+    the CPU through the plain versions give identical token streams."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    cfg = configs.get("mistral_nemo_12b").replace(num_layers=2,
-                                                  dtype="float32")
+    cfg = configs.get(arch).replace(num_layers=2, dtype="float32")
+    name = cfg.name
     t0 = time.perf_counter()
-    params_cpu = transformer.init(cfg, seed=1, device="cpu")
-    draw_s = time.perf_counter() - t0
-    draws = _weight_bytes(params_cpu) // 4
-    full = _param_count(configs.get("mistral_nemo_12b"))
-    print(f"parity mistral-nemo-12b: {draws} weights (2 layers, fp32) drawn "
-          f"on the CPU in {draw_s:.1f}s ({draws / draw_s / 1e6:.0f}M a "
-          f"second): the full model's {full} would take "
-          f"~{full * draw_s / draws:.0f}s at that rate")
-    params_by_device = {"cuda": transformer.params_to(params_cpu, "cuda"),
-                        "cpu": params_cpu}
-    _parity_runs("mistral-nemo-12b (2 layers) paged", PARITY_ARGS, cfg,
+    params_cuda = transformer.init(cfg, seed=1, device="cuda",
+                                   draw_device="cuda")
+    params_by_device = {"cuda": params_cuda,
+                        "cpu": transformer.params_to(params_cuda, "cpu")}
+    print(f"parity {name}: {_weight_bytes(params_cuda) // 4} weights (2 "
+          f"layers, fp32) drawn on the card and copied to the CPU in "
+          f"{time.perf_counter() - t0:.1f}s")
+    _parity_runs(f"{name} (2 layers) paged", PARITY_ARGS, cfg,
                  params_by_device)
-    _parity_runs("mistral-nemo-12b (2 layers) slot pool", SLOT_PARITY_ARGS,
-                 cfg, params_by_device)
+    _parity_runs(f"{name} (2 layers) slot pool", SLOT_PARITY_ARGS, cfg,
+                 params_by_device)
     ids = {device: serve.lockstep(serve.parse_args(
                LOCKSTEP_PARITY_ARGS + ["--device", device]), cfg, params)
            for device, params in params_by_device.items()}
     if not np.array_equal(ids["cuda"], ids["cpu"]):
-        _fail(f"parity mistral-nemo-12b lockstep: token ids differ\ncuda "
+        _fail(f"parity {name} lockstep: token ids differ\ncuda "
               f"{ids['cuda']}\ncpu  {ids['cpu']}")
-    print(f"parity mistral-nemo-12b (2 layers) lockstep: {ids['cpu'].size} "
-          "token ids identical")
+    print(f"parity {name} (2 layers) lockstep: {ids['cpu'].size} token ids "
+          "identical")
     del params_by_device
     torch.cuda.empty_cache()
+
+
+def phase_parity_moe() -> None:
+    """Phase 5's fp32 stream parity for qwen2-moe-a2.7b at full width cut
+    to 2 layers (``_parity_2_layers``): the router's fused softmax+top-k,
+    the G 1 attention instances and the one-hot experts on the card against
+    the plain versions on the CPU, under the same prefill chunking (so the
+    same capacity groups)."""
+    _parity_2_layers("qwen2_moe_a2p7b")
 
 
 def _block_bytes(cfg, block_size: int) -> int:
@@ -1956,7 +2259,7 @@ def _serve_slo(params, cfg, counts: dict) -> None:
             counts[what] = dispatch.launch_counts()
         scheds = [e.scheduler for e in router.engines]
         _check_finished(what, report, requests, cfg.vocab_size)
-        want = dict.fromkeys(KERNELS, 0)
+        want = dict.fromkeys(COUNTERS, 0)
         for sched in scheds:
             for k, n in _implied_counts(sched, cfg.num_layers).items():
                 want[k] += n
@@ -2323,7 +2626,7 @@ def phase_train():
                 map(math.isfinite, losses + norms)):
             _fail(f"train: {steps} steps, losses {losses}, grad norms "
                   f"{norms}")
-        want = dict.fromkeys(KERNELS, 0)
+        want = dict.fromkeys(COUNTERS, 0)
         want.update(flash_attention=2 * steps * n,
                     flash_attention_bwd_dq=steps * n,
                     flash_attention_bwd_dkv=steps * n)
@@ -2484,7 +2787,9 @@ def _serving_steps(params, cfg, engines) -> dict:
     """A model's serving steps at full width, on the pools its phase-4
     runs left idle: a decode step over 8 busy slots and a 64-token prefill
     chunk at offset 64, of the paged pool and of the slot pool, and the
-    decode steps over the int8 runs' pools.  Returns {name: fn}."""
+    decode steps over the int8 runs' pools (each pool looked up when its
+    step runs: a phase that serves no int8 slot pool asks for no step of
+    it).  Returns {name: fn}."""
     import torch
     from repro_torch.serving import engine
     pool = engines["paged"].scheduler.pool
@@ -2500,7 +2805,6 @@ def _serving_steps(params, cfg, engines) -> dict:
     slot_lens = lens.clamp(max=slots.slot_len - 1)
     scratch = engine.init_cache(cfg, 1, slots.slot_len, "cuda")
     q8_pool = engines["paged int8"].scheduler.pool
-    q8_slots = engines["slot pool int8"].scheduler.pool
     q8_cfg = q8_pool.cfg
     layers = f"{cfg.num_layers} layers"
     return {
@@ -2520,11 +2824,11 @@ def _serving_steps(params, cfg, engines) -> dict:
             lambda: engine.decode_step_paged(params, q8_pool.caches, tables,
                                              lens, toks, q8_cfg, noise=noise,
                                              top_k=5),
-        f"slot-pool int8 decode [B={q8_slots.num_slots}, {layers}, bf16, "
+        f"slot-pool int8 decode [B={slots.num_slots}, {layers}, bf16, "
         "int8 K/V]":
-            lambda: engine.decode_step_slots(params, q8_slots.caches,
-                                             slot_lens, toks, q8_cfg,
-                                             noise=noise, top_k=5)}
+            lambda: engine.decode_step_slots(
+                params, engines["slot pool int8"].scheduler.pool.caches,
+                slot_lens, toks, q8_cfg, noise=noise, top_k=5)}
 
 
 def _step_line(name: str, fn, *,
@@ -2698,6 +3002,15 @@ def phase_times() -> dict:
         rows.update(_topk_times(gen, v))
     rows.update(_serving_kernel_times(gen, hkv=hkv, g=g, d=d, topk=False))
     rows.update(_int8_kernel_times(gen, hkv=hkv, g=g, d=d))
+    # the MoE decoders': the router, the sampler at their vocabularies, and
+    # the D-128 instances at G 1 (qwen2-moe's 16/16) and G 5 (llama4's 40/8)
+    rows.update(_router_times(gen))
+    for v in VOCABS_MOE:
+        rows.update(_topk_times(gen, v))
+    for _, hkv, g, d in HEAD_DIM_MOE:
+        rows.update(_serving_kernel_times(gen, hkv=hkv, g=g, d=d, topk=False,
+                                          tag=f"_g{g}"))
+        rows.update(_int8_kernel_times(gen, hkv=hkv, g=g, d=d, tag=f"_g{g}"))
     rows.update(_library_kernel_times())
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
@@ -2748,18 +3061,65 @@ def _topk_times(gen, v: int = 49152) -> dict:
                  f"{p.slice}"}}
 
 
+# the router's timed shapes: (row key, rows, experts, k); the JSON line
+# lists the decode step's, the others are printed
+ROUTER_TIMED = (("softmax_topk_router_e60", 8, 60, 4),
+                ("softmax_topk_router_e60, 64-token chunk", 64, 60, 4),
+                ("softmax_topk_router_e16", 8, 16, 1),
+                ("softmax_topk_router_e16, 256 tokens", 256, 16, 1))
+
+
+def _router_times(gen) -> dict:
+    """Row 1 as the MoE router runs it (``ROUTER_TIMED``: fp32 logits
+    [rows, E], top k), held against its plain version on the timed input,
+    beside ``torch.topk(torch.softmax(x))``.  The bound reads x once and
+    writes k values, k int32 indices and the lse a row; 4 fp32 operations
+    an entry."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import softmax_topk as st
+    rows = {}
+    for key, r, e, k in ROUTER_TIMED:
+        x = (torch.randn(r, e, generator=gen) * 2.0).cuda()
+        got, want = st.softmax_topk(x, k), st.softmax_topk_plain(x, k)
+        if not torch.equal(got.indices.long(), want.indices) or not \
+                torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0):
+            _fail(f"softmax_topk [{r}, {e}] k={k} disagrees with its plain "
+                  "version on the timed input")
+        args, _ = st.prepare(x, k)
+        p = st.plan(r, e, k, x.dtype, build.sm_count(x.device))
+        b_ms, b_by = _bound(r * e * 4 + r * k * 8 + r * 4, 4.0 * r * e,
+                            "float32")
+
+        def library():
+            return torch.topk(torch.softmax(x, -1), k)
+        rows[key] = {
+            "ms": _ms(lambda: st.launch(args)),
+            "device_ms": _device_call_ms(lambda: st.launch(args)),
+            "wrapper_ms": _ms(lambda: st.softmax_topk(x, k)),
+            "plain_ms": _ms(lambda: st.softmax_topk_plain(x, k)),
+            "library_ms": _ms(library),
+            "library_device_ms": _device_call_ms(library),
+            "library_call": "torch.topk(torch.softmax(x, -1), k) (two "
+                            "calls)",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"x [{r}, {e}] float32, k={k}, {p.slices} slice of "
+                     f"{p.slice}, {p.threads} threads a CTA"}
+    return rows
+
+
 def _serving_kernel_times(gen, *, hkv: int = 5, g: int = 3, d: int = 64,
-                          topk: bool = True) -> dict:
+                          topk: bool = True, tag: str = "") -> dict:
     """Rows 1-5 at the serving paths' shapes, each held against its plain
     version on the very inputs it is timed on, at ``hkv`` KV heads of ``g``
-    query heads and head dim ``d`` (rows keyed ``<kernel>_d<d>`` off D 64):
-    the sampler (with ``topk``), the paged and contiguous decodes and
-    cached prefills, SDPA beside rows 4 and 5."""
+    query heads and head dim ``d`` (rows keyed ``<kernel>_d<d><tag>`` off
+    D 64): the sampler (with ``topk``), the paged and contiguous decodes
+    and cached prefills, SDPA beside rows 4 and 5."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     rows = _topk_times(gen) if topk else {}
-    suffix = "" if d == 64 else f"_d{d}"
+    suffix = ("" if d == 64 else f"_d{d}") + tag
     geom = dict(hkv=hkv, g=g, d=d)
     hq, esz = hkv * g, 2
     heads = f"Hq={hq} Hkv={hkv} D={d}"
@@ -3055,7 +3415,8 @@ def _train_kernel_times(gen) -> dict:
     return rows
 
 
-def _int8_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
+def _int8_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
+                       tag: str = "") -> dict:
     """The int8 forms at the int8 serving runs' shapes (bf16 q): paged
     decode over 8 slots of the pool (BS 16, vlen 66..329), contiguous decode
     over 8 slots of 328, and the paged prefill at row 3's chunk (64 tokens
@@ -3065,12 +3426,12 @@ def _int8_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
     multiplies per value beside the 4·D flops per (head, position).  No
     single PyTorch call computes a dequantize and attention.  At ``hkv``
     KV heads of ``g`` query heads and head dim ``d`` (rows keyed
-    ``<kernel>_d<d>`` off D 64)."""
+    ``<kernel>_d<d><tag>`` off D 64)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     hq, esz = hkv * g, 2
-    suffix = "" if d == 64 else f"_d{d}"
+    suffix = ("" if d == 64 else f"_d{d}") + tag
     geom = dict(hkv=hkv, g=g, d=d)
     heads = f"Hq={hq} Hkv={hkv} D={d}"
     rows = {}
@@ -3284,7 +3645,7 @@ def phase_library():
     from repro_torch.kernels import online_softmax as osk
     from repro_torch.kernels import softmax_topk as st
     dispatch.reset_launch_counts()
-    calls = dict.fromkeys(KERNELS, 0)
+    calls = dict.fromkeys(COUNTERS, 0)
     errs = {}
     for i, (r, v, dtype, start) in enumerate(LIBRARY_SHAPES):
         x = _library_input(r, v, dtype, seed=100 + i, start=start)
@@ -3673,7 +4034,7 @@ def phase_observability() -> None:
         tdir = os.path.join(tmp, "router") + os.sep
         report, router, _, counts, _ = _serve_timed(
             params, cfg, ROUTER_ARGS + ["--no-affinity", "--trace", tdir])
-        want = dict.fromkeys(KERNELS, 0)
+        want = dict.fromkeys(COUNTERS, 0)
         for e in router.engines:
             for k, n in _implied_counts(e.scheduler, cfg.num_layers).items():
                 want[k] += n
@@ -3747,8 +4108,10 @@ def main() -> int:
           "launched kernels but recorded no device event, and ran again")
     counts, serve_ctx = _timed(phase_serve)
     counts.update(_timed(phase_serve_128))
+    counts.update(_timed(phase_serve_moe))
     _timed(phase_parity)
     _timed(phase_parity_128)
+    _timed(phase_parity_moe)
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
@@ -3760,15 +4123,15 @@ def main() -> int:
     errs.update(lib_errs)
     _timed(phase_observability_process)
     kernels = []
-    entries = [(name, name, KERNEL_PATH[name]) for name in KERNELS]
-    entries += [(name, kernel, path)
-                for name, (kernel, path) in INSTANCES.items()]
-    for name, kernel, path in entries:
+    entries = [(name, name, KERNEL_PATH[name], name) for name in KERNELS]
+    entries += [(name, kernel, path, (key or [kernel])[0])
+                for name, (kernel, path, *key) in INSTANCES.items()]
+    for name, kernel, path, key in entries:
         row, meta = times[name], KERNELS[kernel]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "path": path,
-            "launches": counts[path][kernel] if path in counts else 0,
+            "launches": counts[path][key] if path in counts else 0,
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

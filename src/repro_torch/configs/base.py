@@ -1,15 +1,31 @@
-"""Configuration dataclasses: the port's own copies of ``ModelConfig``
-(reference: ``src/repro/configs/base.py:62-113``) and of the training run's
-``ParallelConfig``, ``OptimizerConfig`` and ``RunConfig`` (135-170).
+"""Configuration dataclasses: the port's own copies of ``MoEConfig``
+(reference: ``src/repro/configs/base.py:47-60``), ``ModelConfig`` (62-113)
+and of the training run's ``ParallelConfig``, ``OptimizerConfig`` and
+``RunConfig`` (135-170).
 
-The family sub-configs (MLA, MoE, SSM, xLSTM) are typed loosely here: the
-dense slice never reads them, and they are ported with their families.
+The other family sub-configs (MLA, SSM, xLSTM) are typed loosely here: no
+ported family reads them, and they are ported with their families.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    experts_per_token: int = 2
+    d_ff_expert: int = 0          # per-expert hidden dim
+    d_ff_shared: int = 0          # shared-expert hidden dim (0 = none)
+    capacity_factor: float = 1.25
+    group_size: int = 512         # dispatch group (tokens) for one-hot einsum
+    router_z_loss: float = 1e-3
+    # "expert": shard expert axis over model (pad experts up if needed)
+    # "ffn":    shard each expert's hidden dim over model
+    shard_mode: str = "expert"
+    pad_experts_to: int = 0       # 0 = no padding
 
 
 @dataclass(frozen=True)
@@ -36,7 +52,7 @@ class ModelConfig:
     mla: Optional[Any] = None
     ssm: Optional[Any] = None
     xlstm: Optional[Any] = None
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     # hybrid: attention block inserted every N ssm blocks (shared weights)
     hybrid_attn_every: int = 0
     # enc-dec

@@ -66,6 +66,7 @@ from repro_torch.kernels import softmax_topk as _softmax_topk
 from repro_torch.obs import kernels as obs_kernels
 
 _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
+                   "softmax_topk_router": _softmax_topk,
                    "flash_decode_paged": _flash_decode,
                    "flash_decode": _flash_decode,
                    "flash_attention_paged": _flash_attention,
@@ -161,22 +162,24 @@ def online_normalizer(x):
     return _online_softmax.online_normalizer_plain(x)
 
 
-def softmax_topk(x, k: int,
-                 differentiable: bool = False) -> "core.SoftmaxTopK":
+def softmax_topk(x, k: int, differentiable: bool = False,
+                 counter: str = "softmax_topk") -> "core.SoftmaxTopK":
     """Fused softmax+top-k (paper Algorithm 4) over the last axis.
 
     A requires-grad input under grad mode, or ``differentiable``, routes
     through ``ops.softmax_topk``, whose backward recomputes the softmax
     from the saved log-sum-exp (the reference is differentiable on every
     path and ignores the flag); otherwise the kernel runs bare (the serving
-    path's logits need no gradient).  Both routes launch the kernel once."""
+    path's logits need no gradient).  Both routes launch the kernel once,
+    counted under ``counter`` (``"softmax_topk_router"`` for the MoE
+    router, so its launches are read apart from the sampler's)."""
     if differentiable or _wants_grad(x):  # its forward comes back here
         from repro_torch.kernels import ops
-        return ops.softmax_topk(x, k)
+        return ops.softmax_topk(x, k, counter=counter)
     if x.device.type == "cuda":
-        return _softmax_topk.softmax_topk(x, k)
+        return _softmax_topk.softmax_topk(x, k, counter)
     _require_cpu(x, "softmax_topk")
-    obs_kernels.record_path("softmax_topk", "cpu")
+    obs_kernels.record_path(counter, "cpu")
     return _softmax_topk.softmax_topk_plain(x, k)
 
 

@@ -61,8 +61,8 @@ class _SoftmaxTopK2d(torch.autograd.Function):
     stores the [R, V] softmax."""
 
     @staticmethod
-    def forward(ctx, x, k):
-        vals, idx, lse = dispatch.softmax_topk(x, k)
+    def forward(ctx, x, k, counter):
+        vals, idx, lse = dispatch.softmax_topk(x, k, counter=counter)
         ctx.save_for_backward(x, vals, idx, lse)
         ctx.mark_non_differentiable(idx)
         return vals, idx, lse
@@ -79,15 +79,16 @@ class _SoftmaxTopK2d(torch.autograd.Function):
         coeff = dlse.float() - dv_v.sum(dim=-1)                    # [R]
         dx = s * coeff[:, None]
         dx.scatter_add_(1, idx.long(), dv_v)
-        return dx.to(x.dtype), None
+        return dx.to(x.dtype), None, None
 
 
-def softmax_topk(x: torch.Tensor, k: int) -> SoftmaxTopK:
+def softmax_topk(x: torch.Tensor, k: int,
+                 counter: str = "softmax_topk") -> SoftmaxTopK:
     """Fused softmax+top-k (Algorithm 4), differentiable in x through
-    ``values`` and ``logsumexp``."""
+    ``values`` and ``logsumexp``; its launch counted under ``counter``."""
     lead = x.shape[:-1]
     v = x.shape[-1]
-    vals, idx, lse = _SoftmaxTopK2d.apply(x.reshape(-1, v), k)
+    vals, idx, lse = _SoftmaxTopK2d.apply(x.reshape(-1, v), k, counter)
     kk = vals.shape[-1]
     return SoftmaxTopK(vals.reshape(*lead, kk), idx.reshape(*lead, kk),
                        lse.reshape(lead))

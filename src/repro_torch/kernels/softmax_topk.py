@@ -36,8 +36,10 @@ LONG_LOADS = 4        # vectors a thread loads at a time in long slices
 MAX_SLICES = 64
 TICKET_STRIDE = 32    # ints between two rows' tickets (csrc kTicketStride)
 
-#: Kernel launches since the last reset (the serving path's proof of route).
-launches = {"softmax_topk": 0}
+#: Kernel launches since the last reset (the serving path's proof of route):
+#: the MoE router's under a key of its own, every other caller's under
+#: ``softmax_topk``.
+launches = {"softmax_topk": 0, "softmax_topk_router": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -143,15 +145,18 @@ def prepare(x: torch.Tensor, k: int):
                              lse.reshape(lead))
 
 
-def launch(args) -> None:
-    """Launch the kernel on prepared arguments (counts one launch)."""
+def launch(args, counter: str = "softmax_topk") -> None:
+    """Launch the kernel on prepared arguments (counts one launch under
+    ``counter``, a key of :data:`launches`)."""
     build.call("softmax_topk", _ARGTYPES, args)
-    launches["softmax_topk"] += 1
-    obs_kernels.record_path("softmax_topk", "cuda")
+    launches[counter] += 1
+    obs_kernels.record_path(counter, "cuda")
 
 
-def softmax_topk(x: torch.Tensor, k: int) -> SoftmaxTopK:
-    """Launch the fused kernel on a CUDA tensor x [..., V]."""
+def softmax_topk(x: torch.Tensor, k: int,
+                 counter: str = "softmax_topk") -> SoftmaxTopK:
+    """Launch the fused kernel on a CUDA tensor x [..., V], counted under
+    ``counter``."""
     args, out = prepare(x, k)
-    launch(args)
+    launch(args, counter)
     return out

@@ -27,25 +27,35 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     """Reference tree ``{"embedding": {"embed"[, "head"]}, "final_norm":
-    {"scale"}, "segments": [{"ln1", "attn", "ln2", "mlp"} stacked]}`` →
-    the port's ``{"embed", "final_norm", "layers": [...]}`` on ``device``
-    (the card unless the caller asks for the CPU)."""
+    {"scale"}, "segments": [{"ln1", "attn", "ln2", "mlp" | "moe"}
+    stacked]}`` → the port's ``{"embed", "final_norm", "layers": [...]}``
+    on ``device`` (the card unless the caller asks for the CPU).  An MoE
+    layer's ``"moe"`` dict carries the router, the stacked experts and the
+    shared expert's ``"shared"`` MLP dict as they are."""
     segments = tree["segments"]
-    if len(segments) != 1 or set(segments[0]) != {"ln1", "attn", "ln2",
-                                                  "mlp"}:
-        raise NotImplementedError("params_from_numpy converts dense stacks "
-                                  "(one segment of dense blocks) only")
+    keys = set(segments[0]) if len(segments) == 1 else set()
+    if keys not in ({"ln1", "attn", "ln2", "mlp"},
+                    {"ln1", "attn", "ln2", "moe"}):
+        raise NotImplementedError("params_from_numpy converts dense and MoE "
+                                  "stacks (one segment of dense or moe "
+                                  "blocks) only")
     seg = segments[0]
     n = np.asarray(seg["ln1"]["scale"]).shape[0]
 
+    def leaves(tree_i, i: int) -> dict:
+        return {k: (leaves(w, i) if isinstance(w, dict)
+                    else _tensor(w[i], device)) for k, w in tree_i.items()}
+
     def layer(i: int) -> dict:
-        return {
+        out = {
             "ln1": _tensor(seg["ln1"]["scale"][i], device),
             "attn": {k: _tensor(seg["attn"][k][i], device)
                      for k in ("wq", "wk", "wv", "wo")},
             "ln2": _tensor(seg["ln2"]["scale"][i], device),
-            "mlp": {k: _tensor(w[i], device) for k, w in seg["mlp"].items()},
         }
+        ffn = "moe" if "moe" in seg else "mlp"
+        out[ffn] = leaves(seg[ffn], i)
+        return out
 
     params = {"embed": _tensor(tree["embedding"]["embed"], device)}
     if "head" in tree["embedding"]:

@@ -1,17 +1,19 @@
-"""Dense model layers of the port: norms, rotary embedding, GQA attention over
-a paged KV pool or a contiguous KV cache, the SwiGLU MLP, embedding and LM
-head.
+"""Model layers of the port: norms, rotary embedding, GQA attention over
+a paged KV pool or a contiguous KV cache, the SwiGLU MLP, the mixture of
+experts, embedding and LM head.
 
-Port of the dense parts of ``src/repro/models/layers.py``: ``rms_norm`` (line
+Port of ``src/repro/models/layers.py`` but MLA: ``rms_norm`` (line
 90), ``rope`` (109), ``cache_write`` (146), ``paged_cache_write`` (163),
 ``_quantize_kv`` (203), the paged and the contiguous branches of
 ``attention_apply``, fp and int8 (277-353), ``mlp_apply`` (459),
-``embed_tokens`` (555) and ``head_matrix`` (559).  Parameters are plain
-dicts of tensors.  The MLA and MoE branches come with later slices.
+``moe_apply`` (486), ``embed_tokens`` (555) and ``head_matrix`` (559).
+Parameters are plain dicts of tensors.  The MLA branch comes with a later
+slice.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import math
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -182,6 +184,106 @@ def mlp_apply(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     else:
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
     return h @ p["w_down"]
+
+
+class MoERoute(NamedTuple):
+    """Where ``moe_route`` sends a group's tokens: S tokens, K experts a
+    token, capacity C a group and expert."""
+    logits: Tensor   # [G, S, E] float32 router logits
+    probs: Tensor    # [G, S, K] the top-k probabilities renormalized over K
+    idx: Tensor      # [G, S, K] the chosen experts, best first
+    lse: Tensor      # [G, S] float32 log-sum-exp of the logits
+    em: Tensor       # [G, S, K, E_pad] float32 one-hot of idx
+    pos: Tensor      # [G, S·K, E_pad] float32 place in the expert's bucket
+                     # (-1 where the assignment is not to that expert)
+    cap: int         # C
+
+    @property
+    def keep(self) -> Tensor:
+        """[G, S, K] bool: the assignment has a place < C (kept)."""
+        return (self.pos.amax(-1) < self.cap).reshape(self.idx.shape)
+
+
+def moe_route(p: dict, xg: Tensor, cfg: ModelConfig) -> MoERoute:
+    """Route groups of tokens xg [G, S, D]: the fp32 router product, the
+    paper's Algorithm 4 over the experts (``dispatch.softmax_topk``, the
+    fused kernel on the card, its launches counted as
+    ``softmax_topk_router``), the top-k probabilities renormalized, then
+    each assignment's place in its expert's bucket from a running count per
+    expert in flattened (s, k) order.  Capacity is ``ceil(S·K·
+    capacity_factor / E)``, at least 4; an assignment at or past it is
+    dropped.  So which assignments drop depends on the token order within
+    a group and on the order of a token's K indices (best first, ties to
+    the lower index, as the kernel's plain version orders them)."""
+    mc = cfg.moe
+    g, s, _ = xg.shape
+    e_pad = mc.pad_experts_to or mc.num_experts
+    k = mc.experts_per_token
+    logits = xg.float() @ p["router"]                          # [G, S, E]
+    probs, idx, lse = dispatch.softmax_topk(
+        logits, k, counter="softmax_topk_router")              # [G, S, K]
+    probs = probs / probs.sum(-1, keepdim=True).clamp(min=1e-9)
+    cap = max(math.ceil(s * k * mc.capacity_factor / mc.num_experts), 4)
+    em = (idx.long()[..., None] == torch.arange(
+        e_pad, device=xg.device)).float()                      # [G,S,K,E]
+    flat = em.reshape(g, s * k, e_pad)
+    pos = torch.cumsum(flat, dim=1) * flat - 1.0               # [G, S·K, E]
+    return MoERoute(logits, probs, idx, lse, em, pos, cap)
+
+
+def moe_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
+              aux: bool = True) -> tuple[Tensor, dict]:
+    """Mixture of experts on x [B, T, D] → (y [B, T, D], aux losses).
+
+    The reference's capacity-bucketed one-hot form (``moe_apply`` at
+    ``src/repro/models/layers.py:486``), kept as it is: the B·T tokens go
+    in groups of S = min(group_size, T) (so a decode step's B tokens are B
+    groups of one, and a prefill chunk of c tokens one group of c up to
+    ``group_size``), ``moe_route`` gives each assignment its place, a
+    one-hot dispatch [G, S, E_pad, C] gathers the kept tokens into
+    per-expert buckets [E_pad, G·C, D] (the pads exist and are never
+    picked), each expert runs SwiGLU over its bucket as batched matrix
+    products (so every expert's weights are read, picked or not), and the
+    combine weights (probability × one-hot) sum the K expert outputs back
+    per token; then the shared expert's MLP is added.  A dropped
+    assignment contributes nothing.
+
+    ``aux``: the load-balance loss E·mean_g Σ_e (fraction routed to e) ×
+    (mean router probability of e), and the z-loss ``router_z_loss`` ×
+    mean(lse²) from the kernel's lse.  Serving passes ``aux=False`` and
+    gets ``{}``: only the training loss reads them (the reference's jitted
+    serving step drops them as dead code)."""
+    mc = cfg.moe
+    b, t, d = x.shape
+    e_pad = mc.pad_experts_to or mc.num_experts
+    k = mc.experts_per_token
+    s = min(mc.group_size, t)
+    g = (b * t) // s
+    xg = x.reshape(g, s, d)
+    r = moe_route(p, xg, cfg)
+    # one-hot of each kept assignment's place; -1 and places past C match
+    # nothing, so unrouted and dropped assignments give zero rows
+    disp = (r.pos[..., None] == torch.arange(
+        r.cap, device=x.device, dtype=r.pos.dtype)).float()    # [G,SK,E,C]
+    disp = disp.reshape(g, s, k, e_pad, r.cap)
+    combine = torch.einsum("gske,gskec->gsec", r.em * r.probs[..., None],
+                           disp)
+    xe = torch.einsum("gsec,gsd->egcd", disp.sum(2).to(x.dtype), xg)
+    xe = xe.reshape(e_pad, g * r.cap, d)
+    h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"]).reshape(e_pad, g, r.cap, d)
+    y = torch.einsum("egcd,gsec->gsd", ye, combine.to(x.dtype))
+    y = y.reshape(b, t, d)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x, cfg)
+    if not aux:
+        return y, {}
+    me = r.em.sum(2).mean(1)                                   # [G, E_pad]
+    pe = F.pad(torch.softmax(r.logits, dim=-1).mean(1),
+               (0, e_pad - mc.num_experts))
+    lb_loss = mc.num_experts * (me * pe).sum(-1).mean()
+    z_loss = mc.router_z_loss * r.lse.square().mean()
+    return y, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
 
 
 def embed_tokens(p: dict, tokens: Tensor) -> Tensor:

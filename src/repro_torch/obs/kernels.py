@@ -19,6 +19,7 @@ module load.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Sequence
 
 from repro_torch.obs import metrics as _metrics
@@ -42,7 +43,10 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch")
 #: The kernel ``torch.cuda._sleep`` launches (as :func:`kernel_name` gives
 #: it): each profiler session's first launch, left out of what it recorded.
 WARMUP_KERNEL = "at::cuda::spin_kernel"
-SESSION_TRIES = 3
+#: Sessions :func:`profile_session` opens before it gives up on dropped
+#: ones: a process that opens a few hundred (``chip_smoke.py``'s kernel
+#: checks) has seen the card's profiler drop three in a row.
+SESSION_TRIES = 6
 
 
 def enable_profiling() -> None:
@@ -96,25 +100,48 @@ def decode_step_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
     ``flops``: 2 × the parameters of every layer matmul (q, k, v, o and
     the MLP's two or three) × ``batch``, plus the attention's 4·Hq·D per
     live key and layer (QKᵀ and PV), plus the LM head's 2·d·V × ``batch``.
-    ``bytes_accessed``: those weights read once in ``cfg.dtype``, the live
-    K/V read once (int8 plus its bf16 scale per position and KV head when
-    the cache is quantized), and the fp32 logits [batch, V] written once.
-    Norms, RoPE, the embedding gather and the sampler's k entries are left
-    out.
+    An MoE layer (``cfg.moe``) counts, in place of the MLP, what the port's
+    one-hot form computes (``layers.moe_apply``): each row is a group of
+    one token, so each of the E_pad experts gets a bucket of C = max(
+    ceil(K·capacity_factor/E), 4) places a row; the fp32 router 2·d·E,
+    the dispatch and combine products 2·E_pad·C·d each, the experts' three
+    products 2·E_pad·C·d·F each (every bucket place, used or not), all ×
+    ``batch``, and the shared expert as an MLP of ``d_ff_shared``.
+    ``bytes_accessed``: those weights read once in ``cfg.dtype`` (an MoE
+    layer: the router in fp32 and every padded expert, picked or not, as
+    the batched products read them), the live K/V read once (int8 plus its
+    bf16 scale per position and KV head when the cache is quantized), and
+    the fp32 logits [batch, V] written once.  Norms, RoPE, the embedding
+    gather, the router's top-k and one-hot bookkeeping and the sampler's k
+    entries are left out.
     """
     d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.head_dim or d // hq
     layers, vocab = cfg.num_layers, cfg.vocab_size
-    mlp = (3 if cfg.act == "silu" else 2) * d * cfg.d_ff
-    per_layer = d * hq * dh + 2 * d * hkv * dh + hq * dh * d + mlp
-    live = sum(int(n) for n in live_lens)
-    flops = (2 * per_layer * layers * batch + 4 * hq * dh * live * layers
-             + 2 * d * vocab * batch)
     w = _ITEMSIZE[cfg.dtype]
+    mats = 3 if cfg.act == "silu" else 2
+    attn = d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+    mc = cfg.moe
+    if mc is None:
+        ffn_flops = 2 * mats * d * cfg.d_ff * batch
+        ffn_bytes = mats * d * cfg.d_ff * w
+    else:
+        e, e_pad = mc.num_experts, mc.pad_experts_to or mc.num_experts
+        cap = max(math.ceil(mc.experts_per_token * mc.capacity_factor / e),
+                  4)
+        places = e_pad * cap * batch
+        ffn_flops = (2 * d * e * batch + 2 * 2 * places * d
+                     + 3 * 2 * places * d * mc.d_ff_expert
+                     + 2 * mats * d * mc.d_ff_shared * batch)
+        ffn_bytes = (d * e * 4 + 3 * e_pad * d * mc.d_ff_expert * w
+                     + mats * d * mc.d_ff_shared * w)
+    live = sum(int(n) for n in live_lens)
+    flops = ((2 * attn * batch + ffn_flops) * layers
+             + 4 * hq * dh * live * layers + 2 * d * vocab * batch)
     kv_entries = live * layers * 2 * hkv
     kv_bytes = (kv_entries * dh + 2 * kv_entries
                 if cfg.kv_cache_dtype == "int8" else kv_entries * dh * w)
-    nbytes = ((per_layer * layers + d * vocab) * w + kv_bytes
+    nbytes = ((attn * w + ffn_bytes) * layers + d * vocab * w + kv_bytes
               + batch * vocab * 4)
     return {"flops": float(flops), "bytes_accessed": float(nbytes),
             "dtype": cfg.dtype}

@@ -1,6 +1,7 @@
 """Cache families: what the serving stack assumes about a config's KV layout.
 
-Port of ``src/repro/serving/cache_family.py`` for the dense decoder's two
+Port of ``src/repro/serving/cache_family.py`` for the attention-K/V
+decoders (dense and MoE blocks, whose caches are the same) and their two
 families: ``DenseFamily`` (line 183), fp attention K/V as contiguous
 per-sequence caches (the slot pool and the lockstep batch) or paged as blocks
 of ``block_size`` token positions, prefix-shareable with copy-on-write; and
@@ -62,7 +63,7 @@ class CacheFamily:
 
 
 class DenseFamily(CacheFamily):
-    """Standard fp attention K/V of dense decoder blocks."""
+    """Standard fp attention K/V of dense (and MoE) decoder blocks."""
 
     name = "dense"
 
@@ -134,9 +135,11 @@ class DenseInt8Family(DenseFamily):
 def resolve(cfg: ModelConfig) -> CacheFamily:
     """The cache family serving this config: int8 K/V for
     ``kv_cache_dtype == "int8"``, else fp K/V (any other value keeps the
-    model dtype, as in the reference)."""
+    model dtype, as in the reference).  Dense and MoE blocks hold the same
+    attention K/V, so both kinds, alone or mixed, take these families, as
+    in the reference (``cache_family.py:79,199``)."""
     kinds = {k for k, _ in transformer.block_pattern(cfg)}
-    if kinds != {"dense"}:
+    if not kinds <= {"dense", "moe"}:
         raise NotImplementedError(
             f"cache family for {cfg.name!r} (blocks {sorted(kinds)}) is not "
             "ported yet")

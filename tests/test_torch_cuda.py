@@ -31,6 +31,8 @@ NO_INT8 = dict.fromkeys(("flash_decode_paged_int8", "flash_decode_int8",
 # the online-softmax library's counters, zero on every serving path
 NO_LIBRARY = dict.fromkeys(("online_softmax", "online_softmax_bf16",
                             "online_softmax_exp2", "online_normalizer"), 0)
+# the MoE router's launches of softmax_topk, zero for a dense model
+NO_ROUTER = {"softmax_topk_router": 0}
 
 
 @pytest.fixture
@@ -97,7 +99,7 @@ def test_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
-                                        **NO_INT8, **NO_LIBRARY}
+                                        **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
 
 
 def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
@@ -165,7 +167,7 @@ def test_contiguous_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
-                                        **NO_INT8, **NO_LIBRARY}
+                                        **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -201,7 +203,7 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": 0,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY}
+        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
@@ -305,14 +307,14 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": (sched.prefill_chunks - ones) * n,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY}
+        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
     assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
                            "flash_decode": 5 * n, "flash_attention_paged": 0,
                            "flash_attention_offset": n,
                            "flash_attention": 0,
                            "flash_attention_bwd_dq": 0,
                            "flash_attention_bwd_dkv": 0, **NO_INT8,
-                           **NO_LIBRARY}
+                           **NO_LIBRARY, **NO_ROUTER}
 
 
 def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
@@ -1186,3 +1188,67 @@ def test_softmax_topk_at_head_dim_128_vocabularies(cuda, v):
     torch.testing.assert_close(got.values, want.values, rtol=1e-5, atol=0)
     torch.testing.assert_close(got.logsumexp, want.logsumexp, rtol=1e-5,
                                atol=0)
+
+
+# ---- the MoE decoders: the router's shapes, query groups 1 and 5 ----------
+# qwen2-moe-a2.7b (16/16 heads, G 1) and llama4-scout-17b-a16e (40/8, G 5)
+MOE_GROUPS = [(1, 16), (5, 8)]            # (G, Hkv)
+
+
+@pytest.mark.parametrize("g,hkv", MOE_GROUPS)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_moe_groups_match_plain(cuda, g, hkv, dtype, atol):
+    """The D-128 decode and prefill checks above at the MoE decoders'
+    query groups."""
+    test_head_dim_128_decode_matches_plain(cuda, g, hkv, dtype, atol)
+    test_head_dim_128_prefill_matches_plain(cuda, g, hkv, dtype, atol)
+
+
+@pytest.mark.parametrize("r,e,k", [(8, 60, 4), (64, 60, 4), (256, 16, 1),
+                                   (64, 6, 2), (64, 61, 4)])
+def test_softmax_topk_as_the_moe_router(cuda, r, e, k):
+    """The fused softmax+top-k through ``dispatch.softmax_topk`` on [G, S,
+    E] router logits (E 6 and 61: rows off a 16-byte boundary): indices
+    equal to the plain version's in order, a tie in index order, values
+    and lse within rtol 1e-5."""
+    gen = torch.Generator().manual_seed(61)
+    x = torch.randn(r, e, generator=gen) * 2.0
+    x[0, [e // 3, e - 1]] = x[0].max() + 1.0
+    x = x.reshape(1, r, e).to(cuda)
+    got, want = dispatch.softmax_topk(x, k), st.softmax_topk_plain(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.indices.long(), want.indices)
+    assert got.indices[0, 0, :2].tolist() == [e // 3, e - 1][:k]
+    torch.testing.assert_close(got.values, want.values, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got.logsumexp, want.logsumexp, rtol=1e-5,
+                               atol=0)
+
+
+def test_moe_streams_equal_on_card_and_cpu(cuda):
+    """A small MoE model (qwen2-moe's smoke experts, 16/16 heads of 128)
+    served paged on the card and on the CPU: identical streams and pool
+    accounting, the sampler's launches, and the router's (counted apart)
+    one a layer for every forward."""
+    cfg = configs.get_smoke("qwen2_moe_a2p7b").replace(
+        d_model=256, num_heads=16, num_kv_heads=16, head_dim=128)
+    params_cpu = transformer.init(cfg, seed=4, device="cpu")
+    argv = ["--arch", "qwen2_moe_a2p7b", "--smoke", "--continuous",
+            "--paged", "--requests", "5", "--tokens", "8", "--prompt-len",
+            "20", "--slots", "2", "--prefill-chunk", "8", "--block-size",
+            "8", "--shared-prefix", "8"]
+    runs = {}
+    for device, params in (("cuda", transformer.params_to(params_cpu, cuda)),
+                           ("cpu", params_cpu)):
+        args = serve.parse_args(argv + ["--device", device])
+        dispatch.reset_launch_counts()
+        report, router, _, _ = serve.run(args, cfg, params)
+        runs[device] = (report, router.engines[0].scheduler,
+                        dispatch.launch_counts())
+    (rep_g, sched, counts), (rep_c, _, _) = runs["cuda"], runs["cpu"]
+    assert {r.rid: r.tokens for r in rep_g.results} == \
+        {r.rid: r.tokens for r in rep_c.results}
+    assert rep_g.paged == rep_c.paged
+    assert counts["softmax_topk"] == sched.decode_steps + sched.prefills_done
+    assert counts["softmax_topk_router"] == cfg.num_layers * (
+        sched.decode_steps + sched.prefill_chunks)

@@ -108,8 +108,8 @@ def test_configs_match_reference(arch, which):
 
 
 def test_unported_arch_still_raises():
-    with pytest.raises(NotImplementedError, match="qwen2_moe_a2p7b"):
-        configs.get("qwen2_moe_a2p7b")
+    with pytest.raises(NotImplementedError, match="minicpm3_4b"):
+        configs.get("minicpm3_4b")
 
 
 def test_untied_head_through_init_convert_and_logits(model):

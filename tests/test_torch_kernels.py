@@ -168,6 +168,7 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
     got = dispatch.softmax_topk(x, 4)
     assert torch.equal(got.indices, st.softmax_topk_plain(x, 4).indices)
     assert dispatch.launch_counts() == {"softmax_topk": 0,
+                                        "softmax_topk_router": 0,
                                         "flash_decode_paged": 0,
                                         "flash_decode": 0,
                                         "flash_attention_paged": 0,

@@ -489,16 +489,17 @@ def test_profile_step_records_cost_and_queues_only_on_the_card(
     ([[LAUNCH], [HOST_OP, KERNEL]], False, 2, 1, None),
     ([[SPIN, LAUNCH], [SPIN, KERNEL]], False, 2, 1, None),
     ([[SPIN, WARMUP_LAUNCH, HOST_OP]], False, 1, 0, "launched none"),
-    ([[], [], []], True, 3, 3, "in 3 sessions"),
+    ([[]] * 3 + [[SPIN, KERNEL]], True, 4, 3, None),
+    ([[]] * 6, True, 6, 6, "in 6 sessions"),
 ], ids=["dropped-then-recorded", "warm-up-only-then-recorded",
-        "nothing-launched", "dropped-thrice"])
+        "nothing-launched", "dropped-thrice", "dropped-every-try"])
 def test_profile_session_reruns_dropped_sessions_only(
         profiling, fake_profiler, sessions, counted, runs, dropped, error):
     """A session that launched (a CUDA launch call among its host events
     besides the warm-up's, or, with ``counted``, a launch the port's
     kernel modules counted) but recorded no device event besides its
-    warm-up kernel was dropped and runs again, at most 3 times; one that
-    launched nothing raises at once."""
+    warm-up kernel was dropped and runs again, at most 6 times
+    (``SESSION_TRIES``); one that launched nothing raises at once."""
     fake_profiler.extend(sessions)
     calls = []
 

@@ -35,7 +35,9 @@ def test_port_sources_exist():
     names = {os.path.relpath(p, REPO) for p in _port_files()}
     for rel in ["chip_smoke.py", "src/repro_torch/kernels/dispatch.py",
                 "src/repro_torch/serving/scheduler.py",
-                "src/repro_torch/launch/serve.py"] + [
+                "src/repro_torch/launch/serve.py",
+                "src/repro_torch/configs/qwen2_moe_a2p7b.py",
+                "src/repro_torch/configs/llama4_scout_17b_a16e.py"] + [
                     f"src/repro_torch/obs/{m}.py" for m in OBS_MODULES]:
         assert rel in names, rel
 
@@ -65,6 +67,25 @@ def test_serve_entry_point_imports_without_jax():
         + "".join(f"import repro_torch.obs.{m}; " for m in OBS_MODULES)
         + "print('ok')")
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_moe_modules_import_without_jax():
+    """The MoE configs and layers, with JAX and the JAX package
+    unimportable: both archs resolve and a smoke MoE layer runs."""
+    out = _run_blocked(
+        "import torch; from repro_torch import configs; "
+        "from repro_torch.models import layers, transformer; "
+        "from repro_torch.serving import cache_family; "
+        "cfgs = [configs.get_smoke(a) for a in "
+        "('qwen2_moe_a2p7b', 'llama4_scout_17b_a16e')]; "
+        "p = transformer.init(cfgs[0], device='cpu'); "
+        "y, aux = layers.moe_apply(p['layers'][0]['moe'], "
+        "torch.randn(1, 5, cfgs[0].d_model), cfgs[0]); "
+        "cache_family.resolve(cfgs[1]); "
+        "print('ok', tuple(y.shape), sorted(aux))")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == \
+        "ok (1, 5, 64) ['moe_lb_loss', 'moe_z_loss']"
 
 
 @pytest.mark.parametrize("cli", ["report", "merge"])
