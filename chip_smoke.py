@@ -61,7 +61,11 @@ printing its final line:
    ``layers.moe_route`` keeping and dropping the same assignments on the
    card as on the CPU, the sampler at [8, 151936] and [8, 202048], and every
    check of the D-128 instances again at qwen2-moe-a2.7b's 16/16 heads (G
-   1) and llama4-scout-17b-a16e's 40/8 (G 5);
+   1) and llama4-scout-17b-a16e's 40/8 (G 5); the training kernels' D-128
+   instances (the fresh forward, its dq and dk/dv backward, two 128-byte
+   atom columns a row on the tensor cores) run the fresh checks above at
+   each of those four models' heads, the profiler naming the D-128
+   instance of each dtype's form;
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -124,17 +128,33 @@ printing its final line:
    launches per layer and step (the forward, then its recomputation in the
    backward) and one dq and one dk/dv launch; then a restart at 2 layers
    (6 steps checkpointed every 3, then a run to 8 that resumes at 6) whose
-   parameters equal an uninterrupted 8-step run bit for bit;
-7. train parity: one fp32 loss-and-gradient evaluation of the full-width
-   model cut to 2 layers (batch 2 × 128) on the card through the kernels
-   and on the CPU through the plain versions, from the same weights;
+   parameters equal an uninterrupted 8-step run bit for bit; then the
+   head_dim-128 models through the same ``train`` (``TRAIN_128``):
+   mistral-nemo-12b at full width and 4 of its 40 layers, qwen2-moe-a2.7b at
+   full width and 2 of its 24, weights drawn on the card,
+   ``TRAIN_128_STEPS`` steps each with a checkpoint at the end, between a
+   reset and a read of the launch counts (2 forward, 1 dq and 1 dk/dv
+   launch per layer and step, and for qwen2-moe 2 router launches): every
+   loss and grad norm finite, the loss falling, peak device memory, a
+   "step" line with the kernels that take the device's time; then
+   ``REMAT_STEPS`` steps of each under remat "block" and "full" from the
+   same seed, their peak memory and step times side by side and their
+   parameters bit-identical;
+7. train parity: one fp32 loss-and-gradient evaluation of each full-width
+   model cut to 2 layers (batch ``TRAIN_PARITY``, one sequence of it for
+   the head_dim-128 models) on the card through the kernels and on the CPU
+   through the plain versions, from the same weights: smollm-360m's drawn
+   on the CPU, mistral-nemo-12b's and qwen2-moe-a2.7b's on the card;
+   qwen2-moe's router keeping the same assignments on both devices in
+   every layer;
 8. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
    the serving and training paths' shapes (the serving kernels' D-128
    instances at mistral-nemo-12b's, the sampler at V 131072 and 32256; the
    router at [8, 60], [64, 60], [8, 16] and [256, 16], the sampler at V
-   151936 and 202048, and the D-128 instances at G 1 and G 5),
-   beside its bound, its plain
+   151936 and 202048, and the D-128 instances at G 1 and G 5; the training
+   kernels' D-128 instances at mistral-nemo-12b's and qwen2-moe-a2.7b's
+   training shapes), beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
    and an int8 single-shot prefill beside SDPA, with each call's device
@@ -328,6 +348,26 @@ TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "20", "--seq-len", "512",
 RESTART_ARGS = ["--arch", "smollm_360m", "--layers", "2", "--seq-len", "512",
                 "--global-batch", "8"]
 TRAIN_PARITY = dict(layers=2, batch=2, seq_len=128)
+# phase 6's head_dim-128 training runs: (label, the run's key in the launch
+# counts, the CLI's flags): mistral-nemo-12b at full width and 4 of its 40
+# layers (2.43e9 parameters, ~29 GB of bf16 weights and gradients and fp32
+# moments), qwen2-moe-a2.7b at full width and 2 of its 24 (1.83e9, ~22 GB);
+# each TRAIN_128_STEPS steps of 8 x 512 tokens under remat "full", then
+# REMAT_STEPS steps under remat "block" and "full" from the same seed
+TRAIN_128 = (("mistral-nemo-12b", "mistral train",
+              ["--arch", "mistral_nemo_12b", "--layers", "4"]),
+             ("qwen2-moe-a2.7b", "qwen2 train",
+              ["--arch", "qwen2_moe_a2p7b", "--layers", "2"]))
+# (cut from 10 and 3 steps for the script's time, as the parity batch
+# below; most of these phases' time is outside the steps: the draws, the
+# end-of-run checkpoints, the fp32 copies to the CPU)
+TRAIN_128_STEPS = 6
+REMAT_STEPS = 2
+TRAIN_128_ARGS = ["--seq-len", "512", "--global-batch", "8"]
+# phase 7's fp32 parity of the head_dim-128 models: (arch, ...) and their
+# batch, TRAIN_PARITY's cut to one sequence
+TRAIN_PARITY_128 = ("mistral_nemo_12b", "qwen2_moe_a2p7b")
+TRAIN_PARITY_BATCH_128 = dict(layers=2, batch=1, seq_len=128)
 KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "flash_attention_paged": "paged", "flash_decode": "slot pool",
                "flash_attention_offset": "slot pool",
@@ -1082,43 +1122,70 @@ def _profiled(fn, cpu: bool = False):
     return obs_kernels.profile_session(fn, cpu=cpu)
 
 
-def _check_fresh(gen) -> dict:
-    """The training kernels at T = 512 (the training run's), 37 (not a
-    multiple of the 16- or 64-row tile) and 1, causal and not, B = 2, 15/5
-    heads, D = 64; then ``FlashAttention``'s dq, dk, dv against autograd
-    through the plain forward.  The first case of each dtype runs under
-    torch.profiler, which must see that dtype's form (``FRESH_FORMS``) and
-    no other port kernel.  Errors are max abs over max(1, the largest
-    reference entry); fp32 within 1e-5, bf16 within 2e-2.  Returns the bf16
-    errors: the training path runs bf16."""
+def _template_args(prof, symbols) -> dict:
+    """{symbol: the set of template argument lists (spaces dropped) its
+    device events carry in ``prof``} for the given port kernel symbols, so
+    a check can name the instance (head dim, dtype) that ran."""
+    import re
+    out = {}
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        for sym in symbols:
+            found = re.search(re.escape(sym) + r"<([^>]*)>", evt.key)
+            if found:
+                out.setdefault(sym, set()).add(
+                    found.group(1).replace(" ", ""))
+    return out
+
+
+def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
+    """The training kernels at T = 512 (the training runs'), 37 (not a
+    multiple of the 16- or 64-row tile) and 1, causal and not, B = 2,
+    ``hkv`` KV heads of ``g`` query heads, head dim ``d``; then
+    ``FlashAttention``'s dq, dk, dv against autograd through the plain
+    forward.  The first case of each dtype runs under torch.profiler, which
+    must see that dtype's form (``FRESH_FORMS``) at head dim ``d`` (each
+    symbol's template arguments) and no other port kernel.  Errors are max
+    abs over max(1, the largest reference entry); fp32 within 1e-5, bf16
+    within 2e-2.  Returns the bf16 errors: the training path runs bf16."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     worst = dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"), 0.0)
+    heads = f"Hq={hkv * g} Hkv={hkv} D={d}"
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         errs = dict.fromkeys(worst, 0.0)
         form, symbols = FRESH_FORMS[str(dtype)[6:]]
         seen = None
         for t in (512, 37, 1):
             for causal in (True, False):
-                inputs = _fresh_inputs(gen, dtype=dtype, b=2, t=t)
+                inputs = _fresh_inputs(gen, dtype=dtype, b=2, t=t, hkv=hkv,
+                                       g=g, d=d)
                 if seen is None:
                     case, prof = _profiled(
                         lambda: _fresh_errs(*inputs, causal), cpu=True)
                     seen = _kernels_seen(prof)
-                    if seen != sorted(symbols):
-                        _fail(f"fresh attention {str(dtype)[6:]}: the "
-                              f"profiler saw {seen}, the {form} form is "
-                              f"{sorted(symbols)}")
+                    targs = _template_args(prof, symbols)
+                    if seen != sorted(symbols) or any(
+                            len(a) != 1 or str(d) not in next(iter(
+                                a)).split(",") for a in targs.values()):
+                        _fail(f"fresh attention {str(dtype)[6:]} {heads}: "
+                              f"the profiler saw {seen} with template "
+                              f"arguments {targs}, the {form} form is "
+                              f"{sorted(symbols)} at D {d}")
+                    seen = [f"{sym}<{next(iter(targs[sym]))}>"
+                            for sym in sorted(symbols)]
                 else:
                     case = _fresh_errs(*inputs, causal)
                 for name, err in case.items():
                     if err > atol:
-                        _fail(f"{name} {str(dtype)[6:]} T={t} causal="
-                              f"{causal}: scaled max abs err {err:.3g} > "
-                              f"{atol}")
+                        _fail(f"{name} {str(dtype)[6:]} {heads} T={t} "
+                              f"causal={causal}: scaled max abs err "
+                              f"{err:.3g} > {atol}")
                     errs[name] = max(errs[name], err)
-        q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=2, t=37)
+        q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=2, t=37, hkv=hkv,
+                                      g=g, d=d)
         k, v = torch.nan_to_num(k), torch.nan_to_num(v)
         grads = []
         for fn in (lambda a, b_, c: fa.FlashAttention.apply(a, b_, c, True),
@@ -1131,11 +1198,12 @@ def _check_fresh(gen) -> dict:
         torch.cuda.synchronize()
         auto = max(_scaled_err(a, b_) for a, b_ in zip(*grads))
         if auto > atol:
-            _fail(f"FlashAttention {str(dtype)[6:]}: gradients differ from "
-                  f"autograd through the plain forward by {auto:.3g}")
+            _fail(f"FlashAttention {str(dtype)[6:]} {heads}: gradients "
+                  f"differ from autograd through the plain forward by "
+                  f"{auto:.3g}")
         print(f"kernel fresh attention {str(dtype)[6:]} on the {form} "
-              f"({', '.join(seen)} seen by the profiler) B=2 Hq=15 Hkv=5 D=64"
-              f" T=512/37/1 causal and not, K/V NaN past T: scaled max abs "
+              f"({', '.join(seen)} seen by the profiler) B=2 {heads} "
+              f"T=512/37/1 causal and not, K/V NaN past T: scaled max abs "
               f"err forward {errs['flash_attention']:.3g}, dq "
               f"{errs['flash_attention_bwd_dq']:.3g}, dk/dv "
               f"{errs['flash_attention_bwd_dkv']:.3g}; FlashAttention "
@@ -1492,14 +1560,15 @@ ROUTER_SHAPES = ((8, 60, 4), (64, 60, 4), (8, 16, 1), (256, 16, 1),
 
 
 def _check_instances(gen, model: str, hkv: int, g: int, d: int) -> dict:
-    """Every check of the serving kernels' D 64 instances again at
+    """Every check of the attention kernels' D 64 instances again at
     ``model``'s ``hkv`` KV heads of ``g`` query heads and head dim ``d``:
     the paged and contiguous cached prefills (fp32 on the CUDA cores, bf16
-    on the tensor cores), the int8 forms, the split decode's edges in its
+    on the tensor cores), the int8 forms, the fresh forward and its dq and
+    dk/dv backward (the training kernels), the split decode's edges in its
     four forms.  Returns {kernel: max abs error}."""
     found = {"flash_attention_paged": _check_prefill(gen, hkv, g, d),
              "flash_attention_offset": _check_offset(gen, hkv, g, d),
-             **_check_int8(gen, hkv, g, d)}
+             **_check_int8(gen, hkv, g, d), **_check_fresh(gen, hkv, g, d)}
     for name, err in _check_decode_splits(gen, hkv, g, d).items():
         found[name] = max(found.get(name, 0.0), err)
     print(f"kernel head_dim {d} at {model}'s {hkv * g}/{hkv} heads "
@@ -1835,7 +1904,17 @@ INSTANCES = {
     "flash_decode_int8_d128_g5": ("flash_decode_int8", "kernel check only"),
     "flash_attention_paged_int8_d128_g5": ("flash_attention_paged_int8",
                                            "kernel check only"),
+    # the training kernels' D-128 instances of mistral-nemo-12b's and
+    # qwen2-moe-a2.7b's training runs (phase 3 also checks them at
+    # deepseek-coder-33b's and llama4-scout's heads)
+    **{kernel + tag: (kernel, path)
+       for tag, path in (("_d128", "mistral train"), ("_d128_g1",
+                                                      "qwen2 train"))
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
 }
+# the training kernels' timed D-128 instances: tag → (Hkv, G)
+TRAIN_TIMED_128 = {"_d128": (8, 4), "_d128_g1": (16, 1)}
 
 
 def _weight_bytes(params) -> int:
@@ -2620,25 +2699,10 @@ def phase_train():
               f"{args.global_batch} x {args.seq_len} tokens, remat "
               f"{run.model.remat}, grads reduced in "
               f"{run.parallel.grad_reduce_dtype}")
-        losses = [h["loss"] for h in hist]
-        norms = [h["grad_norm"] for h in hist]
-        if steps != args.steps or not all(
-                map(math.isfinite, losses + norms)):
-            _fail(f"train: {steps} steps, losses {losses}, grad norms "
-                  f"{norms}")
-        want = dict.fromkeys(COUNTERS, 0)
-        want.update(flash_attention=2 * steps * n,
-                    flash_attention_bwd_dq=steps * n,
-                    flash_attention_bwd_dkv=steps * n)
+        print(_train_line(run.model.name, hist, args))
+        want = _train_counts(run.model, steps)
         if counts != want:
             _fail(f"train: launches {counts}, remat 'full' implies {want}")
-        dts = [h["dt"] for h in hist[1:]]
-        tok = args.global_batch * args.seq_len
-        print(f"train: first loss {losses[0]:.4f} → last loss "
-              f"{losses[-1]:.4f}; grad norm {norms[0]:.4f} → {norms[-1]:.4f};"
-              f" step 0 {hist[0]['dt'] * 1e3:.1f}ms, steps 1-{steps - 1} "
-              f"median {statistics.median(dts) * 1e3:.1f}ms = "
-              f"{tok / statistics.median(dts):.0f} tokens/s")
         print(f"train launches: {counts} = per step {2 * n} forward "
               f"(forward + recomputation), {n} dq, {n} dk/dv over {steps} "
               "steps")
@@ -2665,39 +2729,266 @@ def phase_train():
     return counts, {"params": params, "opt": opt, "run": run, "args": args}
 
 
-# ---------------------------------------------------------------------------
-# 7: fp32 training parity at full width: kernels on the card vs the CPU
-# ---------------------------------------------------------------------------
-def phase_train_parity() -> None:
-    """Loss and every gradient of one fp32 batch, full width cut to 2
-    layers, on the card (kernels) and on the CPU (plain versions), from the
-    same weights.  The loss within 1e-5 relative; each gradient leaf within
-    1e-4 of its largest entry (fp32 sums in other orders on the two
-    devices, through the 49152-wide head)."""
-    import numpy as np
+def _train_counts(cfg, steps: int) -> dict:
+    """The launch counts a bf16 training run of ``steps`` steps implies
+    under remat "full" or "block" (both recompute attention and the
+    router): per layer and step 2 fresh forwards (the forward, then its
+    recomputation in the backward), one dq and one dk/dv launch, and for an
+    MoE model 2 router launches; nothing else."""
+    n = cfg.num_layers
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_attention=2 * steps * n,
+                flash_attention_bwd_dq=steps * n,
+                flash_attention_bwd_dkv=steps * n)
+    if cfg.moe is not None:
+        want["softmax_topk_router"] = 2 * steps * n
+    return want
+
+
+def _train_line(name: str, hist, args) -> str:
+    """The losses, grad norms, step times and tokens/s of a training run's
+    history; fails unless every loss and grad norm is finite."""
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if len(hist) != args.steps or not all(map(math.isfinite,
+                                              losses + norms)):
+        _fail(f"train {name}: {len(hist)} steps, losses {losses}, grad "
+              f"norms {norms}")
+    dts = [h["dt"] for h in hist[1:]]
+    tok = args.global_batch * args.seq_len
+    return (f"train {name}: first loss {losses[0]:.4f} → last loss "
+            f"{losses[-1]:.4f}; grad norm {norms[0]:.4f} → {norms[-1]:.4f};"
+            f" step 0 {hist[0]['dt'] * 1e3:.1f}ms, steps 1-{len(hist) - 1} "
+            f"median {statistics.median(dts) * 1e3:.1f}ms = "
+            f"{tok / statistics.median(dts):.0f} tokens/s")
+
+
+def _remat_runs(run, args, name: str) -> None:
+    """``REMAT_STEPS`` train steps under remat "block", then under "full",
+    each from ``run.seed``'s weights drawn on the card and the CLI's batches
+    (``train_step.init_state``, ``make_train_step``): each one's peak
+    device memory and median step time (host call to device finish); the
+    parameters after the last step bit-identical (both compute the same
+    values: "block" keeps the products without batch dims that "full"
+    recomputes, and every kernel and product is deterministic)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.kernels import dispatch
+    from repro_torch.training.train_step import init_state, make_train_step
+    cfg = run.model
+    ds = SyntheticDataset(SyntheticConfig(
+        vocab_size=cfg.real_vocab_size or cfg.vocab_size,
+        seq_len=args.seq_len, global_batch=args.global_batch,
+        seed=run.seed))
+    kept, lines = {}, []
+    for remat in ("block", "full"):
+        r = dataclasses.replace(run, model=cfg.replace(remat=remat))
+        held = _reset_peak()
+        params, opt = init_state(r, device="cuda")
+        step = make_train_step(r)
+        dispatch.reset_launch_counts()
+        dts, losses = [], []
+        for i in range(REMAT_STEPS):
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in ds.batch(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            dts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        want = _train_counts(r.model, REMAT_STEPS)
+        if counts != want:
+            _fail(f"train {name} remat {remat}: launches {counts}, want "
+                  f"{want}")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        kept[remat] = [p.detach() for p in tree.leaves(params)]
+        lines.append(f"remat {remat}: peak {peak:.2f} GiB over the "
+                     f"{held / 2**30:.2f} held before it, median step "
+                     f"{statistics.median(dts) * 1e3:.1f}ms (steps "
+                     f"{', '.join(f'{x * 1e3:.1f}' for x in dts)}ms), losses "
+                     f"{', '.join(f'{x:.4f}' for x in losses)}")
+        del params, opt, step
+    same = [torch.equal(a, b) for a, b in zip(kept["block"], kept["full"])]
+    if not all(same):
+        worst = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(kept["block"], kept["full"]))
+        _fail(f"train {name}: after {REMAT_STEPS} steps {same.count(False)} "
+              f"of {len(same)} parameter leaves differ between remat "
+              f"'block' and 'full' (max abs {worst:.3g})")
+    del kept
+    torch.cuda.empty_cache()
+    print(f"train {name} remat: {REMAT_STEPS} steps each from seed "
+          f"{run.seed}; {'; '.join(lines)}; parameters bit-identical "
+          f"(launches as remat 'full' implies in both)")
+
+
+def phase_train_128() -> dict:
+    """The head_dim-128 models trained through ``launch.train`` at full
+    width (``TRAIN_128``): weights drawn on the card, ``TRAIN_128_STEPS``
+    bf16 steps under remat "full" and a checkpoint at the end, between a
+    reset and a read of the launch counts (equal to ``_train_counts``);
+    every loss and grad norm finite and the loss falling; peak device
+    memory; a "step" line (host call to device finish, device busy, the
+    port's kernels); then the remat "block" and "full" runs
+    (``_remat_runs``).  Returns {run: launch counts}."""
+    import tempfile
     import torch
     from repro_torch import configs, tree
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
-    from repro_torch.models import transformer
-    cfg = configs.get("smollm_360m").replace(
-        num_layers=TRAIN_PARITY["layers"], dtype="float32")
-    batch = SyntheticDataset(SyntheticConfig(
-        cfg.vocab_size, TRAIN_PARITY["seq_len"],
-        TRAIN_PARITY["batch"])).batch(0)
-    params_cpu = transformer.init(cfg, seed=2, device="cpu")
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    from repro_torch.training.train_step import make_train_step
     out = {}
-    for device, params in (("cuda", transformer.params_to(params_cpu,
-                                                          "cuda")),
-                           ("cpu", params_cpu)):
-        params = tree.map(lambda p: p.requires_grad_(True), params)
+    for name, key, flags in TRAIN_128:
+        argv = flags + TRAIN_128_ARGS + [
+            "--steps", str(TRAIN_128_STEPS), "--checkpoint-every",
+            str(TRAIN_128_STEPS)]
+        args = train.parse_args(argv)
+        held = _reset_peak()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            dispatch.reset_launch_counts()
+            params, opt, hist, run = _train(argv, tmp)
+            torch.cuda.synchronize()
+            counts = dispatch.launch_counts()
+            wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        cfg = run.model
+        n_params = sum(p.numel() for p in tree.leaves(params))
+        mc = cfg.moe
+        ffn = (f"d_ff {cfg.d_ff}" if mc is None else
+               f"{mc.num_experts} experts padded to {mc.pad_experts_to}, "
+               f"top {mc.experts_per_token}, d_ff {mc.d_ff_expert}, shared "
+               f"{mc.d_ff_shared}")
+        depth = configs.get(cfg.name).num_layers
+        print(f"train {name}: {cfg.dtype}, {cfg.num_layers} of {depth} "
+              f"layers at full width (d_model "
+              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, {ffn}, vocab {cfg.vocab_size}), "
+              f"{n_params / 1e9:.3f}e9 parameters drawn on the card, "
+              f"{args.steps} steps of {args.global_batch} x {args.seq_len} "
+              f"tokens, remat {cfg.remat}; peak device memory {peak:.2f} "
+              f"GiB over the {held / 2**30:.2f} held before it; {wall:.1f}s "
+              f"in all (draw, steps, checkpoint of step {args.steps}), "
+              f"steps {sum(h['dt'] for h in hist):.1f}s")
+        print(_train_line(name, hist, args))
+        losses = [h["loss"] for h in hist]
+        if not losses[-1] < losses[0]:
+            _fail(f"train {name}: the loss did not fall: {losses}")
+        want = _train_counts(cfg, len(hist))
+        if counts != want:
+            _fail(f"train {name}: launches {counts}, remat 'full' implies "
+                  f"{want}")
+        live = {k: v for k, v in counts.items() if v}
+        print(f"train {name} launches: {live} = per step "
+              f"{2 * cfg.num_layers} forward (forward + recomputation), "
+              f"{cfg.num_layers} dq, {cfg.num_layers} dk/dv"
+              + (f", {2 * cfg.num_layers} router" if mc else "")
+              + f" over {len(hist)} steps")
+        out[key] = counts
+        # the "step" line: one more step of the trained state
+        step_fn = make_train_step(run)
+        batch = SyntheticDataset(SyntheticConfig(
+            cfg.real_vocab_size or cfg.vocab_size, args.seq_len,
+            args.global_batch, seed=run.seed)).batch(0)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in batch.items()}
+        state = [params, opt]
+
+        def train_step():
+            state[0], state[1], _ = step_fn(state[0], state[1], batch)
+
+        line, busy, by = _step_line(
+            f"train step {name} [{args.global_batch} x {args.seq_len} "
+            f"tokens, {cfg.num_layers} layers, bf16, remat full]",
+            train_step, samples=3)
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+        print(line + "; by kernel: " + ", ".join(
+            f"{k} {ms:.2f}ms x{n:.0f}" for k, (ms, n) in top))
+        del params, opt, state, step_fn
+        torch.cuda.empty_cache()
+        _remat_runs(run, args, name)
+    return out
+
+
+def _reset_peak() -> int:
+    """Free what no longer has a reference (checkpoint frames can sit in
+    reference cycles until the collector runs) and reset the device's peak
+    memory statistic: returns the bytes still allocated, which the peak
+    read after a run includes."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+# ---------------------------------------------------------------------------
+# 7: fp32 training parity at full width: kernels on the card vs the CPU
+# ---------------------------------------------------------------------------
+def _train_parity(cfg, params_cuda, params_cpu, what: str,
+                  shape=TRAIN_PARITY) -> None:
+    """Loss and every gradient of one fp32 batch (``shape``'s) of ``cfg``
+    on the card (kernels) and on the CPU (plain versions), from the same
+    weights.  The loss within 1e-5 relative; each gradient leaf within
+    1e-4 of its largest entry (fp32 sums in other orders on the two
+    devices, through the wide head).  An MoE model's router must pick and
+    keep the same assignments on both devices in every layer (the forward
+    and its recomputation): a near-tie that flips one fails with the logit
+    gap that decided it."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    batch = SyntheticDataset(SyntheticConfig(
+        cfg.real_vocab_size or cfg.vocab_size, shape["seq_len"],
+        shape["batch"])).batch(0)
+    out, routes = {}, {}
+    real_route = L.moe_route
+    for device, params in (("cuda", params_cuda), ("cpu", params_cpu)):
+        params = tree.map(lambda p: p.detach().requires_grad_(True), params)
         b = {k: torch.as_tensor(np.asarray(v), device=device)
              for k, v in batch.items()}
+        seen = routes[device] = []
+
+        def recording(p, xg, c, seen=seen):
+            r = real_route(p, xg, c)
+            seen.append((r.idx.cpu(), r.keep.cpu(), r.logits.detach().cpu()))
+            return r
+
+        L.moe_route = recording
         t0 = time.perf_counter()
         loss, _ = transformer.loss_fn(params, b, cfg)
         grads = torch.autograd.grad(loss, tree.leaves(params))
         out[device] = (loss.item(), [g.cpu() for g in grads])
-        print(f"train parity {device}: loss {out[device][0]:.6f} in "
+        L.moe_route = real_route
+        print(f"train parity {what} {device}: loss {out[device][0]:.6f} in "
               f"{time.perf_counter() - t0:.1f}s")
+    for i, ((ig, kg, _), (ic, kc, lc)) in enumerate(zip(routes["cuda"],
+                                                       routes["cpu"])):
+        if torch.equal(ig.long(), ic.long()) and torch.equal(kg, kc):
+            continue
+        bad = (ig.long() != ic.long()).any(-1) | (kg != kc).any(-1)
+        g_, s_ = (int(x) for x in bad.nonzero()[0])
+        top = lc[g_, s_].sort(descending=True).values
+        k = ic.shape[-1]
+        gap = (top[k - 1] - top[k]).item() if k < top.numel() else 0.0
+        _fail(f"train parity {what}: router call {i} (layers in order, "
+              f"then their recomputation in reverse) picks "
+              f"{ig[g_, s_].tolist()} / keeps {kg[g_, s_].tolist()} on the "
+              f"card, {ic[g_, s_].tolist()} / {kc[g_, s_].tolist()} on the "
+              f"CPU for token {s_} of group {g_}: logit gap between its "
+              f"k-th and (k+1)-th expert {gap:.3g}")
+    if len(routes["cuda"]) != len(routes["cpu"]):
+        _fail(f"train parity {what}: {len(routes['cuda'])} router calls on "
+              f"the card, {len(routes['cpu'])} on the CPU")
     rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     worst, where = 0.0, ""
     paths = [p for p, _ in tree.leaves_with_path(params_cpu)]
@@ -2706,13 +2997,51 @@ def phase_train_parity() -> None:
         if err > worst:
             worst, where = err, path
     if rel > 1e-5 or worst > 1e-4:
-        _fail(f"train parity: loss rel diff {rel:.3g} (1e-5), gradient "
-              f"{where} rel diff {worst:.3g} (1e-4)")
-    print(f"train parity: fp32 {cfg.num_layers} layers full width, batch "
-          f"{TRAIN_PARITY['batch']} x {TRAIN_PARITY['seq_len']}: loss rel "
-          f"diff {rel:.3g} (tol 1e-5); worst gradient leaf {where} max abs "
-          f"diff {worst:.3g} of its largest entry (tol 1e-4) over "
-          f"{len(paths)} leaves")
+        _fail(f"train parity {what}: loss rel diff {rel:.3g} (1e-5), "
+              f"gradient {where} rel diff {worst:.3g} (1e-4)")
+    kept = sum(int(kc.sum()) for _, kc, _ in routes["cpu"])
+    router = (f"; router: {len(routes['cpu'])} calls (forward and "
+              f"recomputation), the same {kept} kept assignments on both "
+              "devices" if routes["cpu"] else "")
+    print(f"train parity {what}: fp32 {cfg.num_layers} layers full width, "
+          f"batch {shape['batch']} x {shape['seq_len']}: loss "
+          f"rel diff {rel:.3g} (tol 1e-5); worst gradient leaf {where} max "
+          f"abs diff {worst:.3g} of its largest entry (tol 1e-4) over "
+          f"{len(paths)} leaves{router}")
+
+
+def phase_train_parity() -> None:
+    """``_train_parity`` of smollm-360m at full width cut to
+    ``TRAIN_PARITY``'s 2 layers, weights drawn on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get("smollm_360m").replace(
+        num_layers=TRAIN_PARITY["layers"], dtype="float32")
+    params_cpu = transformer.init(cfg, seed=2, device="cpu")
+    _train_parity(cfg, transformer.params_to(params_cpu, "cuda"), params_cpu,
+                  cfg.name)
+
+
+def phase_train_parity_128() -> None:
+    """``_train_parity`` of mistral-nemo-12b and qwen2-moe-a2.7b at full
+    width cut to ``TRAIN_PARITY_BATCH_128``'s 2 layers and one sequence:
+    weights drawn on the card from seed 2 (a CPU draw of ~1.9e9 weights
+    takes 12-15 s) and copied to the CPU; qwen2-moe's router gradient among
+    the leaves."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    shape = TRAIN_PARITY_BATCH_128
+    for arch in TRAIN_PARITY_128:
+        cfg = configs.get(arch).replace(num_layers=shape["layers"],
+                                        dtype="float32")
+        params_cuda = transformer.init(cfg, seed=2, device="cuda",
+                                       draw_device="cuda")
+        _train_parity(cfg, params_cuda,
+                      transformer.params_to(params_cuda, "cpu"), cfg.name,
+                      shape)
+        del params_cuda
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3011,6 +3340,10 @@ def phase_times() -> dict:
         rows.update(_serving_kernel_times(gen, hkv=hkv, g=g, d=d, topk=False,
                                           tag=f"_g{g}"))
         rows.update(_int8_kernel_times(gen, hkv=hkv, g=g, d=d, tag=f"_g{g}"))
+    # the training kernels' D-128 instances at mistral-nemo-12b's training
+    # shape (32/8 heads) and qwen2-moe-a2.7b's (16/16)
+    for tag, (hkv, g) in TRAIN_TIMED_128.items():
+        rows.update(_train_kernel_times(gen, hkv, g, 128, tag))
     rows.update(_library_kernel_times())
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
@@ -3322,20 +3655,23 @@ def _sleep_ms(cycles: int) -> float:
     return _SLEEP_MS[cycles]
 
 
-def _train_kernel_times(gen) -> dict:
-    """Rows 6-7 at the training shape (B = 8, T = 512, 15/5 heads, D = 64,
-    bf16, causal): the fresh forward, and the dq and dk/dv kernels, each
+def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
+                        tag: str = "") -> dict:
+    """Rows 6-7 at a training shape (B = 8, T = 512, ``hkv`` KV heads of
+    ``g`` query heads, head dim ``d``, bf16, causal; smollm-360m's 15/5 of
+    64 by default): the fresh forward, and the dq and dk/dv kernels, each
     against its bound; the wrapper and plain times of the forward and of the
     whole backward; the library yardstick is SDPA (is_causal, enable_gqa) on
     [B, H, T, D] views, its forward for row 6 and its autograd backward for
     row 7 (the dq and dk/dv rows both carry the whole backward's plain and
-    library times)."""
+    library times).  Keys ``<kernel><tag>``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
-    b, t, hq, hkv, d, esz = 8, 512, 15, 5, 64, 2
-    q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=b, t=t)
+    b, t, hq, esz = 8, 512, hkv * g, 2
+    q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=b, t=t,
+                                  hkv=hkv, g=g, d=d)
     k, v = k.contiguous(), v.contiguous()      # the model's K/V layout
     errs = _fresh_errs(q, k, v, dout, True)
     if max(errs.values()) > 2e-2:
@@ -3345,7 +3681,7 @@ def _train_kernel_times(gen) -> dict:
     per_pair = 2.0 * d * b * hq              # flops of one product per pair
     io = b * t * (2 * hq + 2 * hkv) * d * esz   # q, dout (or out), k, v
     stats = 2 * b * hq * t * 4                  # lse and delta, fp32
-    shape = "B=8 T=512 Hq=15 Hkv=5 D=64 bf16 causal"
+    shape = f"B=8 T=512 Hq={hq} Hkv={hkv} D={d} bf16 causal"
 
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -3376,7 +3712,7 @@ def _train_kernel_times(gen) -> dict:
     bwd_lib_device = _device_call_ms(sdpa_bwd)
     bwd_device = _device_call_ms(lambda: fab.flash_attention_bwd(
         q, k, v, out, lse, dout))
-    rows["flash_attention"] = {
+    rows["flash_attention" + tag] = {
         "ms": _ms(lambda: fa.launch(fwd_args)),
         "device_ms": _device_call_ms(lambda: fa.launch(fwd_args)),
         "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(q, k, v)),
@@ -3388,7 +3724,7 @@ def _train_kernel_times(gen) -> dict:
     # dq: s, dp and dq products; reads q, k, v, dout, lse, delta, writes dq
     b_ms, b_by = _bound(io + stats + b * t * hq * d * esz,
                         3 * per_pair * pairs, "bfloat16")
-    rows["flash_attention_bwd_dq"] = {
+    rows["flash_attention_bwd_dq" + tag] = {
         "ms": _ms(lambda: fab.launch(dq_args)),
         "device_ms": _device_call_ms(lambda: fab.launch(dq_args)),
         "wrapper_ms": bwd_wrapper, "plain_ms": bwd_plain,
@@ -3397,7 +3733,7 @@ def _train_kernel_times(gen) -> dict:
     # dk/dv: s, dp, dk and dv products; writes dk and dv
     b_ms, b_by = _bound(io + stats + 2 * b * t * hkv * d * esz,
                         4 * per_pair * pairs, "bfloat16")
-    rows["flash_attention_bwd_dkv"] = {
+    rows["flash_attention_bwd_dkv" + tag] = {
         "ms": _ms(lambda: fab.launch(dkv_args)),
         "device_ms": _device_call_ms(lambda: fab.launch(dkv_args)),
         "wrapper_ms": bwd_wrapper, "plain_ms": bwd_plain,
@@ -3407,7 +3743,7 @@ def _train_kernel_times(gen) -> dict:
     b_ms, b_by = _bound(io + b * t * hq * d * esz + b * hq * t * 4
                         + b * t * (hq + 2 * hkv) * d * esz,
                         5 * per_pair * pairs, "bfloat16")
-    print(f"time flash attention backward, both kernels [{shape}]: bound "
+    print(f"time flash attention backward{tag}, both kernels [{shape}]: bound "
           f"{b_ms:.5f}ms by {b_by}; wrapper (delta + dq + dk/dv) "
           f"{bwd_wrapper:.4f}ms, device {bwd_device:.4f}ms; plain "
           f"{bwd_plain:.4f}ms, SDPA autograd backward {bwd_lib:.4f}ms, "
@@ -4115,7 +4451,9 @@ def main() -> int:
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
+    counts.update(_timed(phase_train_128))
     _timed(phase_train_parity)
+    _timed(phase_train_parity_128)
     times = _timed(phase_times)
     _timed(phase_steps, serve_ctx, train_ctx)
     _timed(phase_swap_times, serve_ctx)

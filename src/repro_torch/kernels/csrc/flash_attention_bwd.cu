@@ -17,7 +17,9 @@
 //   of dq, dk and dv, 42.1 MB, take 12.6 us at 3.35 TB/s; the five products
 //   of 2 * D flops per (row, key) pair below the diagonal, 10.1 GFLOP, take
 //   10.2 us at 989 TFLOP/s.  The two kernels recompute S and dP each, 14.1
-//   GFLOP in all.
+//   GFLOP in all.  At mistral-nemo-12b's (32/8 heads, D 128): 168.3 MB (50.2
+//   us) against 43.0 GFLOP (43.5 us), bytes again; at qwen2-moe-a2.7b's
+//   (16/16, D 128) 151.5 MB (45.2 us) against 21.5 GFLOP (21.8 us).
 // Design, both forms: the reference emitted dk/dv per query head
 //   ([B, Hq, T, D]) and summed the G heads of a group afterwards
 //   (ops.py:196-197); here the dk/dv CTA owns its keys for the whole group,
@@ -47,9 +49,19 @@
 //   diagonal tile and ragged edge tiles are masked.  CTAs are numbered
 //   heaviest first under the causal mask (dq: last query tile first;
 //   dk/dv: first key tile first).
+//   Head dim D 64 or 128: a tile of D 128 is two 128-byte swizzle atom
+//   columns 8 KB apart, as wg::attend lays it out, so S, dP (and Sᵀ, dPᵀ)
+//   contract over eight k-steps across both, and dQ, dK and dV are one
+//   m64n64 accumulator per atom column, each product reading its operand's
+//   column MN-major.  dk/dv then holds dK and dV as 128 fp32 registers a
+//   thread: Sᵀ and dPᵀ are declared inside the step, so they are dead
+//   through the next step's products rather than held beside them, and the
+//   kernel stays under __launch_bounds__(128)'s 255 registers (ptxas's
+//   count is printed by chip_smoke.py's build phase).  Shared memory: 49 /
+//   51 KB at D 64, 97 / 99 KB at D 128 (dq / dk/dv), allowed at launch.
 // fp32 (bwd_dq_kernel, bwd_dkv_kernel): CUDA cores, 16 owned rows and 16
 //   streamed rows a step, fp32 throughout (the path the fp32 train parity
-//   holds to 1e-4).
+//   holds to 1e-4), at D 64 and 128.
 #include "attention.cuh"
 #include "wgmma.cuh"
 
@@ -256,14 +268,24 @@ __global__ void __launch_bounds__(kThreads)
 // ---- bf16: the tensor-core forms ------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
-// A dk/dv ring stage: the Q and dO tiles, then lse·log2(e) [64] and delta
-// [64] in fp32 (512 bytes, padded to 1 KB so stages stay 1024-aligned).
-constexpr uint32_t kDkvStage = 2 * wg::kTileBytes + 1024;
-// Dynamic shared memory, with the 1 KB the base is aligned up by: dq holds
-// Q, dO and two stages of (K, V); dk/dv holds K, V and two stages.
-constexpr int kDqSmem = 6 * wg::kTileBytes + 1024;
-constexpr int kDkvSmem = 2 * wg::kTileBytes + 2 * kDkvStage + 1024;
+// A dk/dv ring stage at head dim D: the Q and dO tiles, then lse·log2(e)
+// [64] and delta [64] in fp32 (512 bytes, padded to 1 KB so stages stay
+// 1024-aligned).
+__host__ __device__ constexpr uint32_t dkv_stage(int D) {
+  return 2 * wg::tile_bytes(D) + 1024;
+}
+// Dynamic shared memory at head dim D, with the 1 KB the base is aligned up
+// by: dq holds Q, dO and two stages of (K, V) (49 KB at D 64, 97 KB at D
+// 128); dk/dv holds K, V and two stages (51 KB, 99 KB).  Past the default
+// 48 KB, so every launch raises the limit first.
+__host__ __device__ constexpr int dq_smem(int D) {
+  return 6 * wg::tile_bytes(D) + 1024;
+}
+__host__ __device__ constexpr int dkv_smem(int D) {
+  return 2 * wg::tile_bytes(D) + 2 * dkv_stage(D) + 1024;
+}
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads)
     bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -274,8 +296,10 @@ __global__ void __launch_bounds__(wg::kThreads)
                         long long ss, long long sh, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char tiles[];
   constexpr int R = wg::kRows;
-  const uint32_t sq = wg::aligned_base(tiles), sdo = sq + wg::kTileBytes;
-  const uint32_t skv = sdo + wg::kTileBytes;  // stage s: K, then V
+  constexpr uint32_t kTileSize = wg::tile_bytes(D);
+  constexpr int kCols = D / wg::kD;  // atom columns: dQ's accumulators
+  const uint32_t sq = wg::aligned_base(tiles), sdo = sq + kTileSize;
+  const uint32_t skv = sdo + kTileSize;  // stage s: K, then V
 
   // heaviest query tile first: blockIdx.x = (reversed tile, b, h), h fastest
   int bid = blockIdx.x;
@@ -284,15 +308,14 @@ __global__ void __launch_bounds__(wg::kThreads)
   const int b = bid % B;
   const int i0 = ((Tq + R - 1) / R - 1 - bid / B) * R;
   const int hk = h / (Hq / Hkv);
-  const size_t qstride = static_cast<size_t>(Hq) * wg::kD;
-  const size_t qoff = (static_cast<size_t>(b) * Tq + i0) * qstride +
-                      h * wg::kD;
+  const size_t qstride = static_cast<size_t>(Hq) * D;
+  const size_t qoff = (static_cast<size_t>(b) * Tq + i0) * qstride + h * D;
   const bf16* kb = k + b * sb + hk * sh;
   const bf16* vb = v + b * sb + hk * sh;
-  wg::load_tile(sq, q + qoff, qstride, Tq - i0);
-  wg::load_tile(sdo, dout + qoff, qstride, Tq - i0);
-  wg::load_tile(skv, kb, ss, Tk);
-  wg::load_tile(skv + wg::kTileBytes, vb, ss, Tk);
+  wg::load_tile<D>(sq, q + qoff, qstride, Tq - i0);
+  wg::load_tile<D>(sdo, dout + qoff, qstride, Tq - i0);
+  wg::load_tile<D>(skv, kb, ss, Tk);
+  wg::load_tile<D>(skv + kTileSize, vb, ss, Tk);
   wg::cp_async_commit();
 
   int nk = (Tk + R - 1) / R;
@@ -307,29 +330,35 @@ __global__ void __launch_bounds__(wg::kThreads)
     lse2[r] = i < Tq ? lse[a] * kLog2e : 0.f;
     dl[r] = i < Tq ? delta[a] : 0.f;
   }
-  float acc[32], s[32], dp[32];
+  float acc[kCols][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
+  for (int c = 0; c < kCols; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
 
   for (int j = 0; j < nk; ++j) {
     wg::cp_async_wait_all();
     wg::fence_proxy_async();
     __syncthreads();  // tile j landed; every thread is done with tile j - 1
     if (j + 1 < nk) {
-      const uint32_t nxt = skv + ((j + 1) & 1) * 2 * wg::kTileBytes;
+      const uint32_t nxt = skv + ((j + 1) & 1) * 2 * kTileSize;
       const int k0 = (j + 1) * R;
-      wg::load_tile(nxt, kb + k0 * ss, ss, Tk - k0);
-      wg::load_tile(nxt + wg::kTileBytes, vb + k0 * ss, ss, Tk - k0);
+      wg::load_tile<D>(nxt, kb + k0 * ss, ss, Tk - k0);
+      wg::load_tile<D>(nxt + kTileSize, vb + k0 * ss, ss, Tk - k0);
     }
     wg::cp_async_commit();
-    const uint32_t ks = skv + (j & 1) * 2 * wg::kTileBytes;
-    const uint32_t vs = ks + wg::kTileBytes;
+    const uint32_t ks = skv + (j & 1) * 2 * kTileSize;
+    const uint32_t vs = ks + kTileSize;
 
+    // S and dP live within one step: dead once dS's fragments are made
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
     wg::fence_acc(s);
     wg::fence_acc(dp);
     wg::fence();
-    wg::gemm_k(s, sq, ks);    // S = Q·Kᵀ
-    wg::gemm_k(dp, sdo, vs);  // dP = dO·Vᵀ
+    wg::gemm_k<D>(s, sq, ks);    // S = Q·Kᵀ
+    wg::gemm_k<D>(dp, sdo, vs);  // dP = dO·Vᵀ
     wg::commit();
     wg::wait_all();
     wg::fence_acc(s);
@@ -349,12 +378,16 @@ __global__ void __launch_bounds__(wg::kThreads)
     }
     uint32_t f[4][4];
     wg::to_frag(s, f);
-    wg::fence_acc(acc);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) wg::fence_acc(acc[c]);
     wg::fence();
-    wg::gemm_rs(acc, f, ks);  // dQ += dS·K
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)  // dQ[:, 64c..] += dS·K[:, 64c..]
+      wg::gemm_rs(acc[c], f, ks + c * wg::kTileBytes);
     wg::commit();
     wg::wait_all();
-    wg::fence_acc(acc);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) wg::fence_acc(acc[c]);
   }
 
 #pragma unroll
@@ -363,12 +396,17 @@ __global__ void __launch_bounds__(wg::kThreads)
     if (i >= Tq) continue;
     bf16* o = dq + qoff + (row0 + 8 * r) * qstride;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + wg::frag_col(4 * n)) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    for (int a = 0; a < kCols; ++a)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(o + a * wg::kD +
+                                           wg::frag_col(4 * n)) =
+            __floats2bfloat162_rn(acc[a][4 * n + 2 * r],
+                                  acc[a][4 * n + 2 * r + 1]);
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads)
     bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -381,8 +419,11 @@ __global__ void __launch_bounds__(wg::kThreads)
                          long long ss, long long sh, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char tiles[];
   constexpr int R = wg::kRows;
-  const uint32_t sk = wg::aligned_base(tiles), sv = sk + wg::kTileBytes;
-  const uint32_t ring = sv + wg::kTileBytes;  // stage s: Q, dO, stats
+  constexpr uint32_t kTileSize = wg::tile_bytes(D), kStage = dkv_stage(D);
+  constexpr int kCols = D / wg::kD;  // atom columns: dK's and dV's
+                                     // accumulators each
+  const uint32_t sk = wg::aligned_base(tiles), sv = sk + kTileSize;
+  const uint32_t ring = sv + kTileSize;  // stage s: Q, dO, stats
   // generic pointer to a shared address, for the stats
   auto stats_at = [&](uint32_t addr) {
     return reinterpret_cast<float*>(tiles + (addr - wg::smem_addr(tiles)));
@@ -397,54 +438,61 @@ __global__ void __launch_bounds__(wg::kThreads)
   const int G = Hq / Hkv;
   const bf16* kb = k + b * sb + hk * sh + j0 * ss;
   const bf16* vb = v + b * sb + hk * sh + j0 * ss;
-  wg::load_tile(sk, kb, ss, Tk - j0);
-  wg::load_tile(sv, vb, ss, Tk - j0);
+  wg::load_tile<D>(sk, kb, ss, Tk - j0);
+  wg::load_tile<D>(sv, vb, ss, Tk - j0);
 
   // the query tiles this key tile meets: from the diagonal on (causal),
   // for each of the group's G heads; tile `it` is (head hk * G + it / ni,
   // query tile iq0 + it % ni)
   const int iq0 = causal ? kt : 0;
   const int ni = max((Tq + R - 1) / R - iq0, 0), total = G * ni;
-  const size_t qstride = static_cast<size_t>(Hq) * wg::kD;
+  const size_t qstride = static_cast<size_t>(Hq) * D;
   const int tid = threadIdx.x;
   // issue the copies of tile `it` into stage `st`, and return its lse·log2 e
   // (threads 0-63) or delta (64-127) for the row `tid % 64`, 0 past Tq
   auto fetch = [&](int it, uint32_t st) {
     const int h = hk * G + it / ni, q0 = (iq0 + it % ni) * R;
-    const size_t off = (static_cast<size_t>(b) * Tq + q0) * qstride +
-                       h * wg::kD;
-    wg::load_tile(st, q + off, qstride, Tq - q0);
-    wg::load_tile(st + wg::kTileBytes, dout + off, qstride, Tq - q0);
+    const size_t off = (static_cast<size_t>(b) * Tq + q0) * qstride + h * D;
+    wg::load_tile<D>(st, q + off, qstride, Tq - q0);
+    wg::load_tile<D>(st + kTileSize, dout + off, qstride, Tq - q0);
     const int i = q0 + (tid & 63);
     const size_t a = (static_cast<size_t>(b) * Hq + h) * Tq + i;
     return i >= Tq ? 0.f : tid < 64 ? lse[a] * kLog2e : delta[a];
   };
-  if (total > 0) stats_at(ring + 2 * wg::kTileBytes)[tid] = fetch(0, ring);
+  if (total > 0) stats_at(ring + 2 * kTileSize)[tid] = fetch(0, ring);
   wg::cp_async_commit();
 
   const float sl2 = scale * kLog2e;
-  float dka[32], dva[32], st[32], dpt[32];
+  float dka[kCols][32], dva[kCols][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = st[i] = dpt[i] = 0.f;
+  for (int c = 0; c < kCols; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
 
   for (int it = 0; it < total; ++it) {
     wg::cp_async_wait_all();
     wg::fence_proxy_async();
     __syncthreads();  // tile it landed; every thread is done with it - 1
-    const uint32_t nxt = ring + ((it + 1) & 1) * kDkvStage;
+    const uint32_t nxt = ring + ((it + 1) & 1) * kStage;
     float pre = 0.f;
     if (it + 1 < total) pre = fetch(it + 1, nxt);
     wg::cp_async_commit();
-    const uint32_t qs = ring + (it & 1) * kDkvStage;
-    const uint32_t dos = qs + wg::kTileBytes;
-    const float* ls = stats_at(qs + 2 * wg::kTileBytes);
+    const uint32_t qs = ring + (it & 1) * kStage;
+    const uint32_t dos = qs + kTileSize;
+    const float* ls = stats_at(qs + 2 * kTileSize);
     const float* dl = ls + R;
 
+    // Sᵀ and dPᵀ live within one step: dead once their fragments are made,
+    // so at D 128 they do not sit beside dK's and dV's 128 floats a thread
+    // through the next step's products
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
     wg::fence_acc(st);
     wg::fence_acc(dpt);
     wg::fence();
-    wg::gemm_k(st, sk, qs);    // Sᵀ = K·Qᵀ
-    wg::gemm_k(dpt, sv, dos);  // dPᵀ = V·dOᵀ
+    wg::gemm_k<D>(st, sk, qs);    // Sᵀ = K·Qᵀ
+    wg::gemm_k<D>(dpt, sv, dos);  // dPᵀ = V·dOᵀ
     wg::commit();
     wg::wait_all();
     wg::fence_acc(st);
@@ -467,18 +515,27 @@ __global__ void __launch_bounds__(wg::kThreads)
     uint32_t pf[4][4], df[4][4];
     wg::to_frag(st, pf);
     wg::to_frag(dpt, df);
-    wg::fence_acc(dva);
-    wg::fence_acc(dka);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      wg::fence_acc(dva[c]);
+      wg::fence_acc(dka[c]);
+    }
     wg::fence();
-    wg::gemm_rs(dva, pf, dos);  // dV += Pᵀ·dO
-    wg::gemm_rs(dka, df, qs);   // dK += dSᵀ·Q
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {  // atom column c: values 64c..64c+63
+      wg::gemm_rs(dva[c], pf, dos + c * wg::kTileBytes);  // dV += Pᵀ·dO
+      wg::gemm_rs(dka[c], df, qs + c * wg::kTileBytes);   // dK += dSᵀ·Q
+    }
     wg::commit();
     wg::wait_all();
-    wg::fence_acc(dva);
-    wg::fence_acc(dka);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      wg::fence_acc(dva[c]);
+      wg::fence_acc(dka[c]);
+    }
     // the next stage's stats, after this tile's products (no thread reads
     // that stage until the barrier that opens the next step)
-    if (it + 1 < total) stats_at(nxt + 2 * wg::kTileBytes)[tid] = pre;
+    if (it + 1 < total) stats_at(nxt + 2 * kTileSize)[tid] = pre;
   }
 
   const int row0 = wg::frag_row(0);
@@ -486,47 +543,55 @@ __global__ void __launch_bounds__(wg::kThreads)
   for (int r = 0; r < 2; ++r) {
     const int kp = j0 + row0 + 8 * r;
     if (kp >= Tk) continue;
-    const size_t o = ((static_cast<size_t>(b) * Tk + kp) * Hkv + hk) * wg::kD;
+    const size_t o = ((static_cast<size_t>(b) * Tk + kp) * Hkv + hk) * D;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = wg::frag_col(4 * n);
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + c) =
-          __floats2bfloat162_rn(dka[4 * n + 2 * r], dka[4 * n + 2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + c) =
-          __floats2bfloat162_rn(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
+    for (int a = 0; a < kCols; ++a) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = a * wg::kD + wg::frag_col(4 * n);
+        *reinterpret_cast<__nv_bfloat162*>(dk + o + c) =
+            __floats2bfloat162_rn(dka[a][4 * n + 2 * r],
+                                  dka[a][4 * n + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + o + c) =
+            __floats2bfloat162_rn(dva[a][4 * n + 2 * r],
+                                  dva[a][4 * n + 2 * r + 1]);
+      }
     }
   }
 }
 
+template <int D>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dq, int B, int Tq,
                            int Tk, int Hq, int Hkv, long long sb, long long ss,
                            long long sh, float scale, int causal,
                            cudaStream_t stream) {
-  const cudaError_t err = allow_dynamic_smem<bwd_dq_wgmma_kernel>(kDqSmem);
+  constexpr int kSmem = dq_smem(D);
+  const cudaError_t err = allow_dynamic_smem<bwd_dq_wgmma_kernel<D>>(kSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
-  bwd_dq_wgmma_kernel<<<blocks, wg::kThreads, kDqSmem, stream>>>(
+  bwd_dq_wgmma_kernel<D><<<blocks, wg::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dq), B, Tq, Tk, Hq, Hkv, sb, ss, sh, scale, causal);
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dk, void* dv, int B,
                             int Tq, int Tk, int Hq, int Hkv, long long sb,
                             long long ss, long long sh, float scale,
                             int causal, cudaStream_t stream) {
-  const cudaError_t err =
-      allow_dynamic_smem<bwd_dkv_wgmma_kernel>(kDkvSmem);
+  constexpr int kSmem = dkv_smem(D);
+  const cudaError_t err = allow_dynamic_smem<bwd_dkv_wgmma_kernel<D>>(kSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((Tk + wg::kRows - 1) / wg::kRows) * B * Hkv;
-  bwd_dkv_wgmma_kernel<<<blocks, wg::kThreads, kDkvSmem, stream>>>(
+  bwd_dkv_wgmma_kernel<D><<<blocks, wg::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Tq, Tk, Hq, Hkv, sb,
@@ -535,15 +600,18 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---- fp32: the CUDA-core forms ---------------------------------------------
+// Shared memory of bwd_smem_words(D) floats: 17 KB at D 64, 35 KB at 128,
+// under the default 48 KB.
+template <int D>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, void* dq, int B, int Tq, int Tk,
                           int Hq, int Hkv, long long sb, long long ss,
                           long long sh, float scale, int causal,
                           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * bwd_smem_words(64);
+  const size_t smem = sizeof(float) * bwd_smem_words(D);
   const dim3 grid((Tq + kRows - 1) / kRows, Hq, B);
-  bwd_dq_kernel<float, 64><<<grid, kThreads, smem, stream>>>(
+  bwd_dq_kernel<float, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, static_cast<float*>(dq), Tq, Tk, Hq, Hkv, sb, ss, sh, scale,
@@ -551,15 +619,16 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dk, void* dv, int B,
                            int Tq, int Tk, int Hq, int Hkv, long long sb,
                            long long ss, long long sh, float scale,
                            int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * bwd_smem_words(64);
+  const size_t smem = sizeof(float) * bwd_smem_words(D);
   const dim3 grid((Tk + kRows - 1) / kRows, Hkv, B);
-  bwd_dkv_kernel<float, 64><<<grid, kThreads, smem, stream>>>(
+  bwd_dkv_kernel<float, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, Hq,
@@ -567,14 +636,17 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+static_assert(sizeof(float) * bwd_smem_words(128) <= 48 * 1024,
+              "the fp32 backward's shared memory must fit the default 48 KB");
+
 }  // namespace
 
 // q, dout and dq [B, Tq, Hq, D] contiguous; k, v [B, Tk, Hkv, D] with element
 // strides (sb, ss, sh, 1), the same for both (bf16: multiples of 8, and
 // every pointer 16-byte aligned, for the 16-byte copies); lse, delta
-// [B, Hq, Tq] float32.  D == 64 only (the training slice's head dim,
-// smollm-360m's; the serving kernels also take 128).  Returns
-// cudaGetLastError().
+// [B, Hq, Tq] float32.  D is 64 or 128 (the instances of with_head_dim:
+// smollm-360m's, and mistral-nemo-12b's and qwen2-moe-a2.7b's), any other D
+// is refused.  Returns cudaGetLastError().
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int dtype, int B, int Tq,
@@ -583,18 +655,16 @@ extern "C" int flash_attention_bwd_dq_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (dtype == kDtypeF32) {
-    err = launch_dq_f32(q, k, v, dout, ls, dl, dq, B, Tq, Tk, Hq, Hkv, sb, ss,
-                        sh, scale, causal, st);
-  } else if (dtype == kDtypeBF16) {
-    err = launch_dq_bf16(q, k, v, dout, ls, dl, dq, B, Tq, Tk, Hq, Hkv, sb,
-                         ss, sh, scale, causal, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (dtype != kDtypeF32 && dtype != kDtypeBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == kDtypeF32
+               ? launch_dq_f32<kD>(q, k, v, dout, ls, dl, dq, B, Tq, Tk, Hq,
+                                   Hkv, sb, ss, sh, scale, causal, st)
+               : launch_dq_bf16<kD>(q, k, v, dout, ls, dl, dq, B, Tq, Tk, Hq,
+                                    Hkv, sb, ss, sh, scale, causal, st);
+  }));
 }
 
 // As above; dk and dv [B, Tk, Hkv, D] contiguous, in k's dtype.
@@ -606,20 +676,21 @@ extern "C" int flash_attention_bwd_dkv_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (dtype == kDtypeF32) {
-    err = launch_dkv_f32(q, k, v, dout, ls, dl, dk, dv, B, Tq, Tk, Hq, Hkv,
-                         sb, ss, sh, scale, causal, st);
-  } else if (dtype == kDtypeBF16) {
-    err = launch_dkv_bf16(q, k, v, dout, ls, dl, dk, dv, B, Tq, Tk, Hq, Hkv,
-                          sb, ss, sh, scale, causal, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (dtype != kDtypeF32 && dtype != kDtypeBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == kDtypeF32
+               ? launch_dkv_f32<kD>(q, k, v, dout, ls, dl, dk, dv, B, Tq, Tk,
+                                    Hq, Hkv, sb, ss, sh, scale, causal, st)
+               : launch_dkv_bf16<kD>(q, k, v, dout, ls, dl, dk, dv, B, Tq,
+                                     Tk, Hq, Hkv, sb, ss, sh, scale, causal,
+                                     st);
+  }));
 }
 
-// Dynamic shared memory of the bf16 (wgmma) kernels, in bytes.
-extern "C" int flash_attention_bwd_dq_wgmma_smem() { return kDqSmem; }
-extern "C" int flash_attention_bwd_dkv_wgmma_smem() { return kDkvSmem; }
+// Dynamic shared memory of the bf16 (wgmma) kernels at head dim D, in bytes.
+extern "C" int flash_attention_bwd_dq_wgmma_smem(int D) { return dq_smem(D); }
+extern "C" int flash_attention_bwd_dkv_wgmma_smem(int D) {
+  return dkv_smem(D);
+}

@@ -5,10 +5,12 @@
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 //   (the pallas_call at line 122; body _make_kernel:69, _online_update:56),
 //   bf16/fp32.
-// Bound on the H100: bytes at the training shape (B 8, T 512, 15/5 heads,
-//   D 64, bf16, causal): q, k, v, out and lse read or written once, 21.2
-//   MB, take 6.3 us at 3.35 TB/s; the 2 products of 2 * D flops per (row,
-//   key) pair below the diagonal, 4.0 GFLOP, take 4.1 us at 989 TFLOP/s.
+// Bound on the H100: bytes at smollm-360m's training shape (B 8, T 512,
+//   15/5 heads, D 64, bf16, causal): q, k, v, out and lse read or written
+//   once, 21.2 MB, take 6.3 us at 3.35 TB/s; the 2 products of 2 * D flops
+//   per (row, key) pair below the diagonal, 4.0 GFLOP, take 4.1 us at 989
+//   TFLOP/s.  At mistral-nemo-12b's (32/8 heads, D 128) the bytes are 84.4
+//   MB (25.2 us) and the flops 17.2 GFLOP (17.4 us): bytes again.
 //
 // Two forms, chosen by dtype (no probe, no fallback):
 //
@@ -23,7 +25,9 @@
 //   masked; CTAs are numbered heaviest query tile first, so the triangle's
 //   long CTAs start first.  Keys at or past Tk are zero-filled without being
 //   read and score -inf; query rows past Tq are zero-filled and not written,
-//   so T need not be a multiple of 64.
+//   so T need not be a multiple of 64.  At D 128 a row is two 128-byte
+//   swizzle atoms and the ring needs 81 KB of dynamic shared memory (41 KB
+//   at D 64), which the launch allows first.
 //
 // fp32: fresh_fwd_kernel, on CUDA cores: the cached-prefill form at
 //   q_offset 0 over all Tk keys, prefill_attend (attention.cuh), the tile
@@ -59,6 +63,7 @@ __global__ void __launch_bounds__(kPrefillThreads)
                        lse, scale, causal, smem);
 }
 
+template <int D>
 __global__ void __launch_bounds__(wg::kThreads)
     fresh_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -75,40 +80,46 @@ __global__ void __launch_bounds__(wg::kThreads)
   const int b = bid % B;
   const int i0 = ((Tq + wg::kRows - 1) / wg::kRows - 1 - bid / B) * wg::kRows;
   const int hk = h / (Hq / Hkv);
-  const size_t qstride = static_cast<size_t>(Hq) * wg::kD;
-  const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * wg::kD;
+  const size_t qstride = static_cast<size_t>(Hq) * D;
+  const size_t q0 = static_cast<size_t>(b) * Tq * qstride + h * D;
   const wg::ContiguousKeys keys{
       ContiguousRows{static_cast<size_t>(b * sb + hk * sh),
                      static_cast<size_t>(wg::kRows * ss),
                      static_cast<size_t>(ss)}};
-  wg::attend<wg::kD>(q + q0, k, v, keys, out + q0,
-             lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq, 0,
-             Tk, scale, causal, tiles);
+  wg::attend<D>(q + q0, k, v, keys, out + q0,
+                lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq,
+                0, Tk, scale, causal, tiles);
 }
 
+template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int Tq, int Tk, int Hq, int Hkv,
                        long long sb, long long ss, long long sh, float scale,
                        int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * prefill_smem_words(64, kTile);
+  const size_t smem = sizeof(float) * prefill_smem_words(D, kTile);
+  const cudaError_t err =
+      allow_dynamic_smem<fresh_fwd_kernel<float, D>>(smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kPrefillRows - 1) / kPrefillRows, Hq, B);
-  fresh_fwd_kernel<float, 64><<<grid, kPrefillThreads, smem, stream>>>(
+  fresh_fwd_kernel<float, D><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, Tq, Tk, Hq,
       Hkv, sb, ss, sh, scale, causal);
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int Tq, int Tk, int Hq,
                         int Hkv, long long sb, long long ss, long long sh,
                         float scale, int causal, cudaStream_t stream) {
-  constexpr int kSmem = wg::attend_smem(wg::kD);
-  const cudaError_t err = allow_dynamic_smem<fresh_fwd_wgmma_kernel>(kSmem);
+  constexpr int kSmem = wg::attend_smem(D);
+  const cudaError_t err =
+      allow_dynamic_smem<fresh_fwd_wgmma_kernel<D>>(kSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>((Tq + wg::kRows - 1) /
                                                 wg::kRows) * B * Hq;
-  fresh_fwd_wgmma_kernel<<<blocks, wg::kThreads, kSmem, stream>>>(
+  fresh_fwd_wgmma_kernel<D><<<blocks, wg::kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -121,8 +132,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // q and out [B, Tq, Hq, D] contiguous; k, v [B, Tk, Hkv, D] with element
 // strides (sb, ss, sh, 1), the same for both (bf16: multiples of 8, and
 // every pointer 16-byte aligned, for the 16-byte copies); lse [B, Hq, Tq]
-// float32.  D == 64 only: the training slice's head dim (smollm-360m); the
-// serving kernels also take 128.  Returns cudaGetLastError().
+// float32.  D is 64 or 128 (the instances of with_head_dim: smollm-360m's,
+// and mistral-nemo-12b's and qwen2-moe-a2.7b's), any other D is refused.
+// Returns cudaGetLastError().
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out, void* lse,
                                           int dtype, int B, int Tq, int Tk,
@@ -132,21 +144,19 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (dtype == kDtypeF32) {
-    err = launch_f32(q, k, v, out, ls, B, Tq, Tk, Hq, Hkv, sb, ss, sh, scale,
-                     causal, st);
-  } else if (dtype == kDtypeBF16) {
-    err = launch_bf16(q, k, v, out, ls, B, Tq, Tk, Hq, Hkv, sb, ss, sh, scale,
-                      causal, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (dtype != kDtypeF32 && dtype != kDtypeBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == kDtypeF32
+               ? launch_f32<kD>(q, k, v, out, ls, B, Tq, Tk, Hq, Hkv, sb, ss,
+                                sh, scale, causal, st)
+               : launch_bf16<kD>(q, k, v, out, ls, B, Tq, Tk, Hq, Hkv, sb, ss,
+                                 sh, scale, causal, st);
+  }));
 }
 
-// Dynamic shared memory of the bf16 (wgmma) kernel, in bytes.
-extern "C" int flash_attention_fwd_wgmma_smem() {
-  return wg::attend_smem(wg::kD);
+// Dynamic shared memory of the bf16 (wgmma) kernel at head dim D, in bytes.
+extern "C" int flash_attention_fwd_wgmma_smem(int D) {
+  return wg::attend_smem(D);
 }

@@ -43,7 +43,7 @@ namespace wg {
 
 constexpr int kRows = 64;                 // rows of a tile (wgmma M)
 constexpr int kD = 64;                    // values of an atom row, 128 bytes
-                                          // of bf16 (the backward's head_dim)
+                                          // of bf16
 constexpr int kThreads = 128;             // one warpgroup
 constexpr uint32_t kTileBytes = kRows * kD * 2;   // 8 KB: one atom column
 

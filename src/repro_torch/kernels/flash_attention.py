@@ -59,12 +59,12 @@ from repro_torch.kernels.flash_decode import (SMEM_LIMIT, check_kv_dtypes,
 from repro_torch.obs import kernels as obs_kernels
 
 #: The head dims each route has csrc instances for: the cached prefills
-#: (contiguous, paged and the paged int8 form) at 64 (smollm-360m) and 128
-#: (mistral-nemo-12b, deepseek-coder-33b); the fresh forward, the training
-#: form, at 64 only.  Another head dim raises.
+#: (contiguous, paged and the paged int8 form) and the fresh forward, the
+#: training form, at 64 (smollm-360m) and 128 (mistral-nemo-12b,
+#: deepseek-coder-33b, the MoE decoders).  Another head dim raises.
 HEAD_DIMS = {"flash_attention_offset": (64, 128),
              "flash_attention_paged": (64, 128),
-             "flash_attention": (64,)}
+             "flash_attention": _bwd.HEAD_DIMS}
 BQ = 16               # query rows of one CTA (csrc kPrefillRows)
 
 #: Kernel launches since the last reset (a path's proof of route).

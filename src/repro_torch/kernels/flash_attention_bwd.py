@@ -25,9 +25,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.obs import kernels as obs_kernels
 
-#: The head dims the backward kernels have csrc instances for: 64 only
-#: (smollm-360m; the training slice's).  Another head dim raises.
-HEAD_DIMS = (64,)
+#: The head dims the backward kernels have csrc instances for: 64
+#: (smollm-360m) and 128 (mistral-nemo-12b, qwen2-moe-a2.7b).  Another head
+#: dim raises.
+HEAD_DIMS = (64, 128)
 
 #: Kernel launches since the last reset (the training path's proof of route).
 launches = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}

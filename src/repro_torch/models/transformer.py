@@ -7,10 +7,10 @@ MLP, moe ``layers.moe_apply``, at 150-154), ``init`` (176; the port's own
 seeded initialiser with the reference's shapes and scales), ``forward``
 (217; a Python loop over layers in place of ``lax.scan``, each layer under
 ``torch.utils.checkpoint`` where the reference's ``_maybe_remat`` put it
-under ``jax.checkpoint``, the MoE aux losses summed over layers as at
-270-272), ``loss_fn`` (280, which adds them over ``num_layers``) and
-``logits_last`` (306, which casts to fp32 before the head product as at
-line 309).
+under ``jax.checkpoint``, with its two policies, the MoE aux losses summed
+over layers as at 270-272), ``loss_fn`` (280, which adds them over
+``num_layers``) and ``logits_last`` (306, which casts to fp32 before the head
+product as at line 309).
 
 Parameters are a plain dict::
 
@@ -31,7 +31,8 @@ import math
 from typing import Optional, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import core
 from repro_torch.configs.base import ModelConfig
@@ -183,19 +184,29 @@ def _block_apply(lp: dict, x: Tensor, *, cfg: ModelConfig, positions, cache,
     return x + L.mlp_apply(lp["mlp"], h, cfg), {}
 
 
+#: What remat "block" keeps of a layer's forward: the outputs of products
+#: without batch dims (the projections, the MLP, the MoE router), as the
+#: reference's ``dots_with_no_batch_dims_saveable``; a 3-D activation times
+#: a weight matrix reaches autograd as one of these.  Everything else is
+#: recomputed: batched products (attention's, the experts' and the one-hot
+#: dispatch and combine), norms, RoPE, the attention kernels.
+UNBATCHED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
 def _remat(cfg: ModelConfig, *, training: bool):
-    """How a layer runs: under ``torch.utils.checkpoint`` (its activations
-    recomputed in the backward) for ``remat="full"`` on a training forward,
-    directly otherwise.  Serving forwards (with caches) never recompute, as
-    in the reference (``_maybe_remat(inference=True)``)."""
+    """How a layer runs on a training forward, as the reference's
+    ``_maybe_remat`` (``src/repro/models/transformer.py:207``): directly for
+    ``remat="none"``; under ``torch.utils.checkpoint`` for ``"full"`` (the
+    whole layer recomputed in the backward, ``nothing_saveable``) and for
+    any other value, such as ``"block"``, with the selective policy that
+    saves ``UNBATCHED_PRODUCTS``.  Serving forwards (with caches) never
+    recompute (``_maybe_remat(inference=True)``)."""
     if not training or cfg.remat == "none":
         return lambda fn, *args: fn(*args)
-    if cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat {cfg.remat!r} is not ported yet (the port recomputes "
-            "whole layers: remat 'full' or 'none')")
+    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, list(UNBATCHED_PRODUCTS))}
     return functools.partial(checkpoint, use_reentrant=False,
-                             preserve_rng_state=False)
+                             preserve_rng_state=False, **kw)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig):

@@ -70,7 +70,11 @@ def make_train_step(run: RunConfig) -> Callable:
 def init_state(run: RunConfig, *,
                device: Union[str, torch.device] = "cuda"):
     """(params, opt_state): weights from ``run.seed`` whose leaves require
-    grad, and a fresh AdamW state."""
-    params = transformer.init(run.model, seed=run.seed, device=device)
+    grad, and a fresh AdamW state.  The weights are drawn where they train
+    (``transformer.init(draw_device=device)``): a CPU draw of a full-width
+    model takes over a minute (``tools/init_times.py``), so a card run
+    draws other numbers from the same seed than a CPU run."""
+    params = transformer.init(run.model, seed=run.seed, device=device,
+                              draw_device=device)
     params = tree.map(lambda p: p.requires_grad_(True), params)
     return params, adamw.init(params)

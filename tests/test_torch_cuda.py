@@ -329,21 +329,21 @@ def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
     return q, kv[0, :, :t], kv[1, :, :t], dout
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2e-2)])
-def test_fresh_attention_kernels_match_plain(cuda, dtype, atol):
-    """The training kernels (bf16: the tensor-core forms; fp32: the
-    CUDA-core forms): the fresh forward (out, lse), the dq and dk/dv
-    backward kernels, and ``FlashAttention``'s gradients against autograd
-    through the plain forward; ragged T (not a multiple of 16 or of 64),
-    T = 1, one and several 64-row tiles, causal and not, K/V read through
-    strides with NaN past T."""
+def _check_fresh_kernels(cuda, dtype, atol, *, hkv=5, g=3, d=64):
+    """The training kernels at ``hkv`` KV heads of ``g`` query heads and
+    head dim ``d`` against their plain versions: the fresh forward (out,
+    lse), the dq and dk/dv backward kernels over ragged T (not a multiple
+    of 16 or of 64), T = 1, one and several 64-row tiles, causal and not,
+    K/V read through strides with NaN past T; then ``FlashAttention``'s
+    gradients against autograd through the plain forward.  Returns that
+    last case's (q, k, v)."""
     dispatch.reset_launch_counts()
     dev = dict(device=cuda, dtype=dtype)
     n = 0
     for t, causal in ((37, True), (37, False), (1, True), (1, False),
                       (64, True), (130, True), (130, False)):
-        q, k, v, dout = (x.to(**dev) for x in _fresh(7, b=2, t=t))
+        q, k, v, dout = (x.to(**dev)
+                         for x in _fresh(7, b=2, t=t, hkv=hkv, g=g, d=d))
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         w_out, w_lse = fa.flash_attention_fwd_plain(
             q, torch.nan_to_num(k), torch.nan_to_num(v), causal=causal)
@@ -365,7 +365,8 @@ def test_fresh_attention_kernels_match_plain(cuda, dtype, atol):
             assert err <= atol * scale, (name, t, causal, err)
         n += 1
     # FlashAttention.apply against autograd through the plain forward
-    q, k, v, dout = (x.to(**dev) for x in _fresh(8, b=2, t=37))
+    q, k, v, dout = (x.to(**dev)
+                     for x in _fresh(8, b=2, t=37, hkv=hkv, g=g, d=d))
     k, v = torch.nan_to_num(k), torch.nan_to_num(v)
     got, want = [], []
     for fn, store in ((lambda a, b_, c: fa.FlashAttention.apply(a, b_, c,
@@ -378,14 +379,24 @@ def test_fresh_attention_kernels_match_plain(cuda, dtype, atol):
     for a, b_ in zip(got, want):
         scale = max(1.0, b_.float().abs().max().item())
         assert (a.float() - b_.float()).abs().max().item() <= atol * scale
-    with pytest.raises(ValueError, match="D=32"):      # head_dim 64 only
-        fa.flash_attention_fwd(q[..., :32].contiguous(),
-                               k[..., :32].contiguous(),
-                               v[..., :32].contiguous())
     counts = dispatch.launch_counts()
     assert counts["flash_attention"] == n + 1
     assert counts["flash_attention_bwd_dq"] == n + 1
     assert counts["flash_attention_bwd_dkv"] == n + 1
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_fresh_attention_kernels_match_plain(cuda, dtype, atol):
+    """The training kernels (bf16: the tensor-core forms; fp32: the
+    CUDA-core forms) at head dim 64 (``_check_fresh_kernels``); a head dim
+    without an instance raises."""
+    q, k, v = _check_fresh_kernels(cuda, dtype, atol)
+    with pytest.raises(ValueError, match="D=32"):      # head_dim 64 or 128
+        fa.flash_attention_fwd(q[..., :32].contiguous(),
+                               k[..., :32].contiguous(),
+                               v[..., :32].contiguous())
 
 
 def test_fresh_attention_is_deterministic(cuda):
@@ -1160,16 +1171,61 @@ def test_head_dim_128_prefill_matches_plain(cuda, g, hkv, dtype, atol):
             counts["flash_attention_paged_int8"]) == (4, 4, 1)
 
 
-def test_head_dim_128_fresh_forward_raises(cuda):
-    """The fresh forward and the backward (the training kernels) have no
-    D 128 instance yet: they raise, with no fallback."""
-    q = torch.randn(1, 64, 8, 128, device=cuda, dtype=torch.bfloat16)
-    k = torch.randn(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="D=128"):
+@pytest.mark.parametrize("g,hkv", [(4, 8), (1, 16)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_head_dim_128_fresh_kernels_match_plain(cuda, g, hkv, dtype, atol):
+    """The training kernels' D-128 instances (bf16: two 128-byte atom
+    columns a row on the tensor cores; fp32: the CUDA-core forms) at
+    mistral-nemo-12b's group (G 4) and qwen2-moe-a2.7b's (G 1), as
+    ``_check_fresh_kernels``; a head dim without an instance (96) raises
+    in the forward and the backward, with no fallback."""
+    q, k, v = _check_fresh_kernels(cuda, dtype, atol, hkv=hkv, g=g, d=128)
+    q, k = q[..., :96].contiguous(), k[..., :96].contiguous()
+    with pytest.raises(ValueError, match="D=96"):
         fa.flash_attention_fwd(q, k, k)
-    with pytest.raises(ValueError, match="D=128"):
-        fab.flash_attention_bwd(q, k, k, q, torch.zeros(1, 8, 64,
-                                                        device=cuda), q)
+    with pytest.raises(ValueError, match="D=96"):
+        fab.flash_attention_bwd(q, k, k, q, torch.zeros(
+            q.shape[0], q.shape[2], q.shape[1], device=cuda), q)
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("mistral_nemo_12b", dict(d_model=256, num_heads=4, num_kv_heads=2,
+                              head_dim=128)),
+    ("qwen2_moe_a2p7b", dict(d_model=256, num_heads=16, num_kv_heads=16,
+                             head_dim=128))], ids=["mistral", "qwen2_moe"])
+def test_head_dim_128_train_steps(cuda, arch, changes):
+    """Two bf16 train steps of a narrow head_dim-128 model (the smoke
+    config at 4/2 or 16/16 heads of 128) through the training kernels'
+    D-128 instances, under remat "full" and "block": finite losses, 2
+    forward, 1 dq and 1 dk/dv launch per layer and step (and 2 router
+    launches for the MoE model) under both, and the same parameters bit
+    for bit."""
+    from repro_torch import tree
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.training.train_step import init_state, make_train_step
+    base = configs.get_smoke(arch).replace(dtype="bfloat16", **changes)
+    ds = SyntheticDataset(SyntheticConfig(base.vocab_size, 128, 2))
+    out = {}
+    for remat in ("full", "block"):
+        run = RunConfig(model=base.replace(remat=remat))
+        params, opt = init_state(run, device=cuda)
+        step = make_train_step(run)
+        dispatch.reset_launch_counts()
+        for i in range(2):
+            batch = {k: torch.as_tensor(x, device=cuda)
+                     for k, x in ds.batch(i).items()}
+            params, opt, m = step(params, opt, batch)
+            assert np.isfinite(float(m["loss"]))
+        torch.cuda.synchronize()
+        n, counts = 2 * base.num_layers, dispatch.launch_counts()
+        assert counts["flash_attention"] == 2 * n
+        assert counts["flash_attention_bwd_dq"] == n
+        assert counts["flash_attention_bwd_dkv"] == n
+        assert counts["softmax_topk_router"] == (2 * n if base.moe else 0)
+        out[remat] = tree.leaves(params)
+    assert all(torch.equal(a, b) for a, b in zip(out["full"], out["block"]))
 
 
 @pytest.mark.parametrize("v", [131072, 32256])

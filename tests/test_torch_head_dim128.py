@@ -478,7 +478,7 @@ def test_decode_plan_refuses_head_dims_without_instances():
     assert fd.HEAD_DIMS == (64, 128)
     assert fa.HEAD_DIMS == {"flash_attention_offset": (64, 128),
                             "flash_attention_paged": (64, 128),
-                            "flash_attention": (64,)}
+                            "flash_attention": (64, 128)}
 
 
 @pytest.mark.parametrize("v,want", [

@@ -13,8 +13,8 @@ batch.
 Against itself, mirroring ``tests/test_training.py``: the loss falls, a
 crash at step 17 and a restart end bit-identical to an uninterrupted run,
 the straggler watchdog, the checkpoint manager's commit, retention and bf16
-round trip, layer recomputation under ``remat="full"``, and the CLI with
-JAX made unimportable.
+round trip, layer recomputation under ``remat="full"`` and ``"block"``,
+and the CLI with JAX made unimportable.
 
 Tolerances (float32 smoke model; the packages sum in other orders):
 losses within rtol 1e-5 on the same weights; gradients within rtol 1e-4 and
@@ -32,6 +32,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -392,10 +393,25 @@ def test_checkpoint_manager_commit_retention_and_bf16(tmp_path):
         assert z["__bf16__:params/w"].dtype == np.uint16
 
 
+class _CountOps(TorchDispatchMode):
+    """Counts the aten ops that run under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[str(func)] = self.n.get(str(func), 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
 def test_remat_recomputes_each_layer_in_backward(monkeypatch):
     """remat "full": each layer's attention runs twice per step (forward,
-    then recomputed in the backward), "none": once; "block" is refused;
-    serving forwards (with caches) never recompute."""
+    then recomputed in the backward), "none": once; "block" (the
+    reference's ``dots_with_no_batch_dims_saveable``) recomputes attention
+    as "full" does but no product without batch dims: its backward runs
+    as many ``aten.mm`` as "none"'s, "full"'s more.  Loss and gradients
+    are bit-identical under the three."""
     cfg = configs.get_smoke("smollm_360m")
     calls = []
     real = dispatch.sdpa
@@ -403,17 +419,26 @@ def test_remat_recomputes_each_layer_in_backward(monkeypatch):
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
     batch = {k: torch.from_numpy(v)
              for k, v in _batch(cfg, masked=False).items()}
-    for remat, want in (("full", 2), ("none", 1)):
+    out = {}
+    for remat, want in (("full", 2), ("none", 1), ("block", 2)):
         c = cfg.replace(remat=remat)
         params, _ = init_state(RunConfig(model=c), device="cpu")
         calls.clear()
         loss, _ = transformer.loss_fn(params, batch, c)
-        loss.backward()
+        ops = _CountOps()
+        with ops:
+            grads = torch.autograd.grad(loss, tree.leaves(params))
         assert len(calls) == want * c.num_layers, remat
-    params, _ = init_state(RunConfig(model=cfg.replace(remat="block")),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        transformer.loss_fn(params, batch, cfg.replace(remat="block"))
+        out[remat] = (loss, grads, ops.n.get("aten.mm.default", 0))
+    # "full" recomputes q, k, v, o and the MLP's gate and up products, 6 a
+    # layer; the recomputation stops before the down projection, whose
+    # output the backward never reads
+    assert out["block"][2] == out["none"][2]
+    assert out["full"][2] == out["none"][2] + 6 * cfg.num_layers
+    for remat in ("full", "block"):
+        assert torch.equal(out[remat][0], out["none"][0]), remat
+        assert all(torch.equal(a, b) for a, b in zip(out[remat][1],
+                                                     out["none"][1])), remat
 
 
 def test_train_cli_without_jax(tmp_path):
