@@ -17,7 +17,9 @@ printing its final line:
    one-token decode's split plan and dynamic shared memory at each serving
    path's shape, the fused softmax+top-k's plan at each sampling shape and
    phase 9's largest calls, and the paged prefill's grid at the serving
-   chunk);
+   chunk); the latent attention kernels (``flash_mla.cu``) must build
+   without a spill, and their decode split at B 8 over 328 positions and B
+   4 over 288, and the prefill's grid at a 64-token chunk, are printed;
 3. kernels against their plain PyTorch versions at the serving and
    training paths' shapes (fused softmax+top-k at the decode batch's
    logits, k = 1, 5 and 32, fp32 and bf16, with exact ties across the
@@ -65,7 +67,17 @@ printing its final line:
    instances (the fresh forward, its dq and dk/dv backward, two 128-byte
    atom columns a row on the tensor cores) run the fresh checks above at
    each of those four models' heads, the profiler naming the D-128
-   instance of each dtype's form;
+   instance of each dtype's form; then the MLA decoder's latent attention
+   at minicpm3-4b's 40 heads over R 256 + Dr 32, scale 96^-0.5, fp32 and
+   bf16, every latent row past a row's vlen NaN: the decode
+   (``flash_decode_mla``) at B 8 over vlen 65-328 and at the batch whose
+   rows take vlen 0, 1, each split edge ± 1 and 328 (vlen 0 giving exactly
+   0), the cached prefill (``flash_attention_mla``) at 64-token chunks
+   after cached prefixes, Tq 65 and 130 at offsets off the 32-row tile
+   (vlens ending mid-tile), the int8 single-shot and the lockstep
+   prefills, each a repeat bit-equal and its kernel alone seen by the
+   profiler; and the sampler at minicpm3-4b's [8, 73728], with every
+   row's 280 padded entries -inf;
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -82,8 +94,9 @@ printing its final line:
    swapped out, bytes equal to blocks times a block's bytes from the
    config, no int8 block kept shared; and the same traffic without
    classes through a 2-replica router; launch counts equal to the
-   schedulers' counters in each; then mistral-nemo-12b at full width (40
-   layers, bf16, weights drawn on the card from seed 0) through the same
+   schedulers' counters in each; then mistral-nemo-12b at full width and
+   ``MISTRAL_LAYERS`` of its 40 layers (bf16, weights drawn on the card
+   from seed 0) through the same
    paged, slot-pool and lockstep workloads and the int8 paged and slot-pool
    ones, each between a reset and a read of the launch counts (equal to the
    counters, every attention op a head_dim-128 instance), its pools' bytes
@@ -92,8 +105,9 @@ printing its final line:
    paged prefill chunk, host call to device finish against device busy,
    the port's kernels and the weights' byte bound); and deepseek-coder-33b
    at full width and ``DEEPSEEK_LAYERS`` of its 62 layers through the paged
-   and slot-pool workloads; then qwen2-moe-a2.7b at full width and depth
-   (24 layers, 60 experts padded to 64, top 4, weights drawn on the card)
+   and slot-pool workloads; then qwen2-moe-a2.7b at full width and
+   ``QWEN2_LAYERS`` of its 24 layers (60 experts padded to 64, top 4,
+   weights drawn on the card)
    through the same paged, slot-pool and lockstep workloads and the int8
    paged one (launch counts equal to the counters, the router's one
    softmax_topk launch a layer and forward counted apart as
@@ -101,7 +115,17 @@ printing its final line:
    profiled by ``obs.kernels.profile_step`` (the router and the sampler in
    ``softmax_topk_kernel``, one a layer and one); and llama4-scout-17b-a16e
    at full width and ``LLAMA4_LAYERS`` of its 48 layers (16 experts, top 1)
-   through the paged workload;
+   through the paged workload; then the MLA decoder minicpm3-4b at full
+   width (62 layers, 8.53 GB of bf16 drawn on the card) through the
+   slot-pool workload, and at ``MINICPM_CUT_LAYERS`` layers its int8 form
+   (fp latents, each prompt in one chunk) and the lockstep workload, each
+   between a reset and a read of the launch counts: one latent attention
+   launch a layer and forward, equal to the scheduler's counters; the
+   pools' bytes per cached token against 62 x 288 x 2 = 35712, peak device
+   memory, and its "step" lines (a B 8 slot-pool decode step and a
+   64-token prefill chunk, host call to device finish against device busy,
+   beside the weights' 2.546 ms byte bound; the decode step's kernels and
+   its ``decode_step_cost`` bound);
 5. parity: short fp32 workloads of the three paths (smollm-360m at full
    width and ``SMOLLM_LAYERS`` layers), once on the
    card through the kernels and once on the CPU through the plain versions;
@@ -120,7 +144,9 @@ printing its final line:
    and mistral-nemo-12b, then qwen2-moe-a2.7b, at full width cut to 2
    layers in fp32: the paged, slot-pool and lockstep parity workloads'
    streams identical on the card (head_dim-128 kernels; the router's fused
-   softmax+top-k) and the CPU;
+   softmax+top-k) and the CPU; then minicpm3-4b the same way, the
+   slot-pool and lockstep workloads (no paged latent cache): its latent
+   attention kernels on the card against their plain versions on the CPU;
 6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
    at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
    the end, with the launch counts set to 0 just before it and read just
@@ -132,7 +158,8 @@ printing its final line:
    head_dim-128 models through the same ``train`` (``TRAIN_128``):
    mistral-nemo-12b at full width and 4 of its 40 layers, qwen2-moe-a2.7b at
    full width and 2 of its 24, weights drawn on the card,
-   ``TRAIN_128_STEPS`` steps each with a checkpoint at the end, between a
+   ``TRAIN_128_STEPS`` steps each without a checkpoint (the restart above
+   checks it; these runs' 24 and 18 GB took most of their time), between a
    reset and a read of the launch counts (2 forward, 1 dq and 1 dk/dv
    launch per layer and step, and for qwen2-moe 2 router launches): every
    loss and grad norm finite, the loss falling, peak device memory, a
@@ -154,7 +181,10 @@ printing its final line:
    router at [8, 60], [64, 60], [8, 16] and [256, 16], the sampler at V
    151936 and 202048, and the D-128 instances at G 1 and G 5; the training
    kernels' D-128 instances at mistral-nemo-12b's and qwen2-moe-a2.7b's
-   training shapes), beside its bound, its plain
+   training shapes; the latent attention's decode at B 8 over vlen 65-328
+   and its prefill at a 64-token chunk at offset 64, bf16, beside one SDPA
+   call on the concatenated inputs, and the sampler at [8, 73728] with
+   the padded entries -inf), beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
    and an int8 single-shot prefill beside SDPA, with each call's device
@@ -279,6 +309,15 @@ KERNELS = {
     "flash_attention_paged_int8": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_paged.cu",
         "replaces": "src/repro/kernels/flash_attention.py:432"},
+    # MLA's absorbed attention over its latent cache: no pallas_call, the
+    # reference's XLA fallbacks for a custom-scale decode and for a prefill
+    # whose value dim is not q's
+    "flash_decode_mla": {
+        "source": "src/repro_torch/kernels/csrc/flash_mla.cu",
+        "replaces": "src/repro/kernels/dispatch.py:573"},
+    "flash_attention_mla": {
+        "source": "src/repro_torch/kernels/csrc/flash_mla.cu",
+        "replaces": "src/repro/kernels/dispatch.py:887"},
     # the library surface: Algorithm 3's two sweeps, its normalizer, and
     # kernel forms of the bf16 and exp2 softmax forms (XLA in the reference)
     "online_softmax": {
@@ -376,6 +415,8 @@ KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "flash_decode_paged_int8": "paged int8",
                "flash_decode_int8": "slot pool int8",
                "flash_attention_paged_int8": "kernel check only",
+               "flash_decode_mla": "minicpm3 slot pool",
+               "flash_attention_mla": "minicpm3 slot pool",
                "online_softmax": "library", "online_normalizer": "library",
                "online_softmax_bf16": "library",
                "online_softmax_exp2": "library"}
@@ -494,6 +535,7 @@ def phase_build() -> None:
                   f"{info['spill_stores']} / loads {info['spill_loads']} "
                   f"bytes{extra}")
     _print_decode_plans()
+    _print_mla_plans()
     _print_topk_plans()
     _print_paged_prefill_grid()
 
@@ -539,6 +581,32 @@ def _print_decode_plans() -> None:
                   f"split CTA, {4 * p.workspace} bytes of partials")
 
 
+def _print_mla_plans() -> None:
+    """The latent attention kernels: ptxas's report must show no spill;
+    the decode's split at minicpm3-4b's serving shapes (the slot pool's B 8
+    over slots of 328, the lockstep's B 4 over 288) and the prefill's grid
+    at a 64-token chunk."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_mla as fm
+    for kernel, info in _ptxas_report(build.BUILD_LOG.get("flash_mla",
+                                                          "")).items():
+        if info["spill_stores"] or info["spill_loads"]:
+            _fail(f"ptxas flash_mla {kernel}: spills {info}")
+    sms = build.sm_count(torch.device("cuda"))
+    for what, b, s in (("slot pool", 8, MLA_S), ("lockstep", 4, 288)):
+        for dtype in (torch.bfloat16, torch.float32):
+            p = fm.decode_plan(b, MLA_HEADS, s, dtype, sms)
+            print(f"  mla decode plan minicpm3-4b {what} [B={b}, H="
+                  f"{MLA_HEADS}, S={s}] {str(dtype)[6:]}, {sms} SMs: split "
+                  f"{p.split} x {p.splits} ({b * p.splits} CTAs of "
+                  f"{p.threads} threads, {fm.TILE}-row tiles in static "
+                  f"smem), {4 * p.workspace} bytes of partials")
+    print(f"  mla prefill grid minicpm3-4b [B=1, Tq=64, H={MLA_HEADS}]: "
+          f"{-(-64 * MLA_HEADS // fm.ROWS_PER_CTA)} CTAs of {fm.THREADS} "
+          f"threads, {fm.ROWS_PER_CTA} (token, head) rows each")
+
+
 # the fused softmax+top-k's plans: (what, R, V, k, logits dtype): the
 # serving paths' sampling (fp32 logits over smollm-360m's 49152 entries: the
 # decode batch of 8 slots, the lockstep's 4, one prompt's first token) and
@@ -553,6 +621,7 @@ TOPK_PLANS = (("decode sampling, 8 slots", 8, 49152, 5, "float32"),
               ("qwen2-moe-a2.7b decode sampling", 8, 151936, 5, "float32"),
               ("llama4-scout-17b-a16e decode sampling", 8, 202048, 5,
                "float32"),
+              ("minicpm3-4b decode sampling", 8, 73728, 5, "float32"),
               ("qwen2-moe-a2.7b router, decode B 8", 8, 60, 4, "float32"),
               ("qwen2-moe-a2.7b router, a 64-token chunk", 64, 60, 4,
                "float32"),
@@ -1112,14 +1181,27 @@ def _kernels_seen(prof) -> list:
     return sorted(_launch_counts(prof))
 
 
-def _profiled(fn, cpu: bool = False):
+# sessions of phase 3 that recorded some of the port's kernels but not all
+# that ``want`` named, and ran again (``_profiled``)
+PARTIAL_SESSIONS = []
+
+
+def _profiled(fn, cpu: bool = False, want=()):
     """``fn()`` in one ``obs.kernels.profile_session`` (CUDA activity, and
     CPU's with ``cpu``, up to a device synchronize, after a synchronized
     warm-up launch; a session that launched kernels but recorded none runs
     again, at most ``obs.kernels.SESSION_TRIES`` in all): (its result, the
-    profile)."""
+    profile).  With ``want`` (kernel symbols that ``fn`` launches), a
+    session whose port kernels are some of those but not all lost device
+    events (the card's profiler now and then drops a session's first
+    launches) and runs again, within the same number of tries."""
     from repro_torch.obs import kernels as obs_kernels
-    return obs_kernels.profile_session(fn, cpu=cpu)
+    for attempt in range(1, obs_kernels.SESSION_TRIES + 1):
+        out, prof = obs_kernels.profile_session(fn, cpu=cpu)
+        if not set(_launch_counts(prof)) < set(want):
+            break
+        PARTIAL_SESSIONS.append(attempt)
+    return out, prof
 
 
 def _template_args(prof, symbols) -> dict:
@@ -1164,7 +1246,8 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
                                        g=g, d=d)
                 if seen is None:
                     case, prof = _profiled(
-                        lambda: _fresh_errs(*inputs, causal), cpu=True)
+                        lambda: _fresh_errs(*inputs, causal), cpu=True,
+                        want=symbols)
                     seen = _kernels_seen(prof)
                     targs = _template_args(prof, symbols)
                     if seen != sorted(symbols) or any(
@@ -1679,6 +1762,169 @@ def _check_moe_shapes(gen) -> dict:
     return errs
 
 
+# minicpm3-4b's latent attention: 40 heads over one latent row of R 256
+# (c, also the value) and Dr 32 (r), at the scale (qk_nope + qk_rope)^-0.5
+MLA_HEADS, MLA_R, MLA_DR = 40, 256, 32
+MLA_SCALE = 96 ** -0.5
+# the slot pool's slots (prompt 256 + 64 tokens + 8) and a decode step's
+# ragged lengths over them
+MLA_S = 328
+MLA_DECODE_VLENS = [328, 289, 250, 211, 172, 133, 94, 65]
+# the cached prefill's cases, (B, Tq, per-row offsets, S): the slot pool's
+# 64-token chunks after cached prefixes, Tq 65 and 130 at offsets off the
+# 32-row tile (so vlen ends mid-tile), an int8 run's single-shot prefill
+# and the lockstep prefill
+MLA_PREFILL_CASES = ((3, 64, (0, 64, 200), 328), (2, 65, (7, 100), 328),
+                     (2, 130, (0, 33), 328), (1, 256, (0,), 256),
+                     (4, 256, (0, 0, 0, 0), 288))
+# minicpm3-4b's vocabulary, 73448 real entries padded to 73728
+MLA_VOCAB, MLA_REAL_VOCAB = 73728, 73448
+
+
+def _mla_inputs(gen, *, dtype, b, tq, vlens, s, poison=True):
+    """q_eff [B, Tq, 40, 256], q_rope [B, Tq, 40, 32] and latent caches c
+    [B, S, 256], r [B, S, 32], each cache layer 1 of a [2, B, S, ...]
+    tensor (read through its strides, as a serving layer's is), every row
+    at or past its vlen NaN (``poison``); and vlen [B] int32."""
+    import torch
+    q = torch.randn(b, tq, MLA_HEADS, MLA_R, generator=gen)
+    qr = torch.randn(b, tq, MLA_HEADS, MLA_DR, generator=gen)
+    c = torch.randn(2, b, s, MLA_R, generator=gen)
+    r = torch.randn(2, b, s, MLA_DR, generator=gen)
+    for row, n in enumerate(vlens):
+        if poison:
+            c[1, row, n:] = float("nan")
+            r[1, row, n:] = float("nan")
+    dev = dict(device="cuda", dtype=dtype)
+    return (q.to(**dev), qr.to(**dev), c.to(**dev)[1], r.to(**dev)[1],
+            torch.tensor(vlens, dtype=torch.int32, device="cuda"))
+
+
+def _mla_err(what, got, again, want, atol, rtol, zero_rows=()) -> float:
+    """Kernel against plain: finite, a repeat bit-equal, the rows with no
+    visible key exactly 0, every entry within ``atol + rtol·|plain|``.
+    Returns the max abs error."""
+    import torch
+    if not torch.isfinite(got).all():
+        _fail(f"{what}: non-finite output (a row past vlen was read)")
+    if not torch.equal(got, again):
+        _fail(f"{what}: two calls on the same input differ")
+    for row in zero_rows:
+        if got[row].abs().max().item() != 0.0:
+            _fail(f"{what}: row {row} (vlen 0) gave a nonzero output")
+    diff = (got.float() - want.float()).abs()
+    over = diff - (atol + rtol * want.float().abs())
+    if over.max().item() > 0:
+        _fail(f"{what}: max abs err {diff.max().item():.3g} beyond atol "
+              f"{atol} + rtol {rtol:.3g}")
+    return diff.max().item()
+
+
+def _check_mla(gen) -> dict:
+    """MLA's kernels against their plain versions at minicpm3-4b's heads
+    and widths, fp32 and bf16, every latent row past a row's vlen NaN:
+    the decode at B 8 over the slot pool's ragged lengths 65-328 and at the
+    smallest batch whose rows take vlen 0, 1, each split edge ± 1 and the
+    full 328 (one row for every count of live splits), vlen 0 giving
+    exactly 0; the cached prefill (``MLA_PREFILL_CASES``); each a repeat
+    bit-equal, the profiler seeing ``mla_split_kernel`` /
+    ``mla_prefill_kernel`` alone; then the sampler at minicpm3-4b's
+    vocabulary.  Tolerances: fp32 atol 1e-5 (two fp32 accumulations in
+    other orders); bf16 one bf16 ulp of the output, rtol 2^-7, plus atol
+    1e-3 (each side rounds its fp32 result to bf16 once; the outputs
+    reach 2-4, where an ulp is 0.0156-0.031).  Returns {kernel: max abs
+    error} (fp32)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_mla as fm
+    sms = build.sm_count(torch.device("cuda"))
+    worst = {"flash_decode_mla": 0.0, "flash_attention_mla": 0.0}
+    for dtype, atol, rtol in ((torch.float32, 1e-5, 0.0),
+                              (torch.bfloat16, 1e-3, 2.0 ** -7)):
+        name = str(dtype)[6:]
+        b_edge = next(b for b in range(8, 256) if 3 * fm.decode_plan(
+            b, MLA_HEADS, MLA_S, dtype, sms).splits <= b)
+        plan = fm.decode_plan(b_edge, MLA_HEADS, MLA_S, dtype, sms)
+        for label, vlens in (
+                ("ragged", MLA_DECODE_VLENS),
+                ("split edges", _split_edges(plan, MLA_S, b_edge, gen))):
+            q, qr, c, r, vl = _mla_inputs(gen, dtype=dtype, b=len(vlens),
+                                          tq=1, vlens=vlens, s=MLA_S)
+            p = fm.decode_plan(len(vlens), MLA_HEADS, MLA_S, dtype, sms)
+            what = (f"flash_decode_mla {name} B={len(vlens)} H={MLA_HEADS} "
+                    f"S={MLA_S} {label} (split {p.split} x {p.splits})")
+
+            def call():
+                return fm.flash_decode_mla(q, qr, c, r, vl, scale=MLA_SCALE)
+            got, prof = _profiled(call)
+            seen = _kernels_seen(prof)
+            if seen != ["mla_split_kernel"]:
+                _fail(f"{what}: the profiler saw {seen}, not "
+                      "mla_split_kernel alone")
+            want = fm.flash_decode_mla_plain(q, qr, c, r, vl,
+                                             scale=MLA_SCALE)
+            err = _mla_err(what, got, call(), want, atol, rtol,
+                           [i for i, n in enumerate(vlens) if n == 0])
+            if dtype == torch.float32:
+                worst["flash_decode_mla"] = max(worst["flash_decode_mla"],
+                                                err)
+            print(f"kernel {what}: vlen {min(vlens)}..{max(vlens)}, rows "
+                  f"past vlen NaN; max abs err {err:.3g} (atol {atol}, rtol "
+                  f"{rtol:.3g}); a repeat bit-equal; mla_split_kernel seen "
+                  "by the profiler")
+        for b, tq, offs, s in MLA_PREFILL_CASES:
+            vlens = [o + tq for o in offs]
+            q, qr, c, r, vl = _mla_inputs(gen, dtype=dtype, b=b, tq=tq,
+                                          vlens=vlens, s=s)
+            qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            what = (f"flash_attention_mla {name} B={b} Tq={tq} q_offset "
+                    f"{list(offs)} vlen {vlens} S={s}")
+
+            def call():
+                return fm.flash_attention_mla(q, qr, c, r, qo, vl,
+                                              scale=MLA_SCALE)
+            got, prof = _profiled(call)
+            seen = _kernels_seen(prof)
+            if seen != ["mla_prefill_kernel"]:
+                _fail(f"{what}: the profiler saw {seen}, not "
+                      "mla_prefill_kernel alone")
+            want = fm.flash_attention_mla_plain(q, qr, c, r, qo, vl,
+                                                scale=MLA_SCALE)
+            err = _mla_err(what, got, call(), want, atol, rtol)
+            if dtype == torch.float32:
+                worst["flash_attention_mla"] = max(
+                    worst["flash_attention_mla"], err)
+            print(f"kernel {what}: causal, rows past vlen NaN; max abs err "
+                  f"{err:.3g} (atol {atol}, rtol {rtol:.3g}); a repeat "
+                  "bit-equal; mla_prefill_kernel seen by the profiler")
+    worst[f"softmax_topk_v{MLA_VOCAB}"] = _check_padded_sampler(gen)
+    return worst
+
+
+def _check_padded_sampler(gen) -> float:
+    """Row 1 at minicpm3-4b's logits [8, 73728]: ``_check_softmax_topk``'s
+    cases, then the serving path's own input, every row's 280 padded
+    entries -inf (``engine.logits_from_hidden``): indices equal to the plain
+    version's and all real, lse within rtol 1e-5.  Returns the fp32 k = 5
+    max abs error."""
+    import torch
+    from repro_torch.kernels import softmax_topk as st
+    worst = _check_softmax_topk(gen, v=MLA_VOCAB)
+    x = torch.randn(8, MLA_VOCAB, generator=gen).cuda() * 4.0
+    x[:, MLA_REAL_VOCAB:] = float("-inf")
+    got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
+    torch.cuda.synchronize()
+    if not torch.equal(got.indices.long(), want.indices) or \
+            got.indices.max().item() >= MLA_REAL_VOCAB or not \
+            torch.allclose(got.logsumexp, want.logsumexp, rtol=1e-5, atol=0):
+        _fail(f"softmax_topk [8, {MLA_VOCAB}] with the padded entries -inf: "
+              "differs from its plain version or picked a padded entry")
+    print(f"kernel softmax_topk [8, {MLA_VOCAB}] float32 k=5, the "
+          f"{MLA_VOCAB - MLA_REAL_VOCAB} padded entries of every row -inf: "
+          "indices equal and real, lse within rtol 1e-5")
+    return worst
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -1693,6 +1939,7 @@ def phase_kernels() -> dict:
         errs[name] = max(errs[name], err)
     errs.update(_check_head_dim_128(gen))
     errs.update(_check_moe_shapes(gen))
+    errs.update(_check_mla(gen))
     return errs
 
 
@@ -1724,11 +1971,14 @@ def _implied_counts(sched, n_layers: int) -> dict:
     prefill chunk (the router's launches of the same kernel); the other
     path's kernels none.  With int8 K/V the decode kernels are the int8
     forms, and every prefill (over the prompt's exact K/V) is the
-    contiguous prefill kernel."""
+    contiguous prefill kernel.  An MLA model's decode and prefill kernels
+    are the latent attention's, whatever its int8 flag (fp latents)."""
     ones = sched.chunk_widths.get(1, 0)
     dec, pre = (("flash_decode_paged", "flash_attention_paged")
                 if sched.paged else ("flash_decode", "flash_attention_offset"))
-    if sched.family.quantized:
+    if sched.cfg.mla is not None:
+        dec, pre = "flash_decode_mla", "flash_attention_mla"
+    elif sched.family.quantized:
         dec, pre = f"{dec}_int8", "flash_attention_offset"
     want = dict.fromkeys(COUNTERS, 0)
     want[dec] = (sched.decode_steps + ones) * n_layers
@@ -1826,13 +2076,16 @@ def _serve_lockstep(what: str, argv, cfg, params) -> dict:
         _fail(f"serve {what}: token ids of shape {ids.shape} outside "
               "the vocabulary or short")
     dec = "flash_decode_int8" if args.kv_cache_dtype else "flash_decode"
+    pre = "flash_attention_offset"
+    if cfg.mla is not None:
+        dec, pre = "flash_decode_mla", "flash_attention_mla"
     # an MoE model routes once a layer in the prefill and in each decode
     # step: tokens forwards in all
     router = args.tokens * cfg.num_layers if cfg.moe is not None else 0
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"softmax_topk": args.tokens, "softmax_topk_router": router,
                  dec: (args.tokens - 1) * cfg.num_layers,
-                 "flash_attention_offset": cfg.num_layers})
+                 pre: cfg.num_layers})
     if counts != want:
         _fail(f"serve {what}: launches {counts}, its steps imply {want}")
     print(f"serve {what} launches: {counts} = one prefill, "
@@ -1847,6 +2100,11 @@ def _serve_lockstep(what: str, argv, cfg, params) -> dict:
 # ---------------------------------------------------------------------------
 MISTRAL = ["--arch", "mistral_nemo_12b"]
 DEEPSEEK = ["--arch", "deepseek_coder_33b"]
+# mistral-nemo-12b's serving runs (phase 4b) at full width and this many of
+# its 40 layers (9.8 GB of bf16 weights): its five runs at all 40 took ~52 s
+# of the script, which the MLA decoder's runs needed (parity and training
+# keep their depths of 2 and 4)
+MISTRAL_LAYERS = 16
 # deepseek-coder-33b at full width and cut depth: 8 of its 62 layers, 4.7e9
 # parameters or 9.4 GB of bf16 weights (all 62 would be 66.7 GB, beside the
 # pools and the 0.9 GB fp32 head copy of every sample on an 80 GB card)
@@ -1879,6 +2137,7 @@ INSTANCES = {
     "softmax_topk_router_e16": ("softmax_topk", "llama4 paged",
                                 "softmax_topk_router"),
     "softmax_topk_v151936": ("softmax_topk", "qwen2 paged"),
+    "softmax_topk_v73728": ("softmax_topk", "minicpm3 slot pool"),
     "softmax_topk_v202048": ("softmax_topk", "llama4 paged"),
     "flash_decode_paged_d128_g1": ("flash_decode_paged", "qwen2 paged"),
     "flash_attention_paged_d128_g1": ("flash_attention_paged",
@@ -1935,17 +2194,23 @@ def _card_weights(cfg):
     params = transformer.init(cfg, seed=0, device="cuda", draw_device="cuda")
     torch.cuda.synchronize()
     nbytes = _weight_bytes(params)
-    mc = cfg.moe
+    mc, m = cfg.moe, cfg.mla
     ffn = (f"d_ff {cfg.d_ff}" if mc is None else
            f"{mc.num_experts} experts (padded to "
            f"{mc.pad_experts_to or mc.num_experts}) top {mc.experts_per_token}"
            f" of d_ff {mc.d_ff_expert} + a shared expert of "
            f"{mc.d_ff_shared}, capacity factor {mc.capacity_factor}")
+    heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}" if m is None else
+             f"{cfg.num_heads} latent-attention heads (q_lora "
+             f"{m.q_lora_rank}, kv_lora {m.kv_lora_rank}, qk_nope "
+             f"{m.qk_nope_head_dim}, qk_rope {m.qk_rope_head_dim}, v_head "
+             f"{m.v_head_dim})")
     print(f"serve: {cfg.name} {cfg.dtype}, {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-          f"{cfg.resolved_head_dim}, {ffn}, vocab {cfg.vocab_size}, untied "
-          f"head; {nbytes / 1e9:.3f} GB of weights drawn on the card from "
-          f"seed 0 in {time.perf_counter() - t0:.1f}s")
+          f"{cfg.d_model}, {heads}, {ffn}, vocab {cfg.vocab_size}"
+          f"{f' ({cfg.real_vocab_size} real)' if cfg.real_vocab_size else ''}"
+          f", untied head; {nbytes / 1e9:.3f} GB of weights drawn on the "
+          f"card from seed 0 in {time.perf_counter() - t0:.1f}s")
     return params, nbytes
 
 
@@ -2022,17 +2287,17 @@ def _steps_128(params, cfg, engines, weight_bytes: int,
 
 
 def phase_serve_128() -> dict:
-    """mistral-nemo-12b at full width (40 layers, bf16) through phase 4's
-    paged, slot-pool and lockstep workloads and their int8 paged and
-    slot-pool forms, each between a reset and a read of the launch counts,
-    then its "step" lines; deepseek-coder-33b at full width and
-    ``DEEPSEEK_LAYERS`` layers through the paged and slot-pool workloads.
-    Every attention op runs a head_dim-128 instance.  Returns {run:
-    counts}."""
+    """mistral-nemo-12b at full width and ``MISTRAL_LAYERS`` layers (bf16)
+    through phase 4's paged, slot-pool and lockstep workloads and their
+    int8 paged and slot-pool forms, each between a reset and a read of the
+    launch counts, then its "step" lines; deepseek-coder-33b at full width
+    and ``DEEPSEEK_LAYERS`` layers through the paged and slot-pool
+    workloads.  Every attention op runs a head_dim-128 instance.  Returns
+    {run: counts}."""
     import torch
     from repro_torch import configs
     counts = {}
-    cfg = configs.get("mistral_nemo_12b")
+    cfg = configs.get("mistral_nemo_12b").replace(num_layers=MISTRAL_LAYERS)
     params, nbytes = _card_weights(cfg)
     engines = {}
     for path, argv in SERVE_PATHS:
@@ -2069,6 +2334,10 @@ LLAMA4 = ["--arch", "llama4_scout_17b_a16e"]
 # on a fast host, but the script outran its time on slower ones, and this
 # depth is the first cut
 LLAMA4_LAYERS = 2
+# qwen2-moe-a2.7b's serving runs (phase 4c) at full width and this many of
+# its 24 layers (~15 GB of bf16): its four runs at all 24 took ~35 s of the
+# script, which the MLA decoder's runs needed
+QWEN2_LAYERS = 8
 # qwen2-moe-a2.7b's continuous-batching runs: phase 4's workloads but the
 # int8 slot pool, the second cut for the script's time (its kernel
 # instance, flash_decode_int8 at G 1, is checked and timed in phases 3
@@ -2117,8 +2386,8 @@ def _profile_moe_step(params, cfg, engines) -> None:
 
 
 def phase_serve_moe() -> dict:
-    """qwen2-moe-a2.7b at full width and depth (24 layers, bf16, 60 experts
-    padded to 64, top 4) through phase 4's paged, slot-pool and lockstep
+    """qwen2-moe-a2.7b at full width and ``QWEN2_LAYERS`` layers (bf16, 60
+    experts padded to 64, top 4) through phase 4's paged, slot-pool and lockstep
     workloads and the int8 paged one (``MOE_SERVE_PATHS``), each between a
     reset and a read of the launch counts (the router's, one a layer and
     forward, under ``softmax_topk_router``), then its paged "step" lines
@@ -2129,7 +2398,7 @@ def phase_serve_moe() -> dict:
     import torch
     from repro_torch import configs
     counts = {}
-    cfg = configs.get("qwen2_moe_a2p7b")
+    cfg = configs.get("qwen2_moe_a2p7b").replace(num_layers=QWEN2_LAYERS)
     params, nbytes = _card_weights(cfg)
     engines = {}
     for path, argv in MOE_SERVE_PATHS:
@@ -2157,18 +2426,132 @@ def phase_serve_moe() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 4d: the MLA decoder at full width
+# ---------------------------------------------------------------------------
+MINICPM = ["--arch", "minicpm3_4b"]
+# minicpm3-4b's continuous-batching runs (its latent cache has no paged
+# form): phase 4's slot-pool workload, fp and int8 (fp latents, each prompt
+# in one chunk); both launch the two latent attention kernels
+MINICPM_PATHS = (("minicpm3 slot pool", SLOT_ARGS),
+                 ("minicpm3 slot pool int8", SLOT_ARGS + INT8))
+# the int8 slot-pool and lockstep runs take the first this many of the 62
+# layers, for the script's time (the bf16 slot pool serves all 62)
+MINICPM_CUT_LAYERS = 16
+
+
+def _check_latent_bytes(cfg, engines) -> None:
+    """Each slot pool's bytes per cached token equal the latent row's: R +
+    Dr elements of the model dtype a layer (62 x 288 x 2 = 35712 for
+    minicpm3-4b), the int8 run's too (fp latents)."""
+    m = cfg.mla
+    want = cfg.num_layers * (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    for what, eng in engines.items():
+        pool = eng.scheduler.pool
+        got = sum(x.numel() * x.element_size() for x in pool.caches.values()
+                  ) / (pool.num_slots * pool.slot_len) * (
+            cfg.num_layers / pool.cfg.num_layers)
+        if got != want:
+            _fail(f"serve {what}: {got} pool bytes per cached token, the "
+                  f"latent row gives {want}")
+    print(f"serve {cfg.name} pool bytes per cached token: {want} = "
+          f"{cfg.num_layers} layers x ({m.kv_lora_rank} + "
+          f"{m.qk_rope_head_dim}) x 2 (bf16 latents, under --kv-cache-dtype "
+          "int8 too, per layer alike at its cut depth)")
+
+
+def _steps_mla(params, cfg, engines, weight_bytes: int) -> None:
+    """minicpm3-4b's "step" lines on its slot pool: a decode step over the
+    8 slots at lengths 65-328 and a 64-token prefill chunk at offset 64,
+    each beside the weights' byte bound; the decode step's kernels by
+    device time, and its ``decode_step_cost`` bound."""
+    import torch
+    from repro_torch.obs import kernels as obs_kernels
+    from repro_torch.serving import engine
+    slots = engines["minicpm3 slot pool"].scheduler.pool
+    n = slots.num_slots
+    lens = torch.tensor(MLA_DECODE_VLENS[:n], device="cuda").clamp(
+        max=slots.slot_len - 1)
+    toks = torch.ones((n, 1), dtype=torch.int64, device="cuda")
+    noise = torch.zeros((n, 5), device="cuda")
+    chunk = torch.ones((1, 64), dtype=torch.int64, device="cuda")
+    scratch = engine.init_cache(cfg, 1, slots.slot_len, "cuda")
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    cost = obs_kernels.decode_step_cost(cfg, n, (lens + 1).tolist())
+    steps = {
+        f"slot-pool decode [B={n}, {cfg.num_layers} layers, bf16]":
+            lambda: engine.decode_step_slots(params, slots.caches, lens,
+                                             toks, cfg, noise=noise,
+                                             top_k=5),
+        "slot-pool prefill chunk [64 tokens at offset 64, bf16]":
+            lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg)}
+    for name, fn in steps.items():
+        line, busy, by = _step_line(f"{cfg.name} {name}", fn)
+        print(f"{line}; the weights' byte bound {bound:.3f}ms "
+              f"({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), device busy "
+              f"{busy / bound:.2f}x it")
+        if "decode" in name:
+            c_ms = 1e3 * max(cost["bytes_accessed"] / HBM_BYTES_PER_S,
+                             cost["flops"] / PEAK_OPS["bfloat16"])
+            rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+            print(f"step {cfg.name} {name}: decode_step_cost bound "
+                  f"{c_ms:.3f}ms ({cost['bytes_accessed'] / 1e9:.3f} GB, "
+                  f"{cost['flops'] / 1e9:.1f} GFLOP); by kernel (device ms a "
+                  "step x launches a step): " + "; ".join(
+                      f"{k} {ms:.4f} x {k_n:g}" for k, (ms, k_n) in rows))
+
+
+def phase_serve_mla() -> dict:
+    """minicpm3-4b at full width and depth (62 layers, bf16, weights drawn
+    on the card) through phase 4's slot-pool workload, then at its first
+    ``MINICPM_CUT_LAYERS`` layers the slot pool's int8 form (fp latents,
+    single-shot prefill) and the lockstep workload, each between a reset
+    and a read of the launch counts: one latent attention launch a
+    layer and forward (``flash_decode_mla`` for every decode step and
+    one-token chunk, ``flash_attention_mla`` for every wider chunk), equal
+    to the scheduler's counters; then the latent pools' bytes per token and
+    the "step" lines.  Returns {run: counts}."""
+    import torch
+    from repro_torch import configs
+    cfg = configs.get("minicpm3_4b")
+    params, nbytes = _card_weights(cfg)
+    cut_cfg = cfg.replace(num_layers=MINICPM_CUT_LAYERS)
+    cut = {**params, "layers": params["layers"][:MINICPM_CUT_LAYERS]}
+    counts, engines = {}, {}
+    for (what, argv), (c, p) in zip(MINICPM_PATHS, ((cfg, params),
+                                                    (cut_cfg, cut))):
+        counts[what], engines[what] = _serve_path(
+            what, MINICPM + argv, c, p, "minicpm3 slot pool")
+        sched = engines[what].scheduler
+        ones = sched.chunk_widths.get(1, 0)
+        print(f"serve {what}: {c.num_layers} latent attention launches a "
+              f"forward: flash_decode_mla {counts[what]['flash_decode_mla']} "
+              f"= {c.num_layers} x ({sched.decode_steps} decode steps + "
+              f"{ones} one-token chunks), flash_attention_mla "
+              f"{counts[what]['flash_attention_mla']} = {c.num_layers} x "
+              f"{sched.prefill_chunks - ones} wider chunks")
+    _check_latent_bytes(cfg, engines)
+    counts["minicpm3 lockstep"] = _serve_lockstep(
+        "minicpm3 lockstep", MINICPM + LOCKSTEP_ARGS, cut_cfg, cut)
+    _steps_mla(params, cfg, engines, nbytes)
+    del params, cut, engines
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_parity_128() -> None:
     """Phase 5's fp32 stream parity for mistral-nemo-12b at full width cut
     to 2 layers (7.5 GB of fp32 weights) (``_parity_2_layers``)."""
     _parity_2_layers("mistral_nemo_12b")
 
 
-def _parity_2_layers(arch: str) -> None:
+def _parity_2_layers(arch: str, paged: bool = True) -> None:
     """``arch`` at full width cut to 2 layers in fp32, weights drawn on the
     card from seed 1 and copied to the CPU (a CPU draw of these ~1.8e9
-    weights takes 12-15 s, the copy a second or two): the paged, slot-pool
-    and lockstep parity workloads on the card through the kernels and on
-    the CPU through the plain versions give identical token streams."""
+    weights takes 12-15 s, the copy a second or two): the paged (with
+    ``paged``), slot-pool and lockstep parity workloads on the card through
+    the kernels and on the CPU through the plain versions give identical
+    token streams."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2184,8 +2567,9 @@ def _parity_2_layers(arch: str) -> None:
     print(f"parity {name}: {_weight_bytes(params_cuda) // 4} weights (2 "
           f"layers, fp32) drawn on the card and copied to the CPU in "
           f"{time.perf_counter() - t0:.1f}s")
-    _parity_runs(f"{name} (2 layers) paged", PARITY_ARGS, cfg,
-                 params_by_device)
+    if paged:
+        _parity_runs(f"{name} (2 layers) paged", PARITY_ARGS, cfg,
+                     params_by_device)
     _parity_runs(f"{name} (2 layers) slot pool", SLOT_PARITY_ARGS, cfg,
                  params_by_device)
     ids = {device: serve.lockstep(serve.parse_args(
@@ -2207,6 +2591,14 @@ def phase_parity_moe() -> None:
     the plain versions on the CPU, under the same prefill chunking (so the
     same capacity groups)."""
     _parity_2_layers("qwen2_moe_a2p7b")
+
+
+def phase_parity_mla() -> None:
+    """Phase 5's fp32 stream parity for minicpm3-4b at full width cut to 2
+    layers (``_parity_2_layers``, slot pool and lockstep: its latent cache
+    has no paged form): the latent attention kernels on the card against
+    their plain versions on the CPU."""
+    _parity_2_layers("minicpm3_4b", paged=False)
 
 
 def _block_bytes(cfg, block_size: int) -> int:
@@ -2829,7 +3221,9 @@ def _remat_runs(run, args, name: str) -> None:
 def phase_train_128() -> dict:
     """The head_dim-128 models trained through ``launch.train`` at full
     width (``TRAIN_128``): weights drawn on the card, ``TRAIN_128_STEPS``
-    bf16 steps under remat "full" and a checkpoint at the end, between a
+    bf16 steps under remat "full" (``--checkpoint-every 0``: smollm-360m's
+    restart runs check the checkpoint, and writing these 24.3 / 18.3 GB
+    took most of the runs' time), between a
     reset and a read of the launch counts (equal to ``_train_counts``);
     every loss and grad norm finite and the loss falling; peak device
     memory; a "step" line (host call to device finish, device busy, the
@@ -2845,8 +3239,7 @@ def phase_train_128() -> dict:
     out = {}
     for name, key, flags in TRAIN_128:
         argv = flags + TRAIN_128_ARGS + [
-            "--steps", str(TRAIN_128_STEPS), "--checkpoint-every",
-            str(TRAIN_128_STEPS)]
+            "--steps", str(TRAIN_128_STEPS), "--checkpoint-every", "0"]
         args = train.parse_args(argv)
         held = _reset_peak()
         with tempfile.TemporaryDirectory() as tmp:
@@ -2873,8 +3266,8 @@ def phase_train_128() -> dict:
               f"{args.steps} steps of {args.global_batch} x {args.seq_len} "
               f"tokens, remat {cfg.remat}; peak device memory {peak:.2f} "
               f"GiB over the {held / 2**30:.2f} held before it; {wall:.1f}s "
-              f"in all (draw, steps, checkpoint of step {args.steps}), "
-              f"steps {sum(h['dt'] for h in hist):.1f}s")
+              f"in all (draw and steps; no checkpoint: phase 6's restart "
+              f"runs check it), steps {sum(h['dt'] for h in hist):.1f}s")
         print(_train_line(name, hist, args))
         losses = [h["loss"] for h in hist]
         if not losses[-1] < losses[0]:
@@ -3077,7 +3470,8 @@ PORT_KERNEL_SYMBOLS = ("softmax_topk_kernel", "paged_wgmma_kernel",
                        "bwd_dkv_wgmma_kernel",
                        "decode_paged_int8_split_kernel",
                        "decode_int8_split_kernel",
-                       "prefill_paged_int8_kernel", "rows_kernel",
+                       "prefill_paged_int8_kernel", "mla_split_kernel",
+                       "mla_prefill_kernel", "rows_kernel",
                        "md_slice_kernel", "md_merge_kernel",
                        "normalize_kernel")
 
@@ -3344,6 +3738,8 @@ def phase_times() -> dict:
     # shape (32/8 heads) and qwen2-moe-a2.7b's (16/16)
     for tag, (hkv, g) in TRAIN_TIMED_128.items():
         rows.update(_train_kernel_times(gen, hkv, g, 128, tag))
+    # the MLA decoder's latent attention and its sampler
+    rows.update(_mla_kernel_times(gen))
     rows.update(_library_kernel_times())
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
@@ -3359,14 +3755,17 @@ def phase_times() -> dict:
     return rows
 
 
-def _topk_times(gen, v: int = 49152) -> dict:
-    """Row 1 at a decode batch's fp32 logits [8, ``v``], k = 5, held
-    against its plain version on the timed input; keyed ``softmax_topk``
-    at smollm-360m's vocabulary, else ``softmax_topk_v<v>``."""
+def _topk_times(gen, v: int = 49152, real: int = 0) -> dict:
+    """Row 1 at a decode batch's fp32 logits [8, ``v``], k = 5 (entries
+    from ``real`` on -inf, as a padded vocabulary's), held against its
+    plain version on the timed input; keyed ``softmax_topk`` at
+    smollm-360m's vocabulary, else ``softmax_topk_v<v>``."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import softmax_topk as st
     x = (torch.randn(8, v, generator=gen) * 30.0).cuda()
+    if real:
+        x[:, real:] = float("-inf")
     got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
     if not torch.equal(got.indices.long(), want.indices) or not \
             torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0):
@@ -3391,7 +3790,102 @@ def _topk_times(gen, v: int = 49152) -> dict:
         "library_call": "torch.topk(torch.softmax(x, -1), k) (two calls)",
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"x [8, {v}] float32, k=5, {p.slices} slices of "
-                 f"{p.slice}"}}
+                 f"{p.slice}" + (f", entries from {real} -inf" if real
+                                 else "")}}
+
+
+def _mla_kernel_times(gen) -> dict:
+    """MLA's kernels at minicpm3-4b's serving shapes, bf16, each held
+    against its plain version on the timed input: the decode step over the
+    slot pool's 8 slots (lengths 65-328) and a 64-token prefill chunk at
+    offset 64 (vlen 128), beside one SDPA call on the same inputs (q_cat =
+    [q_eff, q_rope] over the 40 heads, the concatenated key [c, r] as one
+    KV head by ``enable_gqa``, V = c, scale 96^-0.5, a boolean mask; the
+    concatenation made before the timing); then the sampler at
+    minicpm3-4b's padded vocabulary.  Bound: each input read once (the
+    live latent rows, 288 values each), the output written once; the
+    operations 2·H·(288 + 256) a visible (query, key) pair."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_mla as fm
+    rows = _topk_times(gen, MLA_VOCAB, real=MLA_REAL_VOCAB)
+    esz, h, width = 2, MLA_HEADS, MLA_R + MLA_DR
+    cases = (("flash_decode_mla", 8, 1, [0] * 8, MLA_DECODE_VLENS),
+             ("flash_attention_mla", 1, 64, [64], [128]))
+    for name, b, tq, offs, vlens in cases:
+        q, qr, c, r, vl = _mla_inputs(gen, dtype=torch.bfloat16, b=b, tq=tq,
+                                      vlens=vlens, s=MLA_S)
+        decode = name == "flash_decode_mla"
+        qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        if decode:
+            def kernel():
+                return fm.flash_decode_mla(q, qr, c, r, vl, scale=MLA_SCALE)
+
+            def plain():
+                return fm.flash_decode_mla_plain(q, qr, c, r, vl,
+                                                 scale=MLA_SCALE)
+            args, _ = fm.prepare_decode(q, qr, c, r, vl, scale=MLA_SCALE)
+            p = fm.decode_plan(b, h, MLA_S, q.dtype,
+                               build.sm_count(q.device))
+            pairs = sum(vlens)
+            shape = (f"B=8 H=40 R=256 Dr=32 S=328 bf16 vlen {vlens}, split "
+                     f"{p.split} x {p.splits}")
+        else:
+            def kernel():
+                return fm.flash_attention_mla(q, qr, c, r, qo, vl,
+                                              scale=MLA_SCALE)
+
+            def plain():
+                return fm.flash_attention_mla_plain(q, qr, c, r, qo, vl,
+                                                    scale=MLA_SCALE)
+            args, _ = fm.prepare_prefill(q, qr, c, r, qo, vl,
+                                         scale=MLA_SCALE)
+            pairs = sum(min(vlens[0], offs[0] + i + 1) for i in range(tq))
+            shape = ("B=1 Tq=64 q_offset=64 vlen=128 H=40 R=256 Dr=32 S=328 "
+                     "bf16")
+        want = plain().float()
+        err = (kernel().float() - want).abs()
+        if (err - 1e-3 - 2.0 ** -7 * want.abs()).max().item() > 0:
+            _fail(f"{name} on the timed input: max abs err "
+                  f"{err.max().item():.3g} beyond 1e-3 + 2^-7·|plain|")
+        # the library's inputs: the rows past vlen zeroed (SDPA would carry
+        # their NaN through a zero weight), the key concatenated
+        live = (torch.arange(MLA_S, device="cuda")[None, :]
+                < vl[:, None].long())
+        c0 = torch.where(live[..., None], c, 0).contiguous()
+        r0 = torch.where(live[..., None], r, 0)
+        qcat = torch.cat([q, qr], -1).transpose(1, 2)      # [B, H, Tq, 288]
+        kcat = torch.cat([c0, r0], -1)[:, None]             # [B, 1, S, 288]
+        vv = c0[:, None]                                     # [B, 1, S, 256]
+        kpos = torch.arange(MLA_S, device="cuda")
+        qpos = qo[:, None].long() + torch.arange(tq, device="cuda")
+        mask = live[:, None, :] if decode else (
+            live[:, None, :] & (kpos[None, None, :] <= qpos[..., None]))
+        mask = mask[:, None]                                 # [B, 1, Tq, S]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qcat, kcat, vv, attn_mask=mask, scale=MLA_SCALE,
+                enable_gqa=True)
+        lib_err = (library().transpose(1, 2).float() - want).abs()
+        if (lib_err - 2e-2 - 2.0 ** -6 * want.abs()).max().item() > 0:
+            _fail(f"{name}: SDPA differs from the plain version by "
+                  f"{lib_err.max().item():.3g}")
+        nbytes = ((q.numel() + qr.numel()) * esz + sum(vlens) * width * esz
+                  + q.numel() * esz + b * 8)
+        b_ms, b_by = _bound(nbytes, 2.0 * h * (width + MLA_R) * pairs,
+                            "bfloat16")
+        rows[name] = {
+            "ms": _ms(lambda: fm.launch(args)),
+            "device_ms": _device_call_ms(lambda: fm.launch(args)),
+            "wrapper_ms": _ms(kernel), "plain_ms": _ms(plain),
+            "library_ms": _ms(library),
+            "library_device_ms": _device_call_ms(library),
+            "library_call": "F.scaled_dot_product_attention(q_cat, [c, r], "
+                            "c, mask, scale=96**-0.5, enable_gqa=True)",
+            "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    return rows
 
 
 # the router's timed shapes: (row key, rows, experts, k); the JSON line
@@ -4441,13 +4935,17 @@ def main() -> int:
     errs = _timed(phase_kernels)
     from repro_torch.obs import kernels as obs_kernels
     print(f"profiler: {obs_kernels.dropped_sessions()} session(s) of phase 3 "
-          "launched kernels but recorded no device event, and ran again")
+          "launched kernels but recorded no device event, and ran again; "
+          f"{len(PARTIAL_SESSIONS)} recorded only some of their kernels, "
+          "and ran again")
     counts, serve_ctx = _timed(phase_serve)
     counts.update(_timed(phase_serve_128))
     counts.update(_timed(phase_serve_moe))
+    counts.update(_timed(phase_serve_mla))
     _timed(phase_parity)
     _timed(phase_parity_128)
     _timed(phase_parity_moe)
+    _timed(phase_parity_mla)
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)

@@ -1,9 +1,9 @@
-"""Configuration dataclasses: the port's own copies of ``MoEConfig``
-(reference: ``src/repro/configs/base.py:47-60``), ``ModelConfig`` (62-113)
-and of the training run's ``ParallelConfig``, ``OptimizerConfig`` and
-``RunConfig`` (135-170).
+"""Configuration dataclasses: the port's own copies of ``MLAConfig``
+(reference: ``src/repro/configs/base.py:15-21``), ``MoEConfig`` (47-60),
+``ModelConfig`` (62-113) and of the training run's ``ParallelConfig``,
+``OptimizerConfig`` and ``RunConfig`` (135-170).
 
-The other family sub-configs (MLA, SSM, xLSTM) are typed loosely here: no
+The other family sub-configs (SSM, xLSTM) are typed loosely here: no
 ported family reads them, and they are ported with their families.
 """
 from __future__ import annotations
@@ -11,6 +11,16 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3 style)."""
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclass(frozen=True)
@@ -49,7 +59,7 @@ class ModelConfig:
     pos_embedding: str = "rope"   # rope | learned | sinusoidal
     dtype: str = "bfloat16"
     # family-specific sub-configs
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[Any] = None
     xlstm: Optional[Any] = None
     moe: Optional[MoEConfig] = None

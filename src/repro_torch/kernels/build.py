@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("softmax_topk", "flash_decode_paged", "flash_attention_paged",
            "flash_decode", "flash_attention_offset", "flash_attention_fwd",
-           "flash_attention_bwd", "online_softmax")
+           "flash_attention_bwd", "online_softmax", "flash_mla")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -21,8 +21,15 @@ form) runs ``FlashAttention`` on CUDA, the forward kernel with its dq and
 dk/dv backward kernels, as the reference's ``_attention_pallas`` ran
 ``ops._flash`` (``dispatch.py:540``); on the CPU it runs the chunked online
 form, which autograd differentiates.  On CUDA a custom scale and a value
-head_dim other than q's still raise ``NotImplementedError``; on the CPU the
-chunked online form serves them, as the reference's XLA path did.
+head_dim other than q's still raise ``NotImplementedError`` (MLA's
+decompressed training form); on the CPU the chunked online form serves
+them, as the reference's XLA path did.
+
+``mla_attention`` is MLA's absorbed form over its latent cache (the
+reference's ``mla_apply`` sent it through ``_sdpa`` with a custom scale
+and Dv != Dqk, which its XLA fallbacks served, ``dispatch.py:573`` and
+``:887``): on CUDA the decode and cached-prefill kernels of
+``kernels/flash_mla.py``, on the CPU their plain versions.
 
 int8 K/V come with ``k_scale``/``v_scale``: scale pages [P, Hkv, BS] beside
 int8 pools (paged) or [B, S, Hkv] beside int8 caches.  On CUDA they launch
@@ -61,6 +68,7 @@ from repro_torch import core
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels import flash_decode as _flash_decode
+from repro_torch.kernels import flash_mla as _flash_mla
 from repro_torch.kernels import online_softmax as _online_softmax
 from repro_torch.kernels import softmax_topk as _softmax_topk
 from repro_torch.obs import kernels as obs_kernels
@@ -77,6 +85,8 @@ _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_decode_paged_int8": _flash_decode,
                    "flash_decode_int8": _flash_decode,
                    "flash_attention_paged_int8": _flash_attention,
+                   "flash_decode_mla": _flash_mla,
+                   "flash_attention_mla": _flash_mla,
                    "online_softmax": _online_softmax,
                    "online_softmax_bf16": _online_softmax,
                    "online_softmax_exp2": _online_softmax,
@@ -230,6 +240,33 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
                                  k_scale=k_scale, v_scale=v_scale)
 
 
+def mla_attention(cfg, q_eff, q_rope, c_cache, r_cache, *, causal, q_offset,
+                  kv_valid_len, scale, decode: bool):
+    """MLA's absorbed attention over one layer's latent cache: q_eff
+    [B, T, H, R] and q_rope [B, T, H, Dr] score ``scale·(q_eff·c + q_rope·r)``
+    against c_cache [B, S, R] and r_cache [B, S, Dr] and return
+    ``softmax·c`` [B, T, H, R].  ``decode`` (T == 1) takes the one-token
+    kernel, otherwise the cached prefill (``causal`` in absolute
+    coordinates from ``q_offset``); keys at or past ``kv_valid_len`` [B]
+    are never read.  On CUDA the kernel launches or raises on a shape or
+    dtype it does not take; on the CPU the plain version runs."""
+    if q_eff.device.type == "cuda":
+        if decode:
+            return _flash_mla.flash_decode_mla(q_eff, q_rope, c_cache,
+                                               r_cache, kv_valid_len,
+                                               scale=scale)
+        return _flash_mla.flash_attention_mla(
+            q_eff, q_rope, c_cache, r_cache, q_offset, kv_valid_len,
+            scale=scale, causal=causal)
+    _require_cpu(q_eff, "mla_attention")
+    obs_kernels.record_path("flash_decode_mla" if decode
+                            else "flash_attention_mla", "cpu")
+    return _flash_mla.mla_plain(q_eff, q_rope, c_cache, r_cache,
+                                q_offset=q_offset, kv_valid_len=kv_valid_len,
+                                scale=scale, causal=causal,
+                                chunk_size=cfg.attn_chunk)
+
+
 def _contiguous_op(decode: bool, k_scale, kv_valid_len) -> str:
     """The kernel whose plain version a contiguous attention call runs."""
     if decode:
@@ -240,14 +277,17 @@ def _contiguous_op(decode: bool, k_scale, kv_valid_len) -> str:
 
 def _require_kernel_form(q, v, scale, what: str) -> None:
     """The attention kernels take the default scale and v's head_dim equal
-    to q's; MLA's absorbed forms are ported with MLA."""
+    to q's.  MLA's absorbed serving forms have kernels of their own
+    (``mla_attention``); its decompressed training form (Dqk 96, Dv 64)
+    waits for the MLA training slice."""
     if scale is not None and scale != q.shape[-1] ** -0.5:
         raise NotImplementedError(
-            f"{what} with a custom scale (MLA) is not ported yet")
+            f"{what} with a custom scale is not ported (MLA's absorbed "
+            "form runs through mla_attention)")
     if v.shape[-1] != q.shape[-1]:
         raise NotImplementedError(
-            f"{what} with a value head_dim other than q's (MLA) is not "
-            "ported yet")
+            f"{what} with a value head_dim other than q's (MLA's training "
+            "form) has no kernel yet: it comes with the MLA training slice")
 
 
 def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,

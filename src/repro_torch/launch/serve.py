@@ -30,7 +30,11 @@ cpu`` asks for the CPU, where the kernels' plain versions serve.
 ``--kv-cache-dtype int8`` stores K/V as int8 with a bf16 scale per
 (position, KV head) in every mode: each prompt prefills in one chunk, paged
 blocks are never shared, and decode reads the int8 cache through the
-dequantizing kernels.
+dequantizing kernels.  An MLA model (``--arch minicpm3_4b``) caches its
+compressed latent, fp under ``--kv-cache-dtype int8`` too (which keeps the
+single-shot prefill), serves the slot pool and the lockstep loop, and
+refuses ``--paged`` with the reference's ``ValueError`` (its latent cache
+has no block-pool layout).
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
 ``_continuous`` at 88, ``main`` at 264); weights and sampling generators

@@ -31,14 +31,16 @@ def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     stacked]}`` → the port's ``{"embed", "final_norm", "layers": [...]}``
     on ``device`` (the card unless the caller asks for the CPU).  An MoE
     layer's ``"moe"`` dict carries the router, the stacked experts and the
-    shared expert's ``"shared"`` MLP dict as they are."""
+    shared expert's ``"shared"`` MLP dict as they are; an MLA layer's
+    ``"attn"`` carries its eight leaves, its ``q_norm`` / ``kv_norm``
+    ``{"scale"}`` dicts becoming flat tensors as ``ln1``'s does."""
     segments = tree["segments"]
     keys = set(segments[0]) if len(segments) == 1 else set()
     if keys not in ({"ln1", "attn", "ln2", "mlp"},
                     {"ln1", "attn", "ln2", "moe"}):
-        raise NotImplementedError("params_from_numpy converts dense and MoE "
-                                  "stacks (one segment of dense or moe "
-                                  "blocks) only")
+        raise NotImplementedError("params_from_numpy converts dense, MoE "
+                                  "and MLA stacks (one segment of dense, "
+                                  "moe or mla blocks) only")
     seg = segments[0]
     n = np.asarray(seg["ln1"]["scale"]).shape[0]
 
@@ -49,8 +51,9 @@ def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     def layer(i: int) -> dict:
         out = {
             "ln1": _tensor(seg["ln1"]["scale"][i], device),
-            "attn": {k: _tensor(seg["attn"][k][i], device)
-                     for k in ("wq", "wk", "wv", "wo")},
+            "attn": {k: _tensor(w["scale"][i] if isinstance(w, dict)
+                                else w[i], device)
+                     for k, w in seg["attn"].items()},
             "ln2": _tensor(seg["ln2"]["scale"][i], device),
         }
         ffn = "moe" if "moe" in seg else "mlp"

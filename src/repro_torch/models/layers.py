@@ -1,14 +1,14 @@
 """Model layers of the port: norms, rotary embedding, GQA attention over
-a paged KV pool or a contiguous KV cache, the SwiGLU MLP, the mixture of
-experts, embedding and LM head.
+a paged KV pool or a contiguous KV cache, multi-head latent attention over
+a contiguous latent cache, the SwiGLU MLP, the mixture of experts,
+embedding and LM head.
 
-Port of ``src/repro/models/layers.py`` but MLA: ``rms_norm`` (line
-90), ``rope`` (109), ``cache_write`` (146), ``paged_cache_write`` (163),
+Port of ``src/repro/models/layers.py``: ``rms_norm`` (line 90), ``rope``
+(109), ``cache_write`` (146), ``paged_cache_write`` (163),
 ``_quantize_kv`` (203), the paged and the contiguous branches of
-``attention_apply``, fp and int8 (277-353), ``mlp_apply`` (459),
-``moe_apply`` (486), ``embed_tokens`` (555) and ``head_matrix`` (559).
-Parameters are plain dicts of tensors.  The MLA branch comes with a later
-slice.
+``attention_apply``, fp and int8 (277-353), ``mla_apply`` (388),
+``mlp_apply`` (459), ``moe_apply`` (486), ``embed_tokens`` (555) and
+``head_matrix`` (559).  Parameters are plain dicts of tensors.
 """
 from __future__ import annotations
 
@@ -175,6 +175,67 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
                             kv_valid_len=None)
     out = out.reshape(b, t, hq * hd) @ p["wo"]
     return out, cache
+
+
+def mla_apply(p: dict, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
+              cache: Optional[dict] = None,
+              cache_len: Optional[Union[int, Tensor]] = None):
+    """Multi-head latent attention (MiniCPM3 / DeepSeek-V2): x [B, T, D] →
+    (out [B, T, D], cache), the reference's ``mla_apply`` step for step.
+
+    The queries come from a low-rank path (``wdq``, ``q_norm``, ``wuq``),
+    split into a no-position part and a rotary part; the keys and values
+    from one compressed latent ``c_kv`` [B, T, R] (``wdkv``, ``kv_norm``)
+    and a rotary key ``k_rope`` [B, T, Dr] shared by every head.  The scale
+    is (qk_nope + qk_rope)^-0.5.
+
+    * ``cache``: this layer's latent cache ``{"c_kv": [B, S, R], "k_rope":
+      [B, S, Dr]}``; the step's latents are written at ``cache_len`` (a
+      scalar or per-row [B]) in place, then the absorbed form attends: W_uk
+      folds into the query (``q_eff`` [B, T, H, R]), every head scores
+      ``q_eff·c + q_rope·r`` against the same latent rows and takes
+      ``softmax·c`` (``dispatch.mla_attention``, which reads the cache in
+      place), and W_uv maps the [B, T, H, R] context to the value heads.
+      An int8 config keeps fp latents too, as the reference's does.
+    * ``cache=None`` (training): the decompressed form, K = [c·W_uk,
+      k_rope broadcast to the heads] and V = c·W_uv, through
+      ``dispatch.sdpa`` (Dqk 96, Dv 64), which has no kernel on CUDA yet
+      and raises there; the CPU runs its plain version.
+    """
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.num_heads
+    nope, rot = m.qk_nope_head_dim, m.qk_rope_head_dim
+    cq = rms_norm(p["q_norm"], x @ p["wdq"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(b, t, h, nope + rot)
+    q_nope, q_rope = q.split([nope, rot], dim=-1)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (x @ p["wdkv"]).split([m.kv_lora_rank, rot], dim=-1)
+    c_kv = rms_norm(p["kv_norm"], c_kv, cfg.norm_eps)
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    scale = (nope + rot) ** -0.5
+    if cache is not None:
+        c_all = cache_write(cache["c_kv"], c_kv, cache_len)
+        r_all = cache_write(cache["k_rope"], k_rope, cache_len)
+        wuk3 = p["wuk"].reshape(m.kv_lora_rank, h, nope)
+        q_eff = torch.einsum("bthk,rhk->bthr", q_nope, wuk3)
+        valid = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=x.device).expand(b) + t
+        ctx = dispatch.mla_attention(cfg, q_eff, q_rope, c_all, r_all,
+                                     causal=t > 1, q_offset=cache_len,
+                                     kv_valid_len=valid, scale=scale,
+                                     decode=(t == 1))
+        wuv3 = p["wuv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+        out = torch.einsum("bthr,rhk->bthk", ctx, wuv3)
+    else:
+        k_nope = (c_kv @ p["wuk"]).reshape(b, t, h, nope)
+        v = (c_kv @ p["wuv"]).reshape(b, t, h, m.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rot)],
+                      dim=-1)
+        qc = torch.cat([q_nope, q_rope], dim=-1)
+        out = dispatch.sdpa(cfg, qc, k, v, causal=True, q_offset=0,
+                            kv_valid_len=None, scale=scale)
+    return out.reshape(b, t, h * m.v_head_dim) @ p["wo"], cache
 
 
 def mlp_apply(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:

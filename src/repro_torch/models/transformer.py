@@ -1,9 +1,11 @@
-"""Decoder-only LM for the dense and MoE block kinds: init, forward,
+"""Decoder-only LM for the dense, MoE and MLA block kinds: init, forward,
 training loss, decode logits.
 
-Port of ``src/repro/models/transformer.py`` for ``dense`` and ``moe``
-blocks: ``block_pattern`` (line 41), ``block_apply`` (114; dense takes the
-MLP, moe ``layers.moe_apply``, at 150-154), ``init`` (176; the port's own
+Port of ``src/repro/models/transformer.py`` for ``dense``, ``moe`` and
+``mla`` blocks: ``block_pattern`` (line 41), ``block_apply`` (114; dense
+takes the MLP, moe ``layers.moe_apply``, at 150-154; mla
+``layers.mla_apply`` and the MLP, rejecting block tables as at 133-135),
+``init`` (176; the port's own
 seeded initialiser with the reference's shapes and scales), ``forward``
 (217; a Python loop over layers in place of ``lax.scan``, each layer under
 ``torch.utils.checkpoint`` where the reference's ``_maybe_remat`` put it
@@ -20,9 +22,11 @@ Parameters are a plain dict::
 
 An MoE layer holds ``"moe": {"router": [D, E] float32, "w_gate", "w_up":
 [E_pad, D, F], "w_down": [E_pad, F, D], ("shared": {"w_gate", "w_up",
-"w_down"}, an MLP of d_ff_shared)}`` in place of ``"mlp"``.  Norm scales
-and the router stay float32 as in the reference; the rest takes
-``cfg.dtype``.
+"w_down"}, an MLP of d_ff_shared)}`` in place of ``"mlp"``.  An MLA layer's
+``"attn"`` is ``{"wdq": [D, Rq], "q_norm": [Rq], "wuq": [Rq, H·(Dn+Dr)],
+"wdkv": [D, R+Dr], "kv_norm": [R], "wuk": [R, H·Dn], "wuv": [R, H·Dv],
+"wo": [H·Dv, D]}`` (``layers.mla_apply``).  Norm scales and the router
+stay float32 as in the reference; the rest takes ``cfg.dtype``.
 """
 from __future__ import annotations
 
@@ -44,12 +48,14 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 #: Leaves that keep float32 whatever ``cfg.dtype`` is.
-FP32_LEAVES = ("ln1", "ln2", "final_norm", "router")
+FP32_LEAVES = ("ln1", "ln2", "final_norm", "router", "q_norm", "kv_norm")
 
 
 def block_pattern(cfg: ModelConfig) -> list[tuple[str, int]]:
     if cfg.family in ("dense", "vlm"):
         return [("dense", cfg.num_layers)]
+    if cfg.family == "mla":
+        return [("mla", cfg.num_layers)]
     if cfg.family == "moe":
         return [("moe", cfg.num_layers)]
     raise NotImplementedError(
@@ -61,10 +67,12 @@ def init(cfg: ModelConfig, *, seed: int = 0,
          draw_device: Union[str, torch.device] = "cpu") -> dict:
     """Random weights from ``seed``: normal with scale 1/sqrt(fan_in) for
     projections and 1 for the embedding, ones for norm scales — the
-    reference's ``_dense_init`` shapes and scales, the untied ``head``
-    and the MoE leaves included (the fp32 router [D, E]; the experts
-    [E_pad, D, F] / [E_pad, F, D] at 1/sqrt(E_pad), the reference's fan-in
-    of a stacked leaf; the shared expert's MLP).  Each tensor is drawn in
+    reference's ``_dense_init`` shapes and scales, the untied ``head``,
+    the MoE leaves (the fp32 router [D, E]; the experts [E_pad, D, F] /
+    [E_pad, F, D] at 1/sqrt(E_pad), the reference's fan-in of a stacked
+    leaf; the shared expert's MLP) and the MLA leaves (``mla_init``'s
+    shapes, each at 1/sqrt(its first axis), the fp32 ``q_norm`` /
+    ``kv_norm`` ones) included.  Each tensor is drawn in
     fp32 on ``draw_device`` from one seeded ``torch.Generator`` there, then
     cast to ``cfg.dtype`` (the router: kept fp32) on ``device``.  The
     default draws on the CPU, so a seed gives the same weights on every
@@ -93,6 +101,21 @@ def init(cfg: ModelConfig, *, seed: int = 0,
             p["w_gate"] = dense((d, ff))
         return p
 
+    def attention():
+        if kind != "mla":
+            return {"wq": dense((d, hq * hd)), "wk": dense((d, hkv * hd)),
+                    "wv": dense((d, hkv * hd)), "wo": dense((hq * hd, d))}
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {"wdq": dense((d, m.q_lora_rank)),
+                "q_norm": torch.ones(m.q_lora_rank, device=device),
+                "wuq": dense((m.q_lora_rank, hq * qk)),
+                "wdkv": dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+                "kv_norm": torch.ones(m.kv_lora_rank, device=device),
+                "wuk": dense((m.kv_lora_rank, hq * m.qk_nope_head_dim)),
+                "wuv": dense((m.kv_lora_rank, hq * m.v_head_dim)),
+                "wo": dense((hq * m.v_head_dim, d))}
+
     def moe():
         mc = cfg.moe
         e, ff = mc.pad_experts_to or mc.num_experts, mc.d_ff_expert
@@ -111,11 +134,8 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     for _ in range(cfg.num_layers):
         # the feed-forward leaves are drawn before the attention's
         ffn = {"moe": moe()} if kind == "moe" else {"mlp": mlp(f)}
-        layers.append({
-            "ln1": ones(),
-            "attn": {"wq": dense((d, hq * hd)), "wk": dense((d, hkv * hd)),
-                     "wv": dense((d, hkv * hd)), "wo": dense((hq * hd, d))},
-            "ln2": ones(), **ffn})
+        layers.append({"ln1": ones(), "attn": attention(), "ln2": ones(),
+                       **ffn})
     params["layers"] = layers
     return params
 
@@ -169,13 +189,22 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
 
 def _block_apply(lp: dict, x: Tensor, *, cfg: ModelConfig, positions, cache,
                  cache_len, block_tables, aux: bool):
-    """One block: [norm → GQA attention] + [norm → SwiGLU MLP] (dense) or
-    [norm → mixture of experts] (moe).  Returns (x, the MoE aux losses when
-    ``aux``, else {})."""
+    """One block: [norm → GQA attention] + [norm → SwiGLU MLP] (dense),
+    [norm → mixture of experts] (moe), or [norm → latent attention] +
+    [norm → SwiGLU MLP] (mla, which takes no block tables: its latent cache
+    is contiguous only, as the reference's).  Returns (x, the MoE aux
+    losses when ``aux``, else {})."""
     h = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
-    a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions,
-                             cache=cache, cache_len=cache_len,
-                             block_tables=block_tables)
+    if "wdkv" in lp["attn"]:
+        if block_tables is not None:
+            raise ValueError("paged KV cache serves standard attention "
+                             "blocks only (got 'mla')")
+        a, _ = L.mla_apply(lp["attn"], h, cfg, positions=positions,
+                           cache=cache, cache_len=cache_len)
+    else:
+        a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions,
+                                 cache=cache, cache_len=cache_len,
+                                 block_tables=block_tables)
     x = x + a
     h = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:

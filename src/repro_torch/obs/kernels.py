@@ -114,6 +114,17 @@ def decode_step_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
     the fp32 logits [batch, V] written once.  Norms, RoPE, the embedding
     gather, the router's top-k and one-hot bookkeeping and the sampler's k
     entries are left out.
+
+    An MLA layer (``cfg.mla``) counts the absorbed decode's products in
+    place of q, k, v and o: ``wdq`` [D, Rq], ``wuq`` [Rq, H·(Dn+Dr)],
+    ``wdkv`` [D, R+Dr], the W_uk absorption (q_nope [H, Dn] against
+    [R, H, Dn]), the W_uv one (the context [H, R] against [R, H, Dv]) and
+    ``wo`` [H·Dv, D], each 2 × its parameters × ``batch``; its attention
+    2·H·(R + Dr + R) flops per live key and layer (every head scores the
+    (R + Dr)-wide latent row and takes the R-wide value, which is the same
+    row's c); and its cache bytes the latent row, R + Dr elements in the
+    model dtype per live key and layer, read once (V is that c, not read
+    again; an int8 config keeps fp latents).
     """
     d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.head_dim or d // hq
@@ -121,6 +132,14 @@ def decode_step_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
     w = _ITEMSIZE[cfg.dtype]
     mats = 3 if cfg.act == "silu" else 2
     attn = d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+    m = cfg.mla
+    if m is not None:
+        attn = (d * m.q_lora_rank
+                + m.q_lora_rank * hq * (m.qk_nope_head_dim
+                                        + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * hq * (m.qk_nope_head_dim + m.v_head_dim)
+                + hq * m.v_head_dim * d)
     mc = cfg.moe
     if mc is None:
         ffn_flops = 2 * mats * d * cfg.d_ff * batch
@@ -136,11 +155,18 @@ def decode_step_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
         ffn_bytes = (d * e * 4 + 3 * e_pad * d * mc.d_ff_expert * w
                      + mats * d * mc.d_ff_shared * w)
     live = sum(int(n) for n in live_lens)
+    if m is None:
+        per_key = 4 * hq * dh
+        kv_entries = live * layers * 2 * hkv
+        kv_bytes = (kv_entries * dh + 2 * kv_entries
+                    if cfg.kv_cache_dtype == "int8"
+                    else kv_entries * dh * w)
+    else:
+        row = m.kv_lora_rank + m.qk_rope_head_dim
+        per_key = 2 * hq * (row + m.kv_lora_rank)
+        kv_bytes = live * layers * row * w
     flops = ((2 * attn * batch + ffn_flops) * layers
-             + 4 * hq * dh * live * layers + 2 * d * vocab * batch)
-    kv_entries = live * layers * 2 * hkv
-    kv_bytes = (kv_entries * dh + 2 * kv_entries
-                if cfg.kv_cache_dtype == "int8" else kv_entries * dh * w)
+             + per_key * live * layers + 2 * d * vocab * batch)
     nbytes = ((attn * w + ffn_bytes) * layers + d * vocab * w + kv_bytes
               + batch * vocab * 4)
     return {"flops": float(flops), "bytes_accessed": float(nbytes),

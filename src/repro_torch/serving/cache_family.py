@@ -1,15 +1,21 @@
 """Cache families: what the serving stack assumes about a config's KV layout.
 
-Port of ``src/repro/serving/cache_family.py`` for the attention-K/V
-decoders (dense and MoE blocks, whose caches are the same) and their two
-families: ``DenseFamily`` (line 183), fp attention K/V as contiguous
+Port of ``src/repro/serving/cache_family.py`` for the attention decoders
+(dense and MoE blocks, whose caches are the same, and MLA blocks) and their
+two families: ``DenseFamily`` (line 183), fp attention K/V as contiguous
 per-sequence caches (the slot pool and the lockstep batch) or paged as blocks
 of ``block_size`` token positions, prefix-shareable with copy-on-write; and
 ``DenseInt8Family`` (232), int8 K/V with a bf16 scale per (position, KV head)
-beside them, prefilled in one shot and never shared.  The fixed-state and
-enc-dec families come with later slices; ``resolve`` raises for them.  The
-pool-layout contract is the reference's: the physical block axis sits at
-position 1 of every pool leaf ([L, P, Hkv, BS, D], scales [L, P, Hkv, BS]).
+beside them, prefilled in one shot and never shared.  An MLA config's
+cache is its compressed latent under both families, fp in the model dtype
+(the reference's ``_segment_caches`` ignores ``quantized`` for ``mla``, line
+84): ``{"c_kv": [L, B, S, R], "k_rope": [L, B, S, Dr]}``, contiguous only
+(``paged_serveable`` False, ``init_paged_cache`` raising the reference's
+``ValueError``); the int8 family keeps its single-shot prefill and
+``shareable = False`` there too.  The fixed-state and enc-dec families come
+with later slices; ``resolve`` raises for them.  The pool-layout contract is
+the reference's: the physical block axis sits at position 1 of every pool
+leaf ([L, P, Hkv, BS, D], scales [L, P, Hkv, BS]).
 """
 from __future__ import annotations
 
@@ -34,9 +40,20 @@ class CacheFamily:
     shareable: bool = True
     #: Does the prompt occupy the decode cache?
     prompt_in_decoder: bool = True
+    #: May it serve through the paged pool?  When False,
+    #: ``init_paged_cache`` raises with ``paged_unsupported_reason``.
+    paged_serveable: bool = True
+    paged_unsupported_reason: str = ""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+
+    def _reject_paged(self) -> None:
+        cfg = self.cfg
+        raise ValueError(
+            f"paged KV cache unsupported for arch {cfg.name!r}: "
+            f"{self.paged_unsupported_reason} "
+            f"(family={cfg.family!r}, kv_cache_dtype={cfg.kv_cache_dtype!r})")
 
     def init_cache(self, batch: int, max_len: int, device) -> dict:
         raise NotImplementedError
@@ -63,9 +80,31 @@ class CacheFamily:
 
 
 class DenseFamily(CacheFamily):
-    """Standard fp attention K/V of dense (and MoE) decoder blocks."""
+    """Standard fp attention K/V of dense (and MoE) decoder blocks, and
+    MLA blocks' latent caches (contiguous only: paging them is a gap the
+    reference shares, so ``paged_serveable`` follows the block kinds)."""
 
     name = "dense"
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        kinds = {k for k, _ in transformer.block_pattern(cfg)}
+        self.latent = kinds == {"mla"}
+        self.paged_serveable = kinds <= {"dense", "moe"}
+        if not self.paged_serveable:
+            self.paged_unsupported_reason = (
+                "needs standard fp attention caches in every block")
+
+    def _latent_cache(self, batch: int, max_len: int, device) -> dict:
+        """Zeroed MLA latent caches {"c_kv": [L, B, S, R], "k_rope":
+        [L, B, S, Dr]} in the model dtype, whatever the family."""
+        cfg, m = self.cfg, self.cfg.mla
+        dt = transformer.DTYPES[cfg.dtype]
+        lead = (cfg.num_layers, batch, max_len)
+        return {"c_kv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dt,
+                                    device=device),
+                "k_rope": torch.zeros(lead + (m.qk_rope_head_dim,),
+                                      dtype=dt, device=device)}
 
     def _zeros(self, shape, device) -> dict:
         dt = transformer.DTYPES[self.cfg.dtype]
@@ -74,15 +113,21 @@ class DenseFamily(CacheFamily):
 
     def init_cache(self, batch: int, max_len: int, device) -> dict:
         """Zeroed contiguous caches {"k", "v": [L, B, S, Hkv, D]}: layer i's
-        [B, S, Hkv, D] is the model layout the attention kernels read."""
+        [B, S, Hkv, D] is the model layout the attention kernels read; an
+        MLA config's latent caches (``_latent_cache``)."""
         cfg = self.cfg
+        if self.latent:
+            return self._latent_cache(batch, max_len, device)
         return self._zeros((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                             cfg.resolved_head_dim), device)
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          device) -> dict:
         """Zeroed pools {"k", "v": [L, P, Hkv, BS, D]}; ``num_blocks``
-        counts the sentinel block 0."""
+        counts the sentinel block 0.  Raises for a config that is not
+        ``paged_serveable``."""
+        if not self.paged_serveable:
+            self._reject_paged()
         cfg = self.cfg
         return self._zeros((cfg.num_layers, num_blocks, cfg.num_kv_heads,
                             block_size, cfg.resolved_head_dim), device)
@@ -107,7 +152,9 @@ class DenseInt8Family(DenseFamily):
     add scale pages [L, P, Hkv, BS] beside the int8 pools, read through the
     same block table.  Prefill is single shot (it attends over the prompt's
     exact K/V), and blocks are never prefix-shared: scales are per-sequence
-    write-time values, so the family stays out of the prefix index."""
+    write-time values, so the family stays out of the prefix index.  An MLA config keeps fp latent
+    caches under this family (``DenseFamily._latent_cache``), with its
+    single-shot prefill and no sharing, as the reference's does."""
 
     name = "dense_int8"
     quantized = True
@@ -137,9 +184,10 @@ def resolve(cfg: ModelConfig) -> CacheFamily:
     ``kv_cache_dtype == "int8"``, else fp K/V (any other value keeps the
     model dtype, as in the reference).  Dense and MoE blocks hold the same
     attention K/V, so both kinds, alone or mixed, take these families, as
-    in the reference (``cache_family.py:79,199``)."""
+    in the reference (``cache_family.py:79,199``); so do MLA blocks, with
+    their latent caches (``DenseFamily``)."""
     kinds = {k for k, _ in transformer.block_pattern(cfg)}
-    if not kinds <= {"dense", "moe"}:
+    if not (kinds <= {"dense", "moe"} or kinds == {"mla"}):
         raise NotImplementedError(
             f"cache family for {cfg.name!r} (blocks {sorted(kinds)}) is not "
             "ported yet")

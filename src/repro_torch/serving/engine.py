@@ -1,5 +1,5 @@
 """Serving primitives: cache init, prefill, decode steps, logits and
-sampling, for three serving shapes over one dense model.
+sampling, for three serving shapes over one decoder (dense, MoE or MLA).
 
 * **Lockstep batch** (``prefill`` + ``decode_step``): one scalar cache
   length shared by every row, the drain-and-refill baseline.
@@ -9,13 +9,22 @@ sampling, for three serving shapes over one dense model.
   cache.
 * **Paged pool** (``init_paged_cache`` / ``copy_paged_block`` /
   ``write_paged_block`` / ``prefill_chunk_paged`` / ``decode_step_paged``):
-  a shared block pool read through block tables.
+  a shared block pool read through block tables; not for MLA
+  (``paged_supported``).
 
-Port of ``src/repro/serving/engine.py`` for the dense family:
+The contiguous caches are the cache family's layout: attention K/V
+``{"k", "v": [L, B, S, Hkv, D]}`` (int8 adds ``"k_scale"``,
+``"v_scale"``), or an MLA model's latents ``{"c_kv": [L, B, S, R],
+"k_rope": [L, B, S, Dr]}``; every function here goes over the leaves the
+family gave, whichever they are.
+
+Port of ``src/repro/serving/engine.py`` for the dense family (dense, MoE
+and MLA blocks):
 ``init_cache`` (line 49), ``prefill`` (55), ``logits_from_hidden`` (69),
 ``decode_step`` (80), ``prefill_schedule`` (111), ``chunked_prefill`` (135),
 ``prefill_chunk`` (165), ``write_slot`` (182), ``sample_per_slot`` (199),
-``decode_step_slots`` (218), ``init_paged_cache`` (251),
+``decode_step_slots`` (218), ``paged_supported`` (241),
+``init_paged_cache`` (251),
 ``copy_paged_block`` (265), ``write_paged_block`` (276),
 ``prefill_chunk_paged`` (291) and
 ``decode_step_paged`` (305).  Caches and pools are updated in place (the JAX
@@ -45,8 +54,9 @@ Tensor = torch.Tensor
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    """Zeroed contiguous caches {"k", "v": [L, B, S, Hkv, D]}, the layout
-    the config's cache family owns."""
+    """Zeroed contiguous caches, the layout the config's cache family owns:
+    {"k", "v": [L, B, S, Hkv, D]} (and int8's scales), or MLA's latents
+    {"c_kv": [L, B, S, R], "k_rope": [L, B, S, Dr]}."""
     return cache_family.resolve(cfg).init_cache(batch, max_len, device)
 
 
@@ -161,10 +171,19 @@ def sample_per_slot(logits: Tensor, top_k: int, noise: Tensor,
     return gumbel_pick(out, noise)
 
 
+def paged_supported(cfg: ModelConfig) -> bool:
+    """Whether the config's cache family has a block-pool layout: the
+    attention K/V of dense and MoE blocks, fp or int8; an MLA model's
+    latent cache is contiguous only."""
+    return cache_family.resolve(cfg).paged_serveable
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device="cuda") -> dict:
     """Zeroed block pools {"k", "v": [L, P, Hkv, BS, D]} — kernel-native
-    page layout, no batch axis; ``num_blocks`` includes the sentinel 0."""
+    page layout, no batch axis; ``num_blocks`` includes the sentinel 0.
+    Raises the reference's ``ValueError`` for a config without one
+    (``paged_supported``)."""
     return cache_family.resolve(cfg).init_paged_cache(num_blocks, block_size,
                                                       device)
 

@@ -51,7 +51,9 @@ def run(run_cfg: RunConfig, *, steps: int, train_step: Callable,
 
     Returns (params, opt_state, history).  Restores from the newest committed
     checkpoint in ``run_cfg.checkpoint_dir`` if one exists (restart path).
-    Batches go to the parameters' device."""
+    Saves every ``checkpoint_every`` steps and after the last, or never
+    when ``checkpoint_every`` is 0.  Batches go to the parameters'
+    device."""
     ckpt = CheckpointManager(run_cfg.checkpoint_dir,
                              keep=run_cfg.keep_checkpoints)
     device = tree.leaves(params)[0].device
@@ -88,7 +90,8 @@ def run(run_cfg: RunConfig, *, steps: int, train_step: Callable,
             log(f"[step {step}] loss={metrics.get('loss', float('nan')):.4f} "
                 f"dt={dt * 1e3:.1f}ms")
         step += 1
-        if step % run_cfg.checkpoint_every == 0 or step == steps:
+        if run_cfg.checkpoint_every > 0 and (
+                step % run_cfg.checkpoint_every == 0 or step == steps):
             ckpt.save(step, {"params": params, "opt": opt_state})
     ckpt.wait()
     return params, opt_state, history

@@ -33,6 +33,8 @@ NO_LIBRARY = dict.fromkeys(("online_softmax", "online_softmax_bf16",
                             "online_softmax_exp2", "online_normalizer"), 0)
 # the MoE router's launches of softmax_topk, zero for a dense model
 NO_ROUTER = {"softmax_topk_router": 0}
+# the MLA kernels' counters, zero for a model without latent attention
+NO_MLA = {"flash_decode_mla": 0, "flash_attention_mla": 0}
 
 
 @pytest.fixture
@@ -99,7 +101,8 @@ def test_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
-                                        **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
+                                        **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
+                                        **NO_MLA}
 
 
 def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
@@ -167,7 +170,8 @@ def test_contiguous_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention": 0,
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
-                                        **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
+                                        **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
+                                        **NO_MLA}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -203,7 +207,8 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": 0,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
+        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
+        **NO_MLA}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
@@ -307,14 +312,16 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
         "flash_attention_offset": (sched.prefill_chunks - ones) * n,
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER}
+        "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
+        **NO_MLA}
     assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
                            "flash_decode": 5 * n, "flash_attention_paged": 0,
                            "flash_attention_offset": n,
                            "flash_attention": 0,
                            "flash_attention_bwd_dq": 0,
                            "flash_attention_bwd_dkv": 0, **NO_INT8,
-                           **NO_LIBRARY, **NO_ROUTER}
+                           **NO_LIBRARY, **NO_ROUTER,
+                           **NO_MLA}
 
 
 def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
@@ -1308,3 +1315,125 @@ def test_moe_streams_equal_on_card_and_cpu(cuda):
     assert counts["softmax_topk"] == sched.decode_steps + sched.prefills_done
     assert counts["softmax_topk_router"] == cfg.num_layers * (
         sched.decode_steps + sched.prefill_chunks)
+
+
+# ---------------------------------------------------------------------------
+# MLA: the latent attention kernels (minicpm3-4b's R 256 / Dr 32).
+# ---------------------------------------------------------------------------
+MLA_SCALE = 96 ** -0.5
+
+
+def _mla(seed, *, b, tq, h, s, vlens, dtype):
+    """q_eff, q_rope and latent caches (layer 1 of a [2, B, S, ...] tensor)
+    with every row at or past its vlen NaN, on the card."""
+    from repro_torch.kernels import flash_mla as fm
+    r, dr = fm.LATENT_DIMS
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, tq, h, r, generator=gen)
+    qr = torch.randn(b, tq, h, dr, generator=gen)
+    c = torch.randn(2, b, s, r, generator=gen)
+    rr = torch.randn(2, b, s, dr, generator=gen)
+    for row, n in enumerate(vlens):
+        c[1, row, n:] = float("nan")
+        rr[1, row, n:] = float("nan")
+    dev = dict(device="cuda", dtype=dtype)
+    return (q.to(**dev), qr.to(**dev), c.to(**dev)[1], rr.to(**dev)[1],
+            torch.tensor(vlens, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("h", [40, 7])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_mla_decode_matches_plain(cuda, h, dtype, atol):
+    """The MLA decode at 40 heads (and 7, a partial last warp) over rows of
+    vlen 0, 1, the split edges ± 1 and the full cache, NaN past vlen:
+    finite, vlen 0 exactly 0, a repeat bit-equal, within ``atol`` of the
+    plain version; one launch counted a call."""
+    from repro_torch.kernels import flash_mla as fm
+    s = 100
+    vlens = [0, 1, 31, 32, 33, 63, 64, 65, 99, 100]
+    q, qr, c, rr, vl = _mla(0, b=len(vlens), tq=1, h=h, s=s, vlens=vlens,
+                            dtype=dtype)
+    dispatch.reset_launch_counts()
+    got = fm.flash_decode_mla(q, qr, c, rr, vl, scale=MLA_SCALE)
+    again = fm.flash_decode_mla(q, qr, c, rr, vl, scale=MLA_SCALE)
+    want = fm.flash_decode_mla_plain(q, qr, c, rr, vl, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_decode_mla"] == 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert got[0].abs().max().item() == 0.0
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_mla_prefill_matches_plain(cuda, dtype, atol):
+    """The MLA cached prefill at Tq 65 over offsets off the 32-row tile and
+    vlens ending mid-tile, NaN past vlen, causal in absolute coordinates,
+    and a non-causal call: within ``atol`` of the plain version, a repeat
+    bit-equal."""
+    from repro_torch.kernels import flash_mla as fm
+    offs = [0, 7, 40]
+    vlens = [o + 65 for o in offs]
+    q, qr, c, rr, vl = _mla(1, b=3, tq=65, h=40, s=128, vlens=vlens,
+                            dtype=dtype)
+    qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    for causal in (True, False):
+        got = fm.flash_attention_mla(q, qr, c, rr, qo, vl, scale=MLA_SCALE,
+                                     causal=causal)
+        again = fm.flash_attention_mla(q, qr, c, rr, qo, vl,
+                                       scale=MLA_SCALE, causal=causal)
+        want = fm.flash_attention_mla_plain(q, qr, c, rr, qo, vl,
+                                            scale=MLA_SCALE, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+def test_mla_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import flash_mla as fm
+    q, qr, c, rr, vl = _mla(2, b=2, tq=1, h=41, s=64, vlens=[3, 9],
+                            dtype=torch.float32)
+    with pytest.raises(ValueError, match="H=41"):
+        fm.flash_decode_mla(q, qr, c, rr, vl, scale=MLA_SCALE)
+    with pytest.raises(ValueError, match="R=256"):
+        fm.flash_decode_mla(q[..., :128].contiguous(), qr, c[..., :128], rr,
+                            vl, scale=MLA_SCALE)
+    with pytest.raises(ValueError, match="dtypes"):
+        fm.flash_attention_mla(q[:, :, :40].half(), qr[:, :, :40].half(),
+                               c.half(), rr.half(), 0, vl, scale=MLA_SCALE)
+
+
+def test_mla_streams_equal_on_card_and_cpu(cuda):
+    """A small MLA model (minicpm3's latent widths R 256 / Dr 32, 8 heads,
+    2 layers) served through the slot pool on the card and on the CPU:
+    identical streams, one latent attention launch a layer and forward;
+    training refuses the card."""
+    from repro_torch.launch import train
+    base = configs.get_smoke("minicpm3_4b")
+    cfg = base.replace(d_model=128, num_heads=8, num_kv_heads=8, mla=(
+        configs.MLAConfig(q_lora_rank=64, kv_lora_rank=256,
+                          qk_nope_head_dim=32, qk_rope_head_dim=32,
+                          v_head_dim=32)))
+    params_cpu = transformer.init(cfg, seed=4, device="cpu")
+    argv = ["--arch", "minicpm3_4b", "--smoke", "--continuous", "--requests",
+            "5", "--tokens", "8", "--prompt-len", "20", "--slots", "2",
+            "--prefill-chunk", "8"]
+    runs = {}
+    for device, params in (("cuda", transformer.params_to(params_cpu, cuda)),
+                           ("cpu", params_cpu)):
+        args = serve.parse_args(argv + ["--device", device])
+        dispatch.reset_launch_counts()
+        report, router, _, _ = serve.run(args, cfg, params)
+        runs[device] = (report, router.engines[0].scheduler,
+                        dispatch.launch_counts())
+    (rep_g, sched, counts), (rep_c, _, _) = runs["cuda"], runs["cpu"]
+    assert {r.rid: r.tokens for r in rep_g.results} == \
+        {r.rid: r.tokens for r in rep_c.results}
+    ones = sched.chunk_widths.get(1, 0)
+    assert counts["flash_decode_mla"] == cfg.num_layers * (
+        sched.decode_steps + ones)
+    assert counts["flash_attention_mla"] == cfg.num_layers * (
+        sched.prefill_chunks - ones)
+    with pytest.raises(NotImplementedError, match="MLA training slice"):
+        train.train(train.parse_args(["--arch", "minicpm3_4b", "--smoke"]))

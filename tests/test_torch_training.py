@@ -310,6 +310,26 @@ def test_loss_decreases(tmp_path):
     assert all(np.isfinite(x) for x in losses)
 
 
+def test_checkpoint_every_zero_saves_nothing(tmp_path):
+    """``checkpoint_every=0`` (``--checkpoint-every 0``) trains without
+    writing a checkpoint, the final one included; the default saves every
+    N steps and after the last."""
+    import dataclasses
+    from repro_torch.checkpoint.manager import CheckpointManager
+    run = dataclasses.replace(_run_cfg(tmp_path / "off"), checkpoint_every=0)
+    params, opt = init_state(run, device="cpu")
+    loop.run(run, steps=3, train_step=make_train_step(run), params=params,
+             opt_state=opt, dataset=_dataset(run.model, gb=2),
+             log=lambda *_: None)
+    assert CheckpointManager(run.checkpoint_dir).latest_step() is None
+    run = _run_cfg(tmp_path / "on")
+    params, opt = init_state(run, device="cpu")
+    loop.run(run, steps=3, train_step=make_train_step(run), params=params,
+             opt_state=opt, dataset=_dataset(run.model, gb=2),
+             log=lambda *_: None)
+    assert CheckpointManager(run.checkpoint_dir).latest_step() == 3
+
+
 def test_crash_restart_is_exact(tmp_path):
     """Kill the loop at step 17 (after the step-10 checkpoint), restart:
     the final parameters equal an uninterrupted 20-step run bit for bit."""
