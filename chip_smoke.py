@@ -17,9 +17,12 @@ printing its final line:
    one-token decode's split plan and dynamic shared memory at each serving
    path's shape, the fused softmax+top-k's plan at each sampling shape and
    phase 9's largest calls, and the paged prefill's grid at the serving
-   chunk); the latent attention kernels (``flash_mla.cu``) must build
-   without a spill, and their decode split at B 8 over 328 positions and B
-   4 over 288, and the prefill's grid at a 64-token chunk, are printed;
+   chunk); the latent attention kernels (``flash_mla.cu``, both forms:
+   bf16 ``mla_decode_wgmma_kernel`` / ``mla_prefill_wgmma_kernel`` on the
+   tensor cores, fp32 ``mla_split_kernel`` / ``mla_prefill_kernel``) must
+   build without a spill, and each dtype's decode split at B 8 over 328
+   positions and B 4 over 288 and prefill grid at a 64-token chunk and the
+   lockstep prefill, with their dynamic shared memory, are printed;
 3. kernels against their plain PyTorch versions at the serving and
    training paths' shapes (fused softmax+top-k at the decode batch's
    logits, k = 1, 5 and 32, fp32 and bf16, with exact ties across the
@@ -70,14 +73,16 @@ printing its final line:
    instance of each dtype's form; then the MLA decoder's latent attention
    at minicpm3-4b's 40 heads over R 256 + Dr 32, scale 96^-0.5, fp32 and
    bf16, every latent row past a row's vlen NaN: the decode
-   (``flash_decode_mla``) at B 8 over vlen 65-328 and at the batch whose
+   (``flash_decode_mla``) at B 8 over vlen 65-328, at the batch whose
    rows take vlen 0, 1, each split edge ± 1 and 328 (vlen 0 giving exactly
-   0), the cached prefill (``flash_attention_mla``) at 64-token chunks
-   after cached prefixes, Tq 65 and 130 at offsets off the 32-row tile
-   (vlens ending mid-tile), the int8 single-shot and the lockstep
-   prefills, each a repeat bit-equal and its kernel alone seen by the
-   profiler; and the sampler at minicpm3-4b's [8, 73728], with every
-   row's 280 padded entries -inf;
+   0) and at 7 heads over vlens ending mid-64-key tile, the cached prefill
+   (``flash_attention_mla``) at 64-token chunks after cached prefixes, Tq
+   65 and 130 at offsets off the 32- and 64-row tiles (vlens ending
+   mid-tile, a last 64-row tile with rows past T·H), the int8 single-shot
+   and the lockstep prefills and 7 heads at Tq 37, each a repeat bit-equal
+   and its dtype's form alone seen by the profiler (bf16 the tensor-core
+   kernels, fp32 the CUDA-core ones); and the sampler at minicpm3-4b's
+   [8, 73728], with every row's 280 padded entries -inf;
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -124,8 +129,9 @@ printing its final line:
    pools' bytes per cached token against 62 x 288 x 2 = 35712, peak device
    memory, and its "step" lines (a B 8 slot-pool decode step and a
    64-token prefill chunk, host call to device finish against device busy,
-   beside the weights' 2.546 ms byte bound; the decode step's kernels and
-   its ``decode_step_cost`` bound);
+   beside the weights' 2.546 ms byte bound, each step's latent attention
+   in the bf16 tensor-core kernel and never the fp32 form's; the decode
+   step's kernels and its ``decode_step_cost`` bound);
 5. parity: short fp32 workloads of the three paths (smollm-360m at full
    width and ``SMOLLM_LAYERS`` layers), once on the
    card through the kernels and once on the CPU through the plain versions;
@@ -182,9 +188,10 @@ printing its final line:
    151936 and 202048, and the D-128 instances at G 1 and G 5; the training
    kernels' D-128 instances at mistral-nemo-12b's and qwen2-moe-a2.7b's
    training shapes; the latent attention's decode at B 8 over vlen 65-328
-   and its prefill at a 64-token chunk at offset 64, bf16, beside one SDPA
-   call on the concatenated inputs, and the sampler at [8, 73728] with
-   the padded entries -inf), beside its bound, its plain
+   and its prefill at a 64-token chunk at offset 64, the lockstep prefill
+   and an int8 run's single-shot prefill, bf16, beside one SDPA call on
+   the concatenated inputs, and the sampler at [8, 73728] with the padded
+   entries -inf), beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
    and an int8 single-shot prefill beside SDPA, with each call's device
@@ -582,29 +589,43 @@ def _print_decode_plans() -> None:
 
 
 def _print_mla_plans() -> None:
-    """The latent attention kernels: ptxas's report must show no spill;
-    the decode's split at minicpm3-4b's serving shapes (the slot pool's B 8
-    over slots of 328, the lockstep's B 4 over 288) and the prefill's grid
-    at a 64-token chunk."""
+    """The latent attention kernels: ptxas's report must name both forms
+    of both entry points and show no spill; the decode's split for each
+    dtype at minicpm3-4b's serving shapes (the slot pool's B 8 over slots
+    of 328, the lockstep's B 4 over 288) and the prefill's grid for each
+    dtype at a 64-token chunk and the lockstep prefill, with each form's
+    dynamic shared memory."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_mla as fm
-    for kernel, info in _ptxas_report(build.BUILD_LOG.get("flash_mla",
-                                                          "")).items():
+    report = _ptxas_report(build.BUILD_LOG.get("flash_mla", ""))
+    for kernel, info in report.items():
         if info["spill_stores"] or info["spill_loads"]:
             _fail(f"ptxas flash_mla {kernel}: spills {info}")
+    missing = {"mla_split_kernel", "mla_prefill_kernel",
+               "mla_decode_wgmma_kernel", "mla_prefill_wgmma_kernel"} - {
+        k.partition("<")[0] for k in report}
+    if build.BUILD_LOG.get("flash_mla") is not None and missing:
+        _fail(f"ptxas flash_mla: no report of {sorted(missing)}")
     sms = build.sm_count(torch.device("cuda"))
+    smem = {torch.bfloat16: build.library("flash_mla").flash_mla_wgmma_smem(),
+            torch.float32: 0}           # the fp32 forms' tiles are static
     for what, b, s in (("slot pool", 8, MLA_S), ("lockstep", 4, 288)):
         for dtype in (torch.bfloat16, torch.float32):
             p = fm.decode_plan(b, MLA_HEADS, s, dtype, sms)
             print(f"  mla decode plan minicpm3-4b {what} [B={b}, H="
                   f"{MLA_HEADS}, S={s}] {str(dtype)[6:]}, {sms} SMs: split "
                   f"{p.split} x {p.splits} ({b * p.splits} CTAs of "
-                  f"{p.threads} threads, {fm.TILE}-row tiles in static "
-                  f"smem), {4 * p.workspace} bytes of partials")
-    print(f"  mla prefill grid minicpm3-4b [B=1, Tq=64, H={MLA_HEADS}]: "
-          f"{-(-64 * MLA_HEADS // fm.ROWS_PER_CTA)} CTAs of {fm.THREADS} "
-          f"threads, {fm.ROWS_PER_CTA} (token, head) rows each")
+                  f"{p.threads} threads, {fm.tile(dtype)}-row tiles, "
+                  f"{smem[dtype]} bytes dynamic smem), "
+                  f"{4 * p.workspace} bytes of partials")
+    for b, tq in ((1, 64), (4, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            g = fm.prefill_grid(b, tq, MLA_HEADS, dtype)
+            print(f"  mla prefill grid minicpm3-4b [B={b}, Tq={tq}, H="
+                  f"{MLA_HEADS}] {str(dtype)[6:]}: {g.ctas} x {b} CTAs of "
+                  f"{g.threads} threads, {g.rows} (token, head) rows each, "
+                  f"{smem[dtype]} bytes dynamic smem")
 
 
 # the fused softmax+top-k's plans: (what, R, V, k, logits dtype): the
@@ -671,7 +692,9 @@ WGMMA_SMEM = {"fresh_fwd_wgmma_kernel": "flash_attention_fwd_wgmma_smem",
               "offset_wgmma_kernel": "flash_attention_offset_wgmma_smem",
               "paged_wgmma_kernel": "flash_attention_paged_wgmma_smem",
               "bwd_dq_wgmma_kernel": "flash_attention_bwd_dq_wgmma_smem",
-              "bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv_wgmma_smem"}
+              "bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv_wgmma_smem",
+              "mla_decode_wgmma_kernel": "flash_mla_wgmma_smem",
+              "mla_prefill_wgmma_kernel": "flash_mla_wgmma_smem"}
 
 
 def _ptxas_report(log: str) -> dict:
@@ -1770,25 +1793,39 @@ MLA_SCALE = 96 ** -0.5
 # ragged lengths over them
 MLA_S = 328
 MLA_DECODE_VLENS = [328, 289, 250, 211, 172, 133, 94, 65]
-# the cached prefill's cases, (B, Tq, per-row offsets, S): the slot pool's
-# 64-token chunks after cached prefixes, Tq 65 and 130 at offsets off the
-# 32-row tile (so vlen ends mid-tile), an int8 run's single-shot prefill
-# and the lockstep prefill
-MLA_PREFILL_CASES = ((3, 64, (0, 64, 200), 328), (2, 65, (7, 100), 328),
-                     (2, 130, (0, 33), 328), (1, 256, (0,), 256),
-                     (4, 256, (0, 0, 0, 0), 288))
+# the cached prefill's cases, (B, Tq, per-row offsets, S, H): the slot
+# pool's 64-token chunks after cached prefixes, Tq 65 and 130 at offsets
+# off the 32-row and 64-row tiles (so vlen ends mid-tile, and the last
+# 64-row tile of T·H flattened rows holds rows past T·H), an int8 run's
+# single-shot prefill and the lockstep prefill at minicpm3-4b's 40 heads;
+# then 7 heads (T·H 259: a last tile of 3 rows, a token's heads across
+# tile edges)
+MLA_PREFILL_CASES = ((3, 64, (0, 64, 200), 328, 40),
+                     (2, 65, (7, 100), 328, 40),
+                     (2, 130, (0, 33), 328, 40), (1, 256, (0,), 256, 40),
+                     (4, 256, (0, 0, 0, 0), 288, 40),
+                     (2, 37, (5, 70), 328, 7))
+# the decode's cases past the slot pool's step, (label, H, vlens): vlens
+# ending mid-64-key tile at 7 heads (a Q tile of 7 rows)
+MLA_DECODE_CASES = (("mid-tile, 7 heads", 7,
+                     [1, 63, 65, 100, 127, 129, 191, 327]),)
+# the kernel each dtype's form runs, as the profiler names it: bf16 on the
+# tensor cores, fp32 on the CUDA cores
+MLA_FORMS = {"bfloat16": ("mla_decode_wgmma_kernel",
+                          "mla_prefill_wgmma_kernel"),
+             "float32": ("mla_split_kernel", "mla_prefill_kernel")}
 # minicpm3-4b's vocabulary, 73448 real entries padded to 73728
 MLA_VOCAB, MLA_REAL_VOCAB = 73728, 73448
 
 
-def _mla_inputs(gen, *, dtype, b, tq, vlens, s, poison=True):
-    """q_eff [B, Tq, 40, 256], q_rope [B, Tq, 40, 32] and latent caches c
+def _mla_inputs(gen, *, dtype, b, tq, vlens, s, poison=True, h=MLA_HEADS):
+    """q_eff [B, Tq, H, 256], q_rope [B, Tq, H, 32] and latent caches c
     [B, S, 256], r [B, S, 32], each cache layer 1 of a [2, B, S, ...]
     tensor (read through its strides, as a serving layer's is), every row
     at or past its vlen NaN (``poison``); and vlen [B] int32."""
     import torch
-    q = torch.randn(b, tq, MLA_HEADS, MLA_R, generator=gen)
-    qr = torch.randn(b, tq, MLA_HEADS, MLA_DR, generator=gen)
+    q = torch.randn(b, tq, h, MLA_R, generator=gen)
+    qr = torch.randn(b, tq, h, MLA_DR, generator=gen)
     c = torch.randn(2, b, s, MLA_R, generator=gen)
     r = torch.randn(2, b, s, MLA_DR, generator=gen)
     for row, n in enumerate(vlens):
@@ -1823,17 +1860,19 @@ def _mla_err(what, got, again, want, atol, rtol, zero_rows=()) -> float:
 def _check_mla(gen) -> dict:
     """MLA's kernels against their plain versions at minicpm3-4b's heads
     and widths, fp32 and bf16, every latent row past a row's vlen NaN:
-    the decode at B 8 over the slot pool's ragged lengths 65-328 and at the
+    the decode at B 8 over the slot pool's ragged lengths 65-328, at the
     smallest batch whose rows take vlen 0, 1, each split edge ± 1 and the
     full 328 (one row for every count of live splits), vlen 0 giving
-    exactly 0; the cached prefill (``MLA_PREFILL_CASES``); each a repeat
-    bit-equal, the profiler seeing ``mla_split_kernel`` /
-    ``mla_prefill_kernel`` alone; then the sampler at minicpm3-4b's
-    vocabulary.  Tolerances: fp32 atol 1e-5 (two fp32 accumulations in
-    other orders); bf16 one bf16 ulp of the output, rtol 2^-7, plus atol
-    1e-3 (each side rounds its fp32 result to bf16 once; the outputs
-    reach 2-4, where an ulp is 0.0156-0.031).  Returns {kernel: max abs
-    error} (fp32)."""
+    exactly 0, and at 7 heads over vlens ending mid-64-key tile
+    (``MLA_DECODE_CASES``); the cached prefill (``MLA_PREFILL_CASES``); each
+    a repeat bit-equal, the profiler seeing its dtype's form alone
+    (``MLA_FORMS``: bf16 the tensor-core kernels, fp32 the CUDA-core ones);
+    then the sampler at minicpm3-4b's vocabulary.  Tolerances: fp32 atol
+    1e-5 (two fp32 accumulations in other orders); bf16 one bf16 ulp of the
+    output, rtol 2^-7, plus atol 1e-3 (each side rounds its fp32 result to
+    bf16 once, and the kernel's P·V takes P as two bf16 terms; the outputs
+    reach 2-4, where an ulp is 0.0156-0.031).  Returns {kernel: max abs error}
+    (fp32)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_mla as fm
@@ -1842,25 +1881,28 @@ def _check_mla(gen) -> dict:
     for dtype, atol, rtol in ((torch.float32, 1e-5, 0.0),
                               (torch.bfloat16, 1e-3, 2.0 ** -7)):
         name = str(dtype)[6:]
+        dec_sym, pre_sym = MLA_FORMS[name]
         b_edge = next(b for b in range(8, 256) if 3 * fm.decode_plan(
             b, MLA_HEADS, MLA_S, dtype, sms).splits <= b)
         plan = fm.decode_plan(b_edge, MLA_HEADS, MLA_S, dtype, sms)
-        for label, vlens in (
-                ("ragged", MLA_DECODE_VLENS),
-                ("split edges", _split_edges(plan, MLA_S, b_edge, gen))):
+        for label, h, vlens in (
+                ("ragged", MLA_HEADS, MLA_DECODE_VLENS),
+                ("split edges", MLA_HEADS,
+                 _split_edges(plan, MLA_S, b_edge, gen)),
+                *MLA_DECODE_CASES):
             q, qr, c, r, vl = _mla_inputs(gen, dtype=dtype, b=len(vlens),
-                                          tq=1, vlens=vlens, s=MLA_S)
-            p = fm.decode_plan(len(vlens), MLA_HEADS, MLA_S, dtype, sms)
-            what = (f"flash_decode_mla {name} B={len(vlens)} H={MLA_HEADS} "
+                                          tq=1, vlens=vlens, s=MLA_S, h=h)
+            p = fm.decode_plan(len(vlens), h, MLA_S, dtype, sms)
+            what = (f"flash_decode_mla {name} B={len(vlens)} H={h} "
                     f"S={MLA_S} {label} (split {p.split} x {p.splits})")
 
             def call():
                 return fm.flash_decode_mla(q, qr, c, r, vl, scale=MLA_SCALE)
-            got, prof = _profiled(call)
+            got, prof = _profiled(call, want=(dec_sym,))
             seen = _kernels_seen(prof)
-            if seen != ["mla_split_kernel"]:
-                _fail(f"{what}: the profiler saw {seen}, not "
-                      "mla_split_kernel alone")
+            if seen != [dec_sym]:
+                _fail(f"{what}: the profiler saw {seen}, not {dec_sym} "
+                      "alone")
             want = fm.flash_decode_mla_plain(q, qr, c, r, vl,
                                              scale=MLA_SCALE)
             err = _mla_err(what, got, call(), want, atol, rtol,
@@ -1870,24 +1912,26 @@ def _check_mla(gen) -> dict:
                                                 err)
             print(f"kernel {what}: vlen {min(vlens)}..{max(vlens)}, rows "
                   f"past vlen NaN; max abs err {err:.3g} (atol {atol}, rtol "
-                  f"{rtol:.3g}); a repeat bit-equal; mla_split_kernel seen "
-                  "by the profiler")
-        for b, tq, offs, s in MLA_PREFILL_CASES:
+                  f"{rtol:.3g}); a repeat bit-equal; {dec_sym} seen by the "
+                  "profiler")
+        for b, tq, offs, s, h in MLA_PREFILL_CASES:
             vlens = [o + tq for o in offs]
             q, qr, c, r, vl = _mla_inputs(gen, dtype=dtype, b=b, tq=tq,
-                                          vlens=vlens, s=s)
+                                          vlens=vlens, s=s, h=h)
             qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
-            what = (f"flash_attention_mla {name} B={b} Tq={tq} q_offset "
-                    f"{list(offs)} vlen {vlens} S={s}")
+            g = fm.prefill_grid(b, tq, h, dtype)
+            what = (f"flash_attention_mla {name} B={b} Tq={tq} H={h} "
+                    f"q_offset {list(offs)} vlen {vlens} S={s} ({g.ctas} x "
+                    f"{b} CTAs of {g.rows} rows)")
 
             def call():
                 return fm.flash_attention_mla(q, qr, c, r, qo, vl,
                                               scale=MLA_SCALE)
-            got, prof = _profiled(call)
+            got, prof = _profiled(call, want=(pre_sym,))
             seen = _kernels_seen(prof)
-            if seen != ["mla_prefill_kernel"]:
-                _fail(f"{what}: the profiler saw {seen}, not "
-                      "mla_prefill_kernel alone")
+            if seen != [pre_sym]:
+                _fail(f"{what}: the profiler saw {seen}, not {pre_sym} "
+                      "alone")
             want = fm.flash_attention_mla_plain(q, qr, c, r, qo, vl,
                                                 scale=MLA_SCALE)
             err = _mla_err(what, got, call(), want, atol, rtol)
@@ -1896,7 +1940,7 @@ def _check_mla(gen) -> dict:
                     worst["flash_attention_mla"], err)
             print(f"kernel {what}: causal, rows past vlen NaN; max abs err "
                   f"{err:.3g} (atol {atol}, rtol {rtol:.3g}); a repeat "
-                  "bit-equal; mla_prefill_kernel seen by the profiler")
+                  f"bit-equal; {pre_sym} seen by the profiler")
     worst[f"softmax_topk_v{MLA_VOCAB}"] = _check_padded_sampler(gen)
     return worst
 
@@ -2437,7 +2481,7 @@ MINICPM_PATHS = (("minicpm3 slot pool", SLOT_ARGS),
                  ("minicpm3 slot pool int8", SLOT_ARGS + INT8))
 # the int8 slot-pool and lockstep runs take the first this many of the 62
 # layers, for the script's time (the bf16 slot pool serves all 62)
-MINICPM_CUT_LAYERS = 16
+MINICPM_CUT_LAYERS = 8
 
 
 def _check_latent_bytes(cfg, engines) -> None:
@@ -2463,8 +2507,9 @@ def _check_latent_bytes(cfg, engines) -> None:
 def _steps_mla(params, cfg, engines, weight_bytes: int) -> None:
     """minicpm3-4b's "step" lines on its slot pool: a decode step over the
     8 slots at lengths 65-328 and a 64-token prefill chunk at offset 64,
-    each beside the weights' byte bound; the decode step's kernels by
-    device time, and its ``decode_step_cost`` bound."""
+    each beside the weights' byte bound, each step's latent attention in
+    the bf16 form's tensor-core kernel (never the fp32 form's); the decode
+    step's kernels by device time, and its ``decode_step_cost`` bound."""
     import torch
     from repro_torch.obs import kernels as obs_kernels
     from repro_torch.serving import engine
@@ -2487,6 +2532,12 @@ def _steps_mla(params, cfg, engines, weight_bytes: int) -> None:
             lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg)}
     for name, fn in steps.items():
         line, busy, by = _step_line(f"{cfg.name} {name}", fn)
+        dec_sym, pre_sym = MLA_FORMS["bfloat16"]
+        sym, fp32_sym = ((dec_sym, "mla_split_kernel") if "decode" in name
+                         else (pre_sym, "mla_prefill_kernel"))
+        if not any(sym in k for k in by) or any(fp32_sym in k for k in by):
+            _fail(f"step {cfg.name} {name}: the profiler saw "
+                  f"{sorted(by)}, not {sym} (and no {fp32_sym})")
         print(f"{line}; the weights' byte bound {bound:.3f}ms "
               f"({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), device busy "
               f"{busy / bound:.2f}x it")
@@ -3471,7 +3522,8 @@ PORT_KERNEL_SYMBOLS = ("softmax_topk_kernel", "paged_wgmma_kernel",
                        "decode_paged_int8_split_kernel",
                        "decode_int8_split_kernel",
                        "prefill_paged_int8_kernel", "mla_split_kernel",
-                       "mla_prefill_kernel", "rows_kernel",
+                       "mla_prefill_kernel", "mla_decode_wgmma_kernel",
+                       "mla_prefill_wgmma_kernel", "rows_kernel",
                        "md_slice_kernel", "md_merge_kernel",
                        "normalize_kernel")
 
@@ -3795,28 +3847,50 @@ def _topk_times(gen, v: int = 49152, real: int = 0) -> dict:
 
 
 def _mla_kernel_times(gen) -> dict:
-    """MLA's kernels at minicpm3-4b's serving shapes, bf16, each held
-    against its plain version on the timed input: the decode step over the
-    slot pool's 8 slots (lengths 65-328) and a 64-token prefill chunk at
-    offset 64 (vlen 128), beside one SDPA call on the same inputs (q_cat =
-    [q_eff, q_rope] over the 40 heads, the concatenated key [c, r] as one
-    KV head by ``enable_gqa``, V = c, scale 96^-0.5, a boolean mask; the
-    concatenation made before the timing); then the sampler at
-    minicpm3-4b's padded vocabulary.  Bound: each input read once (the
-    live latent rows, 288 values each), the output written once; the
+    """MLA's kernels at minicpm3-4b's serving shapes
+    (``_mla_attention_times``), then the sampler at its padded
+    vocabulary."""
+    rows = _topk_times(gen, MLA_VOCAB, real=MLA_REAL_VOCAB)
+    rows.update(_mla_attention_times(gen))
+    return rows
+
+
+# phase 8's MLA shapes, (row key, B, Tq, per-row offsets, vlens, S): the
+# slot pool's decode step over its 8 slots (lengths 65-328), a 64-token
+# prefill chunk at offset 64 (vlen 128), the lockstep prefill (B 4, Tq 256
+# into caches of 288) and an int8 run's single-shot prefill (Tq = S = 256)
+MLA_TIMED = (("flash_decode_mla", 8, 1, [0] * 8, MLA_DECODE_VLENS, MLA_S),
+             ("flash_attention_mla", 1, 64, [64], [128], MLA_S),
+             ("flash_attention_mla, lockstep", 4, 256, [0] * 4, [256] * 4,
+              288),
+             ("flash_attention_mla, int8 single-shot", 1, 256, [0], [256],
+              256))
+
+
+def _mla_attention_times(gen, keys=None, tag: str = "",
+                         cases=MLA_TIMED) -> dict:
+    """MLA's latent attention at ``cases``' shapes (``MLA_TIMED``'s by
+    default; those whose key is in ``keys``, by default all), bf16, each
+    held against its plain version on the timed input (1e-3 +
+    2^-7·|plain|), beside one SDPA call
+    on the same inputs (q_cat = [q_eff, q_rope] over the 40 heads, the
+    concatenated key [c, r] as one KV head by ``enable_gqa``, V = c, scale
+    96^-0.5, a boolean mask; the concatenation made before the timing);
+    rows keyed ``<key><tag>``.  Bound: each input read once (the live
+    latent rows, 288 values each), the output written once; the
     operations 2·H·(288 + 256) a visible (query, key) pair."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_mla as fm
-    rows = _topk_times(gen, MLA_VOCAB, real=MLA_REAL_VOCAB)
+    rows = {}
     esz, h, width = 2, MLA_HEADS, MLA_R + MLA_DR
-    cases = (("flash_decode_mla", 8, 1, [0] * 8, MLA_DECODE_VLENS),
-             ("flash_attention_mla", 1, 64, [64], [128]))
-    for name, b, tq, offs, vlens in cases:
+    for key, b, tq, offs, vlens, s in cases:
+        if keys is not None and key not in keys:
+            continue
         q, qr, c, r, vl = _mla_inputs(gen, dtype=torch.bfloat16, b=b, tq=tq,
-                                      vlens=vlens, s=MLA_S)
-        decode = name == "flash_decode_mla"
+                                      vlens=vlens, s=s)
+        decode = key == "flash_decode_mla"
         qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
         if decode:
             def kernel():
@@ -3826,11 +3900,10 @@ def _mla_kernel_times(gen) -> dict:
                 return fm.flash_decode_mla_plain(q, qr, c, r, vl,
                                                  scale=MLA_SCALE)
             args, _ = fm.prepare_decode(q, qr, c, r, vl, scale=MLA_SCALE)
-            p = fm.decode_plan(b, h, MLA_S, q.dtype,
-                               build.sm_count(q.device))
+            p = fm.decode_plan(b, h, s, q.dtype, build.sm_count(q.device))
             pairs = sum(vlens)
-            shape = (f"B=8 H=40 R=256 Dr=32 S=328 bf16 vlen {vlens}, split "
-                     f"{p.split} x {p.splits}")
+            shape = (f"B={b} H=40 R=256 Dr=32 S={s} bf16 vlen {vlens}, "
+                     f"split {p.split} x {p.splits}")
         else:
             def kernel():
                 return fm.flash_attention_mla(q, qr, c, r, qo, vl,
@@ -3841,24 +3914,25 @@ def _mla_kernel_times(gen) -> dict:
                                                     scale=MLA_SCALE)
             args, _ = fm.prepare_prefill(q, qr, c, r, qo, vl,
                                          scale=MLA_SCALE)
-            pairs = sum(min(vlens[0], offs[0] + i + 1) for i in range(tq))
-            shape = ("B=1 Tq=64 q_offset=64 vlen=128 H=40 R=256 Dr=32 S=328 "
-                     "bf16")
+            pairs = sum(min(n, o + i + 1) for n, o in zip(vlens, offs)
+                        for i in range(tq))
+            shape = (f"B={b} Tq={tq} q_offset={offs[0]} vlen={vlens[0]} "
+                     f"H=40 R=256 Dr=32 S={s} bf16")
         want = plain().float()
         err = (kernel().float() - want).abs()
         if (err - 1e-3 - 2.0 ** -7 * want.abs()).max().item() > 0:
-            _fail(f"{name} on the timed input: max abs err "
+            _fail(f"{key} on the timed input: max abs err "
                   f"{err.max().item():.3g} beyond 1e-3 + 2^-7·|plain|")
         # the library's inputs: the rows past vlen zeroed (SDPA would carry
         # their NaN through a zero weight), the key concatenated
-        live = (torch.arange(MLA_S, device="cuda")[None, :]
+        live = (torch.arange(s, device="cuda")[None, :]
                 < vl[:, None].long())
         c0 = torch.where(live[..., None], c, 0).contiguous()
         r0 = torch.where(live[..., None], r, 0)
         qcat = torch.cat([q, qr], -1).transpose(1, 2)      # [B, H, Tq, 288]
         kcat = torch.cat([c0, r0], -1)[:, None]             # [B, 1, S, 288]
         vv = c0[:, None]                                     # [B, 1, S, 256]
-        kpos = torch.arange(MLA_S, device="cuda")
+        kpos = torch.arange(s, device="cuda")
         qpos = qo[:, None].long() + torch.arange(tq, device="cuda")
         mask = live[:, None, :] if decode else (
             live[:, None, :] & (kpos[None, None, :] <= qpos[..., None]))
@@ -3870,13 +3944,13 @@ def _mla_kernel_times(gen) -> dict:
                 enable_gqa=True)
         lib_err = (library().transpose(1, 2).float() - want).abs()
         if (lib_err - 2e-2 - 2.0 ** -6 * want.abs()).max().item() > 0:
-            _fail(f"{name}: SDPA differs from the plain version by "
+            _fail(f"{key}: SDPA differs from the plain version by "
                   f"{lib_err.max().item():.3g}")
         nbytes = ((q.numel() + qr.numel()) * esz + sum(vlens) * width * esz
                   + q.numel() * esz + b * 8)
         b_ms, b_by = _bound(nbytes, 2.0 * h * (width + MLA_R) * pairs,
                             "bfloat16")
-        rows[name] = {
+        rows[key + tag] = {
             "ms": _ms(lambda: fm.launch(args)),
             "device_ms": _device_call_ms(lambda: fm.launch(args)),
             "wrapper_ms": _ms(kernel), "plain_ms": _ms(plain),
@@ -3884,7 +3958,8 @@ def _mla_kernel_times(gen) -> dict:
             "library_device_ms": _device_call_ms(library),
             "library_call": "F.scaled_dot_product_attention(q_cat, [c, r], "
                             "c, mask, scale=96**-0.5, enable_gqa=True)",
-            "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err":
+                err.max().item(), "shape": shape}
     return rows
 
 

@@ -32,12 +32,28 @@ or past each row's valid length (a copy), so a poisoned (NaN) tail reads
 as the kernels read it, not at all: a masked position's weight is 0, but
 0 · NaN is NaN.
 
-On the card the decode is one launch: :func:`decode_plan` cuts [0, S)
-into splits of whole 32-position tiles, one CTA of 256 threads a (split,
-batch row), each holding all H heads; the last live split of a row
-⊕-merges the partials (``decode_merge`` of ``csrc/attention.cuh``, behind
-a ticket counter from ``build.tickets``).  The prefill is one launch of
-one CTA a 40 query rows (t, h) flattened a batch row.
+On the card each entry point is one launch, in one of two forms chosen by
+dtype alone (no probe, no fallback): bf16 on the tensor cores (``wgmma``),
+fp32 on the CUDA cores.  The decode's :func:`decode_plan` cuts [0, S) into
+splits of whole tiles (64 positions for bf16, 32 for fp32), one CTA of 256
+threads a (split, batch row) holding all H heads; the last live split of a
+row ⊕-merges the partials behind a ticket counter from ``build.tickets``
+(bf16: the weights once a (split, head), then float4 streams; fp32:
+``decode_merge`` of ``csrc/attention.cuh``), and a bf16 row with one live
+split writes its output at once.  The prefill's :func:`prefill_grid` gives
+one CTA a 64 (bf16) or 40 (fp32) flattened (token, head) query rows of a
+batch row.
+
+What bounds them on the H100: bytes (each latent row, 288 values, is read
+once a batch row and serves all 40 heads' scores and values, ~75 flops a
+byte against the ~295 at which the tensor cores would bind), and at the
+serving shapes the latency of a tile's copy, its products and the decode's
+merge through L2.  The bf16 forms therefore do the products on the tensor
+cores (S = Q·Kᵀ over k = 288 and P·V with V the same c tile read MN-major,
+two warpgroups each holding O for 128 of the 256 columns), cut splits in
+whole 64-key tiles so a short row is one CTA, and merge with every load
+in flight at once (``csrc/flash_mla.cu`` has the layout).  The fp32 forms
+are the CUDA-core kernels the fp32 parity runs hold to 1e-5.
 """
 from __future__ import annotations
 
@@ -52,13 +68,14 @@ from repro_torch.kernels import build
 from repro_torch.obs import kernels as obs_kernels
 
 #: The latent widths the kernels are built for, (R, Dr): minicpm3-4b's
-#: kv_lora_rank 256 and qk_rope_head_dim 32 (a lane holds 8 latent dims
-#: and one rope dim of a row).  Others raise.
+#: kv_lora_rank 256 and qk_rope_head_dim 32.  Others raise.
 LATENT_DIMS = (256, 32)
-MAX_HEADS = 40            # query heads a decode CTA holds (8 warps x 5)
-ROWS_PER_CTA = 40         # flattened query rows a prefill CTA takes
-TILE = 32                 # latent rows staged in shared memory a pass
-MIN_SPLIT = TILE          # positions a decode split takes at least
+MAX_HEADS = 40            # query heads a decode CTA holds (fp32: 8 warps x 5)
+ROWS_PER_CTA = 40         # fp32: flattened query rows a prefill CTA takes
+TILE = 32                 # fp32: latent rows staged a pass, a split's unit
+WGMMA_TILE = 64           # bf16: keys a stage, a split's unit, query rows
+                          # a CTA (wgmma's M)
+MAX_MERGE = 32            # bf16: partials (40 KB each) a merge reads at most
 WAVES = 2                 # decode CTAs the grid aims for, x the SMs
 THREADS = 256
 DTYPES = (torch.float32, torch.bfloat16)
@@ -70,10 +87,12 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-_ARGTYPES = {
-    "flash_decode_mla": [_C] * 8 + [_I] * 6 + [_L] * 4 + [_F, _C],
-    "flash_attention_mla": [_C] * 7 + [_I] * 5 + [_L] * 4 + [_I, _F, _C],
-}
+_DECODE_ARGTYPES = [_C] * 8 + [_I] * 5 + [_L] * 4 + [_F, _C]
+_PREFILL_ARGTYPES = [_C] * 7 + [_I] * 4 + [_L] * 4 + [_I, _F, _C]
+_ARGTYPES = {"flash_decode_mla": _DECODE_ARGTYPES,
+             "flash_decode_mla_wgmma": _DECODE_ARGTYPES,
+             "flash_attention_mla": _PREFILL_ARGTYPES,
+             "flash_attention_mla_wgmma": _PREFILL_ARGTYPES}
 
 
 def _zero_past(cache, kv_valid_len):
@@ -127,7 +146,7 @@ def flash_attention_mla_plain(q_eff, q_rope, c_cache, r_cache, q_offset,
 
 class DecodePlan(NamedTuple):
     """How the MLA decode kernel cuts one call's key range."""
-    split: int        # positions a split CTA takes (whole 32-position tiles)
+    split: int        # positions a split CTA takes (whole tiles)
     splits: int       # splits a batch row: grid (splits, B)
     threads: int      # threads a CTA
     workspace: int    # fp32 words of the partials: acc [B, splits, H, R]
@@ -138,6 +157,12 @@ class DecodePlan(NamedTuple):
         return -(-min(max(vlen, 0), max_len) // self.split)
 
 
+def tile(dtype: torch.dtype) -> int:
+    """A decode split's unit: 64 keys for the bf16 (tensor-core) form, 32
+    for the fp32 one."""
+    return WGMMA_TILE if dtype == torch.bfloat16 else TILE
+
+
 @functools.lru_cache(maxsize=256)
 def decode_plan(b: int, h: int, max_len: int, dtype: torch.dtype,
                 sm_count: int) -> DecodePlan:
@@ -145,23 +170,48 @@ def decode_plan(b: int, h: int, max_len: int, dtype: torch.dtype,
     ``b`` batch rows of ``h`` heads over caches of ``max_len`` positions
     (the host's bound; the valid lengths are never read), ``dtype`` the
     operands', on a card of ``sm_count`` SMs.  The split is the shortest
-    whole number of 32-position tiles that gives ``WAVES`` x ``sm_count``
-    CTAs over (split, batch row), but no shorter than ``MIN_SPLIT`` and no
-    longer than the cache.  Raises for shapes the kernel does not take."""
+    whole number of ``tile(dtype)``-position tiles that gives ``WAVES`` x
+    ``sm_count`` CTAs over (split, batch row) (for bf16 at most
+    ``MAX_MERGE`` splits a row, each leaving a 40 KB partial for the
+    merge), but no longer than the cache.  Raises for shapes the kernel
+    does not take."""
     if dtype not in DTYPES or not 1 <= h <= MAX_HEADS \
             or not 1 <= b <= 65535 or max_len < 0 or sm_count < 1:
         raise ValueError(f"flash_decode_mla kernel: B={b}, H={h}, "
                          f"max_len={max_len}, {dtype} not supported (H <= "
                          f"{MAX_HEADS}, B <= 65535, {DTYPES})")
+    unit = tile(dtype)
 
     def tiles(n):                       # n positions up to whole tiles
-        return max(TILE, -(-n // TILE) * TILE)
+        return max(unit, -(-n // unit) * unit)
 
     want = -(-WAVES * sm_count // b)    # splits a row should take
-    split = min(max(tiles(-(-max_len // want)), MIN_SPLIT), tiles(max_len))
+    if dtype == torch.bfloat16:
+        want = min(want, MAX_MERGE)
+    split = min(tiles(-(-max_len // want)), tiles(max_len))
     splits = max(1, -(-max_len // split))
     r = LATENT_DIMS[0]
     return DecodePlan(split, splits, THREADS, b * splits * h * (r + 2))
+
+
+class PrefillGrid(NamedTuple):
+    """How the MLA prefill kernel covers one call."""
+    ctas: int         # CTAs a batch row: grid (ctas, B)
+    rows: int         # flattened (token, head) query rows a CTA
+    threads: int      # threads a CTA
+
+
+@functools.lru_cache(maxsize=256)
+def prefill_grid(b: int, t: int, h: int, dtype: torch.dtype) -> PrefillGrid:
+    """The grid of an MLA cached-prefill call, a pure function of its
+    shapes: each of the ``b`` batch rows' ``t`` x ``h`` flattened (token,
+    head) query rows in tiles of 64 (bf16: wgmma's M) or 40 (fp32), one CTA
+    a tile.  Raises for shapes the kernel does not take."""
+    if dtype not in DTYPES or not 1 <= b <= 65535 or t < 1 or h < 1:
+        raise ValueError(f"flash_attention_mla kernel: B={b}, T={t}, H={h}, "
+                         f"{dtype} not supported (B <= 65535, {DTYPES})")
+    rows = WGMMA_TILE if dtype == torch.bfloat16 else ROWS_PER_CTA
+    return PrefillGrid(-(-t * h // rows), rows, THREADS)
 
 
 def _check(name, q_eff, q_rope, c_cache, r_cache, t_one: bool):
@@ -222,6 +272,21 @@ def _strides(c_cache, r_cache):
             r_cache.stride(1))
 
 
+def _form(name, q, q_rope, out, scale) -> str:
+    """The launch name of ``name``'s form for these operands: the bf16
+    tensor-core entry (which copies 16-byte chunks of q, q_rope and writes
+    out in pairs: every pointer 16-byte aligned, and folds a positive scale
+    into exp2) or the fp32 one.  Raises on what the bf16 form refuses."""
+    if q.dtype != torch.bfloat16:
+        return name
+    if any(t.data_ptr() % 16 for t in (q, q_rope, out)) or not scale > 0:
+        raise ValueError(f"{name} kernel (bf16): q_eff, q_rope and out must "
+                         f"be 16-byte aligned and the scale positive, got "
+                         f"{[t.data_ptr() % 16 for t in (q, q_rope, out)]} "
+                         f"bytes past 16 and scale {scale}")
+    return name + "_wgmma"
+
+
 def prepare_decode(q_eff, q_rope, c_cache, r_cache, kv_valid_len, *,
                    scale: float):
     """Validate CUDA operands of the decode kernel, plan the split and
@@ -236,9 +301,9 @@ def prepare_decode(q_eff, q_rope, c_cache, r_cache, kv_valid_len, *,
     qc, qr = q_eff.contiguous(), q_rope.contiguous()
     out = torch.empty_like(qc)
     work = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
-    args = ("flash_decode_mla", qc, qr, c_cache, r_cache,
-            _vlen(kv_valid_len, dev, b), out, work, build.tickets(dev, b),
-            build.dtype_code(q_eff), b, h, s, plan.split, plan.splits,
+    args = (_form("flash_decode_mla", qc, qr, out, scale), qc, qr, c_cache,
+            r_cache, _vlen(kv_valid_len, dev, b), out, work,
+            build.tickets(dev, b), b, h, s, plan.split, plan.splits,
             *_strides(c_cache, r_cache), float(scale))
     return args, out
 
@@ -249,24 +314,26 @@ def prepare_prefill(q_eff, q_rope, c_cache, r_cache, q_offset, kv_valid_len,
     output.  Returns (launch arguments, out [B, T, H, R])."""
     b, t, h, s = _check("flash_attention_mla", q_eff, q_rope, c_cache,
                         r_cache, False)
-    if b > 65535:
-        raise ValueError(f"flash_attention_mla kernel: B={b} > 65535")
+    prefill_grid(b, t, h, q_eff.dtype)  # raises on what no grid covers
     dev = q_eff.device
     qc, qr = q_eff.contiguous(), q_rope.contiguous()
     out = torch.empty_like(qc)
-    args = ("flash_attention_mla", qc, qr, c_cache, r_cache,
-            _vlen(q_offset, dev, b), _vlen(kv_valid_len, dev, b), out,
-            build.dtype_code(q_eff), b, t, h, s, *_strides(c_cache, r_cache),
-            int(bool(causal)), float(scale))
+    args = (_form("flash_attention_mla", qc, qr, out, scale), qc, qr,
+            c_cache, r_cache, _vlen(q_offset, dev, b),
+            _vlen(kv_valid_len, dev, b), out, b, t, h, s,
+            *_strides(c_cache, r_cache), int(bool(causal)), float(scale))
     return args, out
 
 
 def launch(args) -> None:
-    """Launch a prepared kernel (counts one launch of it)."""
+    """Launch a prepared kernel (counts one launch of it, under the entry
+    point's name without its form: ``flash_decode_mla`` or
+    ``flash_attention_mla``)."""
     name = args[0]
     build.call(name, _ARGTYPES[name], args[1:], source="flash_mla")
-    launches[name] += 1
-    obs_kernels.record_path(name, "cuda")
+    counted = name.removesuffix("_wgmma")
+    launches[counted] += 1
+    obs_kernels.record_path(counted, "cuda")
 
 
 def flash_decode_mla(q_eff, q_rope, c_cache, r_cache, kv_valid_len, *,

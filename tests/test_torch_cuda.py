@@ -1345,13 +1345,15 @@ def _mla(seed, *, b, tq, h, s, vlens, dtype):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_mla_decode_matches_plain(cuda, h, dtype, atol):
-    """The MLA decode at 40 heads (and 7, a partial last warp) over rows of
-    vlen 0, 1, the split edges ± 1 and the full cache, NaN past vlen:
-    finite, vlen 0 exactly 0, a repeat bit-equal, within ``atol`` of the
-    plain version; one launch counted a call."""
+    """The MLA decode at 40 heads (and 7, a partial last warp and a Q tile
+    of 7 rows) over rows of vlen 0, 1, the 32- and 64-key tile edges ± 1
+    (the split edges of both forms' plans) and the full cache, NaN past
+    vlen: finite, vlen 0 exactly 0, a repeat bit-equal, within ``atol`` of
+    the plain version; one launch counted a call."""
     from repro_torch.kernels import flash_mla as fm
-    s = 100
-    vlens = [0, 1, 31, 32, 33, 63, 64, 65, 99, 100]
+    s = 200
+    vlens = [0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 191, 192, 193,
+             200]
     q, qr, c, rr, vl = _mla(0, b=len(vlens), tq=1, h=h, s=s, vlens=vlens,
                             dtype=dtype)
     dispatch.reset_launch_counts()
@@ -1368,14 +1370,15 @@ def test_mla_decode_matches_plain(cuda, h, dtype, atol):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_mla_prefill_matches_plain(cuda, dtype, atol):
-    """The MLA cached prefill at Tq 65 over offsets off the 32-row tile and
-    vlens ending mid-tile, NaN past vlen, causal in absolute coordinates,
-    and a non-causal call: within ``atol`` of the plain version, a repeat
+    """The MLA cached prefill at Tq 65 (T·H 2600: a last 64-row tile of
+    40 rows) over offsets off the 32- and 64-row tiles and vlens ending
+    mid-tile, NaN past vlen, causal in absolute coordinates, and a
+    non-causal call: within ``atol`` of the plain version, a repeat
     bit-equal."""
     from repro_torch.kernels import flash_mla as fm
-    offs = [0, 7, 40]
+    offs = [0, 7, 40, 70]
     vlens = [o + 65 for o in offs]
-    q, qr, c, rr, vl = _mla(1, b=3, tq=65, h=40, s=128, vlens=vlens,
+    q, qr, c, rr, vl = _mla(1, b=4, tq=65, h=40, s=160, vlens=vlens,
                             dtype=dtype)
     qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
     for causal in (True, False):
@@ -1390,6 +1393,39 @@ def test_mla_prefill_matches_plain(cuda, dtype, atol):
         assert (got.float() - want.float()).abs().max().item() <= atol
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_mla_lockstep_shapes_match_plain(cuda, dtype, atol):
+    """Both MLA kernels at the lockstep loop's shapes, minicpm3-4b's 40
+    heads: the prefill of B 4 x Tq 256 at offset 0 into caches of 288
+    (vlen 256), then the first decode step over vlen 257, NaN past vlen:
+    within ``atol`` of the plain versions, a repeat bit-equal, one launch
+    of each counted a call."""
+    from repro_torch.kernels import flash_mla as fm
+    q, qr, c, rr, vl = _mla(3, b=4, tq=256, h=40, s=288, vlens=[257] * 4,
+                            dtype=dtype)
+    qo = torch.zeros(4, dtype=torch.int32, device="cuda")
+    dispatch.reset_launch_counts()
+    for got, again, want in (
+            (fm.flash_attention_mla(q, qr, c, rr, qo, vl - 1,
+                                    scale=MLA_SCALE),
+             fm.flash_attention_mla(q, qr, c, rr, qo, vl - 1,
+                                    scale=MLA_SCALE),
+             fm.flash_attention_mla_plain(q, qr, c, rr, qo, vl - 1,
+                                          scale=MLA_SCALE)),
+            (fm.flash_decode_mla(q[:, :1], qr[:, :1], c, rr, vl,
+                                 scale=MLA_SCALE),
+             fm.flash_decode_mla(q[:, :1], qr[:, :1], c, rr, vl,
+                                 scale=MLA_SCALE),
+             fm.flash_decode_mla_plain(q[:, :1], qr[:, :1], c, rr, vl,
+                                       scale=MLA_SCALE))):
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        assert (got.float() - want.float()).abs().max().item() <= atol
+    counts = dispatch.launch_counts()
+    assert counts["flash_attention_mla"] == counts["flash_decode_mla"] == 2
+
+
 def test_mla_kernels_refuse_what_they_do_not_take(cuda):
     from repro_torch.kernels import flash_mla as fm
     q, qr, c, rr, vl = _mla(2, b=2, tq=1, h=41, s=64, vlens=[3, 9],
@@ -1402,6 +1438,16 @@ def test_mla_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtypes"):
         fm.flash_attention_mla(q[:, :, :40].half(), qr[:, :, :40].half(),
                                c.half(), rr.half(), 0, vl, scale=MLA_SCALE)
+    # the bf16 (tensor-core) form copies 16-byte chunks of q: a q_eff two
+    # bytes off a 16-byte boundary raises, as does a scale <= 0
+    qb, qrb = q[:, :, :40].bfloat16(), qr[:, :, :40].bfloat16()
+    cb, rb = c.bfloat16(), rr.bfloat16()
+    flat = torch.empty(qb.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    off = flat[1:].view(qb.shape).copy_(qb)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fm.flash_decode_mla(off, qrb, cb, rb, vl, scale=MLA_SCALE)
+    with pytest.raises(ValueError, match="scale positive"):
+        fm.flash_attention_mla(qb, qrb, cb, rb, 0, vl, scale=-MLA_SCALE)
 
 
 def test_mla_streams_equal_on_card_and_cpu(cuda):

@@ -559,20 +559,54 @@ def test_dispatch_mla_attention_routes_cpu_to_the_plain_versions():
 
 
 @pytest.mark.parametrize("b,h,s,dtype,want", [
-    # the slot pool's decode step at minicpm3-4b's heads: 11 splits of 32
-    (8, 40, 328, torch.bfloat16, (32, 11, 256, 8 * 11 * 40 * 258)),
+    # the slot pool's decode step at minicpm3-4b's heads: bf16 (the
+    # tensor-core form) in 6 splits of one 64-key tile, fp32 in 11 of 32
+    (8, 40, 328, torch.bfloat16, (64, 6, 256, 8 * 6 * 40 * 258)),
     (8, 40, 328, torch.float32, (32, 11, 256, 8 * 11 * 40 * 258)),
-    # the lockstep loop's caches of 288 at B 4: 9 splits of 32
-    (4, 40, 288, torch.bfloat16, (32, 9, 256, 4 * 9 * 40 * 258)),
-    # a long cache: splits grow to keep 2 x 132 CTAs, whole tiles
+    # the lockstep loop's caches of 288 at B 4: 5 splits of 64 (bf16), 9
+    # of 32 (fp32)
+    (4, 40, 288, torch.bfloat16, (64, 5, 256, 4 * 5 * 40 * 258)),
+    (4, 40, 288, torch.float32, (32, 9, 256, 4 * 9 * 40 * 258)),
+    # a long cache: splits grow to keep 2 x 132 CTAs, whole tiles; bf16
+    # merges at most MAX_MERGE partials a row
     (8, 40, 32768, torch.bfloat16, (1024, 32, 256, 8 * 32 * 40 * 258)),
+    (1, 40, 32768, torch.bfloat16, (1024, 32, 256, 1 * 32 * 40 * 258)),
+    (1, 40, 32768, torch.float32, (128, 256, 256, 1 * 256 * 40 * 258)),
     # an empty cache still plans one split
     (2, 4, 0, torch.float32, (32, 1, 256, 2 * 1 * 4 * 258)),
+    (2, 4, 0, torch.bfloat16, (64, 1, 256, 2 * 1 * 4 * 258)),
 ])
 def test_decode_plan(b, h, s, dtype, want):
     plan = fm.decode_plan(b, h, s, dtype, H100_SMS)
     assert tuple(plan) == want
-    assert plan.split % fm.TILE == 0 and plan.split * plan.splits >= s
+    assert plan.split % fm.tile(dtype) == 0 and plan.split * plan.splits >= s
+    assert plan.split % fm.TILE == 0
+
+
+@pytest.mark.parametrize("b,t,h,dtype,want", [
+    # a 64-token chunk at minicpm3-4b's 40 heads: 2560 flattened rows, 40
+    # tiles of 64 (bf16) or 64 CTAs of 40 rows (fp32)
+    (1, 64, 40, torch.bfloat16, (40, 64, 256)),
+    (1, 64, 40, torch.float32, (64, 40, 256)),
+    # the lockstep prefill, B 4 x Tq 256: 160 tiles a batch row
+    (4, 256, 40, torch.bfloat16, (160, 64, 256)),
+    (4, 256, 40, torch.float32, (256, 40, 256)),
+    # T·H not a multiple of the tile: the last tile holds rows past T·H
+    (2, 65, 40, torch.bfloat16, (41, 64, 256)),
+    (2, 37, 7, torch.bfloat16, (5, 64, 256)),
+    (2, 37, 7, torch.float32, (7, 40, 256)),
+])
+def test_prefill_grid(b, t, h, dtype, want):
+    grid = fm.prefill_grid(b, t, h, dtype)
+    assert tuple(grid) == want
+    assert (grid.ctas - 1) * grid.rows < t * h <= grid.ctas * grid.rows
+
+
+def test_prefill_grid_refuses_what_no_grid_covers():
+    for args in ((65536, 1, 40, torch.bfloat16), (1, 0, 40, torch.float32),
+                 (1, 4, 0, torch.bfloat16), (1, 4, 40, torch.float16)):
+        with pytest.raises(ValueError, match="flash_attention_mla kernel"):
+            fm.prefill_grid(*args)
 
 
 def test_decode_plan_and_kernels_refuse_what_they_do_not_take():
