@@ -22,7 +22,11 @@ printing its final line:
    tensor cores, fp32 ``mla_split_kernel`` / ``mla_prefill_kernel``) must
    build without a spill, and each dtype's decode split at B 8 over 328
    positions and B 4 over 288 and prefill grid at a 64-token chunk and the
-   lockstep prefill, with their dynamic shared memory, are printed;
+   lockstep prefill, with their dynamic shared memory, are printed; the
+   training kernels (the fresh forward, its dq and dk/dv backward, both
+   forms) must be in ptxas's report at every (Dqk, Dv) pair,
+   ``TRAIN_INSTANCES``: (64, 64), (128, 128) and minicpm3-4b's (96, 64),
+   without a spill;
 3. kernels against their plain PyTorch versions at the serving and
    training paths' shapes (fused softmax+top-k at the decode batch's
    logits, k = 1, 5 and 32, fp32 and bf16, with exact ties across the
@@ -82,7 +86,12 @@ printing its final line:
    and the lockstep prefills and 7 heads at Tq 37, each a repeat bit-equal
    and its dtype's form alone seen by the profiler (bf16 the tensor-core
    kernels, fp32 the CUDA-core ones); and the sampler at minicpm3-4b's
-   [8, 73728], with every row's 280 padded entries -inf;
+   [8, 73728], with every row's 280 padded entries -inf; then the training
+   kernels' (96, 64) instances, minicpm3-4b's decompressed MLA (q and k 64
+   nope + 32 rope, v 64, at 40/40 heads), through every fresh check above
+   (T 512, 37 and 1, causal and not, fp32 and bf16, k and v through
+   strides of their own, NaN past T, the profiler naming the <96,64>
+   instance of each dtype's form);
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -172,14 +181,18 @@ printing its final line:
    "step" line with the kernels that take the device's time; then
    ``REMAT_STEPS`` steps of each under remat "block" and "full" from the
    same seed, their peak memory and step times side by side and their
-   parameters bit-identical;
+   parameters bit-identical; and the MLA decoder minicpm3-4b the same way
+   at full width and 8 of its 62 layers (0.88e9 parameters), its
+   decompressed attention through the training kernels' (96, 64)
+   instances (the same launch counts, no latent kernel);
 7. train parity: one fp32 loss-and-gradient evaluation of each full-width
    model cut to 2 layers (batch ``TRAIN_PARITY``, one sequence of it for
-   the head_dim-128 models) on the card through the kernels and on the CPU
-   through the plain versions, from the same weights: smollm-360m's drawn
-   on the CPU, mistral-nemo-12b's and qwen2-moe-a2.7b's on the card;
-   qwen2-moe's router keeping the same assignments on both devices in
-   every layer;
+   the head_dim-128 models and minicpm3-4b) on the card through the
+   kernels and on the CPU through the plain versions, from the same
+   weights: smollm-360m's drawn on the CPU, mistral-nemo-12b's,
+   qwen2-moe-a2.7b's and minicpm3-4b's on the card; qwen2-moe's router
+   keeping the same assignments on both devices in every layer, and
+   minicpm3's MLA leaves among the gradients held;
 8. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
    the serving and training paths' shapes (the serving kernels' D-128
@@ -187,7 +200,8 @@ printing its final line:
    router at [8, 60], [64, 60], [8, 16] and [256, 16], the sampler at V
    151936 and 202048, and the D-128 instances at G 1 and G 5; the training
    kernels' D-128 instances at mistral-nemo-12b's and qwen2-moe-a2.7b's
-   training shapes; the latent attention's decode at B 8 over vlen 65-328
+   training shapes and their (96, 64) instances at minicpm3-4b's, beside
+   SDPA with a 64-wide v; the latent attention's decode at B 8 over vlen 65-328
    and its prefill at a 64-token chunk at offset 64, the lockstep prefill
    and an int8 run's single-shot prefill, bf16, beside one SDPA call on
    the concatenated inputs, and the sampler at [8, 73728] with the padded
@@ -394,25 +408,30 @@ TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "20", "--seq-len", "512",
 RESTART_ARGS = ["--arch", "smollm_360m", "--layers", "2", "--seq-len", "512",
                 "--global-batch", "8"]
 TRAIN_PARITY = dict(layers=2, batch=2, seq_len=128)
-# phase 6's head_dim-128 training runs: (label, the run's key in the launch
-# counts, the CLI's flags): mistral-nemo-12b at full width and 4 of its 40
-# layers (2.43e9 parameters, ~29 GB of bf16 weights and gradients and fp32
-# moments), qwen2-moe-a2.7b at full width and 2 of its 24 (1.83e9, ~22 GB);
-# each TRAIN_128_STEPS steps of 8 x 512 tokens under remat "full", then
+# phase 6's full-width training runs of the bigger models: (label, the
+# run's key in the launch counts, the CLI's flags): mistral-nemo-12b at full
+# width and 4 of its 40 layers (2.43e9 parameters, ~29 GB of bf16 weights
+# and gradients and fp32 moments), qwen2-moe-a2.7b at full width and 2 of
+# its 24 (1.83e9, ~22 GB), the MLA decoder minicpm3-4b at full width and 8
+# of its 62 (0.88e9: 62.67e6 a layer and 377.5e6 for the untied embedding
+# and head; its 4.26e9 with AdamW's fp32 state do not fit one card); each
+# TRAIN_128_STEPS steps of 8 x 512 tokens under remat "full", then
 # REMAT_STEPS steps under remat "block" and "full" from the same seed
 TRAIN_128 = (("mistral-nemo-12b", "mistral train",
               ["--arch", "mistral_nemo_12b", "--layers", "4"]),
              ("qwen2-moe-a2.7b", "qwen2 train",
-              ["--arch", "qwen2_moe_a2p7b", "--layers", "2"]))
+              ["--arch", "qwen2_moe_a2p7b", "--layers", "2"]),
+             ("minicpm3-4b", "minicpm3 train",
+              ["--arch", "minicpm3_4b", "--layers", "8"]))
 # (cut from 10 and 3 steps for the script's time, as the parity batch
 # below; most of these phases' time is outside the steps: the draws, the
 # end-of-run checkpoints, the fp32 copies to the CPU)
 TRAIN_128_STEPS = 6
 REMAT_STEPS = 2
 TRAIN_128_ARGS = ["--seq-len", "512", "--global-batch", "8"]
-# phase 7's fp32 parity of the head_dim-128 models: (arch, ...) and their
-# batch, TRAIN_PARITY's cut to one sequence
-TRAIN_PARITY_128 = ("mistral_nemo_12b", "qwen2_moe_a2p7b")
+# phase 7's fp32 parity of the head_dim-128 models and the MLA decoder:
+# (arch, ...) and their batch, TRAIN_PARITY's cut to one sequence
+TRAIN_PARITY_128 = ("mistral_nemo_12b", "qwen2_moe_a2p7b", "minicpm3_4b")
 TRAIN_PARITY_BATCH_128 = dict(layers=2, batch=1, seq_len=128)
 KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "flash_attention_paged": "paged", "flash_decode": "slot pool",
@@ -534,13 +553,15 @@ def phase_build() -> None:
             base, _, arg = kernel.partition("<")
             if base in WGMMA_SMEM:
                 fn = getattr(build.library(name), WGMMA_SMEM[base])
-                fn.argtypes = [ctypes.c_int] if arg else []
-                smem = fn(int(arg.rstrip(">"))) if arg else fn()
+                dims = [int(x) for x in arg.rstrip(">").split(",") if x]
+                fn.argtypes = [ctypes.c_int] * len(dims)
+                smem = fn(*dims)
                 extra = f", {smem} bytes dynamic smem (wgmma form)"
             print(f"  ptxas {name} {kernel}: {info['registers']} registers, "
                   f"{info['smem']} bytes static smem, spill stores "
                   f"{info['spill_stores']} / loads {info['spill_loads']} "
                   f"bytes{extra}")
+    _check_train_builds()
     _print_decode_plans()
     _print_mla_plans()
     _print_topk_plans()
@@ -586,6 +607,39 @@ def _print_decode_plans() -> None:
                   f"{p.split} x {p.splits} ({b * hkv * p.splits} CTAs of "
                   f"{p.threads} threads), {p.smem} bytes dynamic smem a "
                   f"split CTA, {4 * p.workspace} bytes of partials")
+
+
+# the training kernels' instances, (Dqk, Dv): every form of each must be in
+# ptxas's report without a spill
+TRAIN_INSTANCES = ((64, 64), (128, 128), (96, 64))
+TRAIN_SYMBOLS = {"flash_attention_fwd": ("fresh_fwd_wgmma_kernel",
+                                         "fresh_fwd_kernel"),
+                 "flash_attention_bwd": ("bwd_dq_wgmma_kernel",
+                                         "bwd_dkv_wgmma_kernel",
+                                         "bwd_dq_kernel", "bwd_dkv_kernel")}
+
+
+def _check_train_builds() -> None:
+    """The fresh forward's and the backward's instances at every
+    ``TRAIN_INSTANCES`` pair (minicpm3-4b's decompressed MLA at (96, 64)),
+    bf16 on the tensor cores and fp32 on the CUDA cores, in ptxas's report
+    of a build this process ran, with no spill."""
+    from repro_torch.kernels import build
+    for source, symbols in TRAIN_SYMBOLS.items():
+        if build.BUILD_LOG.get(source) is None:
+            continue
+        report = _ptxas_report(build.BUILD_LOG[source])
+        want = {f"{sym}<{'f32,' if 'wgmma' not in sym else ''}{a},{b}>"
+                for sym in symbols for a, b in TRAIN_INSTANCES}
+        missing = want - set(report)
+        if missing:
+            _fail(f"ptxas {source}: no report of {sorted(missing)}")
+        for kernel in sorted(want):
+            info = report[kernel]
+            if info["spill_stores"] or info["spill_loads"]:
+                _fail(f"ptxas {source} {kernel}: spills {info}")
+    print(f"  training kernels at (Dqk, Dv) {TRAIN_INSTANCES}: every form "
+          "built, no spill")
 
 
 def _print_mla_plans() -> None:
@@ -1142,18 +1196,27 @@ def _check_offset(gen, hkv: int = 5, g: int = 3, d: int = 64) -> float:
     return worst
 
 
-def _fresh_inputs(gen, *, dtype, b, t, hkv=5, g=3, d=64, spare=16):
-    """q, dout [B, T, Hq, D] and k, v [B, T, Hkv, D] on the card, k and v
-    cut from buffers of T + ``spare`` positions whose rows past T are NaN
-    (so they are strided views, and a kernel that reads past T turns its
-    output NaN)."""
+def _fresh_inputs(gen, *, dtype, b, t, hkv=5, g=3, d=64, spare=16, dv=None):
+    """q [B, T, Hq, D], dout [B, T, Hq, Dv] and k [B, T, Hkv, D], v
+    [B, T, Hkv, Dv] on the card, k and v cut from buffers of T + ``spare``
+    positions whose rows past T are NaN (so they are strided views, and a
+    kernel that reads past T turns its output NaN).  Dv is D unless ``dv``
+    is given (MLA's 96 / 64: k and v then come from buffers of their own,
+    with strides of their own)."""
     import torch
     q = torch.randn(b, t, hkv * g, d, generator=gen)
-    dout = torch.randn(b, t, hkv * g, d, generator=gen)
-    kv = torch.randn(2, b, t + spare, hkv, d, generator=gen)
-    kv[:, :, t:] = float("nan")
-    kv = kv.to(device="cuda", dtype=dtype)
-    return (q.to(device="cuda", dtype=dtype), kv[0, :, :t], kv[1, :, :t],
+    dout = torch.randn(b, t, hkv * g, dv or d, generator=gen)
+    if dv is not None:
+        k = torch.randn(b, t + spare, hkv, d, generator=gen)
+        v = torch.randn(b, t + spare, hkv, dv, generator=gen)
+        k[:, t:] = v[:, t:] = float("nan")
+        k, v = (x.to(device="cuda", dtype=dtype)[:, :t] for x in (k, v))
+    else:
+        kv = torch.randn(2, b, t + spare, hkv, d, generator=gen)
+        kv[:, :, t:] = float("nan")
+        kv = kv.to(device="cuda", dtype=dtype)
+        k, v = kv[0, :, :t], kv[1, :, :t]
+    return (q.to(device="cuda", dtype=dtype), k, v,
             dout.to(device="cuda", dtype=dtype))
 
 
@@ -1244,21 +1307,24 @@ def _template_args(prof, symbols) -> dict:
     return out
 
 
-def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
+def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64,
+                 dv=None) -> dict:
     """The training kernels at T = 512 (the training runs'), 37 (not a
     multiple of the 16- or 64-row tile) and 1, causal and not, B = 2,
-    ``hkv`` KV heads of ``g`` query heads, head dim ``d``; then
-    ``FlashAttention``'s dq, dk, dv against autograd through the plain
-    forward.  The first case of each dtype runs under torch.profiler, which
-    must see that dtype's form (``FRESH_FORMS``) at head dim ``d`` (each
-    symbol's template arguments) and no other port kernel.  Errors are max
-    abs over max(1, the largest reference entry); fp32 within 1e-5, bf16
-    within 2e-2.  Returns the bf16 errors: the training path runs bf16."""
+    ``hkv`` KV heads of ``g`` query heads, head dims ``d`` (q, k) and
+    ``dv`` (v; ``d`` unless given); then ``FlashAttention``'s dq, dk, dv
+    against autograd through the plain forward.  The first case of each
+    dtype runs under torch.profiler, which must see that dtype's form
+    (``FRESH_FORMS``) at head dims (``d``, ``dv``) (each symbol's template
+    arguments) and no other port kernel.  Errors are max abs over max(1,
+    the largest reference entry); fp32 within 1e-5, bf16 within 2e-2.
+    Returns the bf16 errors: the training path runs bf16."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     worst = dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"), 0.0)
-    heads = f"Hq={hkv * g} Hkv={hkv} D={d}"
+    dims = f"{d},{dv or d}"
+    heads = f"Hq={hkv * g} Hkv={hkv} D={d}" + (f" Dv={dv}" if dv else "")
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         errs = dict.fromkeys(worst, 0.0)
         form, symbols = FRESH_FORMS[str(dtype)[6:]]
@@ -1266,7 +1332,7 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
         for t in (512, 37, 1):
             for causal in (True, False):
                 inputs = _fresh_inputs(gen, dtype=dtype, b=2, t=t, hkv=hkv,
-                                       g=g, d=d)
+                                       g=g, d=d, dv=dv)
                 if seen is None:
                     case, prof = _profiled(
                         lambda: _fresh_errs(*inputs, causal), cpu=True,
@@ -1274,12 +1340,12 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
                     seen = _kernels_seen(prof)
                     targs = _template_args(prof, symbols)
                     if seen != sorted(symbols) or any(
-                            len(a) != 1 or str(d) not in next(iter(
-                                a)).split(",") for a in targs.values()):
+                            len(a) != 1 or not next(iter(a)).endswith(dims)
+                            for a in targs.values()):
                         _fail(f"fresh attention {str(dtype)[6:]} {heads}: "
                               f"the profiler saw {seen} with template "
                               f"arguments {targs}, the {form} form is "
-                              f"{sorted(symbols)} at D {d}")
+                              f"{sorted(symbols)} at <{dims}>")
                     seen = [f"{sym}<{next(iter(targs[sym]))}>"
                             for sym in sorted(symbols)]
                 else:
@@ -1291,7 +1357,7 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64) -> dict:
                               f"{err:.3g} > {atol}")
                     errs[name] = max(errs[name], err)
         q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=2, t=37, hkv=hkv,
-                                      g=g, d=d)
+                                      g=g, d=d, dv=dv)
         k, v = torch.nan_to_num(k), torch.nan_to_num(v)
         grads = []
         for fn in (lambda a, b_, c: fa.FlashAttention.apply(a, b_, c, True),
@@ -1969,6 +2035,17 @@ def _check_padded_sampler(gen) -> float:
     return worst
 
 
+def _check_mla_train(gen) -> dict:
+    """The training kernels' (96, 64) instances, minicpm3-4b's decompressed
+    MLA (q and k 64 nope + 32 rope, v 64, at its default scale 96^-0.5), at
+    its 40/40 heads: every fresh check (``_check_fresh``: T 512 and 37,
+    bf16 and fp32, each dtype's form named from the profiler), k and v
+    read through strides of their own.  Returns {``<kernel>_d96``: max
+    error}."""
+    found = _check_fresh(gen, hkv=MLA_HEADS, g=1, d=96, dv=64)
+    return {name + "_d96": err for name, err in found.items()}
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -1984,6 +2061,7 @@ def phase_kernels() -> dict:
     errs.update(_check_head_dim_128(gen))
     errs.update(_check_moe_shapes(gen))
     errs.update(_check_mla(gen))
+    errs.update(_check_mla_train(gen))
     return errs
 
 
@@ -2145,10 +2223,11 @@ def _serve_lockstep(what: str, argv, cfg, params) -> dict:
 MISTRAL = ["--arch", "mistral_nemo_12b"]
 DEEPSEEK = ["--arch", "deepseek_coder_33b"]
 # mistral-nemo-12b's serving runs (phase 4b) at full width and this many of
-# its 40 layers (9.8 GB of bf16 weights): its five runs at all 40 took ~52 s
-# of the script, which the MLA decoder's runs needed (parity and training
-# keep their depths of 2 and 4)
-MISTRAL_LAYERS = 16
+# its 40 layers: its five runs at all 40 took ~52 s
+# of the script, which the MLA decoder's serving runs needed (40 → 16), and
+# at 16 ~36 s, which minicpm3-4b's training runs needed (16 → 8; parity and
+# training keep their depths of 2 and 4)
+MISTRAL_LAYERS = 8
 # deepseek-coder-33b at full width and cut depth: 8 of its 62 layers, 4.7e9
 # parameters or 9.4 GB of bf16 weights (all 62 would be 66.7 GB, beside the
 # pools and the 0.9 GB fp32 head copy of every sample on an 80 GB card)
@@ -2213,6 +2292,10 @@ INSTANCES = {
     **{kernel + tag: (kernel, path)
        for tag, path in (("_d128", "mistral train"), ("_d128_g1",
                                                       "qwen2 train"))
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
+    # their (96, 64) instances: minicpm3-4b's decompressed MLA (rows 6m, 7m)
+    **{kernel + "_d96": (kernel, "minicpm3 train")
        for kernel in ("flash_attention", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv")},
 }
@@ -2379,9 +2462,10 @@ LLAMA4 = ["--arch", "llama4_scout_17b_a16e"]
 # depth is the first cut
 LLAMA4_LAYERS = 2
 # qwen2-moe-a2.7b's serving runs (phase 4c) at full width and this many of
-# its 24 layers (~15 GB of bf16): its four runs at all 24 took ~35 s of the
-# script, which the MLA decoder's runs needed
-QWEN2_LAYERS = 8
+# its 24 layers: its four runs at all 24 took ~35 s of the
+# script, which the MLA decoder's serving runs needed (24 → 8), and at 8
+# ~20 s, of which minicpm3-4b's training runs needed some (8 → 6)
+QWEN2_LAYERS = 6
 # qwen2-moe-a2.7b's continuous-batching runs: phase 4's workloads but the
 # int8 slot pool, the second cut for the script's time (its kernel
 # instance, flash_decode_int8 at G 1, is checked and timed in phases 3
@@ -3177,7 +3261,9 @@ def _train_counts(cfg, steps: int) -> dict:
     under remat "full" or "block" (both recompute attention and the
     router): per layer and step 2 fresh forwards (the forward, then its
     recomputation in the backward), one dq and one dk/dv launch, and for an
-    MoE model 2 router launches; nothing else."""
+    MoE model 2 router launches; nothing else (an ``mla`` block's
+    decompressed attention takes the same three kernels at (96, 64), and
+    its latent serving kernels launch 0 times)."""
     n = cfg.num_layers
     want = dict.fromkeys(COUNTERS, 0)
     want.update(flash_attention=2 * steps * n,
@@ -3270,8 +3356,10 @@ def _remat_runs(run, args, name: str) -> None:
 
 
 def phase_train_128() -> dict:
-    """The head_dim-128 models trained through ``launch.train`` at full
-    width (``TRAIN_128``): weights drawn on the card, ``TRAIN_128_STEPS``
+    """The head_dim-128 models and the MLA decoder trained through
+    ``launch.train`` at full width (``TRAIN_128``; minicpm3-4b's attention
+    through the training kernels' (96, 64) instances): weights drawn on the
+    card, ``TRAIN_128_STEPS``
     bf16 steps under remat "full" (``--checkpoint-every 0``: smollm-360m's
     restart runs check the checkpoint, and writing these 24.3 / 18.3 GB
     took most of the runs' time), between a
@@ -3303,16 +3391,22 @@ def phase_train_128() -> dict:
         peak = (torch.cuda.max_memory_allocated() - held) / 2**30
         cfg = run.model
         n_params = sum(p.numel() for p in tree.leaves(params))
-        mc = cfg.moe
+        mc, ml = cfg.moe, cfg.mla
         ffn = (f"d_ff {cfg.d_ff}" if mc is None else
                f"{mc.num_experts} experts padded to {mc.pad_experts_to}, "
                f"top {mc.experts_per_token}, d_ff {mc.d_ff_expert}, shared "
                f"{mc.d_ff_shared}")
+        heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                 f"{cfg.resolved_head_dim}" if ml is None else
+                 f"{cfg.num_heads} MLA heads, q_lora {ml.q_lora_rank}, "
+                 f"kv_lora {ml.kv_lora_rank}, Dqk "
+                 f"{ml.qk_nope_head_dim + ml.qk_rope_head_dim} "
+                 f"({ml.qk_nope_head_dim} + {ml.qk_rope_head_dim} rope), Dv "
+                 f"{ml.v_head_dim}")
         depth = configs.get(cfg.name).num_layers
         print(f"train {name}: {cfg.dtype}, {cfg.num_layers} of {depth} "
               f"layers at full width (d_model "
-              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-              f"{cfg.resolved_head_dim}, {ffn}, vocab {cfg.vocab_size}), "
+              f"{cfg.d_model}, {heads}, {ffn}, vocab {cfg.vocab_size}), "
               f"{n_params / 1e9:.3f}e9 parameters drawn on the card, "
               f"{args.steps} steps of {args.global_batch} x {args.seq_len} "
               f"tokens, remat {cfg.remat}; peak device memory {peak:.2f} "
@@ -3447,11 +3541,20 @@ def _train_parity(cfg, params_cuda, params_cpu, what: str,
     router = (f"; router: {len(routes['cpu'])} calls (forward and "
               f"recomputation), the same {kept} kept assignments on both "
               "devices" if routes["cpu"] else "")
+    if cfg.mla is not None:
+        mla = [p for p in paths if p.rsplit("/", 1)[-1] in MLA_LEAVES]
+        if len(mla) != len(MLA_LEAVES) * cfg.num_layers:
+            _fail(f"train parity {what}: MLA leaves {mla}")
+        router += f"; the {len(mla)} MLA leaves among them"
     print(f"train parity {what}: fp32 {cfg.num_layers} layers full width, "
           f"batch {shape['batch']} x {shape['seq_len']}: loss "
           f"rel diff {rel:.3g} (tol 1e-5); worst gradient leaf {where} max "
           f"abs diff {worst:.3g} of its largest entry (tol 1e-4) over "
           f"{len(paths)} leaves{router}")
+
+
+# the MLA attention's own leaves (``models/layers.mla_init``)
+MLA_LEAVES = ("wdq", "q_norm", "wuq", "wdkv", "kv_norm", "wuk", "wuv")
 
 
 def phase_train_parity() -> None:
@@ -3467,11 +3570,13 @@ def phase_train_parity() -> None:
 
 
 def phase_train_parity_128() -> None:
-    """``_train_parity`` of mistral-nemo-12b and qwen2-moe-a2.7b at full
-    width cut to ``TRAIN_PARITY_BATCH_128``'s 2 layers and one sequence:
-    weights drawn on the card from seed 2 (a CPU draw of ~1.9e9 weights
-    takes 12-15 s) and copied to the CPU; qwen2-moe's router gradient among
-    the leaves."""
+    """``_train_parity`` of mistral-nemo-12b, qwen2-moe-a2.7b and
+    minicpm3-4b at full width cut to ``TRAIN_PARITY_BATCH_128``'s 2 layers
+    and one sequence: weights drawn on the card from seed 2 (a CPU draw of
+    ~1.9e9 weights takes 12-15 s) and copied to the CPU; qwen2-moe's router
+    gradient and minicpm3's MLA leaves (the low-rank q, the latent and
+    rope-key projections, W_uk and W_uv, the two norms) among the leaves,
+    its attention through the fp32 (96, 64) instances."""
     import torch
     from repro_torch import configs
     from repro_torch.models import transformer
@@ -3790,6 +3895,9 @@ def phase_times() -> dict:
     # shape (32/8 heads) and qwen2-moe-a2.7b's (16/16)
     for tag, (hkv, g) in TRAIN_TIMED_128.items():
         rows.update(_train_kernel_times(gen, hkv, g, 128, tag))
+    # their (96, 64) instances at minicpm3-4b's training shape (40/40 heads,
+    # q and k 96 wide, v 64)
+    rows.update(_train_kernel_times(gen, MLA_HEADS, 1, 96, "_d96", dv=64))
     # the MLA decoder's latent attention and its sampler
     rows.update(_mla_kernel_times(gen))
     rows.update(_library_kernel_times())
@@ -4225,32 +4333,40 @@ def _sleep_ms(cycles: int) -> float:
 
 
 def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
-                        tag: str = "") -> dict:
+                        tag: str = "", dv=None) -> dict:
     """Rows 6-7 at a training shape (B = 8, T = 512, ``hkv`` KV heads of
-    ``g`` query heads, head dim ``d``, bf16, causal; smollm-360m's 15/5 of
-    64 by default): the fresh forward, and the dq and dk/dv kernels, each
-    against its bound; the wrapper and plain times of the forward and of the
-    whole backward; the library yardstick is SDPA (is_causal, enable_gqa) on
-    [B, H, T, D] views, its forward for row 6 and its autograd backward for
-    row 7 (the dq and dk/dv rows both carry the whole backward's plain and
-    library times).  Keys ``<kernel><tag>``."""
+    ``g`` query heads, head dims ``d`` (q, k) and ``dv`` (v, out; ``d``
+    unless given), bf16, causal; smollm-360m's 15/5 of 64 by default): the
+    fresh forward, and the dq and dk/dv kernels, each against its bound;
+    the wrapper and plain times of the forward and of the whole backward;
+    the library yardstick is SDPA (is_causal, enable_gqa) on [B, H, T, D]
+    views, its forward for row 6 and its autograd backward for row 7 (the
+    dq and dk/dv rows both carry the whole backward's plain and library
+    times).  Bytes count each operand once at its width; operations two
+    per multiply-add of each product below the diagonal (S and dP contract
+    over D and Dv, dQ and dK are D wide, O and dV Dv).  Keys
+    ``<kernel><tag>``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     b, t, hq, esz = 8, 512, hkv * g, 2
+    dv = dv or d
     q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=b, t=t,
-                                  hkv=hkv, g=g, d=d)
+                                  hkv=hkv, g=g, d=d,
+                                  dv=dv if dv != d else None)
     k, v = k.contiguous(), v.contiguous()      # the model's K/V layout
     errs = _fresh_errs(q, k, v, dout, True)
     if max(errs.values()) > 2e-2:
         _fail(f"fresh attention on the timed input: {errs}")
     out, lse = fa.flash_attention_fwd(q, k, v)
     pairs = t * (t + 1) // 2
-    per_pair = 2.0 * d * b * hq              # flops of one product per pair
-    io = b * t * (2 * hq + 2 * hkv) * d * esz   # q, dout (or out), k, v
-    stats = 2 * b * hq * t * 4                  # lse and delta, fp32
-    shape = f"B=8 T=512 Hq={hq} Hkv={hkv} D={d} bf16 causal"
+    per_pair = 2.0 * b * hq                  # flops per width of a product
+    qk = b * t * (hq + hkv) * d * esz           # q and k
+    vo = b * t * (hq + hkv) * dv * esz          # dout (or out) and v
+    stat = b * hq * t * 4                       # lse or delta, fp32
+    shape = (f"B=8 T=512 Hq={hq} Hkv={hkv} D={d}"
+             + (f" Dv={dv}" if dv != d else "") + " bf16 causal")
 
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -4276,7 +4392,8 @@ def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
     bwd_wrapper = _ms(lambda: fab.flash_attention_bwd(q, k, v, out, lse,
                                                       dout))
     rows = {}
-    b_ms, b_by = _bound(io + b * hq * t * 4, 2 * per_pair * pairs,
+    # forward: reads q, k, v, writes out and lse; S (D) and O (Dv)
+    b_ms, b_by = _bound(qk + vo + stat, per_pair * (d + dv) * pairs,
                         "bfloat16")
     bwd_lib_device = _device_call_ms(sdpa_bwd)
     bwd_device = _device_call_ms(lambda: fab.flash_attention_bwd(
@@ -4291,8 +4408,8 @@ def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
         "library_device_ms": _device_call_ms(sdpa),
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
     # dq: s, dp and dq products; reads q, k, v, dout, lse, delta, writes dq
-    b_ms, b_by = _bound(io + stats + b * t * hq * d * esz,
-                        3 * per_pair * pairs, "bfloat16")
+    b_ms, b_by = _bound(qk + vo + 2 * stat + b * t * hq * d * esz,
+                        per_pair * (2 * d + dv) * pairs, "bfloat16")
     rows["flash_attention_bwd_dq" + tag] = {
         "ms": _ms(lambda: fab.launch(dq_args)),
         "device_ms": _device_call_ms(lambda: fab.launch(dq_args)),
@@ -4300,18 +4417,19 @@ def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
         "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
     # dk/dv: s, dp, dk and dv products; writes dk and dv
-    b_ms, b_by = _bound(io + stats + 2 * b * t * hkv * d * esz,
-                        4 * per_pair * pairs, "bfloat16")
+    b_ms, b_by = _bound(qk + vo + 2 * stat + b * t * hkv * (d + dv) * esz,
+                        per_pair * 2 * (d + dv) * pairs, "bfloat16")
     rows["flash_attention_bwd_dkv" + tag] = {
         "ms": _ms(lambda: fab.launch(dkv_args)),
         "device_ms": _device_call_ms(lambda: fab.launch(dkv_args)),
         "wrapper_ms": bwd_wrapper, "plain_ms": bwd_plain,
         "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
-    # the whole backward's bound (five products; out read for delta)
-    b_ms, b_by = _bound(io + b * t * hq * d * esz + b * hq * t * 4
-                        + b * t * (hq + 2 * hkv) * d * esz,
-                        5 * per_pair * pairs, "bfloat16")
+    # the whole backward's bound: reads q, k, v, out, dout, lse and delta,
+    # writes dq, dk and dv; five products (S, dP, dQ, dK, dV)
+    b_ms, b_by = _bound(qk + vo + b * t * hq * dv * esz + 2 * stat
+                        + b * t * (hq + hkv) * d * esz + b * t * hkv * dv * esz,
+                        per_pair * (3 * d + 2 * dv) * pairs, "bfloat16")
     print(f"time flash attention backward{tag}, both kernels [{shape}]: bound "
           f"{b_ms:.5f}ms by {b_by}; wrapper (delta + dq + dk/dv) "
           f"{bwd_wrapper:.4f}ms, device {bwd_device:.4f}ms; plain "

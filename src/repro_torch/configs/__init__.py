@@ -4,8 +4,7 @@ Only the architectures the port serves are listed: the dense decoders
 smollm-360m (head_dim 64, tied head), mistral-nemo-12b and
 deepseek-coder-33b (head_dim 128, untied heads), the MoE decoders
 qwen2-moe-a2.7b and llama4-scout-17b-a16e (head_dim 128), and the MLA
-decoder minicpm3-4b (latent attention; served, not yet trained on the
-card).  Asking for another one raises and names the reference module it
+decoder minicpm3-4b (latent attention).  Asking for another one raises and names the reference module it
 still lives in.
 """
 from __future__ import annotations

@@ -57,6 +57,13 @@ struct ContiguousRows {
   __device__ size_t at(int j) const { return base + j * step; }
 };
 
+// The fresh attention's k and v strides (elements), (sb, ss, sh) each: v's
+// differ from k's in MLA's training form (k a concatenation 96 wide, v a
+// 64-wide product).
+struct KVStrides {
+  long long sb, ss, sh, vsb, vss, vsh;
+};
+
 struct NoScales {
   static constexpr bool kScaled = false;
   __device__ void apply(int, int, float&, float&) const {}
@@ -458,10 +465,18 @@ constexpr int kPrefillRows = 16;
 constexpr int kPrefillThreads = 128;
 constexpr int kPrefillRowThreads = kPrefillThreads / kPrefillRows;  // 8
 
-__host__ __device__ constexpr int prefill_smem_words(int D, int tile) {
-  return kPrefillRows * (D + 1) + tile * (D + 1) + tile * D +
+__host__ __device__ constexpr int prefill_smem_words(int Dqk, int Dv,
+                                                     int tile) {
+  return kPrefillRows * (Dqk + 1) + tile * (Dqk + 1) + tile * Dv +
          kPrefillRows * tile;
 }
+__host__ __device__ constexpr int prefill_smem_words(int D, int tile) {
+  return prefill_smem_words(D, D, tile);
+}
+
+// prefill_attend's V rows when V lies at K's addresses (the cached
+// prefills' K/V, which share their layout).
+struct SameRows {};
 
 // Query rows [i0, i0 + kPrefillRows) of head h of batch row b (q and out in
 // the model layout [B, Tq, Hq, D]; rows past Tq are masked, so Tq need not
@@ -472,22 +487,27 @@ __host__ __device__ constexpr int prefill_smem_words(int D, int tile) {
 // thread carries its row's (m, d) and D / 8 accumulator lanes.  Writes
 // out = acc / max(d, 1e-30) and lse [B, Hq, Tq] = m + log d, or -inf and 0
 // for a row with no valid key.  K/V are of q's type, or int8 with `sc`
-// their scales.
+// their scales.  D is q's and k's head dim; Dv, v's and out's, is D unless
+// given (MLA's training form: D 96, Dv 64), and then V has rows of its own
+// (`vrows`, fp K/V only).
 template <typename T, int D, typename KV, typename Rows,
-          typename Sc = NoScales>
+          typename Sc = NoScales, int Dv = D, typename VRows = SameRows>
 __device__ __forceinline__ void prefill_attend(
     const T* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, const Rows& rows, int L, int tile, int qo,
     int b, int h, int i0, int Tq, int Hq, T* __restrict__ out,
     float* __restrict__ lse, float scale, int causal, float* smem,
-    const Sc& sc = Sc()) {
-  constexpr int kLanes = D / kPrefillRowThreads;  // accumulator lanes
+    const Sc& sc = Sc(), const VRows& vrows = VRows()) {
+  constexpr bool kSame = std::is_same_v<VRows, SameRows>;
+  static_assert(!kSame || Dv == D, "V of another width has rows of its own");
+  static_assert(kSame || !Sc::kScaled, "int8 K/V share their rows");
+  constexpr int kLanes = Dv / kPrefillRowThreads;  // accumulator lanes
   const int tid = threadIdx.x;
   const int row = tid / kPrefillRowThreads, lane = tid % kPrefillRowThreads;
   float* qs = smem;                           // [rows, D + 1], pre-scaled
   float* ks = qs + kPrefillRows * (D + 1);    // [tile, D + 1]
-  float* vs = ks + tile * (D + 1);            // [tile, D]
-  float* ss = vs + tile * D;                  // [rows, tile] scores
+  float* vs = ks + tile * (D + 1);            // [tile, Dv]
+  float* ss = vs + tile * Dv;                 // [rows, tile] scores
 
   for (int e = tid; e < kPrefillRows * D; e += kPrefillThreads) {
     const int r = e / D, c = e % D;
@@ -508,7 +528,20 @@ __device__ __forceinline__ void prefill_attend(
 
   for (int j = 0; j < nb; ++j) {
     __syncthreads();  // previous tile consumed (and qs written, at j == 0)
-    load_kv_tile<KV, D>(k, v, rows, sc, j, tile, L, ks, vs);
+    if constexpr (kSame) {
+      load_kv_tile<KV, D>(k, v, rows, sc, j, tile, L, ks, vs);
+    } else {
+      const size_t kb = rows.at(j), vb = vrows.at(j);
+      for (int e = threadIdx.x; e < tile * D; e += blockDim.x) {
+        const int t = e / D, c = e % D;
+        ks[t * (D + 1) + c] =
+            j * tile + t < L ? to_f32(k[kb + t * rows.stride + c]) : 0.f;
+      }
+      for (int e = threadIdx.x; e < tile * Dv; e += blockDim.x) {
+        const int t = e / Dv, c = e % Dv;
+        vs[e] = j * tile + t < L ? to_f32(v[vb + t * vrows.stride + c]) : 0.f;
+      }
+    }
     __syncthreads();
     for (int e = tid; e < kPrefillRows * tile; e += kPrefillThreads) {
       const int r = e / tile, t = e % tile;
@@ -537,7 +570,7 @@ __device__ __forceinline__ void prefill_attend(
       ds += p;
 #pragma unroll
       for (int c = 0; c < kLanes; ++c)
-        acc[c] += p * vs[t * D + lane + c * kPrefillRowThreads];
+        acc[c] += p * vs[t * Dv + lane + c * kPrefillRowThreads];
     }
     d = d * alpha + ds;
     m = mn;
@@ -546,7 +579,7 @@ __device__ __forceinline__ void prefill_attend(
   const int i = i0 + row;
   if (i < Tq) {
     const float inv = 1.f / fmaxf(d, 1e-30f);
-    T* o = out + ((static_cast<size_t>(b) * Tq + i) * Hq + h) * D;
+    T* o = out + ((static_cast<size_t>(b) * Tq + i) * Hq + h) * Dv;
 #pragma unroll
     for (int c = 0; c < kLanes; ++c)
       o[lane + c * kPrefillRowThreads] = from_f32<T>(acc[c] * inv);

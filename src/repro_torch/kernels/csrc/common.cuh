@@ -152,6 +152,20 @@ inline cudaError_t with_head_dim(int D, F&& f) {
   }
 }
 
+// The (Dqk, Dv) pairs the fresh attention and its backward are instantiated
+// for: (64, 64) and (128, 128), with_head_dim's, and (96, 64), MLA's
+// decompressed training form (minicpm3-4b: 64 nope + 32 rope for q and k,
+// v 64).  Calls f(integral_constant<int, Dqk>(), integral_constant<int,
+// Dv>()) and returns its error; any other pair gives cudaErrorInvalidValue.
+template <typename F>
+inline cudaError_t with_head_dims(int Dqk, int Dv, F&& f) {
+  if (Dqk == Dv) return with_head_dim(Dqk, [&](auto d) { return f(d, d); });
+  if (Dqk == 96 && Dv == 64)
+    return f(std::integral_constant<int, 96>(),
+             std::integral_constant<int, 64>());
+  return cudaErrorInvalidValue;
+}
+
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

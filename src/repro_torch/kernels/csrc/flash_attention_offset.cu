@@ -92,9 +92,10 @@ __global__ void __launch_bounds__(wg::kThreads)
       ContiguousRows{static_cast<size_t>(b * sb + hk * sh),
                      static_cast<size_t>(wg::kRows * ss),
                      static_cast<size_t>(ss)}};
-  wg::attend<D>(q + q0, k, v, keys, out + q0,
-             lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq,
-             q_offset[b], max(min(vlen[b], Tk), 0), scale, causal, tiles);
+  wg::attend<D, D>(q + q0, k, v, keys, out + q0,
+                   lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride,
+                   qstride, i0, Tq, q_offset[b], max(min(vlen[b], Tk), 0),
+                   scale, causal, tiles);
 }
 
 template <int D>

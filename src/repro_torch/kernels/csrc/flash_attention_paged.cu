@@ -128,9 +128,10 @@ __global__ void __launch_bounds__(wg::kThreads)
   const size_t page = static_cast<size_t>(BS) * D;
   const wg::PagedKeys<D> keys{tables + static_cast<size_t>(b) * M, staged,
                               Hkv * page, hk * page, BS};
-  wg::attend<D>(q + q0, k_pool, v_pool, keys, out + q0,
-             lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride, i0, Tq,
-             q_offset[b], max(min(vlen[b], M * BS), 0), scale, causal, tiles);
+  wg::attend<D, D>(q + q0, k_pool, v_pool, keys, out + q0,
+                   lse + (static_cast<size_t>(b) * Hq + h) * Tq, qstride,
+                   qstride, i0, Tq, q_offset[b],
+                   max(min(vlen[b], M * BS), 0), scale, causal, tiles);
 }
 
 template <typename T, int D>

@@ -7,12 +7,17 @@
 // (attend), which the fresh and both cached-prefill forward kernels share,
 // each giving it where its keys live (ContiguousKeys, PagedKeys).
 //
-// Tiles.  An operand tile is 64 rows of a head dim D (64 or 128 bf16) as
-// D / 64 atom columns, each [64 rows][64 bf16] (128 bytes a row): 8 KB,
-// 1024-byte aligned, with 16-byte chunk c of row r stored at r * 128 +
+// Tiles.  An operand tile is 64 rows of a head dim D (64, 96 or 128 bf16)
+// as ceil(D / 64) atom columns, each [64 rows][64 bf16] (128 bytes a row):
+// 8 KB, 1024-byte aligned, with 16-byte chunk c of row r stored at r * 128 +
 // ((c ^ (r % 8)) * 16), the 128B swizzle that wgmma's SWIZZLE_128B mode
 // reads; atom column a holds values [64a, 64a + 64) of every row and lies
-// a * 8 KB into the tile.  At D 64 a tile is one atom column.  The same
+// a * 8 KB into the tile.  At D 64 a tile is one atom column; at D 96 (MLA's
+// q and k) the second column holds values 64-95 in its first 64 bytes a
+// row and the rest is never written: a contraction over 96 reads two
+// k-steps of it, and a product 96 wide (dQ, dK) computes 128 columns and
+// drops the last 32, each of which reads only its own unwritten column of
+// the operand.  The same
 // atom column serves two ways:
 //   K-major  (the contraction runs along the row's 64 values: Q, K, dO, V
 //            in S = Q·Kᵀ, dP = dO·Vᵀ and their transposes); k-step kk of 16
@@ -47,9 +52,9 @@ constexpr int kD = 64;                    // values of an atom row, 128 bytes
 constexpr int kThreads = 128;             // one warpgroup
 constexpr uint32_t kTileBytes = kRows * kD * 2;   // 8 KB: one atom column
 
-// Bytes of a tile of head dim D: D / 64 atom columns.
+// Bytes of a tile of head dim D: ceil(D / 64) atom columns.
 __host__ __device__ constexpr uint32_t tile_bytes(int D) {
-  return kRows * D * 2;
+  return kRows * ((D + kD - 1) / kD) * kD * 2;
 }
 
 // Where 16-byte chunk c (of D / 8) of row r lies in a tile.
@@ -86,6 +91,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           const At& at, int valid) {
   constexpr int kChunks = D / 8;  // 16-byte copies a row
+  static_assert(kRows * kChunks % kThreads == 0, "whole copies a thread");
   const int tid = threadIdx.x % kThreads;
 #pragma unroll
   for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
@@ -258,26 +264,47 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // ---- the forward's tile loop -------------------------------------------------
-// Dynamic shared memory of attend at head dim D: Q, then two stages of (K,
-// V), and the 1 KB the base is aligned up by (41 KB at D 64, 81 KB at D 128:
-// past the default 48 KB, so its launches raise the limit first).
+// Dynamic shared memory of attend at head dims (Dqk, Dv): Q, then two
+// stages of (K, V), and the 1 KB the base is aligned up by (41 KB at
+// (64, 64), 81 KB at (128, 128), 65 KB at (96, 64): past the default 48 KB,
+// so its launches raise the limit first).
+__host__ __device__ constexpr int attend_smem(int Dqk, int Dv) {
+  return 3 * tile_bytes(Dqk) + 2 * tile_bytes(Dv) + 1024;
+}
 __host__ __device__ constexpr int attend_smem(int D) {
-  return 5 * tile_bytes(D) + 1024;
+  return attend_smem(D, D);
 }
 
 // Where attend finds its keys: at(j, r) is the offset (elements, from K's
-// and V's base) of row r of 64-key tile j of one (batch row, KV head), in
-// the two cache layouts of attention.cuh (position t at rows.at(t / tile) +
-// (t % tile) * rows.stride).  stage(j, L) runs one tile ahead of the copies
-// of tile j, in the same cp.async group as tile j - 1's.
+// base) of row r of 64-key tile j of one (batch row, KV head), in the two
+// cache layouts of attention.cuh (position t at rows.at(t / tile) + (t %
+// tile) * rows.stride).  kShared: V's rows lie at K's offsets (one address,
+// two copies); otherwise vat(j, r) is the same from V's base.  stage(j, L)
+// runs one tile ahead of the copies of tile j, in the same cp.async group as
+// tile j - 1's.
 //
-// A cache in the model layout: ContiguousRows with tile 64 (step 64 * ss).
+// A cache in the model layout: ContiguousRows with tile 64 (step 64 * ss),
+// K and V sharing their strides.
 struct ContiguousKeys {
-  static constexpr bool kStaged = false;
+  static constexpr bool kStaged = false, kShared = true;
   ContiguousRows rows;
   __device__ __forceinline__ void stage(int, int) const {}
   __device__ __forceinline__ size_t at(int j, int r) const {
     return rows.at(j) + r * rows.stride;
+  }
+};
+
+// K and V in the model layout with strides of their own (the fresh
+// forward's: MLA's k is 96 wide and v a 64-wide view of another product).
+struct SplitKeys {
+  static constexpr bool kStaged = false, kShared = false;
+  ContiguousRows k, v;
+  __device__ __forceinline__ void stage(int, int) const {}
+  __device__ __forceinline__ size_t at(int j, int r) const {
+    return k.at(j) + r * k.stride;
+  }
+  __device__ __forceinline__ size_t vat(int j, int r) const {
+    return v.at(j) + r * v.stride;
   }
 };
 
@@ -289,7 +316,7 @@ struct ContiguousKeys {
 // hold a position below L are staged, so a dead entry is never read.
 template <int D>
 struct PagedKeys {
-  static constexpr bool kStaged = true;
+  static constexpr bool kStaged = true, kShared = true;
   static constexpr int kSlot = kRows;  // pages a tile may span (BS 1)
   const int* table;   // the batch row's M entries (device memory)
   int* staged;        // [2][kSlot] (shared memory)
@@ -313,14 +340,34 @@ struct PagedKeys {
   }
 };
 
+// Keys [0, 64) of tile j (rows at or past `valid` zero-filled) into the K
+// tile at dk and the V tile at dv: one address and two copies where V lies
+// at K's offsets (and so has K's width), else each through its own offsets.
+template <int Dqk, int Dv, typename Keys>
+__device__ __forceinline__ void load_keys(uint32_t dk, uint32_t dv,
+                                          const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v,
+                                          const Keys& keys, int j, int valid) {
+  if constexpr (Keys::kShared) {
+    static_assert(Dqk == Dv, "V at K's offsets has K's width");
+    load_kv_rows<Dqk>(dk, dv, k, v, [&keys, j](int r) { return keys.at(j, r); },
+                      valid);
+  } else {
+    load_rows<Dqk>(dk, k, [&keys, j](int r) { return keys.at(j, r); }, valid);
+    load_rows<Dv>(dv, v, [&keys, j](int r) { return keys.vat(j, r); },
+                  valid);
+  }
+}
+
 // Query rows [i0, i0 + 64) of one (query head, batch row) against keys
 // [0, L) of its KV head, by one warpgroup, query row i at absolute position
-// qo + i, at head dim D (64 or 128).  qb: the head's row 0 of q (rows qstride apart), ob the same of
-// out; lb: its row 0 of lse (rows 1 apart); k, v and keys: where its KV
+// qo + i, at head dims (Dqk, Dv): (64, 64), (128, 128) or (96, 64).  qb: the
+// head's row 0 of q (rows qstride apart), ob the same of out (rows ostride
+// apart); lb: its row 0 of lse (rows 1 apart); k, v and keys: where its KV
 // head's keys live (ContiguousKeys, PagedKeys).  Q's tile is copied once; K
 // and V tiles of 64 keys stream through a two-stage cp.async ring, so the
 // copy of tile j + 1 overlaps the products of tile j (a paged cache's table
-// entries of tile j + 2 ride along with it).  Per tile: S = Q·Kᵀ (D / 16
+// entries of tile j + 2 ride along with it).  Per tile: S = Q·Kᵀ (Dqk / 16
 // wgmma m64n64k16, fp32 accumulators in registers); the online (m, d) update in
 // the accumulator layout: a row's max from its thread's 16 scores and two
 // quad shuffles, each exponential taken once as exp2f with scale·log2(e)
@@ -328,37 +375,38 @@ struct PagedKeys {
 // -inf/-inf gives no NaN), and d kept as per-thread partial sums,
 // quad-reduced once at the end; then O += P·V with P converted to bf16 in
 // registers as wgmma's register A operand and V read MN-major, one
-// m64n64 accumulator per 64 columns of O.  The tile
+// m64n64 accumulator per 64 columns of O (Dv / 64).  The tile
 // loop stops at min(ceil(L / 64), (qo + last row) / 64 + 1) when causal;
 // only tiles that cross L or the diagonal (k_pos <= qo + i) are masked.
 // Keys at or past L are zero-filled without being read and score -inf;
 // query rows past Tq are zero-filled and not written.  Epilogue: out = O / d
 // in bf16, lse = m + log d; a row with no valid key gives 0 and -inf.
-template <int D, typename Keys>
+template <int Dqk, int Dv, typename Keys>
 __device__ __forceinline__ void attend(
     const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const Keys& keys,
     __nv_bfloat16* __restrict__ ob, float* __restrict__ lb, size_t qstride,
-    int i0, int Tq, int qo, int L, float scale, int causal,
+    size_t ostride, int i0, int Tq, int qo, int L, float scale, int causal,
     unsigned char* tiles) {
-  constexpr uint32_t kTileSize = tile_bytes(D);
-  constexpr int kCols = D / kD;          // atom columns, O's accumulators
+  constexpr uint32_t kKTile = tile_bytes(Dqk), kVTile = tile_bytes(Dv);
+  constexpr uint32_t kStage = kKTile + kVTile;
+  constexpr int kCols = Dv / kD;         // atom columns, O's accumulators
+  static_assert(Dv % kD == 0, "O is whole atom columns");
   const uint32_t sq = aligned_base(tiles);
-  const uint32_t skv = sq + kTileSize;   // stage s: K, then V
+  const uint32_t skv = sq + kKTile;      // stage s: K, then V
   constexpr int R = kRows;
 
   int nk = (L + R - 1) / R;
   if (causal) nk = min(nk, (qo + min(i0 + R, Tq) - 1) / R + 1);
 
-  load_tile<D>(sq, qb + i0 * qstride, qstride, Tq - i0);
+  load_tile<Dqk>(sq, qb + i0 * qstride, qstride, Tq - i0);
   if constexpr (Keys::kStaged) {  // tile 0's table entries first
     keys.stage(0, L);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
   }
-  load_kv_rows<D>(skv, skv + kTileSize, k, v,
-                  [&keys](int r) { return keys.at(0, r); }, L);
+  load_keys<Dqk, Dv>(skv, skv + kKTile, k, v, keys, 0, L);
   if (1 < nk) keys.stage(1, L);
   cp_async_commit();
 
@@ -378,19 +426,18 @@ __device__ __forceinline__ void attend(
     fence_proxy_async();
     __syncthreads();  // tile j landed; every thread is done with tile j - 1
     if (j + 1 < nk) {
-      const uint32_t nxt = skv + ((j + 1) & 1) * 2 * kTileSize;
-      load_kv_rows<D>(nxt, nxt + kTileSize, k, v,
-                      [&keys, j](int r) { return keys.at(j + 1, r); },
-                      L - (j + 1) * R);
+      const uint32_t nxt = skv + ((j + 1) & 1) * kStage;
+      load_keys<Dqk, Dv>(nxt, nxt + kKTile, k, v, keys, j + 1,
+                         L - (j + 1) * R);
       if (j + 2 < nk) keys.stage(j + 2, L);  // slot j % 2: tile j's, done
     }
     cp_async_commit();
-    const uint32_t ks = skv + (j & 1) * 2 * kTileSize;
-    const uint32_t vs = ks + kTileSize;
+    const uint32_t ks = skv + (j & 1) * kStage;
+    const uint32_t vs = ks + kKTile;
 
     fence_acc(s);
     fence();
-    gemm_k<D>(s, sq, ks);  // S = Q·Kᵀ
+    gemm_k<Dqk>(s, sq, ks);  // S = Q·Kᵀ
     commit();
     wait_all();
     fence_acc(s);
@@ -446,7 +493,7 @@ __device__ __forceinline__ void attend(
     const int i = i0 + row0 + 8 * r;
     if (i >= Tq) continue;
     const float inv = 1.f / fmaxf(d, 1e-30f);
-    __nv_bfloat16* orow = ob + i * qstride;
+    __nv_bfloat16* orow = ob + i * ostride;
 #pragma unroll
     for (int a = 0; a < kCols; ++a) {
 #pragma unroll

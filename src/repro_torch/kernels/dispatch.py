@@ -20,10 +20,13 @@ Fresh attention (``kv_valid_len`` unset, ``q_offset`` 0: the training
 form) runs ``FlashAttention`` on CUDA, the forward kernel with its dq and
 dk/dv backward kernels, as the reference's ``_attention_pallas`` ran
 ``ops._flash`` (``dispatch.py:540``); on the CPU it runs the chunked online
-form, which autograd differentiates.  On CUDA a custom scale and a value
-head_dim other than q's still raise ``NotImplementedError`` (MLA's
-decompressed training form); on the CPU the chunked online form serves
-them, as the reference's XLA path did.
+form, which autograd differentiates.  MLA's decompressed training form
+(q and k 96 wide, v 64, at the default scale 96^-0.5) takes the same
+kernels' (96, 64) instances on CUDA, where the reference's XLA path served
+it (``models/layers.py:439``).  On CUDA a custom scale, and a value
+head_dim other than q's on any other route or at a pair without an
+instance, raise ``NotImplementedError``; on the CPU the chunked online form
+serves them, as the reference's XLA path did.
 
 ``mla_attention`` is MLA's absorbed form over its latent cache (the
 reference's ``mla_apply`` sent it through ``_sdpa`` with a custom scale
@@ -211,7 +214,10 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
                            decode=decode, block_tables=block_tables,
                            k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cuda":
-        _require_kernel_form(q, v, scale, "contiguous attention")
+        fresh = not decode and k_scale is None and kv_valid_len is None
+        _require_kernel_form(q, v, scale, "contiguous attention",
+                             pairs=_flash_attention.HEAD_DIMS[
+                                 "flash_attention"] if fresh else ())
         if decode:
             return _flash_decode.flash_decode(q, k, v, kv_valid_len,
                                               k_scale=k_scale, v_scale=v_scale)
@@ -275,19 +281,21 @@ def _contiguous_op(decode: bool, k_scale, kv_valid_len) -> str:
             else "flash_attention_offset")
 
 
-def _require_kernel_form(q, v, scale, what: str) -> None:
-    """The attention kernels take the default scale and v's head_dim equal
-    to q's.  MLA's absorbed serving forms have kernels of their own
-    (``mla_attention``); its decompressed training form (Dqk 96, Dv 64)
-    waits for the MLA training slice."""
+def _require_kernel_form(q, v, scale, what: str, pairs=()) -> None:
+    """The attention kernels take the default scale, and v's head_dim
+    equal to q's or, where the route has an instance for it (``pairs``: the
+    fresh route's (Dqk, Dv), whose (96, 64) is MLA's decompressed training
+    form at its default scale 96^-0.5), another.  MLA's absorbed serving
+    forms have kernels of their own (``mla_attention``)."""
     if scale is not None and scale != q.shape[-1] ** -0.5:
         raise NotImplementedError(
             f"{what} with a custom scale is not ported (MLA's absorbed "
             "form runs through mla_attention)")
-    if v.shape[-1] != q.shape[-1]:
+    dims = (q.shape[-1], v.shape[-1])
+    if dims[1] != dims[0] and dims not in pairs:
         raise NotImplementedError(
-            f"{what} with a value head_dim other than q's (MLA's training "
-            "form) has no kernel yet: it comes with the MLA training slice")
+            f"{what} with (Dqk, Dv) = {dims} has no kernel (value head "
+            f"dims other than q's: {[p for p in pairs if p[0] != p[1]]})")
 
 
 def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,

@@ -43,7 +43,9 @@ Layouts keep the model's: q [B, Tq, Hq, D] in, out [B, Tq, Hq, D];
 pools [P, Hkv, BS, D] with block_tables [B, M] int32, or k, v
 [B, Tk, Hkv, D]; q_offset, kv_valid_len [B].  lse comes back as
 [B, Hq, Tq] float32, −inf for a row with no valid key (the Pallas kernels'
-[B, Hq, Tq, 1] without the unit axis).
+[B, Hq, Tq, 1] without the unit axis).  The fresh kernel also takes v
+narrower than q and k, MLA's decompressed training form (q, k 96 = 64
+nope + 32 rope, v and out 64), each of k and v through its own strides.
 """
 from __future__ import annotations
 
@@ -58,12 +60,13 @@ from repro_torch.kernels.flash_decode import (SMEM_LIMIT, check_kv_dtypes,
                                               gather_pages, gather_scales)
 from repro_torch.obs import kernels as obs_kernels
 
-#: The head dims each route has csrc instances for: the cached prefills
-#: (contiguous, paged and the paged int8 form) and the fresh forward, the
-#: training form, at 64 (smollm-360m) and 128 (mistral-nemo-12b,
-#: deepseek-coder-33b, the MoE decoders).  Another head dim raises.
-HEAD_DIMS = {"flash_attention_offset": (64, 128),
-             "flash_attention_paged": (64, 128),
+#: The (Dqk, Dv) head-dim pairs each route has csrc instances for: the
+#: cached prefills (contiguous, paged and the paged int8 form) at (64, 64)
+#: (smollm-360m) and (128, 128) (mistral-nemo-12b, deepseek-coder-33b, the
+#: MoE decoders); the fresh forward, the training form, at those and at
+#: (96, 64) (minicpm3-4b's decompressed MLA).  Another pair raises.
+HEAD_DIMS = {"flash_attention_offset": ((64, 64), (128, 128)),
+             "flash_attention_paged": ((64, 64), (128, 128)),
              "flash_attention": _bwd.HEAD_DIMS}
 BQ = 16               # query rows of one CTA (csrc kPrefillRows)
 
@@ -80,8 +83,8 @@ _ARGTYPES = {
     "flash_attention_paged": _PAGED_ARGTYPES,
     "flash_attention_paged_wgmma": _PAGED_ARGTYPES,
     "flash_attention_offset": _OFFSET_ARGTYPES,
-    "flash_attention": [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _L, _L,
-                        _L, ctypes.c_float, _I, _C],
+    "flash_attention": [_C] * 5 + [_I] * 8 + [_L] * 6
+    + [ctypes.c_float, _I, _C],
     "flash_attention_paged_int8": [_C] * 10 + [_I] * 8 + [_L] * 3
     + [ctypes.c_float, _I, _C],
     "flash_attention_offset_wgmma": _OFFSET_ARGTYPES,
@@ -104,8 +107,9 @@ _ENTRY = {"flash_attention": ("flash_attention_fwd", "flash_attention_fwd",
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
                               chunk_size: int = DEFAULT_CHUNK):
     """The fresh kernel's plain version: the chunked online attention of q
-    [B, Tq, Hq, D] over every position of k, v [B, Tk, Hkv, D], query row i
-    at position i.  Returns (out [B, Tq, Hq, D], lse [B, Hq, Tq])."""
+    [B, Tq, Hq, Dqk] over every position of k [B, Tk, Hkv, Dqk] and v
+    [B, Tk, Hkv, Dv], query row i at position i, at scale Dqk^-0.5.  Returns
+    (out [B, Tq, Hq, Dv], lse [B, Hq, Tq])."""
     return online_attention_lse(q, k, v, causal=causal,
                                 chunk_size=chunk_size)
 
@@ -139,30 +143,21 @@ def flash_attention_paged_plain(q, k_pool, v_pool, q_offset, kv_valid_len,
 
 def _check(name, q, k, v, hkv, k_scale=None, v_scale=None):
     """Shared validation: CUDA operands of q's dtype (or int8 K/V with bf16
-    scales) and head_dim, in a GQA grouping and a grid the kernel takes."""
+    scales), q's and k's head_dim and v's a pair the kernel has an instance
+    for, in a GQA grouping and a grid the kernel takes."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {q.device}")
     b, tq, hq, dh = q.shape
-    if k.shape[-1] != dh or v.shape != k.shape:
+    if k.shape[-1] != dh or v.shape[:-1] != k.shape[:-1]:
         raise ValueError(f"{name} kernel: q {tuple(q.shape)} and K/V "
                          f"{tuple(k.shape)}/{tuple(v.shape)} do not match")
     check_kv_dtypes(name, q, k, v, k_scale, v_scale)
-    if hq % hkv or dh not in HEAD_DIMS[name] or hq > 65535 or b > 65535:
-        raise ValueError(f"{name} kernel: Hq={hq}, Hkv={hkv}, D={dh} not "
-                         f"supported (D in {HEAD_DIMS[name]})")
+    dims = (dh, v.shape[-1])
+    if hq % hkv or dims not in HEAD_DIMS[name] or hq > 65535 or b > 65535:
+        raise ValueError(f"{name} kernel: Hq={hq}, Hkv={hkv}, D={dh}, "
+                         f"Dv={dims[1]} not supported ((D, Dv) in "
+                         f"{HEAD_DIMS[name]})")
     return b, tq, hq, dh
-
-
-def _kv_strides(name, k, v, b):
-    """k, v [B, Tk, Hkv, D] are read through their strides: the last must
-    be 1 and K and V must share them.  Returns (sb, ss, sh)."""
-    if k.dim() != 4 or k.shape[0] != b or k.stride(-1) != 1 or \
-            k.stride() != v.stride():
-        raise ValueError(f"{name} kernel: K/V {tuple(k.shape)} with strides "
-                         f"{k.stride()}/{v.stride()} for {b} rows (need "
-                         "[B, Tk, Hkv, D], unit last stride, equal K/V "
-                         "strides)")
-    return k.stride()[:3]
 
 
 def _rows(x, q, b):
@@ -223,7 +218,7 @@ def prepare(q, k, v, q_offset, kv_valid_len, *, causal: bool = True):
                          "is not [B, Tk, Hkv, D]")
     tk, hkv = k.shape[1], k.shape[2]
     b, tq, hq, dh = _check("flash_attention_offset", q, k, v, hkv)
-    sb, ss, sh = _kv_strides("flash_attention_offset", k, v, b)
+    sb, ss, sh = _bwd.kv_strides("flash_attention_offset", k, v, b)[:3]
     build.dtype_code(q)                 # raises on another dtype
     qc = q.contiguous()
     out = torch.empty_like(qc)
@@ -273,31 +268,34 @@ def flash_attention_offset(q, k, v, q_offset, kv_valid_len, *,
 
 def prepare_fwd(q, k, v, *, causal: bool = True):
     """Validate CUDA operands of the fresh kernel and allocate the outputs.
-    k, v [B, Tk, Hkv, D] are passed by their strides, never copied.  Returns
-    (launch arguments, (out [B, Tq, Hq, D], lse [B, Hq, Tq]))."""
+    k [B, Tk, Hkv, Dqk] and v [B, Tk, Hkv, Dv] are passed by their own
+    strides, never copied.  Returns (launch arguments, (out [B, Tq, Hq, Dv],
+    lse [B, Hq, Tq]))."""
     if k.dim() != 4:
         raise ValueError(f"flash_attention kernel: k {tuple(k.shape)} is not "
                          "[B, Tk, Hkv, D]")
     tk, hkv = k.shape[1], k.shape[2]
     b, tq, hq, dh = _check("flash_attention", q, k, v, hkv)
-    sb, ss, sh = _kv_strides("flash_attention", k, v, b)
+    strides = _bwd.kv_strides("flash_attention", k, v, b)
     if tq == 0 or tk == 0:
         raise ValueError(f"flash_attention kernel: empty sequence (Tq={tq}, "
                          f"Tk={tk})")
     code = build.dtype_code(q)
     qc = q.contiguous()
-    _bwd.check_wgmma_operands("flash_attention", (qc, k, v), (sb, ss, sh))
-    out = torch.empty_like(qc)
+    _bwd.check_wgmma_operands("flash_attention", (qc, k, v), strides)
+    dv = v.shape[-1]
+    out = torch.empty((b, tq, hq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     args = ("flash_attention", qc, k, v, out, lse, code, b, tq, tk, hq, hkv,
-            dh, sb, ss, sh, float(dh ** -0.5), int(bool(causal)))
+            dh, dv, *strides, float(dh ** -0.5), int(bool(causal)))
     return args, (out, lse)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
-    """Launch the fresh forward kernel on CUDA tensors: q [B, Tq, Hq, D]
-    against every position of k, v [B, Tk, Hkv, D], query row i at position
-    i.  Returns (out [B, Tq, Hq, D], lse [B, Hq, Tq] float32)."""
+    """Launch the fresh forward kernel on CUDA tensors: q [B, Tq, Hq, Dqk]
+    against every position of k [B, Tk, Hkv, Dqk] and v [B, Tk, Hkv, Dv],
+    query row i at position i.  Returns (out [B, Tq, Hq, Dv], lse
+    [B, Hq, Tq] float32)."""
     args, out = prepare_fwd(q, k, v, causal=causal)
     launch(args)
     return out
@@ -306,7 +304,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
 class FlashAttention(torch.autograd.Function):
     """Differentiable fresh flash attention, the port of the reference's
     ``ops._flash``: ``FlashAttention.apply(q, k, v, causal)`` → out
-    [B, Tq, Hq, D].  The forward saves (q, k, v, out, lse) as ``_flash_fwd``
+    [B, Tq, Hq, Dv] (v's head dim: q's, or 64 against q's 96 in MLA's
+    training form).  The forward saves (q, k, v, out, lse) as ``_flash_fwd``
     does; the backward rebuilds P from lse.  CUDA tensors run the kernels
     (``flash_attention_fwd``, ``flash_attention_bwd``), CPU tensors their
     plain versions."""

@@ -13,8 +13,10 @@ loops over the query heads of each KV head's group, so dk and dv come back
 already reduced to the KV heads; the reference emitted them per query head
 and its wrapper summed them (``ops.py:196-197``).
 
-Layouts keep the model's: q, out, dout, dq [B, Tq, Hq, D]; k, v, dk, dv
-[B, Tk, Hkv, D]; lse [B, Hq, Tq] float32 (``flash_attention_fwd``'s).
+Layouts keep the model's: q, dq [B, Tq, Hq, Dqk]; out, dout
+[B, Tq, Hq, Dv]; k, dk [B, Tk, Hkv, Dqk]; v, dv [B, Tk, Hkv, Dv]; lse
+[B, Hq, Tq] float32 (``flash_attention_fwd``'s).  Dv is Dqk's except in
+MLA's decompressed training form (Dqk 96 = 64 nope + 32 rope, Dv 64).
 """
 from __future__ import annotations
 
@@ -25,10 +27,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.obs import kernels as obs_kernels
 
-#: The head dims the backward kernels have csrc instances for: 64
-#: (smollm-360m) and 128 (mistral-nemo-12b, qwen2-moe-a2.7b).  Another head
-#: dim raises.
-HEAD_DIMS = (64, 128)
+#: The (Dqk, Dv) head-dim pairs the backward kernels (and the fresh
+#: forward) have csrc instances for: (64, 64) (smollm-360m), (128, 128)
+#: (mistral-nemo-12b, qwen2-moe-a2.7b) and (96, 64) (minicpm3-4b's
+#: decompressed MLA).  Another pair raises.
+HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
 
 #: Kernel launches since the last reset (the training path's proof of route).
 launches = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
@@ -37,11 +40,30 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "flash_attention_bwd_dq": [_C] * 7 + [_I] * 7 + [_L] * 3
+    "flash_attention_bwd_dq": [_C] * 7 + [_I] * 8 + [_L] * 6
     + [ctypes.c_float, _I, _C],
-    "flash_attention_bwd_dkv": [_C] * 8 + [_I] * 7 + [_L] * 3
+    "flash_attention_bwd_dkv": [_C] * 8 + [_I] * 8 + [_L] * 6
     + [ctypes.c_float, _I, _C],
 }
+
+
+def kv_strides(name, k, v, b):
+    """k [B, Tk, Hkv, Dqk] and v [B, Tk, Hkv, Dv] of the fresh kernels are
+    read through their strides, each with a unit last stride: at equal
+    widths K's and V's must be equal (the kernels address both rows at
+    once), at (96, 64) each has its own (MLA's k is a concatenation 96
+    wide, its v a 64-wide product).  Returns (sb, ss, sh, vsb, vss,
+    vsh)."""
+    if k.dim() != 4 or v.dim() != 4 or k.shape[0] != b or \
+            v.shape[:3] != k.shape[:3] or k.stride(-1) != 1 or \
+            v.stride(-1) != 1 or (v.shape[-1] == k.shape[-1]
+                                  and k.stride() != v.stride()):
+        raise ValueError(f"{name} kernel: K/V {tuple(k.shape)}/"
+                         f"{tuple(v.shape)} with strides {k.stride()}/"
+                         f"{v.stride()} for {b} rows (need [B, Tk, Hkv, D] "
+                         "each, unit last strides, equal K/V strides at "
+                         "equal widths)")
+    return k.stride()[:3] + v.stride()[:3]
 
 
 def check_wgmma_operands(name, tensors, strides) -> None:
@@ -62,7 +84,7 @@ def _acc_dtype(t):
 
 
 def _delta(out, dout):
-    """rowsum(dO ⊙ O) in fp32: [B, Tq, Hq, D] → [B, Hq, Tq]."""
+    """rowsum(dO ⊙ O) in fp32: [B, Tq, Hq, Dv] → [B, Hq, Tq]."""
     f = _acc_dtype(out)
     return (dout.to(f) * out.to(f)).sum(-1).transpose(1, 2).contiguous()
 
@@ -73,14 +95,15 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *,
     out (``flash_attention_bwd.py:35-60`` and ``75-106``) over the whole
     score matrix: p = exp(s − lse), dp = dO·vᵀ, ds = p·(dp − delta)·scale,
     dq = ds·k, dk = dsᵀ·q, dv = pᵀ·dO, with dk and dv summed over each KV
-    head's query heads.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    head's query heads.  dO, dp's contraction and dv take v's head dim, dq
+    and dk q's.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
     b, tq, hq, dh = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
+    tk, hkv, dv_ = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     scale = dh ** -0.5
     f = _acc_dtype(q)
     qf = q.to(f).reshape(b, tq, hkv, g, dh)
-    dof = dout.to(f).reshape(b, tq, hkv, g, dh)
+    dof = dout.to(f).reshape(b, tq, hkv, g, dv_)
     kf, vf = k.to(f), v.to(f)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf * scale, kf)
     lse_ = lse.reshape(b, hkv, g, tq, 1)
@@ -100,16 +123,18 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *,
 
 def prepare(q, k, v, out, lse, dout, *, causal: bool = True):
     """Validate CUDA operands of the two kernels, compute delta and allocate
-    dq, dk, dv.  k, v [B, Tk, Hkv, D] are passed by their strides, never
-    copied.  Returns (dq launch arguments, dk/dv launch arguments,
-    (dq, dk, dv)); :func:`launch` fills them."""
+    dq, dk, dv.  k [B, Tk, Hkv, Dqk] and v [B, Tk, Hkv, Dv] are passed by
+    their own strides, never copied.  Returns (dq launch arguments, dk/dv
+    launch arguments, (dq, dk, dv)); :func:`launch` fills them."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, "
                          f"got {q.device}")
     b, tq, hq, dh = q.shape
-    if k.dim() != 4 or k.shape[0] != b or k.shape[-1] != dh or \
-            v.shape != k.shape or out.shape != q.shape or \
-            dout.shape != q.shape or lse.shape != (b, hq, tq):
+    dvw = v.shape[-1]
+    if k.dim() != 4 or v.dim() != 4 or k.shape[0] != b or \
+            k.shape[-1] != dh or v.shape[:3] != k.shape[:3] or \
+            out.shape != (b, tq, hq, dvw) or dout.shape != out.shape or \
+            lse.shape != (b, hq, tq):
         raise ValueError(f"flash_attention_bwd kernel: q {tuple(q.shape)}, "
                          f"K/V {tuple(k.shape)}/{tuple(v.shape)}, out "
                          f"{tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
@@ -120,25 +145,20 @@ def prepare(q, k, v, out, lse, dout, *, causal: bool = True):
         raise ValueError(f"flash_attention_bwd kernel: q {q.dtype}, K/V "
                          f"{k.dtype}/{v.dtype}, dout {dout.dtype}, lse "
                          f"{lse.dtype} (need one dtype and float32 lse)")
-    if hq % hkv or dh not in HEAD_DIMS or hq > 65535 or \
+    if hq % hkv or (dh, dvw) not in HEAD_DIMS or hq > 65535 or \
             b > 65535 or tq == 0 or tk == 0:
         raise ValueError(f"flash_attention_bwd kernel: Hq={hq}, Hkv={hkv}, "
-                         f"D={dh}, Tq={tq}, Tk={tk} not supported (D in "
-                         f"{HEAD_DIMS})")
-    if k.stride(-1) != 1 or k.stride() != v.stride():
-        raise ValueError(f"flash_attention_bwd kernel: K/V strides "
-                         f"{k.stride()}/{v.stride()} (need unit last "
-                         "stride, equal K/V strides)")
+                         f"D={dh}, Dv={dvw}, Tq={tq}, Tk={tk} not supported "
+                         f"((D, Dv) in {HEAD_DIMS})")
+    strides = kv_strides("flash_attention_bwd", k, v, b)
     code = build.dtype_code(q)
     qc, doc, lc = q.contiguous(), dout.contiguous(), lse.contiguous()
-    check_wgmma_operands("flash_attention_bwd", (qc, k, v, doc),
-                         k.stride()[:3])
+    check_wgmma_operands("flash_attention_bwd", (qc, k, v, doc), strides)
     delta = _delta(out, dout)
     dq = torch.empty_like(qc)
     dk = torch.empty((b, tk, hkv, dh), dtype=k.dtype, device=k.device)
-    dv = torch.empty_like(dk)
-    sb, ss, sh, _ = k.stride()
-    tail = (code, b, tq, tk, hq, hkv, dh, sb, ss, sh, float(dh ** -0.5),
+    dv = torch.empty((b, tk, hkv, dvw), dtype=v.dtype, device=v.device)
+    tail = (code, b, tq, tk, hq, hkv, dh, dvw, *strides, float(dh ** -0.5),
             int(bool(causal)))
     dq_args = ("flash_attention_bwd_dq", qc, k, v, doc, lc, delta, dq) + tail
     dkv_args = ("flash_attention_bwd_dkv", qc, k, v, doc, lc, delta, dk,
@@ -156,7 +176,8 @@ def launch(args) -> None:
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True):
     """Launch the dq and the dk/dv kernels on CUDA tensors.  Returns (dq
-    [B, Tq, Hq, D], dk, dv [B, Tk, Hkv, D]) in the dtypes of q and k."""
+    [B, Tq, Hq, Dqk], dk [B, Tk, Hkv, Dqk], dv [B, Tk, Hkv, Dv]) in the
+    dtypes of q, k and v."""
     dq_args, dkv_args, grads = prepare(q, k, v, out, lse, dout,
                                        causal=causal)
     launch(dq_args)

@@ -11,18 +11,16 @@ one exists.  Prints a line every ``log_every`` steps and ends with
 Port of ``src/repro/launch/train.py`` (``main`` at line 23), with the
 reference's flags; ``--layers`` (cut the depth, keep the width) is the
 port's own.  ``--mesh`` is not ported yet (the distributed slice) and says
-so.  An MLA model (``--arch minicpm3_4b``) trains on the CPU through the
-plain versions; on CUDA it raises: its decompressed attention (Dqk 96, Dv
-64) and that attention's backward have no kernels until the MLA training
-slice.
+so.  An MLA model (``--arch minicpm3_4b``) trains like the others: its
+decompressed attention (Dqk 96, Dv 64) runs the fresh forward's and the
+backward's (96, 64) instances on the card and their plain versions on the
+CPU.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import tempfile
-
-import torch
 
 import repro_torch.configs as configs
 from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
@@ -86,12 +84,6 @@ def train(args: argparse.Namespace, *, log=print):
     history, run config)."""
     run_cfg = run_config(args)
     cfg = run_cfg.model
-    if cfg.mla is not None and torch.device(args.device).type == "cuda":
-        raise NotImplementedError(
-            f"training {cfg.name} on CUDA comes with the MLA training slice "
-            "(the fresh attention and its backward at Dqk 96 / Dv 64); "
-            "serve it with repro_torch.launch.serve, or train with --device "
-            "cpu")
     params, opt_state = init_state(run_cfg, device=args.device)
     ds = SyntheticDataset(SyntheticConfig(
         vocab_size=cfg.real_vocab_size or cfg.vocab_size,

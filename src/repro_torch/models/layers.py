@@ -199,8 +199,9 @@ def mla_apply(p: dict, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
       An int8 config keeps fp latents too, as the reference's does.
     * ``cache=None`` (training): the decompressed form, K = [c·W_uk,
       k_rope broadcast to the heads] and V = c·W_uv, through
-      ``dispatch.sdpa`` (Dqk 96, Dv 64), which has no kernel on CUDA yet
-      and raises there; the CPU runs its plain version.
+      ``dispatch.sdpa`` (Dqk 96, Dv 64): on CUDA the fresh forward's and
+      the backward's (96, 64) instances (``FlashAttention``), k and v read
+      through their own strides; on the CPU their plain versions.
     """
     m = cfg.mla
     b, t, _ = x.shape

@@ -324,21 +324,29 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
                            **NO_MLA}
 
 
-def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7):
-    """q, dout [B, T, Hq, D]; k, v [B, T, Hkv, D] cut from buffers of
-    T + ``spare`` positions whose rows past T are NaN, so a kernel that
-    reads past T fails."""
+def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7, dv=None):
+    """q [B, T, Hq, D], dout [B, T, Hq, Dv]; k [B, T, Hkv, D] and v
+    [B, T, Hkv, Dv] cut from buffers of T + ``spare`` positions whose rows
+    past T are NaN, so a kernel that reads past T fails.  Dv is D unless
+    ``dv`` is given (MLA's 96 / 64), and then k and v are cut from buffers
+    of their own, so their strides differ."""
     gen = torch.Generator().manual_seed(seed)
     q = torch.randn(b, t, hkv * g, d, generator=gen)
-    dout = torch.randn(b, t, hkv * g, d, generator=gen)
+    dout = torch.randn(b, t, hkv * g, dv or d, generator=gen)
+    if dv is not None:
+        k = torch.randn(b, t + spare, hkv, d, generator=gen)
+        v = torch.randn(b, t + spare, hkv, dv, generator=gen)
+        k[:, t:] = v[:, t:] = float("nan")
+        return q, k[:, :t], v[:, :t], dout
     kv = torch.randn(2, b, t + spare, hkv, d, generator=gen)
     kv[:, :, t:] = float("nan")
     return q, kv[0, :, :t], kv[1, :, :t], dout
 
 
-def _check_fresh_kernels(cuda, dtype, atol, *, hkv=5, g=3, d=64):
+def _check_fresh_kernels(cuda, dtype, atol, *, hkv=5, g=3, d=64, dv=None):
     """The training kernels at ``hkv`` KV heads of ``g`` query heads and
-    head dim ``d`` against their plain versions: the fresh forward (out,
+    head dims ``d`` (q, k) and ``dv`` (v; ``d`` if unset) against their
+    plain versions: the fresh forward (out,
     lse), the dq and dk/dv backward kernels over ragged T (not a multiple
     of 16 or of 64), T = 1, one and several 64-row tiles, causal and not,
     K/V read through strides with NaN past T; then ``FlashAttention``'s
@@ -350,7 +358,8 @@ def _check_fresh_kernels(cuda, dtype, atol, *, hkv=5, g=3, d=64):
     for t, causal in ((37, True), (37, False), (1, True), (1, False),
                       (64, True), (130, True), (130, False)):
         q, k, v, dout = (x.to(**dev)
-                         for x in _fresh(7, b=2, t=t, hkv=hkv, g=g, d=d))
+                         for x in _fresh(7, b=2, t=t, hkv=hkv, g=g, d=d,
+                                         dv=dv))
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         w_out, w_lse = fa.flash_attention_fwd_plain(
             q, torch.nan_to_num(k), torch.nan_to_num(v), causal=causal)
@@ -373,7 +382,7 @@ def _check_fresh_kernels(cuda, dtype, atol, *, hkv=5, g=3, d=64):
         n += 1
     # FlashAttention.apply against autograd through the plain forward
     q, k, v, dout = (x.to(**dev)
-                     for x in _fresh(8, b=2, t=37, hkv=hkv, g=g, d=d))
+                     for x in _fresh(8, b=2, t=37, hkv=hkv, g=g, d=d, dv=dv))
     k, v = torch.nan_to_num(k), torch.nan_to_num(v)
     got, want = [], []
     for fn, store in ((lambda a, b_, c: fa.FlashAttention.apply(a, b_, c,
@@ -1454,8 +1463,10 @@ def test_mla_streams_equal_on_card_and_cpu(cuda):
     """A small MLA model (minicpm3's latent widths R 256 / Dr 32, 8 heads,
     2 layers) served through the slot pool on the card and on the CPU:
     identical streams, one latent attention launch a layer and forward;
-    training refuses the card."""
-    from repro_torch.launch import train
+    training this model on the card raises ``NotImplementedError``: its
+    decompressed attention is (Dqk 64, Dv 32), a pair with no instance
+    (the kernels have (96, 64), minicpm3-4b's)."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
     base = configs.get_smoke("minicpm3_4b")
     cfg = base.replace(d_model=128, num_heads=8, num_kv_heads=8, mla=(
         configs.MLAConfig(q_lora_rank=64, kv_lora_rank=256,
@@ -1481,5 +1492,110 @@ def test_mla_streams_equal_on_card_and_cpu(cuda):
         sched.decode_steps + ones)
     assert counts["flash_attention_mla"] == cfg.num_layers * (
         sched.prefill_chunks - ones)
-    with pytest.raises(NotImplementedError, match="MLA training slice"):
-        train.train(train.parse_args(["--arch", "minicpm3_4b", "--smoke"]))
+    batch = SyntheticDataset(SyntheticConfig(cfg.vocab_size, 16, 2)).batch(0)
+    batch = {k: torch.as_tensor(x, device=cuda) for k, x in batch.items()}
+    with pytest.raises(NotImplementedError, match=r"\(64, 32\) has no kernel"):
+        transformer.loss_fn(transformer.params_to(params_cpu, cuda), batch,
+                            cfg)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_mla_train_kernels_match_plain(cuda, dtype, atol):
+    """The training kernels' (96, 64) instances, MLA's decompressed form
+    (bf16: the tensor-core forms, S over six k-steps, dQ and dK 96 wide;
+    fp32: the CUDA-core forms), at minicpm3-4b's G 1, k and v read through
+    strides of their own, as ``_check_fresh_kernels``; a pair without an
+    instance (64, 32) raises in the forward and the backward."""
+    q, k, v = _check_fresh_kernels(cuda, dtype, atol, hkv=8, g=1, d=96,
+                                   dv=64)
+    q, k, v = q[..., :64], k[..., :64], v[..., :32]
+    with pytest.raises(ValueError, match="D=64, Dv=32"):
+        fa.flash_attention_fwd(q, k, v)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda)
+    with pytest.raises(ValueError, match="D=64, Dv=32"):
+        fab.flash_attention_bwd(q, k, v, v, lse, v)
+
+
+def test_mla_train_attention_through_dispatch(cuda):
+    """``dispatch.sdpa``'s fresh route on MLA's training layout (q and k a
+    concatenation of 64 nope and 32 rope values, v a 64-wide view of a
+    product, 8 heads, bf16) launches the forward once and each backward
+    kernel once, and matches the CPU's chunked online form within bf16
+    rounding (output and the gradients of q, k and v); the cached-prefill
+    route at the same pair, and a pair without an instance, raise
+    ``NotImplementedError``."""
+    cfg = configs.get("minicpm3_4b")
+    gen = torch.Generator().manual_seed(11)
+    b, t, h = 2, 70, 8
+    # bf16 values, so both devices start from the same inputs
+    parts = [torch.randn(b, t, h, n, generator=gen).bfloat16().float()
+             for n in (64, 32, 64, 32)]
+    kv = torch.randn(b, t, h * 64 + 8, generator=gen).bfloat16().float()
+    dout = torch.randn(b, t, h, 64, generator=gen).bfloat16().float()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        dt = torch.bfloat16 if dev == "cuda" else torch.float32
+        leaves = [x.to(dev, dt).requires_grad_(True)
+                  for x in (*parts, kv)]
+        q = torch.cat(leaves[:2], dim=-1)
+        k = torch.cat(leaves[2:4], dim=-1)
+        v = leaves[4][..., :h * 64].reshape(b, t, h, 64)
+        dispatch.reset_launch_counts()
+        out = dispatch.sdpa(cfg, q, k, v, causal=True, q_offset=0,
+                            kv_valid_len=None, scale=96 ** -0.5)
+        out.backward(dout.to(dev, dt))
+        got[dev] = [out.detach()] + [x.grad for x in leaves]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = dispatch.launch_counts()
+            assert (counts["flash_attention"], counts["flash_attention_bwd_dq"],
+                    counts["flash_attention_bwd_dkv"]) == (1, 1, 1)
+            with pytest.raises(NotImplementedError, match="has no kernel"):
+                dispatch.sdpa(cfg, q, k, v, causal=True, q_offset=0,
+                              kv_valid_len=torch.full((b,), t, device=cuda),
+                              scale=96 ** -0.5)
+            with pytest.raises(NotImplementedError, match="has no kernel"):
+                dispatch.sdpa(cfg, q[..., :64], k[..., :64], v[..., :32],
+                              causal=True, q_offset=0, kv_valid_len=None,
+                              scale=None)
+    for a, b_ in zip(got["cuda"], got["cpu"]):
+        scale = max(1.0, b_.abs().max().item())
+        assert (a.float().cpu() - b_).abs().max().item() <= 2e-2 * scale
+
+
+def test_mla_train_steps(cuda):
+    """Two bf16 train steps of a narrow MLA model at minicpm3-4b's head
+    dims (d_model 256, 4 heads, q_lora 64, kv_lora 32, 64 nope + 32 rope,
+    v 64, 2 layers) through the (96, 64) instances, under remat "full" and
+    "block": finite losses, 2 forward, 1 dq and 1 dk/dv launch per layer
+    and step under both, and the same parameters bit for bit."""
+    from repro_torch import tree
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.training.train_step import init_state, make_train_step
+    base = configs.get_smoke("minicpm3_4b").replace(
+        dtype="bfloat16", d_model=256, num_heads=4, num_kv_heads=4,
+        mla=configs.MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                              qk_nope_head_dim=64, qk_rope_head_dim=32,
+                              v_head_dim=64))
+    ds = SyntheticDataset(SyntheticConfig(base.vocab_size, 128, 2))
+    out = {}
+    for remat in ("full", "block"):
+        run = RunConfig(model=base.replace(remat=remat))
+        params, opt = init_state(run, device=cuda)
+        step = make_train_step(run)
+        dispatch.reset_launch_counts()
+        for i in range(2):
+            batch = {k: torch.as_tensor(x, device=cuda)
+                     for k, x in ds.batch(i).items()}
+            params, opt, m = step(params, opt, batch)
+            assert np.isfinite(float(m["loss"]))
+        torch.cuda.synchronize()
+        n, counts = 2 * base.num_layers, dispatch.launch_counts()
+        assert counts["flash_attention"] == 2 * n
+        assert counts["flash_attention_bwd_dq"] == n
+        assert counts["flash_attention_bwd_dkv"] == n
+        assert counts["flash_attention_mla"] == counts["flash_decode_mla"] == 0
+        out[remat] = tree.leaves(params)
+    assert all(torch.equal(a, b) for a, b in zip(out["full"], out["block"]))

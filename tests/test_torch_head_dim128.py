@@ -476,9 +476,10 @@ def test_decode_plan_refuses_head_dims_without_instances():
     with pytest.raises(ValueError, match="D=96"):
         fd.decode_plan(8, 8, 4, 96, 336, 16, torch.bfloat16, H100_SMS)
     assert fd.HEAD_DIMS == (64, 128)
-    assert fa.HEAD_DIMS == {"flash_attention_offset": (64, 128),
-                            "flash_attention_paged": (64, 128),
-                            "flash_attention": (64, 128)}
+    assert fa.HEAD_DIMS == {"flash_attention_offset": ((64, 64), (128, 128)),
+                            "flash_attention_paged": ((64, 64), (128, 128)),
+                            "flash_attention": ((64, 64), (128, 128),
+                                                (96, 64))}
 
 
 @pytest.mark.parametrize("v,want", [

@@ -11,9 +11,10 @@ default this checkout's); the inputs, checks and timers are
 ``chip_smoke.py``'s phase 8 (``_train_kernel_times``): B 8, T 512, bf16,
 causal, each kernel held against its plain version on the timed input
 first (scaled max abs error within 2e-2), at smollm-360m's 15/5 heads of
-64 and, where the imported kernels take head dim 128
-(``flash_attention_bwd.HEAD_DIMS``), at mistral-nemo-12b's 32/8 and
-qwen2-moe-a2.7b's 16/16 heads of 128.  For each: back-to-back launches
+64 and, where the imported kernels take the pair
+(``flash_attention_bwd.HEAD_DIMS``: head dims, or (Dqk, Dv) pairs), at
+mistral-nemo-12b's 32/8 and qwen2-moe-a2.7b's 16/16 heads of 128 and at
+minicpm3-4b's 40/40 of Dqk 96 / Dv 64.  For each: back-to-back launches
 (``ms``) and launches queued behind a device sleep (``device_ms``), the
 bound, the plain version and SDPA.  Prints one JSON line with the card's
 name and power limit.
@@ -46,9 +47,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
     rows = cs._train_kernel_times(gen)
-    if 128 in fab.HEAD_DIMS:
+    pairs = [d if isinstance(d, tuple) else (d, d) for d in fab.HEAD_DIMS]
+    if (128, 128) in pairs:
         for tag, (hkv, g) in cs.TRAIN_TIMED_128.items():
             rows.update(cs._train_kernel_times(gen, hkv, g, 128, tag))
+    if (96, 64) in pairs:
+        rows.update(cs._train_kernel_times(gen, cs.MLA_HEADS, 1, 96, "_d96",
+                                           dv=64))
     print(json.dumps({"label": a.label, "src": a.src, "smi": cs._smi(),
                       "rows": rows}))
     return 0
