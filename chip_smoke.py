@@ -91,7 +91,11 @@ printing its final line:
    nope + 32 rope, v 64, at 40/40 heads), through every fresh check above
    (T 512, 37 and 1, causal and not, fp32 and bf16, k and v through
    strides of their own, NaN past T, the profiler naming the <96,64>
-   instance of each dtype's form);
+   instance of each dtype's form); then the recurrent decoders' shapes:
+   the sampler at zamba2-1.2b's [8, 32000] and xlstm-125m's [8, 50304],
+   and every D-64 check above again at zamba2's shared attention block,
+   32/32 heads (G 1): rows 4 and 5 (its decode and single-shot prefill),
+   the paged forms, the int8 forms and the training kernels;
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -131,7 +135,8 @@ printing its final line:
    at full width and ``LLAMA4_LAYERS`` of its 48 layers (16 experts, top 1)
    through the paged workload; then the MLA decoder minicpm3-4b at full
    width (62 layers, 8.53 GB of bf16 drawn on the card) through the
-   slot-pool workload, and at ``MINICPM_CUT_LAYERS`` layers its int8 form
+   slot-pool workload at ``MINICPM_SERVE_LAYERS`` of its layers, and at
+   ``MINICPM_CUT_LAYERS`` layers its int8 form
    (fp latents, each prompt in one chunk) and the lockstep workload, each
    between a reset and a read of the launch counts: one latent attention
    launch a layer and forward, equal to the scheduler's counters; the
@@ -140,7 +145,21 @@ printing its final line:
    64-token prefill chunk, host call to device finish against device busy,
    beside the weights' 2.546 ms byte bound, each step's latent attention
    in the bf16 tensor-core kernel and never the fp32 form's; the decode
-   step's kernels and its ``decode_step_cost`` bound);
+   step's kernels and its ``decode_step_cost`` bound); then the recurrent
+   decoders at full width and depth, bf16, weights drawn on the card:
+   zamba2-1.2b (38 Mamba2 layers, its shared attention block called 7
+   times) and xlstm-125m (10 mLSTM and 2 sLSTM layers), each through the
+   paged state pool (one block a sequence's whole state row), the slot
+   pool (prompts snapped to the scan's quantum, 128 and 256) and the
+   lockstep workload, between a reset and a read of the launch counts,
+   equal to the counters (zamba2: 7 row-4 launches a decode step and 7
+   row-5 launches a single-shot prefill; xlstm: the sampler alone); p50 /
+   p95, state bytes a sequence, zamba2's 57344 K/V bytes a token, nothing
+   shared and every block back, peak memory; and their "step" lines (a
+   B 8 decode step and a 256-token prefill, host call to device finish
+   against device busy, the kernels by device time, the recurrent cores'
+   device time alone beside them, the weights' and ``decode_step_cost``'s
+   byte bounds);
 5. parity: short fp32 workloads of the three paths (smollm-360m at full
    width and ``SMOLLM_LAYERS`` layers), once on the
    card through the kernels and once on the CPU through the plain versions;
@@ -162,6 +181,11 @@ printing its final line:
    softmax+top-k) and the CPU; then minicpm3-4b the same way, the
    slot-pool and lockstep workloads (no paged latent cache): its latent
    attention kernels on the card against their plain versions on the CPU;
+   then zamba2-1.2b at 7 layers (two calls of the shared block, each with
+   its own K/V) and xlstm-125m at 6 (layer 5 an sLSTM), full width, fp32:
+   a 2 x 256 forward's hidden states and logits within
+   ``STATE_PARITY_RTOL`` of the CPU's, and the paged, slot-pool and
+   lockstep streams identical;
 6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
    at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
    the end, with the launch counts set to 0 just before it and read just
@@ -205,7 +229,9 @@ printing its final line:
    and its prefill at a 64-token chunk at offset 64, the lockstep prefill
    and an int8 run's single-shot prefill, bf16, beside one SDPA call on
    the concatenated inputs, and the sampler at [8, 73728] with the padded
-   entries -inf), beside its bound, its plain
+   entries -inf; the sampler at V 32000 and 50304 and rows 4 and 5 at
+   zamba2's 32/32 heads of 64: its slot pool's decode and its single-shot
+   prefill of 256 tokens), beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
    and an int8 single-shot prefill beside SDPA, with each call's device
@@ -270,7 +296,7 @@ printing its final line:
    repro_torch.obs.report`` exiting 0 on the merged file.
 
 Each phase prints its wall time, and the end the whole run's, which is
-to stay within about 415 s.  The line before the last is a JSON object
+to stay under 600 s, half the 1200 s it is allowed.  The line before the last is a JSON object
 with one entry per kernel (with the path it was ported for); the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -580,14 +606,18 @@ DECODE_PLANS = (("paged, bf16 pool", 8, 21 * 16, 16, "bfloat16"),
 MODEL_HEADS = (("smollm-360m", 5, 3, 64), ("mistral-nemo-12b", 8, 4, 128),
                ("deepseek-coder-33b", 8, 7, 128),
                ("qwen2-moe-a2.7b", 16, 1, 128),
-               ("llama4-scout-17b-a16e", 8, 5, 128))
+               ("llama4-scout-17b-a16e", 8, 5, 128),
+               ("zamba2-1.2b", 32, 1, 64))
 # the head_dim-128 dense models, (model, Hkv, G, D): their kernels' checks
 # run at both groups, G 7 being the first that is no power of two
 HEAD_DIM_128 = MODEL_HEADS[1:3]
 # the MoE decoders' heads at D 128: qwen2-moe-a2.7b's 16/16 (G 1, MHA) and
 # llama4-scout-17b-a16e's 40/8 (G 5); their instances go by group
 # (``<kernel>_d128_g<G>``)
-HEAD_DIM_MOE = MODEL_HEADS[3:]
+HEAD_DIM_MOE = MODEL_HEADS[3:5]
+# zamba2-1.2b's shared attention block: 32/32 heads of 64 (G 1), its
+# instances ``<kernel>_g1``
+HEAD_DIM_STATE = MODEL_HEADS[5:]
 
 
 def _print_decode_plans() -> None:
@@ -2062,6 +2092,25 @@ def phase_kernels() -> dict:
     errs.update(_check_moe_shapes(gen))
     errs.update(_check_mla(gen))
     errs.update(_check_mla_train(gen))
+    errs.update(_check_state_shapes(gen))
+    return errs
+
+
+# the recurrent decoders' vocabularies (zamba2-1.2b, xlstm-125m): the
+# sampler's rows
+VOCABS_STATE = (32000, 50304)
+
+
+def _check_state_shapes(gen) -> dict:
+    """The recurrent decoders' kernel shapes against their plain versions:
+    the sampler at both vocabularies, and every D-64 instance at zamba2's
+    32/32 heads (G 1, ``_check_instances``), rows 4 and 5 of its shared
+    block among them.  Returns {instance: max abs error} (keys
+    ``softmax_topk_v<V>``, ``<kernel>_g1``)."""
+    errs = {f"softmax_topk_v{v}": _check_softmax_topk(gen, v=v)
+            for v in VOCABS_STATE}
+    for model, hkv, g, d in HEAD_DIM_STATE:
+        _merge_errs(errs, _check_instances(gen, model, hkv, g, d), f"_g{g}")
     return errs
 
 
@@ -2094,10 +2143,14 @@ def _implied_counts(sched, n_layers: int) -> dict:
     path's kernels none.  With int8 K/V the decode kernels are the int8
     forms, and every prefill (over the prompt's exact K/V) is the
     contiguous prefill kernel.  An MLA model's decode and prefill kernels
-    are the latent attention's, whatever its int8 flag (fp latents)."""
+    are the latent attention's, whatever its int8 flag (fp latents).  A
+    fixed-state model's attention layers (zamba2's shared-block calls,
+    ``n_layers`` of them; none for xLSTM) read contiguous caches, paged or
+    not: its pool gathers state rows into a slot batch."""
     ones = sched.chunk_widths.get(1, 0)
     dec, pre = (("flash_decode_paged", "flash_attention_paged")
-                if sched.paged else ("flash_decode", "flash_attention_offset"))
+                if sched.paged and sched.family.kind == "token"
+                else ("flash_decode", "flash_attention_offset"))
     if sched.cfg.mla is not None:
         dec, pre = "flash_decode_mla", "flash_attention_mla"
     elif sched.family.quantized:
@@ -2108,6 +2161,13 @@ def _implied_counts(sched, n_layers: int) -> dict:
     want["softmax_topk"] = sched.decode_steps + sched.prefills_done
     want["softmax_topk_router"] = _router_launches(sched, n_layers)
     return want
+
+
+def _attn_layers(cfg) -> int:
+    """A model's attention layers: every layer of a dense, MoE or MLA stack,
+    zamba2's shared-block calls, none of xLSTM's."""
+    from repro_torch.models import transformer
+    return transformer.layer_counts(cfg).get("attn", 0)
 
 
 def _router_launches(sched, n_layers: int) -> int:
@@ -2204,15 +2264,15 @@ def _serve_lockstep(what: str, argv, cfg, params) -> dict:
     # an MoE model routes once a layer in the prefill and in each decode
     # step: tokens forwards in all
     router = args.tokens * cfg.num_layers if cfg.moe is not None else 0
+    n_attn = _attn_layers(cfg)
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"softmax_topk": args.tokens, "softmax_topk_router": router,
-                 dec: (args.tokens - 1) * cfg.num_layers,
-                 pre: cfg.num_layers})
+                 dec: (args.tokens - 1) * n_attn, pre: n_attn})
     if counts != want:
         _fail(f"serve {what}: launches {counts}, its steps imply {want}")
     print(f"serve {what} launches: {counts} = one prefill, "
           f"{args.tokens - 1} decode steps and {args.tokens} samples "
-          f"over {cfg.num_layers} layers"
+          f"over {n_attn} attention layers"
           + (f", {router} router launches" if router else ""))
     return counts
 
@@ -2298,6 +2358,13 @@ INSTANCES = {
     **{kernel + "_d96": (kernel, "minicpm3 train")
        for kernel in ("flash_attention", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv")},
+    # the recurrent decoders: the sampler at zamba2's and xlstm's
+    # vocabularies, and rows 4 and 5 at zamba2's shared block (D 64, G 1)
+    "softmax_topk_v32000": ("softmax_topk", "zamba2 slot pool"),
+    "softmax_topk_v50304": ("softmax_topk", "xlstm slot pool"),
+    "flash_decode_g1": ("flash_decode", "zamba2 slot pool"),
+    "flash_attention_offset_g1": ("flash_attention_offset",
+                                  "zamba2 slot pool"),
 }
 # the training kernels' timed D-128 instances: tag → (Hkv, G)
 TRAIN_TIMED_128 = {"_d128": (8, 4), "_d128_g1": (16, 1)}
@@ -2361,14 +2428,14 @@ def _serve_path(what: str, argv, cfg, params, path: str):
     eng = router.engines[0]
     sched = eng.scheduler
     _check_finished(what, report, requests, cfg.vocab_size)
-    _check_counts(what, counts, _implied_counts(sched, cfg.num_layers),
+    _check_counts(what, counts, _implied_counts(sched, _attn_layers(cfg)),
                   path=[k for k, p in KERNEL_PATH.items() if p == path])
     if sched.family.quantized:
         _check_int8_run(what, report, sched, requests)
     print(f"serve {what} launches: {counts} = scheduler counters (decode "
           f"steps {sched.decode_steps}, prefill chunks {sched.prefill_chunks} "
           f"of which {sched.chunk_widths.get(1, 0)} one-token, prefills "
-          f"{sched.prefills_done}, {cfg.num_layers} layers); "
+          f"{sched.prefills_done}, {_attn_layers(cfg)} attention layers); "
           f"{report.tokens_per_s:.1f} tok/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts, eng
@@ -2564,8 +2631,12 @@ MINICPM = ["--arch", "minicpm3_4b"]
 MINICPM_PATHS = (("minicpm3 slot pool", SLOT_ARGS),
                  ("minicpm3 slot pool int8", SLOT_ARGS + INT8))
 # the int8 slot-pool and lockstep runs take the first this many of the 62
-# layers, for the script's time (the bf16 slot pool serves all 62)
+# layers, for the script's time
 MINICPM_CUT_LAYERS = 8
+# and the bf16 slot-pool run this many: all 62 took ~30 s of the script,
+# which the recurrent decoders' phases needed (62 -> 16; the step lines keep
+# all 62)
+MINICPM_SERVE_LAYERS = 16
 
 
 def _check_latent_bytes(cfg, engines) -> None:
@@ -2589,11 +2660,12 @@ def _check_latent_bytes(cfg, engines) -> None:
 
 
 def _steps_mla(params, cfg, engines, weight_bytes: int) -> None:
-    """minicpm3-4b's "step" lines on its slot pool: a decode step over the
-    8 slots at lengths 65-328 and a 64-token prefill chunk at offset 64,
-    each beside the weights' byte bound, each step's latent attention in
-    the bf16 form's tensor-core kernel (never the fp32 form's); the decode
-    step's kernels by device time, and its ``decode_step_cost`` bound."""
+    """minicpm3-4b's "step" lines at all of ``cfg``'s layers, on latent
+    caches of its slot pool's geometry: a decode step over the 8 slots at
+    lengths 65-328 and a 64-token prefill chunk at offset 64, each beside
+    the weights' byte bound, each step's latent attention in the bf16
+    form's tensor-core kernel (never the fp32 form's); the decode step's
+    kernels by device time, and its ``decode_step_cost`` bound."""
     import torch
     from repro_torch.obs import kernels as obs_kernels
     from repro_torch.serving import engine
@@ -2604,14 +2676,14 @@ def _steps_mla(params, cfg, engines, weight_bytes: int) -> None:
     toks = torch.ones((n, 1), dtype=torch.int64, device="cuda")
     noise = torch.zeros((n, 5), device="cuda")
     chunk = torch.ones((1, 64), dtype=torch.int64, device="cuda")
+    caches = engine.init_cache(cfg, n, slots.slot_len, "cuda")
     scratch = engine.init_cache(cfg, 1, slots.slot_len, "cuda")
     bound = weight_bytes / HBM_BYTES_PER_S * 1e3
     cost = obs_kernels.decode_step_cost(cfg, n, (lens + 1).tolist())
     steps = {
         f"slot-pool decode [B={n}, {cfg.num_layers} layers, bf16]":
-            lambda: engine.decode_step_slots(params, slots.caches, lens,
-                                             toks, cfg, noise=noise,
-                                             top_k=5),
+            lambda: engine.decode_step_slots(params, caches, lens, toks, cfg,
+                                             noise=noise, top_k=5),
         "slot-pool prefill chunk [64 tokens at offset 64, bf16]":
             lambda: engine.prefill_chunk(params, scratch, 64, chunk, cfg)}
     for name, fn in steps.items():
@@ -2637,24 +2709,29 @@ def _steps_mla(params, cfg, engines, weight_bytes: int) -> None:
 
 
 def phase_serve_mla() -> dict:
-    """minicpm3-4b at full width and depth (62 layers, bf16, weights drawn
-    on the card) through phase 4's slot-pool workload, then at its first
+    """minicpm3-4b at full width (62 layers drawn on the card, bf16)
+    through phase 4's slot-pool workload at its first
+    ``MINICPM_SERVE_LAYERS`` layers, then at its first
     ``MINICPM_CUT_LAYERS`` layers the slot pool's int8 form (fp latents,
     single-shot prefill) and the lockstep workload, each between a reset
     and a read of the launch counts: one latent attention launch a
     layer and forward (``flash_decode_mla`` for every decode step and
     one-token chunk, ``flash_attention_mla`` for every wider chunk), equal
     to the scheduler's counters; then the latent pools' bytes per token and
-    the "step" lines.  Returns {run: counts}."""
+    the "step" lines at all 62 layers.  Returns {run: counts}."""
     import torch
     from repro_torch import configs
     cfg = configs.get("minicpm3_4b")
     params, nbytes = _card_weights(cfg)
-    cut_cfg = cfg.replace(num_layers=MINICPM_CUT_LAYERS)
-    cut = {**params, "layers": params["layers"][:MINICPM_CUT_LAYERS]}
+
+    def first(n):
+        return (cfg.replace(num_layers=n),
+                {**params, "layers": params["layers"][:n]})
+    cut_cfg, cut = first(MINICPM_CUT_LAYERS)
     counts, engines = {}, {}
-    for (what, argv), (c, p) in zip(MINICPM_PATHS, ((cfg, params),
-                                                    (cut_cfg, cut))):
+    for (what, argv), (c, p) in zip(MINICPM_PATHS,
+                                    (first(MINICPM_SERVE_LAYERS),
+                                     (cut_cfg, cut))):
         counts[what], engines[what] = _serve_path(
             what, MINICPM + argv, c, p, "minicpm3 slot pool")
         sched = engines[what].scheduler
@@ -2674,38 +2751,311 @@ def phase_serve_mla() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 4e: the recurrent decoders at full width and depth
+# ---------------------------------------------------------------------------
+# (label, the CLI's arch flags): zamba2-1.2b (38 Mamba2 layers, its shared
+# attention block called 7 times) and xlstm-125m (10 mLSTM, 2 sLSTM layers)
+STATE_MODELS = (("zamba2", "zamba2_1p2b"), ("xlstm", "xlstm_125m"))
+# their continuous-batching runs: phase 4's paged workload (its pool one
+# state row a sequence; the shared prefix is not shared) and slot-pool
+# workload, the CLI snapping each prompt to the scan's quantum (zamba2 128,
+# xlstm 256); then the lockstep workload
+STATE_PATHS = (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS))
+# the recurrent cores' PyTorch functions, whose kernels the step lines
+# count apart
+RECURRENT_CORES = ("ssd_chunked", "ssd_decode_step", "causal_conv",
+                   "mlstm_chunked", "mlstm_decode_step", "slstm_scan")
+
+
+def _state_weights(cfg):
+    """A recurrent model's weights drawn on the card from seed 0: (params,
+    their bytes)."""
+    import torch
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, device="cuda", draw_device="cuda")
+    torch.cuda.synchronize()
+    nbytes = _weight_bytes(params)
+    counts = transformer.layer_counts(cfg)
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        what = (f"{counts['mamba']} Mamba2 layers (d_state {sc.d_state}, "
+                f"{sc.expand * cfg.d_model // sc.head_dim} heads of "
+                f"{sc.head_dim}, chunk {sc.chunk}), a shared attention block "
+                f"({cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}) called "
+                f"{counts['attn']} times")
+    else:
+        xc = cfg.xlstm
+        what = (f"{counts['mlstm']} mLSTM + {counts['slstm']} sLSTM layers "
+                f"({xc.num_heads} heads, expand {xc.expand}, chunk "
+                f"{xc.chunk})")
+    print(f"serve: {cfg.name} {cfg.dtype}, d_model {cfg.d_model}, {what}, "
+          f"vocab {cfg.vocab_size}, untied head; {nbytes / 1e9:.3f} GB of "
+          f"weights ({_param_count(params) / 1e9:.3f}e9 parameters) drawn "
+          f"on the card from seed 0 in {time.perf_counter() - t0:.1f}s")
+    return params, nbytes
+
+
+def _param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(_param_count(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(_param_count(v) for v in params)
+    return params.numel()
+
+
+def _check_state_pools(cfg, engines) -> dict:
+    """The fixed-state pools against the config: a paged pool's block is
+    one sequence's whole state row (table one column wide, nothing shared
+    or copied, every block back), the slot pool's rows the same bytes; and
+    zamba2's K/V bytes per token, 7 calls x K and V x 32 heads x 64 x 2 B
+    = 57344.  Returns {"state_bytes": a row's recurrent state,
+    "kv_bytes_per_token": ...}."""
+    from repro_torch.models import transformer
+    paged = engines["paged"].scheduler
+    pool = paged.pool
+    if pool.max_blocks != 1:
+        _fail(f"serve {cfg.name} paged: {pool.max_blocks} table columns, a "
+              "state row is one block")
+    st = pool.stats()
+    if st["blocks_shared"] or st["cow_copies"] or \
+            st["free_blocks"] != st["num_blocks"]:
+        _fail(f"serve {cfg.name} paged: state blocks shared, copied or "
+              f"kept: {st}")
+    row = {k: x[:, 0].numel() * x.element_size()
+           for k, x in pool.caches.items()}
+    slots = engines["slot pool"].scheduler.pool
+    slot_row = {k: x[:, 0].numel() * x.element_size()
+                for k, x in slots.caches.items()}
+    kv = row.get("k", 0) + row.get("v", 0)
+    state = sum(row.values()) - kv
+    if state != sum(slot_row.values()) - slot_row.get("k", 0) \
+            - slot_row.get("v", 0):
+        _fail(f"serve {cfg.name}: paged and slot rows hold other state "
+              f"({row} vs {slot_row})")
+    per_tok = kv / pool.slot_len
+    want = 2 * transformer.layer_counts(cfg).get("attn", 0) \
+        * cfg.num_kv_heads * cfg.resolved_head_dim \
+        * transformer.DTYPES[cfg.dtype].itemsize
+    if per_tok != want:
+        _fail(f"serve {cfg.name}: {per_tok} K/V bytes per token, the "
+              f"config gives {want}")
+    print(f"serve {cfg.name} state: {state} bytes of recurrent state a "
+          f"sequence ({state / 2**20:.2f} MiB: "
+          + ", ".join(f"{k} {v}" for k, v in row.items()
+                      if k not in ("k", "v"))
+          + f"), K/V {per_tok:.0f} bytes per token; a paged block is the "
+          f"whole row, {sum(row.values())} bytes at slot_len "
+          f"{pool.slot_len}; blocks shared 0, copy-on-write 0, all "
+          f"{st['num_blocks']} back")
+    return {"state_bytes": state, "kv_bytes_per_token": per_tok}
+
+
+def _state_steps(params, cfg, engines, weight_bytes: int) -> None:
+    """A recurrent model's "step" lines: a slot-pool decode step over its
+    8 slots (lengths 65-328) and a single-shot prefill of 256 tokens, host
+    call to device finish against device busy; the decode step's kernels
+    by device time, with the recurrent cores' kernels (``RECURRENT_CORES``
+    alone at the step's shapes) apart; the weights' byte bound and
+    ``decode_step_cost``'s bound (weights, the state read and written,
+    zamba2's K/V)."""
+    import torch
+    from repro_torch.obs import kernels as obs_kernels
+    from repro_torch.serving import engine
+    slots = engines["slot pool"].scheduler.pool
+    n = slots.num_slots
+    lens = torch.tensor(MLA_DECODE_VLENS[:n], device="cuda").clamp(
+        max=slots.slot_len - 1)
+    toks = torch.ones((n, 1), dtype=torch.int64, device="cuda")
+    noise = torch.zeros((n, 5), device="cuda")
+    prompt = torch.ones((1, 256), dtype=torch.int64, device="cuda")
+    scratch = engine.init_cache(cfg, 1, slots.slot_len, "cuda")
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    cost = obs_kernels.decode_step_cost(cfg, n, (lens + 1).tolist())
+    c_ms = 1e3 * max(cost["bytes_accessed"] / HBM_BYTES_PER_S,
+                     cost["flops"] / PEAK_OPS["bfloat16"])
+    steps = {
+        f"slot-pool decode [B={n}, {cfg.num_layers} layers, bf16]": (
+            lambda: engine.decode_step_slots(params, slots.caches, lens,
+                                             toks, cfg, noise=noise,
+                                             top_k=5),
+            lambda: _cores(cfg, slots.caches, n, 1)),
+        "single-shot prefill [256 tokens, B=1, bf16]": (
+            lambda: engine.prefill_chunk(params, scratch, 0, prompt, cfg),
+            lambda: _cores(cfg, scratch, 1, 256))}
+    for name, (fn, cores) in steps.items():
+        line, busy, by = _step_line(f"{cfg.name} {name}", fn)
+        _, _, by_cores = _device_ms(cores)
+        core_ms = sum(ms for ms, _ in by_cores.values())
+        core_n = sum(k for _, k in by_cores.values())
+        print(f"{line}; the weights' byte bound {bound:.3f}ms "
+              f"({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), device busy "
+              f"{busy / bound:.2f}x it; the recurrent cores alone "
+              f"({', '.join(RECURRENT_CORES)} at the step's shapes): "
+              f"{core_ms:.3f}ms device over {core_n:g} launches, "
+              f"{100 * core_ms / busy:.1f}% of the step's device busy")
+        rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+        launches = sum(k for _, k in by.values())
+        print(f"step {cfg.name} {name}: {launches:g} kernel launches; by "
+              "kernel (device ms a step x launches a step): " + "; ".join(
+                  f"{k} {ms:.4f} x {k_n:g}" for k, (ms, k_n) in rows))
+        if "decode" in name:
+            print(f"step {cfg.name} {name}: decode_step_cost bound "
+                  f"{c_ms:.3f}ms ({cost['bytes_accessed'] / 1e9:.3f} GB: "
+                  f"weights, the state read and written, the K/V; "
+                  f"{cost['flops'] / 1e9:.1f} GFLOP)")
+
+
+def _cores(cfg, caches: dict, b: int, t: int) -> None:
+    """The recurrent cores of one forward at batch ``b`` and ``t`` tokens,
+    alone: every Mamba2 layer's three convs and its chunked scan or decode
+    step; every mLSTM layer's conv and chunked form or decode step, every
+    sLSTM layer's scan; on stand-in activations of the forward's shapes,
+    from the cache's state (read, not written)."""
+    import torch
+    from repro_torch.models import ssm, xlstm
+    dev, bf16 = "cuda", torch.bfloat16
+    decode = t == 1
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        inner = sc.expand * cfg.d_model
+        h, n = inner // sc.head_dim, sc.d_state
+        x = torch.ones((b, t, inner), dtype=bf16, device=dev)
+        bc = torch.ones((b, t, n), dtype=bf16, device=dev)
+        dtv = torch.full((b, t, h), 0.01, device=dev)
+        w_x = torch.ones((inner, sc.d_conv), device=dev)
+        w_n = torch.ones((n, sc.d_conv), device=dev)
+        a = torch.zeros(h, device=dev)
+        xh = x.reshape(b, t, h, sc.head_dim)
+        for i in range(caches["ssm"].shape[0]):
+            ssm.causal_conv(x, w_x, caches["conv_x"][i] if decode else None)
+            for leaf in ("conv_b", "conv_c"):
+                ssm.causal_conv(bc, w_n, caches[leaf][i] if decode else None)
+            if decode:
+                ssm.ssd_decode_step(caches["ssm"][i], xh[:, 0], dtv[:, 0], a,
+                                    bc[:, 0], bc[:, 0], a)
+            else:
+                ssm.ssd_chunked(xh, dtv, a, bc, bc, a, chunk=sc.chunk)
+        return
+    xc = cfg.xlstm
+    inner = xc.expand * cfg.d_model
+    hh, d = xc.num_heads, cfg.d_model
+    q = torch.ones((b, t, hh, inner // hh), dtype=bf16, device=dev)
+    g = torch.zeros((b, t, hh), device=dev)
+    xm = torch.ones((b, t, inner), dtype=bf16, device=dev)
+    w = torch.ones((inner, xc.conv_width), device=dev)
+    for i in range(caches["C"].shape[0]):
+        ssm.causal_conv(xm, w, caches["conv"][i] if decode else None)
+        if decode:
+            state = (caches["m"][i], caches["C"][i], caches["n"][i])
+            xlstm.mlstm_decode_step(state, q[:, 0], q[:, 0], q[:, 0],
+                                    g[:, 0], g[:, 0])
+        else:
+            xlstm.mlstm_chunked(q, q, q, g, g, chunk=xc.chunk)
+    gx = torch.zeros((b, t, 4, d), device=dev)
+    r = torch.zeros((4, hh, d // hh, d // hh), device=dev)
+    for i in range(caches["s_c"].shape[0]):
+        xlstm.slstm_scan(gx, r, num_heads=hh, init=tuple(
+            caches[k][i] for k in xlstm.SLSTM_LEAVES))
+
+
+def phase_serve_state() -> dict:
+    """The recurrent decoders at full width and depth, bf16, weights drawn
+    on the card: zamba2-1.2b (38 Mamba2 layers, the shared attention block
+    called 7 times) and xlstm-125m (12 layers), each through the paged
+    state pool, the slot pool and the lockstep workload, between a reset
+    and a read of the launch counts: equal to the scheduler's counters
+    (zamba2: 7 row-4 launches a decode step and 7 row-5 launches a prefill;
+    xlstm: the sampler only); tok/s, p50/p95, state bytes a sequence,
+    zamba2's K/V bytes a token and peak memory; then each model's "step"
+    lines.  Returns {run: counts}."""
+    import torch
+    from repro_torch import configs
+    counts = {}
+    for label, arch in STATE_MODELS:
+        cfg = configs.get(arch)
+        params, nbytes = _state_weights(cfg)
+        engines = {}
+        for path, argv in STATE_PATHS:
+            what = f"{label} {path}"
+            counts[what], engines[path] = _serve_path(
+                what, ["--arch", arch] + argv, cfg, params,
+                "slot pool" if label == "zamba2" else "sampler only")
+            sched = engines[path].scheduler
+            pct = engines[path].report().latency_percentiles((50, 95))
+            n_attn = _attn_layers(cfg)
+            print(f"serve {what}: per-token latency "
+                  f"p50 {pct['p50'] * 1e3:.1f}ms p95 "
+                  f"{pct['p95'] * 1e3:.1f}ms; {sched.prefill_chunks} "
+                  f"single-shot prefills of {sorted(sched.chunk_widths)} "
+                  f"tokens; flash_decode {counts[what]['flash_decode']} = "
+                  f"{n_attn} x {sched.decode_steps} decode steps, "
+                  f"flash_attention_offset "
+                  f"{counts[what]['flash_attention_offset']} = {n_attn} x "
+                  f"{sched.prefill_chunks} prefills, softmax_topk "
+                  f"{counts[what]['softmax_topk']}")
+        _check_state_pools(cfg, engines)
+        counts[f"{label} lockstep"] = _serve_lockstep(
+            f"{label} lockstep", ["--arch", arch] + LOCKSTEP_ARGS, cfg,
+            params)
+        _state_steps(params, cfg, engines, nbytes)
+        del params, engines
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parity_state() -> None:
+    """Phase 5's fp32 parity for the recurrent decoders at full width and
+    cut depth, card against CPU, the same weights (drawn on the card, copied
+    to the CPU): zamba2-1.2b at 7 layers (6 + 1 Mamba2 layers and two calls
+    of the shared block, each with its own K/V), xlstm-125m at 6 (layer 5
+    an sLSTM): hidden states and last-position logits of a 2 x 256 forward
+    within ``STATE_PARITY_RTOL`` of their scale, then the paged, slot-pool
+    and lockstep parity workloads' token streams identical under the same
+    noise (``_parity_2_layers``)."""
+    for arch, layers in (("zamba2_1p2b", 7), ("xlstm_125m", 6)):
+        _parity_2_layers(arch, layers=layers, forward=True)
+
+
 def phase_parity_128() -> None:
     """Phase 5's fp32 stream parity for mistral-nemo-12b at full width cut
     to 2 layers (7.5 GB of fp32 weights) (``_parity_2_layers``)."""
     _parity_2_layers("mistral_nemo_12b")
 
 
-def _parity_2_layers(arch: str, paged: bool = True) -> None:
-    """``arch`` at full width cut to 2 layers in fp32, weights drawn on the
-    card from seed 1 and copied to the CPU (a CPU draw of these ~1.8e9
-    weights takes 12-15 s, the copy a second or two): the paged (with
-    ``paged``), slot-pool and lockstep parity workloads on the card through
-    the kernels and on the CPU through the plain versions give identical
-    token streams."""
+def _parity_2_layers(arch: str, paged: bool = True, layers: int = 2,
+                     forward: bool = False) -> None:
+    """``arch`` at full width cut to ``layers`` layers in fp32, weights
+    drawn on the card from seed 1 and copied to the CPU (a CPU draw of
+    these ~1.8e9 weights takes 12-15 s, the copy a second or two): with
+    ``forward``, the hidden states and last-position logits of a 2 x 256
+    forward on both devices within ``STATE_PARITY_RTOL`` of their scale;
+    the paged (with ``paged``), slot-pool and lockstep parity workloads on
+    the card through the kernels and on the CPU through the plain versions
+    give identical token streams."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    cfg = configs.get(arch).replace(num_layers=2, dtype="float32")
+    cfg = configs.get(arch).replace(num_layers=layers, dtype="float32")
     name = cfg.name
     t0 = time.perf_counter()
     params_cuda = transformer.init(cfg, seed=1, device="cuda",
                                    draw_device="cuda")
     params_by_device = {"cuda": params_cuda,
                         "cpu": transformer.params_to(params_cuda, "cpu")}
-    print(f"parity {name}: {_weight_bytes(params_cuda) // 4} weights (2 "
-          f"layers, fp32) drawn on the card and copied to the CPU in "
-          f"{time.perf_counter() - t0:.1f}s")
+    print(f"parity {name}: {_weight_bytes(params_cuda) // 4} weights "
+          f"({layers} layers, fp32) drawn on the card and copied to the CPU "
+          f"in {time.perf_counter() - t0:.1f}s")
+    if forward:
+        _forward_parity(f"{name} ({layers} layers)", cfg, params_by_device)
     if paged:
-        _parity_runs(f"{name} (2 layers) paged", PARITY_ARGS, cfg,
+        _parity_runs(f"{name} ({layers} layers) paged", PARITY_ARGS, cfg,
                      params_by_device)
-    _parity_runs(f"{name} (2 layers) slot pool", SLOT_PARITY_ARGS, cfg,
+    _parity_runs(f"{name} ({layers} layers) slot pool", SLOT_PARITY_ARGS, cfg,
                  params_by_device)
     ids = {device: serve.lockstep(serve.parse_args(
                LOCKSTEP_PARITY_ARGS + ["--device", device]), cfg, params)
@@ -2713,10 +3063,47 @@ def _parity_2_layers(arch: str, paged: bool = True) -> None:
     if not np.array_equal(ids["cuda"], ids["cpu"]):
         _fail(f"parity {name} lockstep: token ids differ\ncuda "
               f"{ids['cuda']}\ncpu  {ids['cpu']}")
-    print(f"parity {name} (2 layers) lockstep: {ids['cpu'].size} token ids "
-          "identical")
+    print(f"parity {name} ({layers} layers) lockstep: {ids['cpu'].size} "
+          "token ids identical")
     del params_by_device
     torch.cuda.empty_cache()
+
+
+# the recurrent decoders' fp32 forward parity, card against CPU: max |diff|
+# of the hidden states and of the logits over the CPU's max |value|.  Each
+# device rounds its fp32 products and sums in its own order (~1e-7 relative
+# an operation), which the scans carry through 256 steps and 7 layers; a
+# wrong state carry or a dropped term moves them by O(1) of their scale
+STATE_PARITY_RTOL = 1e-3
+
+
+def _forward_parity(what: str, cfg, params_by_device) -> None:
+    """Hidden states of a 2 x 256 forward (two 128-token chunks of
+    zamba2's scan, one 256-token chunk of xlstm's) and their last
+    position's logits, on the card and on the CPU, within
+    ``STATE_PARITY_RTOL`` of the CPU's scale."""
+    import torch
+    from repro_torch.models import transformer
+    toks = torch.randint(0, cfg.vocab_size, (2, 256),
+                         generator=torch.Generator().manual_seed(3))
+    out = {}
+    for device, params in params_by_device.items():
+        with torch.no_grad():
+            h, _ = transformer.forward(params, toks.to(device), cfg)
+            out[device] = (h.cpu(), transformer.logits_last(params, h,
+                                                            cfg).cpu())
+    for i, name in enumerate(("hidden", "logits")):
+        got, want = out["cuda"][i], out["cpu"][i]
+        if not torch.isfinite(got).all():
+            _fail(f"parity {what}: the card's {name} are not finite")
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not diff <= STATE_PARITY_RTOL * scale:
+            _fail(f"parity {what}: {name} max |diff| {diff:.3g} beyond "
+                  f"{STATE_PARITY_RTOL} x scale {scale:.3g}")
+        print(f"parity {what} forward [2, 256]: {name} max |card - CPU| "
+              f"{diff:.3g} = {diff / scale:.3g} of scale {scale:.3g} "
+              f"(<= {STATE_PARITY_RTOL})")
 
 
 def phase_parity_moe() -> None:
@@ -3633,34 +4020,51 @@ PORT_KERNEL_SYMBOLS = ("softmax_topk_kernel", "paged_wgmma_kernel",
                        "normalize_kernel")
 
 
+# sessions of ``_device_ms`` that recorded no device time, and ran again
+DROPPED_STEP_SESSIONS = []
+
+
 def _device_ms(fn, reps: int = 2) -> tuple[float, float, dict]:
     """Device time of ``fn`` per call from ``torch.profiler``, averaged
     over ``reps`` calls: (all CUDA kernels, the port's own kernels, {kernel:
     (ms, launches)}), in ms.  Only the CUDA activity is recorded: the host
     side's thousands of operator events a serving step cost seconds of
-    processing each."""
+    processing each.  As in ``obs.kernels.profile_session``, each session
+    first launches ``WARMUP_KERNEL`` and waits for it (left out of the
+    times), and a session that recorded no device time (the card's
+    profiler now and then drops a whole session) runs again, at most
+    ``SESSION_TRIES`` in all; ``fn`` launches kernels on every call, so the
+    last one empty fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs import kernels as obs_kernels
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = ours = 0.0
-    by = {}
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        ms = evt.self_device_time_total / reps / 1e3
-        total += ms
-        if any(sym in evt.key for sym in PORT_KERNEL_SYMBOLS):
-            ours += ms
-        name = obs_kernels.kernel_name(evt.key)[:48]
-        was, n = by.get(name, (0.0, 0.0))
-        by[name] = (was + ms, n + evt.count / reps)
-    if total <= 0.0:
-        _fail("profiler recorded no device time")
-    return total, ours, by
+    for attempt in range(1, obs_kernels.SESSION_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = ours = 0.0
+        by = {}
+        for evt in prof.key_averages():
+            if not str(evt.device_type).endswith("CUDA"):
+                continue
+            name = obs_kernels.kernel_name(evt.key)
+            if name == obs_kernels.WARMUP_KERNEL:
+                continue
+            ms = evt.self_device_time_total / reps / 1e3
+            total += ms
+            if any(sym in evt.key for sym in PORT_KERNEL_SYMBOLS):
+                ours += ms
+            name = name[:48]
+            was, n = by.get(name, (0.0, 0.0))
+            by[name] = (was + ms, n + evt.count / reps)
+        if total > 0.0:
+            return total, ours, by
+        DROPPED_STEP_SESSIONS.append(attempt)
+    _fail(f"profiler recorded no device time in "
+          f"{obs_kernels.SESSION_TRIES} sessions")
 
 
 def _serving_steps(params, cfg, engines) -> dict:
@@ -3900,6 +4304,15 @@ def phase_times() -> dict:
     rows.update(_train_kernel_times(gen, MLA_HEADS, 1, 96, "_d96", dv=64))
     # the MLA decoder's latent attention and its sampler
     rows.update(_mla_kernel_times(gen))
+    # the recurrent decoders': the sampler at their vocabularies, and rows
+    # 4 and 5 at zamba2's shared block (32/32 heads of 64, G 1): its slot
+    # pool's decode and its single-shot prefill of 256 tokens
+    for v in VOCABS_STATE:
+        rows.update(_topk_times(gen, v))
+    for _, hkv, g, d in HEAD_DIM_STATE:
+        rows.update(_serving_kernel_times(
+            gen, hkv=hkv, g=g, d=d, topk=False, tag=f"_g{g}", paged=False,
+            prefills=(("flash_attention_offset", (1, 328, 256, 0, 256)),)))
     rows.update(_library_kernel_times())
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
@@ -4118,22 +4531,44 @@ def _router_times(gen) -> dict:
     return rows
 
 
+# row 5's timed calls: (key, (B, Tk, Tq, q_offset, vlen)): the slot pool's
+# 64-token chunk at offset 64 into a slot of 328, then (printed only) the
+# lockstep prefill and an int8 run's single-shot prefill (its exact bf16 K/V,
+# Tq = Tk = 256)
+SERVING_PREFILLS = (("flash_attention_offset", (1, 328, 64, 64, 128)),
+                    ("flash_attention_offset, lockstep", (4, 288, 256, 0, 256)),
+                    ("flash_attention_offset, int8 single-shot",
+                     (1, 256, 256, 0, 256)))
+
+
 def _serving_kernel_times(gen, *, hkv: int = 5, g: int = 3, d: int = 64,
-                          topk: bool = True, tag: str = "") -> dict:
+                          topk: bool = True, tag: str = "",
+                          paged: bool = True,
+                          prefills=SERVING_PREFILLS) -> dict:
     """Rows 1-5 at the serving paths' shapes, each held against its plain
     version on the very inputs it is timed on, at ``hkv`` KV heads of ``g``
     query heads and head dim ``d`` (rows keyed ``<kernel>_d<d><tag>`` off
-    D 64): the sampler (with ``topk``), the paged and contiguous decodes
-    and cached prefills, SDPA beside rows 4 and 5."""
-    import torch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
+    D 64): the sampler (with ``topk``), the paged decode and cached prefill
+    (with ``paged``), the contiguous decode and the cached prefill's
+    ``prefills``, SDPA beside rows 4 and 5."""
     rows = _topk_times(gen) if topk else {}
     suffix = ("" if d == 64 else f"_d{d}") + tag
     geom = dict(hkv=hkv, g=g, d=d)
-    hq, esz = hkv * g, 2
-    heads = f"Hq={hq} Hkv={hkv} D={d}"
+    heads = f"Hq={hkv * g} Hkv={hkv} D={d}"
+    if paged:
+        rows.update(_paged_kernel_times(gen, suffix, geom, heads))
+    rows.update(_contiguous_kernel_times(gen, suffix, geom, heads, prefills))
+    return rows
 
+
+def _paged_kernel_times(gen, suffix: str, geom: dict, heads: str) -> dict:
+    """Rows 2 and 3 of ``_serving_kernel_times``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    hkv, d = geom["hkv"], geom["d"]
+    hq, esz = hkv * geom["g"], 2
+    rows = {}
     # paged decode: 8 slots of the serving run's pool (BS=16, 21 blocks a
     # row), bf16, ragged valid lengths across the run's range
     vlens = [329, 290, 251, 212, 173, 134, 95, 66]
@@ -4181,7 +4616,18 @@ def _serving_kernel_times(gen, *, hkv: int = 5, g: int = 3, d: int = 64,
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"B=1 Tq=64 q_offset=64 vlen=128 {heads} BS=16 bf16 "
                  "(tensor cores, paged_wgmma_kernel)"}
+    return rows
 
+
+def _contiguous_kernel_times(gen, suffix: str, geom: dict, heads: str,
+                             prefills) -> dict:
+    """Rows 4 and 5 of ``_serving_kernel_times``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    hkv, d = geom["hkv"], geom["d"]
+    hq, esz = hkv * geom["g"], 2
+    rows = {}
     # contiguous decode: the slot pool's 8 slots of 328, ragged, bf16; the
     # library yardstick is one SDPA call on transposed views with a boolean
     # valid-length mask
@@ -4211,16 +4657,9 @@ def _serving_kernel_times(gen, *, hkv: int = 5, g: int = 3, d: int = 64,
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"B=8 S=328 {heads} bf16 vlen {vlens}, {plan}"}
 
-    # contiguous cached prefill: the slot pool's 64-token chunk at offset
-    # 64 into a slot of 328, then (printed only) the lockstep prefill and an
-    # int8 run's single-shot prefill (its exact bf16 K/V, Tq = Tk = 256);
-    # back-to-back and device times of the kernel (bf16: tensor cores) and
-    # of SDPA
-    for key, (b, tk, tq, qoff, vlen) in (
-            ("flash_attention_offset", (1, 328, 64, 64, 128)),
-            ("flash_attention_offset, lockstep", (4, 288, 256, 0, 256)),
-            ("flash_attention_offset, int8 single-shot",
-             (1, 256, 256, 0, 256))):
+    # contiguous cached prefill at ``prefills``; back-to-back and device
+    # times of the kernel (bf16: tensor cores) and of SDPA
+    for key, (b, tk, tq, qoff, vlen) in prefills:
         q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=tk,
                                            vlens=[vlen] * b, tq=tq, **geom)
         qo = torch.full((b,), qoff, dtype=torch.int32, device="cuda")
@@ -5135,10 +5574,12 @@ def main() -> int:
     counts.update(_timed(phase_serve_128))
     counts.update(_timed(phase_serve_moe))
     counts.update(_timed(phase_serve_mla))
+    counts.update(_timed(phase_serve_state))
     _timed(phase_parity)
     _timed(phase_parity_128)
     _timed(phase_parity_moe)
     _timed(phase_parity_mla)
+    _timed(phase_parity_state)
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
@@ -5167,6 +5608,8 @@ def main() -> int:
             "wrapper_ms": row["wrapper_ms"],
             **{k: row[k] for k in ("device_ms", "library_device_ms")
                if k in row}})
+    print(f"profiler: {len(DROPPED_STEP_SESSIONS)} session(s) of the step "
+          "lines recorded no device time, and ran again")
     print(f"chip_smoke: {time.perf_counter() - START:.1f}s in all")
     # again at the end, beside the numbers, where a reader of the last
     # lines of the output finds it

@@ -1,16 +1,14 @@
 """Configuration dataclasses: the port's own copies of ``MLAConfig``
-(reference: ``src/repro/configs/base.py:15-21``), ``MoEConfig`` (47-60),
-``ModelConfig`` (62-113) and of the training run's ``ParallelConfig``,
-``OptimizerConfig`` and ``RunConfig`` (135-170).
-
-The other family sub-configs (SSM, xLSTM) are typed loosely here: no
-ported family reads them, and they are ported with their families.
+(reference: ``src/repro/configs/base.py:15-21``), ``SSMConfig`` (24-34),
+``XLSTMConfig`` (37-44), ``MoEConfig`` (47-60), ``ModelConfig`` (62-113)
+and of the training run's ``ParallelConfig``, ``OptimizerConfig`` and
+``RunConfig`` (135-170).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -21,6 +19,29 @@ class MLAConfig:
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
     v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 SSD block configuration."""
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128
+    # dt (timestep) softplus bias init range
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block configuration (mLSTM + sLSTM mix)."""
+    num_heads: int = 4
+    expand: int = 2          # mLSTM up-projection factor
+    chunk: int = 256         # mLSTM chunked-parallel block length
+    slstm_every: int = 6     # sLSTM where i % slstm_every == slstm_every - 1
+    conv_width: int = 4
 
 
 @dataclass(frozen=True)
@@ -60,8 +81,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # family-specific sub-configs
     mla: Optional[MLAConfig] = None
-    ssm: Optional[Any] = None
-    xlstm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     moe: Optional[MoEConfig] = None
     # hybrid: attention block inserted every N ssm blocks (shared weights)
     hybrid_attn_every: int = 0

@@ -34,7 +34,11 @@ dequantizing kernels.  An MLA model (``--arch minicpm3_4b``) caches its
 compressed latent, fp under ``--kv-cache-dtype int8`` too (which keeps the
 single-shot prefill), serves the slot pool and the lockstep loop, and
 refuses ``--paged`` with the reference's ``ValueError`` (its latent cache
-has no block-pool layout).
+has no block-pool layout).  The recurrent decoders (``--arch zamba2_1p2b``,
+``--arch xlstm_125m``) serve every mode through the fixed-state family:
+each prompt prefills in one shot, its length snapped to the chunked scan's
+quantum (at most the quantum, or a multiple of it) as the reference CLI
+snaps it, and a paged pool holds one state row a sequence.
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
 ``_continuous`` at 88, ``main`` at 264); weights and sampling generators
@@ -62,7 +66,7 @@ from repro_torch.obs import kernels as obs_kernels
 from repro_torch.obs import merge as obs_merge
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serving import engine
+from repro_torch.serving import cache_family, engine
 from repro_torch.serving import scheduler as sched_mod
 from repro_torch.serving.router import ReplicaRouter
 
@@ -168,6 +172,15 @@ def workload(args, cfg) -> tuple[list, int]:
         vocab=vocab, seed=1,
         shared_prefix=args.shared_prefix if args.paged else 0,
         priority_classes=args.priority_classes, slo_ms=args.slo_ms or None)
+    family = cache_family.resolve(cfg)
+    if family.kind == "state":
+        # the single-shot prefill runs the chunked scan: snap each prompt
+        # to the scan's quantum (at most q, or a multiple of q)
+        q = family.prompt_quantum()
+        for r in requests:
+            n = len(r.prompt)
+            if n > q and n % q:
+                r.prompt = r.prompt[:n - n % q]
     return requests, slot_len
 
 

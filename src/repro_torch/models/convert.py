@@ -4,7 +4,7 @@
 half of ``repro.models.layers.split_params(transformer.init(...))`` with its
 leaves as numpy arrays and each segment's layers stacked on a leading axis —
 and returns the port's parameter dict (``models.transformer``'s layout, one
-dict per layer).  ``adamw_state_from_numpy`` carries the reference's
+dict per layer, the hybrid's shared block once).  ``adamw_state_from_numpy`` carries the reference's
 ``AdamWState`` (step, and ``mu``/``nu`` trees shaped like its parameters)
 through the same mapping.  No JAX is needed: the caller turns the leaves
 into numpy.
@@ -25,47 +25,50 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _leaf(w, i: int, device):
+    """Layer ``i`` of a stacked leaf, or of a nested dict of them; a
+    ``{"scale": ...}`` norm dict becomes its tensor."""
+    if isinstance(w, dict):
+        if set(w) == {"scale"}:
+            return _leaf(w["scale"], i, device)
+        return {k: _leaf(v, i, device) for k, v in w.items()}
+    return _tensor(w if i is None else w[i], device)
+
+
 def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     """Reference tree ``{"embedding": {"embed"[, "head"]}, "final_norm":
-    {"scale"}, "segments": [{"ln1", "attn", "ln2", "mlp" | "moe"}
-    stacked]}`` → the port's ``{"embed", "final_norm", "layers": [...]}``
-    on ``device`` (the card unless the caller asks for the CPU).  An MoE
-    layer's ``"moe"`` dict carries the router, the stacked experts and the
-    shared expert's ``"shared"`` MLP dict as they are; an MLA layer's
-    ``"attn"`` carries its eight leaves, its ``q_norm`` / ``kv_norm``
-    ``{"scale"}`` dicts becoming flat tensors as ``ln1``'s does."""
-    segments = tree["segments"]
-    keys = set(segments[0]) if len(segments) == 1 else set()
-    if keys not in ({"ln1", "attn", "ln2", "mlp"},
-                    {"ln1", "attn", "ln2", "moe"}):
-        raise NotImplementedError("params_from_numpy converts dense, MoE "
-                                  "and MLA stacks (one segment of dense, "
-                                  "moe or mla blocks) only")
-    seg = segments[0]
-    n = np.asarray(seg["ln1"]["scale"]).shape[0]
-
-    def leaves(tree_i, i: int) -> dict:
-        return {k: (leaves(w, i) if isinstance(w, dict)
-                    else _tensor(w[i], device)) for k, w in tree_i.items()}
-
-    def layer(i: int) -> dict:
-        out = {
-            "ln1": _tensor(seg["ln1"]["scale"][i], device),
-            "attn": {k: _tensor(w["scale"][i] if isinstance(w, dict)
-                                else w[i], device)
-                     for k, w in seg["attn"].items()},
-            "ln2": _tensor(seg["ln2"]["scale"][i], device),
-        }
-        ffn = "moe" if "moe" in seg else "mlp"
-        out[ffn] = leaves(seg[ffn], i)
-        return out
-
+    {"scale"}, "segments": [stacked blocks, ...][, "shared_attn": {...}]}``
+    → the port's ``{"embed"[, "head"], "final_norm", "layers": [...][,
+    "shared_attn"]}`` on ``device`` (the card unless the caller asks for
+    the CPU).  Each segment's stacked layers become one dict each, in stack
+    order: dense, MoE, MLA, mamba, mlstm and slstm blocks alike, every
+    ``{"scale"}`` norm dict becoming a flat tensor (``ln1``, an MLA
+    layer's ``q_norm`` / ``kv_norm``, a mamba layer's ``ln`` and its
+    block's ``norm``, the xLSTM blocks' ``norm`` / ``hnorm``) and the rest
+    carried as it is (an MoE layer's router, stacked experts and
+    ``"shared"`` MLP).  A hybrid model's ``{}`` placeholder segments take
+    no layer; its unstacked ``shared_attn`` block converts once."""
+    layers = []
+    for seg in tree["segments"]:
+        if not seg:
+            continue                      # the shared block's placeholder
+        n = next(iter(_stack_sizes(seg)))
+        layers += [_leaf(seg, i, device) for i in range(n)]
     params = {"embed": _tensor(tree["embedding"]["embed"], device)}
     if "head" in tree["embedding"]:
         params["head"] = _tensor(tree["embedding"]["head"], device)
     params["final_norm"] = _tensor(tree["final_norm"]["scale"], device)
-    params["layers"] = [layer(i) for i in range(n)]
+    params["layers"] = layers
+    if "shared_attn" in tree:
+        params["shared_attn"] = _leaf(tree["shared_attn"], None, device)
     return params
+
+
+def _stack_sizes(tree) -> set:
+    """The leading (layer) axis of every leaf of a stacked segment."""
+    if isinstance(tree, dict):
+        return set().union(*(_stack_sizes(v) for v in tree.values()))
+    return {np.shape(tree)[0]}
 
 
 def adamw_state_from_numpy(state, *, device="cuda") -> AdamWState:

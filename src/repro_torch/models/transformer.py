@@ -1,16 +1,18 @@
-"""Decoder-only LM for the dense, MoE and MLA block kinds: init, forward,
-training loss, decode logits.
+"""Decoder-only LM for the dense, MoE, MLA and recurrent block kinds: init,
+forward, training loss, decode logits.
 
-Port of ``src/repro/models/transformer.py`` for ``dense``, ``moe`` and
-``mla`` blocks: ``block_pattern`` (line 41), ``block_apply`` (114; dense
+Port of ``src/repro/models/transformer.py``: ``block_pattern`` (line 41,
+the xLSTM and hybrid patterns at 48-73), ``block_apply`` (114; dense
 takes the MLP, moe ``layers.moe_apply``, at 150-154; mla
-``layers.mla_apply`` and the MLP, rejecting block tables as at 133-135),
-``init`` (176; the port's own
+``layers.mla_apply`` and the MLP, rejecting block tables as at 133-135, as
+do the recurrent kinds; mamba ``ssm.mamba2_apply`` after a norm, mlstm and
+slstm their ``xlstm`` blocks, 155-164), ``init`` (176; the port's own
 seeded initialiser with the reference's shapes and scales), ``forward``
 (217; a Python loop over layers in place of ``lax.scan``, each layer under
 ``torch.utils.checkpoint`` where the reference's ``_maybe_remat`` put it
 under ``jax.checkpoint``, with its two policies, the MoE aux losses summed
-over layers as at 270-272), ``loss_fn`` (280, which adds them over
+over layers as at 270-272; zamba2's one shared block called at every
+``shared_attn`` segment), ``loss_fn`` (280, which adds them over
 ``num_layers``) and ``logits_last`` (306, which casts to fp32 before the head
 product as at line 309).
 
@@ -25,8 +27,22 @@ An MoE layer holds ``"moe": {"router": [D, E] float32, "w_gate", "w_up":
 "w_down"}, an MLP of d_ff_shared)}`` in place of ``"mlp"``.  An MLA layer's
 ``"attn"`` is ``{"wdq": [D, Rq], "q_norm": [Rq], "wuq": [Rq, H·(Dn+Dr)],
 "wdkv": [D, R+Dr], "kv_norm": [R], "wuk": [R, H·Dn], "wuv": [R, H·Dv],
-"wo": [H·Dv, D]}`` (``layers.mla_apply``).  Norm scales and the router
-stay float32 as in the reference; the rest takes ``cfg.dtype``.
+"wo": [H·Dv, D]}`` (``layers.mla_apply``).  The recurrent families
+(``ssm``: xLSTM, ``hybrid``: zamba2) list their blocks in ``"layers"`` in
+stack order: a mamba layer ``{"ln": [D], "mamba": {...}}``
+(``ssm.mamba2_init``), an mlstm or slstm layer the block's own dict
+(``xlstm.mlstm_block_init`` / ``slstm_block_init``); a hybrid model adds
+``"shared_attn"``, one dense layer's dict, whose weights every
+``shared_attn`` segment calls.  Norm scales, the router and the leaves
+the reference creates in fp32 (``FP32_LEAVES``) stay float32; the rest
+takes ``cfg.dtype``.
+
+Caches are a flat dict of leaves whose axis 0 is the layer and axis 1 the
+batch (or the pool's block): attention leaves (``"k"``, ``"v"``, ...) one
+entry per attention layer (zamba2: per shared-block call), and the state
+leaves of each recurrent kind (``STATE_LEAVES``) one entry per layer of
+that kind.  ``layer_plan`` maps each layer to its kind and to its index
+among the layers of that kind.
 """
 from __future__ import annotations
 
@@ -41,25 +57,94 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch import core
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm, xlstm
 
 Tensor = torch.Tensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-#: Leaves that keep float32 whatever ``cfg.dtype`` is.
-FP32_LEAVES = ("ln1", "ln2", "final_norm", "router", "q_norm", "kv_norm")
+#: Leaves that keep float32 whatever ``cfg.dtype`` is: the norm scales,
+#: the router, and what the reference's recurrent blocks create in fp32
+#: (the convs, the SSD's ``dt_bias`` / ``a_log`` / ``d_skip``, the mLSTM's
+#: gate weights and bias, the sLSTM's gate and recurrent weights).
+FP32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "router", "q_norm",
+               "kv_norm", "norm", "hnorm", "conv_x", "conv_b", "conv_c",
+               "conv", "dt_bias", "a_log", "d_skip", "w_if", "if_bias",
+               "w_gates", "r_weights")
+
+#: The recurrent kinds' cache leaves (the attention kinds take the rest).
+STATE_LEAVES = {"mamba": ssm.CACHE_LEAVES, "mlstm": xlstm.MLSTM_LEAVES,
+                "slstm": xlstm.SLSTM_LEAVES}
 
 
 def block_pattern(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """The segments (kind, count) of ``cfg``'s stack, the reference's: an
+    xLSTM stack puts an sLSTM at every i with i % slstm_every ==
+    slstm_every - 1; a hybrid one calls its shared block after every
+    ``hybrid_attn_every`` mamba layers and once more to close the stack."""
     if cfg.family in ("dense", "vlm"):
         return [("dense", cfg.num_layers)]
     if cfg.family == "mla":
         return [("mla", cfg.num_layers)]
     if cfg.family == "moe":
         return [("moe", cfg.num_layers)]
+    if cfg.family == "ssm":
+        segs: list[tuple[str, int]] = []
+        run = 0
+        for i in range(cfg.num_layers):
+            if xlstm.is_slstm(cfg, i):
+                if run:
+                    segs.append(("mlstm", run))
+                    run = 0
+                segs.append(("slstm", 1))
+            else:
+                run += 1
+        if run:
+            segs.append(("mlstm", run))
+        return segs
+    if cfg.family == "hybrid":
+        segs = []
+        remaining = cfg.num_layers
+        while remaining > 0:
+            n = min(cfg.hybrid_attn_every, remaining)
+            segs += [("mamba", n), ("shared_attn", 1)]
+            remaining -= n
+        return segs
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP queue 1)")
+
+
+@functools.lru_cache(maxsize=None)
+def layer_plan(cfg: ModelConfig) -> tuple:
+    """The forward's walk: one (kind, index into ``params["layers"]`` or
+    None for the shared block, index among the layers of the same cache
+    group) a layer, in stack order.  The attention kinds (dense, moe, mla,
+    shared_attn) share one group: zamba2's shared-block calls are its
+    attention layers 0, 1, ...; each recurrent kind is a group of its
+    own."""
+    plan, layer, seen = [], 0, {}
+    for kind, count in block_pattern(cfg):
+        group = kind if kind in STATE_LEAVES else "attn"
+        for _ in range(count):
+            j = seen.get(group, 0)
+            seen[group] = j + 1
+            if kind == "shared_attn":
+                plan.append((kind, None, j))
+            else:
+                plan.append((kind, layer, j))
+                layer += 1
+    return tuple(plan)
+
+
+def layer_counts(cfg: ModelConfig) -> dict:
+    """How many layers each cache group holds: {"attn": attention layers
+    (shared-block calls included), "mamba" | "mlstm" | "slstm": ...}."""
+    out: dict = {}
+    for kind, _, _ in layer_plan(cfg):
+        group = kind if kind in STATE_LEAVES else "attn"
+        out[group] = out.get(group, 0) + 1
+    return out
 
 
 def init(cfg: ModelConfig, *, seed: int = 0,
@@ -126,16 +211,37 @@ def init(cfg: ModelConfig, *, seed: int = 0,
             p["shared"] = mlp(mc.d_ff_shared)
         return p
 
+    def dense_layer():
+        # the feed-forward leaves are drawn before the attention's
+        ffn = {"moe": moe()} if kind == "moe" else {"mlp": mlp(f)}
+        return {"ln1": ones(), "attn": attention(), "ln2": ones(), **ffn}
+
+    def ones_n(n):
+        return torch.ones(n, device=device)
+
+    def draw(shape, scale=None, dtype=None):
+        return dense(shape, scale, dt if dtype is None else dtype)
+
+    recurrent = {
+        "mamba": lambda: {"ln": ones(),
+                          "mamba": ssm.mamba2_init(cfg, draw, ones_n,
+                                                   device)},
+        "mlstm": lambda: xlstm.mlstm_block_init(cfg, draw, ones_n, device),
+        "slstm": lambda: xlstm.slstm_block_init(cfg, draw, ones_n, device)}
+
     params = {"embed": dense((v, d), scale=1.0)}
     if not cfg.tie_embeddings:
         params["head"] = dense((d, v))
     params["final_norm"] = ones()
     layers = []
-    for _ in range(cfg.num_layers):
-        # the feed-forward leaves are drawn before the attention's
-        ffn = {"moe": moe()} if kind == "moe" else {"mlp": mlp(f)}
-        layers.append({"ln1": ones(), "attn": attention(), "ln2": ones(),
-                       **ffn})
+    for kind_i, idx, _ in layer_plan(cfg):
+        if idx is None:
+            if "shared_attn" not in params:
+                params["shared_attn"] = dense_layer()
+        elif kind_i in recurrent:
+            layers.append(recurrent[kind_i]())
+        else:
+            layers.append(dense_layer())
     params["layers"] = layers
     return params
 
@@ -174,11 +280,17 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     positions = base[..., None] + torch.arange(t, device=x.device)
     remat = _remat(cfg, training=caches is None and torch.is_grad_enabled())
     aux_total: dict = {}
-    for i, lp in enumerate(params["layers"]):
-        cache = (None if caches is None
-                 else {name: leaf[i] for name, leaf in caches.items()})
-        layer = functools.partial(_block_apply, cfg=cfg, positions=positions,
-                                  cache=cache, cache_len=cache_len,
+    for kind, idx, j in layer_plan(cfg):
+        lp = params["shared_attn"] if idx is None else params["layers"][idx]
+        cache = None
+        if caches is not None:
+            own = STATE_LEAVES.get(kind)
+            cache = {name: leaf[j] for name, leaf in caches.items()
+                     if (name in own if own else
+                         name not in _ALL_STATE_LEAVES)}
+        layer = functools.partial(_block_apply, kind=kind, cfg=cfg,
+                                  positions=positions, cache=cache,
+                                  cache_len=cache_len,
                                   block_tables=block_tables, aux=return_aux)
         x, aux = remat(layer, lp, x)
         for name, val in aux.items():
@@ -187,13 +299,32 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     return (x, caches, aux_total) if return_aux else (x, caches)
 
 
-def _block_apply(lp: dict, x: Tensor, *, cfg: ModelConfig, positions, cache,
-                 cache_len, block_tables, aux: bool):
-    """One block: [norm → GQA attention] + [norm → SwiGLU MLP] (dense),
-    [norm → mixture of experts] (moe), or [norm → latent attention] +
-    [norm → SwiGLU MLP] (mla, which takes no block tables: its latent cache
-    is contiguous only, as the reference's).  Returns (x, the MoE aux
-    losses when ``aux``, else {})."""
+_ALL_STATE_LEAVES = frozenset(n for leaves in STATE_LEAVES.values()
+                              for n in leaves)
+
+
+def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
+                 positions, cache, cache_len, block_tables, aux: bool):
+    """One block: [norm → GQA attention] + [norm → SwiGLU MLP] (dense, and
+    zamba2's shared block), [norm → mixture of experts] (moe), or [norm →
+    latent attention] + [norm → SwiGLU MLP] (mla, which takes no block
+    tables: its latent cache is contiguous only, as the reference's); x +
+    [norm → Mamba2] (mamba); the xLSTM blocks, which hold their own norms
+    and residuals (mlstm, slstm).  The recurrent kinds take no block tables
+    either, and ignore ``positions`` and ``cache_len``.  Returns (x, the
+    MoE aux losses when ``aux``, else {})."""
+    if kind in STATE_LEAVES:
+        if block_tables is not None:
+            raise ValueError("paged KV cache serves standard attention "
+                             f"blocks only (got {kind!r})")
+        if kind == "mamba":
+            y, _ = ssm.mamba2_apply(lp["mamba"],
+                                    L.rms_norm(lp["ln"], x, cfg.norm_eps),
+                                    cfg, cache=cache)
+            return x + y, {}
+        block = (xlstm.mlstm_block_apply if kind == "mlstm"
+                 else xlstm.slstm_block_apply)
+        return block(lp, x, cfg, cache=cache)[0], {}
     h = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
     if "wdkv" in lp["attn"]:
         if block_tables is not None:

@@ -125,7 +125,26 @@ def decode_step_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
     row's c); and its cache bytes the latent row, R + Dr elements in the
     model dtype per live key and layer, read once (V is that c, not read
     again; an int8 config keeps fp latents).
+
+    The recurrent models (``cfg.ssm`` / ``cfg.xlstm``, ``_recurrent_cost``)
+    count, a row each, their layers' projections (2 × parameters flops,
+    parameters × element size bytes) and their state's arithmetic and
+    bytes: a Mamba2 layer's ``w_zx``, ``w_bc``, ``w_dt`` and ``w_out``, its
+    conv's 2·width·(inner + 2N) flops, the SSD step's 5·H·N·P (decay and
+    outer-product update, 3; the read-out C·S, 2) and the fp32 state and
+    the conv tails read and written once; an mLSTM layer's ``w_up``, ``wq``
+    / ``wk`` / ``wv``, ``w_down`` and the fp32 ``w_if``, its conv, 6·H·Dh²
+    for C (update 4, read-out 2) and 6·H·Dh for n, and C, n, m and the conv
+    tail read and written; an sLSTM layer's fp32 gate projection [D, 4D]
+    and recurrent matrices [4, H, Dh, Dh] and its gated MLP, and its four
+    fp32 state vectors read and written.  zamba2's shared block counts as
+    a dense layer at every one of its calls (its weights are read again
+    by each: 134 MB at full width does not stay on chip between calls),
+    each call attending over its own live K/V.  The conv weights, norms and
+    per-head vectors are left out, as the norms are above.
     """
+    if cfg.ssm is not None or cfg.xlstm is not None:
+        return _recurrent_cost(cfg, batch, live_lens)
     d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.head_dim or d // hq
     layers, vocab = cfg.num_layers, cfg.vocab_size
@@ -169,6 +188,58 @@ def decode_step_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
              + per_key * live * layers + 2 * d * vocab * batch)
     nbytes = ((attn * w + ffn_bytes) * layers + d * vocab * w + kv_bytes
               + batch * vocab * 4)
+    return {"flops": float(flops), "bytes_accessed": float(nbytes),
+            "dtype": cfg.dtype}
+
+
+def _recurrent_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
+    """``decode_step_cost`` of an xLSTM or hybrid (Mamba2 + shared block)
+    model: see there."""
+    from repro_torch.models import transformer
+    d, b, vocab = cfg.d_model, batch, cfg.vocab_size
+    w = _ITEMSIZE[cfg.dtype]
+    counts = transformer.layer_counts(cfg)
+    flops = 2 * d * vocab * b
+    nbytes = d * vocab * w + b * vocab * 4
+    sc, xc = cfg.ssm, cfg.xlstm
+    if counts.get("mamba"):
+        inner = sc.expand * d
+        h, n = inner // sc.head_dim, sc.d_state
+        proj = d * 2 * inner + d * 2 * n + d * h + inner * d
+        state = h * n * sc.head_dim
+        tails = (sc.d_conv - 1) * (inner + 2 * n)
+        flops += counts["mamba"] * b * (2 * proj + 5 * state
+                                        + 2 * sc.d_conv * (inner + 2 * n))
+        nbytes += counts["mamba"] * (proj * w
+                                     + 2 * b * (state * 4 + tails * w))
+    if counts.get("mlstm"):
+        inner = xc.expand * d
+        hh = xc.num_heads
+        dh = inner // hh
+        proj, w_if = d * 2 * inner + 3 * inner * inner + inner * d, \
+            inner * 2 * hh
+        st = hh * dh * dh + hh * dh
+        flops += counts["mlstm"] * b * (2 * (proj + w_if)
+                                        + 2 * xc.conv_width * inner
+                                        + 6 * hh * dh * dh + 6 * hh * dh)
+        nbytes += counts["mlstm"] * (
+            proj * w + w_if * 4
+            + 2 * b * (st * 4 + hh * 4 + (xc.conv_width - 1) * inner * w))
+    if counts.get("slstm"):
+        dh = d // xc.num_heads
+        gates, rec = d * 4 * d, 4 * xc.num_heads * dh * dh
+        mlp = 3 * d * (int(d * 4 / 3 / 64) * 64 or 64)
+        flops += counts["slstm"] * b * 2 * (gates + rec + mlp)
+        nbytes += counts["slstm"] * ((gates + rec) * 4 + mlp * w
+                                     + 2 * b * 4 * d * 4)
+    if counts.get("attn"):
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        dh = cfg.resolved_head_dim
+        dense = (d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+                 + (3 if cfg.act == "silu" else 2) * d * cfg.d_ff)
+        live = sum(int(x) for x in live_lens)
+        flops += counts["attn"] * (2 * dense * b + 4 * hq * dh * live)
+        nbytes += counts["attn"] * (dense * w + live * 2 * hkv * dh * w)
     return {"flops": float(flops), "bytes_accessed": float(nbytes),
             "dtype": cfg.dtype}
 

@@ -12,19 +12,26 @@ cache is its compressed latent under both families, fp in the model dtype
 84): ``{"c_kv": [L, B, S, R], "k_rope": [L, B, S, Dr]}``, contiguous only
 (``paged_serveable`` False, ``init_paged_cache`` raising the reference's
 ``ValueError``); the int8 family keeps its single-shot prefill and
-``shareable = False`` there too.  The fixed-state and enc-dec families come
-with later slices; ``resolve`` raises for them.  The pool-layout contract is
-the reference's: the physical block axis sits at position 1 of every pool
-leaf ([L, P, Hkv, BS, D], scales [L, P, Hkv, BS]).
+``shareable = False`` there too.  ``FixedStateFamily`` (292) serves the
+recurrent decoders (xLSTM, and zamba2's Mamba2 layers with their shared
+attention block): one block is a sequence's whole state row, prefilled in
+one shot and never shared.  The enc-dec family comes with a later slice;
+``resolve`` raises for it.  The pool-layout contract is the reference's:
+the physical block axis sits at position 1 of every pool leaf ([L, P, Hkv,
+BS, D], scales [L, P, Hkv, BS], a state pool's [L, P, ...]).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer, xlstm
+
+#: Block kinds whose cache is a fixed-size recurrent state.
+STATE_KINDS = frozenset({"mamba", "mlstm", "slstm"})
 
 
 class CacheFamily:
@@ -45,6 +52,10 @@ class CacheFamily:
     paged_serveable: bool = True
     paged_unsupported_reason: str = ""
 
+    #: "token" (a block holds ``block_size`` positions) or "state" (a block
+    #: is one sequence's whole state row).
+    kind: str = "token"
+
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
@@ -58,8 +69,8 @@ class CacheFamily:
     def init_cache(self, batch: int, max_len: int, device) -> dict:
         raise NotImplementedError
 
-    def init_paged_cache(self, num_blocks: int, block_size: int,
-                         device) -> dict:
+    def init_paged_cache(self, num_blocks: int, block_size: int, device,
+                         slot_len=None) -> dict:
         raise NotImplementedError
 
     def max_blocks(self, slot_len: int, block_size: int) -> int:
@@ -121,11 +132,11 @@ class DenseFamily(CacheFamily):
         return self._zeros((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                             cfg.resolved_head_dim), device)
 
-    def init_paged_cache(self, num_blocks: int, block_size: int,
-                         device) -> dict:
+    def init_paged_cache(self, num_blocks: int, block_size: int, device,
+                         slot_len=None) -> dict:
         """Zeroed pools {"k", "v": [L, P, Hkv, BS, D]}; ``num_blocks``
-        counts the sentinel block 0.  Raises for a config that is not
-        ``paged_serveable``."""
+        counts the sentinel block 0 (``slot_len`` is not needed).  Raises
+        for a config that is not ``paged_serveable``."""
         if not self.paged_serveable:
             self._reject_paged()
         cfg = self.cfg
@@ -178,15 +189,116 @@ class DenseInt8Family(DenseFamily):
                 for name in ("k", "v")}
 
 
+class FixedStateFamily(CacheFamily):
+    """The recurrent state of SSM, xLSTM and hybrid stacks (zamba2,
+    xlstm-125m).
+
+    A fixed-size state is a one-block "page": one physical block is a
+    sequence's whole cache row, the state of every recurrent layer plus,
+    for a hybrid, the shared block's K/V over ``slot_len`` positions.
+    ``block_size`` plays no part and a table is one column wide.  The
+    state changes in place every step, so blocks are never shared, and the
+    prefill is single shot (the chunked scan starts from zeros and carries
+    no prefix state).
+
+    Caches are flat, each leaf with its layer axis 0 and batch (or pool
+    block) axis 1: ``{"ssm": [L_m, B, H, N, P] fp32, "conv_x": [L_m, B,
+    w − 1, inner], "conv_b", "conv_c": [L_m, B, w − 1, N], "k", "v":
+    [calls, B, S, Hkv, D]}`` for zamba2 (L_m mamba layers, one K/V entry
+    per shared-block call), ``{"m": [L_ml, B, H], "C": [L_ml, B, H, Dh,
+    Dh], "n": [L_ml, B, H, Dh], "conv": [L_ml, B, w − 1, inner], "s_c",
+    "s_n", "s_m", "s_h": [L_sl, B, D]}`` for xLSTM; ``transformer.
+    layer_plan`` maps layer i to its index among its kind.  A pool is the
+    same layout with the block axis in place of the batch, so the slot
+    code, the swap and the block copies need no branch of their own."""
+
+    name = "fixed_state"
+    kind = "state"
+    single_shot_prefill = True
+    shareable = False
+
+    def init_cache(self, batch: int, max_len: int, device) -> dict:
+        """Every layer's initial state (``ssm.mamba2_cache_init``,
+        ``xlstm.xlstm_cache_init``: the mLSTM's m at −inf, the sLSTM's n at
+        1), stacked over the layers of its kind, and zeroed K/V of
+        ``max_len`` for every shared-block call."""
+        cfg = self.cfg
+        dt = transformer.DTYPES[cfg.dtype]
+        counts = transformer.layer_counts(cfg)
+        out: dict = {}
+        if counts.get("attn"):
+            shape = (counts["attn"], batch, max_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            out["k"] = torch.zeros(shape, dtype=dt, device=device)
+            out["v"] = torch.zeros(shape, dtype=dt, device=device)
+        if counts.get("mamba"):
+            one = ssm.mamba2_cache_init(cfg, batch, dt, device)
+            out.update(_stacked(one, counts["mamba"]))
+        for kind in ("mlstm", "slstm"):
+            if counts.get(kind):
+                first = next(i for k, i, _ in transformer.layer_plan(cfg)
+                             if k == kind)
+                one = xlstm.xlstm_cache_init(cfg, first, batch, dt, device)
+                out.update(_stacked(one, counts[kind]))
+        return out
+
+    def init_paged_cache(self, num_blocks: int, block_size: int, device,
+                         slot_len=None) -> dict:
+        """The contiguous layout with the pool's ``num_blocks`` rows
+        (sentinel 0 included) in place of the batch: one row a sequence,
+        its shared-block K/V sized by ``slot_len``."""
+        if slot_len is None:
+            raise TypeError("fixed-state pools need slot_len: one block "
+                            "holds a whole state row sized by it")
+        return self.init_cache(num_blocks, slot_len, device)
+
+    def max_blocks(self, slot_len: int, block_size: int) -> int:
+        return 1
+
+    def blocks_for_prompt(self, prompt_len: int, block_size: int) -> int:
+        return 1
+
+    def prompt_quantum(self) -> int:
+        """The single-shot prefill runs the chunked scan once over the
+        whole prompt, whose length must divide into the scan's chunk: a
+        prompt is at most this quantum or a multiple of it (the lcm of the
+        SSM's and the xLSTM's chunks)."""
+        q = 1
+        for sub in (self.cfg.ssm, self.cfg.xlstm):
+            if sub is not None:
+                q = q * sub.chunk // math.gcd(q, sub.chunk)
+        return q
+
+    def validate_prompt(self, prompt_len: int, slot_len: int) -> None:
+        super().validate_prompt(prompt_len, slot_len)
+        q = self.prompt_quantum()
+        if prompt_len > q and prompt_len % q:
+            raise ValueError(
+                f"fixed-state prefill is single-shot through the chunked "
+                f"scan: prompt of {prompt_len} must be ≤ {q} or a multiple "
+                f"of {q}")
+
+
+def _stacked(one: dict, count: int) -> dict:
+    """One layer's state leaves [B, ...] repeated over ``count`` layers:
+    [count, B, ...]."""
+    return {name: x.unsqueeze(0).repeat((count,) + (1,) * x.dim())
+            for name, x in one.items()}
+
+
 @functools.lru_cache(maxsize=None)
 def resolve(cfg: ModelConfig) -> CacheFamily:
-    """The cache family serving this config: int8 K/V for
+    """The cache family serving this config: the fixed-state family for a
+    stack with recurrent blocks, before the KV dtype is looked at (as the
+    reference's ``cache_family.py:429-439``); else int8 K/V for
     ``kv_cache_dtype == "int8"``, else fp K/V (any other value keeps the
     model dtype, as in the reference).  Dense and MoE blocks hold the same
     attention K/V, so both kinds, alone or mixed, take these families, as
     in the reference (``cache_family.py:79,199``); so do MLA blocks, with
     their latent caches (``DenseFamily``)."""
     kinds = {k for k, _ in transformer.block_pattern(cfg)}
+    if kinds & STATE_KINDS:
+        return FixedStateFamily(cfg)
     if not (kinds <= {"dense", "moe"} or kinds == {"mla"}):
         raise NotImplementedError(
             f"cache family for {cfg.name!r} (blocks {sorted(kinds)}) is not "

@@ -10,24 +10,29 @@ sampling, for three serving shapes over one decoder (dense, MoE or MLA).
 * **Paged pool** (``init_paged_cache`` / ``copy_paged_block`` /
   ``write_paged_block`` / ``prefill_chunk_paged`` / ``decode_step_paged``):
   a shared block pool read through block tables; not for MLA
-  (``paged_supported``).
+  (``paged_supported``).  A fixed-state config's pool holds one state row
+  a sequence (``gather_state_rows`` / ``scatter_state_rows`` /
+  ``decode_step_state``).
 
 The contiguous caches are the cache family's layout: attention K/V
 ``{"k", "v": [L, B, S, Hkv, D]}`` (int8 adds ``"k_scale"``,
-``"v_scale"``), or an MLA model's latents ``{"c_kv": [L, B, S, R],
-"k_rope": [L, B, S, Dr]}``; every function here goes over the leaves the
-family gave, whichever they are.
+``"v_scale"``), an MLA model's latents ``{"c_kv": [L, B, S, R],
+"k_rope": [L, B, S, Dr]}``, or a recurrent model's state leaves
+(``cache_family.FixedStateFamily``); every function here goes over the
+leaves the family gave, whichever they are.
 
-Port of ``src/repro/serving/engine.py`` for the dense family (dense, MoE
-and MLA blocks):
+Port of ``src/repro/serving/engine.py`` for the dense families (dense, MoE
+and MLA blocks) and the fixed-state family (mamba, mlstm and slstm blocks,
+and zamba2's shared attention):
 ``init_cache`` (line 49), ``prefill`` (55), ``logits_from_hidden`` (69),
 ``decode_step`` (80), ``prefill_schedule`` (111), ``chunked_prefill`` (135),
 ``prefill_chunk`` (165), ``write_slot`` (182), ``sample_per_slot`` (199),
 ``decode_step_slots`` (218), ``paged_supported`` (241),
 ``init_paged_cache`` (251),
 ``copy_paged_block`` (265), ``write_paged_block`` (276),
-``prefill_chunk_paged`` (291) and
-``decode_step_paged`` (305).  Caches and pools are updated in place (the JAX
+``prefill_chunk_paged`` (291),
+``decode_step_paged`` (305), ``gather_state_rows`` (330),
+``scatter_state_rows`` (346) and ``decode_step_state`` (366).  Caches and pools are updated in place (the JAX
 code returned new ones); functions still return them so the call sites read
 like the reference's.
 
@@ -173,19 +178,20 @@ def sample_per_slot(logits: Tensor, top_k: int, noise: Tensor,
 
 def paged_supported(cfg: ModelConfig) -> bool:
     """Whether the config's cache family has a block-pool layout: the
-    attention K/V of dense and MoE blocks, fp or int8; an MLA model's
-    latent cache is contiguous only."""
+    attention K/V of dense and MoE blocks, fp or int8, and a recurrent
+    model's state rows; an MLA model's latent cache is contiguous only."""
     return cache_family.resolve(cfg).paged_serveable
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     device="cuda") -> dict:
+                     device="cuda", slot_len=None) -> dict:
     """Zeroed block pools {"k", "v": [L, P, Hkv, BS, D]} — kernel-native
     page layout, no batch axis; ``num_blocks`` includes the sentinel 0.
-    Raises the reference's ``ValueError`` for a config without one
-    (``paged_supported``)."""
-    return cache_family.resolve(cfg).init_paged_cache(num_blocks, block_size,
-                                                      device)
+    A fixed-state config's pool is ``num_blocks`` state rows, each sized
+    by ``slot_len``.  Raises the reference's ``ValueError`` for a config
+    without one (``paged_supported``)."""
+    return cache_family.resolve(cfg).init_paged_cache(
+        num_blocks, block_size, device, slot_len=slot_len)
 
 
 def copy_paged_block(pools: dict, src: int, dst: int) -> dict:
@@ -251,3 +257,49 @@ def decode_step_paged(params: dict, pools: dict, block_tables: Tensor,
     logits = logits_from_hidden(params, hidden[:, -1], cfg)
     next_tok = sample_per_slot(logits, top_k, noise, temperature)
     return next_tok, pools, slot_lens + 1
+
+
+# ---------------------------------------------------------------------------
+# Fixed-state (SSM / xLSTM / hybrid) paged serving: one block is one
+# sequence's whole state row, the contiguous layout with the pool's block
+# axis where the batch axis was (position 1 of every leaf).
+# ---------------------------------------------------------------------------
+def gather_state_rows(cfg: ModelConfig, pools: dict, rows: Tensor) -> dict:
+    """Pool rows ``rows`` [B] as a contiguous batch-B cache, the layout
+    ``init_cache(cfg, B, slot_len)`` gives, so the slot pool's decode step
+    runs on it unchanged (a copy: the pool is not touched)."""
+    return {name: x.index_select(1, rows) for name, x in pools.items()}
+
+
+def scatter_state_rows(cfg: ModelConfig, pools: dict, caches: dict,
+                       rows: Tensor) -> dict:
+    """Write a contiguous batch-B cache back into pool rows ``rows`` [B],
+    in place.  Row indices outside the pool are dropped, so a row routed
+    there (an inactive slot) never writes live state."""
+    n = next(iter(pools.values())).shape[1]
+    keep = ((rows >= 0) & (rows < n)).nonzero().squeeze(1)
+    dst = rows.index_select(0, keep)
+    for name, x in pools.items():
+        x.index_copy_(1, dst, caches[name].index_select(1, keep).to(x.dtype))
+    return pools
+
+
+def decode_step_state(params: dict, pools: dict, rows: Tensor,
+                      active: Tensor, slot_lens: Tensor, tokens: Tensor,
+                      cfg: ModelConfig, *, noise: Tensor, top_k: int = 5,
+                      temperature: float = 1.0):
+    """One decode step over a fixed-state pool: rows [B] (each slot's
+    state row), active [B] bool, per-slot lengths [B], tokens [B, 1] →
+    (next_token [B], pools, slot_lens + 1).  Each active slot's row is
+    gathered, the slot pool's decode step runs on the copy, and the new
+    state is scattered back.  Inactive slots gather the sentinel row 0 and
+    their writes are dropped, so they never touch live state; rows are
+    independent through the whole network, so an active slot's stream is
+    its solo decode's."""
+    n = next(iter(pools.values())).shape[1]
+    caches = gather_state_rows(cfg, pools, torch.where(active, rows, 0))
+    next_tok, caches, new_lens = decode_step_slots(
+        params, caches, slot_lens, tokens, cfg, noise=noise, top_k=top_k,
+        temperature=temperature)
+    scatter_state_rows(cfg, pools, caches, torch.where(active, rows, n))
+    return next_tok, pools, new_lens

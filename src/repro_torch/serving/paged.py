@@ -2,7 +2,11 @@
 
 Port of ``src/repro/serving/paged.py`` (``BlockAllocator`` line 80,
 ``PrefixIndex`` 142, ``PagedSeq`` 231, ``SwappedSeq`` 240, ``PagedPool``
-283) for the token family.  The bookkeeping is plain Python and matches the
+283) for the token families and the fixed-state family, whose block is a
+sequence's whole state row: one column of the table, one block a
+sequence admitted fresh and never shared (``_admit_state``, 526), written
+by ``install_state`` (587) when its prefill ends, and no per-step block
+upkeep.  The bookkeeping is plain Python and matches the
 reference's state exactly: admission with prefix sharing and copy-on-write
 at the divergence block, ``prepare_write`` before each decode step,
 ``finalize_prefill``, ``release`` into the persistent LRU prefix cache (or
@@ -239,7 +243,7 @@ class PagedPool:
             raise AssertionError("the sentinel must be physical block 0")
         self.index = PrefixIndex()
         self.caches = engine.init_paged_cache(cfg, usable + 1, block_size,
-                                              self.device)
+                                              self.device, slot_len=slot_len)
         self.lens = np.zeros((num_slots,), np.int32)
         self.tables = np.zeros((num_slots, self.max_blocks), np.int32)
         self._free_rows: deque[int] = deque(range(num_slots))
@@ -327,9 +331,12 @@ class PagedPool:
         """Match the prompt against the prefix index, then claim a batch row
         plus the fresh blocks the unmatched part needs (prompt + the first
         decode write).  None when either is unavailable.  At most
-        ``len(prompt) - 1`` tokens are adopted."""
+        ``len(prompt) - 1`` tokens are adopted.  A fixed-state family
+        claims one fresh, unshared row block (``_admit_state``)."""
         if not self._free_rows:
             return None
+        if self.family.kind == "state":
+            return self._admit_state(prompt)
         toks = [int(t) for t in prompt]
         n = len(toks)
         bs = self.block_size
@@ -386,6 +393,31 @@ class PagedPool:
                                    self.alloc.free_blocks)
         return seq
 
+    def _admit_state(self, prompt) -> Optional[PagedSeq]:
+        """Fixed-state admission: one fresh block (the whole state row),
+        never shared — the state changes in place every decode step."""
+        if self.alloc.free_blocks < 1:
+            self._reclaim_until(1)
+        bid = self.alloc.alloc()
+        if bid is None:
+            return None
+        slot = self._free_rows.popleft()
+        self.tables[slot, 0] = bid
+        seq = PagedSeq(slot=slot,
+                       prompt=np.asarray([int(t) for t in prompt], np.int64),
+                       blocks=[bid], matched=0)
+        self.seqs[slot] = seq
+        self.min_free_blocks = min(self.min_free_blocks,
+                                   self.alloc.free_blocks)
+        return seq
+
+    def install_state(self, seq: PagedSeq, caches: dict) -> None:
+        """Write a freshly-prefilled batch-1 contiguous cache into the
+        sequence's state row block, in place."""
+        rows = torch.tensor([seq.blocks[0]], dtype=torch.int64,
+                            device=self.device)
+        engine.scatter_state_rows(self.cfg, self.caches, caches, rows)
+
     def finalize_prefill(self, seq: PagedSeq) -> None:
         """Register the finished prompt's block chain so later arrivals with
         the same prefix share it (full blocks exact, a partial tail as a
@@ -410,7 +442,10 @@ class PagedPool:
             self.index.register_partial(key, rem, seq.blocks[n_full])
 
     def probe(self, prompt) -> int:
-        """Read-only: prompt tokens an ``admit`` would adopt right now."""
+        """Read-only: prompt tokens an ``admit`` would adopt right now (none
+        for a fixed-state family)."""
+        if self.family.kind == "state":
+            return 0
         toks = [int(t) for t in prompt]
         cap = len(toks) - 1
         bs = self.block_size
@@ -438,7 +473,10 @@ class PagedPool:
     def prepare_write(self, slot: int, pos: int) -> bool:
         """Make position ``pos`` of ``slot`` writable before the decode step:
         allocate the next block at a boundary, copy-on-write a block another
-        holder references.  False: out of blocks even after reclaiming."""
+        holder references.  False: out of blocks even after reclaiming.  A
+        fixed-state row is rewritten in place: nothing to do."""
+        if self.family.kind != "token":
+            return True
         seq = self.seqs[slot]
         bi = pos // self.block_size
         if bi > len(seq.blocks):

@@ -1,8 +1,9 @@
 """Continuous-batching scheduler over the slot pool or the paged KV pool.
 
 Port of ``src/repro/serving/scheduler.py`` for ``ContinuousScheduler``
-with the token cache families (fp and int8 K/V), unpaged (``paged=False``,
-the slot pool) and paged: ``Request`` (line 106), ``RequestResult`` (126),
+with the token cache families (fp and int8 K/V) and the fixed-state family
+(recurrent state rows), unpaged (``paged=False``, the slot pool) and
+paged: ``Request`` (line 106), ``RequestResult`` (126),
 ``ServeReport`` (190, with ``merge`` at 249), ``SlotPool`` (410),
 ``poisson_workload`` (1238, the same numpy draws) and the scheduler's
 admit → chunked prefill → pooled decode tick, with priorities, deadlines
@@ -29,15 +30,20 @@ and preempt-and-swap.
 * **Prefill** — chunked by ``engine.prefill_schedule`` and interleaved with
   decode: one chunk per tick while the pool is nearly full, more as slots
   sit idle, everything at once when nothing decodes.  A single-shot family
-  (int8 K/V) prefills each prompt in one chunk.  Unpaged, chunks fill
-  a batch-1 scratch cache of ``slot_len``, inserted into the slot acquired
-  when the prefill finishes; paged, chunks write straight into the pool
-  through the sequence's table row.
+  (int8 K/V, recurrent state) prefills each prompt in one chunk.  Unpaged,
+  chunks fill a batch-1 scratch cache of ``slot_len``, inserted into the
+  slot acquired when the prefill finishes; paged, chunks write straight
+  into the pool through the sequence's table row, except a fixed-state
+  family's, which fills a scratch cache installed into its state row when
+  the prefill finishes (``PagedPool.install_state``).
 * **Decode** — one step over every slot per tick.  Unpaged, idle slots
   decode too (at length 0, writing garbage at position 0 that the next
   insert overwrites) and their lengths are reset to 0 after the step; paged,
   rows not decoding see the sentinel table, and a row the pool cannot back
-  (and no swap can make room for) is evicted before the step.
+  (and no swap can make room for) is evicted before the step; a
+  fixed-state pool decodes each active slot's state row
+  (``engine.decode_step_state``), the others reading the sentinel row and
+  writing nothing.
 * **Sampling noise** — each request owns a ``torch.Generator`` seeded from
   ``(seed, rid)`` and draws its ``k`` Gumbels per token from it, so a
   request's stream does not depend on its neighbours, on arrival order, on
@@ -632,6 +638,11 @@ class ContinuousScheduler:
             # prefill resumes at the first unmatched token: adopted prefix
             # blocks already hold the same cache content
             start, caches = seq.matched, None
+            if self.family.kind == "state":
+                # a batch-1 scratch cache, installed into the sequence's
+                # state row when the prefill finishes
+                caches = engine.init_cache(self.cfg, 1, self.pool.slot_len,
+                                           self.device)
         else:
             if self.pool.free_slots == 0:
                 return False
@@ -644,7 +655,8 @@ class ContinuousScheduler:
         self._prefill = {
             "flight": flight, "seq": seq, "caches": caches, "length": start,
             "pos": start, "last": None,
-            # a single-shot family (int8 K/V) gets the whole rest at once
+            # a single-shot family (int8 K/V, state) gets the whole rest
+            # at once
             "sizes": deque([rest] if self.family.single_shot_prefill
                            else engine.prefill_schedule(rest,
                                                         self.prefill_chunk))}
@@ -756,7 +768,7 @@ class ContinuousScheduler:
                 "prefill_chunk", tid=self._tid(pf["flight"].req.rid),
                 pid=self._pid, args={"pos": pf["pos"], "width": width})
                 if self.tracer is not None else None)
-            if self.paged:
+            if self.paged and pf["caches"] is None:
                 pf["last"], _, pf["length"] = engine.prefill_chunk_paged(
                     self.params, self.pool.caches,
                     self.pool.device_row(pf["flight"].slot), pf["length"],
@@ -790,6 +802,8 @@ class ContinuousScheduler:
             return
         if self.paged:
             slot = flight.slot               # row claimed at admission
+            if self.family.kind == "state":
+                self.pool.install_state(pf["seq"], pf["caches"])
             self.pool.finalize_prefill(pf["seq"])
             self.pool.lens[slot] = pf["length"]
         else:
@@ -834,7 +848,18 @@ class ContinuousScheduler:
         lens = torch.from_numpy(self.pool.lens).to(self.device)
         toks = torch.from_numpy(self.tokens).to(self.device)[:, None]
         noise = noise.to(self.device)
-        if self.paged:
+        if self.paged and self.family.kind == "state":
+            # each active slot decodes in its own state row; the others
+            # read the sentinel row and their writes are dropped
+            rows = np.zeros((n,), np.int64)
+            for s in self.active:
+                rows[s] = self.pool.seqs[s].blocks[0]
+            step, label = engine.decode_step_state, "decode_step_state"
+            args = (self.params, self.pool.caches,
+                    torch.from_numpy(rows).to(self.device),
+                    torch.from_numpy(active_mask).to(self.device), lens,
+                    toks, self.cfg)
+        elif self.paged:
             # non-active rows (idle or mid-prefill) see the sentinel table
             # row: their length-0 garbage write lands in block 0
             step, label = engine.decode_step_paged, "decode_step_paged"
@@ -846,10 +871,12 @@ class ContinuousScheduler:
             # position 0 of a free slot, which the next insert overwrites
             step, label = engine.decode_step_slots, "decode_step"
             args = (self.params, self.pool.caches, lens, toks, self.cfg)
-        if not self._profiled and obs_kernels.profiling_enabled():
+        if (not self._profiled and obs_kernels.profiling_enabled()
+                and label != "decode_step_state"):
             # one-time profile of this step: its analytic cost from the
             # live lengths now and, on the card, a replay on private copies
-            # once the serve is over (obs.kernels.run_pending)
+            # once the serve is over (obs.kernels.run_pending); a
+            # fixed-state pool's step is not profiled, as in the reference
             self._profiled = True
             cost = obs_kernels.decode_step_cost(
                 self.cfg, n, [int(self.pool.lens[s]) + 1

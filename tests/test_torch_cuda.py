@@ -1599,3 +1599,45 @@ def test_mla_train_steps(cuda):
         assert counts["flash_attention_mla"] == counts["flash_decode_mla"] == 0
         out[remat] = tree.leaves(params)
     assert all(torch.equal(a, b) for a, b in zip(out["full"], out["block"]))
+
+
+# ---------------------------------------------------------------------------
+# The recurrent decoders: zamba2's shared attention block (rows 4 and 5 at
+# D 64, G 1) and xlstm's sampler.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_125m"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slot_pool", "paged"])
+def test_state_streams_equal_on_card_and_cpu(cuda, arch, paged):
+    """A small recurrent model (zamba2's smoke stack with 2/2 heads of 64 in
+    its shared block; xlstm's smoke stack) served through the slot pool and
+    the paged state pool on the card and on the CPU: identical streams and
+    pool accounting; on the card one row-4 launch a shared-block call and
+    decode step, one row-5 launch a call and single-shot prefill, and the
+    sampler's launches."""
+    cfg = configs.get_smoke(arch)
+    if arch == "zamba2_1p2b":
+        cfg = cfg.replace(d_model=128, num_heads=2, num_kv_heads=2,
+                          head_dim=64)
+    params_cpu = transformer.init(cfg, seed=4, device="cpu")
+    argv = ["--arch", arch, "--smoke", "--continuous", "--requests", "5",
+            "--tokens", "8", "--prompt-len", "40", "--slots", "2",
+            "--prefill-chunk", "8"] + (["--paged"] if paged else [])
+    runs = {}
+    for device, params in (("cuda", transformer.params_to(params_cpu, cuda)),
+                           ("cpu", params_cpu)):
+        args = serve.parse_args(argv + ["--device", device])
+        dispatch.reset_launch_counts()
+        report, router, _, _ = serve.run(args, cfg, params)
+        runs[device] = (report, router.engines[0].scheduler,
+                        dispatch.launch_counts())
+    (rep_g, sched, counts), (rep_c, _, _) = runs["cuda"], runs["cpu"]
+    assert {r.rid: r.tokens for r in rep_g.results} == \
+        {r.rid: r.tokens for r in rep_c.results}
+    assert rep_g.paged == rep_c.paged
+    calls = transformer.layer_counts(cfg).get("attn", 0)
+    assert calls == (3 if arch == "zamba2_1p2b" else 0)
+    assert counts["flash_decode"] == calls * sched.decode_steps
+    assert counts["flash_attention_offset"] == calls * sched.prefill_chunks
+    assert counts["flash_decode_paged"] == counts["flash_attention_paged"] \
+        == 0
+    assert counts["softmax_topk"] == sched.decode_steps + sched.prefills_done
