@@ -95,7 +95,12 @@ printing its final line:
    the sampler at zamba2-1.2b's [8, 32000] and xlstm-125m's [8, 50304],
    and every D-64 check above again at zamba2's shared attention block,
    32/32 heads (G 1): rows 4 and 5 (its decode and single-shot prefill),
-   the paged forms, the int8 forms and the training kernels;
+   the paged forms, the int8 forms and the training kernels; then
+   whisper-small's: the fresh forward non-causal at its encoder's B 1, T
+   1536, 12/12 heads of 64 (and its backward), the contiguous decode over
+   all 1536 cross keys and over short ragged self lengths at B 8 (its
+   split plan at S 1536 printed, a repeat bit-equal), fp32 and bf16, and
+   the sampler at [8, 51968] with every row's 103 padded entries -inf;
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -146,20 +151,33 @@ printing its final line:
    beside the weights' 2.546 ms byte bound, each step's latent attention
    in the bf16 tensor-core kernel and never the fp32 form's; the decode
    step's kernels and its ``decode_step_cost`` bound); then the recurrent
-   decoders at full width and depth, bf16, weights drawn on the card:
-   zamba2-1.2b (38 Mamba2 layers, its shared attention block called 7
-   times) and xlstm-125m (10 mLSTM and 2 sLSTM layers), each through the
+   decoders at full width and ``STATE_SERVE_LAYERS``, bf16, weights drawn
+   on the card: zamba2-1.2b (8 of its 38 layers, its shared attention
+   block called twice) and xlstm-125m (6 of its 12 layers, layer 5 an
+   sLSTM), each through the
    paged state pool (one block a sequence's whole state row), the slot
    pool (prompts snapped to the scan's quantum, 128 and 256) and the
    lockstep workload, between a reset and a read of the launch counts,
-   equal to the counters (zamba2: 7 row-4 launches a decode step and 7
-   row-5 launches a single-shot prefill; xlstm: the sampler alone); p50 /
-   p95, state bytes a sequence, zamba2's 57344 K/V bytes a token, nothing
-   shared and every block back, peak memory; and their "step" lines (a
-   B 8 decode step and a 256-token prefill, host call to device finish
-   against device busy, the kernels by device time, the recurrent cores'
-   device time alone beside them, the weights' and ``decode_step_cost``'s
-   byte bounds);
+   equal to the counters (zamba2: a row-4 launch a shared-block call and
+   decode step, a row-5 launch a call and single-shot prefill; xlstm: the
+   sampler alone); p50 / p95, state bytes a sequence, zamba2's K/V bytes
+   a token, nothing shared and every block back, peak memory; and their
+   "step" lines (a B 8 decode step and a 256-token prefill, host call to
+   device finish against device busy, the kernels by device time, the
+   recurrent cores' device time alone beside them, the weights' and
+   ``decode_step_cost``'s byte bounds); then the encoder-decoder
+   whisper-small at full width and depth (12 + 12 layers, bf16, weights
+   drawn on the card) through ``python -m repro_torch.launch.serve --arch
+   whisper_small --continuous --paged`` (``WHISPER_SERVE_ARGS``: 12
+   requests over the default 3 audios), between a reset and a read of the
+   launch counts: one encoder run an audio and every repeat a whole-audio
+   hit (cross blocks shared = hits x 96, tokens reused = hits x 1536), the
+   launches equal to the counters (the encoder's non-causal fresh forward
+   12 a fresh encode and none on a hit, the contiguous decode 24 a decode
+   step and 24 a prefill, the sampler one each), tok/s, p50 / p95, peak
+   memory, the pool's bytes a cached decoder token and an audio, and
+   "step" lines (a B 8 paged decode step beside ``decode_step_cost``, a
+   fresh prefill);
 5. parity: short fp32 workloads of the three paths (smollm-360m at full
    width and ``SMOLLM_LAYERS`` layers), once on the
    card through the kernels and once on the CPU through the plain versions;
@@ -175,8 +193,8 @@ printing its final line:
    decisions (admissions, resumes, preemptions) and pool and swap stats
    identical, each preempted stream equal to its ``--no-preempt`` run, and
    the same again with a device sleep queued before every decode step;
-   and mistral-nemo-12b, then qwen2-moe-a2.7b, at full width cut to 2
-   layers in fp32: the paged, slot-pool and lockstep parity workloads'
+   and mistral-nemo-12b, then qwen2-moe-a2.7b, at full width cut to
+   ``PARITY_128_LAYERS`` (1) in fp32: the paged, slot-pool and lockstep parity workloads'
    streams identical on the card (head_dim-128 kernels; the router's fused
    softmax+top-k) and the CPU; then minicpm3-4b the same way, the
    slot-pool and lockstep workloads (no paged latent cache): its latent
@@ -185,9 +203,12 @@ printing its final line:
    its own K/V) and xlstm-125m at 6 (layer 5 an sLSTM), full width, fp32:
    a 2 x 256 forward's hidden states and logits within
    ``STATE_PARITY_RTOL`` of the CPU's, and the paged, slot-pool and
-   lockstep streams identical;
+   lockstep streams identical; then whisper-small at full width cut to 2
+   + 2 layers: the paged streams and pool stats identical on the card and
+   the CPU, and on the card a whole-audio hit bit-identical to a fresh
+   encode, its install writing no cross block;
 6. train: ``python -m repro_torch.launch.train`` (its ``train`` function)
-   at full width in bf16, 20 steps of 8 × 512 tokens with one checkpoint at
+   at full width in bf16, 10 steps of 8 × 512 tokens with one checkpoint at
    the end, with the launch counts set to 0 just before it and read just
    after: every loss and grad norm finite, and with remat "full" 2 forward
    launches per layer and step (the forward, then its recomputation in the
@@ -195,7 +216,7 @@ printing its final line:
    (6 steps checkpointed every 3, then a run to 8 that resumes at 6) whose
    parameters equal an uninterrupted 8-step run bit for bit; then the
    head_dim-128 models through the same ``train`` (``TRAIN_128``):
-   mistral-nemo-12b at full width and 4 of its 40 layers, qwen2-moe-a2.7b at
+   mistral-nemo-12b at full width and 2 of its 40 layers, qwen2-moe-a2.7b at
    full width and 2 of its 24, weights drawn on the card,
    ``TRAIN_128_STEPS`` steps each without a checkpoint (the restart above
    checks it; these runs' 24 and 18 GB took most of their time), between a
@@ -206,17 +227,24 @@ printing its final line:
    ``REMAT_STEPS`` steps of each under remat "block" and "full" from the
    same seed, their peak memory and step times side by side and their
    parameters bit-identical; and the MLA decoder minicpm3-4b the same way
-   at full width and 8 of its 62 layers (0.88e9 parameters), its
-   decompressed attention through the training kernels' (96, 64)
-   instances (the same launch counts, no latent kernel);
+   at full width and 4 of its 62 layers, its decompressed attention
+   through the training kernels' (96, 64) instances (the same launch
+   counts, no latent kernel); then the recurrent decoders at full width
+   and depth (``TRAIN_STATE``): zamba2-1.2b's 38 layers (14 forward, 7 dq
+   and 7 dk/dv launches a step: its shared block's 7 calls) and
+   xlstm-125m's 12 (no attention launch), ``TRAIN_STATE_STEPS`` steps and
+   ``REMAT_STATE_STEPS`` under each remat policy, the step line with the
+   recurrent cores' device time alone beside it;
 7. train parity: one fp32 loss-and-gradient evaluation of each full-width
-   model cut to 2 layers (batch ``TRAIN_PARITY``, one sequence of it for
-   the head_dim-128 models and minicpm3-4b) on the card through the
+   model cut to 2 layers (batch ``TRAIN_PARITY``; one sequence of it and
+   one layer for the head_dim-128 models and minicpm3-4b) on the card through the
    kernels and on the CPU through the plain versions, from the same
    weights: smollm-360m's drawn on the CPU, mistral-nemo-12b's,
    qwen2-moe-a2.7b's and minicpm3-4b's on the card; qwen2-moe's router
    keeping the same assignments on both devices in every layer, and
-   minicpm3's MLA leaves among the gradients held;
+   minicpm3's MLA leaves among the gradients held; then zamba2-1.2b at 7
+   layers (two shared-block calls) and xlstm-125m at 6 (layer 5 an
+   sLSTM), one sequence of 256 tokens, weights drawn on the card;
 8. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
    the serving and training paths' shapes (the serving kernels' D-128
@@ -231,7 +259,10 @@ printing its final line:
    the concatenated inputs, and the sampler at [8, 73728] with the padded
    entries -inf; the sampler at V 32000 and 50304 and rows 4 and 5 at
    zamba2's 32/32 heads of 64: its slot pool's decode and its single-shot
-   prefill of 256 tokens), beside its bound, its plain
+   prefill of 256 tokens; rows 6 and 7 at zamba2's training shape, B 8, T
+   512, 32/32 heads of 64; whisper-small's row 6 non-causal at B 1, T
+   1536, row 4 over 1536 keys at B 8 and the sampler at [8, 51968]),
+   beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
    and an int8 single-shot prefill beside SDPA, with each call's device
@@ -385,8 +416,9 @@ KERNELS = {
 COUNTERS = (*KERNELS, "softmax_topk_router")
 # smollm-360m's serving and parity phases (4, 5, 8 and 10) run at full
 # width and this many of its 32 layers: the head_dim-128 models' full-width
-# runs took the script's time, and an earlier path's depth gives way first
-SMOLLM_LAYERS = 8
+# runs took the script's time (32 → 8), then the recurrent decoders'
+# training (8 → 4), and an earlier path's depth gives way first
+SMOLLM_LAYERS = 4
 # the serving runs of phase 4 (the CLI's own flags); each kernel's
 # "launches" comes from the run of the path it was ported for
 SERVE_ARGS = ["--continuous", "--paged", "--requests", "16", "--slots", "8",
@@ -429,26 +461,26 @@ ROUTER_PARITY_ARGS = SLO_PARITY_ARGS + ["--replicas", "2", "--no-affinity"]
 DECODE_SLEEP_CYCLES = 20_000_000
 # the training run of phase 6 (the CLI's own flags), its 2-layer restart
 # runs, and the fp32 parity batch of phase 7
-TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "20", "--seq-len", "512",
-              "--global-batch", "8", "--checkpoint-every", "20"]
+TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "10", "--seq-len", "512",
+              "--global-batch", "8", "--checkpoint-every", "10"]
 RESTART_ARGS = ["--arch", "smollm_360m", "--layers", "2", "--seq-len", "512",
                 "--global-batch", "8"]
 TRAIN_PARITY = dict(layers=2, batch=2, seq_len=128)
 # phase 6's full-width training runs of the bigger models: (label, the
 # run's key in the launch counts, the CLI's flags): mistral-nemo-12b at full
-# width and 4 of its 40 layers (2.43e9 parameters, ~29 GB of bf16 weights
-# and gradients and fp32 moments), qwen2-moe-a2.7b at full width and 2 of
-# its 24 (1.83e9, ~22 GB), the MLA decoder minicpm3-4b at full width and 8
-# of its 62 (0.88e9: 62.67e6 a layer and 377.5e6 for the untied embedding
+# width and 2 of its 40 layers (4 until the recurrent decoders' training
+# took the script's time), qwen2-moe-a2.7b at full width and 2 of its 24
+# (1.83e9, ~22 GB), the MLA decoder minicpm3-4b at full width and 4 of its
+# 62 (8 until then; 62.67e6 a layer and 377.5e6 for the untied embedding
 # and head; its 4.26e9 with AdamW's fp32 state do not fit one card); each
 # TRAIN_128_STEPS steps of 8 x 512 tokens under remat "full", then
 # REMAT_STEPS steps under remat "block" and "full" from the same seed
 TRAIN_128 = (("mistral-nemo-12b", "mistral train",
-              ["--arch", "mistral_nemo_12b", "--layers", "4"]),
+              ["--arch", "mistral_nemo_12b", "--layers", "2"]),
              ("qwen2-moe-a2.7b", "qwen2 train",
               ["--arch", "qwen2_moe_a2p7b", "--layers", "2"]),
              ("minicpm3-4b", "minicpm3 train",
-              ["--arch", "minicpm3_4b", "--layers", "8"]))
+              ["--arch", "minicpm3_4b", "--layers", "4"]))
 # (cut from 10 and 3 steps for the script's time, as the parity batch
 # below; most of these phases' time is outside the steps: the draws, the
 # end-of-run checkpoints, the fp32 copies to the CPU)
@@ -456,9 +488,27 @@ TRAIN_128_STEPS = 6
 REMAT_STEPS = 2
 TRAIN_128_ARGS = ["--seq-len", "512", "--global-batch", "8"]
 # phase 7's fp32 parity of the head_dim-128 models and the MLA decoder:
-# (arch, ...) and their batch, TRAIN_PARITY's cut to one sequence
+# (arch, ...) and their batch, TRAIN_PARITY's cut to one sequence and one
+# layer (2 until the recurrent decoders' phases took the script's time)
 TRAIN_PARITY_128 = ("mistral_nemo_12b", "qwen2_moe_a2p7b", "minicpm3_4b")
-TRAIN_PARITY_BATCH_128 = dict(layers=2, batch=1, seq_len=128)
+TRAIN_PARITY_BATCH_128 = dict(layers=1, batch=1, seq_len=128)
+# phase 6's recurrent decoders, at full width and depth: zamba2-1.2b (38
+# Mamba2 layers, its shared block called 7 times: 2.34 GB of bf16 weights,
+# ~17 GB with the fp32 gradient copy and moments) and xlstm-125m (12
+# layers, 0.40 GB); TRAIN_STATE_STEPS steps of 8 x 512 under remat "full"
+# each, then REMAT_STATE_STEPS under "block" and "full"
+TRAIN_STATE = (("zamba2-1.2b", "zamba2 train", ["--arch", "zamba2_1p2b"]),
+               ("xlstm-125m", "xlstm train", ["--arch", "xlstm_125m"]))
+TRAIN_STATE_STEPS = 2
+# their remat "block" / "full" comparison: one step each (an xlstm step is
+# ~3 s and ~110k launches)
+REMAT_STATE_STEPS = 1
+# phase 7's fp32 parity of the recurrent decoders at full width and cut
+# depth, (arch, layers): zamba2 at 7 (6 + 1 Mamba2 layers, two shared-block
+# calls), xlstm at 6 (layer 5 an sLSTM); one sequence of 256 tokens (two
+# chunks of zamba2's scan, one of xlstm's)
+TRAIN_PARITY_STATE = (("zamba2_1p2b", 7), ("xlstm_125m", 6))
+TRAIN_PARITY_BATCH_STATE = dict(batch=1, seq_len=256)
 KERNEL_PATH = {"softmax_topk": "paged", "flash_decode_paged": "paged",
                "flash_attention_paged": "paged", "flash_decode": "slot pool",
                "flash_attention_offset": "slot pool",
@@ -2041,27 +2091,29 @@ def _check_mla(gen) -> dict:
     return worst
 
 
-def _check_padded_sampler(gen) -> float:
-    """Row 1 at minicpm3-4b's logits [8, 73728]: ``_check_softmax_topk``'s
-    cases, then the serving path's own input, every row's 280 padded
-    entries -inf (``engine.logits_from_hidden``): indices equal to the plain
-    version's and all real, lse within rtol 1e-5.  Returns the fp32 k = 5
-    max abs error."""
+def _check_padded_sampler(gen, vocab: int = 0, real: int = 0) -> float:
+    """Row 1 at a padded vocabulary's logits [8, ``vocab``] (minicpm3-4b's
+    73728 by default): ``_check_softmax_topk``'s cases, then the serving
+    path's own input, every row's entries from ``real`` on -inf
+    (``engine.logits_from_hidden``): indices equal to the plain version's
+    and all real, lse within rtol 1e-5.  Returns the fp32 k = 5 max abs
+    error."""
     import torch
     from repro_torch.kernels import softmax_topk as st
-    worst = _check_softmax_topk(gen, v=MLA_VOCAB)
-    x = torch.randn(8, MLA_VOCAB, generator=gen).cuda() * 4.0
-    x[:, MLA_REAL_VOCAB:] = float("-inf")
+    vocab, real = vocab or MLA_VOCAB, real or MLA_REAL_VOCAB
+    worst = _check_softmax_topk(gen, v=vocab)
+    x = torch.randn(8, vocab, generator=gen).cuda() * 4.0
+    x[:, real:] = float("-inf")
     got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
     torch.cuda.synchronize()
     if not torch.equal(got.indices.long(), want.indices) or \
-            got.indices.max().item() >= MLA_REAL_VOCAB or not \
+            got.indices.max().item() >= real or not \
             torch.allclose(got.logsumexp, want.logsumexp, rtol=1e-5, atol=0):
-        _fail(f"softmax_topk [8, {MLA_VOCAB}] with the padded entries -inf: "
+        _fail(f"softmax_topk [8, {vocab}] with the padded entries -inf: "
               "differs from its plain version or picked a padded entry")
-    print(f"kernel softmax_topk [8, {MLA_VOCAB}] float32 k=5, the "
-          f"{MLA_VOCAB - MLA_REAL_VOCAB} padded entries of every row -inf: "
-          "indices equal and real, lse within rtol 1e-5")
+    print(f"kernel softmax_topk [8, {vocab}] float32 k=5, the "
+          f"{vocab - real} padded entries of every row -inf: indices equal "
+          "and real, lse within rtol 1e-5")
     return worst
 
 
@@ -2093,6 +2145,7 @@ def phase_kernels() -> dict:
     errs.update(_check_mla(gen))
     errs.update(_check_mla_train(gen))
     errs.update(_check_state_shapes(gen))
+    errs.update(_check_whisper_shapes(gen))
     return errs
 
 
@@ -2111,6 +2164,60 @@ def _check_state_shapes(gen) -> dict:
             for v in VOCABS_STATE}
     for model, hkv, g, d in HEAD_DIM_STATE:
         _merge_errs(errs, _check_instances(gen, model, hkv, g, d), f"_g{g}")
+    return errs
+
+
+def _check_whisper_shapes(gen) -> dict:
+    """whisper-small's kernel shapes against their plain versions: row 6
+    non-causal at its encoder's B 1, T 1536, 12/12 heads of 64 (fp32 and
+    bf16, the forward and its backward, K/V NaN past T); row 4 at a B 8
+    decode step's cross-attention over all 1536 keys and its
+    self-attention's short ragged lengths, 12/12 heads (fp32 and bf16,
+    every position past a row's length NaN, the split plan at S 1536
+    printed); row 1 at [8, 51968] with every row's 103 padded entries
+    -inf.  Returns {instance: max abs error}: ``flash_attention_nc_t1536``,
+    ``flash_decode_s1536``, ``softmax_topk_v51968`` (bf16 for the
+    attention, as the serving path runs)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    errs = {f"softmax_topk_v{WHISPER_VOCAB}": _check_padded_sampler(
+        gen, WHISPER_VOCAB, WHISPER_REAL_VOCAB)}
+    geom = dict(hkv=WHISPER_HEADS, g=1, d=64)
+    heads = f"Hq={WHISPER_HEADS} Hkv={WHISPER_HEADS} D=64"
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        name = str(dtype)[6:]
+        found = _fresh_errs(*_fresh_inputs(gen, dtype=dtype, b=1,
+                                           t=WHISPER_S_ENC, **geom), False)
+        if max(found.values()) > atol:
+            _fail(f"fresh attention non-causal {name} B=1 T={WHISPER_S_ENC} "
+                  f"{heads}: {found} beyond {atol}")
+        decode = 0.0
+        for vlens in ([WHISPER_S_ENC] * 8, [1, 2, 3, 9, 17, 40, 64, 100]):
+            q, k, v, k0, v0 = _contiguous_inputs(
+                gen, dtype=dtype, s=WHISPER_S_ENC, vlens=vlens, **geom)
+            vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+            got = fd.flash_decode(q, k, v, vl)
+            again = fd.flash_decode(q, k, v, vl)
+            want = fd.flash_decode_plain(q, k0, v0, vl)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got).all() or err > atol or \
+                    not torch.equal(got, again):
+                _fail(f"flash_decode {name} B=8 S={WHISPER_S_ENC} {heads} "
+                      f"vlen {vlens}: max abs err {err:.3g} (atol {atol}), "
+                      f"repeat equal {torch.equal(got, again)}")
+            decode = max(decode, err)
+        print(f"kernel whisper-small {name}: fresh attention non-causal "
+              f"B=1 T={WHISPER_S_ENC} {heads}, K/V NaN past T: scaled max "
+              f"abs err forward {found['flash_attention']:.3g}, dq "
+              f"{found['flash_attention_bwd_dq']:.3g}, dk/dv "
+              f"{found['flash_attention_bwd_dkv']:.3g}; flash_decode B=8 "
+              f"S={WHISPER_S_ENC} {heads} over all {WHISPER_S_ENC} keys "
+              f"({_plan_of(fd, q, k)}) and ragged self lengths 1-100: max "
+              f"abs err {decode:.3g}, a repeat bit-equal (atol {atol})")
+        if dtype == torch.bfloat16:
+            errs["flash_attention_nc_t1536"] = found["flash_attention"]
+            errs["flash_decode_s1536"] = decode
     return errs
 
 
@@ -2285,13 +2392,15 @@ DEEPSEEK = ["--arch", "deepseek_coder_33b"]
 # mistral-nemo-12b's serving runs (phase 4b) at full width and this many of
 # its 40 layers: its five runs at all 40 took ~52 s
 # of the script, which the MLA decoder's serving runs needed (40 → 16), and
-# at 16 ~36 s, which minicpm3-4b's training runs needed (16 → 8; parity and
-# training keep their depths of 2 and 4)
-MISTRAL_LAYERS = 8
-# deepseek-coder-33b at full width and cut depth: 8 of its 62 layers, 4.7e9
-# parameters or 9.4 GB of bf16 weights (all 62 would be 66.7 GB, beside the
-# pools and the 0.9 GB fp32 head copy of every sample on an 80 GB card)
-DEEPSEEK_LAYERS = 8
+# at 16 ~36 s, which minicpm3-4b's training runs needed (16 → 8), and at
+# 8 the recurrent decoders' training and whisper-small's serving needed
+# (8 → 4; parity keeps its depth of 2)
+MISTRAL_LAYERS = 4
+# deepseek-coder-33b at full width and cut depth: 4 of its 62 layers (8
+# until the recurrent decoders' training took the script's time; all 62
+# would be 66.7 GB, beside the pools and the 0.9 GB fp32 head copy of every
+# sample on an 80 GB card)
+DEEPSEEK_LAYERS = 4
 # phase 4's continuous-batching workloads, which every model serves:
 # (path, flags); the path names the kernels (KERNEL_PATH) that must launch
 SERVE_PATHS = (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS),
@@ -2365,6 +2474,17 @@ INSTANCES = {
     "flash_decode_g1": ("flash_decode", "zamba2 slot pool"),
     "flash_attention_offset_g1": ("flash_attention_offset",
                                   "zamba2 slot pool"),
+    # zamba2-1.2b's training: rows 6 and 7 at its shared block's 32/32
+    # heads of 64 (G 1), at its training shape
+    **{kernel + "_g1": (kernel, "zamba2 train")
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
+    # whisper-small: row 6 non-causal over its encoder's window, row 4 over
+    # its cross-attention's 1536 keys (its self-attention's decode too),
+    # row 1 at its padded vocabulary
+    "flash_attention_nc_t1536": ("flash_attention", "whisper paged"),
+    "flash_decode_s1536": ("flash_decode", "whisper paged"),
+    "softmax_topk_v51968": ("softmax_topk", "whisper paged"),
 }
 # the training kernels' timed D-128 instances: tag → (Hkv, G)
 TRAIN_TIMED_128 = {"_d128": (8, 4), "_d128_g1": (16, 1)}
@@ -2531,8 +2651,9 @@ LLAMA4_LAYERS = 2
 # qwen2-moe-a2.7b's serving runs (phase 4c) at full width and this many of
 # its 24 layers: its four runs at all 24 took ~35 s of the
 # script, which the MLA decoder's serving runs needed (24 → 8), and at 8
-# ~20 s, of which minicpm3-4b's training runs needed some (8 → 6)
-QWEN2_LAYERS = 6
+# ~20 s, of which minicpm3-4b's training runs needed some (8 → 6), then
+# the recurrent decoders' training (6 → 4)
+QWEN2_LAYERS = 4
 # qwen2-moe-a2.7b's continuous-batching runs: phase 4's workloads but the
 # int8 slot pool, the second cut for the script's time (its kernel
 # instance, flash_decode_int8 at G 1, is checked and timed in phases 3
@@ -2631,12 +2752,12 @@ MINICPM = ["--arch", "minicpm3_4b"]
 MINICPM_PATHS = (("minicpm3 slot pool", SLOT_ARGS),
                  ("minicpm3 slot pool int8", SLOT_ARGS + INT8))
 # the int8 slot-pool and lockstep runs take the first this many of the 62
-# layers, for the script's time
-MINICPM_CUT_LAYERS = 8
+# layers, for the script's time (8 until the recurrent decoders' training)
+MINICPM_CUT_LAYERS = 4
 # and the bf16 slot-pool run this many: all 62 took ~30 s of the script,
-# which the recurrent decoders' phases needed (62 -> 16; the step lines keep
-# all 62)
-MINICPM_SERVE_LAYERS = 16
+# which the recurrent decoders' phases needed (62 -> 16, then 16 -> 8 for
+# their training; the step lines keep all 62)
+MINICPM_SERVE_LAYERS = 8
 
 
 def _check_latent_bytes(cfg, engines) -> None:
@@ -2757,6 +2878,11 @@ def phase_serve_mla() -> dict:
 # (label, the CLI's arch flags): zamba2-1.2b (38 Mamba2 layers, its shared
 # attention block called 7 times) and xlstm-125m (10 mLSTM, 2 sLSTM layers)
 STATE_MODELS = (("zamba2", "zamba2_1p2b"), ("xlstm", "xlstm_125m"))
+# their serving runs' depth at full width: zamba2 8 of its 38 layers
+# (6 + 2 Mamba2 layers, 2 shared-block calls), xlstm 6 of its 12
+# (layer 5 an sLSTM); both served at full depth until their training at
+# full depth took the script's time
+STATE_SERVE_LAYERS = {"zamba2_1p2b": 8, "xlstm_125m": 6}
 # their continuous-batching runs: phase 4's paged workload (its pool one
 # state row a sequence; the shared prefix is not shared) and slot-pool
 # workload, the CLI snapping each prompt to the scan's quantum (zamba2 128,
@@ -2777,25 +2903,27 @@ def _state_weights(cfg):
     params = transformer.init(cfg, seed=0, device="cuda", draw_device="cuda")
     torch.cuda.synchronize()
     nbytes = _weight_bytes(params)
-    counts = transformer.layer_counts(cfg)
-    if cfg.ssm is not None:
-        sc = cfg.ssm
-        what = (f"{counts['mamba']} Mamba2 layers (d_state {sc.d_state}, "
-                f"{sc.expand * cfg.d_model // sc.head_dim} heads of "
-                f"{sc.head_dim}, chunk {sc.chunk}), a shared attention block "
-                f"({cfg.num_heads}/{cfg.num_kv_heads} heads of "
-                f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}) called "
-                f"{counts['attn']} times")
-    else:
-        xc = cfg.xlstm
-        what = (f"{counts['mlstm']} mLSTM + {counts['slstm']} sLSTM layers "
-                f"({xc.num_heads} heads, expand {xc.expand}, chunk "
-                f"{xc.chunk})")
+    what = _recurrent_what(cfg, transformer.layer_counts(cfg))
     print(f"serve: {cfg.name} {cfg.dtype}, d_model {cfg.d_model}, {what}, "
           f"vocab {cfg.vocab_size}, untied head; {nbytes / 1e9:.3f} GB of "
           f"weights ({_param_count(params) / 1e9:.3f}e9 parameters) drawn "
           f"on the card from seed 0 in {time.perf_counter() - t0:.1f}s")
     return params, nbytes
+
+
+def _recurrent_what(cfg, counts: dict) -> str:
+    """A recurrent model's layers in words."""
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        return (f"{counts['mamba']} Mamba2 layers (d_state {sc.d_state}, "
+                f"{sc.expand * cfg.d_model // sc.head_dim} heads of "
+                f"{sc.head_dim}, chunk {sc.chunk}), a shared attention block "
+                f"({cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}) called "
+                f"{counts['attn']} times")
+    xc = cfg.xlstm
+    return (f"{counts['mlstm']} mLSTM + {counts['slstm']} sLSTM layers "
+            f"({xc.num_heads} heads, expand {xc.expand}, chunk {xc.chunk})")
 
 
 def _param_count(params) -> int:
@@ -2811,7 +2939,7 @@ def _check_state_pools(cfg, engines) -> dict:
     one sequence's whole state row (table one column wide, nothing shared
     or copied, every block back), the slot pool's rows the same bytes; and
     zamba2's K/V bytes per token, 7 calls x K and V x 32 heads x 64 x 2 B
-    = 57344.  Returns {"state_bytes": a row's recurrent state,
+    = 57344 at full depth.  Returns {"state_bytes": a row's recurrent state,
     "kv_bytes_per_token": ...}."""
     from repro_torch.models import transformer
     paged = engines["paged"].scheduler
@@ -2962,20 +3090,21 @@ def _cores(cfg, caches: dict, b: int, t: int) -> None:
 
 
 def phase_serve_state() -> dict:
-    """The recurrent decoders at full width and depth, bf16, weights drawn
-    on the card: zamba2-1.2b (38 Mamba2 layers, the shared attention block
-    called 7 times) and xlstm-125m (12 layers), each through the paged
+    """The recurrent decoders at full width and ``STATE_SERVE_LAYERS``,
+    bf16, weights drawn on the card: zamba2-1.2b (8 of its 38 layers, the
+    shared attention block called twice) and xlstm-125m (6 of its 12
+    layers), each through the paged
     state pool, the slot pool and the lockstep workload, between a reset
     and a read of the launch counts: equal to the scheduler's counters
-    (zamba2: 7 row-4 launches a decode step and 7 row-5 launches a prefill;
-    xlstm: the sampler only); tok/s, p50/p95, state bytes a sequence,
+    (zamba2: a row-4 launch a shared-block call and decode step, a row-5
+    launch a call and prefill; xlstm: the sampler only); tok/s, p50/p95, state bytes a sequence,
     zamba2's K/V bytes a token and peak memory; then each model's "step"
     lines.  Returns {run: counts}."""
     import torch
     from repro_torch import configs
     counts = {}
     for label, arch in STATE_MODELS:
-        cfg = configs.get(arch)
+        cfg = configs.get(arch).replace(num_layers=STATE_SERVE_LAYERS[arch])
         params, nbytes = _state_weights(cfg)
         engines = {}
         for path, argv in STATE_PATHS:
@@ -3019,10 +3148,259 @@ def phase_parity_state() -> None:
         _parity_2_layers(arch, layers=layers, forward=True)
 
 
+# the encoder-decoder whisper-small (12 + 12 layers, 12/12 heads of 64, G
+# 1, d_ff 3072, vocab 51968 of which 51865 real, the head tied): its
+# encoder window, vocabulary and heads
+WHISPER = ["--arch", "whisper_small"]
+WHISPER_S_ENC, WHISPER_HEADS = 1536, 12
+WHISPER_VOCAB, WHISPER_REAL_VOCAB = 51968, 51865
+# its serving run (phase 4): the CLI's paged route (the only one it takes)
+# with the reference's default 3 audios over 12 requests of 8-64 new
+# tokens, 8 slots, 16-position blocks (96 cross blocks an audio)
+WHISPER_SERVE_ARGS = WHISPER + ["--continuous", "--paged", "--requests",
+                                "12", "--slots", "8", "--tokens", "64",
+                                "--block-size", "16"]
+# phase 5's fp32 parity: full width cut to 2 + 2 layers, 5 requests over 2
+# audios, so repeats adopt cross blocks on both devices
+WHISPER_PARITY_ARGS = WHISPER + ["--continuous", "--paged", "--requests",
+                                 "5", "--slots", "2", "--tokens", "8",
+                                 "--block-size", "16", "--audios", "2"]
+WHISPER_PARITY_LAYERS = 2
+
+
+def _whisper_weights(cfg, seed: int = 0):
+    """whisper's weights drawn on the card from ``seed``: (params, their
+    bytes)."""
+    import torch
+    from repro_torch.models import encdec
+    t0 = time.perf_counter()
+    params = encdec.init(cfg, seed=seed, device="cuda", draw_device="cuda")
+    torch.cuda.synchronize()
+    nbytes = _weight_bytes(params)
+    print(f"serve: {cfg.name} {cfg.dtype}, {cfg.encoder_layers} encoder + "
+          f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, encoder window "
+          f"{cfg.encoder_seq_len}, vocab {cfg.vocab_size} "
+          f"({cfg.real_vocab_size} real), tied head; {nbytes / 1e9:.3f} GB "
+          f"of weights ({_param_count(params) / 1e9:.3f}e9 parameters) "
+          f"drawn on the card from seed {seed} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return params, nbytes
+
+
+@contextlib.contextmanager
+def _counting_prefills(calls: dict):
+    """Count the scheduler's enc-dec prefills by path while inside:
+    ``calls["fresh"]`` (the encoder runs) and ``calls["cached"]`` (a
+    whole-audio hit over the shared cross blocks)."""
+    from repro_torch.serving import engine
+    real = {"fresh": engine.encdec_prefill,
+            "cached": engine.encdec_prefill_cached}
+
+    def counted(key):
+        def fn(*a, **kw):
+            calls[key] = calls.get(key, 0) + 1
+            return real[key](*a, **kw)
+        return fn
+    engine.encdec_prefill = counted("fresh")
+    engine.encdec_prefill_cached = counted("cached")
+    try:
+        yield calls
+    finally:
+        engine.encdec_prefill = real["fresh"]
+        engine.encdec_prefill_cached = real["cached"]
+
+
+def phase_serve_whisper() -> dict:
+    """whisper-small at full width and depth (12 + 12 layers, bf16,
+    weights drawn on the card) through ``python -m repro_torch.launch.serve
+    --arch whisper_small --continuous --paged`` (``WHISPER_SERVE_ARGS``),
+    between a reset and a read of the launch counts: every request
+    finishes in the real vocabulary; the encoder ran once an audio and a
+    repeat adopted the audio's cross blocks (blocks shared = hits x 96,
+    tokens reused = hits x 1536); the launches equal what the counters
+    imply: row 6 (the encoder's non-causal fresh forward) 12 a fresh
+    encode and none on a hit, row 4 24 a decode step and 24 a prefill (the
+    self- and cross-attention of 12 layers), row 1 one a decode step and
+    a prefill, nothing else; tok/s, p50/p95, peak memory, the pool's bytes
+    per cached decoder token and per audio; then "step" lines: a B 8 decode
+    step through the pool (every row over its audio's 1536 cross keys)
+    beside ``decode_step_cost``'s bound, and a fresh prefill (the encoder
+    over 1536 frames and the BOS step).  Returns {"whisper paged":
+    counts}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.obs import kernels as obs_kernels
+    from repro_torch.serving import engine
+    cfg = configs.get("whisper_small")
+    params, _ = _whisper_weights(cfg)
+    args = serve.parse_args(WHISPER_SERVE_ARGS)
+    what = "whisper paged"
+    held = _reset_peak()
+    dispatch.reset_launch_counts()
+    with _counting_prefills({}) as calls:
+        report, router, requests, _ = serve.run(args, cfg, params)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    sched = router.engines[0].scheduler
+    pool = sched.pool
+    _check_finished(what, report, requests, cfg.real_vocab_size)
+    audios = {tuple(int(t) for t in r.prompt) for r in requests}
+    fresh, hits = calls.get("fresh", 0), calls.get("cached", 0)
+    nc = WHISPER_S_ENC // args.block_size
+    p = report.paged
+    if fresh != len(audios) or fresh + hits != len(requests) or \
+            p["blocks_shared"] != hits * nc or \
+            p["tokens_reused"] != hits * WHISPER_S_ENC:
+        _fail(f"serve {what}: {fresh} encoder runs and {hits} hits for "
+              f"{len(requests)} requests over {len(audios)} audios; pool "
+              f"{p}")
+    layers = cfg.num_layers
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_attention=cfg.encoder_layers * fresh,
+                flash_decode=2 * layers * (sched.decode_steps
+                                           + sched.prefill_chunks),
+                softmax_topk=sched.decode_steps + sched.prefills_done)
+    if counts != want:
+        _fail(f"serve {what}: launches {counts}, the counters imply {want}")
+    pct = report.latency_percentiles((50, 95))
+    block = {k: x[:, 0].numel() * x.element_size()
+             for k, x in pool.caches.items()}
+    self_tok = (block["self_k"] + block["self_v"]) / pool.slot_len
+    audio = (block["cross_k"] + block["cross_v"]) * nc
+    print(f"serve {what} launches: {counts} = flash_attention "
+          f"{cfg.encoder_layers} x {fresh} fresh encodes (none on the "
+          f"{hits} whole-audio hits), flash_decode {2 * layers} x "
+          f"({sched.decode_steps} decode steps + {sched.prefill_chunks} "
+          f"prefills), softmax_topk {sched.decode_steps} + "
+          f"{sched.prefills_done}; {report.tokens_per_s:.1f} tok/s; "
+          f"per-token latency p50 {pct['p50'] * 1e3:.1f}ms p95 "
+          f"{pct['p95'] * 1e3:.1f}ms; peak device memory {peak:.2f} GiB "
+          f"over the {held / 2**30:.2f} held before it")
+    print(f"serve {what} pool: {len(requests)} requests over {len(audios)} "
+          f"audios, {hits} whole-audio hits: cross blocks shared "
+          f"{p['blocks_shared']} = {hits} x {nc}, tokens reused "
+          f"{p['tokens_reused']} = {hits} x {WHISPER_S_ENC}, prefix-cache "
+          f"hits {p['prefix_cache_hits']}; {p['num_blocks']} blocks of "
+          f"{sum(block.values())} bytes (a {pool.slot_len}-position self "
+          f"row and {args.block_size} cross positions); "
+          f"{self_tok:.0f} bytes a cached decoder token, {audio} bytes "
+          f"({audio / 2**20:.2f} MiB) of cross K/V an audio")
+
+    # the step lines: a decode step of 8 rows over one audio's blocks (the
+    # cross blocks the pool held, rows of their own for the self K/V), and
+    # a fresh prefill
+    n = sched.pool.num_slots
+    cross = torch.arange(1, nc + 1, device="cuda").expand(n, nc)
+    rows = torch.arange(nc + 1, nc + 1 + n, device="cuda")
+    lens = torch.tensor(MLA_DECODE_VLENS[:n], device="cuda").clamp(
+        max=pool.slot_len - 1)
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+    toks = torch.ones((n, 1), dtype=torch.int64, device="cuda")
+    noise = torch.zeros((n, 5), device="cuda")
+    frames = engine.encdec_frames_from_ids(requests[0].prompt, cfg, "cuda")
+    bos = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
+    cost = obs_kernels.decode_step_cost(cfg, n, (lens + 1).tolist())
+    c_ms = 1e3 * max(cost["bytes_accessed"] / HBM_BYTES_PER_S,
+                     cost["flops"] / PEAK_OPS["bfloat16"])
+    with torch.no_grad():
+        line, _, by = _step_line(
+            f"{cfg.name} paged decode [B={n}, {layers} decoder layers, "
+            f"self lengths {lens.tolist()}, {WHISPER_S_ENC} cross keys a "
+            "row, bf16]",
+            lambda: engine.decode_step_encdec_paged(
+                params, pool.caches, cross, rows, active, lens, toks, cfg,
+                noise=noise, top_k=5))
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"{line}; decode_step_cost bound {c_ms:.3f}ms "
+              f"({cost['bytes_accessed'] / 1e9:.3f} GB: the decoder's "
+              f"weights, the self and cross K/V; the gather of the cross "
+              f"blocks not counted); by kernel: " + ", ".join(
+                  f"{k} {ms:.3f}ms x{k_n:g}" for k, (ms, k_n) in top))
+        line, _, _ = _step_line(
+            f"{cfg.name} fresh prefill [{WHISPER_S_ENC} frames through "
+            f"{cfg.encoder_layers} encoder layers, then BOS, bf16]",
+            lambda: engine.encdec_prefill(params, frames, bos, cfg,
+                                          max_len=pool.slot_len),
+            samples=5)
+        print(line)
+    del params, router, sched, pool
+    torch.cuda.empty_cache()
+    return {what: counts}
+
+
+def phase_parity_whisper() -> None:
+    """Phase 5's fp32 parity for whisper-small at full width cut to 2 + 2
+    layers (weights drawn on the card from seed 1, copied to the CPU): the
+    paged workload (``WHISPER_PARITY_ARGS``) on the card through the
+    kernels and on the CPU through the plain versions gives identical token
+    streams and pool stats; then on the card a same-audio hit
+    (``encdec_prefill_cached`` over the cross blocks a fresh prefill
+    installed) gives the fresh prefill's last hidden state and decoder
+    caches bit for bit, and the install of a hit writes no cross block."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serving import cache_family, engine
+    cfg = configs.get("whisper_small").replace(
+        num_layers=WHISPER_PARITY_LAYERS,
+        encoder_layers=WHISPER_PARITY_LAYERS, dtype="float32")
+    params_cuda, _ = _whisper_weights(cfg, seed=1)
+    params_by_device = {"cuda": params_cuda,
+                        "cpu": transformer.params_to(params_cuda, "cpu")}
+    what = f"{cfg.name} (2 + 2 layers)"
+    _parity_runs(f"{what} paged", WHISPER_PARITY_ARGS, cfg,
+                 params_by_device)
+    fam = cache_family.resolve(cfg)
+    bs, slot_len = 16, 32
+    nc = WHISPER_S_ENC // bs
+    pools = fam.init_paged_cache(nc + 3, bs, "cuda", slot_len=slot_len)
+    ids = torch.randint(0, WHISPER_REAL_VOCAB, (WHISPER_S_ENC,),
+                        generator=torch.Generator().manual_seed(5))
+    bos = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
+    cross = torch.arange(1, nc + 1, device="cuda")
+    with torch.no_grad():
+        frames = engine.encdec_frames_from_ids(ids, cfg, "cuda")
+        h_fresh, c_fresh, _ = engine.encdec_prefill(
+            params_cuda, frames, bos, cfg, max_len=slot_len)
+        engine.install_encdec_row(pools, c_fresh, cross,
+                                  torch.tensor([nc + 1], device="cuda"))
+        before = {k: pools[k].clone() for k in ("cross_k", "cross_v")}
+        h_hit, c_hit, _ = engine.encdec_prefill_cached(
+            params_cuda, engine.gather_encdec_cross(pools, cross), bos, cfg,
+            max_len=slot_len)
+        engine.install_encdec_row(pools, c_hit,
+                                  torch.full((nc,), nc + 3, device="cuda"),
+                                  torch.tensor([nc + 2], device="cuda"))
+    same = torch.equal(h_fresh, h_hit) and all(
+        torch.equal(c_fresh[k], c_hit[k]) for k in c_fresh)
+    kept = all(torch.equal(pools[k], before[k]) for k in before)
+    if not (same and kept):
+        _fail(f"parity {what}: a whole-audio hit differs from the fresh "
+              f"prefill (equal: {same}) or rewrote the cross blocks "
+              f"(kept: {kept})")
+    print(f"parity {what}: on the card a whole-audio hit (no encoder) gives "
+          f"the fresh prefill's hidden state and all {len(c_fresh)} "
+          f"decoder cache leaves bit for bit; its install wrote none of the "
+          f"{nc} shared cross blocks")
+    del params_by_device, params_cuda, pools
+    torch.cuda.empty_cache()
+
+
+# phase 5's fp32 stream parity of mistral-nemo-12b and qwen2-moe-a2.7b:
+# full width and this many layers (2 until the recurrent decoders' phases
+# took the script's time)
+PARITY_128_LAYERS = 1
+
+
 def phase_parity_128() -> None:
     """Phase 5's fp32 stream parity for mistral-nemo-12b at full width cut
-    to 2 layers (7.5 GB of fp32 weights) (``_parity_2_layers``)."""
-    _parity_2_layers("mistral_nemo_12b")
+    to ``PARITY_128_LAYERS`` (``_parity_2_layers``)."""
+    _parity_2_layers("mistral_nemo_12b", layers=PARITY_128_LAYERS)
 
 
 def _parity_2_layers(arch: str, paged: bool = True, layers: int = 2,
@@ -3108,11 +3486,11 @@ def _forward_parity(what: str, cfg, params_by_device) -> None:
 
 def phase_parity_moe() -> None:
     """Phase 5's fp32 stream parity for qwen2-moe-a2.7b at full width cut
-    to 2 layers (``_parity_2_layers``): the router's fused softmax+top-k,
+    to ``PARITY_128_LAYERS`` (``_parity_2_layers``): the router's fused softmax+top-k,
     the G 1 attention instances and the one-hot experts on the card against
     the plain versions on the CPU, under the same prefill chunking (so the
     same capacity groups)."""
-    _parity_2_layers("qwen2_moe_a2p7b")
+    _parity_2_layers("qwen2_moe_a2p7b", layers=PARITY_128_LAYERS)
 
 
 def phase_parity_mla() -> None:
@@ -3593,7 +3971,7 @@ def _train(argv, ckpt_dir: str):
 
 
 def phase_train():
-    """20 full-width bf16 steps between a reset and a read of the launch
+    """10 full-width bf16 steps between a reset and a read of the launch
     counts, then the 2-layer restart check.  Returns (the counts, what the
     train-step timing reuses)."""
     import tempfile
@@ -3646,12 +4024,14 @@ def phase_train():
 def _train_counts(cfg, steps: int) -> dict:
     """The launch counts a bf16 training run of ``steps`` steps implies
     under remat "full" or "block" (both recompute attention and the
-    router): per layer and step 2 fresh forwards (the forward, then its
-    recomputation in the backward), one dq and one dk/dv launch, and for an
-    MoE model 2 router launches; nothing else (an ``mla`` block's
-    decompressed attention takes the same three kernels at (96, 64), and
-    its latent serving kernels launch 0 times)."""
-    n = cfg.num_layers
+    router): per attention layer and step 2 fresh forwards (the forward,
+    then its recomputation in the backward), one dq and one dk/dv launch,
+    and for an MoE model 2 router launches; nothing else (an ``mla``
+    block's decompressed attention takes the same three kernels at (96,
+    64), and its latent serving kernels launch 0 times).  The attention
+    layers are every layer of a dense, MoE or MLA stack, zamba2's 7
+    shared-block calls and none of xLSTM's."""
+    n = _attn_layers(cfg)
     want = dict.fromkeys(COUNTERS, 0)
     want.update(flash_attention=2 * steps * n,
                 flash_attention_bwd_dq=steps * n,
@@ -3679,8 +4059,8 @@ def _train_line(name: str, hist, args) -> str:
             f"{tok / statistics.median(dts):.0f} tokens/s")
 
 
-def _remat_runs(run, args, name: str) -> None:
-    """``REMAT_STEPS`` train steps under remat "block", then under "full",
+def _remat_runs(run, args, name: str, steps: int = REMAT_STEPS) -> None:
+    """``steps`` train steps under remat "block", then under "full",
     each from ``run.seed``'s weights drawn on the card and the CLI's batches
     (``train_step.init_state``, ``make_train_step``): each one's peak
     device memory and median step time (host call to device finish); the
@@ -3699,6 +4079,7 @@ def _remat_runs(run, args, name: str) -> None:
         seq_len=args.seq_len, global_batch=args.global_batch,
         seed=run.seed))
     kept, lines = {}, []
+    t_all = time.perf_counter()
     for remat in ("block", "full"):
         r = dataclasses.replace(run, model=cfg.replace(remat=remat))
         held = _reset_peak()
@@ -3706,7 +4087,7 @@ def _remat_runs(run, args, name: str) -> None:
         step = make_train_step(r)
         dispatch.reset_launch_counts()
         dts, losses = [], []
-        for i in range(REMAT_STEPS):
+        for i in range(steps):
             batch = {k: torch.as_tensor(v, device="cuda")
                      for k, v in ds.batch(i).items()}
             torch.cuda.synchronize()
@@ -3716,7 +4097,7 @@ def _remat_runs(run, args, name: str) -> None:
             dts.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         counts = dispatch.launch_counts()
-        want = _train_counts(r.model, REMAT_STEPS)
+        want = _train_counts(r.model, steps)
         if counts != want:
             _fail(f"train {name} remat {remat}: launches {counts}, want "
                   f"{want}")
@@ -3732,29 +4113,51 @@ def _remat_runs(run, args, name: str) -> None:
     if not all(same):
         worst = max((a.float() - b.float()).abs().max().item()
                     for a, b in zip(kept["block"], kept["full"]))
-        _fail(f"train {name}: after {REMAT_STEPS} steps {same.count(False)} "
+        _fail(f"train {name}: after {steps} steps {same.count(False)} "
               f"of {len(same)} parameter leaves differ between remat "
               f"'block' and 'full' (max abs {worst:.3g})")
     del kept
     torch.cuda.empty_cache()
-    print(f"train {name} remat: {REMAT_STEPS} steps each from seed "
+    print(f"train {name} remat: {steps} steps each from seed "
           f"{run.seed}; {'; '.join(lines)}; parameters bit-identical "
-          f"(launches as remat 'full' implies in both)")
+          f"(launches as remat 'full' implies in both; "
+          f"{time.perf_counter() - t_all:.1f}s in all)")
 
 
-def phase_train_128() -> dict:
-    """The head_dim-128 models and the MLA decoder trained through
-    ``launch.train`` at full width (``TRAIN_128``; minicpm3-4b's attention
-    through the training kernels' (96, 64) instances): weights drawn on the
-    card, ``TRAIN_128_STEPS``
-    bf16 steps under remat "full" (``--checkpoint-every 0``: smollm-360m's
-    restart runs check the checkpoint, and writing these 24.3 / 18.3 GB
-    took most of the runs' time), between a
-    reset and a read of the launch counts (equal to ``_train_counts``);
-    every loss and grad norm finite and the loss falling; peak device
-    memory; a "step" line (host call to device finish, device busy, the
-    port's kernels); then the remat "block" and "full" runs
-    (``_remat_runs``).  Returns {run: launch counts}."""
+def _model_what(cfg) -> str:
+    """A model's width in words: its heads and feed-forward, or its
+    recurrent layers."""
+    from repro_torch.models import transformer
+    mc, ml = cfg.moe, cfg.mla
+    if cfg.ssm is not None or cfg.xlstm is not None:
+        return _recurrent_what(cfg, transformer.layer_counts(cfg))
+    ffn = (f"d_ff {cfg.d_ff}" if mc is None else
+           f"{mc.num_experts} experts padded to {mc.pad_experts_to}, "
+           f"top {mc.experts_per_token}, d_ff {mc.d_ff_expert}, shared "
+           f"{mc.d_ff_shared}")
+    heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}" if ml is None else
+             f"{cfg.num_heads} MLA heads, q_lora {ml.q_lora_rank}, "
+             f"kv_lora {ml.kv_lora_rank}, Dqk "
+             f"{ml.qk_nope_head_dim + ml.qk_rope_head_dim} "
+             f"({ml.qk_nope_head_dim} + {ml.qk_rope_head_dim} rope), Dv "
+             f"{ml.v_head_dim}")
+    return f"{heads}, {ffn}"
+
+
+def _train_run(name: str, key: str, argv, steps: int, cores=None,
+               remat_steps: int = REMAT_STEPS, samples: int = 3) -> dict:
+    """One full-width training run through ``launch.train``: weights drawn
+    on the card, ``steps`` bf16 steps under remat "full"
+    (``--checkpoint-every 0``: smollm-360m's restart runs check the
+    checkpoint), between a reset and a read of the launch counts (equal to
+    ``_train_counts``); every loss and grad norm finite and the loss
+    falling; peak device memory; a "step" line (host call to device
+    finish over ``samples`` steps, device busy, the port's kernels, with
+    ``cores`` the recurrent cores' device time alone at the step's shapes,
+    ``cores(cfg, b, t)``); then ``remat_steps`` steps each under remat
+    "block" and "full" (``_remat_runs``).  Returns the run's launch
+    counts."""
     import tempfile
     import torch
     from repro_torch import configs, tree
@@ -3762,82 +4165,163 @@ def phase_train_128() -> dict:
     from repro_torch.kernels import dispatch
     from repro_torch.launch import train
     from repro_torch.training.train_step import make_train_step
-    out = {}
-    for name, key, flags in TRAIN_128:
-        argv = flags + TRAIN_128_ARGS + [
-            "--steps", str(TRAIN_128_STEPS), "--checkpoint-every", "0"]
-        args = train.parse_args(argv)
-        held = _reset_peak()
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            dispatch.reset_launch_counts()
-            params, opt, hist, run = _train(argv, tmp)
-            torch.cuda.synchronize()
-            counts = dispatch.launch_counts()
-            wall = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-        cfg = run.model
-        n_params = sum(p.numel() for p in tree.leaves(params))
-        mc, ml = cfg.moe, cfg.mla
-        ffn = (f"d_ff {cfg.d_ff}" if mc is None else
-               f"{mc.num_experts} experts padded to {mc.pad_experts_to}, "
-               f"top {mc.experts_per_token}, d_ff {mc.d_ff_expert}, shared "
-               f"{mc.d_ff_shared}")
-        heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
-                 f"{cfg.resolved_head_dim}" if ml is None else
-                 f"{cfg.num_heads} MLA heads, q_lora {ml.q_lora_rank}, "
-                 f"kv_lora {ml.kv_lora_rank}, Dqk "
-                 f"{ml.qk_nope_head_dim + ml.qk_rope_head_dim} "
-                 f"({ml.qk_nope_head_dim} + {ml.qk_rope_head_dim} rope), Dv "
-                 f"{ml.v_head_dim}")
-        depth = configs.get(cfg.name).num_layers
-        print(f"train {name}: {cfg.dtype}, {cfg.num_layers} of {depth} "
-              f"layers at full width (d_model "
-              f"{cfg.d_model}, {heads}, {ffn}, vocab {cfg.vocab_size}), "
-              f"{n_params / 1e9:.3f}e9 parameters drawn on the card, "
-              f"{args.steps} steps of {args.global_batch} x {args.seq_len} "
-              f"tokens, remat {cfg.remat}; peak device memory {peak:.2f} "
-              f"GiB over the {held / 2**30:.2f} held before it; {wall:.1f}s "
-              f"in all (draw and steps; no checkpoint: phase 6's restart "
-              f"runs check it), steps {sum(h['dt'] for h in hist):.1f}s")
-        print(_train_line(name, hist, args))
-        losses = [h["loss"] for h in hist]
-        if not losses[-1] < losses[0]:
-            _fail(f"train {name}: the loss did not fall: {losses}")
-        want = _train_counts(cfg, len(hist))
-        if counts != want:
-            _fail(f"train {name}: launches {counts}, remat 'full' implies "
-                  f"{want}")
-        live = {k: v for k, v in counts.items() if v}
-        print(f"train {name} launches: {live} = per step "
-              f"{2 * cfg.num_layers} forward (forward + recomputation), "
-              f"{cfg.num_layers} dq, {cfg.num_layers} dk/dv"
-              + (f", {2 * cfg.num_layers} router" if mc else "")
-              + f" over {len(hist)} steps")
-        out[key] = counts
-        # the "step" line: one more step of the trained state
-        step_fn = make_train_step(run)
-        batch = SyntheticDataset(SyntheticConfig(
-            cfg.real_vocab_size or cfg.vocab_size, args.seq_len,
-            args.global_batch, seed=run.seed)).batch(0)
-        batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in batch.items()}
-        state = [params, opt]
+    argv = argv + TRAIN_128_ARGS + ["--steps", str(steps),
+                                    "--checkpoint-every", "0"]
+    args = train.parse_args(argv)
+    held = _reset_peak()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dispatch.reset_launch_counts()
+        params, opt, hist, run = _train(argv, tmp)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    cfg = run.model
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    depth = configs.get(cfg.name).num_layers
+    print(f"train {name}: {cfg.dtype}, {cfg.num_layers} of {depth} "
+          f"layers at full width (d_model {cfg.d_model}, "
+          f"{_model_what(cfg)}, vocab {cfg.vocab_size}), "
+          f"{n_params / 1e9:.3f}e9 parameters drawn on the card, "
+          f"{args.steps} steps of {args.global_batch} x {args.seq_len} "
+          f"tokens, remat {cfg.remat}; peak device memory {peak:.2f} "
+          f"GiB over the {held / 2**30:.2f} held before it; {wall:.1f}s "
+          f"in all (draw and steps; no checkpoint: phase 6's restart "
+          f"runs check it), steps {sum(h['dt'] for h in hist):.1f}s")
+    print(_train_line(name, hist, args))
+    losses = [h["loss"] for h in hist]
+    if not losses[-1] < losses[0]:
+        _fail(f"train {name}: the loss did not fall: {losses}")
+    want = _train_counts(cfg, len(hist))
+    if counts != want:
+        _fail(f"train {name}: launches {counts}, remat 'full' implies "
+              f"{want}")
+    live = {k: v for k, v in counts.items() if v}
+    n = _attn_layers(cfg)
+    print(f"train {name} launches: {live} = per step {2 * n} forward "
+          f"(forward + recomputation), {n} dq, {n} dk/dv"
+          + (f", {2 * n} router" if cfg.moe else "")
+          + f" over {len(hist)} steps ({n} attention layers)")
+    # the "step" line: one more step of the trained state
+    step_fn = make_train_step(run)
+    batch = SyntheticDataset(SyntheticConfig(
+        cfg.real_vocab_size or cfg.vocab_size, args.seq_len,
+        args.global_batch, seed=run.seed)).batch(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    state = [params, opt]
 
-        def train_step():
-            state[0], state[1], _ = step_fn(state[0], state[1], batch)
+    def train_step():
+        state[0], state[1], _ = step_fn(state[0], state[1], batch)
 
-        line, busy, by = _step_line(
-            f"train step {name} [{args.global_batch} x {args.seq_len} "
-            f"tokens, {cfg.num_layers} layers, bf16, remat full]",
-            train_step, samples=3)
-        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
-        print(line + "; by kernel: " + ", ".join(
-            f"{k} {ms:.2f}ms x{n:.0f}" for k, (ms, n) in top))
-        del params, opt, state, step_fn
-        torch.cuda.empty_cache()
-        _remat_runs(run, args, name)
-    return out
+    t0 = time.perf_counter()
+    line, busy, by = _step_line(
+        f"train step {name} [{args.global_batch} x {args.seq_len} "
+        f"tokens, {cfg.num_layers} layers, bf16, remat full]",
+        train_step, samples=samples, warmup=min(samples, 2),
+        reps=min(samples, 2))
+    took = time.perf_counter() - t0
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    launches = sum(k for _, k in by.values())
+    print(line + f"; {launches:g} kernel launches; by kernel: " + ", ".join(
+        f"{k} {ms:.2f}ms x{n:.0f}" for k, (ms, n) in top)
+        + f" (measured in {took:.1f}s)")
+    if cores is not None:
+        t0 = time.perf_counter()
+        _, _, by_cores = _device_ms(lambda: cores(cfg, args.global_batch,
+                                                  args.seq_len), reps=1)
+        took = time.perf_counter() - t0
+        core_ms = sum(ms for ms, _ in by_cores.values())
+        print(f"step train step {name}: the recurrent cores alone "
+              f"({', '.join(RECURRENT_CORES)} at the step's shapes, each "
+              f"layer's forward twice and its backward): {core_ms:.3f}ms "
+              f"device over {sum(k for _, k in by_cores.values()):g} "
+              f"launches, {100 * core_ms / busy:.1f}% of the step's device "
+              f"busy (measured in {took:.1f}s)")
+    del params, opt, state, step_fn
+    torch.cuda.empty_cache()
+    _remat_runs(run, args, name, remat_steps)
+    return counts
+
+
+def phase_train_128() -> dict:
+    """The head_dim-128 models and the MLA decoder trained through
+    ``launch.train`` at full width (``TRAIN_128``; minicpm3-4b's attention
+    through the training kernels' (96, 64) instances), ``TRAIN_128_STEPS``
+    steps each (``_train_run``; writing these 24.3 / 18.3 GB checkpoints
+    took most of the runs' time, so none is written).  Returns {run:
+    launch counts}."""
+    return {key: _train_run(name, key, flags, TRAIN_128_STEPS)
+            for name, key, flags in TRAIN_128}
+
+
+def phase_train_state() -> dict:
+    """The recurrent decoders trained through ``launch.train`` at full
+    width and depth (``TRAIN_STATE``): zamba2-1.2b's 38 Mamba2 layers with
+    its shared block called 7 times (rows 6 and 7 at D 64, G 1: 14 forward,
+    7 dq and 7 dk/dv launches a step) and xlstm-125m's 12 layers (no
+    attention kernel), ``TRAIN_STATE_STEPS`` steps each and
+    ``REMAT_STATE_STEPS`` under each remat policy (``_train_run``, one
+    step timed on the step line, the recurrent cores' device time alone
+    beside it, ``_train_cores``).  Returns {run: launch counts}."""
+    return {key: _train_run(name, key, flags, TRAIN_STATE_STEPS,
+                            cores=_train_cores,
+                            remat_steps=REMAT_STATE_STEPS, samples=1)
+            for name, key, flags in TRAIN_STATE}
+
+
+def _train_cores(cfg, b: int, t: int) -> None:
+    """The recurrent cores of one train step under remat "full", alone,
+    at batch ``b`` and ``t`` tokens: each layer's forward twice (the
+    forward, then its recomputation in the backward) and its backward,
+    on stand-in bf16 activations of the step's shapes: every Mamba2
+    layer's three convs and its chunked scan, every mLSTM layer's conv
+    and chunked form, every sLSTM layer's scan."""
+    import torch
+    from repro_torch.models import ssm, transformer, xlstm
+    dev, bf16 = "cuda", torch.bfloat16
+    counts = transformer.layer_counts(cfg)
+
+    def leaf(shape, dtype=bf16, scale=0.1):
+        return (torch.randn(shape, device=dev) * scale).to(dtype)
+
+    def fwd_bwd(fn, *args):
+        with torch.no_grad():
+            fn(*args)
+        args = [a.detach().requires_grad_(True) for a in args]
+        fn(*args).float().sum().backward()
+
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        inner = sc.expand * cfg.d_model
+        h, n = inner // sc.head_dim, sc.d_state
+        x, bc = leaf((b, t, inner)), leaf((b, t, n))
+        w_x, w_n = leaf((inner, sc.d_conv), torch.float32), \
+            leaf((n, sc.d_conv), torch.float32)
+        dtv = torch.full((b, t, h), 0.01, device=dev)
+        a = torch.zeros(h, device=dev)
+        xh = x.reshape(b, t, h, sc.head_dim)
+        for _ in range(counts["mamba"]):
+            fwd_bwd(lambda u, w: ssm.causal_conv(u, w)[0], x, w_x)
+            for _ in ("conv_b", "conv_c"):
+                fwd_bwd(lambda u, w: ssm.causal_conv(u, w)[0], bc, w_n)
+            fwd_bwd(lambda u, d_, bb, cc: ssm.ssd_chunked(
+                u, d_, a, bb, cc, a, chunk=sc.chunk)[0], xh, dtv, bc, bc)
+        return
+    xc = cfg.xlstm
+    inner, hh, d = xc.expand * cfg.d_model, xc.num_heads, cfg.d_model
+    q = leaf((b, t, hh, inner // hh))
+    g = torch.zeros((b, t, hh), device=dev)
+    xm, w = leaf((b, t, inner)), leaf((inner, xc.conv_width), torch.float32)
+    for _ in range(counts.get("mlstm", 0)):
+        fwd_bwd(lambda u, ww: ssm.causal_conv(u, ww)[0], xm, w)
+        fwd_bwd(lambda qq, kk, vv, ig, fg: xlstm.mlstm_chunked(
+            qq, kk, vv, ig, fg, chunk=xc.chunk)[0], q, q, q, g, g)
+    gx = leaf((b, t, 4, d), torch.float32)
+    r = leaf((4, hh, d // hh, d // hh), torch.float32)
+    for _ in range(counts.get("slstm", 0)):
+        fwd_bwd(lambda gg, rr: xlstm.slstm_scan(gg, rr, num_heads=hh)[0],
+                gx, r)
 
 
 def _reset_peak() -> int:
@@ -3958,7 +4442,7 @@ def phase_train_parity() -> None:
 
 def phase_train_parity_128() -> None:
     """``_train_parity`` of mistral-nemo-12b, qwen2-moe-a2.7b and
-    minicpm3-4b at full width cut to ``TRAIN_PARITY_BATCH_128``'s 2 layers
+    minicpm3-4b at full width cut to ``TRAIN_PARITY_BATCH_128``'s 1 layer
     and one sequence: weights drawn on the card from seed 2 (a CPU draw of
     ~1.9e9 weights takes 12-15 s) and copied to the CPU; qwen2-moe's router
     gradient and minicpm3's MLA leaves (the low-rank q, the latent and
@@ -3976,6 +4460,28 @@ def phase_train_parity_128() -> None:
         _train_parity(cfg, params_cuda,
                       transformer.params_to(params_cuda, "cpu"), cfg.name,
                       shape)
+        del params_cuda
+        torch.cuda.empty_cache()
+
+
+def phase_train_parity_state() -> None:
+    """``_train_parity`` of the recurrent decoders at full width and cut
+    depth (``TRAIN_PARITY_STATE``), one sequence of 256 tokens: weights
+    drawn on the card from seed 2 and copied to the CPU; the Mamba2 convs,
+    SSD leaves and the shared block (zamba2, two calls, rows 6 and 7 at D
+    64, G 1 on the card in fp32), the mLSTM and sLSTM gates and recurrent
+    weights (xlstm) among the gradients."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    for arch, layers in TRAIN_PARITY_STATE:
+        cfg = configs.get(arch).replace(num_layers=layers, dtype="float32")
+        params_cuda = transformer.init(cfg, seed=2, device="cuda",
+                                       draw_device="cuda")
+        _train_parity(cfg, params_cuda,
+                      transformer.params_to(params_cuda, "cpu"),
+                      f"{cfg.name} ({layers} layers)",
+                      dict(layers=layers, **TRAIN_PARITY_BATCH_STATE))
         del params_cuda
         torch.cuda.empty_cache()
 
@@ -4115,14 +4621,14 @@ def _serving_steps(params, cfg, engines) -> dict:
                 slot_lens, toks, q8_cfg, noise=noise, top_k=5)}
 
 
-def _step_line(name: str, fn, *,
-               samples: int = 10) -> tuple[str, float, dict]:
+def _step_line(name: str, fn, *, samples: int = 10, warmup: int = 2,
+               reps: int = 2) -> tuple[str, float, dict]:
     """One "step" line: host call to device finish (median of
-    ``samples``), device busy over 2 calls and the port's kernels' share
-    of it (torch.profiler).  Returns (the line, device busy ms, its
-    kernels as ``_device_ms`` gives them)."""
-    wall = _host_ms(fn, samples=samples)
-    busy, ours, by = _device_ms(fn)
+    ``samples`` after ``warmup`` calls), device busy over ``reps`` calls
+    and the port's kernels' share of it (torch.profiler).  Returns (the
+    line, device busy ms, its kernels as ``_device_ms`` gives them)."""
+    wall = _host_ms(fn, samples=samples, warmup=warmup)
+    busy, ours, by = _device_ms(fn, reps=reps)
     return (f"step {name}: {wall:.3f}ms host call to device finish; device "
             f"busy {busy:.3f}ms ({100 * busy / wall:.1f}%, idle "
             f"{100 - 100 * busy / wall:.1f}%), of which the port's kernels "
@@ -4313,6 +4819,10 @@ def phase_times() -> dict:
         rows.update(_serving_kernel_times(
             gen, hkv=hkv, g=g, d=d, topk=False, tag=f"_g{g}", paged=False,
             prefills=(("flash_attention_offset", (1, 328, 256, 0, 256)),)))
+    # zamba2's training: rows 6 and 7 at its shared block's 32/32 heads of
+    # 64 at B 8, T 512; then whisper-small's instances
+    rows.update(_train_kernel_times(gen, 32, 1, 64, "_g1"))
+    rows.update(_whisper_kernel_times(gen))
     rows.update(_library_kernel_times())
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
@@ -4365,6 +4875,77 @@ def _topk_times(gen, v: int = 49152, real: int = 0) -> dict:
         "shape": f"x [8, {v}] float32, k=5, {p.slices} slices of "
                  f"{p.slice}" + (f", entries from {real} -inf" if real
                                  else "")}}
+
+
+def _whisper_kernel_times(gen) -> dict:
+    """whisper-small's instances, each held against its plain version on
+    the timed input: row 1 at [8, 51968] with the padded entries -inf
+    (``_topk_times``); row 6 non-causal at the encoder's B 1, T 1536,
+    12/12 heads of 64, bf16, beside one SDPA forward; row 4 at a B 8
+    decode step's cross-attention over all 1536 keys, 12/12 heads, bf16,
+    beside one SDPA call (no mask: every key is valid).  Bytes count each
+    operand once; operations 2 per multiply-add of QKᵀ and PV."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    rows = _topk_times(gen, WHISPER_VOCAB, real=WHISPER_REAL_VOCAB)
+    h, d, t, esz = WHISPER_HEADS, 64, WHISPER_S_ENC, 2
+    heads = f"Hq={h} Hkv={h} D={d}"
+    q, k, v, _ = _fresh_inputs(gen, dtype=torch.bfloat16, b=1, t=t, hkv=h,
+                               g=1, d=d)
+    k, v = k.contiguous(), v.contiguous()
+    out, _ = fa.flash_attention_fwd(q, k, v, causal=False)
+    want, _ = fa.flash_attention_fwd_plain(q, k, v, causal=False)
+    err = (out.float() - want.float()).abs().max().item()
+    if not err <= 2e-2:
+        _fail(f"flash_attention non-causal on the timed input: max abs err "
+              f"{err:.3g} > 2e-2")
+    args, _ = fa.prepare_fwd(q, k, v, causal=False)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs)
+    b_ms, b_by = _bound(4 * t * h * d * esz + h * t * 4,
+                        4.0 * h * t * t * d, "bfloat16")
+    rows["flash_attention_nc_t1536"] = {
+        "ms": _ms(lambda: fa.launch(args)),
+        "device_ms": _device_call_ms(lambda: fa.launch(args)),
+        "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                         causal=False)),
+        "plain_ms": _ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, causal=False), samples=5, inner=2),
+        "library_ms": _ms(sdpa), "library_device_ms": _device_call_ms(sdpa),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B=1 T={t} {heads} bf16 non-causal (the encoder)"}
+    vlens = [t] * 8
+    q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=t,
+                                       vlens=vlens, hkv=h, g=1, d=d)
+    vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    err = (fd.flash_decode(q, k, v, vl).float()
+           - fd.flash_decode_plain(q, k, v, vl).float()).abs().max()
+    if not err <= 2e-2:
+        _fail(f"flash_decode over {t} keys on the timed input: max abs err "
+              f"{err.item():.3g} > 2e-2")
+    args, _ = fd.prepare(q, k, v, vl)
+
+    def sdpa_dec():
+        return F.scaled_dot_product_attention(qs, ks, vs)
+    b_ms, b_by = _bound(2 * q.numel() * esz + sum(vlens) * h * d * esz * 2
+                        + len(vlens) * 4, 4.0 * h * d * sum(vlens),
+                        "bfloat16")
+    rows["flash_decode_s1536"] = {
+        "ms": _ms(lambda: fd.launch(args)),
+        "device_ms": _device_call_ms(lambda: fd.launch(args)),
+        "wrapper_ms": _ms(lambda: fd.flash_decode(q, k, v, vl)),
+        "plain_ms": _ms(lambda: fd.flash_decode_plain(q, k, v, vl)),
+        "library_ms": _ms(sdpa_dec),
+        "library_device_ms": _device_call_ms(sdpa_dec),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B=8 S={t} {heads} bf16, every key valid (the "
+                 f"cross-attention), {_plan_of(fd, q, k)}"}
+    return rows
 
 
 def _mla_kernel_times(gen) -> dict:
@@ -5575,17 +6156,21 @@ def main() -> int:
     counts.update(_timed(phase_serve_moe))
     counts.update(_timed(phase_serve_mla))
     counts.update(_timed(phase_serve_state))
+    counts.update(_timed(phase_serve_whisper))
     _timed(phase_parity)
     _timed(phase_parity_128)
     _timed(phase_parity_moe)
     _timed(phase_parity_mla)
     _timed(phase_parity_state)
+    _timed(phase_parity_whisper)
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
     counts.update(_timed(phase_train_128))
+    counts.update(_timed(phase_train_state))
     _timed(phase_train_parity)
     _timed(phase_train_parity_128)
+    _timed(phase_train_parity_state)
     times = _timed(phase_times)
     _timed(phase_steps, serve_ctx, train_ctx)
     _timed(phase_swap_times, serve_ctx)

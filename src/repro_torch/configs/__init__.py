@@ -4,10 +4,10 @@ Only the architectures the port serves are listed: the dense decoders
 smollm-360m (head_dim 64, tied head), mistral-nemo-12b and
 deepseek-coder-33b (head_dim 128, untied heads), the MoE decoders
 qwen2-moe-a2.7b and llama4-scout-17b-a16e (head_dim 128), the MLA
-decoder minicpm3-4b (latent attention), and the recurrent decoders
+decoder minicpm3-4b (latent attention), the recurrent decoders
 zamba2-1.2b (Mamba2 with a shared attention block) and xlstm-125m (mLSTM
-and sLSTM).  Asking for another one raises and names the reference module
-it still lives in.
+and sLSTM), and the encoder-decoder whisper-small.  Asking for another
+one raises and names the reference module it still lives in.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
 
 ARCHS = ("smollm_360m", "mistral_nemo_12b", "deepseek_coder_33b",
          "qwen2_moe_a2p7b", "llama4_scout_17b_a16e", "minicpm3_4b",
-         "zamba2_1p2b", "xlstm_125m")
+         "zamba2_1p2b", "xlstm_125m", "whisper_small")
 
 _ALIASES = {"smollm-360m": "smollm_360m",
             "mistral-nemo-12b": "mistral_nemo_12b",
@@ -27,7 +27,8 @@ _ALIASES = {"smollm-360m": "smollm_360m",
             "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
             "minicpm3-4b": "minicpm3_4b",
             "zamba2-1.2b": "zamba2_1p2b",
-            "xlstm-125m": "xlstm_125m"}
+            "xlstm-125m": "xlstm_125m",
+            "whisper-small": "whisper_small"}
 
 
 def _module(name: str):

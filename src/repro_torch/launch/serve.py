@@ -38,10 +38,16 @@ has no block-pool layout).  The recurrent decoders (``--arch zamba2_1p2b``,
 ``--arch xlstm_125m``) serve every mode through the fixed-state family:
 each prompt prefills in one shot, its length snapped to the chunked scan's
 quantum (at most the quantum, or a multiple of it) as the reference CLI
-snaps it, and a paged pool holds one state row a sequence.
+snaps it, and a paged pool holds one state row a sequence.  The
+encoder-decoder (``--arch whisper_small``) serves only under
+``--continuous --paged``, as in the reference: its prompts are
+``--audios`` distinct synthetic audios (frame ids filling the encoder
+window, ``default_rng(2)``) that the requests cycle through, so a repeat
+adopts the audio's encoder blocks and skips the encoder.
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
-``_continuous`` at 88, ``main`` at 264); weights and sampling generators
+``_continuous`` at 88, its audio prompts at 112-120, ``main`` at 264, its
+enc-dec refusal and init at 338-348); weights and sampling generators
 come from seed 0.  The weights are drawn on the device the model serves
 on, so a ``--device cuda`` run serves other weights than a ``--device
 cpu`` run of the same seed.  The lockstep prompts come from a seeded numpy
@@ -60,7 +66,7 @@ import torch
 
 import repro_torch.configs as configs
 from repro_torch.core.topk_fusion import topk_sample
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs import kernels as obs_kernels
 from repro_torch.obs import merge as obs_merge
@@ -102,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--blocks", type=int, default=0,
                     help="pool capacity in blocks (0 = every slot at full "
                          "length)")
+    ap.add_argument("--audios", type=int, default=3,
+                    help="distinct synthetic audios of the enc-dec workload "
+                         "(requests cycle through them, so repeats share "
+                         "encoder blocks)")
     ap.add_argument("--shared-prefix", type=int, default=8,
                     help="shared synthetic prompt prefix length")
     ap.add_argument("--kv-cache-dtype", default="",
@@ -173,7 +183,16 @@ def workload(args, cfg) -> tuple[list, int]:
         shared_prefix=args.shared_prefix if args.paged else 0,
         priority_classes=args.priority_classes, slo_ms=args.slo_ms or None)
     family = cache_family.resolve(cfg)
-    if family.kind == "state":
+    if family.kind == "encdec":
+        # the prompts are audio: a few distinct frame-id sequences, each
+        # filling the encoder window; repeats of an audio share its
+        # encoder blocks
+        rng = np.random.default_rng(2)
+        audios = [rng.integers(0, vocab, cfg.encoder_seq_len)
+                  for _ in range(max(1, args.audios))]
+        for r in requests:
+            r.prompt = audios[r.rid % len(audios)]
+    elif family.kind == "state":
         # the single-shot prefill runs the chunked scan: snap each prompt
         # to the scan's quantum (at most q, or a multiple of q)
         q = family.prompt_quantum()
@@ -377,10 +396,15 @@ def lockstep(args, cfg, params, *, prompts=None, noise_fn=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = config_for(args)
+    family = cache_family.resolve(cfg)
+    if family.requires_paged and not (args.continuous and args.paged):
+        raise SystemExit(f"{args.arch}: enc-dec serves under --continuous "
+                         "--paged (the encoder output pages as immutable "
+                         "shared blocks)")
     # weights drawn where they serve: a CPU run draws on the CPU, a card
     # run on the card (a full-width draw on the CPU takes a minute or more)
-    params = transformer.init(cfg, seed=0, device=args.device,
-                              draw_device=args.device)
+    init = encdec.init if family.kind == "encdec" else transformer.init
+    params = init(cfg, seed=0, device=args.device, draw_device=args.device)
     if not args.continuous:
         lockstep(args, cfg, params)
         return 0

@@ -1,7 +1,7 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train --arch
 smollm_360m [--smoke] [--device cpu]``.
 
-Trains the dense decoder on the deterministic synthetic stream with AdamW,
+Trains a decoder on the deterministic synthetic stream with AdamW,
 checkpointing every ``--checkpoint-every`` steps and at the end, and
 resuming from the newest committed checkpoint in ``--checkpoint-dir`` when
 one exists.  Prints a line every ``log_every`` steps and ends with
@@ -14,7 +14,11 @@ port's own.  ``--mesh`` is not ported yet (the distributed slice) and says
 so.  An MLA model (``--arch minicpm3_4b``) trains like the others: its
 decompressed attention (Dqk 96, Dv 64) runs the fresh forward's and the
 backward's (96, 64) instances on the card and their plain versions on the
-CPU.
+CPU.  The recurrent decoders (``--arch zamba2_1p2b``, ``--arch
+xlstm_125m``) train the same way, autograd through their plain PyTorch
+scans: zamba2's shared attention block, called after every 6 Mamba2
+layers and once more to close the stack, runs the fresh forward and its
+backward at D 64, G 1 at every call; xlstm runs no attention kernel.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@
 half of ``repro.models.layers.split_params(transformer.init(...))`` with its
 leaves as numpy arrays and each segment's layers stacked on a leading axis —
 and returns the port's parameter dict (``models.transformer``'s layout, one
-dict per layer, the hybrid's shared block once).  ``adamw_state_from_numpy`` carries the reference's
+dict per layer, the hybrid's shared block once; ``models.encdec``'s for an
+encoder-decoder).  ``adamw_state_from_numpy`` carries the reference's
 ``AdamWState`` (step, and ``mu``/``nu`` trees shaped like its parameters)
 through the same mapping.  No JAX is needed: the caller turns the leaves
 into numpy.
@@ -47,7 +48,11 @@ def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     block's ``norm``, the xLSTM blocks' ``norm`` / ``hnorm``) and the rest
     carried as it is (an MoE layer's router, stacked experts and
     ``"shared"`` MLP).  A hybrid model's ``{}`` placeholder segments take
-    no layer; its unstacked ``shared_attn`` block converts once."""
+    no layer; its unstacked ``shared_attn`` block converts once.  An
+    encoder-decoder tree (one with ``"encoder"``) takes
+    ``_encdec_from_numpy``."""
+    if "encoder" in tree:
+        return _encdec_from_numpy(tree, device)
     layers = []
     for seg in tree["segments"]:
         if not seg:
@@ -61,6 +66,28 @@ def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     params["layers"] = layers
     if "shared_attn" in tree:
         params["shared_attn"] = _leaf(tree["shared_attn"], None, device)
+    return params
+
+
+def _encdec_from_numpy(tree: dict, device) -> dict:
+    """The reference's encoder-decoder tree (``repro.models.encdec.init``:
+    ``adapter``, the stacked ``encoder`` / ``decoder`` blocks, the
+    ``{"scale", "bias"}`` LayerNorms, the tied ``embedding`` and
+    ``pos_embed``) → the port's (``models.encdec``): one dict a layer,
+    each LayerNorm kept as its ``{"scale", "bias"}`` dict."""
+    def stack(seg):
+        return [_leaf(seg, i, device)
+                for i in range(next(iter(_stack_sizes(seg))))]
+
+    params = {"adapter": _tensor(tree["adapter"], device),
+              "encoder": stack(tree["encoder"]),
+              "enc_norm": _leaf(tree["enc_norm"], None, device),
+              "embed": _tensor(tree["embedding"]["embed"], device)}
+    if "head" in tree["embedding"]:
+        params["head"] = _tensor(tree["embedding"]["head"], device)
+    params["pos_embed"] = _tensor(tree["pos_embed"], device)
+    params["decoder"] = stack(tree["decoder"])
+    params["dec_norm"] = _leaf(tree["dec_norm"], None, device)
     return params
 
 

@@ -1,12 +1,13 @@
 """Model layers of the port: norms, rotary embedding, GQA attention over
 a paged KV pool or a contiguous KV cache, multi-head latent attention over
-a contiguous latent cache, the SwiGLU MLP, the mixture of experts,
-embedding and LM head.
+a contiguous latent cache, the SwiGLU and GELU MLPs, the mixture of
+experts, embedding and LM head.
 
-Port of ``src/repro/models/layers.py``: ``rms_norm`` (line 90), ``rope``
-(109), ``cache_write`` (146), ``paged_cache_write`` (163),
-``_quantize_kv`` (203), the paged and the contiguous branches of
-``attention_apply``, fp and int8 (277-353), ``mla_apply`` (388),
+Port of ``src/repro/models/layers.py``: ``rms_norm`` (line 90),
+``layer_norm`` (101), ``rope`` (109), ``cache_write`` (146),
+``paged_cache_write`` (163), ``_quantize_kv`` (203), the paged and the
+contiguous branches of ``attention_apply``, fp and int8 (277-353), and its
+``causal`` keyword (242), ``mla_apply`` (388),
 ``mlp_apply`` (459), ``moe_apply`` (486), ``embed_tokens`` (555) and
 ``head_matrix`` (559).  Parameters are plain dicts of tensors.
 """
@@ -28,6 +29,16 @@ def rms_norm(scale: Tensor, x: Tensor, eps: float) -> Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def layer_norm(p: dict, x: Tensor, eps: float) -> Tensor:
+    """LayerNorm with ``p = {"scale", "bias"}`` (fp32), over the last axis
+    in fp32: the population variance, as ``jnp.var``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
 
 
 def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
@@ -103,13 +114,16 @@ def _quantize_kv(x: Tensor) -> tuple[Tensor, Tensor]:
 
 
 def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
-                    positions: Tensor, cache: Optional[dict] = None,
+                    positions: Tensor, causal: bool = True,
+                    cache: Optional[dict] = None,
                     cache_len: Optional[Union[int, Tensor]] = None,
                     block_tables: Optional[Tensor] = None):
     """x [B, T, D] → (out [B, T, D], cache).
 
-    * ``cache=None``: causal self-attention over this call's K/V, the
-      training form (differentiable; see ``dispatch.sdpa``).
+    * ``cache=None``: self-attention over this call's K/V, causal unless
+      ``causal=False`` (whisper's encoder), the training form
+      (differentiable; see ``dispatch.sdpa``).  RoPE applies either way,
+      as in the reference.
     * paged serving: ``cache`` holds this layer's block pools
       ``{"k", "v": [P, Hkv, BS, D]}`` shared by every sequence; this step's
       K/V are written through ``block_tables`` at ``cache_len`` (in place)
@@ -171,7 +185,7 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
                             q_offset=cache_len, kv_valid_len=valid,
                             decode=(t == 1), block_tables=block_tables)
     else:
-        out = dispatch.sdpa(cfg, q, k, v, causal=True, q_offset=0,
+        out = dispatch.sdpa(cfg, q, k, v, causal=causal, q_offset=0,
                             kv_valid_len=None)
     out = out.reshape(b, t, hq * hd) @ p["wo"]
     return out, cache

@@ -64,14 +64,15 @@ Tensor = torch.Tensor
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-#: Leaves that keep float32 whatever ``cfg.dtype`` is: the norm scales,
-#: the router, and what the reference's recurrent blocks create in fp32
-#: (the convs, the SSD's ``dt_bias`` / ``a_log`` / ``d_skip``, the mLSTM's
-#: gate weights and bias, the sLSTM's gate and recurrent weights).
+#: Leaves that keep float32 whatever ``cfg.dtype`` is: the norm scales
+#: (an encoder-decoder's LayerNorm dicts among them), the router, and what
+#: the reference's recurrent blocks create in fp32 (the convs, the SSD's
+#: ``dt_bias`` / ``a_log`` / ``d_skip``, the mLSTM's gate weights and bias,
+#: the sLSTM's gate and recurrent weights).
 FP32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "router", "q_norm",
                "kv_norm", "norm", "hnorm", "conv_x", "conv_b", "conv_c",
                "conv", "dt_bias", "a_log", "d_skip", "w_if", "if_bias",
-               "w_gates", "r_weights")
+               "w_gates", "r_weights", "lnx", "enc_norm", "dec_norm")
 
 #: The recurrent kinds' cache leaves (the attention kinds take the rest).
 STATE_LEAVES = {"mamba": ssm.CACHE_LEAVES, "mlstm": xlstm.MLSTM_LEAVES,

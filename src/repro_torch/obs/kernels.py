@@ -142,7 +142,18 @@ def decode_step_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
     by each: 134 MB at full width does not stay on chip between calls),
     each call attending over its own live K/V.  The conv weights, norms and
     per-head vectors are left out, as the norms are above.
+
+    An encoder-decoder decode step (``cfg.family == "encdec"``,
+    ``_encdec_cost``) runs the decoder alone: each layer's self-attention
+    projections, the cross-attention's q and o (its K/V are cached) and
+    the GELU MLP, 2 × parameters × ``batch`` flops and the weights read
+    once; its attention 4·Hq·D flops per key over the live self keys and
+    every row's ``encoder_seq_len`` cross keys, and those keys' K/V read
+    once; the tied head as above.  The paged step's gather of the cross
+    blocks into a slot batch (a copy of them) is left out.
     """
+    if cfg.family == "encdec":
+        return _encdec_cost(cfg, batch, live_lens)
     if cfg.ssm is not None or cfg.xlstm is not None:
         return _recurrent_cost(cfg, batch, live_lens)
     d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
@@ -240,6 +251,26 @@ def _recurrent_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
         live = sum(int(x) for x in live_lens)
         flops += counts["attn"] * (2 * dense * b + 4 * hq * dh * live)
         nbytes += counts["attn"] * (dense * w + live * 2 * hkv * dh * w)
+    return {"flops": float(flops), "bytes_accessed": float(nbytes),
+            "dtype": cfg.dtype}
+
+
+def _encdec_cost(cfg, batch: int, live_lens: Sequence[int]) -> dict:
+    """``decode_step_cost`` of an encoder-decoder's decode step: see
+    there."""
+    d, b, vocab = cfg.d_model, batch, cfg.vocab_size
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    dh = cfg.resolved_head_dim
+    w = _ITEMSIZE[cfg.dtype]
+    layer = (d * hq * dh + 2 * d * hkv * dh + hq * dh * d   # self q k v o
+             + 2 * hq * dh * d                             # cross q, o
+             + (3 if cfg.act == "silu" else 2) * d * cfg.d_ff)
+    keys = sum(int(x) for x in live_lens) + len(live_lens) \
+        * cfg.encoder_seq_len
+    n = cfg.num_layers
+    flops = n * (2 * layer * b + 4 * hq * dh * keys) + 2 * d * vocab * b
+    nbytes = (n * (layer * w + keys * 2 * hkv * dh * w) + d * vocab * w
+              + b * vocab * 4)
     return {"flops": float(flops), "bytes_accessed": float(nbytes),
             "dtype": cfg.dtype}
 

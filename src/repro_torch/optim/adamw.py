@@ -70,11 +70,17 @@ def clip_by_global_norm(grads: PyTree, max_norm: float):
     return tree.map(lambda g: g * scale, grads), gnorm
 
 
+#: The port's per-layer lists, which the reference stacks on a leading
+#: layer axis: a decoder-only model's, and an encoder-decoder's two.
+STACKED = ("layers/", "encoder/", "decoder/")
+
+
 def decays(path: str, p: torch.Tensor) -> bool:
     """Whether weight decay applies to the leaf at ``path``: ndim >= 2 in
     the reference's stacked layout (a per-layer leaf counts its layer
-    axis)."""
-    return p.ndim + path.startswith("layers/") >= 2
+    axis; zamba2's ``shared_attn`` block is unstacked in both packages, so
+    its norms are not decayed)."""
+    return p.ndim + path.startswith(STACKED) >= 2
 
 
 def update(grads: PyTree, state: AdamWState, params: PyTree,

@@ -15,10 +15,12 @@ cache is its compressed latent under both families, fp in the model dtype
 ``shareable = False`` there too.  ``FixedStateFamily`` (292) serves the
 recurrent decoders (xLSTM, and zamba2's Mamba2 layers with their shared
 attention block): one block is a sequence's whole state row, prefilled in
-one shot and never shared.  The enc-dec family comes with a later slice;
-``resolve`` raises for it.  The pool-layout contract is the reference's:
-the physical block axis sits at position 1 of every pool leaf ([L, P, Hkv,
-BS, D], scales [L, P, Hkv, BS], a state pool's [L, P, ...]).
+one shot and never shared.  ``EncDecFamily`` (354) serves whisper: a
+sequence's blocks are its audio's immutable cross-K/V blocks, shared by
+every request of the same whole audio, and one decoder self row.  The
+pool-layout contract is the reference's: the physical block axis sits at
+position 1 of every pool leaf ([L, P, Hkv, BS, D], scales [L, P, Hkv, BS],
+a state pool's [L, P, ...], an enc-dec pool's [L, P, S | BS, Hkv, D]).
 """
 from __future__ import annotations
 
@@ -52,8 +54,13 @@ class CacheFamily:
     paged_serveable: bool = True
     paged_unsupported_reason: str = ""
 
-    #: "token" (a block holds ``block_size`` positions) or "state" (a block
-    #: is one sequence's whole state row).
+    #: May it serve only through the paged pool?  (The enc-dec family's
+    #: shared encoder blocks are the pool.)
+    requires_paged: bool = False
+
+    #: "token" (a block holds ``block_size`` positions), "state" (a block
+    #: is one sequence's whole state row) or "encdec" (cross blocks of the
+    #: encoder output and one decoder self row).
     kind: str = "token"
 
     def __init__(self, cfg: ModelConfig):
@@ -279,6 +286,85 @@ class FixedStateFamily(CacheFamily):
                 f"of {q}")
 
 
+class EncDecFamily(CacheFamily):
+    """Encoder-decoder (whisper): immutable encoder cross-K/V plus a
+    decoder self-K/V row.
+
+    The prompt is the audio (frame ids); the encoder is bidirectional, so
+    its output, and so the cross-attention's K/V, depends on every frame:
+    only a whole-audio exact match may share blocks, and whisper's fixed
+    padded window (``cfg.encoder_seq_len``) makes every prompt that exact
+    length.  A sequence's table row is ``S_enc // block_size`` immutable
+    cross blocks (shareable, refcounted, parked in the prefix cache like
+    dense prefixes) and one self-K/V row block that grows with the decoded
+    tokens.  Every leaf has its layer axis 0 and batch (or pool block)
+    axis 1: contiguous caches ``{"self_k", "self_v": [L, B, S, Hkv, D],
+    "cross_k", "cross_v": [L, B, S_enc, Hkv, D]}``, pools the same with
+    ``num_blocks`` rows, each carrying a ``slot_len`` self row and
+    ``block_size`` cross positions (the reference's layout)."""
+
+    name = "encdec"
+    kind = "encdec"
+    single_shot_prefill = True
+    prompt_in_decoder = False
+    requires_paged = True
+
+    def _zeros(self, rows: int, self_len: int, cross_len: int,
+               device) -> dict:
+        cfg = self.cfg
+        dt = transformer.DTYPES[cfg.dtype]
+        tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        out = {}
+        for names, n in ((("self_k", "self_v"), self_len),
+                         (("cross_k", "cross_v"), cross_len)):
+            for name in names:
+                out[name] = torch.zeros((cfg.num_layers, rows, n) + tail,
+                                        dtype=dt, device=device)
+        return out
+
+    def init_cache(self, batch: int, max_len: int, device) -> dict:
+        return self._zeros(batch, max_len, self.cfg.encoder_seq_len, device)
+
+    def self_cache(self, batch: int, max_len: int, device) -> dict:
+        """The self-attention leaves of ``init_cache`` alone, for a prefill
+        whose cross leaves come from the pool."""
+        return {name: x for name, x in self._zeros(batch, max_len, 0,
+                                                   device).items()
+                if name.startswith("self_")}
+
+    def init_paged_cache(self, num_blocks: int, block_size: int, device,
+                         slot_len=None) -> dict:
+        if slot_len is None:
+            raise TypeError(
+                "enc-dec pools need slot_len: each block carries a decoder "
+                "self-K/V row sized by it")
+        self.validate_geometry(slot_len, block_size)
+        return self._zeros(num_blocks, slot_len, block_size, device)
+
+    def cross_blocks(self, block_size: int) -> int:
+        return self.cfg.encoder_seq_len // block_size
+
+    def max_blocks(self, slot_len: int, block_size: int) -> int:
+        return self.cross_blocks(block_size) + 1
+
+    def blocks_for_prompt(self, prompt_len: int, block_size: int) -> int:
+        return self.cross_blocks(block_size) + 1
+
+    def validate_geometry(self, slot_len: int, block_size: int) -> None:
+        if self.cfg.encoder_seq_len % block_size:
+            raise ValueError(
+                f"encoder_seq_len {self.cfg.encoder_seq_len} must be a "
+                f"multiple of block_size {block_size} to page the encoder "
+                "output")
+
+    def validate_prompt(self, prompt_len: int, slot_len: int) -> None:
+        if prompt_len != self.cfg.encoder_seq_len:
+            raise ValueError(
+                f"enc-dec prompts are audio frame ids padded to the encoder "
+                f"window: expected exactly {self.cfg.encoder_seq_len} "
+                f"frames, got {prompt_len}")
+
+
 def _stacked(one: dict, count: int) -> dict:
     """One layer's state leaves [B, ...] repeated over ``count`` layers:
     [count, B, ...]."""
@@ -295,7 +381,10 @@ def resolve(cfg: ModelConfig) -> CacheFamily:
     model dtype, as in the reference).  Dense and MoE blocks hold the same
     attention K/V, so both kinds, alone or mixed, take these families, as
     in the reference (``cache_family.py:79,199``); so do MLA blocks, with
-    their latent caches (``DenseFamily``)."""
+    their latent caches (``DenseFamily``).  An encoder-decoder config
+    takes ``EncDecFamily`` before anything else, as in the reference."""
+    if cfg.family == "encdec":
+        return EncDecFamily(cfg)
     kinds = {k for k, _ in transformer.block_pattern(cfg)}
     if kinds & STATE_KINDS:
         return FixedStateFamily(cfg)

@@ -1,5 +1,6 @@
 """Serving primitives: cache init, prefill, decode steps, logits and
-sampling, for three serving shapes over one decoder (dense, MoE or MLA).
+sampling, for three serving shapes over one decoder (dense, MoE, MLA or
+recurrent), and the encoder-decoder's paged serving.
 
 * **Lockstep batch** (``prefill`` + ``decode_step``): one scalar cache
   length shared by every row, the drain-and-refill baseline.
@@ -12,7 +13,10 @@ sampling, for three serving shapes over one decoder (dense, MoE or MLA).
   a shared block pool read through block tables; not for MLA
   (``paged_supported``).  A fixed-state config's pool holds one state row
   a sequence (``gather_state_rows`` / ``scatter_state_rows`` /
-  ``decode_step_state``).
+  ``decode_step_state``).  An enc-dec config's pool holds each audio's
+  cross-K/V blocks, shared by every request of that audio, and one decoder
+  self row a sequence (``encdec_prefill`` / ``encdec_prefill_cached`` /
+  ``install_encdec_row`` / ``decode_step_encdec_paged``).
 
 The contiguous caches are the cache family's layout: attention K/V
 ``{"k", "v": [L, B, S, Hkv, D]}`` (int8 adds ``"k_scale"``,
@@ -32,8 +36,14 @@ and zamba2's shared attention):
 ``copy_paged_block`` (265), ``write_paged_block`` (276),
 ``prefill_chunk_paged`` (291),
 ``decode_step_paged`` (305), ``gather_state_rows`` (330),
-``scatter_state_rows`` (346) and ``decode_step_state`` (366).  Caches and pools are updated in place (the JAX
-code returned new ones); functions still return them so the call sites read
+``scatter_state_rows`` (346) and ``decode_step_state`` (366); and for the
+enc-dec family ``encdec_prefill`` (391), ``encdec_decode_step`` (411),
+``ENCDEC_BOS`` (431), ``encdec_frames_from_ids`` (434),
+``encdec_prefill_cached`` (442), ``encdec_decode_step_slots`` (460),
+``gather_encdec_rows`` (475), ``gather_encdec_cross`` (495),
+``install_encdec_row`` (509) and ``decode_step_encdec_paged`` (535).  Caches and pools are updated in place
+(the JAX code returned new ones; its out-of-range "drop" writes are masked
+``index_copy_``s here); functions still return them so the call sites read
 like the reference's.
 
 Sampling takes its Gumbel noise as an argument: the scheduler draws it from
@@ -51,7 +61,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.topk_fusion import gumbel_pick, topk_sample
 from repro_torch.kernels import dispatch
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.serving import cache_family
 
 Tensor = torch.Tensor
@@ -276,9 +286,7 @@ def scatter_state_rows(cfg: ModelConfig, pools: dict, caches: dict,
     """Write a contiguous batch-B cache back into pool rows ``rows`` [B],
     in place.  Row indices outside the pool are dropped, so a row routed
     there (an inactive slot) never writes live state."""
-    n = next(iter(pools.values())).shape[1]
-    keep = ((rows >= 0) & (rows < n)).nonzero().squeeze(1)
-    dst = rows.index_select(0, keep)
+    keep, dst = _kept(rows, next(iter(pools.values())).shape[1])
     for name, x in pools.items():
         x.index_copy_(1, dst, caches[name].index_select(1, keep).to(x.dtype))
     return pools
@@ -302,4 +310,165 @@ def decode_step_state(params: dict, pools: dict, rows: Tensor,
         params, caches, slot_lens, tokens, cfg, noise=noise, top_k=top_k,
         temperature=temperature)
     scatter_state_rows(cfg, pools, caches, torch.where(active, rows, n))
+    return next_tok, pools, new_lens
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper) serving.  The prompt is the audio (frame ids);
+# the encoder output's cross-K/V projection is sliced into immutable,
+# shareable pool blocks, and each sequence owns one growing decoder
+# self-K/V row block.  A repeated same-audio request adopts the cross
+# blocks and the encoder does not run again.
+# ---------------------------------------------------------------------------
+#: Decoder start token of a served enc-dec request: the prompt is the
+#: audio, so every decoder row begins at the same BOS.
+ENCDEC_BOS = 0
+
+
+def encdec_prefill(params: dict, frames: Tensor, bos_tokens: Tensor,
+                   cfg: ModelConfig, *, max_len: int):
+    """Encode the frames [B, S_enc, D] and prime fresh decoder caches of
+    ``max_len`` with ``bos_tokens`` [B, T] (the cross leaves replaced by
+    the encoder output's projection).  Returns (last_hidden [B, D],
+    caches, length = T)."""
+    enc_out = encdec.encode(params, frames, cfg)
+    caches = init_cache(cfg, frames.shape[0], max_len, frames.device)
+    hidden, caches = encdec.decode_hidden(params, bos_tokens, enc_out, cfg,
+                                          caches=caches, cache_len=0)
+    return hidden[:, -1], caches, bos_tokens.shape[1]
+
+
+def encdec_decode_step(params: dict, caches: dict, cache_len: int,
+                       tokens: Tensor, cfg: ModelConfig, *, noise=None,
+                       generator=None, top_k: int = 5):
+    """One lockstep enc-dec decode step: tokens [B, 1] at the shared
+    length → (next_token [B], caches, cache_len + 1), sampled from the
+    last position's logits (``transformer.logits_last``) with one Gumbel
+    draw [B, k] (``noise``, or from ``generator``)."""
+    hidden, caches = encdec.decode_hidden(params, tokens, None, cfg,
+                                          caches=caches, cache_len=cache_len)
+    logits = transformer.logits_last(params, hidden, cfg)
+    next_tok, _ = topk_sample(logits, top_k, noise=noise, generator=generator)
+    return next_tok, caches, cache_len + 1
+
+
+def encdec_frames_from_ids(ids, cfg: ModelConfig, device="cuda") -> Tensor:
+    """Deterministic stand-in audio features: frame id ``i`` is row ``i``
+    of ``sinusoidal(vocab_size, d_model)`` (computed for the ids alone), so
+    identical id sequences are identical audio.  Returns frames
+    [1, S_enc, D] fp32 on ``device``."""
+    ids = torch.as_tensor(ids, dtype=torch.int64).to(device)
+    return encdec.sinusoidal_at(ids, cfg.d_model)[None]
+
+
+def encdec_prefill_cached(params: dict, cross: dict, bos_tokens: Tensor,
+                          cfg: ModelConfig, *, max_len: int):
+    """Prime a decoder cache from an already computed cross-K/V
+    projection ``{"cross_k", "cross_v": [L, B, S_enc, Hkv, D]}``, the path
+    a whole-audio prefix hit takes, without the encoder.  Bit-identical to
+    ``encdec_prefill`` of the same audio: the stored K/V are what the fresh
+    encode produced, and the attention over given K/V is the same call
+    either way.  Returns (last_hidden [B, D], caches, length)."""
+    caches = cache_family.resolve(cfg).self_cache(
+        bos_tokens.shape[0], max_len, bos_tokens.device)
+    caches.update(cross)
+    hidden, caches = encdec.decode_hidden(params, bos_tokens, None, cfg,
+                                          caches=caches, cache_len=0)
+    return hidden[:, -1], caches, bos_tokens.shape[1]
+
+
+def encdec_decode_step_slots(params: dict, caches: dict, slot_lens: Tensor,
+                             tokens: Tensor, cfg: ModelConfig, *,
+                             noise: Tensor, top_k: int = 5,
+                             temperature: float = 1.0):
+    """One continuous-batching enc-dec decode step: tokens [B, 1],
+    per-slot decoder lengths [B], Gumbel noise [B, k] → (next_token [B],
+    caches, slot_lens + 1), the noise a row's own, as in
+    ``decode_step_slots``."""
+    hidden, caches = encdec.decode_hidden(params, tokens, None, cfg,
+                                          caches=caches, cache_len=slot_lens)
+    logits = logits_from_hidden(params, hidden[:, -1], cfg)
+    next_tok = sample_per_slot(logits, top_k, noise, temperature)
+    return next_tok, caches, slot_lens + 1
+
+
+def _flat_cross(x: Tensor, bids: Tensor, b: int) -> Tensor:
+    """Pool blocks ``bids`` ([b · nc], row-major) of a cross leaf
+    [L, P, BS, Hkv, D] re-flattened to [L, b, nc · BS, Hkv, D] (a copy)."""
+    g = x.index_select(1, bids.reshape(-1))
+    return g.reshape((g.shape[0], b, -1) + tuple(g.shape[3:]))
+
+
+def gather_encdec_rows(pools: dict, cross_tables: Tensor,
+                       self_rows: Tensor) -> dict:
+    """Contiguous decoder caches from the pool (copies): ``cross_tables``
+    [B, S_enc // BS] gathers and re-flattens each row's encoder blocks,
+    ``self_rows`` [B] picks each row's self-K/V row."""
+    b = cross_tables.shape[0]
+    out = {name: pools[name].index_select(1, self_rows)
+           for name in encdec.SELF_LEAVES}
+    out.update({name: _flat_cross(pools[name], cross_tables, b)
+                for name in encdec.CROSS_LEAVES})
+    return out
+
+
+def gather_encdec_cross(pools: dict, cross_bids: Tensor) -> dict:
+    """Shared encoder blocks ``cross_bids`` [nc] re-flattened into one
+    batch-1 cross projection ``{"cross_k", "cross_v": [L, 1, S_enc, Hkv,
+    D]}``, the operand ``encdec_prefill_cached`` takes on a hit."""
+    return {name: _flat_cross(pools[name], cross_bids, 1)
+            for name in encdec.CROSS_LEAVES}
+
+
+def _kept(rows: Tensor, n: int) -> tuple[Tensor, Tensor]:
+    """(positions of ``rows`` inside [0, n), those rows): a write routed
+    out of range is dropped."""
+    keep = ((rows >= 0) & (rows < n)).nonzero().squeeze(1)
+    return keep, rows.index_select(0, keep)
+
+
+def install_encdec_row(pools: dict, caches: dict, cross_bids: Tensor,
+                       self_row: Tensor) -> dict:
+    """Write a freshly prefilled batch-1 decoder cache into the pool, in
+    place: the cross projection sliced into blocks ``cross_bids`` [nc] and
+    the self row into block ``self_row`` [1].  Indices outside the pool
+    are dropped: a prefix hit passes out-of-range cross ids, so the
+    shared blocks (the same values) are not written again."""
+    n = pools["self_k"].shape[1]
+    nc = cross_bids.shape[0]
+    keep, dst = _kept(self_row.reshape(1), n)
+    for name in encdec.SELF_LEAVES:
+        pools[name].index_copy_(1, dst, caches[name].index_select(1, keep)
+                                .to(pools[name].dtype))
+    keep, dst = _kept(cross_bids, n)
+    for name in encdec.CROSS_LEAVES:
+        v = caches[name]
+        blocks = v.reshape((v.shape[0], nc, v.shape[2] // nc)
+                           + tuple(v.shape[3:]))
+        pools[name].index_copy_(1, dst, blocks.index_select(1, keep)
+                                .to(pools[name].dtype))
+    return pools
+
+
+def decode_step_encdec_paged(params: dict, pools: dict,
+                             cross_tables: Tensor, self_rows: Tensor,
+                             active: Tensor, slot_lens: Tensor,
+                             tokens: Tensor, cfg: ModelConfig, *,
+                             noise: Tensor, top_k: int = 5,
+                             temperature: float = 1.0):
+    """One enc-dec decode step through the pool: gather the cross blocks
+    and self rows into a slot batch, run the slot decode step, and write
+    back only the self rows (cross blocks are immutable, maybe shared, and
+    a decode step never changes them).  Inactive slots gather the sentinel
+    row and their writes are dropped.  Returns (next_token [B], pools,
+    slot_lens + 1)."""
+    n = pools["self_k"].shape[1]
+    caches = gather_encdec_rows(pools, cross_tables,
+                                torch.where(active, self_rows, 0))
+    next_tok, caches, new_lens = encdec_decode_step_slots(
+        params, caches, slot_lens, tokens, cfg, noise=noise, top_k=top_k,
+        temperature=temperature)
+    keep, dst = _kept(torch.where(active, self_rows, n), n)
+    for name in encdec.SELF_LEAVES:
+        pools[name].index_copy_(1, dst, caches[name].index_select(1, keep))
     return next_tok, pools, new_lens

@@ -2,13 +2,18 @@
 
 Port of ``src/repro/serving/paged.py`` (``BlockAllocator`` line 80,
 ``PrefixIndex`` 142, ``PagedSeq`` 231, ``SwappedSeq`` 240, ``PagedPool``
-283) for the token families and the fixed-state family, whose block is a
+283) for the token families, the fixed-state family, whose block is a
 sequence's whole state row: one column of the table, one block a
 sequence admitted fresh and never shared (``_admit_state``, 526), written
 by ``install_state`` (587) when its prefill ends, and no per-step block
-upkeep.  The bookkeeping is plain Python and matches the
-reference's state exactly: admission with prefix sharing and copy-on-write
-at the divergence block, ``prepare_write`` before each decode step,
+upkeep; and the enc-dec family, whose table row is the audio's cross
+blocks and one self row: admitted under the whole-audio key
+(``_audio_key`` 520, ``_admit_encdec`` 544), the cross blocks shared by
+every request of the same audio, written by ``install_encdec`` (593) when
+a fresh encode ends and registered under that key.  The bookkeeping is
+plain Python and matches the reference's state exactly: admission with
+prefix sharing and copy-on-write at the divergence block,
+``prepare_write`` before each decode step,
 ``finalize_prefill``, ``release`` into the persistent LRU prefix cache (or
 straight to the free list with ``persistent_prefix=False``), the cache's
 reclaim under pressure, ``probe``, ``device_tables(active_slots)`` with
@@ -332,11 +337,15 @@ class PagedPool:
         plus the fresh blocks the unmatched part needs (prompt + the first
         decode write).  None when either is unavailable.  At most
         ``len(prompt) - 1`` tokens are adopted.  A fixed-state family
-        claims one fresh, unshared row block (``_admit_state``)."""
+        claims one fresh, unshared row block (``_admit_state``); an enc-dec
+        family matches the whole audio and claims a self row block
+        (``_admit_encdec``)."""
         if not self._free_rows:
             return None
         if self.family.kind == "state":
             return self._admit_state(prompt)
+        if self.family.kind == "encdec":
+            return self._admit_encdec(prompt)
         toks = [int(t) for t in prompt]
         n = len(toks)
         bs = self.block_size
@@ -411,6 +420,66 @@ class PagedPool:
                                    self.alloc.free_blocks)
         return seq
 
+    @staticmethod
+    def _audio_key(toks, block_size: int) -> tuple:
+        """The whole-audio identity an enc-dec prompt shares under: the
+        chain key over every frame block, which encodes the whole frame
+        sequence, so two prompts share it iff they are the same audio."""
+        return PrefixIndex.chain_keys(toks, block_size)[-1]
+
+    def _admit_encdec(self, prompt) -> Optional[PagedSeq]:
+        """Enc-dec admission: adopt the whole audio's encoder blocks on an
+        exact match (refcount + 1, no encoder run), else claim fresh ones;
+        always claim one self-K/V row block."""
+        toks = [int(t) for t in prompt]
+        nc = self.max_blocks - 1
+        audio = self._audio_key(toks, self.block_size)
+        shared: list[int] = []
+        for i in range(nc):
+            bid = self.index.lookup((audio, i))
+            if bid is None:
+                shared = []             # all or nothing by construction
+                break
+            shared.append(bid)
+        fresh_needed = (nc - len(shared)) + 1          # + the self row
+        if self.alloc.free_blocks < fresh_needed:
+            self._reclaim_until(fresh_needed, exclude=shared)
+        if self.alloc.free_blocks < fresh_needed:
+            return None
+        slot = self._free_rows.popleft()
+        for bid in shared:
+            if self.alloc.refcount(bid) == 1 and bid in self._cached:
+                self.prefix_cache_hits += 1
+            self.alloc.incref(bid)
+            self._touch(bid)
+        blocks = list(shared)
+        for _ in range(fresh_needed):
+            blocks.append(self.alloc.alloc())
+        matched = len(toks) if shared else 0
+        self.blocks_shared += len(shared)
+        self.tokens_reused += matched
+        self.tables[slot, :len(blocks)] = blocks
+        seq = PagedSeq(slot=slot, prompt=np.asarray(toks, np.int64),
+                       blocks=blocks, matched=matched)
+        self.seqs[slot] = seq
+        self.min_free_blocks = min(self.min_free_blocks,
+                                   self.alloc.free_blocks)
+        return seq
+
+    def install_encdec(self, seq: PagedSeq, caches: dict) -> None:
+        """Write a freshly prefilled batch-1 decoder cache into the pool:
+        the self row always; the cross blocks only when this sequence
+        computed them (a hit adopted the same shared blocks, which are not
+        written again: their ids are routed out of range and dropped)."""
+        nc = self.max_blocks - 1
+        cross = ([self.alloc.num_blocks] * nc if seq.matched
+                 else seq.blocks[:nc])
+        engine.install_encdec_row(
+            self.caches, caches,
+            torch.tensor(cross, dtype=torch.int64, device=self.device),
+            torch.tensor([seq.blocks[nc]], dtype=torch.int64,
+                         device=self.device))
+
     def install_state(self, seq: PagedSeq, caches: dict) -> None:
         """Write a freshly-prefilled batch-1 contiguous cache into the
         sequence's state row block, in place."""
@@ -421,11 +490,18 @@ class PagedPool:
     def finalize_prefill(self, seq: PagedSeq) -> None:
         """Register the finished prompt's block chain so later arrivals with
         the same prefix share it (full blocks exact, a partial tail as a
-        divergence candidate)."""
+        divergence candidate); an enc-dec sequence's cross blocks under
+        its whole-audio key."""
         if not self.family.shareable:
             return
         toks = [int(t) for t in seq.prompt]
         bs = self.block_size
+        if self.family.kind == "encdec":
+            # the cross blocks, under the whole-audio key
+            audio = self._audio_key(toks, bs)
+            for i, bid in enumerate(seq.blocks[:self.max_blocks - 1]):
+                self.index.register((audio, i), bid)
+            return
         key: tuple = ()
         n_full = len(toks) // bs
         for i in range(n_full):
@@ -443,10 +519,14 @@ class PagedPool:
 
     def probe(self, prompt) -> int:
         """Read-only: prompt tokens an ``admit`` would adopt right now (none
-        for a fixed-state family)."""
+        for a fixed-state family, the whole audio or none for enc-dec)."""
         if self.family.kind == "state":
             return 0
         toks = [int(t) for t in prompt]
+        if self.family.kind == "encdec":
+            audio = self._audio_key(toks, self.block_size)
+            return len(toks) if self.index.lookup((audio, 0)) is not None \
+                else 0
         cap = len(toks) - 1
         bs = self.block_size
         matched = 0

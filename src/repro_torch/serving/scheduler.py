@@ -3,7 +3,8 @@
 Port of ``src/repro/serving/scheduler.py`` for ``ContinuousScheduler``
 with the token cache families (fp and int8 K/V) and the fixed-state family
 (recurrent state rows), unpaged (``paged=False``, the slot pool) and
-paged: ``Request`` (line 106), ``RequestResult`` (126),
+paged, and the enc-dec family, paged only (refused unpaged, as at line
+521): ``Request`` (line 106), ``RequestResult`` (126),
 ``ServeReport`` (190, with ``merge`` at 249), ``SlotPool`` (410),
 ``poisson_workload`` (1238, the same numpy draws) and the scheduler's
 admit → chunked prefill → pooled decode tick, with priorities, deadlines
@@ -35,7 +36,11 @@ and preempt-and-swap.
   slot acquired when the prefill finishes; paged, chunks write straight
   into the pool through the sequence's table row, except a fixed-state
   family's, which fills a scratch cache installed into its state row when
-  the prefill finishes (``PagedPool.install_state``).
+  the prefill finishes (``PagedPool.install_state``).  An enc-dec prompt
+  (the whole audio) prefills in one shot: the frames are encoded, or on a
+  whole-audio hit the shared cross blocks are gathered and the encoder
+  skipped, and the decoder row primed at BOS is installed into the pool
+  (``PagedPool.install_encdec``).
 * **Decode** — one step over every slot per tick.  Unpaged, idle slots
   decode too (at length 0, writing garbage at position 0 that the next
   insert overwrites) and their lengths are reset to 0 after the step; paged,
@@ -43,7 +48,9 @@ and preempt-and-swap.
   (and no swap can make room for) is evicted before the step; a
   fixed-state pool decodes each active slot's state row
   (``engine.decode_step_state``), the others reading the sentinel row and
-  writing nothing.
+  writing nothing; an enc-dec pool gathers each active row's cross blocks
+  and self row and writes back the self rows
+  (``engine.decode_step_encdec_paged``).
 * **Sampling noise** — each request owns a ``torch.Generator`` seeded from
   ``(seed, rid)`` and draws its ``k`` Gumbels per token from it, so a
   request's stream does not depend on its neighbours, on arrival order, on
@@ -379,6 +386,11 @@ class ContinuousScheduler:
         self.params = params
         self.cfg = cfg
         self.family = cache_family.resolve(cfg)
+        if self.family.requires_paged and not paged:
+            raise ValueError(
+                f"{cfg.name!r} serves only in paged mode: the encoder output "
+                "pages as immutable shared blocks "
+                f"(family={self.family.name!r})")
         self.device = torch.device(device)
         self.clock = clock or obs_clock.get()
         self.paged = paged
@@ -638,7 +650,11 @@ class ContinuousScheduler:
             # prefill resumes at the first unmatched token: adopted prefix
             # blocks already hold the same cache content
             start, caches = seq.matched, None
-            if self.family.kind == "state":
+            if self.family.kind == "encdec":
+                # one shot over the whole audio: encode it, or adopt the
+                # shared cross blocks (``_advance_encdec_prefill``)
+                start = 0
+            elif self.family.kind == "state":
                 # a batch-1 scratch cache, installed into the sequence's
                 # state row when the prefill finishes
                 caches = engine.init_cache(self.cfg, 1, self.pool.slot_len,
@@ -758,6 +774,9 @@ class ContinuousScheduler:
             return
         budget = max(1, self.pool.free_slots) if self.active else 10 ** 9
         pf = self._prefill
+        if self.paged and self.family.kind == "encdec":
+            self._advance_encdec_prefill(pf)
+            return
         prompt = pf["flight"].req.prompt
         while budget > 0 and pf["sizes"]:
             width = pf["sizes"].popleft()
@@ -785,6 +804,44 @@ class ContinuousScheduler:
         if not pf["sizes"]:
             self._finish_prefill()
 
+    def _advance_encdec_prefill(self, pf: dict) -> None:
+        """One-shot enc-dec prefill: a whole-audio hit gathers the shared
+        cross blocks and skips the encoder; a miss encodes the frames.
+        Both prime a decoder row at BOS and give the same decoder caches
+        for the same audio."""
+        flight, seq = pf["flight"], pf["seq"]
+        width = len(flight.req.prompt)
+        bos = torch.full((1, 1), engine.ENCDEC_BOS, dtype=torch.int64,
+                         device=self.device)
+        span = (self.tracer.begin(
+            "prefill_chunk", tid=self._tid(flight.req.rid), pid=self._pid,
+            args={"pos": 0, "width": width,
+                  "encoder_skipped": bool(seq.matched)})
+            if self.tracer is not None else None)
+        if seq.matched:
+            nc = self.pool.max_blocks - 1
+            cross = engine.gather_encdec_cross(
+                self.pool.caches, torch.tensor(seq.blocks[:nc],
+                                               dtype=torch.int64,
+                                               device=self.device))
+            pf["last"], pf["caches"], pf["length"] = \
+                engine.encdec_prefill_cached(self.params, cross, bos,
+                                             self.cfg,
+                                             max_len=self.pool.slot_len)
+        else:
+            frames = engine.encdec_frames_from_ids(flight.req.prompt,
+                                                   self.cfg, self.device)
+            pf["last"], pf["caches"], pf["length"] = engine.encdec_prefill(
+                self.params, frames, bos, self.cfg,
+                max_len=self.pool.slot_len)
+        pf["sizes"].clear()
+        pf["pos"] = width
+        self.prefill_chunks += 1
+        self.chunk_widths[width] += 1
+        if span is not None:
+            self.tracer.end(span)
+        self._finish_prefill()
+
     def _finish_prefill(self) -> None:
         pf = self._prefill
         self._prefill = None
@@ -804,6 +861,8 @@ class ContinuousScheduler:
             slot = flight.slot               # row claimed at admission
             if self.family.kind == "state":
                 self.pool.install_state(pf["seq"], pf["caches"])
+            elif self.family.kind == "encdec":
+                self.pool.install_encdec(pf["seq"], pf["caches"])
             self.pool.finalize_prefill(pf["seq"])
             self.pool.lens[slot] = pf["length"]
         else:
@@ -859,6 +918,17 @@ class ContinuousScheduler:
                     torch.from_numpy(rows).to(self.device),
                     torch.from_numpy(active_mask).to(self.device), lens,
                     toks, self.cfg)
+        elif self.paged and self.family.kind == "encdec":
+            # a table row is [cross blocks..., self row]; the cross blocks
+            # are immutable, so only the self rows are written back
+            tables = self.pool.device_tables(self.active.keys())
+            nc = self.pool.max_blocks - 1
+            step, label = (engine.decode_step_encdec_paged,
+                           "decode_step_encdec_paged")
+            args = (self.params, self.pool.caches, tables[:, :nc],
+                    tables[:, nc].long(),
+                    torch.from_numpy(active_mask).to(self.device), lens,
+                    toks, self.cfg)
         elif self.paged:
             # non-active rows (idle or mid-prefill) see the sentinel table
             # row: their length-0 garbage write lands in block 0
@@ -872,11 +942,13 @@ class ContinuousScheduler:
             step, label = engine.decode_step_slots, "decode_step"
             args = (self.params, self.pool.caches, lens, toks, self.cfg)
         if (not self._profiled and obs_kernels.profiling_enabled()
-                and label != "decode_step_state"):
+                and label not in ("decode_step_state",
+                                  "decode_step_encdec_paged")):
             # one-time profile of this step: its analytic cost from the
             # live lengths now and, on the card, a replay on private copies
             # once the serve is over (obs.kernels.run_pending); a
-            # fixed-state pool's step is not profiled, as in the reference
+            # fixed-state or enc-dec pool's step is not profiled, as in
+            # the reference
             self._profiled = True
             cost = obs_kernels.decode_step_cost(
                 self.cfg, n, [int(self.pool.lens[s]) + 1

@@ -50,7 +50,7 @@ def test_configs_match_reference(arch_fn):
 
 def test_configs_reject_unported_arch():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        configs.get("whisper_small")
+        configs.get("llava_next_34b")
 
 
 @pytest.mark.parametrize("shape,masked_rows", [((4, 37), ()),

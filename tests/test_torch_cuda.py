@@ -1641,3 +1641,79 @@ def test_state_streams_equal_on_card_and_cpu(cuda, arch, paged):
     assert counts["flash_decode_paged"] == counts["flash_attention_paged"] \
         == 0
     assert counts["softmax_topk"] == sched.decode_steps + sched.prefills_done
+
+
+# ---------------------------------------------------------------------------
+# Training the recurrent decoders; serving the encoder-decoder.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_125m"])
+def test_state_train_steps(cuda, arch):
+    """Two bf16 train steps of a small recurrent model (zamba2's smoke
+    stack with 2/2 heads of 64 in its shared block, 3 calls; xlstm's smoke
+    stack) under remat "full" and "block": finite losses, per step 2
+    forward, 1 dq and 1 dk/dv launch a shared-block call (none for
+    xlstm), and the same parameters bit for bit."""
+    from repro_torch import tree
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.training.train_step import init_state, make_train_step
+    base = configs.get_smoke(arch).replace(dtype="bfloat16")
+    if arch == "zamba2_1p2b":
+        base = base.replace(d_model=128, num_heads=2, num_kv_heads=2,
+                            head_dim=64)
+    calls = transformer.layer_counts(base).get("attn", 0)
+    ds = SyntheticDataset(SyntheticConfig(base.vocab_size, 64, 2))
+    out = {}
+    for remat in ("full", "block"):
+        run = RunConfig(model=base.replace(remat=remat))
+        params, opt = init_state(run, device=cuda)
+        step = make_train_step(run)
+        dispatch.reset_launch_counts()
+        for i in range(2):
+            batch = {k: torch.as_tensor(x, device=cuda)
+                     for k, x in ds.batch(i).items()}
+            params, opt, m = step(params, opt, batch)
+            assert np.isfinite(float(m["loss"]))
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        assert counts["flash_attention"] == 2 * 2 * calls
+        assert counts["flash_attention_bwd_dq"] == 2 * calls
+        assert counts["flash_attention_bwd_dkv"] == 2 * calls
+        out[remat] = tree.leaves(params)
+    assert calls == (3 if arch == "zamba2_1p2b" else 0)
+    assert all(torch.equal(a, b) for a, b in zip(out["full"], out["block"]))
+
+
+def test_encdec_streams_equal_on_card_and_cpu(cuda):
+    """whisper's smoke stack with 2/2 heads of 64 served through the paged
+    pool on the card and on the CPU (fp32, 5 requests over 2 audios):
+    identical streams and pool accounting, repeats sharing their audio's
+    cross blocks; on the card the encoder's row-6 launches one a layer
+    and fresh encode, row 4 two a decoder layer (self and cross) for every
+    decode step and prefill, and the sampler's."""
+    from repro_torch.models import encdec
+    cfg = configs.get_smoke("whisper_small").replace(
+        d_model=128, num_heads=2, num_kv_heads=2, head_dim=64)
+    params_cpu = encdec.init(cfg, seed=4, device="cpu")
+    argv = ["--arch", "whisper_small", "--smoke", "--continuous", "--paged",
+            "--requests", "5", "--tokens", "8", "--slots", "2", "--audios",
+            "2", "--blocks", "60"]
+    runs = {}
+    for device, params in (("cuda", transformer.params_to(params_cpu, cuda)),
+                           ("cpu", params_cpu)):
+        args = serve.parse_args(argv + ["--device", device])
+        dispatch.reset_launch_counts()
+        report, router, _, _ = serve.run(args, cfg, params)
+        runs[device] = (report, router.engines[0].scheduler,
+                        dispatch.launch_counts())
+    (rep_g, sched, counts), (rep_c, _, _) = runs["cuda"], runs["cpu"]
+    assert {r.rid: r.tokens for r in rep_g.results} == \
+        {r.rid: r.tokens for r in rep_c.results}
+    assert rep_g.paged == rep_c.paged and rep_g.paged["blocks_shared"] > 0
+    fresh = sched.prefill_chunks - rep_g.paged["tokens_reused"] \
+        // cfg.encoder_seq_len
+    assert counts["flash_attention"] == cfg.encoder_layers * fresh
+    assert counts["flash_decode"] == 2 * cfg.num_layers * (
+        sched.decode_steps + sched.prefill_chunks)
+    assert counts["flash_attention_offset"] == 0
+    assert counts["softmax_topk"] == sched.decode_steps + sched.prefills_done

@@ -108,8 +108,8 @@ def test_configs_match_reference(arch, which):
 
 
 def test_unported_arch_still_raises():
-    with pytest.raises(NotImplementedError, match="whisper_small"):
-        configs.get("whisper_small")
+    with pytest.raises(NotImplementedError, match="llava_next_34b"):
+        configs.get("llava_next_34b")
 
 
 def test_untied_head_through_init_convert_and_logits(model):
