@@ -101,6 +101,14 @@ printing its final line:
    all 1536 cross keys and over short ragged self lengths at B 8 (its
    split plan at S 1536 printed, a repeat bit-equal), fp32 and bf16, and
    the sampler at [8, 51968] with every row's 103 padded entries -inf;
+   then whisper-small's training: rows 6 and 7 non-causal at Tq ≠ Tk, the
+   cross-attention's 256 queries over 1536 keys, forward, dq and dk/dv
+   and ``FlashAttention``'s gradients, fp32 and bf16; then
+   llava-next-34b's (56/8 heads of 128, G 7): the sampler at [8, 64000]
+   and the lockstep's [2, 64000], row 5 at the lockstep prefill (B 2, Tq
+   2944 at offset 0 over caches of 2960, each dtype's form named from the
+   profiler), row 4 over 2945 and 2960 keys (a repeat bit-equal), rows 6
+   and 7 causal at its training sequence of 3136, fp32 and bf16;
 4. serve: smollm-360m at full width and ``SMOLLM_LAYERS`` of its 32 layers
    in bf16 through its three serving paths,
    then the same three with ``--kv-cache-dtype int8``, each with the launch
@@ -177,7 +185,14 @@ printing its final line:
    step and 24 a prefill, the sampler one each), tok/s, p50 / p95, peak
    memory, the pool's bytes a cached decoder token and an audio, and
    "step" lines (a B 8 paged decode step beside ``decode_step_cost``, a
-   fresh prefill);
+   fresh prefill); then the VLM llava-next-34b at full width and
+   ``LLAVA_SERVE_LAYERS`` of its 60 layers (bf16, weights drawn on the
+   card) through the lockstep loop (``LLAVA_LOCKSTEP_ARGS``: 2 prompts of
+   64 behind the CLI's 2880 seeded patch embeddings, 16 tokens), between a
+   reset and a read of the launch counts (one row-5 prefill and 15 row-4
+   decode launches a layer, one sampler launch a token), its ``prefill:``
+   / ``decode:`` lines, peak memory, and "step" lines (a decode step over
+   2960 keys and the prefill beside the weights' byte bound);
 5. parity: short fp32 workloads of the three paths (smollm-360m at full
    width and ``SMOLLM_LAYERS`` layers), once on the
    card through the kernels and once on the CPU through the plain versions;
@@ -230,11 +245,21 @@ printing its final line:
    at full width and 4 of its 62 layers, its decompressed attention
    through the training kernels' (96, 64) instances (the same launch
    counts, no latent kernel); then the recurrent decoders at full width
-   and depth (``TRAIN_STATE``): zamba2-1.2b's 38 layers (14 forward, 7 dq
-   and 7 dk/dv launches a step: its shared block's 7 calls) and
-   xlstm-125m's 12 (no attention launch), ``TRAIN_STATE_STEPS`` steps and
+   (``TRAIN_STATE``): zamba2-1.2b at 20 of 38 layers (8 forward, 4 dq and
+   4 dk/dv launches a step: its shared block's 4 calls) and xlstm-125m at
+   its full 12 (no attention launch), ``TRAIN_STATE_STEPS`` steps and
    ``REMAT_STATE_STEPS`` under each remat policy, the step line with the
-   recurrent cores' device time alone beside it;
+   recurrent cores' device time alone beside it; then, through
+   ``training.train_step`` (``init_state``, ``make_train_step``,
+   ``training.loop.run``) as a user trains them outside the CLI, whose
+   stream carries neither frames nor patches: whisper-small at full width
+   and depth (``WHISPER_TRAIN``: B 8 x 256 tokens beside frames [8, 1536,
+   768] bf16; 72 forward, 36 dq and 36 dk/dv launches a step: the
+   encoder's non-causal self-attention, the decoder's causal one and its
+   cross-attention, each forward twice under the layers' checkpoints) and
+   llava-next-34b at full width and ``LLAVA_TRAIN_LAYERS`` of its 60
+   (``LLAVA_TRAIN``: 1 x 256 tokens behind its 2880 patch embeddings, T'
+   3136), each with its launches, peak memory and a step line;
 7. train parity: one fp32 loss-and-gradient evaluation of each full-width
    model cut to 2 layers (batch ``TRAIN_PARITY``; one sequence of it and
    one layer for the head_dim-128 models and minicpm3-4b) on the card through the
@@ -244,7 +269,12 @@ printing its final line:
    keeping the same assignments on both devices in every layer, and
    minicpm3's MLA leaves among the gradients held; then zamba2-1.2b at 7
    layers (two shared-block calls) and xlstm-125m at 6 (layer 5 an
-   sLSTM), one sequence of 256 tokens, weights drawn on the card;
+   sLSTM), one sequence of 256 tokens, weights drawn on the card; then
+   whisper-small at 2 + 2 layers with frames [1, 1536, 768]; then
+   llava-next-34b at 1 layer and ``LLAVA_PARITY``'s 64 patches: a forward
+   within ``STATE_PARITY_RTOL``, the lockstep streams identical under the
+   same injected Gumbel draws, and loss and gradients (``mm_proj``'s
+   among them) with a patch batch;
 8. times: each kernel, first held against its plain version on the very
    inputs it is timed on (CUDA events, median of 20 samples after warm-up) at
    the serving and training paths' shapes (the serving kernels' D-128
@@ -261,7 +291,12 @@ printing its final line:
    zamba2's 32/32 heads of 64: its slot pool's decode and its single-shot
    prefill of 256 tokens; rows 6 and 7 at zamba2's training shape, B 8, T
    512, 32/32 heads of 64; whisper-small's row 6 non-causal at B 1, T
-   1536, row 4 over 1536 keys at B 8 and the sampler at [8, 51968]),
+   1536, row 4 over 1536 keys at B 8 and the sampler at [8, 51968];
+   rows 6 and 7 non-causal at whisper's training encoder, B 8, T 1536,
+   and cross-attention, B 8, 256 queries over 1536 keys; llava's sampler
+   at [2, 64000], row 4 at B 2 over 2960 keys and row 5 at its lockstep
+   prefill, G 7 D 128, and rows 6 and 7 at its training sequence, B 1, T
+   3136),
    beside its bound, its plain
    version and, where one PyTorch call computes the same function, that
    call; the cached prefill at the slot pool's chunk, the lockstep prefill
@@ -492,12 +527,15 @@ TRAIN_128_ARGS = ["--seq-len", "512", "--global-batch", "8"]
 # layer (2 until the recurrent decoders' phases took the script's time)
 TRAIN_PARITY_128 = ("mistral_nemo_12b", "qwen2_moe_a2p7b", "minicpm3_4b")
 TRAIN_PARITY_BATCH_128 = dict(layers=1, batch=1, seq_len=128)
-# phase 6's recurrent decoders, at full width and depth: zamba2-1.2b (38
-# Mamba2 layers, its shared block called 7 times: 2.34 GB of bf16 weights,
-# ~17 GB with the fp32 gradient copy and moments) and xlstm-125m (12
-# layers, 0.40 GB); TRAIN_STATE_STEPS steps of 8 x 512 under remat "full"
-# each, then REMAT_STATE_STEPS under "block" and "full"
-TRAIN_STATE = (("zamba2-1.2b", "zamba2 train", ["--arch", "zamba2_1p2b"]),
+# phase 6's recurrent decoders, at full width: zamba2-1.2b at 20 of its 38
+# Mamba2 layers (its shared block called 4 times, the last after a segment
+# of 2, as at 38's 7th call; full depth until the encoder-decoder's and
+# the VLM's training took the script's time) and xlstm-125m at full depth
+# (12 layers: at 6 its loss rose over the two steps, so it keeps its
+# depth); TRAIN_STATE_STEPS steps of 8 x 512 under remat "full" each, then
+# REMAT_STATE_STEPS under "block" and "full"
+TRAIN_STATE = (("zamba2-1.2b", "zamba2 train",
+                ["--arch", "zamba2_1p2b", "--layers", "20"]),
                ("xlstm-125m", "xlstm train", ["--arch", "xlstm_125m"]))
 TRAIN_STATE_STEPS = 2
 # their remat "block" / "full" comparison: one step each (an xlstm step is
@@ -1183,8 +1221,9 @@ def _check_contiguous_decode(gen) -> float:
 
 def _offset_err(inputs, qo, vl, what: str, atol: float):
     """The contiguous prefill kernel against its plain version on one
-    input; raises beyond ``atol``, on non-finite output or when the -inf
-    pattern of lse differs.  Returns (max abs error, the kernel's lse)."""
+    input; raises beyond ``atol`` (the output's ``_scaled_err``, lse's max
+    abs error), on non-finite output or when the -inf pattern of lse
+    differs.  Returns (that error, the kernel's lse)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     q, k, v, k0, v0 = inputs
@@ -1197,10 +1236,10 @@ def _offset_err(inputs, qo, vl, what: str, atol: float):
     if not torch.equal(torch.isneginf(lse), torch.isneginf(w_lse)):
         _fail(f"flash_attention_offset {what}: lse -inf pattern differs")
     fin = torch.isfinite(w_lse)
-    err = max((out.float() - w_out.float()).abs().max().item(),
+    err = max(_scaled_err(out, w_out, absolute=True),
               (lse[fin] - w_lse[fin]).abs().max().item())
     if err > atol:
-        _fail(f"flash_attention_offset {what}: max abs err {err:.3g} > "
+        _fail(f"flash_attention_offset {what}: row-scaled err {err:.3g} > "
               f"{atol}")
     return err, lse
 
@@ -1234,7 +1273,7 @@ OFFSET_FORMS = {"float32": ("CUDA cores", "prefill_offset_kernel"),
 
 def _check_offset(gen, hkv: int = 5, g: int = 3, d: int = 64) -> float:
     """Every case of ``_offset_cases`` in fp32 (atol 1e-5) and bf16 (atol
-    2e-2), K/V NaN at and past each row's valid length, under
+    2e-2; ``_offset_err``), K/V NaN at and past each row's valid length, under
     torch.profiler, which must see that dtype's form (``OFFSET_FORMS``) and
     no other port kernel."""
     import torch
@@ -1271,45 +1310,88 @@ def _check_offset(gen, hkv: int = 5, g: int = 3, d: int = 64) -> float:
               f"{symbol}): {len(errs)} cases (64-token chunks at q_offset "
               f"0/64/192, tails 32..1, B=3 Tq=37 with a keyless row, "
               f"lockstep B=4 Tq=256, single-shot Tq=Tk=80/272, q_offset "
-              f"100/37/150/3, Tq=65/130; K/V NaN past vlen): max abs err "
+              f"100/37/150/3, Tq=65/130; K/V NaN past vlen): row-scaled err "
               f"{max(errs):.3g} (atol {atol})")
     return worst
 
 
-def _fresh_inputs(gen, *, dtype, b, t, hkv=5, g=3, d=64, spare=16, dv=None):
-    """q [B, T, Hq, D], dout [B, T, Hq, Dv] and k [B, T, Hkv, D], v
-    [B, T, Hkv, Dv] on the card, k and v cut from buffers of T + ``spare``
-    positions whose rows past T are NaN (so they are strided views, and a
-    kernel that reads past T turns its output NaN).  Dv is D unless ``dv``
+def _fresh_inputs(gen, *, dtype, b, t, hkv=5, g=3, d=64, spare=16, dv=None,
+                  tk=None):
+    """q [B, T, Hq, D], dout [B, T, Hq, Dv] and k [B, Tk, Hkv, D], v
+    [B, Tk, Hkv, Dv] on the card (Tk is T unless ``tk`` is given: the
+    cross-attention's keys), k and v cut from buffers of Tk + ``spare``
+    positions whose rows past Tk are NaN (so they are strided views, and a
+    kernel that reads past Tk turns its output NaN).  Dv is D unless ``dv``
     is given (MLA's 96 / 64: k and v then come from buffers of their own,
     with strides of their own)."""
     import torch
+    tk = tk or t
     q = torch.randn(b, t, hkv * g, d, generator=gen)
     dout = torch.randn(b, t, hkv * g, dv or d, generator=gen)
     if dv is not None:
-        k = torch.randn(b, t + spare, hkv, d, generator=gen)
-        v = torch.randn(b, t + spare, hkv, dv, generator=gen)
-        k[:, t:] = v[:, t:] = float("nan")
-        k, v = (x.to(device="cuda", dtype=dtype)[:, :t] for x in (k, v))
+        k = torch.randn(b, tk + spare, hkv, d, generator=gen)
+        v = torch.randn(b, tk + spare, hkv, dv, generator=gen)
+        k[:, tk:] = v[:, tk:] = float("nan")
+        k, v = (x.to(device="cuda", dtype=dtype)[:, :tk] for x in (k, v))
     else:
-        kv = torch.randn(2, b, t + spare, hkv, d, generator=gen)
-        kv[:, :, t:] = float("nan")
+        kv = torch.randn(2, b, tk + spare, hkv, d, generator=gen)
+        kv[:, :, tk:] = float("nan")
         kv = kv.to(device="cuda", dtype=dtype)
-        k, v = kv[0, :, :t], kv[1, :, :t]
+        k, v = kv[0, :, :tk], kv[1, :, :tk]
     return (q.to(device="cuda", dtype=dtype), k, v,
             dout.to(device="cuda", dtype=dtype))
 
 
-def _scaled_err(got, want) -> float:
-    """Max abs error over the larger of 1 and the reference's largest
-    entry (gradients sum over up to T keys or queries)."""
-    scale = max(1.0, want.float().abs().max().item())
-    return (got.float() - want.float()).abs().max().item() / scale
+def _scaled_err(got, want, *, by_row: bool = True,
+                absolute: bool = False) -> float:
+    """A bf16 output's largest error of a row (the last axis: one query's
+    output or dq, one key's dk or dv, one head's decode output) over that
+    row's largest reference entry, floored at ``ROW_FLOOR`` of the
+    tensor's largest (a row the maths makes ~0, as a keyless query's or a
+    causal dq's first, is held at that scale).  At the long-key shapes a
+    row's entries lie far below 1 (a causal row late in 3136 keys, a
+    cross-attention row over 1536), so a scale of 1, or of the whole
+    tensor, would let a wrong row of the tensor-core forms pass.
+
+    Without ``by_row``, a bf16 error is over the tensor's largest entry:
+    for ``FlashAttention`` against autograd through the plain forward,
+    whose bf16 backward takes delta from the rounded output (as the
+    reference's does) where autograd's softmax takes it exact, an
+    absolute difference that a small row would magnify.  With
+    ``absolute`` (the decode and cached-prefill checks, which held the max
+    abs error before rows were scaled) a row's scale is at most 1.
+
+    Other dtypes, and a bf16 tensor whose largest entry is below
+    ``NOISE_PEAK`` (rounding noise around a zero the maths gives: one
+    key's dq and dk), take the max abs error over the larger of 1 and that
+    entry, or with ``absolute`` the max abs error itself: fp32 is held at
+    1e-5, below bf16's own rounding, where its noise rows (~1e-6) would
+    fail a row scale.  NaN anywhere reads as inf."""
+    import torch
+    g, w = got.float(), want.float()
+    peak = w.abs().max().item()
+    diff = (g - w).abs()
+    if want.dtype != torch.bfloat16 or peak < NOISE_PEAK:
+        err = diff.max().item() / (1.0 if absolute else max(1.0, peak))
+    elif not by_row:
+        err = diff.max().item() / peak
+    else:
+        rows = w.abs().amax(-1, keepdim=True).clamp_min(ROW_FLOOR * peak)
+        if absolute:
+            rows = rows.clamp_max(1.0)
+        err = (diff / rows).max().item()
+    return err if err == err else float("inf")
+
+
+# ``_scaled_err``'s floors: a bf16 row's scale is at least this share of
+# the tensor's largest entry, and a bf16 tensor below this largest entry
+# is noise
+ROW_FLOOR, NOISE_PEAK = 1e-2, 1e-3
 
 
 def _fresh_errs(q, k, v, dout, causal: bool) -> dict:
     """The fresh forward and the two backward kernels against their plain
-    versions on one input: {name: scaled max abs error}."""
+    versions on one input: {name: ``_scaled_err``}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -1396,8 +1478,9 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64,
     against autograd through the plain forward.  The first case of each
     dtype runs under torch.profiler, which must see that dtype's form
     (``FRESH_FORMS``) at head dims (``d``, ``dv``) (each symbol's template
-    arguments) and no other port kernel.  Errors are max abs over max(1,
-    the largest reference entry); fp32 within 1e-5, bf16 within 2e-2.
+    arguments) and no other port kernel.  Errors are ``_scaled_err``'s
+    (bf16: each row's over its largest entry); fp32 within 1e-5, bf16
+    within 2e-2.
     Returns the bf16 errors: the training path runs bf16."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -1433,7 +1516,7 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64,
                 for name, err in case.items():
                     if err > atol:
                         _fail(f"{name} {str(dtype)[6:]} {heads} T={t} "
-                              f"causal={causal}: scaled max abs err "
+                              f"causal={causal}: row-scaled err "
                               f"{err:.3g} > {atol}")
                     errs[name] = max(errs[name], err)
         q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=2, t=37, hkv=hkv,
@@ -1448,14 +1531,15 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64,
             fn(*args).backward(dout)
             grads.append([a.grad for a in args])
         torch.cuda.synchronize()
-        auto = max(_scaled_err(a, b_) for a, b_ in zip(*grads))
+        auto = max(_scaled_err(a, b_, by_row=False)
+                   for a, b_ in zip(*grads))
         if auto > atol:
             _fail(f"FlashAttention {str(dtype)[6:]} {heads}: gradients "
                   f"differ from autograd through the plain forward by "
                   f"{auto:.3g}")
         print(f"kernel fresh attention {str(dtype)[6:]} on the {form} "
               f"({', '.join(seen)} seen by the profiler) B=2 {heads} "
-              f"T=512/37/1 causal and not, K/V NaN past T: scaled max abs "
+              f"T=512/37/1 causal and not, K/V NaN past T: row-scaled "
               f"err forward {errs['flash_attention']:.3g}, dq "
               f"{errs['flash_attention_bwd_dq']:.3g}, dk/dv "
               f"{errs['flash_attention_bwd_dkv']:.3g}; FlashAttention "
@@ -2146,6 +2230,8 @@ def phase_kernels() -> dict:
     errs.update(_check_mla_train(gen))
     errs.update(_check_state_shapes(gen))
     errs.update(_check_whisper_shapes(gen))
+    errs.update(_check_whisper_train_shapes(gen))
+    errs.update(_check_llava_shapes(gen))
     return errs
 
 
@@ -2175,7 +2261,8 @@ def _check_whisper_shapes(gen) -> dict:
     self-attention's short ragged lengths, 12/12 heads (fp32 and bf16,
     every position past a row's length NaN, the split plan at S 1536
     printed); row 1 at [8, 51968] with every row's 103 padded entries
-    -inf.  Returns {instance: max abs error}: ``flash_attention_nc_t1536``,
+    -inf.  Errors are ``_scaled_err``'s (bf16: each row's over its
+    largest entry).  Returns {instance: error}: ``flash_attention_nc_t1536``,
     ``flash_decode_s1536``, ``softmax_topk_v51968`` (bf16 for the
     attention, as the serving path runs)."""
     import torch
@@ -2200,24 +2287,183 @@ def _check_whisper_shapes(gen) -> dict:
             again = fd.flash_decode(q, k, v, vl)
             want = fd.flash_decode_plain(q, k0, v0, vl)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            err = _scaled_err(got, want, absolute=True)
             if not torch.isfinite(got).all() or err > atol or \
                     not torch.equal(got, again):
                 _fail(f"flash_decode {name} B=8 S={WHISPER_S_ENC} {heads} "
-                      f"vlen {vlens}: max abs err {err:.3g} (atol {atol}), "
-                      f"repeat equal {torch.equal(got, again)}")
+                      f"vlen {vlens}: row-scaled err {err:.3g} (atol "
+                      f"{atol}), repeat equal {torch.equal(got, again)}")
             decode = max(decode, err)
         print(f"kernel whisper-small {name}: fresh attention non-causal "
-              f"B=1 T={WHISPER_S_ENC} {heads}, K/V NaN past T: scaled max "
-              f"abs err forward {found['flash_attention']:.3g}, dq "
+              f"B=1 T={WHISPER_S_ENC} {heads}, K/V NaN past T: row-scaled "
+              f"err forward {found['flash_attention']:.3g}, dq "
               f"{found['flash_attention_bwd_dq']:.3g}, dk/dv "
               f"{found['flash_attention_bwd_dkv']:.3g}; flash_decode B=8 "
               f"S={WHISPER_S_ENC} {heads} over all {WHISPER_S_ENC} keys "
-              f"({_plan_of(fd, q, k)}) and ragged self lengths 1-100: max "
-              f"abs err {decode:.3g}, a repeat bit-equal (atol {atol})")
+              f"({_plan_of(fd, q, k)}) and ragged self lengths 1-100: "
+              f"row-scaled err {decode:.3g}, a repeat bit-equal (atol "
+              f"{atol})")
         if dtype == torch.bfloat16:
             errs["flash_attention_nc_t1536"] = found["flash_attention"]
             errs["flash_decode_s1536"] = decode
+            # the encoder's training instances: the same kernels, causal 0,
+            # at T 1536 (timed at the training batch, B 8)
+            for name, err in found.items():
+                errs[name + "_nc_b8_t1536"] = err
+    return errs
+
+
+# whisper-small's training (phase 6): the cross-attention's fresh forward
+# and backward, the decoder's T queries over the encoder's 1536 keys
+WHISPER_TRAIN_T = 256
+
+
+def _check_whisper_train_shapes(gen) -> dict:
+    """whisper-small's training shapes beyond ``_check_whisper_shapes``'s
+    non-causal T 1536: rows 6 and 7 non-causal at Tq ≠ Tk, the
+    cross-attention's ``WHISPER_TRAIN_T`` queries over 1536 keys, B 2,
+    12/12 heads of 64, fp32 and bf16 (K/V NaN past 1536; forward, dq,
+    dk/dv against their plain versions, ``_scaled_err`` within 1e-5 /
+    2e-2), then
+    ``FlashAttention``'s gradients at that shape against autograd through
+    the plain forward.  Returns the bf16 errors, keys ``<kernel>_x1536``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    geom = dict(hkv=WHISPER_HEADS, g=1, d=64)
+    t, tk = WHISPER_TRAIN_T, WHISPER_S_ENC
+    what = (f"B=2 Tq={t} Tk={tk} Hq={WHISPER_HEADS} Hkv={WHISPER_HEADS} "
+            "D=64 non-causal")
+    errs = {}
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        name = str(dtype)[6:]
+        q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=2, t=t, tk=tk,
+                                      **geom)
+        found = _fresh_errs(q, k, v, dout, False)
+        if max(found.values()) > atol:
+            _fail(f"fresh attention {name} {what}: {found} beyond {atol}")
+        k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+        grads = []
+        for fn in (lambda a, b_, c: fa.FlashAttention.apply(a, b_, c, False),
+                   lambda a, b_, c: fa.flash_attention_fwd_plain(
+                       a, b_, c, causal=False)[0]):
+            args = [x.detach().clone().requires_grad_(True)
+                    for x in (q, k, v)]
+            fn(*args).backward(dout)
+            grads.append([a.grad for a in args])
+        torch.cuda.synchronize()
+        auto = max(_scaled_err(a, b_, by_row=False)
+                   for a, b_ in zip(*grads))
+        if auto > atol:
+            _fail(f"FlashAttention {name} {what}: gradients differ from "
+                  f"autograd through the plain forward by {auto:.3g}")
+        print(f"kernel whisper-small training {name}: fresh attention "
+              f"{what} (the cross-attention), K/V NaN past Tk: row-scaled "
+              f"err forward {found['flash_attention']:.3g}, dq "
+              f"{found['flash_attention_bwd_dq']:.3g}, dk/dv "
+              f"{found['flash_attention_bwd_dkv']:.3g}; FlashAttention "
+              f"gradients against autograd through the plain forward "
+              f"{auto:.3g} (atol {atol})")
+        if dtype == torch.bfloat16:
+            errs = {f"{key}_x1536": err for key, err in found.items()}
+    return errs
+
+
+# llava-next-34b (VLM): its vocabulary, 56/8 heads of 128 (G 7) and the
+# lockstep run's shapes (phase 4): B 2 prompts of 64 behind the 2880 patch
+# embeddings, 16 new tokens, so a prefill of Tq 2944 into caches of 2960
+LLAVA = ["--arch", "llava_next_34b"]
+LLAVA_VOCAB, LLAVA_HKV, LLAVA_G = 64000, 8, 7
+LLAVA_PATCHES = 2880
+LLAVA_LOCKSTEP_ARGS = LLAVA + ["--batch", "2", "--prompt-len", "64",
+                               "--tokens", "16"]
+LLAVA_TQ, LLAVA_S = LLAVA_PATCHES + 64, LLAVA_PATCHES + 64 + 16
+# its training sequence (phase 6): 256 text tokens behind the patches
+LLAVA_TRAIN_T = LLAVA_PATCHES + 256
+
+
+def _check_llava_shapes(gen) -> dict:
+    """llava-next-34b's kernel shapes against their plain versions, fp32
+    (atol 1e-5) and bf16 (2e-2): row 1 at [8, 64000] (``_check_softmax_
+    topk``'s cases) and at the lockstep's [2, 64000], k 5; row 5 at the
+    lockstep prefill, B 2, Tq 2944 at offset 0 over caches of 2960 whose
+    last 16 positions are NaN, 56/8 heads of 128, the profiler naming each
+    dtype's form; row 4 at the decode steps' first and last lengths (2945
+    and 2960 of 2960, NaN past each), a repeat bit-equal, its split plan
+    printed; rows 6 and 7 causal at the training sequence, B 1, T 3136,
+    56/8 of 128 (K/V NaN past T).  Attention errors are ``_scaled_err``'s
+    (bf16: each row's over its largest entry).  Returns the bf16 errors (row 1:
+    fp32),
+    keys ``softmax_topk_v64000``, ``flash_attention_offset_d128_g7_q2944``,
+    ``flash_decode_d128_g7_s2960`` and ``<training kernel>_d128_g7_t3136``."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import softmax_topk as st
+    errs = {f"softmax_topk_v{LLAVA_VOCAB}": _check_softmax_topk(
+        gen, v=LLAVA_VOCAB)}
+    x = (torch.randn(2, LLAVA_VOCAB, generator=gen) * 4.0).cuda()
+    got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
+    torch.cuda.synchronize()
+    if not torch.equal(got.indices.long(), want.indices) or not \
+            torch.allclose(got.logsumexp, want.logsumexp, rtol=1e-5, atol=0):
+        _fail(f"softmax_topk [2, {LLAVA_VOCAB}]: differs from its plain "
+              "version")
+    print(f"kernel softmax_topk [2, {LLAVA_VOCAB}] float32 k=5 (the "
+          "lockstep's sampler): indices equal, lse within rtol 1e-5")
+    geom = dict(hkv=LLAVA_HKV, g=LLAVA_G, d=128)
+    heads = f"Hq={LLAVA_HKV * LLAVA_G} Hkv={LLAVA_HKV} D=128"
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        name = str(dtype)[6:]
+        form, symbol = OFFSET_FORMS[name]
+        vlens = [LLAVA_TQ] * 2
+        inputs = _contiguous_inputs(gen, dtype=dtype, s=LLAVA_S, vlens=vlens,
+                                    tq=LLAVA_TQ, **geom)
+        qo = torch.zeros(2, dtype=torch.int32, device="cuda")
+        vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+        what = f"{name} B=2 Tq={LLAVA_TQ} Tk={LLAVA_S} {heads}"
+        (prefill, _), prof = _profiled(
+            lambda: _offset_err(inputs, qo, vl, what, atol))
+        if _kernels_seen(prof) != [symbol]:
+            _fail(f"flash_attention_offset {what}: the profiler saw "
+                  f"{_kernels_seen(prof)}, the {form} form is {symbol}")
+        del inputs
+        decode = 0.0
+        for vlens in ([LLAVA_TQ + 1] * 2, [LLAVA_S] * 2):
+            q, k, v, k0, v0 = _contiguous_inputs(gen, dtype=dtype, s=LLAVA_S,
+                                                 vlens=vlens, **geom)
+            vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+            got = fd.flash_decode(q, k, v, vl)
+            again = fd.flash_decode(q, k, v, vl)
+            want = fd.flash_decode_plain(q, k0, v0, vl)
+            torch.cuda.synchronize()
+            err = _scaled_err(got, want, absolute=True)
+            if not torch.isfinite(got).all() or err > atol or \
+                    not torch.equal(got, again):
+                _fail(f"flash_decode {name} B=2 S={LLAVA_S} {heads} vlen "
+                      f"{vlens}: row-scaled err {err:.3g} (atol {atol}), "
+                      f"repeat equal {torch.equal(got, again)}")
+            decode = max(decode, err)
+        found = _fresh_errs(*_fresh_inputs(gen, dtype=dtype, b=1,
+                                           t=LLAVA_TRAIN_T, **geom), True)
+        if max(found.values()) > atol:
+            _fail(f"fresh attention causal {name} B=1 T={LLAVA_TRAIN_T} "
+                  f"{heads}: {found} beyond {atol}")
+        print(f"kernel llava-next-34b {name} {heads} (G {LLAVA_G}): "
+              f"flash_attention_offset ({form}, {symbol}) B=2 "
+              f"Tq={LLAVA_TQ} at offset 0 over Tk={LLAVA_S}, NaN past "
+              f"{LLAVA_TQ}: row-scaled err {prefill:.3g}; flash_decode B=2 "
+              f"S={LLAVA_S} at vlen {LLAVA_TQ + 1} and {LLAVA_S} "
+              f"({_plan_of(fd, q, k)}): row-scaled err {decode:.3g}, a "
+              f"repeat "
+              f"bit-equal; fresh attention causal B=1 T={LLAVA_TRAIN_T}, "
+              f"K/V NaN past T: row-scaled err forward "
+              f"{found['flash_attention']:.3g}, dq "
+              f"{found['flash_attention_bwd_dq']:.3g}, dk/dv "
+              f"{found['flash_attention_bwd_dkv']:.3g} (atol {atol})")
+        if dtype == torch.bfloat16:
+            errs[f"flash_attention_offset_d128_g7_q{LLAVA_TQ}"] = prefill
+            errs[f"flash_decode_d128_g7_s{LLAVA_S}"] = decode
+            errs.update({f"{key}_d128_g7_t{LLAVA_TRAIN_T}": err
+                         for key, err in found.items()})
     return errs
 
 
@@ -2394,13 +2640,15 @@ DEEPSEEK = ["--arch", "deepseek_coder_33b"]
 # of the script, which the MLA decoder's serving runs needed (40 → 16), and
 # at 16 ~36 s, which minicpm3-4b's training runs needed (16 → 8), and at
 # 8 the recurrent decoders' training and whisper-small's serving needed
-# (8 → 4; parity keeps its depth of 2)
-MISTRAL_LAYERS = 4
-# deepseek-coder-33b at full width and cut depth: 4 of its 62 layers (8
-# until the recurrent decoders' training took the script's time; all 62
-# would be 66.7 GB, beside the pools and the 0.9 GB fp32 head copy of every
-# sample on an 80 GB card)
-DEEPSEEK_LAYERS = 4
+# (8 → 4; parity keeps its depth of 2), and at 4 whisper-small's and
+# llava-next-34b's training and llava's serving (4 → 2)
+MISTRAL_LAYERS = 2
+# deepseek-coder-33b at full width and cut depth: 2 of its 62 layers (8
+# until the recurrent decoders' training took the script's time, 4 until
+# llava-next-34b's, whose lockstep run exercises the same D-128 G-7
+# serving instances; all 62 would be 66.7 GB, beside the pools and the 0.9
+# GB fp32 head copy of every sample on an 80 GB card)
+DEEPSEEK_LAYERS = 2
 # phase 4's continuous-batching workloads, which every model serves:
 # (path, flags); the path names the kernels (KERNEL_PATH) that must launch
 SERVE_PATHS = (("paged", SERVE_ARGS), ("slot pool", SLOT_ARGS),
@@ -2485,6 +2733,23 @@ INSTANCES = {
     "flash_attention_nc_t1536": ("flash_attention", "whisper paged"),
     "flash_decode_s1536": ("flash_decode", "whisper paged"),
     "softmax_topk_v51968": ("softmax_topk", "whisper paged"),
+    # whisper-small's training: rows 6 and 7 non-causal over its encoder's
+    # 1536 frames and at its cross-attention's 256 queries over them (the
+    # run's launches of each kernel: encoder, decoder and cross-attention)
+    **{kernel + tag: (kernel, "whisper train")
+       for tag in ("_nc_b8_t1536", "_x1536")
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
+    # llava-next-34b: the sampler at its vocabulary and rows 4 and 5 at its
+    # lockstep run's shapes (56/8 heads of 128, G 7), rows 6 and 7 at its
+    # training sequence of 2880 patches and 256 tokens
+    f"softmax_topk_v{LLAVA_VOCAB}": ("softmax_topk", "llava lockstep"),
+    f"flash_decode_d128_g7_s{LLAVA_S}": ("flash_decode", "llava lockstep"),
+    f"flash_attention_offset_d128_g7_q{LLAVA_TQ}": ("flash_attention_offset",
+                                                   "llava lockstep"),
+    **{f"{kernel}_d128_g7_t{LLAVA_TRAIN_T}": (kernel, "llava train")
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
 }
 # the training kernels' timed D-128 instances: tag → (Hkv, G)
 TRAIN_TIMED_128 = {"_d128": (8, 4), "_d128_g1": (16, 1)}
@@ -2652,8 +2917,9 @@ LLAMA4_LAYERS = 2
 # its 24 layers: its four runs at all 24 took ~35 s of the
 # script, which the MLA decoder's serving runs needed (24 → 8), and at 8
 # ~20 s, of which minicpm3-4b's training runs needed some (8 → 6), then
-# the recurrent decoders' training (6 → 4)
-QWEN2_LAYERS = 4
+# the recurrent decoders' training (6 → 4), then whisper-small's and
+# llava-next-34b's training and llava's serving (4 → 2)
+QWEN2_LAYERS = 2
 # qwen2-moe-a2.7b's continuous-batching runs: phase 4's workloads but the
 # int8 slot pool, the second cut for the script's time (its kernel
 # instance, flash_decode_int8 at G 1, is checked and timed in phases 3
@@ -2752,12 +3018,14 @@ MINICPM = ["--arch", "minicpm3_4b"]
 MINICPM_PATHS = (("minicpm3 slot pool", SLOT_ARGS),
                  ("minicpm3 slot pool int8", SLOT_ARGS + INT8))
 # the int8 slot-pool and lockstep runs take the first this many of the 62
-# layers, for the script's time (8 until the recurrent decoders' training)
-MINICPM_CUT_LAYERS = 4
+# layers, for the script's time (8 until the recurrent decoders' training,
+# 4 until whisper-small's and llava-next-34b's training)
+MINICPM_CUT_LAYERS = 2
 # and the bf16 slot-pool run this many: all 62 took ~30 s of the script,
 # which the recurrent decoders' phases needed (62 -> 16, then 16 -> 8 for
-# their training; the step lines keep all 62)
-MINICPM_SERVE_LAYERS = 8
+# their training, then 8 -> 4 for whisper's and llava's; the step lines
+# keep all 62)
+MINICPM_SERVE_LAYERS = 4
 
 
 def _check_latent_bytes(cfg, engines) -> None:
@@ -3333,6 +3601,72 @@ def phase_serve_whisper() -> dict:
     return {what: counts}
 
 
+# llava-next-34b's lockstep run (phase 4) at full width and this many of
+# its 60 layers: 557.8e6 parameters a layer and 0.92e9 for each of the
+# embedding and the untied head, so 10.9 GB of bf16 weights at 8
+LLAVA_SERVE_LAYERS = 8
+
+
+def phase_serve_llava() -> dict:
+    """llava-next-34b at full width and ``LLAVA_SERVE_LAYERS`` layers
+    (bf16, weights drawn on the card) through the lockstep loop
+    (``LLAVA_LOCKSTEP_ARGS``: 2 prompts of 64 behind the CLI's 2880 seeded
+    patch embeddings, 16 tokens, caches of 2960), between a reset and a
+    read of the launch counts (``_serve_lockstep``: one row-5 prefill and
+    15 row-4 decode launches a layer at 56/8 heads of 128, one sampler
+    launch a token at V 64000); peak device memory; then the decode step
+    over 2960 keys and the prefill as "step" lines beside the weights'
+    byte bound and ``decode_step_cost``'s.  Returns {"llava lockstep":
+    launch counts}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.obs import kernels as obs_kernels
+    from repro_torch.serving import engine
+    cfg = configs.get("llava_next_34b").replace(
+        num_layers=LLAVA_SERVE_LAYERS)
+    held = _reset_peak()
+    params, nbytes = _card_weights(cfg)
+    print(f"serve llava lockstep: {cfg.name}, {cfg.num_layers} layers, "
+          f"{cfg.num_patches} patch embeddings through mm_proj ahead of "
+          f"each prompt: a prefill of Tq {LLAVA_TQ} into caches of "
+          f"{LLAVA_S}")
+    counts = {"llava lockstep": _serve_lockstep(
+        "llava lockstep", LLAVA_LOCKSTEP_ARGS, cfg, params)}
+    print(f"serve llava lockstep: peak device memory "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB "
+          f"over the {held / 2**30:.2f} held before it")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, LLAVA_TQ - cfg.num_patches),
+                         generator=gen, device="cuda")
+    pe = torch.randn((2, cfg.num_patches, cfg.d_model), generator=gen,
+                     device="cuda")
+    _, caches, n = engine.prefill(params, toks, cfg, max_len=LLAVA_S,
+                                  patch_embeds=pe)
+    tok = toks[:, -1:]
+    sample = torch.Generator().manual_seed(0)
+    cost = obs_kernels.decode_step_cost(cfg, 2, [LLAVA_S] * 2)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    for name, fn, samples in (
+            (f"lockstep decode [B 2 over {LLAVA_S} keys]",
+             lambda: engine.decode_step(params, caches, LLAVA_S - 1, tok,
+                                        cfg, generator=sample), 10),
+            (f"lockstep prefill [B 2, {cfg.num_patches} patches + "
+             f"{LLAVA_TQ - cfg.num_patches} tokens]",
+             lambda: engine.prefill(params, toks, cfg, max_len=LLAVA_S,
+                                    patch_embeds=pe), 3)):
+        line, busy, by = _step_line(f"{cfg.name} {name}", fn,
+                                    samples=samples, reps=1)
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"{line}; the weights' byte bound {bound:.3f}ms "
+              f"({nbytes / 1e9:.3f} GB at 3.35 TB/s), decode_step_cost "
+              f"{cost['bytes_accessed'] / HBM_BYTES_PER_S * 1e3:.3f}ms; by "
+              "kernel (device ms a step x launches): " + "; ".join(
+                  f"{k} {ms:.4f} x {k_n:g}" for k, (ms, k_n) in top))
+    del params, caches
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_parity_whisper() -> None:
     """Phase 5's fp32 parity for whisper-small at full width cut to 2 + 2
     layers (weights drawn on the card from seed 1, copied to the CPU): the
@@ -3455,19 +3789,22 @@ def _parity_2_layers(arch: str, paged: bool = True, layers: int = 2,
 STATE_PARITY_RTOL = 1e-3
 
 
-def _forward_parity(what: str, cfg, params_by_device) -> None:
-    """Hidden states of a 2 x 256 forward (two 128-token chunks of
-    zamba2's scan, one 256-token chunk of xlstm's) and their last
-    position's logits, on the card and on the CPU, within
-    ``STATE_PARITY_RTOL`` of the CPU's scale."""
+def _forward_parity(what: str, cfg, params_by_device, shape=(2, 256),
+                    patches=None) -> None:
+    """Hidden states of a ``shape`` forward (2 x 256: two 128-token chunks
+    of zamba2's scan, one 256-token chunk of xlstm's; a VLM's behind
+    ``patches``) and their last position's logits, on the card and on the
+    CPU, within ``STATE_PARITY_RTOL`` of the CPU's scale."""
     import torch
     from repro_torch.models import transformer
-    toks = torch.randint(0, cfg.vocab_size, (2, 256),
+    toks = torch.randint(0, cfg.vocab_size, shape,
                          generator=torch.Generator().manual_seed(3))
     out = {}
     for device, params in params_by_device.items():
+        pe = None if patches is None else patches.to(device)
         with torch.no_grad():
-            h, _ = transformer.forward(params, toks.to(device), cfg)
+            h, _ = transformer.forward(params, toks.to(device), cfg,
+                                       patch_embeds=pe)
             out[device] = (h.cpu(), transformer.logits_last(params, h,
                                                             cfg).cpu())
     for i, name in enumerate(("hidden", "logits")):
@@ -3479,7 +3816,8 @@ def _forward_parity(what: str, cfg, params_by_device) -> None:
         if not diff <= STATE_PARITY_RTOL * scale:
             _fail(f"parity {what}: {name} max |diff| {diff:.3g} beyond "
                   f"{STATE_PARITY_RTOL} x scale {scale:.3g}")
-        print(f"parity {what} forward [2, 256]: {name} max |card - CPU| "
+        print(f"parity {what} forward {list(h.shape[:2])}: {name} max "
+              f"|card - CPU| "
               f"{diff:.3g} = {diff / scale:.3g} of scale {scale:.3g} "
               f"(<= {STATE_PARITY_RTOL})")
 
@@ -4029,9 +4367,13 @@ def _train_counts(cfg, steps: int) -> dict:
     and for an MoE model 2 router launches; nothing else (an ``mla``
     block's decompressed attention takes the same three kernels at (96,
     64), and its latent serving kernels launch 0 times).  The attention
-    layers are every layer of a dense, MoE or MLA stack, zamba2's 7
-    shared-block calls and none of xLSTM's."""
-    n = _attn_layers(cfg)
+    layers are every layer of a dense, MoE, MLA or VLM stack, zamba2's 7
+    shared-block calls and none of xLSTM's; an encoder-decoder's are its
+    encoder layers' self-attention (non-causal) and each decoder layer's
+    self- and cross-attention (every encoder and decoder layer is
+    checkpointed)."""
+    n = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.family == "encdec"
+         else _attn_layers(cfg))
     want = dict.fromkeys(COUNTERS, 0)
     want.update(flash_attention=2 * steps * n,
                 flash_attention_bwd_dq=steps * n,
@@ -4257,10 +4599,10 @@ def phase_train_128() -> dict:
 
 def phase_train_state() -> dict:
     """The recurrent decoders trained through ``launch.train`` at full
-    width and depth (``TRAIN_STATE``): zamba2-1.2b's 38 Mamba2 layers with
-    its shared block called 7 times (rows 6 and 7 at D 64, G 1: 14 forward,
-    7 dq and 7 dk/dv launches a step) and xlstm-125m's 12 layers (no
-    attention kernel), ``TRAIN_STATE_STEPS`` steps each and
+    width (``TRAIN_STATE``): zamba2-1.2b at 20 of its 38 Mamba2 layers
+    with its shared block called 4 times (rows 6 and 7 at D 64, G 1: 8
+    forward, 4 dq and 4 dk/dv launches a step) and xlstm-125m at its full
+    12 layers (no attention kernel), ``TRAIN_STATE_STEPS`` steps each and
     ``REMAT_STATE_STEPS`` under each remat policy (``_train_run``, one
     step timed on the step line, the recurrent cores' device time alone
     beside it, ``_train_cores``).  Returns {run: launch counts}."""
@@ -4324,6 +4666,175 @@ def _train_cores(cfg, b: int, t: int) -> None:
                 gx, r)
 
 
+# ---------------------------------------------------------------------------
+# 6b: the encoder-decoder and the VLM trained through training.train_step
+# ---------------------------------------------------------------------------
+# whisper-small at full width and depth (12 + 12 layers): WHISPER_TRAIN's
+# steps of B x WHISPER_TRAIN_T tokens beside frames [B, 1536, 768] bf16
+# (the dry-run's batch), then a step line over its samples
+WHISPER_TRAIN = dict(batch=8, steps=2, samples=2)
+# llava-next-34b at full width and LLAVA_TRAIN_LAYERS of its 60 layers
+# (2.08e9 parameters, ~25 GB with the gradients and AdamW's fp32 moments):
+# one sequence of 256 tokens behind the 2880 patch embeddings [1, 2880,
+# 7168] bf16, T' = 3136
+LLAVA_TRAIN_LAYERS = 2
+LLAVA_TRAIN = dict(batch=1, steps=2, samples=2)
+
+
+class _StepBatches:
+    """A training stream as ``training.loop.run`` reads it: the CLI's
+    synthetic tokens and labels (``SyntheticDataset``) of ``b`` x ``t``
+    and, beside them, ``key`` [b, *shape] in ``dtype``, N(0, 1) drawn on
+    the card from a generator seeded with the step, so a batch is a pure
+    function of its step (the dry-run's frames for an encoder-decoder, the
+    patch embeddings for a VLM)."""
+
+    def __init__(self, cfg, b: int, t: int, key: str, shape: tuple, dtype):
+        from repro_torch.data.synthetic import (SyntheticConfig,
+                                                SyntheticDataset)
+        self.b, self.t, self.key, self.shape, self.dtype = (b, t, key, shape,
+                                                            dtype)
+        self.tokens = SyntheticDataset(SyntheticConfig(
+            cfg.real_vocab_size or cfg.vocab_size, t, b))
+
+    def batch(self, step: int) -> dict:
+        import torch
+        out = self.tokens.batch(step)
+        gen = torch.Generator(device="cuda").manual_seed(step)
+        out[self.key] = torch.randn((self.b, *self.shape), generator=gen,
+                                    device="cuda").to(self.dtype)
+        return out
+
+
+def _loop_train(name: str, key: str, cfg, data, *, steps: int, samples: int,
+                what: str) -> dict:
+    """``cfg`` trained the way a user trains it through
+    ``training.train_step``: ``init_state`` (weights drawn on the card from
+    seed 0), then ``make_train_step`` and ``training.loop.run`` for
+    ``steps`` bf16 steps over ``data`` (``_StepBatches``), no checkpoint,
+    between a reset and a read of the launch counts, which must equal
+    ``_train_counts``; every loss and grad norm finite; peak device memory
+    over what was held before; then a "step" line over ``samples`` more
+    steps (host call to device finish, device busy, the kernels by device
+    time).  Returns the launch counts."""
+    import dataclasses
+    import tempfile
+    import types
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
+                                          RunConfig)
+    from repro_torch.kernels import dispatch
+    from repro_torch.training import loop
+    from repro_torch.training.train_step import init_state, make_train_step
+    held = _reset_peak()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the training CLI's optimizer and parallel settings
+        run = RunConfig(model=cfg, optimizer=OptimizerConfig(
+            warmup_steps=20, total_steps=steps),
+            parallel=ParallelConfig(), checkpoint_dir=tmp,
+            checkpoint_every=0)
+        params, opt = init_state(run, device="cuda")
+        torch.cuda.synchronize()
+        drawn = time.perf_counter() - t0
+        step = make_train_step(run)
+        dispatch.reset_launch_counts()
+        params, opt, hist = loop.run(run, steps=steps, train_step=step,
+                                     params=params, opt_state=opt,
+                                     dataset=data, log=lambda *_: None)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    extra = data.batch(0)[data.key]
+    print(f"train {name}: {cfg.dtype}, {what}, {n_params / 1e9:.3f}e9 "
+          f"parameters drawn on the card in {drawn:.1f}s; {steps} steps "
+          f"through make_train_step + training.loop.run of {data.b} x "
+          f"{data.t} tokens with {data.key} {list(extra.shape)} "
+          f"{str(extra.dtype)[6:]} beside them, remat {cfg.remat}; peak "
+          f"device memory {peak:.2f} GiB over the {held / 2**30:.2f} held "
+          "before it")
+    print(_train_line(name, hist, types.SimpleNamespace(
+        steps=steps, global_batch=data.b, seq_len=data.t)))
+    want = _train_counts(cfg, len(hist))
+    if counts != want:
+        _fail(f"train {name}: launches {counts}, remat 'full' implies "
+              f"{want}")
+    per = {k: v // len(hist) for k, v in counts.items() if v}
+    print(f"train {name} launches: {per} a step over {len(hist)} steps, as "
+          f"remat 'full' implies ({want['flash_attention_bwd_dq'] // steps} "
+          "attention calls a step, each a forward, its recomputation, a dq "
+          "and a dk/dv launch)")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch(0).items()}
+    state = [params, opt]
+
+    def train_step():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    t0 = time.perf_counter()
+    line, busy, by = _step_line(
+        f"train step {name} [{data.b} x {data.t} tokens + {data.key}, "
+        f"bf16, remat full]", train_step, samples=samples, warmup=1, reps=1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    print(line + f"; {sum(n for _, n in by.values()):g} kernel launches; "
+          "by kernel: " + ", ".join(f"{k} {ms:.2f}ms x{n:.0f}"
+                                    for k, (ms, n) in top)
+          + f" (measured in {time.perf_counter() - t0:.1f}s)")
+    del params, opt, state, step, batch
+    torch.cuda.empty_cache()
+    return {key: counts}
+
+
+def phase_train_whisper() -> dict:
+    """whisper-small at full width and depth (12 + 12 layers, bf16)
+    trained through ``training.train_step`` (``_loop_train``) over
+    ``WHISPER_TRAIN``'s batches of tokens and frames [B, 1536, 768]: on the
+    card its encoder's self-attention runs rows 6 / 7 non-causal over 1536
+    frames, its decoder's causal over ``WHISPER_TRAIN_T`` tokens and its
+    cross-attention non-causal at Tq 256 over Tk 1536: 36 forward, 36 dq
+    and 36 dk/dv launches, twice the forwards.  Returns {"whisper train":
+    launch counts}."""
+    import torch
+    from repro_torch import configs
+    cfg = configs.get("whisper_small")
+    data = _StepBatches(cfg, WHISPER_TRAIN["batch"], WHISPER_TRAIN_T,
+                        "frames", (cfg.encoder_seq_len, cfg.d_model),
+                        torch.bfloat16)
+    return _loop_train(
+        "whisper-small", "whisper train", cfg, data,
+        steps=WHISPER_TRAIN["steps"], samples=WHISPER_TRAIN["samples"],
+        what=f"{cfg.encoder_layers} + {cfg.num_layers} layers at full width "
+             f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+             f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+             f"{cfg.vocab_size}, tied head)")
+
+
+def phase_train_llava() -> dict:
+    """llava-next-34b at full width and ``LLAVA_TRAIN_LAYERS`` of its 60
+    layers (bf16) trained through ``training.train_step``
+    (``_loop_train``) over one sequence of 256 tokens behind its 2880
+    patch embeddings [1, 2880, 7168] (T' 3136): rows 6 / 7 causal at T
+    3136, 56/8 heads of 128 (G 7), the patch positions dropped before the
+    CE.  Returns {"llava train": launch counts}."""
+    import torch
+    from repro_torch import configs
+    cfg = configs.get("llava_next_34b")
+    depth = cfg.num_layers
+    cfg = cfg.replace(num_layers=LLAVA_TRAIN_LAYERS)
+    data = _StepBatches(cfg, LLAVA_TRAIN["batch"],
+                        LLAVA_TRAIN_T - cfg.num_patches, "patch_embeds",
+                        (cfg.num_patches, cfg.d_model), torch.bfloat16)
+    return _loop_train(
+        "llava-next-34b", "llava train", cfg, data,
+        steps=LLAVA_TRAIN["steps"], samples=LLAVA_TRAIN["samples"],
+        what=f"{cfg.num_layers} of {depth} layers at full width (d_model "
+             f"{cfg.d_model}, {_model_what(cfg)}, vocab {cfg.vocab_size}, "
+             f"untied head, mm_proj [{cfg.d_model}, {cfg.d_model}]), "
+             f"T' {LLAVA_TRAIN_T}")
+
+
 def _reset_peak() -> int:
     """Free what no longer has a reference (checkpoint frames can sit in
     reference cycles until the collector runs) and reset the device's peak
@@ -4341,30 +4852,31 @@ def _reset_peak() -> int:
 # 7: fp32 training parity at full width: kernels on the card vs the CPU
 # ---------------------------------------------------------------------------
 def _train_parity(cfg, params_cuda, params_cpu, what: str,
-                  shape=TRAIN_PARITY) -> None:
-    """Loss and every gradient of one fp32 batch (``shape``'s) of ``cfg``
-    on the card (kernels) and on the CPU (plain versions), from the same
-    weights.  The loss within 1e-5 relative; each gradient leaf within
-    1e-4 of its largest entry (fp32 sums in other orders on the two
-    devices, through the wide head).  An MoE model's router must pick and
-    keep the same assignments on both devices in every layer (the forward
-    and its recomputation): a near-tie that flips one fails with the logit
-    gap that decided it."""
-    import numpy as np
+                  shape=TRAIN_PARITY, extra=None) -> None:
+    """Loss (``train_step.loss_for(cfg)``) and every gradient of one fp32
+    batch (``shape``'s tokens and labels, and ``extra``'s CPU tensors: an
+    encoder-decoder's frames, a VLM's patch embeddings) of ``cfg`` on the
+    card (kernels) and on the CPU (plain versions), from the same weights.
+    The loss within 1e-5 relative; each gradient leaf within 1e-4 of its
+    largest entry (fp32 sums in other orders on the two devices, through
+    the wide head).  An MoE model's router must pick and keep the same
+    assignments on both devices in every layer (the forward and its
+    recomputation): a near-tie that flips one fails with the logit gap
+    that decided it."""
     import torch
     from repro_torch import tree
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
     from repro_torch.models import layers as L
-    from repro_torch.models import transformer
+    from repro_torch.training.train_step import loss_for
     batch = SyntheticDataset(SyntheticConfig(
         cfg.real_vocab_size or cfg.vocab_size, shape["seq_len"],
         shape["batch"])).batch(0)
+    batch.update(extra or {})
     out, routes = {}, {}
     real_route = L.moe_route
     for device, params in (("cuda", params_cuda), ("cpu", params_cpu)):
         params = tree.map(lambda p: p.detach().requires_grad_(True), params)
-        b = {k: torch.as_tensor(np.asarray(v), device=device)
-             for k, v in batch.items()}
+        b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         seen = routes[device] = []
 
         def recording(p, xg, c, seen=seen):
@@ -4374,7 +4886,7 @@ def _train_parity(cfg, params_cuda, params_cpu, what: str,
 
         L.moe_route = recording
         t0 = time.perf_counter()
-        loss, _ = transformer.loss_fn(params, b, cfg)
+        loss, _ = loss_for(cfg)(params, b, cfg)
         grads = torch.autograd.grad(loss, tree.leaves(params))
         out[device] = (loss.item(), [g.cpu() for g in grads])
         L.moe_route = real_route
@@ -4417,8 +4929,12 @@ def _train_parity(cfg, params_cuda, params_cpu, what: str,
         if len(mla) != len(MLA_LEAVES) * cfg.num_layers:
             _fail(f"train parity {what}: MLA leaves {mla}")
         router += f"; the {len(mla)} MLA leaves among them"
+    if "mm_proj" in paths:
+        router += "; mm_proj among them"
+    inputs = "".join(f" + {k} {list(v.shape)}" for k, v in (extra or
+                                                            {}).items())
     print(f"train parity {what}: fp32 {cfg.num_layers} layers full width, "
-          f"batch {shape['batch']} x {shape['seq_len']}: loss "
+          f"batch {shape['batch']} x {shape['seq_len']}{inputs}: loss "
           f"rel diff {rel:.3g} (tol 1e-5); worst gradient leaf {where} max "
           f"abs diff {worst:.3g} of its largest entry (tol 1e-4) over "
           f"{len(paths)} leaves{router}")
@@ -4484,6 +5000,90 @@ def phase_train_parity_state() -> None:
                       dict(layers=layers, **TRAIN_PARITY_BATCH_STATE))
         del params_cuda
         torch.cuda.empty_cache()
+
+
+def phase_train_parity_whisper() -> None:
+    """``_train_parity`` of whisper-small at full width cut to 2 + 2
+    layers (``WHISPER_PARITY_LAYERS``), one sequence of 64 tokens beside
+    frames [1, 1536, 768] fp32: weights drawn on the card from seed 2 and
+    copied to the CPU; the adapter, the encoder (rows 6 / 7 non-causal at T
+    1536 in fp32 on the card) and the cross-attention (Tq 64 over Tk 1536)
+    among the gradients."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import encdec, transformer
+    cfg = configs.get("whisper_small").replace(
+        num_layers=WHISPER_PARITY_LAYERS,
+        encoder_layers=WHISPER_PARITY_LAYERS, dtype="float32")
+    params_cuda = encdec.init(cfg, seed=2, device="cuda", draw_device="cuda")
+    frames = torch.randn((1, cfg.encoder_seq_len, cfg.d_model),
+                         generator=torch.Generator().manual_seed(4))
+    _train_parity(cfg, params_cuda, transformer.params_to(params_cuda, "cpu"),
+                  f"{cfg.name} (2 + 2 layers)",
+                  dict(layers=WHISPER_PARITY_LAYERS, batch=1, seq_len=64),
+                  extra={"frames": frames})
+    del params_cuda
+    torch.cuda.empty_cache()
+
+
+# phase 7's fp32 parity of llava-next-34b: full width, 1 layer, and 64
+# patch embeddings in place of 2880 (the CPU's time: its forward and
+# backward over every patch position)
+LLAVA_PARITY = dict(layers=1, patches=64, batch=1, seq_len=128)
+
+
+def phase_parity_llava() -> None:
+    """llava-next-34b in fp32 at full width, ``LLAVA_PARITY``'s 1 layer and
+    64 patches (weights drawn on the card from seed 1, copied to the CPU),
+    card against CPU: a forward of 128 tokens behind the patches
+    (``_forward_parity``: hidden states and last logits within
+    ``STATE_PARITY_RTOL`` of scale); the lockstep parity workload
+    (``LOCKSTEP_PARITY_ARGS``: B 2, 37-token prompts behind the CLI's
+    seeded patches, 8 tokens) under the same injected Gumbel draws, token
+    streams identical; then ``_train_parity``'s loss and gradients, with a
+    patch batch, ``mm_proj``'s among them."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    shape = LLAVA_PARITY
+    cfg = configs.get("llava_next_34b").replace(
+        num_layers=shape["layers"], num_patches=shape["patches"],
+        dtype="float32")
+    what = f"{cfg.name} ({shape['layers']} layer, {cfg.num_patches} patches)"
+    t0 = time.perf_counter()
+    params_cuda = transformer.init(cfg, seed=1, device="cuda",
+                                   draw_device="cuda")
+    params_by_device = {"cuda": params_cuda,
+                        "cpu": transformer.params_to(params_cuda, "cpu")}
+    print(f"parity {what}: {_weight_bytes(params_cuda) // 4} weights drawn "
+          f"on the card and copied to the CPU in "
+          f"{time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator().manual_seed(6)
+    patches = torch.randn((shape["batch"], cfg.num_patches, cfg.d_model),
+                          generator=gen)
+    _forward_parity(what, cfg, params_by_device,
+                    (shape["batch"], shape["seq_len"]), patches)
+    args = LLAVA + LOCKSTEP_PARITY_ARGS
+    draws = np.random.default_rng(7).gumbel(
+        size=(8, 2, 5)).astype(np.float32)
+    ids = {device: serve.lockstep(
+               serve.parse_args(args + ["--device", device]), cfg, params,
+               noise_fn=lambda step: draws[step])
+           for device, params in params_by_device.items()}
+    if not np.array_equal(ids["cuda"], ids["cpu"]):
+        _fail(f"parity {what} lockstep: token ids differ\ncuda "
+              f"{ids['cuda']}\ncpu  {ids['cpu']}")
+    print(f"parity {what} lockstep: {ids['cpu'].size} token ids identical "
+          f"under the same injected Gumbel draws (B 2, 37-token prompts "
+          f"behind {cfg.num_patches} patches, 8 tokens)")
+    _train_parity(cfg, params_cuda, params_by_device["cpu"], what,
+                  dict(layers=shape["layers"], batch=shape["batch"],
+                       seq_len=shape["seq_len"]),
+                  extra={"patch_embeds": patches})
+    del params_by_device, params_cuda
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4823,6 +5423,19 @@ def phase_times() -> dict:
     # 64 at B 8, T 512; then whisper-small's instances
     rows.update(_train_kernel_times(gen, 32, 1, 64, "_g1"))
     rows.update(_whisper_kernel_times(gen))
+    # whisper-small's training: rows 6 and 7 non-causal over its encoder's
+    # 8 x 1536 frames, and at its cross-attention's 256 queries a row over
+    # them; then llava-next-34b's serving instances and rows 6 and 7 at its
+    # training sequence (1 x 3136, 56/8 heads of 128)
+    rows.update(_train_kernel_times(gen, WHISPER_HEADS, 1, 64, "_nc_b8_t1536",
+                                    t=WHISPER_S_ENC, causal=False))
+    rows.update(_train_kernel_times(gen, WHISPER_HEADS, 1, 64, "_x1536",
+                                    t=WHISPER_TRAIN_T, tk=WHISPER_S_ENC,
+                                    causal=False))
+    rows.update(_llava_kernel_times(gen))
+    rows.update(_train_kernel_times(gen, LLAVA_HKV, LLAVA_G, 128,
+                                    f"_d128_g{LLAVA_G}_t{LLAVA_TRAIN_T}",
+                                    b=1, t=LLAVA_TRAIN_T))
     rows.update(_library_kernel_times())
     for name, row in rows.items():
         lib = (f"{row['library_ms']:.4f}ms" if row["library_ms"] is not None
@@ -4838,24 +5451,24 @@ def phase_times() -> dict:
     return rows
 
 
-def _topk_times(gen, v: int = 49152, real: int = 0) -> dict:
-    """Row 1 at a decode batch's fp32 logits [8, ``v``], k = 5 (entries
-    from ``real`` on -inf, as a padded vocabulary's), held against its
-    plain version on the timed input; keyed ``softmax_topk`` at
+def _topk_times(gen, v: int = 49152, real: int = 0, r: int = 8) -> dict:
+    """Row 1 at a decode batch's fp32 logits [``r``, ``v``], k = 5
+    (entries from ``real`` on -inf, as a padded vocabulary's), held against
+    its plain version on the timed input; keyed ``softmax_topk`` at
     smollm-360m's vocabulary, else ``softmax_topk_v<v>``."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import softmax_topk as st
-    x = (torch.randn(8, v, generator=gen) * 30.0).cuda()
+    x = (torch.randn(r, v, generator=gen) * 30.0).cuda()
     if real:
         x[:, real:] = float("-inf")
     got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
     if not torch.equal(got.indices.long(), want.indices) or not \
             torch.allclose(got.values, want.values, rtol=1e-5, atol=0.0):
-        _fail(f"softmax_topk [8, {v}] disagrees with its plain version on "
+        _fail(f"softmax_topk [{r}, {v}] disagrees with its plain version on "
               "the timed input")
     args, _ = st.prepare(x, 5)
-    r, k = 8, 5
+    k = 5
     p = st.plan(r, v, k, x.dtype, build.sm_count(x.device))
     b_ms, b_by = _bound(r * v * 4 + r * k * 8 + r * 4, 4.0 * r * v,
                         "float32")
@@ -4872,7 +5485,7 @@ def _topk_times(gen, v: int = 49152, real: int = 0) -> dict:
         "library_device_ms": _device_call_ms(library),
         "library_call": "torch.topk(torch.softmax(x, -1), k) (two calls)",
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"x [8, {v}] float32, k=5, {p.slices} slices of "
+        "shape": f"x [{r}, {v}] float32, k=5, {p.slices} slices of "
                  f"{p.slice}" + (f", entries from {real} -inf" if real
                                  else "")}}
 
@@ -4897,10 +5510,10 @@ def _whisper_kernel_times(gen) -> dict:
     k, v = k.contiguous(), v.contiguous()
     out, _ = fa.flash_attention_fwd(q, k, v, causal=False)
     want, _ = fa.flash_attention_fwd_plain(q, k, v, causal=False)
-    err = (out.float() - want.float()).abs().max().item()
+    err = _scaled_err(out, want, absolute=True)
     if not err <= 2e-2:
-        _fail(f"flash_attention non-causal on the timed input: max abs err "
-              f"{err:.3g} > 2e-2")
+        _fail(f"flash_attention non-causal on the timed input: row-scaled "
+              f"err {err:.3g} > 2e-2")
     args, _ = fa.prepare_fwd(q, k, v, causal=False)
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -4923,11 +5536,11 @@ def _whisper_kernel_times(gen) -> dict:
                                        vlens=vlens, hkv=h, g=1, d=d)
     vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
-    err = (fd.flash_decode(q, k, v, vl).float()
-           - fd.flash_decode_plain(q, k, v, vl).float()).abs().max()
+    err = _scaled_err(fd.flash_decode(q, k, v, vl),
+                      fd.flash_decode_plain(q, k, v, vl), absolute=True)
     if not err <= 2e-2:
-        _fail(f"flash_decode over {t} keys on the timed input: max abs err "
-              f"{err.item():.3g} > 2e-2")
+        _fail(f"flash_decode over {t} keys on the timed input: row-scaled "
+              f"err {err:.3g} > 2e-2")
     args, _ = fd.prepare(q, k, v, vl)
 
     def sdpa_dec():
@@ -4945,6 +5558,27 @@ def _whisper_kernel_times(gen) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"B=8 S={t} {heads} bf16, every key valid (the "
                  f"cross-attention), {_plan_of(fd, q, k)}"}
+    return rows
+
+
+def _llava_kernel_times(gen) -> dict:
+    """llava-next-34b's serving instances at its lockstep run's shapes,
+    each held against its plain version on the timed input: row 1 at
+    [2, 64000]; row 4 at B 2 over all 2960 keys, 56/8 heads of 128, bf16,
+    and row 5 at the prefill of B 2 x 2944 at offset 0 into caches of
+    2960, each beside one SDPA call (``_contiguous_kernel_times``).  Keys
+    ``softmax_topk_v64000``, ``flash_decode_d128_g7_s2960``,
+    ``flash_attention_offset_d128_g7_q2944``."""
+    rows = _topk_times(gen, LLAVA_VOCAB, r=2)
+    tag = f"_d128_g{LLAVA_G}"
+    found = _contiguous_kernel_times(
+        gen, tag, dict(hkv=LLAVA_HKV, g=LLAVA_G, d=128),
+        f"Hq={LLAVA_HKV * LLAVA_G} Hkv={LLAVA_HKV} D=128",
+        (("flash_attention_offset", (2, LLAVA_S, LLAVA_TQ, 0, LLAVA_TQ)),),
+        decode=([LLAVA_S] * 2, LLAVA_S))
+    rows["flash_decode" + tag + f"_s{LLAVA_S}"] = found["flash_decode" + tag]
+    rows["flash_attention_offset" + tag + f"_q{LLAVA_TQ}"] = \
+        found["flash_attention_offset" + tag]
     return rows
 
 
@@ -5200,28 +5834,33 @@ def _paged_kernel_times(gen, suffix: str, geom: dict, heads: str) -> dict:
     return rows
 
 
+# the slot pool's decode batch that phase 8 times row 4 at: 8 slots of
+# 328, ragged (valid lengths, cache length)
+SLOT_DECODE = ([328, 289, 250, 211, 172, 133, 94, 65], 328)
+
+
 def _contiguous_kernel_times(gen, suffix: str, geom: dict, heads: str,
-                             prefills) -> dict:
-    """Rows 4 and 5 of ``_serving_kernel_times``."""
+                             prefills, decode=SLOT_DECODE) -> dict:
+    """Rows 4 and 5 of ``_serving_kernel_times``, row 4 at ``decode``'s
+    (valid lengths, cache length)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     hkv, d = geom["hkv"], geom["d"]
     hq, esz = hkv * geom["g"], 2
     rows = {}
-    # contiguous decode: the slot pool's 8 slots of 328, ragged, bf16; the
-    # library yardstick is one SDPA call on transposed views with a boolean
-    # valid-length mask
-    vlens = [328, 289, 250, 211, 172, 133, 94, 65]
-    q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=328,
+    # contiguous decode, bf16; the library yardstick is one SDPA call on
+    # transposed views with a boolean valid-length mask
+    vlens, s = decode
+    q, _, _, k, v = _contiguous_inputs(gen, dtype=torch.bfloat16, s=s,
                                        vlens=vlens, **geom)
     vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
-    err = (fd.flash_decode(q, k, v, vl).float()
-           - fd.flash_decode_plain(q, k, v, vl).float()).abs().max()
+    err = _scaled_err(fd.flash_decode(q, k, v, vl),
+                      fd.flash_decode_plain(q, k, v, vl), absolute=True)
     if not err <= 2e-2:
-        _fail(f"flash_decode{suffix} on the timed input: max abs err "
-              f"{err.item():.3g} > 2e-2")
-    mask = (torch.arange(328, device="cuda")[None, :]
+        _fail(f"flash_decode{suffix} on the timed input: row-scaled err "
+              f"{err:.3g} > 2e-2")
+    mask = (torch.arange(s, device="cuda")[None, :]
             < vl[:, None].long())[:, None, None, :]
     nbytes = (2 * q.numel() * esz + sum(vlens) * hkv * d * esz * 2
               + len(vlens) * 4)
@@ -5236,7 +5875,7 @@ def _contiguous_kernel_times(gen, suffix: str, geom: dict, heads: str,
         "library_ms": _ms(lambda: _sdpa(q, k, v, mask)),
         "library_device_ms": _device_call_ms(lambda: _sdpa(q, k, v, mask)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B=8 S=328 {heads} bf16 vlen {vlens}, {plan}"}
+        "shape": f"B={len(vlens)} S={s} {heads} bf16 vlen {vlens}, {plan}"}
 
     # contiguous cached prefill at ``prefills``; back-to-back and device
     # times of the kernel (bf16: tensor cores) and of SDPA
@@ -5353,50 +5992,54 @@ def _sleep_ms(cycles: int) -> float:
 
 
 def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
-                        tag: str = "", dv=None) -> dict:
-    """Rows 6-7 at a training shape (B = 8, T = 512, ``hkv`` KV heads of
-    ``g`` query heads, head dims ``d`` (q, k) and ``dv`` (v, out; ``d``
-    unless given), bf16, causal; smollm-360m's 15/5 of 64 by default): the
-    fresh forward, and the dq and dk/dv kernels, each against its bound;
-    the wrapper and plain times of the forward and of the whole backward;
-    the library yardstick is SDPA (is_causal, enable_gqa) on [B, H, T, D]
-    views, its forward for row 6 and its autograd backward for row 7 (the
-    dq and dk/dv rows both carry the whole backward's plain and library
-    times).  Bytes count each operand once at its width; operations two
-    per multiply-add of each product below the diagonal (S and dP contract
-    over D and Dv, dQ and dK are D wide, O and dV Dv).  Keys
-    ``<kernel><tag>``."""
+                        tag: str = "", dv=None, *, b: int = 8, t: int = 512,
+                        tk: int = 0, causal: bool = True) -> dict:
+    """Rows 6-7 at a training shape (``b`` rows of ``t`` queries over
+    ``tk`` keys (``t`` unless given: the cross-attention's), ``hkv`` KV
+    heads of ``g`` query heads, head dims ``d`` (q, k) and ``dv`` (v, out;
+    ``d`` unless given), bf16, ``causal``; smollm-360m's B 8, T 512, 15/5 of
+    64, causal by default): the fresh forward, and the dq and dk/dv
+    kernels, each against its bound; the wrapper and plain times of the
+    forward and of the whole backward; the library yardstick is SDPA
+    (is_causal, enable_gqa) on [B, H, T, D] views, its forward for row 6
+    and its autograd backward for row 7 (the dq and dk/dv rows both carry
+    the whole backward's plain and library times).  Bytes count each
+    operand once at its width; operations two per multiply-add of each
+    product over the (query, key) pairs attended, below the diagonal when
+    causal (S and dP contract over D and Dv, dQ and dK are D wide, O and dV
+    Dv).  Keys ``<kernel><tag>``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
-    b, t, hq, esz = 8, 512, hkv * g, 2
+    hq, esz, tk = hkv * g, 2, tk or t
     dv = dv or d
     q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=b, t=t,
                                   hkv=hkv, g=g, d=d,
-                                  dv=dv if dv != d else None)
+                                  dv=dv if dv != d else None, tk=tk)
     k, v = k.contiguous(), v.contiguous()      # the model's K/V layout
-    errs = _fresh_errs(q, k, v, dout, True)
+    errs = _fresh_errs(q, k, v, dout, causal)
     if max(errs.values()) > 2e-2:
         _fail(f"fresh attention on the timed input: {errs}")
-    out, lse = fa.flash_attention_fwd(q, k, v)
-    pairs = t * (t + 1) // 2
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    pairs = t * (t + 1) // 2 if causal else t * tk
     per_pair = 2.0 * b * hq                  # flops per width of a product
-    qk = b * t * (hq + hkv) * d * esz           # q and k
-    vo = b * t * (hq + hkv) * dv * esz          # dout (or out) and v
+    qk = b * (t * hq + tk * hkv) * d * esz      # q and k
+    vo = b * (t * hq + tk * hkv) * dv * esz     # dout (or out) and v
     stat = b * hq * t * 4                       # lse or delta, fp32
-    shape = (f"B=8 T=512 Hq={hq} Hkv={hkv} D={d}"
-             + (f" Dv={dv}" if dv != d else "") + " bf16 causal")
+    shape = (f"B={b} T={t}" + (f" Tk={tk}" if tk != t else "")
+             + f" Hq={hq} Hkv={hkv} D={d}" + (f" Dv={dv}" if dv != d else "")
+             + " bf16 " + ("causal" if causal else "non-causal"))
 
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                               enable_gqa=True)
 
     qg, kg, vg = (x.detach().clone().requires_grad_(True)
                   for x in (qs, ks, vs))
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                              enable_gqa=True)
     lib_dout = dout.transpose(1, 2)
 
@@ -5404,26 +6047,28 @@ def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
         return torch.autograd.grad(lib_out, (qg, kg, vg), lib_dout,
                                    retain_graph=True)
 
-    fwd_args, _ = fa.prepare_fwd(q, k, v)
-    dq_args, dkv_args, _ = fab.prepare(q, k, v, out, lse, dout)
+    fwd_args, _ = fa.prepare_fwd(q, k, v, causal=causal)
+    dq_args, dkv_args, _ = fab.prepare(q, k, v, out, lse, dout,
+                                       causal=causal)
     bwd_plain = _ms(lambda: fab.flash_attention_bwd_plain(
-        q, k, v, out, lse, dout), samples=5, inner=2)
+        q, k, v, out, lse, dout, causal=causal), samples=5, inner=2)
     bwd_lib = _ms(sdpa_bwd)
-    bwd_wrapper = _ms(lambda: fab.flash_attention_bwd(q, k, v, out, lse,
-                                                      dout))
+    bwd_wrapper = _ms(lambda: fab.flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=causal))
     rows = {}
     # forward: reads q, k, v, writes out and lse; S (D) and O (Dv)
     b_ms, b_by = _bound(qk + vo + stat, per_pair * (d + dv) * pairs,
                         "bfloat16")
     bwd_lib_device = _device_call_ms(sdpa_bwd)
     bwd_device = _device_call_ms(lambda: fab.flash_attention_bwd(
-        q, k, v, out, lse, dout))
+        q, k, v, out, lse, dout, causal=causal))
     rows["flash_attention" + tag] = {
         "ms": _ms(lambda: fa.launch(fwd_args)),
         "device_ms": _device_call_ms(lambda: fa.launch(fwd_args)),
-        "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(q, k, v)),
-        "plain_ms": _ms(lambda: fa.flash_attention_fwd_plain(q, k, v),
-                        samples=5, inner=2),
+        "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                         causal=causal)),
+        "plain_ms": _ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, causal=causal), samples=5, inner=2),
         "library_ms": _ms(sdpa),
         "library_device_ms": _device_call_ms(sdpa),
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
@@ -5437,7 +6082,7 @@ def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
         "library_ms": bwd_lib, "library_device_ms": bwd_lib_device,
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
     # dk/dv: s, dp, dk and dv products; writes dk and dv
-    b_ms, b_by = _bound(qk + vo + 2 * stat + b * t * hkv * (d + dv) * esz,
+    b_ms, b_by = _bound(qk + vo + 2 * stat + b * tk * hkv * (d + dv) * esz,
                         per_pair * 2 * (d + dv) * pairs, "bfloat16")
     rows["flash_attention_bwd_dkv" + tag] = {
         "ms": _ms(lambda: fab.launch(dkv_args)),
@@ -5448,7 +6093,8 @@ def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
     # the whole backward's bound: reads q, k, v, out, dout, lse and delta,
     # writes dq, dk and dv; five products (S, dP, dQ, dK, dV)
     b_ms, b_by = _bound(qk + vo + b * t * hq * dv * esz + 2 * stat
-                        + b * t * (hq + hkv) * d * esz + b * t * hkv * dv * esz,
+                        + b * (t * hq + tk * hkv) * d * esz
+                        + b * tk * hkv * dv * esz,
                         per_pair * (3 * d + 2 * dv) * pairs, "bfloat16")
     print(f"time flash attention backward{tag}, both kernels [{shape}]: bound "
           f"{b_ms:.5f}ms by {b_by}; wrapper (delta + dq + dk/dv) "
@@ -6157,6 +6803,7 @@ def main() -> int:
     counts.update(_timed(phase_serve_mla))
     counts.update(_timed(phase_serve_state))
     counts.update(_timed(phase_serve_whisper))
+    counts.update(_timed(phase_serve_llava))
     _timed(phase_parity)
     _timed(phase_parity_128)
     _timed(phase_parity_moe)
@@ -6168,9 +6815,13 @@ def main() -> int:
     counts["train"], train_ctx = _timed(phase_train)
     counts.update(_timed(phase_train_128))
     counts.update(_timed(phase_train_state))
+    counts.update(_timed(phase_train_whisper))
+    counts.update(_timed(phase_train_llava))
     _timed(phase_train_parity)
     _timed(phase_train_parity_128)
     _timed(phase_train_parity_state)
+    _timed(phase_train_parity_whisper)
+    _timed(phase_parity_llava)
     times = _timed(phase_times)
     _timed(phase_steps, serve_ctx, train_ctx)
     _timed(phase_swap_times, serve_ctx)

@@ -6,8 +6,9 @@ deepseek-coder-33b (head_dim 128, untied heads), the MoE decoders
 qwen2-moe-a2.7b and llama4-scout-17b-a16e (head_dim 128), the MLA
 decoder minicpm3-4b (latent attention), the recurrent decoders
 zamba2-1.2b (Mamba2 with a shared attention block) and xlstm-125m (mLSTM
-and sLSTM), and the encoder-decoder whisper-small.  Asking for another
-one raises and names the reference module it still lives in.
+and sLSTM), the encoder-decoder whisper-small and the VLM llava-next-34b
+(a dense decoder that takes patch embeddings): every architecture of
+the reference's registry.  Asking for another one raises.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
 
 ARCHS = ("smollm_360m", "mistral_nemo_12b", "deepseek_coder_33b",
          "qwen2_moe_a2p7b", "llama4_scout_17b_a16e", "minicpm3_4b",
-         "zamba2_1p2b", "xlstm_125m", "whisper_small")
+         "zamba2_1p2b", "xlstm_125m", "whisper_small", "llava_next_34b")
 
 _ALIASES = {"smollm-360m": "smollm_360m",
             "mistral-nemo-12b": "mistral_nemo_12b",
@@ -28,15 +29,16 @@ _ALIASES = {"smollm-360m": "smollm_360m",
             "minicpm3-4b": "minicpm3_4b",
             "zamba2-1.2b": "zamba2_1p2b",
             "xlstm-125m": "xlstm_125m",
-            "whisper-small": "whisper_small"}
+            "whisper-small": "whisper_small",
+            "llava-next-34b": "llava_next_34b"}
 
 
 def _module(name: str):
     name = _ALIASES.get(name, name).replace("-", "_")
     if name not in ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (the port serves {ARCHS}; the "
-            f"reference config is repro.configs.{name})")
+            f"arch {name!r} is not ported: the port serves {ARCHS}, every "
+            "architecture of the reference's registry")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

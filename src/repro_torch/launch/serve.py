@@ -43,18 +43,22 @@ encoder-decoder (``--arch whisper_small``) serves only under
 ``--continuous --paged``, as in the reference: its prompts are
 ``--audios`` distinct synthetic audios (frame ids filling the encoder
 window, ``default_rng(2)``) that the requests cycle through, so a repeat
-adopts the audio's encoder blocks and skips the encoder.
+adopts the audio's encoder blocks and skips the encoder.  The VLM
+(``--arch llava_next_34b``) serves the lockstep loop, its synthetic patch
+embeddings prefilled ahead of every prompt, and refuses ``--continuous``
+with the reference's message.
 
 Port of ``src/repro/launch/serve.py`` (``_lockstep`` at line 44,
 ``_continuous`` at 88, its audio prompts at 112-120, ``main`` at 264, its
-enc-dec refusal and init at 338-348); weights and sampling generators
-come from seed 0.  The weights are drawn on the device the model serves
-on, so a ``--device cuda`` run serves other weights than a ``--device
-cpu`` run of the same seed.  The lockstep prompts come from a seeded numpy
-generator (``default_rng(1)``), not from ``jax.random.randint``, which the
-port does not reproduce.  Every replica shares the same weights.
-``--trace`` and ``--metrics`` serve the continuous mode only, as in the
-reference; the lockstep baseline refuses them.
+enc-dec and VLM refusals and init at 338-348; the lockstep's patches at
+51-59); weights and sampling generators come from seed 0.  The weights
+are drawn on the device the model serves on, so a ``--device cuda`` run
+serves other weights than a ``--device cpu`` run of the same seed.  The
+lockstep prompts and patches come from seeded numpy and torch generators
+(``default_rng(1)``, ``torch.Generator`` seeded 2), not from
+``jax.random``, which the port does not reproduce.  Every replica shares
+the same weights.  ``--trace`` and ``--metrics`` serve the continuous mode
+only, as in the reference; the lockstep baseline refuses them.
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ import torch
 
 import repro_torch.configs as configs
 from repro_torch.core.topk_fusion import topk_sample
-from repro_torch.models import encdec, transformer
+from repro_torch.models import transformer
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs import kernels as obs_kernels
 from repro_torch.obs import merge as obs_merge
@@ -75,6 +79,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import cache_family, engine
 from repro_torch.serving import scheduler as sched_mod
 from repro_torch.serving.router import ReplicaRouter
+from repro_torch.training.train_step import init_for
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -345,17 +350,21 @@ def print_report(args, report, slot_len: int) -> None:
         print(f"evicted at capacity: {evicted}")
 
 
-def lockstep(args, cfg, params, *, prompts=None, noise_fn=None):
+def lockstep(args, cfg, params, *, prompts=None, patches=None,
+             noise_fn=None):
     """The drain-and-refill baseline: prefill ``--batch`` prompts of
     ``--prompt-len`` together into fresh caches, sample the first token,
     then decode ``--tokens - 1`` steps at one shared cache length; print the
     reference's report lines.  Returns the generated ids [B, tokens]
     (numpy).
 
-    ``prompts`` [B, T] defaults to ``default_rng(1)`` draws.  Sampling takes
-    one Gumbel draw [B, k] per step from a ``torch.Generator`` seeded 0, or
-    ``noise_fn(step)``: step 0 samples after the prefill, step i + 1 after
-    decode step i (a test injects the reference's draws here)."""
+    ``prompts`` [B, T] defaults to ``default_rng(1)`` draws.  A VLM
+    (``cfg.num_patches``) prefills ``patches`` [B, P, D] float32 ahead of
+    them, by default N(0, 1) draws from a CPU ``torch.Generator`` seeded 2
+    (the same on every device), into caches of ``max_len + P``.  Sampling
+    takes one Gumbel draw [B, k] per step from a ``torch.Generator`` seeded
+    0, or ``noise_fn(step)``: step 0 samples after the prefill, step i + 1
+    after decode step i (a test injects the reference's draws here)."""
     max_len = args.max_len or (args.prompt_len + args.tokens)
     vocab = cfg.real_vocab_size or cfg.vocab_size
     device = torch.device(args.device)
@@ -363,6 +372,13 @@ def lockstep(args, cfg, params, *, prompts=None, noise_fn=None):
         prompts = np.random.default_rng(1).integers(
             0, vocab, (args.batch, args.prompt_len))
     toks = torch.as_tensor(np.asarray(prompts, np.int64), device=device)
+    if cfg.num_patches and patches is None:
+        patches = torch.randn(
+            (toks.shape[0], cfg.num_patches, cfg.d_model),
+            generator=torch.Generator().manual_seed(2))
+    if patches is not None:
+        patches = torch.as_tensor(patches, dtype=torch.float32,
+                                  device=device)
     gen = torch.Generator().manual_seed(0)
 
     def noise(step):
@@ -371,7 +387,9 @@ def lockstep(args, cfg, params, *, prompts=None, noise_fn=None):
         return torch.as_tensor(np.asarray(noise_fn(step)), dtype=torch.float32)
 
     t0 = obs_clock.monotonic()
-    last, caches, length = engine.prefill(params, toks, cfg, max_len=max_len)
+    last, caches, length = engine.prefill(
+        params, toks, cfg, max_len=max_len + (cfg.num_patches or 0),
+        patch_embeds=patches)
     logits = transformer.logits_last(params, last[:, None], cfg)
     tok, _ = topk_sample(logits, args.top_k, noise=noise(0), generator=gen)
     out = [tok.cpu()]                   # waits for the device
@@ -401,10 +419,12 @@ def main(argv=None) -> int:
         raise SystemExit(f"{args.arch}: enc-dec serves under --continuous "
                          "--paged (the encoder output pages as immutable "
                          "shared blocks)")
+    if args.continuous and cfg.num_patches:
+        raise SystemExit("continuous batching serves text-only archs for now")
     # weights drawn where they serve: a CPU run draws on the CPU, a card
     # run on the card (a full-width draw on the CPU takes a minute or more)
-    init = encdec.init if family.kind == "encdec" else transformer.init
-    params = init(cfg, seed=0, device=args.device, draw_device=args.device)
+    params = init_for(cfg)(cfg, seed=0, device=args.device,
+                           draw_device=args.device)
     if not args.continuous:
         lockstep(args, cfg, params)
         return 0

@@ -19,6 +19,16 @@ xlstm_125m``) train the same way, autograd through their plain PyTorch
 scans: zamba2's shared attention block, called after every 6 Mamba2
 layers and once more to close the stack, runs the fresh forward and its
 backward at D 64, G 1 at every call; xlstm runs no attention kernel.
+The VLM (``--arch llava_next_34b``) trains on the text alone, as the
+reference's CLI trains it: the stream carries no patch embeddings.
+
+The encoder-decoder (``--arch whisper_small``) is refused before anything
+is initialised: the synthetic stream carries tokens and labels only, and
+its loss needs frames.  The reference's CLI takes the same stream and
+fails in ``encdec.loss_fn`` on ``batch["frames"]``; the port says so.
+It trains through ``training.train_step`` (``init_state``,
+``make_train_step``, ``training.loop.run``) with a batch ``{frames
+[B, S_enc, D], tokens, labels}``.
 """
 from __future__ import annotations
 
@@ -71,6 +81,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run_config(args: argparse.Namespace) -> RunConfig:
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
+    if cfg.family == "encdec":
+        raise SystemExit(
+            f"{args.arch}: the synthetic stream carries tokens and labels "
+            "only, no frames, and the encoder-decoder's loss needs them; "
+            "train it through repro_torch.training.train_step (init_state, "
+            "make_train_step, training.loop.run) with a batch {frames "
+            "[B, S_enc, D], tokens, labels}")
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
     return RunConfig(

@@ -38,19 +38,19 @@ def _leaf(w, i: int, device):
 
 def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     """Reference tree ``{"embedding": {"embed"[, "head"]}, "final_norm":
-    {"scale"}, "segments": [stacked blocks, ...][, "shared_attn": {...}]}``
-    → the port's ``{"embed"[, "head"], "final_norm", "layers": [...][,
-    "shared_attn"]}`` on ``device`` (the card unless the caller asks for
-    the CPU).  Each segment's stacked layers become one dict each, in stack
-    order: dense, MoE, MLA, mamba, mlstm and slstm blocks alike, every
-    ``{"scale"}`` norm dict becoming a flat tensor (``ln1``, an MLA
-    layer's ``q_norm`` / ``kv_norm``, a mamba layer's ``ln`` and its
-    block's ``norm``, the xLSTM blocks' ``norm`` / ``hnorm``) and the rest
-    carried as it is (an MoE layer's router, stacked experts and
-    ``"shared"`` MLP).  A hybrid model's ``{}`` placeholder segments take
-    no layer; its unstacked ``shared_attn`` block converts once.  An
-    encoder-decoder tree (one with ``"encoder"``) takes
-    ``_encdec_from_numpy``."""
+    {"scale"}, "segments": [stacked blocks, ...][, "shared_attn": {...}][,
+    "mm_proj"]}`` → the port's ``{"embed"[, "head"][, "mm_proj"],
+    "final_norm", "layers": [...][, "shared_attn"]}`` on ``device`` (the
+    card unless the caller asks for the CPU).  Each segment's stacked
+    layers become one dict each, in stack order: dense, MoE, MLA, mamba,
+    mlstm and slstm blocks alike, every ``{"scale"}`` norm dict becoming a
+    flat tensor (``ln1``, an MLA layer's ``q_norm`` / ``kv_norm``, a mamba
+    layer's ``ln`` and its block's ``norm``, the xLSTM blocks' ``norm`` /
+    ``hnorm``) and the rest carried as it is (an MoE layer's router,
+    stacked experts and ``"shared"`` MLP; a VLM's ``mm_proj``).  A hybrid
+    model's ``{}`` placeholder segments take no layer; its unstacked
+    ``shared_attn`` block converts once.  An encoder-decoder tree (one
+    with ``"encoder"``) takes ``_encdec_from_numpy``."""
     if "encoder" in tree:
         return _encdec_from_numpy(tree, device)
     layers = []
@@ -62,6 +62,8 @@ def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     params = {"embed": _tensor(tree["embedding"]["embed"], device)}
     if "head" in tree["embedding"]:
         params["head"] = _tensor(tree["embedding"]["head"], device)
+    if "mm_proj" in tree:
+        params["mm_proj"] = _tensor(tree["mm_proj"], device)
     params["final_norm"] = _tensor(tree["final_norm"]["scale"], device)
     params["layers"] = layers
     if "shared_attn" in tree:

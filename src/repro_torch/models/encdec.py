@@ -25,6 +25,15 @@ every one of the S_enc keys valid, a wider one with a cache the cached
 prefill (row 5) with ``causal=False``, and the training form (no cache)
 the fresh forward.  On the CPU each runs the same online arithmetic.
 
+``loss_fn`` trains on either device (``training.train_step`` picks it for
+an encoder-decoder): on the card every attention of its forward is the
+fresh forward through ``FlashAttention`` (row 6) and its backward the dq
+and dk/dv kernels (row 7): the encoder's non-causal over S_enc, the
+decoder's causal over its T tokens, and the cross-attention's non-causal
+T queries over S_enc keys.  Each encoder and decoder layer is
+checkpointed, so a step launches the forward twice a layer and
+attention.
+
 Parameters are a plain dict::
 
     {"adapter": [D, D], "encoder": [{"ln1", "attn": {"wq", "wk", "wv",

@@ -1,5 +1,6 @@
-"""Decoder-only LM for the dense, MoE, MLA and recurrent block kinds: init,
-forward, training loss, decode logits.
+"""Decoder-only LM for the dense, MoE, MLA and recurrent block kinds (a
+VLM is a dense stack that takes patch embeddings): init, forward,
+training loss, decode logits.
 
 Port of ``src/repro/models/transformer.py``: ``block_pattern`` (line 41,
 the xLSTM and hybrid patterns at 48-73), ``block_apply`` (114; dense
@@ -7,18 +8,21 @@ takes the MLP, moe ``layers.moe_apply``, at 150-154; mla
 ``layers.mla_apply`` and the MLP, rejecting block tables as at 133-135, as
 do the recurrent kinds; mamba ``ssm.mamba2_apply`` after a norm, mlstm and
 slstm their ``xlstm`` blocks, 155-164), ``init`` (176; the port's own
-seeded initialiser with the reference's shapes and scales), ``forward``
-(217; a Python loop over layers in place of ``lax.scan``, each layer under
-``torch.utils.checkpoint`` where the reference's ``_maybe_remat`` put it
-under ``jax.checkpoint``, with its two policies, the MoE aux losses summed
-over layers as at 270-272; zamba2's one shared block called at every
-``shared_attn`` segment), ``loss_fn`` (280, which adds them over
-``num_layers``) and ``logits_last`` (306, which casts to fp32 before the head
-product as at line 309).
+seeded initialiser with the reference's shapes and scales, a VLM's
+``mm_proj`` as at 186-188), ``forward`` (217; a VLM's patch embeddings
+projected and prepended as at 230-232; a Python loop over layers in place
+of ``lax.scan``, each layer under ``torch.utils.checkpoint`` where the
+reference's ``_maybe_remat`` put it under ``jax.checkpoint``, with its two
+policies, the MoE aux losses summed over layers as at 270-272; zamba2's
+one shared block called at every ``shared_attn`` segment), ``loss_fn``
+(280, which drops a VLM batch's patch positions as at 284-285 and adds
+the aux losses over ``num_layers``) and ``logits_last`` (306, which casts
+to fp32 before the head product as at line 309).
 
 Parameters are a plain dict::
 
-    {"embed": [V, D], ("head": [D, V] when untied,) "final_norm": [D],
+    {"embed": [V, D], ("head": [D, V] when untied,) ("mm_proj": [D, D]
+     for a VLM,) "final_norm": [D],
      "layers": [{"ln1": [D], "attn": {"wq", "wk", "wv", "wo"},
                  "ln2": [D], "mlp": {"w_gate", "w_up", "w_down"}}, ...]}
 
@@ -158,7 +162,8 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     [E_pad, F, D] at 1/sqrt(E_pad), the reference's fan-in of a stacked
     leaf; the shared expert's MLP) and the MLA leaves (``mla_init``'s
     shapes, each at 1/sqrt(its first axis), the fp32 ``q_norm`` /
-    ``kv_norm`` ones) included.  Each tensor is drawn in
+    ``kv_norm`` ones) and a VLM's ``mm_proj`` [D, D] at 1/sqrt(D)
+    included.  Each tensor is drawn in
     fp32 on ``draw_device`` from one seeded ``torch.Generator`` there, then
     cast to ``cfg.dtype`` (the router: kept fp32) on ``device``.  The
     default draws on the CPU, so a seed gives the same weights on every
@@ -233,6 +238,8 @@ def init(cfg: ModelConfig, *, seed: int = 0,
     params = {"embed": dense((v, d), scale=1.0)}
     if not cfg.tie_embeddings:
         params["head"] = dense((d, v))
+    if cfg.num_patches:
+        params["mm_proj"] = dense((d, d))
     params["final_norm"] = ones()
     layers = []
     for kind_i, idx, _ in layer_plan(cfg):
@@ -260,12 +267,18 @@ def params_to(params, device=None, dtype=None):
 
 
 def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
+            patch_embeds: Optional[Tensor] = None,
             caches: Optional[dict] = None,
             cache_len: Optional[Union[int, Tensor]] = None,
             block_tables: Optional[Tensor] = None, return_aux: bool = False):
-    """tokens [B, T] → (hidden [B, T, D], caches), and with ``return_aux``
+    """tokens [B, T] → (hidden [B, T', D], caches), and with ``return_aux``
     a third item: the MoE aux losses (``moe_lb_loss``, ``moe_z_loss``)
     summed over layers, ``{}`` for a dense model.
+
+    VLM (``cfg.num_patches``): ``patch_embeds`` [B, P, D] are cast to the
+    model dtype, projected by ``mm_proj`` and prepended to the token
+    embeddings, so T' = P + T and the positions run over all T'; without
+    them (or for another family) T' = T.
 
     ``block_tables`` [B, M]: paged KV serving — ``caches`` holds the block
     pools ``{"k", "v": [L, P, Hkv, BS, D]}`` (no batch axis; see
@@ -274,7 +287,10 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     sequence) or a [B] tensor (per-slot offsets).  Layer i sees leaf ``[i]``
     of every cache leaf, so an int8 cache's scales travel with its K/V."""
     x = L.embed_tokens(params, tokens)
-    t = tokens.shape[1]
+    if cfg.num_patches and patch_embeds is not None:
+        pe = patch_embeds.to(x.dtype) @ params["mm_proj"]
+        x = torch.cat([pe, x], dim=1)
+    t = x.shape[1]
     base = torch.as_tensor(cache_len if cache_len is not None else 0,
                            dtype=torch.int64, device=x.device)
     # scalar base → positions [T]; per-slot base [B] → positions [B, T]
@@ -374,8 +390,15 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     """batch: tokens [B, T], labels [B, T] (−1 = masked) → (mean CE over the
     unmasked labels plus each MoE aux loss over ``num_layers``, {"ce_loss",
     the aux losses, "loss"}).  The tied head's gradient reaches ``embed``
-    through both the token gather and the head product."""
-    hidden, _, aux = forward(params, batch["tokens"], cfg, return_aux=True)
+    through both the token gather and the head product.  A VLM batch may
+    carry ``patch_embeds`` [B, P, D]: they are prepended (``forward``) and
+    the P patch positions dropped before the CE, so the labels cover the
+    text alone."""
+    hidden, _, aux = forward(params, batch["tokens"], cfg,
+                             patch_embeds=batch.get("patch_embeds"),
+                             return_aux=True)
+    if cfg.num_patches and "patch_embeds" in batch:
+        hidden = hidden[:, cfg.num_patches:]        # the text positions
     d = hidden.shape[-1]
     labels = batch["labels"].reshape(-1).long()
     w = L.head_matrix(params, cfg)

@@ -3,7 +3,9 @@ sampling, for three serving shapes over one decoder (dense, MoE, MLA or
 recurrent), and the encoder-decoder's paged serving.
 
 * **Lockstep batch** (``prefill`` + ``decode_step``): one scalar cache
-  length shared by every row, the drain-and-refill baseline.
+  length shared by every row, the drain-and-refill baseline; a VLM's
+  patch embeddings prefill ahead of the prompts here, as in the
+  reference.
 * **Slot pool** (``chunked_prefill`` / ``prefill_chunk`` / ``write_slot`` /
   ``decode_step_slots``): contiguous per-slot caches with a [B] length
   vector; a finished slot is overwritten by the next request's prefilled
@@ -28,8 +30,9 @@ leaves the family gave, whichever they are.
 Port of ``src/repro/serving/engine.py`` for the dense families (dense, MoE
 and MLA blocks) and the fixed-state family (mamba, mlstm and slstm blocks,
 and zamba2's shared attention):
-``init_cache`` (line 49), ``prefill`` (55), ``logits_from_hidden`` (69),
-``decode_step`` (80), ``prefill_schedule`` (111), ``chunked_prefill`` (135),
+``init_cache`` (line 49), ``prefill`` (55; ``patch_embeds`` at 63-66),
+``logits_from_hidden`` (69), ``decode_step`` (80), ``prefill_schedule``
+(111), ``chunked_prefill`` (135),
 ``prefill_chunk`` (165), ``write_slot`` (182), ``sample_per_slot`` (199),
 ``decode_step_slots`` (218), ``paged_supported`` (241),
 ``init_paged_cache`` (251),
@@ -54,7 +57,7 @@ before the vocabulary pass unless it is 1.0, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -76,14 +79,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, *,
-            max_len: int):
+            max_len: int, patch_embeds: Optional[Tensor] = None):
     """Run the prompts tokens [B, T] through the model into fresh caches of
-    ``max_len`` on the tokens' device.  Returns (last_hidden [B, D], caches,
-    cache_len = T)."""
+    ``max_len`` on the tokens' device; a VLM's ``patch_embeds`` [B, P, D]
+    go first (``transformer.forward``), so the cache holds P + T positions.
+    Returns (last_hidden [B, D], caches, cache_len = T, or T + P with
+    patches)."""
     caches = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
-    hidden, caches = transformer.forward(params, tokens, cfg, caches=caches,
-                                         cache_len=0)
-    return hidden[:, -1], caches, tokens.shape[1]
+    hidden, caches = transformer.forward(params, tokens, cfg,
+                                         patch_embeds=patch_embeds,
+                                         caches=caches, cache_len=0)
+    return hidden[:, -1], caches, tokens.shape[1] + (
+        cfg.num_patches if patch_embeds is not None else 0)
 
 
 def decode_step(params: dict, caches: dict, cache_len: int, tokens: Tensor,

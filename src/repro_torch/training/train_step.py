@@ -1,6 +1,13 @@
 """Train-step builder: loss → grads → cast → AdamW, the port of
-``src/repro/training/train_step.py`` (``make_train_step`` at line 32,
-``init_state`` at 67).
+``src/repro/training/train_step.py`` (``loss_for`` at line 28,
+``make_train_step`` at 32, ``init_state`` at 67).
+
+The loss is the family's (``loss_for``): an encoder-decoder's
+``encdec.loss_fn`` over a batch ``{frames [B, S_enc, D], tokens,
+labels}``, every other model's ``transformer.loss_fn`` (a VLM batch may
+add ``patch_embeds`` [B, P, D]).  A leaf the loss does not reach (a VLM's
+``mm_proj`` on a text-only batch) gets a zero gradient, as the
+reference's ``jax.grad`` gives it.
 
 With ``microbatches > 1`` each microbatch's gradients are cast to
 ``grad_reduce_dtype``, accumulated in fp32 and averaged (the reference's
@@ -16,17 +23,31 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import RunConfig
 from repro_torch.distributed import compression
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw
 
 PyTree = Any
 
 
+def loss_for(cfg) -> Callable:
+    """The family's loss: ``encdec.loss_fn`` for an encoder-decoder, else
+    ``transformer.loss_fn``."""
+    return encdec.loss_fn if cfg.family == "encdec" else transformer.loss_fn
+
+
+def init_for(cfg) -> Callable:
+    """The family's init: ``encdec.init`` for an encoder-decoder, else
+    ``transformer.init``."""
+    return encdec.init if cfg.family == "encdec" else transformer.init
+
+
 def _value_and_grad(params: PyTree, batch: dict, cfg):
-    """(loss, metrics, grads) of ``transformer.loss_fn``; grads is a tree
-    like ``params`` in the parameters' dtypes."""
-    loss, metrics = transformer.loss_fn(params, batch, cfg)
-    grads = torch.autograd.grad(loss, tree.leaves(params))
+    """(loss, metrics, grads) of ``loss_for(cfg)``; grads is a tree like
+    ``params`` in the parameters' dtypes, zeros where the loss does not
+    reach a leaf."""
+    leaves = tree.leaves(params)
+    loss, metrics = loss_for(cfg)(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree.unflatten(params, grads))
 
@@ -69,12 +90,12 @@ def make_train_step(run: RunConfig) -> Callable:
 
 def init_state(run: RunConfig, *,
                device: Union[str, torch.device] = "cuda"):
-    """(params, opt_state): weights from ``run.seed`` whose leaves require
-    grad, and a fresh AdamW state.  The weights are drawn where they train
-    (``transformer.init(draw_device=device)``): a CPU draw of a full-width
-    model takes over a minute (``tools/init_times.py``), so a card run
-    draws other numbers from the same seed than a CPU run."""
-    params = transformer.init(run.model, seed=run.seed, device=device,
-                              draw_device=device)
+    """(params, opt_state): weights from ``run.seed`` (``init_for``) whose
+    leaves require grad, and a fresh AdamW state.  The weights are drawn
+    where they train (``init(draw_device=device)``): a CPU draw of a
+    full-width model takes over a minute (``tools/init_times.py``), so a
+    card run draws other numbers from the same seed than a CPU run."""
+    params = init_for(run.model)(run.model, seed=run.seed, device=device,
+                                 draw_device=device)
     params = tree.map(lambda p: p.requires_grad_(True), params)
     return params, adamw.init(params)

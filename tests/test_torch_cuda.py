@@ -1717,3 +1717,236 @@ def test_encdec_streams_equal_on_card_and_cpu(cuda):
         sched.decode_steps + sched.prefill_chunks)
     assert counts["flash_attention_offset"] == 0
     assert counts["softmax_topk"] == sched.decode_steps + sched.prefills_done
+
+
+# ---------------------------------------------------------------------------
+# Training the encoder-decoder; serving and training the VLM.
+# ---------------------------------------------------------------------------
+def _row_err(got, want, *, by_row=True, absolute=False):
+    """bf16: the largest error of a row (the last axis) over that row's
+    largest plain entry, floored at 1e-2 of the tensor's largest (at the
+    long-key shapes a row's entries lie far below 1, so a scale of 1, or
+    of the whole tensor, would let a wrong row pass); without ``by_row``
+    over the tensor's largest entry (``FlashAttention`` against autograd
+    through the plain forward: its bf16 backward takes delta from the
+    rounded output, autograd's softmax exact); with ``absolute`` (the
+    decode and prefill checks, which held the max abs error) a row's scale
+    is at most 1.  fp32, and a bf16 tensor whose largest entry is below
+    1e-3 (rounding noise around a zero the maths gives): the max abs error
+    over the larger of 1 and that entry, or with ``absolute`` itself
+    (fp32's noise rows, ~1e-6, would fail a row scale at 1e-5).  NaN
+    reads as inf."""
+    g, w = got.float(), want.float()
+    peak = w.abs().max().item()
+    diff = (g - w).abs()
+    if want.dtype != torch.bfloat16 or peak < 1e-3:
+        err = diff.max().item() / (1.0 if absolute else max(1.0, peak))
+    elif not by_row:
+        err = diff.max().item() / peak
+    else:
+        rows = w.abs().amax(-1, keepdim=True).clamp_min(1e-2 * peak)
+        if absolute:
+            rows = rows.clamp_max(1.0)
+        err = (diff / rows).max().item()
+    return err if err == err else float("inf")
+
+
+def _fresh_errs_scaled(q, k, v, dout, causal):
+    """The fresh forward and both backward kernels against their plain
+    versions (K/V NaN past Tk for the kernels, zeroed for the plain
+    versions): the largest ``_row_err`` (lse's max abs error), and whether
+    every output is finite."""
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    grads = fab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
+    w_out, w_lse = fa.flash_attention_fwd_plain(q, k0, v0, causal=causal)
+    want = fab.flash_attention_bwd_plain(q, k0, v0, out, lse, dout,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    finite = all(torch.isfinite(x).all() for x in (out, lse, *grads))
+    worst = (lse - w_lse).abs().max().item()
+    for a, b_ in zip((out, *grads), (w_out, *want)):
+        worst = max(worst, _row_err(a, b_))
+    return worst, finite
+
+
+def _cross(seed, *, b, tq, tk, hkv, g, d, spare=7):
+    """q and dout [B, Tq, Hq, D]; k, v [B, Tk, Hkv, D] cut from buffers
+    whose rows past Tk are NaN (the cross-attention's shapes)."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, tq, hkv * g, d, generator=gen)
+    dout = torch.randn(b, tq, hkv * g, d, generator=gen)
+    kv = torch.randn(2, b, tk + spare, hkv, d, generator=gen)
+    kv[:, :, tk:] = float("nan")
+    return q, kv[0, :, :tk], kv[1, :, :tk], dout
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_encdec_train_kernels_match_plain(cuda, dtype, atol):
+    """whisper-small's training instances of rows 6 and 7 (12/12 heads of
+    64): non-causal over its encoder's 1536 frames, and non-causal at the
+    cross-attention's Tq 256 over Tk 1536 (and a ragged Tq 37 over Tk 100),
+    forward, dq and dk/dv against their plain versions; then
+    ``FlashAttention``'s gradients at Tq ≠ Tk against autograd through the
+    plain forward."""
+    dev = dict(device=cuda, dtype=dtype)
+    for seed, (b, tq, tk) in enumerate(((1, 1536, 1536), (2, 256, 1536),
+                                        (2, 37, 100))):
+        q, k, v, dout = (x.to(**dev) for x in _cross(
+            30 + seed, b=b, tq=tq, tk=tk, hkv=12, g=1, d=64))
+        err, finite = _fresh_errs_scaled(q, k, v, dout, False)
+        assert finite and err <= atol, (tq, tk, err)
+    q, k, v, dout = (x.to(**dev) for x in _cross(33, b=2, tq=37, tk=100,
+                                                  hkv=12, g=1, d=64))
+    k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+    got, want = [], []
+    for fn, store in ((lambda a, b_, c: fa.FlashAttention.apply(a, b_, c,
+                                                                 False), got),
+                      (lambda a, b_, c: fa.flash_attention_fwd_plain(
+                          a, b_, c, causal=False)[0], want)):
+        args = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*args).backward(dout)
+        store.extend(a.grad for a in args)
+    for a, b_ in zip(got, want):
+        assert _row_err(a, b_, by_row=False) <= atol
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_vlm_kernels_match_plain(cuda, dtype, atol):
+    """llava-next-34b's instances (56/8 heads of 128, G 7): rows 6 and 7
+    causal at its training sequence of 2880 patches + 256 tokens; row 5 at
+    its lockstep prefill (B 2, Tq 2944 at offset 0 over caches of 2960, NaN
+    past 2944); row 4 over 2945 and 2960 keys of 2960, a repeat bit-equal;
+    and the sampler at [2, 64000]."""
+    dev = dict(device=cuda, dtype=dtype)
+    q, k, v, dout = (x.to(**dev) for x in _fresh(40, b=1, t=3136, hkv=8,
+                                                  g=7, d=128))
+    err, finite = _fresh_errs_scaled(q, k, v, dout, True)
+    assert finite and err <= atol, err
+    del q, k, v, dout
+    q, kv_nan, kv0, vl = _contiguous(41, b=2, s=2960, tq=2944,
+                                     vlens=[2944, 2944], hkv=8, g=7, d=128)
+    q, vl = q.to(**dev), vl.to(cuda)
+    qo = torch.zeros(2, dtype=torch.int32, device=cuda)
+    out, _ = fa.flash_attention_offset(q, *(t.to(**dev) for t in kv_nan), qo,
+                                       vl)
+    want, _ = fa.flash_attention_offset_plain(q, *(t.to(**dev) for t in kv0),
+                                              qo, vl)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _row_err(out, want, absolute=True) <= atol
+    for vlens in ([2945, 2945], [2960, 2960]):
+        q, kv_nan, kv0, vl = _contiguous(42, b=2, s=2960, tq=1, vlens=vlens,
+                                         hkv=8, g=7, d=128)
+        q, vl = q.to(**dev), vl.to(cuda)
+        got = fd.flash_decode(q, *(t.to(**dev) for t in kv_nan), vl)
+        again = fd.flash_decode(q, *(t.to(**dev) for t in kv_nan), vl)
+        want = fd.flash_decode_plain(q, *(t.to(**dev) for t in kv0), vl)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        assert _row_err(got, want, absolute=True) <= atol
+    x = torch.randn(2, 64000, generator=torch.Generator().manual_seed(43),
+                    ).to(cuda) * 4.0
+    got, want = st.softmax_topk(x, 5), st.softmax_topk_plain(x, 5)
+    assert torch.equal(got.indices.long(), want.indices)
+    assert torch.allclose(got.logsumexp, want.logsumexp, rtol=1e-5, atol=0)
+
+
+def _card_vs_cpu_train_steps(cuda, cfg, batches, seed):
+    """Two fp32 train steps of ``cfg`` from the same weights on the card
+    (the kernels) and on the CPU (the plain versions), gradients reduced
+    in fp32 as the CPU tests run them (the default bf16 cast rounds an
+    entry whose fp32 values straddle a bf16 boundary to values one bf16
+    step, ~0.4-0.8 %, apart), at the tolerances of the CPU tests' train
+    steps (``tests/test_torch_training.py``): each step's loss within rtol
+    1e-5 and grad norm within rtol 1e-4, the first moments after the
+    first step (a tenth of its gradients) at ``_grad_close``'s rtol 1e-4
+    and atol 1e-5 of each leaf's largest entry, then every parameter
+    within 2·lr per step taken, at most 1 % of
+    any leaf's entries past 1e-5 (an entry whose gradient is ~0 may take
+    Adam's ±lr step the other way).  Returns the card's launch counts over
+    the two steps and the parameters' paths."""
+    from repro_torch import tree
+    from repro_torch.configs.base import ParallelConfig, RunConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import init_state, make_train_step
+    run = RunConfig(model=cfg, seed=seed,
+                    parallel=ParallelConfig(grad_reduce_dtype="float32"))
+    params_cpu, _ = init_state(run, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = tree.map(lambda p: p.detach().clone().to(device)
+                          .requires_grad_(True), params_cpu)
+        opt, step = adamw.init(params), make_train_step(run)
+        dispatch.reset_launch_counts()
+        metrics = []
+        for i, batch in enumerate(batches):
+            params, opt, m = step(params, opt, {
+                k: torch.as_tensor(x, device=device)
+                for k, x in batch.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                first = [(path, x.detach().cpu().clone()) for path, x in
+                         tree.leaves_with_path(opt.mu)]
+        torch.cuda.synchronize()
+        out[device] = (metrics, [p.detach().cpu() for p in
+                                 tree.leaves(params)],
+                       dispatch.launch_counts(), first)
+    (got, p_card, counts, mu_card), (want, p_cpu, _, mu_cpu) = (
+        out["cuda"], out["cpu"])
+    for (loss, norm), (w_loss, w_norm) in zip(got, want):
+        np.testing.assert_allclose(loss, w_loss, rtol=1e-5)
+        np.testing.assert_allclose(norm, w_norm, rtol=1e-4)
+    for (path, a), (_, b_) in zip(mu_card, mu_cpu):
+        np.testing.assert_allclose(
+            a.numpy(), b_.numpy(), rtol=1e-4,
+            atol=1e-5 * max(b_.abs().max().item(), 1e-30), err_msg=path)
+    bound = 2 * run.optimizer.lr * len(batches) + 1e-6
+    for a, b_ in zip(p_card, p_cpu):
+        diff = (a - b_).abs()
+        assert diff.max().item() <= bound
+        assert (diff > 1e-5).float().mean().item() <= 0.01
+    return counts, [p for p, _ in tree.leaves_with_path(params_cpu)]
+
+
+def test_encdec_train_steps(cuda):
+    """whisper's smoke stack with 2/2 heads of 64 trained through
+    ``training.train_step`` on a frames batch, fp32, two steps on the card
+    against the CPU; on the card each step launches, per encoder layer and
+    per decoder layer's self- and cross-attention, 2 forwards (the
+    forward and its recomputation under the layer's checkpoint), a dq and
+    a dk/dv."""
+    cfg = configs.get_smoke("whisper_small").replace(
+        d_model=128, num_heads=2, num_kv_heads=2, head_dim=64)
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    ds = SyntheticDataset(SyntheticConfig(cfg.vocab_size, 48, 2))
+    gen = torch.Generator().manual_seed(44)
+    batches = [{**ds.batch(i), "frames": torch.randn(
+        2, cfg.encoder_seq_len, cfg.d_model, generator=gen)}
+        for i in range(2)]
+    counts, _ = _card_vs_cpu_train_steps(cuda, cfg, batches, seed=5)
+    n = cfg.encoder_layers + 2 * cfg.num_layers
+    assert (counts["flash_attention"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"]) == (4 * n, 2 * n, 2 * n)
+    assert counts["flash_decode"] == counts["flash_attention_offset"] == 0
+
+
+def test_vlm_train_steps(cuda):
+    """llava's smoke stack at 7/1 heads of 128 (G 7) trained through
+    ``training.train_step`` on a batch with 16 patch embeddings, fp32, two
+    steps on the card against the CPU (``mm_proj`` among the leaves); 2
+    forwards, a dq and a dk/dv a layer and step on the card."""
+    cfg = configs.get_smoke("llava_next_34b").replace(
+        d_model=256, num_heads=7, num_kv_heads=1, head_dim=128)
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    ds = SyntheticDataset(SyntheticConfig(cfg.vocab_size, 40, 2))
+    gen = torch.Generator().manual_seed(45)
+    batches = [{**ds.batch(i), "patch_embeds": torch.randn(
+        2, cfg.num_patches, cfg.d_model, generator=gen)} for i in range(2)]
+    counts, paths = _card_vs_cpu_train_steps(cuda, cfg, batches, seed=6)
+    n = cfg.num_layers
+    assert (counts["flash_attention"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"]) == (4 * n, 2 * n, 2 * n)
+    assert "mm_proj" in paths

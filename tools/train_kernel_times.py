@@ -10,7 +10,7 @@ after the other.
 default this checkout's); the inputs, checks and timers are
 ``chip_smoke.py``'s phase 8 (``_train_kernel_times``): B 8, T 512, bf16,
 causal, each kernel held against its plain version on the timed input
-first (scaled max abs error within 2e-2), at smollm-360m's 15/5 heads of
+first (``_scaled_err`` within 2e-2), at smollm-360m's 15/5 heads of
 64 and, where the imported kernels take the pair
 (``flash_attention_bwd.HEAD_DIMS``: head dims, or (Dqk, Dv) pairs), at
 mistral-nemo-12b's 32/8 and qwen2-moe-a2.7b's 16/16 heads of 128 and at
