@@ -247,9 +247,9 @@ printing its final line:
    counts, no latent kernel); then the recurrent decoders at full width
    (``TRAIN_STATE``): zamba2-1.2b at 20 of 38 layers (8 forward, 4 dq and
    4 dk/dv launches a step: its shared block's 4 calls) and xlstm-125m at
-   its full 12 (no attention launch), ``TRAIN_STATE_STEPS`` steps and
-   ``REMAT_STATE_STEPS`` under each remat policy, the step line with the
-   recurrent cores' device time alone beside it; then, through
+   its full 12 (no attention launch), ``TRAIN_STATE_STEPS`` steps, then for
+   zamba2 ``REMAT_STATE_STEPS`` under each remat policy and the step line
+   with the recurrent cores' device time alone beside it; then, through
    ``training.train_step`` (``init_state``, ``make_train_step``,
    ``training.loop.run``) as a user trains them outside the CLI, whose
    stream carries neither frames nor patches: whisper-small at full width
@@ -361,6 +361,18 @@ printing its final line:
    one valid, pids 0 and 1, first ticks aligned, and ``python -m
    repro_torch.obs.report`` exiting 0 on the merged file.
 
+``phase_distributed`` (after phase 6's training run) runs the distributed layer
+at world size 1 under NCCL (a ``FileStore``, no network) over a (1, 1)
+``DeviceMesh``: rows 4 and 4q with their lse against the plain version's
+at smollm-360m's decode batch, at D 128 and in int8 (vlen 0 giving out 0
+and lse -inf, the lse form's output bit-equal to the plain launch's), the
+⊕ of 2, 4 and 8 cache slices through the kernel (``merge_partials``)
+against the whole cache, the lockstep path under the context (fp and int8
+K/V, tokens identical to the unsharded run, one lse-form decode a layer
+and step and one row 1 a token counted), ``launch.train --mesh 1x1``
+beside the unsharded run, and the times of row 4 with and without its lse
+and of the merge's three collectives.
+
 Each phase prints its wall time, and the end the whole run's, which is
 to stay under 600 s, half the 1200 s it is allowed.  The line before the last is a JSON object
 with one entry per kernel (with the path it was ported for); the last line
@@ -373,6 +385,7 @@ import ctypes
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -446,9 +459,11 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/online_softmax.cu",
         "replaces": "src/repro/kernels/dispatch.py:520"},
 }
-# the launch counters ``dispatch.launch_counts`` reads: one a kernel, and
-# the MoE router's launches of softmax_topk under a key of their own
-COUNTERS = (*KERNELS, "softmax_topk_router")
+# the launch counters ``dispatch.launch_counts`` reads: one a kernel, the
+# MoE router's launches of softmax_topk under a key of their own, and the
+# lse forms of rows 4 and 4q (the sequence-sharded decode's)
+COUNTERS = (*KERNELS, "softmax_topk_router", "flash_decode_lse",
+            "flash_decode_int8_lse")
 # smollm-360m's serving and parity phases (4, 5, 8 and 10) run at full
 # width and this many of its 32 layers: the head_dim-128 models' full-width
 # runs took the script's time (32 → 8), then the recurrent decoders'
@@ -533,10 +548,13 @@ TRAIN_PARITY_BATCH_128 = dict(layers=1, batch=1, seq_len=128)
 # the VLM's training took the script's time) and xlstm-125m at full depth
 # (12 layers: at 6 its loss rose over the two steps, so it keeps its
 # depth); TRAIN_STATE_STEPS steps of 8 x 512 under remat "full" each, then
-# REMAT_STATE_STEPS under "block" and "full"
+# (zamba2 only) a profiled step and REMAT_STATE_STEPS under "block" and
+# "full": xlstm's profiled step (~109k launches, ~25 s a session), its
+# cores' profile (~20 s) and its remat pair (~9 s) were cut for the script's
+# time when the distributed phase came (its last numbers: PERF.md §5, PR 30)
 TRAIN_STATE = (("zamba2-1.2b", "zamba2 train",
-                ["--arch", "zamba2_1p2b", "--layers", "20"]),
-               ("xlstm-125m", "xlstm train", ["--arch", "xlstm_125m"]))
+                ["--arch", "zamba2_1p2b", "--layers", "20"], True),
+               ("xlstm-125m", "xlstm train", ["--arch", "xlstm_125m"], False))
 TRAIN_STATE_STEPS = 2
 # their remat "block" / "full" comparison: one step each (an xlstm step is
 # ~3 s and ~110k launches)
@@ -2743,6 +2761,13 @@ INSTANCES = {
     # llava-next-34b: the sampler at its vocabulary and rows 4 and 5 at its
     # lockstep run's shapes (56/8 heads of 128, G 7), rows 6 and 7 at its
     # training sequence of 2880 patches and 256 tokens
+    # rows 4 and 4q with their lse: the sequence-sharded decode's local
+    # step, on the lockstep path under the (1, 1) mesh's context
+    "flash_decode_lse": ("flash_decode", "distributed lockstep",
+                         "flash_decode_lse"),
+    "flash_decode_int8_lse": ("flash_decode_int8",
+                              "distributed lockstep int8",
+                              "flash_decode_int8_lse"),
     f"softmax_topk_v{LLAVA_VOCAB}": ("softmax_topk", "llava lockstep"),
     f"flash_decode_d128_g7_s{LLAVA_S}": ("flash_decode", "llava lockstep"),
     f"flash_attention_offset_d128_g7_q{LLAVA_TQ}": ("flash_attention_offset",
@@ -4356,7 +4381,8 @@ def phase_train():
         print("train restart: 2 layers, 6 steps (checkpoints at 3 and 6) "
               "then resumed at 6 to 8: parameters and optimizer state "
               "bit-identical to an uninterrupted 8-step run")
-    return counts, {"params": params, "opt": opt, "run": run, "args": args}
+    return counts, {"params": params, "opt": opt, "run": run, "args": args,
+                    "losses": [h["loss"] for h in hist]}
 
 
 def _train_counts(cfg, steps: int) -> dict:
@@ -4488,7 +4514,8 @@ def _model_what(cfg) -> str:
 
 
 def _train_run(name: str, key: str, argv, steps: int, cores=None,
-               remat_steps: int = REMAT_STEPS, samples: int = 3) -> dict:
+               remat_steps: int = REMAT_STEPS, samples: int = 3,
+               profile: bool = True) -> dict:
     """One full-width training run through ``launch.train``: weights drawn
     on the card, ``steps`` bf16 steps under remat "full"
     (``--checkpoint-every 0``: smollm-360m's restart runs check the
@@ -4498,8 +4525,9 @@ def _train_run(name: str, key: str, argv, steps: int, cores=None,
     finish over ``samples`` steps, device busy, the port's kernels, with
     ``cores`` the recurrent cores' device time alone at the step's shapes,
     ``cores(cfg, b, t)``); then ``remat_steps`` steps each under remat
-    "block" and "full" (``_remat_runs``).  Returns the run's launch
-    counts."""
+    "block" and "full" (``_remat_runs``).  Without ``profile`` the run
+    stops after its launch counts: no step line, cores or remat runs.
+    Returns the run's launch counts."""
     import tempfile
     import torch
     from repro_torch import configs, tree
@@ -4545,6 +4573,8 @@ def _train_run(name: str, key: str, argv, steps: int, cores=None,
           f"(forward + recomputation), {n} dq, {n} dk/dv"
           + (f", {2 * n} router" if cfg.moe else "")
           + f" over {len(hist)} steps ({n} attention layers)")
+    if not profile:
+        return counts
     # the "step" line: one more step of the trained state
     step_fn = make_train_step(run)
     batch = SyntheticDataset(SyntheticConfig(
@@ -4605,11 +4635,13 @@ def phase_train_state() -> dict:
     12 layers (no attention kernel), ``TRAIN_STATE_STEPS`` steps each and
     ``REMAT_STATE_STEPS`` under each remat policy (``_train_run``, one
     step timed on the step line, the recurrent cores' device time alone
-    beside it, ``_train_cores``).  Returns {run: launch counts}."""
+    beside it, ``_train_cores``; xlstm's run stops after its counts).
+    Returns {run: launch counts}."""
     return {key: _train_run(name, key, flags, TRAIN_STATE_STEPS,
                             cores=_train_cores,
-                            remat_steps=REMAT_STATE_STEPS, samples=1)
-            for name, key, flags in TRAIN_STATE}
+                            remat_steps=REMAT_STATE_STEPS, samples=1,
+                            profile=profile)
+            for name, key, flags, profile in TRAIN_STATE}
 
 
 def _train_cores(cfg, b: int, t: int) -> None:
@@ -5089,6 +5121,271 @@ def phase_parity_llava() -> None:
 # ---------------------------------------------------------------------------
 # 8: times at the serving and training paths' shapes
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# 7b: the distributed layer at world size 1 (NCCL)
+# ---------------------------------------------------------------------------
+# row 4's lse form at smollm-360m's decode batch (B 8 over 328, 15/5 heads
+# of 64), at D 128 (32/8 heads) and in its int8 form; every shape has a row
+# at vlen 0 (an lse of -inf) and rows short enough that some of the 2, 4
+# and 8 cache slices of the merge check lie wholly past them
+LSE_VLENS = [328, 0, 1, 17, 41, 100, 250, 327]
+LSE_S = 328
+LSE_CASES = (("smollm", "fp", 5, 3, 64), ("d128", "fp", 8, 4, 128),
+             ("smollm", "int8", 5, 3, 64))
+MERGE_SLICES = (2, 4, 8)
+# the lockstep path under the (1, 1) mesh's context: smollm-360m at full
+# width and SMOLLM_LAYERS layers, the lockstep run of phase 4 (B 4, 32
+# tokens), fp K/V and then int8
+DIST_LOCKSTEP_ARGS = LOCKSTEP_ARGS
+# ``launch.train --mesh 1x1``, 3 steps of phase 6's run (its warmup of 20
+# steps makes the first 3 steps' schedule that of its 10): the losses
+# beside phase 6's first 3
+DIST_TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "3", "--seq-len",
+                   "512", "--global-batch", "8", "--checkpoint-every", "0",
+                   "--mesh", "1x1"]
+
+
+def _nccl_world():
+    """A world of 1 under NCCL through a FileStore (no network), and the
+    (data 1, model 1) mesh on the card.  Returns (mesh, the store's
+    directory)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    d = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(d, "store"), 1), rank=0, world_size=1)
+    if dist.get_backend() != "nccl":
+        _fail(f"distributed: backend {dist.get_backend()}, not nccl")
+    return mesh_mod.make_debug_mesh(1, 1, device_type="cuda"), d
+
+
+def _lse_inputs(gen, kind: str, hkv: int, g: int, d: int, dtype):
+    """(kernel operands, plain operands) at ``LSE_VLENS``: q and caches
+    with NaN (int8: ±127 and NaN scales) past each row's vlen for the
+    kernel, zeros for the plain version."""
+    import torch
+    if kind != "int8":
+        q, k, v, k0, v0 = _contiguous_inputs(gen, dtype=dtype, s=LSE_S,
+                                             vlens=LSE_VLENS, hkv=hkv, g=g,
+                                             d=d)
+        return (q, k, v, {}), (q, k0, v0, {})
+    q = torch.randn(len(LSE_VLENS), 1, hkv * g, d, generator=gen).to(
+        device="cuda", dtype=dtype)
+    kern = _int8_contiguous_inputs(gen, s=LSE_S, vlens=LSE_VLENS, hkv=hkv,
+                                   d=d)
+    return ((q, kern[0], kern[1], dict(k_scale=kern[2], v_scale=kern[3])),
+            (q, kern[4], kern[5], dict(k_scale=kern[6], v_scale=kern[7])))
+
+
+def _check_lse(gen) -> dict:
+    """Rows 4 and 4q with their lse against the plain version's, fp32 and
+    bf16, and the ⊕ of 2, 4 and 8 cache slices (each row 4 with its lse,
+    merged by ``merge_partials``) against row 4 over the whole cache.
+    Returns {JSON name: fp32 max abs error}."""
+    import torch
+    from repro_torch.distributed.decode_attention import merge_partials
+    from repro_torch.kernels import flash_decode as fd
+    vl = torch.tensor(LSE_VLENS, dtype=torch.int32, device="cuda")
+    errs = {"flash_decode_lse": 0.0, "flash_decode_int8_lse": 0.0}
+    for name, kind, hkv, g, d in LSE_CASES:
+        key = "flash_decode_int8_lse" if kind == "int8" else \
+            "flash_decode_lse"
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            (q, k, v, sc), (_, k0, v0, sc0) = _lse_inputs(gen, kind, hkv, g,
+                                                          d, dtype)
+            out, lse = fd.flash_decode(q, k, v, vl, return_lse=True, **sc)
+            again = fd.flash_decode(q, k, v, vl, **sc)
+            torch.cuda.synchronize()
+            want, want_lse = fd.flash_decode_plain(q, k0, v0, vl,
+                                                   return_lse=True, **sc0)
+            dead = vl == 0
+            if not (torch.isneginf(lse[dead]).all()
+                    and torch.isfinite(lse[~dead]).all()
+                    and (out[dead] == 0).all()):
+                _fail(f"{key} {name} {dtype}: vlen 0 must give out 0 and "
+                      "lse -inf, the others a finite lse")
+            if not torch.equal(out, again):
+                _fail(f"{key} {name} {dtype}: the lse form's output differs "
+                      "from the plain launch's")
+            lse_err = ((lse[~dead] - want_lse[~dead]).abs()
+                       / want_lse[~dead].abs().clamp_min(1.0)).max().item()
+            err = _scaled_err(out, want, absolute=True)
+            if not (lse_err <= 1e-5 and err <= atol):
+                _fail(f"{key} {name} {dtype}: lse err {lse_err:.3g} (> "
+                      f"1e-5) or output err {err:.3g} (> {atol})")
+            worst = 0.0
+            for n in MERGE_SLICES:
+                step = -(-LSE_S // n)
+                outs, lses = [], []
+                for i in range(n):
+                    cut = slice(i * step, min((i + 1) * step, LSE_S))
+                    o, l = fd.flash_decode(
+                        q, k[:, cut], v[:, cut],
+                        (vl - i * step).clamp(0, step), return_lse=True,
+                        **{s: t[:, cut] for s, t in sc.items()})
+                    outs.append(o)
+                    lses.append(l)
+                got = merge_partials(torch.stack(outs), torch.stack(lses))
+                m_err = _scaled_err(got, out, absolute=True)
+                if not m_err <= atol:
+                    _fail(f"{key} {name} {dtype}: the ⊕ of {n} slices is "
+                          f"{m_err:.3g} from the whole cache (> {atol})")
+                worst = max(worst, m_err)
+            if dtype == torch.float32:
+                errs[key] = max(errs[key], err)
+            print(f"distributed {key} {name} {str(dtype)[6:]} B=8 S={LSE_S} "
+                  f"{hkv * g}/{hkv} D={d} vlen {LSE_VLENS}: lse err "
+                  f"{lse_err:.3g} (1e-5), out err {err:.3g} ({atol}), vlen "
+                  f"0 → (0, -inf); ⊕ of {'/'.join(map(str, MERGE_SLICES))} "
+                  f"slices vs whole cache {worst:.3g} ({atol})")
+    return errs
+
+
+def _dist_lockstep(what: str, argv, cfg, params, ctx, noise) -> tuple:
+    """The lockstep loop of ``argv`` unsharded, then under ``ctx`` between
+    a reset and a read of the launch counts, both with ``noise``; the
+    tokens must be identical and the sharded run's launches one lse-form
+    decode a layer and step and one row 1 a token.  Returns the counts."""
+    import torch
+    from repro_torch.distributed import context
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    cfg = cfg.replace(kv_cache_dtype=args.kv_cache_dtype)
+    want_ids = serve.lockstep(args, cfg, params, noise_fn=noise)
+    dispatch.reset_launch_counts()
+    with context.use(ctx):
+        ids = serve.lockstep(args, cfg, params, noise_fn=noise)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    if not (ids == want_ids).all():
+        _fail(f"{what}: tokens under the context differ from the unsharded "
+              "run's")
+    dec = ("flash_decode_int8_lse" if args.kv_cache_dtype
+           else "flash_decode_lse")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"softmax_topk": args.tokens,
+                 "flash_attention_offset": cfg.num_layers,
+                 dec: (args.tokens - 1) * cfg.num_layers})
+    if counts != want:
+        _fail(f"{what}: launches {counts}, its steps imply {want}")
+    print(f"{what}: {args.batch} x {args.tokens} tokens, {cfg.num_layers} "
+          f"layers, tokens identical to the unsharded run; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def _dist_train(unsharded: list) -> None:
+    """``launch.train --mesh 1x1`` beside the same steps of phase 6's run
+    (``unsharded``, its losses): the first loss bit-equal, the later within
+    1e-4 relative."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, mesh, _ = _train(DIST_TRAIN_ARGS, tmp)
+    a = unsharded[:3]
+    b = [h["loss"] for h in mesh]
+    if len(a) != 3 or len(b) != 3 or a[0] != b[0] or any(
+            abs(x - y) > 1e-4 * abs(x) for x, y in zip(a, b)):
+        _fail(f"train --mesh 1x1: losses {b}, unsharded {a}")
+    print(f"distributed train --mesh 1x1 (NCCL, {DIST_TRAIN_ARGS[1]} at 32 "
+          f"layers, 8 x 512): losses {b}, unsharded {a}; "
+          + ("bit-equal at every step" if a == b
+             else "first bit-equal, later within 1e-4"))
+
+
+def phase_distributed(serve_ctx, train_ctx) -> tuple:
+    """The distributed layer on the card at world size 1 under NCCL: rows
+    4 and 4q with their lse, the ⊕ of cache slices through the real kernel,
+    the lockstep path under the (1, 1) mesh's context (fp and int8 K/V),
+    ``launch.train --mesh 1x1`` beside phase 6's run and the times of row
+    4 with and without its lse and of the merge's three collectives.
+    Returns (launch counts by path, errors, time rows)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed import context
+    from repro_torch.distributed.decode_attention import merge_collective
+    from repro_torch.kernels import flash_decode as fd
+    mesh, store_dir = _nccl_world()
+    try:
+        gen = torch.Generator().manual_seed(31)
+        errs = _check_lse(gen)
+        ctx = context.ShardContext(mesh=mesh, par=ParallelConfig())
+        noise_gen = torch.Generator().manual_seed(4)
+        draws = [torch.empty(4, 5).exponential_(generator=noise_gen).log_()
+                 .neg_() for _ in range(32)]
+        counts = {}
+        for what, argv in (("distributed lockstep", DIST_LOCKSTEP_ARGS),
+                           ("distributed lockstep int8",
+                            DIST_LOCKSTEP_ARGS + INT8)):
+            counts[what] = _dist_lockstep(what, argv, serve_ctx["cfg"],
+                                          serve_ctx["params"], ctx,
+                                          lambda i: draws[i])
+        _dist_train(train_ctx["losses"])
+        # times: row 4 with and without its lse at B 8 over 328 (bf16), and
+        # the merge's three collectives at world 1 on the host's clock
+        rows = {}
+        _, _, hkv, g, d = LSE_CASES[0]
+        vlens, s = SLOT_DECODE
+        for key, kind in (("flash_decode_lse", "fp"),
+                          ("flash_decode_int8_lse", "int8")):
+            if kind == "fp":
+                q, _, _, k, v = _contiguous_inputs(
+                    gen, dtype=torch.bfloat16, s=s, vlens=vlens, hkv=hkv,
+                    g=g, d=d)
+                sc, esz = {}, 2
+            else:
+                q = torch.randn(len(vlens), 1, hkv * g, d,
+                                generator=gen).to("cuda", torch.bfloat16)
+                kern = _int8_contiguous_inputs(gen, s=s, vlens=vlens,
+                                               hkv=hkv, d=d)
+                k, v = kern[4], kern[5]
+                sc, esz = dict(k_scale=kern[6], v_scale=kern[7]), 1
+            vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+            hq = hkv * g
+            nbytes = (2 * q.numel() * 2 + sum(vlens) * hkv * d * esz * 2
+                      + (sum(vlens) * hkv * 2 * 2 if sc else 0)
+                      + len(vlens) * 4 + len(vlens) * hq * 4)
+            b_ms, b_by = _bound(nbytes, 4.0 * hq * d * sum(vlens),
+                                "bfloat16")
+            args, _ = fd.prepare(q, k, v, vl, return_lse=True, **sc)
+            plain_args, _ = fd.prepare(q, k, v, vl, **sc)
+            mask = (torch.arange(s, device="cuda")[None, :]
+                    < vl[:, None].long())[:, None, None, :]
+            kd = k.to(torch.bfloat16) * sc["k_scale"][..., None] if sc else k
+            vd = v.to(torch.bfloat16) * sc["v_scale"][..., None] if sc else v
+            rows[key] = {
+                "ms": _ms(lambda: fd.launch(args)),
+                "device_ms": _device_call_ms(lambda: fd.launch(args)),
+                "without_lse_device_ms": _device_call_ms(
+                    lambda: fd.launch(plain_args)),
+                "wrapper_ms": _ms(lambda: fd.flash_decode(
+                    q, k, v, vl, return_lse=True, **sc)),
+                "plain_ms": _ms(lambda: fd.flash_decode_plain(
+                    q, k, v, vl, return_lse=True, **sc)),
+                "library_ms": _ms(lambda: _sdpa(q, kd, vd, mask)),
+                "library_device_ms": _device_call_ms(
+                    lambda: _sdpa(q, kd, vd, mask)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": f"B={len(vlens)} S={s} {hq}/{hkv} D={d} bf16 q, "
+                         f"{'int8' if sc else 'bf16'} K/V, vlen {vlens}, "
+                         f"{_plan_of(fd, q, k)}, with its lse [B, Hq]"}
+            print(f"time {key}: device {rows[key]['device_ms']:.4f} ms, "
+                  f"without the lse "
+                  f"{rows[key]['without_lse_device_ms']:.4f} ms")
+        out, lse = fd.flash_decode(q, k, v, vl, return_lse=True, **sc)
+        group = context.group(mesh, ("model",))
+        merge_ms = _host_ms(lambda: merge_collective(out, lse, group),
+                            samples=20)
+        print(f"time distributed merge (3 all_reduce, world 1, NCCL, "
+              f"[{len(vlens)}, {hkv * g}]): host {merge_ms:.4f} ms a merge")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return counts, errs, rows
+
+
 def _bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -6813,6 +7110,10 @@ def main() -> int:
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
+    dist_counts, dist_errs, dist_rows = _timed(phase_distributed, serve_ctx,
+                                               train_ctx)
+    counts.update(dist_counts)
+    errs.update(dist_errs)
     counts.update(_timed(phase_train_128))
     counts.update(_timed(phase_train_state))
     counts.update(_timed(phase_train_whisper))
@@ -6823,6 +7124,7 @@ def main() -> int:
     _timed(phase_train_parity_whisper)
     _timed(phase_parity_llava)
     times = _timed(phase_times)
+    times.update(dist_rows)
     _timed(phase_steps, serve_ctx, train_ctx)
     _timed(phase_swap_times, serve_ctx)
     counts["library"], lib_errs = _timed(phase_library)

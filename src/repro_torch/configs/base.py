@@ -113,9 +113,13 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """How the model maps onto the mesh.  The port runs on one device: only
-    ``grad_reduce_dtype`` and ``microbatches`` are read; the other fields
-    keep the reference's names for the distributed slice."""
+    """How the model maps onto the mesh.  The port reads
+    ``grad_reduce_dtype`` and ``microbatches`` (the train step),
+    ``data_axes`` (the data-parallel all-reduce and ``HostShardedLoader``'s
+    rows), ``model_axis`` (the vocabulary-sharded sampler) and
+    ``attn_mode`` (``distributed.sharding``'s placements).
+    ``seq_sharded_norms`` and ``fsdp`` keep the reference's names for the
+    model axis's execution, not ported yet."""
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
     attn_mode: str = "heads"

@@ -5,7 +5,8 @@ Batches are a pure function of ``(seed, step)`` via numpy's counter-based
 Philox, so any step's batch can be regenerated after a restart, and the
 port's batches are bit-identical to the reference's.  The stream is
 Zipf-distributed tokens with a periodic copy structure, so the loss has a
-learnable signal.  The multi-host loader comes with the distributed slice.
+learnable signal.  ``HostShardedLoader`` (the reference's lines 60-77)
+gives each data-parallel rank its rows of the global batch.
 """
 from __future__ import annotations
 
@@ -53,3 +54,28 @@ class SyntheticDataset:
         while True:
             yield self.batch(step)
             step += 1
+
+
+class HostShardedLoader:
+    """Wraps a ``SyntheticDataset`` for data parallelism: host (or rank)
+    ``host_id`` of ``num_hosts`` gets rows [host_id · GB / n, (host_id + 1)
+    · GB / n) of each global batch, the reference's slicing.  ``batch`` is
+    ``local_batch``, so the training loop takes it as a dataset."""
+
+    def __init__(self, ds: SyntheticDataset, host_id: int = 0,
+                 num_hosts: int = 1):
+        if ds.cfg.global_batch % num_hosts:
+            raise ValueError(f"global batch {ds.cfg.global_batch} does not "
+                             f"split over {num_hosts} hosts")
+        self.ds = ds
+        self.cfg = ds.cfg
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+
+    def local_batch(self, step: int) -> dict:
+        full = self.ds.batch(step)
+        per = self.ds.cfg.global_batch // self.num_hosts
+        lo = self.host_id * per
+        return {k: v[lo:lo + per] for k, v in full.items()}
+
+    batch = local_batch

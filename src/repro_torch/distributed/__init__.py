@@ -1,2 +1,4 @@
-"""Gradient handling of the port (one device; the collectives come with the
-distributed slice)."""
+"""The distributed layer of the port: the ambient ``ShardContext``
+(``context``), the sequence- and vocabulary-sharded ⊕ merges
+(``decode_attention``), gradient compression and its int8 wire form
+(``compression``), and the placement rules (``sharding``)."""

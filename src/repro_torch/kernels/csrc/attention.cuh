@@ -178,7 +178,9 @@ __device__ __forceinline__ int lane_dim(int li, int i) {
 // The merge of one (batch row, KV head): the paper's ⊕ over its `live`
 // split partials in split order, m = max m_i, d = Σ d_i e^{m_i - m} and acc
 // likewise (``rescale`` pins a -inf/-inf pair to 1), then out = acc /
-// max(d, 1e-30).  `out` and the partials start at this group's first head.
+// max(d, 1e-30).  `out` and the partials start at this group's first head;
+// so does `lse` [G], where given: m + log d of each head, the row's
+// log-sum-exp over its valid keys (the sharded decode's statistic).
 // A thread takes an output element and walks the splits kDecodeMergeBatch
 // at a time, all of a batch's loads in flight before the first ⊕ step (one
 // L2 round trip a batch, not one a split); the order of the steps is the
@@ -190,7 +192,9 @@ template <typename T>
 __device__ __forceinline__ void decode_merge(const float* __restrict__ part_acc,
                                              const float2* __restrict__ part_md,
                                              int live, int G, int D,
-                                             T* __restrict__ out) {
+                                             T* __restrict__ out,
+                                             float* __restrict__ lse =
+                                                 nullptr) {
   for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
     const int g = e / D;
     float m = REPRO_NEG_INF, d = 0.f, a = 0.f;
@@ -221,6 +225,7 @@ __device__ __forceinline__ void decode_merge(const float* __restrict__ part_acc,
       m = mn;
     }
     out[e] = from_f32<T>(a / fmaxf(d, 1e-30f));
+    if (lse != nullptr && e % D == 0) lse[g] = m + logf(d);
   }
 }
 
@@ -248,7 +253,9 @@ __device__ __forceinline__ void decode_merge(const float* __restrict__ part_acc,
 //      and sets the counter back to 0 for the next call.
 // Every reduction and the merge run in a fixed order whichever CTA merges,
 // so a call is bit-identical from run to run.  K/V are of q's type, or
-// int8 with `sc` their scales.
+// int8 with `sc` their scales.  `lse`, where given, starts at this group's
+// first head: the merging CTA writes m + log d there (decode_merge), and a
+// row with L == 0 writes -inf beside its zeros.
 template <typename T, int D, typename KV, typename Rows,
           typename Sc = NoScales>
 __device__ __forceinline__ void decode_split(
@@ -256,7 +263,8 @@ __device__ __forceinline__ void decode_split(
     const KV* __restrict__ v, const Rows& rows, int tile, int L, int split,
     size_t q0, int G, float scale, float* __restrict__ part_acc,
     float2* __restrict__ part_md, int* __restrict__ ticket,
-    T* __restrict__ out, unsigned char* smem, const Sc& sc = Sc()) {
+    T* __restrict__ out, unsigned char* smem, const Sc& sc = Sc(),
+    float* __restrict__ lse = nullptr) {
   constexpr int kLanes = D / kLaneDims;              // lanes a position
   constexpr int kPerWarp = 32 / kLanes;              // positions a warp pass
   constexpr int kGroups = kDecodeThreads / kLanes;   // positions a CTA pass
@@ -269,6 +277,7 @@ __device__ __forceinline__ void decode_split(
     if (L == 0 && blockIdx.x == 0) {                 // no valid position
       for (int e = threadIdx.x; e < G * D; e += kDecodeThreads)
         out[q0 + e] = from_f32<T>(0.f);
+      if (lse != nullptr && threadIdx.x < G) lse[threadIdx.x] = REPRO_NEG_INF;
     }
     return;
   }
@@ -419,7 +428,7 @@ __device__ __forceinline__ void decode_split(
   __syncthreads();
   if (!last) return;
   __threadfence();                  // every other split's partial is visible
-  decode_merge(part_acc, part_md, live, G, D, out + q0);
+  decode_merge(part_acc, part_md, live, G, D, out + q0, lse);
   if (tid == 0) *ticket = 0;        // every live split has taken its ticket
 }
 

@@ -39,6 +39,15 @@
 //   flash_decode_paged.cu.  The int8 form runs the same kernels; each position's
 //   int8 K and V are dequantized in registers by their scales, read through
 //   the scales' own strides.
+// The lse form: given an lse buffer [B, Hq], the merging CTA also writes each
+//   head's m + log d there, the statistic the sequence-sharded decode
+//   (distributed/decode_attention.py) ⊕-merges across ranks (the reference
+//   took it from _chunked_fwd_impl, distributed/decode_attention.py:63-68);
+//   a row with vlen == 0, every rank's row that lies wholly past its length,
+//   writes -inf beside its zeros.  The same launch, one more [B, Hq] store,
+//   from an instance of its own (kLse): the plain form's code stays the one
+//   without the lse (its register count and time moved with a runtime
+//   null check, tools/decode_times.py).
 #include "attention.cuh"
 
 namespace {
@@ -48,13 +57,19 @@ namespace {
 // of the planner's 16-position tiles
 constexpr int kPositionTile = 1;
 
-template <typename T, int D>
+// kLse: the lse form (an instance of its own, so the plain form's code is
+// the one without the lse's stores and branches).  The q / out offset is
+// spelled as before the lse came: another spelling of the same arithmetic
+// changed the plain instance's register allocation and cost it 2-5 % of
+// device time (tools/decode_times.py).
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kDecodeThreads) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ vlen, int Hq, int Hkv, int S, int split,
     int splits, long long sb, long long ss, long long sh, float scale,
-    float* __restrict__ part_acc, float2* __restrict__ part_md,
-    int* __restrict__ tickets, T* __restrict__ out) {
+    float* __restrict__ lse, float* __restrict__ part_acc,
+    float2* __restrict__ part_md, int* __restrict__ tickets,
+    T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char decode_smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
@@ -66,12 +81,14 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_split_kernel(
                      split, (static_cast<size_t>(b) * Hq + h * G) * D, G,
                      scale, part_acc + pair * splits * G * D,
                      part_md + pair * splits * G, tickets + pair, out,
-                     decode_smem);
+                     decode_smem, NoScales(),
+                     kLse ? lse + static_cast<size_t>(b) * Hq + h * G
+                          : nullptr);
 }
 
 // The int8 form: k, v int8 with element strides (sb, ss, sh, 1); scales
 // [B, S, Hkv] bf16 with strides (zb, zs, zh).
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kDecodeThreads) decode_int8_split_kernel(
     const T* __restrict__ q, const signed char* __restrict__ k,
     const signed char* __restrict__ v,
@@ -79,8 +96,9 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_int8_split_kernel(
     const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ vlen,
     int Hq, int Hkv, int S, int split, int splits, long long sb, long long ss,
     long long sh, long long zb, long long zs, long long zh, float scale,
-    float* __restrict__ part_acc, float2* __restrict__ part_md,
-    int* __restrict__ tickets, T* __restrict__ out) {
+    float* __restrict__ lse, float* __restrict__ part_acc,
+    float2* __restrict__ part_md, int* __restrict__ tickets,
+    T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char decode_smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
@@ -97,7 +115,9 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_int8_split_kernel(
                      split, (static_cast<size_t>(b) * Hq + h * G) * D, G,
                      scale, part_acc + pair * splits * G * D,
                      part_md + pair * splits * G, tickets + pair, out,
-                     decode_smem, sc);
+                     decode_smem, sc,
+                     kLse ? lse + static_cast<size_t>(b) * Hq + h * G
+                          : nullptr);
 }
 
 template <typename T>
@@ -105,17 +125,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* vlen, void* out, void* work, void* tickets,
                    int B, int Hq, int Hkv, int S, int D, int split,
                    int splits, long long sb, long long ss, long long sh,
-                   float scale, cudaStream_t stream) {
+                   float scale, float* lse, cudaStream_t stream) {
   if (Hkv <= 0) return cudaErrorInvalidValue;
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     const size_t smem = decode_split_smem(Hq / Hkv, kD, sizeof(T), split,
                                           false);
-    return launch_decode<T, decode_split_kernel<T, kD>>(
-        smem, B, Hq, Hkv, kD, split, splits, out,
-        work, tickets, stream, static_cast<const T*>(q),
-        static_cast<const T*>(k), static_cast<const T*>(v), vlen, Hq, Hkv, S,
-        split, splits, sb, ss, sh, scale);
+    const auto go = [&](auto with_lse) {
+      constexpr bool kLse = decltype(with_lse)::value;
+      return launch_decode<T, decode_split_kernel<T, kD, kLse>>(
+          smem, B, Hq, Hkv, kD, split, splits, out,
+          work, tickets, stream, static_cast<const T*>(q),
+          static_cast<const T*>(k), static_cast<const T*>(v), vlen, Hq, Hkv,
+          S, split, splits, sb, ss, sh, scale, lse);
+    };
+    return lse != nullptr ? go(std::true_type{}) : go(std::false_type{});
   });
 }
 
@@ -127,19 +151,23 @@ cudaError_t launch_int8(const void* q, const void* k, const void* v,
                         int split, int splits,
                         long long sb, long long ss, long long sh,
                         long long zb, long long zs, long long zh, float scale,
-                        cudaStream_t stream) {
+                        float* lse, cudaStream_t stream) {
   if (Hkv <= 0) return cudaErrorInvalidValue;
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     const size_t smem = decode_split_smem(Hq / Hkv, kD, 1, split, true);
-    return launch_decode<T, decode_int8_split_kernel<T, kD>>(
-        smem, B, Hq, Hkv, kD, split, splits,
-        out, work, tickets, stream, static_cast<const T*>(q),
-        static_cast<const signed char*>(k),
-        static_cast<const signed char*>(v),
-        static_cast<const __nv_bfloat16*>(k_scale),
-        static_cast<const __nv_bfloat16*>(v_scale), vlen, Hq, Hkv, S, split,
-        splits, sb, ss, sh, zb, zs, zh, scale);
+    const auto go = [&](auto with_lse) {
+      constexpr bool kLse = decltype(with_lse)::value;
+      return launch_decode<T, decode_int8_split_kernel<T, kD, kLse>>(
+          smem, B, Hq, Hkv, kD, split, splits,
+          out, work, tickets, stream, static_cast<const T*>(q),
+          static_cast<const signed char*>(k),
+          static_cast<const signed char*>(v),
+          static_cast<const __nv_bfloat16*>(k_scale),
+          static_cast<const __nv_bfloat16*>(v_scale), vlen, Hq, Hkv, S, split,
+          splits, sb, ss, sh, zb, zs, zh, scale, lse);
+    };
+    return lse != nullptr ? go(std::true_type{}) : go(std::false_type{});
   });
 }
 
@@ -151,22 +179,27 @@ cudaError_t launch_int8(const void* q, const void* k, const void* v,
 // G = Hq / Hkv <= 8; tickets: B * Hkv ints, 0 on entry (and left 0).
 // Splits of `split` positions, splits * split >= S.  D is 64 or 128 (the
 // instances of with_head_dim), any other D is refused.  One launch; returns
-// cudaGetLastError().
+// cudaGetLastError().  lse, where not null: [B, Hq] fp32, contiguous, each
+// head's log-sum-exp m + log d over its valid keys (-inf where vlen is 0),
+// written by the merging CTA beside out.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* vlen, void* out,
                                    void* work, void* tickets, int dtype, int B,
                                    int Hq, int Hkv, int S, int D, int split,
                                    int splits, long long sb, long long ss,
-                                   long long sh, float scale, void* stream) {
+                                   long long sh, float scale, void* lse,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* vl = static_cast<const int*>(vlen);
+  float* ls = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kDtypeF32) {
     err = launch<float>(q, k, v, vl, out, work, tickets, B, Hq, Hkv, S, D,
-                        split, splits, sb, ss, sh, scale, st);
+                        split, splits, sb, ss, sh, scale, ls, st);
   } else if (dtype == kDtypeBF16) {
     err = launch<__nv_bfloat16>(q, k, v, vl, out, work, tickets, B, Hq, Hkv,
-                                S, D, split, splits, sb, ss, sh, scale, st);
+                                S, D, split, splits, sb, ss, sh, scale, ls,
+                                st);
   }
   return static_cast<int>(err);
 }
@@ -174,24 +207,26 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
 // The int8 form: q and out as above (float or bf16, `dtype`); k, v
 // [B, S, Hkv, D] int8 with element strides (sb, ss, sh, 1), the same for
 // both; k_scale, v_scale [B, S, Hkv] bf16 with strides (zb, zs, zh), the
-// same for both.  D is 64 or 128.
+// same for both.  D is 64 or 128.  lse as above, from the dequantized
+// scores.
 extern "C" int flash_decode_int8_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* vlen, void* out, void* work,
     void* tickets, int dtype, int B, int Hq, int Hkv, int S, int D, int split,
     int splits, long long sb, long long ss, long long sh, long long zb,
-    long long zs, long long zh, float scale, void* stream) {
+    long long zs, long long zh, float scale, void* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* vl = static_cast<const int*>(vlen);
+  float* ls = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kDtypeF32) {
     err = launch_int8<float>(q, k, v, k_scale, v_scale, vl, out, work,
                              tickets, B, Hq, Hkv, S, D, split, splits, sb, ss,
-                             sh, zb, zs, zh, scale, st);
+                             sh, zb, zs, zh, scale, ls, st);
   } else if (dtype == kDtypeBF16) {
     err = launch_int8<__nv_bfloat16>(q, k, v, k_scale, v_scale, vl, out, work,
                                      tickets, B, Hq, Hkv, S, D, split, splits,
-                                     sb, ss, sh, zb, zs, zh, scale, st);
+                                     sb, ss, sh, zb, zs, zh, scale, ls, st);
   }
   return static_cast<int>(err);
 }

@@ -2,8 +2,8 @@
 call.
 
 Port of ``src/repro/kernels/dispatch.py``: ``sdpa`` (line 816) with its
-paged routes (``_paged_sdpa``, 696-731) and its contiguous routes (858-903,
-without the sharded branch), int8 K/V included, ``softmax_topk`` (778),
+paged routes (``_paged_sdpa``, 696-731) and its contiguous routes (849-903),
+int8 K/V included, ``softmax_topk`` (778),
 ``online_softmax`` (767) with the softmax-form preference
 (``SOFTMAX_FORMS``/``softmax_form``/``set_softmax_form``, 738-764, read from
 ``REPRO_SOFTMAX_FORM`` at import as at 909), and ``online_normalizer`` (the
@@ -55,6 +55,13 @@ The reference's autotuned vocab block (``tuned_block``/``block_decision``,
 counterpart; the kernels' own plans (the decode and softmax+top-k splits)
 are recorded by their wrappers.
 
+Under a ``distributed.context.ShardContext`` the one-token contiguous
+decode goes to ``distributed.decode_attention.sharded_decode_attention``
+(fp and int8 caches, as the reference's lines 849-857), whose local step is
+``decode_attention_lse``: row 4's (or 4q's) lse form on CUDA, its plain
+version on the CPU.  The paged routes raise there, with the reference's
+words (708-712), and so does MLA's latent attention, which has no lse form.
+
 Each op's path is recorded (``obs.kernels.record_path``, as the
 reference's ``lookup`` did at line 113) under the kernel's launch-count
 name: ``"cuda"`` by the kernel module where it counts a launch, so the
@@ -68,6 +75,7 @@ import os
 import torch
 
 from repro_torch import core
+from repro_torch.distributed import context as _context
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels import flash_decode as _flash_decode
@@ -88,6 +96,8 @@ _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_decode_paged_int8": _flash_decode,
                    "flash_decode_int8": _flash_decode,
                    "flash_attention_paged_int8": _flash_attention,
+                   "flash_decode_lse": _flash_decode,
+                   "flash_decode_int8_lse": _flash_decode,
                    "flash_decode_mla": _flash_mla,
                    "flash_attention_mla": _flash_mla,
                    "online_softmax": _online_softmax,
@@ -213,6 +223,16 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
                            kv_valid_len=kv_valid_len, scale=scale,
                            decode=decode, block_tables=block_tables,
                            k_scale=k_scale, v_scale=v_scale)
+    ctx = _context.get()
+    if decode and ctx is not None:
+        from repro_torch.distributed.decode_attention import \
+            sharded_decode_attention
+        return sharded_decode_attention(
+            q, k, v, kv_valid_len, mesh=ctx.mesh,
+            seq_axes=ctx.cache_seq_axes, batch_axes=ctx.batch_axes,
+            chunk_size=cfg.attn_chunk,
+            scale=scale if scale is not None else q.shape[-1] ** -0.5,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cuda":
         fresh = not decode and k_scale is None and kv_valid_len is None
         _require_kernel_form(q, v, scale, "contiguous attention",
@@ -246,6 +266,28 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
                                  k_scale=k_scale, v_scale=v_scale)
 
 
+def decode_attention_lse(q, k, v, kv_valid_len, *, chunk_size: int,
+                         scale: float, k_scale=None, v_scale=None):
+    """One-token attention of q [B, 1, Hq, D] over contiguous caches
+    [B, S, Hkv, D] (int8 with ``k_scale``/``v_scale`` [B, S, Hkv]) up to
+    ``kv_valid_len`` [B], with its log-sum-exp: (out [B, 1, Hq, D], lse
+    [B, Hq] fp32, −inf for a row with no valid key).  A sequence shard's
+    local step.  On CUDA the lse form of row 4 (or 4q) launches, at the
+    default scale only; on the CPU its plain version runs."""
+    if q.device.type == "cuda":
+        _require_kernel_form(q, v, scale, "sharded decode attention")
+        return _flash_decode.flash_decode(q, k, v, kv_valid_len,
+                                          k_scale=k_scale, v_scale=v_scale,
+                                          return_lse=True)
+    _require_cpu(q, "decode_attention_lse")
+    obs_kernels.record_path("flash_decode_int8_lse" if k_scale is not None
+                            else "flash_decode_lse", "cpu")
+    out, lse = core.attention.online_attention_lse(
+        q, k, v, causal=False, kv_valid_len=kv_valid_len,
+        chunk_size=chunk_size, scale=scale, k_scale=k_scale, v_scale=v_scale)
+    return out, lse.reshape(q.shape[0], q.shape[2]).float()
+
+
 def mla_attention(cfg, q_eff, q_rope, c_cache, r_cache, *, causal, q_offset,
                   kv_valid_len, scale, decode: bool):
     """MLA's absorbed attention over one layer's latent cache: q_eff
@@ -255,7 +297,13 @@ def mla_attention(cfg, q_eff, q_rope, c_cache, r_cache, *, causal, q_offset,
     kernel, otherwise the cached prefill (``causal`` in absolute
     coordinates from ``q_offset``); keys at or past ``kv_valid_len`` [B]
     are never read.  On CUDA the kernel launches or raises on a shape or
-    dtype it does not take; on the CPU the plain version runs."""
+    dtype it does not take; on the CPU the plain version runs.  Under a
+    ``ShardContext`` the decode raises: the latent kernels have no lse form
+    to merge across sequence shards yet."""
+    if decode and _context.get() is not None:
+        raise NotImplementedError(
+            "MLA's latent decode has no sharded ⊕-merge form yet (no lse "
+            "output); drop the ShardContext")
     if q_eff.device.type == "cuda":
         if decode:
             return _flash_mla.flash_decode_mla(q_eff, q_rope, c_cache,
@@ -300,6 +348,12 @@ def _require_kernel_form(q, v, scale, what: str, pairs=()) -> None:
 
 def _paged_sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale,
                 decode, block_tables, k_scale=None, v_scale=None):
+    """Paged serving is single-host: an ambient ShardContext is a routing
+    bug, not a fallback case (the reference's words)."""
+    if _context.get() is not None:
+        raise NotImplementedError(
+            "paged KV attention has no sharded ⊕-merge form yet; drop the "
+            "ShardContext or serve unpaged")
     _require_kernel_form(q, v, scale, "paged attention")
     scales = dict(k_scale_pool=k_scale, v_scale_pool=v_scale)
     if q.device.type == "cuda":

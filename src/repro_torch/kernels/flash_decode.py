@@ -13,6 +13,11 @@ PyTorch versions, over a paged KV pool and over a contiguous KV cache.
   (``k_scale``/``v_scale``, counted as ``flash_decode_int8``) has no
   ``pallas_call`` counterpart: the reference ran XLA's dequantizing chunked
   form there (``dispatch.py:858-870``), which is this form's plain version.
+  With ``return_lse`` it also returns each head's log-sum-exp [B, Hq]
+  (fp32, -inf for a row with no valid key) from the same launch, counted
+  as ``flash_decode_lse`` / ``flash_decode_int8_lse``: the statistic the
+  sequence-sharded decode (``distributed/decode_attention.py``) merges
+  across ranks, where the reference took ``_chunked_fwd_impl``'s lse.
 
 Layouts keep the model's: q [B, 1, Hq, D] in, out [B, 1, Hq, D];
 pools [P, Hkv, BS, D] with block_tables [B, M] int32 (sentinel block 0), or
@@ -34,7 +39,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.attention import DEFAULT_CHUNK, online_attention
+from repro_torch.core.attention import (DEFAULT_CHUNK, online_attention,
+                                        online_attention_lse)
 from repro_torch.kernels import build
 from repro_torch.obs import kernels as obs_kernels
 
@@ -55,7 +61,8 @@ KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 #: Kernel launches since the last reset (the serving path's proof of route).
 launches = {"flash_decode_paged": 0, "flash_decode": 0,
-            "flash_decode_paged_int8": 0, "flash_decode_int8": 0}
+            "flash_decode_paged_int8": 0, "flash_decode_int8": 0,
+            "flash_decode_lse": 0, "flash_decode_int8_lse": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,13 +70,19 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
     "flash_decode_paged": [_C] * 8 + [_I] * 9 + [_F, _C],
-    "flash_decode": [_C] * 7 + [_I] * 8 + [_L] * 3 + [_F, _C],
+    "flash_decode": [_C] * 7 + [_I] * 8 + [_L] * 3 + [_F, _C, _C],
     "flash_decode_paged_int8": [_C] * 10 + [_I] * 9 + [_L] * 3 + [_F, _C],
-    "flash_decode_int8": [_C] * 9 + [_I] * 8 + [_L] * 6 + [_F, _C],
+    "flash_decode_int8": [_C] * 9 + [_I] * 8 + [_L] * 6 + [_F, _C, _C],
 }
-# launch name → the source whose library holds its ``<name>_launch``
-_SOURCE = {"flash_decode_paged_int8": "flash_decode_paged",
-           "flash_decode_int8": "flash_decode"}
+_ARGTYPES["flash_decode_lse"] = _ARGTYPES["flash_decode"]
+_ARGTYPES["flash_decode_int8_lse"] = _ARGTYPES["flash_decode_int8"]
+# launch name → (the C entry ``<entry>_launch``, the source whose library
+# holds it); the lse forms are their entries' with an lse buffer
+_ENTRY = {"flash_decode_paged_int8": ("flash_decode_paged_int8",
+                                      "flash_decode_paged"),
+          "flash_decode_int8": ("flash_decode_int8", "flash_decode"),
+          "flash_decode_lse": ("flash_decode", "flash_decode"),
+          "flash_decode_int8_lse": ("flash_decode_int8", "flash_decode")}
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -98,14 +111,22 @@ def gather_scales(k_scale_pool, v_scale_pool, block_tables) -> dict:
 
 def flash_decode_plain(q, k_cache, v_cache, kv_valid_len, *,
                        chunk_size: int = DEFAULT_CHUNK, k_scale=None,
-                       v_scale=None):
+                       v_scale=None, return_lse: bool = False):
     """The contiguous kernel's plain version: the chunked online attention
     (``core.attention.online_attention``) of q [B, 1, Hq, D] over the first
     ``kv_valid_len[b]`` positions of caches [B, S, Hkv, D]; int8 caches with
-    ``k_scale``/``v_scale`` [B, S, Hkv] dequantize per chunk."""
-    return online_attention(q, k_cache, v_cache, causal=False,
-                            kv_valid_len=kv_valid_len, chunk_size=chunk_size,
-                            k_scale=k_scale, v_scale=v_scale)
+    ``k_scale``/``v_scale`` [B, S, Hkv] dequantize per chunk.  With
+    ``return_lse``, (out, lse [B, Hq] fp32, -inf where no key is valid)."""
+    if not return_lse:
+        return online_attention(q, k_cache, v_cache, causal=False,
+                                kv_valid_len=kv_valid_len,
+                                chunk_size=chunk_size, k_scale=k_scale,
+                                v_scale=v_scale)
+    out, lse = online_attention_lse(q, k_cache, v_cache, causal=False,
+                                    kv_valid_len=kv_valid_len,
+                                    chunk_size=chunk_size, k_scale=k_scale,
+                                    v_scale=v_scale)
+    return out, lse.reshape(q.shape[0], q.shape[2]).float()
 
 
 def flash_decode_paged_plain(q, k_pool, v_pool, block_tables, kv_valid_len, *,
@@ -306,14 +327,15 @@ def prepare_paged(q, k_pool, v_pool, block_tables, kv_valid_len, *,
 
 
 def prepare(q, k_cache, v_cache, kv_valid_len, *, k_scale=None,
-            v_scale=None):
+            v_scale=None, return_lse: bool = False):
     """Validate CUDA operands of the contiguous kernel, plan the split and
     allocate the output and the workspace.  The caches [B, S, Hkv, D] are
     passed by their strides (the last must be 1, K and V must share them,
     and rows must be 16-byte aligned), never copied; so are int8 caches'
     ``k_scale``/``v_scale`` [B, S, Hkv] (bf16), which select the int8
-    form.  Returns (launch arguments, out [B, 1, Hq, D]); :func:`launch`
-    fills ``out``."""
+    form.  Returns (launch arguments, out [B, 1, Hq, D]), or with
+    ``return_lse`` (launch arguments, (out, lse [B, Hq] fp32)) for the lse
+    form; :func:`launch` fills them."""
     if k_cache.dim() != 4:
         raise ValueError(f"flash_decode kernel: caches {tuple(k_cache.shape)} "
                          "are not [B, S, Hkv, D]")
@@ -337,21 +359,25 @@ def prepare(q, k_cache, v_cache, kv_valid_len, *, k_scale=None,
     work = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
     geometry = (code, b, hq, hkv, s, dh, plan.split, plan.splits, sb, ss, sh)
     vlen = _vlen(kv_valid_len, dev, b)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    tail = (float(dh ** -0.5), lse if return_lse else 0)
+    form = "_lse" if return_lse else ""
     if k_scale is None:
-        args = ("flash_decode", qc, k_cache, v_cache, vlen, out, work,
-                build.tickets(dev, b * hkv), *geometry, float(dh ** -0.5))
+        args = ("flash_decode" + form, qc, k_cache, v_cache, vlen, out, work,
+                build.tickets(dev, b * hkv), *geometry, *tail)
     else:
-        args = ("flash_decode_int8", qc, k_cache, v_cache, k_scale, v_scale,
-                vlen, out, work, build.tickets(dev, b * hkv), *geometry,
-                *k_scale.stride(), float(dh ** -0.5))
-    return args, out
+        args = ("flash_decode_int8" + form, qc, k_cache, v_cache, k_scale,
+                v_scale, vlen, out, work, build.tickets(dev, b * hkv),
+                *geometry, *k_scale.stride(), *tail)
+    return args, ((out, lse) if return_lse else out)
 
 
 def launch(args) -> None:
     """Launch a prepared kernel (counts one launch of it)."""
     name = args[0]
-    build.call(name, _ARGTYPES[name], args[1:],
-               source=_SOURCE.get(name, name))
+    entry, source = _ENTRY.get(name, (name, name))
+    build.call(entry, _ARGTYPES[name], args[1:], source=source)
     launches[name] += 1
     obs_kernels.record_path(name, "cuda")
 
@@ -368,11 +394,13 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, kv_valid_len, *,
 
 
 def flash_decode(q, k_cache, v_cache, kv_valid_len, *, k_scale=None,
-                 v_scale=None) -> torch.Tensor:
+                 v_scale=None, return_lse: bool = False):
     """Launch the contiguous decode kernel on CUDA tensors: q [B, 1, Hq, D]
     over caches [B, S, Hkv, D] up to ``kv_valid_len`` [B] (clamped to S);
-    its int8 form when the caches' scales [B, S, Hkv] are given."""
+    its int8 form when the caches' scales [B, S, Hkv] are given.  With
+    ``return_lse``, (out, lse [B, Hq]) from the same launch (the lse
+    form's counter), as :func:`flash_decode_plain` gives them."""
     args, out = prepare(q, k_cache, v_cache, kv_valid_len, k_scale=k_scale,
-                        v_scale=v_scale)
+                        v_scale=v_scale, return_lse=return_lse)
     launch(args)
     return out

@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 import repro_torch.configs as configs
-from repro_torch.core.topk_fusion import topk_sample
+from repro_torch.distributed import context
 from repro_torch.models import transformer
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs import kernels as obs_kernels
@@ -364,7 +364,11 @@ def lockstep(args, cfg, params, *, prompts=None, patches=None,
     (the same on every device), into caches of ``max_len + P``.  Sampling
     takes one Gumbel draw [B, k] per step from a ``torch.Generator`` seeded
     0, or ``noise_fn(step)``: step 0 samples after the prefill, step i + 1
-    after decode step i (a test injects the reference's draws here)."""
+    after decode step i (a test injects the reference's draws here).
+
+    Under a ``distributed.context.ShardContext`` (``launch.mesh``) the rank
+    serves its rows of the batch (and of the noise) over its slice of the
+    caches' sequence, ``engine``'s sharded lockstep; it returns its rows."""
     max_len = args.max_len or (args.prompt_len + args.tokens)
     vocab = cfg.real_vocab_size or cfg.vocab_size
     device = torch.device(args.device)
@@ -380,18 +384,28 @@ def lockstep(args, cfg, params, *, prompts=None, patches=None,
         patches = torch.as_tensor(patches, dtype=torch.float32,
                                   device=device)
     gen = torch.Generator().manual_seed(0)
+    rows = slice(None)
+    ctx = context.get()
+    if ctx is not None:                 # this rank's rows of the batch
+        b_local = toks.shape[0] // context.axis_size(ctx.mesh,
+                                                     ctx.batch_axes)
+        r0 = context.axis_index(ctx.mesh, ctx.batch_axes) * b_local
+        rows = slice(r0, r0 + b_local)
+        toks = toks[rows]
+        patches = patches[rows] if patches is not None else None
 
     def noise(step):
         if noise_fn is None:
-            return None                 # topk_sample draws from gen
-        return torch.as_tensor(np.asarray(noise_fn(step)), dtype=torch.float32)
+            return None                 # the sampler draws from gen
+        return torch.as_tensor(np.asarray(noise_fn(step)),
+                               dtype=torch.float32)[rows]
 
     t0 = obs_clock.monotonic()
     last, caches, length = engine.prefill(
         params, toks, cfg, max_len=max_len + (cfg.num_patches or 0),
         patch_embeds=patches)
     logits = transformer.logits_last(params, last[:, None], cfg)
-    tok, _ = topk_sample(logits, args.top_k, noise=noise(0), generator=gen)
+    tok, _ = engine.sample(logits, args.top_k, noise=noise(0), generator=gen)
     out = [tok.cpu()]                   # waits for the device
     t_prefill = obs_clock.monotonic() - t0
     t0 = obs_clock.monotonic()

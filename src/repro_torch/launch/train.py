@@ -8,10 +8,26 @@ one exists.  Prints a line every ``log_every`` steps and ends with
 ``first loss … → last loss …``.  The model runs on the card unless
 ``--device cpu`` asks for the CPU, where the kernels' plain versions run.
 
-Port of ``src/repro/launch/train.py`` (``main`` at line 23), with the
-reference's flags; ``--layers`` (cut the depth, keep the width) is the
-port's own.  ``--mesh`` is not ported yet (the distributed slice) and says
-so.  An MLA model (``--arch minicpm3_4b``) trains like the others: its
+Port of ``src/repro/launch/train.py`` (``main`` at line 23, the mesh at
+51-74), with the reference's flags; ``--layers`` (cut the depth, keep the
+width) is the port's own.
+
+``--mesh DxM`` trains data-parallel over D ranks: one process a rank,
+under ``torchrun --nproc-per-node D`` on a machine with D cards (or one
+process for ``--mesh 1x1``).  Without a process group the launcher
+initialises one, from torchrun's environment (``RANK``, ``WORLD_SIZE``;
+``cuda:LOCAL_RANK``) or, where that is absent, a world of 1 through a
+``FileStore`` in a temporary directory; a group already present (a test's
+spawned workers) is used as it is.  The backend is NCCL on the card and
+gloo with ``--device cpu`` only; a group of the other backend raises.  The
+launcher builds the (data, model) ``DeviceMesh`` (``launch.mesh``),
+broadcasts rank 0's parameters, feeds each rank its rows through
+``HostShardedLoader`` and runs the loop under the ``ShardContext``, where
+the train step all-reduces the gradients over the data axis.  Rank 0
+alone writes checkpoints; every rank reads them.  M > 1 raises: the model
+axis is the next distributed slice.
+
+An MLA model (``--arch minicpm3_4b``) trains like the others: its
 decompressed attention (Dqk 96, Dv 64) runs the fresh forward's and the
 backward's (96, 64) instances on the card and their plain versions on the
 CPU.  The recurrent decoders (``--arch zamba2_1p2b``, ``--arch
@@ -34,7 +50,9 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import tempfile
+from typing import NamedTuple, Optional
 
 import repro_torch.configs as configs
 from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
@@ -67,14 +85,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="save every N steps and after the last (0 = never "
                          "save)")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (the distributed slice)")
+                    help="e.g. 4x1 → mesh (data=4, model=1): data-parallel "
+                         "over 4 ranks (torchrun); default: one process, "
+                         "no mesh")
     return ap
+
+
+def mesh_dims(spec: str) -> tuple:
+    """``"DxM"`` (or ``"D"``) → (D, M)."""
+    dims = tuple(int(x) for x in spec.split("x"))
+    if len(dims) == 1:
+        dims += (1,)
+    if len(dims) != 2 or min(dims) < 1:
+        raise ValueError(f"--mesh {spec}: want DxM, e.g. 4x1")
+    return dims
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (distributed)")
+    if args.mesh and mesh_dims(args.mesh)[1] > 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the model axis is the next distributed "
+            "slice; the port trains data-parallel, --mesh Dx1")
     return args
 
 
@@ -105,14 +137,95 @@ def train(args: argparse.Namespace, *, log=print):
     history, run config)."""
     run_cfg = run_config(args)
     cfg = run_cfg.model
-    params, opt_state = init_state(run_cfg, device=args.device)
     ds = SyntheticDataset(SyntheticConfig(
         vocab_size=cfg.real_vocab_size or cfg.vocab_size,
         seq_len=args.seq_len, global_batch=args.global_batch,
         seed=run_cfg.seed))
+    if args.mesh:
+        return _train_mesh(args, run_cfg, ds, log=log)
+    params, opt_state = init_state(run_cfg, device=args.device)
     params, opt_state, history = loop.run(
         run_cfg, steps=args.steps, train_step=make_train_step(run_cfg),
         params=params, opt_state=opt_state, dataset=ds, log=log)
+    return params, opt_state, history, run_cfg
+
+
+class ProcessGroup(NamedTuple):
+    """A ``--mesh`` run's process group: its backend, the rank's device,
+    whether ``process_group`` initialised it (and so destroys it), and the
+    temporary directory of its ``FileStore`` (None for torchrun's or a
+    caller's group)."""
+    backend: str
+    device: str
+    created: bool
+    store_dir: Optional[str]
+
+
+def process_group(device: str) -> ProcessGroup:
+    """The process group of a ``--mesh`` run, NCCL for a card and gloo for
+    ``--device cpu``.  An existing group must be of that backend."""
+    import torch
+    import torch.distributed as dist
+    cpu = torch.device(device).type == "cpu"
+    backend = "gloo" if cpu else "nccl"
+    if not cpu and not torch.cuda.is_available():
+        raise RuntimeError(f"--mesh on {device}: no CUDA device (the CPU "
+                           "runs only with --device cpu)")
+    created, store_dir = True, None
+    if dist.is_initialized():
+        have = dist.get_backend()
+        if have != backend:
+            raise ValueError(f"--mesh on {device} needs a {backend} process "
+                             f"group, found {have}")
+        created = False
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:                                # a world of one, no network
+        store_dir = tempfile.mkdtemp(prefix="repro_torch_pg_")
+        store = dist.FileStore(os.path.join(store_dir, "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    if not cpu:
+        index = int(os.environ.get("LOCAL_RANK", dist.get_rank()
+                                   % torch.cuda.device_count()))
+        torch.cuda.set_device(index)
+        device = f"cuda:{index}"
+    return ProcessGroup(backend, device, created, store_dir)
+
+
+def _train_mesh(args, run_cfg, ds, *, log=print):
+    """``train`` over a (data, model) mesh: data-parallel steps under the
+    ``ShardContext``, rank 0's parameters broadcast first."""
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.data.synthetic import HostShardedLoader
+    from repro_torch.distributed import context, sharding
+    from repro_torch.launch import mesh as mesh_mod
+    n_data, n_model = mesh_dims(args.mesh)
+    pg = process_group(args.device)
+    try:
+        mesh = mesh_mod.make_debug_mesh(
+            n_data, n_model, device_type="cpu" if pg.backend == "gloo"
+            else "cuda")
+        par = sharding.derive_parallel(run_cfg.model, mesh, run_cfg.parallel)
+        ctx = context.ShardContext(mesh=mesh, par=par)
+        params, opt_state = init_state(run_cfg, device=pg.device)
+        for leaf in tree.leaves(params):
+            dist.broadcast(leaf.data, src=0)
+        loader = HostShardedLoader(
+            ds, host_id=context.axis_index(mesh, par.data_axes),
+            num_hosts=context.axis_size(mesh, par.data_axes))
+        rank = dist.get_rank()
+        with context.use(ctx):
+            params, opt_state, history = loop.run(
+                run_cfg, steps=args.steps,
+                train_step=make_train_step(run_cfg), params=params,
+                opt_state=opt_state, dataset=loader, writer=rank == 0,
+                log=log if rank == 0 else (lambda _: None))
+    finally:
+        if pg.created:
+            dist.destroy_process_group()
+        if pg.store_dir is not None:
+            shutil.rmtree(pg.store_dir, ignore_errors=True)
     return params, opt_state, history, run_cfg
 
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context as _context
 from repro_torch.kernels import dispatch
 
 Tensor = torch.Tensor
@@ -63,9 +64,29 @@ def cache_write(cache: Tensor, new: Tensor,
     ``copy_`` into the slice); a [B] vector writes each row at its own offset
     (the slot pool: one ``index_put_``).  The JAX code returned a new array
     (``dynamic_update_slice``, which clamps a start that would overrun S);
-    here every position written must lie inside S."""
+    here every position written must lie inside S.
+
+    Under a ``ShardContext`` the cache is this rank's slice of the sequence,
+    positions [start, start + S) with start = S · (its index along the
+    context's ``cache_seq_axes``): the rank writes the part of
+    [cache_len, cache_len + t) that falls in its slice, usually nothing (a
+    scalar ``cache_len`` only: the lockstep batch)."""
     b, t = new.shape[:2]
     new = new.to(cache.dtype)
+    ctx = _context.get()
+    if ctx is not None:
+        if torch.is_tensor(cache_len) and cache_len.dim() > 0:
+            raise NotImplementedError(
+                "a sequence-sharded cache takes the lockstep batch's scalar "
+                "length, not per-row lengths")
+        s = cache.shape[1]
+        start = _context.axis_index(ctx.mesh, ctx.cache_seq_axes) * s
+        lo = max(int(cache_len), start)
+        hi = min(int(cache_len) + t, start + s)
+        if lo < hi:
+            cache.narrow(1, lo - start, hi - lo).copy_(
+                new.narrow(1, lo - int(cache_len), hi - lo))
+        return cache
     if not torch.is_tensor(cache_len) or cache_len.dim() == 0:
         cache.narrow(1, int(cache_len), t).copy_(new)
         return cache

@@ -49,6 +49,17 @@ enc-dec family ``encdec_prefill`` (391), ``encdec_decode_step`` (411),
 ``index_copy_``s here); functions still return them so the call sites read
 like the reference's.
 
+Under a ``distributed.context.ShardContext`` the lockstep batch runs
+sharded, as the reference's ``decode_step`` (lines 90-96) under its
+context: every rank holds its rows of the batch (``batch_axes``) and its
+slice of the caches' sequence (``cache_seq_axes``); ``prefill`` runs the
+rank's rows over the whole prompt, replicated over the sequence group,
+with the kernels it runs unsharded, then keeps the rank's slice; a decode
+step's attention ⊕-merges the slices' partials and ``sample`` draws the
+token through ``sharded_topk_sample`` over the vocabulary split across the
+model axis.  The attention K/V families only (fp and int8): a latent or
+recurrent cache under a context raises.
+
 Sampling takes its Gumbel noise as an argument: the scheduler draws it from
 one ``torch.Generator`` per request (or a test's ``noise_fn``), so a row's
 token depends only on its own logits and noise — what makes batched decode
@@ -63,6 +74,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.topk_fusion import gumbel_pick, topk_sample
+from repro_torch.distributed import context
 from repro_torch.kernels import dispatch
 from repro_torch.models import encdec, transformer
 from repro_torch.serving import cache_family
@@ -84,7 +96,13 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     ``max_len`` on the tokens' device; a VLM's ``patch_embeds`` [B, P, D]
     go first (``transformer.forward``), so the cache holds P + T positions.
     Returns (last_hidden [B, D], caches, cache_len = T, or T + P with
-    patches)."""
+    patches).  Under a ``ShardContext``, ``tokens`` are the rank's rows and
+    the caches come back as the rank's slice of the sequence (``max_len``
+    must split evenly over the context's ``cache_seq_axes``)."""
+    ctx = context.get()
+    if ctx is not None:
+        return _prefill_sharded(ctx, params, tokens, cfg, max_len=max_len,
+                                patch_embeds=patch_embeds)
     caches = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
     hidden, caches = transformer.forward(params, tokens, cfg,
                                          patch_embeds=patch_embeds,
@@ -93,18 +111,64 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, *,
         cfg.num_patches if patch_embeds is not None else 0)
 
 
+#: the cache leaves a sequence-sharded lockstep batch takes: attention K/V,
+#: and int8 K/V's scales
+SHARDED_CACHE_LEAVES = {"k", "v", "k_scale", "v_scale"}
+
+
+def _prefill_sharded(ctx, params, tokens, cfg, *, max_len, patch_embeds):
+    """``prefill`` under a context: the rank's rows over the whole prompt
+    (no context: the same kernels as one process), then the rank's slice
+    of each cache leaf [L, B, S, ...] along S."""
+    n = context.axis_size(ctx.mesh, ctx.cache_seq_axes)
+    if max_len % n:
+        raise ValueError(f"sharded prefill: max_len {max_len} does not split "
+                         f"over {n} sequence shards")
+    with context.use(None):
+        last, caches, length = prefill(params, tokens, cfg, max_len=max_len,
+                                       patch_embeds=patch_embeds)
+    if not set(caches) <= SHARDED_CACHE_LEAVES:
+        raise NotImplementedError(
+            f"a sequence-sharded lockstep batch takes attention K/V caches, "
+            f"not {sorted(caches)}")
+    s_local = max_len // n
+    start = context.axis_index(ctx.mesh, ctx.cache_seq_axes) * s_local
+    return last, {name: leaf[:, :, start:start + s_local].contiguous()
+                  for name, leaf in caches.items()}, length
+
+
+def sample(logits: Tensor, top_k: int, *, noise=None, generator=None,
+           temperature: float = 1.0):
+    """(tokens [B], top probs [B, k]) from logits [B, V]: the fused
+    softmax+top-k and Gumbel-max (``core.topk_sample``), or under a
+    ``ShardContext`` its vocabulary-sharded form over the model axis
+    (``sharded_topk_sample``, the reference's ``decode_step`` lines
+    90-96)."""
+    ctx = context.get()
+    if ctx is None:
+        return topk_sample(logits, top_k, noise=noise, generator=generator,
+                           temperature=temperature)
+    from repro_torch.distributed.decode_attention import sharded_topk_sample
+    return sharded_topk_sample(logits, top_k, mesh=ctx.mesh,
+                               batch_axes=ctx.batch_axes,
+                               vocab_axis=ctx.par.model_axis,
+                               temperature=temperature, noise=noise,
+                               generator=generator)
+
+
 def decode_step(params: dict, caches: dict, cache_len: int, tokens: Tensor,
                 cfg: ModelConfig, *, noise=None, generator=None,
                 top_k: int = 5, temperature: float = 1.0):
     """One lockstep decode step: tokens [B, 1] at the shared length
     ``cache_len`` → (next_token [B], caches, cache_len + 1).  The vocabulary
-    pass is the fused softmax+top-k (``core.topk_sample``), with one Gumbel
-    draw [B, k] for the batch: ``noise``, or from ``generator``."""
+    pass is the fused softmax+top-k (``sample``: vocabulary-sharded under a
+    ``ShardContext``), with one Gumbel draw [B, k] for the batch:
+    ``noise``, or from ``generator``."""
     hidden, caches = transformer.forward(params, tokens, cfg, caches=caches,
                                          cache_len=cache_len)
     logits = logits_from_hidden(params, hidden[:, -1], cfg)
-    next_tok, _ = topk_sample(logits, top_k, noise=noise, generator=generator,
-                              temperature=temperature)
+    next_tok, _ = sample(logits, top_k, noise=noise, generator=generator,
+                         temperature=temperature)
     return next_tok, caches, cache_len + 1
 
 

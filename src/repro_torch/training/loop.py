@@ -46,14 +46,15 @@ class StragglerWatchdog:
 def run(run_cfg: RunConfig, *, steps: int, train_step: Callable,
         params, opt_state, dataset: SyntheticDataset,
         inject_failure: Optional[Callable[[int], None]] = None,
-        log: Callable[[str], None] = print):
+        log: Callable[[str], None] = print, writer: bool = True):
     """Run ``steps`` optimizer steps with checkpoint/restart semantics.
 
     Returns (params, opt_state, history).  Restores from the newest committed
     checkpoint in ``run_cfg.checkpoint_dir`` if one exists (restart path).
     Saves every ``checkpoint_every`` steps and after the last, or never
     when ``checkpoint_every`` is 0.  Batches go to the parameters'
-    device."""
+    device.  ``writer`` False (every data-parallel rank but rank 0) reads
+    the checkpoints and writes neither them nor the heartbeat."""
     ckpt = CheckpointManager(run_cfg.checkpoint_dir,
                              keep=run_cfg.keep_checkpoints)
     device = tree.leaves(params)[0].device
@@ -83,14 +84,15 @@ def run(run_cfg: RunConfig, *, steps: int, train_step: Callable,
         if watchdog.observe(step, dt):
             log(f"[straggler] step {step} took {dt:.3f}s "
                 f"(median {np.median(watchdog.times):.3f}s)")
-        with open(hb_path, "w") as f:
-            json.dump({"step": step, "t": obs_clock.wall_time()}, f)
+        if writer:
+            with open(hb_path, "w") as f:
+                json.dump({"step": step, "t": obs_clock.wall_time()}, f)
         history.append({"step": step, "dt": dt, **metrics})
         if step % run_cfg.log_every == 0:
             log(f"[step {step}] loss={metrics.get('loss', float('nan')):.4f} "
                 f"dt={dt * 1e3:.1f}ms")
         step += 1
-        if run_cfg.checkpoint_every > 0 and (
+        if writer and run_cfg.checkpoint_every > 0 and (
                 step % run_cfg.checkpoint_every == 0 or step == steps):
             ckpt.save(step, {"params": params, "opt": opt_state})
     ckpt.wait()

@@ -13,6 +13,20 @@ With ``microbatches > 1`` each microbatch's gradients are cast to
 ``grad_reduce_dtype``, accumulated in fp32 and averaged (the reference's
 ``lax.scan``, here a loop); then, as with one microbatch, the gradients are
 cast once more and AdamW updates the parameters in place.
+
+Under a ``distributed.context.ShardContext`` whose data axes span more than
+one rank, the step is data-parallel (the reference's pjit step over the
+data axes): each rank holds its rows of the global batch and identical
+parameters.  The loss is a masked mean over the rank's own valid labels
+(``transformer.loss_fn``), so a plain average of the ranks' gradients is
+not the global mean's whenever ranks mask different numbers of labels:
+the ranks first all-reduce their counts of valid labels, each scales its
+loss by ``local_count / global_count`` before the backward, and the
+gradients are then summed over the data group, in the dtype ``cast_grads``
+gave them, once after the microbatch loop.  The reported loss is the
+global one (the scaled losses summed).  Clipping and AdamW run on the
+reduced gradients, so the ranks stay identical.  An aux loss (MoE) enters
+as the count-weighted mean of the ranks' aux terms.
 """
 from __future__ import annotations
 
@@ -22,7 +36,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import RunConfig
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, context
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw
 
@@ -41,12 +55,16 @@ def init_for(cfg) -> Callable:
     return encdec.init if cfg.family == "encdec" else transformer.init
 
 
-def _value_and_grad(params: PyTree, batch: dict, cfg):
+def _value_and_grad(params: PyTree, batch: dict, cfg, weight=None):
     """(loss, metrics, grads) of ``loss_for(cfg)``; grads is a tree like
     ``params`` in the parameters' dtypes, zeros where the loss does not
-    reach a leaf."""
+    reach a leaf.  ``weight`` (a scalar tensor) scales the loss before the
+    backward, and the loss and metrics returned with it."""
     leaves = tree.leaves(params)
     loss, metrics = loss_for(cfg)(params, batch, cfg)
+    if weight is not None:
+        loss = loss * weight
+        metrics = {k: v * weight for k, v in metrics.items()}
     grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree.unflatten(params, grads))
@@ -60,8 +78,12 @@ def make_train_step(run: RunConfig) -> Callable:
     reduce_dtype = run.parallel.grad_reduce_dtype
 
     def train_step(params, opt_state, batch):
+        group = _data_group()
+        # each rank's share of the global masked mean (None: one rank)
+        weight = (None if group is None
+                  else _label_share(batch["labels"], group))
         if n_micro == 1:
-            loss, metrics, grads = _value_and_grad(params, batch, cfg)
+            loss, metrics, grads = _value_and_grad(params, batch, cfg, weight)
         else:
             micro = {k: v.reshape((n_micro, v.shape[0] // n_micro)
                                   + tuple(v.shape[1:]))
@@ -71,7 +93,7 @@ def make_train_step(run: RunConfig) -> Callable:
             losses, ms = [], []
             for i in range(n_micro):
                 loss_i, m_i, g_i = _value_and_grad(
-                    params, {k: v[i] for k, v in micro.items()}, cfg)
+                    params, {k: v[i] for k, v in micro.items()}, cfg, weight)
                 g_i = compression.cast_grads(g_i, reduce_dtype)
                 grads = tree.map(lambda a, x: a + x.float(), grads, g_i)
                 losses.append(loss_i)
@@ -81,11 +103,46 @@ def make_train_step(run: RunConfig) -> Callable:
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
         grads = compression.cast_grads(grads, reduce_dtype)
+        if group is not None:
+            grads, loss, metrics = _all_reduce(grads, loss, metrics, group)
         params, opt_state, om = adamw.update(grads, opt_state, params,
                                              run.optimizer)
         return params, opt_state, {**metrics, **om, "loss_out": loss}
 
     return train_step
+
+
+def _data_group():
+    """The data-parallel process group of the ambient context, or None when
+    there is no context or its data axes hold one rank."""
+    ctx = context.get()
+    if ctx is None or context.axis_size(ctx.mesh, ctx.par.data_axes) == 1:
+        return None
+    return context.group(ctx.mesh, ctx.par.data_axes)
+
+
+def _label_share(labels: torch.Tensor, group) -> torch.Tensor:
+    """``local_count / global_count`` of the valid labels (>= 0), the
+    counts all-reduced over ``group`` (fp32; a global count of 0 counts
+    as 1, as ``loss_fn`` clamps its own)."""
+    import torch.distributed as dist
+    local = (labels >= 0).sum().to(torch.float32).reshape(1)
+    total = local.clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return (local / total.clamp(min=1.0))[0]
+
+
+def _all_reduce(grads, loss, metrics, group):
+    """SUM of every gradient leaf in its own dtype, and of the scaled loss
+    and metrics, over ``group``: the global masked mean's gradient and
+    loss on every rank."""
+    import torch.distributed as dist
+    for g in tree.leaves(grads):
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+    names = sorted(metrics)
+    stats = torch.stack([loss.float()] + [metrics[k].float() for k in names])
+    dist.all_reduce(stats, op=dist.ReduceOp.SUM, group=group)
+    return grads, stats[0], {k: stats[i + 1] for i, k in enumerate(names)}
 
 
 def init_state(run: RunConfig, *,

@@ -23,18 +23,19 @@ def _children(node):
 
 def leaves_with_path(tree: PyTree, sep: str = "/") -> list:
     """[(path, leaf)], paths joined by ``sep`` (dict keys, field names and
-    list indices), in flattening order."""
+    list indices), in flattening order.  An explicit stack, not a recursive
+    closure: a closure that names itself is a reference cycle, which would
+    keep every leaf it saw (a step's gradients) alive until the cyclic
+    collector ran."""
     out = []
-
-    def walk(node, prefix):
+    stack = [(tree, ())]
+    while stack:
+        node, prefix = stack.pop()
         kids = _children(node)
         if kids is None:
             out.append((sep.join(prefix), node))
-            return
-        for key, child in kids:
-            walk(child, prefix + [key])
-
-    walk(tree, [])
+            continue
+        stack.extend((child, prefix + (key,)) for key, child in reversed(kids))
     return out
 
 
@@ -58,17 +59,19 @@ def map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 def unflatten(like: PyTree, values) -> PyTree:
     """A tree of ``like``'s structure whose leaves, in flattening order, are
-    ``values``."""
+    ``values``.  The recursion is a module function, not a closure that
+    names itself, so no reference cycle holds the values (see
+    ``leaves_with_path``)."""
     it = iter(values)
+    return _build(like, it)
 
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(build(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_build(c, it) for c in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)

@@ -35,6 +35,8 @@ NO_LIBRARY = dict.fromkeys(("online_softmax", "online_softmax_bf16",
 NO_ROUTER = {"softmax_topk_router": 0}
 # the MLA kernels' counters, zero for a model without latent attention
 NO_MLA = {"flash_decode_mla": 0, "flash_attention_mla": 0}
+# the lse forms of the contiguous decode, zero outside a sharded decode
+NO_LSE = {"flash_decode_lse": 0, "flash_decode_int8_lse": 0}
 
 
 @pytest.fixture
@@ -102,7 +104,7 @@ def test_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
                                         **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-                                        **NO_MLA}
+                                        **NO_MLA, **NO_LSE}
 
 
 def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
@@ -171,7 +173,7 @@ def test_contiguous_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
                                         **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-                                        **NO_MLA}
+                                        **NO_MLA, **NO_LSE}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -208,7 +210,7 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-        **NO_MLA}
+        **NO_MLA, **NO_LSE}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
@@ -313,7 +315,7 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-        **NO_MLA}
+        **NO_MLA, **NO_LSE}
     assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
                            "flash_decode": 5 * n, "flash_attention_paged": 0,
                            "flash_attention_offset": n,
@@ -321,7 +323,7 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
                            "flash_attention_bwd_dq": 0,
                            "flash_attention_bwd_dkv": 0, **NO_INT8,
                            **NO_LIBRARY, **NO_ROUTER,
-                           **NO_MLA}
+                           **NO_MLA, **NO_LSE}
 
 
 def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7, dv=None):
@@ -1950,3 +1952,84 @@ def test_vlm_train_steps(cuda):
     assert (counts["flash_attention"], counts["flash_attention_bwd_dq"],
             counts["flash_attention_bwd_dkv"]) == (4 * n, 2 * n, 2 * n)
     assert "mm_proj" in paths
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_decode_lse_form_matches_plain(cuda, dtype, atol):
+    """Rows 4 and 4q with their lse: out as the plain launch's, bit for
+    bit, lse within 1e-5 of the plain version's (−inf at vlen 0), counted
+    apart; and the ⊕ of 3 slices (one wholly past two rows) equals the
+    whole cache."""
+    from repro_torch.distributed.decode_attention import merge_partials
+    from repro_torch.models.layers import _quantize_kv
+    dispatch.reset_launch_counts()
+    dev = dict(device=cuda, dtype=dtype)
+    vlens = [0, 1, 70, 33, 96]
+    q, kv_nan, kv0, vlen = _contiguous(5, b=5, s=96, tq=1, vlens=vlens)
+    q, vl = q.to(**dev), vlen.to(cuda)
+    k, v = (t.to(**dev) for t in kv0)
+    k8, ks = _quantize_kv(kv0[0])
+    v8, vs = _quantize_kv(kv0[1])
+    for name, ops in (("flash_decode_lse", (k, v, {})),
+                      ("flash_decode_int8_lse", (
+                          k8.to(cuda), v8.to(cuda),
+                          dict(k_scale=ks.to(cuda), v_scale=vs.to(cuda))))):
+        kk, vv, sc = ops
+        out, lse = fd.flash_decode(q, kk, vv, vl, return_lse=True, **sc)
+        plain = fd.flash_decode(q, kk, vv, vl, **sc)
+        w_out, w_lse = fd.flash_decode_plain(q, kk, vv, vl, return_lse=True,
+                                             **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain), name
+        assert lse.shape == (5, 15) and lse.dtype == torch.float32
+        assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1:]).all()
+        assert (lse[1:] - w_lse[1:]).abs().max().item() <= 1e-5 * max(
+            1.0, w_lse[1:].abs().max().item())
+        assert (out.float() - w_out.float()).abs().max().item() <= atol
+        cuts = (slice(0, 32), slice(32, 64), slice(64, 96))
+        parts = [fd.flash_decode(q, kk[:, c], vv[:, c],
+                                 (vl - c.start).clamp(0, 32),
+                                 return_lse=True,
+                                 **{s: t[:, c] for s, t in sc.items()})
+                 for c in cuts]
+        got = merge_partials(torch.stack([p[0] for p in parts]),
+                             torch.stack([p[1] for p in parts]))
+        assert (got.float() - out.float()).abs().max().item() <= atol, name
+    counts = dispatch.launch_counts()
+    assert counts["flash_decode_lse"] == 4
+    assert counts["flash_decode_int8_lse"] == 4
+    assert counts["flash_decode"] == counts["flash_decode_int8"] == 1
+
+
+def test_sharded_lockstep_world1_on_card(cuda, tmp_path):
+    """The lockstep loop under a (1, 1) mesh's context over NCCL at world
+    size 1 (a FileStore): tokens as the unsharded run's, the decode through
+    the lse form of row 4."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed import context
+    from repro_torch.launch import mesh as mesh_mod
+    cfg = configs.get_smoke("smollm_360m").replace(
+        num_heads=6, num_kv_heads=2, head_dim=64)
+    params = transformer.params_to(transformer.init(cfg, seed=4,
+                                                    device="cpu"), cuda)
+    args = serve.parse_args(["--smoke", "--device", "cuda", "--batch", "2",
+                             "--prompt-len", "12", "--tokens", "6"])
+    noise = np.random.default_rng(0).gumbel(size=(6, 2, 5))
+    want = serve.lockstep(args, cfg, params, noise_fn=lambda i: noise[i])
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_debug_mesh(1, 1, device_type="cuda")
+        dispatch.reset_launch_counts()
+        with context.use(context.ShardContext(mesh=mesh,
+                                              par=ParallelConfig())):
+            got = serve.lockstep(args, cfg, params,
+                                 noise_fn=lambda i: noise[i])
+        counts = dispatch.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
+    assert counts["flash_decode_lse"] == 5 * cfg.num_layers
+    assert counts["flash_decode"] == 0 and counts["softmax_topk"] == 6

@@ -179,6 +179,8 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
                                         "flash_decode_paged_int8": 0,
                                         "flash_decode_int8": 0,
                                         "flash_attention_paged_int8": 0,
+                                        "flash_decode_lse": 0,
+                                        "flash_decode_int8_lse": 0,
                                         "flash_decode_mla": 0,
                                         "flash_attention_mla": 0,
                                         "online_softmax": 0,
