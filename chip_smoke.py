@@ -463,7 +463,9 @@ KERNELS = {
 # MoE router's launches of softmax_topk under a key of their own, and the
 # lse forms of rows 4 and 4q (the sequence-sharded decode's)
 COUNTERS = (*KERNELS, "softmax_topk_router", "flash_decode_lse",
-            "flash_decode_int8_lse")
+            "flash_decode_int8_lse", "flash_attention_qoffset",
+            "flash_attention_bwd_dq_qoffset",
+            "flash_attention_bwd_dkv_qoffset")
 # smollm-360m's serving and parity phases (4, 5, 8 and 10) run at full
 # width and this many of its 32 layers: the head_dim-128 models' full-width
 # runs took the script's time (32 → 8), then the recurrent decoders'
@@ -686,6 +688,8 @@ def phase_build() -> None:
             if base in WGMMA_SMEM:
                 fn = getattr(build.library(name), WGMMA_SMEM[base])
                 dims = [int(x) for x in arg.rstrip(">").split(",") if x]
+                if base in SHIFTED:           # (Dqk, Dv); not the flag
+                    dims = dims[:2]
                 fn.argtypes = [ctypes.c_int] * len(dims)
                 smem = fn(*dims)
                 extra = f", {smem} bytes dynamic smem (wgmma form)"
@@ -753,6 +757,10 @@ TRAIN_SYMBOLS = {"flash_attention_fwd": ("fresh_fwd_wgmma_kernel",
                  "flash_attention_bwd": ("bwd_dq_wgmma_kernel",
                                          "bwd_dkv_wgmma_kernel",
                                          "bwd_dq_kernel", "bwd_dkv_kernel")}
+# the tensor-core training kernels come in two instances a pair, the last
+# template argument (kShift) 0 for a launch at q offset 0 and 1 at another
+SHIFTED = ("fresh_fwd_wgmma_kernel", "bwd_dq_wgmma_kernel",
+           "bwd_dkv_wgmma_kernel")
 
 
 def _check_train_builds() -> None:
@@ -765,8 +773,10 @@ def _check_train_builds() -> None:
         if build.BUILD_LOG.get(source) is None:
             continue
         report = _ptxas_report(build.BUILD_LOG[source])
-        want = {f"{sym}<{'f32,' if 'wgmma' not in sym else ''}{a},{b}>"
-                for sym in symbols for a, b in TRAIN_INSTANCES}
+        want = {f"{sym}<{'f32,' if 'wgmma' not in sym else ''}{a},{b}"
+                + (f",{shift}>" if sym in SHIFTED else ">")
+                for sym in symbols for a, b in TRAIN_INSTANCES
+                for shift in (0, 1)}
         missing = want - set(report)
         if missing:
             _fail(f"ptxas {source}: no report of {sorted(missing)}")
@@ -1407,20 +1417,26 @@ def _scaled_err(got, want, *, by_row: bool = True,
 ROW_FLOOR, NOISE_PEAK = 1e-2, 1e-3
 
 
-def _fresh_errs(q, k, v, dout, causal: bool) -> dict:
+def _fresh_errs(q, k, v, dout, causal: bool, q_offset: int = 0) -> dict:
     """The fresh forward and the two backward kernels against their plain
-    versions on one input: {name: ``_scaled_err``}."""
+    versions on one input, query row i at ``q_offset`` + i: {name:
+    ``_scaled_err``}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    # the offset only where set, so the timing tools can import the
+    # kernels of a version that has no offset
+    off = {"q_offset": q_offset} if q_offset else {}
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, **off)
     dq, dk, dv = fab.flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=causal)
+                                         causal=causal, **off)
     torch.cuda.synchronize()
     k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
-    w_out, w_lse = fa.flash_attention_fwd_plain(q, k0, v0, causal=causal)
+    w_out, w_lse = fa.flash_attention_fwd_plain(q, k0, v0, causal=causal,
+                                                **off)
     w_dq, w_dk, w_dv = fab.flash_attention_bwd_plain(q, k0, v0, out, lse,
-                                                     dout, causal=causal)
+                                                     dout, causal=causal,
+                                                     **off)
     for name, x in (("out", out), ("lse", lse), ("dq", dq), ("dk", dk),
                     ("dv", dv)):
         if not torch.isfinite(x).all():
@@ -1521,7 +1537,9 @@ def _check_fresh(gen, hkv: int = 5, g: int = 3, d: int = 64,
                     seen = _kernels_seen(prof)
                     targs = _template_args(prof, symbols)
                     if seen != sorted(symbols) or any(
-                            len(a) != 1 or not next(iter(a)).endswith(dims)
+                            len(a) != 1 or ",".join(
+                                x for x in next(iter(a)).split(",")
+                                if x.isdigit()) != dims
                             for a in targs.values()):
                         _fail(f"fresh attention {str(dtype)[6:]} {heads}: "
                               f"the profiler saw {seen} with template "
@@ -2773,6 +2791,12 @@ INSTANCES = {
     f"flash_attention_offset_d128_g7_q{LLAVA_TQ}": ("flash_attention_offset",
                                                    "llava lockstep"),
     **{f"{kernel}_d128_g7_t{LLAVA_TRAIN_T}": (kernel, "llava train")
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
+    # rows 6 and 7 at a causal q offset: sequence mode's last rank (Tq 128
+    # at offset 384 over 512 keys, smollm's 15/5 heads); the launches are
+    # the offset forms' in phase_model_axis's run of the 4 ranks' blocks
+    **{kernel + "_qoff384": (kernel, "model axis seq", kernel + "_qoffset")
        for kernel in ("flash_attention", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv")},
 }
@@ -5279,19 +5303,52 @@ def _dist_lockstep(what: str, argv, cfg, params, ctx, noise) -> tuple:
 def _dist_train(unsharded: list) -> None:
     """``launch.train --mesh 1x1`` beside the same steps of phase 6's run
     (``unsharded``, its losses): the first loss bit-equal, the later within
-    1e-4 relative."""
+    1e-4 relative.  The run goes through the model axis's code with a
+    group of one (heads mode, every f / g an NCCL all-reduce over one
+    rank): its launches of rows 6 / 7 are the unsharded run's, and it
+    makes ``_model_axis_collectives`` all-reduces a step, no all-gather."""
     import tempfile
+    import torch
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.kernels import dispatch
+    dispatch.reset_launch_counts()
+    tensor_parallel.reset_collectives()
     with tempfile.TemporaryDirectory() as tmp:
-        _, _, mesh, _ = _train(DIST_TRAIN_ARGS, tmp)
+        _, _, mesh, run = _train(DIST_TRAIN_ARGS, tmp)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    coll = dict(tensor_parallel.collectives)
     a = unsharded[:3]
     b = [h["loss"] for h in mesh]
     if len(a) != 3 or len(b) != 3 or a[0] != b[0] or any(
             abs(x - y) > 1e-4 * abs(x) for x, y in zip(a, b)):
         _fail(f"train --mesh 1x1: losses {b}, unsharded {a}")
+    want = _train_counts(run.model, 3)
+    want_coll = {"all_reduce": 3 * _model_axis_collectives(run.model),
+                 "all_gather": 0}
+    if counts != want or coll != want_coll:
+        _fail(f"train --mesh 1x1: launches {counts} (want {want}), model-"
+              f"group collectives {coll} (want {want_coll})")
     print(f"distributed train --mesh 1x1 (NCCL, {DIST_TRAIN_ARGS[1]} at 32 "
-          f"layers, 8 x 512): losses {b}, unsharded {a}; "
+          f"layers, 8 x 512, the model axis in heads mode over one rank): "
+          f"losses {b}, unsharded {a}; "
           + ("bit-equal at every step" if a == b
-             else "first bit-equal, later within 1e-4"))
+             else "first bit-equal, later within 1e-4")
+          + f"; launches over 3 steps "
+          f"{ {k: v for k, v in counts.items() if v} }, model-group "
+          f"collectives {coll}")
+
+
+def _model_axis_collectives(cfg) -> int:
+    """A dense decoder's model-group all-reduces a step in heads mode with
+    every leaf sharded (a group of one), under remat "full": a layer's two
+    g's (attention's and the MLP's output) in the forward, attention's
+    again in its recomputation (which stops at the last tensor the
+    backward needs, before the MLP's), and its two f's (their inputs) in
+    the backward; the embedding's g; the cross-entropy's three in the
+    forward (max, sum, label) and dh's in the backward; the clipping
+    norm's one."""
+    return 5 * cfg.num_layers + 1 + 4 + 1
 
 
 def phase_distributed(serve_ctx, train_ctx) -> tuple:
@@ -5384,6 +5441,184 @@ def phase_distributed(serve_ctx, train_ctx) -> tuple:
         dist.destroy_process_group()
         shutil.rmtree(store_dir, ignore_errors=True)
     return counts, errs, rows
+
+
+# the model axis in one process: smollm-360m's sequence mode at M 4 (its
+# 15 heads do not split 4 ways) over B 8 x T 512, 15/5 heads of 64, and its
+# tied head [960, 49152] split into 4 x 12288 columns over 8 x 512 tokens
+MODEL_AXIS_M = 4
+MODEL_AXIS_ATTN = dict(b=8, t=512, hkv=5, g=3, d=64)
+MODEL_AXIS_CE = dict(t=8 * 512, d=960, v=49152, chunks=16)
+# the timed rank: the last, Tq 128 at offset 384 over Tk 512
+MODEL_AXIS_TAG = "_qoff384"
+
+
+def _offset_blocks(gen, dtype) -> tuple[dict, dict]:
+    """Sequence mode's attention through the real kernels: the M ranks'
+    row blocks (``FlashAttention.apply`` at offsets 0 / 128 / 256 / 384
+    over keys [0, (r+1)·128)) against one causal launch over all 512 rows,
+    forward and backward (``torch.autograd.grad``): the blocks' out and dq
+    concatenated, their dK / dV summed (in fp32).  The blocks run between
+    a reset and a read of the launch counts.  Returns ({what: error},
+    the blocks' launch counts)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as fa
+    a = MODEL_AXIS_ATTN
+    q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=a["b"], t=a["t"],
+                                  hkv=a["hkv"], g=a["g"], d=a["d"])
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    whole = fa.FlashAttention.apply(qg, kg, vg, True)
+    grads = torch.autograd.grad(whole, (qg, kg, vg), dout)
+    torch.cuda.synchronize()
+    rows = a["t"] // MODEL_AXIS_M
+    outs, sums = [], [torch.zeros_like(x, dtype=torch.float32)
+                      for x in (q, k, v)]
+    dispatch.reset_launch_counts()
+    for r in range(MODEL_AXIS_M):
+        lo, hi = r * rows, (r + 1) * rows
+        o = fa.FlashAttention.apply(qg[:, lo:hi], kg[:, :hi], vg[:, :hi],
+                                    True, lo)
+        for acc, g in zip(sums, torch.autograd.grad(
+                o, (qg, kg, vg), dout[:, lo:hi])):
+            acc += g.float()
+        outs.append(o.detach())
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    got = (torch.cat(outs, 1), *sums)
+    errs = {}
+    for name, x, w in zip(("out", "dq", "dk", "dv"), got,
+                          (whole.detach(), *grads)):
+        if not torch.isfinite(x).all():
+            _fail(f"model axis blocks {dtype}: non-finite {name}")
+        errs[name] = _scaled_err(x.to(w.dtype) if dtype == torch.float32
+                                 else x.to(torch.bfloat16), w)
+    return errs, counts
+
+
+def _vocab_shards(gen) -> dict:
+    """Vocabulary-parallel cross-entropy's arithmetic on the card: the M
+    shards' ``vocab_shard_stats``, the pure ⊕ (``merge_vocab_partials``)
+    and each shard's ``vocab_shard_grads`` from the merged lse, against
+    the unsharded ``chunked_cross_entropy`` and its autograd backward, in
+    fp32.  Returns {what: max abs error over max(1, largest entry)}."""
+    import torch
+    from repro_torch.core import cross_entropy as ce
+    c = MODEL_AXIS_CE
+    t, d, v, m = c["t"], c["d"], c["v"], MODEL_AXIS_M
+    h = torch.randn(t, d, generator=gen).cuda()
+    w = (torch.randn(d, v, generator=gen) * d ** -0.5).cuda()
+    labels = torch.randint(0, v, (t,), generator=gen).cuda()
+    dloss = (torch.randn(t, generator=gen) / t).cuda()
+    hg, wg = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    want = ce.chunked_cross_entropy(hg, wg, labels, num_chunks=c["chunks"])
+    w_dh, w_dw = torch.autograd.grad(want, (hg, wg), dloss)
+    n = v // m
+    chunks = math.gcd(c["chunks"], n)
+    shards = [w[:, r * n:(r + 1) * n] for r in range(m)]
+    stats = [ce.vocab_shard_stats(h, shards[r], labels - r * n, chunks)
+             for r in range(m)]
+    if {int(x) // n for x in labels.tolist()} != set(range(m)):
+        _fail("vocab shards: the labels miss a shard")
+    lse, label = ce.merge_vocab_partials(
+        *(torch.stack([st[i] for st in stats]) for i in range(3)))
+    parts = [ce.vocab_shard_grads(h, shards[r], labels - r * n, lse, dloss,
+                                  chunks, 0.0) for r in range(m)]
+    dh = sum(p[0] for p in parts)
+    dw = torch.cat([p[1] for p in parts], 1)
+    torch.cuda.synchronize()
+    return {name: _scaled_err(x, y) for name, x, y in (
+        ("loss", lse - label, want.detach()), ("dh", dh, w_dh),
+        ("dW", dw, w_dw))}
+
+
+def phase_model_axis() -> tuple:
+    """The model axis's shards in one process on the card (one card: NCCL
+    takes no two ranks on it, so the collectives ran at world 1 in phase
+    9 and at world 4 under gloo in the CPU tests): sequence mode's offset
+    blocks through rows 6 / 7 (fp32 within 1e-5, bf16 by
+    ``_scaled_err``'s row rule within 2e-2), the vocabulary shards' ⊕ and
+    backward (fp32 within 1e-5), then rows 6 and 7 at the last rank's
+    offset held against their plain versions in fp32 and timed in bf16,
+    with the four ranks' sum.  Returns ({"model axis seq": the bf16
+    blocks' launch counts}, {JSON name: fp32 error}, time rows)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    gen = torch.Generator().manual_seed(32)
+    counts = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        errs, counts = _offset_blocks(gen, dtype)
+        if max(errs.values()) > tol:
+            _fail(f"model axis sequence blocks {dtype}: {errs} (> {tol})")
+        print(f"model axis sequence mode {str(dtype)[6:]}: {MODEL_AXIS_M} "
+              f"blocks of 128 rows at offsets 0/128/256/384 vs one causal "
+              f"launch over 512 ({MODEL_AXIS_ATTN}): "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + f" ({tol})")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_attention=1, flash_attention_bwd_dq=1,
+                flash_attention_bwd_dkv=1,
+                flash_attention_qoffset=MODEL_AXIS_M - 1,
+                flash_attention_bwd_dq_qoffset=MODEL_AXIS_M - 1,
+                flash_attention_bwd_dkv_qoffset=MODEL_AXIS_M - 1)
+    if counts != want:
+        _fail(f"model axis blocks: launches {counts}, want {want}")
+    ce_errs = _vocab_shards(gen)
+    if max(ce_errs.values()) > 1e-5:
+        _fail(f"model axis vocab shards: {ce_errs} (> 1e-5)")
+    c = MODEL_AXIS_CE
+    print(f"model axis vocab-parallel CE: {MODEL_AXIS_M} shards of "
+          f"{c['v'] // MODEL_AXIS_M} columns of [{c['d']}, {c['v']}] over "
+          f"{c['t']} tokens, merged by the pure ⊕, vs the unsharded chunked "
+          "CE (fp32): " + ", ".join(f"{k} {e:.3g}" for k, e in
+                                    ce_errs.items()) + " (1e-5)")
+    # rows 6 / 7 at the last rank's offset: fp32 against the plain
+    # versions (the JSON line's errors), then the bf16 times
+    a, rows = MODEL_AXIS_ATTN, MODEL_AXIS_ATTN["t"] // MODEL_AXIS_M
+    last = (MODEL_AXIS_M - 1) * rows
+    q, k, v, dout = _fresh_inputs(gen, dtype=torch.float32, b=a["b"],
+                                  t=rows, hkv=a["hkv"], g=a["g"], d=a["d"],
+                                  tk=a["t"])
+    found = _fresh_errs(q, k, v, dout, True, last)
+    if max(found.values()) > 1e-5:
+        _fail(f"model axis rows 6/7 at offset {last} (fp32): {found}")
+    errs = {kernel + MODEL_AXIS_TAG: e for kernel, e in found.items()}
+    times = _train_kernel_times(gen, a["hkv"], a["g"], a["d"],
+                                MODEL_AXIS_TAG, t=rows, q_offset=last)
+    # the M ranks' device times: rank r's block at offset r·128 over keys
+    # [0, (r+1)·128), each of the three kernels
+    q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=a["b"],
+                                  t=a["t"], hkv=a["hkv"], g=a["g"], d=a["d"])
+    k, v = k.contiguous(), v.contiguous()
+    total = dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"), 0.0)
+    for r in range(MODEL_AXIS_M):
+        lo, hi = r * rows, (r + 1) * rows
+        qr, dr = q[:, lo:hi].contiguous(), dout[:, lo:hi].contiguous()
+        off = {"q_offset": lo} if lo else {}
+        fwd, (out, lse) = fa.prepare_fwd(qr, k[:, :hi], v[:, :hi], **off)
+        fa.launch(fwd)
+        dq_args, dkv_args, _ = fab.prepare(qr, k[:, :hi], v[:, :hi], out,
+                                           lse, dr, **off)
+        for name, fn in (("flash_attention", lambda: fa.launch(fwd)),
+                         ("flash_attention_bwd_dq",
+                          lambda: fab.launch(dq_args)),
+                         ("flash_attention_bwd_dkv",
+                          lambda: fab.launch(dkv_args))):
+            total[name] += _device_call_ms(fn)
+    for name, ms in total.items():
+        times[name + MODEL_AXIS_TAG]["ranks_sum_device_ms"] = ms
+    for name, row in times.items():
+        print(f"time {name} [{row['shape']}]: kernel {row['ms']:.4f}ms, "
+              f"device {row['device_ms']:.4f}ms, bound "
+              f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
+              f"{row['plain_ms']:.4f}ms, SDPA causal_lower_right "
+              f"{row['library_ms']:.4f}ms (device "
+              f"{row['library_device_ms']:.4f}ms); the {MODEL_AXIS_M} "
+              f"ranks' blocks (offsets 0-{last}) summed: device "
+              f"{row['ranks_sum_device_ms']:.4f}ms")
+    return {"model axis seq": counts}, errs, times
 
 
 def _bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -6290,7 +6525,8 @@ def _sleep_ms(cycles: int) -> float:
 
 def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
                         tag: str = "", dv=None, *, b: int = 8, t: int = 512,
-                        tk: int = 0, causal: bool = True) -> dict:
+                        tk: int = 0, causal: bool = True,
+                        q_offset: int = 0) -> dict:
     """Rows 6-7 at a training shape (``b`` rows of ``t`` queries over
     ``tk`` keys (``t`` unless given: the cross-attention's), ``hkv`` KV
     heads of ``g`` query heads, head dims ``d`` (q, k) and ``dv`` (v, out;
@@ -6304,68 +6540,83 @@ def _train_kernel_times(gen, hkv: int = 5, g: int = 3, d: int = 64,
     operand once at its width; operations two per multiply-add of each
     product over the (query, key) pairs attended, below the diagonal when
     causal (S and dP contract over D and Dv, dQ and dK are D wide, O and dV
-    Dv).  Keys ``<kernel><tag>``."""
+    Dv).  ``q_offset``: a sequence-parallel rank's block, query row i at
+    q_offset + i over Tk = q_offset + T keys, causal; the library is then
+    SDPA with ``causal_lower_right`` over K/V repeated to the query heads.
+    Keys ``<kernel><tag>``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
-    hq, esz, tk = hkv * g, 2, tk or t
+    hq, esz, tk = hkv * g, 2, (q_offset + t if q_offset else tk or t)
     dv = dv or d
+    off = {"q_offset": q_offset} if q_offset else {}
     q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=b, t=t,
                                   hkv=hkv, g=g, d=d,
                                   dv=dv if dv != d else None, tk=tk)
     k, v = k.contiguous(), v.contiguous()      # the model's K/V layout
-    errs = _fresh_errs(q, k, v, dout, causal)
+    errs = _fresh_errs(q, k, v, dout, causal, q_offset)
     if max(errs.values()) > 2e-2:
         _fail(f"fresh attention on the timed input: {errs}")
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    pairs = t * (t + 1) // 2 if causal else t * tk
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, **off)
+    pairs = (t * q_offset + t * (t + 1) // 2 if causal else t * tk)
     per_pair = 2.0 * b * hq                  # flops per width of a product
     qk = b * (t * hq + tk * hkv) * d * esz      # q and k
     vo = b * (t * hq + tk * hkv) * dv * esz     # dout (or out) and v
     stat = b * hq * t * 4                       # lse or delta, fp32
     shape = (f"B={b} T={t}" + (f" Tk={tk}" if tk != t else "")
              + f" Hq={hq} Hkv={hkv} D={d}" + (f" Dv={dv}" if dv != d else "")
-             + " bf16 " + ("causal" if causal else "non-causal"))
+             + " bf16 " + ("causal" if causal else "non-causal")
+             + (f" at q offset {q_offset}" if q_offset else ""))
 
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    if q_offset:
+        from torch.nn.attention.bias import causal_lower_right
+        ks, vs = (x.repeat_interleave(g, dim=1) for x in (ks, vs))
+        mask = causal_lower_right(t, tk)
+
+        def lib(qx, kx, vx):
+            return F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)
+    else:
+        def lib(qx, kx, vx):
+            return F.scaled_dot_product_attention(qx, kx, vx,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
-                                              enable_gqa=True)
+        return lib(qs, ks, vs)
 
     qg, kg, vg = (x.detach().clone().requires_grad_(True)
                   for x in (qs, ks, vs))
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
-                                             enable_gqa=True)
+    lib_out = lib(qg, kg, vg)
     lib_dout = dout.transpose(1, 2)
 
     def sdpa_bwd():
         return torch.autograd.grad(lib_out, (qg, kg, vg), lib_dout,
                                    retain_graph=True)
 
-    fwd_args, _ = fa.prepare_fwd(q, k, v, causal=causal)
+    fwd_args, _ = fa.prepare_fwd(q, k, v, causal=causal, **off)
     dq_args, dkv_args, _ = fab.prepare(q, k, v, out, lse, dout,
-                                       causal=causal)
+                                       causal=causal, **off)
     bwd_plain = _ms(lambda: fab.flash_attention_bwd_plain(
-        q, k, v, out, lse, dout, causal=causal), samples=5, inner=2)
+        q, k, v, out, lse, dout, causal=causal, **off), samples=5, inner=2)
     bwd_lib = _ms(sdpa_bwd)
     bwd_wrapper = _ms(lambda: fab.flash_attention_bwd(
-        q, k, v, out, lse, dout, causal=causal))
+        q, k, v, out, lse, dout, causal=causal, **off))
     rows = {}
     # forward: reads q, k, v, writes out and lse; S (D) and O (Dv)
     b_ms, b_by = _bound(qk + vo + stat, per_pair * (d + dv) * pairs,
                         "bfloat16")
     bwd_lib_device = _device_call_ms(sdpa_bwd)
     bwd_device = _device_call_ms(lambda: fab.flash_attention_bwd(
-        q, k, v, out, lse, dout, causal=causal))
+        q, k, v, out, lse, dout, causal=causal, **off))
     rows["flash_attention" + tag] = {
         "ms": _ms(lambda: fa.launch(fwd_args)),
         "device_ms": _device_call_ms(lambda: fa.launch(fwd_args)),
-        "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(q, k, v,
-                                                         causal=causal)),
+        "wrapper_ms": _ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=causal, **off)),
         "plain_ms": _ms(lambda: fa.flash_attention_fwd_plain(
-            q, k, v, causal=causal), samples=5, inner=2),
+            q, k, v, causal=causal, **off), samples=5, inner=2),
         "library_ms": _ms(sdpa),
         "library_device_ms": _device_call_ms(sdpa),
         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
@@ -7114,6 +7365,10 @@ def main() -> int:
                                                train_ctx)
     counts.update(dist_counts)
     errs.update(dist_errs)
+    ma_counts, ma_errs, ma_rows = _timed(phase_model_axis)
+    counts.update(ma_counts)
+    errs.update(ma_errs)
+    dist_rows.update(ma_rows)
     counts.update(_timed(phase_train_128))
     counts.update(_timed(phase_train_state))
     counts.update(_timed(phase_train_whisper))

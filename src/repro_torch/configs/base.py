@@ -116,10 +116,12 @@ class ParallelConfig:
     """How the model maps onto the mesh.  The port reads
     ``grad_reduce_dtype`` and ``microbatches`` (the train step),
     ``data_axes`` (the data-parallel all-reduce and ``HostShardedLoader``'s
-    rows), ``model_axis`` (the vocabulary-sharded sampler) and
-    ``attn_mode`` (``distributed.sharding``'s placements).
-    ``seq_sharded_norms`` and ``fsdp`` keep the reference's names for the
-    model axis's execution, not ported yet."""
+    rows), ``model_axis`` (the vocabulary-sharded sampler and the
+    tensor-parallel training of ``distributed.tensor_parallel``) and
+    ``attn_mode`` (``distributed.sharding``'s placements; heads or
+    sequence mode).  ``seq_sharded_norms`` and ``fsdp`` keep the
+    reference's names for what is not ported yet (the norms run on
+    replicated activations; FSDP is not executed)."""
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
     attn_mode: str = "heads"

@@ -10,8 +10,11 @@ already initialised); each axis's process group is ``group(ctx, name)``.
 everywhere.  Under a context, ``dispatch.sdpa(decode=True)`` sends the
 one-token decode through the sequence-sharded ⊕ merge, the lockstep
 ``decode_step`` samples through the vocabulary-sharded Algorithm 4
-(``distributed/decode_attention.py``), and the train step all-reduces its
-gradients over the data axes (``training/train_step.py``).
+(``distributed/decode_attention.py``), the train step all-reduces its
+gradients over the data axes (``training/train_step.py``), and a dense
+decoder's training forward runs tensor-parallel over the model axis
+(``distributed/tensor_parallel.py``; ``model_group`` / ``model_index`` /
+``model_size`` name that axis).
 """
 from __future__ import annotations
 
@@ -76,3 +79,18 @@ def group(mesh, axes):
             f"collectives over the mesh axes {names} at once are not "
             "ported: one axis a group")
     return mesh.get_group(names[0])
+
+
+def model_group(ctx: ShardContext):
+    """The process group of ``ctx``'s model axis."""
+    return group(ctx.mesh, ctx.par.model_axis)
+
+
+def model_index(ctx: ShardContext) -> int:
+    """This rank's index along ``ctx``'s model axis."""
+    return axis_index(ctx.mesh, ctx.par.model_axis)
+
+
+def model_size(ctx: ShardContext) -> int:
+    """Ranks along ``ctx``'s model axis."""
+    return axis_size(ctx.mesh, ctx.par.model_axis)

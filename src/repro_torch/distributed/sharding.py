@@ -20,13 +20,17 @@ architecture:
 
 * ``heads`` / ``kv_heads`` map to the model axis only when the head count
   divides it; otherwise attention runs sequence-parallel ("sequence"
-  attn_mode) and its weights replicate;
+  attn_mode): its weights still shard over ``qkv_out`` / ``kv_out`` when
+  the model axis divides H·hd (Hkv·hd for ``kv_out``), and it is the
+  activations that are resharded (q by rows, K/V whole);
 * ``expert`` maps to the model axis when the (padded) expert count divides
   it, else the experts replicate and ``expert_ffn`` shards;
 * ``vocab`` shards over the model axis when it divides.
 
-The train step executes the data axes only (``training/train_step.py``);
-these placements are what the model axis will execute.
+The train step executes the data axes (``training/train_step.py``) and,
+for a dense decoder, the model axis's entries of these placements
+(``distributed/tensor_parallel.py``); the data axes inside a placement
+(FSDP / ZeRO) are not executed yet.
 """
 from __future__ import annotations
 

@@ -1,13 +1,17 @@
 // Flash attention backward from the forward's saved log-sum-exp: P is rebuilt
 // tile by tile as exp(s - lse), the paper's (m, d) in log form, so the
-// [Tq, Tk] score matrix is never stored.  Two kernels, as in the reference:
+// [Tq, Tk] score matrix is never stored.  Query row i sits at position
+// q_offset + i (one integer for the launch, as in the forward; 0 but for a
+// sequence-parallel rank's block of rows), keys at 0..Tk-1, and the causal
+// mask is k_pos <= q_offset + q_pos.  Two kernels, as in the reference:
 //
 //   dq    one CTA per (query tile, query head, batch row): streams the key
 //         tiles up to the diagonal and accumulates
 //         dq = sum_k ds * k,  ds = p * (dp - delta) * scale,  dp = dO . v;
 //   dk/dv one CTA per (key tile, KV head, batch row): loops over the G query
-//         heads of its group and the query tiles from the diagonal on and
-//         accumulates dv = sum_q p * dO and dk = sum_q ds * q.
+//         heads of its group and the query tiles from the (shifted) diagonal
+//         on and accumulates dv = sum_q p * dO and dk = sum_q ds * q; a key
+//         tile that no query row reaches writes zero dK and dV.
 //
 // Replaces: src/repro/kernels/flash_attention_bwd.py,
 //   flash_attention_bwd_pallas (line 114; the pallas_calls at :134, dq, and
@@ -53,7 +57,10 @@
 //   then dV += Pᵀ·dO and dK += dSᵀ·Q with dO and Q read MN-major.  Only the
 //   diagonal tile and ragged edge tiles are masked.  CTAs are numbered
 //   heaviest first under the causal mask (dq: last query tile first;
-//   dk/dv: first key tile first).
+//   dk/dv: first key tile first).  The q offset is read only by the
+//   kShift instances: a launch at offset 0 takes the ones that fold it to
+//   a constant, so the unshifted kernels compile as they did before the
+//   offset existed.
 //   Head dim D 64 or 128: a tile of D 128 is two 128-byte swizzle atom
 //   columns 8 KB apart, as wg::attend lays it out, so S, dP (and Sᵀ, dPᵀ)
 //   contract over eight k-steps across both, and dQ, dK and dV are one
@@ -127,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dq, int Tq,
                   int Tk, int Hq, int Hkv, KVStrides st, float scale,
-                  int causal) {
+                  int causal, int qo) {
   constexpr int kLanes = Dqk / kRowThreads;
   extern __shared__ __align__(16) float smem[];
   const int i0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
@@ -154,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
              Tq, ls, dl);
   const int last_row = min(i0 + kRows, Tq) - 1;
   int nb = (Tk + kTile - 1) / kTile;
-  if (causal) nb = min(nb, last_row / kTile + 1);
+  if (causal) nb = min(nb, (qo + last_row) / kTile + 1);
 
   float acc[kLanes];
 #pragma unroll
@@ -168,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / kTile, t = e % kTile;
       const int q_pos = i0 + r, k_pos = j * kTile + t;
       float ds = 0.f;
-      if (q_pos < Tq && k_pos < Tk && (!causal || k_pos <= q_pos)) {
+      if (q_pos < Tq && k_pos < Tk && (!causal || k_pos <= qo + q_pos)) {
         float s = 0.f, dp = 0.f;
 #pragma unroll 16
         for (int c = 0; c < Dqk; ++c)
@@ -203,7 +210,7 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk,
                    T* __restrict__ dv, int Tq, int Tk, int Hq, int Hkv,
-                   KVStrides st, float scale, int causal) {
+                   KVStrides st, float scale, int causal, int qo) {
   constexpr int kKLanes = Dqk / kRowThreads, kVLanes = Dv / kRowThreads;
   extern __shared__ __align__(16) float smem[];
   const int j0 = blockIdx.x * kRows, hk = blockIdx.y, b = blockIdx.z;
@@ -223,8 +230,9 @@ __global__ void __launch_bounds__(kThreads)
                     ks);
   load_rows<T, Dv>(v, b * st.vsb + hk * st.vsh, st.vss, j0, kRows, Tk, 1.f,
                    vs);
-  // causal: the first query tile holding a row at or past key j0
-  const int i_first = causal ? j0 / kTile : 0;
+  // causal: the first query tile holding a row at or past key j0 (row i at
+  // position qo + i)
+  const int i_first = causal ? max(j0 - qo, 0) / kTile : 0;
   const int nq = (Tq + kTile - 1) / kTile;
   const size_t qstride = static_cast<size_t>(Hq) * Dqk;
   const size_t dostride = static_cast<size_t>(Hq) * Dv;
@@ -250,7 +258,7 @@ __global__ void __launch_bounds__(kThreads)
         const int r = e / kRows, t = e % kRows;
         const int q_pos = i * kTile + r, k_pos = j0 + t;
         float p = 0.f, ds = 0.f;
-        if (q_pos < Tq && k_pos < Tk && (!causal || k_pos <= q_pos)) {
+        if (q_pos < Tq && k_pos < Tk && (!causal || k_pos <= qo + q_pos)) {
           float s = 0.f, dp = 0.f;
 #pragma unroll 16
           for (int c = 0; c < Dqk; ++c)
@@ -335,7 +343,7 @@ __device__ __forceinline__ void store_row(bf16* o, const float (&acc)[kCols][32]
                                   acc[a][4 * n + 2 * r + 1]);
 }
 
-template <int Dqk, int Dv>
+template <int Dqk, int Dv, bool kShift>
 __global__ void __launch_bounds__(wg::kThreads)
     bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -343,8 +351,9 @@ __global__ void __launch_bounds__(wg::kThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq,
                         int B, int Tq, int Tk, int Hq, int Hkv, KVStrides st,
-                        float scale, int causal) {
+                        float scale, int causal, int qo_arg) {
   extern __shared__ __align__(16) unsigned char tiles[];
+  const int qo = kShift ? qo_arg : 0;  // query row 0's position
   constexpr int R = wg::kRows;
   constexpr uint32_t kKTile = wg::tile_bytes(Dqk), kVTile = wg::tile_bytes(Dv);
   constexpr uint32_t kStage = kKTile + kVTile;
@@ -373,7 +382,7 @@ __global__ void __launch_bounds__(wg::kThreads)
   wg::cp_async_commit();
 
   int nk = (Tk + R - 1) / R;
-  if (causal) nk = min(nk, (min(i0 + R, Tq) - 1) / R + 1);
+  if (causal) nk = min(nk, (qo + min(i0 + R, Tq) - 1) / R + 1);
   const float sl2 = scale * kLog2e;
   const int row0 = wg::frag_row(0);  // this thread's rows: row0, row0 + 8
   float lse2[2], dl[2];
@@ -419,13 +428,13 @@ __global__ void __launch_bounds__(wg::kThreads)
     wg::fence_acc(dp);
 
     const int k0 = j * R;
-    const bool edge = k0 + R > Tk || (causal && k0 + R - 1 > i0);
+    const bool edge = k0 + R > Tk || (causal && k0 + R - 1 > qo + i0);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;
       float p = exp2f(fmaf(s[i], sl2, -lse2[r]));
       if (edge) {
-        const int kp = k0 + wg::frag_col(i), qp = i0 + wg::frag_row(i);
+        const int kp = k0 + wg::frag_col(i), qp = qo + i0 + wg::frag_row(i);
         if (kp >= Tk || (causal && kp > qp)) p = 0.f;
       }
       s[i] = p * (dp[i] - dl[r]) * scale;  // dS
@@ -451,7 +460,7 @@ __global__ void __launch_bounds__(wg::kThreads)
   }
 }
 
-template <int Dqk, int Dv>
+template <int Dqk, int Dv, bool kShift>
 __global__ void __launch_bounds__(wg::kThreads)
     bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -461,8 +470,9 @@ __global__ void __launch_bounds__(wg::kThreads)
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int B,
                          int Tq, int Tk, int Hq, int Hkv, KVStrides st,
-                         float scale, int causal) {
+                         float scale, int causal, int qo_arg) {
   extern __shared__ __align__(16) unsigned char tiles[];
+  const int qo = kShift ? qo_arg : 0;  // query row 0's position
   constexpr int R = wg::kRows;
   constexpr uint32_t kKTile = wg::tile_bytes(Dqk), kVTile = wg::tile_bytes(Dv);
   constexpr uint32_t kStage = dkv_stage(Dqk, Dv);
@@ -489,10 +499,10 @@ __global__ void __launch_bounds__(wg::kThreads)
   wg::load_tile<Dqk>(sk, kb, st.ss, Tk - j0);
   wg::load_tile<Dv>(sv, vb, vst.vss, Tk - j0);
 
-  // the query tiles this key tile meets: from the diagonal on (causal),
-  // for each of the group's G heads; tile `it` is (head hk * G + it / ni,
-  // query tile iq0 + it % ni)
-  const int iq0 = causal ? kt : 0;
+  // the query tiles this key tile meets: from the diagonal on (causal: the
+  // first tile holding a row i with qo + i >= j0), for each of the group's
+  // G heads; tile `it` is (head hk * G + it / ni, query tile iq0 + it % ni)
+  const int iq0 = causal ? max(j0 - qo, 0) / R : 0;
   const int ni = max((Tq + R - 1) / R - iq0, 0), total = G * ni;
   const size_t qstride = static_cast<size_t>(Hq) * Dqk;
   const size_t dostride = static_cast<size_t>(Hq) * Dv;
@@ -553,14 +563,14 @@ __global__ void __launch_bounds__(wg::kThreads)
 
     const int q0 = (iq0 + it % ni) * R;
     const bool edge = q0 + R > Tq || j0 + R > Tk ||
-                      (causal && j0 + R - 1 > q0);
+                      (causal && j0 + R - 1 > qo + q0);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = wg::frag_col(i);  // query row of the tile
       float p = exp2f(fmaf(sT[i], sl2, -ls[c]));
       if (edge) {
-        const int qp = q0 + c, kp = j0 + wg::frag_row(i);
-        if (qp >= Tq || kp >= Tk || (causal && kp > qp)) p = 0.f;
+        const int qi = q0 + c, kp = j0 + wg::frag_row(i);
+        if (qi >= Tq || kp >= Tk || (causal && kp > qo + qi)) p = 0.f;
       }
       dpt[i] = p * (dpt[i] - dl[c]) * scale;  // dSᵀ
       sT[i] = p;                              // Pᵀ
@@ -589,6 +599,8 @@ __global__ void __launch_bounds__(wg::kThreads)
     // that stage until the barrier that opens the next step)
     if (it + 1 < total) stats_at(nxt + kKTile + kVTile)[tid] = pre;
   }
+  wg::cp_async_wait_all();  // no copy outlives the CTA (total == 0 issues
+                            // K's and V's)
 
   const int row0 = wg::frag_row(0);
 #pragma unroll
@@ -601,22 +613,60 @@ __global__ void __launch_bounds__(wg::kThreads)
   }
 }
 
+template <int Dqk, int Dv, bool kShift>
+cudaError_t launch_dq_bf16_at(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dq, int B, int Tq,
+                              int Tk, int Hq, int Hkv, KVStrides st,
+                              float scale, int causal, int qo,
+                              cudaStream_t stream) {
+  constexpr int kSmem = dq_smem(Dqk, Dv);
+  const cudaError_t err =
+      allow_dynamic_smem<bwd_dq_wgmma_kernel<Dqk, Dv, kShift>>(kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
+  bwd_dq_wgmma_kernel<Dqk, Dv, kShift>
+      <<<blocks, wg::kThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), B, Tq, Tk, Hq, Hkv, st, scale, causal, qo);
+  return cudaGetLastError();
+}
+
 template <int Dqk, int Dv>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dq, int B, int Tq,
                            int Tk, int Hq, int Hkv, KVStrides st, float scale,
-                           int causal, cudaStream_t stream) {
-  constexpr int kSmem = dq_smem(Dqk, Dv);
+                           int causal, int qo, cudaStream_t stream) {
+  return qo ? launch_dq_bf16_at<Dqk, Dv, true>(q, k, v, dout, lse, delta, dq,
+                                               B, Tq, Tk, Hq, Hkv, st, scale,
+                                               causal, qo, stream)
+            : launch_dq_bf16_at<Dqk, Dv, false>(q, k, v, dout, lse, delta, dq,
+                                                B, Tq, Tk, Hq, Hkv, st, scale,
+                                                causal, 0, stream);
+}
+
+template <int Dqk, int Dv, bool kShift>
+cudaError_t launch_dkv_bf16_at(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse,
+                               const float* delta, void* dk, void* dv, int B,
+                               int Tq, int Tk, int Hq, int Hkv, KVStrides st,
+                               float scale, int causal, int qo,
+                               cudaStream_t stream) {
+  constexpr int kSmem = dkv_smem(Dqk, Dv);
   const cudaError_t err =
-      allow_dynamic_smem<bwd_dq_wgmma_kernel<Dqk, Dv>>(kSmem);
+      allow_dynamic_smem<bwd_dkv_wgmma_kernel<Dqk, Dv, kShift>>(kSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
-      static_cast<unsigned>((Tq + wg::kRows - 1) / wg::kRows) * B * Hq;
-  bwd_dq_wgmma_kernel<Dqk, Dv><<<blocks, wg::kThreads, kSmem, stream>>>(
+      static_cast<unsigned>((Tk + wg::kRows - 1) / wg::kRows) * B * Hkv;
+  bwd_dkv_wgmma_kernel<Dqk, Dv, kShift>
+      <<<blocks, wg::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), B, Tq, Tk, Hq, Hkv, st, scale, causal);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Tq, Tk, Hq, Hkv, st,
+      scale, causal, qo);
   return cudaGetLastError();
 }
 
@@ -625,19 +675,14 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dk, void* dv, int B,
                             int Tq, int Tk, int Hq, int Hkv, KVStrides st,
-                            float scale, int causal, cudaStream_t stream) {
-  constexpr int kSmem = dkv_smem(Dqk, Dv);
-  const cudaError_t err =
-      allow_dynamic_smem<bwd_dkv_wgmma_kernel<Dqk, Dv>>(kSmem);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks =
-      static_cast<unsigned>((Tk + wg::kRows - 1) / wg::kRows) * B * Hkv;
-  bwd_dkv_wgmma_kernel<Dqk, Dv><<<blocks, wg::kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Tq, Tk, Hq, Hkv, st,
-      scale, causal);
-  return cudaGetLastError();
+                            float scale, int causal, int qo,
+                            cudaStream_t stream) {
+  return qo ? launch_dkv_bf16_at<Dqk, Dv, true>(q, k, v, dout, lse, delta, dk,
+                                                dv, B, Tq, Tk, Hq, Hkv, st,
+                                                scale, causal, qo, stream)
+            : launch_dkv_bf16_at<Dqk, Dv, false>(q, k, v, dout, lse, delta,
+                                                 dk, dv, B, Tq, Tk, Hq, Hkv,
+                                                 st, scale, causal, 0, stream);
 }
 
 // ---- fp32: the CUDA-core forms ---------------------------------------------
@@ -648,13 +693,14 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, void* dq, int B, int Tq, int Tk,
                           int Hq, int Hkv, KVStrides st, float scale,
-                          int causal, cudaStream_t stream) {
+                          int causal, int qo, cudaStream_t stream) {
   const size_t smem = sizeof(float) * bwd_smem_words(Dqk, Dv);
   const dim3 grid((Tq + kRows - 1) / kRows, Hq, B);
   bwd_dq_kernel<float, Dqk, Dv><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), Tq, Tk, Hq, Hkv, st, scale, causal);
+      delta, static_cast<float*>(dq), Tq, Tk, Hq, Hkv, st, scale, causal,
+      qo);
   return cudaGetLastError();
 }
 
@@ -663,14 +709,15 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dk, void* dv, int B,
                            int Tq, int Tk, int Hq, int Hkv, KVStrides st,
-                           float scale, int causal, cudaStream_t stream) {
+                           float scale, int causal, int qo,
+                           cudaStream_t stream) {
   const size_t smem = sizeof(float) * bwd_smem_words(Dqk, Dv);
   const dim3 grid((Tk + kRows - 1) / kRows, Hkv, B);
   bwd_dkv_kernel<float, Dqk, Dv><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, Hq,
-      Hkv, st, scale, causal);
+      Hkv, st, scale, causal, qo);
   return cudaGetLastError();
 }
 
@@ -686,14 +733,15 @@ static_assert(sizeof(float) * bwd_smem_words(128, 128) <= 48 * 1024,
 // strides equal to k's where Dv == Dqk); lse, delta [B, Hq, Tq] float32.
 // (Dqk, Dv) is (64, 64), (128, 128) or (96, 64) (with_head_dims:
 // smollm-360m's, mistral-nemo-12b's and qwen2-moe-a2.7b's, minicpm3-4b's
-// decompressed MLA), any other pair is refused.  Returns
-// cudaGetLastError().
+// decompressed MLA), any other pair is refused.  q_offset >= 0 is query row
+// 0's position, the forward's (the wrapper takes Tk >= q_offset + Tq when
+// causal).  Returns cudaGetLastError().
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int dtype, int B, int Tq,
     int Tk, int Hq, int Hkv, int Dqk, int Dv, long long sb, long long ss,
     long long sh, long long vsb, long long vss, long long vsh, float scale,
-    int causal, void* stream) {
+    int causal, int q_offset, void* stream) {
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -704,9 +752,11 @@ extern "C" int flash_attention_bwd_dq_launch(
     constexpr int kQK = decltype(dqk)::value, kV = decltype(dv)::value;
     return dtype == kDtypeF32
                ? launch_dq_f32<kQK, kV>(q, k, v, dout, ls, dl, dq, B, Tq, Tk,
-                                        Hq, Hkv, st, scale, causal, stm)
+                                        Hq, Hkv, st, scale, causal, q_offset,
+                                        stm)
                : launch_dq_bf16<kQK, kV>(q, k, v, dout, ls, dl, dq, B, Tq, Tk,
-                                         Hq, Hkv, st, scale, causal, stm);
+                                         Hq, Hkv, st, scale, causal, q_offset,
+                                         stm);
   }));
 }
 
@@ -717,7 +767,7 @@ extern "C" int flash_attention_bwd_dkv_launch(
     const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
     int Tq, int Tk, int Hq, int Hkv, int Dqk, int Dv, long long sb,
     long long ss, long long sh, long long vsb, long long vss, long long vsh,
-    float scale, int causal, void* stream) {
+    float scale, int causal, int q_offset, void* stream) {
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -728,10 +778,11 @@ extern "C" int flash_attention_bwd_dkv_launch(
     constexpr int kQK = decltype(dqk)::value, kV = decltype(dvv)::value;
     return dtype == kDtypeF32
                ? launch_dkv_f32<kQK, kV>(q, k, v, dout, ls, dl, dk, dv, B, Tq,
-                                         Tk, Hq, Hkv, st, scale, causal, stm)
+                                         Tk, Hq, Hkv, st, scale, causal,
+                                         q_offset, stm)
                : launch_dkv_bf16<kQK, kV>(q, k, v, dout, ls, dl, dk, dv, B,
                                           Tq, Tk, Hq, Hkv, st, scale, causal,
-                                          stm);
+                                          q_offset, stm);
   }));
 }
 

@@ -1,6 +1,8 @@
 // Fresh flash attention forward, the training form: queries and keys of the
-// same call, query row i at absolute position i, every key valid.  Returns
-// the output and the row log-sum-exp the backward rebuilds P from.
+// same call, query row i at absolute position q_offset + i (one integer for
+// the launch; 0 but for a sequence-parallel rank's block of rows), keys at
+// 0..Tk-1, every key valid.  Returns the output and the row log-sum-exp the
+// backward rebuilds P from.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 //   (the pallas_call at line 122; body _make_kernel:69, _online_update:56),
@@ -19,15 +21,22 @@
 // bf16: fresh_fwd_wgmma_kernel, on the tensor cores.  One CTA is one
 //   warpgroup (128 threads) and owns 64 query rows of one (query head,
 //   batch row); KV head h / G (GQA without repeating K/V).  The tile loop is
-//   wg::attend (wgmma.cuh) at q_offset 0 over all Tk keys, shared with the
-//   cached-prefill kernel's bf16 form: S = Q·Kᵀ and O += P·V as wgmma
-//   products from 128B-swizzled tiles that a two-stage cp.async ring fills,
-//   the online (m, d) update in registers.  Causal: key tiles run only to
-//   the diagonal and only the diagonal tile (and a ragged last tile) is
-//   masked; CTAs are numbered heaviest query tile first, so the triangle's
-//   long CTAs start first.  Keys at or past Tk are zero-filled without being
-//   read and score -inf; query rows past Tq are zero-filled and not written,
-//   so T need not be a multiple of 64.  At D 128 a row is two 128-byte
+//   wg::attend (wgmma.cuh) at the launch's q_offset over all Tk keys,
+//   shared with the cached-prefill kernel's bf16 form: S = Q·Kᵀ and
+//   O += P·V as wgmma products from 128B-swizzled tiles that a two-stage
+//   cp.async ring fills, the online (m, d) update in registers.  Causal:
+//   key tiles run only to the diagonal k_pos <= q_offset + q_pos, shifted
+//   by the offset, and only the tiles it crosses (and a ragged last tile)
+//   are masked; CTAs are numbered heaviest query tile first (the last: at
+//   any offset it reaches the most keys), so the long CTAs start first.
+//   The offset is a kernel argument read only by the kShift instance: a
+//   launch at offset 0 takes the instance that folds it to a constant, so
+//   the unshifted tile loop compiles as it did before the offset existed
+//   (with the offset a runtime value in every launch, the forward at
+//   offset 0 ran 1-4 % slower on an H100).
+//   Keys at or past Tk are zero-filled without being read and score -inf;
+//   query rows past Tq are zero-filled and not written, so T need not be a
+//   multiple of 64.  At D 128 a row is two 128-byte
 //   swizzle atoms and the ring needs 81 KB of dynamic shared memory (41 KB
 //   at D 64), which the launch allows first.  MLA's decompressed form
 //   (Dqk 96, Dv 64): Q and K tiles are an atom column and half of one
@@ -35,10 +44,11 @@
 //   as at D 64, and V is read through strides of its own (at equal widths it
 //   shares K's, one address for both copies); 65 KB.
 //
-// fp32: fresh_fwd_kernel, on CUDA cores: the cached-prefill form at
-//   q_offset 0 over all Tk keys, prefill_attend (attention.cuh), the tile
-//   loop of the offset and paged prefill kernels, in a kernel without offset
-//   or valid-length operands.  One CTA per (16 query rows, query head, batch
+// fp32: fresh_fwd_kernel, on CUDA cores: the cached-prefill form at the
+//   launch's q_offset over all Tk keys, prefill_attend (attention.cuh), the
+//   tile loop of the offset and paged prefill kernels, in a kernel with one
+//   offset for the launch and no per-row offset or valid-length operands.
+//   One CTA per (16 query rows, query head, batch
 //   row), 128 threads, fp32 accumulation throughout (the path the fp32
 //   train parity holds to 1e-5).
 //
@@ -59,7 +69,7 @@ __global__ void __launch_bounds__(kPrefillThreads)
     fresh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int Tq, int Tk, int Hq, int Hkv,
-                     KVStrides st, float scale, int causal) {
+                     KVStrides st, float scale, int causal, int qo) {
   extern __shared__ __align__(16) float smem[];
   const int i0 = blockIdx.x * kPrefillRows, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -70,11 +80,11 @@ __global__ void __launch_bounds__(kPrefillThreads)
                              static_cast<size_t>(kTile * st.vss),
                              static_cast<size_t>(st.vss)};
   prefill_attend<T, Dqk, T, ContiguousRows, NoScales, Dv, ContiguousRows>(
-      q, k, v, krows, Tk, kTile, 0, b, h, i0, Tq, Hq, out, lse, scale, causal,
+      q, k, v, krows, Tk, kTile, qo, b, h, i0, Tq, Hq, out, lse, scale, causal,
       smem, NoScales(), vrows);
 }
 
-template <int Dqk, int Dv>
+template <int Dqk, int Dv, bool kShift>
 __global__ void __launch_bounds__(wg::kThreads)
     fresh_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -82,8 +92,9 @@ __global__ void __launch_bounds__(wg::kThreads)
                            __nv_bfloat16* __restrict__ out,
                            float* __restrict__ lse, int B, int Tq, int Tk,
                            int Hq, int Hkv, KVStrides st, float scale,
-                           int causal) {
+                           int causal, int qo) {
   extern __shared__ __align__(16) unsigned char tiles[];
+  const int pos0 = kShift ? qo : 0;  // query row 0's position
   // heaviest query tile first: blockIdx.x = (reversed tile, b, h), h fastest
   int bid = blockIdx.x;
   const int h = bid % Hq;
@@ -101,7 +112,7 @@ __global__ void __launch_bounds__(wg::kThreads)
   float* lb = lse + (static_cast<size_t>(b) * Hq + h) * Tq;
   if constexpr (Dqk == Dv) {  // V at K's offsets: one address, two copies
     wg::attend<Dqk, Dv>(q + q0, k, v, wg::ContiguousKeys{krows}, out + o0,
-                        lb, qstride, ostride, i0, Tq, 0, Tk, scale, causal,
+                        lb, qstride, ostride, i0, Tq, pos0, Tk, scale, causal,
                         tiles);
   } else {
     const wg::SplitKeys keys{
@@ -109,14 +120,14 @@ __global__ void __launch_bounds__(wg::kThreads)
                               static_cast<size_t>(wg::kRows * st.vss),
                               static_cast<size_t>(st.vss)}};
     wg::attend<Dqk, Dv>(q + q0, k, v, keys, out + o0, lb, qstride, ostride,
-                        i0, Tq, 0, Tk, scale, causal, tiles);
+                        i0, Tq, pos0, Tk, scale, causal, tiles);
   }
 }
 
 template <int Dqk, int Dv>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int Tq, int Tk, int Hq, int Hkv,
-                       KVStrides st, float scale, int causal,
+                       KVStrides st, float scale, int causal, int qo,
                        cudaStream_t stream) {
   const size_t smem = sizeof(float) * prefill_smem_words(Dqk, Dv, kTile);
   const cudaError_t err =
@@ -126,7 +137,27 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   fresh_fwd_kernel<float, Dqk, Dv><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, Tq, Tk, Hq,
-      Hkv, st, scale, causal);
+      Hkv, st, scale, causal, qo);
+  return cudaGetLastError();
+}
+
+template <int Dqk, int Dv, bool kShift>
+cudaError_t launch_bf16_at(const void* q, const void* k, const void* v,
+                           void* out, float* lse, int B, int Tq, int Tk,
+                           int Hq, int Hkv, KVStrides st, float scale,
+                           int causal, int qo, cudaStream_t stream) {
+  constexpr int kSmem = wg::attend_smem(Dqk, Dv);
+  const cudaError_t err =
+      allow_dynamic_smem<fresh_fwd_wgmma_kernel<Dqk, Dv, kShift>>(kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((Tq + wg::kRows - 1) /
+                                                wg::kRows) * B * Hq;
+  fresh_fwd_wgmma_kernel<Dqk, Dv, kShift>
+      <<<blocks, wg::kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      lse, B, Tq, Tk, Hq, Hkv, st, scale, causal, qo);
   return cudaGetLastError();
 }
 
@@ -134,19 +165,13 @@ template <int Dqk, int Dv>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int Tq, int Tk, int Hq,
                         int Hkv, KVStrides st, float scale, int causal,
-                        cudaStream_t stream) {
-  constexpr int kSmem = wg::attend_smem(Dqk, Dv);
-  const cudaError_t err =
-      allow_dynamic_smem<fresh_fwd_wgmma_kernel<Dqk, Dv>>(kSmem);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((Tq + wg::kRows - 1) /
-                                                wg::kRows) * B * Hq;
-  fresh_fwd_wgmma_kernel<Dqk, Dv><<<blocks, wg::kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lse, B, Tq, Tk, Hq, Hkv, st, scale, causal);
-  return cudaGetLastError();
+                        int qo, cudaStream_t stream) {
+  return qo ? launch_bf16_at<Dqk, Dv, true>(q, k, v, out, lse, B, Tq, Tk, Hq,
+                                            Hkv, st, scale, causal, qo,
+                                            stream)
+            : launch_bf16_at<Dqk, Dv, false>(q, k, v, out, lse, B, Tq, Tk,
+                                             Hq, Hkv, st, scale, causal, 0,
+                                             stream);
 }
 
 }  // namespace
@@ -158,12 +183,15 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // copies); lse [B, Hq, Tq] float32.  (Dqk, Dv) is (64, 64),
 // (128, 128) or (96, 64) (with_head_dims: smollm-360m's, mistral-nemo-12b's
 // and qwen2-moe-a2.7b's, minicpm3-4b's decompressed MLA), any other pair is
-// refused.  Returns cudaGetLastError().
+// refused.  q_offset >= 0 is query row 0's position (the wrapper takes
+// Tk >= q_offset + Tq when causal; without the mask it changes nothing).
+// Returns
+// cudaGetLastError().
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int dtype, int B, int Tq, int Tk, int Hq, int Hkv, int Dqk, int Dv,
     long long sb, long long ss, long long sh, long long vsb, long long vss,
-    long long vsh, float scale, int causal, void* stream) {
+    long long vsh, float scale, int causal, int q_offset, void* stream) {
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
   const KVStrides st{sb, ss, sh, vsb, vss, vsh};
@@ -173,9 +201,9 @@ extern "C" int flash_attention_fwd_launch(
     constexpr int kQK = decltype(dq)::value, kV = decltype(dv)::value;
     return dtype == kDtypeF32
                ? launch_f32<kQK, kV>(q, k, v, out, ls, B, Tq, Tk, Hq, Hkv, st,
-                                     scale, causal, stm)
+                                     scale, causal, q_offset, stm)
                : launch_bf16<kQK, kV>(q, k, v, out, ls, B, Tq, Tk, Hq, Hkv,
-                                      st, scale, causal, stm);
+                                      st, scale, causal, q_offset, stm);
   }));
 }
 

@@ -16,9 +16,10 @@ capability probe; here the choice goes by the tensor's device alone:
 * ``cpu`` runs the kernel's plain PyTorch version;
 * any other device raises.
 
-Fresh attention (``kv_valid_len`` unset, ``q_offset`` 0: the training
-form) runs ``FlashAttention`` on CUDA, the forward kernel with its dq and
-dk/dv backward kernels, as the reference's ``_attention_pallas`` ran
+Fresh attention (``kv_valid_len`` unset, ``q_offset`` one integer: 0, or
+a sequence-parallel rank's first row; the training form) runs
+``FlashAttention`` on CUDA, the forward kernel with its dq and dk/dv
+backward kernels at that causal offset, as the reference's ``_attention_pallas`` ran
 ``ops._flash`` (``dispatch.py:540``); on the CPU it runs the chunked online
 form, which autograd differentiates.  MLA's decompressed training form
 (q and k 96 wide, v 64, at the default scale 96^-0.5) takes the same
@@ -93,6 +94,9 @@ _KERNEL_MODULES = {"softmax_topk": _softmax_topk,
                    "flash_attention": _flash_attention,
                    "flash_attention_bwd_dq": _flash_attention_bwd,
                    "flash_attention_bwd_dkv": _flash_attention_bwd,
+                   "flash_attention_qoffset": _flash_attention,
+                   "flash_attention_bwd_dq_qoffset": _flash_attention_bwd,
+                   "flash_attention_bwd_dkv_qoffset": _flash_attention_bwd,
                    "flash_decode_paged_int8": _flash_decode,
                    "flash_decode_int8": _flash_decode,
                    "flash_attention_paged_int8": _flash_attention,
@@ -246,11 +250,13 @@ def sdpa(cfg, q, k, v, *, causal, q_offset, kv_valid_len, scale=None,
                 "contiguous int8 attention wider than one token has no "
                 "kernel: the int8 prefill attends over its exact K/V")
         if kv_valid_len is None:
-            if not (isinstance(q_offset, int) and q_offset == 0):
+            if not isinstance(q_offset, int):
                 raise NotImplementedError(
-                    "fresh attention on CUDA takes q_offset 0 (an offset "
-                    "needs kv_valid_len: the cached-prefill kernel)")
-            return _flash_attention.FlashAttention.apply(q, k, v, causal)
+                    "fresh attention on CUDA takes one integer q_offset "
+                    "(per-row offsets need kv_valid_len: the cached-prefill "
+                    "kernel)")
+            return _flash_attention.FlashAttention.apply(q, k, v, causal,
+                                                         q_offset)
         out, _ = _flash_attention.flash_attention_offset(
             q, k, v, q_offset, kv_valid_len, causal=causal)
         return out

@@ -9,7 +9,12 @@ KV pool or a contiguous KV cache.
   one, by dtype alone (``csrc/flash_attention_fwd.cu``).
   ``FlashAttention`` is its ``torch.autograd.Function``, the port of
   the reference's ``ops._flash`` custom VJP (``ops.py:154-203``); its
-  backward is ``kernels.flash_attention_bwd``.  The kernel reads q, k, v in
+  backward is ``kernels.flash_attention_bwd``.  Both take one causal
+  ``q_offset`` for the launch (query row i at position q_offset + i over
+  keys 0..Tk-1, Tk >= q_offset + Tq): a sequence-parallel rank's block of
+  rows (``models.layers.attention_apply``); such a launch is counted as
+  ``flash_attention_qoffset`` (and its backward's as
+  ``flash_attention_bwd_{dq,dkv}_qoffset``), one at offset 0 as before.  The kernel reads q, k, v in
   the model layout (k and v through their strides) where the reference
   swapped axes around the kernel, and masks the ragged edge itself where
   the reference needed a tile that divides T.
@@ -72,19 +77,22 @@ BQ = 16               # query rows of one CTA (csrc kPrefillRows)
 
 #: Kernel launches since the last reset (a path's proof of route).
 launches = {"flash_attention_paged": 0, "flash_attention_offset": 0,
-            "flash_attention": 0, "flash_attention_paged_int8": 0}
+            "flash_attention": 0, "flash_attention_paged_int8": 0,
+            "flash_attention_qoffset": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _OFFSET_ARGTYPES = [_C] * 7 + [_I] * 6 + [_L] * 3 + [ctypes.c_float, _I, _C]
+_FRESH_ARGTYPES = [_C] * 5 + [_I] * 8 + [_L] * 6 + [ctypes.c_float, _I, _I,
+                                                    _C]
 _PAGED_ARGTYPES = [_C] * 8 + [_I] * 8 + [ctypes.c_float, _I, _C]
 _ARGTYPES = {
     "flash_attention_paged": _PAGED_ARGTYPES,
     "flash_attention_paged_wgmma": _PAGED_ARGTYPES,
     "flash_attention_offset": _OFFSET_ARGTYPES,
-    "flash_attention": [_C] * 5 + [_I] * 8 + [_L] * 6
-    + [ctypes.c_float, _I, _C],
+    "flash_attention": _FRESH_ARGTYPES,
+    "flash_attention_qoffset": _FRESH_ARGTYPES,
     "flash_attention_paged_int8": [_C] * 10 + [_I] * 8 + [_L] * 3
     + [ctypes.c_float, _I, _C],
     "flash_attention_offset_wgmma": _OFFSET_ARGTYPES,
@@ -93,6 +101,9 @@ _ARGTYPES = {
 # kernel whose launches it counts)
 _ENTRY = {"flash_attention": ("flash_attention_fwd", "flash_attention_fwd",
                               "flash_attention"),
+          "flash_attention_qoffset": ("flash_attention_fwd",
+                                      "flash_attention_fwd",
+                                      "flash_attention_qoffset"),
           "flash_attention_paged_int8": ("flash_attention_paged_int8",
                                          "flash_attention_paged",
                                          "flash_attention_paged_int8"),
@@ -105,12 +116,13 @@ _ENTRY = {"flash_attention": ("flash_attention_fwd", "flash_attention_fwd",
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
+                              q_offset: int = 0,
                               chunk_size: int = DEFAULT_CHUNK):
     """The fresh kernel's plain version: the chunked online attention of q
     [B, Tq, Hq, Dqk] over every position of k [B, Tk, Hkv, Dqk] and v
-    [B, Tk, Hkv, Dv], query row i at position i, at scale Dqk^-0.5.  Returns
-    (out [B, Tq, Hq, Dv], lse [B, Hq, Tq])."""
-    return online_attention_lse(q, k, v, causal=causal,
+    [B, Tk, Hkv, Dv], query row i at position ``q_offset`` + i, at scale
+    Dqk^-0.5.  Returns (out [B, Tq, Hq, Dv], lse [B, Hq, Tq])."""
+    return online_attention_lse(q, k, v, causal=causal, q_offset=q_offset,
                                 chunk_size=chunk_size)
 
 
@@ -266,11 +278,12 @@ def flash_attention_offset(q, k, v, q_offset, kv_valid_len, *,
     return out
 
 
-def prepare_fwd(q, k, v, *, causal: bool = True):
+def prepare_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Validate CUDA operands of the fresh kernel and allocate the outputs.
     k [B, Tk, Hkv, Dqk] and v [B, Tk, Hkv, Dv] are passed by their own
-    strides, never copied.  Returns (launch arguments, (out [B, Tq, Hq, Dv],
-    lse [B, Hq, Tq]))."""
+    strides, never copied; query row i sits at position ``q_offset`` + i
+    (one integer, Tk >= q_offset + Tq when causal).  Returns (launch
+    arguments, (out [B, Tq, Hq, Dv], lse [B, Hq, Tq]))."""
     if k.dim() != 4:
         raise ValueError(f"flash_attention kernel: k {tuple(k.shape)} is not "
                          "[B, Tk, Hkv, D]")
@@ -280,46 +293,52 @@ def prepare_fwd(q, k, v, *, causal: bool = True):
     if tq == 0 or tk == 0:
         raise ValueError(f"flash_attention kernel: empty sequence (Tq={tq}, "
                          f"Tk={tk})")
+    q_offset = _bwd.check_q_offset("flash_attention", q_offset, tq, tk,
+                                   causal)
     code = build.dtype_code(q)
     qc = q.contiguous()
     _bwd.check_wgmma_operands("flash_attention", (qc, k, v), strides)
     dv = v.shape[-1]
     out = torch.empty((b, tq, hq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    args = ("flash_attention", qc, k, v, out, lse, code, b, tq, tk, hq, hkv,
-            dh, dv, *strides, float(dh ** -0.5), int(bool(causal)))
+    name = "flash_attention_qoffset" if q_offset else "flash_attention"
+    args = (name, qc, k, v, out, lse, code, b, tq, tk, hq, hkv, dh, dv,
+            *strides, float(dh ** -0.5), int(bool(causal)), q_offset)
     return args, (out, lse)
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True):
+def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Launch the fresh forward kernel on CUDA tensors: q [B, Tq, Hq, Dqk]
     against every position of k [B, Tk, Hkv, Dqk] and v [B, Tk, Hkv, Dv],
-    query row i at position i.  Returns (out [B, Tq, Hq, Dv], lse
-    [B, Hq, Tq] float32)."""
-    args, out = prepare_fwd(q, k, v, causal=causal)
+    query row i at position ``q_offset`` + i.  Returns (out [B, Tq, Hq, Dv],
+    lse [B, Hq, Tq] float32)."""
+    args, out = prepare_fwd(q, k, v, causal=causal, q_offset=q_offset)
     launch(args)
     return out
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable fresh flash attention, the port of the reference's
-    ``ops._flash``: ``FlashAttention.apply(q, k, v, causal)`` → out
-    [B, Tq, Hq, Dv] (v's head dim: q's, or 64 against q's 96 in MLA's
-    training form).  The forward saves (q, k, v, out, lse) as ``_flash_fwd``
-    does; the backward rebuilds P from lse.  CUDA tensors run the kernels
-    (``flash_attention_fwd``, ``flash_attention_bwd``), CPU tensors their
-    plain versions."""
+    ``ops._flash``: ``FlashAttention.apply(q, k, v, causal, q_offset)`` →
+    out [B, Tq, Hq, Dv] (v's head dim: q's, or 64 against q's 96 in MLA's
+    training form), query row i at position ``q_offset`` + i (an integer,
+    0 by default).  The forward saves (q, k, v, out, lse) as
+    ``_flash_fwd`` does, and the offset; the backward rebuilds P from lse.
+    CUDA tensors run the kernels (``flash_attention_fwd``,
+    ``flash_attention_bwd``), CPU tensors their plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True):
+    def forward(ctx, q, k, v, causal=True, q_offset=0):
         if q.device.type == "cuda":
-            out, lse = flash_attention_fwd(q, k, v, causal=causal)
+            out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                           q_offset=q_offset)
         elif q.device.type == "cpu":
-            out, lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+            out, lse = flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                 q_offset=q_offset)
         else:
             raise NotImplementedError(f"FlashAttention: no kernel or plain "
                                       f"version for device {q.device}")
-        ctx.causal = causal
+        ctx.causal, ctx.q_offset = causal, q_offset
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -327,9 +346,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         if dout.device.type == "cuda":
-            dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                  causal=ctx.causal)
+            dq, dk, dv = _bwd.flash_attention_bwd(
+                q, k, v, out, lse, dout, causal=ctx.causal,
+                q_offset=ctx.q_offset)
         else:
             dq, dk, dv = _bwd.flash_attention_bwd_plain(
-                q, k, v, out, lse, dout, causal=ctx.causal)
-        return dq, dk, dv, None
+                q, k, v, out, lse, dout, causal=ctx.causal,
+                q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None

@@ -13,6 +13,11 @@ loops over the query heads of each KV head's group, so dk and dv come back
 already reduced to the KV heads; the reference emitted them per query head
 and its wrapper summed them (``ops.py:196-197``).
 
+Both kernels take the forward's causal ``q_offset`` (query row i at
+position q_offset + i over keys 0..Tk-1), one integer for the launch; a
+launch at an offset other than 0 counts as ``flash_attention_bwd_dq_qoffset``
+and ``flash_attention_bwd_dkv_qoffset``.
+
 Layouts keep the model's: q, dq [B, Tq, Hq, Dqk]; out, dout
 [B, Tq, Hq, Dv]; k, dk [B, Tk, Hkv, Dqk]; v, dv [B, Tk, Hkv, Dv]; lse
 [B, Hq, Tq] float32 (``flash_attention_fwd``'s).  Dv is Dqk's except in
@@ -34,17 +39,36 @@ from repro_torch.obs import kernels as obs_kernels
 HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
 
 #: Kernel launches since the last reset (the training path's proof of route).
-launches = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+launches = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq_qoffset": 0,
+            "flash_attention_bwd_dkv_qoffset": 0}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
     "flash_attention_bwd_dq": [_C] * 7 + [_I] * 8 + [_L] * 6
-    + [ctypes.c_float, _I, _C],
+    + [ctypes.c_float, _I, _I, _C],
     "flash_attention_bwd_dkv": [_C] * 8 + [_I] * 8 + [_L] * 6
-    + [ctypes.c_float, _I, _C],
+    + [ctypes.c_float, _I, _I, _C],
 }
+
+
+def check_q_offset(name, q_offset, tq, tk, causal) -> int:
+    """The fresh kernels' causal offset as an int: query row i at position
+    q_offset + i, so under the mask the keys must reach the last row's
+    position (Tk >= q_offset + Tq).  Raises otherwise, and on a tensor of
+    per-row offsets (the cached-prefill kernel's)."""
+    if torch.is_tensor(q_offset):
+        if q_offset.dim() != 0:
+            raise ValueError(f"{name} kernel: one q_offset for the launch, "
+                             f"got {tuple(q_offset.shape)}")
+        q_offset = int(q_offset)
+    q_offset = int(q_offset)
+    if q_offset < 0 or (causal and tk < q_offset + tq):
+        raise ValueError(f"{name} kernel: q_offset {q_offset} with Tq={tq}, "
+                         f"Tk={tk} (need 0 <= q_offset, Tk >= q_offset + Tq)")
+    return q_offset
 
 
 def kv_strides(name, k, v, b):
@@ -90,12 +114,12 @@ def _delta(out, dout):
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *,
-                              causal: bool = True):
+                              causal: bool = True, q_offset: int = 0):
     """The kernels' plain version, the reference kernels' formulas spelled
     out (``flash_attention_bwd.py:35-60`` and ``75-106``) over the whole
     score matrix: p = exp(s − lse), dp = dO·vᵀ, ds = p·(dp − delta)·scale,
     dq = ds·k, dk = dsᵀ·q, dv = pᵀ·dO, with dk and dv summed over each KV
-    head's query heads.  dO, dp's contraction and dv take v's head dim, dq
+    head's query heads; query row i at position ``q_offset`` + i.  dO, dp's contraction and dv take v's head dim, dq
     and dk q's.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
     b, tq, hq, dh = q.shape
     tk, hkv, dv_ = k.shape[1], k.shape[2], v.shape[-1]
@@ -110,7 +134,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *,
     p = torch.exp(s - lse_)
     if causal:
         keep = (torch.arange(tk, device=q.device)[None, :]
-                <= torch.arange(tq, device=q.device)[:, None])
+                <= q_offset + torch.arange(tq, device=q.device)[:, None])
         p = torch.where(keep, p, torch.zeros_like(p))
     delta = _delta(out, dout).reshape(b, hkv, g, tq, 1)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
@@ -121,10 +145,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def prepare(q, k, v, out, lse, dout, *, causal: bool = True):
+def prepare(q, k, v, out, lse, dout, *, causal: bool = True,
+            q_offset: int = 0):
     """Validate CUDA operands of the two kernels, compute delta and allocate
     dq, dk, dv.  k [B, Tk, Hkv, Dqk] and v [B, Tk, Hkv, Dv] are passed by
-    their own strides, never copied.  Returns (dq launch arguments, dk/dv
+    their own strides, never copied; query row i at position ``q_offset``
+    + i, the forward's.  Returns (dq launch arguments, dk/dv
     launch arguments, (dq, dk, dv)); :func:`launch` fills them."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, "
@@ -151,6 +177,7 @@ def prepare(q, k, v, out, lse, dout, *, causal: bool = True):
                          f"D={dh}, Dv={dvw}, Tq={tq}, Tk={tk} not supported "
                          f"((D, Dv) in {HEAD_DIMS})")
     strides = kv_strides("flash_attention_bwd", k, v, b)
+    q_offset = check_q_offset("flash_attention_bwd", q_offset, tq, tk, causal)
     code = build.dtype_code(q)
     qc, doc, lc = q.contiguous(), dout.contiguous(), lse.contiguous()
     check_wgmma_operands("flash_attention_bwd", (qc, k, v, doc), strides)
@@ -159,27 +186,33 @@ def prepare(q, k, v, out, lse, dout, *, causal: bool = True):
     dk = torch.empty((b, tk, hkv, dh), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, tk, hkv, dvw), dtype=v.dtype, device=v.device)
     tail = (code, b, tq, tk, hq, hkv, dh, dvw, *strides, float(dh ** -0.5),
-            int(bool(causal)))
-    dq_args = ("flash_attention_bwd_dq", qc, k, v, doc, lc, delta, dq) + tail
-    dkv_args = ("flash_attention_bwd_dkv", qc, k, v, doc, lc, delta, dk,
-                dv) + tail
+            int(bool(causal)), q_offset)
+    suffix = "_qoffset" if q_offset else ""
+    dq_args = ("flash_attention_bwd_dq" + suffix, qc, k, v, doc, lc, delta,
+               dq) + tail
+    dkv_args = ("flash_attention_bwd_dkv" + suffix, qc, k, v, doc, lc, delta,
+                dk, dv) + tail
     return dq_args, dkv_args, (dq, dk, dv)
 
 
 def launch(args) -> None:
-    """Launch a prepared kernel (counts one launch of it)."""
+    """Launch a prepared kernel (counts one launch of it, under its name:
+    the kernel's, ``_qoffset`` added at an offset)."""
     name = args[0]
-    build.call(name, _ARGTYPES[name], args[1:], source="flash_attention_bwd")
+    entry = name.removesuffix("_qoffset")
+    build.call(entry, _ARGTYPES[entry], args[1:],
+               source="flash_attention_bwd")
     launches[name] += 1
     obs_kernels.record_path(name, "cuda")
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True):
-    """Launch the dq and the dk/dv kernels on CUDA tensors.  Returns (dq
-    [B, Tq, Hq, Dqk], dk [B, Tk, Hkv, Dqk], dv [B, Tk, Hkv, Dv]) in the
-    dtypes of q, k and v."""
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        q_offset: int = 0):
+    """Launch the dq and the dk/dv kernels on CUDA tensors, query row i
+    at position ``q_offset`` + i.  Returns (dq [B, Tq, Hq, Dqk], dk
+    [B, Tk, Hkv, Dqk], dv [B, Tk, Hkv, Dv]) in the dtypes of q, k and v."""
     dq_args, dkv_args, grads = prepare(q, k, v, out, lse, dout,
-                                       causal=causal)
+                                       causal=causal, q_offset=q_offset)
     launch(dq_args)
     launch(dkv_args)
     return grads

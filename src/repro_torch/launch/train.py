@@ -12,20 +12,29 @@ Port of ``src/repro/launch/train.py`` (``main`` at line 23, the mesh at
 51-74), with the reference's flags; ``--layers`` (cut the depth, keep the
 width) is the port's own.
 
-``--mesh DxM`` trains data-parallel over D ranks: one process a rank,
-under ``torchrun --nproc-per-node D`` on a machine with D cards (or one
-process for ``--mesh 1x1``).  Without a process group the launcher
+``--mesh DxM`` trains over a (data D, model M) mesh of D·M ranks: one
+process a rank, under ``torchrun --nproc-per-node D·M`` on a machine with
+that many cards (or one process for ``--mesh 1x1``; on the CPU, inside a
+gloo world of D·M processes).  The model axis runs a dense decoder
+tensor-parallel (``distributed/tensor_parallel.py``): heads mode where the
+query heads split over M, else sequence mode, with the placements of
+``sharding.axis_rules``; data-parallel gradient sums run over the data
+axis as before.  Without a process group the launcher
 initialises one, from torchrun's environment (``RANK``, ``WORLD_SIZE``;
 ``cuda:LOCAL_RANK``) or, where that is absent, a world of 1 through a
 ``FileStore`` in a temporary directory; a group already present (a test's
 spawned workers) is used as it is.  The backend is NCCL on the card and
 gloo with ``--device cpu`` only; a group of the other backend raises.  The
 launcher builds the (data, model) ``DeviceMesh`` (``launch.mesh``),
-broadcasts rank 0's parameters, feeds each rank its rows through
-``HostShardedLoader`` and runs the loop under the ``ShardContext``, where
-the train step all-reduces the gradients over the data axis.  Rank 0
-alone writes checkpoints; every rank reads them.  M > 1 raises: the model
-axis is the next distributed slice.
+draws the full parameters from the seed on every rank and keeps the
+rank's model-axis shards, broadcasts data rank 0's over the data axis,
+feeds each rank its rows through ``HostShardedLoader`` (by its data index)
+and runs the loop under the ``ShardContext``, where the train step
+all-reduces the gradients over the data axis.  At a checkpoint every rank
+gathers the full state and rank 0 (data 0, model 0) alone writes it;
+every rank reads it and keeps its shards.  M > 1 with another family than
+dense raises ``NotImplementedError`` before anything is initialised
+(``tensor_parallel.MISSING``).
 
 An MLA model (``--arch minicpm3_4b``) trains like the others: its
 decompressed attention (Dqk 96, Dv 64) runs the fresh forward's and the
@@ -85,9 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="save every N steps and after the last (0 = never "
                          "save)")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 4x1 → mesh (data=4, model=1): data-parallel "
-                         "over 4 ranks (torchrun); default: one process, "
-                         "no mesh")
+                    help="e.g. 2x2 → mesh (data=2, model=2): data-parallel "
+                         "over 2 ranks, a dense decoder tensor-parallel "
+                         "over 2 (torchrun); default: one process, no mesh")
     return ap
 
 
@@ -104,9 +113,14 @@ def mesh_dims(spec: str) -> tuple:
 def parse_args(argv=None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
     if args.mesh and mesh_dims(args.mesh)[1] > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the model axis is the next distributed "
-            "slice; the port trains data-parallel, --mesh Dx1")
+        from repro_torch.distributed.tensor_parallel import MISSING
+        cfg = (configs.get_smoke(args.arch) if args.smoke
+               else configs.get(args.arch))
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"--mesh {args.mesh}: the model axis runs dense decoders "
+                f"only; {cfg.name} ({cfg.family}) lacks "
+                f"{MISSING.get(cfg.family, 'its placements')}")
     return args
 
 
@@ -193,12 +207,13 @@ def process_group(device: str) -> ProcessGroup:
 
 
 def _train_mesh(args, run_cfg, ds, *, log=print):
-    """``train`` over a (data, model) mesh: data-parallel steps under the
-    ``ShardContext``, rank 0's parameters broadcast first."""
+    """``train`` over a (data, model) mesh: steps under the
+    ``ShardContext`` on each rank's model-axis shards, data rank 0's
+    parameters broadcast over the data axis first."""
     import torch.distributed as dist
     from repro_torch import tree
     from repro_torch.data.synthetic import HostShardedLoader
-    from repro_torch.distributed import context, sharding
+    from repro_torch.distributed import context, sharding, tensor_parallel
     from repro_torch.launch import mesh as mesh_mod
     n_data, n_model = mesh_dims(args.mesh)
     pg = process_group(args.device)
@@ -208,19 +223,22 @@ def _train_mesh(args, run_cfg, ds, *, log=print):
             else "cuda")
         par = sharding.derive_parallel(run_cfg.model, mesh, run_cfg.parallel)
         ctx = context.ShardContext(mesh=mesh, par=par)
-        params, opt_state = init_state(run_cfg, device=pg.device)
-        for leaf in tree.leaves(params):
-            dist.broadcast(leaf.data, src=0)
         loader = HostShardedLoader(
             ds, host_id=context.axis_index(mesh, par.data_axes),
             num_hosts=context.axis_size(mesh, par.data_axes))
         rank = dist.get_rank()
         with context.use(ctx):
+            params, opt_state = init_state(run_cfg, device=pg.device)
+            data = context.group(mesh, par.data_axes)
+            src = dist.get_global_rank(data, 0)
+            for leaf in tree.leaves(params):
+                dist.broadcast(leaf.data, src=src, group=data)
             params, opt_state, history = loop.run(
                 run_cfg, steps=args.steps,
                 train_step=make_train_step(run_cfg), params=params,
                 opt_state=opt_state, dataset=loader, writer=rank == 0,
-                log=log if rank == 0 else (lambda _: None))
+                log=log if rank == 0 else (lambda _: None),
+                sharding=tensor_parallel.state_sharding(run_cfg.model))
     finally:
         if pg.created:
             dist.destroy_process_group()

@@ -10,6 +10,17 @@ contiguous branches of ``attention_apply``, fp and int8 (277-353), and its
 ``causal`` keyword (242), ``mla_apply`` (388),
 ``mlp_apply`` (459), ``moe_apply`` (486), ``embed_tokens`` (555) and
 ``head_matrix`` (559).  Parameters are plain dicts of tensors.
+
+The training forms (``cache=None``) of ``attention_apply``, ``mlp_apply``
+and ``embed_tokens`` take ``tp``, the ambient model axis
+(``distributed.tensor_parallel.model_axis``), and then run on this rank's
+shards of the weights: the MLP column- then row-parallel, the embedding
+vocabulary-parallel, attention in heads mode (the rank's heads) or in
+sequence mode (the rank's block of query rows over the keys up to its
+end, the reference's ``_constrain_seq_parallel`` at 212-226; K/V expanded
+to the query heads as ``_maybe_expand_kv`` at 229-240 where the kv heads
+do not split).  Activations between sublayers are replicated over the
+model group.
 """
 from __future__ import annotations
 
@@ -21,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import context as _context
+from repro_torch.distributed import tensor_parallel as _tp
 from repro_torch.kernels import dispatch
 
 Tensor = torch.Tensor
@@ -138,13 +150,15 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
                     positions: Tensor, causal: bool = True,
                     cache: Optional[dict] = None,
                     cache_len: Optional[Union[int, Tensor]] = None,
-                    block_tables: Optional[Tensor] = None):
+                    block_tables: Optional[Tensor] = None,
+                    tp: Optional[_tp.ModelAxis] = None):
     """x [B, T, D] → (out [B, T, D], cache).
 
     * ``cache=None``: self-attention over this call's K/V, causal unless
       ``causal=False`` (whisper's encoder), the training form
       (differentiable; see ``dispatch.sdpa``).  RoPE applies either way,
-      as in the reference.
+      as in the reference.  With ``tp`` the weights are this rank's shards
+      and the attention runs tensor-parallel (``_attention_model_axis``).
     * paged serving: ``cache`` holds this layer's block pools
       ``{"k", "v": [P, Hkv, BS, D]}`` shared by every sequence; this step's
       K/V are written through ``block_tables`` at ``cache_len`` (in place)
@@ -166,6 +180,9 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     over this call's exact K/V through the cached-prefill kernel, and a
     decode step over the int8 cache through the dequantizing decode kernel.
     """
+    if tp is not None and cache is None:
+        return _attention_model_axis(p, x, cfg, tp, positions=positions,
+                                     causal=causal), None
     b, t, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, t, hq, hd)
@@ -210,6 +227,69 @@ def attention_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
                             kv_valid_len=None)
     out = out.reshape(b, t, hq * hd) @ p["wo"]
     return out, cache
+
+
+def _attention_model_axis(p: dict, x: Tensor, cfg: ModelConfig,
+                          tp: _tp.ModelAxis, *, positions: Tensor,
+                          causal: bool) -> Tensor:
+    """The training form on the model axis; x [B, T, D] replicated over
+    the group, out [B, T, D] replicated.
+
+    heads mode (Hq divisible by M): the rank's Hq/M query heads from its
+    columns of wq; its Hkv/M kv heads where ``kv_out`` shards, else the
+    whole K/V (wk, wv replicated, through ``copy_to_model``) repeated to
+    the query heads and sliced to the rank's; rows 6/7 at the local heads;
+    the rank's rows of wo; the partial outputs summed
+    (``reduce_from_model``).
+
+    sequence mode: each of wq/wk/wv/wo gathered whole where its placement
+    shards it (``gather_weight``) or passed through ``copy_to_model``; q
+    for the rank's rows [r·T/M, (r+1)·T/M) at their RoPE positions, K/V
+    for keys [0, (r+1)·T/M) (all T when not causal); rows 6/7 at causal
+    offset r·T/M; the rows through wo, then gathered (``gather_rows``).
+    T % M != 0 raises."""
+    b, t, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    x = _tp.copy_to_model(x, tp)
+    if tp.mode == "heads":
+        hl = hq // tp.size
+        q = (x @ p["wq"]).reshape(b, t, hl, hd)
+        if tp.shards("kv_out"):
+            hkl = hkv // tp.size
+            k = (x @ p["wk"]).reshape(b, t, hkl, hd)
+            v = (x @ p["wv"]).reshape(b, t, hkl, hd)
+        else:
+            g, heads = hq // hkv, slice(tp.index * hl, (tp.index + 1) * hl)
+            k = (x @ _tp.copy_to_model(p["wk"], tp)).reshape(b, t, hkv, hd)
+            v = (x @ _tp.copy_to_model(p["wv"], tp)).reshape(b, t, hkv, hd)
+            k = k.repeat_interleave(g, dim=2)[:, :, heads]
+            v = v.repeat_interleave(g, dim=2)[:, :, heads]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        out = dispatch.sdpa(cfg, q, k, v, causal=causal, q_offset=0,
+                            kv_valid_len=None)
+        out = out.reshape(b, t, hl * hd) @ p["wo"]
+        return _tp.reduce_from_model(out, tp)
+    if t % tp.size:
+        raise ValueError(f"sequence-parallel attention: T={t} does not "
+                         f"split over the model axis's {tp.size} ranks")
+    w = {}
+    for name, logical, dim in (("wq", "qkv_out", 1), ("wk", "kv_out", 1),
+                               ("wv", "kv_out", 1), ("wo", "qkv_out", 0)):
+        w[name] = (_tp.gather_weight(p[name], dim, tp) if tp.shards(logical)
+                   else _tp.copy_to_model(p[name], tp))
+    rows = t // tp.size
+    lo, hi = tp.index * rows, (tp.index + 1) * rows
+    keys = hi if causal else t
+    q = (x[:, lo:hi] @ w["wq"]).reshape(b, rows, hq, hd)
+    k = (x[:, :keys] @ w["wk"]).reshape(b, keys, hkv, hd)
+    v = (x[:, :keys] @ w["wv"]).reshape(b, keys, hkv, hd)
+    q = rope(q, positions[..., lo:hi], cfg.rope_theta)
+    k = rope(k, positions[..., :keys], cfg.rope_theta)
+    out = dispatch.sdpa(cfg, q, k, v, causal=causal, q_offset=lo,
+                        kv_valid_len=None)
+    out = out.reshape(b, rows, hq * hd) @ w["wo"]
+    return _tp.gather_rows(out, 1, tp)
 
 
 def mla_apply(p: dict, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
@@ -274,13 +354,21 @@ def mla_apply(p: dict, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     return out.reshape(b, t, h * m.v_head_dim) @ p["wo"], cache
 
 
-def mlp_apply(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+def mlp_apply(p: dict, x: Tensor, cfg: ModelConfig,
+              tp: Optional[_tp.ModelAxis] = None) -> Tensor:
+    """The MLP; with ``tp`` where ``ffn`` shards, column-parallel w_up /
+    w_gate and row-parallel w_down between ``copy_to_model`` and
+    ``reduce_from_model``."""
+    tp = tp if tp is not None and tp.shards("ffn") else None
+    if tp is not None:
+        x = _tp.copy_to_model(x, tp)
     up = x @ p["w_up"]
     if cfg.act == "silu":
         h = F.silu(x @ p["w_gate"]) * up
     else:
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    return y if tp is None else _tp.reduce_from_model(y, tp)
 
 
 class MoERoute(NamedTuple):
@@ -383,8 +471,20 @@ def moe_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     return y, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
 
 
-def embed_tokens(p: dict, tokens: Tensor) -> Tensor:
-    return p["embed"][tokens]
+def embed_tokens(p: dict, tokens: Tensor,
+                 tp: Optional[_tp.ModelAxis] = None) -> Tensor:
+    """The token embeddings; with ``tp`` where ``vocab`` shards,
+    vocabulary-parallel: the rank holds rows [r·V/M, (r+1)·V/M), looks a
+    token outside them up at 0 and zeroes it, and the ranks' rows are
+    summed (``reduce_from_model``)."""
+    if tp is None or not tp.shards("vocab"):
+        return p["embed"][tokens]
+    n = p["embed"].shape[0]
+    local = tokens - tp.index * n
+    inside = (local >= 0) & (local < n)
+    x = p["embed"][torch.where(inside, local, torch.zeros_like(local))]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return _tp.reduce_from_model(x, tp)
 
 
 def head_matrix(p: dict, cfg: ModelConfig) -> Tensor:

@@ -60,6 +60,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch import core
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp_mod
 from repro_torch.models import layers as L
 from repro_torch.models import ssm, xlstm
 
@@ -285,8 +286,14 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     ``serving.engine.init_paged_cache``) and every attention layer writes and
     reads through the table, in place.  ``cache_len`` is an int (one
     sequence) or a [B] tensor (per-slot offsets).  Layer i sees leaf ``[i]``
-    of every cache leaf, so an int8 cache's scales travel with its K/V."""
-    x = L.embed_tokens(params, tokens)
+    of every cache leaf, so an int8 cache's scales travel with its K/V.
+
+    Without caches, under a context whose mesh has the model axis, a dense
+    model's ``params`` are this rank's shards and the layers run
+    tensor-parallel (``tensor_parallel.model_axis``); the hidden state
+    comes back whole on every rank."""
+    tp = tp_mod.model_axis(cfg) if caches is None else None
+    x = L.embed_tokens(params, tokens, tp)
     if cfg.num_patches and patch_embeds is not None:
         pe = patch_embeds.to(x.dtype) @ params["mm_proj"]
         x = torch.cat([pe, x], dim=1)
@@ -308,7 +315,8 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
         layer = functools.partial(_block_apply, kind=kind, cfg=cfg,
                                   positions=positions, cache=cache,
                                   cache_len=cache_len,
-                                  block_tables=block_tables, aux=return_aux)
+                                  block_tables=block_tables, aux=return_aux,
+                                  tp=tp)
         x, aux = remat(layer, lp, x)
         for name, val in aux.items():
             aux_total[name] = aux_total.get(name, 0.0) + val
@@ -321,15 +329,17 @@ _ALL_STATE_LEAVES = frozenset(n for leaves in STATE_LEAVES.values()
 
 
 def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
-                 positions, cache, cache_len, block_tables, aux: bool):
+                 positions, cache, cache_len, block_tables, aux: bool,
+                 tp=None):
     """One block: [norm → GQA attention] + [norm → SwiGLU MLP] (dense, and
     zamba2's shared block), [norm → mixture of experts] (moe), or [norm →
     latent attention] + [norm → SwiGLU MLP] (mla, which takes no block
     tables: its latent cache is contiguous only, as the reference's); x +
     [norm → Mamba2] (mamba); the xLSTM blocks, which hold their own norms
     and residuals (mlstm, slstm).  The recurrent kinds take no block tables
-    either, and ignore ``positions`` and ``cache_len``.  Returns (x, the
-    MoE aux losses when ``aux``, else {})."""
+    either, and ignore ``positions`` and ``cache_len``.  ``tp``: the model
+    axis a dense block runs on (``tensor_parallel.model_axis``).  Returns
+    (x, the MoE aux losses when ``aux``, else {})."""
     if kind in STATE_LEAVES:
         if block_tables is not None:
             raise ValueError("paged KV cache serves standard attention "
@@ -352,13 +362,13 @@ def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
     else:
         a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions,
                                  cache=cache, cache_len=cache_len,
-                                 block_tables=block_tables)
+                                 block_tables=block_tables, tp=tp)
     x = x + a
     h = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
         m, losses = L.moe_apply(lp["moe"], h, cfg, aux=aux)
         return x + m, losses
-    return x + L.mlp_apply(lp["mlp"], h, cfg), {}
+    return x + L.mlp_apply(lp["mlp"], h, cfg, tp), {}
 
 
 #: What remat "block" keeps of a layer's forward: the outputs of products
@@ -393,7 +403,14 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     through both the token gather and the head product.  A VLM batch may
     carry ``patch_embeds`` [B, P, D]: they are prepended (``forward``) and
     the P patch positions dropped before the CE, so the labels cover the
-    text alone."""
+    text alone.
+
+    On the model axis (``tensor_parallel.model_axis``) the head is this
+    rank's [D, V/M] columns, tied or untied, and the CE is
+    ``core.vocab_parallel_cross_entropy`` (chunked over V/M in
+    gcd(``vocab_chunks``, V/M) chunks; the loss does not depend on it): the
+    loss and metrics come out the same on every model rank.
+    ``use_chunked_ce=False`` raises there."""
     hidden, _, aux = forward(params, batch["tokens"], cfg,
                              patch_embeds=batch.get("patch_embeds"),
                              return_aux=True)
@@ -405,7 +422,17 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     h2 = hidden.reshape(-1, d)
     valid = labels >= 0
     safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
-    if cfg.use_chunked_ce:
+    tp = tp_mod.model_axis(cfg)
+    if tp is not None and not cfg.use_chunked_ce:
+        raise NotImplementedError("the model axis takes the chunked CE only "
+                                  "(use_chunked_ce=False materializes the "
+                                  "whole vocabulary's logits)")
+    if tp is not None and tp.shards("vocab"):
+        n = w.shape[1]
+        tok_loss = core.vocab_parallel_cross_entropy(
+            h2, w, safe_labels, vocab_start=tp.index * n, group=tp.group,
+            num_chunks=math.gcd(cfg.vocab_chunks, n))
+    elif cfg.use_chunked_ce:
         tok_loss = core.chunked_cross_entropy(h2, w, safe_labels,
                                               num_chunks=cfg.vocab_chunks)
     else:

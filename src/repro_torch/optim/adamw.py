@@ -15,6 +15,12 @@ the port of ``src/repro/optim/adamw.py`` with its numerics (lines 20-85).
 Where the reference returned new trees, ``update`` writes the parameters and
 the moments in place (they are the largest tensors of a run) and returns
 them with a new state.
+
+On the model axis each rank holds its shards of the parameters, gradients
+and moments.  AdamW is elementwise, so it runs on the shards unchanged; the
+global norm sums the squares of the model-sharded leaves over the model
+group and counts the replicated leaves once (``sharded``, a tree of flags
+from the placements, and ``group``), so every rank clips alike.
 """
 from __future__ import annotations
 
@@ -60,12 +66,27 @@ def schedule(step: torch.Tensor, cfg: OptimizerConfig) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(leaves: list) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(x.float().square()) for x in leaves))
+def global_norm(leaves: list, sharded=None, group=None) -> torch.Tensor:
+    """The l2 norm of ``leaves``; with ``group``, the leaves whose flag in
+    ``sharded`` (a list beside them) is set are shards whose squares are
+    summed over the group, the others are counted once."""
+    if group is None:
+        return torch.sqrt(sum(torch.sum(x.float().square()) for x in leaves))
+    from repro_torch.distributed.tensor_parallel import all_reduce
+    parts = [sum(torch.sum(x.float().square())
+                 for x, s in zip(leaves, sharded) if s == flag)
+             for flag in (True, False)]
+    shards, replicated = (torch.as_tensor(p, dtype=torch.float32,
+                                          device=leaves[0].device)
+                          for p in parts)
+    return torch.sqrt(all_reduce(shards.reshape(1), group)[0] + replicated)
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float):
-    gnorm = global_norm(tree.leaves(grads))
+def clip_by_global_norm(grads: PyTree, max_norm: float, sharded=None,
+                        group=None):
+    """Scale ``grads`` to a global norm of at most ``max_norm``;
+    ``sharded`` and ``group`` as in ``global_norm``."""
+    gnorm = global_norm(tree.leaves(grads), sharded, group)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     return tree.map(lambda g: g * scale, grads), gnorm
 
@@ -84,14 +105,17 @@ def decays(path: str, p: torch.Tensor) -> bool:
 
 
 def update(grads: PyTree, state: AdamWState, params: PyTree,
-           cfg: OptimizerConfig):
+           cfg: OptimizerConfig, *, sharded=None, group=None):
     """One AdamW step, in place on ``params`` and the moments.  Returns
-    (params, new state, {"grad_norm", "lr"})."""
+    (params, new state, {"grad_norm", "lr"}).  ``sharded`` / ``group``:
+    the model axis's leaf flags (a tree like ``grads``) and process group,
+    for the global norm."""
     grads = tree.map(lambda g: g.float(), grads)
+    flags = None if sharded is None else tree.leaves(sharded)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, flags, group)
     else:
-        gnorm = global_norm(tree.leaves(grads))
+        gnorm = global_norm(tree.leaves(grads), flags, group)
     step = state.step + 1
     lr = schedule(step, cfg)
     b1, b2 = cfg.beta1, cfg.beta2

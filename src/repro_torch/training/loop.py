@@ -7,6 +7,12 @@ restores the newest COMMITTED checkpoint, and the counter-based data
 pipeline regenerates exactly the next batch, so a run killed at any step and
 restarted ends with the parameters of an uninterrupted one.
 ``inject_failure`` lets tests crash the loop at a chosen step.
+
+On the model axis (``sharding``, a ``tensor_parallel.StateSharding``) the
+state in memory is this rank's shards: at a checkpoint step every rank
+gathers the full state (a collective) and the writer alone saves it, so a
+checkpoint is the same file whatever the mesh; a restore reads the full
+state and keeps this rank's shards.
 """
 from __future__ import annotations
 
@@ -46,15 +52,17 @@ class StragglerWatchdog:
 def run(run_cfg: RunConfig, *, steps: int, train_step: Callable,
         params, opt_state, dataset: SyntheticDataset,
         inject_failure: Optional[Callable[[int], None]] = None,
-        log: Callable[[str], None] = print, writer: bool = True):
+        log: Callable[[str], None] = print, writer: bool = True,
+        sharding=None):
     """Run ``steps`` optimizer steps with checkpoint/restart semantics.
 
     Returns (params, opt_state, history).  Restores from the newest committed
     checkpoint in ``run_cfg.checkpoint_dir`` if one exists (restart path).
     Saves every ``checkpoint_every`` steps and after the last, or never
     when ``checkpoint_every`` is 0.  Batches go to the parameters'
-    device.  ``writer`` False (every data-parallel rank but rank 0) reads
-    the checkpoints and writes neither them nor the heartbeat."""
+    device.  ``writer`` False (every rank but rank 0) reads the checkpoints
+    and writes neither them nor the heartbeat.  ``sharding``: the state's
+    model-axis sharding, or None for a whole state."""
     ckpt = CheckpointManager(run_cfg.checkpoint_dir,
                              keep=run_cfg.keep_checkpoints)
     device = tree.leaves(params)[0].device
@@ -65,7 +73,15 @@ def run(run_cfg: RunConfig, *, steps: int, train_step: Callable,
     latest = ckpt.latest_step()
     if latest is not None:
         log(f"[restore] resuming from committed step {latest}")
-        state = ckpt.restore(latest, {"params": params, "opt": opt_state})
+        state = {"params": params, "opt": opt_state}
+        if sharding is not None:
+            state = sharding.gather(state)      # the full tree's shapes
+        state = ckpt.restore(latest, state)
+        if sharding is not None:
+            state = sharding.shard(state)
+            state["params"] = tree.map(
+                lambda new, old: new.requires_grad_(old.requires_grad),
+                state["params"], params)
         params, opt_state = state["params"], state["opt"]
         start = latest
 
@@ -92,8 +108,12 @@ def run(run_cfg: RunConfig, *, steps: int, train_step: Callable,
             log(f"[step {step}] loss={metrics.get('loss', float('nan')):.4f} "
                 f"dt={dt * 1e3:.1f}ms")
         step += 1
-        if writer and run_cfg.checkpoint_every > 0 and (
+        if run_cfg.checkpoint_every > 0 and (
                 step % run_cfg.checkpoint_every == 0 or step == steps):
-            ckpt.save(step, {"params": params, "opt": opt_state})
+            state = {"params": params, "opt": opt_state}
+            if sharding is not None:
+                state = sharding.gather(state)
+            if writer:
+                ckpt.save(step, state)
     ckpt.wait()
     return params, opt_state, history

@@ -27,6 +27,14 @@ gave them, once after the microbatch loop.  The reported loss is the
 global one (the scaled losses summed).  Clipping and AdamW run on the
 reduced gradients, so the ranks stay identical.  An aux loss (MoE) enters
 as the count-weighted mean of the ranks' aux terms.
+
+Under a context whose mesh has a model axis, a dense decoder's state is
+this rank's model-axis shards (``init_state`` draws the full tree from the
+run's seed and keeps ``tensor_parallel.shard_tree`` of it), the loss runs
+tensor-parallel (``transformer.loss_fn``), and the step runs as above on
+the shards: ``_label_share`` and the gradient sum stay over the data axes,
+and the global norm of AdamW's clipping sums the sharded leaves' squares
+over the model group (``adamw.update(sharded=, group=)``).
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import RunConfig
 from repro_torch.distributed import compression, context
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw
 
@@ -106,10 +115,20 @@ def make_train_step(run: RunConfig) -> Callable:
         if group is not None:
             grads, loss, metrics = _all_reduce(grads, loss, metrics, group)
         params, opt_state, om = adamw.update(grads, opt_state, params,
-                                             run.optimizer)
+                                             run.optimizer, **_norm_axis(cfg))
         return params, opt_state, {**metrics, **om, "loss_out": loss}
 
     return train_step
+
+
+def _norm_axis(cfg) -> dict:
+    """``adamw.update``'s ``sharded`` / ``group`` on the ambient model axis
+    (the leaves' flags from the placements), {} without one."""
+    shard = tensor_parallel.state_sharding(cfg)
+    if shard is None:
+        return {}
+    return {"sharded": tensor_parallel.sharded_flags(shard.place, shard.axis),
+            "group": context.group(shard.mesh, shard.axis)}
 
 
 def _data_group():
@@ -151,8 +170,14 @@ def init_state(run: RunConfig, *,
     leaves require grad, and a fresh AdamW state.  The weights are drawn
     where they train (``init(draw_device=device)``): a CPU draw of a
     full-width model takes over a minute (``tools/init_times.py``), so a
-    card run draws other numbers from the same seed than a CPU run."""
+    card run draws other numbers from the same seed than a CPU run.  On
+    the ambient model axis every rank draws the full tree and keeps its
+    shards (``tensor_parallel.shard_tree``)."""
     params = init_for(run.model)(run.model, seed=run.seed, device=device,
                                  draw_device=device)
+    shard = tensor_parallel.state_sharding(run.model)
+    if shard is not None:
+        params = tensor_parallel.shard_tree(params, shard.place, shard.mesh,
+                                            shard.axis)
     params = tree.map(lambda p: p.requires_grad_(True), params)
     return params, adamw.init(params)

@@ -5,6 +5,7 @@ Every test builds its inputs with numpy from a seed and hands the same
 arrays to both packages.  Tolerances are float32-level: the two packages run
 the same algorithms, with sums taken in another order.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import importlib
 

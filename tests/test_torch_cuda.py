@@ -7,10 +7,12 @@ Each kernel against its plain version at small shapes (fp32 tightly, bf16
 within bf16 rounding), the int8 forms with poisoned dead scales and scales
 read through non-contiguous views, a small model served on the card
 through the kernels against the same model served on the CPU through the
-plain versions, the kernel profile and trace of a served run, and one
-full-width train step through the training kernels.  No JAX is needed.
+plain versions, the kernel profile and trace of a served run, one
+full-width train step through the training kernels, and rows 6 / 7 at a
+causal q offset (the model axis's sequence mode).  No JAX is needed.
 ``chip_smoke.py`` does the same at full width.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,10 @@ NO_ROUTER = {"softmax_topk_router": 0}
 NO_MLA = {"flash_decode_mla": 0, "flash_attention_mla": 0}
 # the lse forms of the contiguous decode, zero outside a sharded decode
 NO_LSE = {"flash_decode_lse": 0, "flash_decode_int8_lse": 0}
+# rows 6 and 7 at a causal q offset, zero outside sequence-parallel training
+NO_QOFFSET = dict.fromkeys(("flash_attention_qoffset",
+                            "flash_attention_bwd_dq_qoffset",
+                            "flash_attention_bwd_dkv_qoffset"), 0)
 
 
 @pytest.fixture
@@ -104,7 +110,7 @@ def test_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
                                         **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-                                        **NO_MLA, **NO_LSE}
+                                        **NO_MLA, **NO_LSE, **NO_QOFFSET}
 
 
 def _contiguous(seed, *, b, s, tq, vlens, hkv=5, g=3, d=64):
@@ -173,7 +179,7 @@ def test_contiguous_kernels_match_plain(cuda, dtype, atol):
                                         "flash_attention_bwd_dq": 0,
                                         "flash_attention_bwd_dkv": 0,
                                         **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-                                        **NO_MLA, **NO_LSE}
+                                        **NO_MLA, **NO_LSE, **NO_QOFFSET}
 
 
 def test_served_streams_equal_on_card_and_cpu(cuda):
@@ -210,7 +216,7 @@ def test_served_streams_equal_on_card_and_cpu(cuda):
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-        **NO_MLA, **NO_LSE}
+        **NO_MLA, **NO_LSE, **NO_QOFFSET}
     assert set(cpu_counts.values()) == {0}
     assert all(0 <= t < cfg.vocab_size for r in rep_g.results
                for t in r.tokens)
@@ -315,7 +321,7 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
         "flash_attention": 0,
         "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0, **NO_INT8, **NO_LIBRARY, **NO_ROUTER,
-        **NO_MLA, **NO_LSE}
+        **NO_MLA, **NO_LSE, **NO_QOFFSET}
     assert lock_counts == {"softmax_topk": 6, "flash_decode_paged": 0,
                            "flash_decode": 5 * n, "flash_attention_paged": 0,
                            "flash_attention_offset": n,
@@ -323,7 +329,7 @@ def test_unpaged_streams_equal_on_card_and_cpu(cuda):
                            "flash_attention_bwd_dq": 0,
                            "flash_attention_bwd_dkv": 0, **NO_INT8,
                            **NO_LIBRARY, **NO_ROUTER,
-                           **NO_MLA, **NO_LSE}
+                           **NO_MLA, **NO_LSE, **NO_QOFFSET}
 
 
 def _fresh(seed, *, b, t, hkv=5, g=3, d=64, spare=7, dv=None):
@@ -2033,3 +2039,40 @@ def test_sharded_lockstep_world1_on_card(cuda, tmp_path):
     np.testing.assert_array_equal(got, want)
     assert counts["flash_decode_lse"] == 5 * cfg.num_layers
     assert counts["flash_decode"] == 0 and counts["softmax_topk"] == 6
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("q_offset", [16, 48, 384])
+def test_offset_kernels_match_plain(cuda, dtype, atol, q_offset):
+    """Rows 6 and 7 at a causal offset (Tq 128 over Tk = offset + 128,
+    15/5 heads of 64) against their plain versions in float64, each
+    tensor within ``atol`` of its largest entry; the launches count under
+    the offset names."""
+    gen = torch.Generator().manual_seed(q_offset)
+    tq, tk = 128, q_offset + 128
+    q = torch.randn(2, tq, 15, 64, generator=gen)
+    k = torch.randn(2, tk, 5, 64, generator=gen)
+    v = torch.randn(2, tk, 5, 64, generator=gen)
+    dout = torch.randn(2, tq, 15, 64, generator=gen)
+    dev = [x.to(cuda, dtype) for x in (q, k, v, dout)]
+    before = (fa.launches["flash_attention_qoffset"],
+              fab.launches["flash_attention_bwd_dkv_qoffset"])
+    out, lse = fa.flash_attention_fwd(*dev[:3], causal=True,
+                                      q_offset=q_offset)
+    grads = fab.flash_attention_bwd(*dev[:3], out, lse, dev[3], causal=True,
+                                    q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert (fa.launches["flash_attention_qoffset"],
+            fab.launches["flash_attention_bwd_dkv_qoffset"]) == \
+        (before[0] + 1, before[1] + 1)
+    f = [x.to(cuda, dtype).double() for x in (q, k, v, dout)]
+    w_out, w_lse = fa.flash_attention_fwd_plain(*f[:3], causal=True,
+                                                q_offset=q_offset)
+    want = fab.flash_attention_bwd_plain(*f[:3], w_out, w_lse, f[3],
+                                         causal=True, q_offset=q_offset)
+    for got, w in zip((out, *grads), (w_out, *want)):
+        err = (got.double() - w).abs().max() / w.abs().max()
+        assert err <= atol, err
+    torch.testing.assert_close(lse.double(), w_lse, rtol=1e-5, atol=1e-5)

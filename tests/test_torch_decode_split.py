@@ -8,6 +8,7 @@ The kernels themselves run only on the card: ``tests/test_torch_cuda.py``
 (marked ``cuda``) and ``python3 chip_smoke.py`` hold them against the plain
 versions there, at these edges too.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import itertools
 
 import numpy as np

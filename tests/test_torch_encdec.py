@@ -25,6 +25,7 @@ max|reference| (``_close``; through 2 + 2 layers, 1e-4), the loss to rtol
 atol 1e-5 of each leaf's largest entry.  The reference's own
 prefill-against-forward check allows 5e-3; the port's is held at 1e-4.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import functools
 

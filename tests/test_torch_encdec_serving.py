@@ -23,6 +23,7 @@ pool against the JAX package, on the CPU, at the smoke config.
 Token streams compare exactly; the caches of the two prefill paths
 bitwise.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import functools
 import re
 

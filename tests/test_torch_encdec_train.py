@@ -25,6 +25,7 @@ leaf's largest entry, parameters after n steps within 2·lr·n with at most
 1 % of entries past 1e-5.  Second moments, which square the gradients,
 within rtol 2e-4 and 1e-5 of their largest entry.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import functools
 
 import numpy as np

@@ -22,6 +22,7 @@ Tolerances: float32 everywhere; the packages compute the same math with
 other matmul kernels and summation orders, so float results agree to ~1e-5
 and sampled token streams exactly.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 
 import numpy as np

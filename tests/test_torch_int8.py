@@ -16,6 +16,7 @@ values, and at these shapes the two CPU K projections agree to the bit.
 Float attention outputs agree to ~1e-5 (other summation orders), sampled
 token streams exactly.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import functools
 import re
 

@@ -6,6 +6,7 @@ The CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``
 (marked ``cuda``) and ``python3 chip_smoke.py`` hold them against their plain
 versions there.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch
@@ -181,6 +182,9 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
                                         "flash_attention_paged_int8": 0,
                                         "flash_decode_lse": 0,
                                         "flash_decode_int8_lse": 0,
+                                        "flash_attention_qoffset": 0,
+                                        "flash_attention_bwd_dq_qoffset": 0,
+                                        "flash_attention_bwd_dkv_qoffset": 0,
                                         "flash_decode_mla": 0,
                                         "flash_attention_mla": 0,
                                         "online_softmax": 0,

@@ -18,6 +18,7 @@ gives the same streams, ``flush_every`` bounds the buffer and needs a path,
 the report CLI exits 1 on a broken trace and 2 on a usage error, and the
 serve CLI's ``--trace DIR/`` writes per-replica and merged traces.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import json
 import os
 import subprocess

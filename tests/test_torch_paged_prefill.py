@@ -10,6 +10,7 @@ On the card the bf16 form runs ``paged_wgmma_kernel`` and the fp32 form
 ``prefill_paged_kernel``; ``tests/test_torch_cuda.py`` (marked ``cuda``)
 and ``python3 chip_smoke.py`` hold both against this plain version there.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -6,7 +6,11 @@
   and merge CLIs run so (subprocesses).
 * ``kernels/dispatch.py`` never names a plain version on its CUDA branches
   (source check): a CUDA tensor reaches its kernel or an error.
+* Every ``tests/test_torch_*.py`` (and the gloo world's script) imports
+  ``torch_test_env`` before any other module, so torch's threads are capped
+  in a pytest-xdist worker before the file's imports run.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import ast
 import json
 import os
@@ -138,3 +142,42 @@ def test_dispatch_cuda_branches_never_name_a_plain_version():
         bad = {n for n in names if "plain" in n or n in ("core",
                                                          "online_attention")}
         assert not bad, f"a CUDA branch of dispatch.py names {bad}"
+
+
+def _torch_test_files():
+    tests = os.path.join(REPO, "tests")
+    return sorted(os.path.join(tests, f) for f in os.listdir(tests)
+                  if (f.startswith("test_torch_") and f.endswith(".py"))
+                  or f == "torch_distributed_world.py")
+
+
+@pytest.mark.parametrize("path", _torch_test_files(),
+                         ids=lambda p: os.path.basename(p))
+def test_torch_tests_import_the_thread_cap_first(path):
+    """The first import statement of the file is ``import torch_test_env``."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    first = next(n for n in tree.body
+                 if isinstance(n, (ast.Import, ast.ImportFrom)))
+    assert isinstance(first, ast.Import) and \
+        [a.name for a in first.names] == ["torch_test_env"], \
+        f"{os.path.basename(path)}: first import is line {first.lineno}"
+
+
+def test_thread_cap_only_inside_an_xdist_worker():
+    """``torch_test_env.worker_threads``: cores // workers (at least 1)
+    inside a worker, None without xdist."""
+    import torch_test_env
+    env = dict(os.environ)
+    try:
+        os.environ.pop("PYTEST_XDIST_WORKER", None)
+        os.environ["PYTEST_XDIST_WORKER_COUNT"] = "6"
+        assert torch_test_env.worker_threads() is None
+        os.environ["PYTEST_XDIST_WORKER"] = "gw0"
+        assert torch_test_env.worker_threads() == max(
+            1, (os.cpu_count() or 1) // 6)
+        os.environ["PYTEST_XDIST_WORKER_COUNT"] = "1"
+        assert torch_test_env.worker_threads() == (os.cpu_count() or 1)
+    finally:
+        os.environ.clear()
+        os.environ.update(env)

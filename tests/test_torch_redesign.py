@@ -17,6 +17,7 @@ package.
 The kernels themselves run on the card: ``tests/test_torch_cuda.py`` (marked
 ``cuda``) and ``python3 chip_smoke.py``.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import inspect
 import math
 

@@ -16,6 +16,7 @@ Tolerances: none for integers (streams, assignments, counters); merged
 percentiles and wall times are the same float arithmetic in both packages
 and compare exactly.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 

@@ -18,6 +18,7 @@ draws, the bounded latency ring and the CLI's counter lines.
 Tolerances: none — decisions, counters and token ids are integers and must
 be equal; cache contents after a swap round trip must be equal bit for bit.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

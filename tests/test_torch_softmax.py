@@ -11,6 +11,7 @@ Inputs are built with numpy from a seed and handed to both packages.  The
 CUDA kernels run only on the card (``tests/test_torch_cuda.py``, marked
 ``cuda``, and ``python3 chip_smoke.py``).
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import os
 import subprocess
 import sys

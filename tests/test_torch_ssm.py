@@ -17,6 +17,7 @@ other contraction orders, so results agree to rtol 1e-5 and atol 1e-5 ·
 max|reference| (``_close``), except the scan against its own decode steps
 (two summation orders of a 32-step recurrence: 1e-4).
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import functools
 
 import numpy as np

@@ -7,6 +7,7 @@ the drain-and-refill bound, and paged the block pool's accounting: one
 state row a sequence, nothing shared, every block returned).  The prompts
 reach 40 tokens, so both CLIs snap them to the scan's quantum of 16.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import re
 
 import pytest

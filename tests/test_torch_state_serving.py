@@ -26,6 +26,7 @@ results agree to rtol 1e-5 and atol 1e-5 · max|reference| (``_close``, the
 whole-model values through 5 and 4 layers to 1e-4), and token streams
 exactly.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import functools
 

@@ -2,6 +2,7 @@
 reference's (``repro.data.text``), on a corpus written to ``tmp_path``:
 batches equal bit for bit at several steps, seeds and shapes, the same
 fingerprint, and the same refusal of a corpus too small for one window."""
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 

@@ -9,6 +9,7 @@ The kernel itself runs only on the card: ``tests/test_torch_cuda.py``
 (marked ``cuda``) and ``python3 chip_smoke.py`` hold it against the plain
 version there, at these slice edges too.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ there the loss compares within rtol 1e-6 of its own size and gradients
 within atol 2e-5.  The CUDA kernels are held against these plain versions
 on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -36,6 +36,7 @@ entry, model gradients and first moments within rtol 1e-4 and an absolute
 1e-5 of each leaf's largest entry, parameters after n steps within
 2·lr·n, at most 1 % of entries past 1e-5.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import functools
 
 import numpy as np

@@ -25,6 +25,7 @@ gradient is ~0 in fp32, or whose bf16-cast gradient rounds the other way,
 can move up to 2·lr differently; the bound is 2·lr per step taken, and at
 most 1 % of the entries may differ by more than 1e-5.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import os
 import subprocess
 import sys
@@ -481,8 +482,11 @@ def test_train_cli_without_jax(tmp_path):
 
 
 def test_train_cli_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        train_cli.parse_args(["--arch", "smollm_360m", "--mesh", "2x2"])
+    # the model axis runs the dense decoders only (smollm trains at 2x2)
+    with pytest.raises(NotImplementedError, match="model axis"):
+        train_cli.parse_args(["--arch", "qwen2_moe_a2p7b", "--mesh", "2x2"])
+    assert train_cli.parse_args(["--arch", "smollm_360m", "--mesh",
+                                 "2x2"]).mesh == "2x2"
     args = train_cli.parse_args(["--arch", "smollm_360m", "--layers", "2"])
     assert args.device == "cuda"
     run = train_cli.run_config(args)

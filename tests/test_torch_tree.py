@@ -10,6 +10,7 @@ first step that imports what the step imports lazily; what a collection
 then finds unreachable must hold no tensor.  (torch's own
 ``tree_flatten`` helpers leave cycles too, but none holds a tensor.)
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import gc
 
 import numpy as np

@@ -30,6 +30,7 @@ and moments ``tests/test_torch_training.py``'s rtol 1e-4 and 1e-5 of each
 leaf's largest entry; parameters after n steps within 2·lr·n with at most
 1 % of entries past 1e-5; token streams exactly.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import functools
 

@@ -4,14 +4,18 @@
 ranks (``torch.multiprocessing``; the address is a ``FileStore`` in
 OUT_DIR, no network) and runs every check of
 ``tests/test_torch_distributed.py`` that needs more than one rank, over
-the meshes (2, 2), (1, 4) and (4, 1) built from the same 4 ranks.  Each
+the meshes (2, 2), (1, 4) and (4, 1) built from the same 4 ranks: the
+data-parallel step, and the model axis's steps (``MODEL_AXIS_CASES``), its
+CLI run and its crash-restart.  Each
 rank writes what it computed to ``OUT_DIR/rank{r}.pt``; the test compares
 those with the reference's (run apart, with 4 forced host devices) and
 with the port's single-process results, which rank 0 or 1 computes here
 outside any context.  JAX is not imported here.
 """
+import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -22,6 +26,17 @@ WORLD = 4
 MESHES = ((2, 2), (1, 4), (4, 1))
 TOP_K = 5
 DP_CASES = ("equal", "unequal", "bf16")
+#: the model axis's one-step checks: name → (config, its weights' prefix in
+#: the inputs, mesh, remat); smollm's 3 heads shard in sequence mode at
+#: M 2 and 4, mistral-nemo's 4 heads in heads mode (its 2 kv heads shard at
+#: M 2 and are expanded to the query heads at M 4)
+MODEL_AXIS_CASES = {
+    "smollm_1x4": ("smollm_360m", "w", (1, 4), "full"),
+    "smollm_2x2": ("smollm_360m", "w", (2, 2), "full"),
+    "mistral_2x2": ("mistral_nemo_12b", "wm", (2, 2), "full"),
+    "mistral_1x4": ("mistral_nemo_12b", "wm", (1, 4), "full"),
+    "smollm_block_1x4": ("smollm_360m", "w", (1, 4), "block"),
+}
 
 
 def _t(x):
@@ -107,21 +122,22 @@ def int8_checks(inp, out):
     out["int8_replicated"] = compression.int8_allreduce(_t(inp["i8_x"][0]))
 
 
-def _run(dtype):
+def _run(dtype, arch="smollm_360m", remat="full"):
     from repro_torch import configs
     from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
                                           RunConfig)
-    cfg = configs.get_smoke("smollm_360m").replace(num_layers=2)
+    cfg = configs.get_smoke(arch).replace(num_layers=2, remat=remat)
     return RunConfig(model=cfg, optimizer=OptimizerConfig(
         lr=1e-3, warmup_steps=0, schedule="constant"),
         parallel=ParallelConfig(grad_reduce_dtype=dtype))
 
 
-def _start(inp, run):
+def _start(inp, run, prefix="w"):
     from repro_torch import tree
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw
-    ref = {k[len("w/"):]: v for k, v in inp.items() if k.startswith("w/")}
+    ref = {k[len(prefix) + 1:]: v for k, v in inp.items()
+           if k.startswith(prefix + "/")}
     params = params_from_numpy(_unflat(ref), device="cpu")
     params = tree.map(lambda p: p.requires_grad_(True), params)
     return params, adamw.init(params)
@@ -203,6 +219,124 @@ def train_checks(inp, out, meshes):
         out[f"dp_{case}"] = (_flat(params) if rank == 0 else None,
                              float(m["loss"]), same,
                              grads if rank == 0 else None)
+
+
+def model_axis_checks(inp, out, meshes):
+    """One step of each ``MODEL_AXIS_CASES`` case from the full fp32
+    weights: every rank keeps its model-axis shards, steps on its data
+    rows, and gathers the updated parameters and the gradients AdamW took
+    over the model axis; rank 0 keeps them, every rank its loss.  Rank 1
+    takes mistral-nemo's unsharded step (smollm's is rank 0's
+    ``single_equal``).  The collectives of each step are counted."""
+    from repro_torch.distributed import sharding, tensor_parallel
+    from repro_torch.distributed import context
+    rank = dist.get_rank()
+    batch = _batch(inp, "equal")
+    if rank == 1:
+        run = _run("float32", "mistral_nemo_12b")
+        params, opt = _start(inp, run, "wm")
+        params, m, grads = _step(run, params, opt, batch)
+        out["single_mistral"] = (_flat(params), float(m["loss"]), grads)
+    for name, (arch, prefix, shape, remat) in MODEL_AXIS_CASES.items():
+        run = _run("float32", arch, remat)
+        mesh = meshes[shape]
+        par = sharding.derive_parallel(run.model, mesh, run.parallel)
+        place = tensor_parallel.placements(run.model, par, mesh)
+        params, _ = _start(inp, run, prefix)
+        params = tensor_parallel.shard_tree(params, place, mesh)
+        r = _rows(mesh, batch["tokens"].shape[0])
+        from repro_torch.optim import adamw
+        tensor_parallel.reset_collectives()
+        with context.use(context.ShardContext(mesh=mesh, par=par)):
+            params, m, grads = _step(run, params, adamw.init(params),
+                                     {k: v[r] for k, v in batch.items()})
+            counts = dict(tensor_parallel.collectives)
+            full = tensor_parallel.gather_tree(params, place, mesh)
+            g_full = tensor_parallel.gather_tree(
+                _unflat_paths(grads, params), place, mesh)
+        out[f"ma_{name}"] = (_flat(full) if rank == 0 else None,
+                             float(m["loss"]), _flat(g_full)
+                             if rank == 0 else None, par.attn_mode, counts)
+
+
+def _unflat_paths(flat: dict, like):
+    """{"a/0/b": tensor} (``_flat``'s) → a tree shaped like ``like``."""
+    from repro_torch import tree
+    return tree.unflatten(like, [flat[p] for p, _ in
+                                 tree.leaves_with_path(like)])
+
+
+def model_axis_cli_checks(out_dir, out):
+    """``launch.train --mesh 2x2`` for 3 steps beside rank 0's unsharded
+    run of the same flags; then a crash at step 3 (after the step-2
+    checkpoint) and a restart to step 4 against an uninterrupted 4-step
+    run, each rank's final shards compared bit for bit."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import context
+    from repro_torch.launch import train
+    from repro_torch.training import loop
+    rank = dist.get_rank()
+    flags = ["--arch", "smollm_360m", "--smoke", "--device", "cpu",
+             "--seq-len", "16", "--global-batch", "8"]
+
+    def go(extra, ckpt):
+        return train.train(train.parse_args(
+            flags + extra + ["--checkpoint-dir", os.path.join(out_dir, ckpt)]),
+            log=lambda _: None)
+    _, _, hist, _ = go(["--steps", "3", "--mesh", "2x2",
+                        "--checkpoint-every", "0"], "ma_cli")
+    out["ma_cli"] = [h["loss"] for h in hist]
+    if rank == 0:
+        with context.use(None):
+            _, _, hist, _ = go(["--steps", "3", "--checkpoint-every", "0"],
+                               "ma_cli_single")
+        out["ma_cli_single"] = [h["loss"] for h in hist]
+    restart = ["--steps", "4", "--mesh", "2x2", "--checkpoint-every", "2"]
+    want, _, _, _ = go(restart, "ma_whole")
+
+    class Boom(RuntimeError):
+        pass
+
+    def bomb(i):
+        if i == 3:
+            raise Boom()
+    run = loop.run
+    loop.run = lambda *a, **kw: run(*a, inject_failure=bomb, **kw)
+    try:
+        go(restart, "ma_crash")
+        crashed = False
+    except Boom:
+        crashed = True
+    finally:
+        loop.run = run
+    dist.barrier()
+    if rank == 0:                  # the step-2 write ends in its thread
+        ckpt = CheckpointManager(os.path.join(out_dir, "ma_crash"))
+        for _ in range(600):
+            if ckpt.latest_step() == 2:
+                break
+            time.sleep(0.05)
+    dist.barrier()
+    got, _, hist, _ = go(restart, "ma_crash")
+    from repro_torch import tree
+    out["ma_restart"] = (crashed, [h["step"] for h in hist], all(
+        torch.equal(a, b) and b.requires_grad
+        for a, b in zip(tree.leaves(want), tree.leaves(got))))
+
+
+def model_axis_refusals(out):
+    """``--mesh 1x2`` on each family the model axis lacks."""
+    from repro_torch.launch import train
+    res = {}
+    for arch in ("qwen2_moe_a2p7b", "minicpm3_4b", "zamba2_1p2b",
+                 "whisper_small", "llava_next_34b"):
+        try:
+            train.parse_args(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--mesh", "1x2"])
+            res[arch] = "no error"
+        except NotImplementedError as e:
+            res[arch] = f"NotImplementedError: {e}"
+    out["ma_refusals"] = res
 
 
 def lockstep_checks(inp, out, meshes):
@@ -294,6 +428,9 @@ def worker(rank, inputs, out_dir):
     lockstep_checks(inp, out, meshes)
     cli_checks(out_dir, out)
     refusal_checks(out)
+    model_axis_checks(inp, out, meshes)
+    model_axis_cli_checks(out_dir, out)
+    model_axis_refusals(out)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
