@@ -361,7 +361,7 @@ printing its final line:
    one valid, pids 0 and 1, first ticks aligned, and ``python -m
    repro_torch.obs.report`` exiting 0 on the merged file.
 
-``phase_distributed`` (after phase 6's training run) runs the distributed layer
+``phase_distributed`` (after phase 6's training runs) runs the distributed layer
 at world size 1 under NCCL (a ``FileStore``, no network) over a (1, 1)
 ``DeviceMesh``: rows 4 and 4q with their lse against the plain version's
 at smollm-360m's decode batch, at D 128 and in int8 (vlen 0 giving out 0
@@ -370,8 +370,14 @@ and lse -inf, the lse form's output bit-equal to the plain launch's), the
 against the whole cache, the lockstep path under the context (fp and int8
 K/V, tokens identical to the unsharded run, one lse-form decode a layer
 and step and one row 1 a token counted), ``launch.train --mesh 1x1``
-beside the unsharded run, and the times of row 4 with and without its lse
-and of the merge's three collectives.
+beside the unsharded runs (smollm-360m, qwen2-moe-a2.7b, minicpm3-4b),
+and the times of row 4 with and without its lse and of the merge's three
+collectives.  ``phase_model_axis`` runs the model axis's ranks in one
+process: sequence mode's row blocks through rows 6 / 7 (smollm, M 4) and
+6m / 7m (minicpm3, M 16) against one launch, the vocabulary shards' ⊕,
+qwen2-moe's MoE block in expert and ffn mode and minicpm3's MLA attention
+in heads mode on 4 ranks against the unsharded layers, and times the
+offset kernels at the last rank.
 
 Each phase prints its wall time, and the end the whole run's, which is
 to stay under 600 s, half the 1200 s it is allowed.  The line before the last is a JSON object
@@ -2799,6 +2805,14 @@ INSTANCES = {
     **{kernel + "_qoff384": (kernel, "model axis seq", kernel + "_qoffset")
        for kernel in ("flash_attention", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv")},
+    # rows 6m and 7m at a causal q offset: minicpm3-4b's sequence mode at M
+    # 16, its last rank (Tq 64 at offset 960 over 1024 keys, 40 heads at
+    # (Dqk 96, Dv 64)); the launches are the offset forms' in
+    # phase_model_axis's run of the 16 ranks' blocks
+    **{kernel + "_d96_qoff960": (kernel, "model axis mla seq",
+                                 kernel + "_qoffset")
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
 }
 # the training kernels' timed D-128 instances: tag → (Hkv, G)
 TRAIN_TIMED_128 = {"_d128": (8, 4), "_d128_g1": (16, 1)}
@@ -4537,6 +4551,11 @@ def _model_what(cfg) -> str:
     return f"{heads}, {ffn}"
 
 
+# each ``_train_run``'s losses by its key (``phase_distributed`` holds the
+# --mesh 1x1 runs of the MoE and MLA decoders to them)
+TRAIN_LOSSES = {}
+
+
 def _train_run(name: str, key: str, argv, steps: int, cores=None,
                remat_steps: int = REMAT_STEPS, samples: int = 3,
                profile: bool = True) -> dict:
@@ -4585,6 +4604,7 @@ def _train_run(name: str, key: str, argv, steps: int, cores=None,
           f"runs check it), steps {sum(h['dt'] for h in hist):.1f}s")
     print(_train_line(name, hist, args))
     losses = [h["loss"] for h in hist]
+    TRAIN_LOSSES[key] = losses
     if not losses[-1] < losses[0]:
         _fail(f"train {name}: the loss did not fall: {losses}")
     want = _train_counts(cfg, len(hist))
@@ -5167,6 +5187,11 @@ DIST_LOCKSTEP_ARGS = LOCKSTEP_ARGS
 DIST_TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "3", "--seq-len",
                    "512", "--global-batch", "8", "--checkpoint-every", "0",
                    "--mesh", "1x1"]
+# the same for the MoE and MLA decoders beside phase 6's ``TRAIN_128`` runs
+# (their flags, 3 of their steps): qwen2-moe-a2.7b at 2 layers, minicpm3-4b
+# at 4; (label, the run's key in ``TRAIN_LOSSES``)
+DIST_TRAIN_128 = (("qwen2-moe", "qwen2 train"),
+                  ("minicpm3", "minicpm3 train"))
 
 
 def _nccl_world():
@@ -5300,13 +5325,15 @@ def _dist_lockstep(what: str, argv, cfg, params, ctx, noise) -> tuple:
     return counts
 
 
-def _dist_train(unsharded: list) -> None:
-    """``launch.train --mesh 1x1`` beside the same steps of phase 6's run
-    (``unsharded``, its losses): the first loss bit-equal, the later within
-    1e-4 relative.  The run goes through the model axis's code with a
-    group of one (heads mode, every f / g an NCCL all-reduce over one
-    rank): its launches of rows 6 / 7 are the unsharded run's, and it
-    makes ``_model_axis_collectives`` all-reduces a step, no all-gather."""
+def _dist_train(argv, unsharded: list, what: str) -> None:
+    """``launch.train`` on ``argv`` (``--mesh 1x1``) beside the same steps
+    of phase 6's run (``unsharded``, its losses): the first loss
+    bit-equal, the later within 1e-4 relative.  The run goes through the
+    model axis's code with a group of one (heads mode, every f / g an
+    NCCL all-reduce over one rank, the experts and their ffn whole): its
+    launches of rows 6 / 7 (and the router's) are the unsharded run's, and
+    it makes ``_model_axis_collectives`` all-reduces a step, no
+    all-gather; a step's launches and all-reduces are printed."""
     import tempfile
     import torch
     from repro_torch.distributed import tensor_parallel
@@ -5314,49 +5341,58 @@ def _dist_train(unsharded: list) -> None:
     dispatch.reset_launch_counts()
     tensor_parallel.reset_collectives()
     with tempfile.TemporaryDirectory() as tmp:
-        _, _, mesh, run = _train(DIST_TRAIN_ARGS, tmp)
+        _, _, mesh, run = _train(argv, tmp)
     torch.cuda.synchronize()
     counts = dispatch.launch_counts()
     coll = dict(tensor_parallel.collectives)
-    a = unsharded[:3]
+    steps = len(mesh)
+    a = unsharded[:steps]
     b = [h["loss"] for h in mesh]
-    if len(a) != 3 or len(b) != 3 or a[0] != b[0] or any(
+    if len(a) != steps or steps != 3 or a[0] != b[0] or any(
             abs(x - y) > 1e-4 * abs(x) for x, y in zip(a, b)):
-        _fail(f"train --mesh 1x1: losses {b}, unsharded {a}")
-    want = _train_counts(run.model, 3)
-    want_coll = {"all_reduce": 3 * _model_axis_collectives(run.model),
+        _fail(f"train --mesh 1x1 {what}: losses {b}, unsharded {a}")
+    want = _train_counts(run.model, steps)
+    want_coll = {"all_reduce": steps * _model_axis_collectives(run.model),
                  "all_gather": 0}
     if counts != want or coll != want_coll:
-        _fail(f"train --mesh 1x1: launches {counts} (want {want}), model-"
-              f"group collectives {coll} (want {want_coll})")
-    print(f"distributed train --mesh 1x1 (NCCL, {DIST_TRAIN_ARGS[1]} at 32 "
-          f"layers, 8 x 512, the model axis in heads mode over one rank): "
-          f"losses {b}, unsharded {a}; "
+        _fail(f"train --mesh 1x1 {what}: launches {counts} (want {want}), "
+              f"model-group collectives {coll} (want {want_coll})")
+    cfg = run.model
+    per_step = {k: v // steps for k, v in counts.items() if v}
+    per_step["all_reduce"] = coll["all_reduce"] // steps
+    print(f"distributed train --mesh 1x1 {what} (NCCL, {cfg.name} at "
+          f"{cfg.num_layers} layers, full width, 8 x 512, the model axis in "
+          f"heads mode over one rank): losses {b}, unsharded {a}; "
           + ("bit-equal at every step" if a == b
              else "first bit-equal, later within 1e-4")
-          + f"; launches over 3 steps "
-          f"{ {k: v for k, v in counts.items() if v} }, model-group "
-          f"collectives {coll}")
+          + f"; a step: {per_step} (launches and model-group all-reduces)")
 
 
 def _model_axis_collectives(cfg) -> int:
-    """A dense decoder's model-group all-reduces a step in heads mode with
-    every leaf sharded (a group of one), under remat "full": a layer's two
-    g's (attention's and the MLP's output) in the forward, attention's
+    """A decoder's model-group all-reduces a step in heads mode with every
+    leaf sharded (a group of one), under remat "full".  A dense layer: its
+    two g's (attention's and the MLP's output) in the forward, attention's
     again in its recomputation (which stops at the last tensor the
     backward needs, before the MLP's), and its two f's (their inputs) in
-    the backward; the embedding's g; the cross-entropy's three in the
-    forward (max, sum, label) and dh's in the backward; the clipping
-    norm's one."""
-    return 5 * cfg.num_layers + 1 + 4 + 1
+    the backward: 5.  An MoE layer the same with the experts' g in place
+    of the MLP's (routing, the aux losses and the shared expert come
+    before it) and two f's for them, x and the combine's probabilities:
+    6.  An MLA layer: the forward's and the recomputation's three g's as
+    dense, and f's of cq, c_kv and k_rope plus the MLP's: 7.  Then the
+    embedding's g; the cross-entropy's three in the forward (max, sum,
+    label) and dh's in the backward; the clipping norm's one."""
+    per_layer = {"moe": 6, "mla": 7}.get(cfg.family, 5)
+    return per_layer * cfg.num_layers + 1 + 4 + 1
 
 
 def phase_distributed(serve_ctx, train_ctx) -> tuple:
     """The distributed layer on the card at world size 1 under NCCL: rows
     4 and 4q with their lse, the ⊕ of cache slices through the real kernel,
     the lockstep path under the (1, 1) mesh's context (fp and int8 K/V),
-    ``launch.train --mesh 1x1`` beside phase 6's run and the times of row
-    4 with and without its lse and of the merge's three collectives.
+    ``launch.train --mesh 1x1`` beside phase 6's runs (smollm-360m, and
+    the MoE and MLA decoders of ``TRAIN_128``, ``DIST_TRAIN_128``) and the
+    times of row 4 with and without its lse and of the merge's three
+    collectives.
     Returns (launch counts by path, errors, time rows)."""
     import torch
     import torch.distributed as dist
@@ -5379,7 +5415,12 @@ def phase_distributed(serve_ctx, train_ctx) -> tuple:
             counts[what] = _dist_lockstep(what, argv, serve_ctx["cfg"],
                                           serve_ctx["params"], ctx,
                                           lambda i: draws[i])
-        _dist_train(train_ctx["losses"])
+        _dist_train(DIST_TRAIN_ARGS, train_ctx["losses"], "smollm-360m")
+        flags = {key: argv for _, key, argv in TRAIN_128}
+        for what, key in DIST_TRAIN_128:
+            _dist_train(flags[key] + TRAIN_128_ARGS + [
+                "--steps", "3", "--checkpoint-every", "0", "--mesh", "1x1"],
+                TRAIN_LOSSES[key], what)
         # times: row 4 with and without its lse at B 8 over 328 (bf16), and
         # the merge's three collectives at world 1 on the host's clock
         rows = {}
@@ -5451,31 +5492,51 @@ MODEL_AXIS_ATTN = dict(b=8, t=512, hkv=5, g=3, d=64)
 MODEL_AXIS_CE = dict(t=8 * 512, d=960, v=49152, chunks=16)
 # the timed rank: the last, Tq 128 at offset 384 over Tk 512
 MODEL_AXIS_TAG = "_qoff384"
+# the MoE and MLA blocks' shards at full width, M 4 ranks in one process
+# (each a ModelAxis that says rank r of 4 over the world-1 NCCL group, so f
+# and g reduce over one rank and the script sums the partials):
+# qwen2-moe-a2.7b's MoE block (60 experts padded to 64, top 4, d_ff 1408,
+# shared 5632) over x [8, 512, 2048] in expert mode (16 experts a rank, the
+# 4 pads on rank 3) and in ffn mode (352 columns an expert), and
+# minicpm3-4b's MLA attention over x [4, 1024, 2560] in heads mode (10 of
+# its 40 heads a rank)
+MODEL_AXIS_MOE = dict(b=8, t=512)
+MODEL_AXIS_MLA = dict(b=4, t=1024)
+# minicpm3-4b's sequence mode at M 16 (its 40 heads do not split 16 ways,
+# the 16-way TP its config pads its vocabulary for) as the kernels see it:
+# 16 blocks of 64 query rows at offsets 0-960 over keys [0, (r+1)·64),
+# rows 6m / 7m at (Dqk 96, Dv 64); timed at the last rank (Tq 64 at offset
+# 960 over Tk 1024)
+MODEL_AXIS_MLA_M = 16
+MODEL_AXIS_MLA_ATTN = dict(b=4, t=1024, hkv=40, g=1, d=96, dv=64)
+MODEL_AXIS_MLA_TAG = "_d96_qoff960"
 
 
-def _offset_blocks(gen, dtype) -> tuple[dict, dict]:
-    """Sequence mode's attention through the real kernels: the M ranks'
-    row blocks (``FlashAttention.apply`` at offsets 0 / 128 / 256 / 384
-    over keys [0, (r+1)·128)) against one causal launch over all 512 rows,
-    forward and backward (``torch.autograd.grad``): the blocks' out and dq
-    concatenated, their dK / dV summed (in fp32).  The blocks run between
-    a reset and a read of the launch counts.  Returns ({what: error},
-    the blocks' launch counts)."""
+def _offset_blocks(gen, dtype, a=MODEL_AXIS_ATTN,
+                   m: int = MODEL_AXIS_M) -> tuple[dict, dict]:
+    """Sequence mode's attention through the real kernels: the ``m``
+    ranks' row blocks of ``a``'s shape (``FlashAttention.apply`` at
+    offsets 0, T/m, ... over keys [0, (r+1)·T/m)) against one causal
+    launch over all T rows, forward and backward
+    (``torch.autograd.grad``): the blocks' out and dq concatenated, their
+    dK / dV summed (in fp32).  The blocks run between a reset and a read
+    of the launch counts.  Returns ({what: error}, the blocks' launch
+    counts)."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import flash_attention as fa
-    a = MODEL_AXIS_ATTN
     q, k, v, dout = _fresh_inputs(gen, dtype=dtype, b=a["b"], t=a["t"],
-                                  hkv=a["hkv"], g=a["g"], d=a["d"])
+                                  hkv=a["hkv"], g=a["g"], d=a["d"],
+                                  dv=a.get("dv"))
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     whole = fa.FlashAttention.apply(qg, kg, vg, True)
     grads = torch.autograd.grad(whole, (qg, kg, vg), dout)
     torch.cuda.synchronize()
-    rows = a["t"] // MODEL_AXIS_M
+    rows = a["t"] // m
     outs, sums = [], [torch.zeros_like(x, dtype=torch.float32)
                       for x in (q, k, v)]
     dispatch.reset_launch_counts()
-    for r in range(MODEL_AXIS_M):
+    for r in range(m):
         lo, hi = r * rows, (r + 1) * rows
         o = fa.FlashAttention.apply(qg[:, lo:hi], kg[:, :hi], vg[:, :hi],
                                     True, lo)
@@ -5494,6 +5555,18 @@ def _offset_blocks(gen, dtype) -> tuple[dict, dict]:
         errs[name] = _scaled_err(x.to(w.dtype) if dtype == torch.float32
                                  else x.to(torch.bfloat16), w)
     return errs, counts
+
+
+def _blocks_counts(m: int) -> dict:
+    """The launches of ``_offset_blocks``' m blocks: rank 0's at offset 0
+    as rows 6 / 7, the others' under the offset counters."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_attention=1, flash_attention_bwd_dq=1,
+                flash_attention_bwd_dkv=1,
+                flash_attention_qoffset=m - 1,
+                flash_attention_bwd_dq_qoffset=m - 1,
+                flash_attention_bwd_dkv_qoffset=m - 1)
+    return want
 
 
 def _vocab_shards(gen) -> dict:
@@ -5532,19 +5605,310 @@ def _vocab_shards(gen) -> dict:
         ("dW", dw, w_dw))}
 
 
-def phase_model_axis() -> tuple:
-    """The model axis's shards in one process on the card (one card: NCCL
-    takes no two ranks on it, so the collectives ran at world 1 in phase
-    9 and at world 4 under gloo in the CPU tests): sequence mode's offset
-    blocks through rows 6 / 7 (fp32 within 1e-5, bf16 by
-    ``_scaled_err``'s row rule within 2e-2), the vocabulary shards' ⊕ and
-    backward (fp32 within 1e-5), then rows 6 and 7 at the last rank's
-    offset held against their plain versions in fp32 and timed in bf16,
-    with the four ranks' sum.  Returns ({"model axis seq": the bf16
-    blocks' launch counts}, {JSON name: fp32 error}, time rows)."""
+def _rank_axis(cfg, m: int, r: int, group):
+    """(rank r of m's ``ModelAxis`` over ``group``, the placements) for
+    ``cfg``, the rules ``sharding.axis_rules`` gives at model size m."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tpm
+    sizes = {"data": 1, "model": m}
+    par = sharding.derive_parallel(cfg, sizes, ParallelConfig())
+    return (tpm.ModelAxis(group, r, m, "model", par.attn_mode,
+                          sharding.axis_rules(cfg, par, sizes)),
+            tpm.placements(cfg, par, sizes))
+
+
+def _draw_block(gen, shapes: dict, dtype) -> dict:
+    """One block's leaves drawn on the card from ``gen`` (a card
+    generator: qwen2-moe's experts are 5.5e8 draws a block) at ``shapes``
+    (a dict of shapes or of such dicts): a matrix or stack of them normal
+    at 1/sqrt(its first axis), as ``transformer.init`` draws them, in
+    ``dtype`` (the router fp32); a vector (a norm scale) 1 + 0.1 · normal,
+    fp32."""
+    import torch
+    out = {}
+    for name, shape in shapes.items():
+        if isinstance(shape, dict):
+            out[name] = _draw_block(gen, shape, dtype)
+            continue
+        w = torch.randn(shape, generator=gen, device="cuda")
+        if len(shape) == 1:
+            out[name] = 1 + 0.1 * w
+        else:
+            out[name] = (w * shape[0] ** -0.5).to(
+                torch.float32 if name == "router" else dtype)
+    return out
+
+
+def _leaves(block: dict, prefix: str = "") -> list:
+    """[(path, leaf)] of a nested dict (a block's tensors, or their
+    placements), in order."""
+    out = []
+    for name, x in block.items():
+        if isinstance(x, dict):
+            out += _leaves(x, f"{prefix}{name}/")
+        else:
+            out.append((prefix + name, x))
+    return out
+
+
+def _shard_check(what: str, fn, cfg, full: dict, place: dict, x, dy,
+                 m: int, group) -> tuple[dict, list]:
+    """A block on m model ranks in one process against the unsharded
+    block: ``fn(block, x, tp)`` → y on each rank r's slices of ``full``
+    (``place``'s sharded dims), each through rank r's ``ModelAxis`` over
+    ``group`` (world 1), and the gradients of y · dy.  The ranks' y and dx
+    summed, and the replicated leaves' gradients summed, equal the
+    unsharded ones, and each rank's gradient of a sharded leaf its slice
+    of the unsharded gradient: fp32 within 1e-5 of the tensor's largest
+    entry, bf16 by ``_scaled_err``'s row rule within 2e-2.  Returns ({what:
+    error}, each rank's tensors y)."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tpm
+
+    def grads(block, tp):
+        leaves = _leaves(block)
+        for _, w in leaves:
+            w.requires_grad_(True)
+        xg = x.detach().clone().requires_grad_(True)
+        y = fn(block, xg, tp)
+        got = torch.autograd.grad((y.float() * dy.float()).sum(),
+                                  [xg] + [w for _, w in leaves])
+        return y.detach(), got[0], dict(zip((p for p, _ in leaves), got[1:]))
+    y_w, dx_w, g_w = grads(full, None)
+    flat_place = dict(_leaves(place))
+    ys, y_sum = [], torch.zeros_like(y_w, dtype=torch.float32)
+    dx_sum = torch.zeros_like(dx_w, dtype=torch.float32)
+    rep = {p: torch.zeros_like(g, dtype=torch.float32)
+           for p, g in g_w.items() if tpm._dim(flat_place[p], "model")
+           is None}
+    errs = {}
+    for r in range(m):
+        tp, _ = _rank_axis(cfg, m, r, group)
+        shard = {}
+        for path, w in _leaves(full):
+            d = tpm._dim(flat_place[path], "model")
+            n = None if d is None else w.shape[d] // m
+            shard[path] = (w.detach().clone() if d is None else
+                           w.detach().narrow(d, r * n, n).clone())
+        y, dx, g = grads(_nest(shard), tp)
+        ys.append(y)
+        y_sum += y.float()
+        dx_sum += dx.float()
+        for path, gr in g.items():
+            if path in rep:
+                rep[path] += gr.float()
+                continue
+            d = tpm._dim(flat_place[path], "model")
+            n = gr.shape[d]
+            errs[path] = max(errs.get(path, 0.0), _shard_err(
+                gr, g_w[path].narrow(d, r * n, n)))
+    errs["y"] = _shard_err(y_sum, y_w)
+    errs["dx"] = _shard_err(dx_sum, dx_w)
+    for path, gr in rep.items():
+        errs[path] = _shard_err(gr, g_w[path])
+    tol = 1e-5 if x.dtype == torch.float32 else 2e-2
+    if not max(errs.values()) <= tol:
+        _fail(f"{what}: the {m} ranks' shards against the unsharded block: "
+              f"{errs} (> {tol})")
+    return errs, ys
+
+
+def _shard_err(got, want) -> float:
+    """fp32: max abs error over the tensor's largest entry; bf16:
+    ``_scaled_err``'s row rule (a partial sum taken in fp32 is rounded to
+    bf16 first)."""
+    import torch
+    if want.dtype == torch.bfloat16:
+        return _scaled_err(got.to(torch.bfloat16), want)
+    diff = (got.float() - want.float()).abs().max().item()
+    err = diff / max(want.abs().max().item(), 1e-30)
+    return err if err == err else float("inf")
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b": x} → {"a": {"b": x}}."""
+    out = {}
+    for path, x in flat.items():
+        node, keys = out, path.split("/")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = x
+    return out
+
+
+def _moe_shards(gen, group) -> dict:
+    """qwen2-moe-a2.7b's MoE block at full width on 4 model ranks, in
+    expert mode and in ffn mode, fp32 and bf16 (``_shard_check``): the
+    router runs whole on every rank, so every rank's chosen experts and
+    kept assignments equal the unsharded block's exactly, as do the aux
+    losses; in expert mode the last rank's 4 padded experts get zero
+    gradients.  Returns {JSON-line name: fp32 error}."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import layers as L
+    base = configs.get("qwen2_moe_a2p7b")
+    mc = base.moe
+    m = MODEL_AXIS_M
+    seen = []
+    route = L.moe_route
+
+    def spy(*a, **kw):
+        r = route(*a, **kw)
+        seen.append((r.idx, r.keep))
+        return r
+    out = {}
+    L.moe_route = spy
+    try:
+        for mode in ("expert", "ffn"):
+            cfg = base.replace(moe=dataclasses.replace(mc, shard_mode=mode))
+            for dtype in (torch.float32, torch.bfloat16):
+                full = _draw_block(gen, tpm.param_shapes(cfg)["layers"][0]
+                                   ["moe"], dtype)
+                x = torch.randn(MODEL_AXIS_MOE["b"], MODEL_AXIS_MOE["t"],
+                                cfg.d_model, generator=gen,
+                                device="cuda").to(dtype)
+                dy = torch.randn(x.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                _, place = _rank_axis(cfg, m, 0, group)
+                aux = []
+
+                def fn(block, xx, tp):
+                    y, losses = L.moe_apply(block, xx, cfg, tp=tp)
+                    aux.append({k: v.item() for k, v in losses.items()})
+                    return y
+                seen.clear()
+                errs, _ = _shard_check(
+                    f"model axis moe {mode} {str(dtype)[6:]}", fn, cfg, full,
+                    place["layers"][0]["moe"], x, dy, m, group)
+                torch.cuda.synchronize()
+                if len(seen) != m + 1 or any(
+                        not (torch.equal(i, seen[0][0])
+                             and torch.equal(k, seen[0][1]))
+                        for i, k in seen[1:]) or any(a != aux[0]
+                                                     for a in aux[1:]):
+                    _fail(f"model axis moe {mode} {dtype}: the ranks' "
+                          "routing or aux losses differ from the unsharded "
+                          f"block's: {aux}")
+                kept = seen[0][1].float().mean().item()
+                print(f"model axis moe {mode} {str(dtype)[6:]} (qwen2-moe, "
+                      f"M {m}, x [{MODEL_AXIS_MOE['b']}, "
+                      f"{MODEL_AXIS_MOE['t']}, {cfg.d_model}]): y, dx and "
+                      "every gradient against the unsharded block, worst "
+                      f"{max(errs.values()):.3g} ({max(errs, key=errs.get)})"
+                      f"; routing and aux losses equal on every rank, "
+                      f"{100 * kept:.2f} % of assignments kept")
+                if dtype == torch.float32:
+                    out[f"moe_{mode}"] = max(errs.values())
+    finally:
+        L.moe_route = route
+    return out
+
+
+def _mla_shards(gen, group) -> dict:
+    """minicpm3-4b's MLA attention at full width on 4 model ranks in heads
+    mode (10 heads a rank through rows 6m / 7m), fp32 and bf16
+    (``_shard_check``).  Returns {"mla_heads": fp32 error}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import layers as L
+    cfg = configs.get("minicpm3_4b")
+    m, out = MODEL_AXIS_M, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        full = _draw_block(gen, tpm.param_shapes(cfg)["layers"][0]["attn"],
+                           dtype)
+        x = torch.randn(MODEL_AXIS_MLA["b"], MODEL_AXIS_MLA["t"],
+                        cfg.d_model, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        tp, place = _rank_axis(cfg, m, 0, group)
+        if tp.mode != "heads":
+            _fail(f"model axis mla: mode {tp.mode} at M {m}")
+        pos = torch.arange(x.shape[1], device="cuda")
+
+        def fn(block, xx, tp):
+            return L.mla_apply(block, xx, cfg, positions=pos, tp=tp)[0]
+        errs, _ = _shard_check(f"model axis mla heads {str(dtype)[6:]}", fn,
+                               cfg, full, place["layers"][0]["attn"], x, dy,
+                               m, group)
+        print(f"model axis mla heads {str(dtype)[6:]} (minicpm3-4b, M {m}, "
+              f"{cfg.num_heads // m} of {cfg.num_heads} heads a rank, x "
+              f"{list(x.shape)}): y, dx and every gradient against the "
+              f"unsharded attention, worst {max(errs.values()):.3g} "
+              f"({max(errs, key=errs.get)})")
+        if dtype == torch.float32:
+            out["mla_heads"] = max(errs.values())
+    return out
+
+
+def _ranks_device_ms(gen, a: dict, m: int) -> tuple[dict, dict]:
+    """The m ranks' device times of sequence mode's blocks at ``a``'s
+    shape, bf16: rank r's block at offset r·T/m over keys [0, (r+1)·T/m),
+    each of the three kernels, summed; and one causal launch over all T
+    rows (each the median of 5 samples).  Returns ({kernel: the ranks'
+    sum}, {kernel: one launch})."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=a["b"],
+                                  t=a["t"], hkv=a["hkv"], g=a["g"], d=a["d"],
+                                  dv=a.get("dv"))
+    k, v = k.contiguous(), v.contiguous()
+    rows = a["t"] // m
+    names = ("flash_attention", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    total = dict.fromkeys(names, 0.0)
+
+    def times(qr, kr, vr, dr, off):
+        fwd, (out, lse) = fa.prepare_fwd(qr, kr, vr, **off)
+        fa.launch(fwd)
+        dq_args, dkv_args, _ = fab.prepare(qr, kr, vr, out, lse, dr, **off)
+        return [_device_call_ms(fn, samples=5) for fn in (
+            lambda: fa.launch(fwd), lambda: fab.launch(dq_args),
+            lambda: fab.launch(dkv_args))]
+    for r in range(m):
+        lo, hi = r * rows, (r + 1) * rows
+        for name, ms in zip(names, times(
+                q[:, lo:hi].contiguous(), k[:, :hi], v[:, :hi],
+                dout[:, lo:hi].contiguous(), {"q_offset": lo} if lo else {})):
+            total[name] += ms
+    return total, dict(zip(names, times(q, k, v, dout, {})))
+
+
+def _print_offset_times(times: dict, m: int, last: int) -> None:
+    for name, row in times.items():
+        print(f"time {name} [{row['shape']}]: kernel {row['ms']:.4f}ms, "
+              f"device {row['device_ms']:.4f}ms, bound "
+              f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
+              f"{row['plain_ms']:.4f}ms, SDPA causal_lower_right "
+              f"{row['library_ms']:.4f}ms (device "
+              f"{row['library_device_ms']:.4f}ms); the {m} ranks' blocks "
+              f"(offsets 0-{last}) summed: device "
+              f"{row['ranks_sum_device_ms']:.4f}ms against one causal "
+              f"launch over all rows {row['one_launch_device_ms']:.4f}ms")
+
+
+def phase_model_axis() -> tuple:
+    """The model axis's shards in one process on the card (one card: NCCL
+    takes no two ranks on it, so the collectives ran at world 1 in
+    ``phase_distributed`` and at world 4 under gloo in the CPU tests).
+    smollm's sequence mode's offset blocks through rows 6 / 7 at M 4
+    (fp32 within 1e-5, bf16 by ``_scaled_err``'s row rule within 2e-2),
+    the vocabulary shards' ⊕ and backward (fp32 within 1e-5), then rows 6
+    and 7 at the last rank's offset held against their plain versions in
+    fp32 and timed in bf16, with the four ranks' sum.  Then the MoE and
+    MLA decoders: qwen2-moe's MoE block in expert and ffn mode and
+    minicpm3's MLA attention in heads mode on 4 ranks against the
+    unsharded layers (``_moe_shards``, ``_mla_shards``, each rank a
+    ``ModelAxis`` over a world-1 NCCL group), minicpm3's sequence mode at M
+    16 through the shifted (96, 64) instances against one launch, and rows
+    6m / 7m at its last rank's offset, checked and timed as above.
+    Returns ({"model axis seq" / "model axis mla seq": the bf16 blocks'
+    launch counts}, {JSON name: fp32 error}, time rows)."""
+    import torch
+    import torch.distributed as dist
     gen = torch.Generator().manual_seed(32)
     counts = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -5556,12 +5920,7 @@ def phase_model_axis() -> tuple:
               f"launch over 512 ({MODEL_AXIS_ATTN}): "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
               + f" ({tol})")
-    want = dict.fromkeys(COUNTERS, 0)
-    want.update(flash_attention=1, flash_attention_bwd_dq=1,
-                flash_attention_bwd_dkv=1,
-                flash_attention_qoffset=MODEL_AXIS_M - 1,
-                flash_attention_bwd_dq_qoffset=MODEL_AXIS_M - 1,
-                flash_attention_bwd_dkv_qoffset=MODEL_AXIS_M - 1)
+    want = _blocks_counts(MODEL_AXIS_M)
     if counts != want:
         _fail(f"model axis blocks: launches {counts}, want {want}")
     ce_errs = _vocab_shards(gen)
@@ -5573,52 +5932,59 @@ def phase_model_axis() -> tuple:
           f"{c['t']} tokens, merged by the pure ⊕, vs the unsharded chunked "
           "CE (fp32): " + ", ".join(f"{k} {e:.3g}" for k, e in
                                     ce_errs.items()) + " (1e-5)")
-    # rows 6 / 7 at the last rank's offset: fp32 against the plain
-    # versions (the JSON line's errors), then the bf16 times
-    a, rows = MODEL_AXIS_ATTN, MODEL_AXIS_ATTN["t"] // MODEL_AXIS_M
-    last = (MODEL_AXIS_M - 1) * rows
-    q, k, v, dout = _fresh_inputs(gen, dtype=torch.float32, b=a["b"],
-                                  t=rows, hkv=a["hkv"], g=a["g"], d=a["d"],
-                                  tk=a["t"])
-    found = _fresh_errs(q, k, v, dout, True, last)
-    if max(found.values()) > 1e-5:
-        _fail(f"model axis rows 6/7 at offset {last} (fp32): {found}")
-    errs = {kernel + MODEL_AXIS_TAG: e for kernel, e in found.items()}
-    times = _train_kernel_times(gen, a["hkv"], a["g"], a["d"],
-                                MODEL_AXIS_TAG, t=rows, q_offset=last)
-    # the M ranks' device times: rank r's block at offset r·128 over keys
-    # [0, (r+1)·128), each of the three kernels
-    q, k, v, dout = _fresh_inputs(gen, dtype=torch.bfloat16, b=a["b"],
-                                  t=a["t"], hkv=a["hkv"], g=a["g"], d=a["d"])
-    k, v = k.contiguous(), v.contiguous()
-    total = dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
-                           "flash_attention_bwd_dkv"), 0.0)
-    for r in range(MODEL_AXIS_M):
-        lo, hi = r * rows, (r + 1) * rows
-        qr, dr = q[:, lo:hi].contiguous(), dout[:, lo:hi].contiguous()
-        off = {"q_offset": lo} if lo else {}
-        fwd, (out, lse) = fa.prepare_fwd(qr, k[:, :hi], v[:, :hi], **off)
-        fa.launch(fwd)
-        dq_args, dkv_args, _ = fab.prepare(qr, k[:, :hi], v[:, :hi], out,
-                                           lse, dr, **off)
-        for name, fn in (("flash_attention", lambda: fa.launch(fwd)),
-                         ("flash_attention_bwd_dq",
-                          lambda: fab.launch(dq_args)),
-                         ("flash_attention_bwd_dkv",
-                          lambda: fab.launch(dkv_args))):
-            total[name] += _device_call_ms(fn)
-    for name, ms in total.items():
-        times[name + MODEL_AXIS_TAG]["ranks_sum_device_ms"] = ms
-    for name, row in times.items():
-        print(f"time {name} [{row['shape']}]: kernel {row['ms']:.4f}ms, "
-              f"device {row['device_ms']:.4f}ms, bound "
-              f"{row['bound_ms']:.5f}ms by {row['bound_by']}, plain "
-              f"{row['plain_ms']:.4f}ms, SDPA causal_lower_right "
-              f"{row['library_ms']:.4f}ms (device "
-              f"{row['library_device_ms']:.4f}ms); the {MODEL_AXIS_M} "
-              f"ranks' blocks (offsets 0-{last}) summed: device "
-              f"{row['ranks_sum_device_ms']:.4f}ms")
-    return {"model axis seq": counts}, errs, times
+    errs, times = {}, {}
+    mla_counts = {}
+    for a, m, tag in ((MODEL_AXIS_ATTN, MODEL_AXIS_M, MODEL_AXIS_TAG),
+                      (MODEL_AXIS_MLA_ATTN, MODEL_AXIS_MLA_M,
+                       MODEL_AXIS_MLA_TAG)):
+        if tag == MODEL_AXIS_MLA_TAG:      # the 16 blocks of minicpm3's
+            for dtype, tol in ((torch.float32, 1e-5),
+                               (torch.bfloat16, 2e-2)):
+                b_errs, mla_counts = _offset_blocks(gen, dtype, a, m)
+                if max(b_errs.values()) > tol:
+                    _fail(f"model axis mla sequence blocks {dtype}: "
+                          f"{b_errs} (> {tol})")
+                print(f"model axis mla sequence mode {str(dtype)[6:]}: {m} "
+                      f"blocks of {a['t'] // m} rows at offsets 0-"
+                      f"{a['t'] - a['t'] // m} vs one causal launch over "
+                      f"{a['t']} ({a}): " + ", ".join(
+                          f"{k} {e:.3g}" for k, e in b_errs.items())
+                      + f" ({tol}); launches "
+                      f"{ {k: v for k, v in mla_counts.items() if v} }")
+            if mla_counts != _blocks_counts(m):
+                _fail(f"model axis mla blocks: launches {mla_counts}, want "
+                      f"{_blocks_counts(m)}")
+        # rows 6 / 7 at the last rank's offset: fp32 against the plain
+        # versions (the JSON line's errors), then the bf16 times
+        rows = a["t"] // m
+        last = (m - 1) * rows
+        q, k, v, dout = _fresh_inputs(gen, dtype=torch.float32, b=a["b"],
+                                      t=rows, hkv=a["hkv"], g=a["g"],
+                                      d=a["d"], dv=a.get("dv"), tk=a["t"])
+        found = _fresh_errs(q, k, v, dout, True, last)
+        if max(found.values()) > 1e-5:
+            _fail(f"model axis rows 6/7 at offset {last} (fp32, {a}): "
+                  f"{found}")
+        errs.update({kernel + tag: e for kernel, e in found.items()})
+        rows_t = _train_kernel_times(gen, a["hkv"], a["g"], a["d"], tag,
+                                     a.get("dv"), b=a["b"], t=rows,
+                                     q_offset=last)
+        total, one = _ranks_device_ms(gen, a, m)
+        for name in total:
+            rows_t[name + tag]["ranks_sum_device_ms"] = total[name]
+            rows_t[name + tag]["one_launch_device_ms"] = one[name]
+        _print_offset_times(rows_t, m, last)
+        times.update(rows_t)
+    _, store_dir = _nccl_world()
+    try:
+        card_gen = torch.Generator(device="cuda").manual_seed(33)
+        errs.update(_moe_shards(card_gen, dist.group.WORLD))
+        errs.update(_mla_shards(card_gen, dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return ({"model axis seq": counts, "model axis mla seq": mla_counts},
+            errs, times)
 
 
 def _bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -7361,6 +7727,7 @@ def main() -> int:
     _timed(phase_parity_int8)
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
+    counts.update(_timed(phase_train_128))
     dist_counts, dist_errs, dist_rows = _timed(phase_distributed, serve_ctx,
                                                train_ctx)
     counts.update(dist_counts)
@@ -7369,7 +7736,6 @@ def main() -> int:
     counts.update(ma_counts)
     errs.update(ma_errs)
     dist_rows.update(ma_rows)
-    counts.update(_timed(phase_train_128))
     counts.update(_timed(phase_train_state))
     counts.update(_timed(phase_train_whisper))
     counts.update(_timed(phase_train_llava))

@@ -1,4 +1,5 @@
-"""The model axis executed: tensor-parallel training of a dense decoder.
+"""The model axis executed: tensor-parallel training of the dense, MoE and
+MLA decoders.
 
 The reference has no file for this: it annotates each parameter with its
 placement (``src/repro/distributed/sharding.py:103-114``, ``param_sharding``)
@@ -16,22 +17,31 @@ is what GSPMD does there, written out:
   rank's own rows of the gradient backward) and ``gather_weight``
   (all-gather of a weight's sharded dim, the group's sum of the gradient
   then the rank's own shard backward);
-* ``shard_tree`` / ``gather_tree``: a full parameter tree to this rank's
-  model-axis shards (slices of the sharded dims), and back;
+* ``param_axes`` / ``param_shapes``: each leaf's logical axes (the
+  reference's, without the stacked ``"layers"`` axis) and its shape, for
+  the dense block, the MoE block (``expert`` / ``expert_ffn``) and MLA's
+  attention (``qkv_out`` columns);
+* ``placements`` (which refuses a sharded dim that does not split over
+  the axis, naming the leaf), ``shard_tree`` / ``gather_tree``: a full
+  parameter tree to this rank's model-axis shards (slices of the sharded
+  dims), and back;
 * ``model_axis(cfg)``: what the layers read, the ambient context's model
   axis with ``sharding.axis_rules``' placements for ``cfg``.
 
 Activations between sublayers are replicated over the model group: every
-model rank holds the whole ``[B_local, T, D]``.  A replicated parameter
-that feeds rank-specific work passes through ``copy_to_model``, so its
-gradient is summed over the group; a norm scale on a replicated
-activation gets the same gradient on every rank without it.  Nothing
-branches on the axis's size: a group of one runs the same code, which is
-what one card runs.
+model rank holds the whole ``[B_local, T, D]``.  A replicated tensor whose
+gradient comes out rank-partial passes through ``copy_to_model`` once,
+where it first feeds rank-specific work, so its gradient is summed over
+the group; everything upstream of it then gets a whole gradient, the same
+on every rank, and passes no second ``copy_to_model``.  A norm scale on a
+replicated activation gets the same gradient on every rank without it.
+Nothing branches on the axis's size: a group of one runs the same code,
+which is what one card runs.
 
-Dense decoders only (``family == "dense"``).  Under a model axis of more
-than one rank the other families raise ``NotImplementedError``, naming what
-they lack (``MISSING``); at one rank they run their replicated code.
+The dense, MoE and MLA decoders run on the model axis at any size, one
+rank included.  Under a model axis of more than one rank the other
+families raise ``NotImplementedError``, naming what they lack
+(``MISSING``); at one rank they run their replicated code.
 """
 from __future__ import annotations
 
@@ -44,10 +54,9 @@ from repro_torch.distributed import context, sharding
 
 PyTree = Any
 
-#: What each family still lacks on the model axis.
+#: What each family still lacks on the model axis (the dense, MoE and
+#: MLA decoders lack nothing).
 MISSING = {
-    "moe": "the experts' placements (expert / expert_ffn)",
-    "mla": "MLA's low-rank attention projections",
     "ssm": "the recurrent blocks' inner dims (inner / inner_heads)",
     "hybrid": "the recurrent blocks' inner dims (inner / inner_heads)",
     "encdec": "the encoder-decoder's two stacks and cross-attention",
@@ -100,19 +109,19 @@ class ModelAxis(NamedTuple):
 
 def model_axis(cfg: ModelConfig) -> Optional[ModelAxis]:
     """The ambient context's model axis for ``cfg``, or None: no context,
-    a mesh without the axis, or another family than dense on a model axis
-    of one rank.  Another family on more ranks raises."""
+    a mesh without the axis, or a family of ``MISSING`` on a model axis
+    of one rank.  Such a family on more ranks raises."""
     ctx = context.get()
     if ctx is None or ctx.mesh is None or \
             ctx.par.model_axis not in ctx.mesh.mesh_dim_names:
         return None
     size = context.model_size(ctx)
-    if cfg.family != "dense":
+    if cfg.family in MISSING:
         if size > 1:
             raise NotImplementedError(
-                f"the model axis ({size} ranks) runs dense decoders only: "
-                f"{cfg.name} ({cfg.family}) lacks "
-                f"{MISSING.get(cfg.family, 'its placements')}")
+                f"the model axis ({size} ranks) runs the dense, MoE and "
+                f"MLA decoders only: {cfg.name} ({cfg.family}) lacks "
+                f"{MISSING[cfg.family]}")
         return None
     par = sharding.derive_parallel(cfg, ctx.mesh, ctx.par)
     return ModelAxis(context.model_group(ctx), context.model_index(ctx),
@@ -202,32 +211,125 @@ def gather_weight(w: torch.Tensor, dim: int, tp: ModelAxis) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # placements and trees
 # ---------------------------------------------------------------------------
-def param_axes(cfg: ModelConfig) -> PyTree:
-    """The logical axes of a dense decoder's parameter tree
-    (``transformer.init``'s layout), the reference's ``split_params`` axes
-    without the stacked ``"layers"`` axis."""
-    if cfg.family != "dense":
+def _refuse(cfg: ModelConfig) -> None:
+    if cfg.family in MISSING:
         raise NotImplementedError(
             f"placements of {cfg.name} ({cfg.family}): the model axis runs "
-            f"dense decoders only; it lacks "
-            f"{MISSING.get(cfg.family, 'its placements')}")
-    mlp = {"w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
-    if cfg.act == "silu":
-        mlp["w_gate"] = ("embed", "ffn")
-    layer = {"ln1": ("embed",), "ln2": ("embed",),
-             "attn": {"wq": ("embed", "qkv_out"), "wk": ("embed", "kv_out"),
-                      "wv": ("embed", "kv_out"), "wo": ("qkv_out", "embed")},
-             "mlp": mlp}
-    axes = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
-            "layers": [layer] * cfg.num_layers}
+            f"the dense, MoE and MLA decoders only; it lacks "
+            f"{MISSING[cfg.family]}")
+
+
+def _layout(cfg: ModelConfig, leaf) -> PyTree:
+    """``transformer.init``'s tree with ``leaf(axes, shape)`` at each
+    leaf: the reference's logical axes (``mlp_init``, ``moe_init``,
+    ``mla_init``, ``attention_init`` in ``src/repro/models/layers.py``)
+    without the stacked ``"layers"`` axis, and the port's shapes."""
+    _refuse(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+
+    def mlp(ff):
+        p = {"w_up": leaf(("embed", "ffn"), (d, ff)),
+             "w_down": leaf(("ffn", "embed"), (ff, d))}
+        if cfg.act == "silu":
+            p["w_gate"] = leaf(("embed", "ffn"), (d, ff))
+        return p
+
+    if cfg.mla is not None:
+        m, h = cfg.mla, cfg.num_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        attn = {"wdq": leaf(("embed", None), (d, m.q_lora_rank)),
+                "q_norm": leaf(("embed",), (m.q_lora_rank,)),
+                "wuq": leaf((None, "qkv_out"), (m.q_lora_rank, h * qk)),
+                "wdkv": leaf(("embed", None),
+                             (d, m.kv_lora_rank + m.qk_rope_head_dim)),
+                "kv_norm": leaf(("embed",), (m.kv_lora_rank,)),
+                "wuk": leaf((None, "qkv_out"),
+                            (m.kv_lora_rank, h * m.qk_nope_head_dim)),
+                "wuv": leaf((None, "qkv_out"),
+                            (m.kv_lora_rank, h * m.v_head_dim)),
+                "wo": leaf(("qkv_out", "embed"), (h * m.v_head_dim, d))}
+    else:
+        hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        attn = {"wq": leaf(("embed", "qkv_out"), (d, hq * hd)),
+                "wk": leaf(("embed", "kv_out"), (d, hkv * hd)),
+                "wv": leaf(("embed", "kv_out"), (d, hkv * hd)),
+                "wo": leaf(("qkv_out", "embed"), (hq * hd, d))}
+    layer = {"ln1": leaf(("embed",), (d,)), "attn": attn,
+             "ln2": leaf(("embed",), (d,))}
+    if cfg.moe is not None:
+        mc = cfg.moe
+        e, f = mc.pad_experts_to or mc.num_experts, mc.d_ff_expert
+        layer["moe"] = {
+            "router": leaf(("embed", None), (d, mc.num_experts)),
+            "w_gate": leaf(("expert", "embed", "expert_ffn"), (e, d, f)),
+            "w_up": leaf(("expert", "embed", "expert_ffn"), (e, d, f)),
+            "w_down": leaf(("expert", "expert_ffn", "embed"), (e, f, d))}
+        if mc.d_ff_shared:
+            layer["moe"]["shared"] = mlp(mc.d_ff_shared)
+    else:
+        layer["mlp"] = mlp(cfg.d_ff)
+    out = {"embed": leaf(("vocab", "embed"), (v, d))}
     if not cfg.tie_embeddings:
-        axes["head"] = ("embed", "vocab")
-    return axes
+        out["head"] = leaf(("embed", "vocab"), (d, v))
+    out["final_norm"] = leaf(("embed",), (d,))
+    out["layers"] = [layer] * cfg.num_layers
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> PyTree:
+    """The logical axes of a dense, MoE or MLA decoder's parameter tree
+    (``transformer.init``'s layout), the reference's ``split_params`` axes
+    without the stacked ``"layers"`` axis."""
+    return _layout(cfg, lambda axes, shape: axes)
+
+
+def param_shapes(cfg: ModelConfig) -> PyTree:
+    """The shape of each leaf of ``param_axes``' tree."""
+    return _layout(cfg, lambda axes, shape: shape)
+
+
+def check_splits(cfg: ModelConfig, place: PyTree, mesh,
+                 axis: str = "model") -> None:
+    """Raise ``ValueError`` where ``place`` shards a dim of ``cfg``'s
+    parameters over ``axis`` that its size does not split into: the rules
+    check the counts they read (heads, experts, d_ff, the vocabulary) but
+    not every leaf they shard (``expert_ffn``'s d_ff_expert, the shared
+    expert's d_ff_shared under ``"ffn"``, MLA's H·(Dn+Dr) columns under
+    ``qkv_out``)."""
+    n = sharding.axis_sizes(mesh)[axis]
+    bad = []
+
+    def check(path, shape, p):
+        dim = _dim(p, axis)
+        if dim is not None and shape[dim] % n:
+            bad.append(f"{path} dim {dim} of {tuple(shape)}")
+    layers = place["layers"]
+    shapes = param_shapes(cfg)
+    for name in place:
+        if name != "layers":
+            check(name, shapes[name], place[name])
+    if layers:       # every layer's placements are alike: check one
+        _walk(check, "layers/0", shapes["layers"][0], layers[0])
+    if bad:
+        raise ValueError(
+            f"{cfg.name}: {'; '.join(bad)} does not split over the "
+            f"{axis} axis's {n} ranks")
+
+
+def _walk(fn, path: str, shapes: PyTree, place: PyTree) -> None:
+    if isinstance(place, dict):
+        for k in place:
+            _walk(fn, f"{path}/{k}", shapes[k], place[k])
+    else:
+        fn(path, shapes, place)
 
 
 def placements(cfg: ModelConfig, par, mesh) -> PyTree:
-    """Each parameter's placement (``sharding.param_sharding``)."""
-    return sharding.param_sharding(param_axes(cfg), cfg, par, mesh)
+    """Each parameter's placement (``sharding.param_sharding``), after
+    ``check_splits``."""
+    place = sharding.param_sharding(param_axes(cfg), cfg, par, mesh)
+    check_splits(cfg, place, mesh, par.model_axis)
+    return place
 
 
 def _dim(placement: tuple, axis: str) -> Optional[int]:

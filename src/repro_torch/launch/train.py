@@ -15,15 +15,16 @@ width) is the port's own.
 ``--mesh DxM`` trains over a (data D, model M) mesh of D·M ranks: one
 process a rank, under ``torchrun --nproc-per-node D·M`` on a machine with
 that many cards (or one process for ``--mesh 1x1``; on the CPU, inside a
-gloo world of D·M processes).  The model axis runs a dense decoder
-tensor-parallel (``distributed/tensor_parallel.py``): heads mode where the
-query heads split over M, else sequence mode, with the placements of
-``sharding.axis_rules``; data-parallel gradient sums run over the data
-axis as before.  Without a process group the launcher
-initialises one, from torchrun's environment (``RANK``, ``WORLD_SIZE``;
-``cuda:LOCAL_RANK``) or, where that is absent, a world of 1 through a
-``FileStore`` in a temporary directory; a group already present (a test's
-spawned workers) is used as it is.  The backend is NCCL on the card and
+gloo world of D·M processes).  The model axis runs a dense, MoE or MLA
+decoder tensor-parallel (``distributed/tensor_parallel.py``): attention
+in heads mode where the query heads split over M, else in sequence mode;
+the MoE experts split over M where their padded count divides it, else
+each expert's ffn; the placements of ``sharding.axis_rules``;
+data-parallel gradient sums run over the data axis as before.  Without a
+process group the launcher initialises one, from torchrun's environment
+(``RANK``, ``WORLD_SIZE``; ``cuda:LOCAL_RANK``) or, where that is absent,
+a world of 1 through a ``FileStore`` in a temporary directory; a group
+already present (a test's spawned workers) is used as it is.  The backend is NCCL on the card and
 gloo with ``--device cpu`` only; a group of the other backend raises.  The
 launcher builds the (data, model) ``DeviceMesh`` (``launch.mesh``),
 draws the full parameters from the seed on every rank and keeps the
@@ -32,9 +33,11 @@ feeds each rank its rows through ``HostShardedLoader`` (by its data index)
 and runs the loop under the ``ShardContext``, where the train step
 all-reduces the gradients over the data axis.  At a checkpoint every rank
 gathers the full state and rank 0 (data 0, model 0) alone writes it;
-every rank reads it and keeps its shards.  M > 1 with another family than
-dense raises ``NotImplementedError`` before anything is initialised
-(``tensor_parallel.MISSING``).
+every rank reads it and keeps its shards.  M > 1 with a recurrent,
+encoder-decoder or VLM config raises ``NotImplementedError``
+(``tensor_parallel.MISSING``), and a placement whose dim does not split
+over M raises ``ValueError`` naming the leaf
+(``tensor_parallel.check_splits``), both before anything is initialised.
 
 An MLA model (``--arch minicpm3_4b``) trains like the others: its
 decompressed attention (Dqk 96, Dv 64) runs the fresh forward's and the
@@ -95,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "save)")
     ap.add_argument("--mesh", default=None,
                     help="e.g. 2x2 → mesh (data=2, model=2): data-parallel "
-                         "over 2 ranks, a dense decoder tensor-parallel "
-                         "over 2 (torchrun); default: one process, no mesh")
+                         "over 2 ranks, a dense, MoE or MLA decoder "
+                         "tensor-parallel over 2 (torchrun); default: one "
+                         "process, no mesh")
     return ap
 
 
@@ -112,15 +116,19 @@ def mesh_dims(spec: str) -> tuple:
 
 def parse_args(argv=None) -> argparse.Namespace:
     args = build_parser().parse_args(argv)
-    if args.mesh and mesh_dims(args.mesh)[1] > 1:
-        from repro_torch.distributed.tensor_parallel import MISSING
+    if args.mesh:
+        from repro_torch.distributed import sharding, tensor_parallel as tp
+        n_data, n_model = mesh_dims(args.mesh)
         cfg = (configs.get_smoke(args.arch) if args.smoke
                else configs.get(args.arch))
-        if cfg.family != "dense":
+        if cfg.family in tp.MISSING and n_model > 1:
             raise NotImplementedError(
-                f"--mesh {args.mesh}: the model axis runs dense decoders "
-                f"only; {cfg.name} ({cfg.family}) lacks "
-                f"{MISSING.get(cfg.family, 'its placements')}")
+                f"--mesh {args.mesh}: the model axis runs the dense, MoE "
+                f"and MLA decoders only; {cfg.name} ({cfg.family}) lacks "
+                f"{tp.MISSING[cfg.family]}")
+        if cfg.family not in tp.MISSING:
+            sizes = {"data": n_data, "model": n_model}
+            tp.placements(cfg, sharding.derive_parallel(cfg, sizes), sizes)
     return args
 
 

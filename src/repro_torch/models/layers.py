@@ -294,7 +294,8 @@ def _attention_model_axis(p: dict, x: Tensor, cfg: ModelConfig,
 
 def mla_apply(p: dict, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
               cache: Optional[dict] = None,
-              cache_len: Optional[Union[int, Tensor]] = None):
+              cache_len: Optional[Union[int, Tensor]] = None,
+              tp: Optional[_tp.ModelAxis] = None):
     """Multi-head latent attention (MiniCPM3 / DeepSeek-V2): x [B, T, D] →
     (out [B, T, D], cache), the reference's ``mla_apply`` step for step.
 
@@ -316,8 +317,12 @@ def mla_apply(p: dict, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
       k_rope broadcast to the heads] and V = c·W_uv, through
       ``dispatch.sdpa`` (Dqk 96, Dv 64): on CUDA the fresh forward's and
       the backward's (96, 64) instances (``FlashAttention``), k and v read
-      through their own strides; on the CPU their plain versions.
+      through their own strides; on the CPU their plain versions
+      (``_mla_train``).  With ``tp`` the weights are this rank's shards and
+      the attention runs tensor-parallel.
     """
+    if cache is None:
+        return _mla_train(p, x, cfg, tp, positions=positions), None
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.num_heads
@@ -329,29 +334,96 @@ def mla_apply(p: dict, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     c_kv, k_rope = (x @ p["wdkv"]).split([m.kv_lora_rank, rot], dim=-1)
     c_kv = rms_norm(p["kv_norm"], c_kv, cfg.norm_eps)
     k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
-    scale = (nope + rot) ** -0.5
-    if cache is not None:
-        c_all = cache_write(cache["c_kv"], c_kv, cache_len)
-        r_all = cache_write(cache["k_rope"], k_rope, cache_len)
-        wuk3 = p["wuk"].reshape(m.kv_lora_rank, h, nope)
-        q_eff = torch.einsum("bthk,rhk->bthr", q_nope, wuk3)
-        valid = torch.as_tensor(cache_len, dtype=torch.int32,
-                                device=x.device).expand(b) + t
-        ctx = dispatch.mla_attention(cfg, q_eff, q_rope, c_all, r_all,
-                                     causal=t > 1, q_offset=cache_len,
-                                     kv_valid_len=valid, scale=scale,
-                                     decode=(t == 1))
-        wuv3 = p["wuv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
-        out = torch.einsum("bthr,rhk->bthk", ctx, wuv3)
-    else:
-        k_nope = (c_kv @ p["wuk"]).reshape(b, t, h, nope)
-        v = (c_kv @ p["wuv"]).reshape(b, t, h, m.v_head_dim)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rot)],
-                      dim=-1)
-        qc = torch.cat([q_nope, q_rope], dim=-1)
-        out = dispatch.sdpa(cfg, qc, k, v, causal=True, q_offset=0,
-                            kv_valid_len=None, scale=scale)
+    c_all = cache_write(cache["c_kv"], c_kv, cache_len)
+    r_all = cache_write(cache["k_rope"], k_rope, cache_len)
+    wuk3 = p["wuk"].reshape(m.kv_lora_rank, h, nope)
+    q_eff = torch.einsum("bthk,rhk->bthr", q_nope, wuk3)
+    valid = torch.as_tensor(cache_len, dtype=torch.int32,
+                            device=x.device).expand(b) + t
+    ctx = dispatch.mla_attention(cfg, q_eff, q_rope, c_all, r_all,
+                                 causal=t > 1, q_offset=cache_len,
+                                 kv_valid_len=valid,
+                                 scale=(nope + rot) ** -0.5, decode=(t == 1))
+    wuv3 = p["wuv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bthr,rhk->bthk", ctx, wuv3)
     return out.reshape(b, t, h * m.v_head_dim) @ p["wo"], cache
+
+
+def _mla_train(p: dict, x: Tensor, cfg: ModelConfig,
+               tp: Optional[_tp.ModelAxis], *, positions: Tensor) -> Tensor:
+    """MLA's training form, x [B, T, D] → out [B, T, D]: without ``tp``
+    every head; with ``tp`` on the model axis, x and out replicated over
+    the group, in one of two modes.
+
+    heads mode (H divisible by M): ``cq``, ``c_kv`` and ``k_rope`` computed
+    whole from the replicated x and weights (wdq, q_norm, wdkv, kv_norm),
+    each through ``copy_to_model`` just before its rank-specific use (so
+    those four weights get whole gradients without one); the rank's H/M
+    heads from its columns of wuq / wuk / wuv (head-major: a block of
+    columns is a block of heads); rows 6m / 7m at the local heads; the
+    rank's rows of wo; the partial outputs summed (``reduce_from_model``).
+
+    sequence mode: every weight gathered whole where ``qkv_out`` shards it
+    (``gather_weight``) or passed through ``copy_to_model`` (the low-rank
+    projections and both norms too: here they act on rank-specific rows);
+    q for the rank's rows [r·T/M, (r+1)·T/M) at their RoPE positions,
+    ``c_kv`` / ``k_rope`` for keys [0, (r+1)·T/M); rows 6m / 7m at causal
+    offset r·T/M; the rows through wo, then gathered (``gather_rows``).
+    T % M != 0 raises."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h, eps, theta = cfg.num_heads, cfg.norm_eps, cfg.rope_theta
+    nope, rot, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    heads = tp is None or tp.mode == "heads"
+    if heads:
+        w, lo, hi = p, 0, t
+        h = h if tp is None else h // tp.size
+        qx = kx = x
+    else:
+        if t % tp.size:
+            raise ValueError(f"sequence-parallel attention: T={t} does not "
+                             f"split over the model axis's {tp.size} ranks")
+        w = {name: (_tp.gather_weight(p[name], dim, tp)
+                    if dim is not None and tp.shards("qkv_out")
+                    else _tp.copy_to_model(p[name], tp))
+             for name, dim in (("wdq", None), ("q_norm", None), ("wuq", 1),
+                               ("wdkv", None), ("kv_norm", None),
+                               ("wuk", 1), ("wuv", 1), ("wo", 0))}
+        x = _tp.copy_to_model(x, tp)
+        rows = t // tp.size
+        lo, hi = tp.index * rows, (tp.index + 1) * rows
+        qx, kx = x[:, lo:hi], x[:, :hi]
+    cq = rms_norm(w["q_norm"], qx @ w["wdq"], eps)
+    c_kv, k_rope = (kx @ w["wdkv"]).split([r, rot], dim=-1)
+    c_kv = rms_norm(w["kv_norm"], c_kv, eps)
+    k_rope = rope(k_rope[:, :, None, :], positions[..., :hi], theta)[:, :, 0]
+    if tp is not None and heads:
+        cq, c_kv, k_rope = (_tp.copy_to_model(z, tp)
+                            for z in (cq, c_kv, k_rope))
+    q = (cq @ w["wuq"]).reshape(b, hi - lo, h, nope + rot)
+    q_nope, q_rope = q.split([nope, rot], dim=-1)
+    q_rope = rope(q_rope, positions[..., lo:hi], theta)
+    k_nope = (c_kv @ w["wuk"]).reshape(b, hi, h, nope)
+    v = (c_kv @ w["wuv"]).reshape(b, hi, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, hi, h, rot)],
+                  dim=-1)
+    out = dispatch.sdpa(cfg, torch.cat([q_nope, q_rope], dim=-1), k, v,
+                        causal=True, q_offset=lo, kv_valid_len=None,
+                        scale=(nope + rot) ** -0.5)
+    out = out.reshape(b, hi - lo, h * m.v_head_dim) @ w["wo"]
+    if tp is None:
+        return out
+    return (_tp.reduce_from_model(out, tp) if heads
+            else _tp.gather_rows(out, 1, tp))
+
+
+def _mlp(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    up = x @ p["w_up"]
+    if cfg.act == "silu":
+        h = F.silu(x @ p["w_gate"]) * up
+    else:
+        h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    return h @ p["w_down"]
 
 
 def mlp_apply(p: dict, x: Tensor, cfg: ModelConfig,
@@ -359,16 +431,9 @@ def mlp_apply(p: dict, x: Tensor, cfg: ModelConfig,
     """The MLP; with ``tp`` where ``ffn`` shards, column-parallel w_up /
     w_gate and row-parallel w_down between ``copy_to_model`` and
     ``reduce_from_model``."""
-    tp = tp if tp is not None and tp.shards("ffn") else None
-    if tp is not None:
-        x = _tp.copy_to_model(x, tp)
-    up = x @ p["w_up"]
-    if cfg.act == "silu":
-        h = F.silu(x @ p["w_gate"]) * up
-    else:
-        h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    y = h @ p["w_down"]
-    return y if tp is None else _tp.reduce_from_model(y, tp)
+    if tp is None or not tp.shards("ffn"):
+        return _mlp(p, x, cfg)
+    return _tp.reduce_from_model(_mlp(p, _tp.copy_to_model(x, tp), cfg), tp)
 
 
 class MoERoute(NamedTuple):
@@ -417,7 +482,8 @@ def moe_route(p: dict, xg: Tensor, cfg: ModelConfig) -> MoERoute:
 
 
 def moe_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
-              aux: bool = True) -> tuple[Tensor, dict]:
+              aux: bool = True,
+              tp: Optional[_tp.ModelAxis] = None) -> tuple[Tensor, dict]:
     """Mixture of experts on x [B, T, D] → (y [B, T, D], aux losses).
 
     The reference's capacity-bucketed one-hot form (``moe_apply`` at
@@ -437,38 +503,66 @@ def moe_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     (mean router probability of e), and the z-loss ``router_z_loss`` ×
     mean(lse²) from the kernel's lse.  Serving passes ``aux=False`` and
     gets ``{}``: only the training loss reads them (the reference's jitted
-    serving step drops them as dead code)."""
+    serving step drops them as dead code).
+
+    ``tp`` (training): the weights are this rank's shards.  Routing stays
+    whole on every rank (the router product, row 1, the places), so every
+    rank drops the same assignments as one process would, and the aux
+    losses come out the same on every rank, their gradient whole.  Expert
+    mode (``expert`` shards): rank r holds experts [r·E_pad/M,
+    (r+1)·E_pad/M) and runs the dispatch and combine columns of those; ffn
+    mode (``expert_ffn`` shards): it holds every expert's F/M columns and
+    runs every bucket on them.  Either way its output is a partial sum:
+    x and the renormalized probabilities that build the combine pass
+    ``copy_to_model`` (the router weight, the logits and the lse do not),
+    and one ``reduce_from_model`` sums the experts' partials, with the
+    shared expert's where ``ffn`` shards it; a replicated shared expert is
+    added after the sum."""
     mc = cfg.moe
     b, t, d = x.shape
     e_pad = mc.pad_experts_to or mc.num_experts
     k = mc.experts_per_token
     s = min(mc.group_size, t)
     g = (b * t) // s
-    xg = x.reshape(g, s, d)
-    r = moe_route(p, xg, cfg)
+    r = moe_route(p, x.reshape(g, s, d), cfg)
+    losses = {}
+    if aux:
+        me = r.em.sum(2).mean(1)                               # [G, E_pad]
+        pe = F.pad(torch.softmax(r.logits, dim=-1).mean(1),
+                   (0, e_pad - mc.num_experts))
+        losses = {"moe_lb_loss": mc.num_experts * (me * pe).sum(-1).mean(),
+                  "moe_z_loss": mc.router_z_loss * r.lse.square().mean()}
+    xc, probs, pos, em = x, r.probs, r.pos, r.em
+    if tp is not None:
+        xc, probs = _tp.copy_to_model(x, tp), _tp.copy_to_model(probs, tp)
+        if tp.shards("expert"):
+            n = e_pad // tp.size
+            mine = slice(tp.index * n, (tp.index + 1) * n)
+            pos, em = pos[..., mine], em[..., mine]
+    shared_ffn = tp is not None and tp.shards("ffn")
+    shared = (_mlp(p["shared"], xc if shared_ffn else x, cfg)
+              if "shared" in p else None)
+    e_loc = em.shape[-1]
     # one-hot of each kept assignment's place; -1 and places past C match
     # nothing, so unrouted and dropped assignments give zero rows
-    disp = (r.pos[..., None] == torch.arange(
-        r.cap, device=x.device, dtype=r.pos.dtype)).float()    # [G,SK,E,C]
-    disp = disp.reshape(g, s, k, e_pad, r.cap)
-    combine = torch.einsum("gske,gskec->gsec", r.em * r.probs[..., None],
-                           disp)
-    xe = torch.einsum("gsec,gsd->egcd", disp.sum(2).to(x.dtype), xg)
-    xe = xe.reshape(e_pad, g * r.cap, d)
+    disp = (pos[..., None] == torch.arange(
+        r.cap, device=x.device, dtype=pos.dtype)).float()      # [G,SK,E,C]
+    disp = disp.reshape(g, s, k, e_loc, r.cap)
+    combine = torch.einsum("gske,gskec->gsec", em * probs[..., None], disp)
+    xe = torch.einsum("gsec,gsd->egcd", disp.sum(2).to(x.dtype),
+                      xc.reshape(g, s, d))
+    xe = xe.reshape(e_loc, g * r.cap, d)
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(h, p["w_down"]).reshape(e_pad, g, r.cap, d)
+    ye = torch.bmm(h, p["w_down"]).reshape(e_loc, g, r.cap, d)
     y = torch.einsum("egcd,gsec->gsd", ye, combine.to(x.dtype))
     y = y.reshape(b, t, d)
-    if "shared" in p:
-        y = y + mlp_apply(p["shared"], x, cfg)
-    if not aux:
-        return y, {}
-    me = r.em.sum(2).mean(1)                                   # [G, E_pad]
-    pe = F.pad(torch.softmax(r.logits, dim=-1).mean(1),
-               (0, e_pad - mc.num_experts))
-    lb_loss = mc.num_experts * (me * pe).sum(-1).mean()
-    z_loss = mc.router_z_loss * r.lse.square().mean()
-    return y, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
+    if shared_ffn:
+        y = y + shared
+    if tp is not None:
+        y = _tp.reduce_from_model(y, tp)
+    if shared is not None and not shared_ffn:
+        y = y + shared
+    return y, losses
 
 
 def embed_tokens(p: dict, tokens: Tensor,

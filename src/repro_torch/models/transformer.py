@@ -288,10 +288,10 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     sequence) or a [B] tensor (per-slot offsets).  Layer i sees leaf ``[i]``
     of every cache leaf, so an int8 cache's scales travel with its K/V.
 
-    Without caches, under a context whose mesh has the model axis, a dense
-    model's ``params`` are this rank's shards and the layers run
-    tensor-parallel (``tensor_parallel.model_axis``); the hidden state
-    comes back whole on every rank."""
+    Without caches, under a context whose mesh has the model axis, a
+    dense, MoE or MLA model's ``params`` are this rank's shards and the
+    layers run tensor-parallel (``tensor_parallel.model_axis``); the hidden
+    state and the aux losses come back whole on every rank."""
     tp = tp_mod.model_axis(cfg) if caches is None else None
     x = L.embed_tokens(params, tokens, tp)
     if cfg.num_patches and patch_embeds is not None:
@@ -338,8 +338,10 @@ def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
     [norm → Mamba2] (mamba); the xLSTM blocks, which hold their own norms
     and residuals (mlstm, slstm).  The recurrent kinds take no block tables
     either, and ignore ``positions`` and ``cache_len``.  ``tp``: the model
-    axis a dense block runs on (``tensor_parallel.model_axis``).  Returns
-    (x, the MoE aux losses when ``aux``, else {})."""
+    axis a dense, MoE or MLA block runs on (``tensor_parallel.model_axis``;
+    the norms act on the replicated activations, each sublayer on the
+    rank's shards).  Returns (x, the MoE aux losses when ``aux``, else
+    {})."""
     if kind in STATE_LEAVES:
         if block_tables is not None:
             raise ValueError("paged KV cache serves standard attention "
@@ -358,7 +360,7 @@ def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
             raise ValueError("paged KV cache serves standard attention "
                              "blocks only (got 'mla')")
         a, _ = L.mla_apply(lp["attn"], h, cfg, positions=positions,
-                           cache=cache, cache_len=cache_len)
+                           cache=cache, cache_len=cache_len, tp=tp)
     else:
         a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions,
                                  cache=cache, cache_len=cache_len,
@@ -366,7 +368,7 @@ def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
     x = x + a
     h = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
-        m, losses = L.moe_apply(lp["moe"], h, cfg, aux=aux)
+        m, losses = L.moe_apply(lp["moe"], h, cfg, aux=aux, tp=tp)
         return x + m, losses
     return x + L.mlp_apply(lp["mlp"], h, cfg, tp), {}
 

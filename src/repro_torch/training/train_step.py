@@ -28,13 +28,14 @@ global one (the scaled losses summed).  Clipping and AdamW run on the
 reduced gradients, so the ranks stay identical.  An aux loss (MoE) enters
 as the count-weighted mean of the ranks' aux terms.
 
-Under a context whose mesh has a model axis, a dense decoder's state is
-this rank's model-axis shards (``init_state`` draws the full tree from the
-run's seed and keeps ``tensor_parallel.shard_tree`` of it), the loss runs
-tensor-parallel (``transformer.loss_fn``), and the step runs as above on
-the shards: ``_label_share`` and the gradient sum stay over the data axes,
-and the global norm of AdamW's clipping sums the sharded leaves' squares
-over the model group (``adamw.update(sharded=, group=)``).
+Under a context whose mesh has a model axis, a dense, MoE or MLA
+decoder's state is this rank's model-axis shards (``init_state`` draws
+the full tree from the run's seed and keeps ``tensor_parallel.shard_tree``
+of it), the loss runs tensor-parallel (``transformer.loss_fn``), and the
+step runs as above on the shards: ``_label_share`` and the gradient sum
+stay over the data axes, and the global norm of AdamW's clipping sums the
+sharded leaves' squares over the model group (``adamw.update(sharded=,
+group=)``).
 """
 from __future__ import annotations
 
@@ -172,10 +173,11 @@ def init_state(run: RunConfig, *,
     full-width model takes over a minute (``tools/init_times.py``), so a
     card run draws other numbers from the same seed than a CPU run.  On
     the ambient model axis every rank draws the full tree and keeps its
-    shards (``tensor_parallel.shard_tree``)."""
+    shards (``tensor_parallel.shard_tree``); a placement that does not
+    split (``tensor_parallel.check_splits``) raises before the draw."""
+    shard = tensor_parallel.state_sharding(run.model)   # refuses first
     params = init_for(run.model)(run.model, seed=run.seed, device=device,
                                  draw_device=device)
-    shard = tensor_parallel.state_sharding(run.model)
     if shard is not None:
         params = tensor_parallel.shard_tree(params, shard.place, shard.mesh,
                                             shard.axis)

@@ -2041,21 +2041,25 @@ def test_sharded_lockstep_world1_on_card(cuda, tmp_path):
     assert counts["flash_decode"] == 0 and counts["softmax_topk"] == 6
 
 
+@pytest.mark.parametrize("heads", [(15, 5, 64, 64), (40, 40, 96, 64)],
+                         ids=["d64", "mla"])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 3e-2)],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("q_offset", [16, 48, 384])
-def test_offset_kernels_match_plain(cuda, dtype, atol, q_offset):
+def test_offset_kernels_match_plain(cuda, dtype, atol, q_offset, heads):
     """Rows 6 and 7 at a causal offset (Tq 128 over Tk = offset + 128,
-    15/5 heads of 64) against their plain versions in float64, each
-    tensor within ``atol`` of its largest entry; the launches count under
-    the offset names."""
+    15/5 heads of 64; and rows 6m / 7m, minicpm3's 40 MLA heads at (Dqk
+    96, Dv 64), the shifted instances its sequence mode launches) against
+    their plain versions in float64, each tensor within ``atol`` of its
+    largest entry; the launches count under the offset names."""
+    hq, hkv, d, dv = heads
     gen = torch.Generator().manual_seed(q_offset)
     tq, tk = 128, q_offset + 128
-    q = torch.randn(2, tq, 15, 64, generator=gen)
-    k = torch.randn(2, tk, 5, 64, generator=gen)
-    v = torch.randn(2, tk, 5, 64, generator=gen)
-    dout = torch.randn(2, tq, 15, 64, generator=gen)
+    q = torch.randn(2, tq, hq, d, generator=gen)
+    k = torch.randn(2, tk, hkv, d, generator=gen)
+    v = torch.randn(2, tk, hkv, dv, generator=gen)
+    dout = torch.randn(2, tq, hq, dv, generator=gen)
     dev = [x.to(cuda, dtype) for x in (q, k, v, dout)]
     before = (fa.launches["flash_attention_qoffset"],
               fab.launches["flash_attention_bwd_dkv_qoffset"])

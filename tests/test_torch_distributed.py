@@ -19,8 +19,10 @@ int8 values exact and fp32 1e-7; placements equal; the data-parallel step
 1e-6 relative to the single-process step (the parameters after AdamW, and
 the loss), and the reference's step within the lr-scaled bound of
 ``tests/test_torch_training.py``; the model axis's step 1e-5 of each
-leaf's largest against the unsharded port step, and the reference's
-within the data-parallel bound.
+leaf's largest against the unsharded port step (its clipping norm 1e-5
+relative, its MoE routing equal exactly), and the reference's within the
+data-parallel bound; the MoE CLI run's checkpoint, its moments within 2⁻⁵
+of each leaf's largest (gradients reduced in bf16).
 """
 import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import fcntl
@@ -50,7 +52,8 @@ from repro_torch.distributed.decode_attention import \
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
-from torch_distributed_world import _unflat  # noqa: E402
+from torch_distributed_world import (SINGLE_RANK, VARIANTS,  # noqa: E402
+                                     _unflat, variant)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_SCRIPT = os.path.join(REPO, "tests", "torch_distributed_world.py")
@@ -61,6 +64,11 @@ VLENS = [64, 40, 17, 1]
 V = 512
 PLACEMENT_ARCHS = ("smollm_360m", "qwen2_moe_a2p7b", "zamba2_1p2b")
 DP_CASES = ("equal", "unequal", "bf16")
+#: the MoE and MLA variants whose reference steps the subprocess takes
+#: (smollm's "w" and mistral-nemo's "wm" have theirs above), and their
+#: weights' seeds
+NEW_VARIANTS = {k: v for k, v in VARIANTS.items() if k not in ("w", "wm")}
+VARIANT_SEEDS = {"wq": 2, "wq6": 3, "wl": 4, "wc": 5, "wc3": 6}
 
 # The reference side: 4 host devices, everything under jit, results to
 # REF.npz / REF.json.
@@ -178,6 +186,25 @@ REFERENCE = textwrap.dedent('''
     for path, leaf in jax.tree_util.tree_leaves_with_path(params):
         out["train_mistral:" + jax.tree_util.keystr(path)] = \\
             np.asarray(leaf)
+    # the MoE and MLA variants (VARIANTS of tests/torch_distributed_world.py)
+    import dataclasses
+    for prefix, (arch, changes) in %(variants)r.items():
+        vcfg = configs.get_smoke(arch).replace(num_layers=2)
+        changes = dict(changes)
+        if "moe" in changes:
+            changes["moe"] = dataclasses.replace(vcfg.moe, **changes["moe"])
+        vcfg = vcfg.replace(**changes)
+        params = unflat({k[len(prefix) + 1:]: v for k, v in inp.items()
+                         if k.startswith(prefix + "/")})
+        params, _, m = jax.jit(make_train_step(RunConfig(
+            model=vcfg, optimizer=OptimizerConfig(
+                lr=1e-3, warmup_steps=0, schedule="constant"),
+            parallel=ParallelConfig(grad_reduce_dtype="float32"))))(
+                params, adamw.init(params), batch)
+        out[f"train_loss_{prefix}"] = np.asarray(m["loss"])
+        for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+            out[f"train_{prefix}:" + jax.tree_util.keystr(path)] = \\
+                np.asarray(leaf)
     steps = {}
     for case in %(cases)r:
         dtype = "bfloat16" if case == "bf16" else "float32"
@@ -197,7 +224,8 @@ REFERENCE = textwrap.dedent('''
     np.savez(sys.argv[2], **out)
     with open(sys.argv[3], "w") as f:
         json.dump(meta, f)
-''') % dict(archs=PLACEMENT_ARCHS, meshes=MESHES, cases=DP_CASES)
+''') % dict(archs=PLACEMENT_ARCHS, meshes=MESHES, cases=DP_CASES,
+       variants=NEW_VARIANTS)
 
 
 def _flat_numpy(t, prefix=""):
@@ -246,6 +274,13 @@ def _inputs() -> dict:
     cfg = ref_configs.get_smoke("mistral_nemo_12b").replace(num_layers=2)
     params, _, _ = ref_init(RRun(model=cfg), jax.random.PRNGKey(1))
     inp.update({"wm/" + k: v for k, v in _flat_numpy(params).items()})
+    for prefix, seed in VARIANT_SEEDS.items():
+        run = RRun(model=variant(prefix, ref_configs))
+        # jitted: op by op these draws took ~6 s each
+        params = jax.jit(lambda key: ref_init(run, key)[0])(
+            jax.random.PRNGKey(seed))
+        inp.update({f"{prefix}/{k}": v
+                    for k, v in _flat_numpy(params).items()})
     ds = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size,
                                           seq_len=32, global_batch=8,
                                           seed=3))
@@ -680,22 +715,36 @@ def test_routes_refused_under_a_context():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.process_group("cuda")
     with pytest.raises(NotImplementedError, match="model axis"):
-        train.parse_args(["--arch", "qwen2_moe_a2p7b", "--mesh", "1x2"])
+        train.parse_args(["--arch", "zamba2_1p2b", "--mesh", "1x2"])
     assert train.parse_args(["--arch", "smollm_360m", "--mesh", "1x2"]).mesh \
         == "1x2"
 
 
 # ---------------------------------------------------------------------------
-# the model axis: tensor-parallel training of the dense decoders
+# the model axis: tensor-parallel training of the dense, MoE and MLA decoders
 # ---------------------------------------------------------------------------
 MODEL_AXIS_CASES = ("smollm_1x4", "smollm_2x2", "mistral_2x2", "mistral_1x4",
-                    "smollm_block_1x4")
-MODEL_AXIS_MODES = {"smollm": "sequence", "mistral": "heads"}
+                    "smollm_block_1x4", "qwen2_1x4", "qwen2_2x2",
+                    "qwen2e6_1x4", "llama4_1x4", "llama4_2x2",
+                    "minicpm3_1x4", "minicpm3_2x2", "minicpm3h3_1x4")
+#: each case's variant (its weights' prefix, ``VARIANTS``), attention mode
+#: and, for an MoE model, how its experts split
+MODEL_AXIS_MODES = {"smollm": ("w", "sequence", None),
+                    "mistral": ("wm", "heads", None),
+                    "qwen2": ("wq", "heads", "expert"),
+                    "qwen2e6": ("wq6", "heads", "ffn"),
+                    "llama4": ("wl", "heads", "expert"),
+                    "minicpm3": ("wc", "heads", None),
+                    "minicpm3h3": ("wc3", "sequence", None)}
+MOE_CASES = tuple(n for n in MODEL_AXIS_CASES
+                  if MODEL_AXIS_MODES[n.split("_")[0]][2])
 
 
 def _model_axis_single(ranks, name):
-    return (ranks[1]["single_mistral"] if name.startswith("mistral")
-            else ranks[0]["single_equal"])
+    prefix = MODEL_AXIS_MODES[name.split("_")[0]][0]
+    if prefix == "w":
+        return ranks[0]["single_equal"]
+    return ranks[SINGLE_RANK[prefix]][f"single_{prefix}"][:3]
 
 
 @pytest.mark.parametrize("name", MODEL_AXIS_CASES)
@@ -703,19 +752,24 @@ def test_model_axis_step_matches_unsharded(run, name):
     """One step on the model axis from the full fp32 weights, every rank
     holding its shards (smollm's 3 heads in sequence mode at (1, 4) and
     (2, 2), mistral-nemo's 4 heads in heads mode with its kv heads sharded
-    at (2, 2) and expanded at (1, 4), remat "block" at (1, 4)), against
-    the port's unsharded step on the whole batch: the loss on every rank
-    within 1e-5 relative; the gathered gradients AdamW took, and the
-    gathered parameters after it, within 1e-5 of each leaf's largest
-    entry.  Adam's first step moves an entry by lr·g / (|g| + eps): where
-    |g| is within a few hundred eps (1e-8) of 0 the last bits of g, which
-    the ranks sum in another order, decide the move, so there the
-    parameters are held to Adam's bound of 2·lr instead (as the
+    at (2, 2) and expanded at (1, 4), remat "block" at (1, 4); qwen2-moe's
+    experts split over the ranks, its unpadded 6 in ffn mode; llama4-scout
+    top 1; minicpm3's MLA in heads mode, and with 3 heads in sequence
+    mode), against the port's unsharded step on the whole batch: the loss
+    on every rank within 1e-5 relative; the gathered gradients AdamW took,
+    and the gathered parameters after it, within 1e-5 of each leaf's
+    largest entry.  Adam's first step moves an entry by lr·g / (|g| +
+    eps): where |g| is within a few hundred eps (1e-8) of 0 the last bits
+    of g, which the ranks sum in another order, decide the move, so there
+    the parameters are held to Adam's bound of 2·lr instead (as the
     data-parallel step's test does)."""
     _, _, _, ranks = run
     want, want_loss, want_g = _model_axis_single(ranks, name)
-    got, _, got_g, mode, counts = ranks[0][f"ma_{name}"]
-    assert mode == MODEL_AXIS_MODES[name.split("_")[0]]
+    got, _, got_g, mode, counts, experts = ranks[0][f"ma_{name}"][:6]
+    _, want_mode, want_experts = MODEL_AXIS_MODES[name.split("_")[0]]
+    assert mode == want_mode
+    if want_experts:
+        assert experts == want_experts
     assert counts["all_reduce"] > 0
     assert (counts["all_gather"] > 0) == (mode == "sequence")
     for rank, out in enumerate(ranks):
@@ -743,8 +797,9 @@ def test_model_axis_step_matches_reference(run, name):
     the parameters within the bound the data-parallel step's test holds
     them to."""
     _, ref, _, ranks = run
-    got, loss, _, _, _ = ranks[0][f"ma_{name}"]
-    case = "mistral" if name.startswith("mistral") else "equal"
+    got, loss = ranks[0][f"ma_{name}"][:2]
+    prefix = MODEL_AXIS_MODES[name.split("_")[0]][0]
+    case = {"w": "equal", "wm": "mistral"}.get(prefix, prefix)
     np.testing.assert_allclose(
         loss, float(ref["train_loss_" + case]), rtol=1e-5)
     ref_flat = {}
@@ -761,13 +816,88 @@ def test_model_axis_step_matches_reference(run, name):
         assert (diff > 1e-5).mean() <= 0.01, (path, (diff > 1e-5).mean())
 
 
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_model_axis_moe_routing_is_replicated(run, name):
+    """The router runs whole on every model rank: every rank's chosen
+    experts and kept assignments, in every ``moe_route`` call of the step
+    (each layer's forward and its recomputation), equal the unsharded
+    step's on the rank's rows exactly, and the aux losses (load balance,
+    z-loss) come out the same on every rank and within 1e-5 relative of
+    the unsharded step's."""
+    _, _, _, ranks = run
+    prefix = MODEL_AXIS_MODES[name.split("_")[0]][0]
+    _, _, _, want_aux, want_routes = \
+        ranks[SINGLE_RANK[prefix]][f"single_{prefix}"][:5]
+    assert sorted(want_aux) == ["moe_lb_loss", "moe_z_loss"]
+    aux0 = ranks[0][f"ma_{name}"][6]
+    for rank, out in enumerate(ranks):
+        aux, (rows, routes) = out[f"ma_{name}"][6:8]
+        assert aux == aux0, rank
+        for k, v in want_aux.items():
+            np.testing.assert_allclose(aux[k], v, rtol=1e-5, err_msg=k)
+        assert len(routes) == len(want_routes) > 0
+        for (idx, keep), (w_idx, w_keep) in zip(routes, want_routes):
+            # a group is a row of the batch (group_size = T), so the
+            # rank's rows are its groups
+            assert torch.equal(idx, w_idx[rows]), rank
+            assert torch.equal(keep, w_keep[rows]), rank
+
+
+@pytest.mark.parametrize("name", [n for n in MODEL_AXIS_CASES
+                                  if not n.startswith("smollm")])
+def test_model_axis_grad_norm_matches_unsharded(run, name):
+    """The clipping norm of the sharded step (the sharded leaves' squares
+    summed over the model group, the replicated ones, the MoE router and
+    MLA's wdq / wdkv / norms among them, counted once) equals the
+    unsharded step's within 1e-5 relative on every rank."""
+    _, _, _, ranks = run
+    prefix = MODEL_AXIS_MODES[name.split("_")[0]][0]
+    want = ranks[SINGLE_RANK[prefix]][f"single_{prefix}"][5]
+    for rank, out in enumerate(ranks):
+        np.testing.assert_allclose(out[f"ma_{name}"][8], want, rtol=1e-5,
+                                   err_msg=f"rank {rank}")
+
+
+def test_model_axis_checkpoint_holds_experts_whole(run):
+    """``--mesh 2x2`` on qwen2-moe's smoke config writes its state at step
+    3 gathered whole: every leaf of the parameters and of AdamW's moments
+    (the experts' [8, 64, 96] among them) has the unsharded run's shape,
+    the moments within 2⁻⁵ of each leaf's largest entry (the CLI reduces
+    gradients in bf16, its default ``grad_reduce_dtype``: the data group's
+    addition rounds where one process casts once, the bound of the bf16
+    data-parallel test), the parameters within Adam's bound over the 3
+    steps' learning rates (2 · Σ lr)."""
+    _, _, _, ranks = run
+    saved = ranks[0]["ma_saved_qwen2"]
+    assert all(v is not None for v in saved.values()), saved
+    assert saved["opt/mu/layers/0/moe/w_gate"][0] == (8, 64, 96)
+    assert saved["params/layers/1/moe/w_down"][0] == (8, 96, 64)
+    lr = sum(3e-4 * min(1.0, i / 20) for i in range(3))   # the CLI's warmup
+    for key, (shape, want_shape, diff, peak) in saved.items():
+        assert shape == want_shape, key
+        if key.startswith("opt/"):
+            assert diff <= 2 ** -5 * peak, (key, diff, peak)
+        elif key.startswith("params/"):
+            assert diff <= 2 * lr + 1e-6, (key, diff)
+
+
 def test_model_axis_cli_mesh_2x2(run):
     """``launch.train --mesh 2x2 --device cpu`` (smollm smoke, sequence
     mode): 3 steps, the same losses on every rank, each within 1e-5
     relative of the unsharded run's on the same flags."""
+    _cli_matches_unsharded(run, "")
+
+
+def test_model_axis_cli_mesh_2x2_moe(run):
+    """The same on qwen2-moe's smoke config: its 8 experts 4 a rank, the
+    router's aux losses in the loss."""
+    _cli_matches_unsharded(run, "_qwen2")
+
+
+def _cli_matches_unsharded(run, tag):
     _, _, _, ranks = run
-    want = ranks[0]["ma_cli_single"]
-    got = [out["ma_cli"] for out in ranks]
+    want = ranks[0]["ma_cli_single" + tag]
+    got = [out["ma_cli" + tag] for out in ranks]
     assert len(want) == 3 and all(g == got[0] for g in got)
     np.testing.assert_allclose(got[0], want, rtol=1e-5)
 
@@ -776,18 +906,26 @@ def test_model_axis_crash_restart_is_exact(run):
     """``--mesh 2x2``: killed at step 3 after the step-2 checkpoint (the
     full state gathered and written by rank 0) and restarted, every rank's
     final shards equal an uninterrupted 4-step run's bit for bit."""
+    _restart_is_exact(run, "")
+
+
+def test_model_axis_crash_restart_is_exact_mla(run):
+    """The same on minicpm3's smoke config (MLA in heads mode)."""
+    _restart_is_exact(run, "_minicpm3")
+
+
+def _restart_is_exact(run, tag):
     _, _, _, ranks = run
     for rank, out in enumerate(ranks):
-        crashed, steps, same = out["ma_restart"]
+        crashed, steps, same = out["ma_restart" + tag]
         assert crashed and steps == [2, 3] and same, rank
 
 
-@pytest.mark.parametrize("arch", ["qwen2_moe_a2p7b", "minicpm3_4b",
-                                  "zamba2_1p2b", "whisper_small",
-                                  "llava_next_34b"])
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_125m",
+                                  "whisper_small", "llava_next_34b"])
 def test_model_axis_refuses_other_families(run, arch):
-    """``--mesh 1x2`` on an MoE, MLA, recurrent, encoder-decoder or VLM
-    config raises ``NotImplementedError`` naming what it lacks."""
+    """``--mesh 1x2`` on a recurrent, encoder-decoder or VLM config raises
+    ``NotImplementedError`` naming what it lacks."""
     _, _, _, ranks = run
     msg = ranks[0]["ma_refusals"][arch]
     assert msg.startswith("NotImplementedError") and "lacks" in msg, msg

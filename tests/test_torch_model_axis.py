@@ -15,20 +15,30 @@ package.
   against the reference's unsharded ``chunked_cross_entropy``, loss and
   gradients, at M 1, 2 and 4, with labels in every shard and z-loss on and
   off;
-* ``shard_tree`` / ``gather_tree`` round trips on smollm's and
-  mistral-nemo's smoke placements over (1, 2), (1, 4) and (2, 2), M ranks
-  simulated in turn.
+* ``shard_tree`` / ``gather_tree`` round trips on the dense, MoE and MLA
+  smoke placements over (1, 2), (1, 4) and (2, 2), M ranks simulated in
+  turn; ``param_axes`` against the reference's ``split_params`` axes;
+* the MoE block (expert and ffn mode) and MLA's attention (heads and
+  sequence mode) on M ranks run as threads of this process, whose
+  collectives meet at a barrier (``_Threads``), against ``jax.vjp`` of the
+  reference's unsharded ``moe_apply`` / ``mla_apply``; rows 6m / 7m's
+  plain versions at q offsets; the refusal of a dim that does not split.
 
 Tolerances: float32 on both sides, forward and gradients within rtol 1e-5
 / atol 2e-5 (gradients sum over up to T keys); the block sums within 1e-5
 of the whole launch (the same plain arithmetic, summed in another order);
 the CE loss within rtol 1e-6 and its gradients within rtol 1e-5 / atol
-1e-6, as ``tests/test_torch_train_kernels.py`` holds the unsharded CE.  The
-CUDA kernels at an offset are held against these plain versions in
-``tests/test_torch_cuda.py`` (``-k offset_kernels``), a file that imports
-no JAX, so that they run on the card.
+1e-6, as ``tests/test_torch_train_kernels.py`` holds the unsharded CE; the
+sharded blocks within 1e-5 of each tensor's largest entry, the MoE routing
+equal exactly.  The CUDA kernels at an offset are held against these
+plain versions in ``tests/test_torch_cuda.py`` (``-k offset_kernels``), a
+file that imports no JAX, so that they run on the card.
 """
 import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
+import dataclasses
+import functools
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -36,8 +46,11 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import repro.configs as ref_configs  # noqa: E402
 from repro.core import attention as RA  # noqa: E402
 from repro.core import cross_entropy as RCE  # noqa: E402
+from repro.models import layers as RL  # noqa: E402
+from repro.models import transformer as RT  # noqa: E402
 from repro_torch import configs, tree  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.core import cross_entropy as CE  # noqa: E402
@@ -45,6 +58,8 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=2e-5)
@@ -93,6 +108,48 @@ def test_offset_plain_versions_match_reference(q_offset, heads):
                                **TOL)
     for x, want in zip((qs, ks, vs), (ref_dq, ref_dk, ref_dv)):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("q_offset", [0, 16, 48])
+def test_offset_plain_versions_match_reference_mla(q_offset):
+    """Rows 6m / 7m's plain versions, MLA's decompressed form at (Dqk 96,
+    Dv 64) and its scale 96^-0.5 (the instances sequence mode launches), at
+    a q offset (Tq 32 over Tk = offset + 32, 5 heads) against ``jax.vjp``
+    of the reference's ``online_attention``."""
+    tq, tk, h = 32, q_offset + 32, 5
+    rng = np.random.default_rng(96 + q_offset)
+    q = rng.standard_normal((2, tq, h, 96)).astype(np.float32)
+    k = rng.standard_normal((2, tk, h, 96)).astype(np.float32)
+    v = rng.standard_normal((2, tk, h, 64)).astype(np.float32)
+    dout = rng.standard_normal((2, tq, h, 64)).astype(np.float32)
+    ref_out, vjp = jax.vjp(lambda q_, k_, v_: RA.online_attention(
+        q_, k_, v_, causal=True, q_offset=q_offset, chunk_size=16,
+        scale=96 ** -0.5), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp(jnp.asarray(dout))
+    out, lse = fa.flash_attention_fwd_plain(_t(q), _t(k), _t(v), causal=True,
+                                            q_offset=q_offset, chunk_size=16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
+    grads = fab.flash_attention_bwd_plain(_t(q), _t(k), _t(v), out, lse,
+                                          _t(dout), causal=True,
+                                          q_offset=q_offset)
+    for got, want in zip(grads, ref_grads):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_mla_scale_takes_the_fresh_route():
+    """MLA's explicit scale, (Dn + Dr)^-0.5 as ``layers`` computes it, is
+    the (96, 64) instances' own Dqk^-0.5, so ``dispatch.sdpa``'s fresh
+    route takes it on the card (at any q offset) and raises on another."""
+    from repro_torch.kernels import dispatch
+    m = configs.get("minicpm3_4b").mla
+    q, v = torch.zeros(1, 1, 1, 96), torch.zeros(1, 1, 1, 64)
+    pairs = fa.HEAD_DIMS["flash_attention"]
+    dispatch._require_kernel_form(
+        q, v, (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5, "mla",
+        pairs=pairs)
+    with pytest.raises(NotImplementedError, match="custom scale"):
+        dispatch._require_kernel_form(q, v, 0.1, "mla", pairs=pairs)
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -201,7 +258,9 @@ class _Mesh:
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)], ids=str)
-@pytest.mark.parametrize("arch", ["smollm_360m", "mistral_nemo_12b"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "mistral_nemo_12b",
+                                  "qwen2_moe_a2p7b", "llama4_scout_17b_a16e",
+                                  "minicpm3_4b"])
 def test_shard_and_gather_round_trip(arch, shape, monkeypatch):
     """Every model rank's ``shard_tree`` of a full smoke tree, gathered by
     ``gather_tree`` (its all-gather served from the M ranks' shards), is
@@ -237,7 +296,10 @@ def test_shard_and_gather_round_trip(arch, shape, monkeypatch):
     mode = "heads" if cfg.num_heads % m == 0 else "sequence"
     assert par.attn_mode == mode
     if mode == "heads" or (cfg.num_heads * cfg.resolved_head_dim) % m == 0:
-        assert tp_mod.sharded_flags(place)["layers"][0]["attn"]["wq"]
+        attn = tp_mod.sharded_flags(place)["layers"][0]["attn"]
+        assert attn["wq" if "wq" in attn else "wuq"]
+    assert tp_mod.param_shapes(cfg) == tree.map(lambda a: tuple(a.shape),
+                                                full)
 
 
 def test_model_axis_is_off_without_a_mesh_axis():
@@ -249,3 +311,396 @@ def test_model_axis_is_off_without_a_mesh_axis():
     ctx = context.ShardContext(mesh=None, par=ParallelConfig())
     with context.use(ctx):
         assert tp_mod.model_axis(cfg) is None
+
+
+# ---------------------------------------------------------------------------
+# the MoE and MLA blocks on the model axis
+# ---------------------------------------------------------------------------
+MODEL_ARCHS = ("qwen2_moe_a2p7b", "llama4_scout_17b_a16e", "minicpm3_4b")
+
+
+def _ref_axes(tree_, n_layers):
+    """The reference's ``split_params`` axes → the port's layout: each
+    segment's stacked layers one dict each, ``"layers"`` dropped, a
+    ``{"scale"}`` norm dict its axes."""
+    def leaf(x):
+        if isinstance(x, dict):
+            if set(x) == {"scale"}:
+                return leaf(x["scale"])
+            return {k: leaf(v) for k, v in x.items()}
+        assert x[0] == "layers", x
+        return tuple(x[1:])
+    out = {"embed": tree_["embedding"]["embed"]}
+    if "head" in tree_["embedding"]:
+        out["head"] = tree_["embedding"]["head"]
+    out["final_norm"] = tree_["final_norm"]["scale"]
+    out["layers"] = [leaf(seg) for seg in tree_["segments"]
+                     for _ in range(n_layers)]
+    return out
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_param_axes_match_reference(arch):
+    """``param_axes`` of the MoE and MLA smoke configs equals the
+    reference's ``split_params`` axes without the stacked ``"layers"``
+    axis, leaf for leaf, and ``param_shapes`` the reference's shapes."""
+    cfg = configs.get_smoke(arch)
+    seen = {}
+
+    def values(key):
+        params, seen["axes"] = RL.split_params(
+            RT.init(key, ref_configs.get_smoke(arch)))
+        return params
+    shapes = jax.eval_shape(values, jax.random.PRNGKey(0))
+    assert len(seen["axes"]["segments"]) == 1
+    want = _ref_axes(seen["axes"], cfg.num_layers)
+    got = tp_mod.param_axes(cfg)
+    assert got == want
+    want_shapes = _ref_axes(jax.tree.map(
+        lambda a: ("layers",) + tuple(a.shape[1:]) if a.ndim > 1
+        or a.shape[0] == cfg.num_layers else tuple(a.shape), shapes),
+        cfg.num_layers)
+    want_shapes["embed"] = tuple(shapes["embedding"]["embed"].shape)
+    if "head" in want_shapes:
+        want_shapes["head"] = tuple(shapes["embedding"]["head"].shape)
+    want_shapes["final_norm"] = tuple(shapes["final_norm"]["scale"].shape)
+    assert tp_mod.param_shapes(cfg) == want_shapes
+
+
+def test_sharded_flags_of_moe_and_mla():
+    """What the clipping norm sums over the model group (``sharded_flags``)
+    at M 4: the experts, the shared expert's ffn, MLA's up-projections and
+    wo; not the router, wdq, wdkv, the norms (counted once)."""
+    sizes = {"data": 1, "model": 4}
+    flags = {}
+    for arch in MODEL_ARCHS:
+        cfg = configs.get_smoke(arch)
+        par = sharding.derive_parallel(cfg, sizes, ParallelConfig())
+        flags[arch] = tp_mod.sharded_flags(tp_mod.placements(cfg, par,
+                                                             sizes))
+    for arch in MODEL_ARCHS[:2]:
+        layer = flags[arch]["layers"][1]
+        assert layer["moe"] == {"router": False, "w_gate": True,
+                                "w_up": True, "w_down": True,
+                                "shared": {"w_up": True, "w_down": True,
+                                           "w_gate": True}}
+        assert not layer["ln1"] and not layer["ln2"]
+    attn = flags["minicpm3_4b"]["layers"][1]["attn"]
+    assert attn == {"wdq": False, "q_norm": False, "wuq": True,
+                    "wdkv": False, "kv_norm": False, "wuk": True,
+                    "wuv": True, "wo": True}
+    assert not flags["minicpm3_4b"]["final_norm"]
+
+
+class _Threads:
+    """M model ranks as M threads of this process: ``tensor_parallel``'s
+    ``all_reduce`` and ``all_gather`` (patched) meet at a barrier and
+    combine the ranks' tensors in rank order, forward and backward (each
+    thread runs its own autograd backward)."""
+
+    def __init__(self, m, monkeypatch):
+        self.m, self.slots = m, [None] * m
+        self.barrier = threading.Barrier(m, timeout=120)
+        self.local = threading.local()
+        monkeypatch.setattr(tp_mod, "all_reduce", self.all_reduce)
+        monkeypatch.setattr(tp_mod, "all_gather", self.all_gather)
+
+    def _meet(self, x):
+        self.slots[self.local.rank] = x
+        self.barrier.wait()
+        parts = list(self.slots)
+        self.barrier.wait()
+        return parts
+
+    def all_reduce(self, x, group, op="sum"):
+        parts = self._meet(x.detach().clone())
+        out = parts[0]
+        for p in parts[1:]:
+            out = torch.maximum(out, p) if op == "max" else out + p
+        return x.copy_(out)
+
+    def all_gather(self, x, dim, group):
+        return torch.cat(self._meet(x.contiguous()), dim)
+
+    def run(self, fn):
+        """``fn(rank)`` on every rank's thread; their results in rank
+        order (the first error raised)."""
+        out, errors = [None] * self.m, []
+
+        def target(r):
+            self.local.rank = r
+            try:
+                out[r] = fn(r)
+            except Exception as e:          # raised below, in the caller
+                errors.append(e)
+                self.barrier.abort()
+        threads = [threading.Thread(target=target, args=(r,), daemon=True)
+                   for r in range(self.m)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads), "a rank hung"
+        if errors:
+            raise errors[0]
+        return out
+
+
+def _axis(cfg, m, r):
+    sizes = {"data": 1, "model": m}
+    par = sharding.derive_parallel(cfg, sizes, ParallelConfig())
+    return (tp_mod.ModelAxis(None, r, m, "model", par.attn_mode,
+                             sharding.axis_rules(cfg, par, sizes)),
+            tp_mod.placements(cfg, par, sizes))
+
+
+def _shard(leaves, place, m, r):
+    """Rank r's slices of a {name: tensor or dict} block, by placement."""
+    def cut(x, p):
+        d = tp_mod._dim(p, "model")
+        if d is None:
+            return x.clone()
+        n = x.shape[d] // m
+        return x.narrow(d, r * n, n).clone()
+    return {k: ({a: cut(b, place[k][a]) for a, b in v.items()}
+                if isinstance(v, dict) else cut(v, place[k]))
+            for k, v in leaves.items()}
+
+
+def _flat_leaves(block):
+    return [(k + "/" + a, b) if isinstance(v, dict) else (k, v)
+            for k, v in block.items()
+            for a, b in (v.items() if isinstance(v, dict) else [(None, v)])]
+
+
+def _close(got, want, what, tol=1e-5):
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=tol * scale, err_msg=what)
+
+
+def _ref_keep(idx, cfg, s):
+    """The reference's kept assignments [G, S, K] from its own lines
+    (``moe_apply`` at ``src/repro/models/layers.py:510-514``) on the
+    router's indices."""
+    mc = cfg.moe
+    e_pad = mc.pad_experts_to or mc.num_experts
+    g, _, k = idx.shape
+    cap = max(int(np.ceil(s * k * mc.capacity_factor / mc.num_experts)), 4)
+    em = jax.nn.one_hot(jnp.asarray(idx, jnp.int32), e_pad,
+                        dtype=jnp.float32).reshape(g, s * k, e_pad)
+    pos = jnp.cumsum(em, axis=1) * em - 1.0
+    return np.asarray(((pos >= 0) & (pos < cap)).any(-1)).reshape(g, s, k)
+
+
+@functools.partial(jax.jit, static_argnums=3)
+def _ref_moe_vjp(p, x, dy, cfg):
+    """The reference's ``moe_apply`` and the gradients of y · dy plus both
+    aux losses (jitted: op by op it compiled for most of a minute)."""
+    (y, aux), vjp = jax.vjp(lambda p_, x_: RL.moe_apply(p_, x_, cfg), p, x)
+    g, dx = vjp((dy, {k: jnp.ones(()) for k in aux}))
+    return y, aux, g, dx
+
+
+@functools.partial(jax.jit, static_argnums=3)
+def _ref_mla_vjp(p, x, dy, cfg):
+    """The reference's training-form ``mla_apply`` and the gradients of
+    its output · dy."""
+    y, vjp = jax.vjp(lambda p_, x_: RL.mla_apply(
+        p_, x_, cfg, positions=jnp.arange(x.shape[1]))[0], p, x)
+    return (y,) + vjp(dy)
+
+
+#: (arch, config changes, M, how the experts split, whether "ffn" shards
+#: the shared expert): qwen2-moe's 8 padded experts over 2 and 4 ranks
+#: (the pads on the last), in ffn mode (48 / 24 columns an expert), with a
+#: d_ff that does not split 4 ways (the shared expert replicated, added
+#: after the sum), and llama4-scout's 4 experts top 1
+MOE_SHARDS = {
+    "qwen2_expert_m2": ("qwen2_moe_a2p7b", {}, 2, "expert", True),
+    "qwen2_expert_m4": ("qwen2_moe_a2p7b", {}, 4, "expert", True),
+    "qwen2_ffn_m2": ("qwen2_moe_a2p7b", {"shard_mode": "ffn"}, 2, "ffn",
+                     True),
+    "qwen2_ffn_m4": ("qwen2_moe_a2p7b", {"shard_mode": "ffn"}, 4, "ffn",
+                     True),
+    "qwen2_shared_replicated_m4": ("qwen2_moe_a2p7b", {"d_ff": 90}, 4,
+                                   "expert", False),
+    "llama4_expert_m4": ("llama4_scout_17b_a16e", {}, 4, "expert", True),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_SHARDS))
+def test_moe_shards_match_reference(case, monkeypatch):
+    """``moe_apply`` on M model ranks (threads, each with its shards)
+    against the reference's unsharded ``moe_apply`` and ``jax.vjp`` of y ·
+    dy plus both aux losses: every rank's y (the ranks' partials summed by
+    ``reduce_from_model``) and aux losses within 1e-5 of the largest
+    entry, every rank's chosen experts and kept assignments equal to the
+    reference's exactly; dx and the router's gradient whole on every rank,
+    each rank's expert (and sharded shared-expert) gradients its slice of
+    the reference's, a replicated leaf's gradient the reference's, all
+    within 1e-5 of each leaf's largest entry.  Padded experts get zero
+    gradients.  Top 1 (llama4-scout) renormalizes p / p = 1, so the y part
+    of the router's gradient is rounding (g/p − g·p/p², ~1e-2 of the aux
+    part here, in the reference as in the port): its router is held to
+    the port's unsharded ``moe_apply`` instead, which rounds alike."""
+    arch, changes, m, experts, shared_sharded = MOE_SHARDS[case]
+    cfg = configs.get_smoke(arch)
+    cfg_ref = ref_configs.get_smoke(arch)
+    moe_changes = {k: v for k, v in changes.items() if k != "d_ff"}
+    top = {k: v for k, v in changes.items() if k == "d_ff"}
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe_changes), **top)
+    cfg_ref = cfg_ref.replace(moe=dataclasses.replace(cfg_ref.moe,
+                                                      **moe_changes), **top)
+    p_ref, _ = RL.split_params(RL.moe_init(jax.random.PRNGKey(7), cfg_ref))
+    p_ref = jax.tree.map(np.asarray, p_ref)
+    rng = np.random.default_rng(len(case))
+    x = rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    y_ref, aux_ref, g_ref, dx_ref = jax.tree.map(np.asarray, _ref_moe_vjp(
+        p_ref, jnp.asarray(x), jnp.asarray(dy), cfg_ref))
+    full = {k: ({a: _t(b) for a, b in v.items()} if isinstance(v, dict)
+                else _t(v)) for k, v in p_ref.items()}
+    full_r = full["router"].clone().requires_grad_(True)
+    y1, aux1 = L.moe_apply({**full, "router": full_r}, _t(x), cfg)
+    router_one, = torch.autograd.grad(
+        (y1 * _t(dy)).sum() + sum(aux1.values()), [full_r])
+    if cfg.moe.experts_per_token == 1:
+        g_ref["router"] = router_one.numpy()
+    threads = _Threads(m, monkeypatch)
+    route = L.moe_route
+    seen = {}
+
+    def spy(*a, **kw):
+        r = route(*a, **kw)
+        seen[threads.local.rank] = r
+        return r
+    monkeypatch.setattr(L, "moe_route", spy)
+
+    def rank(r):
+        tp, place = _axis(cfg, m, r)
+        assert tp.shards("expert" if experts == "expert" else "expert_ffn")
+        assert tp.shards("ffn") == shared_sharded
+        block = _shard(full, place["layers"][0]["moe"], m, r)
+        leaves = [v.requires_grad_(True) for _, v in _flat_leaves(block)]
+        xr = _t(x).requires_grad_(True)
+        y, aux = L.moe_apply(block, xr, cfg, tp=tp)
+        loss = (y * _t(dy)).sum() + sum(aux.values())
+        grads = torch.autograd.grad(loss, [xr] + leaves)
+        return y, aux, grads, block
+    results = threads.run(rank)
+    _, place = _axis(cfg, m, 0)
+    place = place["layers"][0]["moe"]
+    s = min(cfg.moe.group_size, x.shape[1])
+    keep_ref = _ref_keep(np.asarray(seen[0].idx), cfg_ref, s)
+    for r, (y, aux, grads, block) in enumerate(results):
+        _close(y, y_ref, f"rank {r} y")
+        for k, v in aux_ref.items():
+            np.testing.assert_allclose(aux[k].item(), float(v), rtol=1e-5,
+                                       err_msg=k)
+        assert torch.equal(seen[r].idx, seen[0].idx)
+        np.testing.assert_array_equal(seen[r].keep.numpy(), keep_ref)
+        _close(grads[0], dx_ref, f"rank {r} dx")
+        for (path, leaf), g in zip(_flat_leaves(block), grads[1:]):
+            keys = path.split("/")
+            want = g_ref[keys[0]] if len(keys) == 1 else \
+                g_ref[keys[0]][keys[1]]
+            p = place[keys[0]] if len(keys) == 1 else place[keys[0]][keys[1]]
+            d = tp_mod._dim(p, "model")
+            if d is not None:
+                n = want.shape[d] // m
+                want = np.take(want, range(r * n, (r + 1) * n), axis=d)
+            assert g.shape == want.shape, path
+            _close(g, want, f"rank {r} d{path}")
+    e_pad = cfg.moe.pad_experts_to
+    if e_pad and experts == "expert":      # the pads: the last rank's
+        last = results[-1]
+        pads = e_pad - cfg.moe.num_experts
+        for (path, _), g in zip(_flat_leaves(last[3]), last[2][1:]):
+            if path in ("w_gate", "w_up", "w_down"):
+                assert not g[-pads:].any(), path
+
+
+#: (config changes, M, attention mode): minicpm3's 4 MLA heads over 2 and
+#: 4 ranks, and 3 heads (sequence mode: rows 6m / 7m at offsets)
+MLA_SHARDS = {"heads_m2": ({}, 2, "heads"), "heads_m4": ({}, 4, "heads"),
+              "sequence_m4": ({"num_heads": 3, "num_kv_heads": 3}, 4,
+                              "sequence"),
+              "sequence_m2": ({"num_heads": 3, "num_kv_heads": 3}, 2,
+                              "sequence")}
+
+
+@pytest.mark.parametrize("case", list(MLA_SHARDS))
+def test_mla_shards_match_reference(case, monkeypatch):
+    """MLA's training form on M model ranks (threads) against ``jax.vjp``
+    of the reference's unsharded ``mla_apply``: every rank's output and
+    dx, the replicated leaves' gradients (wdq, wdkv and both norms, whole
+    on every rank) and each rank's wuq / wuk / wuv / wo gradients (its
+    slice of the reference's) within 1e-5 of each tensor's largest
+    entry."""
+    changes, m, mode = MLA_SHARDS[case]
+    cfg = configs.get_smoke("minicpm3_4b").replace(**changes)
+    cfg_ref = ref_configs.get_smoke("minicpm3_4b").replace(**changes)
+    p_ref, _ = RL.split_params(RL.mla_init(jax.random.PRNGKey(5), cfg_ref))
+    p_ref = jax.tree.map(np.asarray, p_ref)
+    t = 32
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((2, t, cfg.d_model)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    y_ref, g_ref, dx_ref = _ref_mla_vjp(p_ref, jnp.asarray(x),
+                                        jnp.asarray(dy), cfg_ref)
+    flat = {k: (v["scale"] if isinstance(v, dict) else v)
+            for k, v in p_ref.items()}
+    g_flat = {k: np.asarray(v["scale"] if isinstance(v, dict) else v)
+              for k, v in g_ref.items()}
+    threads = _Threads(m, monkeypatch)
+
+    def rank(r):
+        tp, place = _axis(cfg, m, r)
+        assert tp.mode == mode
+        block = _shard({k: _t(v) for k, v in flat.items()},
+                       place["layers"][0]["attn"], m, r)
+        for v in block.values():
+            v.requires_grad_(True)
+        xr = _t(x).requires_grad_(True)
+        y, _ = L.mla_apply(block, xr, cfg, positions=torch.arange(t), tp=tp)
+        grads = torch.autograd.grad((y * _t(dy)).sum(),
+                                    [xr] + list(block.values()))
+        return y, grads, block, place["layers"][0]["attn"]
+    for r, (y, grads, block, place) in enumerate(threads.run(rank)):
+        _close(y, y_ref, f"rank {r} y")
+        _close(grads[0], dx_ref, f"rank {r} dx")
+        for (name, _), g in zip(block.items(), grads[1:]):
+            want = g_flat[name]
+            d = tp_mod._dim(place[name], "model")
+            if d is not None:
+                n = want.shape[d] // m
+                want = np.take(want, range(r * n, (r + 1) * n), axis=d)
+            _close(g, want, f"rank {r} d{name}")
+
+
+def test_placements_refuse_dims_that_do_not_split():
+    """A sharded dim that the model axis does not split is refused with a
+    ``ValueError`` naming the leaf, before any state is built: qwen2-moe at
+    M 3 (ffn mode, d_ff_expert 1408), the shared expert's d_ff_shared under
+    ``"ffn"`` (placed by d_ff, 96, not by its own 90), and MLA's H·(Dn+Dr)
+    query columns under ``qkv_out`` (placed by H·hd: 3 · 16 splits 16
+    ways, 3 · 24 does not)."""
+    with pytest.raises(ValueError, match=r"layers/0/moe/w_gate dim 2 of "
+                                         r"\(64, 2048, 1408\).*3 ranks"):
+        train_cli.parse_args(["--arch", "qwen2_moe_a2p7b", "--mesh", "1x3"])
+    cfg = configs.get_smoke("qwen2_moe_a2p7b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, d_ff_shared=90))
+    sizes = {"data": 1, "model": 4}
+    par = sharding.derive_parallel(cfg, sizes, ParallelConfig())
+    with pytest.raises(ValueError, match="layers/0/moe/shared/w_up dim 1"):
+        tp_mod.placements(cfg, par, sizes)
+    cfg = configs.get_smoke("minicpm3_4b").replace(num_heads=3,
+                                                   num_kv_heads=3)
+    sizes = {"data": 1, "model": 16}
+    par = sharding.derive_parallel(cfg, sizes, ParallelConfig())
+    with pytest.raises(ValueError, match="layers/0/attn/wuq dim 1"):
+        tp_mod.placements(cfg, par, sizes)
+    assert train_cli.parse_args(["--arch", "qwen2_moe_a2p7b", "--mesh",
+                                 "1x4"]).mesh == "1x4"

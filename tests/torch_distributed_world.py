@@ -5,12 +5,12 @@ ranks (``torch.multiprocessing``; the address is a ``FileStore`` in
 OUT_DIR, no network) and runs every check of
 ``tests/test_torch_distributed.py`` that needs more than one rank, over
 the meshes (2, 2), (1, 4) and (4, 1) built from the same 4 ranks: the
-data-parallel step, and the model axis's steps (``MODEL_AXIS_CASES``), its
-CLI run and its crash-restart.  Each
+data-parallel step, and the model axis's steps (``MODEL_AXIS_CASES``: the
+dense, MoE and MLA decoders), its CLI runs and its crash-restarts.  Each
 rank writes what it computed to ``OUT_DIR/rank{r}.pt``; the test compares
 those with the reference's (run apart, with 4 forced host devices) and
-with the port's single-process results, which rank 0 or 1 computes here
-outside any context.  JAX is not imported here.
+with the port's single-process results, which ranks compute here outside
+any context (``SINGLE_RANK``).  JAX is not imported here.
 """
 import torch_test_env  # noqa: F401  (first: caps torch's threads under xdist)
 import os
@@ -26,16 +26,45 @@ WORLD = 4
 MESHES = ((2, 2), (1, 4), (4, 1))
 TOP_K = 5
 DP_CASES = ("equal", "unequal", "bf16")
-#: the model axis's one-step checks: name → (config, its weights' prefix in
-#: the inputs, mesh, remat); smollm's 3 heads shard in sequence mode at
-#: M 2 and 4, mistral-nemo's 4 heads in heads mode (its 2 kv heads shard at
-#: M 2 and are expanded to the query heads at M 4)
+#: the 2-layer smoke configs of the model axis's checks, by the prefix of
+#: their weights in the inputs: (arch, changes to the config; "moe" changes
+#: its MoEConfig).  qwen2-moe's 6 experts unpadded (E 6) do not split over
+#: 4 ranks, so they run in ffn mode; minicpm3 with 3 heads runs sequence
+#: mode.  The reference's subprocess builds the same configs.
+VARIANTS = {
+    "w": ("smollm_360m", {}),
+    "wm": ("mistral_nemo_12b", {}),
+    "wq": ("qwen2_moe_a2p7b", {}),
+    "wq6": ("qwen2_moe_a2p7b", {"moe": {"pad_experts_to": 0}}),
+    "wl": ("llama4_scout_17b_a16e", {}),
+    "wc": ("minicpm3_4b", {}),
+    "wc3": ("minicpm3_4b", {"num_heads": 3, "num_kv_heads": 3}),
+}
+#: the rank that takes each variant's unsharded step (smollm's is rank 0's
+#: ``single_equal``)
+SINGLE_RANK = {"wm": 1, "wq": 2, "wq6": 3, "wl": 1, "wc": 2, "wc3": 3}
+#: the model axis's one-step checks: name → (the variant, mesh, remat);
+#: smollm's 3 heads shard in sequence mode at M 2 and 4, mistral-nemo's 4
+#: heads in heads mode (its 2 kv heads shard at M 2 and are expanded to
+#: the query heads at M 4); qwen2-moe's 8 padded experts split 2 a rank at
+#: M 4 (the 2 pads on rank 3) and 4 at M 2, its 6 unpadded ones in ffn
+#: mode (24 of 96 columns an expert at M 4); llama4-scout's 4 experts top
+#: 1, its 2 kv heads expanded at M 4 and sharded at M 2; minicpm3's 4 MLA
+#: heads in heads mode, 3 in sequence mode through rows 6m / 7m at offsets
 MODEL_AXIS_CASES = {
-    "smollm_1x4": ("smollm_360m", "w", (1, 4), "full"),
-    "smollm_2x2": ("smollm_360m", "w", (2, 2), "full"),
-    "mistral_2x2": ("mistral_nemo_12b", "wm", (2, 2), "full"),
-    "mistral_1x4": ("mistral_nemo_12b", "wm", (1, 4), "full"),
-    "smollm_block_1x4": ("smollm_360m", "w", (1, 4), "block"),
+    "smollm_1x4": ("w", (1, 4), "full"),
+    "smollm_2x2": ("w", (2, 2), "full"),
+    "mistral_2x2": ("wm", (2, 2), "full"),
+    "mistral_1x4": ("wm", (1, 4), "full"),
+    "smollm_block_1x4": ("w", (1, 4), "block"),
+    "qwen2_1x4": ("wq", (1, 4), "full"),
+    "qwen2_2x2": ("wq", (2, 2), "full"),
+    "qwen2e6_1x4": ("wq6", (1, 4), "full"),
+    "llama4_1x4": ("wl", (1, 4), "full"),
+    "llama4_2x2": ("wl", (2, 2), "full"),
+    "minicpm3_1x4": ("wc", (1, 4), "full"),
+    "minicpm3_2x2": ("wc", (2, 2), "full"),
+    "minicpm3h3_1x4": ("wc3", (1, 4), "full"),
 }
 
 
@@ -122,11 +151,23 @@ def int8_checks(inp, out):
     out["int8_replicated"] = compression.int8_allreduce(_t(inp["i8_x"][0]))
 
 
-def _run(dtype, arch="smollm_360m", remat="full"):
+def variant(prefix, configs):
+    """``VARIANTS[prefix]``'s 2-layer smoke config from ``configs`` (the
+    port's or the reference's package)."""
+    import dataclasses
+    arch, changes = VARIANTS[prefix]
+    cfg = configs.get_smoke(arch).replace(num_layers=2)
+    changes = dict(changes)
+    if "moe" in changes:
+        changes["moe"] = dataclasses.replace(cfg.moe, **changes["moe"])
+    return cfg.replace(**changes)
+
+
+def _run(dtype, prefix="w", remat="full"):
     from repro_torch import configs
     from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
                                           RunConfig)
-    cfg = configs.get_smoke(arch).replace(num_layers=2, remat=remat)
+    cfg = variant(prefix, configs).replace(remat=remat)
     return RunConfig(model=cfg, optimizer=OptimizerConfig(
         lr=1e-3, warmup_steps=0, schedule="constant"),
         parallel=ParallelConfig(grad_reduce_dtype=dtype))
@@ -221,42 +262,77 @@ def train_checks(inp, out, meshes):
                              grads if rank == 0 else None)
 
 
+class _Routes:
+    """The routing of every ``moe_route`` call while it is entered: each
+    call's (idx, keep) in call order (a layer's forward, then its
+    recomputation under remat "full")."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.seen, self.route = [], layers.moe_route
+
+        def spy(*a, **kw):
+            r = self.route(*a, **kw)
+            self.seen.append((r.idx.detach().clone(), r.keep.clone()))
+            return r
+        layers.moe_route = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.moe_route = self.route
+
+
+def _aux(m):
+    return {k: float(v) for k, v in m.items() if k.startswith("moe_")}
+
+
 def model_axis_checks(inp, out, meshes):
     """One step of each ``MODEL_AXIS_CASES`` case from the full fp32
     weights: every rank keeps its model-axis shards, steps on its data
     rows, and gathers the updated parameters and the gradients AdamW took
-    over the model axis; rank 0 keeps them, every rank its loss.  Rank 1
-    takes mistral-nemo's unsharded step (smollm's is rank 0's
-    ``single_equal``).  The collectives of each step are counted."""
+    over the model axis; rank 0 keeps them, every rank its loss, its MoE
+    aux losses and routing.  ``SINGLE_RANK`` takes each variant's
+    unsharded step (smollm's is rank 0's ``single_equal``).  The
+    collectives of each step are counted."""
     from repro_torch.distributed import sharding, tensor_parallel
     from repro_torch.distributed import context
+    from repro_torch.optim import adamw
     rank = dist.get_rank()
     batch = _batch(inp, "equal")
-    if rank == 1:
-        run = _run("float32", "mistral_nemo_12b")
-        params, opt = _start(inp, run, "wm")
-        params, m, grads = _step(run, params, opt, batch)
-        out["single_mistral"] = (_flat(params), float(m["loss"]), grads)
-    for name, (arch, prefix, shape, remat) in MODEL_AXIS_CASES.items():
-        run = _run("float32", arch, remat)
+    for prefix, owner in SINGLE_RANK.items():
+        if rank == owner:
+            run = _run("float32", prefix)
+            params, opt = _start(inp, run, prefix)
+            with _Routes() as routes:
+                params, m, grads = _step(run, params, opt, batch)
+            out[f"single_{prefix}"] = (_flat(params), float(m["loss"]),
+                                       grads, _aux(m), routes,
+                                       float(m["grad_norm"]))
+    for name, (prefix, shape, remat) in MODEL_AXIS_CASES.items():
+        run = _run("float32", prefix, remat)
         mesh = meshes[shape]
         par = sharding.derive_parallel(run.model, mesh, run.parallel)
         place = tensor_parallel.placements(run.model, par, mesh)
         params, _ = _start(inp, run, prefix)
         params = tensor_parallel.shard_tree(params, place, mesh)
         r = _rows(mesh, batch["tokens"].shape[0])
-        from repro_torch.optim import adamw
         tensor_parallel.reset_collectives()
         with context.use(context.ShardContext(mesh=mesh, par=par)):
-            params, m, grads = _step(run, params, adamw.init(params),
-                                     {k: v[r] for k, v in batch.items()})
+            experts = ("ffn" if tensor_parallel.model_axis(run.model)
+                       .shards("expert_ffn") else "expert")
+            with _Routes() as routes:
+                params, m, grads = _step(run, params, adamw.init(params),
+                                         {k: v[r] for k, v in batch.items()})
             counts = dict(tensor_parallel.collectives)
             full = tensor_parallel.gather_tree(params, place, mesh)
             g_full = tensor_parallel.gather_tree(
                 _unflat_paths(grads, params), place, mesh)
         out[f"ma_{name}"] = (_flat(full) if rank == 0 else None,
                              float(m["loss"]), _flat(g_full)
-                             if rank == 0 else None, par.attn_mode, counts)
+                             if rank == 0 else None, par.attn_mode, counts,
+                             experts, _aux(m), (r, routes),
+                             float(m["grad_norm"]))
 
 
 def _unflat_paths(flat: dict, like):
@@ -266,31 +342,43 @@ def _unflat_paths(flat: dict, like):
                                  tree.leaves_with_path(like)])
 
 
-def model_axis_cli_checks(out_dir, out):
-    """``launch.train --mesh 2x2`` for 3 steps beside rank 0's unsharded
-    run of the same flags; then a crash at step 3 (after the step-2
-    checkpoint) and a restart to step 4 against an uninterrupted 4-step
-    run, each rank's final shards compared bit for bit."""
+def model_axis_cli_checks(out_dir, out, arch="smollm_360m", tag="",
+                          cli=True, restart=True, saved=False):
+    """``launch.train --mesh 2x2`` on ``arch``'s smoke config for 3 steps
+    beside rank 0's unsharded run of the same flags (with ``saved``, each
+    writes its state at step 3, and rank 0 compares the two checkpoints
+    leaf by leaf: the sharded run's gathered whole); then a crash at step
+    3 (after the step-2 checkpoint) and a restart to step 4 against an
+    uninterrupted 4-step run, each rank's final shards compared bit for
+    bit.  ``tag`` suffixes the keys."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.distributed import context
     from repro_torch.launch import train
     from repro_torch.training import loop
     rank = dist.get_rank()
-    flags = ["--arch", "smollm_360m", "--smoke", "--device", "cpu",
+    flags = ["--arch", arch, "--smoke", "--device", "cpu",
              "--seq-len", "16", "--global-batch", "8"]
 
     def go(extra, ckpt):
         return train.train(train.parse_args(
-            flags + extra + ["--checkpoint-dir", os.path.join(out_dir, ckpt)]),
+            flags + extra + ["--checkpoint-dir",
+                             os.path.join(out_dir, ckpt + tag)]),
             log=lambda _: None)
-    _, _, hist, _ = go(["--steps", "3", "--mesh", "2x2",
-                        "--checkpoint-every", "0"], "ma_cli")
-    out["ma_cli"] = [h["loss"] for h in hist]
-    if rank == 0:
-        with context.use(None):
-            _, _, hist, _ = go(["--steps", "3", "--checkpoint-every", "0"],
-                               "ma_cli_single")
-        out["ma_cli_single"] = [h["loss"] for h in hist]
+    if cli:
+        every = ["--checkpoint-every", "3" if saved else "0"]
+        _, _, hist, _ = go(["--steps", "3", "--mesh", "2x2"] + every,
+                           "ma_cli")
+        out["ma_cli" + tag] = [h["loss"] for h in hist]
+        if rank == 0:
+            with context.use(None):
+                _, _, hist, _ = go(["--steps", "3"] + every, "ma_cli_single")
+            out["ma_cli_single" + tag] = [h["loss"] for h in hist]
+            if saved:
+                out["ma_saved" + tag] = _compare_saved(*(
+                    os.path.join(out_dir, d + tag, "step_3", "arrays.npz")
+                    for d in ("ma_cli", "ma_cli_single")))
+    if not restart:
+        return
     restart = ["--steps", "4", "--mesh", "2x2", "--checkpoint-every", "2"]
     want, _, _, _ = go(restart, "ma_whole")
 
@@ -311,7 +399,7 @@ def model_axis_cli_checks(out_dir, out):
         loop.run = run
     dist.barrier()
     if rank == 0:                  # the step-2 write ends in its thread
-        ckpt = CheckpointManager(os.path.join(out_dir, "ma_crash"))
+        ckpt = CheckpointManager(os.path.join(out_dir, "ma_crash" + tag))
         for _ in range(600):
             if ckpt.latest_step() == 2:
                 break
@@ -319,17 +407,29 @@ def model_axis_cli_checks(out_dir, out):
     dist.barrier()
     got, _, hist, _ = go(restart, "ma_crash")
     from repro_torch import tree
-    out["ma_restart"] = (crashed, [h["step"] for h in hist], all(
+    out["ma_restart" + tag] = (crashed, [h["step"] for h in hist], all(
         torch.equal(a, b) and b.requires_grad
         for a, b in zip(tree.leaves(want), tree.leaves(got))))
+
+
+def _compare_saved(got_path, want_path):
+    """{leaf: (its shape in each checkpoint, max |got − want|, max |want|)}
+    of two checkpoints' arrays."""
+    with np.load(got_path) as got, np.load(want_path) as want:
+        return {k: (got[k].shape, want[k].shape,
+                    float(np.abs(got[k] - want[k]).max()),
+                    float(np.abs(want[k]).max()))
+                for k in sorted(set(got.files) | set(want.files))
+                if k in got.files and k in want.files} | {
+            k: None for k in set(got.files) ^ set(want.files)}
 
 
 def model_axis_refusals(out):
     """``--mesh 1x2`` on each family the model axis lacks."""
     from repro_torch.launch import train
     res = {}
-    for arch in ("qwen2_moe_a2p7b", "minicpm3_4b", "zamba2_1p2b",
-                 "whisper_small", "llava_next_34b"):
+    for arch in ("zamba2_1p2b", "xlstm_125m", "whisper_small",
+                 "llava_next_34b"):
         try:
             train.parse_args(["--arch", arch, "--smoke", "--device", "cpu",
                               "--mesh", "1x2"])
@@ -430,6 +530,10 @@ def worker(rank, inputs, out_dir):
     refusal_checks(out)
     model_axis_checks(inp, out, meshes)
     model_axis_cli_checks(out_dir, out)
+    model_axis_cli_checks(out_dir, out, "qwen2_moe_a2p7b", "_qwen2",
+                          restart=False, saved=True)
+    model_axis_cli_checks(out_dir, out, "minicpm3_4b", "_minicpm3",
+                          cli=False)
     model_axis_refusals(out)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
