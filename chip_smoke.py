@@ -361,7 +361,8 @@ printing its final line:
    one valid, pids 0 and 1, first ticks aligned, and ``python -m
    repro_torch.obs.report`` exiting 0 on the merged file.
 
-``phase_distributed`` (after phase 6's training runs) runs the distributed layer
+``phase_distributed`` (after phase 6's decoder runs through ``launch.train``,
+before whisper's and llava's) runs the distributed layer
 at world size 1 under NCCL (a ``FileStore``, no network) over a (1, 1)
 ``DeviceMesh``: rows 4 and 4q with their lse against the plain version's
 at smollm-360m's decode batch, at D 128 and in int8 (vlen 0 giving out 0
@@ -370,14 +371,19 @@ and lse -inf, the lse form's output bit-equal to the plain launch's), the
 against the whole cache, the lockstep path under the context (fp and int8
 K/V, tokens identical to the unsharded run, one lse-form decode a layer
 and step and one row 1 a token counted), ``launch.train --mesh 1x1``
-beside the unsharded runs (smollm-360m, qwen2-moe-a2.7b, minicpm3-4b),
-and the times of row 4 with and without its lse and of the merge's three
-collectives.  ``phase_model_axis`` runs the model axis's ranks in one
-process: sequence mode's row blocks through rows 6 / 7 (smollm, M 4) and
-6m / 7m (minicpm3, M 16) against one launch, the vocabulary shards' ⊕,
+beside the unsharded runs (smollm-360m, qwen2-moe-a2.7b, minicpm3-4b,
+zamba2-1.2b, xlstm-125m: phase 6's, which run before it), and the times
+of row 4 with and without its lse and of the merge's three collectives.
+``phase_model_axis`` runs the model axis's ranks in one process:
+sequence mode's row blocks through rows 6 / 7 (smollm, M 4) and 6m / 7m
+(minicpm3, M 16) against one launch, the vocabulary shards' ⊕,
 qwen2-moe's MoE block in expert and ffn mode and minicpm3's MLA attention
 in heads mode on 4 ranks against the unsharded layers, and times the
-offset kernels at the last rank.
+offset kernels at the last rank; then the recurrent decoders' blocks,
+whose collectives sit mid-layer, on 4 ranks as threads (zamba2's Mamba2
+block and its shared block through rows 6 / 7 at 8 of its 32 heads,
+xlstm's mLSTM and sLSTM blocks) against the unsharded blocks, and times
+rows 6 / 7 at one rank's 8 heads.
 
 Each phase prints its wall time, and the end the whole run's, which is
 to stay under 600 s, half the 1200 s it is allowed.  The line before the last is a JSON object
@@ -2813,6 +2819,12 @@ INSTANCES = {
                                  kernel + "_qoffset")
        for kernel in ("flash_attention", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv")},
+    # rows 6 and 7 at zamba2-1.2b's shared block on one of 4 model ranks
+    # (8 of its 32 heads, B 8, T 512); the launches are phase_model_axis's
+    # 4 ranks' forward and backward of the bf16 block
+    **{kernel + "_g1_h8": (kernel, "model axis zamba2 shared")
+       for kernel in ("flash_attention", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")},
 }
 # the training kernels' timed D-128 instances: tag → (Hkv, G)
 TRAIN_TIMED_128 = {"_d128": (8, 4), "_d128_g1": (16, 1)}
@@ -5192,6 +5204,10 @@ DIST_TRAIN_ARGS = ["--arch", "smollm_360m", "--steps", "3", "--seq-len",
 # at 4; (label, the run's key in ``TRAIN_LOSSES``)
 DIST_TRAIN_128 = (("qwen2-moe", "qwen2 train"),
                   ("minicpm3", "minicpm3 train"))
+# and for the recurrent decoders beside phase 6's ``TRAIN_STATE`` runs (their
+# flags and ``TRAIN_STATE_STEPS``): zamba2-1.2b at 20 layers (rows 6 / 7 at
+# its shared block's 4 calls), xlstm-125m at its 12 (both sLSTM layers)
+DIST_TRAIN_STATE = (("zamba2", "zamba2 train"), ("xlstm", "xlstm train"))
 
 
 def _nccl_world():
@@ -5332,8 +5348,9 @@ def _dist_train(argv, unsharded: list, what: str) -> None:
     model axis's code with a group of one (heads mode, every f / g an
     NCCL all-reduce over one rank, the experts and their ffn whole): its
     launches of rows 6 / 7 (and the router's) are the unsharded run's, and
-    it makes ``_model_axis_collectives`` all-reduces a step, no
-    all-gather; a step's launches and all-reduces are printed."""
+    it makes ``_model_axis_collectives``' all-reduces and all-gathers a
+    step (all-gathers only xlstm's mLSTM's); a step's launches and
+    collectives are printed."""
     import tempfile
     import torch
     from repro_torch.distributed import tensor_parallel
@@ -5348,49 +5365,61 @@ def _dist_train(argv, unsharded: list, what: str) -> None:
     steps = len(mesh)
     a = unsharded[:steps]
     b = [h["loss"] for h in mesh]
-    if len(a) != steps or steps != 3 or a[0] != b[0] or any(
+    if len(a) != steps or steps < 2 or a[0] != b[0] or any(
             abs(x - y) > 1e-4 * abs(x) for x, y in zip(a, b)):
         _fail(f"train --mesh 1x1 {what}: losses {b}, unsharded {a}")
     want = _train_counts(run.model, steps)
-    want_coll = {"all_reduce": steps * _model_axis_collectives(run.model),
-                 "all_gather": 0}
+    want_coll = {k: steps * n for k, n in
+                 _model_axis_collectives(run.model).items()}
     if counts != want or coll != want_coll:
         _fail(f"train --mesh 1x1 {what}: launches {counts} (want {want}), "
               f"model-group collectives {coll} (want {want_coll})")
     cfg = run.model
     per_step = {k: v // steps for k, v in counts.items() if v}
-    per_step["all_reduce"] = coll["all_reduce"] // steps
+    per_step.update({k: v // steps for k, v in coll.items() if v})
     print(f"distributed train --mesh 1x1 {what} (NCCL, {cfg.name} at "
-          f"{cfg.num_layers} layers, full width, 8 x 512, the model axis in "
-          f"heads mode over one rank): losses {b}, unsharded {a}; "
+          f"{cfg.num_layers} layers, full width, 8 x 512, the model axis "
+          f"over one rank, every leaf sharded): losses {b}, unsharded {a}; "
           + ("bit-equal at every step" if a == b
              else "first bit-equal, later within 1e-4")
-          + f"; a step: {per_step} (launches and model-group all-reduces)")
+          + f"; a step: {per_step} (launches and model-group collectives)")
 
 
-def _model_axis_collectives(cfg) -> int:
-    """A decoder's model-group all-reduces a step in heads mode with every
-    leaf sharded (a group of one), under remat "full".  A dense layer: its
-    two g's (attention's and the MLP's output) in the forward, attention's
-    again in its recomputation (which stops at the last tensor the
-    backward needs, before the MLP's), and its two f's (their inputs) in
-    the backward: 5.  An MoE layer the same with the experts' g in place
-    of the MLP's (routing, the aux losses and the shared expert come
-    before it) and two f's for them, x and the combine's probabilities:
-    6.  An MLA layer: the forward's and the recomputation's three g's as
-    dense, and f's of cq, c_kv and k_rope plus the MLP's: 7.  Then the
-    embedding's g; the cross-entropy's three in the forward (max, sum,
+def _model_axis_collectives(cfg) -> dict:
+    """A decoder's model-group collectives a step in heads mode with every
+    leaf sharded (a group of one), under remat "full": {"all_reduce",
+    "all_gather": count}.  A dense layer: its two g's (attention's and the
+    MLP's output) in the forward, attention's again in its recomputation
+    (which stops at the last tensor the backward needs, before the MLP's),
+    and its two f's (their inputs) in the backward: 5 all-reduces, as
+    zamba2's shared block at each call.  An MoE layer the same with the
+    experts' g in place of the MLP's (routing, the aux losses and the
+    shared expert come before it) and two f's for them, x and the
+    combine's probabilities: 6.  An MLA layer: the forward's and the
+    recomputation's three g's as dense, and f's of cq, c_kv and k_rope
+    plus the MLP's: 7.  A Mamba2 layer: the gated norm's sum and the
+    output's g in the forward, the sum again in the recomputation, and
+    four f's in the backward (x, B, C, the sum's): 7.  An mLSTM layer: the
+    output's g in the forward and f's of x and of the normed h in the
+    backward: 3 all-reduces; and six all-gathers (its xm and conv
+    channels, the rows of wq, wk, wv and w_if) in the forward and again in
+    the recomputation: 12.  An sLSTM layer: its ffn's g and f: 2.  Then
+    the embedding's g; the cross-entropy's three in the forward (max, sum,
     label) and dh's in the backward; the clipping norm's one."""
-    per_layer = {"moe": 6, "mla": 7}.get(cfg.family, 5)
-    return per_layer * cfg.num_layers + 1 + 4 + 1
+    from repro_torch.models import transformer
+    per_kind = {"moe": 6, "mla": 7, "mamba": 7, "mlstm": 3, "slstm": 2}
+    kinds = [kind for kind, _, _ in transformer.layer_plan(cfg)]
+    return {"all_reduce": sum(per_kind.get(k, 5) for k in kinds) + 1 + 4 + 1,
+            "all_gather": 12 * kinds.count("mlstm")}
 
 
 def phase_distributed(serve_ctx, train_ctx) -> tuple:
     """The distributed layer on the card at world size 1 under NCCL: rows
     4 and 4q with their lse, the ⊕ of cache slices through the real kernel,
     the lockstep path under the (1, 1) mesh's context (fp and int8 K/V),
-    ``launch.train --mesh 1x1`` beside phase 6's runs (smollm-360m, and
-    the MoE and MLA decoders of ``TRAIN_128``, ``DIST_TRAIN_128``) and the
+    ``launch.train --mesh 1x1`` beside phase 6's runs (smollm-360m, the
+    MoE and MLA decoders of ``TRAIN_128``, ``DIST_TRAIN_128``, and the
+    recurrent decoders of ``TRAIN_STATE``, ``DIST_TRAIN_STATE``) and the
     times of row 4 with and without its lse and of the merge's three
     collectives.
     Returns (launch counts by path, errors, time rows)."""
@@ -5421,6 +5450,11 @@ def phase_distributed(serve_ctx, train_ctx) -> tuple:
             _dist_train(flags[key] + TRAIN_128_ARGS + [
                 "--steps", "3", "--checkpoint-every", "0", "--mesh", "1x1"],
                 TRAIN_LOSSES[key], what)
+        flags = {key: argv for _, key, argv, _ in TRAIN_STATE}
+        for what, key in DIST_TRAIN_STATE:
+            _dist_train(flags[key] + TRAIN_128_ARGS + [
+                "--steps", str(TRAIN_STATE_STEPS), "--checkpoint-every", "0",
+                "--mesh", "1x1"], TRAIN_LOSSES[key], what)
         # times: row 4 with and without its lse at B 8 over 328 (bf16), and
         # the merge's three collectives at world 1 on the host's clock
         rows = {}
@@ -5510,6 +5544,10 @@ MODEL_AXIS_MLA = dict(b=4, t=1024)
 MODEL_AXIS_MLA_M = 16
 MODEL_AXIS_MLA_ATTN = dict(b=4, t=1024, hkv=40, g=1, d=96, dv=64)
 MODEL_AXIS_MLA_TAG = "_d96_qoff960"
+# rows 6 / 7 at zamba2-1.2b's shared block on one of 4 model ranks: 8 of its
+# 32 heads of 64 (G 1), B 8, T 512
+ZAMBA2_HEADS = 32
+MODEL_AXIS_STATE_TAG = "_g1_h8"
 
 
 def _offset_blocks(gen, dtype, a=MODEL_AXIS_ATTN,
@@ -5623,9 +5661,11 @@ def _draw_block(gen, shapes: dict, dtype) -> dict:
     generator: qwen2-moe's experts are 5.5e8 draws a block) at ``shapes``
     (a dict of shapes or of such dicts): a matrix or stack of them normal
     at 1/sqrt(its first axis), as ``transformer.init`` draws them, in
-    ``dtype`` (the router fp32); a vector (a norm scale) 1 + 0.1 · normal,
-    fp32."""
+    ``dtype`` (the leaves ``transformer.FP32_LEAVES`` names, the router and
+    the recurrent blocks' convs and gate weights among them, fp32); a
+    vector (a norm scale, a bias) 1 + 0.1 · normal, fp32."""
     import torch
+    from repro_torch.models.transformer import FP32_LEAVES
     out = {}
     for name, shape in shapes.items():
         if isinstance(shape, dict):
@@ -5636,7 +5676,7 @@ def _draw_block(gen, shapes: dict, dtype) -> dict:
             out[name] = 1 + 0.1 * w
         else:
             out[name] = (w * shape[0] ** -0.5).to(
-                torch.float32 if name == "router" else dtype)
+                torch.float32 if name in FP32_LEAVES else dtype)
     return out
 
 
@@ -5843,6 +5883,352 @@ def _mla_shards(gen, group) -> dict:
     return out
 
 
+# the recurrent decoders' blocks at full width on MODEL_AXIS_M ranks as
+# threads of this process (their collectives sit mid-layer, so the ranks
+# must meet: ``_RankThreads``): zamba2-1.2b's Mamba2 block (64 SSM heads of
+# 64, N 64, chunk 128; 16 heads and 1024 inner channels a rank) and its
+# shared block (8 of 32 heads a rank through rows 6 / 7, d_ff 8192 split)
+# over x [8, 512, 2048]; xlstm-125m's mLSTM block (inner 1536, 384
+# channels a rank, the cell whole on each, chunk 256) over x [8, 512, 768]
+# and its sLSTM block (ffn 1024, 256 columns a rank) at T 128, for the
+# time of its step loop
+STATE_SHARDS = {"mamba": ("zamba2_1p2b", 8, 512),
+                "shared": ("zamba2_1p2b", 8, 512),
+                "mlstm": ("xlstm_125m", 8, 512),
+                "slstm": ("xlstm_125m", 8, 128)}
+
+
+class _RankThreads:
+    """M model ranks as M threads of this process for the forward:
+    ``tensor_parallel``'s ``all_reduce`` and ``all_gather`` (patched while
+    ``run`` runs) meet at a barrier and sum the ranks' tensors in rank
+    order, or concatenate them, on the card.  Each forward collective's
+    kind, shape and dtype is kept (rank 0's)."""
+
+    def __init__(self, m: int):
+        import threading
+        self.m, self.slots = m, [None] * m
+        self.barrier = threading.Barrier(m, timeout=300)
+        self.local = threading.local()
+        self.sizes = []
+
+    def _meet(self, x):
+        self.slots[self.local.rank] = x
+        self.barrier.wait()
+        parts = list(self.slots)
+        self.barrier.wait()
+        return parts
+
+    def all_reduce(self, x, group, op="sum"):
+        import torch
+        if self.local.rank == 0:
+            self.sizes.append(("reduce", tuple(x.shape), x.dtype))
+        parts = self._meet(x.detach().clone())
+        out = parts[0]
+        for p in parts[1:]:
+            out = torch.maximum(out, p) if op == "max" else out + p
+        return x.copy_(out)
+
+    def all_gather(self, x, dim, group):
+        import torch
+        if self.local.rank == 0:
+            self.sizes.append(("gather", tuple(x.shape), x.dtype))
+        return torch.cat(self._meet(x.contiguous()), dim)
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on every rank's thread; their results in rank
+        order (the first error raised)."""
+        import threading
+        from repro_torch.distributed import tensor_parallel as tpm
+        out, errors = [None] * self.m, []
+
+        def target(r):
+            self.local.rank = r
+            try:
+                out[r] = fn(r)
+            except Exception as e:          # raised below, in the caller
+                errors.append(e)
+                self.barrier.abort()
+        saved = tpm.all_reduce, tpm.all_gather
+        tpm.all_reduce, tpm.all_gather = self.all_reduce, self.all_gather
+        try:
+            threads = [threading.Thread(target=target, args=(r,),
+                                        daemon=True) for r in range(self.m)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        finally:
+            tpm.all_reduce, tpm.all_gather = saved
+        if any(t.is_alive() for t in threads):
+            _fail("model axis threads: a rank hung")
+        if errors:
+            raise errors[0]
+        return out
+
+
+class _StopAtCollective(Exception):
+    """Raised by ``_Replay`` where a rank's backward reaches a collective
+    whose other ranks' parts are not known yet."""
+
+
+class _Replay:
+    """The backward collectives of ``_replay_grads``: the j-th all-reduce
+    of a rank's backward returns the ranks' j-th parts summed where those
+    are known, else keeps the rank's part and stops the backward."""
+
+    def __init__(self):
+        self.known, self.parts, self.calls, self.rank = [], {}, 0, 0
+        self.sizes = []
+
+    def all_reduce(self, x, group, op="sum"):
+        j, self.calls = self.calls, self.calls + 1
+        if j < len(self.known):
+            return x.copy_(self.known[j])
+        self.parts[self.rank] = x.detach().clone()
+        raise _StopAtCollective()
+
+    def all_gather(self, x, dim, group):
+        _fail("model axis replay: an all-gather in a backward")
+
+
+def _replay_grads(losses: list, inputs: list, on_pass=None) -> tuple:
+    """Each rank's ``torch.autograd.grad(losses[r], inputs[r])``, the
+    ranks' backward collectives (``tensor_parallel.all_reduce``, each "f"'s
+    sum of the gradient) met by replay: the autograd engine runs every CUDA
+    node of every backward on one device thread, so a rank that waited
+    there at a barrier for the others would block their backward for good.
+    Pass k runs each rank's backward from its loss, in turn on this
+    thread, with the sums of the first k collectives known, to its (k+1)-th
+    collective, and sums the ranks' parts of it in rank order (as
+    ``_RankThreads`` sums); the pass where every rank's backward ends gives
+    the gradients.  ``on_pass()`` is called as each pass starts.  Returns
+    (each rank's gradients, each backward collective's ("reduce", shape,
+    dtype))."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tpm
+    rep, m = _Replay(), len(losses)
+    saved = tpm.all_reduce, tpm.all_gather
+    tpm.all_reduce, tpm.all_gather = rep.all_reduce, rep.all_gather
+    try:
+        while True:
+            rep.parts, done = {}, [None] * m
+            if on_pass is not None:
+                on_pass()
+            for r in range(m):
+                rep.rank, rep.calls = r, 0
+                try:
+                    done[r] = torch.autograd.grad(losses[r], inputs[r],
+                                                  retain_graph=True)
+                except _StopAtCollective:
+                    pass
+                except RuntimeError:
+                    if r not in rep.parts:   # not a stop at a collective
+                        raise
+            if all(d is not None for d in done):
+                break
+            if sorted(rep.parts) != list(range(m)):
+                _fail(f"model axis replay: collective {len(rep.known)} of "
+                      f"the backward reached by ranks {sorted(rep.parts)} "
+                      f"of {m}")
+            total = rep.parts[0]
+            for r in range(1, m):
+                total = total + rep.parts[r]
+            rep.known.append(total)
+    finally:
+        tpm.all_reduce, tpm.all_gather = saved
+    return done, [("reduce", tuple(x.shape), x.dtype) for x in rep.known]
+
+
+class _RankMesh:
+    """A (data 1, model m) mesh as rank r sees it: what ``shard_tree``
+    reads."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, m: int, r: int):
+        self.shape, self.rank = (1, m), (0, r)
+
+    def size(self, dim):
+        return self.shape[dim]
+
+    def get_local_rank(self, dim):
+        return self.rank[dim]
+
+
+def _rank_part(w, p, m: int, r: int):
+    """Rank r's part of a whole leaf ``w`` under placement ``p`` (a
+    ``Halves`` leaf's block of each half, side by side)."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tpm
+    d = tpm._dim(p, "model")
+    if d is None:
+        return w
+    parts = w.chunk(2, d) if isinstance(p, tpm.Halves) else (w,)
+    n = parts[0].shape[d] // m
+    return torch.cat([x.narrow(d, r * n, n) for x in parts], d)
+
+
+def _thread_shard_check(what: str, fn, cfg, full: dict, place: dict, x,
+                        dy, m: int) -> tuple[dict, dict]:
+    """A block on m model ranks (``_RankThreads`` for the forward,
+    ``_replay_grads`` for the backward), each rank on its ``shard_tree``
+    shards of ``full`` through its ``ModelAxis``, against the unsharded
+    block: every rank's y and dx, each sharded leaf's gradient its part of
+    the unsharded one, each replicated leaf's gradient whole; fp32 within
+    1e-5 of the tensor's largest entry, bf16 by ``_scaled_err``'s row rule
+    within 2e-2.  Returns ({what: worst error}, {"forward" / "backward":
+    each collective's (shape, dtype) on a rank}, the launch counts of the
+    ranks' forward and of their backward's last pass, the one that
+    ends)."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels import dispatch
+
+    def inputs(block):
+        leaves = _leaves(block)
+        for _, w in leaves:
+            w.requires_grad_(True)
+        return leaves, x.detach().clone().requires_grad_(True)
+    leaves_w, xw = inputs(full)
+    y_w = fn(full, xw, None)
+    g_w = torch.autograd.grad((y_w.float() * dy.float()).sum(),
+                              [xw] + [w for _, w in leaves_w])
+    dx_w, g_w = g_w[0], dict(zip((p for p, _ in leaves_w), g_w[1:]))
+    flat_place = dict(_leaves(place))
+    threads = _RankThreads(m)
+
+    def rank(r):
+        tp, _ = _rank_axis(cfg, m, r, None)
+        block = tpm.shard_tree(full, place, _RankMesh(m, r))
+        leaves, xr = inputs(block)
+        y = fn(block, xr, tp)
+        return (y.detach(), (y.float() * dy.float()).sum(),
+                [xr] + [w for _, w in leaves], [p for p, _ in leaves])
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    ranks = threads.run(rank)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    grads, back = _replay_grads([z[1] for z in ranks], [z[2] for z in ranks],
+                                dispatch.reset_launch_counts)
+    torch.cuda.synchronize()
+    launches = {k: v + launches[k]
+                for k, v in dispatch.launch_counts().items()}
+    errs = {}
+    for r, ((y, _, _, paths), g) in enumerate(zip(ranks, grads)):
+        found = {"y": _shard_err(y, y_w.detach()),
+                 "dx": _shard_err(g[0], dx_w)}
+        for path, gr in zip(paths, g[1:]):
+            found[path] = _shard_err(
+                gr, _rank_part(g_w[path], flat_place[path], m, r))
+        for k, e in found.items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    tol = 1e-5 if x.dtype == torch.float32 else 2e-2
+    if not max(errs.values()) <= tol:
+        _fail(f"{what}: the {m} ranks' shards against the unsharded block: "
+              f"{errs} (> {tol})")
+    return errs, {"forward": threads.sizes, "backward": back}, launches
+
+
+def _collective_sizes(sizes: list) -> str:
+    """A list of collectives' (kind, shape, dtype) in words: their count
+    and each one's kind and size (an all-gather's: a rank's part)."""
+    import torch
+    parts = []
+    for kind, shape, dtype in sizes:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        parts.append(f"{kind} {list(shape)} {str(dtype)[6:]} "
+                     f"({n / 2**20:.3g} MiB)")
+    return f"{len(sizes)}: " + ", ".join(parts) if parts else "0"
+
+
+def _state_shards(gen) -> tuple[dict, dict]:
+    """The recurrent decoders' blocks at full width on ``MODEL_AXIS_M``
+    ranks (``STATE_SHARDS``, ``_thread_shard_check``), fp32 and bf16:
+    zamba2's Mamba2 block over its SSM heads (the gated norm's sum of
+    squares summed over the ranks both ways), its shared block in heads
+    mode through rows 6 / 7 (8 of 32 heads a rank), xlstm's mLSTM over its
+    inner channels (the cell whole on every rank) and its sLSTM's ffn.
+    Each prints its worst error and its collectives on a rank (forward and
+    backward; a step under remat "full" runs the forward's again in its
+    recomputation, up to the last tensor the backward needs).  Only the
+    shared block launches a kernel: rows 6 / 7 once a rank.  Returns
+    ({JSON-line name: fp32 worst error}, the bf16 shared block's launch
+    counts over the 4 ranks' forward and backward)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import ssm, transformer, xlstm
+    m, out, counts = MODEL_AXIS_M, {}, {}
+    for kind, (arch, b, t) in STATE_SHARDS.items():
+        cfg = configs.get(arch)
+        shapes = tpm.param_shapes(cfg)
+        _, place = _rank_axis(cfg, m, 0, None)
+        if kind == "shared":
+            shapes, place = shapes["shared_attn"], place["shared_attn"]
+            pos = torch.arange(t, device="cuda")
+
+            def fn(block, xx, tp, cfg=cfg, pos=pos):
+                return transformer._block_apply(
+                    block, xx, kind="shared_attn", cfg=cfg, positions=pos,
+                    cache=None, cache_len=None, block_tables=None,
+                    aux=False, tp=tp)[0]
+        else:
+            layer = [k for k, i, _ in transformer.layer_plan(cfg)
+                     if i is not None].index(kind)
+            shapes, place = shapes["layers"][layer], place["layers"][layer]
+            if kind == "mamba":
+                shapes, place = shapes["mamba"], place["mamba"]
+            apply = {"mamba": ssm.mamba2_apply,
+                     "mlstm": xlstm.mlstm_block_apply,
+                     "slstm": xlstm.slstm_block_apply}[kind]
+
+            def fn(block, xx, tp, cfg=cfg, apply=apply):
+                return apply(block, xx, cfg, tp=tp)[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            full = _draw_block(gen, shapes, dtype)
+            if kind == "mamba":
+                # the model's own dt_bias (the inverse softplus of [dt_min,
+                # dt_max]): a bias near 1 makes Δ·A so large that the
+                # scan's masked decays overflow, and where's backward
+                # multiplies their infinities by 0
+                full["dt_bias"] = ssm.mamba2_init(
+                    cfg, lambda *a, **k: None, lambda n: None,
+                    "cuda")["dt_bias"]
+            if kind == "slstm":
+                # the recurrent matrices at the model's 1/sqrt(Dh), not
+                # at 1/sqrt(4): larger ones make the 128 steps amplify
+                # rounding
+                shape = full["r_weights"].shape
+                full["r_weights"] = torch.randn(
+                    shape, generator=gen, device="cuda") * shape[-1] ** -0.5
+            x = torch.randn(b, t, cfg.d_model, generator=gen,
+                            device="cuda").to(dtype)
+            dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            errs, sizes, launches = _thread_shard_check(
+                f"model axis {kind} {str(dtype)[6:]}", fn, cfg, full, place,
+                x, dy, m)
+            want = dict.fromkeys(COUNTERS, 0)
+            if kind == "shared":
+                want.update(flash_attention=m, flash_attention_bwd_dq=m,
+                            flash_attention_bwd_dkv=m)
+            if launches != want:
+                _fail(f"model axis {kind} {dtype}: launches {launches}, "
+                      f"want {want}")
+            if kind == "shared" and dtype == torch.bfloat16:
+                counts = launches
+            print(f"model axis {kind} {str(dtype)[6:]} ({cfg.name}, M {m}, "
+                  f"x {list(x.shape)}): y, dx and every gradient against "
+                  f"the unsharded block, worst {max(errs.values()):.3g} "
+                  f"({max(errs, key=errs.get)}); collectives a rank: "
+                  f"forward {_collective_sizes(sizes['forward'])}; "
+                  f"backward {_collective_sizes(sizes['backward'])}")
+            if dtype == torch.float32:
+                out[f"state_{kind}"] = max(errs.values())
+            del full, x, dy
+    return out, counts
+
+
 def _ranks_device_ms(gen, a: dict, m: int) -> tuple[dict, dict]:
     """The m ranks' device times of sequence mode's blocks at ``a``'s
     shape, bf16: rank r's block at offset r·T/m over keys [0, (r+1)·T/m),
@@ -5904,9 +6290,13 @@ def phase_model_axis() -> tuple:
     unsharded layers (``_moe_shards``, ``_mla_shards``, each rank a
     ``ModelAxis`` over a world-1 NCCL group), minicpm3's sequence mode at M
     16 through the shifted (96, 64) instances against one launch, and rows
-    6m / 7m at its last rank's offset, checked and timed as above.
-    Returns ({"model axis seq" / "model axis mla seq": the bf16 blocks'
-    launch counts}, {JSON name: fp32 error}, time rows)."""
+    6m / 7m at its last rank's offset, checked and timed as above.  Then
+    the recurrent decoders' blocks on 4 ranks as threads
+    (``_state_shards``), and rows 6 / 7 at zamba2's shared block on one
+    rank (8 of 32 heads) checked in fp32 and timed in bf16.  Returns
+    ({"model axis seq" / "model axis mla seq" / "model axis zamba2
+    shared": the bf16 blocks' launch counts}, {JSON name: fp32 error},
+    time rows)."""
     import torch
     import torch.distributed as dist
     gen = torch.Generator().manual_seed(32)
@@ -5983,8 +6373,23 @@ def phase_model_axis() -> tuple:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store_dir, ignore_errors=True)
-    return ({"model axis seq": counts, "model axis mla seq": mla_counts},
-            errs, times)
+    state_errs, shared_counts = _state_shards(card_gen)
+    errs.update(state_errs)
+    # rows 6 / 7 at zamba2's shared block on one rank at M 4 (8 of its 32
+    # heads), fp32 against the plain versions, then timed in bf16 beside
+    # SDPA's forward and autograd backward
+    h, t = ZAMBA2_HEADS // MODEL_AXIS_M, STATE_SHARDS["shared"][2]
+    q, k, v, dout = _fresh_inputs(gen, dtype=torch.float32, b=8, t=t,
+                                  hkv=h, g=1, d=64)
+    found = _fresh_errs(q, k, v, dout, True)
+    if max(found.values()) > 1e-5:
+        _fail(f"model axis rows 6/7 at {h} heads (fp32): {found}")
+    errs.update({kernel + MODEL_AXIS_STATE_TAG: e
+                 for kernel, e in found.items()})
+    rows_t = _train_kernel_times(gen, h, 1, 64, MODEL_AXIS_STATE_TAG)
+    times.update(rows_t)
+    return ({"model axis seq": counts, "model axis mla seq": mla_counts,
+             "model axis zamba2 shared": shared_counts}, errs, times)
 
 
 def _bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -7728,6 +8133,7 @@ def main() -> int:
     _timed(phase_parity_slo)
     counts["train"], train_ctx = _timed(phase_train)
     counts.update(_timed(phase_train_128))
+    counts.update(_timed(phase_train_state))
     dist_counts, dist_errs, dist_rows = _timed(phase_distributed, serve_ctx,
                                                train_ctx)
     counts.update(dist_counts)
@@ -7736,7 +8142,6 @@ def main() -> int:
     counts.update(ma_counts)
     errs.update(ma_errs)
     dist_rows.update(ma_rows)
-    counts.update(_timed(phase_train_state))
     counts.update(_timed(phase_train_whisper))
     counts.update(_timed(phase_train_llava))
     _timed(phase_train_parity)

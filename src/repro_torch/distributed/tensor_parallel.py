@@ -1,5 +1,5 @@
-"""The model axis executed: tensor-parallel training of the dense, MoE and
-MLA decoders.
+"""The model axis executed: tensor-parallel training of the dense, MoE,
+MLA and recurrent decoders.
 
 The reference has no file for this: it annotates each parameter with its
 placement (``src/repro/distributed/sharding.py:103-114``, ``param_sharding``)
@@ -10,21 +10,27 @@ vocabulary-sharded head XLA merges the cross-entropy's partial ``(m, d)``
 across devices (``src/repro/core/cross_entropy.py:11-13``).  This module
 is what GSPMD does there, written out:
 
-* the four collectives of the layers, each a ``torch.autograd.Function``
-  with its backward beside its forward: ``copy_to_model`` (identity,
+* the collectives of the layers, each a ``torch.autograd.Function`` with
+  its backward beside its forward: ``copy_to_model`` (identity,
   all-reduce SUM backward: "f"), ``reduce_from_model`` (all-reduce SUM,
-  identity backward: "g"), ``gather_rows`` (all-gather along T, the
-  rank's own rows of the gradient backward) and ``gather_weight``
-  (all-gather of a weight's sharded dim, the group's sum of the gradient
-  then the rank's own shard backward);
+  identity backward: "g"), ``sum_over_model`` (all-reduce SUM both ways:
+  a sum whose result feeds rank-specific work, as the Mamba2 gated norm's
+  sum of squares), ``gather_rows`` (all-gather along T, the rank's own
+  rows of the gradient backward) and ``gather_weight`` (all-gather of a
+  weight's sharded dim, the group's sum of the gradient then the rank's
+  own shard backward);
 * ``param_axes`` / ``param_shapes``: each leaf's logical axes (the
   reference's, without the stacked ``"layers"`` axis) and its shape, for
-  the dense block, the MoE block (``expert`` / ``expert_ffn``) and MLA's
-  attention (``qkv_out`` columns);
+  the dense block, the MoE block (``expert`` / ``expert_ffn``), MLA's
+  attention (``qkv_out`` columns), the Mamba2, mLSTM and sLSTM blocks
+  (``inner`` / ``inner_heads``, the sLSTM's ``ffn``) and zamba2's shared
+  block;
 * ``placements`` (which refuses a sharded dim that does not split over
   the axis, naming the leaf), ``shard_tree`` / ``gather_tree``: a full
   parameter tree to this rank's model-axis shards (slices of the sharded
-  dims), and back;
+  dims), and back.  A packed leaf (``Halves``: Mamba2's ``w_zx`` = [z |
+  x], the mLSTM's ``w_up`` = [xm | z]) is sharded per half, so rank r
+  holds [first half's block r | second half's block r];
 * ``model_axis(cfg)``: what the layers read, the ambient context's model
   axis with ``sharding.axis_rules``' placements for ``cfg``.
 
@@ -38,10 +44,10 @@ replicated activation gets the same gradient on every rank without it.
 Nothing branches on the axis's size: a group of one runs the same code,
 which is what one card runs.
 
-The dense, MoE and MLA decoders run on the model axis at any size, one
-rank included.  Under a model axis of more than one rank the other
-families raise ``NotImplementedError``, naming what they lack
-(``MISSING``); at one rank they run their replicated code.
+The dense, MoE, MLA and recurrent decoders run on the model axis at any
+size, one rank included.  Under a model axis of more than one rank the
+encoder-decoder and the VLM raise ``NotImplementedError``, naming what
+they lack (``MISSING``); at one rank they run their replicated code.
 """
 from __future__ import annotations
 
@@ -54,11 +60,9 @@ from repro_torch.distributed import context, sharding
 
 PyTree = Any
 
-#: What each family still lacks on the model axis (the dense, MoE and
-#: MLA decoders lack nothing).
+#: What each family still lacks on the model axis (the dense, MoE, MLA
+#: and recurrent decoders lack nothing).
 MISSING = {
-    "ssm": "the recurrent blocks' inner dims (inner / inner_heads)",
-    "hybrid": "the recurrent blocks' inner dims (inner / inner_heads)",
     "encdec": "the encoder-decoder's two stacks and cross-attention",
     "vlm": "the VLM's patch projection and patch positions",
 }
@@ -109,8 +113,9 @@ class ModelAxis(NamedTuple):
 
 def model_axis(cfg: ModelConfig) -> Optional[ModelAxis]:
     """The ambient context's model axis for ``cfg``, or None: no context,
-    a mesh without the axis, or a family of ``MISSING`` on a model axis
-    of one rank.  Such a family on more ranks raises."""
+    a mesh without the axis, or a family of ``MISSING`` (the
+    encoder-decoder, the VLM) on a model axis of one rank.  Such a family
+    on more ranks raises."""
     ctx = context.get()
     if ctx is None or ctx.mesh is None or \
             ctx.par.model_axis not in ctx.mesh.mesh_dim_names:
@@ -119,9 +124,9 @@ def model_axis(cfg: ModelConfig) -> Optional[ModelAxis]:
     if cfg.family in MISSING:
         if size > 1:
             raise NotImplementedError(
-                f"the model axis ({size} ranks) runs the dense, MoE and "
-                f"MLA decoders only: {cfg.name} ({cfg.family}) lacks "
-                f"{MISSING[cfg.family]}")
+                f"the model axis ({size} ranks) runs the dense, MoE, MLA "
+                f"and recurrent decoders only: {cfg.name} ({cfg.family}) "
+                f"lacks {MISSING[cfg.family]}")
         return None
     par = sharding.derive_parallel(cfg, ctx.mesh, ctx.par)
     return ModelAxis(context.model_group(ctx), context.model_index(ctx),
@@ -200,6 +205,13 @@ def reduce_from_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
     return _ReduceFromModel.apply(x, tp.group)
 
 
+def sum_over_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """The ranks' partials of ``x`` summed, where the sum feeds each rank's
+    own work: its gradient is then rank-partial too, so the backward sums
+    it over the group as well ("g" then "f": one all-reduce each way)."""
+    return copy_to_model(reduce_from_model(x, tp), tp)
+
+
 def gather_rows(x: torch.Tensor, dim: int, tp: ModelAxis) -> torch.Tensor:
     return _GatherRows.apply(x, dim, tp.index, tp.group)
 
@@ -215,17 +227,31 @@ def _refuse(cfg: ModelConfig) -> None:
     if cfg.family in MISSING:
         raise NotImplementedError(
             f"placements of {cfg.name} ({cfg.family}): the model axis runs "
-            f"the dense, MoE and MLA decoders only; it lacks "
+            f"the dense, MoE, MLA and recurrent decoders only; it lacks "
             f"{MISSING[cfg.family]}")
+
+
+class Halves(tuple):
+    """The axes, or the placement, of a packed leaf: two blocks side by
+    side along its sharded dim (Mamba2's ``w_zx`` = [z | x], the mLSTM's
+    ``w_up`` = [xm | z]), each split over the ranks on its own, so that
+    ``chunk(2, dim)`` of a rank's shard gives its block of each.  A tuple
+    in every other respect."""
 
 
 def _layout(cfg: ModelConfig, leaf) -> PyTree:
     """``transformer.init``'s tree with ``leaf(axes, shape)`` at each
     leaf: the reference's logical axes (``mlp_init``, ``moe_init``,
-    ``mla_init``, ``attention_init`` in ``src/repro/models/layers.py``)
-    without the stacked ``"layers"`` axis, and the port's shapes."""
+    ``mla_init``, ``attention_init`` in ``src/repro/models/layers.py``,
+    ``mamba2_init`` in ``ssm.py``, ``mlstm_block_init`` /
+    ``slstm_block_init`` in ``xlstm.py``) without the stacked ``"layers"``
+    axis, and the port's shapes (a ``{"scale"}`` norm dict of the
+    reference's is its scale here).  A packed leaf's axes are
+    ``Halves``."""
     _refuse(cfg)
     d, v = cfg.d_model, cfg.vocab_size
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_layout(cfg, leaf)
 
     def mlp(ff):
         p = {"w_up": leaf(("embed", "ffn"), (d, ff)),
@@ -276,10 +302,69 @@ def _layout(cfg: ModelConfig, leaf) -> PyTree:
     return out
 
 
+def _recurrent_layout(cfg: ModelConfig, leaf) -> PyTree:
+    """``_layout`` of xLSTM (``ssm``) and zamba2 (``hybrid``): each layer
+    by its kind in stack order, and zamba2's ``"shared_attn"``, one dense
+    layer's tree."""
+    from repro_torch.models import transformer, xlstm
+    d, v = cfg.d_model, cfg.vocab_size
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        inner, n = sc.expand * d, sc.d_state
+        h = inner // sc.head_dim
+        block = {"w_zx": leaf(Halves(("embed", "inner")), (d, 2 * inner)),
+                 "w_bc": leaf(("embed", None), (d, 2 * n)),
+                 "w_dt": leaf(("embed", "inner_heads"), (d, h)),
+                 "dt_bias": leaf(("inner_heads",), (h,)),
+                 "a_log": leaf(("inner_heads",), (h,)),
+                 "d_skip": leaf(("inner_heads",), (h,)),
+                 "conv_x": leaf(("inner", None), (inner, sc.d_conv)),
+                 "conv_b": leaf((None, None), (n, sc.d_conv)),
+                 "conv_c": leaf((None, None), (n, sc.d_conv)),
+                 "norm": leaf(("inner",), (inner,)),
+                 "w_out": leaf(("inner", "embed"), (inner, d))}
+        kinds = {"mamba": {"ln": leaf(("embed",), (d,)), "mamba": block}}
+    else:
+        xc = cfg.xlstm
+        inner, hh = xc.expand * d, xc.num_heads
+        dh, f = d // hh, xlstm._slstm_ffn(d)
+        kinds = {
+            "mlstm": {
+                "norm": leaf(("embed",), (d,)),
+                "w_up": leaf(Halves(("embed", "inner")), (d, 2 * inner)),
+                "conv": leaf(("inner", None), (inner, xc.conv_width)),
+                "wq": leaf(("inner", None), (inner, inner)),
+                "wk": leaf(("inner", None), (inner, inner)),
+                "wv": leaf(("inner", None), (inner, inner)),
+                "w_if": leaf(("inner", None), (inner, 2 * hh)),
+                "if_bias": leaf((None,), (2 * hh,)),
+                "hnorm": leaf(("inner",), (inner,)),
+                "w_down": leaf(("inner", "embed"), (inner, d))},
+            "slstm": {
+                "norm": leaf(("embed",), (d,)),
+                "w_gates": leaf(("embed", None, None), (d, 4, d)),
+                "r_weights": leaf((None, None, None, None),
+                                  (4, hh, dh, dh)),
+                "hnorm": leaf(("embed",), (d,)),
+                "w_up1": leaf(("embed", "ffn"), (d, f)),
+                "w_up2": leaf(("embed", "ffn"), (d, f)),
+                "w_down": leaf(("ffn", "embed"), (f, d))}}
+    out = {"embed": leaf(("vocab", "embed"), (v, d))}
+    if not cfg.tie_embeddings:
+        out["head"] = leaf(("embed", "vocab"), (d, v))
+    out["final_norm"] = leaf(("embed",), (d,))
+    if cfg.family == "hybrid":
+        dense = _layout(cfg.replace(family="dense", ssm=None), leaf)
+        out["shared_attn"] = dense["layers"][0]
+    out["layers"] = [kinds[kind] for kind, idx, _ in
+                     transformer.layer_plan(cfg) if idx is not None]
+    return out
+
+
 def param_axes(cfg: ModelConfig) -> PyTree:
-    """The logical axes of a dense, MoE or MLA decoder's parameter tree
-    (``transformer.init``'s layout), the reference's ``split_params`` axes
-    without the stacked ``"layers"`` axis."""
+    """The logical axes of a dense, MoE, MLA or recurrent decoder's
+    parameter tree (``transformer.init``'s layout), the reference's
+    ``split_params`` axes without the stacked ``"layers"`` axis."""
     return _layout(cfg, lambda axes, shape: axes)
 
 
@@ -292,28 +377,54 @@ def check_splits(cfg: ModelConfig, place: PyTree, mesh,
                  axis: str = "model") -> None:
     """Raise ``ValueError`` where ``place`` shards a dim of ``cfg``'s
     parameters over ``axis`` that its size does not split into: the rules
-    check the counts they read (heads, experts, d_ff, the vocabulary) but
-    not every leaf they shard (``expert_ffn``'s d_ff_expert, the shared
-    expert's d_ff_shared under ``"ffn"``, MLA's H·(Dn+Dr) columns under
-    ``qkv_out``)."""
+    check the counts they read (heads, experts, d_ff, the vocabulary, the
+    recurrent inner width) but not every leaf they shard
+    (``expert_ffn``'s d_ff_expert, the shared expert's d_ff_shared under
+    ``"ffn"``, MLA's H·(Dn+Dr) columns under ``qkv_out``, the sLSTM's ffn
+    under ``"ffn"``, each half of a ``Halves`` leaf).  Every top-level
+    leaf and dict is checked, and the first layer of each kind.  Also
+    raise where ``inner`` shards and ``inner_heads`` does not: a Mamba2
+    head's channels would be cut across ranks."""
     n = sharding.axis_sizes(mesh)[axis]
     bad = []
 
     def check(path, shape, p):
         dim = _dim(p, axis)
-        if dim is not None and shape[dim] % n:
+        parts = 2 * n if isinstance(p, Halves) else n
+        if dim is not None and shape[dim] % parts:
             bad.append(f"{path} dim {dim} of {tuple(shape)}")
-    layers = place["layers"]
     shapes = param_shapes(cfg)
     for name in place:
         if name != "layers":
-            check(name, shapes[name], place[name])
-    if layers:       # every layer's placements are alike: check one
-        _walk(check, "layers/0", shapes["layers"][0], layers[0])
+            _walk(check, name, shapes[name], place[name])
+    kinds = set()
+    for i, layer in enumerate(place["layers"]):
+        kind = _kind(layer)
+        if kind not in kinds:
+            kinds.add(kind)
+            _walk(check, f"layers/{i}", shapes["layers"][i], layer)
     if bad:
         raise ValueError(
             f"{cfg.name}: {'; '.join(bad)} does not split over the "
             f"{axis} axis's {n} ranks")
+    if place["layers"] and "mamba" in place["layers"][0]:
+        mamba = place["layers"][0]["mamba"]
+        if _dim(mamba["w_zx"], axis) is not None and \
+                _dim(mamba["w_dt"], axis) is None:
+            sc = cfg.ssm
+            raise ValueError(
+                f"{cfg.name}: layers/0/mamba/w_zx splits its "
+                f"{sc.expand * cfg.d_model} inner channels over the {axis} "
+                f"axis's {n} ranks but its "
+                f"{sc.expand * cfg.d_model // sc.head_dim} SSM heads "
+                f"(layers/0/mamba/w_dt) do not split: a head's "
+                f"{sc.head_dim} channels would be cut across ranks")
+
+
+def _kind(layer: dict) -> tuple:
+    """A layer's kind as its tree's shape (its keys, nested)."""
+    return tuple((k, _kind(v) if isinstance(v, dict) else None)
+                 for k, v in layer.items())
 
 
 def _walk(fn, path: str, shapes: PyTree, place: PyTree) -> None:
@@ -325,9 +436,13 @@ def _walk(fn, path: str, shapes: PyTree, place: PyTree) -> None:
 
 
 def placements(cfg: ModelConfig, par, mesh) -> PyTree:
-    """Each parameter's placement (``sharding.param_sharding``), after
-    ``check_splits``."""
-    place = sharding.param_sharding(param_axes(cfg), cfg, par, mesh)
+    """Each parameter's placement (``sharding.param_sharding``; a
+    ``Halves`` leaf's a ``Halves`` placement), after ``check_splits``."""
+    axes = param_axes(cfg)
+    place = sharding._map_leaves(
+        lambda p, a: Halves(p) if isinstance(a, Halves) else p,
+        sharding.param_sharding(axes, cfg, par, mesh), axes,
+        is_leaf=sharding._is_leaf)
     check_splits(cfg, place, mesh, par.model_axis)
     return place
 
@@ -354,8 +469,9 @@ def sharded_flags(place: PyTree, axis: str = "model") -> PyTree:
 def shard_tree(params: PyTree, place: PyTree, mesh,
                axis: str = "model") -> PyTree:
     """This rank's shards of a full tree: each leaf sharded over ``axis``
-    sliced to the rank's block of its sharded dim (a copy), the others
-    kept.  ``requires_grad`` follows the leaf."""
+    sliced to the rank's block of its sharded dim (a copy; a ``Halves``
+    leaf the rank's block of each half, side by side), the others kept.
+    ``requires_grad`` follows the leaf."""
     n = context.axis_size(mesh, axis)
     r = context.axis_index(mesh, axis)
 
@@ -363,11 +479,13 @@ def shard_tree(params: PyTree, place: PyTree, mesh,
         d = _dim(p, axis)
         if d is None:
             return leaf
-        if leaf.shape[d] % n:
+        parts = leaf.detach().chunk(2, d) if isinstance(p, Halves) \
+            else (leaf.detach(),)
+        if leaf.shape[d] % (n * len(parts)):
             raise ValueError(f"dim {d} of {tuple(leaf.shape)} does not split "
                              f"over {n} ranks")
-        size = leaf.shape[d] // n
-        out = leaf.detach().narrow(d, r * size, size).clone()
+        size = parts[0].shape[d] // n
+        out = torch.cat([x.narrow(d, r * size, size) for x in parts], d)
         return out.requires_grad_(leaf.requires_grad)
     return _map(cut, params, place)
 
@@ -382,7 +500,13 @@ def gather_tree(params: PyTree, place: PyTree, mesh,
     def join(leaf, p):
         d = _dim(p, axis)
         leaf = leaf.detach()
-        return leaf if d is None else all_gather(leaf, d, group)
+        if d is None:
+            return leaf
+        whole = all_gather(leaf, d, group)
+        if not isinstance(p, Halves):
+            return whole
+        halves = [x.chunk(2, d) for x in whole.split(leaf.shape[d], d)]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves], d)
     return _map(join, params, place)
 
 

@@ -15,11 +15,14 @@ width) is the port's own.
 ``--mesh DxM`` trains over a (data D, model M) mesh of D·M ranks: one
 process a rank, under ``torchrun --nproc-per-node D·M`` on a machine with
 that many cards (or one process for ``--mesh 1x1``; on the CPU, inside a
-gloo world of D·M processes).  The model axis runs a dense, MoE or MLA
-decoder tensor-parallel (``distributed/tensor_parallel.py``): attention
-in heads mode where the query heads split over M, else in sequence mode;
-the MoE experts split over M where their padded count divides it, else
-each expert's ffn; the placements of ``sharding.axis_rules``;
+gloo world of D·M processes).  The model axis runs a dense, MoE, MLA or
+recurrent decoder tensor-parallel (``distributed/tensor_parallel.py``):
+attention in heads mode where the query heads split over M, else in
+sequence mode; the MoE experts split over M where their padded count
+divides it, else each expert's ffn; zamba2's Mamba2 blocks over their SSM
+heads (the gated norm's sum of squares summed over the ranks), its shared
+block as a dense layer; xLSTM's mLSTM inner channels (the cell whole on
+every rank) and its sLSTM ffn; the placements of ``sharding.axis_rules``;
 data-parallel gradient sums run over the data axis as before.  Without a
 process group the launcher initialises one, from torchrun's environment
 (``RANK``, ``WORLD_SIZE``; ``cuda:LOCAL_RANK``) or, where that is absent,
@@ -33,11 +36,12 @@ feeds each rank its rows through ``HostShardedLoader`` (by its data index)
 and runs the loop under the ``ShardContext``, where the train step
 all-reduces the gradients over the data axis.  At a checkpoint every rank
 gathers the full state and rank 0 (data 0, model 0) alone writes it;
-every rank reads it and keeps its shards.  M > 1 with a recurrent,
+every rank reads it and keeps its shards.  M > 1 with an
 encoder-decoder or VLM config raises ``NotImplementedError``
 (``tensor_parallel.MISSING``), and a placement whose dim does not split
-over M raises ``ValueError`` naming the leaf
-(``tensor_parallel.check_splits``), both before anything is initialised.
+over M, or that would cut a Mamba2 head across ranks, raises
+``ValueError`` naming the leaf (``tensor_parallel.check_splits``), both
+before anything is initialised.
 
 An MLA model (``--arch minicpm3_4b``) trains like the others: its
 decompressed attention (Dqk 96, Dv 64) runs the fresh forward's and the
@@ -98,9 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "save)")
     ap.add_argument("--mesh", default=None,
                     help="e.g. 2x2 → mesh (data=2, model=2): data-parallel "
-                         "over 2 ranks, a dense, MoE or MLA decoder "
-                         "tensor-parallel over 2 (torchrun); default: one "
-                         "process, no mesh")
+                         "over 2 ranks, a dense, MoE, MLA or recurrent "
+                         "decoder tensor-parallel over 2 (torchrun); "
+                         "default: one process, no mesh")
     return ap
 
 
@@ -123,9 +127,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                else configs.get(args.arch))
         if cfg.family in tp.MISSING and n_model > 1:
             raise NotImplementedError(
-                f"--mesh {args.mesh}: the model axis runs the dense, MoE "
-                f"and MLA decoders only; {cfg.name} ({cfg.family}) lacks "
-                f"{tp.MISSING[cfg.family]}")
+                f"--mesh {args.mesh}: the model axis runs the dense, MoE, "
+                f"MLA and recurrent decoders only; {cfg.name} "
+                f"({cfg.family}) lacks {tp.MISSING[cfg.family]}")
         if cfg.family not in tp.MISSING:
             sizes = {"data": n_data, "model": n_model}
             tp.placements(cfg, sharding.derive_parallel(cfg, sizes), sizes)

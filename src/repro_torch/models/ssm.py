@@ -10,7 +10,9 @@ Port of ``src/repro/models/ssm.py``: ``ssd_chunked`` (line 26; a Python
 loop over the chunks in place of ``lax.scan``), ``ssd_decode_step`` (78),
 ``causal_conv`` (95), ``mamba2_init`` (113), ``mamba2_apply`` (144) and
 ``mamba2_cache_init`` (196).  Plain PyTorch on tensors, on the card as on
-the CPU.
+the CPU.  The training form of ``mamba2_apply`` also runs on the model
+axis (``tp``): the rank's SSM heads, with the gated norm's sum of squares
+summed over the ranks.
 
 Shapes: x [B, T, H, P]; B, C [B, T, N] (a single group); Δ [B, T, H];
 A, D [H].
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as _tp
 from repro_torch.models.layers import rms_norm
 
 Tensor = torch.Tensor
@@ -149,30 +152,50 @@ def mamba2_init(cfg: ModelConfig, dense, ones, device) -> dict:
 
 
 def mamba2_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
-                 cache: Optional[dict] = None):
+                 cache: Optional[dict] = None,
+                 tp: Optional[_tp.ModelAxis] = None):
     """x [B, T, D] → (y [B, T, D], new state ``{"ssm": [B, H, N, P] fp32,
     "conv_x": [B, w − 1, inner], "conv_b", "conv_c": [B, w − 1, N]}``).
 
     A ``cache`` (that dict's leaves) with T == 1 takes the decode step from
     its state; otherwise the chunked scan starts from zeros, as the
     reference's does (a prefill is single shot).  A given ``cache`` is
-    overwritten with the new state, in place."""
+    overwritten with the new state, in place.
+
+    ``tp`` (training, ``cache=None``), where ``inner`` shards: the weights
+    are this rank's shards, H/M SSM heads of P channels (``w_zx``'s halves
+    [z_r | x_r], ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip``, ``conv_x``,
+    the norm's scale and ``w_out``'s rows); ``w_bc``, ``conv_b`` and
+    ``conv_c`` are whole.  x passes ``copy_to_model`` for the rank's
+    ``w_zx`` / ``w_dt`` products only, and B and C just before the scan,
+    which every rank's heads read: so ``w_bc`` and the two convs get
+    whole gradients.  The gated RMSNorm runs over the whole inner width:
+    each rank's mean square of its columns, scaled by its share of the
+    width, is summed over the ranks both ways (``sum_over_model``), and
+    the ranks' ``w_out`` products are summed (``reduce_from_model``)."""
     sc = cfg.ssm
     bsz, t, d = x.shape
     d_inner = sc.expand * d
-    h = d_inner // sc.head_dim
     n = sc.d_state
-    z, xin = (x @ p["w_zx"]).chunk(2, dim=-1)
+    if tp is not None and (cache is not None or not tp.shards("inner")):
+        tp = None
+    xs = x if tp is None else _tp.copy_to_model(x, tp)
+    z, xin = (xs @ p["w_zx"]).chunk(2, dim=-1)
+    local = z.shape[-1]                      # the rank's inner channels
+    h = local // sc.head_dim
     bcr = x @ p["w_bc"]
     # torch's softplus is linear above 20, where log1p(exp(x)) equals x in
     # fp32 anyway
-    dt_act = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
+    dt_act = F.softplus((xs @ p["w_dt"]).float() + p["dt_bias"])
     if cache is None or t > 1:
         xc, st_x = causal_conv(xin, p["conv_x"])
         bb, st_b = causal_conv(bcr[..., :n], p["conv_b"])
         cc, st_c = causal_conv(bcr[..., n:], p["conv_c"])
+        bb, cc = F.silu(bb), F.silu(cc)
+        if tp is not None:
+            bb, cc = _tp.copy_to_model(bb, tp), _tp.copy_to_model(cc, tp)
         y, s_new = ssd_chunked(F.silu(xc).reshape(bsz, t, h, sc.head_dim),
-                               dt_act, p["a_log"], F.silu(bb), F.silu(cc),
+                               dt_act, p["a_log"], bb, cc,
                                p["d_skip"], chunk=sc.chunk)
     else:
         xc, st_x = causal_conv(xin, p["conv_x"], state=cache["conv_x"])
@@ -188,9 +211,15 @@ def mamba2_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     if cache is not None:
         for name, val in new.items():
             cache[name].copy_(val)
-    y = y.reshape(bsz, t, d_inner) * F.silu(z)
-    y = rms_norm(p["norm"], y, cfg.norm_eps)
-    return (y @ p["w_out"]).to(x.dtype), new
+    y = y.reshape(bsz, t, local) * F.silu(z)
+    if tp is None:
+        y = rms_norm(p["norm"], y, cfg.norm_eps)
+        return (y @ p["w_out"]).to(x.dtype), new
+    yf = y.float()
+    ms = _tp.sum_over_model(
+        yf.square().mean(dim=-1, keepdim=True) * (local / d_inner), tp)
+    y = (yf * torch.rsqrt(ms + cfg.norm_eps) * p["norm"]).to(y.dtype)
+    return _tp.reduce_from_model((y @ p["w_out"]).to(x.dtype), tp), new
 
 
 def mamba2_cache_init(cfg: ModelConfig, batch: int, dtype,

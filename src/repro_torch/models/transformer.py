@@ -289,9 +289,10 @@ def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
     of every cache leaf, so an int8 cache's scales travel with its K/V.
 
     Without caches, under a context whose mesh has the model axis, a
-    dense, MoE or MLA model's ``params`` are this rank's shards and the
-    layers run tensor-parallel (``tensor_parallel.model_axis``); the hidden
-    state and the aux losses come back whole on every rank."""
+    dense, MoE, MLA or recurrent model's ``params`` are this rank's shards
+    and the layers run tensor-parallel (``tensor_parallel.model_axis``;
+    zamba2's shared block as a dense layer); the hidden state and the aux
+    losses come back whole on every rank."""
     tp = tp_mod.model_axis(cfg) if caches is None else None
     x = L.embed_tokens(params, tokens, tp)
     if cfg.num_patches and patch_embeds is not None:
@@ -338,10 +339,10 @@ def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
     [norm → Mamba2] (mamba); the xLSTM blocks, which hold their own norms
     and residuals (mlstm, slstm).  The recurrent kinds take no block tables
     either, and ignore ``positions`` and ``cache_len``.  ``tp``: the model
-    axis a dense, MoE or MLA block runs on (``tensor_parallel.model_axis``;
-    the norms act on the replicated activations, each sublayer on the
-    rank's shards).  Returns (x, the MoE aux losses when ``aux``, else
-    {})."""
+    axis a block runs on (``tensor_parallel.model_axis``; the norms act on
+    the replicated activations, each sublayer on the rank's shards: a
+    Mamba2 block's SSM heads, an mLSTM's inner channels, an sLSTM's ffn).
+    Returns (x, the MoE aux losses when ``aux``, else {})."""
     if kind in STATE_LEAVES:
         if block_tables is not None:
             raise ValueError("paged KV cache serves standard attention "
@@ -349,11 +350,11 @@ def _block_apply(lp: dict, x: Tensor, *, kind: str, cfg: ModelConfig,
         if kind == "mamba":
             y, _ = ssm.mamba2_apply(lp["mamba"],
                                     L.rms_norm(lp["ln"], x, cfg.norm_eps),
-                                    cfg, cache=cache)
+                                    cfg, cache=cache, tp=tp)
             return x + y, {}
         block = (xlstm.mlstm_block_apply if kind == "mlstm"
                  else xlstm.slstm_block_apply)
-        return block(lp, x, cfg, cache=cache)[0], {}
+        return block(lp, x, cfg, cache=cache, tp=tp)[0], {}
     h = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
     if "wdkv" in lp["attn"]:
         if block_tables is not None:

@@ -11,7 +11,10 @@ Port of ``src/repro/models/xlstm.py``: ``mlstm_chunked`` (line 32),
 ``mlstm_decode_step`` (99), ``slstm_scan`` (121), ``mlstm_block_init`` /
 ``mlstm_block_apply`` (163, 185), ``slstm_block_init`` /
 ``slstm_block_apply`` (219, 240) and ``xlstm_cache_init`` (258).  Plain
-PyTorch on tensors, on the card as on the CPU.  Log sigmoid is
+PyTorch on tensors, on the card as on the CPU.  The blocks' training forms
+also run on the model axis (``tp``): the mLSTM's inner channels split
+with its cell (and the products that feed it) whole on every rank, the
+sLSTM's ffn split.  Log sigmoid is
 ``F.logsigmoid``, the reference's ``-softplus(-f)`` without a linear
 threshold; the mLSTM's m starts at −inf, so the first chunk's carried
 terms are exp(−inf) = 0.
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as _tp
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.ssm import _chunk_len, causal_conv
 
@@ -171,28 +175,54 @@ def mlstm_block_init(cfg: ModelConfig, dense, ones, device) -> dict:
 
 
 def mlstm_block_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
-                      cache: Optional[dict] = None):
+                      cache: Optional[dict] = None,
+                      tp: Optional[_tp.ModelAxis] = None):
     """x [B, T, D] → (x + the block's output, new state ``{"m", "C", "n",
     "conv"}``).  A ``cache`` with T == 1 takes the decode step; otherwise
     the chunked form, from the cache's state when there is one.  A given
-    ``cache`` is overwritten with the new state, in place."""
+    ``cache`` is overwritten with the new state, in place.
+
+    ``tp`` (training, ``cache=None``), where ``inner`` shards: the weights
+    are this rank's shards of the inner channels (``w_up``'s halves [xm_r |
+    z_r], the depthwise ``conv``'s rows, the rows of ``wq`` / ``wk`` /
+    ``wv`` / ``w_if``, ``hnorm``'s scale, ``w_down``'s rows).  The normed
+    x passes ``copy_to_model``; the rank's xm and conv columns and the
+    rows of the four cell-input weights are gathered whole
+    (``gather_rows``: each rank then computes q, k, v and the gates, and
+    their gradients, exactly as one device does, and keeps its own slice
+    of the gradients), so the cell runs whole on every rank over all heads.
+    ``hnorm`` normalises the whole h; the result passes ``copy_to_model``
+    before it is cut to the rank's columns and scaled by its shard, and
+    the ranks' ``w_down`` products are summed."""
     xc = cfg.xlstm
     bsz, t, d = x.shape
     inner = xc.expand * d
     hh = xc.num_heads
     dh = inner // hh
+    if tp is not None and (cache is not None or not tp.shards("inner")):
+        tp = None
     resid = x
     x = rms_norm(p["norm"], x, cfg.norm_eps)
+    if tp is not None:
+        x = _tp.copy_to_model(x, tp)
     xm, z = (x @ p["w_up"]).chunk(2, dim=-1)
     xcv, new_conv = causal_conv(xm, p["conv"],
                                 state=None if cache is None
                                 else cache["conv"])
     xcv = F.silu(xcv)
-    q = (xcv @ p["wq"]).reshape(bsz, t, hh, dh)
-    k = (xcv @ p["wk"]).reshape(bsz, t, hh, dh) * (dh ** -0.5)
-    v = (xm @ p["wv"]).reshape(bsz, t, hh, dh)
+    w = p
+    if tp is not None:
+        # the rank's channels and weight rows gathered: the products of a
+        # row-parallel split, summed over the ranks, would round otherwise
+        # than one device's, which the cell's gate gradients amplify
+        xm, xcv = (_tp.gather_rows(y, -1, tp) for y in (xm, xcv))
+        w = {name: _tp.gather_rows(p[name], 0, tp)
+             for name in ("wq", "wk", "wv", "w_if")}
+    q = (xcv @ w["wq"]).reshape(bsz, t, hh, dh)
+    k = (xcv @ w["wk"]).reshape(bsz, t, hh, dh) * (dh ** -0.5)
+    v = (xm @ w["wv"]).reshape(bsz, t, hh, dh)
     # the fp32 gate weights promote the product to fp32, as in JAX
-    gi, gf = ((xcv.float() @ p["w_if"]) + p["if_bias"]).chunk(2, dim=-1)
+    gi, gf = ((xcv.float() @ w["w_if"]) + p["if_bias"]).chunk(2, dim=-1)
     state = None if cache is None else (cache["m"], cache["C"], cache["n"])
     if cache is not None and t == 1:
         h, new_state = mlstm_decode_step(state, q[:, 0], k[:, 0], v[:, 0],
@@ -205,9 +235,18 @@ def mlstm_block_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     if cache is not None:
         for name, val in new.items():
             cache[name].copy_(val)
-    h = rms_norm(p["hnorm"], h.reshape(bsz, t, inner).to(x.dtype),
-                 cfg.norm_eps)
-    return resid + (h * F.silu(z)) @ p["w_down"], new
+    h = h.reshape(bsz, t, inner).to(x.dtype)
+    if tp is None:
+        h = rms_norm(p["hnorm"], h, cfg.norm_eps)
+        return resid + (h * F.silu(z)) @ p["w_down"], new
+    hf = h.float()
+    hf = hf * torch.rsqrt(hf.square().mean(dim=-1, keepdim=True)
+                          + cfg.norm_eps)
+    cols = z.shape[-1]
+    hf = _tp.copy_to_model(hf, tp)[..., tp.index * cols:(tp.index + 1) * cols]
+    h = (hf * p["hnorm"]).to(x.dtype)
+    return resid + _tp.reduce_from_model((h * F.silu(z)) @ p["w_down"],
+                                         tp), new
 
 
 def _slstm_ffn(d: int) -> int:
@@ -236,12 +275,21 @@ def slstm_block_init(cfg: ModelConfig, dense, ones, device) -> dict:
 
 
 def slstm_block_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
-                      cache: Optional[dict] = None):
+                      cache: Optional[dict] = None,
+                      tp: Optional[_tp.ModelAxis] = None):
     """x [B, T, D] → (x + the block's output, new state ``{"s_c", "s_n",
     "s_m", "s_h"}``), the scan starting from the cache's state when there
     is one (then overwritten in place).  The MLP's GELU is the tanh form,
-    ``jax.nn.gelu``'s default."""
+    ``jax.nn.gelu``'s default.
+
+    ``tp`` (training, ``cache=None``), where ``ffn`` shards: the gates,
+    the recurrent weights, both norms and the scan are whole on every
+    rank; the MLP is column-parallel ``w_up1`` / ``w_up2`` after
+    ``copy_to_model`` and row-parallel ``w_down``, its partials summed
+    (``reduce_from_model``), as ``layers.mlp_apply``."""
     bsz, t, d = x.shape
+    if tp is not None and (cache is not None or not tp.shards("ffn")):
+        tp = None
     xn = rms_norm(p["norm"], x, cfg.norm_eps)
     gates_x = (xn.float().reshape(bsz * t, d)
                @ p["w_gates"].reshape(d, 4 * d)).reshape(bsz, t, 4, d)
@@ -254,8 +302,12 @@ def slstm_block_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
         for name, val in new.items():
             cache[name].copy_(val)
     h = rms_norm(p["hnorm"], h.to(x.dtype), cfg.norm_eps)
+    if tp is not None:
+        h = _tp.copy_to_model(h, tp)
     y = (F.gelu(h @ p["w_up1"], approximate="tanh") * (h @ p["w_up2"])) \
         @ p["w_down"]
+    if tp is not None:
+        y = _tp.reduce_from_model(y, tp)
     return x + y, new
 
 

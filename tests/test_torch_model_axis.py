@@ -22,7 +22,14 @@ package.
   sequence mode) on M ranks run as threads of this process, whose
   collectives meet at a barrier (``_Threads``), against ``jax.vjp`` of the
   reference's unsharded ``moe_apply`` / ``mla_apply``; rows 6m / 7m's
-  plain versions at q offsets; the refusal of a dim that does not split.
+  plain versions at q offsets; the refusal of a dim that does not split;
+* the recurrent blocks the same way: Mamba2 over its SSM heads (the gated
+  norm's sum of squares summed both ways, which a forward-only sum gets
+  wrong), the mLSTM's inner channels with its cell whole on every rank,
+  the sLSTM's ffn, against the reference's ``mamba2_apply`` /
+  ``mlstm_block_apply`` / ``slstm_block_apply``; ``param_axes`` and the
+  packed halves of ``w_zx`` / ``w_up`` in ``shard_tree``; the refusal of a
+  Mamba2 head cut across ranks.
 
 Tolerances: float32 on both sides, forward and gradients within rtol 1e-5
 / atol 2e-5 (gradients sum over up to T keys); the block sums within 1e-5
@@ -50,7 +57,9 @@ import repro.configs as ref_configs  # noqa: E402
 from repro.core import attention as RA  # noqa: E402
 from repro.core import cross_entropy as RCE  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
+from repro.models import ssm as RS  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
+from repro.models import xlstm as RX  # noqa: E402
 from repro_torch import configs, tree  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.core import cross_entropy as CE  # noqa: E402
@@ -60,7 +69,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer, xlstm  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 
@@ -260,14 +269,17 @@ class _Mesh:
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)], ids=str)
 @pytest.mark.parametrize("arch", ["smollm_360m", "mistral_nemo_12b",
                                   "qwen2_moe_a2p7b", "llama4_scout_17b_a16e",
-                                  "minicpm3_4b"])
+                                  "minicpm3_4b", "zamba2_1p2b",
+                                  "xlstm_125m"])
 def test_shard_and_gather_round_trip(arch, shape, monkeypatch):
     """Every model rank's ``shard_tree`` of a full smoke tree, gathered by
     ``gather_tree`` (its all-gather served from the M ranks' shards), is
     the full tree again; a sharded leaf's dim is 1/M of the full one and
     ``sharded_flags`` marks exactly those leaves; the placements are the
     reference's rules (``sharding.axis_rules``) for the mode
-    ``derive_parallel`` picks."""
+    ``derive_parallel`` picks.  A packed leaf (Mamba2's ``w_zx``, the
+    mLSTM's ``w_up``) is sharded per half: rank r's shard is [z_r | x_r]
+    (or [xm_r | z_r])."""
     cfg = configs.get_smoke(arch)
     sizes = dict(zip(("data", "model"), shape))
     par = sharding.derive_parallel(cfg, sizes, ParallelConfig())
@@ -295,11 +307,30 @@ def test_shard_and_gather_round_trip(arch, shape, monkeypatch):
         assert torch.equal(a, b), path
     mode = "heads" if cfg.num_heads % m == 0 else "sequence"
     assert par.attn_mode == mode
-    if mode == "heads" or (cfg.num_heads * cfg.resolved_head_dim) % m == 0:
-        attn = tp_mod.sharded_flags(place)["layers"][0]["attn"]
+    flags = tp_mod.sharded_flags(place)
+    attn = (flags.get("shared_attn") or flags["layers"][0]).get("attn")
+    if attn and (mode == "heads"
+                 or (cfg.num_heads * cfg.resolved_head_dim) % m == 0):
         assert attn["wq" if "wq" in attn else "wuq"]
     assert tp_mod.param_shapes(cfg) == tree.map(lambda a: tuple(a.shape),
                                                 full)
+    halves = tree.leaves(sharding._map_leaves(
+        lambda p: isinstance(p, tp_mod.Halves), place,
+        is_leaf=sharding._is_leaf))
+    packed = [i for i, h in enumerate(halves) if h]
+    names = [tree.leaves_with_path(full)[i][0].rsplit("/", 1)[1]
+             for i in packed]
+    assert names == {"zamba2_1p2b": ["w_zx"] * cfg.num_layers,
+                     "xlstm_125m": ["w_up"] * (cfg.num_layers // 2)}.get(
+                         arch, [])
+    for i in packed:
+        a = tree.leaves(full)[i]
+        half = a.shape[1] // 2
+        n = half // m
+        for r, sh in enumerate(shards):
+            assert torch.equal(tree.leaves(sh)[i], torch.cat(
+                [a[:, r * n:(r + 1) * n],
+                 a[:, half + r * n:half + (r + 1) * n]], 1)), (names, r)
 
 
 def test_model_axis_is_off_without_a_mesh_axis():
@@ -319,23 +350,30 @@ def test_model_axis_is_off_without_a_mesh_axis():
 MODEL_ARCHS = ("qwen2_moe_a2p7b", "llama4_scout_17b_a16e", "minicpm3_4b")
 
 
-def _ref_axes(tree_, n_layers):
+def _ref_axes(tree_, cfg_ref):
     """The reference's ``split_params`` axes → the port's layout: each
-    segment's stacked layers one dict each, ``"layers"`` dropped, a
-    ``{"scale"}`` norm dict its axes."""
-    def leaf(x):
+    segment's stacked layers one dict each in stack order (zamba2's
+    ``shared_attn`` placeholders skipped), ``"layers"`` dropped, a
+    ``{"scale"}`` norm dict its axes, zamba2's unstacked ``shared_attn``
+    as it is."""
+    def leaf(x, stacked=True):
         if isinstance(x, dict):
             if set(x) == {"scale"}:
-                return leaf(x["scale"])
-            return {k: leaf(v) for k, v in x.items()}
+                return leaf(x["scale"], stacked)
+            return {k: leaf(v, stacked) for k, v in x.items()}
+        if not stacked:
+            return tuple(x)
         assert x[0] == "layers", x
         return tuple(x[1:])
     out = {"embed": tree_["embedding"]["embed"]}
     if "head" in tree_["embedding"]:
         out["head"] = tree_["embedding"]["head"]
     out["final_norm"] = tree_["final_norm"]["scale"]
-    out["layers"] = [leaf(seg) for seg in tree_["segments"]
-                     for _ in range(n_layers)]
+    if "shared_attn" in tree_:
+        out["shared_attn"] = leaf(tree_["shared_attn"], stacked=False)
+    out["layers"] = [leaf(seg) for (kind, count), seg in zip(
+        RT.block_pattern(cfg_ref), tree_["segments"])
+        if kind != "shared_attn" for _ in range(count)]
     return out
 
 
@@ -353,13 +391,14 @@ def test_param_axes_match_reference(arch):
         return params
     shapes = jax.eval_shape(values, jax.random.PRNGKey(0))
     assert len(seen["axes"]["segments"]) == 1
-    want = _ref_axes(seen["axes"], cfg.num_layers)
+    cfg_ref = ref_configs.get_smoke(arch)
+    want = _ref_axes(seen["axes"], cfg_ref)
     got = tp_mod.param_axes(cfg)
     assert got == want
     want_shapes = _ref_axes(jax.tree.map(
         lambda a: ("layers",) + tuple(a.shape[1:]) if a.ndim > 1
         or a.shape[0] == cfg.num_layers else tuple(a.shape), shapes),
-        cfg.num_layers)
+        cfg_ref)
     want_shapes["embed"] = tuple(shapes["embedding"]["embed"].shape)
     if "head" in want_shapes:
         want_shapes["head"] = tuple(shapes["embedding"]["head"].shape)
@@ -704,3 +743,173 @@ def test_placements_refuse_dims_that_do_not_split():
         tp_mod.placements(cfg, par, sizes)
     assert train_cli.parse_args(["--arch", "qwen2_moe_a2p7b", "--mesh",
                                  "1x4"]).mesh == "1x4"
+
+
+# ---------------------------------------------------------------------------
+# the recurrent decoders on the model axis
+# ---------------------------------------------------------------------------
+RECURRENT_ARCHS = ("zamba2_1p2b", "xlstm_125m")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_param_axes_match_reference_recurrent(arch):
+    """``param_axes`` of the zamba2 and xlstm smoke configs equals the
+    reference's ``split_params`` axes without the stacked ``"layers"``
+    axis, leaf for leaf (zamba2's shared block unstacked in both), and
+    ``param_shapes`` the shapes of the port's ``transformer.init``."""
+    cfg, cfg_ref = configs.get_smoke(arch), ref_configs.get_smoke(arch)
+    seen = {}
+
+    def values(key):
+        params, seen["axes"] = RL.split_params(RT.init(key, cfg_ref))
+        return params
+    jax.eval_shape(values, jax.random.PRNGKey(0))
+    assert tp_mod.param_axes(cfg) == _ref_axes(seen["axes"], cfg_ref)
+    full = transformer.init(cfg, seed=0, device="cpu")
+    assert tp_mod.param_shapes(cfg) == tree.map(lambda a: tuple(a.shape),
+                                                full)
+
+
+def _block_ref(init, cfg_ref, seed):
+    """A reference block's weights as numpy, a ``{"scale"}`` norm dict its
+    scale (the port's layout)."""
+    p, _ = RL.split_params(init(jax.random.PRNGKey(seed), cfg_ref))
+    return {k: np.asarray(v["scale"] if isinstance(v, dict) else v)
+            for k, v in p.items()}
+
+
+@functools.partial(jax.jit, static_argnums=(3, 4))
+def _ref_block_vjp(p, x, dy, cfg, kind):
+    """The reference's training-form recurrent block (``kind``: mamba,
+    mlstm or slstm) and the gradients of its output · dy."""
+    fn = {"mamba": RS.mamba2_apply, "mlstm": RX.mlstm_block_apply,
+          "slstm": RX.slstm_block_apply}[kind]
+    box = {"norm", "hnorm"}
+
+    def apply(p_, x_):
+        p_ = {k: ({"scale": v} if k in box else v) for k, v in p_.items()}
+        return fn(p_, x_, cfg)[0]
+    y, vjp = jax.vjp(apply, p, x)
+    return (y,) + vjp(dy)
+
+
+#: (arch, block kind, the block's key in a layer's placements, layer
+#: index of that kind, the reference's init)
+RECURRENT_BLOCKS = {"mamba": ("zamba2_1p2b", "mamba", 0, RS.mamba2_init),
+                    "mlstm": ("xlstm_125m", None, 0, RX.mlstm_block_init),
+                    "slstm": ("xlstm_125m", None, 1, RX.slstm_block_init)}
+
+
+def _recurrent_shards(kind, m, monkeypatch):
+    """The block ``kind`` on m model ranks (threads) from the reference's
+    weights: (the reference's y, {leaf: gradient}, dx; each rank's (y, dx,
+    {leaf: gradient}, its block, its placements))."""
+    arch, key, layer, init = RECURRENT_BLOCKS[kind]
+    cfg, cfg_ref = configs.get_smoke(arch), ref_configs.get_smoke(arch)
+    p_ref = _block_ref(init, cfg_ref, 11)
+    rng = np.random.default_rng(m + len(kind))
+    x = rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    y_ref, g_ref, dx_ref = _ref_block_vjp(
+        {k: jnp.asarray(v) for k, v in p_ref.items()}, jnp.asarray(x),
+        jnp.asarray(dy), cfg_ref, kind)
+    threads = _Threads(m, monkeypatch)
+    apply = {"mamba": lambda b, x_, tp: ssm.mamba2_apply(
+                 b, x_, cfg, tp=tp)[0],
+             "mlstm": lambda b, x_, tp: xlstm.mlstm_block_apply(
+                 b, x_, cfg, tp=tp)[0],
+             "slstm": lambda b, x_, tp: xlstm.slstm_block_apply(
+                 b, x_, cfg, tp=tp)[0]}[kind]
+
+    def rank(r):
+        tp, place = _axis(cfg, m, r)
+        place = place["layers"][layer]
+        place = place[key] if key else place
+        block = tp_mod.shard_tree({k: _t(v) for k, v in p_ref.items()},
+                                  place, _Mesh((1, m), (0, r)))
+        for v in block.values():
+            v.requires_grad_(True)
+        xr = _t(x).requires_grad_(True)
+        y = apply(block, xr, tp)
+        grads = torch.autograd.grad((y * _t(dy)).sum(),
+                                    [xr] + list(block.values()))
+        return y, grads[0], dict(zip(block, grads[1:])), block, place
+    return (np.asarray(y_ref), jax.tree.map(np.asarray, g_ref),
+            np.asarray(dx_ref), threads.run(rank))
+
+
+def _rank_slice(want, p, m, r):
+    """Rank r's part of a whole leaf ``want`` under placement ``p``."""
+    d = tp_mod._dim(p, "model")
+    if d is None:
+        return want
+    parts = np.split(want, 2, axis=d) if isinstance(p, tp_mod.Halves) \
+        else [want]
+    n = parts[0].shape[d] // m
+    return np.concatenate([np.take(x, range(r * n, (r + 1) * n), axis=d)
+                           for x in parts], axis=d)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("kind", list(RECURRENT_BLOCKS))
+def test_recurrent_shards_match_reference(kind, m, monkeypatch):
+    """A recurrent block's training form on M model ranks (threads, each
+    with its ``shard_tree`` shards) against ``jax.vjp`` of the reference's
+    unsharded block: every rank's y and dx, each sharded leaf's gradient
+    its slice of the reference's (``w_zx`` / ``w_up``: the rank's block of
+    each half), each replicated leaf's gradient the reference's whole
+    (Mamba2's ``w_bc`` / ``conv_b`` / ``conv_c``, the mLSTM's norm and
+    ``if_bias``, the sLSTM's gates, recurrent weights and norms), all
+    within 1e-5 of each tensor's largest entry.  Mamba2: zamba2's smoke
+    block (8 SSM heads of 16: 4 or 2 a rank); mLSTM and sLSTM: xlstm's
+    (inner 128 over the ranks with the cell whole on each; the sLSTM's
+    ffn of 64)."""
+    y_ref, g_ref, dx_ref, results = _recurrent_shards(kind, m, monkeypatch)
+    for r, (y, dx, grads, block, place) in enumerate(results):
+        _close(y, y_ref, f"rank {r} y")
+        _close(dx, dx_ref, f"rank {r} dx")
+        assert any(tp_mod._dim(place[k], "model") is not None
+                   for k in block)
+        for name, g in grads.items():
+            want = _rank_slice(g_ref[name], place[name], m, r)
+            assert g.shape == want.shape, name
+            _close(g, want, f"rank {r} d{name}")
+
+
+def test_mamba_norm_sum_needs_its_backward_all_reduce(monkeypatch):
+    """The gated norm's sum of squares feeds every rank's columns, so its
+    gradient is rank-partial and ``sum_over_model`` all-reduces it in the
+    backward too.  With a forward-only sum ("g" alone) in its place the
+    sharded block's forward still matches the reference but its
+    gradients do not: the check above would fail."""
+    monkeypatch.setattr(tp_mod, "sum_over_model", tp_mod.reduce_from_model)
+    y_ref, g_ref, dx_ref, results = _recurrent_shards("mamba", 2,
+                                                      monkeypatch)
+    y, dx, grads, _, place = results[0]
+    _close(y, y_ref, "y")
+    with pytest.raises(AssertionError):
+        _close(dx, dx_ref, "dx")
+    with pytest.raises(AssertionError):
+        _close(grads["w_zx"], _rank_slice(g_ref["w_zx"], place["w_zx"], 2,
+                                          0), "dw_zx")
+
+
+def test_recurrent_placements_refuse_dims_that_do_not_split():
+    """xlstm-125m at M 3: its inner 1536 splits, the sLSTM's ffn of 1024
+    (sharded under ``"ffn"`` since its d_ff is 0) does not, and the
+    refusal names the first sLSTM layer's leaf (layer 5), before any
+    state is built; zamba2's smoke config at M 16: its 128 inner channels
+    split 16 ways but its 8 SSM heads do not, which would cut a head's 16
+    channels across ranks."""
+    with pytest.raises(ValueError, match=r"layers/5/w_up1 dim 1 of "
+                                         r"\(768, 1024\).*3 ranks"):
+        train_cli.parse_args(["--arch", "xlstm_125m", "--mesh", "1x3"])
+    cfg = configs.get_smoke("zamba2_1p2b")
+    sizes = {"data": 1, "model": 16}
+    par = sharding.derive_parallel(cfg, sizes, ParallelConfig())
+    with pytest.raises(ValueError, match=r"layers/0/mamba/w_zx.*16 ranks.*"
+                                         r"8 SSM heads.*cut across ranks"):
+        tp_mod.placements(cfg, par, sizes)
+    for arch in RECURRENT_ARCHS:
+        assert train_cli.parse_args(["--arch", arch, "--mesh",
+                                     "2x4"]).mesh == "2x4"

@@ -482,10 +482,10 @@ def test_train_cli_without_jax(tmp_path):
 
 
 def test_train_cli_refuses_unported_options():
-    # the model axis runs the dense, MoE and MLA decoders (smollm trains
-    # at 2x2), not yet the recurrent ones
+    # the model axis runs the dense, MoE, MLA and recurrent decoders
+    # (smollm trains at 2x2), not yet the encoder-decoder
     with pytest.raises(NotImplementedError, match="model axis"):
-        train_cli.parse_args(["--arch", "zamba2_1p2b", "--mesh", "2x2"])
+        train_cli.parse_args(["--arch", "whisper_small", "--mesh", "2x2"])
     assert train_cli.parse_args(["--arch", "smollm_360m", "--mesh",
                                  "2x2"]).mesh == "2x2"
     args = train_cli.parse_args(["--arch", "smollm_360m", "--layers", "2"])

@@ -6,7 +6,8 @@ OUT_DIR, no network) and runs every check of
 ``tests/test_torch_distributed.py`` that needs more than one rank, over
 the meshes (2, 2), (1, 4) and (4, 1) built from the same 4 ranks: the
 data-parallel step, and the model axis's steps (``MODEL_AXIS_CASES``: the
-dense, MoE and MLA decoders), its CLI runs and its crash-restarts.  Each
+dense, MoE, MLA and recurrent decoders), its CLI runs and its
+crash-restarts.  Each
 rank writes what it computed to ``OUT_DIR/rank{r}.pt``; the test compares
 those with the reference's (run apart, with 4 forced host devices) and
 with the port's single-process results, which ranks compute here outside
@@ -30,7 +31,8 @@ DP_CASES = ("equal", "unequal", "bf16")
 #: their weights in the inputs: (arch, changes to the config; "moe" changes
 #: its MoEConfig).  qwen2-moe's 6 experts unpadded (E 6) do not split over
 #: 4 ranks, so they run in ffn mode; minicpm3 with 3 heads runs sequence
-#: mode.  The reference's subprocess builds the same configs.
+#: mode; zamba2's 8 SSM heads of 16 and 4 attention heads, xlstm's mLSTM
+#: and sLSTM layer.  The reference's subprocess builds the same configs.
 VARIANTS = {
     "w": ("smollm_360m", {}),
     "wm": ("mistral_nemo_12b", {}),
@@ -39,10 +41,13 @@ VARIANTS = {
     "wl": ("llama4_scout_17b_a16e", {}),
     "wc": ("minicpm3_4b", {}),
     "wc3": ("minicpm3_4b", {"num_heads": 3, "num_kv_heads": 3}),
+    "wz": ("zamba2_1p2b", {}),
+    "wx": ("xlstm_125m", {}),
 }
 #: the rank that takes each variant's unsharded step (smollm's is rank 0's
 #: ``single_equal``)
-SINGLE_RANK = {"wm": 1, "wq": 2, "wq6": 3, "wl": 1, "wc": 2, "wc3": 3}
+SINGLE_RANK = {"wm": 1, "wq": 2, "wq6": 3, "wl": 1, "wc": 2, "wc3": 3,
+               "wz": 0, "wx": 0}
 #: the model axis's one-step checks: name → (the variant, mesh, remat);
 #: smollm's 3 heads shard in sequence mode at M 2 and 4, mistral-nemo's 4
 #: heads in heads mode (its 2 kv heads shard at M 2 and are expanded to
@@ -50,7 +55,11 @@ SINGLE_RANK = {"wm": 1, "wq": 2, "wq6": 3, "wl": 1, "wc": 2, "wc3": 3}
 #: M 4 (the 2 pads on rank 3) and 4 at M 2, its 6 unpadded ones in ffn
 #: mode (24 of 96 columns an expert at M 4); llama4-scout's 4 experts top
 #: 1, its 2 kv heads expanded at M 4 and sharded at M 2; minicpm3's 4 MLA
-#: heads in heads mode, 3 in sequence mode through rows 6m / 7m at offsets
+#: heads in heads mode, 3 in sequence mode through rows 6m / 7m at offsets;
+#: zamba2's Mamba2 blocks over their SSM heads (2 a rank at M 4) with its
+#: shared block in heads mode; xlstm's mLSTM inner channels and sLSTM ffn
+#: (its 2 heads make the mode "sequence" at M 4, but it has no attention;
+#: its mLSTM gathers the cell's inputs)
 MODEL_AXIS_CASES = {
     "smollm_1x4": ("w", (1, 4), "full"),
     "smollm_2x2": ("w", (2, 2), "full"),
@@ -65,6 +74,10 @@ MODEL_AXIS_CASES = {
     "minicpm3_1x4": ("wc", (1, 4), "full"),
     "minicpm3_2x2": ("wc", (2, 2), "full"),
     "minicpm3h3_1x4": ("wc3", (1, 4), "full"),
+    "zamba2_1x4": ("wz", (1, 4), "full"),
+    "zamba2_2x2": ("wz", (2, 2), "full"),
+    "xlstm_1x4": ("wx", (1, 4), "full"),
+    "xlstm_2x2": ("wx", (2, 2), "full"),
 }
 
 
@@ -428,8 +441,7 @@ def model_axis_refusals(out):
     """``--mesh 1x2`` on each family the model axis lacks."""
     from repro_torch.launch import train
     res = {}
-    for arch in ("zamba2_1p2b", "xlstm_125m", "whisper_small",
-                 "llava_next_34b"):
+    for arch in ("whisper_small", "llava_next_34b"):
         try:
             train.parse_args(["--arch", arch, "--smoke", "--device", "cpu",
                               "--mesh", "1x2"])
@@ -534,6 +546,9 @@ def worker(rank, inputs, out_dir):
                           restart=False, saved=True)
     model_axis_cli_checks(out_dir, out, "minicpm3_4b", "_minicpm3",
                           cli=False)
+    model_axis_cli_checks(out_dir, out, "zamba2_1p2b", "_zamba2",
+                          restart=False, saved=True)
+    model_axis_cli_checks(out_dir, out, "xlstm_125m", "_xlstm", cli=False)
     model_axis_refusals(out)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
